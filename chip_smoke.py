@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: builds its kernels, holds each
 against its plain version on the card, serves Llama-2-7B-shaped requests
 (random bf16 weights from a seed, full width) through the port's engine and
-OpenAI server, and prints per-kernel times beside their bounds.
+OpenAI server, LoRA-fine-tunes the same model through ``Trainer``, and
+prints per-kernel times beside their bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -9,20 +10,31 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 Phases (any failure exits non-zero and prints no result):
 1. build the CUDA kernels from ``modal_examples_tpu_torch/csrc``;
-2. each kernel against its plain version at the main path's shapes
-   (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8);
+2. each kernel against its plain version at the main paths' shapes
+   (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8); the flash
+   backward kernels also non-causal, at a ragged S=300 and with a nonzero
+   lse cotangent;
 3. the engine serving 8 requests (prompts of 20..700 tokens, one chunked),
    with the launch counters zeroed just before and read just after: every
-   kernel must have launched, the decode kernel n_layers x decode steps times;
-   then prefill + one decode step against a dense plain forward on the card;
+   serving kernel must have launched, the decode kernel n_layers x decode
+   steps times; then prefill + one decode step against a dense plain forward
+   on the card;
 4. the OpenAI server: one completion, one streamed chat completion;
+   then training: Llama-2-7B (full depth, frozen random bf16 base) with
+   rank-16 LoRA on all seven projections, B=2 x S=512, through
+   ``Trainer.train_step``: the first step's adapter gradients against the
+   same step with ``attn_impl="xla"``; then, counters zeroed, 1 warm-up and
+   4 timed steps in which the flash forward, dQ and dK/dV kernels must each
+   launch exactly n_layers x 5 times;
 5. per-kernel numbers (CUDA events, median of repeats) on earlier lines,
    then the card's name and power limit, then the result line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,8 +50,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # bf16 tolerances against the plain versions (f32 math inside both):
 # flash differs by the final bf16 rounding and summation order; decode also
 # rounds unnormalised probabilities to bf16 where the plain version rounds
-# normalised ones; the scatter is a copy.
-TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0}
+# normalised ones; the scatter is a copy. The flash backward kernels are held
+# as max|grad - plain| / max|plain grad| (f32 math in both, one bf16 rounding
+# of each gradient, sums in another order).
+TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2}
+# training: adapter-gradient cosine between the flash and xla attention paths
+GRAD_COSINE_MIN = 0.999
 
 
 def log(*a) -> None:
@@ -141,6 +157,48 @@ def phase_kernels_vs_plain(fa, pa) -> dict:
         errs["kv_scatter"] = e
         del kp, vp, kq, vq
     return errs
+
+
+def bwd_case(fa, gen, B, Hq, Hkv, S, causal, nonzero_dlse, D=128):
+    """Inputs of the two backward kernels: q/k/v/dO bf16, and lse from the
+    forward kernel, delta = rowsum(dO*O), dlse f32."""
+    q, k, v = flash_case(gen, B, Hq, Hkv, S, S, D)
+    do = rand_bf16(gen, B, Hq, S, D)
+    o, lse = fa.flash_forward_cuda(q, k, v, causal=causal, sm_scale=D**-0.5)
+    dlse = (torch.randn(B, Hq, S, generator=gen, device="cuda") if nonzero_dlse
+            else torch.zeros(B, Hq, S, device="cuda"))
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return (q, k, v, do, lse, delta, dlse), o
+
+
+def rel_err(a, b) -> float:
+    return max_err(a, b) / b.float().abs().max().item()
+
+
+def phase_backward_vs_plain(fa, errs: dict) -> None:
+    """dQ and dK/dV kernels against flash_backward_plain on the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [  # (B, Hq, Hkv, S, causal, nonzero dlse)
+        (2, 32, 32, 512, True, False),   # the training path's shape (MHA)
+        (2, 32, 8, 512, True, False),    # GQA
+        (2, 32, 32, 512, False, False),  # non-causal
+        (2, 8, 2, 300, True, False),     # ragged S
+        (2, 32, 32, 512, True, True),    # lse cotangent
+    ]
+    for B, Hq, Hkv, S, causal, nz in cases:
+        args, o = bwd_case(fa, gen, B, Hq, Hkv, S, causal, nz)
+        dq = fa.flash_bwd_dq_cuda(*args, causal=causal, sm_scale=128**-0.5)
+        dk, dv = fa.flash_bwd_dkv_cuda(*args, causal=causal, sm_scale=128**-0.5)
+        torch.cuda.synchronize()
+        q, k, v, do, lse, _, dlse = args
+        want = fa.flash_backward_plain(q, k, v, o, lse, do, dlse, causal=causal, sm_scale=128**-0.5)
+        rel = [rel_err(g, w) for g, w in zip((dq, dk, dv), want)]
+        log(f"K5/K6 flash bwd B={B} Hq={Hq} Hkv={Hkv} S={S} causal={causal} dlse={'randn' if nz else 0}: "
+            f"max|d-plain|/max|plain| dq={rel[0]:.3g} dk={rel[1]:.3g} dv={rel[2]:.3g}")
+        if not (rel[0] <= TOL["flash_bwd_dq"] and max(rel[1:]) <= TOL["flash_bwd_dkv"]):
+            raise AssertionError(f"flash backward kernels disagree with flash_backward_plain: {rel}")
+        errs["flash_bwd_dq"] = max(errs.get("flash_bwd_dq", 0.0), max_err(dq, want[0]))
+        errs["flash_bwd_dkv"] = max(errs.get("flash_bwd_dkv", 0.0), max_err(dk, want[1]), max_err(dv, want[2]))
 
 
 # -- phase 3 ----------------------------------------------------------------------
@@ -307,6 +365,119 @@ def phase_server(eng, OpenAIServer) -> None:
         srv.stop()  # also stops the engine
 
 
+# -- training ---------------------------------------------------------------------
+
+
+def adapter_grads(loss_fn, adapters, batch, attn_impl):
+    leaves = {k: v.detach().requires_grad_(True) for k, v in adapters["layers"].items()}
+    loss = loss_fn({"layers": leaves}, batch, attn_impl=attn_impl)
+    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def check_grads_against_xla(loss_fn, adapters, batch, targets) -> dict:
+    """The first step's adapter gradients through the flash kernels against
+    the plain xla attention (autograd through dense attention) on the card.
+    b = 0 at init, so every a-gradient is exactly zero on both paths and the
+    b-gradients carry the comparison."""
+    flash = adapter_grads(loss_fn, adapters, batch, "flash")
+    xla = adapter_grads(loss_fn, adapters, batch, "xla")
+    out = {}
+    for t in targets:
+        if flash[f"{t}_a"].abs().max() != 0 or xla[f"{t}_a"].abs().max() != 0:
+            raise AssertionError(f"{t}_a gradient is not zero with b = 0")
+        f, x = flash[f"{t}_b"].float().flatten(), xla[f"{t}_b"].float().flatten()
+        cos = torch.nn.functional.cosine_similarity(f, x, dim=0).item()
+        rel = max_err(f, x) / x.abs().max().item()
+        out[t] = {"cosine": cos, "max_rel_err": rel}
+        log(f"  {t}_b grad flash vs xla: cosine {cos:.6f}, max rel err {rel:.3g}, max|g| {x.abs().max().item():.3g}")
+    worst = min(v["cosine"] for v in out.values())
+    if not worst >= GRAD_COSINE_MIN:
+        raise AssertionError(f"adapter gradients disagree with attn_impl='xla': cosine {worst} < {GRAD_COSINE_MIN}")
+    return out
+
+
+def lora_training_setup(llama, lora, training, params, steps: int):
+    """The training path: Llama-2-7B over the frozen ``params``, rank-16
+    LoRA (alpha 16, scale 1.0) on all seven projections, ``steps`` batches
+    of B=2 x S=512 random tokens (mask of ones), the masked next-token loss
+    through ``llama.forward``. Returns (cfg, lcfg, adapters, batches, loss_fn)."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    lcfg = lora.LoRAConfig(rank=16)
+    B, S = 2, 512
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(0), params, lcfg)
+    for p in params["layers"]:
+        if any(t.requires_grad for t in p.values()):
+            raise AssertionError("the base must be frozen")
+    tok_gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [
+        {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=tok_gen, device="cuda"),
+         "mask": torch.ones((B, S), device="cuda")}
+        for _ in range(steps)
+    ]
+
+    def loss_fn(ad, batch, attn_impl="flash"):
+        logits = llama.forward(params, batch["tokens"], cfg, attn_impl=attn_impl, lora=ad, lora_scale=lcfg.scale)
+        return training.cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
+
+    return cfg, lcfg, adapters, batches, loss_fn
+
+
+def phase_training(fa, llama, lora, training, params) -> dict:
+    steps = 5
+    cfg, lcfg, adapters, batches, loss_fn = lora_training_setup(llama, lora, training, params, steps)
+    B, S = batches[0]["tokens"].shape
+    log(f"training: llama2-7b frozen bf16 base, LoRA rank {lcfg.rank} scale {lcfg.scale} on {lcfg.targets}, "
+        f"{lora.param_count(adapters) / 1e6:.2f}M adapter params, B={B} S={S}")
+    grads = check_grads_against_xla(loss_fn, adapters, batches[0], lcfg.targets)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4))
+    state = trainer.init_state(adapters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    step_s, losses, norms = [], [], []
+    for batch in batches:
+        t0 = time.monotonic()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"training steps: loss {losses}, grad_norm {norms}, step s {step_s}, launches {counts}")
+    want = cfg.n_layers * steps
+    if counts != {k: want for k in counts}:
+        raise AssertionError(f"training launches {counts}: want {want} each ({cfg.n_layers} layers x {steps} steps)")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses}, {norms}")
+    moved = {t: state.params["layers"][f"{t}_b"].abs().max().item() for t in lcfg.targets}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"b adapters did not move off zero: {moved}")
+    if state.step != steps:
+        raise AssertionError(f"state.step {state.step} != {steps}")
+    if not peak < total:
+        raise AssertionError(f"peak memory {peak} not under the card's {total}")
+    step_med = statistics.median(step_s[1:])
+    metrics = {
+        "train_tok_per_s": B * S / step_med,
+        "step_ms_median": 1e3 * step_med,
+        "step_ms": [1e3 * x for x in step_s],
+        "peak_gb": peak / 1e9,
+        "card_gb": total / 1e9,
+        "losses": losses,
+        "launches": counts,
+        "grad_check": grads,
+    }
+    log(f"training metrics: train {metrics['train_tok_per_s']:.1f} tok/s, step {metrics['step_ms_median']:.1f} ms "
+        f"(median of {steps - 1} after 1 warm-up), peak {metrics['peak_gb']:.2f} GB of {metrics['card_gb']:.2f} GB; "
+        f"{json.dumps(metrics)}")
+    return metrics
+
+
 # -- phase 5 ----------------------------------------------------------------------
 
 
@@ -362,22 +533,54 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         plain_ms=time_ms(lambda: pa.scatter_plain(kp, vp, k_all, v_all, page_idx.long(), slot.long())),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=time_ms(library),
     ))
+    # K5/K6 at the training path's shape: B=2, Hq=Hkv=32, S=512, D=128, causal
+    B, H, S, D = 2, 32, 512, 128
+    args, _ = bwd_case(fa, gen, B, H, H, S, True, False)
+    q, k, v, do = args[:4]
+    one_product = 2 * 0.5 * S * S * D * B * H  # FLOPs of one causal S x S x D product, all heads
+    tensor_bytes, row_bytes = B * H * S * D * 2, B * H * S * 4
+    out, lse_l, cq, ck, mq, mk, seed, offset, _ = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, True, False, scale=D**-0.5)
+
+    def library():  # PyTorch's flash-attention backward: dQ, dK and dV in one call
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse_l, cq, ck, mq, mk, 0.0, True, seed, offset, scale=D**-0.5)
+
+    library_ms = time_ms(library)
+    for name, fn, plain, n_products, n_tensors, line in (
+        ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_plain, 3, 5, 244),
+        ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_plain, 4, 6, 278),
+    ):
+        flops = n_products * one_product
+        nbytes = n_tensors * tensor_bytes + 3 * row_bytes  # q,k,v,dO + outputs; lse, delta, dlse
+        rows.append(dict(
+            name=name, source=f"modal_examples_tpu_torch/csrc/{name}.cu",
+            replaces=f"modal_examples_tpu/ops/flash_attention.py:{line}",
+            ms=time_ms(lambda: fn(*args, causal=True, sm_scale=D**-0.5)),
+            plain_ms=time_ms(lambda: plain(*args, causal=True, sm_scale=D**-0.5), reps=5),
+            bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+            bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+            library_ms=library_ms,
+            library_op="aten._scaled_dot_product_flash_attention_backward (dQ, dK and dV together)",
+        ))
+    del args, q, k, v, do, out
     for r in rows:
         r["route"] = "cuda"
         r["launches"] = counts[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return [{k: r[k] for k in keys} for r in rows]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_op")
+    return [{k: r[k] for k in keys if k in r} for r in rows]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the GPU only", file=sys.stderr)
         return 2
-    from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams
-    from modal_examples_tpu_torch.models import layers, llama
+    from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams, training
+    from modal_examples_tpu_torch.models import layers, llama, lora
     from modal_examples_tpu_torch.ops import _build, reference
     from modal_examples_tpu_torch.ops import flash_attention as fa
     from modal_examples_tpu_torch.ops import paged_attention as pa
@@ -396,11 +599,23 @@ def main() -> int:
     _build.build()
     log(f"phase 1 build: {time.monotonic() - t0:.1f}s for {_build.kernel_names()}")
     errs = phase_kernels_vs_plain(fa, pa)
+    phase_backward_vs_plain(fa, errs)
     log(f"phase 2 kernels vs plain (tolerances {TOL}): {errs}")
     eng, metrics = phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams)
     phase_server(eng, OpenAIServer)
     log("phase 4 server: ok")
-    rows = phase_numbers(fa, pa, metrics["launches"], errs)
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_training(fa, llama, lora, training, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_counts, train_counts = metrics["launches"], train["launches"]
+    counts = {**serve_counts, **train_counts, "flash_fwd": serve_counts["flash_fwd"] + train_counts["flash_fwd"]}
+    log(f"launches: serving {serve_counts}, training {train_counts}; kernels line (flash_fwd summed) {counts}")
+    rows = phase_numbers(fa, pa, counts, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

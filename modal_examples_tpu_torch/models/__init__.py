@@ -1,1 +1,1 @@
-"""Llama model of the port."""
+"""Llama model and LoRA adapters of the port."""

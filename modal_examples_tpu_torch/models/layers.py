@@ -2,8 +2,10 @@
 
 Counterpart of the subset of ``modal_examples_tpu/models/layers.py`` that
 Llama uses: ``rms_norm``, ``rotary_embedding`` (with llama-3.1
-``rope_scaling``), ``apply_rope``, the dense ``mm`` and ``swiglu_mlp``.
-Norms and softmax-adjacent math run in f32; products accumulate in f32.
+``rope_scaling``), ``apply_rope``, the dense ``mm``, the LoRA-aware
+projections ``_proj_f32``/``_proj``, ``swiglu_mlp``, ``attention_op`` and
+``causal_self_attention``. Norms and softmax-adjacent math run in f32;
+products accumulate in f32.
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..ops import flash_attention as _flash
+from ..ops import reference
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
@@ -60,22 +65,97 @@ def apply_rope(x, cos, sin):
     return torch.cat([o1, o2], dim=-1).to(x.dtype)
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=float32)`` on the card, which autograd has
+    no formula for. The backward is the VJP of JAX's ``jnp.dot(x, w,
+    preferred_element_type=f32)``: the f32 cotangent rounded to the inputs'
+    dtype, then ``dX = dY @ w^T`` and ``dW = x^T @ dY``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dy @ w.T if ctx.needs_input_grad[0] else None
+        dw = x.T @ dy if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def mm(x, w):
     """``x @ w`` ([..., K] x [K, N]) with f32 accumulation, returned in f32."""
     if x.dtype == torch.float32:
         return x @ w.float()
     flat = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
-        out = torch.mm(flat, w, out_dtype=torch.float32)
+        out = _MmF32.apply(flat, w)
     else:
         out = flat.float() @ w.float()
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def swiglu_mlp(params: dict, x):
+def _proj_f32(x, w, name: str, lora: dict | None, lora_scale: float):
+    """``x @ w`` in f32 accumulation, plus the LoRA low-rank delta when an
+    adapter targets ``name``. Returns f32 (the caller decides when to round)."""
+    out = mm(x, w)
+    if lora is not None and f"{name}_a" in lora:
+        from .lora import delta
+
+        out = out + delta(x, lora[f"{name}_a"], lora[f"{name}_b"], lora_scale)
+    return out
+
+
+def _proj(x, w, name: str, lora: dict | None, lora_scale: float):
+    return _proj_f32(x, w, name, lora, lora_scale).to(x.dtype)
+
+
+def swiglu_mlp(params: dict, x, lora: dict | None = None, lora_scale: float = 1.0):
     """silu(x W_gate) * (x W_up) W_down, with gate/up kept in f32 through the
     silu product (one rounding before the down projection)."""
-    gate = mm(x, params["gate"])
-    up = mm(x, params["up"])
+    gate = _proj_f32(x, params["gate"], "gate", lora, lora_scale)
+    up = _proj_f32(x, params["up"], "up", lora, lora_scale)
     h = (F.silu(gate) * up).to(x.dtype)
-    return mm(h, params["down"]).to(x.dtype)
+    return _proj(h, params["down"], "down", lora, lora_scale)
+
+
+def attention_op(q, k, v, causal: bool, impl: str = "flash"):
+    """``flash``: the flash kernels (forward and backward); ``xla``: the plain
+    dense attention, differentiated by autograd (the JAX name is kept)."""
+    if impl == "flash":
+        return _flash.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    if impl == "xla":
+        return reference.attention(q, k, v, causal=causal)
+    raise ValueError(f"attn_impl must be 'flash' or 'xla'; got {impl!r}")
+
+
+def causal_self_attention(
+    params: dict,
+    x,  # [B, S, E]
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    cos=None,
+    sin=None,
+    causal: bool = True,
+    attn_impl: str = "flash",
+    lora: dict | None = None,
+    lora_scale: float = 1.0,
+):
+    """Projection + (optional RoPE) + attention + output projection."""
+    B, S, E = x.shape
+    D = E // n_heads
+    q = _proj(x, params["wq"], "wq", lora, lora_scale)
+    k = _proj(x, params["wk"], "wk", lora, lora_scale)
+    v = _proj(x, params["wv"], "wv", lora, lora_scale)
+    q = q.reshape(B, S, n_heads, D).transpose(1, 2)
+    k = k.reshape(B, S, n_kv_heads, D).transpose(1, 2)
+    v = v.reshape(B, S, n_kv_heads, D).transpose(1, 2)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    o = attention_op(q, k, v, causal, attn_impl)
+    o = o.transpose(1, 2).reshape(B, S, E)
+    return _proj(o, params["wo"], "wo", lora, lora_scale)

@@ -1,8 +1,10 @@
-"""Llama-family decoder for serving: prefill, chunked prefill and paged decode.
+"""Llama-family decoder: the training forward, prefill, chunked prefill and
+paged decode.
 
 Counterpart of ``modal_examples_tpu/models/llama.py`` (``LlamaConfig``,
-``init_params``, ``prefill``, ``prefill_chunk``, ``decode_step``, a reduced
-``paged_impl_plan``). Architecture: RMSNorm, RoPE, GQA, SwiGLU.
+``init_params``, ``forward`` for dense models, ``prefill``, ``prefill_chunk``,
+``decode_step``, a reduced ``paged_impl_plan``). Architecture: RMSNorm,
+RoPE, GQA, SwiGLU.
 
 Parameters are a plain dict: ``embed`` [V, D], ``layers`` (a list of per-layer
 dicts, weights [in, out] as in the JAX tree), ``final_norm``, and ``lm_head``
@@ -203,6 +205,54 @@ def _rope(cfg: LlamaConfig, positions):
         positions, cfg.head_dim, cfg.rope_theta,
         rope_scaling=dict(cfg.rope_scaling) if cfg.rope_scaling else None,
     )
+
+
+# -- forward (training) ---------------------------------------------------------
+
+
+def forward(
+    params: dict,
+    tokens,  # [B, S] integer
+    cfg: LlamaConfig,
+    *,
+    positions=None,  # [B, S] (defaults to arange)
+    attn_impl: str = "flash",
+    lora: dict | None = None,  # adapters (models.lora), applied on the fly
+    lora_scale: float = 1.0,
+    return_aux: bool = False,
+    moe_impl: str = "nodrop",
+    input_embeds=None,
+):  # [B, S, vocab] f32
+    """Full-sequence forward with causal attention (flash kernels or the
+    plain ``xla`` attention), differentiable in the adapters and the base.
+    Dense models only: MoE (``return_aux``, ``moe_impl``) and
+    ``input_embeds`` wait for ROADMAP A3."""
+    if return_aux or moe_impl != "nodrop" or input_embeds is not None:
+        raise NotImplementedError("MoE and multimodal forward are not ported yet (ROADMAP A3)")
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = params["embed"][tokens]
+    cos, sin = _rope(cfg, positions)
+    n = len(params["layers"])
+    if lora is None:
+        per_layer = [None] * n
+    else:
+        unstacked = {k: t.unbind(0) for k, t in lora["layers"].items()}
+        per_layer = [{k: ts[li] for k, ts in unstacked.items()} for li in range(n)]
+    for layer, llayer in zip(params["layers"], per_layer):
+        h = layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        x = x + layers.causal_self_attention(
+            layer, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, cos=cos, sin=sin,
+            causal=True, attn_impl=attn_impl, lora=llayer, lora_scale=lora_scale,
+        )
+        h = layers.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        x = x + layers.swiglu_mlp(layer, h, lora=llayer, lora_scale=lora_scale)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return layers.mm(x, _head(params, cfg))
+
+
+# -- serving ----------------------------------------------------------------------
 
 
 def _qkv(layer: dict, x, cfg: LlamaConfig, cos, sin):

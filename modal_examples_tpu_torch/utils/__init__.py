@@ -1,1 +1,1 @@
-"""Host-side utilities: device resolution, tokenizers."""
+"""Host-side utilities: device resolution, tokenizers, nested-container (pytree) helpers, run logging."""

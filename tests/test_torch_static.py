@@ -53,7 +53,14 @@ def _launches(fn: ast.FunctionDef, kernel: str) -> bool:
 
 
 def test_there_are_kernels():
-    assert KERNELS == ["flash_fwd", "kv_scatter", "paged_decode"]
+    assert KERNELS == ["flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "kv_scatter", "paged_decode"]
+
+
+def test_import_scan_reaches_the_training_path():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("training/trainer.py", "training/checkpoints.py", "training/resilience.py",
+                "models/lora.py", "utils/tracking.py", "utils/tree.py"):
+        assert mod in names
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
