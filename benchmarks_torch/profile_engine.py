@@ -6,14 +6,17 @@ by hand in this thread, and profiles with ``torch.profiler``: the tick that
 admits and prefills 8 prompts (one chunked) and then a tick that runs one
 decode block over 8 live slots. For each it prints the host wall time, the
 device busy time (sum of kernel times on the one stream), the device idle
-share, and the kernels by total device time. Run from the repository root
-on one GPU:
+share, and the kernels by total device time. With ``--int8`` the engine
+serves int8 weights (``quantization="int8"``, drawn from the same seed and
+quantized layer by layer) over an int8 KV cache. Run from the repository
+root on one GPU:
 
-    python3 benchmarks_torch/profile_engine.py
+    python3 benchmarks_torch/profile_engine.py [--int8]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -30,7 +33,13 @@ from chip_smoke import make_requests  # noqa: E402
 from modal_examples_tpu_torch import LLMEngine, SamplingParams  # noqa: E402
 from modal_examples_tpu_torch.models import llama  # noqa: E402
 
-KERNEL_NAMES = {"flash_fwd_kernel": "flash_fwd", "paged_decode_kernel": "paged_decode", "kv_scatter_kernel": "kv_scatter"}
+# fragments of the port's kernel names -> their kernels (the int8 matmul is
+# its main kernel plus, when K is split, its reduction pass)
+KERNEL_NAMES = {
+    "flash_fwd_kernel": "flash_fwd", "paged_decode_kernel": "paged_decode", "kv_scatter_kernel": "kv_scatter",
+    "paged_decode_int8_kernel": "paged_decode_int8", "kv_scatter_int8_kernel": "kv_scatter_int8",
+    "qmm_kernel": "quantized_matmul", "qmm_reduce_kernel": "quantized_matmul",
+}
 
 
 def _dev_us(evt) -> float:
@@ -68,6 +77,9 @@ def profiled_tick(eng: LLMEngine, name: str) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--int8", action="store_true", help="int8 weights and an int8 KV cache")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_engine: needs a CUDA device", file=sys.stderr)
         return 2
@@ -76,8 +88,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     cfg = llama.LlamaConfig.llama2_7b()
-    eng = LLMEngine(cfg, llama.init_params(cfg, seed=0, device="cuda"), max_slots=8, max_model_len=1024,
-                    prefill_buckets=(128, 256, 512), prefill_batch=4, decode_block=8, seed=0, device="cuda")
+    quant = dict(quantization="int8", kv_dtype="int8") if args.int8 else {}
+    eng = LLMEngine(cfg, max_slots=8, max_model_len=1024, prefill_buckets=(128, 256, 512), prefill_batch=4,
+                    decode_block=8, seed=0, device="cuda", **quant)
     # warm up outside the profile: one request through prefill and decode
     eng.submit("warm up", SamplingParams(max_tokens=10, temperature=0.0))
     while len(eng.waiting) or any(not s.free for s in eng.slots):
@@ -88,7 +101,8 @@ def main() -> int:
     live = sum(not s.free for s in eng.slots)
     for r in results:
         print(json.dumps(r), flush=True)
-    print(json.dumps({"card": card, "live_slots_after": live, "requests": len(reqs), "decode_block": eng.decode_block}))
+    print(json.dumps({"card": card, "live_slots_after": live, "requests": len(reqs), "decode_block": eng.decode_block,
+                      "plan": eng.impl_plan}))
     return 0
 
 

@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: builds its kernels, holds each
 against its plain version on the card, serves Llama-2-7B-shaped requests
 (random bf16 weights from a seed, full width) through the port's engine and
-OpenAI server, LoRA-fine-tunes the same model through ``Trainer``, and
-prints per-kernel times beside their bounds.
+OpenAI server, serves them again with int8 weights and an int8 KV cache,
+LoRA-fine-tunes the same model through ``Trainer``, and prints per-kernel
+times beside their bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -13,13 +14,23 @@ Phases (any failure exits non-zero and prints no result):
 2. each kernel against its plain version at the main paths' shapes
    (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8); the flash
    backward kernels also non-causal, at a ragged S=300 and with a nonzero
-   lse cotangent;
+   lse cotangent; the int8 matmul at M = 8, 2048 and 300 over every weight
+   shape of the model and a ragged 4000 x 11000; the int8 decode at Hkv=32
+   and 8; the int8 scatter bitwise at 8 and 2048 tokens;
 3. the engine serving 8 requests (prompts of 20..700 tokens, one chunked),
    with the launch counters zeroed just before and read just after: every
    serving kernel must have launched, the decode kernel n_layers x decode
    steps times; then prefill + one decode step against a dense plain forward
    on the card;
 4. the OpenAI server: one completion, one streamed chat completion;
+   then int8 serving: the same weights quantized (``quantize_llama``) in an
+   engine with an int8 KV cache serving the same 8 requests, counters
+   zeroed: the int8 decode kernel n_layers x decode steps times, no bf16
+   decode or scatter launch, the int8 scatter at least once, the int8
+   matmul a multiple of 7 x n_layers + 1 and at least that many per decode
+   step; weights and cache at most 0.52 of their bf16 bytes; prefill + one
+   decode step against a dense plain forward over the same int8 weights
+   and the same int8 cache rows;
    then training: Llama-2-7B (full depth, frozen random bf16 base) with
    rank-16 LoRA on all seven projections, B=2 x S=512, through
    ``Trainer.train_step``: the first step's adapter gradients against the
@@ -33,6 +44,7 @@ Phases (any failure exits non-zero and prints no result):
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -53,7 +65,15 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # normalised ones; the scatter is a copy. The flash backward kernels are held
 # as max|grad - plain| / max|plain grad| (f32 math in both, one bf16 rounding
 # of each gradient, sums in another order).
-TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2}
+TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2,
+       "quantized_matmul": 1e-3, "paged_decode_int8": 6e-2, "kv_scatter_int8": 0.0}
+# the int8 matmul is held as max|out - plain| / max|plain|: its products are
+# exact (int8 and bf16 values, f32 sums), only the summation order differs.
+# The int8 decode has K2's numerics over the same dequantized values; the int8
+# scatter must be bitwise (same IEEE divisions, round half to even).
+# (K, N) of every int8 weight of Llama-2-7B (wq/wk/wv/wo, gate/up, down,
+# lm_head) and one ragged shape
+QMM_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (4000, 11000)]
 # training: adapter-gradient cosine between the flash and xla attention paths
 GRAD_COSINE_MIN = 0.999
 
@@ -92,15 +112,27 @@ def flash_case(gen, B, Hq, Hkv, S, Skv, D=128):
     return rand_bf16(gen, B, Hq, S, D), rand_bf16(gen, B, Hkv, Skv, D), rand_bf16(gen, B, Hkv, Skv, D)
 
 
-def decode_case(gen, B, Hq, Hkv, L, D=128, ps=16, pps=64):
-    """Ragged prefix lengths 0..1000 over shuffled pages of the full cache."""
+def int8_pages(gen, *shape):
+    """A random int8 cache: int8 rows and positive f32 scales."""
+    from modal_examples_tpu_torch.ops.kv_quant import QuantizedKV
+
+    return QuantizedKV(
+        data=torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8),
+        scale=torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 1e-3,
+    )
+
+
+def decode_case(gen, B, Hq, Hkv, L, D=128, ps=16, pps=64, int8=False):
+    """Ragged prefix lengths 0..1000 over shuffled pages of the full cache
+    (bf16 pages, or int8 pages with their scales)."""
     P = 1 + B * pps
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(1))[: B * pps] + 1
     lens = torch.tensor([0, 1, 15, 16, 17, 333, 777, 1000][:B], dtype=torch.int32)
+    pages = int8_pages if int8 else rand_bf16
     return dict(
         q=rand_bf16(gen, B, Hq, D),
-        k_pages=rand_bf16(gen, L, P, ps, Hkv, D),
-        v_pages=rand_bf16(gen, L, P, ps, Hkv, D),
+        k_pages=pages(gen, L, P, ps, Hkv, D),
+        v_pages=pages(gen, L, P, ps, Hkv, D),
         page_tables=perm.reshape(B, pps).to(torch.int32).cuda(),
         prefix_lens=lens.cuda(),
         k_new=rand_bf16(gen, B, Hkv, D),
@@ -201,6 +233,53 @@ def phase_backward_vs_plain(fa, errs: dict) -> None:
         errs["flash_bwd_dkv"] = max(errs.get("flash_bwd_dkv", 0.0), max_err(dk, want[1]), max_err(dv, want[2]))
 
 
+def phase_int8_kernels_vs_plain(pa, errs: dict) -> None:
+    """The int8 matmul, int8 decode and int8 scatter kernels against their
+    plain versions on the same inputs."""
+    from modal_examples_tpu_torch.models.quantize import quantize_weight
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+    from modal_examples_tpu_torch.ops.kv_quant import QuantizedKV
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for K, N in QMM_SHAPES:
+        w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda"))
+        for M in (8, 2048, 300):  # decode, the prefill batch 4 x 512, ragged
+            x = rand_bf16(gen, M, K)
+            out = qmm.qmm_cuda(x, w.q, w.scale)
+            torch.cuda.synchronize()
+            want = qmm.qmm_plain(x, w.q, w.scale)
+            rel = rel_err(out, want)
+            log(f"K7 int8 matmul M={M} K={K} N={N}: max|out-plain|/max|plain|={rel:.3g}")
+            if not rel <= TOL["quantized_matmul"]:
+                raise AssertionError(f"int8 matmul kernel disagrees with its plain version: {rel}")
+            errs["quantized_matmul"] = max(errs.get("quantized_matmul", 0.0), max_err(out, want))
+        del w
+    for B, Hq, Hkv in [(8, 32, 32), (8, 32, 8)]:
+        c = decode_case(gen, B, Hq, Hkv, L=4, int8=True)
+        args = [c[n] for n in ("q", "k_pages", "v_pages")] + [2] + [c[n] for n in ("page_tables", "prefix_lens", "k_new", "v_new")]
+        o = pa.paged_decode_int8_cuda(*args, sm_scale=128**-0.5)
+        torch.cuda.synchronize()
+        e = max_err(o, pa.paged_decode_int8_plain(*args, sm_scale=128**-0.5))
+        log(f"K2-int8 decode B={B} Hq={Hq} Hkv={Hkv} layer=2 prefix 0..1000: max|o-plain|={e:.3g}")
+        if not e <= TOL["paged_decode_int8"]:
+            raise AssertionError(f"int8 decode kernel disagrees with its plain version: {e}")
+        errs["paged_decode_int8"] = max(errs.get("paged_decode_int8", 0.0), e)
+    for L, N, P in [(32, 8, 513), (32, 2048, 513)]:  # decode step; prefill batch 4 x 512
+        k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
+        kp, vp = int8_pages(gen, L, P, 16, 32, 128), int8_pages(gen, L, P, 16, 32, 128)
+        kq, vq = (QuantizedKV(p.data.clone(), p.scale.clone()) for p in (kp, vp))
+        pa.scatter_int8_cuda(kp, vp, k_all, v_all, page_idx, slot)
+        torch.cuda.synchronize()
+        pa.scatter_int8_plain(kq, vq, k_all, v_all, page_idx.long(), slot.long())
+        pairs = [(kp.data, kq.data), (kp.scale, kq.scale), (vp.data, vq.data), (vp.scale, vq.scale)]
+        e = max(max_err(a, b) for a, b in pairs)
+        log(f"K3-int8 scatter L={L} N={N} P={P}: max|pages-plain| (int8 data and f32 scales)={e}")
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"int8 scatter kernel is not bitwise equal to its plain version: {e}")
+        errs["kv_scatter_int8"] = e
+        del kp, vp, kq, vq, pairs
+
+
 # -- phase 3 ----------------------------------------------------------------------
 
 
@@ -237,9 +316,31 @@ def check_finish(req) -> None:
         )
 
 
-def dense_reference_logits(params, cfg, tokens, layers, reference):
+def plain_mm(x, w, layers):
+    """``layers.mm`` with no kernel: ``qmm_plain`` for an int8 weight."""
+    from modal_examples_tpu_torch.models.quantize import QuantizedWeight
+    from modal_examples_tpu_torch.ops.quantized_matmul import qmm_plain
+
+    if isinstance(w, QuantizedWeight):
+        return qmm_plain(x.reshape(-1, x.shape[-1]), w.q, w.scale).reshape(*x.shape[:-1], w.shape[-1])
+    return layers.mm(x, w)
+
+
+def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int = 0):
     """Last-position logits of a dense causal forward built from the plain
-    attention twin (no kernel): the reference for the served path."""
+    versions (no kernel): the reference for the served path. Int8 weights go
+    through ``qmm_plain``; K and V at the first ``n_cached`` positions (those
+    the served path reads back from an int8 cache) go through
+    ``dequantize_kv(quantize_kv(.))``."""
+    import torch.nn.functional as F
+
+    from modal_examples_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
+
+    def cached(t):  # [1, H, S, D]
+        if not n_cached:
+            return t
+        return torch.cat([dequantize_kv(quantize_kv(t[:, :, :n_cached]), t.dtype), t[:, :, n_cached:]], dim=2)
+
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None]
     cos, sin = layers.rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
@@ -247,19 +348,22 @@ def dense_reference_logits(params, cfg, tokens, layers, reference):
     D = cfg.head_dim
     for layer in params["layers"]:
         h = layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = layers.mm(h, layer["wq"]).to(x.dtype).view(1, S, cfg.n_heads, D).transpose(1, 2)
-        k = layers.mm(h, layer["wk"]).to(x.dtype).view(1, S, cfg.n_kv_heads, D).transpose(1, 2)
-        v = layers.mm(h, layer["wv"]).to(x.dtype).view(1, S, cfg.n_kv_heads, D).transpose(1, 2)
-        o = reference.attention(layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v)
-        x = x + layers.mm(o.transpose(1, 2).reshape(1, S, -1), layer["wo"]).to(x.dtype)
-        x = x + layers.swiglu_mlp(layer, layers.rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+        q = plain_mm(h, layer["wq"], layers).to(x.dtype).view(1, S, cfg.n_heads, D).transpose(1, 2)
+        k = plain_mm(h, layer["wk"], layers).to(x.dtype).view(1, S, cfg.n_kv_heads, D).transpose(1, 2)
+        v = plain_mm(h, layer["wv"], layers).to(x.dtype).view(1, S, cfg.n_kv_heads, D).transpose(1, 2)
+        o = reference.attention(layers.apply_rope(q, cos, sin), cached(layers.apply_rope(k, cos, sin)), cached(v))
+        x = x + plain_mm(o.transpose(1, 2).reshape(1, S, -1), layer["wo"], layers).to(x.dtype)
+        h = layers.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        gate, up = plain_mm(h, layer["gate"], layers), plain_mm(h, layer["up"], layers)
+        x = x + plain_mm((F.silu(gate) * up).to(x.dtype), layer["down"], layers).to(x.dtype)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.mm(x[:, -1], params["lm_head"])
+    return plain_mm(x[:, -1], params["lm_head"], layers)
 
 
-def check_against_dense(eng, llama, layers, reference) -> dict:
+def check_against_dense(eng, llama, layers, reference):
     """Prefill 99 tokens + one decode step through the kernels (own small
-    cache) against the dense plain forward of the same 100 tokens."""
+    cache of the engine's kv dtype) against the dense plain forward of the
+    same 100 tokens. Returns (errors, prefill logits, tokens)."""
     from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
 
     cfg, params = eng.cfg, eng.params
@@ -267,7 +371,7 @@ def check_against_dense(eng, llama, layers, reference) -> dict:
     toks = torch.randint(0, 256, (1, 100), generator=gen, device="cuda", dtype=torch.int32)
     cache = PagedKVCache.create(
         n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        n_pages=9, page_size=16, device="cuda",
+        n_pages=9, page_size=16, kv_dtype=eng.cache.kv_dtype, device="cuda",
     )
     tables = torch.arange(1, 9, device="cuda", dtype=torch.int32)[None]
     padded = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
@@ -278,8 +382,10 @@ def check_against_dense(eng, llama, layers, reference) -> dict:
                                   cache.k_pages, cache.v_pages, tables,
                                   torch.tensor([True], device="cuda"), cfg)
     out = {}
-    for name, got, n in (("prefill", pre, 99), ("decode", dec, 100)):
-        ref = dense_reference_logits(params, cfg, toks[:, :n], layers, reference)
+    # prefill attends over its own K/V before they are written; the decode
+    # step reads the 99 cached positions back from the cache
+    for name, got, n, n_cached in (("prefill", pre, 99, 0), ("decode", dec, 100, 99 if cache.quantized else 0)):
+        ref = dense_reference_logits(params, cfg, toks[:, :n], layers, reference, n_cached)
         if got.shape != (1, cfg.vocab_size) or not torch.isfinite(got).all():
             raise AssertionError(f"{name} logits malformed: {tuple(got.shape)}")
         rel = max_err(got, ref) / ref.abs().max().item()
@@ -289,7 +395,7 @@ def check_against_dense(eng, llama, layers, reference) -> dict:
         if not (rel < 5e-2 and cos > 0.999):
             raise AssertionError(f"{name} logits disagree with the dense plain forward")
         out[name] = {"max_rel_err": rel, "cosine": cos}
-    return out
+    return out, pre, toks
 
 
 def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
@@ -333,7 +439,7 @@ def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
         "launches": counts,
     }
     log(f"engine metrics: {json.dumps(metrics)}")
-    metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)
+    metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
     return eng, metrics
 
 
@@ -363,6 +469,81 @@ def phase_server(eng, OpenAIServer) -> None:
         log(f"server streamed /v1/chat/completions: {len(events) - 3} content chunks, usage {usage}")
     finally:
         srv.stop()  # also stops the engine
+
+
+# -- int8 serving -------------------------------------------------------------------
+
+
+def phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params, bf16_cache_bytes):
+    """The same bf16 weights quantized by ``quantize_llama`` (passed to the
+    engine with ``quantization=None``), an int8 KV cache, the same 8
+    requests; counters zeroed just before the burst and read just after."""
+    from modal_examples_tpu_torch.models import quantize
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.monotonic()
+    qparams = quantize.quantize_llama(params)
+    torch.cuda.synchronize()
+    w_ratio = quantize.param_bytes(qparams) / quantize.param_bytes(params)
+    eng = LLMEngine(cfg, qparams, quantization=None, kv_dtype="int8", max_slots=8, max_model_len=1024,
+                    prefill_buckets=(128, 256, 512), prefill_batch=4, decode_block=8, seed=0, device="cuda")
+    c_ratio = eng.cache.bytes() / bf16_cache_bytes
+    log(f"int8: quantize_llama {time.monotonic() - t0:.1f}s; weights {quantize.param_bytes(qparams) / 1e9:.3f} GB "
+        f"({w_ratio:.4f} of bf16), cache {eng.cache.bytes() / 1e9:.3f} GB ({c_ratio:.4f} of bf16), plan {eng.impl_plan}")
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    fa.launches = pa.decode_launches = pa.scatter_launches = pa.decode_int8_launches = pa.scatter_int8_launches = 0
+    qmm.qmm_launches = 0
+    steps0 = eng.stats.steps
+    dec_s0, dec_t0 = eng.stats.decode_seconds, eng.stats.decode_tokens
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, sp) for p, sp in make_requests(SamplingParams)]
+    texts = ["".join(eng.stream(r)) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = {"flash_fwd": fa.launches, "quantized_matmul": qmm.qmm_launches,
+              "paged_decode_int8": pa.decode_int8_launches, "kv_scatter_int8": pa.scatter_int8_launches,
+              "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
+    steps = eng.stats.steps - steps0
+    log(f"int8 engine: {len(reqs)} requests in {wall:.2f}s, decode steps {steps}, launches {counts}")
+    for r, t in zip(reqs, texts):
+        check_finish(r)
+        log(f"  {r.request_id}: prompt {len(r.prompt_tokens)} tok, {r.finish_reason}, "
+            f"{r.n_generated} generated, ttft {r.first_token_at - r.created:.3f}s, {len(t)} chars")
+    per_pass = 7 * cfg.n_layers + 1  # seven projections a layer, then lm_head
+    if counts["paged_decode_int8"] != cfg.n_layers * steps:
+        raise AssertionError(f"int8 decode launches {counts['paged_decode_int8']} != {cfg.n_layers} x {steps} steps")
+    if counts["paged_decode"] or counts["kv_scatter"]:
+        raise AssertionError(f"the int8 path launched a bf16 cache kernel: {counts}")
+    if counts["kv_scatter_int8"] < 1 or counts["flash_fwd"] < 1:
+        raise AssertionError(f"a kernel of the int8 path never launched: {counts}")
+    if counts["quantized_matmul"] % per_pass or counts["quantized_matmul"] < per_pass * steps:
+        raise AssertionError(f"int8 matmul launches {counts['quantized_matmul']}: want a multiple of {per_pass}, "
+                             f"at least {per_pass} x {steps} steps")
+    if eng.cache.allocator.available != eng.cache.n_pages - 1:
+        raise AssertionError("pages not all returned after the requests finished")
+    if not (w_ratio <= 0.52 and c_ratio <= 0.52):
+        raise AssertionError(f"int8 bytes over 0.52 of bf16: weights {w_ratio}, cache {c_ratio}")
+    dec_tokens = eng.stats.decode_tokens - dec_t0
+    metrics = {
+        "decode_tok_per_s": dec_tokens / (eng.stats.decode_seconds - dec_s0),
+        "ttft_s_median": statistics.median(r.first_token_at - r.created for r in reqs),
+        "wall_s": wall,
+        "decode_steps": steps,
+        "launches": counts,
+        "weight_gb": quantize.param_bytes(qparams) / 1e9,
+        "weight_ratio": w_ratio,
+        "cache_gb": eng.cache.bytes() / 1e9,
+        "cache_ratio": c_ratio,
+    }
+    log(f"int8 engine metrics: {json.dumps(metrics)}")
+    metrics["dense_check"], pre, toks = check_against_dense(eng, llama, layers, reference)
+    bf16_ref = dense_reference_logits(params, cfg, toks[:, :99], layers, reference)
+    metrics["prefill_cosine_vs_bf16_model"] = torch.nn.functional.cosine_similarity(pre.float(), bf16_ref.float()).item()
+    log(f"int8 prefill logits vs the bf16 model's dense forward (logged, not held to a bound): cosine "
+        f"{metrics['prefill_cosine_vs_bf16_model']:.6f}, argmax {int(pre.argmax())} vs {int(bf16_ref.argmax())}")
+    eng.stop()
+    return metrics
 
 
 # -- training ---------------------------------------------------------------------
@@ -504,14 +685,15 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
     # K2 at a decode step of the engine's shape: 8 slots, ragged prefixes 0..1000
     c = decode_case(gen, 8, 32, 32, L=32)
     args = [c[n] for n in ("q", "k_pages", "v_pages")] + [5] + [c[n] for n in ("page_tables", "prefix_lens", "k_new", "v_new")]
-    pages_read = sum(-(-int(n) // 16) for n in c["prefix_lens"].tolist())
-    nbytes = 2 * pages_read * 16 * 32 * 128 * 2 + 4 * 8 * 32 * 128 * 2  # K+V pages; q, o, k_new, v_new
+    rows_read = int(c["prefix_lens"].sum())  # the kernel reads each prefix's rows, not whole pages
+    nbytes = 2 * rows_read * 32 * 128 * 2 + 4 * 8 * 32 * 128 * 2  # K+V rows; q, o, k_new, v_new
     rows.append(dict(
         name="paged_decode", source="modal_examples_tpu_torch/csrc/paged_decode.cu",
         replaces="modal_examples_tpu/ops/paged_attention.py:284",
         ms=time_ms(lambda: pa.paged_decode_cuda(*args, sm_scale=D**-0.5)),
         plain_ms=time_ms(lambda: pa.paged_decode_plain(*args, sm_scale=D**-0.5), reps=5),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None,
+        library_op="none: no PyTorch call attends over a paged cache",
     ))
     del c, args
     # K3 at the decode step: 8 tokens x 32 layers into the engine's cache shape
@@ -564,6 +746,7 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
             library_op="aten._scaled_dot_product_flash_attention_backward (dQ, dK and dV together)",
         ))
     del args, q, k, v, do, out
+    rows += int8_rows(pa, gen)
     for r in rows:
         r["route"] = "cuda"
         r["launches"] = counts[r["name"]]
@@ -571,8 +754,107 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_op")
+            "bound_by", "library_ms", "library_op", "bf16_mm_ms", "shape", "prefill")
     return [{k: r[k] for k in keys if k in r} for r in rows]
+
+
+def cycling(fns):
+    """One callable that calls ``fns`` in turn: timed over weight copies that
+    together exceed the 50 MB L2, so each launch streams its weight from HBM
+    as a decode step does."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def int8_library(w):
+    """One PyTorch call computing the int8 matmul's function on ``w``:
+    ``torch._weight_int8pack_mm`` (weight [N, K], bf16 scales) where this
+    build has it for CUDA, else ``torch.mm`` over a bf16 weight dequantized
+    beforehand. Returns (fn of x, name)."""
+    from modal_examples_tpu_torch.models.quantize import dequantize_weight
+
+    wt, s = w.q.T.contiguous(), w.scale.reshape(-1).to(torch.bfloat16)
+    probe = torch.zeros((8, w.q.shape[0]), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch._weight_int8pack_mm(probe, wt, s)
+        torch.cuda.synchronize()
+        return (lambda x: torch._weight_int8pack_mm(x, wt, s)), "torch._weight_int8pack_mm (scales rounded to bf16, bf16 out)"
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log(f"library probe: torch._weight_int8pack_mm has no CUDA path here ({type(e).__name__}: {str(e)[:160]})")
+    wd = dequantize_weight(w, torch.bfloat16)
+    return (lambda x: torch.mm(x, wd)), "torch.mm over a bf16 weight dequantized beforehand"
+
+
+def int8_rows(pa, gen) -> list:
+    """Phase 5 rows of the int8 kernels: K7 at the decode step's and the
+    prefill batch's gate/up shape, K2-int8 at K2's shape, K3-int8 at a decode
+    step's 8 tokens x 32 layers."""
+    from modal_examples_tpu_torch.models.quantize import dequantize_weight, quantize_weight
+    from modal_examples_tpu_torch.ops import kv_quant as kvq
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+
+    rows = []
+    K, N = 4096, 11008
+    weights = [quantize_weight(torch.randn(K, N, generator=gen, device="cuda")) for _ in range(4)]  # 180 MB of int8
+    libs = [int8_library(w) for w in weights]
+    # a second yardstick: the bf16 GEMM (cuBLAS) the bf16 path runs on the same shape
+    bf16_weights = [dequantize_weight(w, torch.bfloat16) for w in weights]
+    timed = {}
+    for label, M in (("decode", 8), ("prefill", 2048)):
+        x = rand_bf16(gen, M, K)
+        flops, nbytes = 2 * M * N * K, M * K * 2 + K * N + N * 4 + M * N * 4  # x, q, scale in; f32 out
+        timed[label] = dict(
+            shape=f"M={M} K={K} N={N}",
+            ms=time_ms(cycling([lambda w=w: qmm.qmm_cuda(x, w.q, w.scale) for w in weights])),
+            plain_ms=time_ms(cycling([lambda w=w: qmm.qmm_plain(x, w.q, w.scale) for w in weights]), reps=5),
+            bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+            bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+            library_ms=time_ms(cycling([lambda fn=fn: fn(x) for fn, _ in libs])),
+            library_op=libs[0][1],
+            bf16_mm_ms=time_ms(cycling([lambda wd=wd: torch.mm(x, wd) for wd in bf16_weights])),
+        )
+    rows.append(dict(
+        name="quantized_matmul", source="modal_examples_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="modal_examples_tpu/ops/quantized_matmul.py:38", **timed["decode"], prefill=timed["prefill"],
+    ))
+    del weights, libs, bf16_weights
+    # K2-int8 at K2's shape: 8 slots, ragged prefixes 0..1000, int8 pages
+    c = decode_case(gen, 8, 32, 32, L=32, int8=True)
+    args = [c[n] for n in ("q", "k_pages", "v_pages")] + [5] + [c[n] for n in ("page_tables", "prefix_lens", "k_new", "v_new")]
+    rows_read = int(c["prefix_lens"].sum())
+    nbytes = 2 * rows_read * 32 * (128 + 4) + 4 * 8 * 32 * 128 * 2  # int8 K+V rows and scales; q, o, k_new, v_new
+    rows.append(dict(
+        name="paged_decode_int8", source="modal_examples_tpu_torch/csrc/paged_decode_int8.cu",
+        replaces="modal_examples_tpu/ops/paged_attention.py:284", shape="B=8 Hq=Hkv=32 D=128 prefixes 0..1000",
+        ms=time_ms(lambda: pa.paged_decode_int8_cuda(*args, sm_scale=128**-0.5)),
+        plain_ms=time_ms(lambda: pa.paged_decode_int8_plain(*args, sm_scale=128**-0.5), reps=5),
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None,
+        library_op="none: no PyTorch call attends over a paged cache",
+    ))
+    del c, args
+    # K3-int8 at the decode step: 8 tokens x 32 layers into the engine's cache shape
+    L, N, P = 32, 8, 513
+    k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
+    kp, vp = int8_pages(gen, L, P, 16, 32, 128), int8_pages(gen, L, P, 16, 32, 128)
+    nbytes = 2 * L * N * 32 * 128 * 2 + 2 * L * N * 32 * (128 + 4)  # bf16 rows in; int8 rows and scales out
+    layer_ix = torch.arange(L, device="cuda")[:, None]
+    pi, sl = page_idx.long()[None], slot.long()[None]
+
+    def library():
+        for pages, new in ((kp, k_all), (vp, v_all)):
+            q = kvq.quantize_kv(new)
+            pages.data.index_put_((layer_ix, pi, sl), q.data)
+            pages.scale.index_put_((layer_ix, pi, sl), q.scale)
+
+    rows.append(dict(
+        name="kv_scatter_int8", source="modal_examples_tpu_torch/csrc/kv_scatter_int8.cu",
+        replaces="modal_examples_tpu/ops/paged_attention.py:927", shape="L=32 N=8 Hkv=32 D=128",
+        ms=time_ms(lambda: pa.scatter_int8_cuda(kp, vp, k_all, v_all, page_idx, slot)),
+        plain_ms=time_ms(lambda: pa.scatter_int8_plain(kp, vp, k_all, v_all, page_idx.long(), slot.long())),
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=time_ms(library),
+        library_op="quantize_kv + index_put_ (int8 rows and scales, K and V)",
+    ))
+    return rows
 
 
 def main() -> int:
@@ -600,21 +882,31 @@ def main() -> int:
     log(f"phase 1 build: {time.monotonic() - t0:.1f}s for {_build.kernel_names()}")
     errs = phase_kernels_vs_plain(fa, pa)
     phase_backward_vs_plain(fa, errs)
+    phase_int8_kernels_vs_plain(pa, errs)
     log(f"phase 2 kernels vs plain (tolerances {TOL}): {errs}")
     eng, metrics = phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams)
     phase_server(eng, OpenAIServer)
     log("phase 4 server: ok")
-    params = eng.params
+    params, bf16_cache_bytes = eng.params, eng.cache.bytes()
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params, bf16_cache_bytes)
+    log("phase 4 int8 serving: ok")
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    serve_counts, train_counts = metrics["launches"], train["launches"]
-    counts = {**serve_counts, **train_counts, "flash_fwd": serve_counts["flash_fwd"] + train_counts["flash_fwd"]}
-    log(f"launches: serving {serve_counts}, training {train_counts}; kernels line (flash_fwd summed) {counts}")
+    serve_counts, int8_counts, train_counts = metrics["launches"], int8["launches"], train["launches"]
+    counts = {
+        **serve_counts, **train_counts,
+        **{k: int8_counts[k] for k in ("quantized_matmul", "paged_decode_int8", "kv_scatter_int8")},
+        "flash_fwd": serve_counts["flash_fwd"] + int8_counts["flash_fwd"] + train_counts["flash_fwd"],
+    }
+    log(f"launches: serving {serve_counts}, int8 serving {int8_counts}, training {train_counts}; "
+        f"kernels line (flash_fwd summed) {counts}")
     rows = phase_numbers(fa, pa, counts, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -12,8 +12,8 @@
 // (sequence, kv head) its own block so the G query heads of a GQA group share
 // every K/V row read; the block reads its own page-table entries and prefix
 // length and offsets into the full [L, P, ps, Hkv, D] cache by the layer
-// index (no slice copy, no gather). It reads exactly the prefix's tokens,
-// ceil(prefix / ps) pages. The softmax is online in f32 over chunks of
+// index (no slice copy, no gather). It reads exactly the prefix's rows, not
+// the rest of its last page. The softmax is online in f32 over chunks of
 // cached tokens; the in-flight token's K/V (not yet in the cache) is one
 // extra softmax column folded in at the end, as the TPU kernel's epilogue
 // does. Probabilities enter the P.V product at bf16, the cache precision.

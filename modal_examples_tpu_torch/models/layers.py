@@ -2,7 +2,8 @@
 
 Counterpart of the subset of ``modal_examples_tpu/models/layers.py`` that
 Llama uses: ``rms_norm``, ``rotary_embedding`` (with llama-3.1
-``rope_scaling``), ``apply_rope``, the dense ``mm``, the LoRA-aware
+``rope_scaling``), ``apply_rope``, ``mm`` (dense, or over an int8
+``QuantizedWeight`` through the int8 matmul kernel), the LoRA-aware
 projections ``_proj_f32``/``_proj``, ``swiglu_mlp``, ``attention_op`` and
 ``causal_self_attention``. Norms and softmax-adjacent math run in f32;
 products accumulate in f32.
@@ -16,7 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import flash_attention as _flash
+from ..ops import quantized_matmul as _qmm
 from ..ops import reference
+from .quantize import QuantizedWeight
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
@@ -86,7 +89,19 @@ class _MmF32(torch.autograd.Function):
 
 
 def mm(x, w):
-    """``x @ w`` ([..., K] x [K, N]) with f32 accumulation, returned in f32."""
+    """``x @ w`` ([..., K] x [K, N]) with f32 accumulation, returned in f32.
+    ``w`` may be an int8 :class:`QuantizedWeight`: ``(x @ q) * scale``, through
+    the int8 matmul kernel on the card (its plain version on the CPU). That
+    product is forward-only until the int8 LoRA base is ported (ROADMAP A2)."""
+    if isinstance(w, QuantizedWeight):
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "mm over an int8 QuantizedWeight is forward-only: its backward "
+                "(the int8 LoRA base, ROADMAP A2) is not ported yet"
+            )
+        flat = x.reshape(-1, x.shape[-1])
+        qmm = _qmm.qmm_cuda if x.is_cuda else _qmm.qmm_plain
+        return qmm(flat.contiguous(), w.q, w.scale).reshape(*x.shape[:-1], w.shape[-1])
     if x.dtype == torch.float32:
         return x @ w.float()
     flat = x.reshape(-1, x.shape[-1])

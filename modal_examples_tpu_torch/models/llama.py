@@ -25,6 +25,7 @@ import dataclasses
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..ops import flash_attention as _flash
@@ -32,6 +33,7 @@ from ..ops import paged_attention as _paged
 from ..ops.kv_quant import kv_gather
 from ..utils.device import resolve_device
 from . import layers
+from .quantize import QuantizedWeight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,10 +142,12 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "gate", "up", "d
 # -- parameters -----------------------------------------------------------------
 
 
-def init_params(cfg: LlamaConfig, *, seed: int = 0, device=None) -> dict:
+def init_params(cfg: LlamaConfig, *, seed: int = 0, device=None, map_layer=None) -> dict:
     """Random weights from a seeded ``torch.Generator`` on the target device,
     drawn directly in the model dtype (a 7B init never holds an f32 copy).
-    Scales follow the JAX init: fan_in**-0.5, embeddings 0.02."""
+    Scales follow the JAX init: fan_in**-0.5, embeddings 0.02. ``map_layer``
+    transforms each layer's dict as soon as it is drawn (the quantized init
+    keeps one model-dtype layer at a time)."""
     device = resolve_device(device)
     dt = cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -155,7 +159,7 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device=None) -> dict:
     D, hd, F = cfg.dim, cfg.head_dim, cfg.ffn_dim
     params = {"embed": dense(cfg.vocab_size, D, 0.02), "layers": []}
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": torch.ones(D, dtype=dt, device=device),
             "wq": dense(D, cfg.n_heads * hd),
             "wk": dense(D, cfg.n_kv_heads * hd),
@@ -165,7 +169,8 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device=None) -> dict:
             "gate": dense(D, F),
             "up": dense(D, F),
             "down": dense(F, D),
-        })
+        }
+        params["layers"].append(layer if map_layer is None else map_layer(layer))
     params["final_norm"] = torch.ones(D, dtype=dt, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(D, cfg.vocab_size)
@@ -175,12 +180,21 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device=None) -> dict:
 def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
     """The JAX parameter tree (numpy leaves; per-layer weights stacked on axis
     0, weights [in, out]) as this module's parameter dict: layers unstacked
-    into a list, every other layout kept."""
+    into a list, every other layout kept. A quantized leaf (the JAX
+    ``QuantizedWeight``, numpy ``q`` and ``scale``) becomes a
+    :class:`QuantizedWeight` with its int8 and f32 values as they are."""
     device = resolve_device(device)
     dt = cfg.torch_dtype
 
-    def conv(a):
-        return torch.tensor(a, dtype=torch.float32).to(device=device, dtype=dt)
+    def conv(a, li=None):
+        if hasattr(a, "q"):
+            q, scale = (np.asarray(t) if li is None else np.asarray(t)[li] for t in (a.q, a.scale))
+            return QuantizedWeight(
+                q=torch.from_numpy(q.astype(np.int8)).to(device),
+                scale=torch.from_numpy(scale.astype(np.float32)).to(device),
+            )
+        a = np.asarray(a if li is None else a[li], np.float32)  # bf16 leaves arrive as ml_dtypes arrays
+        return torch.tensor(a).to(device=device, dtype=dt)
 
     stacked = np_params["layers"]
     missing = set(_LAYER_KEYS) - set(stacked)
@@ -188,7 +202,7 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
         raise ValueError(f"layer leaves {sorted(stacked)} are not the dense llama set {_LAYER_KEYS}")
     params = {
         "embed": conv(np_params["embed"]),
-        "layers": [{k: conv(stacked[k][li]) for k in _LAYER_KEYS} for li in range(cfg.n_layers)],
+        "layers": [{k: conv(stacked[k], li) for k in _LAYER_KEYS} for li in range(cfg.n_layers)],
         "final_norm": conv(np_params["final_norm"]),
     }
     if not cfg.tie_embeddings:
@@ -303,7 +317,7 @@ def prefill(params, tokens, k_pages, v_pages, page_tables, seq_lens, cfg: LlamaC
     page_idx, slot = _page_targets(page_tables, positions, valid, ps)
     x = params["embed"][tokens]
     L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    k_all = torch.empty((L, B, S, Hkv, D), dtype=k_pages.dtype, device=x.device)
+    k_all = torch.empty((L, B, S, Hkv, D), dtype=x.dtype, device=x.device)
     v_all = torch.empty_like(k_all)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)
@@ -336,14 +350,14 @@ def prefill_chunk(params, tokens, k_pages, v_pages, page_tables, chunk_lens, cfg
     prefix_tables = page_tables[:, :n_pp].long()
     x = params["embed"][tokens]
     L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    k_all = torch.empty((L, B, C, Hkv, D), dtype=k_pages.dtype, device=dev)
+    k_all = torch.empty((L, B, C, Hkv, D), dtype=x.dtype, device=dev)
     v_all = torch.empty_like(k_all)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)
         if n_pp:
             # [B, n_pp, ps, Hkv, D] -> [B, Hkv, prefix, D]
-            pk = kv_gather(k_pages, prefix_tables, li).permute(0, 3, 1, 2, 4).reshape(B, Hkv, n_pp * ps, D)
-            pv = kv_gather(v_pages, prefix_tables, li).permute(0, 3, 1, 2, 4).reshape(B, Hkv, n_pp * ps, D)
+            pk = kv_gather(k_pages, prefix_tables, li, dtype=k.dtype).permute(0, 3, 1, 2, 4).reshape(B, Hkv, n_pp * ps, D)
+            pv = kv_gather(v_pages, prefix_tables, li, dtype=v.dtype).permute(0, 3, 1, 2, 4).reshape(B, Hkv, n_pp * ps, D)
             k_full = torch.cat([pk, k.to(pk.dtype)], dim=2)
             v_full = torch.cat([pv, v.to(pv.dtype)], dim=2)
         else:
@@ -359,11 +373,13 @@ def prefill_chunk(params, tokens, k_pages, v_pages, page_tables, chunk_lens, cfg
     return _last_logits(params, x, chunk_lens, cfg), k_pages, v_pages
 
 
-def paged_impl_plan(cfg: LlamaConfig, device, kv_dtype: str = "bfloat16") -> dict:
+def paged_impl_plan(cfg: LlamaConfig, device, kv_dtype: str = "bfloat16", weights: str | None = None) -> dict:
     """What the serving functions run for this config on ``device``: always
-    the flash prefill, the ragged decode attention and the page scatter, as
-    CUDA kernels on the card and as their plain versions on the CPU.
-    ``ragged_variant`` is the TPU formulation's label for the same shapes."""
+    the flash prefill, the ragged decode attention and the page scatter (their
+    int8 kernels for an int8 cache), as CUDA kernels on the card and as their
+    plain versions on the CPU. ``ragged_variant`` is the TPU formulation's
+    label for the same shapes; ``weights`` is "int8" for quantized weights
+    (the int8 matmul kernel) or the model dtype."""
     return {
         "attention": "ragged",
         "ragged_variant": _paged.ragged_variant_for(cfg.n_kv_heads, kv_dtype),
@@ -371,6 +387,7 @@ def paged_impl_plan(cfg: LlamaConfig, device, kv_dtype: str = "bfloat16") -> dic
         "prefill": "flash",
         "impl": "cuda" if torch.device(device).type == "cuda" else "plain",
         "kv_dtype": str(kv_dtype),
+        "weights": weights or cfg.dtype,
     }
 
 
@@ -386,7 +403,7 @@ def decode_step(params, tokens, positions, k_pages, v_pages, page_tables, active
     prefix_lens = torch.where(active, positions, torch.zeros_like(positions)).int()
     x = params["embed"][tokens][:, None]  # [B, 1, dim]
     L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    k_all = torch.empty((L, B, Hkv, D), dtype=k_pages.dtype, device=x.device)
+    k_all = torch.empty((L, B, Hkv, D), dtype=x.dtype, device=x.device)
     v_all = torch.empty_like(k_all)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)

@@ -1,14 +1,19 @@
-"""Paged-cache kernels: ragged decode attention (``csrc/paged_decode.cu``) and
-the KV page scatter (``csrc/kv_scatter.cu``), each beside its plain version.
+"""Paged-cache kernels: ragged decode attention (``csrc/paged_decode.cu``,
+int8 pages ``csrc/paged_decode_int8.cu``) and the KV page scatter
+(``csrc/kv_scatter.cu``, int8 pages ``csrc/kv_scatter_int8.cu``), each beside
+its plain version.
 
 Counterpart of ``modal_examples_tpu/ops/paged_attention.py``
 (``paged_decode_attention_ragged``, ``scatter_kv_pages``,
 ``ragged_variant_for``). The cache is ``[L, P, page_size, Hkv, D]`` per array,
-page 0 being the trash page that padded and dead slots write.
+page 0 being the trash page that padded and dead slots write; an int8 cache
+is a :class:`~.kv_quant.QuantizedKV` per array (int8 data plus f32 scales
+``[L, P, page_size, Hkv]``).
 
-Dispatch is by the tensor's device and nothing else: CPU tensors take the
-plain version, CUDA tensors launch the kernel or raise. ``decode_launches``
-and ``scatter_launches`` count kernel launches.
+Dispatch is by the tensor's device and the cache's kind and nothing else: CPU
+tensors take the plain version, CUDA tensors launch the kernel or raise.
+``decode_launches``, ``scatter_launches``, ``decode_int8_launches`` and
+``scatter_int8_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -18,12 +23,14 @@ import ctypes
 import torch
 
 from . import _build
-from .kv_quant import kv_gather, kv_scatter
+from .kv_quant import is_quantized, kv_gather, kv_scatter
 from .reference import paged_decode_attention_inflight
 
 #: kernel launches since the last reset (the main path's proof of use)
 decode_launches = 0
 scatter_launches = 0
+decode_int8_launches = 0
+scatter_int8_launches = 0
 
 _MAX_DECODE_HEAD_DIM = 256
 
@@ -49,10 +56,11 @@ def _require_cuda(name: str, t, device, dtype=None) -> None:
 
 
 def paged_decode_plain(q, k_pages, v_pages, layer: int, page_tables, prefix_lens, k_new, v_new, *, sm_scale=None):
-    """The kernel's function in plain PyTorch: gather the layer's pages, then
-    the in-flight twin (``paged_decode_attention_inflight``)."""
-    ks = kv_gather(k_pages, page_tables, layer)
-    vs = kv_gather(v_pages, page_tables, layer)
+    """The kernel's function in plain PyTorch: gather the layer's pages (int8
+    pages dequantized at the query's dtype), then the in-flight twin
+    (``paged_decode_attention_inflight``)."""
+    ks = kv_gather(k_pages, page_tables, layer, dtype=q.dtype)
+    vs = kv_gather(v_pages, page_tables, layer, dtype=q.dtype)
     return paged_decode_attention_inflight(q, ks, vs, prefix_lens, k_new, v_new, sm_scale=sm_scale)
 
 
@@ -93,6 +101,53 @@ def paged_decode_cuda(q, k_pages, v_pages, layer: int, page_tables, prefix_lens,
     return out
 
 
+def paged_decode_int8_plain(q, k_pages, v_pages, layer: int, page_tables, prefix_lens, k_new, v_new, *, sm_scale=None):
+    """The int8 kernel's function in plain PyTorch: :func:`paged_decode_plain`
+    over int8 pages, dequantized at the query's dtype (``bf16(int8) *
+    bf16(scale)`` on the card), with ``k_new``/``v_new`` at that dtype."""
+    return paged_decode_plain(q, k_pages, v_pages, layer, page_tables, prefix_lens, k_new, v_new, sm_scale=sm_scale)
+
+
+def _decode_int8_lib():
+    lib = _build.load("paged_decode_int8")
+    fn = lib.paged_decode_int8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_decode_int8_cuda(q, k_pages, v_pages, layer: int, page_tables, prefix_lens, k_new, v_new, *, sm_scale: float):
+    """Launch ``csrc/paged_decode_int8.cu`` on int8 pages (:class:`QuantizedKV`)
+    with bf16 ``q``/``k_new``/``v_new``."""
+    global decode_int8_launches
+    dev = q.device
+    bf16 = torch.bfloat16
+    _require_cuda("q", q, dev, bf16)
+    for name, pages in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _require_cuda(f"{name}.data", pages.data, dev, torch.int8)
+        _require_cuda(f"{name}.scale", pages.scale, dev, torch.float32)
+    _require_cuda("k_new", k_new, dev, bf16)
+    _require_cuda("v_new", v_new, dev, bf16)
+    _require_cuda("page_tables", page_tables, dev, torch.int32)
+    _require_cuda("prefix_lens", prefix_lens, dev, torch.int32)
+    B, Hq, D = q.shape
+    L, P, ps, Hkv, _ = k_pages.shape
+    if D > _MAX_DECODE_HEAD_DIM or D % 4:
+        raise ValueError(f"int8 decode kernel head dim must be a multiple of 4 up to {_MAX_DECODE_HEAD_DIM}; got {D}")
+    out = torch.empty_like(q)
+    lib = _decode_int8_lib()
+    err = lib.paged_decode_int8(
+        _build.ptr(q), _build.ptr(k_pages.data), _build.ptr(v_pages.data), _build.ptr(k_pages.scale),
+        _build.ptr(v_pages.scale), _build.ptr(page_tables), _build.ptr(prefix_lens), _build.ptr(k_new),
+        _build.ptr(v_new), _build.ptr(out),
+        B, Hq, Hkv, D, layer, P, ps, page_tables.shape[1], sm_scale, _build.stream_ptr(dev),
+    )
+    decode_int8_launches += 1
+    _build.check(lib, "paged_decode_int8", err)
+    return out
+
+
 def paged_decode_attention_ragged(
     q,  # [B, Hq, D]
     k_pages,  # [L, P, page_size, Hkv, D]: the full cache
@@ -107,16 +162,23 @@ def paged_decode_attention_ragged(
 ):  # [B, Hq, D]
     """Ragged decode attention over prefix pages plus the in-flight token;
     equal to ``paged_decode_attention_inflight`` given
-    ``ks = k_pages[layer, page_tables]``."""
+    ``ks = k_pages[layer, page_tables]``. int8 pages (:class:`QuantizedKV`)
+    are dequantized at the query's dtype, and the in-flight token is taken at
+    that dtype too (the JAX ``compute_dtype = q.dtype``)."""
     B, Hq, D = q.shape
     L, _, _, Hkv, Dk = k_pages.shape
-    if Dk != D or v_pages.shape != k_pages.shape:
+    if Dk != D or v_pages.shape != k_pages.shape or is_quantized(v_pages) != is_quantized(k_pages):
         raise ValueError(f"pages {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside [0, {L})")
     scale = D**-0.5 if sm_scale is None else sm_scale
+    if is_quantized(k_pages):
+        args = (q, k_pages, v_pages, layer, page_tables, prefix_lens, k_new.to(q.dtype), v_new.to(q.dtype))
+        if q.device.type == "cpu":
+            return paged_decode_int8_plain(*args, sm_scale=scale)
+        return paged_decode_int8_cuda(*(a.contiguous() if torch.is_tensor(a) else a for a in args), sm_scale=scale)
     k_new = k_new.to(k_pages.dtype)
     v_new = v_new.to(v_pages.dtype)
     if q.device.type == "cpu":
@@ -131,7 +193,8 @@ def paged_decode_attention_ragged(
 
 
 def scatter_plain(k_pages, v_pages, k_all, v_all, page_idx, slot):
-    """The kernel's function in plain PyTorch (``kv_scatter`` on both arrays)."""
+    """The kernel's function in plain PyTorch (``kv_scatter`` on both arrays,
+    which quantizes the rows for int8 pages)."""
     kv_scatter(k_pages, k_all, page_idx, slot)
     kv_scatter(v_pages, v_all, page_idx, slot)
     return k_pages, v_pages
@@ -174,6 +237,49 @@ def scatter_cuda(k_pages, v_pages, k_all, v_all, page_idx, slot):
     return k_pages, v_pages
 
 
+def scatter_int8_plain(k_pages, v_pages, k_all, v_all, page_idx, slot):
+    """The int8 kernel's function in plain PyTorch: :func:`scatter_plain` into
+    int8 pages, each (layer, token, kv head) row quantized
+    (``kv_quant.quantize_kv``) and written as int8 data plus its scale."""
+    return scatter_plain(k_pages, v_pages, k_all, v_all, page_idx, slot)
+
+
+def _scatter_int8_lib():
+    lib = _build.load("kv_scatter_int8")
+    fn = lib.kv_scatter_int8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def scatter_int8_cuda(k_pages, v_pages, k_all, v_all, page_idx, slot):
+    """Launch ``csrc/kv_scatter_int8.cu``: quantize bf16 rows ``[L, N, Hkv, D]``
+    and write them into int8 pages (:class:`QuantizedKV`), in place."""
+    global scatter_int8_launches
+    dev = k_all.device
+    for name, pages in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _require_cuda(f"{name}.data", pages.data, dev, torch.int8)
+        _require_cuda(f"{name}.scale", pages.scale, dev, torch.float32)
+    _require_cuda("k_all", k_all, dev, torch.bfloat16)
+    _require_cuda("v_all", v_all, dev, torch.bfloat16)
+    _require_cuda("page_idx", page_idx, dev, torch.int32)
+    _require_cuda("slot", slot, dev, torch.int32)
+    L, P, ps, Hkv, D = k_pages.shape
+    N = k_all.shape[1]
+    if D % 4 or D > _MAX_DECODE_HEAD_DIM:
+        raise ValueError(f"int8 scatter kernel head dim must be a multiple of 4 up to {_MAX_DECODE_HEAD_DIM}; got {D}")
+    lib = _scatter_int8_lib()
+    err = lib.kv_scatter_int8(
+        _build.ptr(k_pages.data), _build.ptr(v_pages.data), _build.ptr(k_pages.scale), _build.ptr(v_pages.scale),
+        _build.ptr(k_all), _build.ptr(v_all), _build.ptr(page_idx), _build.ptr(slot),
+        L, N, P, ps, Hkv, D, _build.stream_ptr(dev),
+    )
+    scatter_int8_launches += 1
+    _build.check(lib, "kv_scatter_int8", err)
+    return k_pages, v_pages
+
+
 def scatter_kv_pages(
     k_pages,  # [L, P, ps, Hkv, D]
     v_pages,
@@ -186,12 +292,21 @@ def scatter_kv_pages(
     (same) page tensors. The JAX version aliased its inputs to the outputs of
     the pallas_call; here the update is in place. Same semantics as
     ``pages[:, page_idx, slot] = new`` for distinct targets; dead tokens all
-    aimed at trash page 0 slot 0 may race, which is harmless."""
+    aimed at trash page 0 slot 0 may race, which is harmless. int8 pages
+    (:class:`QuantizedKV`) quantize each row at the write (per token-head
+    ``amax/127``, as the JAX function does before its pallas_call) and take
+    its int8 data and f32 scale: four tensors written."""
     L, N, Hkv, D = k_all.shape
     if k_pages.shape[0] != L or k_pages.shape[3:] != (Hkv, D) or v_pages.shape != k_pages.shape:
         raise ValueError(f"pages {tuple(k_pages.shape)} do not take rows {tuple(k_all.shape)}")
     if v_all.shape != k_all.shape or page_idx.shape != (N,) or slot.shape != (N,):
         raise ValueError("k_all/v_all/page_idx/slot shapes disagree")
+    if is_quantized(k_pages) != is_quantized(v_pages):
+        raise ValueError("k_pages and v_pages must both be int8 or both plain")
+    if is_quantized(k_pages):
+        if k_pages.device.type == "cpu":
+            return scatter_int8_plain(k_pages, v_pages, k_all, v_all, page_idx, slot)
+        return scatter_int8_cuda(k_pages, v_pages, k_all.contiguous(), v_all.contiguous(), page_idx, slot)
     if k_pages.device.type == "cpu":
         return scatter_plain(k_pages, v_pages, k_all, v_all, page_idx, slot)
     return scatter_cuda(

@@ -18,8 +18,13 @@ Sampling is keyed by (request seed, position) exactly as in the JAX engine
 tokens do not depend on batch composition or on how steps are grouped into
 blocks.
 
-Not in this slice: int8 KV, the prefix cache, the prefill budget, policies
-and deadlines, macro-step and speculative decoding, metrics and tracing.
+Quantized serving (``quantization="int8"``: int8 weights through the int8
+matmul kernel; ``kv_dtype="int8"``: the int8 paged cache with its decode and
+scatter kernels) follows the JAX engine's arguments.
+
+Not in this slice: int4 weights, the prefix cache, the prefill budget,
+policies and deadlines, macro-step and speculative decoding, metrics and
+tracing.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..models.quantize import SUPPORTED as _QUANT_MODES
+from ..models.quantize import QuantizedWeight, bits_of, init_quantized_llama, quantize_llama
 from ..scheduling.admission import WaitingQueue
 from ..utils.device import resolve_device
 from ..utils.tokenizer import load_tokenizer
@@ -136,8 +143,9 @@ class LLMEngine:
         n_pages: int | None = None,
         prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048),
         prefill_batch: int = 4,
+        quantization: str | None = None,  # "int8": weight-only int8 serving
         seed: int = 0,
-        kv_dtype="bfloat16",
+        kv_dtype="bfloat16",  # "int8": the quantized paged cache
         decode_block: int = 8,
         max_queue: int = 4096,
         device=None,
@@ -145,8 +153,16 @@ class LLMEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = load_tokenizer(model_dir)
+        if quantization not in _QUANT_MODES:
+            raise ValueError(f"unknown quantization {quantization!r}; supported: {_QUANT_MODES}")
         if params is None:
-            params = llama.init_params(cfg, seed=seed, device=self.device)
+            if quantization is not None:
+                # drawn and quantized layer by layer: no resident bf16 tree
+                params = init_quantized_llama(cfg, seed=seed, bits=bits_of(quantization), device=self.device)
+            else:
+                params = llama.init_params(cfg, seed=seed, device=self.device)
+        elif quantization is not None:
+            params = quantize_llama(params, bits=bits_of(quantization))
         self.params = params
         self.max_slots = max_slots
         self.max_model_len = max_model_len
@@ -157,7 +173,8 @@ class LLMEngine:
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             n_pages=n_pages, page_size=page_size, kv_dtype=kv_dtype, device=self.device,
         )
-        self.impl_plan = llama.paged_impl_plan(cfg, self.device, str(self.cache.k_pages.dtype).removeprefix("torch."))
+        weights = "int8" if isinstance(params["layers"][0]["wq"], QuantizedWeight) else cfg.dtype
+        self.impl_plan = llama.paged_impl_plan(cfg, self.device, self.cache.kv_dtype, weights)
         self.prefill_buckets = tuple(b for b in sorted(prefill_buckets) if b <= max_model_len) or (max_model_len,)
         self.prefill_batch = max(1, min(prefill_batch, max_slots))
         self.decode_block = max(1, int(decode_block))

@@ -1,10 +1,11 @@
-"""Paged KV cache: two device tensors plus a host-side page allocator.
+"""Paged KV cache: device pages plus a host-side page allocator.
 
 Counterpart of ``modal_examples_tpu/serving/kv_cache.py``: ``PageAllocator``
 (a free list over page ids, page 0 reserved as the trash page that padded and
 dead slots write) and ``PagedKVCache`` (``[L, P, page_size, Hkv, D]`` K and V
-tensors). Each sequence claims its whole page budget at admission, so decode
-never runs out mid-flight. The int8 cache and the occupancy gauges are not
+pages: two tensors, or for ``kv_dtype="int8"`` two :class:`QuantizedKV`,
+four tensors in all). Each sequence claims its whole page budget at
+admission, so decode never runs out mid-flight. The occupancy gauges are not
 ported yet.
 """
 
@@ -15,7 +16,7 @@ import threading
 
 import torch
 
-from ..ops.kv_quant import kv_empty
+from ..ops.kv_quant import QuantizedKV, is_quantized, kv_dtype_name, kv_empty
 
 
 class OutOfPages(RuntimeError):
@@ -46,11 +47,10 @@ class PageAllocator:
             return len(self._free)
 
 
-
 @dataclasses.dataclass
 class PagedKVCache:
-    k_pages: torch.Tensor  # [L, P, page_size, Hkv, D]
-    v_pages: torch.Tensor
+    k_pages: torch.Tensor | QuantizedKV  # [L, P, page_size, Hkv, D]
+    v_pages: torch.Tensor | QuantizedKV
     page_size: int
     allocator: PageAllocator
 
@@ -70,6 +70,20 @@ class PagedKVCache:
     @property
     def n_pages(self) -> int:
         return self.k_pages.shape[1]
+
+    @property
+    def kv_dtype(self) -> str:
+        """Reporting name of the page dtype: "int8" or the tensor dtype's name."""
+        return kv_dtype_name(self.k_pages)
+
+    @property
+    def quantized(self) -> bool:
+        return is_quantized(self.k_pages)
+
+    def bytes(self) -> int:
+        """Device bytes of the pages: int8 caches count their payload plus the
+        f32 scales (about half the bf16 figure at D=128)."""
+        return self.k_pages.nbytes + self.v_pages.nbytes
 
     def pages_for(self, n_tokens: int) -> int:
         return (n_tokens + self.page_size - 1) // self.page_size

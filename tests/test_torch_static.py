@@ -53,7 +53,10 @@ def _launches(fn: ast.FunctionDef, kernel: str) -> bool:
 
 
 def test_there_are_kernels():
-    assert KERNELS == ["flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "kv_scatter", "paged_decode"]
+    assert KERNELS == [
+        "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "kv_scatter", "kv_scatter_int8", "paged_decode",
+        "paged_decode_int8", "quantized_matmul",
+    ]
 
 
 def test_import_scan_reaches_the_training_path():
