@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: builds its kernels, holds each
 against its plain version on the card, serves Llama-2-7B-shaped requests
 (random bf16 weights from a seed, full width) through the port's engine and
-OpenAI server, serves them again with int8 weights and an int8 KV cache,
+OpenAI server, again 8 decode steps per dispatch, again through the
+write-then-attend decode, again with int8 weights and an int8 KV cache,
 LoRA-fine-tunes the same model through ``Trainer``, and prints per-kernel
 times beside their bounds.
 
@@ -16,13 +17,24 @@ Phases (any failure exits non-zero and prints no result):
    backward kernels also non-causal, at a ragged S=300 and with a nonzero
    lse cotangent; the int8 matmul at M = 8, 2048 and 300 over every weight
    shape of the model and a ragged 4000 x 11000; the int8 decode at Hkv=32
-   and 8; the int8 scatter bitwise at 8 and 2048 tokens;
+   and 8; the int8 scatter bitwise at 8 and 2048 tokens; the write-then-attend
+   decode over one layer's pages at Hkv=32 and 8, contexts 0..1001 and a dead
+   slot on trash page 0, held per (sequence, head) row, and the same check
+   shown to refuse two planted faults;
 3. the engine serving 8 requests (prompts of 20..700 tokens, one chunked),
    with the launch counters zeroed just before and read just after: every
    serving kernel must have launched, the decode kernel n_layers x decode
    steps times; then prefill + one decode step against a dense plain forward
-   on the card;
+   on the card; then the same burst with ``decode_steps = 8`` (the macro-step
+   program), counters zeroed: the decode kernel n_layers x the steps that
+   ran (``stats.steps``), greedy and seeded rows token-identical to N=1;
 4. the OpenAI server: one completion, one streamed chat completion;
+   then (phase 3b) write-then-attend serving: ``paged_impl=
+   "pallas-writeback"`` at ``decode_steps=8``, then 1, counters zeroed each
+   time: the writeback decode kernel n_layers x decode steps times, no
+   ragged decode launch, the scatter at least once a layer a step, every
+   page returned, N=8 token-identical to N=1; prefill + one writeback decode
+   step against a dense plain forward;
    then int8 serving: the same weights quantized (``quantize_llama``) in an
    engine with an int8 KV cache serving the same 8 requests, counters
    zeroed: the int8 decode kernel n_layers x decode steps times, no bf16
@@ -66,11 +78,20 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # as max|grad - plain| / max|plain grad| (f32 math in both, one bf16 rounding
 # of each gradient, sums in another order).
 TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2,
-       "quantized_matmul": 1e-3, "paged_decode_int8": 6e-2, "kv_scatter_int8": 0.0}
+       "quantized_matmul": 1e-3, "paged_decode_int8": 6e-2, "kv_scatter_int8": 0.0, "paged_decode_writeback": 1e-2,
+       "paged_decode_writeback_differ": 1e-2}
 # the int8 matmul is held as max|out - plain| / max|plain|: its products are
 # exact (int8 and bf16 values, f32 sums), only the summation order differs.
 # The int8 decode has K2's numerics over the same dequantized values; the int8
-# scatter must be bitwise (same IEEE divisions, round half to even).
+# scatter must be bitwise (same IEEE divisions, round half to even). The
+# write-then-attend decode keeps f32 probabilities as its plain version does,
+# so the two differ only by f32 summation order before one bf16 rounding: it
+# is held per (sequence, head) row as max|o - plain| / max|plain| (one bf16
+# ulp is at most 2^-7 of the row's largest value) and by the share of output
+# elements whose bf16 value differs from the plain version's ("_differ").
+# Phase 2 shows that both limits see two planted faults: the last 64-row
+# chunk of the longest context skipped, and probabilities rounded to bf16
+# (K2's design, run on the same rows).
 # (K, N) of every int8 weight of Llama-2-7B (wq/wk/wv/wo, gate/up, down,
 # lm_head) and one ragged shape
 QMM_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (4000, 11000)]
@@ -140,6 +161,55 @@ def decode_case(gen, B, Hq, Hkv, L, D=128, ps=16, pps=64, int8=False):
     )
 
 
+def writeback_case(gen, B, Hq, Hkv, L, ctx, D=128, ps=16, pps=64):
+    """One layer's pages (the contiguous view ``pages[2]`` of a bf16 cache)
+    for contexts ``ctx`` that count the current token, over shuffled pages;
+    the last slot is dead: its table is all trash page 0."""
+    P = 1 + B * pps
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(1))[: B * pps] + 1
+    tables = perm.reshape(B, pps).to(torch.int32)
+    tables[-1] = 0
+    k_cache, v_cache = rand_bf16(gen, L, P, ps, Hkv, D), rand_bf16(gen, L, P, ps, Hkv, D)
+    return dict(
+        q=rand_bf16(gen, B, Hq, D), k_pages=k_cache[2], v_pages=v_cache[2],
+        page_tables=tables.cuda(), context_lens=torch.tensor(ctx, dtype=torch.int32).cuda(),
+        k_cache=k_cache, v_cache=v_cache,
+    )
+
+
+WRITEBACK_ARGS = ("q", "k_pages", "v_pages", "page_tables", "context_lens")
+
+
+def writeback_readings(o, want, ctx) -> dict:
+    """The K4 check's readings over the (sequence, head) rows that have a
+    context: the largest max|o - want| / max|want| of a row, and the share of
+    their elements whose bf16 value differs from ``want``'s (and max abs)."""
+    live = torch.as_tensor(ctx, device=o.device) > 0
+    o, want = o[live].float(), want[live].float()
+    row = (o - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)
+    return {"row_rel": row.max().item(), "differ": (o != want).float().mean().item(), "max_abs": max_err(o, want)}
+
+
+def writeback_faults(pa, c, ctx) -> dict:
+    """Two planted faults on the same inputs, each a wrong K4 that the check
+    must refuse: the plain version with the longest context's last 64-row
+    chunk skipped, and K2, which rounds its probabilities to bf16, over the
+    same rows (the prefix is the context less its last row, which goes in as
+    the in-flight token)."""
+    args = [c[n] for n in WRITEBACK_ARGS]
+    cut = c["context_lens"].clone()
+    longest = int(cut.argmax())
+    cut[longest] = (int(cut[longest]) - 1) // 64 * 64
+    skipped = pa.paged_decode_writeback_plain(*args[:4], cut, sm_scale=128**-0.5)
+    ps = c["k_pages"].shape[1]
+    last = (c["context_lens"].long() - 1).clamp(min=0)
+    page = c["page_tables"].long()[torch.arange(len(ctx), device="cuda"), last // ps]
+    k_new, v_new = c["k_pages"][page, last % ps], c["v_pages"][page, last % ps]
+    rounded = pa.paged_decode_cuda(c["q"], c["k_cache"], c["v_cache"], 2, c["page_tables"], last.int(), k_new, v_new,
+                                   sm_scale=128**-0.5)
+    return {f"last chunk of context {ctx[longest]} skipped": skipped, "probabilities rounded to bf16 (K2)": rounded}
+
+
 def scatter_case(gen, L, N, P, Hkv=32, D=128, ps=16):
     """N tokens, distinct targets except two dead ones on trash page 0 slot 0
     (given equal rows, so the race has one possible result)."""
@@ -175,6 +245,28 @@ def phase_kernels_vs_plain(fa, pa) -> dict:
         if not e <= TOL["paged_decode"]:
             raise AssertionError(f"decode kernel disagrees with its plain version: {e}")
         errs["paged_decode"] = max(errs.get("paged_decode", 0.0), e)
+    # contexts 1, a page, a page plus one, 1001; none (zeros); a mix; a dead slot
+    ctx = [1, 16, 17, 1001, 0, 334, 512, 1]
+    for B, Hq, Hkv in [(8, 32, 32), (8, 32, 8)]:
+        c = writeback_case(gen, B, Hq, Hkv, L=4, ctx=ctx)
+        args = [c[n] for n in WRITEBACK_ARGS]
+        o = pa.paged_decode_writeback_cuda(*args, sm_scale=128**-0.5)
+        torch.cuda.synchronize()
+        want = pa.paged_decode_writeback_plain(*args, sm_scale=128**-0.5)
+        e, got = max_err(o, want), writeback_readings(o, want, ctx)
+        log(f"K4 writeback decode B={B} Hq={Hq} Hkv={Hkv} one layer's pages, contexts {ctx}: max|o-plain|={e:.3g}, "
+            f"row max|o-plain|/max|plain|={got['row_rel']:.3g}, elements differing {got['differ']:.3g}, "
+            f"max|o| of the empty context {o[4].abs().max().item()}")
+        if not (got["row_rel"] <= TOL["paged_decode_writeback"] and got["differ"] <= TOL["paged_decode_writeback_differ"]
+                and o[4].abs().max().item() == 0.0):
+            raise AssertionError(f"writeback decode kernel disagrees with its plain version: {got}")
+        for fault, wrong in writeback_faults(pa, c, ctx).items():
+            bad = writeback_readings(wrong, want, ctx)
+            log(f"  planted fault, {fault}: max|o-plain|={bad['max_abs']:.3g}, row {bad['row_rel']:.3g}, "
+                f"elements differing {bad['differ']:.3g}")
+            if bad["row_rel"] <= TOL["paged_decode_writeback"] and bad["differ"] <= TOL["paged_decode_writeback_differ"]:
+                raise AssertionError(f"the writeback decode check does not see a planted fault ({fault}): {bad}")
+        errs["paged_decode_writeback"] = max(errs.get("paged_decode_writeback", 0.0), e)
     for L, N, P in [(32, 8, 513), (32, 2048, 513)]:  # decode step; prefill batch 4 x 512
         k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
         kp, vp = rand_bf16(gen, L, P, 16, 32, 128), rand_bf16(gen, L, P, 16, 32, 128)
@@ -361,9 +453,10 @@ def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int
 
 
 def check_against_dense(eng, llama, layers, reference):
-    """Prefill 99 tokens + one decode step through the kernels (own small
-    cache of the engine's kv dtype) against the dense plain forward of the
-    same 100 tokens. Returns (errors, prefill logits, tokens)."""
+    """Prefill 99 tokens + one decode step (the engine's ``paged_impl``)
+    through the kernels (own small cache of the engine's kv dtype) against
+    the dense plain forward of the same 100 tokens. Returns (errors, prefill
+    logits, tokens)."""
     from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
 
     cfg, params = eng.cfg, eng.params
@@ -380,7 +473,7 @@ def check_against_dense(eng, llama, layers, reference):
                               torch.tensor([99], device="cuda"), cfg)
     dec, _, _ = llama.decode_step(params, toks[0, 99:], torch.tensor([99], device="cuda"),
                                   cache.k_pages, cache.v_pages, tables,
-                                  torch.tensor([True], device="cuda"), cfg)
+                                  torch.tensor([True], device="cuda"), cfg, impl=eng.paged_impl)
     out = {}
     # prefill attends over its own K/V before they are written; the decode
     # step reads the 99 cached positions back from the cache
@@ -398,6 +491,58 @@ def check_against_dense(eng, llama, layers, reference):
     return out, pre, toks
 
 
+def serve_burst(eng, SamplingParams, label: str):
+    """The 8 requests of ``make_requests`` through ``eng``, every finish
+    checked. Returns (requests, metrics: burst tok/s, decode tok/s, TTFT
+    median, wall, decode steps). Burst tok/s is every generated token over
+    the burst's wall time, text delivered included, so it times the same
+    work at any ``decode_steps``; decode tok/s is the engine's decode-tick
+    clock, which at N > 1 leaves out the detokenization the worker thread
+    does."""
+    steps0 = eng.stats.steps
+    dec_s0, dec_t0 = eng.stats.decode_seconds, eng.stats.decode_tokens
+    t0 = time.monotonic()
+    # tokenized first, then queued back to back: the running scheduler finds
+    # the whole burst at one tick, so every run prefills the same groups
+    reqs = [eng.make_request(p, sp) for p, sp in make_requests(SamplingParams)]
+    for r in reqs:
+        eng.waiting.submit(r)
+    texts = ["".join(eng.stream(r)) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    steps = eng.stats.steps - steps0
+    log(f"{label}: {len(reqs)} requests in {wall:.2f}s, decode steps {steps}, decode_steps N={eng.decode_steps}, "
+        f"plan {eng.impl_plan}")
+    for r, t in zip(reqs, texts):
+        check_finish(r)
+        log(f"  {r.request_id}: prompt {len(r.prompt_tokens)} tok, {r.finish_reason}, "
+            f"{r.n_generated} generated, ttft {r.first_token_at - r.created:.3f}s, {len(t)} chars")
+    if eng.cache.allocator.available != eng.cache.n_pages - 1:
+        raise AssertionError(f"{label}: pages not all returned after the requests finished")
+    return reqs, {
+        "burst_tok_per_s": sum(r.n_generated for r in reqs) / wall,
+        "decode_tok_per_s": (eng.stats.decode_tokens - dec_t0) / (eng.stats.decode_seconds - dec_s0),
+        "ttft_s_median": statistics.median(r.first_token_at - r.created for r in reqs),
+        "wall_s": wall,
+        "decode_steps": steps,
+    }
+
+
+def check_same_tokens(reqs, ref_reqs, label: str) -> int:
+    """Greedy and seeded rows must repeat ``ref_reqs`` token for token (rows
+    are independent in every kernel and GEMM); rows with an engine-assigned
+    seed draw a new one per submit and are skipped. Returns the rows held."""
+    held = 0
+    for r, ref in zip(reqs, ref_reqs):
+        if r.params.temperature > 0 and r.params.seed is None:
+            continue
+        if (r.generated_tokens, r.finish_reason) != (ref.generated_tokens, ref.finish_reason):
+            raise AssertionError(f"{label}: {r.request_id} tokens differ from the reference run")
+        held += 1
+    log(f"{label}: {held} greedy and seeded rows token-identical to the reference run")
+    return held
+
+
 def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
     cfg = llama.LlamaConfig.llama2_7b()
     t0 = time.monotonic()
@@ -410,37 +555,67 @@ def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
     # warm the path (allocator, cuBLAS handles) with one short request, off the count
     eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
     fa.launches = pa.decode_launches = pa.scatter_launches = 0
-    steps0 = eng.stats.steps
-    dec_s0, dec_t0 = eng.stats.decode_seconds, eng.stats.decode_tokens
-    t0 = time.monotonic()
-    reqs = [eng.submit(p, sp) for p, sp in make_requests(SamplingParams)]
-    texts = ["".join(eng.stream(r)) for r in reqs]
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    reqs, metrics = serve_burst(eng, SamplingParams, "engine")
     counts = {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
-    steps = eng.stats.steps - steps0
-    log(f"engine: {len(reqs)} requests in {wall:.2f}s, decode steps {steps}, launches {counts}, plan {eng.impl_plan}")
-    for r, t in zip(reqs, texts):
-        check_finish(r)
-        log(f"  {r.request_id}: prompt {len(r.prompt_tokens)} tok, {r.finish_reason}, "
-            f"{r.n_generated} generated, ttft {r.first_token_at - r.created:.3f}s, {len(t)} chars")
+    steps = metrics["decode_steps"]
+    log(f"engine launches {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
     if counts["paged_decode"] != cfg.n_layers * steps:
         raise AssertionError(f"decode launches {counts['paged_decode']} != {cfg.n_layers} x {steps} steps")
-    if eng.cache.allocator.available != eng.cache.n_pages - 1:
-        raise AssertionError("pages not all returned after the requests finished")
-    dec_tokens = eng.stats.decode_tokens - dec_t0
-    metrics = {
-        "decode_tok_per_s": dec_tokens / (eng.stats.decode_seconds - dec_s0),
-        "ttft_s_median": statistics.median(r.first_token_at - r.created for r in reqs),
-        "wall_s": wall,
-        "decode_steps": steps,
-        "launches": counts,
-    }
+    metrics["launches"] = counts
     log(f"engine metrics: {json.dumps(metrics)}")
     metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
+    # the macro-step replay: the same engine and burst, 8 steps per dispatch
+    eng.decode_steps = 8
+    fa.launches = pa.decode_launches = pa.scatter_launches = 0
+    reqs8, m8 = serve_burst(eng, SamplingParams, "engine, macro-step N=8")
+    m8["launches"] = {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
+    # a step that ran launched the decode kernel once a layer; stats.steps
+    # counts the steps with a valid row, so the two agree only if every
+    # counted step ran and every step that ran was counted
+    if m8["launches"]["paged_decode"] != cfg.n_layers * m8["decode_steps"]:
+        raise AssertionError(f"macro-step decode launches {m8['launches']} != {cfg.n_layers} x {m8['decode_steps']}")
+    m8["rows_held"] = check_same_tokens(reqs8, reqs, "engine, macro-step N=8 against N=1")
+    eng.decode_steps = 1
+    log(f"engine macro-step N=8 metrics: {json.dumps(m8)} (N=1: burst {metrics['burst_tok_per_s']:.1f} tok/s, "
+        f"decode {metrics['decode_tok_per_s']:.1f} tok/s, TTFT median {metrics['ttft_s_median']:.3f}s)")
+    metrics["macro_step_8"] = m8
     return eng, metrics
+
+
+def phase_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params) -> dict:
+    """Phase 3b: the same weights and burst through ``paged_impl=
+    "pallas-writeback"`` at ``decode_steps=8``, counters zeroed just before
+    and read just after; then the same engine at N=1; then the dense check
+    through the writeback decode step."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    eng = LLMEngine(cfg, params, paged_impl="pallas-writeback", decode_steps=8, max_slots=8, max_model_len=1024,
+                    prefill_buckets=(128, 256, 512), prefill_batch=4, decode_block=8, seed=0, device="cuda")
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    out = {}
+    for n in (8, 1):
+        eng.decode_steps = n
+        fa.launches = pa.decode_launches = pa.decode_writeback_launches = pa.scatter_launches = 0
+        reqs, m = serve_burst(eng, SamplingParams, f"writeback engine, N={n}")
+        m["launches"] = {"flash_fwd": fa.launches, "paged_decode_writeback": pa.decode_writeback_launches,
+                         "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
+        steps, counts = m["decode_steps"], m["launches"]
+        log(f"writeback engine N={n} launches {counts}")
+        if counts["paged_decode_writeback"] != cfg.n_layers * steps or counts["paged_decode"]:
+            raise AssertionError(f"writeback launches {counts}: want {cfg.n_layers} x {steps} K4, no K2")
+        if counts["kv_scatter"] < cfg.n_layers * steps or counts["flash_fwd"] < 1:
+            raise AssertionError(f"writeback launches {counts}: want K3 once a layer a step, and K1")
+        out[n] = (reqs, m)
+    m8, m1 = out[8][1], out[1][1]
+    m8["rows_held"] = check_same_tokens(out[8][0], out[1][0], "writeback engine, N=8 against N=1")
+    metrics = {"n8": m8, "n1": m1, "launches": m8["launches"]}
+    log(f"writeback engine: burst {m8['burst_tok_per_s']:.1f} tok/s at N=8, {m1['burst_tok_per_s']:.1f} at N=1; "
+        f"decode {m8['decode_tok_per_s']:.1f} / {m1['decode_tok_per_s']:.1f} tok/s; "
+        f"TTFT median {m8['ttft_s_median']:.3f}s at N=8, {m1['ttft_s_median']:.3f}s at N=1")
+    metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
+    eng.stop()
+    return metrics
 
 
 def phase_server(eng, OpenAIServer) -> None:
@@ -494,22 +669,12 @@ def phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParam
     eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
     fa.launches = pa.decode_launches = pa.scatter_launches = pa.decode_int8_launches = pa.scatter_int8_launches = 0
     qmm.qmm_launches = 0
-    steps0 = eng.stats.steps
-    dec_s0, dec_t0 = eng.stats.decode_seconds, eng.stats.decode_tokens
-    t0 = time.monotonic()
-    reqs = [eng.submit(p, sp) for p, sp in make_requests(SamplingParams)]
-    texts = ["".join(eng.stream(r)) for r in reqs]
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    _, metrics = serve_burst(eng, SamplingParams, "int8 engine")
     counts = {"flash_fwd": fa.launches, "quantized_matmul": qmm.qmm_launches,
               "paged_decode_int8": pa.decode_int8_launches, "kv_scatter_int8": pa.scatter_int8_launches,
               "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
-    steps = eng.stats.steps - steps0
-    log(f"int8 engine: {len(reqs)} requests in {wall:.2f}s, decode steps {steps}, launches {counts}")
-    for r, t in zip(reqs, texts):
-        check_finish(r)
-        log(f"  {r.request_id}: prompt {len(r.prompt_tokens)} tok, {r.finish_reason}, "
-            f"{r.n_generated} generated, ttft {r.first_token_at - r.created:.3f}s, {len(t)} chars")
+    steps = metrics["decode_steps"]
+    log(f"int8 engine launches {counts}")
     per_pass = 7 * cfg.n_layers + 1  # seven projections a layer, then lm_head
     if counts["paged_decode_int8"] != cfg.n_layers * steps:
         raise AssertionError(f"int8 decode launches {counts['paged_decode_int8']} != {cfg.n_layers} x {steps} steps")
@@ -520,22 +685,12 @@ def phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParam
     if counts["quantized_matmul"] % per_pass or counts["quantized_matmul"] < per_pass * steps:
         raise AssertionError(f"int8 matmul launches {counts['quantized_matmul']}: want a multiple of {per_pass}, "
                              f"at least {per_pass} x {steps} steps")
-    if eng.cache.allocator.available != eng.cache.n_pages - 1:
-        raise AssertionError("pages not all returned after the requests finished")
     if not (w_ratio <= 0.52 and c_ratio <= 0.52):
         raise AssertionError(f"int8 bytes over 0.52 of bf16: weights {w_ratio}, cache {c_ratio}")
-    dec_tokens = eng.stats.decode_tokens - dec_t0
-    metrics = {
-        "decode_tok_per_s": dec_tokens / (eng.stats.decode_seconds - dec_s0),
-        "ttft_s_median": statistics.median(r.first_token_at - r.created for r in reqs),
-        "wall_s": wall,
-        "decode_steps": steps,
-        "launches": counts,
-        "weight_gb": quantize.param_bytes(qparams) / 1e9,
-        "weight_ratio": w_ratio,
-        "cache_gb": eng.cache.bytes() / 1e9,
-        "cache_ratio": c_ratio,
-    }
+    metrics.update(
+        launches=counts, weight_gb=quantize.param_bytes(qparams) / 1e9, weight_ratio=w_ratio,
+        cache_gb=eng.cache.bytes() / 1e9, cache_ratio=c_ratio,
+    )
     log(f"int8 engine metrics: {json.dumps(metrics)}")
     metrics["dense_check"], pre, toks = check_against_dense(eng, llama, layers, reference)
     bf16_ref = dense_reference_logits(params, cfg, toks[:, :99], layers, reference)
@@ -695,7 +850,23 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
-    del c, args
+    # K4 at the same shape, layer 5's pages: contexts count the current token
+    # (its K/V already in the cache), so each is K2's prefix plus one
+    wb = dict(q=c["q"], k_pages=c["k_pages"][5], v_pages=c["v_pages"][5], page_tables=c["page_tables"],
+              context_lens=c["prefix_lens"] + 1)
+    wb_args = [wb[n] for n in WRITEBACK_ARGS]
+    rows_read = int(wb["context_lens"].sum())  # the kernel reads each context's rows, not whole pages
+    nbytes = 2 * rows_read * 32 * 128 * 2 + 2 * 8 * 32 * 128 * 2  # K+V rows; q, o
+    rows.append(dict(
+        name="paged_decode_writeback", source="modal_examples_tpu_torch/csrc/paged_decode_writeback.cu",
+        replaces="modal_examples_tpu/ops/paged_attention.py:72",
+        shape=f"B=8 Hq=Hkv=32 D=128 one layer's pages, contexts 1..1001 ({rows_read} rows)",
+        ms=time_ms(lambda: pa.paged_decode_writeback_cuda(*wb_args, sm_scale=D**-0.5)),
+        plain_ms=time_ms(lambda: pa.paged_decode_writeback_plain(*wb_args, sm_scale=D**-0.5), reps=5),
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None,
+        library_op="none: no PyTorch call attends over a paged cache",
+    ))
+    del c, args, wb, wb_args
     # K3 at the decode step: 8 tokens x 32 layers into the engine's cache shape
     L, N, P = 32, 8, 513
     k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
@@ -891,6 +1062,10 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    wb = phase_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params)
+    log("phase 3b write-then-attend serving: ok")
+    gc.collect()
+    torch.cuda.empty_cache()
     int8 = phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params, bf16_cache_bytes)
     log("phase 4 int8 serving: ok")
     gc.collect()
@@ -900,13 +1075,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_counts, int8_counts, train_counts = metrics["launches"], int8["launches"], train["launches"]
+    wb_counts = wb["launches"]
     counts = {
         **serve_counts, **train_counts,
         **{k: int8_counts[k] for k in ("quantized_matmul", "paged_decode_int8", "kv_scatter_int8")},
+        "paged_decode_writeback": wb_counts["paged_decode_writeback"],
         "flash_fwd": serve_counts["flash_fwd"] + int8_counts["flash_fwd"] + train_counts["flash_fwd"],
     }
-    log(f"launches: serving {serve_counts}, int8 serving {int8_counts}, training {train_counts}; "
-        f"kernels line (flash_fwd summed) {counts}")
+    log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
+        f"{int8_counts}, training {train_counts}; kernels line (flash_fwd summed) {counts}")
     rows = phase_numbers(fa, pa, counts, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -3,8 +3,9 @@ paged decode.
 
 Counterpart of ``modal_examples_tpu/models/llama.py`` (``LlamaConfig``,
 ``init_params``, ``forward`` for dense models, ``prefill``, ``prefill_chunk``,
-``decode_step``, a reduced ``paged_impl_plan``). Architecture: RMSNorm,
-RoPE, GQA, SwiGLU.
+``decode_step`` with its ``impl``/``scatter_impl``, ``_decode_step_writeback``,
+``tp_shard_ok``, ``paged_impl_plan``). Architecture: RMSNorm, RoPE, GQA,
+SwiGLU.
 
 Parameters are a plain dict: ``embed`` [V, D], ``layers`` (a list of per-layer
 dicts, weights [in, out] as in the JAX tree), ``final_norm``, and ``lm_head``
@@ -15,7 +16,9 @@ Structure of the serving functions (the JAX package's read-only-pages
 design): attention reads the cache, never writes it; every layer's new K/V
 goes into the pages in ONE scatter launch after the last layer. Prefill
 attention is the flash kernel; decode attention is the ragged paged kernel
-with the in-flight token as an extra softmax column. Padded positions and
+with the in-flight token as an extra softmax column. The writeback impls
+of ``decode_step`` keep the JAX package's older write-then-attend structure
+instead (one scatter and one attention per layer). Padded positions and
 dead slots write trash page 0, slot 0. Cache updates are in place.
 """
 
@@ -373,29 +376,78 @@ def prefill_chunk(params, tokens, k_pages, v_pages, page_tables, chunk_lens, cfg
     return _last_logits(params, x, chunk_lens, cfg), k_pages, v_pages
 
 
-def paged_impl_plan(cfg: LlamaConfig, device, kv_dtype: str = "bfloat16", weights: str | None = None) -> dict:
+#: the decode structures the JAX engine names (``paged_impl``), and its scatter impls
+PAGED_IMPLS = ("xla", "pallas", "xla-writeback", "pallas-writeback")
+SCATTER_IMPLS = ("xla", "pallas")
+
+
+def _check_impls(impl: str, scatter_impl: str) -> None:
+    if impl not in PAGED_IMPLS:
+        raise ValueError(f"unknown paged_impl {impl!r}; known: {PAGED_IMPLS}")
+    if scatter_impl not in SCATTER_IMPLS:
+        raise ValueError(f"unknown scatter_impl {scatter_impl!r}; known: {SCATTER_IMPLS}")
+
+
+def tp_shard_ok(cfg: LlamaConfig, tp: int) -> bool:
+    """Whether this model's heads divide the tensor-parallel degree (the one
+    predicate behind every head-sharding legality decision)."""
+    return cfg.n_kv_heads % tp == 0 and cfg.n_heads % tp == 0
+
+
+def paged_impl_plan(
+    cfg: LlamaConfig, device, kv_dtype: str = "bfloat16", weights: str | None = None, *,
+    impl: str = "xla", scatter_impl: str = "xla",
+) -> dict:
     """What the serving functions run for this config on ``device``: always
-    the flash prefill, the ragged decode attention and the page scatter (their
-    int8 kernels for an int8 cache), as CUDA kernels on the card and as their
-    plain versions on the CPU. ``ragged_variant`` is the TPU formulation's
-    label for the same shapes; ``weights`` is "int8" for quantized weights
-    (the int8 matmul kernel) or the model dtype."""
+    the flash prefill and the page scatter (their int8 kernels for an int8
+    cache), as CUDA kernels on the card and as their plain versions on the
+    CPU. ``impl`` picks the decode structure, never a kernel's stand-in:
+    "xla" and "pallas" attend with the ragged decode over read-only pages
+    (``attention`` "ragged"), the two writeback impls write each layer's
+    token first and attend with the write-then-attend decode ("writeback").
+    ``ragged_variant`` is the TPU formulation's label for the ragged shapes;
+    ``weights`` is "int8" for quantized weights (the int8 matmul kernel) or
+    the model dtype. Nothing is downgraded; int8 pages on the writeback
+    structure raise on the card, where no kernel serves them yet."""
+    _check_impls(impl, scatter_impl)
+    on_card = torch.device(device).type == "cuda"
+    writeback = impl.endswith("-writeback")
+    if writeback and on_card and str(kv_dtype) == "int8":
+        raise NotImplementedError(
+            f"paged_impl={impl!r} with kv_dtype='int8' has no CUDA kernel yet ({_paged.WRITEBACK_INT8_ITEM})"
+        )
     return {
-        "attention": "ragged",
-        "ragged_variant": _paged.ragged_variant_for(cfg.n_kv_heads, kv_dtype),
+        "attention": "writeback" if writeback else "ragged",
+        "ragged_variant": None if writeback else _paged.ragged_variant_for(cfg.n_kv_heads, kv_dtype),
         "scatter": "kernel",
         "prefill": "flash",
-        "impl": "cuda" if torch.device(device).type == "cuda" else "plain",
+        "impl": "cuda" if on_card else "plain",
         "kv_dtype": str(kv_dtype),
         "weights": weights or cfg.dtype,
+        "requested": impl,
+        "downgraded": [],
     }
 
 
-def decode_step(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg: LlamaConfig):
+def decode_step(
+    params, tokens, positions, k_pages, v_pages, page_tables, active, cfg: LlamaConfig,
+    impl: str = "xla", scatter_impl: str = "xla",
+):
     """One decode token per slot against the paged cache. tokens/positions
     [B]; active [B] bool (dead slots attend an empty prefix and write trash
     page 0). Returns (logits [B, vocab] f32, k_pages, v_pages), pages updated
-    in place by one scatter after the last layer."""
+    in place.
+
+    ``impl`` selects the structure (:func:`paged_impl_plan`): "xla" and
+    "pallas" keep the pages read-only inside the layer loop (the ragged
+    decode kernel with the in-flight token as an extra softmax column) and
+    write every layer's K/V in one scatter after the last layer;
+    "xla-writeback" and "pallas-writeback" run :func:`_decode_step_writeback`.
+    ``scatter_impl`` names the JAX package's scatter choice; both values run
+    the scatter kernel."""
+    _check_impls(impl, scatter_impl)
+    if impl.endswith("-writeback"):
+        return _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg)
     B = tokens.shape[0]
     ps = k_pages.shape[2]
     cos, sin = _rope(cfg, positions[:, None])  # [B, 1, hd/2]
@@ -415,4 +467,26 @@ def decode_step(params, tokens, positions, k_pages, v_pages, page_tables, active
         k_all[li] = k_tok
         v_all[li] = v_tok
     _paged.scatter_kv_pages(k_pages, v_pages, k_all, v_all, page_idx[:, 0], slot[:, 0])
+    return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg), k_pages, v_pages
+
+
+def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg: LlamaConfig):
+    """Write-then-attend decode: each layer writes this token's K/V into its
+    pages (the scatter kernel over the one-layer view on the card), then the
+    write-then-attend decode attends over ``positions + 1`` rows, reading the
+    current token back from the cache. Dead slots write trash page 0 and
+    attend one row. Both writeback impls launch the same kernel."""
+    B = tokens.shape[0]
+    ps = k_pages.shape[2]
+    cos, sin = _rope(cfg, positions[:, None])  # [B, 1, hd/2]
+    page_idx, slot = _page_targets(page_tables, positions[:, None], active[:, None], ps)
+    page_idx, slot = page_idx[:, 0], slot[:, 0]
+    ctx_lens = torch.where(active, positions + 1, torch.ones_like(positions)).int()
+    x = params["embed"][tokens][:, None]  # [B, 1, dim]
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _qkv(layer, x, cfg, cos, sin)
+        k_pg, v_pg = k_pages[li], v_pages[li]  # [P, ps, Hkv, D] views
+        _paged.scatter_kv_layer(k_pg, v_pg, k[:, :, 0], v[:, :, 0], page_idx, slot)
+        o = _paged.paged_decode_attention(q[:, :, 0], k_pg, v_pg, page_tables, ctx_lens)
+        x = _finish_layer(layer, x, o.reshape(B, 1, -1), cfg)
     return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg), k_pages, v_pages

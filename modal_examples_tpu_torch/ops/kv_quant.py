@@ -5,7 +5,8 @@ Counterpart of ``modal_examples_tpu/ops/kv_quant.py``: ``QuantizedKV``,
 ``is_quantized``, ``resolve_kv_dtype``, ``kv_dtype_name``, ``quantize_kv``,
 ``dequantize_kv``, ``kv_empty``, ``kv_gather`` and ``kv_scatter``. The JAX
 functions return new arrays; ``kv_scatter`` here writes the pages in place
-and returns them.
+and returns them (all layers, or one layer's pages with
+``leading_layer=False``).
 
 int8 scheme (the JAX package's): pages keep the ``[L, P, page_size, Hkv, D]``
 layout in int8 with an f32 scale array ``[L, P, page_size, Hkv]`` beside
@@ -133,13 +134,16 @@ def kv_gather(pages, tables, layer=None, *, dtype=torch.bfloat16):
     return pages[tables] if layer is None else pages[layer][tables]
 
 
-def kv_scatter(pages, update, page_idx, slot):
-    """``pages[:, page_idx, slot] = update`` in place, quantizing the update
-    first for int8 pages (int8 rows plus their scales); returns ``pages``."""
+def kv_scatter(pages, update, page_idx, slot, *, leading_layer: bool = True):
+    """``pages[:, page_idx, slot] = update`` in place (``pages[page_idx, slot]``
+    for one layer's ``[P, ps, Hkv, D]`` pages when ``leading_layer`` is
+    False), quantizing the update first for int8 pages (int8 rows plus their
+    scales); returns ``pages``."""
+    idx = (slice(None), page_idx, slot) if leading_layer else (page_idx, slot)
     if is_quantized(pages):
         q = quantize_kv(update)
-        pages.data[:, page_idx, slot] = q.data
-        pages.scale[:, page_idx, slot] = q.scale
+        pages.data[idx] = q.data
+        pages.scale[idx] = q.scale
         return pages
-    pages[:, page_idx, slot] = update.to(pages.dtype)
+    pages[idx] = update.to(pages.dtype)
     return pages

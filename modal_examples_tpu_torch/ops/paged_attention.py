@@ -1,19 +1,20 @@
 """Paged-cache kernels: ragged decode attention (``csrc/paged_decode.cu``,
-int8 pages ``csrc/paged_decode_int8.cu``) and the KV page scatter
+int8 pages ``csrc/paged_decode_int8.cu``), the write-then-attend decode over
+one layer's pages (``csrc/paged_decode_writeback.cu``) and the KV page scatter
 (``csrc/kv_scatter.cu``, int8 pages ``csrc/kv_scatter_int8.cu``), each beside
 its plain version.
 
 Counterpart of ``modal_examples_tpu/ops/paged_attention.py``
-(``paged_decode_attention_ragged``, ``scatter_kv_pages``,
-``ragged_variant_for``). The cache is ``[L, P, page_size, Hkv, D]`` per array,
-page 0 being the trash page that padded and dead slots write; an int8 cache
-is a :class:`~.kv_quant.QuantizedKV` per array (int8 data plus f32 scales
-``[L, P, page_size, Hkv]``).
+(``paged_decode_attention_ragged``, ``paged_decode_attention``,
+``scatter_kv_pages``, ``ragged_variant_for``). The cache is ``[L, P,
+page_size, Hkv, D]`` per array, page 0 being the trash page that padded and
+dead slots write; an int8 cache is a :class:`~.kv_quant.QuantizedKV` per
+array (int8 data plus f32 scales ``[L, P, page_size, Hkv]``).
 
 Dispatch is by the tensor's device and the cache's kind and nothing else: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
-``decode_launches``, ``scatter_launches``, ``decode_int8_launches`` and
-``scatter_int8_launches`` count kernel launches.
+``decode_launches``, ``decode_writeback_launches``, ``scatter_launches``,
+``decode_int8_launches`` and ``scatter_int8_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -23,14 +24,18 @@ import ctypes
 import torch
 
 from . import _build
+from . import reference
 from .kv_quant import is_quantized, kv_gather, kv_scatter
-from .reference import paged_decode_attention_inflight
 
 #: kernel launches since the last reset (the main path's proof of use)
 decode_launches = 0
+decode_writeback_launches = 0
 scatter_launches = 0
 decode_int8_launches = 0
 scatter_int8_launches = 0
+
+#: the write-then-attend path's int8 pages on the card (no kernel yet)
+WRITEBACK_INT8_ITEM = "ROADMAP A12"
 
 _MAX_DECODE_HEAD_DIM = 256
 
@@ -61,7 +66,7 @@ def paged_decode_plain(q, k_pages, v_pages, layer: int, page_tables, prefix_lens
     (``paged_decode_attention_inflight``)."""
     ks = kv_gather(k_pages, page_tables, layer, dtype=q.dtype)
     vs = kv_gather(v_pages, page_tables, layer, dtype=q.dtype)
-    return paged_decode_attention_inflight(q, ks, vs, prefix_lens, k_new, v_new, sm_scale=sm_scale)
+    return reference.paged_decode_attention_inflight(q, ks, vs, prefix_lens, k_new, v_new, sm_scale=sm_scale)
 
 
 def _decode_lib():
@@ -189,6 +194,112 @@ def paged_decode_attention_ragged(
     )
 
 
+# -- write-then-attend decode attention ---------------------------------------------
+
+
+def paged_decode_writeback_plain(q, k_pages, v_pages, page_tables, context_lens, *, sm_scale=None):
+    """The kernel's function in plain PyTorch: over one layer's pages, the
+    first ``context_lens[b]`` rows of each sequence (int8 pages dequantized
+    at the query's dtype), ``q * scale`` in f32, an f32 softmax whose
+    probabilities stay f32 in the P.V product, divided by the softmax sum; a
+    sequence with no context gives zeros."""
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    pps = page_tables.shape[1]
+    S = pps * ps
+    G = Hq // Hkv
+    scale = D**-0.5 if sm_scale is None else sm_scale
+    ks = kv_gather(k_pages, page_tables.long(), dtype=q.dtype).reshape(B, S, Hkv, D)
+    vs = kv_gather(v_pages, page_tables.long(), dtype=q.dtype).reshape(B, S, Hkv, D)
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, Hkv, G, D).float() * scale, ks.float())
+    valid = torch.arange(S, device=q.device)[None, :] < context_lens.to(q.device)[:, None]  # [B, S]
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))  # exp(-inf) = 0
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, vs.float()) / torch.where(l > 0, l, torch.ones_like(l))
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def _decode_writeback_lib():
+    lib = _build.load("paged_decode_writeback")
+    fn = lib.paged_decode_writeback
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_decode_writeback_cuda(q, k_pages, v_pages, page_tables, context_lens, *, sm_scale: float):
+    """Launch ``csrc/paged_decode_writeback.cu`` on one layer's bf16 pages
+    ``[P, ps, Hkv, D]`` (a contiguous view of the cache)."""
+    global decode_writeback_launches
+    dev = q.device
+    bf16 = torch.bfloat16
+    _require_cuda("q", q, dev, bf16)
+    _require_cuda("k_pages", k_pages, dev, bf16)
+    _require_cuda("v_pages", v_pages, dev, bf16)
+    _require_cuda("page_tables", page_tables, dev, torch.int32)
+    _require_cuda("context_lens", context_lens, dev, torch.int32)
+    B, Hq, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    if D > _MAX_DECODE_HEAD_DIM or D % 8:
+        raise ValueError(
+            f"writeback decode kernel head dim must be a multiple of 8 up to {_MAX_DECODE_HEAD_DIM}; got {D}"
+        )
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    lib = _decode_writeback_lib()
+    err = lib.paged_decode_writeback(
+        _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(page_tables),
+        _build.ptr(context_lens), _build.ptr(out),
+        B, Hq, Hkv, D, ps, page_tables.shape[1], sm_scale, _build.stream_ptr(dev),
+    )
+    decode_writeback_launches += 1
+    _build.check(lib, "paged_decode_writeback", err)
+    return out
+
+
+def paged_decode_attention(
+    q,  # [B, Hq, D]
+    k_pages,  # [P, page_size, Hkv, D]: one layer's pages
+    v_pages,
+    page_tables,  # [B, pages_per_seq] int32
+    context_lens,  # [B] int32: tokens in the cache, the current one included
+    *,
+    sm_scale: float | None = None,
+    impl: str | None = None,  # "xla" or "pallas": accepted for parity, same function
+):  # [B, Hq, D]
+    """One decode step of attention over one layer's paged cache, the
+    current token already written (the write-then-attend structure).
+    ``impl`` names the JAX package's two formulations of this function; both
+    launch the same kernel on bf16 pages on the card. int8 pages
+    (:class:`QuantizedKV`) take the dequant-in-gather reference on the CPU
+    and raise on the card, where no kernel serves them yet."""
+    if impl not in (None, "xla", "pallas"):
+        raise ValueError(f"unknown paged decode impl {impl!r}; known: xla, pallas")
+    B, Hq, D = q.shape
+    _, _, Hkv, Dk = k_pages.shape
+    if Dk != D or v_pages.shape != k_pages.shape or is_quantized(v_pages) != is_quantized(k_pages):
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    scale = D**-0.5 if sm_scale is None else sm_scale
+    if is_quantized(k_pages):
+        if q.device.type == "cpu":
+            return reference.paged_decode_attention(
+                q, k_pages, v_pages, page_tables, context_lens, sm_scale=scale
+            ).to(q.dtype)
+        raise NotImplementedError(
+            f"int8 pages on the write-then-attend decode have no CUDA kernel yet ({WRITEBACK_INT8_ITEM})"
+        )
+    if q.device.type == "cpu":
+        return paged_decode_writeback_plain(q, k_pages, v_pages, page_tables, context_lens, sm_scale=scale)
+    return paged_decode_writeback_cuda(q.contiguous(), k_pages, v_pages, page_tables, context_lens, sm_scale=scale)
+
+
 # -- KV page scatter ------------------------------------------------------------
 
 
@@ -313,3 +424,16 @@ def scatter_kv_pages(
         k_pages, v_pages, k_all.to(k_pages.dtype).contiguous(), v_all.to(v_pages.dtype).contiguous(),
         page_idx, slot,
     )
+
+
+def scatter_kv_layer(k_pages, v_pages, k_new, v_new, page_idx, slot):
+    """Write N tokens' K/V ``[N, Hkv, D]`` into one layer's pages ``[P, ps,
+    Hkv, D]`` (a view of the cache) in place: ``kv_scatter(...,
+    leading_layer=False)`` on the CPU, the scatter kernel (its int8 kernel
+    for int8 pages) over the one-layer view on the card."""
+    if k_pages.device.type == "cpu":
+        kv_scatter(k_pages, k_new, page_idx, slot, leading_layer=False)
+        kv_scatter(v_pages, v_new, page_idx, slot, leading_layer=False)
+        return k_pages, v_pages
+    scatter_kv_pages(k_pages[None], v_pages[None], k_new[None], v_new[None], page_idx, slot)
+    return k_pages, v_pages

@@ -1,8 +1,8 @@
 """Plain PyTorch twins of the JAX package's reference attention functions.
 
 Counterpart of ``modal_examples_tpu/ops/reference.py`` (``attention``,
-``attention_with_lse``, ``attention_chunked``) plus
-``paged_decode_attention_inflight`` from
+``attention_with_lse``, ``attention_chunked``, ``paged_decode_attention``)
+plus ``paged_decode_attention_inflight`` from
 ``modal_examples_tpu/ops/paged_attention.py``, the exact-match target of the
 ragged decode kernel. Numerics follow the JAX versions: products of the
 inputs accumulate in f32, the softmax is f32, and probabilities are rounded
@@ -12,6 +12,8 @@ to the value dtype before the P.V product.
 from __future__ import annotations
 
 import torch
+
+from .kv_quant import kv_gather
 
 
 def _scale(D: int, sm_scale: float | None) -> float:
@@ -61,6 +63,32 @@ def attention_chunked(q, k, v, *, q_offset: int, sm_scale: float | None = None):
     """Rectangular causal attention: queries at q_offset.. against K/V from 0."""
     s = _causal_mask(_grouped_scores(q, k, sm_scale), q_offset)
     return _pv(torch.softmax(s, dim=-1), v, q.shape)
+
+
+def paged_decode_attention(
+    q,  # [B, Hq, D]: one new token per sequence
+    k_pages,  # [P, page_size, Hkv, D]: one layer's pages
+    v_pages,
+    page_tables,  # [B, pages_per_seq] int32
+    context_lens,  # [B] int32: tokens in the cache, the current one included
+    *,
+    sm_scale: float | None = None,
+):  # [B, Hq, D]
+    """Decode attention over one layer's paged cache, the current token
+    already written. int8 pages (:class:`~.kv_quant.QuantizedKV`) are
+    dequantized in the gather at the query's dtype."""
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    pps = page_tables.shape[1]
+    S = pps * ps
+    ks = kv_gather(k_pages, page_tables.long(), dtype=q.dtype)  # [B, pps, ps, Hkv, D]
+    vs = kv_gather(v_pages, page_tables.long(), dtype=q.dtype)
+    ks = ks.permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    vs = vs.permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    s = _grouped_scores(q[:, :, None], ks, sm_scale)  # [B, Hkv, G, 1, S]
+    valid = torch.arange(S, device=q.device)[None, :] < context_lens.to(q.device)[:, None]
+    s = s.masked_fill(~valid[:, None, None, None], float("-inf"))
+    return _pv(torch.softmax(s, dim=-1), vs, q.shape)
 
 
 def paged_decode_attention_inflight(

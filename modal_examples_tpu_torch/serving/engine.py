@@ -22,14 +22,25 @@ Quantized serving (``quantization="int8"``: int8 weights through the int8
 matmul kernel; ``kv_dtype="int8"``: the int8 paged cache with its decode and
 scatter kernels) follows the JAX engine's arguments.
 
+The decode structure (``paged_impl``, ``scatter_impl``; argument, then
+``MTPU_PAGED_IMPL``/``MTPU_SCATTER_IMPL``, then "xla") is resolved once and
+passed to every ``decode_step``: "xla"/"pallas" attend over read-only pages
+with the ragged decode kernel, the writeback impls with the write-then-attend
+kernel. ``decode_steps`` (argument, then ``MTPU_DECODE_STEPS``, then 1; read
+once per dispatch, so it may change at runtime) above 1 replaces the decode
+block with the macro-step program (``serving/multistep``): N steps with
+on-device stop and budget masks, one host read of tokens and validity, and
+detokenization on a :class:`~.multistep.DetokWorker` thread.
+
 Not in this slice: int4 weights, the prefix cache, the prefill budget,
-policies and deadlines, macro-step and speculative decoding, metrics and
-tracing.
+policies and deadlines, the pipelined dispatch, speculative decoding,
+metrics and tracing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -42,10 +53,12 @@ import torch
 from ..models import llama
 from ..models.quantize import SUPPORTED as _QUANT_MODES
 from ..models.quantize import QuantizedWeight, bits_of, init_quantized_llama, quantize_llama
+from ..ops.kv_quant import resolve_kv_dtype
 from ..scheduling.admission import WaitingQueue
 from ..utils.device import resolve_device
 from ..utils.tokenizer import load_tokenizer
 from .kv_cache import OutOfPages, PagedKVCache
+from .multistep import DetokWorker, build_multistep_fn, resolve_decode_steps
 from .sampling import SamplingParams, prng_key, sample, split
 
 
@@ -65,6 +78,7 @@ class Request:
     # engine-assigned when params.seed is None: sampling is derived from
     # (auto_seed, position), never from scheduler timing
     auto_seed: int | None = None
+    emitted_len: int = 0  # characters the detokenization worker has sent
 
 
 @dataclasses.dataclass
@@ -83,7 +97,7 @@ class _Slot:
 
 @dataclasses.dataclass
 class EngineStats:
-    steps: int = 0  # decode steps run (each a decode_step over all slots)
+    steps: int = 0  # decode steps run (each a decode_step over all slots; macro-steps count executed ones)
     decode_seconds: float = 0.0  # host wall time of decode blocks, read included
     decode_tokens: int = 0  # tokens accepted from decode blocks
 
@@ -149,12 +163,26 @@ class LLMEngine:
         decode_block: int = 8,
         max_queue: int = 4096,
         device=None,
+        paged_impl: str | None = None,  # decode structure; None: env, then "xla"
+        scatter_impl: str | None = None,  # KV scatter; None: env, then "xla"
+        decode_steps: int | None = None,  # macro-step N; None: env, then 1
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = load_tokenizer(model_dir)
         if quantization not in _QUANT_MODES:
             raise ValueError(f"unknown quantization {quantization!r}; supported: {_QUANT_MODES}")
+        # resolved once and passed to every decode_step
+        self.paged_impl = paged_impl or os.environ.get("MTPU_PAGED_IMPL", "xla")
+        self.scatter_impl = scatter_impl or os.environ.get("MTPU_SCATTER_IMPL", "xla")
+        given_int8 = params is not None and isinstance(params["layers"][0]["wq"], QuantizedWeight)
+        # validates both impl names, and refuses int8 pages on the writeback
+        # path on the card, before a byte is allocated
+        self.impl_plan = llama.paged_impl_plan(
+            cfg, self.device, str(resolve_kv_dtype(kv_dtype)).removeprefix("torch."),
+            "int8" if quantization == "int8" or given_int8 else None,
+            impl=self.paged_impl, scatter_impl=self.scatter_impl,
+        )
         if params is None:
             if quantization is not None:
                 # drawn and quantized layer by layer: no resident bf16 tree
@@ -173,11 +201,11 @@ class LLMEngine:
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             n_pages=n_pages, page_size=page_size, kv_dtype=kv_dtype, device=self.device,
         )
-        weights = "int8" if isinstance(params["layers"][0]["wq"], QuantizedWeight) else cfg.dtype
-        self.impl_plan = llama.paged_impl_plan(cfg, self.device, self.cache.kv_dtype, weights)
         self.prefill_buckets = tuple(b for b in sorted(prefill_buckets) if b <= max_model_len) or (max_model_len,)
         self.prefill_batch = max(1, min(prefill_batch, max_slots))
         self.decode_block = max(1, int(decode_block))
+        self.decode_steps = resolve_decode_steps(decode_steps)  # read once per dispatch
+        self._detok: DetokWorker | None = None  # created at the first routed token
         self.slots = [_Slot() for _ in range(max_slots)]
         self.waiting = WaitingQueue(max_queue)
         self.stats = EngineStats()
@@ -262,7 +290,7 @@ class LLMEngine:
         next scheduler tick (its slot and pages are freed there)."""
         request.aborted = True
         if self.waiting.remove(request):
-            request.out_queue.put(_FINISH)
+            self._finish_stream(request, _FINISH)
 
     def start(self) -> "LLMEngine":
         with self._lock:
@@ -283,6 +311,10 @@ class LLMEngine:
         self._running = False
         if self._thread is not None and self._thread is not threading.current_thread():
             self._thread.join(timeout=60)
+        if self._detok is not None:
+            # drain held text BEFORE the release sweep: its direct markers
+            # must land behind every chunk the worker still owes
+            self._detok.stop()
         self._release_all(_FINISH)
 
     # -- scheduler loop -------------------------------------------------------
@@ -308,17 +340,42 @@ class LLMEngine:
 
     def _release_all(self, marker: _Finish) -> None:
         for req in self.waiting.drain():
-            req.out_queue.put(marker)
+            self._finish_stream(req, marker)
         for slot in self.slots:
             if not slot.free:
                 req = slot.request
                 self._release_slot(slot)
-                req.out_queue.put(marker)
+                self._finish_stream(req, marker)
 
     def _release_slot(self, slot: _Slot) -> None:
         self.cache.allocator.free(slot.pages)
         slot.pages = []
         slot.request = None
+
+    def _finish_stream(self, req: Request, marker: _Finish) -> None:
+        """Every terminal marker goes through here: a stream the detok worker
+        owns gets its marker queued behind its pending text; the rest are
+        delivered at once. Callers free the slot and pages first, so a client
+        woken by the marker finds them freed."""
+        w = self._detok
+        if w is not None and w.alive and w.owns(req):
+            w.finish(req, marker)
+        else:
+            self._deliver_finish(req, marker)
+
+    def _deliver_finish(self, req: Request, marker: _Finish) -> None:
+        req.out_queue.put(marker)
+
+    def _ensure_detok(self) -> DetokWorker:
+        """The detokenization worker, created (or replaced, if it died) on
+        demand; owned streams re-register from ``req.emitted_len``."""
+        w = self._detok
+        if w is None or not w.alive:
+            w = self._detok = DetokWorker(
+                tokenizer=self.tokenizer, deliver=self._deliver_finish,
+                safe_len=_stop_safe_len, unstable_tail=_unstable_tail,
+            )
+        return w
 
     def step(self) -> bool:
         """One scheduler tick: reap aborts -> admit + prefill -> one decode block."""
@@ -326,7 +383,7 @@ class LLMEngine:
             if not slot.free and slot.request.aborted:
                 req = slot.request
                 self._release_slot(slot)
-                req.out_queue.put(_FINISH)
+                self._finish_stream(req, _FINISH)
         admitted = self._admit()
         decoded = self._decode_tick()
         return admitted or decoded
@@ -342,7 +399,7 @@ class LLMEngine:
         assigned: list[tuple[int, Request, list[int]]] = []
         for pos, req in enumerate(entries):
             if req.aborted:
-                req.out_queue.put(_FINISH)
+                self._finish_stream(req, _FINISH)
                 continue
             n_total = min(len(req.prompt_tokens) + req.params.max_tokens, self.max_model_len)
             try:
@@ -449,7 +506,9 @@ class LLMEngine:
     def _decode_tick(self) -> bool:
         """One decode block over the live slots: up to ``decode_block`` steps,
         each slot stopping at its host-known step budget, then one read of the
-        block's tokens and their acceptance."""
+        block's tokens and their acceptance. With ``decode_steps`` N > 1 the
+        macro-step program runs instead (lanes also die at their stop token
+        on the device) and :meth:`_harvest` accepts its valid rows."""
         live = [i for i, s in enumerate(self.slots) if not s.free]
         if not live:
             return False
@@ -472,19 +531,35 @@ class LLMEngine:
             temps[i], top_ps[i], top_ks[i] = p.temperature, p.top_p, p.top_k
             seeds[i] = _req_seed(s.request)
             snapshot.append((i, s.request))
-        n_steps = int(min(self.decode_block, budgets.max()))
         key = self._next_key()
-        step_keys = split(key, self.decode_block)
         tok = self._dev(tokens)
         pos = self._dev(positions)
         tables = self._dev(self._page_tables)
         temps_d, top_ps_d, top_ks_d, seeds_d = (self._dev(a) for a in (temps, top_ps, top_ks, seeds))
         needs_filter = bool(((top_ps < 1.0) | (top_ks > 0)).any())
+        n = max(1, int(self.decode_steps))  # runtime-mutable: read once
+        if n > 1:
+            live_mask = np.zeros((S,), bool)
+            live_mask[live] = True
+            multistep = build_multistep_fn(
+                self.cfg, paged_impl=self.paged_impl, scatter_impl=self.scatter_impl,
+                eos_id=self.tokenizer.eos_id, n_steps=n,
+            )
+            toks, valid, _last = multistep(
+                self.params, self.cache.k_pages, self.cache.v_pages, tok, pos, tables, self._dev(live_mask), key,
+                temps_d, top_ps_d, top_ks_d, seeds_d, self._dev(budgets), needs_filter=needs_filter,
+            )
+            self._harvest(torch.stack([toks, valid.to(toks.dtype)]).cpu().numpy(), snapshot)  # the one host read
+            self.stats.decode_seconds += time.monotonic() - t0
+            return True
+        n_steps = int(min(self.decode_block, budgets.max()))
+        step_keys = split(key, self.decode_block)
         steps_out = []
         for k in range(n_steps):
             active = self._dev(budgets > k)
             logits, _, _ = llama.decode_step(
                 self.params, tok, pos, self.cache.k_pages, self.cache.v_pages, tables, active, self.cfg,
+                impl=self.paged_impl, scatter_impl=self.scatter_impl,
             )
             nxt = sample(
                 logits, step_keys[k], temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=pos,
@@ -509,9 +584,32 @@ class LLMEngine:
         self.stats.decode_seconds += time.monotonic() - t0
         return True
 
+    def _harvest(self, toks_valid: np.ndarray, snapshot: list) -> None:
+        """Accept a macro-step's tokens: ``toks_valid`` [2, N, B] holds the
+        tokens and their validity. Each slot takes its valid prefix and stops
+        at the first invalid row (its lane died on the device at its stop
+        token or budget); only steps with a valid row ran."""
+        toks, valid = toks_valid[0], toks_valid[1].astype(bool)
+        self.stats.steps += int(valid.any(axis=1).sum())
+        accepted = 0
+        for i, req in snapshot:
+            s = self.slots[i]
+            if s.request is not req or req.aborted:
+                continue  # finished or aborted while the macro-step ran
+            for k in range(toks.shape[0]):
+                if s.request is not req or not valid[k, i]:
+                    break
+                s.position += 1
+                s.last_token = int(toks[k, i])
+                self._accept_token(i, s.last_token)
+                accepted += 1
+        self.stats.decode_tokens += accepted
+
     def _accept_token(self, slot_idx: int, token: int) -> None:
         """Book one sampled token: eos / max_tokens / model-length finish,
-        incremental detokenization with stop strings and hold-back, release
+        then the text: on the detok worker while ``decode_steps > 1`` (or for
+        a stream it already owns), else inline (incremental detokenization
+        with stop strings and hold-back). The slot and pages are released
         before the finish marker."""
         slot = self.slots[slot_idx]
         req = slot.request
@@ -519,12 +617,29 @@ class LLMEngine:
             req.first_token_at = time.monotonic()
         req.n_generated += 1
         finished, reason = False, None
-        if token == self.tokenizer.eos_id:
+        appended = token != self.tokenizer.eos_id
+        if not appended:
             finished, reason = True, "stop"
         else:
             slot.generated.append(token)
             if len(slot.generated) >= req.params.max_tokens or slot.position + 1 >= self.max_model_len:
                 finished, reason = True, "length"
+        w = self._detok
+        if self.decode_steps > 1 or (w is not None and w.owns(req)):
+            if w is None or not w.alive:
+                w = self._ensure_detok()
+            if w.alive:  # else the inline path below
+                if not w.owns(req):
+                    prior = slot.generated[:-1] if appended else list(slot.generated)
+                    w.register(req, prior, max(slot.emitted_text_len, req.emitted_len))
+                if appended:
+                    w.feed(req, token)
+                if finished:
+                    # release BEFORE the marker is queued: the worker may
+                    # deliver it, and wake the client, at once
+                    self._release_slot(slot)
+                    self._finish_stream(req, _Finish(reason))
+                return
         text = self.tokenizer.decode(slot.generated)
         for stop_s in req.params.stop:
             idx = text.find(stop_s)
@@ -540,4 +655,4 @@ class LLMEngine:
         if finished:
             # a client woken by the marker must find the slot and pages freed
             self._release_slot(slot)
-            req.out_queue.put(_Finish(reason))
+            self._finish_stream(req, _Finish(reason))

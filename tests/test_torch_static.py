@@ -55,7 +55,7 @@ def _launches(fn: ast.FunctionDef, kernel: str) -> bool:
 def test_there_are_kernels():
     assert KERNELS == [
         "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "kv_scatter", "kv_scatter_int8", "paged_decode",
-        "paged_decode_int8", "quantized_matmul",
+        "paged_decode_int8", "paged_decode_writeback", "quantized_matmul",
     ]
 
 
@@ -63,6 +63,13 @@ def test_import_scan_reaches_the_training_path():
     names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
     for mod in ("training/trainer.py", "training/checkpoints.py", "training/resilience.py",
                 "models/lora.py", "utils/tracking.py", "utils/tree.py"):
+        assert mod in names
+
+
+def test_import_scan_reaches_the_macro_step_path():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("ops/scan_loop.py", "serving/multistep/__init__.py", "serving/multistep/runtime.py",
+                "serving/multistep/detok.py"):
         assert mod in names
 
 
