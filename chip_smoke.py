@@ -11,11 +11,16 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-1. build the CUDA kernels from ``modal_examples_tpu_torch/csrc``;
+1. build the CUDA kernels from ``modal_examples_tpu_torch/csrc`` (the
+   ptxas register and spill report of the flash forward and dK/dV kernels
+   logged), and read those two libraries' SASS with ``cuobjdump``: each
+   must hold wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions;
 2. each kernel against its plain version at the main paths' shapes
    (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8); the flash
-   backward kernels also non-causal, at a ragged S=300 and with a nonzero
-   lse cotangent; the int8 matmul at M = 8, 2048 and 300 over every weight
+   forward also at a ragged S=300 (causal and not), a chunk at
+   q_offset=496 over a ragged Skv=700, and D=64 and 256; the flash
+   backward kernels also non-causal, at a ragged S=300, at D=64 and with a
+   nonzero lse cotangent; the int8 matmul at M = 8, 2048 and 300 over every weight
    shape of the model and a ragged 4000 x 11000; the int8 decode at Hkv=32
    and 8; the int8 scatter bitwise at 8 and 2048 tokens; the write-then-attend
    decode over one layer's pages at Hkv=32 and 8, contexts 0..1001 and a dead
@@ -59,6 +64,9 @@ import gc
 import itertools
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -97,6 +105,19 @@ TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq
 QMM_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (4000, 11000)]
 # training: adapter-gradient cosine between the flash and xla attention paths
 GRAD_COSINE_MIN = 0.999
+# K1 against its plain version: (B, Hq, Hkv, S, Skv, q_offset, causal, D)
+K1_CASES = [
+    (4, 32, 32, 512, 512, 0, True, 128),      # the engine's prefill batch
+    (1, 32, 32, 512, 1024, 512, True, 128),   # a prompt chunk at a tile boundary
+    (4, 32, 8, 512, 512, 0, True, 128),       # GQA
+    (2, 8, 2, 300, 300, 0, True, 128),        # ragged S
+    (2, 8, 2, 300, 300, 0, False, 128),       # ragged, full attention
+    (1, 32, 32, 204, 700, 496, True, 128),    # q_offset a multiple of 16, not of the tile; ragged Skv
+    (2, 8, 2, 300, 300, 0, True, 64),         # other head dims
+    (2, 4, 2, 200, 200, 0, True, 256),
+]
+# the kernels whose products must run on wgmma and whose tiles must arrive by TMA
+SASS_CHECKED = ("flash_fwd", "flash_bwd_dkv")
 
 
 def log(*a) -> None:
@@ -120,6 +141,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def sdpa(q, k, v, causal: bool):
+    """PyTorch's attention on the same inputs: a yardstick, never the port's path."""
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+
+def check_sass(_build) -> None:
+    """Logs the counts of wgmma (``HGMMA``) and TMA load (``UTMALDG``)
+    instructions in the built libraries of ``SASS_CHECKED``, read with
+    ``cuobjdump -sass``; raises if a library has none of either."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found (PATH or /usr/local/cuda/bin)")
+    counts = {}
+    for name in SASS_CHECKED:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
+                              check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    log(f"SASS of the wgmma/TMA kernels: {counts}")
+    if not all(n > 0 for c in counts.values() for n in c.values()):
+        raise AssertionError(f"a kernel has no wgmma or no TMA load in its SASS: {counts}")
 
 
 # -- phase 2 inputs ---------------------------------------------------------------
@@ -225,13 +268,17 @@ def scatter_case(gen, L, N, P, Hkv=32, D=128, ps=16):
 def phase_kernels_vs_plain(fa, pa) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
-    for B, Hq, Hkv, S, Skv, off in [(4, 32, 32, 512, 512, 0), (1, 32, 32, 512, 1024, 512), (4, 32, 8, 512, 512, 0)]:
-        q, k, v = flash_case(gen, B, Hq, Hkv, S, Skv)
-        o, lse = fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=128**-0.5, q_offset=off)
+    for B, Hq, Hkv, S, Skv, off, causal, D in K1_CASES:
+        q, k, v = flash_case(gen, B, Hq, Hkv, S, Skv, D)
+        o, lse = fa.flash_forward_cuda(q, k, v, causal=causal, sm_scale=D**-0.5, q_offset=off)
         torch.cuda.synchronize()
-        o2, lse2 = fa.flash_forward_plain(q, k, v, causal=True, sm_scale=128**-0.5, q_offset=off)
+        o2, lse2 = fa.flash_forward_plain(q, k, v, causal=causal, sm_scale=D**-0.5, q_offset=off)
         e, e_lse = max_err(o, o2), max_err(lse, lse2)
-        log(f"K1 flash B={B} Hq={Hq} Hkv={Hkv} S={S} Skv={Skv} q_offset={off}: max|o-plain|={e:.3g} max|lse-plain|={e_lse:.3g}")
+        # PyTorch's flash kernel on the same inputs also rounds P to bf16: its
+        # reading is logged beside the kernel's, not held to a limit
+        lib = "" if off else (f", SDPA max|o-plain|={max_err(sdpa(q, k, v, causal), o2):.3g}")
+        log(f"K1 flash B={B} Hq={Hq} Hkv={Hkv} S={S} Skv={Skv} q_offset={off} causal={causal} D={D}: "
+            f"max|o-plain|={e:.3g} max|lse-plain|={e_lse:.3g}{lib}")
         if not (e <= TOL["flash_fwd"] and e_lse <= 1e-3):
             raise AssertionError(f"flash kernel disagrees with its plain version: {e}, {e_lse}")
         errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), e)
@@ -302,22 +349,23 @@ def rel_err(a, b) -> float:
 def phase_backward_vs_plain(fa, errs: dict) -> None:
     """dQ and dK/dV kernels against flash_backward_plain on the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    cases = [  # (B, Hq, Hkv, S, causal, nonzero dlse)
-        (2, 32, 32, 512, True, False),   # the training path's shape (MHA)
-        (2, 32, 8, 512, True, False),    # GQA
-        (2, 32, 32, 512, False, False),  # non-causal
-        (2, 8, 2, 300, True, False),     # ragged S
-        (2, 32, 32, 512, True, True),    # lse cotangent
+    cases = [  # (B, Hq, Hkv, S, causal, nonzero dlse, D)
+        (2, 32, 32, 512, True, False, 128),   # the training path's shape (MHA)
+        (2, 32, 8, 512, True, False, 128),    # GQA
+        (2, 32, 32, 512, False, False, 128),  # non-causal
+        (2, 8, 2, 300, True, False, 128),     # ragged S
+        (2, 32, 32, 512, True, True, 128),    # lse cotangent
+        (2, 8, 2, 300, True, False, 64),      # another head dim
     ]
-    for B, Hq, Hkv, S, causal, nz in cases:
-        args, o = bwd_case(fa, gen, B, Hq, Hkv, S, causal, nz)
-        dq = fa.flash_bwd_dq_cuda(*args, causal=causal, sm_scale=128**-0.5)
-        dk, dv = fa.flash_bwd_dkv_cuda(*args, causal=causal, sm_scale=128**-0.5)
+    for B, Hq, Hkv, S, causal, nz, D in cases:
+        args, o = bwd_case(fa, gen, B, Hq, Hkv, S, causal, nz, D)
+        dq = fa.flash_bwd_dq_cuda(*args, causal=causal, sm_scale=D**-0.5)
+        dk, dv = fa.flash_bwd_dkv_cuda(*args, causal=causal, sm_scale=D**-0.5)
         torch.cuda.synchronize()
         q, k, v, do, lse, _, dlse = args
-        want = fa.flash_backward_plain(q, k, v, o, lse, do, dlse, causal=causal, sm_scale=128**-0.5)
+        want = fa.flash_backward_plain(q, k, v, o, lse, do, dlse, causal=causal, sm_scale=D**-0.5)
         rel = [rel_err(g, w) for g, w in zip((dq, dk, dv), want)]
-        log(f"K5/K6 flash bwd B={B} Hq={Hq} Hkv={Hkv} S={S} causal={causal} dlse={'randn' if nz else 0}: "
+        log(f"K5/K6 flash bwd B={B} Hq={Hq} Hkv={Hkv} S={S} causal={causal} dlse={'randn' if nz else 0} D={D}: "
             f"max|d-plain|/max|plain| dq={rel[0]:.3g} dk={rel[1]:.3g} dv={rel[2]:.3g}")
         if not (rel[0] <= TOL["flash_bwd_dq"] and max(rel[1:]) <= TOL["flash_bwd_dkv"]):
             raise AssertionError(f"flash backward kernels disagree with flash_backward_plain: {rel}")
@@ -818,8 +866,6 @@ def phase_training(fa, llama, lora, training, params) -> dict:
 
 
 def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
-    import torch.nn.functional as F
-
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
     # K1 at the engine's prefill batch: 4 prompts in the 512 bucket
@@ -834,7 +880,7 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         plain_ms=time_ms(lambda: fa.flash_forward_plain(q, k, v, causal=True, sm_scale=D**-0.5), reps=5),
         bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
         bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)),
+        library_ms=time_ms(lambda: sdpa(q, k, v, True)),
     ))
     del q, k, v
     # K2 at a decode step of the engine's shape: 8 slots, ragged prefixes 0..1000
@@ -1049,8 +1095,12 @@ def main() -> int:
     log("plain versions: torch.backends.cuda.matmul.allow_tf32=False, cudnn.allow_tf32=False")
 
     t0 = time.monotonic()
-    _build.build()
+    ptxas = _build.build(verbose=True)
     log(f"phase 1 build: {time.monotonic() - t0:.1f}s for {_build.kernel_names()}")
+    for name in SASS_CHECKED:  # registers and spills a thread, one pair of lines per head dim
+        log(f"{name} ptxas: " + " | ".join(
+            line.strip() for line in ptxas.get(name, "").splitlines() if "registers" in line or "spill" in line))
+    check_sass(_build)
     errs = phase_kernels_vs_plain(fa, pa)
     phase_backward_vs_plain(fa, errs)
     phase_int8_kernels_vs_plain(pa, errs)

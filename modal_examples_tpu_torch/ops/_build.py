@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, with one
 ``nvcc`` process of its own, into ``build/kernels/lib<name>-<hash>.so`` at the
-repository root (``build/`` is git-ignored). The hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one loads as it is.
+repository root (``build/`` is git-ignored). The hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and an unchanged one loads as it is.
 :func:`build` starts every missing library's ``nvcc`` at once and waits for
 all of them. A failed build raises; nothing falls back.
 
@@ -49,8 +50,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of that source, every
+    shared header ``csrc/*.cuh`` (any source may include one) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

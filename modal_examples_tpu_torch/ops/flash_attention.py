@@ -82,7 +82,9 @@ def _lib():
 
 
 def flash_forward_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
-    """Launch ``csrc/flash_fwd.cu``: bf16, contiguous, head dim in 32/64/128/256."""
+    """Launch ``csrc/flash_fwd.cu``: bf16, contiguous, 16-byte aligned, head
+    dim in 32/64/128/256. The kernel runs Q.K^T and P.V on wgmma over tiles
+    that TMA brings into a shared-memory ring; it rounds P to bf16 for P.V."""
     global launches
     B, Hq, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -93,6 +95,8 @@ def flash_forward_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int 
             raise ValueError(f"flash kernel takes bfloat16; {name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel head dim must be one of {_KERNEL_HEAD_DIMS}; got {D}")
     o = torch.empty_like(q)
@@ -227,10 +231,15 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: 
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
-    """Launch ``csrc/flash_bwd_dkv.cu``: inputs as :func:`flash_bwd_dq_cuda`.
-    Returns (dk, dv) in bf16, already summed over each kv head's query heads."""
+    """Launch ``csrc/flash_bwd_dkv.cu``: inputs as :func:`flash_bwd_dq_cuda`
+    (the bf16 ones 16-byte aligned: TMA loads their tiles; all four products
+    run on wgmma). Returns (dk, dv) in bf16, already summed over each kv
+    head's query heads."""
     global dkv_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse)
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
     B, Hq, S, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _bwd_lib("flash_bwd_dkv")

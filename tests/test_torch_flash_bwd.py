@@ -104,20 +104,25 @@ def test_chunked_stays_forward_only_and_training_path_is_differentiable():
 
 
 @pytest.mark.gpu
-def test_cuda_backward_launches_the_kernels():
+@pytest.mark.parametrize(
+    "B,hq,hkv,s,d,causal",
+    [(1, 4, 4, 200, 64, True), (2, 8, 2, 300, 128, True), (1, 4, 4, 200, 64, False)],
+    ids=["causal", "ragged-gqa", "non-causal"],
+)
+def test_cuda_backward_launches_the_kernels(B, hq, hkv, s, d, causal):
     """On a CUDA tensor the backward runs the dQ and dK/dV kernels, once each
     per call, and agrees with the plain backward (bf16 inputs)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the backward kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(1, 4, 200, 64, generator=g, device="cuda").bfloat16().requires_grad_(True)
-               for _ in range(3))
+    q = torch.randn(B, hq, s, d, generator=g, device="cuda").bfloat16().requires_grad_(True)
+    k, v = (torch.randn(B, hkv, s, d, generator=g, device="cuda").bfloat16().requires_grad_(True) for _ in range(2))
     n_dq, n_dkv = tfa.dq_launches, tfa.dkv_launches
-    tfa.flash_attention(q, k, v).float().square().sum().backward()
+    tfa.flash_attention(q, k, v, causal).float().square().sum().backward()
     assert (tfa.dq_launches - n_dq, tfa.dkv_launches - n_dkv) == (1, 1)
-    o, lse = tfa.flash_forward_plain(q.detach(), k.detach(), v.detach(), causal=True, sm_scale=64**-0.5)
+    o, lse = tfa.flash_forward_plain(q.detach(), k.detach(), v.detach(), causal=causal, sm_scale=d**-0.5)
     want = tfa.flash_backward_plain(q.detach(), k.detach(), v.detach(), o, lse, 2 * o.float(),
-                                    torch.zeros_like(lse), causal=True, sm_scale=64**-0.5)
+                                    torch.zeros_like(lse), causal=causal, sm_scale=d**-0.5)
     for got, w in zip((q.grad, k.grad, v.grad), want):
         err = (got.float() - w.float()).abs().max() / w.float().abs().max()
         assert err < 2e-2

@@ -186,14 +186,27 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.gpu
-def test_kernels_match_plain_versions_on_card():
+@pytest.mark.parametrize(
+    "B,hq,hkv,s,skv,q_offset,causal,d,o_tol",
+    [
+        (2, 4, 4, 70, 70, 0, True, 64, 1e-2),
+        # chip_smoke.py's K1 limit: o is bf16, and P is rounded to bf16 for
+        # P.V, so rows with few keys (|o| up to ~4) may differ by a bf16 ulp
+        (2, 8, 2, 300, 300, 0, True, 128, 2e-2),  # ragged, GQA
+        (1, 4, 4, 204, 700, 496, True, 128, 2e-2),  # a chunk off the tile grid, ragged Skv
+        (2, 4, 4, 70, 70, 0, False, 64, 1e-2),  # full attention
+    ],
+    ids=["causal", "ragged-gqa", "chunk-q_offset-496", "non-causal"],
+)
+def test_kernels_match_plain_versions_on_card(B, hq, hkv, s, skv, q_offset, causal, d, o_tol):
     """Run on the card (``python3 chip_smoke.py`` covers the same at full width)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn(2, 4, 70, 64, generator=g, device=dev).bfloat16() for _ in range(3))
-    o, lse = tfa.flash_forward_cuda(q, k, v, causal=True, sm_scale=0.125)
-    o2, lse2 = tfa.flash_forward_plain(q, k, v, causal=True, sm_scale=0.125)
-    assert (o.float() - o2.float()).abs().max().item() < 1e-2
+    q = torch.randn(B, hq, s, d, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, hkv, skv, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    o, lse = tfa.flash_forward_cuda(q, k, v, causal=causal, sm_scale=d**-0.5, q_offset=q_offset)
+    o2, lse2 = tfa.flash_forward_plain(q, k, v, causal=causal, sm_scale=d**-0.5, q_offset=q_offset)
+    assert (o.float() - o2.float()).abs().max().item() < o_tol
     assert (lse - lse2).abs().max().item() < 1e-4
