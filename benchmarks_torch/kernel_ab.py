@@ -1,18 +1,24 @@
-"""One flash kernel of the port built from two source trees, timed in turns
-in one process on one card.
+"""One kernel of the port built from two source trees, timed in turns in one
+process on one card.
 
 ``OTHER`` is another ``csrc`` directory: for example the parent commit's,
 unpacked with ``git archive`` into a git-ignored directory. Both libraries
 build from their sources (``ops/_build.py``; the other one into
 ``build/kernels_ab/``), both are held against the plain version on the timed
 inputs, then each is timed in the order this, other, other, this (``--rounds``
-times) two ways: CUDA events around 50 back-to-back launches (the kernel's
-time), and the median of 20 single launches each between its own events
-(``chip_smoke.py`` phase 5's method, which adds the wrapper's host time
-whenever it exceeds the kernel's). Prints one JSON line per shape. Run from
-the repository root on one GPU:
+times) three ways: CUDA events around 50 back-to-back launches
+(``chip_smoke.back_to_back_ms``), the median of 20 single launches each
+between its own events (``chip_smoke.time_ms``, phase 5's ``ms``), and the
+device time of 40 launches under ``torch.profiler`` (every kernel a launch
+runs, summed). Back-to-back is the kernel's time only while the host
+enqueues faster than the card runs; for a kernel shorter than the wrapper's
+host time (~0.03-0.05 ms) only the device time is. The int8 matmul cycles
+over four weight copies (more than the 50 MB L2), as a decode step streams
+its weights, at M = 8 over every weight shape of Llama-2-7B and at M = 2048.
+Prints one JSON line per shape. Run from the repository root on one GPU:
 
-    python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dkv] [--rounds R]
+    python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul]
+        [--rounds R]
 """
 
 from __future__ import annotations
@@ -33,9 +39,17 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from modal_examples_tpu_torch.ops import _build  # noqa: E402
 from modal_examples_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from modal_examples_tpu_torch.ops import quantized_matmul as qmm  # noqa: E402
 
-# (B, H, S): phase 5's prefill batch for the forward, the training step's for both
-SHAPES = {"flash_fwd": [(4, 32, 512), (2, 32, 512)], "flash_bwd_dkv": [(2, 32, 512)]}
+# flash kernels: (B, H, S), phase 5's prefill batch for the forward, the
+# training step's for the backward; the int8 matmul: M over K x N
+SHAPES = {
+    "flash_fwd": [(4, 32, 512), (2, 32, 512)],
+    "flash_bwd_dq": [(2, 32, 512)],
+    "flash_bwd_dkv": [(2, 32, 512)],
+    "quantized_matmul": [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
+                         (2048, 4096, 11008)],
+}
 D = 128
 
 
@@ -53,21 +67,53 @@ def build_other(name: str, csrc: Path):
         _build.CSRC, _build.BUILD_DIR = here, build_dir
 
 
-def back_to_back_ms(fn, n: int = 50) -> float:
+def device_ms(fn, n: int = 40) -> float:
+    """Device time a call of ``fn`` (every kernel it launches), from
+    ``torch.profiler`` over ``n`` calls after 3 warm-up calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3 / n
 
 
-def case(kernel: str, gen, B: int, H: int, S: int):
-    """(launch, error against the plain version) over one set of inputs."""
+def qmm_call(x, w):
+    """The int8 matmul through whichever library is loaded: this tree's API,
+    or the one before the three paths (a K split sized by
+    ``quantized_matmul_splits``, partials summed by a second launch)."""
+    lib = _build._libs["quantized_matmul"]
+    if hasattr(lib, "quantized_matmul_plan"):
+        return qmm.qmm_cuda(x, w.q, w.scale)
+    fn = lib.quantized_matmul
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+        lib.quantized_matmul_splits.argtypes = [ctypes.c_int] * 4
+        lib.quantized_matmul_splits.restype = ctypes.c_int
+    (M, K), N = x.shape, w.q.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = lib.quantized_matmul_splits(M, N, K, sms)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else out
+    err = fn(*(_build.ptr(t) for t in (x, w.q, w.scale, out, part)), M, N, K, sms, _build.stream_ptr(x.device))
+    _build.check(lib, "quantized_matmul", err)
+    return out
+
+
+def case(kernel: str, gen, shape):
+    """(launch, check) over one set of inputs: ``check()`` launches once and
+    returns the error against the plain version."""
+    if kernel == "quantized_matmul":
+        from modal_examples_tpu_torch.models.quantize import quantize_weight
+
+        M, K, N = shape
+        weights = [quantize_weight(torch.randn(K, N, generator=gen, device="cuda")) for _ in range(4)]
+        x = cs.rand_bf16(gen, M, K)
+        want = qmm.qmm_plain(x, weights[0].q, weights[0].scale)
+        return cs.cycling([lambda w=w: qmm_call(x, w) for w in weights]), lambda: cs.rel_err(qmm_call(x, weights[0]), want)
+    B, H, S = shape
     if kernel == "flash_fwd":
         q, k, v = cs.flash_case(gen, B, H, H, S, S, D)
 
@@ -75,14 +121,24 @@ def case(kernel: str, gen, B: int, H: int, S: int):
             return fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=D**-0.5)
 
         want = fa.flash_forward_plain(q, k, v, causal=True, sm_scale=D**-0.5)
-        return launch, lambda got: max(cs.max_err(got[0], want[0]), cs.max_err(got[1], want[1]))
+        return launch, lambda: max(cs.max_err(got, w) for got, w in zip(launch(), want))
     args, _ = cs.bwd_case(fa, gen, B, H, H, S, True, False, D)
+    kernel_fn, plain = ((fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_plain) if kernel == "flash_bwd_dq"
+                        else (fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_plain))
 
     def launch():
-        return fa.flash_bwd_dkv_cuda(*args, causal=True, sm_scale=D**-0.5)
+        return kernel_fn(*args, causal=True, sm_scale=D**-0.5)
 
-    want = fa.flash_bwd_dkv_plain(*args, causal=True, sm_scale=D**-0.5)
-    return launch, lambda got: max(cs.rel_err(g, w) for g, w in zip(got, want))
+    want = plain(*args, causal=True, sm_scale=D**-0.5)
+    if kernel == "flash_bwd_dq":
+        return launch, lambda: cs.rel_err(launch(), want)
+    return launch, lambda: max(cs.rel_err(g, w) for g, w in zip(launch(), want))
+
+
+def describe(kernel: str, shape) -> str:
+    if kernel == "quantized_matmul":
+        return "M={} K={} N={} (four weight copies in turn)".format(*shape)
+    return "B={} H={} S={} D={} causal".format(*shape, D)
 
 
 def main() -> int:
@@ -101,22 +157,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = {"this": _build.load(args.kernel), "other": build_other(args.kernel, args.other.resolve())}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, H, S in SHAPES[args.kernel]:
-        launch, err = case(args.kernel, gen, B, H, S)
-        out = {"card": card, "kernel": args.kernel, "shape": f"B={B} H={H} S={S} D={D} causal", "other": str(args.other)}
+    for shape in SHAPES[args.kernel]:
+        launch, check = case(args.kernel, gen, shape)
+        out = {"card": card, "kernel": args.kernel, "shape": describe(args.kernel, shape), "other": str(args.other)}
         for side, lib in libs.items():
             _build._libs[args.kernel] = lib
-            out[f"{side}_err"] = err(launch())
-        times = {f"{side}_{how}": [] for side in libs for how in ("ms", "single_ms")}
+            out[f"{side}_err"] = check()
+        times = {f"{side}_{how}": [] for side in libs for how in ("ms", "single_ms", "device_ms")}
         for _ in range(args.rounds):
             for side in ("this", "other", "other", "this"):
                 _build._libs[args.kernel] = libs[side]
-                times[f"{side}_ms"].append(back_to_back_ms(launch))
+                times[f"{side}_ms"].append(cs.back_to_back_ms(launch))
                 times[f"{side}_single_ms"].append(cs.time_ms(launch))
+                times[f"{side}_device_ms"].append(device_ms(launch))
         _build._libs[args.kernel] = libs["this"]
         out.update(times)
         out.update({f"{k}_median": statistics.median(v) for k, v in times.items()})
         print(json.dumps(out), flush=True)
+        del launch, check
+        torch.cuda.empty_cache()
     return 0
 
 

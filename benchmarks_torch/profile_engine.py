@@ -36,12 +36,12 @@ from chip_smoke import make_requests  # noqa: E402
 from modal_examples_tpu_torch import LLMEngine, SamplingParams  # noqa: E402
 from modal_examples_tpu_torch.models import llama  # noqa: E402
 
-# fragments of the port's kernel names -> their kernels (the int8 matmul is
-# its main kernel plus, when K is split, its reduction pass)
+# fragments of the port's kernel names -> their kernels (the int8 matmul has
+# one kernel per path: TMA + wgmma, the decode ring, mma.sync)
 KERNEL_NAMES = {
     "flash_fwd_kernel": "flash_fwd", "paged_decode_kernel": "paged_decode", "kv_scatter_kernel": "kv_scatter",
     "paged_decode_int8_kernel": "paged_decode_int8", "kv_scatter_int8_kernel": "kv_scatter_int8",
-    "qmm_kernel": "quantized_matmul", "qmm_reduce_kernel": "quantized_matmul",
+    "qmm_wgmma_kernel": "quantized_matmul", "qmm_ring_kernel": "quantized_matmul", "qmm_kernel": "quantized_matmul",
     "paged_decode_writeback_kernel": "paged_decode_writeback",
 }
 

@@ -12,16 +12,19 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 Phases (any failure exits non-zero and prints no result):
 1. build the CUDA kernels from ``modal_examples_tpu_torch/csrc`` (the
-   ptxas register and spill report of the flash forward and dK/dV kernels
-   logged), and read those two libraries' SASS with ``cuobjdump``: each
-   must hold wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions;
+   ptxas register and spill report of the flash forward, dQ and dK/dV
+   kernels and the int8 matmul logged), and read those four libraries'
+   SASS with ``cuobjdump``: each must hold wgmma (``HGMMA``) and TMA load
+   (``UTMALDG``) instructions;
 2. each kernel against its plain version at the main paths' shapes
    (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8); the flash
    forward also at a ragged S=300 (causal and not), a chunk at
    q_offset=496 over a ragged Skv=700, and D=64 and 256; the flash
-   backward kernels also non-causal, at a ragged S=300, at D=64 and with a
-   nonzero lse cotangent; the int8 matmul at M = 8, 2048 and 300 over every weight
-   shape of the model and a ragged 4000 x 11000; the int8 decode at Hkv=32
+   backward kernels also non-causal, at a ragged S=300, at D=32, 64 and 256
+   and with a nonzero lse cotangent; the int8 matmul at M = 1, 8, 64, 65,
+   300 and 2048 over every weight shape of the model (each must take a TMA
+   path; the path is logged) and a ragged 4000 x 11000, each launched twice
+   and required bitwise equal; the int8 decode at Hkv=32
    and 8; the int8 scatter bitwise at 8 and 2048 tokens; the write-then-attend
    decode over one layer's pages at Hkv=32 and 8, contexts 0..1001 and a dead
    slot on trash page 0, held per (sequence, head) row, and the same check
@@ -54,8 +57,11 @@ Phases (any failure exits non-zero and prints no result):
    same step with ``attn_impl="xla"``; then, counters zeroed, 1 warm-up and
    4 timed steps in which the flash forward, dQ and dK/dV kernels must each
    launch exactly n_layers x 5 times;
-5. per-kernel numbers (CUDA events, median of repeats) on earlier lines,
-   then the card's name and power limit, then the result line.
+5. per-kernel numbers on earlier lines, each kernel and library call
+   timed two ways (CUDA events): the median of single launches (``ms``,
+   ``library_ms``) and 50 back-to-back launches (``ms_b2b``,
+   ``library_ms_b2b``); then the card's name and power limit, then the
+   result line.
 """
 
 from __future__ import annotations
@@ -117,7 +123,10 @@ K1_CASES = [
     (2, 4, 2, 200, 200, 0, True, 256),
 ]
 # the kernels whose products must run on wgmma and whose tiles must arrive by TMA
-SASS_CHECKED = ("flash_fwd", "flash_bwd_dkv")
+SASS_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul")
+# K7's paths (``quantized_matmul.kernel_path``): every weight shape of the
+# model must take the TMA ones, "ring" at M <= 64 and "wgmma" above
+QMM_MS = (1, 8, 64, 65, 300, 2048)
 
 
 def log(*a) -> None:
@@ -137,6 +146,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, n: int = 50) -> float:
+    """Per-launch ms of ``n`` launches between two events, after 3 warm-up
+    launches: the kernel's own time once the host enqueues faster than the
+    card runs (a single launch between its own events also times the
+    wrapper's host work whenever that is longer)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def max_err(a, b) -> float:
@@ -355,7 +381,10 @@ def phase_backward_vs_plain(fa, errs: dict) -> None:
         (2, 32, 32, 512, False, False, 128),  # non-causal
         (2, 8, 2, 300, True, False, 128),     # ragged S
         (2, 32, 32, 512, True, True, 128),    # lse cotangent
-        (2, 8, 2, 300, True, False, 64),      # another head dim
+        (2, 8, 2, 300, True, False, 64),      # other head dims
+        (2, 8, 2, 300, True, False, 32),
+        (2, 4, 2, 200, True, False, 256),
+        (2, 4, 2, 200, False, True, 256),
     ]
     for B, Hq, Hkv, S, causal, nz, D in cases:
         args, o = bwd_case(fa, gen, B, Hq, Hkv, S, causal, nz, D)
@@ -383,15 +412,21 @@ def phase_int8_kernels_vs_plain(pa, errs: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(4)
     for K, N in QMM_SHAPES:
         w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda"))
-        for M in (8, 2048, 300):  # decode, the prefill batch 4 x 512, ragged
+        for M in QMM_MS:  # one slot, decode, both sides of the ring's limit, ragged, the prefill batch 4 x 512
             x = rand_bf16(gen, M, K)
+            path = qmm.kernel_path(x, w.q)
             out = qmm.qmm_cuda(x, w.q, w.scale)
             torch.cuda.synchronize()
             want = qmm.qmm_plain(x, w.q, w.scale)
             rel = rel_err(out, want)
-            log(f"K7 int8 matmul M={M} K={K} N={N}: max|out-plain|/max|plain|={rel:.3g}")
+            again = qmm.qmm_cuda(x, w.q, w.scale)  # the split-K sum runs in a fixed order
+            log(f"K7 int8 matmul M={M} K={K} N={N} path {path}: max|out-plain|/max|plain|={rel:.3g}")
             if not rel <= TOL["quantized_matmul"]:
                 raise AssertionError(f"int8 matmul kernel disagrees with its plain version: {rel}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"int8 matmul M={M} K={K} N={N} differs from run to run")
+            if (K, N) != (4000, 11000) and path != ("ring" if M <= 64 else "wgmma"):
+                raise AssertionError(f"Llama-2-7B shape M={M} K={K} N={N} took the {path} path")
             errs["quantized_matmul"] = max(errs.get("quantized_matmul", 0.0), max_err(out, want))
         del w
     for B, Hq, Hkv in [(8, 32, 32), (8, 32, 8)]:
@@ -877,10 +912,12 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         name="flash_fwd", source="modal_examples_tpu_torch/csrc/flash_fwd.cu",
         replaces="modal_examples_tpu/ops/flash_attention.py:40",
         ms=time_ms(lambda: fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=D**-0.5)),
+        ms_b2b=back_to_back_ms(lambda: fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=D**-0.5)),
         plain_ms=time_ms(lambda: fa.flash_forward_plain(q, k, v, causal=True, sm_scale=D**-0.5), reps=5),
         bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
         bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
         library_ms=time_ms(lambda: sdpa(q, k, v, True)),
+        library_ms_b2b=back_to_back_ms(lambda: sdpa(q, k, v, True)),
     ))
     del q, k, v
     # K2 at a decode step of the engine's shape: 8 slots, ragged prefixes 0..1000
@@ -892,8 +929,9 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         name="paged_decode", source="modal_examples_tpu_torch/csrc/paged_decode.cu",
         replaces="modal_examples_tpu/ops/paged_attention.py:284",
         ms=time_ms(lambda: pa.paged_decode_cuda(*args, sm_scale=D**-0.5)),
+        ms_b2b=back_to_back_ms(lambda: pa.paged_decode_cuda(*args, sm_scale=D**-0.5)),
         plain_ms=time_ms(lambda: pa.paged_decode_plain(*args, sm_scale=D**-0.5), reps=5),
-        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None,
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
     # K4 at the same shape, layer 5's pages: contexts count the current token
@@ -908,8 +946,9 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         replaces="modal_examples_tpu/ops/paged_attention.py:72",
         shape=f"B=8 Hq=Hkv=32 D=128 one layer's pages, contexts 1..1001 ({rows_read} rows)",
         ms=time_ms(lambda: pa.paged_decode_writeback_cuda(*wb_args, sm_scale=D**-0.5)),
+        ms_b2b=back_to_back_ms(lambda: pa.paged_decode_writeback_cuda(*wb_args, sm_scale=D**-0.5)),
         plain_ms=time_ms(lambda: pa.paged_decode_writeback_plain(*wb_args, sm_scale=D**-0.5), reps=5),
-        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None,
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
     del c, args, wb, wb_args
@@ -929,8 +968,10 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         name="kv_scatter", source="modal_examples_tpu_torch/csrc/kv_scatter.cu",
         replaces="modal_examples_tpu/ops/paged_attention.py:927",
         ms=time_ms(lambda: pa.scatter_cuda(kp, vp, k_all, v_all, page_idx, slot)),
+        ms_b2b=back_to_back_ms(lambda: pa.scatter_cuda(kp, vp, k_all, v_all, page_idx, slot)),
         plain_ms=time_ms(lambda: pa.scatter_plain(kp, vp, k_all, v_all, page_idx.long(), slot.long())),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=time_ms(library),
+        library_ms_b2b=back_to_back_ms(library),
     ))
     # K5/K6 at the training path's shape: B=2, Hq=Hkv=32, S=512, D=128, causal
     B, H, S, D = 2, 32, 512, 128
@@ -945,7 +986,7 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         return torch.ops.aten._scaled_dot_product_flash_attention_backward(
             do, q, k, v, out, lse_l, cq, ck, mq, mk, 0.0, True, seed, offset, scale=D**-0.5)
 
-    library_ms = time_ms(library)
+    library_ms, library_ms_b2b = time_ms(library), back_to_back_ms(library)
     for name, fn, plain, n_products, n_tensors, line in (
         ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_plain, 3, 5, 244),
         ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_plain, 4, 6, 278),
@@ -956,10 +997,11 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
             name=name, source=f"modal_examples_tpu_torch/csrc/{name}.cu",
             replaces=f"modal_examples_tpu/ops/flash_attention.py:{line}",
             ms=time_ms(lambda: fn(*args, causal=True, sm_scale=D**-0.5)),
+            ms_b2b=back_to_back_ms(lambda: fn(*args, causal=True, sm_scale=D**-0.5)),
             plain_ms=time_ms(lambda: plain(*args, causal=True, sm_scale=D**-0.5), reps=5),
             bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
             bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
-            library_ms=library_ms,
+            library_ms=library_ms, library_ms_b2b=library_ms_b2b,
             library_op="aten._scaled_dot_product_flash_attention_backward (dQ, dK and dV together)",
         ))
     del args, q, k, v, do, out
@@ -968,10 +1010,11 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         r["route"] = "cuda"
         r["launches"] = counts[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
-        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
-            f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_op", "bf16_mm_ms", "shape", "prefill")
+        log(f"{r['name']}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f} (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']}, back-to-back {r.get('library_ms_b2b')}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_b2b", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_ms_b2b", "library_op", "bf16_mm_ms", "bf16_mm_ms_b2b", "shape", "path",
+            "prefill")
     return [{k: r[k] for k in keys if k in r} for r in rows]
 
 
@@ -1020,15 +1063,18 @@ def int8_rows(pa, gen) -> list:
     for label, M in (("decode", 8), ("prefill", 2048)):
         x = rand_bf16(gen, M, K)
         flops, nbytes = 2 * M * N * K, M * K * 2 + K * N + N * 4 + M * N * 4  # x, q, scale in; f32 out
+        kernel = cycling([lambda w=w: qmm.qmm_cuda(x, w.q, w.scale) for w in weights])
+        library = cycling([lambda fn=fn: fn(x) for fn, _ in libs])
+        bf16_mm = cycling([lambda wd=wd: torch.mm(x, wd) for wd in bf16_weights])
         timed[label] = dict(
-            shape=f"M={M} K={K} N={N}",
-            ms=time_ms(cycling([lambda w=w: qmm.qmm_cuda(x, w.q, w.scale) for w in weights])),
+            shape=f"M={M} K={K} N={N}", path=qmm.kernel_path(x, weights[0].q),
+            ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel),
             plain_ms=time_ms(cycling([lambda w=w: qmm.qmm_plain(x, w.q, w.scale) for w in weights]), reps=5),
             bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
             bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
-            library_ms=time_ms(cycling([lambda fn=fn: fn(x) for fn, _ in libs])),
+            library_ms=time_ms(library), library_ms_b2b=back_to_back_ms(library),
             library_op=libs[0][1],
-            bf16_mm_ms=time_ms(cycling([lambda wd=wd: torch.mm(x, wd) for wd in bf16_weights])),
+            bf16_mm_ms=time_ms(bf16_mm), bf16_mm_ms_b2b=back_to_back_ms(bf16_mm),
         )
     rows.append(dict(
         name="quantized_matmul", source="modal_examples_tpu_torch/csrc/quantized_matmul.cu",
@@ -1044,8 +1090,9 @@ def int8_rows(pa, gen) -> list:
         name="paged_decode_int8", source="modal_examples_tpu_torch/csrc/paged_decode_int8.cu",
         replaces="modal_examples_tpu/ops/paged_attention.py:284", shape="B=8 Hq=Hkv=32 D=128 prefixes 0..1000",
         ms=time_ms(lambda: pa.paged_decode_int8_cuda(*args, sm_scale=128**-0.5)),
+        ms_b2b=back_to_back_ms(lambda: pa.paged_decode_int8_cuda(*args, sm_scale=128**-0.5)),
         plain_ms=time_ms(lambda: pa.paged_decode_int8_plain(*args, sm_scale=128**-0.5), reps=5),
-        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None,
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
     del c, args
@@ -1067,8 +1114,10 @@ def int8_rows(pa, gen) -> list:
         name="kv_scatter_int8", source="modal_examples_tpu_torch/csrc/kv_scatter_int8.cu",
         replaces="modal_examples_tpu/ops/paged_attention.py:927", shape="L=32 N=8 Hkv=32 D=128",
         ms=time_ms(lambda: pa.scatter_int8_cuda(kp, vp, k_all, v_all, page_idx, slot)),
+        ms_b2b=back_to_back_ms(lambda: pa.scatter_int8_cuda(kp, vp, k_all, v_all, page_idx, slot)),
         plain_ms=time_ms(lambda: pa.scatter_int8_plain(kp, vp, k_all, v_all, page_idx.long(), slot.long())),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=time_ms(library),
+        library_ms_b2b=back_to_back_ms(library),
         library_op="quantize_kv + index_put_ (int8 rows and scales, K and V)",
     ))
     return rows

@@ -122,6 +122,11 @@ class LlamaConfig:
     @staticmethod
     def from_hf_config(path: str | Path) -> "LlamaConfig":
         cfg = json.loads(Path(path).read_text())
+        if cfg.get("num_local_experts", 0) > 0:  # the reference reads n_experts / top_k_experts
+            raise NotImplementedError(
+                f"{path}: a mixture-of-experts config (num_local_experts="
+                f"{cfg['num_local_experts']}) is not ported yet (ROADMAP A3)"
+            )
         scaling = cfg.get("rope_scaling")
         llama3 = isinstance(scaling, dict) and scaling.get("rope_type", scaling.get("type")) == "llama3"
         return LlamaConfig(

@@ -201,6 +201,9 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, dlse) -> None:
     for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
         if t.shape != (B, Hq, S):
             raise ValueError(f"{name} must be [B, Hq, S] = {(B, Hq, S)}; got {tuple(t.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
 
 
 def _bwd_lib(name: str):
@@ -215,7 +218,8 @@ def _bwd_lib(name: str):
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_bwd_dq.cu``: bf16 q/k/v/do, f32 lse/delta/dlse
-    [B, Hq, S], all contiguous. Returns dq in bf16."""
+    [B, Hq, S], all contiguous, the bf16 ones 16-byte aligned (TMA loads
+    their tiles; S, dP and dQ run on wgmma). Returns dq in bf16."""
     global dq_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse)
     B, Hq, S, D = q.shape
@@ -232,14 +236,10 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_bwd_dkv.cu``: inputs as :func:`flash_bwd_dq_cuda`
-    (the bf16 ones 16-byte aligned: TMA loads their tiles; all four products
-    run on wgmma). Returns (dk, dv) in bf16, already summed over each kv
-    head's query heads."""
+    (all four products run on wgmma). Returns (dk, dv) in bf16, already
+    summed over each kv head's query heads."""
     global dkv_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse)
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
     B, Hq, S, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _bwd_lib("flash_bwd_dkv")

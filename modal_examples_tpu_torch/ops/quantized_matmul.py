@@ -5,8 +5,8 @@ Counterpart of ``modal_examples_tpu/ops/quantized_matmul.py``
 (``quantize_int8``, ``dequantize_int8``, ``quantized_matmul``): int8 weights
 ``[K, N]`` with per-output-channel f32 scales ``[1, N]`` times an activation
 ``[M, K]``, f32 accumulation, the scale applied once after the sum. The JAX
-entry falls back to XLA for shapes that do not tile; the kernel here masks
-every ragged edge itself and takes every shape.
+entry falls back to XLA for shapes that do not tile; the kernel here takes
+every shape, on one of three paths it picks by shape (:func:`kernel_path`).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 :func:`qmm_plain`, a CUDA tensor launches the kernel or raises.
@@ -49,20 +49,55 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+#: the kernel's three paths, by the number ``quantized_matmul_plan`` returns
+PATHS = ("mma.sync", "ring", "wgmma")
+
+# Ticket scratch of the decode ring's folded split-K sum, per (device, stream):
+# zeroed once, and every launch leaves it zero again.
+_tickets: dict = {}
+
+
 def _lib():
     lib = _build.load("quantized_matmul")
     fn = lib.quantized_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.quantized_matmul_splits.argtypes = [ctypes.c_int] * 4
-        lib.quantized_matmul_splits.restype = ctypes.c_int
+        lib.quantized_matmul_plan.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        lib.quantized_matmul_plan.restype = ctypes.c_int
     return lib
+
+
+def _plan(lib, x, w_q, sms: int) -> tuple[int, int, int]:
+    """(path, K splits, ticket ints) of a launch on ``x``, ``w_q``: the
+    kernel's own plan, from the shapes, the SM count and whether each base
+    is 16-byte aligned."""
+    splits, tickets = ctypes.c_int(), ctypes.c_int()
+    path = lib.quantized_matmul_plan(_build.ptr(x), _build.ptr(w_q), x.shape[0], w_q.shape[1], x.shape[1], sms,
+                                     ctypes.byref(splits), ctypes.byref(tickets))
+    return path, splits.value, tickets.value
+
+
+def _ticket_buffer(dev, n: int):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
+
+
+def kernel_path(x, w_q) -> str:
+    """The path a launch on ``x`` [M, K] and ``w_q`` [K, N] takes: "wgmma"
+    (M > 64), "ring" (M <= 64), or "mma.sync" for what TMA cannot describe
+    (N % 16 != 0, K % 8 != 0, a base not 16-byte aligned)."""
+    dev = x.device
+    return PATHS[_plan(_lib(), x, w_q, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))[0]]
 
 
 def qmm_cuda(x, w_q, w_scale):
     """Launch ``csrc/quantized_matmul.cu``: bf16 ``x`` [M, K], int8 ``w_q``
-    [K, N], f32 ``w_scale`` with N values; returns f32 [M, N]."""
+    [K, N], f32 ``w_scale`` with N values; returns f32 [M, N]. The kernel
+    picks its path by shape (:func:`kernel_path`); one launch in every case."""
     global qmm_launches
     dev = x.device
     if not (x.is_cuda and w_q.is_cuda and w_scale.is_cuda) or w_q.device != dev or w_scale.device != dev:
@@ -78,11 +113,12 @@ def qmm_cuda(x, w_q, w_scale):
     N = w_q.shape[1]
     sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
     lib = _lib()
-    splits = lib.quantized_matmul_splits(M, N, K, sms)  # the kernel picks its tile and K split
+    _, splits, n_tickets = _plan(lib, x, w_q, sms)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     part = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else out
+    tickets = _ticket_buffer(dev, n_tickets) if n_tickets else out
     err = lib.quantized_matmul(
-        _build.ptr(x), _build.ptr(w_q), _build.ptr(w_scale), _build.ptr(out), _build.ptr(part),
+        _build.ptr(x), _build.ptr(w_q), _build.ptr(w_scale), _build.ptr(out), _build.ptr(part), _build.ptr(tickets),
         M, N, K, sms, _build.stream_ptr(dev),
     )
     qmm_launches += 1

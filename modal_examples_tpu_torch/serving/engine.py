@@ -159,7 +159,7 @@ class LLMEngine:
         prefill_batch: int = 4,
         quantization: str | None = None,  # "int8": weight-only int8 serving
         seed: int = 0,
-        kv_dtype="bfloat16",  # "int8": the quantized paged cache
+        kv_dtype=None,  # "int8": the quantized paged cache; None: MTPU_KV_DTYPE, then bf16
         decode_block: int = 8,
         max_queue: int = 4096,
         device=None,
@@ -167,7 +167,19 @@ class LLMEngine:
         scatter_impl: str | None = None,  # KV scatter; None: env, then "xla"
         decode_steps: int | None = None,  # macro-step N; None: env, then 1
     ):
+        if model_dir is not None and params is None:
+            # the reference loads the checkpoint (llama.load_hf_weights); a
+            # real tokenizer over random weights would serve without an error
+            raise NotImplementedError(
+                f"LLMEngine(model_dir={model_dir!r}) without params=: loading "
+                "checkpoint weights is not ported yet (ROADMAP A3)"
+            )
         self.device = resolve_device(device)
+        # explicit arg, then MTPU_KV_DTYPE, then bf16, as the reference resolves it
+        if kv_dtype is None:
+            kv_dtype = os.environ.get("MTPU_KV_DTYPE") or "bfloat16"
+        kv_dtype = resolve_kv_dtype(kv_dtype)
+        self.kv_dtype = "int8" if kv_dtype == "int8" else str(kv_dtype).removeprefix("torch.")
         self.cfg = cfg
         self.tokenizer = load_tokenizer(model_dir)
         if quantization not in _QUANT_MODES:
@@ -179,7 +191,7 @@ class LLMEngine:
         # validates both impl names, and refuses int8 pages on the writeback
         # path on the card, before a byte is allocated
         self.impl_plan = llama.paged_impl_plan(
-            cfg, self.device, str(resolve_kv_dtype(kv_dtype)).removeprefix("torch."),
+            cfg, self.device, self.kv_dtype,
             "int8" if quantization == "int8" or given_int8 else None,
             impl=self.paged_impl, scatter_impl=self.scatter_impl,
         )

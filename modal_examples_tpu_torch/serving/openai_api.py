@@ -6,7 +6,8 @@ engine: ``/health``, ``/v1/models``, ``/v1/completions`` and
 ``stream_options.include_usage`` usage chunk), 400 on bad parameters and 429
 with ``Retry-After`` when admission sheds. Stdlib HTTP, a thread per
 connection; the engine's continuous batching does the multiplexing. Not in
-this slice: the router front, ``n > 1``, images, ``/metrics``.
+this slice: the router front, ``n > 1``, images, ``/metrics``, deadlines and
+priority classes other than ``default`` (each a 400).
 """
 
 from __future__ import annotations
@@ -19,8 +20,26 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..scheduling.admission import ShedError
+from ..scheduling.policy import DEFAULT_CLASS, validate_class
 from .engine import LLMEngine
 from .sampling import SamplingParams
+
+
+def _check_scheduling(body: dict, headers=None) -> None:
+    """The reference's scheduling fields, refused until the engine has them
+    (ROADMAP A6): a deadline (``deadline_ms`` or the ``x-mtpu-deadline-ms``
+    header) and a priority class other than ``default`` (``priority`` or
+    ``x-mtpu-priority``) are a 400; an unknown class is the reference's 400."""
+    deadline_ms = body.get("deadline_ms")
+    priority = body.get("priority") or DEFAULT_CLASS
+    if headers is not None:
+        deadline_ms = headers.get("x-mtpu-deadline-ms") or deadline_ms
+        priority = headers.get("x-mtpu-priority") or priority
+    priority = validate_class(str(priority))
+    if deadline_ms is not None:
+        raise ValueError("request deadlines (deadline_ms, x-mtpu-deadline-ms) are not supported yet (ROADMAP A6)")
+    if priority != DEFAULT_CLASS:
+        raise ValueError(f"priority class {priority!r} is not supported yet: this engine serves one FIFO (ROADMAP A6)")
 
 
 def _params_from_body(body: dict) -> SamplingParams:
@@ -90,6 +109,7 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 prompt = body.get("prompt") or ""
             params = _params_from_body(body)
+            _check_scheduling(body, self.headers)
             eng.validate_params(params)
         except (ValueError, TypeError, KeyError) as e:
             self._bad_request(str(e))

@@ -30,7 +30,7 @@ def _paths():
 def test_the_kernels_share_a_header():
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["hopper.cuh"]
     including = [n for n in KERNELS if '#include "hopper.cuh"' in (_build.CSRC / f"{n}.cu").read_text()]
-    assert {"flash_fwd", "flash_bwd_dkv"} <= set(including)
+    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul"} <= set(including)
 
 
 def test_an_unchanged_tree_keeps_its_paths(csrc):

@@ -106,8 +106,9 @@ def test_chunked_stays_forward_only_and_training_path_is_differentiable():
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "B,hq,hkv,s,d,causal",
-    [(1, 4, 4, 200, 64, True), (2, 8, 2, 300, 128, True), (1, 4, 4, 200, 64, False)],
-    ids=["causal", "ragged-gqa", "non-causal"],
+    [(1, 4, 4, 200, 64, True), (2, 8, 2, 300, 128, True), (1, 4, 4, 200, 64, False), (2, 8, 2, 300, 32, True),
+     (1, 4, 2, 200, 256, True), (1, 4, 2, 200, 256, False)],
+    ids=["causal", "ragged-gqa", "non-causal", "d32", "d256", "d256-non-causal"],
 )
 def test_cuda_backward_launches_the_kernels(B, hq, hkv, s, d, causal):
     """On a CUDA tensor the backward runs the dQ and dK/dV kernels, once each

@@ -190,17 +190,22 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (300, 4000, 11000), (2048, 512, 384)])
+@pytest.mark.parametrize("M", [1, 8, 64, 65, 300, 2048])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (4000, 11000), (512, 384)])
 def test_quantized_matmul_kernel_matches_plain_on_card(M, K, N):
-    """Run on the card (``python3 chip_smoke.py`` covers the path's shapes)."""
+    """Run on the card (``python3 chip_smoke.py`` covers the path's shapes):
+    one launch on the path the shape picks (TMA ones where N % 16 == 0),
+    within 1e-3 of the plain version's largest value, the same bits twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
     qw = tquant.quantize_weight(torch.randn(K, N, generator=g, device="cuda"))
+    assert tqmm.kernel_path(x, qw.q) == ("mma.sync" if N % 16 else "ring" if M <= 64 else "wgmma")
     before = tqmm.qmm_launches
     out = tqmm.qmm_cuda(x, qw.q, qw.scale)
     torch.cuda.synchronize()
     want = tqmm.qmm_plain(x, qw.q, qw.scale)
     assert tqmm.qmm_launches == before + 1
     assert ((out - want).abs().max() / want.abs().max()).item() < 1e-3
+    assert torch.equal(out, tqmm.qmm_cuda(x, qw.q, qw.scale))

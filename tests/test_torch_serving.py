@@ -16,6 +16,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -145,6 +146,86 @@ def test_openai_server_completions_chat_sse_and_errors(weights):
     finally:
         srv.stop()
         shed.stop()
+
+
+def test_scheduling_fields_answer_as_the_reference(weights):
+    """A misspelled priority class is the reference's 400 on both servers; a
+    deadline or a class other than "default" is a 400 naming ROADMAP A6 on
+    the port, which has neither yet."""
+    from modal_examples_tpu.serving.openai_api import OpenAIServer as JaxServer
+
+    jcfg, tcfg, jparams, tparams = weights
+    jsrv = JaxServer(JaxEngine(jcfg, jparams, enable_prefix_cache=False, **ENGINE_KW), host="127.0.0.1",
+                     port=0).start()
+    tsrv = OpenAIServer(LLMEngine(tcfg, tparams, device="cpu", **ENGINE_KW), port=0).start()
+    jbase, tbase = f"http://{jsrv.host}:{jsrv.port}", f"http://{tsrv.host}:{tsrv.port}"
+    try:
+        typo = {"prompt": "x", "max_tokens": 2, "priority": "interactve"}
+        jstatus, _, jbody = _post(jbase + "/v1/completions", typo)
+        tstatus, _, tbody = _post(tbase + "/v1/completions", typo)
+        assert tstatus == jstatus == 400
+        assert json.loads(tbody)["error"]["message"] == json.loads(jbody)["error"]["message"]
+        for extra in ({"deadline_ms": 5000}, {"priority": "batch"}):
+            status, _, body = _post(tbase + "/v1/completions", {"prompt": "x", "max_tokens": 2, **extra})
+            assert status == 400 and "A6" in json.loads(body)["error"]["message"], (extra, body)
+        for header in ({"x-mtpu-deadline-ms": "250"}, {"x-mtpu-priority": "interactive"}):
+            req = urllib.request.Request(tbase + "/v1/completions", data=json.dumps({"prompt": "x"}).encode(),
+                                         headers={"content-type": "application/json", **header})
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(req, timeout=60)
+            assert e.value.code == 400 and "A6" in json.loads(e.value.read())["error"]["message"]
+        status, _, _ = _post(tbase + "/v1/completions", {"prompt": "x", "max_tokens": 2, "priority": "default"})
+        assert status == 200
+    finally:
+        jsrv.stop()
+        tsrv.stop()
+
+
+def test_model_dir_without_params_raises_before_the_tokenizer(tmp_path, monkeypatch):
+    """The reference loads the checkpoint from model_dir; the port refuses
+    (ROADMAP A3) before it loads a tokenizer, rather than serve random weights."""
+    from modal_examples_tpu_torch.serving import engine as teng_mod
+
+    loaded = []
+    monkeypatch.setattr(teng_mod, "load_tokenizer", lambda d: loaded.append(d))
+    with pytest.raises(NotImplementedError, match="A3"):
+        LLMEngine(tllama.LlamaConfig.tiny(), model_dir=str(tmp_path), device="cpu", **ENGINE_KW)
+    assert loaded == []
+
+
+def test_kv_dtype_follows_the_env_as_the_reference(monkeypatch):
+    monkeypatch.setenv("MTPU_KV_DTYPE", "int8")
+    kw = {k: v for k, v in ENGINE_KW.items() if k != "kv_dtype"}
+    jeng = JaxEngine(jllama.LlamaConfig.tiny(), enable_prefix_cache=False, **kw)
+    teng = LLMEngine(tllama.LlamaConfig.tiny(), device="cpu", **kw)
+    try:
+        assert teng.kv_dtype == jeng.kv_dtype == "int8"
+        assert teng.cache.kv_dtype == "int8" and teng.cache.k_pages.data.dtype == torch.int8
+        explicit = LLMEngine(tllama.LlamaConfig.tiny(), device="cpu", kv_dtype="bfloat16", **kw)
+        assert explicit.kv_dtype == explicit.cache.kv_dtype == "bfloat16"  # the argument wins
+        monkeypatch.delenv("MTPU_KV_DTYPE")
+        default = LLMEngine(tllama.LlamaConfig.tiny(), device="cpu", **kw)
+        assert default.kv_dtype == JaxEngine(jllama.LlamaConfig.tiny(), enable_prefix_cache=False, **kw).kv_dtype
+        assert default.kv_dtype == "bfloat16"
+    finally:
+        jeng.stop()
+        teng.stop()
+
+
+def test_mixtral_config_raises_where_the_reference_reads_experts(tmp_path):
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps({
+        "vocab_size": 512, "hidden_size": 128, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "num_key_value_heads": 2, "intermediate_size": 256, "num_local_experts": 8, "num_experts_per_tok": 2,
+    }))
+    jcfg = jllama.LlamaConfig.from_hf_config(path)
+    assert (jcfg.n_experts, jcfg.top_k_experts) == (8, 2)
+    with pytest.raises(NotImplementedError, match="A3"):
+        tllama.LlamaConfig.from_hf_config(path)
+    dense = json.loads(path.read_text())
+    del dense["num_local_experts"]
+    path.write_text(json.dumps(dense))
+    assert tllama.LlamaConfig.from_hf_config(path).n_layers == jllama.LlamaConfig.from_hf_config(path).n_layers
 
 
 def test_scheduler_error_fails_loudly(weights):
