@@ -15,10 +15,16 @@ enqueues faster than the card runs; for a kernel shorter than the wrapper's
 host time (~0.03-0.05 ms) only the device time is. The int8 matmul cycles
 over four weight copies (more than the 50 MB L2), as a decode step streams
 its weights, at M = 8 over every weight shape of Llama-2-7B and at M = 2048.
-Prints one JSON line per shape. Run from the repository root on one GPU:
+The ragged decode kernels (bf16 and int8 pages) cycle over four layers of
+one cache (``chip_smoke.CYCLED_LAYERS``), at phase 5's shape (8 slots,
+prefixes 0..1000, Hq = Hkv = 32), the burst's (8 slots at contexts 20..760)
+and a GQA one (Hkv = 8); the other tree's kernel may be the one before the
+split design (its C entry takes no workspace). Their error is
+max|o - plain| / max|plain| per (sequence, head) row. Prints one JSON line
+per shape. Run from the repository root on one GPU:
 
-    python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul]
-        [--rounds R]
+    python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul|
+        paged_decode|paged_decode_int8] [--rounds R]
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from modal_examples_tpu_torch.ops import _build  # noqa: E402
 from modal_examples_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from modal_examples_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from modal_examples_tpu_torch.ops import quantized_matmul as qmm  # noqa: E402
 
 # flash kernels: (B, H, S), phase 5's prefill batch for the forward, the
@@ -50,6 +57,10 @@ SHAPES = {
     "quantized_matmul": [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
                          (2048, 4096, 11008)],
 }
+# the ragged decode kernels: (label, Hkv, prefixes) at B = 8, Hq = 32
+DECODE_SHAPES = [("phase 5", 32, cs.DECODE_LENS), ("burst", 32, (20, 64, 130, 200, 300, 450, 511, 760)),
+                 ("GQA", 8, cs.DECODE_LENS)]
+SHAPES["paged_decode"] = SHAPES["paged_decode_int8"] = DECODE_SHAPES
 D = 128
 
 
@@ -67,17 +78,27 @@ def build_other(name: str, csrc: Path):
         _build.CSRC, _build.BUILD_DIR = here, build_dir
 
 
-def device_ms(fn, n: int = 40) -> float:
-    """Device time a call of ``fn`` (every kernel it launches), from
-    ``torch.profiler`` over ``n`` calls after 3 warm-up calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3 / n
+def decode_call(kernel: str, args):
+    """The ragged decode through whichever library is loaded: this tree's
+    wrapper, or the C entry of the kernel before the split design (one block
+    per (sequence, kv head), no workspace)."""
+    lib = _build._libs[kernel]
+    if hasattr(lib, f"{kernel}_split_rows"):
+        fn = pa.paged_decode_int8_cuda if kernel == "paged_decode_int8" else pa.paged_decode_cuda
+        return fn(*args, sm_scale=D**-0.5)
+    q, k_pages, v_pages, layer, tables, lens, k_new, v_new = args
+    int8 = kernel == "paged_decode_int8"
+    pages = [k_pages.data, v_pages.data, k_pages.scale, v_pages.scale] if int8 else [k_pages, v_pages]
+    fn = getattr(lib, kernel)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * (6 + len(pages)) + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    (B, Hq, _), (_, P, ps, Hkv, _) = q.shape, k_pages.shape
+    out = torch.empty_like(q)
+    err = fn(*(_build.ptr(t) for t in (q, *pages, tables, lens, k_new, v_new, out)), B, Hq, Hkv, D, layer, P, ps,
+             tables.shape[1], D**-0.5, _build.stream_ptr(q.device))
+    _build.check(lib, kernel, err)
+    return out
 
 
 def qmm_call(x, w):
@@ -105,6 +126,14 @@ def qmm_call(x, w):
 def case(kernel: str, gen, shape):
     """(launch, check) over one set of inputs: ``check()`` launches once and
     returns the error against the plain version."""
+    if kernel in ("paged_decode", "paged_decode_int8"):
+        _, Hkv, lens = shape
+        c = cs.decode_case(gen, 8, 32, Hkv, L=32, int8=kernel == "paged_decode_int8", lens=lens)
+        per_layer = [cs.decode_args(c, li) for li in cs.CYCLED_LAYERS]
+        want = pa.paged_decode_plain(*per_layer[0], sm_scale=D**-0.5)
+        ctx = c["prefix_lens"] + 1
+        return (cs.cycling([lambda a=a: decode_call(kernel, a) for a in per_layer]),
+                lambda: cs.writeback_readings(decode_call(kernel, per_layer[0]), want, ctx)["row_rel"])
     if kernel == "quantized_matmul":
         from modal_examples_tpu_torch.models.quantize import quantize_weight
 
@@ -136,6 +165,9 @@ def case(kernel: str, gen, shape):
 
 
 def describe(kernel: str, shape) -> str:
+    if kernel in ("paged_decode", "paged_decode_int8"):
+        label, Hkv, lens = shape
+        return f"{label}: B=8 Hq=32 Hkv={Hkv} D={D} prefixes {list(lens)}, layers {cs.CYCLED_LAYERS} in turn"
     if kernel == "quantized_matmul":
         return "M={} K={} N={} (four weight copies in turn)".format(*shape)
     return "B={} H={} S={} D={} causal".format(*shape, D)
@@ -169,7 +201,7 @@ def main() -> int:
                 _build._libs[args.kernel] = libs[side]
                 times[f"{side}_ms"].append(cs.back_to_back_ms(launch))
                 times[f"{side}_single_ms"].append(cs.time_ms(launch))
-                times[f"{side}_device_ms"].append(device_ms(launch))
+                times[f"{side}_device_ms"].append(cs.device_ms(launch))
         _build._libs[args.kernel] = libs["this"]
         out.update(times)
         out.update({f"{k}_median": statistics.median(v) for k, v in times.items()})

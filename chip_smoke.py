@@ -13,9 +13,10 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 Phases (any failure exits non-zero and prints no result):
 1. build the CUDA kernels from ``modal_examples_tpu_torch/csrc`` (the
    ptxas register and spill report of the flash forward, dQ and dK/dV
-   kernels and the int8 matmul logged), and read those four libraries'
-   SASS with ``cuobjdump``: each must hold wgmma (``HGMMA``) and TMA load
-   (``UTMALDG``) instructions;
+   kernels, the int8 matmul and the ragged decodes logged), and read their
+   SASS with ``cuobjdump``: the first four must hold wgmma (``HGMMA``) and
+   TMA load (``UTMALDG``) instructions, the bf16 and int8 ragged decodes
+   cp.async (``LDGSTS``);
 2. each kernel against its plain version at the main paths' shapes
    (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8); the flash
    forward also at a ragged S=300 (causal and not), a chunk at
@@ -24,8 +25,12 @@ Phases (any failure exits non-zero and prints no result):
    and with a nonzero lse cotangent; the int8 matmul at M = 1, 8, 64, 65,
    300 and 2048 over every weight shape of the model (each must take a TMA
    path; the path is logged) and a ragged 4000 x 11000, each launched twice
-   and required bitwise equal; the int8 decode at Hkv=32
-   and 8; the int8 scatter bitwise at 8 and 2048 tokens; the write-then-attend
+   and required bitwise equal; the ragged decodes (bf16 and int8 pages) at
+   Hkv=32 and 8, prefixes 0..1000 and at the kernels' split edges, held
+   per (sequence, head) row, launched twice and required bitwise equal, with
+   the same check shown to refuse two planted faults (the last page of the
+   longest prefix dropped, the last split of its rows dropped from the
+   merge); the int8 scatter bitwise at 8 and 2048 tokens; the write-then-attend
    decode over one layer's pages at Hkv=32 and 8, contexts 0..1001 and a dead
    slot on trash page 0, held per (sequence, head) row, and the same check
    shown to refuse two planted faults;
@@ -60,8 +65,10 @@ Phases (any failure exits non-zero and prints no result):
 5. per-kernel numbers on earlier lines, each kernel and library call
    timed two ways (CUDA events): the median of single launches (``ms``,
    ``library_ms``) and 50 back-to-back launches (``ms_b2b``,
-   ``library_ms_b2b``); then the card's name and power limit, then the
-   result line.
+   ``library_ms_b2b``); the three decode kernels cycled over four layers of
+   one cache (so their rows come from HBM) and also timed by the profiler's
+   device time (``device_ms``); then the card's name and power limit, then
+   the result line.
 """
 
 from __future__ import annotations
@@ -79,9 +86,12 @@ import sys
 import time
 import traceback
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
+
+ROOT = Path(__file__).resolve().parent
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -93,7 +103,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # of each gradient, sums in another order).
 TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2,
        "quantized_matmul": 1e-3, "paged_decode_int8": 6e-2, "kv_scatter_int8": 0.0, "paged_decode_writeback": 1e-2,
-       "paged_decode_writeback_differ": 1e-2}
+       "paged_decode_writeback_differ": 1e-2, "paged_decode_row": 1e-2, "paged_decode_int8_row": 1e-2}
 # the int8 matmul is held as max|out - plain| / max|plain|: its products are
 # exact (int8 and bf16 values, f32 sums), only the summation order differs.
 # The int8 decode has K2's numerics over the same dequantized values; the int8
@@ -105,7 +115,11 @@ TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq
 # elements whose bf16 value differs from the plain version's ("_differ").
 # Phase 2 shows that both limits see two planted faults: the last 64-row
 # chunk of the longest context skipped, and probabilities rounded to bf16
-# (K2's design, run on the same rows).
+# (K2's design, run on the same rows). K2 and K2-int8 are held the same way
+# per (sequence, query head) row ("_row", beside the absolute limit), at
+# prefixes on both sides of the kernels' split edges, and phase 2 shows that
+# check refusing two planted faults: the last page of the longest prefix
+# dropped, and the last split of its rows dropped from the combine.
 # (K, N) of every int8 weight of Llama-2-7B (wq/wk/wv/wo, gate/up, down,
 # lm_head) and one ragged shape
 QMM_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (4000, 11000)]
@@ -122,8 +136,17 @@ K1_CASES = [
     (2, 8, 2, 300, 300, 0, True, 64),         # other head dims
     (2, 4, 2, 200, 200, 0, True, 256),
 ]
-# the kernels whose products must run on wgmma and whose tiles must arrive by TMA
-SASS_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul")
+# instructions each library's SASS must hold: the products on wgmma (HGMMA)
+# fed by TMA (UTMALDG); the ragged decode kernels' rows streamed by cp.async
+# (LDGSTS)
+SASS_CHECKED = {
+    **{name: ("HGMMA", "UTMALDG") for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul")},
+    **{name: ("LDGSTS",) for name in ("paged_decode", "paged_decode_int8")},
+}
+# phase 5 cycles the decode kernels over these layers of one cache: their
+# rows (141 MB bf16, 71 MB int8) exceed the 50 MB L2, so each launch reads
+# from HBM as a decode step's 32 layers do
+CYCLED_LAYERS = (5, 6, 7, 8)
 # K7's paths (``quantized_matmul.kernel_path``): every weight shape of the
 # model must take the TMA ones, "ring" at M <= 64 and "wgmma" above
 QMM_MS = (1, 8, 64, 65, 300, 2048)
@@ -146,6 +169,20 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = 40) -> float:
+    """Device time of a call of ``fn`` (every kernel it launches), from
+    ``torch.profiler`` over ``n`` calls after 3 warm-up calls: the kernel's
+    own time where a single or back-to-back launch reads the host."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3 / n
 
 
 def back_to_back_ms(fn, n: int = 50) -> float:
@@ -175,20 +212,19 @@ def sdpa(q, k, v, causal: bool):
 
 
 def check_sass(_build) -> None:
-    """Logs the counts of wgmma (``HGMMA``) and TMA load (``UTMALDG``)
-    instructions in the built libraries of ``SASS_CHECKED``, read with
-    ``cuobjdump -sass``; raises if a library has none of either."""
+    """Logs the counts of each library's ``SASS_CHECKED`` instructions, read
+    with ``cuobjdump -sass``; raises if a library has none of one."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise RuntimeError("cuobjdump not found (PATH or /usr/local/cuda/bin)")
     counts = {}
-    for name in SASS_CHECKED:
+    for name, ops in SASS_CHECKED.items():
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
-    log(f"SASS of the wgmma/TMA kernels: {counts}")
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+    log(f"SASS instruction counts: {counts}")
     if not all(n > 0 for c in counts.values() for n in c.values()):
-        raise AssertionError(f"a kernel has no wgmma or no TMA load in its SASS: {counts}")
+        raise AssertionError(f"a kernel lacks a checked instruction in its SASS: {counts}")
 
 
 # -- phase 2 inputs ---------------------------------------------------------------
@@ -212,12 +248,28 @@ def int8_pages(gen, *shape):
     )
 
 
-def decode_case(gen, B, Hq, Hkv, L, D=128, ps=16, pps=64, int8=False):
-    """Ragged prefix lengths 0..1000 over shuffled pages of the full cache
-    (bf16 pages, or int8 pages with their scales)."""
+DECODE_LENS = (0, 1, 15, 16, 17, 333, 777, 1000)
+
+
+def decode_split_rows() -> int:
+    """SPLIT of ``csrc/paged_decode.cuh``: the cached rows one block of the
+    ragged decode kernels takes."""
+    src = (ROOT / "modal_examples_tpu_torch" / "csrc" / "paged_decode.cuh").read_text()
+    return int(re.search(r"constexpr int SPLIT = (\d+);", src).group(1))
+
+
+def split_edge_lens(split: int) -> tuple:
+    """Prefixes on both sides of the decode kernels' split edges, one below
+    the 64 x 16-row table and the full table."""
+    return (split - 1, split, split + 1, 2 * split, 2 * split + 1, 3 * split - 1, 1023, 1024)
+
+
+def decode_case(gen, B, Hq, Hkv, L, D=128, ps=16, pps=64, int8=False, lens=DECODE_LENS):
+    """Ragged prefix lengths (default 0..1000) over shuffled pages of the
+    full cache (bf16 pages, or int8 pages with their scales)."""
     P = 1 + B * pps
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(1))[: B * pps] + 1
-    lens = torch.tensor([0, 1, 15, 16, 17, 333, 777, 1000][:B], dtype=torch.int32)
+    lens = torch.tensor(lens[:B], dtype=torch.int32)
     pages = int8_pages if int8 else rand_bf16
     return dict(
         q=rand_bf16(gen, B, Hq, D),
@@ -244,6 +296,53 @@ def writeback_case(gen, B, Hq, Hkv, L, ctx, D=128, ps=16, pps=64):
         page_tables=tables.cuda(), context_lens=torch.tensor(ctx, dtype=torch.int32).cuda(),
         k_cache=k_cache, v_cache=v_cache,
     )
+
+
+def decode_args(c, layer: int) -> list:
+    return [c["q"], c["k_pages"], c["v_pages"], layer, c["page_tables"], c["prefix_lens"], c["k_new"], c["v_new"]]
+
+
+def check_decode(name: str, kernel, plain, c, label: str) -> float:
+    """K2 or K2-int8 (``kernel``) on one ``decode_case`` at layer 2 against
+    its plain version, per (sequence, query head) row and by max abs; two
+    launches must be bitwise equal; two planted faults, run through the plain
+    version on the same rows, must read above the row limit. Returns the max
+    abs error."""
+    args = decode_args(c, 2)
+    o = kernel(*args, sm_scale=128**-0.5)
+    again = kernel(*args, sm_scale=128**-0.5)
+    torch.cuda.synchronize()
+    want = plain(*args, sm_scale=128**-0.5)
+    lens = c["prefix_lens"]
+    ctx = lens + 1  # every row attends at least to the in-flight token
+    got = writeback_readings(o, want, ctx)
+    log(f"{label} prefixes {lens.tolist()}: max|o-plain|={got['max_abs']:.3g}, row max|o-plain|/max|plain|="
+        f"{got['row_rel']:.3g}, elements differing {got['differ']:.3g}, bitwise equal on a second launch "
+        f"{torch.equal(o, again)}")
+    longest = int(lens.argmax())
+    n, ps, split = int(lens[longest]), c["k_pages"].shape[2], decode_split_rows()
+    for fault, cut in ((f"last page of prefix {n} dropped", (n - 1) // ps * ps),
+                       (f"last split of prefix {n} dropped from the combine", (n - 1) // split * split)):
+        short = lens.clone()
+        short[longest] = cut
+        bad = writeback_readings(plain(*args[:5], short, *args[6:], sm_scale=128**-0.5), want, ctx)
+        log(f"  planted fault, {fault}: max|o-plain|={bad['max_abs']:.3g}, row {bad['row_rel']:.3g}")
+        if bad["row_rel"] <= TOL[f"{name}_row"]:
+            raise AssertionError(f"the {name} check does not see a planted fault ({fault}): {bad}")
+    if not (got["max_abs"] <= TOL[name] and got["row_rel"] <= TOL[f"{name}_row"]):
+        raise AssertionError(f"{name} kernel disagrees with its plain version: {got}")
+    if not torch.equal(o, again):
+        raise AssertionError(f"{name} differs from run to run")
+    return got["max_abs"]
+
+
+def decode_cases(gen, int8: bool):
+    """(label, case) of phase 2's decode checks: 8 slots at G = 1 and 4, at
+    the default prefixes and at the split edges."""
+    for lens in (DECODE_LENS, split_edge_lens(decode_split_rows())):
+        for Hkv in (32, 8):
+            yield (f"K2{'-int8' if int8 else ''} decode B=8 Hq=32 Hkv={Hkv} layer=2",
+                   decode_case(gen, 8, 32, Hkv, L=4, int8=int8, lens=lens))
 
 
 WRITEBACK_ARGS = ("q", "k_pages", "v_pages", "page_tables", "context_lens")
@@ -308,16 +407,10 @@ def phase_kernels_vs_plain(fa, pa) -> dict:
         if not (e <= TOL["flash_fwd"] and e_lse <= 1e-3):
             raise AssertionError(f"flash kernel disagrees with its plain version: {e}, {e_lse}")
         errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), e)
-    for B, Hq, Hkv in [(8, 32, 32), (8, 32, 8)]:
-        c = decode_case(gen, B, Hq, Hkv, L=4)
-        args = [c[n] for n in ("q", "k_pages", "v_pages")] + [2] + [c[n] for n in ("page_tables", "prefix_lens", "k_new", "v_new")]
-        o = pa.paged_decode_cuda(*args, sm_scale=128**-0.5)
-        torch.cuda.synchronize()
-        e = max_err(o, pa.paged_decode_plain(*args, sm_scale=128**-0.5))
-        log(f"K2 decode B={B} Hq={Hq} Hkv={Hkv} layer=2 prefix 0..1000: max|o-plain|={e:.3g}")
-        if not e <= TOL["paged_decode"]:
-            raise AssertionError(f"decode kernel disagrees with its plain version: {e}")
+    for label, c in decode_cases(gen, int8=False):
+        e = check_decode("paged_decode", pa.paged_decode_cuda, pa.paged_decode_plain, c, label)
         errs["paged_decode"] = max(errs.get("paged_decode", 0.0), e)
+        del c
     # contexts 1, a page, a page plus one, 1001; none (zeros); a mix; a dead slot
     ctx = [1, 16, 17, 1001, 0, 334, 512, 1]
     for B, Hq, Hkv in [(8, 32, 32), (8, 32, 8)]:
@@ -429,16 +522,10 @@ def phase_int8_kernels_vs_plain(pa, errs: dict) -> None:
                 raise AssertionError(f"Llama-2-7B shape M={M} K={K} N={N} took the {path} path")
             errs["quantized_matmul"] = max(errs.get("quantized_matmul", 0.0), max_err(out, want))
         del w
-    for B, Hq, Hkv in [(8, 32, 32), (8, 32, 8)]:
-        c = decode_case(gen, B, Hq, Hkv, L=4, int8=True)
-        args = [c[n] for n in ("q", "k_pages", "v_pages")] + [2] + [c[n] for n in ("page_tables", "prefix_lens", "k_new", "v_new")]
-        o = pa.paged_decode_int8_cuda(*args, sm_scale=128**-0.5)
-        torch.cuda.synchronize()
-        e = max_err(o, pa.paged_decode_int8_plain(*args, sm_scale=128**-0.5))
-        log(f"K2-int8 decode B={B} Hq={Hq} Hkv={Hkv} layer=2 prefix 0..1000: max|o-plain|={e:.3g}")
-        if not e <= TOL["paged_decode_int8"]:
-            raise AssertionError(f"int8 decode kernel disagrees with its plain version: {e}")
+    for label, c in decode_cases(gen, int8=True):
+        e = check_decode("paged_decode_int8", pa.paged_decode_int8_cuda, pa.paged_decode_int8_plain, c, label)
         errs["paged_decode_int8"] = max(errs.get("paged_decode_int8", 0.0), e)
+        del c
     for L, N, P in [(32, 8, 513), (32, 2048, 513)]:  # decode step; prefill batch 4 x 512
         k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
         kp, vp = int8_pages(gen, L, P, 16, 32, 128), int8_pages(gen, L, P, 16, 32, 128)
@@ -920,38 +1007,41 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         library_ms_b2b=back_to_back_ms(lambda: sdpa(q, k, v, True)),
     ))
     del q, k, v
-    # K2 at a decode step of the engine's shape: 8 slots, ragged prefixes 0..1000
+    # K2 at a decode step of the engine's shape: 8 slots, ragged prefixes
+    # 0..1000, cycled over four layers of one cache
     c = decode_case(gen, 8, 32, 32, L=32)
-    args = [c[n] for n in ("q", "k_pages", "v_pages")] + [5] + [c[n] for n in ("page_tables", "prefix_lens", "k_new", "v_new")]
+    per_layer = [decode_args(c, li) for li in CYCLED_LAYERS]
+    kernel = cycling([lambda a=a: pa.paged_decode_cuda(*a, sm_scale=D**-0.5) for a in per_layer])
     rows_read = int(c["prefix_lens"].sum())  # the kernel reads each prefix's rows, not whole pages
     nbytes = 2 * rows_read * 32 * 128 * 2 + 4 * 8 * 32 * 128 * 2  # K+V rows; q, o, k_new, v_new
     rows.append(dict(
         name="paged_decode", source="modal_examples_tpu_torch/csrc/paged_decode.cu",
         replaces="modal_examples_tpu/ops/paged_attention.py:284",
-        ms=time_ms(lambda: pa.paged_decode_cuda(*args, sm_scale=D**-0.5)),
-        ms_b2b=back_to_back_ms(lambda: pa.paged_decode_cuda(*args, sm_scale=D**-0.5)),
-        plain_ms=time_ms(lambda: pa.paged_decode_plain(*args, sm_scale=D**-0.5), reps=5),
+        shape=f"B=8 Hq=Hkv=32 D=128 prefixes 0..1000 ({rows_read} rows), layers {CYCLED_LAYERS} in turn",
+        ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: pa.paged_decode_plain(*per_layer[0], sm_scale=D**-0.5), reps=5),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
-    # K4 at the same shape, layer 5's pages: contexts count the current token
-    # (its K/V already in the cache), so each is K2's prefix plus one
-    wb = dict(q=c["q"], k_pages=c["k_pages"][5], v_pages=c["v_pages"][5], page_tables=c["page_tables"],
-              context_lens=c["prefix_lens"] + 1)
-    wb_args = [wb[n] for n in WRITEBACK_ARGS]
-    rows_read = int(wb["context_lens"].sum())  # the kernel reads each context's rows, not whole pages
+    # K4 at the same shape over the same layers' pages: contexts count the
+    # current token (its K/V already in the cache), so each is K2's prefix
+    # plus one
+    per_layer = [[c["q"], c["k_pages"][li], c["v_pages"][li], c["page_tables"], c["prefix_lens"] + 1]
+                 for li in CYCLED_LAYERS]
+    kernel = cycling([lambda a=a: pa.paged_decode_writeback_cuda(*a, sm_scale=D**-0.5) for a in per_layer])
+    rows_read = int(c["prefix_lens"].sum()) + 8  # the kernel reads each context's rows, not whole pages
     nbytes = 2 * rows_read * 32 * 128 * 2 + 2 * 8 * 32 * 128 * 2  # K+V rows; q, o
     rows.append(dict(
         name="paged_decode_writeback", source="modal_examples_tpu_torch/csrc/paged_decode_writeback.cu",
         replaces="modal_examples_tpu/ops/paged_attention.py:72",
-        shape=f"B=8 Hq=Hkv=32 D=128 one layer's pages, contexts 1..1001 ({rows_read} rows)",
-        ms=time_ms(lambda: pa.paged_decode_writeback_cuda(*wb_args, sm_scale=D**-0.5)),
-        ms_b2b=back_to_back_ms(lambda: pa.paged_decode_writeback_cuda(*wb_args, sm_scale=D**-0.5)),
-        plain_ms=time_ms(lambda: pa.paged_decode_writeback_plain(*wb_args, sm_scale=D**-0.5), reps=5),
+        shape=f"B=8 Hq=Hkv=32 D=128 one layer's pages, contexts 1..1001 ({rows_read} rows), layers "
+              f"{CYCLED_LAYERS} in turn",
+        ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: pa.paged_decode_writeback_plain(*per_layer[0], sm_scale=D**-0.5), reps=5),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
-    del c, args, wb, wb_args
+    del c, per_layer, kernel
     # K3 at the decode step: 8 tokens x 32 layers into the engine's cache shape
     L, N, P = 32, 8, 513
     k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
@@ -1010,9 +1100,10 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         r["route"] = "cuda"
         r["launches"] = counts[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
-        log(f"{r['name']}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f} (plain {r['plain_ms']:.4f}, library "
+        log(f"{r['name']}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f}, device {r.get('device_ms')} (plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms']}, back-to-back {r.get('library_ms_b2b')}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_b2b", "plain_ms", "bound_ms",
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_b2b", "device_ms", "plain_ms",
+            "bound_ms",
             "bound_by", "library_ms", "library_ms_b2b", "library_op", "bf16_mm_ms", "bf16_mm_ms_b2b", "shape", "path",
             "prefill")
     return [{k: r[k] for k in keys if k in r} for r in rows]
@@ -1081,21 +1172,23 @@ def int8_rows(pa, gen) -> list:
         replaces="modal_examples_tpu/ops/quantized_matmul.py:38", **timed["decode"], prefill=timed["prefill"],
     ))
     del weights, libs, bf16_weights
-    # K2-int8 at K2's shape: 8 slots, ragged prefixes 0..1000, int8 pages
+    # K2-int8 at K2's shape: 8 slots, ragged prefixes 0..1000, int8 pages,
+    # cycled over four layers of one cache
     c = decode_case(gen, 8, 32, 32, L=32, int8=True)
-    args = [c[n] for n in ("q", "k_pages", "v_pages")] + [5] + [c[n] for n in ("page_tables", "prefix_lens", "k_new", "v_new")]
+    per_layer = [decode_args(c, li) for li in CYCLED_LAYERS]
+    kernel = cycling([lambda a=a: pa.paged_decode_int8_cuda(*a, sm_scale=128**-0.5) for a in per_layer])
     rows_read = int(c["prefix_lens"].sum())
     nbytes = 2 * rows_read * 32 * (128 + 4) + 4 * 8 * 32 * 128 * 2  # int8 K+V rows and scales; q, o, k_new, v_new
     rows.append(dict(
         name="paged_decode_int8", source="modal_examples_tpu_torch/csrc/paged_decode_int8.cu",
-        replaces="modal_examples_tpu/ops/paged_attention.py:284", shape="B=8 Hq=Hkv=32 D=128 prefixes 0..1000",
-        ms=time_ms(lambda: pa.paged_decode_int8_cuda(*args, sm_scale=128**-0.5)),
-        ms_b2b=back_to_back_ms(lambda: pa.paged_decode_int8_cuda(*args, sm_scale=128**-0.5)),
-        plain_ms=time_ms(lambda: pa.paged_decode_int8_plain(*args, sm_scale=128**-0.5), reps=5),
+        replaces="modal_examples_tpu/ops/paged_attention.py:284",
+        shape=f"B=8 Hq=Hkv=32 D=128 prefixes 0..1000 ({rows_read} rows), layers {CYCLED_LAYERS} in turn",
+        ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: pa.paged_decode_int8_plain(*per_layer[0], sm_scale=128**-0.5), reps=5),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
-    del c, args
+    del c, per_layer, kernel
     # K3-int8 at the decode step: 8 tokens x 32 layers into the engine's cache shape
     L, N, P = 32, 8, 513
     k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
@@ -1146,7 +1239,7 @@ def main() -> int:
     t0 = time.monotonic()
     ptxas = _build.build(verbose=True)
     log(f"phase 1 build: {time.monotonic() - t0:.1f}s for {_build.kernel_names()}")
-    for name in SASS_CHECKED:  # registers and spills a thread, one pair of lines per head dim
+    for name in SASS_CHECKED:  # registers and spills a thread, one pair of lines per kernel instance
         log(f"{name} ptxas: " + " | ".join(
             line.strip() for line in ptxas.get(name, "").splitlines() if "registers" in line or "spill" in line))
     check_sass(_build)

@@ -123,3 +123,19 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+_tickets: dict = {}
+
+
+def ticket_buffer(owner: str, device, n: int):
+    """Ticket scratch of ``owner``'s kernels (at least ``n`` int32) on the
+    current stream: zeroed once per (owner, device, stream); every launch
+    leaves it zero again (the last block of a group resets its ticket)."""
+    import torch
+
+    key = (owner, device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf

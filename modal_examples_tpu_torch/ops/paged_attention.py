@@ -1,5 +1,6 @@
 """Paged-cache kernels: ragged decode attention (``csrc/paged_decode.cu``,
-int8 pages ``csrc/paged_decode_int8.cu``), the write-then-attend decode over
+int8 pages ``csrc/paged_decode_int8.cu``, one body in
+``csrc/paged_decode.cuh``), the write-then-attend decode over
 one layer's pages (``csrc/paged_decode_writeback.cu``) and the KV page scatter
 (``csrc/kv_scatter.cu``, int8 pages ``csrc/kv_scatter_int8.cu``), each beside
 its plain version.
@@ -73,9 +74,30 @@ def _decode_lib():
     lib = _build.load("paged_decode")
     fn = lib.paged_decode
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _split_scratch(lib, name: str, q, Hkv: int, ps: int, pps: int):
+    """(splits, workspace, tickets) of a ragged decode launch: the table's
+    ``pps * ps`` rows in splits of the kernel's own size, one f32 workspace
+    ``[B, Hq, splits, D + 2]`` for the splits' partials, and the per-stream
+    ticket buffer of one int a (sequence, kv head)."""
+    B, Hq, D = q.shape
+    splits = -(-(pps * ps) // getattr(lib, f"{name}_split_rows")())
+    work = torch.empty((B, Hq, splits, D + 2), dtype=torch.float32, device=q.device)
+    return splits, work, _build.ticket_buffer(name, q.device, B * Hkv)
+
+
+def _require_rows(name: str, pages, D: int, vec: int) -> None:
+    """What the ragged decode kernels' 16-byte copies need: a head's row is
+    whole 16-byte pieces (``vec`` values each), and the pages start on a
+    16-byte boundary."""
+    if D > _MAX_DECODE_HEAD_DIM or D % vec:
+        raise ValueError(f"{name} head dim must be a multiple of {vec} up to {_MAX_DECODE_HEAD_DIM}; got {D}")
+    if pages.data_ptr() % 16:
+        raise ValueError(f"{name} pages must be 16-byte aligned")
 
 
 def paged_decode_cuda(q, k_pages, v_pages, layer: int, page_tables, prefix_lens, k_new, v_new, *, sm_scale: float):
@@ -92,14 +114,16 @@ def paged_decode_cuda(q, k_pages, v_pages, layer: int, page_tables, prefix_lens,
     _require_cuda("prefix_lens", prefix_lens, dev, torch.int32)
     B, Hq, D = q.shape
     L, P, ps, Hkv, _ = k_pages.shape
-    if D > _MAX_DECODE_HEAD_DIM:
-        raise ValueError(f"decode kernel head dim must be <= {_MAX_DECODE_HEAD_DIM}; got {D}")
+    for pages in (k_pages, v_pages):
+        _require_rows("decode kernel", pages, D, 8)
     out = torch.empty_like(q)
     lib = _decode_lib()
+    pps = page_tables.shape[1]
+    splits, work, tickets = _split_scratch(lib, "paged_decode", q, Hkv, ps, pps)
     err = lib.paged_decode(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(page_tables),
-        _build.ptr(prefix_lens), _build.ptr(k_new), _build.ptr(v_new), _build.ptr(out),
-        B, Hq, Hkv, D, layer, P, ps, page_tables.shape[1], sm_scale, _build.stream_ptr(dev),
+        _build.ptr(prefix_lens), _build.ptr(k_new), _build.ptr(v_new), _build.ptr(out), _build.ptr(work),
+        _build.ptr(tickets), B, Hq, Hkv, D, layer, P, ps, pps, splits, sm_scale, _build.stream_ptr(dev),
     )
     decode_launches += 1
     _build.check(lib, "paged_decode", err)
@@ -117,7 +141,7 @@ def _decode_int8_lib():
     lib = _build.load("paged_decode_int8")
     fn = lib.paged_decode_int8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -138,15 +162,17 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, layer: int, page_tables, prefix_
     _require_cuda("prefix_lens", prefix_lens, dev, torch.int32)
     B, Hq, D = q.shape
     L, P, ps, Hkv, _ = k_pages.shape
-    if D > _MAX_DECODE_HEAD_DIM or D % 4:
-        raise ValueError(f"int8 decode kernel head dim must be a multiple of 4 up to {_MAX_DECODE_HEAD_DIM}; got {D}")
+    for pages in (k_pages, v_pages):
+        _require_rows("int8 decode kernel", pages.data, D, 16)
     out = torch.empty_like(q)
     lib = _decode_int8_lib()
+    pps = page_tables.shape[1]
+    splits, work, tickets = _split_scratch(lib, "paged_decode_int8", q, Hkv, ps, pps)
     err = lib.paged_decode_int8(
         _build.ptr(q), _build.ptr(k_pages.data), _build.ptr(v_pages.data), _build.ptr(k_pages.scale),
         _build.ptr(v_pages.scale), _build.ptr(page_tables), _build.ptr(prefix_lens), _build.ptr(k_new),
-        _build.ptr(v_new), _build.ptr(out),
-        B, Hq, Hkv, D, layer, P, ps, page_tables.shape[1], sm_scale, _build.stream_ptr(dev),
+        _build.ptr(v_new), _build.ptr(out), _build.ptr(work), _build.ptr(tickets),
+        B, Hq, Hkv, D, layer, P, ps, pps, splits, sm_scale, _build.stream_ptr(dev),
     )
     decode_int8_launches += 1
     _build.check(lib, "paged_decode_int8", err)

@@ -52,10 +52,6 @@ def _sm_count(index: int) -> int:
 #: the kernel's three paths, by the number ``quantized_matmul_plan`` returns
 PATHS = ("mma.sync", "ring", "wgmma")
 
-# Ticket scratch of the decode ring's folded split-K sum, per (device, stream):
-# zeroed once, and every launch leaves it zero again.
-_tickets: dict = {}
-
 
 def _lib():
     lib = _build.load("quantized_matmul")
@@ -76,14 +72,6 @@ def _plan(lib, x, w_q, sms: int) -> tuple[int, int, int]:
     path = lib.quantized_matmul_plan(_build.ptr(x), _build.ptr(w_q), x.shape[0], w_q.shape[1], x.shape[1], sms,
                                      ctypes.byref(splits), ctypes.byref(tickets))
     return path, splits.value, tickets.value
-
-
-def _ticket_buffer(dev, n: int):
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _tickets.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-    return buf
 
 
 def kernel_path(x, w_q) -> str:
@@ -116,7 +104,7 @@ def qmm_cuda(x, w_q, w_scale):
     _, splits, n_tickets = _plan(lib, x, w_q, sms)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     part = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else out
-    tickets = _ticket_buffer(dev, n_tickets) if n_tickets else out
+    tickets = _build.ticket_buffer("quantized_matmul", dev, n_tickets) if n_tickets else out
     err = lib.quantized_matmul(
         _build.ptr(x), _build.ptr(w_q), _build.ptr(w_scale), _build.ptr(out), _build.ptr(part), _build.ptr(tickets),
         M, N, K, sms, _build.stream_ptr(dev),

@@ -8,6 +8,10 @@
   oracle) at 1e-5 in f32, and against both Pallas variants in interpret mode
   at the bound the JAX package holds its own int8 kernels to (5e-3: they
   enter the products in another order and precision).
+- The ragged decode kernels' split algorithm (``test_torch_ops.
+  split_decode_model``) over int8 pages dequantized by JAX, against JAX's
+  ``paged_decode_attention_inflight`` at the kernels' split edges, at the
+  model's stated bound.
 - ``PagedKVCache`` int8: bytes, ``kv_dtype`` and ``quantized`` as in JAX.
 - Tiny f32 ``prefill`` / ``prefill_chunk`` / ``decode_step`` with int8 weights
   and an int8 cache against the JAX functions: logits within 1e-4 x
@@ -44,6 +48,7 @@ from modal_examples_tpu_torch.models import quantize as tquant
 from modal_examples_tpu_torch.ops import kv_quant as tkv
 from modal_examples_tpu_torch.ops import paged_attention as tpa
 from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
+from test_torch_ops import assert_split_model_matches, row_rel_err, split_edge_case
 
 # the JAX package's ops/__init__ re-exports functions under their modules' names
 jpa = importlib.import_module("modal_examples_tpu.ops.paged_attention")
@@ -193,6 +198,15 @@ def test_int8_decode_matches_jax_ragged_kernels_interpret(variant, hq, hkv):
         variant=variant, interpret=True,
     ))
     np.testing.assert_allclose(_port_decode(c, 0).numpy(), ref, atol=5e-3)
+
+
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 2)], ids=["G=1", "G=4"])
+def test_split_decode_model_over_int8_pages_matches_jax_inflight(hq, hkv):
+    c = split_edge_case(31, hq, hkv)
+    tables = jnp.asarray(c["tables"])
+    ks, vs = (np.asarray(jkv.kv_gather(jkv.quantize_kv(jnp.asarray(c[n])), tables, dtype=jnp.bfloat16), np.float32)
+              for n in ("k_pages", "v_pages"))
+    assert_split_model_matches(c, ks, vs)
 
 
 def test_paged_kv_cache_int8_as_jax():
@@ -401,6 +415,18 @@ def test_int8_kernels_match_plain_versions_on_card():
     out = tpa.paged_decode_int8_cuda(*args, sm_scale=d**-0.5)
     torch.cuda.synchronize()
     assert (out.float() - tpa.paged_decode_int8_plain(*args, sm_scale=d**-0.5).float()).abs().max().item() < 6e-2
+    # the split edges, G = 1 and 4: per (sequence, head) row at chip_smoke.py's
+    # limit, and bitwise equal from run to run
+    for g_hkv in (4, 1):
+        c = split_edge_case(37, 4, g_hkv, d=128)
+        pages = [tkv.quantize_kv(torch.from_numpy(np.stack([c[n]] * 2)).to(dev)) for n in ("k_pages", "v_pages")]
+        dargs = (torch.from_numpy(c["q"]).to(dev, torch.bfloat16), *pages, 1, torch.from_numpy(c["tables"]).to(dev),
+                 torch.from_numpy(c["lens"]).to(dev), torch.from_numpy(c["k_new"]).to(dev, torch.bfloat16),
+                 torch.from_numpy(c["v_new"]).to(dev, torch.bfloat16))
+        got, again = (tpa.paged_decode_int8_cuda(*dargs, sm_scale=128**-0.5) for _ in range(2))
+        torch.cuda.synchronize()
+        assert row_rel_err(got, tpa.paged_decode_int8_plain(*dargs, sm_scale=128**-0.5)) <= 1e-2
+        assert torch.equal(got, again)
     rows_k, rows_v = (torch.randn(L, 3, hkv, d, generator=g, device=dev).bfloat16() for _ in range(2))
     idx, slot = torch.tensor([3, 0, 7], dtype=torch.int32, device=dev), torch.tensor([5, 0, 15], dtype=torch.int32, device=dev)
     ck, cv = tkv.QuantizedKV(kp.data.clone(), kp.scale.clone()), tkv.QuantizedKV(vp.data.clone(), vp.scale.clone())

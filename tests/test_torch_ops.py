@@ -3,10 +3,15 @@
 Inputs are made with numpy from a seed and go through both; the JAX
 functions run as their own CPU tests run them (Pallas in interpret mode).
 The port's CPU path is each kernel's plain version. Tolerances: 2e-5 in f32
-(accumulation order differs), exact for the scatter (a copy).
+(accumulation order differs), exact for the scatter (a copy). A test-side
+model of the ragged decode kernels' algorithm (context splits, their
+in-order merge with the in-flight column) is held against the JAX function
+at the kernels' split edges.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +29,13 @@ jfa = importlib.import_module("modal_examples_tpu.ops.flash_attention")
 jpa = importlib.import_module("modal_examples_tpu.ops.paged_attention")
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+
+_DECODE_SRC = (Path(tpa.__file__).resolve().parent.parent / "csrc" / "paged_decode.cuh").read_text()
+#: cached rows one block of the ragged decode kernels takes, and the rows of
+#: one softmax piece (a warp's), read from their source
+SPLIT, CHUNK = (int(re.search(rf"constexpr int {name} = (\d+);", _DECODE_SRC).group(1)) for name in ("SPLIT", "CHUNK"))
+#: prefixes on both sides of the split edges, and one below a 64 x 16-row table
+SPLIT_EDGE_LENS = (0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT, 1023)
 
 
 def _rand(rng, *shape):
@@ -141,6 +153,101 @@ def test_paged_decode_matches_flat_ragged_kernel_interpret():
     _close(out, ref)
 
 
+def split_decode_model(q, ks, vs, lens, k_new, v_new, *, drop_last_split_of=None):
+    """The ragged decode kernels' algorithm (``csrc/paged_decode.cuh``) in f32:
+    each (sequence, kv head)'s prefix in splits of ``SPLIT`` rows, each split
+    in pieces of ``CHUNK`` rows (a warp's), each piece with its own max m,
+    sum l of the f32 probabilities e^(s - m) and P.V over those
+    probabilities rounded to bf16; the pieces merged in order into the
+    split's partial, then the splits merged in order with the in-flight
+    column last. ``ks``/``vs`` are the gathered pages
+    ``[B, pps, ps, Hkv, D]``; ``drop_last_split_of`` leaves that sequence's
+    last split out of the merge (a planted fault)."""
+    q, ks, vs, k_new, v_new = (torch.as_tensor(np.asarray(a, np.float32)) for a in (q, ks, vs, k_new, v_new))
+    B, Hq, D = q.shape
+    Hkv = ks.shape[-2]
+    G = Hq // Hkv
+    k, v = ks.reshape(B, -1, Hkv, D), vs.reshape(B, -1, Hkv, D)
+    scale = D**-0.5
+    out = torch.empty(B, Hq, D)
+    for b in range(B):
+        n = int(lens[b])
+        splits = [(s, min(s + SPLIT, n)) for s in range(0, n, SPLIT)]
+        if b == drop_last_split_of:
+            splits = splits[:-1]
+        for h in range(Hkv):
+            qg = q[b, h * G:(h + 1) * G]  # [G, D]
+            parts = []
+            for lo, hi in splits:
+                pieces = []
+                for c in range(lo, hi, CHUNK):
+                    rows = slice(c, min(c + CHUNK, hi))
+                    sc = qg @ k[b, rows, h].T * scale
+                    m = sc.amax(dim=-1)
+                    p = torch.exp(sc - m[:, None])
+                    pieces.append((m, p.sum(dim=-1), p.bfloat16().float() @ v[b, rows, h]))
+                m = torch.stack([pm for pm, _, _ in pieces]).amax(dim=0)
+                l, acc = torch.zeros(G), torch.zeros(G, D)
+                for pm, pl, pacc in pieces:
+                    e = torch.exp(pm - m)
+                    l, acc = l + e * pl, acc + e[:, None] * pacc
+                parts.append((m, l, acc))
+            s_new = qg @ k_new[b, h] * scale
+            m = s_new
+            for m_s, _, _ in parts:
+                m = torch.maximum(m, m_s)
+            num, den = torch.zeros(G, D), torch.zeros(G)
+            for m_s, l_s, acc in parts:
+                e = torch.exp(m_s - m)
+                num, den = num + e[:, None] * acc, den + e * l_s
+            e_new = torch.exp(s_new - m)
+            out[b, h * G:(h + 1) * G] = (num + e_new[:, None] * v_new[b, h]) / (den + e_new)[:, None]
+    return out.numpy()
+
+
+def split_model_tolerance(vs, v_new) -> float:
+    """Where the model and the f32 reference differ: every prefix
+    probability is rounded to bf16 (relative error at most 2^-8) in the
+    numerator and not in the sum, so each output moves by at most 2^-8 of the
+    largest |v| it averages; plus f32 summation order."""
+    return 2.0**-8 * max(np.abs(vs).max(), np.abs(v_new).max()) + 1e-5
+
+
+def split_edge_case(seed, hq, hkv, d=32, ps=16, pps=64):
+    """The split-edge prefixes over shuffled pages of a 64-page table: q, one
+    layer's pages and the in-flight K/V, all bf16 values held in f32."""
+    rng = np.random.default_rng(seed)
+    lens = np.array(SPLIT_EDGE_LENS, np.int32)
+    B = len(lens)
+    n_pages = 1 + B * pps
+    bf16 = lambda x: torch.from_numpy(x).bfloat16().float().numpy()  # noqa: E731
+    return dict(
+        q=bf16(_rand(rng, B, hq, d)), k_pages=bf16(_rand(rng, n_pages, ps, hkv, d)),
+        v_pages=bf16(_rand(rng, n_pages, ps, hkv, d)),
+        tables=(rng.permutation(n_pages - 1)[: B * pps] + 1).reshape(B, pps).astype(np.int32),
+        lens=lens, k_new=bf16(_rand(rng, B, hkv, d)), v_new=bf16(_rand(rng, B, hkv, d)),
+    )
+
+
+def assert_split_model_matches(c, ks, vs):
+    """The split model over gathered pages ``ks``/``vs`` against JAX's
+    ``paged_decode_attention_inflight`` in f32 (which keeps f32
+    probabilities), within :func:`split_model_tolerance`; and the same check
+    refusing the model with the longest prefix's last split dropped."""
+    args = (c["q"], ks, vs, c["lens"], c["k_new"], c["v_new"])
+    ref = np.asarray(jpa.paged_decode_attention_inflight(*(jnp.asarray(a) for a in args)))
+    tol = split_model_tolerance(vs, c["v_new"])
+    np.testing.assert_allclose(split_decode_model(*args), ref, atol=tol, rtol=0)
+    dropped = split_decode_model(*args, drop_last_split_of=int(np.argmax(c["lens"])))
+    assert np.abs(dropped - ref).max() > tol
+
+
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 2)], ids=["G=1", "G=4"])
+def test_split_decode_model_matches_jax_inflight(hq, hkv):
+    c = split_edge_case(23, hq, hkv)
+    assert_split_model_matches(c, c["k_pages"][c["tables"]], c["v_pages"][c["tables"]])
+
+
 def test_ragged_variant_label_matches_jax():
     for hkv in (1, 2, 8, 16, 32):
         assert tpa.ragged_variant_for(hkv) == jpa.ragged_variant_for(hkv)
@@ -183,6 +290,33 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                          torch.zeros(1, 1, 2, 32, dtype=torch.bfloat16),
                          torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
     assert (tfa.launches, tpa.scatter_launches) == before
+
+
+def row_rel_err(o, want) -> float:
+    """max|o - want| / max|want| over each (sequence, head) row, the largest."""
+    o, want = o.float(), want.float()
+    return ((o - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hkv", [4, 1], ids=["G=1", "G=4"])
+def test_decode_kernel_matches_plain_version_on_card(hkv):
+    """K2 at the split edges against its plain version, per (sequence, head)
+    row at ``chip_smoke.py``'s limit (1e-2: the kernel rounds unnormalised
+    probabilities to bf16, the plain version normalised ones); bitwise equal
+    from run to run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    c = split_edge_case(29, 4, hkv, d=128)
+    pages = {n: torch.from_numpy(np.stack([c[n]] * 2)).to(dev, torch.bfloat16) for n in ("k_pages", "v_pages")}
+    args = (torch.from_numpy(c["q"]).to(dev, torch.bfloat16), pages["k_pages"], pages["v_pages"], 1,
+            torch.from_numpy(c["tables"]).to(dev), torch.from_numpy(c["lens"]).to(dev),
+            torch.from_numpy(c["k_new"]).to(dev, torch.bfloat16), torch.from_numpy(c["v_new"]).to(dev, torch.bfloat16))
+    out, again = (tpa.paged_decode_cuda(*args, sm_scale=128**-0.5) for _ in range(2))
+    torch.cuda.synchronize()
+    assert row_rel_err(out, tpa.paged_decode_plain(*args, sm_scale=128**-0.5)) <= 1e-2
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
