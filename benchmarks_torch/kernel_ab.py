@@ -15,16 +15,19 @@ enqueues faster than the card runs; for a kernel shorter than the wrapper's
 host time (~0.03-0.05 ms) only the device time is. The int8 matmul cycles
 over four weight copies (more than the 50 MB L2), as a decode step streams
 its weights, at M = 8 over every weight shape of Llama-2-7B and at M = 2048.
-The ragged decode kernels (bf16 and int8 pages) cycle over four layers of
-one cache (``chip_smoke.CYCLED_LAYERS``), at phase 5's shape (8 slots,
-prefixes 0..1000, Hq = Hkv = 32), the burst's (8 slots at contexts 20..760)
-and a GQA one (Hkv = 8); the other tree's kernel may be the one before the
-split design (its C entry takes no workspace). Their error is
+The decode kernels (ragged and write-then-attend, bf16 and int8 pages)
+cycle over four layers of one cache (``chip_smoke.CYCLED_LAYERS``), at phase
+5's shape (8 slots, prefixes 0..1000, Hq = Hkv = 32), the burst's (8 slots at
+prefixes 20..760) and a GQA one (Hkv = 8); the write-then-attend kernels
+read each layer's pages as the contiguous view ``pages[li]``, with contexts
+of the prefix plus the current token. The other tree's kernel may be the one
+before the split design (its C entry takes no workspace; for the
+write-then-attend decode, bf16 pages only). Their error is
 max|o - plain| / max|plain| per (sequence, head) row. Prints one JSON line
 per shape. Run from the repository root on one GPU:
 
     python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul|
-        paged_decode|paged_decode_int8] [--rounds R]
+        paged_decode|paged_decode_int8|paged_decode_writeback|paged_decode_writeback_int8] [--rounds R]
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ SHAPES = {
 # the ragged decode kernels: (label, Hkv, prefixes) at B = 8, Hq = 32
 DECODE_SHAPES = [("phase 5", 32, cs.DECODE_LENS), ("burst", 32, (20, 64, 130, 200, 300, 450, 511, 760)),
                  ("GQA", 8, cs.DECODE_LENS)]
-SHAPES["paged_decode"] = SHAPES["paged_decode_int8"] = DECODE_SHAPES
+DECODE_KERNELS = ("paged_decode", "paged_decode_int8", "paged_decode_writeback", "paged_decode_writeback_int8")
+SHAPES.update({kernel: DECODE_SHAPES for kernel in DECODE_KERNELS})
 D = 128
 
 
@@ -79,13 +83,24 @@ def build_other(name: str, csrc: Path):
 
 
 def decode_call(kernel: str, args):
-    """The ragged decode through whichever library is loaded: this tree's
+    """A decode kernel through whichever library is loaded: this tree's
     wrapper, or the C entry of the kernel before the split design (one block
     per (sequence, kv head), no workspace)."""
     lib = _build._libs[kernel]
     if hasattr(lib, f"{kernel}_split_rows"):
-        fn = pa.paged_decode_int8_cuda if kernel == "paged_decode_int8" else pa.paged_decode_cuda
-        return fn(*args, sm_scale=D**-0.5)
+        return getattr(pa, f"{kernel}_cuda")(*args, sm_scale=D**-0.5)
+    if kernel == "paged_decode_writeback":  # one layer's bf16 pages, contexts counting the current token
+        q, k_pages, v_pages, tables, ctx = args
+        fn = lib.paged_decode_writeback
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        (B, Hq, _), (_, ps, Hkv, _) = q.shape, k_pages.shape
+        out = torch.empty_like(q)
+        err = fn(*(_build.ptr(t) for t in (q, k_pages, v_pages, tables, ctx, out)), B, Hq, Hkv, D, ps,
+                 tables.shape[1], D**-0.5, _build.stream_ptr(q.device))
+        _build.check(lib, kernel, err)
+        return out
     q, k_pages, v_pages, layer, tables, lens, k_new, v_new = args
     int8 = kernel == "paged_decode_int8"
     pages = [k_pages.data, v_pages.data, k_pages.scale, v_pages.scale] if int8 else [k_pages, v_pages]
@@ -126,12 +141,15 @@ def qmm_call(x, w):
 def case(kernel: str, gen, shape):
     """(launch, check) over one set of inputs: ``check()`` launches once and
     returns the error against the plain version."""
-    if kernel in ("paged_decode", "paged_decode_int8"):
+    if kernel in DECODE_KERNELS:
         _, Hkv, lens = shape
-        c = cs.decode_case(gen, 8, 32, Hkv, L=32, int8=kernel == "paged_decode_int8", lens=lens)
-        per_layer = [cs.decode_args(c, li) for li in cs.CYCLED_LAYERS]
-        want = pa.paged_decode_plain(*per_layer[0], sm_scale=D**-0.5)
+        c = cs.decode_case(gen, 8, 32, Hkv, L=32, int8=kernel.endswith("int8"), lens=lens)
         ctx = c["prefix_lens"] + 1
+        if "writeback" in kernel:
+            per_layer = [[c["q"], c["k_pages"][li], c["v_pages"][li], c["page_tables"], ctx] for li in cs.CYCLED_LAYERS]
+        else:
+            per_layer = [cs.decode_args(c, li) for li in cs.CYCLED_LAYERS]
+        want = getattr(pa, f"{kernel}_plain")(*per_layer[0], sm_scale=D**-0.5)
         return (cs.cycling([lambda a=a: decode_call(kernel, a) for a in per_layer]),
                 lambda: cs.writeback_readings(decode_call(kernel, per_layer[0]), want, ctx)["row_rel"])
     if kernel == "quantized_matmul":
@@ -165,7 +183,7 @@ def case(kernel: str, gen, shape):
 
 
 def describe(kernel: str, shape) -> str:
-    if kernel in ("paged_decode", "paged_decode_int8"):
+    if kernel in DECODE_KERNELS:
         label, Hkv, lens = shape
         return f"{label}: B=8 Hq=32 Hkv={Hkv} D={D} prefixes {list(lens)}, layers {cs.CYCLED_LAYERS} in turn"
     if kernel == "quantized_matmul":

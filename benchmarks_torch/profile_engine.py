@@ -37,13 +37,14 @@ from modal_examples_tpu_torch import LLMEngine, SamplingParams  # noqa: E402
 from modal_examples_tpu_torch.models import llama  # noqa: E402
 
 # fragments of the port's kernel names -> their kernels (the int8 matmul has
-# one kernel per path: TMA + wgmma, the decode ring, mma.sync; the ragged
-# decode's split kernels also merge the splits, in their last block)
+# one kernel per path: TMA + wgmma, the decode ring, mma.sync; the decode
+# kernels' split kernels also merge the splits, in their last block)
 KERNEL_NAMES = {
     "flash_fwd_kernel": "flash_fwd", "paged_decode_split_kernel": "paged_decode", "kv_scatter_kernel": "kv_scatter",
     "paged_decode_int8_split_kernel": "paged_decode_int8", "kv_scatter_int8_kernel": "kv_scatter_int8",
     "qmm_wgmma_kernel": "quantized_matmul", "qmm_ring_kernel": "quantized_matmul", "qmm_kernel": "quantized_matmul",
-    "paged_decode_writeback_kernel": "paged_decode_writeback",
+    "paged_decode_writeback_split_kernel": "paged_decode_writeback",
+    "paged_decode_writeback_int8_split_kernel": "paged_decode_writeback_int8",
 }
 
 

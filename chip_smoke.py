@@ -2,9 +2,10 @@
 against its plain version on the card, serves Llama-2-7B-shaped requests
 (random bf16 weights from a seed, full width) through the port's engine and
 OpenAI server, again 8 decode steps per dispatch, again through the
-write-then-attend decode, again with int8 weights and an int8 KV cache,
-LoRA-fine-tunes the same model through ``Trainer``, and prints per-kernel
-times beside their bounds.
+write-then-attend decode, again with int8 weights and an int8 KV cache, and
+through the write-then-attend decode over int8 pages, LoRA-fine-tunes the
+same model through ``Trainer``, and prints per-kernel times beside their
+bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -13,10 +14,10 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 Phases (any failure exits non-zero and prints no result):
 1. build the CUDA kernels from ``modal_examples_tpu_torch/csrc`` (the
    ptxas register and spill report of the flash forward, dQ and dK/dV
-   kernels, the int8 matmul and the ragged decodes logged), and read their
+   kernels, the int8 matmul and the four decodes logged), and read their
    SASS with ``cuobjdump``: the first four must hold wgmma (``HGMMA``) and
-   TMA load (``UTMALDG``) instructions, the bf16 and int8 ragged decodes
-   cp.async (``LDGSTS``);
+   TMA load (``UTMALDG``) instructions, the four decode kernels (ragged and
+   write-then-attend, bf16 and int8 pages) cp.async (``LDGSTS``);
 2. each kernel against its plain version at the main paths' shapes
    (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8); the flash
    forward also at a ragged S=300 (causal and not), a chunk at
@@ -31,9 +32,13 @@ Phases (any failure exits non-zero and prints no result):
    the same check shown to refuse two planted faults (the last page of the
    longest prefix dropped, the last split of its rows dropped from the
    merge); the int8 scatter bitwise at 8 and 2048 tokens; the write-then-attend
-   decode over one layer's pages at Hkv=32 and 8, contexts 0..1001 and a dead
-   slot on trash page 0, held per (sequence, head) row, and the same check
-   shown to refuse two planted faults;
+   decodes (bf16 and int8 pages) over one layer's pages at Hkv=32 and 8,
+   contexts 0..1001 with a dead slot on trash page 0 and contexts at the
+   split edges, held per (sequence, head) row, an empty context exactly
+   zero, launched twice and required bitwise equal, with the same check
+   shown to refuse planted faults (bf16: the last 64-row chunk skipped, the
+   last split dropped, K2's bf16 probabilities; int8: the last page and the
+   last split dropped);
 3. the engine serving 8 requests (prompts of 20..700 tokens, one chunked),
    with the launch counters zeroed just before and read just after: every
    serving kernel must have launched, the decode kernel n_layers x decode
@@ -55,7 +60,12 @@ Phases (any failure exits non-zero and prints no result):
    matmul a multiple of 7 x n_layers + 1 and at least that many per decode
    step; weights and cache at most 0.52 of their bf16 bytes; prefill + one
    decode step against a dense plain forward over the same int8 weights
-   and the same int8 cache rows;
+   and the same int8 cache rows; then (phase 3b over int8 pages) the same
+   int8 weights and cache at ``paged_impl="pallas-writeback"``,
+   ``decode_steps=8``, counters zeroed: the int8 write-then-attend decode
+   n_layers x decode steps times and no other decode kernel, the int8
+   scatter at least once a layer a step, every page returned, and the dense
+   check through the writeback decode step;
    then training: Llama-2-7B (full depth, frozen random bf16 base) with
    rank-16 LoRA on all seven projections, B=2 x S=512, through
    ``Trainer.train_step``: the first step's adapter gradients against the
@@ -65,7 +75,7 @@ Phases (any failure exits non-zero and prints no result):
 5. per-kernel numbers on earlier lines, each kernel and library call
    timed two ways (CUDA events): the median of single launches (``ms``,
    ``library_ms``) and 50 back-to-back launches (``ms_b2b``,
-   ``library_ms_b2b``); the three decode kernels cycled over four layers of
+   ``library_ms_b2b``); the four decode kernels cycled over four layers of
    one cache (so their rows come from HBM) and also timed by the profiler's
    device time (``device_ms``); then the card's name and power limit, then
    the result line.
@@ -103,7 +113,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # of each gradient, sums in another order).
 TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2,
        "quantized_matmul": 1e-3, "paged_decode_int8": 6e-2, "kv_scatter_int8": 0.0, "paged_decode_writeback": 1e-2,
-       "paged_decode_writeback_differ": 1e-2, "paged_decode_row": 1e-2, "paged_decode_int8_row": 1e-2}
+       "paged_decode_writeback_differ": 1e-2, "paged_decode_row": 1e-2, "paged_decode_int8_row": 1e-2,
+       "paged_decode_writeback_int8": 6e-2, "paged_decode_writeback_int8_row": 1e-2}
 # the int8 matmul is held as max|out - plain| / max|plain|: its products are
 # exact (int8 and bf16 values, f32 sums), only the summation order differs.
 # The int8 decode has K2's numerics over the same dequantized values; the int8
@@ -113,13 +124,16 @@ TOL = {"flash_fwd": 2e-2, "paged_decode": 6e-2, "kv_scatter": 0.0, "flash_bwd_dq
 # is held per (sequence, head) row as max|o - plain| / max|plain| (one bf16
 # ulp is at most 2^-7 of the row's largest value) and by the share of output
 # elements whose bf16 value differs from the plain version's ("_differ").
-# Phase 2 shows that both limits see two planted faults: the last 64-row
-# chunk of the longest context skipped, and probabilities rounded to bf16
-# (K2's design, run on the same rows). K2 and K2-int8 are held the same way
-# per (sequence, query head) row ("_row", beside the absolute limit), at
-# prefixes on both sides of the kernels' split edges, and phase 2 shows that
-# check refusing two planted faults: the last page of the longest prefix
-# dropped, and the last split of its rows dropped from the combine.
+# Phase 2 shows that both limits see three planted faults: the last 64-row
+# chunk of the longest context skipped, its last split dropped from the
+# merge, and probabilities rounded to bf16 (K2's design, run on the same
+# rows). K2, K2-int8 and K4-int8 (whose probabilities are rounded to bf16,
+# as its JAX function's) are held the same way per (sequence, query head)
+# row ("_row", beside the absolute limit), at contexts on both sides of the
+# kernels' split edges, and phase 2 shows that check refusing two planted
+# faults: the last page of the longest context dropped, and the last split
+# of its rows dropped from the merge. The four decode kernels must also be
+# bitwise equal from launch to launch (their merge runs in split order).
 # (K, N) of every int8 weight of Llama-2-7B (wq/wk/wv/wo, gate/up, down,
 # lm_head) and one ragged shape
 QMM_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (4000, 11000)]
@@ -137,11 +151,12 @@ K1_CASES = [
     (2, 4, 2, 200, 200, 0, True, 256),
 ]
 # instructions each library's SASS must hold: the products on wgmma (HGMMA)
-# fed by TMA (UTMALDG); the ragged decode kernels' rows streamed by cp.async
+# fed by TMA (UTMALDG); the four decode kernels' rows streamed by cp.async
 # (LDGSTS)
 SASS_CHECKED = {
     **{name: ("HGMMA", "UTMALDG") for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul")},
-    **{name: ("LDGSTS",) for name in ("paged_decode", "paged_decode_int8")},
+    **{name: ("LDGSTS",) for name in ("paged_decode", "paged_decode_int8", "paged_decode_writeback",
+                                      "paged_decode_writeback_int8")},
 }
 # phase 5 cycles the decode kernels over these layers of one cache: their
 # rows (141 MB bf16, 71 MB int8) exceed the 50 MB L2, so each launch reads
@@ -282,15 +297,18 @@ def decode_case(gen, B, Hq, Hkv, L, D=128, ps=16, pps=64, int8=False, lens=DECOD
     )
 
 
-def writeback_case(gen, B, Hq, Hkv, L, ctx, D=128, ps=16, pps=64):
-    """One layer's pages (the contiguous view ``pages[2]`` of a bf16 cache)
-    for contexts ``ctx`` that count the current token, over shuffled pages;
-    the last slot is dead: its table is all trash page 0."""
+def writeback_case(gen, B, Hq, Hkv, L, ctx, D=128, ps=16, pps=64, int8=False, dead=True):
+    """One layer's pages (the contiguous view ``pages[2]`` of a bf16 cache,
+    or of an int8 one) for contexts ``ctx`` that count the current token,
+    over shuffled pages; with ``dead`` the last slot is dead: its table is
+    all trash page 0."""
     P = 1 + B * pps
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(1))[: B * pps] + 1
     tables = perm.reshape(B, pps).to(torch.int32)
-    tables[-1] = 0
-    k_cache, v_cache = rand_bf16(gen, L, P, ps, Hkv, D), rand_bf16(gen, L, P, ps, Hkv, D)
+    if dead:
+        tables[-1] = 0
+    pages = int8_pages if int8 else rand_bf16
+    k_cache, v_cache = pages(gen, L, P, ps, Hkv, D), pages(gen, L, P, ps, Hkv, D)
     return dict(
         q=rand_bf16(gen, B, Hq, D), k_pages=k_cache[2], v_pages=v_cache[2],
         page_tables=tables.cuda(), context_lens=torch.tensor(ctx, dtype=torch.int32).cuda(),
@@ -358,24 +376,101 @@ def writeback_readings(o, want, ctx) -> dict:
     return {"row_rel": row.max().item(), "differ": (o != want).float().mean().item(), "max_abs": max_err(o, want)}
 
 
-def writeback_faults(pa, c, ctx) -> dict:
-    """Two planted faults on the same inputs, each a wrong K4 that the check
-    must refuse: the plain version with the longest context's last 64-row
-    chunk skipped, and K2, which rounds its probabilities to bf16, over the
-    same rows (the prefix is the context less its last row, which goes in as
-    the in-flight token)."""
+def longest_context(c) -> tuple:
+    """(slot, rows) of the longest context of a ``writeback_case``, its rows
+    cut to the table (the kernels read no further)."""
+    lens = c["context_lens"]
+    longest = int(lens.argmax())
+    return longest, min(int(lens[longest]), c["page_tables"].shape[1] * c["k_pages"].shape[1])
+
+
+def writeback_faults(pa, c, int8: bool) -> dict:
+    """Planted faults on the same inputs, each a wrong K4 or K4-int8 that the
+    check must refuse: the plain version with the longest context's last
+    split dropped from the merge, and with its last 64-row chunk skipped
+    (K4) or its last page dropped (K4-int8); for K4 also K2, which rounds its
+    probabilities to bf16, over the same rows (the prefix is the context less
+    its last row, which goes in as the in-flight token)."""
+    plain = pa.paged_decode_writeback_int8_plain if int8 else pa.paged_decode_writeback_plain
     args = [c[n] for n in WRITEBACK_ARGS]
-    cut = c["context_lens"].clone()
-    longest = int(cut.argmax())
-    cut[longest] = (int(cut[longest]) - 1) // 64 * 64
-    skipped = pa.paged_decode_writeback_plain(*args[:4], cut, sm_scale=128**-0.5)
-    ps = c["k_pages"].shape[1]
-    last = (c["context_lens"].long() - 1).clamp(min=0)
-    page = c["page_tables"].long()[torch.arange(len(ctx), device="cuda"), last // ps]
-    k_new, v_new = c["k_pages"][page, last % ps], c["v_pages"][page, last % ps]
-    rounded = pa.paged_decode_cuda(c["q"], c["k_cache"], c["v_cache"], 2, c["page_tables"], last.int(), k_new, v_new,
-                                   sm_scale=128**-0.5)
-    return {f"last chunk of context {ctx[longest]} skipped": skipped, "probabilities rounded to bf16 (K2)": rounded}
+    longest, n = longest_context(c)
+    ps, split = c["k_pages"].shape[1], decode_split_rows()
+    cuts = {f"last split of context {n} dropped from the merge": (n - 1) // split * split}
+    if int8:
+        cuts[f"last page of context {n} dropped"] = (n - 1) // ps * ps
+    else:
+        cuts[f"last 64-row chunk of context {n} skipped"] = (n - 1) // 64 * 64
+    faults = {}
+    for fault, cut in cuts.items():
+        short = c["context_lens"].clone()
+        short[longest] = cut
+        faults[fault] = plain(*args[:4], short, sm_scale=128**-0.5)
+    if not int8:
+        B = len(c["context_lens"])
+        last = (c["context_lens"].long() - 1).clamp(min=0)
+        page = c["page_tables"].long()[torch.arange(B, device="cuda"), last // ps]
+        k_new, v_new = c["k_pages"][page, last % ps], c["v_pages"][page, last % ps]
+        faults["probabilities rounded to bf16 (K2)"] = pa.paged_decode_cuda(
+            c["q"], c["k_cache"], c["v_cache"], 2, c["page_tables"], last.int(), k_new, v_new, sm_scale=128**-0.5)
+    return faults
+
+
+def writeback_passes(name: str, r: dict) -> bool:
+    """The K4 check (row and share of differing elements) or the K4-int8
+    check (row and max abs) on ``writeback_readings``."""
+    if name == "paged_decode_writeback":
+        return r["row_rel"] <= TOL[name] and r["differ"] <= TOL[f"{name}_differ"]
+    return r["row_rel"] <= TOL[f"{name}_row"] and r["max_abs"] <= TOL[name]
+
+
+def check_writeback(pa, name: str, c, label: str) -> float:
+    """K4 or K4-int8 (``name``: the wrapper ``pa.<name>_cuda``) on one
+    ``writeback_case`` against its plain version (``writeback_passes``),
+    empty contexts exactly zero, two launches bitwise equal, and every
+    planted fault of ``writeback_faults`` refused by the same check. Returns
+    the max abs error."""
+    kernel, plain = getattr(pa, f"{name}_cuda"), getattr(pa, f"{name}_plain")
+    args = [c[n] for n in WRITEBACK_ARGS]
+    o = kernel(*args, sm_scale=128**-0.5)
+    again = kernel(*args, sm_scale=128**-0.5)
+    torch.cuda.synchronize()
+    want = plain(*args, sm_scale=128**-0.5)
+    ctx = c["context_lens"]
+    got = writeback_readings(o, want, ctx)
+    empty = o[ctx == 0]
+    log(f"{label}, contexts {ctx.tolist()}: max|o-plain|={got['max_abs']:.3g}, row max|o-plain|/max|plain|="
+        f"{got['row_rel']:.3g}, elements differing {got['differ']:.3g}, max|o| of the {len(empty)} empty contexts "
+        f"{empty.abs().max().item() if len(empty) else None}, bitwise equal on a second launch {torch.equal(o, again)}")
+    for fault, wrong in writeback_faults(pa, c, name.endswith("int8")).items():
+        bad = writeback_readings(wrong, want, ctx)
+        log(f"  planted fault, {fault}: max|o-plain|={bad['max_abs']:.3g}, row {bad['row_rel']:.3g}, "
+            f"elements differing {bad['differ']:.3g}")
+        if writeback_passes(name, bad):
+            raise AssertionError(f"the {name} check does not see a planted fault ({fault}): {bad}")
+    if not writeback_passes(name, got):
+        raise AssertionError(f"{name} kernel disagrees with its plain version: {got}")
+    if len(empty) and empty.abs().max().item() != 0.0:
+        raise AssertionError(f"{name} gives nonzero output for an empty context")
+    if not torch.equal(o, again):
+        raise AssertionError(f"{name} differs from run to run")
+    return got["max_abs"]
+
+
+# contexts 1, a page, a page plus one, 1001; none (zeros); a mix; a dead slot
+WRITEBACK_CTX = (1, 16, 17, 1001, 0, 334, 512, 1)
+
+
+def writeback_cases(gen, int8: bool):
+    """(label, case) of phase 2's write-then-attend checks: 8 slots at G = 1
+    and 4 over layer 2's pages, at ``WRITEBACK_CTX`` (the last slot dead, on
+    trash page 0) and at contexts on both sides of the split edges (each a
+    prefix of ``split_edge_lens`` plus the current token, cut to the
+    64 x 16-row table)."""
+    edges = tuple(min(n + 1, 64 * 16) for n in split_edge_lens(decode_split_rows()))
+    for ctx, dead in ((WRITEBACK_CTX, True), (edges, False)):
+        for Hkv in (32, 8):
+            yield (f"K4{'-int8' if int8 else ''} writeback decode B=8 Hq=32 Hkv={Hkv} one layer's pages",
+                   writeback_case(gen, 8, 32, Hkv, L=4, ctx=ctx, int8=int8, dead=dead))
 
 
 def scatter_case(gen, L, N, P, Hkv=32, D=128, ps=16):
@@ -411,28 +506,10 @@ def phase_kernels_vs_plain(fa, pa) -> dict:
         e = check_decode("paged_decode", pa.paged_decode_cuda, pa.paged_decode_plain, c, label)
         errs["paged_decode"] = max(errs.get("paged_decode", 0.0), e)
         del c
-    # contexts 1, a page, a page plus one, 1001; none (zeros); a mix; a dead slot
-    ctx = [1, 16, 17, 1001, 0, 334, 512, 1]
-    for B, Hq, Hkv in [(8, 32, 32), (8, 32, 8)]:
-        c = writeback_case(gen, B, Hq, Hkv, L=4, ctx=ctx)
-        args = [c[n] for n in WRITEBACK_ARGS]
-        o = pa.paged_decode_writeback_cuda(*args, sm_scale=128**-0.5)
-        torch.cuda.synchronize()
-        want = pa.paged_decode_writeback_plain(*args, sm_scale=128**-0.5)
-        e, got = max_err(o, want), writeback_readings(o, want, ctx)
-        log(f"K4 writeback decode B={B} Hq={Hq} Hkv={Hkv} one layer's pages, contexts {ctx}: max|o-plain|={e:.3g}, "
-            f"row max|o-plain|/max|plain|={got['row_rel']:.3g}, elements differing {got['differ']:.3g}, "
-            f"max|o| of the empty context {o[4].abs().max().item()}")
-        if not (got["row_rel"] <= TOL["paged_decode_writeback"] and got["differ"] <= TOL["paged_decode_writeback_differ"]
-                and o[4].abs().max().item() == 0.0):
-            raise AssertionError(f"writeback decode kernel disagrees with its plain version: {got}")
-        for fault, wrong in writeback_faults(pa, c, ctx).items():
-            bad = writeback_readings(wrong, want, ctx)
-            log(f"  planted fault, {fault}: max|o-plain|={bad['max_abs']:.3g}, row {bad['row_rel']:.3g}, "
-                f"elements differing {bad['differ']:.3g}")
-            if bad["row_rel"] <= TOL["paged_decode_writeback"] and bad["differ"] <= TOL["paged_decode_writeback_differ"]:
-                raise AssertionError(f"the writeback decode check does not see a planted fault ({fault}): {bad}")
+    for label, c in writeback_cases(gen, int8=False):
+        e = check_writeback(pa, "paged_decode_writeback", c, label)
         errs["paged_decode_writeback"] = max(errs.get("paged_decode_writeback", 0.0), e)
+        del c
     for L, N, P in [(32, 8, 513), (32, 2048, 513)]:  # decode step; prefill batch 4 x 512
         k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
         kp, vp = rand_bf16(gen, L, P, 16, 32, 128), rand_bf16(gen, L, P, 16, 32, 128)
@@ -525,6 +602,10 @@ def phase_int8_kernels_vs_plain(pa, errs: dict) -> None:
     for label, c in decode_cases(gen, int8=True):
         e = check_decode("paged_decode_int8", pa.paged_decode_int8_cuda, pa.paged_decode_int8_plain, c, label)
         errs["paged_decode_int8"] = max(errs.get("paged_decode_int8", 0.0), e)
+        del c
+    for label, c in writeback_cases(gen, int8=True):
+        e = check_writeback(pa, "paged_decode_writeback_int8", c, label)
+        errs["paged_decode_writeback_int8"] = max(errs.get("paged_decode_writeback_int8", 0.0), e)
         del c
     for L, N, P in [(32, 8, 513), (32, 2048, 513)]:  # decode step; prefill batch 4 x 512
         k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
@@ -868,6 +949,44 @@ def phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParam
     log(f"int8 prefill logits vs the bf16 model's dense forward (logged, not held to a bound): cosine "
         f"{metrics['prefill_cosine_vs_bf16_model']:.6f}, argmax {int(pre.argmax())} vs {int(bf16_ref.argmax())}")
     eng.stop()
+    return metrics, qparams
+
+
+def phase_int8_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, qparams) -> dict:
+    """Phase 3b over int8 pages: the int8 weights ``qparams`` in an engine
+    with an int8 KV cache and ``paged_impl="pallas-writeback"`` at
+    ``decode_steps=8``, the 8 requests, counters zeroed just before the burst
+    and read just after: K4-int8 n_layers x decode steps times, no other
+    decode kernel, K3-int8 at least once a layer a step and no bf16 scatter;
+    then prefill + one writeback decode step against the dense plain forward
+    over the same int8 weights and cache rows."""
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    eng = LLMEngine(cfg, qparams, quantization=None, kv_dtype="int8", paged_impl="pallas-writeback", decode_steps=8,
+                    max_slots=8, max_model_len=1024, prefill_buckets=(128, 256, 512), prefill_batch=4,
+                    decode_block=8, seed=0, device="cuda")
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    fa.launches = qmm.qmm_launches = pa.scatter_launches = pa.scatter_int8_launches = 0
+    pa.decode_launches = pa.decode_int8_launches = pa.decode_writeback_launches = pa.decode_writeback_int8_launches = 0
+    _, metrics = serve_burst(eng, SamplingParams, "int8 writeback engine, N=8")
+    counts = {"flash_fwd": fa.launches, "quantized_matmul": qmm.qmm_launches,
+              "paged_decode_writeback_int8": pa.decode_writeback_int8_launches,
+              "kv_scatter_int8": pa.scatter_int8_launches, "paged_decode_writeback": pa.decode_writeback_launches,
+              "paged_decode": pa.decode_launches, "paged_decode_int8": pa.decode_int8_launches,
+              "kv_scatter": pa.scatter_launches}
+    steps = metrics["decode_steps"]
+    log(f"int8 writeback engine N=8 launches {counts}")
+    if counts["paged_decode_writeback_int8"] != cfg.n_layers * steps:
+        raise AssertionError(f"int8 writeback launches {counts}: want {cfg.n_layers} x {steps} K4-int8")
+    if counts["paged_decode_writeback"] or counts["paged_decode"] or counts["paged_decode_int8"] or counts["kv_scatter"]:
+        raise AssertionError(f"the int8 writeback path launched another decode or a bf16 scatter kernel: {counts}")
+    if counts["kv_scatter_int8"] < cfg.n_layers * steps or counts["flash_fwd"] < 1 or counts["quantized_matmul"] < 1:
+        raise AssertionError(f"int8 writeback launches {counts}: want K3-int8 once a layer a step, K1 and K7")
+    metrics["launches"] = counts
+    log(f"int8 writeback engine metrics: {json.dumps(metrics)}")
+    metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
+    eng.stop()
     return metrics
 
 
@@ -1138,8 +1257,8 @@ def int8_library(w):
 
 def int8_rows(pa, gen) -> list:
     """Phase 5 rows of the int8 kernels: K7 at the decode step's and the
-    prefill batch's gate/up shape, K2-int8 at K2's shape, K3-int8 at a decode
-    step's 8 tokens x 32 layers."""
+    prefill batch's gate/up shape, K2-int8 at K2's shape, K4-int8 at K4's,
+    K3-int8 at a decode step's 8 tokens x 32 layers."""
     from modal_examples_tpu_torch.models.quantize import dequantize_weight, quantize_weight
     from modal_examples_tpu_torch.ops import kv_quant as kvq
     from modal_examples_tpu_torch.ops import quantized_matmul as qmm
@@ -1185,6 +1304,23 @@ def int8_rows(pa, gen) -> list:
         shape=f"B=8 Hq=Hkv=32 D=128 prefixes 0..1000 ({rows_read} rows), layers {CYCLED_LAYERS} in turn",
         ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: pa.paged_decode_int8_plain(*per_layer[0], sm_scale=128**-0.5), reps=5),
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
+        library_op="none: no PyTorch call attends over a paged cache",
+    ))
+    # K4-int8 at K4's shape over the same int8 layers' pages: contexts are
+    # K2-int8's prefixes plus the current token
+    per_layer = [[c["q"], c["k_pages"][li], c["v_pages"][li], c["page_tables"], c["prefix_lens"] + 1]
+                 for li in CYCLED_LAYERS]
+    kernel = cycling([lambda a=a: pa.paged_decode_writeback_int8_cuda(*a, sm_scale=128**-0.5) for a in per_layer])
+    rows_read = int(c["prefix_lens"].sum()) + 8
+    nbytes = 2 * rows_read * 32 * (128 + 4) + 2 * 8 * 32 * 128 * 2  # int8 K+V rows and scales; q, o
+    rows.append(dict(
+        name="paged_decode_writeback_int8", source="modal_examples_tpu_torch/csrc/paged_decode_writeback_int8.cu",
+        replaces="modal_examples_tpu/ops/paged_attention.py:72",
+        shape=f"B=8 Hq=Hkv=32 D=128 one layer's int8 pages, contexts 1..1001 ({rows_read} rows), layers "
+              f"{CYCLED_LAYERS} in turn",
+        ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: pa.paged_decode_writeback_int8_plain(*per_layer[0], sm_scale=128**-0.5), reps=5),
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
@@ -1258,8 +1394,14 @@ def main() -> int:
     log("phase 3b write-then-attend serving: ok")
     gc.collect()
     torch.cuda.empty_cache()
-    int8 = phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params, bf16_cache_bytes)
+    int8, qparams = phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params,
+                                      bf16_cache_bytes)
     log("phase 4 int8 serving: ok")
+    gc.collect()
+    torch.cuda.empty_cache()
+    wb8 = phase_int8_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, qparams)
+    log("phase 3b write-then-attend serving over int8 pages: ok")
+    del qparams
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
@@ -1272,10 +1414,12 @@ def main() -> int:
         **serve_counts, **train_counts,
         **{k: int8_counts[k] for k in ("quantized_matmul", "paged_decode_int8", "kv_scatter_int8")},
         "paged_decode_writeback": wb_counts["paged_decode_writeback"],
+        "paged_decode_writeback_int8": wb8["launches"]["paged_decode_writeback_int8"],
         "flash_fwd": serve_counts["flash_fwd"] + int8_counts["flash_fwd"] + train_counts["flash_fwd"],
     }
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
-        f"{int8_counts}, training {train_counts}; kernels line (flash_fwd summed) {counts}")
+        f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}; "
+        f"kernels line (flash_fwd summed) {counts}")
     rows = phase_numbers(fa, pa, counts, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -7,7 +7,7 @@
 #include "paged_decode.cuh"
 
 __global__ void __launch_bounds__(paged::THREADS) paged_decode_split_kernel(paged::Params p) {
-  paged::decode_split<paged::Bf16Page>(p);
+  paged::decode_split<paged::Bf16Page, /*INFLIGHT=*/true, /*ROUND_P=*/true>(p);
 }
 
 // The cached rows one block takes: the wrapper sizes the grid's split axis

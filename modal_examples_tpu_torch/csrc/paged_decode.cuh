@@ -1,21 +1,37 @@
-// Ragged paged decode attention for Hopper (sm_90a), the body shared by
-// paged_decode.cu (bf16 pages) and paged_decode_int8.cu (int8 pages plus one
-// f32 scale per token and kv head): one decode token per sequence attends to
-// its prefix_lens[b] cached rows plus the in-flight token.
+// Paged decode attention for Hopper (sm_90a), the one body of four kernels:
+// the ragged decode (paged_decode.cu, bf16 pages; paged_decode_int8.cu, int8
+// pages plus one f32 scale per token and kv head), where one decode token per
+// sequence attends to its prefix_lens[b] cached rows plus the in-flight
+// token, and the write-then-attend decode (paged_decode_writeback.cu,
+// paged_decode_writeback_int8.cu), where it attends to the first
+// context_lens[b] rows of one layer's pages, the current token already
+// written there.
 //
 // Replaces modal_examples_tpu/ops/paged_attention.py::_decode_kernel_ragged
 // ("flat") and ::_decode_kernel_ragged_grouped ("grouped"), both branches
 // (bf16 pages; int8 pages :381-392, :602-606), entry
-// paged_decode_attention_ragged. The TPU needed two formulations because its
-// block-diagonal all-heads matmul only tiles at Hkv % 16 (% 32 for int8);
-// this body computes the same function for any G = Hq / Hkv and D <= 256.
+// paged_decode_attention_ragged; and ::_decode_kernel (write-then-attend,
+// entry paged_decode_attention, whose int8 pages go to _paged_decode_xla).
+// The TPU needed two ragged formulations because its block-diagonal
+// all-heads matmul only tiles at Hkv % 16 (% 32 for int8); this body
+// computes the same function for any G = Hq / Hkv and D <= 256.
+//
+// Two compile-time switches pick the function:
+//   INFLIGHT  the in-flight token's K/V (bf16, k_new/v_new) is one extra
+//             softmax column after the cached rows (the ragged decode); off,
+//             there is no column (write-then-attend: the current token is a
+//             cached row) and a sequence with no rows gives zeros;
+//   ROUND_P   the unnormalised probabilities are rounded to bf16 before P.V,
+//             as the TPU kernel's p.astype(v.dtype) (the ragged decode, and
+//             the int8 write-then-attend decode, whose JAX function rounds
+//             its probabilities to the pages' bf16); off, they stay f32 (the
+//             bf16 write-then-attend decode, as the TPU's _decode_kernel).
 //
 // What is computed: the page table is [B, pps] and the cache [L, P, ps, Hkv,
-// D], indexed by the layer scalar (no slice copy). Scores q.k * sm_scale and
-// the softmax are f32; the unnormalised probabilities are rounded to bf16
-// before P.V, as the TPU kernel's p.astype(v.dtype); int8 rows are
-// dequantized as bf16(bf16(int8) * bf16(scale)); the in-flight token's K/V
-// (bf16) is one extra softmax column; bf16 out.
+// D], indexed by the layer scalar (no slice copy; the write-then-attend
+// kernels get one layer's view [P, ps, Hkv, D] with layer 0). Scores q.k *
+// sm_scale and the softmax are f32; int8 rows are dequantized as
+// bf16(bf16(int8) * bf16(scale)); bf16 out.
 //
 // Bound: bytes. At G = 1 (Llama-2-7B) each byte read feeds 2 FLOPs, far below
 // the card's ~295 FLOP/byte ridge, so the tensor cores would buy nothing; the
@@ -24,7 +40,7 @@
 //   1. The context is split across blocks. The grid is (B, Hkv, n_split),
 //      n_split = ceil(pps * ps / SPLIT) from the table's width (known on the
 //      host, no sync); a block takes rows [s * SPLIT, min((s + 1) * SPLIT,
-//      prefix)) of its (sequence, kv head) and exits at once when that range
+//      rows)) of its (sequence, kv head) and exits at once when that range
 //      is empty. A long context no longer sets the time while the short
 //      ones' blocks sit finished: every busy block has at most SPLIT rows.
 //   2. Rows are in flight ahead of the math, and each warp works alone. A
@@ -36,7 +52,7 @@
 //      warps' rows are still in flight, then sums P.V once its V has
 //      landed: no block barrier from the copies to the warps' partials.
 //      That is 64 KB of K+V in flight per block at D = 128 (bf16), 32 KB for
-//      int8. cp.async rather than TMA: it reads exactly the prefix's rows (a
+//      int8. cp.async rather than TMA: it reads exactly the context's rows (a
 //      TMA box takes a whole page), needs no tensor map per cache tensor,
 //      serves both page types with one loop, and at a few FMAs per byte the
 //      address arithmetic TMA would save is not what bounds the kernel; int8
@@ -46,27 +62,28 @@
 // rows hits 8 bank groups). Scores: a lane per row, 16 bytes (8 bf16 or 16
 // int8 values) at a time against the G query rows of the group (one
 // broadcast address across the warp). Softmax: each warp's piece has its own
-// max and sum (warp reductions), its f32 probabilities rounded to bf16 for
-// P.V. P.V: a lane per column over the piece's rows. The block's partial is
-// the four pieces merged in warp order.
+// max and sum (warp reductions), its f32 probabilities (rounded to bf16 under
+// ROUND_P) kept for P.V. P.V: a lane per column over the piece's rows. The
+// block's partial is the four pieces merged in warp order.
 //
 // Measured alternatives (NVIDIA H100 SXM, phase-5 shape): the same split
 // staged and scored by the whole block between block barriers, a ring of
 // 32-row stages per block with an online softmax per stage, and a ring of
 // 8-row stages per warp all ran 0.030-0.047 ms against this design's 0.027
-// (bf16); none changed what bounds the kernel (PERF.md).
+// (bf16 ragged decode); none changed what bounds the kernel (PERF.md).
 //
 // Partials and combine: each block writes its f32 acc[G][D], m[G], l[G] to
 // the workspace [B, Hq, n_split, D + 2]. The last block of a (sequence, kv
 // head) to take its atomic ticket merges the splits in split order, the
-// in-flight column folded in at the end:
+// in-flight column (INFLIGHT) folded in at the end:
 //   m = max(m_s, s_new),
 //   o = (sum_s e^(m_s - m) acc_s + e^(s_new - m) v_new) / (sum_s e^(m_s - m) l_s + e^(s_new - m)),
-// and resets the ticket, so the per-stream ticket buffer needs no memset
-// (as K7's ring, quantized_matmul.cu). The merge reads every split from
-// memory in a fixed order, so the result is bitwise equal from run to run
-// whichever block comes last. A sequence with prefix 0 has no split: block
-// s = 0 writes v_new.
+// without the column the terms in s_new drop out. It resets the ticket, so
+// the per-stream ticket buffer needs no memset (as K7's ring,
+// quantized_matmul.cu). The merge reads every split from memory in a fixed
+// order, so the result is bitwise equal from run to run whichever block comes
+// last. A sequence with no cached rows has no split: block s = 0 writes
+// v_new (INFLIGHT) or zeros.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,8 +108,8 @@ struct Params {
   const float* k_scales;        // [L, P, ps, Hkv] (int8 pages only)
   const float* v_scales;
   const int* page_tables;       // [B, pps]
-  const int* prefix_lens;       // [B] tokens already in the cache
-  const __nv_bfloat16* k_new;   // [B, Hkv, D]
+  const int* prefix_lens;       // [B] cached rows to attend (the context, without INFLIGHT)
+  const __nv_bfloat16* k_new;   // [B, Hkv, D] (INFLIGHT only)
   const __nv_bfloat16* v_new;
   __nv_bfloat16* out;           // [B, Hq, D]
   float* work;                  // [B, Hq, n_split, D + 2]: acc, m, l
@@ -215,10 +232,13 @@ __device__ __forceinline__ void new_scores(const Params& p, const float* q_s, co
 }
 
 // The merge of a (sequence, kv head)'s n_used split partials with the
-// in-flight column (its scores in stat[0..G), its V in vn_s). One warp per
-// query head finds m, each split's weight e^(m_s - m) and the denominator
-// (summed in split order); then threads across (g, d) sum the weighted
-// partials in split order, their loads independent of each other.
+// in-flight column (INFLIGHT: its scores in stat[0..G), its V in vn_s). One
+// warp per query head finds m, each split's weight e^(m_s - m) and the
+// denominator (summed in split order); then threads across (g, d) sum the
+// weighted partials in split order, their loads independent of each other.
+// Without the column and with no split the denominator is 0 and the result
+// zeros.
+template <bool INFLIGHT>
 __device__ void merge(const Params& p, const float* vn_s, float* stat, float* mw, int n_used) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -228,7 +248,7 @@ __device__ void merge(const Params& p, const float* vn_s, float* stat, float* mw
   float* enew_s = stat + 2 * G;
   const float* work = p.work + ((size_t)b * Hq + h * G) * ns * (D + 2);
   for (int g = warp; g < G; g += WARPS) {
-    const float s_new = snew_s[g];
+    const float s_new = INFLIGHT ? snew_s[g] : -INFINITY;
     const float* w = work + (size_t)g * ns * (D + 2);
     float m = s_new;
     for (int s = lane; s < n_used; s += 32) m = fmaxf(m, __ldcg(w + (size_t)s * (D + 2) + D));
@@ -239,7 +259,7 @@ __device__ void merge(const Params& p, const float* vn_s, float* stat, float* mw
     }
     __syncwarp();
     if (lane == 0) {
-      const float e_new = expf(s_new - m);
+      const float e_new = INFLIGHT ? expf(s_new - m) : 0.f;
       float den = 0.f;
       for (int s = 0; s < n_used; ++s) den = fmaf(mw[g * ns + s], mw[(G + g) * ns + s], den);
       den_s[g] = den + e_new;
@@ -253,12 +273,13 @@ __device__ void merge(const Params& p, const float* vn_s, float* stat, float* mw
     float num = 0.f;
 #pragma unroll 4
     for (int s = 0; s < n_used; ++s) num = fmaf(mw[g * ns + s], __ldcg(w + (size_t)s * (D + 2)), num);
-    num = fmaf(enew_s[g], vn_s[d], num);
-    p.out[((size_t)b * Hq + h * G + g) * D + d] = __float2bfloat16(num / den_s[g]);
+    if (INFLIGHT) num = fmaf(enew_s[g], vn_s[d], num);
+    const float den = den_s[g];
+    p.out[((size_t)b * Hq + h * G + g) * D + d] = __float2bfloat16((INFLIGHT || den > 0.f) ? num / den : 0.f);
   }
 }
 
-template <class Page>
+template <class Page, bool INFLIGHT, bool ROUND_P>
 __device__ __forceinline__ void decode_split(const Params& p) {
   using T = typename Page::T;
   constexpr int VEC = Page::VEC;
@@ -266,8 +287,8 @@ __device__ __forceinline__ void decode_split(const Params& p) {
   const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = p.G, D = p.D, Hq = p.Hkv * G, NV = D / VEC;
-  const int prefix = min(max(p.prefix_lens[b], 0), p.pps * p.ps);
-  const int n_used = (prefix + SPLIT - 1) / SPLIT;
+  const int cached = min(max(p.prefix_lens[b], 0), p.pps * p.ps);  // rows to attend
+  const int n_used = (cached + SPLIT - 1) / SPLIT;
   if (s >= n_used && !(s == 0 && n_used == 0)) return;  // an empty split
 
   const Smem<Page> L(G, D, p.n_split);
@@ -290,23 +311,25 @@ __device__ __forceinline__ void decode_split(const Params& p) {
 
   const __nv_bfloat16* qg = p.q + ((size_t)b * Hq + h * G) * D;  // the group's G rows are contiguous
   for (int i = tid; i < G * D; i += THREADS) q_s[i] = __bfloat162float(qg[i]);
-  const size_t kv_row = ((size_t)b * p.Hkv + h) * D;
-  for (int d = tid; d < D; d += THREADS) {
-    kn_s[d] = __bfloat162float(p.k_new[kv_row + d]);
-    vn_s[d] = __bfloat162float(p.v_new[kv_row + d]);
+  if (INFLIGHT) {
+    const size_t kv_row = ((size_t)b * p.Hkv + h) * D;
+    for (int d = tid; d < D; d += THREADS) {
+      kn_s[d] = __bfloat162float(p.k_new[kv_row + d]);
+      vn_s[d] = __bfloat162float(p.v_new[kv_row + d]);
+    }
   }
   if (n_used == 0) {
     __syncthreads();
-    new_scores(p, q_s, kn_s, snew_s);
+    if (INFLIGHT) new_scores(p, q_s, kn_s, snew_s);
     __syncthreads();
-    merge(p, vn_s, stat, mw, 0);
+    merge<INFLIGHT>(p, vn_s, stat, mw, 0);
     return;
   }
 
   // the split's rows: a thread indexes one, and each warp stages its own 32
   // (their K as one cp.async group, then their V, the int8 scales with
   // them), neighbouring lanes on neighbouring 16 bytes of a row
-  const int t0 = s * SPLIT, n = min(SPLIT, prefix - t0);
+  const int t0 = s * SPLIT, n = min(SPLIT, cached - t0);
   if (tid < n) {
     const int pos = t0 + tid;
     const int page = p.page_tables[(size_t)b * p.pps + pos / p.ps];
@@ -331,8 +354,8 @@ __device__ __forceinline__ void decode_split(const Params& p) {
   // each warp on its own rows, with no block barrier: scores (a lane per
   // row, 16 bytes at a time against the G query rows, one broadcast address
   // across the warp), its softmax piece (its own max m_w and sum l_w of the
-  // f32 probabilities; P.V takes them rounded to bf16), then P.V (a lane per
-  // column)
+  // f32 probabilities; P.V takes them rounded to bf16 under ROUND_P), then
+  // P.V (a lane per column)
   float* pw = p_s + warp * G * CHUNK;
   float* accw = red + warp * G * D;
   float* mw_w = wst + warp * G;
@@ -368,7 +391,7 @@ __device__ __forceinline__ void decode_split(const Params& p) {
       const float sc = ok ? (a0 + a1) * p.sm_scale : -INFINITY;
       const float m = warp_max(sc);
       const float e = ok ? expf(sc - m) : 0.f;
-      pw[g * CHUNK + lane] = round_bf16(e);
+      pw[g * CHUNK + lane] = ROUND_P ? round_bf16(e) : e;
       const float l = warp_sum(e);
       if (lane == 0) {
         mw_w[g] = m;  // -inf for a warp with no rows
@@ -421,7 +444,7 @@ __device__ __forceinline__ void decode_split(const Params& p) {
   }
 
   // the in-flight token's scores, ready for the merge
-  new_scores(p, q_s, kn_s, snew_s);
+  if (INFLIGHT) new_scores(p, q_s, kn_s, snew_s);
 
   // the last split of this (sequence, kv head) to finish merges them all
   // (a lone split merges at once, with no ticket)
@@ -434,7 +457,7 @@ __device__ __forceinline__ void decode_split(const Params& p) {
     if (!*is_last) return;
     __threadfence();
   }
-  merge(p, vn_s, stat, mw, n_used);
+  merge<INFLIGHT>(p, vn_s, stat, mw, n_used);
   if (tid == 0 && n_used > 1) *ticket = 0;
 }
 

@@ -10,7 +10,7 @@
 #include "paged_decode.cuh"
 
 __global__ void __launch_bounds__(paged::THREADS) paged_decode_int8_split_kernel(paged::Params p) {
-  paged::decode_split<paged::Int8Page>(p);
+  paged::decode_split<paged::Int8Page, /*INFLIGHT=*/true, /*ROUND_P=*/true>(p);
 }
 
 // The cached rows one block takes: the wrapper sizes the grid's split axis

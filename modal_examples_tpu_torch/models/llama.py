@@ -412,15 +412,11 @@ def paged_impl_plan(
     token first and attend with the write-then-attend decode ("writeback").
     ``ragged_variant`` is the TPU formulation's label for the ragged shapes;
     ``weights`` is "int8" for quantized weights (the int8 matmul kernel) or
-    the model dtype. Nothing is downgraded; int8 pages on the writeback
-    structure raise on the card, where no kernel serves them yet."""
+    the model dtype. Nothing is downgraded: every structure serves every kv
+    dtype, int8 pages through the int8 kernels of the same structure."""
     _check_impls(impl, scatter_impl)
     on_card = torch.device(device).type == "cuda"
     writeback = impl.endswith("-writeback")
-    if writeback and on_card and str(kv_dtype) == "int8":
-        raise NotImplementedError(
-            f"paged_impl={impl!r} with kv_dtype='int8' has no CUDA kernel yet ({_paged.WRITEBACK_INT8_ITEM})"
-        )
     return {
         "attention": "writeback" if writeback else "ragged",
         "ragged_variant": None if writeback else _paged.ragged_variant_for(cfg.n_kv_heads, kv_dtype),
@@ -480,7 +476,8 @@ def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tab
     pages (the scatter kernel over the one-layer view on the card), then the
     write-then-attend decode attends over ``positions + 1`` rows, reading the
     current token back from the cache. Dead slots write trash page 0 and
-    attend one row. Both writeback impls launch the same kernel."""
+    attend one row. Both writeback impls launch the same kernel (its int8
+    twin, after the int8 scatter, over an int8 cache)."""
     B = tokens.shape[0]
     ps = k_pages.shape[2]
     cos, sin = _rope(cfg, positions[:, None])  # [B, 1, hd/2]

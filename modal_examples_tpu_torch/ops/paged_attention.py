@@ -1,9 +1,9 @@
 """Paged-cache kernels: ragged decode attention (``csrc/paged_decode.cu``,
-int8 pages ``csrc/paged_decode_int8.cu``, one body in
-``csrc/paged_decode.cuh``), the write-then-attend decode over
-one layer's pages (``csrc/paged_decode_writeback.cu``) and the KV page scatter
-(``csrc/kv_scatter.cu``, int8 pages ``csrc/kv_scatter_int8.cu``), each beside
-its plain version.
+int8 pages ``csrc/paged_decode_int8.cu``), the write-then-attend decode over
+one layer's pages (``csrc/paged_decode_writeback.cu``, int8 pages
+``csrc/paged_decode_writeback_int8.cu``), all four on one body in
+``csrc/paged_decode.cuh``, and the KV page scatter (``csrc/kv_scatter.cu``,
+int8 pages ``csrc/kv_scatter_int8.cu``), each beside its plain version.
 
 Counterpart of ``modal_examples_tpu/ops/paged_attention.py``
 (``paged_decode_attention_ragged``, ``paged_decode_attention``,
@@ -15,7 +15,8 @@ array (int8 data plus f32 scales ``[L, P, page_size, Hkv]``).
 Dispatch is by the tensor's device and the cache's kind and nothing else: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
 ``decode_launches``, ``decode_writeback_launches``, ``scatter_launches``,
-``decode_int8_launches`` and ``scatter_int8_launches`` count kernel launches.
+``decode_int8_launches``, ``decode_writeback_int8_launches`` and
+``scatter_int8_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -33,10 +34,8 @@ decode_launches = 0
 decode_writeback_launches = 0
 scatter_launches = 0
 decode_int8_launches = 0
+decode_writeback_int8_launches = 0
 scatter_int8_launches = 0
-
-#: the write-then-attend path's int8 pages on the card (no kernel yet)
-WRITEBACK_INT8_ITEM = "ROADMAP A12"
 
 _MAX_DECODE_HEAD_DIM = 256
 
@@ -80,7 +79,8 @@ def _decode_lib():
 
 
 def _split_scratch(lib, name: str, q, Hkv: int, ps: int, pps: int):
-    """(splits, workspace, tickets) of a ragged decode launch: the table's
+    """(splits, workspace, tickets) of a launch of a decode kernel on
+    ``csrc/paged_decode.cuh`` (ragged or write-then-attend): the table's
     ``pps * ps`` rows in splits of the kernel's own size, one f32 workspace
     ``[B, Hq, splits, D + 2]`` for the splits' partials, and the per-stream
     ticket buffer of one int a (sequence, kv head)."""
@@ -91,7 +91,7 @@ def _split_scratch(lib, name: str, q, Hkv: int, ps: int, pps: int):
 
 
 def _require_rows(name: str, pages, D: int, vec: int) -> None:
-    """What the ragged decode kernels' 16-byte copies need: a head's row is
+    """What the decode kernels' 16-byte copies need: a head's row is
     whole 16-byte pieces (``vec`` values each), and the pages start on a
     16-byte boundary."""
     if D > _MAX_DECODE_HEAD_DIM or D % vec:
@@ -251,7 +251,7 @@ def _decode_writeback_lib():
     lib = _build.load("paged_decode_writeback")
     fn = lib.paged_decode_writeback
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -269,22 +269,68 @@ def paged_decode_writeback_cuda(q, k_pages, v_pages, page_tables, context_lens, 
     _require_cuda("context_lens", context_lens, dev, torch.int32)
     B, Hq, D = q.shape
     P, ps, Hkv, _ = k_pages.shape
-    if D > _MAX_DECODE_HEAD_DIM or D % 8:
-        raise ValueError(
-            f"writeback decode kernel head dim must be a multiple of 8 up to {_MAX_DECODE_HEAD_DIM}; got {D}"
-        )
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    for pages in (k_pages, v_pages):
+        _require_rows("writeback decode kernel", pages, D, 8)
     out = torch.empty_like(q)
     lib = _decode_writeback_lib()
+    pps = page_tables.shape[1]
+    splits, work, tickets = _split_scratch(lib, "paged_decode_writeback", q, Hkv, ps, pps)
     err = lib.paged_decode_writeback(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(page_tables),
-        _build.ptr(context_lens), _build.ptr(out),
-        B, Hq, Hkv, D, ps, page_tables.shape[1], sm_scale, _build.stream_ptr(dev),
+        _build.ptr(context_lens), _build.ptr(out), _build.ptr(work), _build.ptr(tickets),
+        B, Hq, Hkv, D, P, ps, pps, splits, sm_scale, _build.stream_ptr(dev),
     )
     decode_writeback_launches += 1
     _build.check(lib, "paged_decode_writeback", err)
+    return out
+
+
+def paged_decode_writeback_int8_plain(q, k_pages, v_pages, page_tables, context_lens, *, sm_scale=None):
+    """The int8 kernel's function in plain PyTorch: the JAX entry's route for
+    int8 pages (``reference.paged_decode_attention``: dequantized at the
+    query's dtype in the gather, an f32 softmax, probabilities rounded to
+    that dtype before P.V); a sequence with no context gives zeros, as the
+    kernel's contract says."""
+    o = reference.paged_decode_attention(q, k_pages, v_pages, page_tables, context_lens, sm_scale=sm_scale)
+    return o.masked_fill((context_lens.to(q.device) <= 0)[:, None, None], 0).to(q.dtype)
+
+
+def _decode_writeback_int8_lib():
+    lib = _build.load("paged_decode_writeback_int8")
+    fn = lib.paged_decode_writeback_int8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_decode_writeback_int8_cuda(q, k_pages, v_pages, page_tables, context_lens, *, sm_scale: float):
+    """Launch ``csrc/paged_decode_writeback_int8.cu`` on one layer's int8
+    pages (:class:`QuantizedKV` of ``[P, ps, Hkv, D]`` data and ``[P, ps,
+    Hkv]`` scales, contiguous views of the cache) with a bf16 ``q``."""
+    global decode_writeback_int8_launches
+    dev = q.device
+    _require_cuda("q", q, dev, torch.bfloat16)
+    for name, pages in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _require_cuda(f"{name}.data", pages.data, dev, torch.int8)
+        _require_cuda(f"{name}.scale", pages.scale, dev, torch.float32)
+    _require_cuda("page_tables", page_tables, dev, torch.int32)
+    _require_cuda("context_lens", context_lens, dev, torch.int32)
+    B, Hq, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    for pages in (k_pages, v_pages):
+        _require_rows("int8 writeback decode kernel", pages.data, D, 16)
+    out = torch.empty_like(q)
+    lib = _decode_writeback_int8_lib()
+    pps = page_tables.shape[1]
+    splits, work, tickets = _split_scratch(lib, "paged_decode_writeback_int8", q, Hkv, ps, pps)
+    err = lib.paged_decode_writeback_int8(
+        _build.ptr(q), _build.ptr(k_pages.data), _build.ptr(v_pages.data), _build.ptr(k_pages.scale),
+        _build.ptr(v_pages.scale), _build.ptr(page_tables), _build.ptr(context_lens), _build.ptr(out),
+        _build.ptr(work), _build.ptr(tickets), B, Hq, Hkv, D, P, ps, pps, splits, sm_scale, _build.stream_ptr(dev),
+    )
+    decode_writeback_int8_launches += 1
+    _build.check(lib, "paged_decode_writeback_int8", err)
     return out
 
 
@@ -301,9 +347,10 @@ def paged_decode_attention(
     """One decode step of attention over one layer's paged cache, the
     current token already written (the write-then-attend structure).
     ``impl`` names the JAX package's two formulations of this function; both
-    launch the same kernel on bf16 pages on the card. int8 pages
-    (:class:`QuantizedKV`) take the dequant-in-gather reference on the CPU
-    and raise on the card, where no kernel serves them yet."""
+    launch the same kernel on the card. int8 pages (:class:`QuantizedKV`)
+    compute the JAX entry's int8 route (dequantized in the gather,
+    probabilities at the query's dtype in P.V): its plain version on the
+    CPU, the int8 kernel on the card."""
     if impl not in (None, "xla", "pallas"):
         raise ValueError(f"unknown paged decode impl {impl!r}; known: xla, pallas")
     B, Hq, D = q.shape
@@ -315,11 +362,9 @@ def paged_decode_attention(
     scale = D**-0.5 if sm_scale is None else sm_scale
     if is_quantized(k_pages):
         if q.device.type == "cpu":
-            return reference.paged_decode_attention(
-                q, k_pages, v_pages, page_tables, context_lens, sm_scale=scale
-            ).to(q.dtype)
-        raise NotImplementedError(
-            f"int8 pages on the write-then-attend decode have no CUDA kernel yet ({WRITEBACK_INT8_ITEM})"
+            return paged_decode_writeback_int8_plain(q, k_pages, v_pages, page_tables, context_lens, sm_scale=scale)
+        return paged_decode_writeback_int8_cuda(
+            q.contiguous(), k_pages, v_pages, page_tables, context_lens, sm_scale=scale
         )
     if q.device.type == "cpu":
         return paged_decode_writeback_plain(q, k_pages, v_pages, page_tables, context_lens, sm_scale=scale)

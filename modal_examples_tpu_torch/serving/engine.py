@@ -188,8 +188,7 @@ class LLMEngine:
         self.paged_impl = paged_impl or os.environ.get("MTPU_PAGED_IMPL", "xla")
         self.scatter_impl = scatter_impl or os.environ.get("MTPU_SCATTER_IMPL", "xla")
         given_int8 = params is not None and isinstance(params["layers"][0]["wq"], QuantizedWeight)
-        # validates both impl names, and refuses int8 pages on the writeback
-        # path on the card, before a byte is allocated
+        # validates both impl names before a byte is allocated
         self.impl_plan = llama.paged_impl_plan(
             cfg, self.device, self.kv_dtype,
             "int8" if quantization == "int8" or given_int8 else None,

@@ -32,7 +32,7 @@ def test_the_kernels_share_a_header():
     including = [n for n in KERNELS if '#include "hopper.cuh"' in (_build.CSRC / f"{n}.cu").read_text()]
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul"} <= set(including)
     including = [n for n in KERNELS if '#include "paged_decode.cuh"' in (_build.CSRC / f"{n}.cu").read_text()]
-    assert including == ["paged_decode", "paged_decode_int8"]
+    assert including == ["paged_decode", "paged_decode_int8", "paged_decode_writeback", "paged_decode_writeback_int8"]
 
 
 def test_an_unchanged_tree_keeps_its_paths(csrc):

@@ -4,9 +4,9 @@ Inputs are made with numpy from a seed and go through both; the JAX
 functions run as their own CPU tests run them (Pallas in interpret mode).
 The port's CPU path is each kernel's plain version. Tolerances: 2e-5 in f32
 (accumulation order differs), exact for the scatter (a copy). A test-side
-model of the ragged decode kernels' algorithm (context splits, their
-in-order merge with the in-flight column) is held against the JAX function
-at the kernels' split edges.
+model of the decode kernels' algorithm (context splits, their in-order
+merge with the in-flight column, or without it for the write-then-attend
+kernels) is held against the JAX functions at the kernels' split edges.
 """
 
 import importlib
@@ -153,14 +153,15 @@ def test_paged_decode_matches_flat_ragged_kernel_interpret():
     _close(out, ref)
 
 
-def split_decode_model(q, ks, vs, lens, k_new, v_new, *, drop_last_split_of=None):
-    """The ragged decode kernels' algorithm (``csrc/paged_decode.cuh``) in f32:
-    each (sequence, kv head)'s prefix in splits of ``SPLIT`` rows, each split
-    in pieces of ``CHUNK`` rows (a warp's), each piece with its own max m,
-    sum l of the f32 probabilities e^(s - m) and P.V over those
-    probabilities rounded to bf16; the pieces merged in order into the
-    split's partial, then the splits merged in order with the in-flight
-    column last. ``ks``/``vs`` are the gathered pages
+def split_decode_model(q, ks, vs, lens, k_new, v_new, *, drop_last_split_of=None, inflight=True, round_p=True):
+    """The decode kernels' algorithm (``csrc/paged_decode.cuh``) in f32:
+    each (sequence, kv head)'s cached rows in splits of ``SPLIT`` rows, each
+    split in pieces of ``CHUNK`` rows (a warp's), each piece with its own max
+    m, sum l of the f32 probabilities e^(s - m) and P.V over those
+    probabilities (rounded to bf16 if ``round_p``); the pieces merged in
+    order into the split's partial, then the splits merged in order with the
+    in-flight column last (``inflight``; without it a sequence with no rows
+    gives zeros). ``ks``/``vs`` are the gathered pages
     ``[B, pps, ps, Hkv, D]``; ``drop_last_split_of`` leaves that sequence's
     last split out of the merge (a planted fault)."""
     q, ks, vs, k_new, v_new = (torch.as_tensor(np.asarray(a, np.float32)) for a in (q, ks, vs, k_new, v_new))
@@ -185,14 +186,14 @@ def split_decode_model(q, ks, vs, lens, k_new, v_new, *, drop_last_split_of=None
                     sc = qg @ k[b, rows, h].T * scale
                     m = sc.amax(dim=-1)
                     p = torch.exp(sc - m[:, None])
-                    pieces.append((m, p.sum(dim=-1), p.bfloat16().float() @ v[b, rows, h]))
+                    pieces.append((m, p.sum(dim=-1), (p.bfloat16().float() if round_p else p) @ v[b, rows, h]))
                 m = torch.stack([pm for pm, _, _ in pieces]).amax(dim=0)
                 l, acc = torch.zeros(G), torch.zeros(G, D)
                 for pm, pl, pacc in pieces:
                     e = torch.exp(pm - m)
                     l, acc = l + e * pl, acc + e[:, None] * pacc
                 parts.append((m, l, acc))
-            s_new = qg @ k_new[b, h] * scale
+            s_new = qg @ k_new[b, h] * scale if inflight else torch.full((G,), -torch.inf)
             m = s_new
             for m_s, _, _ in parts:
                 m = torch.maximum(m, m_s)
@@ -200,8 +201,10 @@ def split_decode_model(q, ks, vs, lens, k_new, v_new, *, drop_last_split_of=None
             for m_s, l_s, acc in parts:
                 e = torch.exp(m_s - m)
                 num, den = num + e[:, None] * acc, den + e * l_s
-            e_new = torch.exp(s_new - m)
-            out[b, h * G:(h + 1) * G] = (num + e_new[:, None] * v_new[b, h]) / (den + e_new)[:, None]
+            if inflight:
+                e_new = torch.exp(s_new - m)
+                num, den = num + e_new[:, None] * v_new[b, h], den + e_new
+            out[b, h * G:(h + 1) * G] = num / den[:, None] if inflight or parts else 0.0
     return out.numpy()
 
 
@@ -246,6 +249,28 @@ def assert_split_model_matches(c, ks, vs):
 def test_split_decode_model_matches_jax_inflight(hq, hkv):
     c = split_edge_case(23, hq, hkv)
     assert_split_model_matches(c, c["k_pages"][c["tables"]], c["v_pages"][c["tables"]])
+
+
+@pytest.mark.parametrize("round_p", [False, True], ids=["f32_p", "bf16_p"])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 2)], ids=["G=1", "G=4"])
+def test_split_writeback_model_matches_jax_kernel(hq, hkv, round_p):
+    """The write-then-attend kernels' algorithm (the split model with no
+    in-flight column) at contexts on both sides of the split edges, an empty
+    one among them, against JAX's write-then-attend kernel (interpret, f32):
+    within f32 summation order with f32 probabilities, within
+    :func:`split_model_tolerance` with them rounded to bf16; zeros for the
+    empty context; and the same check refusing the longest context's last
+    split dropped."""
+    c = split_edge_case(29, hq, hkv)
+    ref = np.asarray(jpa.paged_decode_attention(
+        *(jnp.asarray(c[n]) for n in ("q", "k_pages", "v_pages", "tables", "lens")), impl="pallas", interpret=True))
+    args = (c["q"], c["k_pages"][c["tables"]], c["v_pages"][c["tables"]], c["lens"], c["k_new"], c["v_new"])
+    tol = split_model_tolerance(c["v_pages"], 0.0) if round_p else TOL["atol"]
+    got = split_decode_model(*args, inflight=False, round_p=round_p)
+    assert c["lens"][0] == 0 and not got[0].any()
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+    dropped = split_decode_model(*args, inflight=False, round_p=round_p, drop_last_split_of=int(np.argmax(c["lens"])))
+    assert np.abs(dropped - ref).max() > tol
 
 
 def test_ragged_variant_label_matches_jax():
