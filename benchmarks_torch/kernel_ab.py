@@ -23,11 +23,20 @@ read each layer's pages as the contiguous view ``pages[li]``, with contexts
 of the prefix plus the current token. The other tree's kernel may be the one
 before the split design (its C entry takes no workspace; for the
 write-then-attend decode, bf16 pages only). Their error is
-max|o - plain| / max|plain| per (sequence, head) row. Prints one JSON line
-per shape. Run from the repository root on one GPU:
+max|o - plain| / max|plain| per (sequence, head) row. The scatter kernels
+(bf16 and int8 pages) run at ``chip_smoke.SCATTER_SHAPES`` through the
+wrappers a caller uses (``chip_smoke.scatter_timed``): a decode step's 8
+tokens x 32 layers, cycled over 32 sets of rows and targets (134 MB, more
+than the L2); the prefill batch's 2048 tokens x 32 layers; and one layer's view of 8
+tokens through ``scatter_kv_layer``, cycled over the 32 layers of one
+cache. Each must be bitwise equal to its plain version (error 0.0); the
+other tree's int8 scatter may be the one before the row partition (its C
+entry takes none). Prints one JSON line per shape. Run from the repository
+root on one GPU:
 
     python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul|
-        paged_decode|paged_decode_int8|paged_decode_writeback|paged_decode_writeback_int8] [--rounds R]
+        paged_decode|paged_decode_int8|paged_decode_writeback|paged_decode_writeback_int8|
+        kv_scatter|kv_scatter_int8] [--rounds R]
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ DECODE_SHAPES = [("phase 5", 32, cs.DECODE_LENS), ("burst", 32, (20, 64, 130, 20
                  ("GQA", 8, cs.DECODE_LENS)]
 DECODE_KERNELS = ("paged_decode", "paged_decode_int8", "paged_decode_writeback", "paged_decode_writeback_int8")
 SHAPES.update({kernel: DECODE_SHAPES for kernel in DECODE_KERNELS})
+SCATTER_KERNELS = ("kv_scatter", "kv_scatter_int8")
+SHAPES.update({kernel: list(cs.SCATTER_SHAPES) for kernel in SCATTER_KERNELS})
 D = 128
 
 
@@ -116,6 +127,27 @@ def decode_call(kernel: str, args):
     return out
 
 
+_scatter_int8_cuda = pa.scatter_int8_cuda
+
+
+def scatter_int8_call(k_pages, v_pages, k_all, v_all, page_idx, slot):
+    """The int8 scatter through whichever library is loaded: this tree's
+    wrapper, or the C entry of the kernel before the row partition (grid
+    (N, 2, L), no partition arguments). Stands in for ``pa.scatter_int8_cuda``,
+    which ``scatter_kv_pages`` calls."""
+    lib = _build._libs["kv_scatter_int8"]
+    if hasattr(lib, "kv_scatter_int8_threads"):
+        return _scatter_int8_cuda(k_pages, v_pages, k_all, v_all, page_idx, slot)
+    fn = lib.kv_scatter_int8
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int
+    L, P, ps, Hkv, _ = k_pages.shape
+    tensors = (k_pages.data, v_pages.data, k_pages.scale, v_pages.scale, k_all, v_all, page_idx, slot)
+    err = fn(*(_build.ptr(t) for t in tensors), L, k_all.shape[1], P, ps, Hkv, D, _build.stream_ptr(k_all.device))
+    _build.check(lib, "kv_scatter_int8", err)
+    return k_pages, v_pages
+
+
 def qmm_call(x, w):
     """The int8 matmul through whichever library is loaded: this tree's API,
     or the one before the three paths (a K split sized by
@@ -152,6 +184,9 @@ def case(kernel: str, gen, shape):
         want = getattr(pa, f"{kernel}_plain")(*per_layer[0], sm_scale=D**-0.5)
         return (cs.cycling([lambda a=a: decode_call(kernel, a) for a in per_layer]),
                 lambda: cs.writeback_readings(decode_call(kernel, per_layer[0]), want, ctx)["row_rel"])
+    if kernel in SCATTER_KERNELS:
+        t = cs.scatter_timed(pa, gen, shape, int8=kernel.endswith("int8"))
+        return t["launch"], t["check"]
     if kernel == "quantized_matmul":
         from modal_examples_tpu_torch.models.quantize import quantize_weight
 
@@ -188,6 +223,9 @@ def describe(kernel: str, shape) -> str:
         return f"{label}: B=8 Hq=32 Hkv={Hkv} D={D} prefixes {list(lens)}, layers {cs.CYCLED_LAYERS} in turn"
     if kernel == "quantized_matmul":
         return "M={} K={} N={} (four weight copies in turn)".format(*shape)
+    if kernel in SCATTER_KERNELS:
+        L, N = cs.SCATTER_SHAPES[shape]
+        return f"{shape}: L={L} N={N} Hkv=32 D={D}, {cs.scatter_bytes(L, N, kernel.endswith('int8'))} bytes"
     return "B={} H={} S={} D={} causal".format(*shape, D)
 
 
@@ -205,11 +243,14 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
+    pa.scatter_int8_cuda = scatter_int8_call
     libs = {"this": _build.load(args.kernel), "other": build_other(args.kernel, args.other.resolve())}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape in SHAPES[args.kernel]:
         launch, check = case(args.kernel, gen, shape)
         out = {"card": card, "kernel": args.kernel, "shape": describe(args.kernel, shape), "other": str(args.other)}
+        if args.kernel in SCATTER_KERNELS:
+            out["bound_ms"] = 1e3 * cs.scatter_bytes(*cs.SCATTER_SHAPES[shape], args.kernel.endswith("int8")) / cs.PEAK_BYTES
         for side, lib in libs.items():
             _build._libs[args.kernel] = lib
             out[f"{side}_err"] = check()

@@ -31,7 +31,12 @@ Phases (any failure exits non-zero and prints no result):
    per (sequence, head) row, launched twice and required bitwise equal, with
    the same check shown to refuse two planted faults (the last page of the
    longest prefix dropped, the last split of its rows dropped from the
-   merge); the int8 scatter bitwise at 8 and 2048 tokens; the write-then-attend
+   merge); the int8 scatter bitwise at a decode step, a prefill batch (its
+   blocks striding), one layer's view through ``scatter_kv_layer``, one
+   token, 37 tokens at Hkv=5 and D=256, Hkv=8, D=64 and D=256, each with an
+   all-zero row (scale 1.0, data 0) and a row of ties (rounded half to
+   even), with the same check shown to refuse two planted faults (a row
+   left unwritten, a scale from the neighbouring head); the write-then-attend
    decodes (bf16 and int8 pages) over one layer's pages at Hkv=32 and 8,
    contexts 0..1001 with a dead slot on trash page 0 and contexts at the
    split edges, held per (sequence, head) row, an empty context exactly
@@ -77,8 +82,9 @@ Phases (any failure exits non-zero and prints no result):
    ``library_ms``) and 50 back-to-back launches (``ms_b2b``,
    ``library_ms_b2b``); the four decode kernels cycled over four layers of
    one cache (so their rows come from HBM) and also timed by the profiler's
-   device time (``device_ms``); then the card's name and power limit, then
-   the result line.
+   device time (``device_ms``); the two scatters' device time and byte
+   bound also at a prefill batch and one layer's view (``shapes``); then
+   the card's name and power limit, then the result line.
 """
 
 from __future__ import annotations
@@ -189,15 +195,21 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def device_ms(fn, n: int = 40) -> float:
     """Device time of a call of ``fn`` (every kernel it launches), from
     ``torch.profiler`` over ``n`` calls after 3 warm-up calls: the kernel's
-    own time where a single or back-to-back launch reads the host."""
+    own time where a single or back-to-back launch reads the host. A window
+    in which the profiler recorded no device time is taken again, at most
+    twice, then refused."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3 / n
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+        if total > 0:
+            return total / 1e3 / n
+    raise RuntimeError("torch.profiler recorded no device time in three windows")
 
 
 def back_to_back_ms(fn, n: int = 50) -> float:
@@ -473,16 +485,101 @@ def writeback_cases(gen, int8: bool):
                    writeback_case(gen, 8, 32, Hkv, L=4, ctx=ctx, int8=int8, dead=dead))
 
 
-def scatter_case(gen, L, N, P, Hkv=32, D=128, ps=16):
-    """N tokens, distinct targets except two dead ones on trash page 0 slot 0
-    (given equal rows, so the race has one possible result)."""
+def scatter_case(gen, L, N, P, Hkv=32, D=128, ps=16, seed=2, dead=True):
+    """N tokens on distinct targets (drawn from ``seed``); with ``dead``, two
+    of them are dead on trash page 0 slot 0 (given equal rows, so the race
+    has one possible result)."""
     k_all, v_all = rand_bf16(gen, L, N, Hkv, D), rand_bf16(gen, L, N, Hkv, D)
-    flat = torch.randperm((P - 1) * ps, generator=torch.Generator().manual_seed(2))[:N] + ps
+    flat = torch.randperm((P - 1) * ps, generator=torch.Generator().manual_seed(seed))[:N] + ps
     page_idx, slot = (flat // ps).to(torch.int32), (flat % ps).to(torch.int32)
-    page_idx[[1, 3]] = 0
-    slot[[1, 3]] = 0
-    k_all[:, 3], v_all[:, 3] = k_all[:, 1], v_all[:, 1]
+    if dead:
+        page_idx[[1, 3]] = 0
+        slot[[1, 3]] = 0
+        k_all[:, 3], v_all[:, 3] = k_all[:, 1], v_all[:, 1]
     return k_all, v_all, page_idx.cuda(), slot.cuda()
+
+
+# K3 and K3-int8 in phase 5 and in benchmarks_torch/kernel_ab.py, (L, N) at
+# Hkv=32, D=128 into a cache of 513 pages of 16: a decode step's 8 tokens x
+# 32 layers, the prefill batch's 4 x 512 tokens x 32 layers, and the
+# write-then-attend path's one layer's view (8 tokens, ``scatter_kv_layer``)
+SCATTER_SHAPES = {"decode": (32, 8), "prefill": (32, 2048), "one layer": (1, 8)}
+SCATTER_SETS = 32  # decode shape: sets of rows and targets cycled, 134 MB of bf16 rows
+
+
+def scatter_bytes(L: int, N: int, int8: bool, Hkv: int = 32, D: int = 128) -> int:
+    """Bytes a scatter of N tokens x L layers must move: the bf16 K and V
+    rows read once, written once as bf16 (K3) or as int8 rows with one f32
+    scale each (K3-int8)."""
+    rows = 2 * L * N * Hkv
+    return rows * 2 * D + rows * (D + 4 if int8 else 2 * D)
+
+
+def copy_pages(dst, src) -> None:
+    for a, b in ((dst.data, src.data), (dst.scale, src.scale)) if hasattr(src, "scale") else ((dst, src),):
+        a.copy_(b)
+
+
+def clone_pages(pages):
+    from modal_examples_tpu_torch.ops.kv_quant import QuantizedKV
+
+    return QuantizedKV(pages.data.clone(), pages.scale.clone()) if hasattr(pages, "scale") else pages.clone()
+
+
+def pages_err(got, want) -> float:
+    """0.0 where two caches (bf16, or int8 data and f32 scales) are bitwise
+    equal, else their largest difference (inf if that reads 0)."""
+    pairs = [(got.data, want.data), (got.scale, want.scale)] if hasattr(want, "scale") else [(got, want)]
+    if all(torch.equal(a, b) for a, b in pairs):
+        return 0.0
+    return max(max_err(a, b) for a, b in pairs) or math.inf
+
+
+def scatter_timed(pa, gen, shape: str, int8: bool) -> dict:
+    """K3 or K3-int8 at one of ``SCATTER_SHAPES``, through the wrappers a
+    caller uses: ``launch`` cycles the kernel over ``SCATTER_SETS`` sets of
+    rows and targets at the decode shape (their rows exceed the 50 MB L2, so
+    they are read from HBM as the bound counts them), over the 32 layers of
+    one cache (each with its own rows, as a step's 32 launches) at the one
+    layer shape; ``check()`` restores the cache, launches the first of
+    them and returns ``pages_err`` against the plain version; ``plain`` is
+    the plain version of that launch; ``nbytes`` is one launch's bytes;
+    ``pages`` the cache and ``sets`` the rows and targets of each launch
+    (none at the one-layer shape)."""
+    L, N = SCATTER_SHAPES[shape]
+    cache_layers, P = 32, 513
+    pages = int8_pages if int8 else rand_bf16
+    kp, vp = pages(gen, cache_layers, P, 16, 32, 128), pages(gen, cache_layers, P, 16, 32, 128)
+    plain = pa.scatter_int8_plain if int8 else pa.scatter_plain
+    if shape == "one layer":
+        k_all, v_all, page_idx, slot = scatter_case(gen, cache_layers, N, P)
+        calls = [(lambda li=li: pa.scatter_kv_layer(kp[li], vp[li], k_all[li], v_all[li], page_idx, slot))
+                 for li in range(cache_layers)]
+
+        def plain_first(k, v):
+            return plain(k[0:1], v[0:1], k_all[0:1], v_all[0:1], page_idx.long(), slot.long())
+    else:
+        sets = [scatter_case(gen, L, N, P, seed=2 + i) for i in range(SCATTER_SETS if shape == "decode" else 1)]
+        # the wrapper is looked up at each call, so a benchmark may swap it
+        name = "scatter_int8_cuda" if int8 else "scatter_cuda"
+        calls = [(lambda s=s: getattr(pa, name)(kp, vp, *s)) for s in sets]
+
+        def plain_first(k, v):
+            k_all, v_all, page_idx, slot = sets[0]
+            return plain(k, v, k_all, v_all, page_idx.long(), slot.long())
+    orig = (clone_pages(kp), clone_pages(vp))
+    want = (clone_pages(kp), clone_pages(vp))
+    plain_first(*want)
+
+    def check() -> float:
+        copy_pages(kp, orig[0])
+        copy_pages(vp, orig[1])
+        calls[0]()
+        torch.cuda.synchronize()
+        return max(pages_err(kp, want[0]), pages_err(vp, want[1]))
+
+    return dict(launch=cycling(calls), check=check, plain=lambda: plain_first(kp, vp),
+                nbytes=scatter_bytes(L, N, int8), pages=(kp, vp), sets=None if shape == "one layer" else sets)
 
 
 def phase_kernels_vs_plain(fa, pa) -> dict:
@@ -577,7 +674,6 @@ def phase_int8_kernels_vs_plain(pa, errs: dict) -> None:
     plain versions on the same inputs."""
     from modal_examples_tpu_torch.models.quantize import quantize_weight
     from modal_examples_tpu_torch.ops import quantized_matmul as qmm
-    from modal_examples_tpu_torch.ops.kv_quant import QuantizedKV
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     for K, N in QMM_SHAPES:
@@ -607,20 +703,74 @@ def phase_int8_kernels_vs_plain(pa, errs: dict) -> None:
         e = check_writeback(pa, "paged_decode_writeback_int8", c, label)
         errs["paged_decode_writeback_int8"] = max(errs.get("paged_decode_writeback_int8", 0.0), e)
         del c
-    for L, N, P in [(32, 8, 513), (32, 2048, 513)]:  # decode step; prefill batch 4 x 512
-        k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
-        kp, vp = int8_pages(gen, L, P, 16, 32, 128), int8_pages(gen, L, P, 16, 32, 128)
-        kq, vq = (QuantizedKV(p.data.clone(), p.scale.clone()) for p in (kp, vp))
-        pa.scatter_int8_cuda(kp, vp, k_all, v_all, page_idx, slot)
-        torch.cuda.synchronize()
-        pa.scatter_int8_plain(kq, vq, k_all, v_all, page_idx.long(), slot.long())
-        pairs = [(kp.data, kq.data), (kp.scale, kq.scale), (vp.data, vq.data), (vp.scale, vq.scale)]
-        e = max(max_err(a, b) for a, b in pairs)
-        log(f"K3-int8 scatter L={L} N={N} P={P}: max|pages-plain| (int8 data and f32 scales)={e}")
-        if not all(torch.equal(a, b) for a, b in pairs):
-            raise AssertionError(f"int8 scatter kernel is not bitwise equal to its plain version: {e}")
-        errs["kv_scatter_int8"] = e
-        del kp, vp, kq, vq, pairs
+    for label, L, N, Hkv, D in SCATTER_INT8_CASES:
+        e = check_scatter_int8(pa, gen, label, L, N, Hkv, D)
+        errs["kv_scatter_int8"] = max(errs.get("kv_scatter_int8", 0.0), e)
+
+
+# K3-int8 against its plain version, bitwise: (label, L, N, Hkv, D) into 513
+# pages of 16, each with an all-zero K row, a V row on .5 steps and the two
+# equal dead rows of scatter_case (N > 3)
+SCATTER_INT8_CASES = [
+    ("decode step", 32, 8, 32, 128),
+    ("prefill batch (blocks stride, a partial last pass)", 32, 2048, 32, 128),
+    ("one layer's view through scatter_kv_layer", 1, 8, 32, 128),
+    ("one token", 32, 1, 32, 128),
+    ("odd N, a partial last block", 3, 37, 5, 256),
+    ("GQA", 32, 8, 8, 128),
+    ("D=64", 32, 37, 8, 64),
+    ("D=256", 32, 8, 32, 256),
+]
+
+
+def check_scatter_int8(pa, gen, label: str, L: int, N: int, Hkv: int, D: int) -> float:
+    """K3-int8 on one ``SCATTER_INT8_CASES`` case against its plain version,
+    bitwise (``pages_err``); the all-zero row must read scale 1.0 and data 0;
+    two planted faults on the kernel's own output, each one row wrong, must
+    be refused by the same check: the walk's last row left unwritten (a lost
+    group) and the first row's scale taken from its neighbouring head.
+    Returns the error (0.0)."""
+    P = 513
+    k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P, Hkv, D, dead=N > 3)
+    k_all[0, 0, 0] = 0.0  # scale 1.0, data 0
+    half = torch.randint(-127, 127, (D,), generator=gen, device="cuda").float() + 0.5
+    half[0] = 127.0  # scale exactly 1: every other value is a tie, rounded half to even
+    v_all[0, 0, 0] = half.to(torch.bfloat16)
+    one_layer = label.startswith("one layer")
+    cache = (int8_pages(gen, 4 if one_layer else L, P, 16, Hkv, D), int8_pages(gen, 4 if one_layer else L, P, 16, Hkv, D))
+    orig_v = clone_pages(cache[1])
+    want = tuple(clone_pages(c) for c in cache)
+    if one_layer:  # layer 2 of a 4-layer cache, as the write-then-attend path views it
+        pa.scatter_kv_layer(cache[0][2], cache[1][2], k_all[0], v_all[0], page_idx, slot)
+        pa.scatter_int8_plain(want[0][2:3], want[1][2:3], k_all, v_all, page_idx.long(), slot.long())
+        layer0 = 2
+    else:
+        pa.scatter_int8_cuda(*cache, k_all, v_all, page_idx, slot)
+        pa.scatter_int8_plain(*want, k_all, v_all, page_idx.long(), slot.long())
+        layer0 = 0
+    torch.cuda.synchronize()
+    e = max(pages_err(g, w) for g, w in zip(cache, want))
+    first = (layer0, int(page_idx[0]), int(slot[0]))
+    zero_scale, zero_data = cache[0].scale[first][0].item(), cache[0].data[first][0].abs().max().item()
+    log(f"K3-int8 scatter {label}: L={L} N={N} Hkv={Hkv} D={D} partition (lanes, rows a group, groups a block, "
+        f"blocks) {pa.scatter_int8_partition(L, N, Hkv, D, torch.cuda.get_device_properties(0).multi_processor_count)}"
+        f": pages vs plain (int8 data and f32 scales) {e}; all-zero row scale {zero_scale} max|data| {zero_data}")
+    # planted faults, each on a copy of the kernel's output
+    last = (layer0 + L - 1, int(page_idx[-1]), int(slot[-1]), Hkv - 1)
+    lost = clone_pages(cache[1])
+    lost.data[last], lost.scale[last] = orig_v.data[last], orig_v.scale[last]
+    swapped = clone_pages(cache[0])
+    swapped.scale[first + (0,)] = swapped.scale[first + (1,)]
+    faults = {"the last row left unwritten (a lost group)": pages_err(lost, want[1]),
+              "the first row's scale from its neighbouring head": pages_err(swapped, want[0])}
+    log(f"  planted faults: {faults}")
+    if not all(err > 0.0 for err in faults.values()):
+        raise AssertionError(f"the int8 scatter check does not see a planted fault: {faults}")
+    if e != 0.0:
+        raise AssertionError(f"int8 scatter kernel is not bitwise equal to its plain version ({label}): {e}")
+    if zero_scale != 1.0 or zero_data != 0:
+        raise AssertionError(f"an all-zero row reads scale {zero_scale}, max|data| {zero_data}")
+    return e
 
 
 # -- phase 3 ----------------------------------------------------------------------
@@ -1161,27 +1311,7 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         library_op="none: no PyTorch call attends over a paged cache",
     ))
     del c, per_layer, kernel
-    # K3 at the decode step: 8 tokens x 32 layers into the engine's cache shape
-    L, N, P = 32, 8, 513
-    k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
-    kp, vp = rand_bf16(gen, L, P, 16, 32, 128), rand_bf16(gen, L, P, 16, 32, 128)
-    nbytes = 2 * (2 * L * N * 32 * 128 * 2)
-    layer_ix = torch.arange(L, device="cuda")[:, None]
-    pi, sl = page_idx.long()[None], slot.long()[None]
-
-    def library():
-        kp.index_put_((layer_ix, pi, sl), k_all)
-        vp.index_put_((layer_ix, pi, sl), v_all)
-
-    rows.append(dict(
-        name="kv_scatter", source="modal_examples_tpu_torch/csrc/kv_scatter.cu",
-        replaces="modal_examples_tpu/ops/paged_attention.py:927",
-        ms=time_ms(lambda: pa.scatter_cuda(kp, vp, k_all, v_all, page_idx, slot)),
-        ms_b2b=back_to_back_ms(lambda: pa.scatter_cuda(kp, vp, k_all, v_all, page_idx, slot)),
-        plain_ms=time_ms(lambda: pa.scatter_plain(kp, vp, k_all, v_all, page_idx.long(), slot.long())),
-        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=time_ms(library),
-        library_ms_b2b=back_to_back_ms(library),
-    ))
+    rows.append(scatter_row(pa, gen, int8=False))
     # K5/K6 at the training path's shape: B=2, Hq=Hkv=32, S=512, D=128, causal
     B, H, S, D = 2, 32, 512, 128
     args, _ = bwd_case(fa, gen, B, H, H, S, True, False)
@@ -1220,12 +1350,59 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         r["launches"] = counts[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
         log(f"{r['name']}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f}, device {r.get('device_ms')} (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']}, back-to-back {r.get('library_ms_b2b')}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+            f"{r['library_ms']}, back-to-back {r.get('library_ms_b2b')}, bound {r['bound_ms']:.4f} by {r['bound_by']})"
+            + (f"; device time and bound by shape {r['shapes']}" if "shapes" in r else ""))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_b2b", "device_ms", "plain_ms",
             "bound_ms",
             "bound_by", "library_ms", "library_ms_b2b", "library_op", "bf16_mm_ms", "bf16_mm_ms_b2b", "shape", "path",
-            "prefill")
+            "prefill", "shapes")
     return [{k: r[k] for k in keys if k in r} for r in rows]
+
+
+def scatter_row(pa, gen, int8: bool) -> dict:
+    """Phase 5's row of K3 or K3-int8 (``scatter_timed``): single-launch,
+    back-to-back and device times, the plain version and one library call at
+    the decode shape; the device time and the byte bound at every shape of
+    ``SCATTER_SHAPES`` under ``shapes``."""
+    from modal_examples_tpu_torch.ops import kv_quant as kvq
+
+    shapes = {}
+    for shape, (L, N) in SCATTER_SHAPES.items():
+        t = scatter_timed(pa, gen, shape, int8)
+        shapes[shape] = dict(L=L, N=N, device_ms=device_ms(t["launch"]), bound_ms=1e3 * t["nbytes"] / PEAK_BYTES)
+        if shape != "decode":
+            del t
+            continue
+        kp, vp = t["pages"]
+        k_all, v_all, page_idx, slot = t["sets"][0]
+        layer_ix = torch.arange(L, device="cuda")[:, None]
+        pi, sl = page_idx.long()[None], slot.long()[None]
+
+        def library():
+            for pages, new in ((kp, k_all), (vp, v_all)):
+                if int8:
+                    q = kvq.quantize_kv(new)
+                    pages.data.index_put_((layer_ix, pi, sl), q.data)
+                    pages.scale.index_put_((layer_ix, pi, sl), q.scale)
+                else:
+                    pages.index_put_((layer_ix, pi, sl), new)
+
+        decode = dict(
+            ms=time_ms(t["launch"]), ms_b2b=back_to_back_ms(t["launch"]), device_ms=shapes[shape]["device_ms"],
+            plain_ms=time_ms(t["plain"]), bound_ms=shapes[shape]["bound_ms"],
+            library_ms=time_ms(library), library_ms_b2b=back_to_back_ms(library),
+        )
+        del t, kp, vp, k_all, v_all
+    name = "kv_scatter_int8" if int8 else "kv_scatter"
+    return dict(
+        name=name, source=f"modal_examples_tpu_torch/csrc/{name}.cu",
+        replaces="modal_examples_tpu/ops/paged_attention.py:927",
+        shape="L={} N={} Hkv=32 D=128, {} sets of rows and targets in turn".format(*SCATTER_SHAPES["decode"], SCATTER_SETS),
+        **decode, bound_by="bytes",
+        library_op=("quantize_kv + index_put_ (int8 rows and scales, K and V)" if int8
+                    else "index_put_ (K and V)"),
+        shapes=shapes,
+    )
 
 
 def cycling(fns):
@@ -1258,9 +1435,8 @@ def int8_library(w):
 def int8_rows(pa, gen) -> list:
     """Phase 5 rows of the int8 kernels: K7 at the decode step's and the
     prefill batch's gate/up shape, K2-int8 at K2's shape, K4-int8 at K4's,
-    K3-int8 at a decode step's 8 tokens x 32 layers."""
+    K3-int8 at ``SCATTER_SHAPES``."""
     from modal_examples_tpu_torch.models.quantize import dequantize_weight, quantize_weight
-    from modal_examples_tpu_torch.ops import kv_quant as kvq
     from modal_examples_tpu_torch.ops import quantized_matmul as qmm
 
     rows = []
@@ -1325,30 +1501,7 @@ def int8_rows(pa, gen) -> list:
         library_op="none: no PyTorch call attends over a paged cache",
     ))
     del c, per_layer, kernel
-    # K3-int8 at the decode step: 8 tokens x 32 layers into the engine's cache shape
-    L, N, P = 32, 8, 513
-    k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
-    kp, vp = int8_pages(gen, L, P, 16, 32, 128), int8_pages(gen, L, P, 16, 32, 128)
-    nbytes = 2 * L * N * 32 * 128 * 2 + 2 * L * N * 32 * (128 + 4)  # bf16 rows in; int8 rows and scales out
-    layer_ix = torch.arange(L, device="cuda")[:, None]
-    pi, sl = page_idx.long()[None], slot.long()[None]
-
-    def library():
-        for pages, new in ((kp, k_all), (vp, v_all)):
-            q = kvq.quantize_kv(new)
-            pages.data.index_put_((layer_ix, pi, sl), q.data)
-            pages.scale.index_put_((layer_ix, pi, sl), q.scale)
-
-    rows.append(dict(
-        name="kv_scatter_int8", source="modal_examples_tpu_torch/csrc/kv_scatter_int8.cu",
-        replaces="modal_examples_tpu/ops/paged_attention.py:927", shape="L=32 N=8 Hkv=32 D=128",
-        ms=time_ms(lambda: pa.scatter_int8_cuda(kp, vp, k_all, v_all, page_idx, slot)),
-        ms_b2b=back_to_back_ms(lambda: pa.scatter_int8_cuda(kp, vp, k_all, v_all, page_idx, slot)),
-        plain_ms=time_ms(lambda: pa.scatter_int8_plain(kp, vp, k_all, v_all, page_idx.long(), slot.long())),
-        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=time_ms(library),
-        library_ms_b2b=back_to_back_ms(library),
-        library_op="quantize_kv + index_put_ (int8 rows and scales, K and V)",
-    ))
+    rows.append(scatter_row(pa, gen, int8=True))
     return rows
 
 

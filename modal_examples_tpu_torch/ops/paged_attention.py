@@ -426,36 +426,76 @@ def scatter_int8_plain(k_pages, v_pages, k_all, v_all, page_idx, slot):
     return scatter_plain(k_pages, v_pages, k_all, v_all, page_idx, slot)
 
 
+#: the block of ``csrc/kv_scatter_int8.cu`` (its ``kv_scatter_int8_threads``)
+SCATTER_INT8_THREADS = 128
+_SCATTER_INT8_ROWS_PER_GROUP = (4, 2, 1)  # loads a lane keeps in flight, most first
+_SCATTER_INT8_RESIDENT_PER_SM = 12  # the kernel's resident blocks an SM (its launch bounds)
+_SCATTER_INT8_BLOCKS_PER_SM = 96  # the most blocks an SM gets; beyond, they stride
+
+
+def _require_scatter_int8_head_dim(D: int) -> None:
+    if D % 8 or not 8 <= D <= _MAX_DECODE_HEAD_DIM:
+        raise ValueError(f"int8 scatter kernel head dim must be a multiple of 8 up to {_MAX_DECODE_HEAD_DIM}; got {D}")
+
+
+def scatter_int8_partition(L: int, N: int, Hkv: int, D: int, sms: int) -> tuple:
+    """``(lanes, rows_per_group, groups_per_block, blocks)`` of a launch of
+    ``csrc/kv_scatter_int8.cu`` over ``2 * L * N * Hkv`` rows of D values on
+    a card of ``sms`` SMs: a group of ``lanes`` threads (the power of two
+    that holds D in 8-value pieces) takes one row, ``groups_per_block``
+    groups fill the kernel's block, and each group takes ``rows_per_group``
+    rows a pass, the most (up to 4) that still leaves half a wave of
+    resident blocks; past 96 blocks an SM the blocks stride over the rows.
+    Raises on a head dim the kernel does not take (multiples of 8 up to
+    256)."""
+    _require_scatter_int8_head_dim(D)
+    lanes = 1 << (D // 8 - 1).bit_length()
+    groups = SCATTER_INT8_THREADS // lanes
+    rows = 2 * L * N * Hkv
+    for per_group in _SCATTER_INT8_ROWS_PER_GROUP:
+        if -(-rows // (groups * per_group)) >= sms * _SCATTER_INT8_RESIDENT_PER_SM // 2:
+            break
+    blocks = min(-(-rows // (groups * per_group)), sms * _SCATTER_INT8_BLOCKS_PER_SM)
+    return lanes, per_group, groups, blocks
+
+
 def _scatter_int8_lib():
     lib = _build.load("kv_scatter_int8")
     fn = lib.kv_scatter_int8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        if lib.kv_scatter_int8_threads() != SCATTER_INT8_THREADS:
+            raise RuntimeError("csrc/kv_scatter_int8.cu's block differs from SCATTER_INT8_THREADS")
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def scatter_int8_cuda(k_pages, v_pages, k_all, v_all, page_idx, slot):
     """Launch ``csrc/kv_scatter_int8.cu``: quantize bf16 rows ``[L, N, Hkv, D]``
-    and write them into int8 pages (:class:`QuantizedKV`), in place."""
+    and write them into int8 pages (:class:`QuantizedKV`), in place, over the
+    rows as :func:`scatter_int8_partition` splits them."""
     global scatter_int8_launches
+    L, P, ps, Hkv, D = k_pages.shape
+    N = k_all.shape[1]
+    _require_scatter_int8_head_dim(D)  # before anything touches the card
     dev = k_all.device
     for name, pages in (("k_pages", k_pages), ("v_pages", v_pages)):
         _require_cuda(f"{name}.data", pages.data, dev, torch.int8)
         _require_cuda(f"{name}.scale", pages.scale, dev, torch.float32)
-    _require_cuda("k_all", k_all, dev, torch.bfloat16)
-    _require_cuda("v_all", v_all, dev, torch.bfloat16)
+        if pages.data.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned")
+    for name, rows in (("k_all", k_all), ("v_all", v_all)):
+        _require_cuda(name, rows, dev, torch.bfloat16)
+        if rows.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     _require_cuda("page_idx", page_idx, dev, torch.int32)
     _require_cuda("slot", slot, dev, torch.int32)
-    L, P, ps, Hkv, D = k_pages.shape
-    N = k_all.shape[1]
-    if D % 4 or D > _MAX_DECODE_HEAD_DIM:
-        raise ValueError(f"int8 scatter kernel head dim must be a multiple of 4 up to {_MAX_DECODE_HEAD_DIM}; got {D}")
+    part = scatter_int8_partition(L, N, Hkv, D, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _scatter_int8_lib()
     err = lib.kv_scatter_int8(
         _build.ptr(k_pages.data), _build.ptr(v_pages.data), _build.ptr(k_pages.scale), _build.ptr(v_pages.scale),
         _build.ptr(k_all), _build.ptr(v_all), _build.ptr(page_idx), _build.ptr(slot),
-        L, N, P, ps, Hkv, D, _build.stream_ptr(dev),
+        L, N, P, ps, Hkv, D, *part, _build.stream_ptr(dev),
     )
     scatter_int8_launches += 1
     _build.check(lib, "kv_scatter_int8", err)
