@@ -106,7 +106,7 @@ def main() -> int:
                     decode_steps=args.decode_steps, **quant)
     # warm up outside the profile: one request through prefill and decode
     eng.submit("warm up", SamplingParams(max_tokens=10, temperature=0.0))
-    while len(eng.waiting) or any(not s.free for s in eng.slots):
+    while eng.policy.total_depth() or any(not s.free for s in eng.slots):
         eng.step()
     reqs = [eng.submit(p, sp) for p, sp in make_requests(SamplingParams)]
     results = [profiled_tick(eng, "admit_prefill_decode")]

@@ -85,6 +85,26 @@ Phases (any failure exits non-zero and prints no result):
    device time (``device_ms``); the two scatters' device time and byte
    bound also at a prefill batch and one layer's view (``shapes``); then
    the card's name and power limit, then the result line.
+6. the engine surface, over the same resident weights (after phase 3b over
+   int8 pages, before training): (6a) a Llama-2-7B-width checkpoint at
+   depth 2 (two shards, 1.3 GB) written with the port's safetensors writer
+   and loaded through ``build_engine(model_dir=...)`` in bf16 and with int8
+   weights and pages, each tree held bitwise (int8 against
+   ``quantize_weight_host``), each engine serving the burst and passing the
+   dense check, the int8 one launching K7, K2-int8 and K3-int8, the load
+   time and rate logged; (6b) 8 requests sharing a 320-token system prompt
+   with the prefix cache on (twice) and off: tokens identical,
+   ``cached_tokens`` the page arithmetic, every private page back and the
+   cached pages the trie's distinct full pages; and one prefix's pages held
+   bitwise when rewritten at buckets 128 and 512, from batch rows 0 and 3
+   and as a chunk (bf16 and int8 pages); (6c) a 1500-token prompt arriving
+   while 7 streams decode under ``max_prefill_tokens_per_tick=512``, stepped
+   by hand: at least 3 prefill ticks with a decode block in each, every
+   token equal to the unbudgeted run's, each tick's host wall and K1
+   launches logged; (6d) with a fake clock: a deadline passing mid-decode
+   ends with "deadline" and returns the pages, a queued one is cancelled
+   before it takes a slot, an interactive request is admitted before
+   earlier default ones.
 """
 
 from __future__ import annotations
@@ -907,7 +927,7 @@ def serve_burst(eng, SamplingParams, label: str):
     # the whole burst at one tick, so every run prefills the same groups
     reqs = [eng.make_request(p, sp) for p, sp in make_requests(SamplingParams)]
     for r in reqs:
-        eng.waiting.submit(r)
+        eng.submit_request(r)
     texts = ["".join(eng.stream(r)) for r in reqs]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -918,8 +938,7 @@ def serve_burst(eng, SamplingParams, label: str):
         check_finish(r)
         log(f"  {r.request_id}: prompt {len(r.prompt_tokens)} tok, {r.finish_reason}, "
             f"{r.n_generated} generated, ttft {r.first_token_at - r.created:.3f}s, {len(t)} chars")
-    if eng.cache.allocator.available != eng.cache.n_pages - 1:
-        raise AssertionError(f"{label}: pages not all returned after the requests finished")
+    check_pages_returned(eng, label)
     return reqs, {
         "burst_tok_per_s": sum(r.n_generated for r in reqs) / wall,
         "decode_tok_per_s": (eng.stats.decode_tokens - dec_t0) / (eng.stats.decode_seconds - dec_s0),
@@ -927,6 +946,16 @@ def serve_burst(eng, SamplingParams, label: str):
         "wall_s": wall,
         "decode_steps": steps,
     }
+
+
+def check_pages_returned(eng, label: str) -> None:
+    """Every page back: free, or cached in the prefix trie with no reference."""
+    pc = eng.prefix_cache
+    cached = pc.cached_pages if pc is not None else 0
+    held = [n.page_id for n in pc._by_page.values() if n.refcount] if pc is not None else []
+    if eng.cache.allocator.available + cached != eng.cache.n_pages - 1 or held:
+        raise AssertionError(f"{label}: pages not all returned after the requests finished "
+                             f"({eng.cache.allocator.available} free, {cached} cached, {len(held)} still held)")
 
 
 def check_same_tokens(reqs, ref_reqs, label: str) -> int:
@@ -1253,6 +1282,395 @@ def phase_training(fa, llama, lora, training, params) -> dict:
     return metrics
 
 
+# -- phase 6 ----------------------------------------------------------------------
+
+#: phase 6b's shared system prompt: 320 tokens, 20 full pages of 16
+SYSTEM_TOKENS = 320
+
+
+def page_rows(pages, ids: list) -> list:
+    """The rows of ``ids`` in every layer: the bf16 pages, or an int8 cache's
+    data and scales."""
+    from modal_examples_tpu_torch.ops.kv_quant import is_quantized
+
+    idx = torch.tensor(ids, device=pages.device)
+    if is_quantized(pages):
+        return [pages.data[:, idx], pages.scale[:, idx]]
+    return [pages[:, idx]]
+
+
+def shared_page_rewrite(llama, params, cfg, kv_dtype: str) -> dict:
+    """Whether one prefix's K/V pages come out bitwise equal from each
+    prefill shape that writes a shared page: its first 8 pages alone at
+    bucket 128 (row 0 of 4), the whole 20-page prefix with a suffix at bucket
+    512 in row 0 and in row 3 (other prompts in the other rows), and as the
+    first 512-token chunk of a 1500-token prompt (``prefill_chunk``). Returns
+    the largest difference of each pair (0.0 means bitwise equal)."""
+    from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    prefix = torch.randint(0, 256, (SYSTEM_TOKENS,), generator=gen, device="cuda", dtype=torch.int32)
+    cache = PagedKVCache.create(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                                n_pages=1 + 4 * 32 * 3 + 32, page_size=16, kv_dtype=kv_dtype, device="cuda")
+    next_page = itertools.count(1)
+
+    def table(n: int):
+        return torch.tensor([next(next_page) for _ in range(n)], device="cuda", dtype=torch.int32)
+
+    def batch(bucket: int, row: int, n_prompt: int):
+        """A [4, bucket] prefill with the prefix leading row ``row``; returns its pages."""
+        toks = torch.randint(0, 256, (4, bucket), generator=gen, device="cuda", dtype=torch.int32)
+        toks[row, : min(bucket, SYSTEM_TOKENS)] = prefix[:bucket]
+        lens = torch.tensor([bucket - 7 * i for i in range(4)], device="cuda", dtype=torch.int32)
+        lens[row] = n_prompt
+        tables = torch.stack([table(bucket // 16) for _ in range(4)])
+        llama.prefill(params, toks, cache.k_pages, cache.v_pages, tables, lens, cfg)
+        return tables[row].tolist()
+
+    a = batch(128, 0, 128)
+    b = batch(512, 0, 400)
+    c = batch(512, 3, 450)
+    long = torch.randint(0, 256, (1, 512), generator=gen, device="cuda", dtype=torch.int32)
+    long[0, :SYSTEM_TOKENS] = prefix
+    d = table(32)
+    llama.prefill_chunk(params, long, cache.k_pages, cache.v_pages, d[None], torch.tensor([512], device="cuda"), cfg,
+                        q_offset=0)
+    d = d.tolist()
+    torch.cuda.synchronize()
+
+    def diff(x: list, y: list, n: int) -> float:
+        return max(
+            max_err(rx, ry)
+            for pages in (cache.k_pages, cache.v_pages)
+            for rx, ry in zip(page_rows(pages, x[:n]), page_rows(pages, y[:n]))
+        )
+
+    n = SYSTEM_TOKENS // 16
+    out = {
+        "bucket 128 vs 512 (8 pages)": diff(a, b, 8),
+        "row 0 vs row 3 at 512 (20 pages)": diff(b, c, n),
+        "chunk vs bucket 512 (20 pages)": diff(d, b, n),
+    }
+    del cache
+    return out
+
+
+SERVE_KW = dict(max_slots=8, max_model_len=1024, prefill_buckets=(128, 256, 512), prefill_batch=4, decode_block=8,
+                seed=0, device="cuda")
+#: HF llama names of a layer's tensors, stored [out, in] (norms as they are)
+HF_LAYER = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+            "gate": "mlp.gate_proj", "up": "mlp.up_proj", "down": "mlp.down_proj",
+            "attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm"}
+CHECKPOINT_LAYERS = 2
+
+
+def write_checkpoint(params, cfg, path: Path) -> int:
+    """The first ``CHECKPOINT_LAYERS`` layers of ``params`` (with the
+    embeddings, final norm and head) as an HF llama checkpoint in two shards,
+    with its ``config.json``, through the port's writer. Returns its bytes."""
+    from modal_examples_tpu_torch.utils.safetensors import save_file
+
+    def hf(t, name):  # [in, out] -> HF [out, in]
+        return t.T.contiguous() if t.ndim == 2 and "norm" not in name else t
+
+    shards = [{"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]},
+              {"lm_head.weight": hf(params["lm_head"], "lm_head")}]
+    for li in range(CHECKPOINT_LAYERS):
+        for name, key in HF_LAYER.items():
+            shards[li % 2][f"model.layers.{li}.{key}.weight"] = hf(params["layers"][li][name], name)
+    for i, shard in enumerate(shards):
+        save_file(shard, path / f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors", metadata={"format": "pt"})
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.dim, "num_hidden_layers": CHECKPOINT_LAYERS, "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads, "intermediate_size": cfg.ffn_dim, "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.norm_eps, "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+    }))
+    return sum(f.stat().st_size for f in path.glob("*.safetensors"))
+
+
+def check_loaded(eng, params, quantize_weight_host) -> None:
+    """The engine's weights bitwise equal to the written ones (int8: to
+    ``quantize_weight_host`` of the written ones, q and scale)."""
+    from modal_examples_tpu_torch.models.quantize import QuantizedWeight
+
+    def same(got, want, name):
+        if isinstance(got, QuantizedWeight):
+            ref = quantize_weight_host(want.cpu(), device="cpu")
+            ok = torch.equal(got.q.cpu(), ref.q) and torch.equal(got.scale.cpu(), ref.scale)
+        else:
+            ok = got.dtype == want.dtype and torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f"loaded {name} differs from the written checkpoint")
+
+    for name in ("embed", "final_norm", "lm_head"):
+        same(eng.params[name], params[name], name)
+    for li in range(CHECKPOINT_LAYERS):
+        for name in HF_LAYER:
+            same(eng.params["layers"][li][name], params["layers"][li][name], f"layers[{li}].{name}")
+
+
+def phase_checkpoint(fa, pa, llama, layers, reference, SamplingParams, params, card: str) -> dict:
+    """6a: a Llama-2-7B-width checkpoint at depth 2 written with the port's
+    writer, loaded through ``build_engine(model_dir=...)`` in bf16 and with
+    int8 weights and pages; each tree held bitwise, each engine serving the
+    burst and passing the dense check, the int8 one launching K7, K2-int8 and
+    K3-int8."""
+    import dataclasses
+    import tempfile
+
+    from modal_examples_tpu_torch.models.quantize import quantize_weight_host
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+    from modal_examples_tpu_torch.serving.engine import build_engine
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="checkpoint-", dir=ROOT / "build") as d:
+        t0 = time.monotonic()
+        nbytes = write_checkpoint(params, cfg, Path(d))
+        out["write_s"] = time.monotonic() - t0
+        out["checkpoint_gb"] = nbytes / 1e9
+        for label, kw in (("bf16", {}), ("int8", dict(quantization="int8", kv_dtype="int8"))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            eng = build_engine(model_dir=d, **SERVE_KW, **kw)
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            if eng.cfg != dataclasses.replace(cfg, n_layers=CHECKPOINT_LAYERS):
+                raise AssertionError(f"config.json read as {eng.cfg}")
+            if type(eng.tokenizer).__name__ != "ByteTokenizer":  # the directory holds no tokenizer files
+                raise AssertionError(f"6a: tokenizer {type(eng.tokenizer).__name__}, want the byte tokenizer")
+            check_loaded(eng, params, quantize_weight_host)
+            log(f"6a checkpoint {label}: build_engine(model_dir=...) {load_s:.2f}s for {nbytes / 1e9:.3f} GB of "
+                f"safetensors ({nbytes / 1e9 / load_s:.2f} GB/s from the page cache, engine set-up included), "
+                f"tree bitwise equal to the written arrays{' (int8: quantize_weight_host)' if kw else ''}; "
+                f"tokenizer {type(eng.tokenizer).__name__}; card {card}")
+            eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+            fa.launches = qmm.qmm_launches = pa.decode_launches = pa.scatter_launches = 0
+            pa.decode_int8_launches = pa.scatter_int8_launches = 0
+            _, m = serve_burst(eng, SamplingParams, f"6a checkpoint engine {label}")
+            counts = {"flash_fwd": fa.launches, "quantized_matmul": qmm.qmm_launches,
+                      "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches,
+                      "paged_decode_int8": pa.decode_int8_launches, "kv_scatter_int8": pa.scatter_int8_launches}
+            want = ("quantized_matmul", "paged_decode_int8", "kv_scatter_int8") if kw else ("paged_decode", "kv_scatter")
+            if min(counts[k] for k in want + ("flash_fwd",)) < 1:
+                raise AssertionError(f"6a {label}: a kernel of the path never launched: {counts}")
+            m.update(launches=counts, load_s=load_s, load_gb_per_s=nbytes / 1e9 / load_s,
+                     dense_check=check_against_dense(eng, llama, layers, reference)[0])
+            eng.stop()
+            del eng
+            out[label] = m
+    return out
+
+
+def shared_prefix_requests(SamplingParams, n: int = 8):
+    """``n`` requests sharing one 320-token system prompt (20 pages), each
+    with its own 40..180-token question; greedy, seeded and engine-seeded rows."""
+    rng = np.random.default_rng(66)
+    system = "".join(chr(c) for c in rng.integers(32, 127, SYSTEM_TOKENS - 1))  # + BOS = 320 tokens
+    out = []
+    for i in range(n):
+        question = "".join(chr(c) for c in rng.integers(32, 127, 40 + 20 * i))
+        params = SamplingParams(max_tokens=24 + 4 * i, temperature=0.0 if i % 2 == 0 else 0.8,
+                                seed=None if i % 4 == 3 else 600 + i)
+        out.append((system + question, params))
+    return out
+
+
+def phase_prefix_cache(llama, LLMEngine, SamplingParams, params) -> dict:
+    """6b: the shared-prefix burst with the prefix cache on (twice) and off:
+    tokens identical, ``cached_tokens`` the reference's page arithmetic, every
+    private page back and the cached pages exactly the trie's distinct full
+    pages; then the shared-page rewrite held bitwise (bf16 and int8 pages)."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    runs = {}
+    for label, cache_on in (("on", True), ("off", False)):
+        eng = LLMEngine(cfg, params, enable_prefix_cache=cache_on, **SERVE_KW)
+        eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+        for rnd in range(2 if cache_on else 1):
+            reqs = [eng.make_request(p, sp) for p, sp in shared_prefix_requests(SamplingParams)]
+            t0 = time.monotonic()
+            for r in reqs:
+                eng.submit_request(r)
+            for r in reqs:
+                "".join(eng.stream(r))
+                check_finish(r)
+            wall = time.monotonic() - t0
+            check_pages_returned(eng, f"6b cache {label}")
+            runs[(label, rnd)] = reqs
+            pc = eng.prefix_cache
+            log(f"6b cache {label}, round {rnd}: {wall:.2f}s, cached_tokens {[r.cached_prompt_tokens for r in reqs]}, "
+                f"{pc.stats() if pc else 'no trie'}, free pages {eng.cache.allocator.available}")
+        if cache_on:
+            full = {tuple(r.prompt_tokens[: (len(r.prompt_tokens) // 16) * 16][: 16 * (k + 1)])
+                    for r in runs[("on", 0)] for k in range(len(r.prompt_tokens) // 16)}
+            if eng.prefix_cache.cached_pages != len(full):
+                raise AssertionError(f"6b: {eng.prefix_cache.cached_pages} cached pages, {len(full)} distinct full "
+                                     "prompt pages")
+            first = [r.cached_prompt_tokens for r in runs[("on", 0)]]
+            again = [r.cached_prompt_tokens for r in runs[("on", 1)]]
+            if first != [0] + [SYSTEM_TOKENS] * 7 or again != [len(r.prompt_tokens) // 16 * 16 for r in runs[("on", 1)]]:
+                raise AssertionError(f"6b: cached_tokens {first} then {again}")
+            trie = eng.prefix_cache.cached_pages
+        eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    held = 0
+    for key in (("on", 0), ("on", 1)):
+        held += check_same_tokens(runs[key], runs[("off", 0)], f"6b cache on (round {key[1]}) against off")
+    rewrite = {kv: shared_page_rewrite(llama, params, cfg, kv) for kv in ("bfloat16", "int8")}
+    log(f"6b shared-page rewrite, largest difference per pair: {rewrite}")
+    if any(v for r in rewrite.values() for v in r.values()):
+        raise AssertionError("6b: a shared prefix page is not rewritten bitwise")
+    return {"cached_tokens": [r.cached_prompt_tokens for r in runs[("on", 0)]], "trie_pages": trie,
+            "rows_held": held, "rewrite_max_diff": rewrite}
+
+
+def phase_budget(fa, llama, LLMEngine, SamplingParams, params) -> dict:
+    """6c: a 1500-token prompt arrives while 7 streams decode, with
+    ``max_prefill_tokens_per_tick=512``, the engine stepped by hand: its
+    prefill spans 3 ticks (2 suspensions) with a decode block in each, and
+    every token equals the unbudgeted run's on the same engine."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    eng = LLMEngine(cfg, params, **{**SERVE_KW, "max_model_len": 2048}, max_prefill_tokens_per_tick=512)
+    rng = np.random.default_rng(77)
+    streams = [("".join(chr(c) for c in rng.integers(32, 127, 30 + 10 * i)),
+                SamplingParams(max_tokens=60, temperature=0.0 if i % 2 else 0.7, seed=700 + i)) for i in range(7)]
+    long = ("".join(chr(c) for c in rng.integers(32, 127, 1499)), SamplingParams(max_tokens=16, temperature=0.0))
+    runs = {}
+    for budget in (512, 0):
+        eng.prefill_budget = budget
+        reqs = [eng.submit(p, sp) for p, sp in streams]
+        for _ in range(2):
+            eng.step()
+        if not all(s.decodable for s in eng.slots if s.request in reqs) or len(
+                [s for s in eng.slots if s.request in reqs]) != 7:
+            raise AssertionError("6c: the 7 streams are not all decoding")
+        lr = eng.submit(*long)
+        susp0 = eng.stats.prefill_suspensions
+        ticks = []
+        while lr.first_token_at is None:
+            steps0, k1 = eng.stats.steps, fa.launches
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            eng.step()
+            torch.cuda.synchronize()
+            slot = next(s for s in eng.slots if s.request is lr)
+            ticks.append({"wall_ms": (time.monotonic() - t0) * 1e3, "decode_steps": eng.stats.steps - steps0,
+                          "flash_fwd": fa.launches - k1, "offset": slot.prefill.offset if slot.prefill else None})
+        while any(not s.free for s in eng.slots):
+            eng.step()
+        for r in reqs + [lr]:
+            drain(r)
+            check_finish(r)
+        runs[budget] = (reqs + [lr], ticks, eng.stats.prefill_suspensions - susp0)
+        log(f"6c budget {budget}: the long prompt's prefill ticks {ticks}, suspensions {runs[budget][2]}")
+    reqs, ticks, susp = runs[512]
+    if len(ticks) < 3 or susp != len(ticks) - 1 or not all(t["decode_steps"] > 0 for t in ticks):
+        raise AssertionError(f"6c: budgeted prefill ticks {ticks}, suspensions {susp}")
+    if len(runs[0][1]) != 1:
+        raise AssertionError(f"6c: the unbudgeted prefill took {len(runs[0][1])} ticks")
+    held = check_same_tokens(reqs, runs[0][0], "6c budget 512 against unbudgeted")
+    eng.stop()
+    return {"ticks": ticks, "suspensions": susp, "unbudgeted_tick": runs[0][1][0], "rows_held": held}
+
+
+def drain(req) -> str:
+    """A hand-stepped request's text, its finish marker already queued (the
+    scheduler thread is never started, so nothing else steps the engine)."""
+    text = []
+    while True:
+        item = req.out_queue.get_nowait()
+        if not isinstance(item, str):
+            req.finish_reason = item.reason
+            return "".join(text)
+        text.append(item)
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def phase_policy(llama, LLMEngine, SamplingParams, params) -> dict:
+    """6d, two slots, a fake clock, stepped by hand: a deadline that passes
+    mid-decode finishes with "deadline" and returns the pages; a queued
+    request whose deadline passes is cancelled before it takes a slot; an
+    interactive request is admitted before earlier default ones."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    clock = FakeClock()
+    eng = LLMEngine(cfg, params, **{**SERVE_KW, "max_slots": 2}, clock=clock)
+    p = SamplingParams(max_tokens=200, temperature=0.0)
+    out = {}
+    doomed = eng.submit("a request that decodes past its deadline", SamplingParams(max_tokens=200, deadline_s=5.0))
+    eng.step()
+    n0 = doomed.n_generated
+    clock.t = 10.0
+    eng.step()
+    drain(doomed)
+    if doomed.finish_reason != "deadline" or not (0 < n0 <= doomed.n_generated < 200) or any(
+            not s.free for s in eng.slots):
+        raise AssertionError(f"6d in-flight deadline: {doomed.finish_reason}, {doomed.n_generated} tokens")
+    check_pages_returned(eng, "6d in-flight deadline")
+    out["inflight"] = {"finish": doomed.finish_reason, "generated": doomed.n_generated}
+    hogs = [eng.submit(f"hog {i}", p) for i in range(2)]
+    eng.step()
+    queued = eng.submit("queued", SamplingParams(max_tokens=4, deadline_s=1.0))
+    eng.step()
+    reserved = eng.admission.reserved_pages
+    clock.t += 2.0
+    eng.step()
+    drain(queued)
+    if queued.finish_reason != "deadline" or queued.n_generated or eng.admission.reserved_pages or not reserved:
+        raise AssertionError(f"6d queued deadline: {queued.finish_reason}, {queued.n_generated} tokens, "
+                             f"reserved {reserved} then {eng.admission.reserved_pages}")
+    out["queued"] = {"finish": queued.finish_reason, "reserved_before": reserved}
+    defaults = [eng.submit(f"default {i}", SamplingParams(max_tokens=4)) for i in range(3)]
+    chat = eng.submit("interactive", SamplingParams(max_tokens=4), priority="interactive")
+    for r in hogs:
+        eng.abort(r)
+    eng.step()  # the hogs are reaped
+    eng.step()  # two slots free for four queued requests
+    admitted = [r for r in defaults + [chat] if r.first_token_at is not None]
+    if chat not in admitted or len(admitted) != 2 or admitted[0] is not defaults[0]:
+        raise AssertionError(f"6d class order: admitted {[r.prompt for r in admitted]}")
+    while any(not s.free for s in eng.slots) or eng.policy.total_depth():
+        eng.step()
+    for r in hogs + defaults + [chat]:
+        drain(r)
+    check_pages_returned(eng, "6d")
+    out["admitted_first"] = [r.prompt for r in admitted]
+    log(f"6d policy and deadlines: {out}")
+    eng.stop()
+    return out
+
+
+def phase_engine_surface(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params, card) -> dict:
+    out = {"checkpoint": phase_checkpoint(fa, pa, llama, layers, reference, SamplingParams, params, card)}
+    log("phase 6a checkpoint: ok")
+    out["prefix_cache"] = phase_prefix_cache(llama, LLMEngine, SamplingParams, params)
+    log("phase 6b prefix cache: ok")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["budget"] = phase_budget(fa, llama, LLMEngine, SamplingParams, params)
+    log("phase 6c prefill budget: ok")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["policy"] = phase_policy(llama, LLMEngine, SamplingParams, params)
+    log("phase 6d policy and deadlines: ok")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 5 ----------------------------------------------------------------------
 
 
@@ -1557,6 +1975,8 @@ def main() -> int:
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
+    surface = phase_engine_surface(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params, card)
+    log(f"phase 6 engine surface: {json.dumps(surface)}")
     train = phase_training(fa, llama, lora, training, params)
     del params
     gc.collect()

@@ -4,8 +4,8 @@ paged decode.
 Counterpart of ``modal_examples_tpu/models/llama.py`` (``LlamaConfig``,
 ``init_params``, ``forward`` for dense models, ``prefill``, ``prefill_chunk``,
 ``decode_step`` with its ``impl``/``scatter_impl``, ``_decode_step_writeback``,
-``tp_shard_ok``, ``paged_impl_plan``). Architecture: RMSNorm, RoPE, GQA,
-SwiGLU.
+``tp_shard_ok``, ``paged_impl_plan``, ``load_hf_weights``). Architecture:
+RMSNorm, RoPE, GQA, SwiGLU.
 
 Parameters are a plain dict: ``embed`` [V, D], ``layers`` (a list of per-layer
 dicts, weights [in, out] as in the JAX tree), ``final_norm``, and ``lm_head``
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -35,8 +36,9 @@ from ..ops import flash_attention as _flash
 from ..ops import paged_attention as _paged
 from ..ops.kv_quant import kv_gather
 from ..utils.device import resolve_device
+from ..utils.safetensors import SafeFile
 from . import layers
-from .quantize import QuantizedWeight
+from .quantize import LLAMA_TARGETS, QuantizedWeight, _qmax, bits_of, quantize_weight_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +217,82 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = conv(np_params["lm_head"])
+    return params
+
+
+#: HF llama tensor names (stored [out, in]) -> this module's names
+_HF_TOP = {"model.embed_tokens.weight": "embed", "model.norm.weight": "final_norm", "lm_head.weight": "lm_head"}
+_HF_LAYER = {
+    "input_layernorm.weight": "attn_norm",
+    "self_attn.q_proj.weight": "wq",
+    "self_attn.k_proj.weight": "wk",
+    "self_attn.v_proj.weight": "wv",
+    "self_attn.o_proj.weight": "wo",
+    "post_attention_layernorm.weight": "mlp_norm",
+    "mlp.gate_proj.weight": "gate",
+    "mlp.up_proj.weight": "up",
+    "mlp.down_proj.weight": "down",
+}
+_UNTRANSPOSED = ("embed", "final_norm", "attn_norm", "mlp_norm")
+
+
+def load_hf_weights(model_dir, cfg: LlamaConfig, dtype=None, quantization: str | None = None, device=None) -> dict:
+    """HF llama safetensors (every ``*.safetensors`` of ``model_dir``) as
+    this module's parameter dict, read file by file and tensor by tensor:
+    each tensor goes to ``device`` (transposed from HF's [out, in] to
+    [in, out] there) before the next is read, so the host never holds the
+    checkpoint. ``dtype`` (default ``cfg.dtype``) is the dtype of every
+    unquantized leaf. ``quantization="int8"`` quantizes ``LLAMA_TARGETS``
+    and ``lm_head`` on the host (:func:`~.quantize.quantize_weight_host`,
+    from the stored values) and moves only the int8 weights and their
+    scales. ``lm_head`` is not read when embeddings are tied; a mixture of
+    experts raises (ROADMAP A3)."""
+    device = resolve_device(device)
+    dt = dtype or cfg.torch_dtype
+    bits = None
+    if quantization is not None:
+        bits = bits_of(quantization)
+        _qmax(bits)  # int4 raises before a byte is read
+    files = sorted(Path(model_dir).glob("*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no safetensors under {model_dir}")
+
+    def place(w, name: str):
+        if name not in _UNTRANSPOSED:
+            w = w.T
+        if bits is not None and (name in LLAMA_TARGETS or name == "lm_head"):
+            return quantize_weight_host(w.contiguous(), bits, device)
+        return w.to(device=device, dtype=dt).contiguous()
+
+    top: dict = {}
+    per_layer: list[dict] = [{} for _ in range(cfg.n_layers)]
+    for path in files:
+        with SafeFile(path) as f:
+            for key in f.keys():
+                if "block_sparse_moe" in key:
+                    raise NotImplementedError(f"{path}: {key}: mixture-of-experts weights are not ported yet (ROADMAP A3)")
+                name = _HF_TOP.get(key)
+                if name is not None:
+                    if not (name == "lm_head" and cfg.tie_embeddings):
+                        top[name] = place(f.get_tensor(key), name)
+                    continue
+                m = re.fullmatch(r"model\.layers\.(\d+)\.(.+)", key)
+                if m and m.group(2) in _HF_LAYER and int(m.group(1)) < cfg.n_layers:
+                    name = _HF_LAYER[m.group(2)]
+                    per_layer[int(m.group(1))][name] = place(f.get_tensor(key), name)
+    want_top = ["embed", "final_norm"] + ([] if cfg.tie_embeddings else ["lm_head"])
+    missing = [k for k, v in _HF_TOP.items() if v in want_top and v not in top] + [
+        f"model.layers.{li}.{k}" for li, got in enumerate(per_layer) for k, v in _HF_LAYER.items() if v not in got
+    ]
+    if missing:
+        raise KeyError(f"{model_dir}: checkpoint lacks {missing[:8]}{' ...' if len(missing) > 8 else ''}")
+    params = {
+        "embed": top["embed"],
+        "layers": [{k: got[k] for k in _LAYER_KEYS} for got in per_layer],
+        "final_norm": top["final_norm"],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = top["lm_head"]
     return params
 
 

@@ -3,7 +3,7 @@
 Counterpart of ``modal_examples_tpu/models/quantize.py`` (int8 part):
 ``QuantizedWeight``, ``SUPPORTED``, ``_qmax``, ``quantize_weight``,
 ``dequantize_weight``, ``LLAMA_TARGETS``, ``bits_of``, ``quantize_llama``,
-``init_quantized_llama`` and ``param_bytes``. Weights are int8 ``[din, dout]``
+``init_quantized_llama``, ``quantize_weight_host`` and ``param_bytes``. Weights are int8 ``[din, dout]``
 with per-output-channel f32 scales ``[1, dout]`` (symmetric), and
 ``layers.mm`` multiplies them through the int8 matmul kernel
 (``ops/quantized_matmul.py``), which reads the int8 bytes and never a bf16
@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from ..utils import tree
+from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -111,6 +112,15 @@ def init_quantized_llama(cfg, *, seed: int = 0, bits: int = 8, device=None) -> d
     if "lm_head" in params:
         params["lm_head"] = quantize_weight(params["lm_head"], bits)
     return params
+
+
+def quantize_weight_host(w, bits: int = 8, device=None) -> QuantizedWeight:
+    """:func:`quantize_weight` on the host (a CPU tensor or numpy array),
+    then only ``q`` and ``scale`` go to ``device``: the checkpoint-load path,
+    where the model-dtype weight never reaches the card."""
+    device = resolve_device(device)
+    qw = quantize_weight(torch.as_tensor(w).cpu(), bits)
+    return QuantizedWeight(q=qw.q.to(device), scale=qw.scale.to(device))
 
 
 def param_bytes(params) -> int:

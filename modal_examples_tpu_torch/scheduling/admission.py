@@ -1,15 +1,38 @@
-"""Admission for the port's engine: a bounded FIFO waiting queue that sheds.
+"""Admission control: bounded per-class queues, cost-aware shedding,
+deadlines.
 
-The minimum of ``modal_examples_tpu/scheduling/admission.py`` the engine and
-the OpenAI server need: :class:`ShedError` (HTTP 429 upstream) and a waiting
-queue with a depth bound. Priority classes, fair share and deadlines are not
-ported yet.
+A copy of ``modal_examples_tpu/scheduling/admission.py`` (``ShedError``,
+``AdmissionConfig`` with ``from_env``, ``AdmissionController``) without its
+metrics series and usage hook; the counters stay attributes
+(``reserved_pages``, ``sheds``, ``admitted``, ``shed_rate()``). The OpenAI
+server answers a :class:`ShedError` with HTTP 429 and ``Retry-After``.
+
+Three shedding rules, checked at submit time:
+
+- ``queue_full`` — the request's priority class already has
+  ``max_queue[class]`` entries waiting (bounds are per class, so a batch
+  flood fills only the batch queue);
+- ``too_large`` — the request's estimated KV footprint exceeds the whole
+  page pool; it could never be scheduled;
+- ``kv_pressure`` — optional (off by default): live page occupancy plus the
+  pages already promised to queued work plus this request would exceed the
+  class's occupancy ceiling, so batch work sheds first as the cache fills.
+
+Reservation accounting: an admitted-but-not-yet-scheduled request reserves
+its estimated pages. The engine releases the reservation when the real claim
+happens at prefill admission, or when the request is aborted or its deadline
+expires while still queued.
 """
 
 from __future__ import annotations
 
-import collections
+import dataclasses
+import os
 import threading
+import time
+from typing import Callable
+
+from .policy import PRIORITY_CLASSES, ScheduledRequest, validate_class
 
 
 class ShedError(RuntimeError):
@@ -22,54 +45,145 @@ class ShedError(RuntimeError):
         self.retry_after_s = max(1.0, float(retry_after_s))
 
 
-#: base back-off hint for a shed request, scaled up with queue depth
-RETRY_AFTER_S = 1.0
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "")
+    try:
+        return int(raw) if raw else default
+    except ValueError:
+        return default
 
 
-class WaitingQueue:
-    """Thread-safe FIFO of submitted requests, at most ``max_depth`` deep."""
+def _env_float(name: str) -> float | None:
+    raw = os.environ.get(name, "")
+    try:
+        return float(raw) if raw else None
+    except ValueError:
+        return None
 
-    def __init__(self, max_depth: int = 4096):
-        self.max_depth = max_depth
-        self._q: collections.deque = collections.deque()
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionConfig:
+    """Per-class queue bounds + optional occupancy ceilings.
+
+    ``max_queue`` maps class -> bound. ``kv_ceiling`` maps class -> max
+    (occupancy + reserved + this request) fraction; a missing class never
+    sheds on pressure. ``retry_after_s`` is the base back-off hint, scaled
+    up with queue depth.
+    """
+
+    max_queue: dict = dataclasses.field(
+        default_factory=lambda: {c: 4096 for c in PRIORITY_CLASSES}
+    )
+    kv_ceiling: dict = dataclasses.field(default_factory=dict)
+    retry_after_s: float = 1.0
+
+    @classmethod
+    def from_env(cls) -> "AdmissionConfig":
+        """Production defaults, env-overridable:
+
+        - ``MTPU_SCHED_MAX_QUEUE`` (all classes) and per-class
+          ``MTPU_SCHED_MAX_QUEUE_INTERACTIVE/_DEFAULT/_BATCH``;
+        - ``MTPU_SCHED_KV_HEADROOM`` — the *batch* occupancy ceiling;
+          ``default`` gets +0.10 (capped at 1.0) and ``interactive`` never
+          sheds on pressure. Unset = pressure shedding off.
+        """
+        base = _env_int("MTPU_SCHED_MAX_QUEUE", 4096)
+        max_queue = {
+            c: _env_int(f"MTPU_SCHED_MAX_QUEUE_{c.upper()}", base)
+            for c in PRIORITY_CLASSES
+        }
+        kv_ceiling: dict = {}
+        headroom = _env_float("MTPU_SCHED_KV_HEADROOM")
+        if headroom is not None:
+            kv_ceiling = {
+                "batch": headroom,
+                "default": min(1.0, headroom + 0.10),
+            }
+        return cls(max_queue=max_queue, kv_ceiling=kv_ceiling)
+
+
+class AdmissionController:
+    """Stateful admission gate: bounds, pressure shedding, reservations."""
+
+    def __init__(
+        self,
+        config: AdmissionConfig | None = None,
+        *,
+        clock: Callable[[], float] | None = None,
+    ):
+        self.config = config or AdmissionConfig.from_env()
+        self._clock = clock or time.monotonic
         self._lock = threading.Lock()
+        self.reserved_pages = 0
+        self.sheds = 0  # monotonic, all classes/reasons
+        self.admitted = 0
 
-    def submit(self, item) -> None:
-        """Enqueue, or raise :class:`ShedError` when the queue is full."""
+    def _shed(self, entry: ScheduledRequest, reason: str, depth: int,
+              message: str) -> ShedError:
         with self._lock:
-            depth = len(self._q)
-            if depth >= self.max_depth:
-                raise ShedError(
-                    "queue_full",
-                    RETRY_AFTER_S * (1.0 + depth / max(1, self.max_depth)),
-                    f"waiting queue full ({depth}/{self.max_depth})",
+            self.sheds += 1
+        bound = max(1, self.config.max_queue.get(entry.priority, 1))
+        retry = self.config.retry_after_s * (1.0 + depth / bound)
+        return ShedError(reason, retry, message)
+
+    def admit(
+        self,
+        entry: ScheduledRequest,
+        *,
+        depths: dict,
+        pages_used: int,
+        pages_total: int,
+    ) -> None:
+        """Admit ``entry`` (reserving its cost) or raise :class:`ShedError`.
+
+        ``depths`` is the policy's current per-class queue depth;
+        ``pages_used``/``pages_total`` come from the live KV allocator
+        (``PagedKVCache.occupancy()``).
+        """
+        validate_class(entry.priority)
+        cfg = self.config
+        depth = int(depths.get(entry.priority, 0))
+        bound = cfg.max_queue.get(entry.priority)
+        if bound is not None and depth >= bound:
+            raise self._shed(
+                entry, "queue_full", depth,
+                f"{entry.priority} queue is full ({depth}/{bound})",
+            )
+        if pages_total > 0 and entry.cost > pages_total:
+            raise self._shed(
+                entry, "too_large", depth,
+                f"request needs {entry.cost} KV pages; the pool has "
+                f"{pages_total}",
+            )
+        ceiling = cfg.kv_ceiling.get(entry.priority)
+        if ceiling is not None and pages_total > 0:
+            with self._lock:
+                projected = (
+                    pages_used + self.reserved_pages + entry.cost
+                ) / pages_total
+            if projected > ceiling:
+                raise self._shed(
+                    entry, "kv_pressure", depth,
+                    f"projected KV occupancy {projected:.2f} exceeds the "
+                    f"{entry.priority} ceiling {ceiling:.2f}",
                 )
-            self._q.append(item)
-
-    def pop(self, n: int) -> list:
-        """Up to ``n`` items, oldest first."""
         with self._lock:
-            return [self._q.popleft() for _ in range(min(n, len(self._q)))]
+            self.reserved_pages += entry.cost
+            self.admitted += 1
 
-    def requeue_front(self, items: list) -> None:
-        """Put popped items back at the front, in their original order."""
+    def release(self, entry: ScheduledRequest) -> None:
+        """Return a queued entry's page reservation (popped for prefill,
+        aborted, or deadline-expired)."""
         with self._lock:
-            self._q.extendleft(reversed(items))
+            self.reserved_pages = max(0, self.reserved_pages - entry.cost)
 
-    def remove(self, item) -> bool:
+    def reserve(self, entry: ScheduledRequest) -> None:
+        """Re-take a reservation (claim failed; the entry was requeued)."""
         with self._lock:
-            try:
-                self._q.remove(item)
-            except ValueError:
-                return False
-            return True
+            self.reserved_pages += entry.cost
 
-    def drain(self) -> list:
+    def shed_rate(self) -> float:
+        """Lifetime shed fraction (sheds / offered load)."""
         with self._lock:
-            items = list(self._q)
-            self._q.clear()
-            return items
-
-    def __len__(self) -> int:
-        with self._lock:
-            return len(self._q)
+            offered = self.sheds + self.admitted
+            return self.sheds / offered if offered else 0.0

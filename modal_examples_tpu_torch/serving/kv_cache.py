@@ -5,8 +5,8 @@ Counterpart of ``modal_examples_tpu/serving/kv_cache.py``: ``PageAllocator``
 dead slots write) and ``PagedKVCache`` (``[L, P, page_size, Hkv, D]`` K and V
 pages: two tensors, or for ``kv_dtype="int8"`` two :class:`QuantizedKV`,
 four tensors in all). Each sequence claims its whole page budget at
-admission, so decode never runs out mid-flight. The occupancy gauges are not
-ported yet.
+admission, so decode never runs out mid-flight. ``occupancy()`` is the
+snapshot admission control reads; the occupancy gauges are not ported yet.
 """
 
 from __future__ import annotations
@@ -84,6 +84,12 @@ class PagedKVCache:
         """Device bytes of the pages: int8 caches count their payload plus the
         f32 scales (about half the bf16 figure at D=128)."""
         return self.k_pages.nbytes + self.v_pages.nbytes
+
+    def occupancy(self) -> dict:
+        """Page-pool snapshot: used, free and usable pages (page 0 is the
+        trash page)."""
+        free = self.allocator.available
+        return {"pages_used": self.n_pages - 1 - free, "pages_free": free, "pages_total": self.n_pages - 1}
 
     def pages_for(self, n_tokens: int) -> int:
         return (n_tokens + self.page_size - 1) // self.page_size

@@ -4,10 +4,13 @@ Counterpart of ``modal_examples_tpu/serving/openai_api.py`` for a single
 engine: ``/health``, ``/v1/models``, ``/v1/completions`` and
 ``/v1/chat/completions``, JSON or SSE streaming (with the
 ``stream_options.include_usage`` usage chunk), 400 on bad parameters and 429
-with ``Retry-After`` when admission sheds. Stdlib HTTP, a thread per
+with ``Retry-After`` when admission sheds. A request's deadline is
+``deadline_ms`` or the ``x-mtpu-deadline-ms`` header (the header wins), its
+priority class ``priority`` or ``x-mtpu-priority``, its tenant ``user`` or
+``x-mtpu-tenant``; ``usage.prompt_tokens_details.cached_tokens`` counts the
+prompt tokens served from the prefix cache. Stdlib HTTP, a thread per
 connection; the engine's continuous batching does the multiplexing. Not in
-this slice: the router front, ``n > 1``, images, ``/metrics``, deadlines and
-priority classes other than ``default`` (each a 400).
+this slice: the router front, ``n > 1`` (a 400), images and ``/metrics``.
 """
 
 from __future__ import annotations
@@ -25,25 +28,11 @@ from .engine import LLMEngine
 from .sampling import SamplingParams
 
 
-def _check_scheduling(body: dict, headers=None) -> None:
-    """The reference's scheduling fields, refused until the engine has them
-    (ROADMAP A6): a deadline (``deadline_ms`` or the ``x-mtpu-deadline-ms``
-    header) and a priority class other than ``default`` (``priority`` or
-    ``x-mtpu-priority``) are a 400; an unknown class is the reference's 400."""
-    deadline_ms = body.get("deadline_ms")
-    priority = body.get("priority") or DEFAULT_CLASS
-    if headers is not None:
-        deadline_ms = headers.get("x-mtpu-deadline-ms") or deadline_ms
-        priority = headers.get("x-mtpu-priority") or priority
-    priority = validate_class(str(priority))
-    if deadline_ms is not None:
-        raise ValueError("request deadlines (deadline_ms, x-mtpu-deadline-ms) are not supported yet (ROADMAP A6)")
-    if priority != DEFAULT_CLASS:
-        raise ValueError(f"priority class {priority!r} is not supported yet: this engine serves one FIFO (ROADMAP A6)")
-
-
-def _params_from_body(body: dict) -> SamplingParams:
+def _params_from_body(body: dict, headers=None) -> SamplingParams:
     stop = body.get("stop")
+    deadline_ms = body.get("deadline_ms")
+    if headers is not None and headers.get("x-mtpu-deadline-ms"):
+        deadline_ms = headers.get("x-mtpu-deadline-ms")  # a proxy's budget wins over the body's
     return SamplingParams(
         temperature=float(body.get("temperature", 1.0)),
         top_p=float(body.get("top_p", 1.0)),
@@ -51,7 +40,30 @@ def _params_from_body(body: dict) -> SamplingParams:
         max_tokens=int(body.get("max_tokens", 128)),
         stop=tuple([stop] if isinstance(stop, str) else stop or []),
         seed=int(body["seed"]) if body.get("seed") is not None else None,
+        deadline_s=float(deadline_ms) / 1000.0 if deadline_ms is not None else None,
     )
+
+
+def _sched_kwargs(body: dict, headers) -> dict:
+    """A request's priority class (``x-mtpu-priority``, else ``priority``;
+    an unknown class is a 400) and tenant (``x-mtpu-tenant``, else OpenAI's
+    ``user``)."""
+    priority = body.get("priority") or DEFAULT_CLASS
+    tenant = body.get("user") or "default"
+    if headers is not None:
+        priority = headers.get("x-mtpu-priority") or priority
+        tenant = headers.get("x-mtpu-tenant") or tenant
+    return {"priority": validate_class(str(priority)), "tenant": str(tenant)}
+
+
+def _usage(req, n_prompt: int, n_out: int) -> dict:
+    return {
+        "prompt_tokens": n_prompt,
+        "completion_tokens": n_out,
+        "total_tokens": n_prompt + n_out,
+        # prompt tokens served from the prefix cache (the page claim)
+        "prompt_tokens_details": {"cached_tokens": req.cached_prompt_tokens},
+    }
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -108,14 +120,14 @@ class _Handler(BaseHTTPRequestHandler):
                 prompt = eng.tokenizer.apply_chat_template(body.get("messages") or [])
             else:
                 prompt = body.get("prompt") or ""
-            params = _params_from_body(body)
-            _check_scheduling(body, self.headers)
+            params = _params_from_body(body, self.headers)
+            sched = _sched_kwargs(body, self.headers)
             eng.validate_params(params)
         except (ValueError, TypeError, KeyError) as e:
             self._bad_request(str(e))
             return
         try:
-            req = eng.submit(prompt, params)
+            req = eng.submit(prompt, params, **sched)
         except ShedError as e:
             self._json(
                 429,
@@ -140,7 +152,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, {
             "id": rid, "object": kind, "created": created, "model": self.server_ref.model_name,
             "choices": [{"index": 0, **content, "finish_reason": req.finish_reason or "stop"}],
-            "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out, "total_tokens": n_prompt + n_out},
+            "usage": _usage(req, n_prompt, n_out),
         }, extra_headers={"x-request-id": req.request_id})
 
     def _stream(self, eng, req, rid, created, kind, chat, include_usage, n_prompt) -> None:
@@ -170,11 +182,7 @@ class _Handler(BaseHTTPRequestHandler):
                 final = {"delta": {}} if chat else {"text": ""}
                 send(chunk_of(choices=[{"index": 0, **final, "finish_reason": req.finish_reason or "stop"}]))
             if include_usage:
-                send(chunk_of(choices=[], usage={
-                    "prompt_tokens": n_prompt,
-                    "completion_tokens": req.n_generated,
-                    "total_tokens": n_prompt + req.n_generated,
-                }))
+                send(chunk_of(choices=[], usage=_usage(req, n_prompt, req.n_generated)))
             self.wfile.write(b"data: [DONE]\n\n")
             self.wfile.flush()
         except BrokenPipeError:

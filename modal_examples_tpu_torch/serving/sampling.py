@@ -32,6 +32,10 @@ class SamplingParams:
     max_tokens: int = 128
     stop: tuple[str, ...] = ()
     seed: int | None = None  # per-request determinism (OpenAI `seed`)
+    #: relative deadline in seconds from submit (``x-mtpu-deadline-ms`` over
+    #: HTTP): past it a queued request is cancelled and an in-flight one
+    #: aborted, both finishing with "deadline"
+    deadline_s: float | None = None
 
 
 # -- threefry2x32 ---------------------------------------------------------------

@@ -2,10 +2,13 @@
 tokenizer otherwise.
 
 A copy of ``modal_examples_tpu/utils/tokenizer.py`` (``ByteTokenizer``,
-``HFTokenizer``, ``load_tokenizer``) without its native batch encoder.
+``HFTokenizer``, ``load_tokenizer``) without its native batch encoder;
+``load_tokenizer`` also serves bytes for a directory without tokenizer files.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 
 class ByteTokenizer:
@@ -54,11 +57,20 @@ class HFTokenizer:
         return self._tok.apply_chat_template(messages, tokenize=False, add_generation_prompt=True, **kw)
 
 
+#: an HF tokenizer directory holds one of these
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "vocab.json", "vocab.txt")
+
+
 def load_tokenizer(model_dir: str | None):
-    """``HFTokenizer`` for a local model directory, else ``ByteTokenizer``."""
-    if model_dir is None:
+    """``HFTokenizer`` for a local model directory with tokenizer files,
+    else ``ByteTokenizer``: without a directory, without tokenizer files, or
+    when ``transformers`` cannot load them, as the reference falls back.
+    The file check comes first because some ``transformers`` versions build
+    a tokenizer with no vocabulary from a bare ``config.json`` (every prompt
+    then encodes to a couple of tokens) instead of raising."""
+    if model_dir is None or not any((Path(model_dir) / f).exists() for f in TOKENIZER_FILES):
         return ByteTokenizer()
     try:
         return HFTokenizer(model_dir)
-    except (ImportError, OSError, ValueError):
+    except Exception:  # transformers missing, or files it cannot read (any of several errors)
         return ByteTokenizer()

@@ -360,7 +360,7 @@ def test_int8_engine_matches_jax_engine(qmodel):
     jparams = jllama.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = tllama.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     jeng = JaxEngine(jcfg, jparams, enable_prefix_cache=False, **ENGINE_KW)
-    teng = LLMEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
+    teng = LLMEngine(tcfg, tparams, device="cpu", enable_prefix_cache=False, **ENGINE_KW)
     assert teng.cache.quantized and teng.impl_plan["kv_dtype"] == "int8" and teng.impl_plan["weights"] == "int8"
     assert tquant.param_bytes(teng.params) == jquant.param_bytes(jeng.params)
     try:

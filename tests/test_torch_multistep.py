@@ -182,7 +182,7 @@ def _engine(model, kv_dtype="float32", *, jax_engine=False, **kw):
     kw.setdefault("prefill_buckets", (16, 32))
     if jax_engine:
         return JaxEngine(jcfg, jparams, seed=0, kv_dtype=kv_dtype, enable_prefix_cache=False, **kw)
-    return LLMEngine(tcfg, tparams, seed=0, kv_dtype=kv_dtype, device="cpu", **kw)
+    return LLMEngine(tcfg, tparams, seed=0, kv_dtype=kv_dtype, device="cpu", enable_prefix_cache=False, **kw)
 
 
 def _pages_returned(eng) -> bool:

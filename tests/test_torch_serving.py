@@ -73,7 +73,7 @@ def _ref_margin(jparams, jcfg, req, j):
 def test_engine_matches_jax_engine(weights):
     jcfg, tcfg, jparams, tparams = weights
     jeng = JaxEngine(jcfg, jparams, enable_prefix_cache=False, **ENGINE_KW)
-    teng = LLMEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
+    teng = LLMEngine(tcfg, tparams, device="cpu", enable_prefix_cache=False, **ENGINE_KW)
     try:
         jreqs, jpieces = _run(jeng, JaxParams)
         treqs, tpieces = _run(teng, SamplingParams)
@@ -106,8 +106,12 @@ def _post(url, body):
 
 def test_openai_server_completions_chat_sse_and_errors(weights):
     _, tcfg, _, tparams = weights
+    from modal_examples_tpu_torch.scheduling.admission import AdmissionConfig, AdmissionController
+    from modal_examples_tpu_torch.scheduling.policy import PRIORITY_CLASSES
+
     srv = OpenAIServer(LLMEngine(tcfg, tparams, device="cpu", **ENGINE_KW), port=0).start()
-    shed = OpenAIServer(LLMEngine(tcfg, tparams, device="cpu", max_queue=0, **ENGINE_KW), port=0).start()
+    full = AdmissionController(AdmissionConfig(max_queue={c: 0 for c in PRIORITY_CLASSES}))
+    shed = OpenAIServer(LLMEngine(tcfg, tparams, device="cpu", admission=full, **ENGINE_KW), port=0).start()
     base = f"http://{srv.host}:{srv.port}"
     try:
         with urllib.request.urlopen(base + "/v1/models", timeout=30) as r:
@@ -120,6 +124,7 @@ def test_openai_server_completions_chat_sse_and_errors(weights):
         assert out["choices"][0]["finish_reason"] in ("length", "stop")
         assert out["usage"]["prompt_tokens"] == 6
         assert out["usage"]["total_tokens"] == 6 + out["usage"]["completion_tokens"]
+        assert out["usage"]["prompt_tokens_details"] == {"cached_tokens": 0}
 
         status, headers, body = _post(base + "/v1/chat/completions", {
             "messages": [{"role": "user", "content": "hi"}], "max_tokens": 6, "seed": 3,
@@ -149,48 +154,84 @@ def test_openai_server_completions_chat_sse_and_errors(weights):
 
 
 def test_scheduling_fields_answer_as_the_reference(weights):
-    """A misspelled priority class is the reference's 400 on both servers; a
-    deadline or a class other than "default" is a 400 naming ROADMAP A6 on
-    the port, which has neither yet."""
+    """Deadlines, priority classes and tenants (body fields and headers) are
+    served as the reference serves them: the same status codes, finish
+    reasons and messages on both servers; a misspelled class is the
+    reference's 400, an already-expired deadline finishes with "deadline"."""
     from modal_examples_tpu.serving.openai_api import OpenAIServer as JaxServer
 
     jcfg, tcfg, jparams, tparams = weights
-    jsrv = JaxServer(JaxEngine(jcfg, jparams, enable_prefix_cache=False, **ENGINE_KW), host="127.0.0.1",
-                     port=0).start()
+    jsrv = JaxServer(JaxEngine(jcfg, jparams, **ENGINE_KW), host="127.0.0.1", port=0).start()
     tsrv = OpenAIServer(LLMEngine(tcfg, tparams, device="cpu", **ENGINE_KW), port=0).start()
     jbase, tbase = f"http://{jsrv.host}:{jsrv.port}", f"http://{tsrv.host}:{tsrv.port}"
     try:
-        typo = {"prompt": "x", "max_tokens": 2, "priority": "interactve"}
-        jstatus, _, jbody = _post(jbase + "/v1/completions", typo)
-        tstatus, _, tbody = _post(tbase + "/v1/completions", typo)
-        assert tstatus == jstatus == 400
-        assert json.loads(tbody)["error"]["message"] == json.loads(jbody)["error"]["message"]
-        for extra in ({"deadline_ms": 5000}, {"priority": "batch"}):
-            status, _, body = _post(tbase + "/v1/completions", {"prompt": "x", "max_tokens": 2, **extra})
-            assert status == 400 and "A6" in json.loads(body)["error"]["message"], (extra, body)
-        for header in ({"x-mtpu-deadline-ms": "250"}, {"x-mtpu-priority": "interactive"}):
-            req = urllib.request.Request(tbase + "/v1/completions", data=json.dumps({"prompt": "x"}).encode(),
-                                         headers={"content-type": "application/json", **header})
-            with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(req, timeout=60)
-            assert e.value.code == 400 and "A6" in json.loads(e.value.read())["error"]["message"]
-        status, _, _ = _post(tbase + "/v1/completions", {"prompt": "x", "max_tokens": 2, "priority": "default"})
-        assert status == 200
+        cases = [
+            ({"priority": "interactve"}, {}),
+            ({"deadline_ms": 60000}, {}),
+            ({"deadline_ms": 0}, {}),
+            ({"deadline_ms": 0}, {"x-mtpu-deadline-ms": "60000"}),  # the header wins
+            ({"priority": "batch", "user": "acme"}, {}),
+            ({}, {"x-mtpu-priority": "interactive", "x-mtpu-tenant": "t1"}),
+            ({}, {"x-mtpu-priority": "urgent"}),
+            ({"priority": "default"}, {}),
+        ]
+        seen = []
+        for extra, headers in cases:
+            body = {"prompt": "x", "max_tokens": 2, "temperature": 0, **extra}
+            got = []
+            for base in (jbase, tbase):
+                req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                             headers={"content-type": "application/json", **headers})
+                try:
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        out = json.loads(r.read())
+                        got.append((r.status, out["choices"][0]["finish_reason"], out["choices"][0]["text"]))
+                except urllib.error.HTTPError as e:
+                    got.append((e.code, json.loads(e.read())["error"]["message"], None))
+            assert got[1] == got[0], (extra, headers, got)
+            seen.append(got[1])
+        assert [r[0] for r in seen] == [400, 200, 200, 200, 200, 200, 400, 200]
+        assert seen[2][1] == "deadline" and seen[3][1] != "deadline"
     finally:
         jsrv.stop()
         tsrv.stop()
 
 
-def test_model_dir_without_params_raises_before_the_tokenizer(tmp_path, monkeypatch):
-    """The reference loads the checkpoint from model_dir; the port refuses
-    (ROADMAP A3) before it loads a tokenizer, rather than serve random weights."""
-    from modal_examples_tpu_torch.serving import engine as teng_mod
+def test_model_dir_without_params_raises_before_the_tokenizer(weights, tmp_path):
+    """``model_dir`` without ``params=`` loads the checkpoint (the reference's
+    ``load_hf_weights``) and the directory's tokenizer, and serves the JAX
+    engine's tokens from it."""
+    from safetensors.numpy import save_file
 
-    loaded = []
-    monkeypatch.setattr(teng_mod, "load_tokenizer", lambda d: loaded.append(d))
-    with pytest.raises(NotImplementedError, match="A3"):
-        LLMEngine(tllama.LlamaConfig.tiny(), model_dir=str(tmp_path), device="cpu", **ENGINE_KW)
-    assert loaded == []
+    jcfg, tcfg, jparams, tparams = weights
+    np_params = jax.tree.map(np.asarray, jparams)
+    raw = {"model.embed_tokens.weight": np_params["embed"], "model.norm.weight": np_params["final_norm"],
+           "lm_head.weight": np.ascontiguousarray(np_params["lm_head"].T)}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "gate": "mlp.gate_proj", "up": "mlp.up_proj", "down": "mlp.down_proj"}
+    for i in range(tcfg.n_layers):
+        for ours, hf in names.items():
+            raw[f"model.layers.{i}.{hf}.weight"] = np.ascontiguousarray(np_params["layers"][ours][i].T)
+        raw[f"model.layers.{i}.input_layernorm.weight"] = np_params["layers"]["attn_norm"][i]
+        raw[f"model.layers.{i}.post_attention_layernorm.weight"] = np_params["layers"]["mlp_norm"][i]
+    save_file(raw, str(tmp_path / "model.safetensors"))
+    jeng = JaxEngine(jcfg, model_dir=str(tmp_path), enable_prefix_cache=False, **ENGINE_KW)
+    teng = LLMEngine(tcfg, model_dir=str(tmp_path), device="cpu", enable_prefix_cache=False, **ENGINE_KW)
+    try:
+        assert all(torch.equal(teng.params["layers"][i][k], tparams["layers"][i][k])
+                   for i in range(tcfg.n_layers) for k in names)
+        assert torch.equal(teng.params["lm_head"], tparams["lm_head"])
+        assert type(teng.tokenizer).__name__ == type(jeng.tokenizer).__name__
+        jreqs, _ = _run(jeng, JaxParams)
+        treqs, _ = _run(teng, SamplingParams)
+    finally:
+        jeng.stop()
+        teng.stop()
+    for jr, tr in zip(jreqs, treqs):
+        assert (tr.finish_reason, tr.n_generated) == (jr.finish_reason, jr.n_generated)
+        if tr.generated_tokens != jr.generated_tokens:
+            j = next(i for i, (a, b) in enumerate(zip(tr.generated_tokens, jr.generated_tokens)) if a != b)
+            assert _ref_margin(jparams, jcfg, jr, j) <= MARGIN, f"token {j} differs past the margin"
 
 
 def test_kv_dtype_follows_the_env_as_the_reference(monkeypatch):
@@ -230,7 +271,7 @@ def test_mixtral_config_raises_where_the_reference_reads_experts(tmp_path):
 
 def test_scheduler_error_fails_loudly(weights):
     _, tcfg, _, tparams = weights
-    eng = LLMEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
+    eng = LLMEngine(tcfg, tparams, device="cpu", enable_prefix_cache=False, **ENGINE_KW)
     n_reports = len(LLMEngine._error_reports)
 
     def broken_tick():
@@ -252,10 +293,12 @@ def test_scheduler_error_fails_loudly(weights):
 
 
 def test_abort_and_queue_bound(weights):
-    from modal_examples_tpu_torch.scheduling.admission import ShedError
+    from modal_examples_tpu_torch.scheduling.admission import AdmissionConfig, AdmissionController, ShedError
+    from modal_examples_tpu_torch.scheduling.policy import PRIORITY_CLASSES
 
     _, tcfg, _, tparams = weights
-    eng = LLMEngine(tcfg, tparams, device="cpu", max_queue=1, **ENGINE_KW)
+    bound = AdmissionController(AdmissionConfig(max_queue={c: 1 for c in PRIORITY_CLASSES}))
+    eng = LLMEngine(tcfg, tparams, device="cpu", admission=bound, enable_prefix_cache=False, **ENGINE_KW)
     try:
         queued = eng.submit("never scheduled", SamplingParams(max_tokens=4))
         with pytest.raises(ShedError):

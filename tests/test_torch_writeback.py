@@ -419,7 +419,7 @@ def _engines_agree(model, **kw):
     the reference's top-2 margin exceeds ``MARGIN``."""
     jcfg, tcfg, jparams, tparams = model
     jeng = JaxEngine(jcfg, jparams, enable_prefix_cache=False, **kw)
-    teng = LLMEngine(tcfg, tparams, device="cpu", **kw)
+    teng = LLMEngine(tcfg, tparams, device="cpu", enable_prefix_cache=False, **kw)
     assert teng.impl_plan["attention"] == "writeback" and teng.paged_impl == jeng.paged_impl
     assert teng.kv_dtype == jeng.kv_dtype and teng.cache.quantized == (kw["kv_dtype"] == "int8")
     try:
@@ -482,7 +482,8 @@ def test_writeback_kernel_matches_plain_on_card():
         assert _row_rel(got, ref) <= 1e-2
         assert (got != ref).float().mean().item() <= 1e-2
     cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), n_heads=4, n_kv_heads=4)
-    eng = LLMEngine(cfg, device="cuda", kv_dtype="int8", paged_impl="xla-writeback", max_slots=2, max_model_len=64)
+    eng = LLMEngine(cfg, device="cuda", kv_dtype="int8", paged_impl="xla-writeback", max_slots=2, max_model_len=64,
+                    enable_prefix_cache=False)
     before = (tpa.decode_writeback_launches, tpa.decode_writeback_int8_launches, tpa.decode_int8_launches)
     try:
         req = eng.submit("hello", SamplingParams(max_tokens=4, temperature=0.0))
