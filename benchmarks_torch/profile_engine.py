@@ -2,9 +2,13 @@
 
 Builds the same engine as ``chip_smoke.py`` (Llama-2-7B shapes, random bf16
 weights from a seed, 8 slots, buckets 128/256/512), drives the scheduler tick
-by hand in this thread, and profiles with ``torch.profiler``: the tick that
-admits and prefills 8 prompts (one chunked) and then a tick that runs one
-decode block over 8 live slots. For each it prints the host wall time, the
+by hand in this thread, and profiles with ``torch.profiler`` the first three
+ticks of the pipelined loop: the tick that admits and prefills 8 prompts
+(one chunked) and reads their first tokens (no slot is decodable at its
+dispatch), the tick that dispatches the first decode block over 8 live
+slots, and the steady tick that dispatches the second block and reads the
+first. Each profile ends with a ``torch.cuda.synchronize()``, so a tick's
+device time holds the work it queued. For each it prints the host wall time, the
 device busy time (sum of kernel times on the one stream), the device idle
 share, the kernels by total device time, and the host's blocking scalar
 reads (count and host ms, the wait for the card included). With ``--int8`` the engine
@@ -109,8 +113,9 @@ def main() -> int:
     while eng.policy.total_depth() or any(not s.free for s in eng.slots):
         eng.step()
     reqs = [eng.submit(p, sp) for p, sp in make_requests(SamplingParams)]
-    results = [profiled_tick(eng, "admit_prefill_decode")]
+    results = [profiled_tick(eng, "admit_prefill")]
     results.append(profiled_tick(eng, "decode_block"))
+    results.append(profiled_tick(eng, "decode_block_and_read"))
     live = sum(not s.free for s in eng.slots)
     for r in results:
         print(json.dumps(r), flush=True)

@@ -46,11 +46,15 @@ Phases (any failure exits non-zero and prints no result):
    last split dropped);
 3. the engine serving 8 requests (prompts of 20..700 tokens, one chunked),
    with the launch counters zeroed just before and read just after: every
-   serving kernel must have launched, the decode kernel n_layers x decode
-   steps times; then prefill + one decode step against a dense plain forward
-   on the card; then the same burst with ``decode_steps = 8`` (the macro-step
-   program), counters zeroed: the decode kernel n_layers x the steps that
-   ran (``stats.steps``), greedy and seeded rows token-identical to N=1;
+   serving kernel must have launched, the decode kernel n_layers x the
+   dispatched decode steps (a block's 8, a macro-step's N, either cut to
+   the largest budget of its slots: the pipelined loop runs every
+   dispatched step on the card, and the engine's ``stats.steps`` counts
+   those with a live lane); then prefill + one
+   decode step against a dense plain forward on the card; then the same
+   burst with ``decode_steps = 8`` (the macro-step program), counters
+   zeroed: the decode kernel n_layers x the dispatched steps, greedy and
+   seeded rows token-identical to N=1;
 4. the OpenAI server: one completion, one streamed chat completion;
    then (phase 3b) write-then-attend serving: ``paged_impl=
    "pallas-writeback"`` at ``decode_steps=8``, then 1, counters zeroed each
@@ -105,6 +109,20 @@ Phases (any failure exits non-zero and prints no result):
    ends with "deadline" and returns the pages, a queued one is cancelled
    before it takes a slot, an interactive request is admitted before
    earlier default ones.
+7. the pipelined engine at full width (after phase 6, before training; the
+   resident weights, the profiler on): 16 requests over 8 slots at
+   ``decode_steps`` 1 and 8, counters zeroed (K1, K2, K3 launched, K2
+   n_layers x the dispatched steps), a block read with the next one in
+   flight, slots recycled under a block in flight, parked first tokens
+   read after a dispatch, one dispatch under PyTorch's sync debug mode
+   reporting no synchronizing operation, every page back, N=8 and each
+   request served alone token-identical to the burst; the OpenAI server's
+   ``n = 3`` against its seeded singles, ``x-mtpu-request-id`` on the 200
+   and the stream, ``/metrics`` counting the engine's stats with no name
+   twice; logged: the profiler's phases (each tick's within 5% of its
+   total), its host share, dispatch host ms against the block's device span, the
+   usage meter's work over the served wall at the card's peaks (each share
+   at most 1.0), and the burst's tok/s and TTFT beside phase 3's.
 """
 
 from __future__ import annotations
@@ -122,6 +140,7 @@ import sys
 import time
 import traceback
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -912,28 +931,150 @@ def check_against_dense(eng, llama, layers, reference):
     return out, pre, toks
 
 
-def serve_burst(eng, SamplingParams, label: str):
-    """The 8 requests of ``make_requests`` through ``eng``, every finish
-    checked. Returns (requests, metrics: burst tok/s, decode tok/s, TTFT
-    median, wall, decode steps). Burst tok/s is every generated token over
-    the burst's wall time, text delivered included, so it times the same
-    work at any ``decode_steps``; decode tok/s is the engine's decode-tick
-    clock, which at N > 1 leaves out the detokenization the worker thread
-    does."""
+class BlockWatch:
+    """Watches an engine's pipelined decode loop while it serves, through
+    wrappers on the instance (``with BlockWatch(eng) as w: ...``): the decode
+    steps its dispatches queued (``dispatched_steps``: ``decode_block`` a
+    block, N a macro-step, each cut to its slots' largest budget, every one
+    of which runs on the card), each
+    dispatch's host ms and its block's device span (CUDA events before its
+    first launch and after its last: while the host launches slower than
+    the card runs, the card waits on each launch and the span is the
+    launching time, not the kernels' busy time, which ``profile_engine.py``
+    reads), dispatches that returned with their block still running, the
+    peak of blocks in flight when one is read, the rows of a block being read
+    whose slot another request took meanwhile (``recycled``), and the
+    harvests of parked first tokens that followed a dispatch in their tick.
+    ``sync_probe(k)`` runs the k-th dispatch under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and counts the synchronizing
+    operations PyTorch reports in it (a blocking copy, a read of a device
+    value): a dispatch must have none, or it would wait for the block in
+    flight. (A device wait queued ahead of a dispatch cannot show this: a
+    block is thousands of launches, and once the CUDA launch queue is
+    full the host waits for room whether or not it synchronizes.)"""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.dispatches, self.dispatched_steps, self.busy_at_return = 0, 0, 0
+        self.peak, self.recycled, self.harvest_after_dispatch = 0, 0, 0
+        self.events = []  # (host ms, start event, end event, steps)
+        self.probe_at, self.probe = None, None
+        self._dispatched = False
+
+    def __enter__(self):
+        eng = self.eng
+        self._orig = eng._dispatch_block, eng._process_block, eng._harvest_prefills, eng.step
+        dispatch, process, harvest, step = self._orig
+
+        def dispatch_block(live):
+            probe = self.dispatches == self.probe_at
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            if probe:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out = dispatch(live)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs = [str(w.message).splitlines()[0] for w in caught if "called a synchronizing" in str(w.message)]
+                self.probe = {"dispatch": self.dispatches, "sync_warnings": len(syncs), "first": syncs[:1]}
+            else:
+                out = dispatch(live)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            steps = eng._inflight[-1][3][0]  # the block's dispatched steps
+            self.busy_at_return += not end.query()
+            self.dispatches += 1
+            self.dispatched_steps += steps
+            self.events.append((host_ms, start, end, steps))
+            self._dispatched = True
+            return out
+
+        def process_block():
+            self.peak = max(self.peak, len(eng._inflight))
+            self.recycled += sum(1 for i, _req, tenancy in eng._inflight[0][2]
+                                 if eng.slots[i].request is not None and eng.slots[i].tenancy != tenancy)
+            return process()
+
+        def harvest_prefills():
+            if eng._pending_harvest and self._dispatched:
+                self.harvest_after_dispatch += 1
+            return harvest()
+
+        def tick():
+            self._dispatched = False
+            return step()
+
+        eng._dispatch_block, eng._process_block, eng._harvest_prefills, eng.step = (
+            dispatch_block, process_block, harvest_prefills, tick)
+        return self
+
+    def __exit__(self, *exc):
+        # the wrappers go once the scheduler is idle
+        settle(self.eng)
+        for name in ("_dispatch_block", "_process_block", "_harvest_prefills", "step"):
+            self.eng.__dict__.pop(name, None)
+
+    def sync_probe(self, k: int) -> None:
+        self.probe_at = k
+
+    def timings(self) -> dict:
+        """Medians of the dispatches' host ms and their blocks' device spans."""
+        torch.cuda.synchronize()
+        host = [h for h, _, _, _ in self.events]
+        span = [a.elapsed_time(b) for _, a, b, _ in self.events]
+        return {"dispatches": self.dispatches, "dispatch_host_ms_median": statistics.median(host) if host else None,
+                "block_span_ms_median": statistics.median(span) if span else None,
+                "busy_at_return": self.busy_at_return}
+
+
+def settle(eng, timeout: float = 60.0) -> None:
+    """Wait until the scheduler thread has read every block in flight (a
+    block leaves ``_inflight`` before its read counts its steps, so the step
+    count must also hold still across two looks)."""
+    deadline = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < deadline:
+        now = None if eng._inflight else eng.stats.steps
+        if now is not None and now == last:
+            return
+        last = now
+        time.sleep(0.05)
+    raise AssertionError("the engine did not settle")
+
+
+def serve_burst(eng, SamplingParams, label: str, requests=None, watch: BlockWatch | None = None):
+    """``requests`` (default: the 8 of ``make_requests``) through ``eng``,
+    every finish checked. Returns (requests, metrics: burst tok/s, decode
+    tok/s, TTFT median, wall, decode steps counted by the engine, decode
+    steps dispatched). Burst tok/s is every generated token over the
+    burst's wall time, text delivered included, so it times the same work
+    at any ``decode_steps``; decode tok/s is the engine's decode clock
+    (dispatches and block reads), which at N > 1 leaves out the
+    detokenization the worker thread does. The kernels launch once a layer
+    for every dispatched step: a block runs its ``decode_block`` steps, a
+    macro-step its N, each cut to the largest budget of its slots, a
+    macro-step's also after its lanes died (the engine counts only the
+    steps with a live lane)."""
+    settle(eng)
     steps0 = eng.stats.steps
     dec_s0, dec_t0 = eng.stats.decode_seconds, eng.stats.decode_tokens
-    t0 = time.monotonic()
-    # tokenized first, then queued back to back: the running scheduler finds
-    # the whole burst at one tick, so every run prefills the same groups
-    reqs = [eng.make_request(p, sp) for p, sp in make_requests(SamplingParams)]
-    for r in reqs:
-        eng.submit_request(r)
-    texts = ["".join(eng.stream(r)) for r in reqs]
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    with BlockWatch(eng) if watch is None else watch as w:
+        t0 = time.monotonic()
+        # tokenized first, then queued back to back: the running scheduler finds
+        # the whole burst at one tick, so every run prefills the same groups
+        reqs = [eng.make_request(p, sp) for p, sp in (requests or make_requests(SamplingParams))]
+        for r in reqs:
+            eng.submit_request(r)
+        texts = ["".join(eng.stream(r)) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
     steps = eng.stats.steps - steps0
-    log(f"{label}: {len(reqs)} requests in {wall:.2f}s, decode steps {steps}, decode_steps N={eng.decode_steps}, "
-        f"plan {eng.impl_plan}")
+    log(f"{label}: {len(reqs)} requests in {wall:.2f}s, decode steps {steps} counted, {w.dispatched_steps} "
+        f"dispatched, decode_steps N={eng.decode_steps}, plan {eng.impl_plan}")
     for r, t in zip(reqs, texts):
         check_finish(r)
         log(f"  {r.request_id}: prompt {len(r.prompt_tokens)} tok, {r.finish_reason}, "
@@ -945,6 +1086,7 @@ def serve_burst(eng, SamplingParams, label: str):
         "ttft_s_median": statistics.median(r.first_token_at - r.created for r in reqs),
         "wall_s": wall,
         "decode_steps": steps,
+        "dispatched_steps": w.dispatched_steps,
     }
 
 
@@ -987,12 +1129,12 @@ def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
     fa.launches = pa.decode_launches = pa.scatter_launches = 0
     reqs, metrics = serve_burst(eng, SamplingParams, "engine")
     counts = {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
-    steps = metrics["decode_steps"]
+    steps = metrics["dispatched_steps"]
     log(f"engine launches {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
     if counts["paged_decode"] != cfg.n_layers * steps:
-        raise AssertionError(f"decode launches {counts['paged_decode']} != {cfg.n_layers} x {steps} steps")
+        raise AssertionError(f"decode launches {counts['paged_decode']} != {cfg.n_layers} x {steps} dispatched steps")
     metrics["launches"] = counts
     log(f"engine metrics: {json.dumps(metrics)}")
     metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
@@ -1001,11 +1143,12 @@ def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
     fa.launches = pa.decode_launches = pa.scatter_launches = 0
     reqs8, m8 = serve_burst(eng, SamplingParams, "engine, macro-step N=8")
     m8["launches"] = {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
-    # a step that ran launched the decode kernel once a layer; stats.steps
-    # counts the steps with a valid row, so the two agree only if every
-    # counted step ran and every step that ran was counted
-    if m8["launches"]["paged_decode"] != cfg.n_layers * m8["decode_steps"]:
-        raise AssertionError(f"macro-step decode launches {m8['launches']} != {cfg.n_layers} x {m8['decode_steps']}")
+    # every dispatched step launches the decode kernel once a layer (the
+    # macro-step decides on the card which steps hold a live lane; stats.steps
+    # counts only those)
+    if m8["launches"]["paged_decode"] != cfg.n_layers * m8["dispatched_steps"]:
+        raise AssertionError(f"macro-step decode launches {m8['launches']} != {cfg.n_layers} x "
+                             f"{m8['dispatched_steps']} dispatched steps")
     m8["rows_held"] = check_same_tokens(reqs8, reqs, "engine, macro-step N=8 against N=1")
     eng.decode_steps = 1
     log(f"engine macro-step N=8 metrics: {json.dumps(m8)} (N=1: burst {metrics['burst_tok_per_s']:.1f} tok/s, "
@@ -1030,7 +1173,7 @@ def phase_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, Sampling
         reqs, m = serve_burst(eng, SamplingParams, f"writeback engine, N={n}")
         m["launches"] = {"flash_fwd": fa.launches, "paged_decode_writeback": pa.decode_writeback_launches,
                          "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
-        steps, counts = m["decode_steps"], m["launches"]
+        steps, counts = m["dispatched_steps"], m["launches"]
         log(f"writeback engine N={n} launches {counts}")
         if counts["paged_decode_writeback"] != cfg.n_layers * steps or counts["paged_decode"]:
             raise AssertionError(f"writeback launches {counts}: want {cfg.n_layers} x {steps} K4, no K2")
@@ -1103,11 +1246,12 @@ def phase_int8_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParam
     counts = {"flash_fwd": fa.launches, "quantized_matmul": qmm.qmm_launches,
               "paged_decode_int8": pa.decode_int8_launches, "kv_scatter_int8": pa.scatter_int8_launches,
               "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
-    steps = metrics["decode_steps"]
+    steps = metrics["dispatched_steps"]
     log(f"int8 engine launches {counts}")
     per_pass = 7 * cfg.n_layers + 1  # seven projections a layer, then lm_head
     if counts["paged_decode_int8"] != cfg.n_layers * steps:
-        raise AssertionError(f"int8 decode launches {counts['paged_decode_int8']} != {cfg.n_layers} x {steps} steps")
+        raise AssertionError(f"int8 decode launches {counts['paged_decode_int8']} != {cfg.n_layers} x {steps} "
+                             "dispatched steps")
     if counts["paged_decode"] or counts["kv_scatter"]:
         raise AssertionError(f"the int8 path launched a bf16 cache kernel: {counts}")
     if counts["kv_scatter_int8"] < 1 or counts["flash_fwd"] < 1:
@@ -1154,7 +1298,7 @@ def phase_int8_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, Sam
               "kv_scatter_int8": pa.scatter_int8_launches, "paged_decode_writeback": pa.decode_writeback_launches,
               "paged_decode": pa.decode_launches, "paged_decode_int8": pa.decode_int8_launches,
               "kv_scatter": pa.scatter_launches}
-    steps = metrics["decode_steps"]
+    steps = metrics["dispatched_steps"]
     log(f"int8 writeback engine N=8 launches {counts}")
     if counts["paged_decode_writeback_int8"] != cfg.n_layers * steps:
         raise AssertionError(f"int8 writeback launches {counts}: want {cfg.n_layers} x {steps} K4-int8")
@@ -1167,6 +1311,186 @@ def phase_int8_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, Sam
     metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
     eng.stop()
     return metrics
+
+
+# -- phase 7 ----------------------------------------------------------------------
+
+
+def burst16(SamplingParams):
+    """16 requests for 8 slots: prompts of 20..700 byte tokens (two past the
+    512 bucket), 24..64 new tokens, greedy and seeded rows (no
+    engine-assigned seed, so each can be served again alone)."""
+    rng = np.random.default_rng(16)
+    lens = [20, 700, 64, 130, 520, 200, 45, 300, 90, 450, 160, 33, 511, 250, 75, 380]
+    out = []
+    for i, n in enumerate(lens):
+        prompt = "".join(chr(c) for c in rng.integers(32, 127, n - 1))  # + BOS = n tokens
+        out.append((prompt, SamplingParams(max_tokens=24 + (40 * i) // 15, temperature=0.0 if i % 2 == 0 else 0.8,
+                                           seed=None if i % 2 == 0 else 1600 + i)))
+    return out
+
+
+def clear_registry() -> None:
+    """Empty the port's process registry, so phase 7's series are its engine's alone."""
+    from modal_examples_tpu_torch.utils.prometheus import default_registry as reg
+
+    with reg._lock:
+        reg._counters.clear()
+        reg._gauges.clear()
+        reg._histograms.clear()
+
+
+def http(base: str, path: str, body=None):
+    """(status, headers, text) of one request to the server."""
+    req = urllib.request.Request(base + path, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, {k.lower(): v for k, v in r.headers.items()}, r.read().decode()
+
+
+def phase_pipeline(fa, pa, llama, LLMEngine, OpenAIServer, SamplingParams, params, phase3: dict) -> dict:
+    """Phase 7: the pipelined engine at full width. (7a) Llama-2-7B, 8 slots,
+    the profiler on: 16 requests over the 8 slots, counters zeroed just
+    before and read just after (K1, K2, K3 launched; K2 n_layers x the
+    dispatched steps); a block read with the next in flight, slots recycled
+    under a block in flight, parked first tokens harvested after a dispatch,
+    every page back; each request token-identical to itself served alone on
+    the same engine; then the burst at ``decode_steps = 8``, identical.
+    (7b) the OpenAI server over the engine: ``n = 3`` with a seed equal to
+    the three singles at ``seed + i``, ``x-mtpu-request-id`` on the 200 and
+    the stream, and ``/metrics`` (scraped idle) counting the engine's stats,
+    no name twice. (7c) logged: the profiler's phases per tick (their sum
+    within 5% of the tick), its host share, each dispatch's host ms against
+    its block's device span, and one dispatch run under PyTorch's sync debug
+    mode (it must report no synchronizing operation), the usage meter's
+    shares per phase at the card's peaks (each at most 1.0, and the
+    roofline gauges equal to them), and
+    the burst's tok/s and TTFT beside phase 3's."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    clear_registry()
+    eng = LLMEngine(cfg, params, **SERVE_KW, profile=True)
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    requests = burst16(SamplingParams)
+    out = {}
+    runs = {}
+    for n in (1, 8):
+        eng.decode_steps = n
+        fa.launches = pa.decode_launches = pa.scatter_launches = 0
+        watch = BlockWatch(eng)
+        watch.sync_probe(2)
+        reqs, m = serve_burst(eng, SamplingParams, f"7a pipelined engine, 16 requests, N={n}", requests, watch)
+        counts = {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
+        if min(counts.values()) <= 0 or counts["paged_decode"] != cfg.n_layers * watch.dispatched_steps:
+            raise AssertionError(f"7a N={n} launches {counts}: want {cfg.n_layers} x {watch.dispatched_steps} K2, K1, K3")
+        if watch.peak != 2 or watch.recycled < 1 or watch.harvest_after_dispatch < 1:
+            raise AssertionError(f"7a N={n}: peak in flight {watch.peak}, recycled {watch.recycled}, harvests "
+                                 f"after a dispatch {watch.harvest_after_dispatch}")
+        m.update(launches=counts, peak_inflight=watch.peak, recycled_in_flight=watch.recycled,
+                 harvests_after_dispatch=watch.harvest_after_dispatch, **watch.timings(), sync_probe=watch.probe)
+        if watch.probe is None or watch.probe["sync_warnings"]:
+            raise AssertionError(f"7a N={n}: the dispatch synchronized with the card: {watch.probe}")
+        log(f"7a N={n}: {json.dumps(m)}")
+        runs[n] = reqs
+        out[f"n{n}"] = m
+    out["rows_held_n8"] = check_same_tokens(runs[8], runs[1], "7a N=8 against N=1")
+    eng.decode_steps = 1
+    singles = []
+    t0 = time.monotonic()
+    for prompt, sp in requests:
+        r = eng.submit(prompt, sp)
+        "".join(eng.stream(r))
+        singles.append(r)
+    out["singles_s"] = time.monotonic() - t0
+    out["rows_held_alone"] = check_same_tokens(runs[1], singles, "7a burst against each request served alone")
+    if out["rows_held_alone"] != len(requests):
+        raise AssertionError("7a: a row was not held against its single run")
+    settle(eng)
+    prof = eng.profiler.overhead_summary()
+    ring = eng.profiler.perfetto_snapshot()["ticks"]
+    worst = max(abs(sum(e["phases"].values()) - e["total"]) / e["total"] for e in ring)
+    if worst > 0.05:
+        raise AssertionError(f"7c: a tick's phases sum {worst:.3f} away from its total")
+    out["profiler"] = {
+        "ticks": prof["ticks"], "tick_p50_ms": prof["tick_p50"] * 1e3, "tick_p95_ms": prof["tick_p95"] * 1e3,
+        "host_fraction": prof["host_fraction"], "worst_phase_sum_gap": worst,
+        "phase_p50_ms": {k: v["p50"] * 1e3 for k, v in prof["phases"].items()},
+    }
+    m1 = out["n1"]
+    # the meter's own shares, as /metrics serves them: its work over the
+    # card's spans of that work (CUDA events around each block and prefill)
+    from modal_examples_tpu_torch.observability import catalog as C
+    from modal_examples_tpu_torch.utils.prometheus import default_registry
+
+    eng.usage.flush()
+    phases = eng.usage.summary()["phases"]
+    peaks = eng.usage.peaks
+    if peaks["tflops_per_chip"] is None:
+        raise AssertionError(f"7c: no peaks for this card: {peaks}")
+    shares = {p: (phases[p]["mfu"], phases[p]["mbu"]) for p in phases}
+    if not all(v is not None and 0 < v <= 1.0 for pair in shares.values() for v in pair):
+        raise AssertionError(f"7c: the usage meter's shares (mfu, mbu) {shares}")
+    served = tuple(default_registry.value(name, {"phase": "total"}) for name in (C.MFU, C.HBM_BW_UTIL))
+    if served != shares["total"]:
+        raise AssertionError(f"7c: the roofline gauges {served} are not the meter's {shares['total']}")
+    out["usage"] = {"peaks": peaks, "shares_mfu_mbu": shares, "meter": phases}
+    out["vs_phase3"] = {"burst_tok_per_s": (m1["burst_tok_per_s"], phase3["burst_tok_per_s"]),
+                        "ttft_s_median": (m1["ttft_s_median"], phase3["ttft_s_median"])}
+    log(f"7c: {json.dumps(out['profiler'])}; usage {json.dumps(out['usage'])}; 16-request burst at N=1 "
+        f"{m1['burst_tok_per_s']:.1f} tok/s, TTFT median {m1['ttft_s_median']:.3f}s (phase 3's 8 requests: "
+        f"{phase3['burst_tok_per_s']:.1f} tok/s, {phase3['ttft_s_median']:.3f}s); dispatch host ms "
+        f"{m1['dispatch_host_ms_median']:.2f} against its block's device span {m1['block_span_ms_median']:.2f} "
+        f"at N=1, {out['n8']['dispatch_host_ms_median']:.2f} against {out['n8']['block_span_ms_median']:.2f} at N=8")
+    out["server"] = phase_pipeline_server(eng, OpenAIServer)
+    return out
+
+
+def phase_pipeline_server(eng, OpenAIServer) -> dict:
+    """7b: ``n = 3`` against its seeded singles, the request id header, and
+    ``/metrics`` against the engine's stats (the server stops the engine)."""
+    from modal_examples_tpu_torch.observability import catalog as C
+
+    srv = OpenAIServer(eng, model_name="llama2-7b", port=0).start()
+    base = f"http://{srv.host}:{srv.port}"
+    out = {}
+    try:
+        body = {"prompt": "Three short stories about the sea:", "max_tokens": 24, "temperature": 0.8, "seed": 4242}
+        status, _, text = http(base, "/v1/completions", {**body, "n": 3})
+        choices = json.loads(text)["choices"]
+        singles = []
+        for i in range(3):
+            s_status, headers, s_text = http(base, "/v1/completions", {**body, "seed": 4242 + i})
+            if s_status != 200 or not headers.get("x-mtpu-request-id", "").startswith("req-"):
+                raise AssertionError(f"7b single: {s_status}, headers {headers}")
+            singles.append(json.loads(s_text)["choices"][0]["text"])
+        if status != 200 or [c["text"] for c in choices] != singles:
+            raise AssertionError(f"7b n=3: {status}, choices differ from the seeded singles")
+        s_status, headers, s_text = http(base, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Say hello."}], "max_tokens": 8, "stream": True})
+        if s_status != 200 or not headers.get("x-mtpu-request-id", "").startswith("req-"):
+            raise AssertionError(f"7b stream: {s_status}, headers {headers}")
+        settle(eng)
+        time.sleep(0.6)  # the idle loop flushes the counters (every 0.25 s)
+        settle(eng)
+        _, _, metrics = http(base, "/metrics")
+        st = eng.stats
+        names = re.findall(r"^# TYPE (\S+)", metrics, re.M)
+        hand = [line.split("{")[0].split(" ")[0] for line in metrics.splitlines()
+                if line and not line.startswith("#") and line.split("{")[0].split(" ")[0] not in names]
+        hand = [h for h in hand if not any(h.startswith(n + "_") for n in names)]
+        if len(names + hand) != len(set(names + hand)):
+            raise AssertionError("7b /metrics: a metric name appears twice")
+        got = {}
+        for name, want in ((C.GENERATED_TOKENS_TOTAL, st.generated_tokens), (C.PROMPT_TOKENS_TOTAL, st.prompt_tokens),
+                           (C.DECODE_STEPS_TOTAL, st.steps)):
+            m = re.search(rf"^{name} (\S+)$", metrics, re.M)
+            got[name] = (float(m.group(1)) if m else None, want)
+            if m is None or float(m.group(1)) != want:
+                raise AssertionError(f"7b /metrics {name}: {got[name]}")
+        out = {"n3_choices": len(choices), "metrics_vs_stats": got, "metric_names": len(names) + len(hand)}
+        log(f"7b server: {json.dumps(out)}")
+    finally:
+        srv.stop()
+    return out
 
 
 # -- training ---------------------------------------------------------------------
@@ -1927,6 +2251,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the GPU only", file=sys.stderr)
         return 2
+    # the engines' request traces and usage journals land in the checkout's build/
+    os.environ.setdefault("MTPU_STATE_DIR", str(ROOT / "build" / "state"))
     from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams, training
     from modal_examples_tpu_torch.models import layers, llama, lora
     from modal_examples_tpu_torch.ops import _build, reference
@@ -1977,6 +2303,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     surface = phase_engine_surface(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params, card)
     log(f"phase 6 engine surface: {json.dumps(surface)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    pipeline = phase_pipeline(fa, pa, llama, LLMEngine, OpenAIServer, SamplingParams, params, metrics)
+    log(f"phase 7 pipelined engine: ok in {time.monotonic() - t0:.1f}s: {json.dumps(pipeline)}")
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
     del params
     gc.collect()

@@ -37,7 +37,10 @@ def rotary_embedding(positions, head_dim: int, theta: float = 10000.0, rope_scal
     stretched by ``factor``, high ones kept, the band between interpolated."""
     half = head_dim // 2
     idx = torch.arange(0, half, dtype=torch.float32, device=positions.device)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), -idx / half)
+    # the base filled on the device: a tensor copied from the host would wait
+    # for the stream, and so for every launch queued before it
+    base = torch.full((half,), theta, dtype=torch.float32, device=positions.device)
+    freqs = torch.pow(base, -idx / half)
     if rope_scaling:
         factor = float(rope_scaling.get("factor", 8.0))
         low = float(rope_scaling.get("low_freq_factor", 1.0))

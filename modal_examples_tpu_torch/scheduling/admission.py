@@ -2,10 +2,12 @@
 deadlines.
 
 A copy of ``modal_examples_tpu/scheduling/admission.py`` (``ShedError``,
-``AdmissionConfig`` with ``from_env``, ``AdmissionController``) without its
-metrics series and usage hook; the counters stay attributes
-(``reserved_pages``, ``sheds``, ``admitted``, ``shed_rate()``). The OpenAI
-server answers a :class:`ShedError` with HTTP 429 and ``Retry-After``.
+``AdmissionConfig`` with ``from_env``, ``AdmissionController``), with its
+metrics series (``mtpu_sheds_total``, ``mtpu_requests_admitted_total``,
+``mtpu_kv_pages_reserved``) and its usage hook; the counters are attributes
+too (``reserved_pages``, ``sheds``, ``admitted``, ``shed_rate()``). The
+OpenAI server answers a :class:`ShedError` with HTTP 429 and
+``Retry-After``.
 
 Three shedding rules, checked at submit time:
 
@@ -32,6 +34,7 @@ import threading
 import time
 from typing import Callable
 
+from ..observability import metrics as _obs
 from .policy import PRIORITY_CLASSES, ScheduledRequest, validate_class
 
 
@@ -117,11 +120,17 @@ class AdmissionController:
         self.reserved_pages = 0
         self.sheds = 0  # monotonic, all classes/reasons
         self.admitted = 0
+        # the owning engine's EngineUsage (observability/usage.py): sheds
+        # are charged to the tenant and class that were turned away
+        self.usage = None
 
     def _shed(self, entry: ScheduledRequest, reason: str, depth: int,
               message: str) -> ShedError:
         with self._lock:
             self.sheds += 1
+        _obs.record_shed(entry.priority, reason)
+        if self.usage is not None:
+            self.usage.note_shed(entry.tenant, entry.priority)
         bound = max(1, self.config.max_queue.get(entry.priority, 1))
         retry = self.config.retry_after_s * (1.0 + depth / bound)
         return ShedError(reason, retry, message)
@@ -170,17 +179,24 @@ class AdmissionController:
         with self._lock:
             self.reserved_pages += entry.cost
             self.admitted += 1
+            reserved = self.reserved_pages
+        _obs.set_kv_pages_reserved(reserved)
+        _obs.record_admitted(entry.priority)
 
     def release(self, entry: ScheduledRequest) -> None:
         """Return a queued entry's page reservation (popped for prefill,
         aborted, or deadline-expired)."""
         with self._lock:
             self.reserved_pages = max(0, self.reserved_pages - entry.cost)
+            reserved = self.reserved_pages
+        _obs.set_kv_pages_reserved(reserved)
 
     def reserve(self, entry: ScheduledRequest) -> None:
         """Re-take a reservation (claim failed; the entry was requeued)."""
         with self._lock:
             self.reserved_pages += entry.cost
+            reserved = self.reserved_pages
+        _obs.set_kv_pages_reserved(reserved)
 
     def shed_rate(self) -> float:
         """Lifetime shed fraction (sheds / offered load)."""

@@ -22,18 +22,32 @@ pressure). Prompts prefill in bucketed batches; longer ones take
 unlimited; 0 means unlimited) caps the prompt tokens turned into prefill work
 a tick: in-flight sliced prefills resume first, the first chunk of an
 otherwise idle tick always dispatches, and entries past the budget go back to
-the front of their queues with their reservations. A decode block then runs
-between a long prompt's chunks. A prefill's first token is read as soon as
-its last chunk lands (the JAX engine defers that read behind the next decode
-dispatch; tokens are the same either way). Deadlines (``deadline_s``) cancel
-queued requests and abort in-flight ones, which finish with "deadline"; a
-slot aborted mid-prefill unwinds its claim, invalidating trie pages that were
-never fully written.
+the front of their queues with their reservations. Deadlines (``deadline_s``)
+cancel queued requests and abort in-flight ones, which finish with
+"deadline"; a slot aborted mid-prefill unwinds its claim, invalidating trie
+pages that were never fully written.
 
-The decode block: ``decode_block`` decode+sample steps in a Python loop, one
-host read of the block's tokens at the end. Each slot's step budget (tokens
-left before ``max_tokens`` or the model length) is known on the host, so a
-slot stops decoding exactly where it would finish by length.
+The decode loop is the JAX engine's pipelined one (``_decode_tick``):
+``_dispatch_block`` queues one decode block on ``_inflight`` (``decode_block``
+decode+sample steps, or at ``decode_steps`` N > 1 one macro-step program,
+either cut to the largest number of tokens its slots would still accept;
+the JAX engine runs the steps past it too) and returns before it runs;
+``_harvest_prefills`` then reads the first tokens that prefills parked on
+``_pending_harvest``, so those reads overlap the block just queued; and
+``_process_block`` reads and accepts the oldest block only when two are in
+flight or no slot is decodable. Each block feeds the
+next one its last tokens on the device; a freshly prefilled slot feeds its
+host-known first token through the override lane, and the host tracks each
+slot's optimistic position (``_opt_positions``) ahead of its accepted one.
+A block's snapshot pins (slot, request, tenancy), so rows of a slot that
+finished or was recycled while the block ran are dropped. Every launch of
+the engine goes to one CUDA stream: a slot that finishes while a block still
+decodes it only writes its own pages (or, past its claimed pages, the trash
+page), and a prefill that reuses those pages is queued after that block.
+The host arrays of a dispatch go to the card in one non-blocking copy from
+pinned memory, and a block's tokens (and a prefill's first tokens) come back
+by a non-blocking copy queued where they are produced, read later behind a
+CUDA event: reading one block never waits for the block queued after it.
 
 Sampling is keyed by (request seed, position) exactly as in the JAX engine
 (every request carries a seed: the caller's, or one assigned at submit), so
@@ -51,16 +65,30 @@ with the ragged decode kernel, the writeback impls with the write-then-attend
 kernel. ``decode_steps`` (argument, then ``MTPU_DECODE_STEPS``, then 1; read
 once per dispatch, so it may change at runtime) above 1 replaces the decode
 block with the macro-step program (``serving/multistep``): N steps with
-on-device stop and budget masks, one host read of tokens and validity, and
-detokenization on a :class:`~.multistep.DetokWorker` thread.
+on-device stop and budget masks, and detokenization on a
+:class:`~.multistep.DetokWorker` thread.
 
-Not in this slice: int4 weights, the pipelined dispatch and the deferred
-first-token harvest, the tiered prefix cache, speculative decoding, metrics
-and tracing.
+Instruments, as the JAX engine's: the metrics series of
+``observability/metrics.py`` (phase, batch, stall, TTFT/TPOT, queue, page and
+prefix-cache gauges, token counters, flushed by ``_refresh_gauges`` at most
+every 0.25 s), request traces (``observability/reqtrace.py``: the root span
+opened at ``make_request``, then queue, prefill and decode spans; ``trace_store=``
+picks the store), the hot-path profiler (``profile=``, then
+``MTPU_PROFILE``: each tick's host time split into ``catalog.TICK_PHASES``,
+the blocking reads counted as device time; off, ``self.profiler`` is None and
+a tick takes no timestamp), and the usage meter (``self.usage``: tokens,
+FLOPs and bytes per tenant, utilization shares against the card's peaks).
+``EngineStats`` keeps the JAX engine's counters and ``decode_seconds`` /
+``decode_tokens``. The profiler keeps no compile ledger: the port compiles
+no programs at dispatch (its kernels build once, at first use).
+
+Not in this slice: int4 weights, the tiered prefix cache, speculative
+decoding, fault injection, the fleet's claim paths and the canary.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import queue
@@ -74,9 +102,13 @@ import torch
 
 from ..models import llama
 from ..models.quantize import SUPPORTED as _QUANT_MODES
-from ..models.quantize import QuantizedWeight, bits_of, init_quantized_llama, quantize_llama
+from ..models.quantize import QuantizedWeight, bits_of, init_quantized_llama, param_bytes, quantize_llama
+from ..observability import metrics as _obs
+from ..observability import profiler as _profiler
+from ..observability import reqtrace as _rt
+from ..observability import usage as _usage
 from ..ops.kv_quant import resolve_kv_dtype
-from ..scheduling.admission import AdmissionController
+from ..scheduling.admission import AdmissionController, ShedError
 from ..scheduling.policy import DEFAULT_CLASS, FairSharePolicy, ScheduledRequest, SchedulerPolicy, validate_class
 from ..utils.device import resolve_device
 from ..utils.tokenizer import load_tokenizer
@@ -84,6 +116,22 @@ from .kv_cache import OutOfPages, PagedKVCache
 from .multistep import DetokWorker, build_multistep_fn, resolve_decode_steps
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, prng_key, sample, split
+
+_CANARY_TENANT = _usage.CANARY_TENANT
+
+
+def _tm(tick, phase: str) -> None:
+    """Close the interval since the tick's last mark into ``phase``. ``tick``
+    is None whenever profiling is off, so the disabled path is one branch."""
+    if tick is not None:
+        tick.mark(phase)
+
+
+def _tm_device(tick, phase: str) -> None:
+    """:func:`_tm`, also counting the interval as device-blocked time (a
+    blocking read of a device tensor)."""
+    if tick is not None:
+        tick.mark(phase, device=True)
 
 
 @dataclasses.dataclass(eq=False)
@@ -96,13 +144,16 @@ class Request:
     created: float = dataclasses.field(default_factory=time.monotonic)
     aborted: bool = False
     finish_reason: str | None = None  # set when the terminal marker arrives
+    # token telemetry (monotonic clock): TTFT = first_token_at - created;
+    # the gaps between tokens feed the TPOT histogram
     first_token_at: float | None = None
+    last_token_at: float | None = None
     n_generated: int = 0  # accepted tokens, eos included
     generated_tokens: list = dataclasses.field(default_factory=list)  # eos excluded
     # engine-assigned when params.seed is None: sampling is derived from
     # (auto_seed, position), never from scheduler timing
     auto_seed: int | None = None
-    emitted_len: int = 0  # characters the detokenization worker has sent
+    emitted_len: int = 0  # characters emitted so far (inline path or detokenization worker)
     # scheduling: the class and tenant drive the fair-share policy; deadline
     # is absolute in the engine's clock (params.deadline_s armed at
     # make_request); deadline_expired makes an abort finish with "deadline"
@@ -114,6 +165,11 @@ class Request:
     # (OpenAI usage.prompt_tokens_details.cached_tokens), set at page claim
     cached_prompt_tokens: int = 0
     sched_entry: ScheduledRequest | None = dataclasses.field(default=None, repr=False)  # while queued
+    # the request trace (observability/reqtrace.py), None when tracing is
+    # off or sampled out; its open queue and decode spans
+    trace: object | None = dataclasses.field(default=None, repr=False)
+    queue_span: object | None = dataclasses.field(default=None, repr=False)
+    decode_span: object | None = dataclasses.field(default=None, repr=False)
 
 
 @dataclasses.dataclass
@@ -127,6 +183,9 @@ class _PendingPrefill:
     ticks: int = 0  # ticks that dispatched at least one chunk
     suspensions: int = 0  # times the budget paused this prefill mid-prompt
     logits: torch.Tensor | None = None  # the last dispatched chunk's logits
+    t_start: float = 0.0  # monotonic, for the phase histogram
+    t_wall: float = 0.0  # wall clock, for the trace spans
+    spans: list = dataclasses.field(default_factory=list)  # each chunk's (start, end) CUDA events
 
 
 @dataclasses.dataclass
@@ -135,11 +194,15 @@ class _Slot:
     pages: list[int] = dataclasses.field(default_factory=list)
     trie_pages: list[int] = dataclasses.field(default_factory=list)  # PrefixCache.release()d
     private_pages: list[int] = dataclasses.field(default_factory=list)  # freed
-    position: int = 0  # position of the NEXT token to decode
+    position: int = 0  # position of the NEXT token to decode (accepted, not optimistic)
     last_token: int = 0
+    fresh: bool = False  # just prefilled: the next dispatch feeds last_token through the override lane
     generated: list[int] = dataclasses.field(default_factory=list)
     emitted_text_len: int = 0
     prefill: _PendingPrefill | None = None  # set while the prompt fills chunk by chunk
+    pending_first: bool = False  # prefill dispatched, its first token not yet harvested
+    tenancy: int = 0  # per-install id: block and harvest snapshots pin (request, tenancy)
+    claimed_at: float = 0.0  # engine clock at install: the usage meter's occupancy interval
 
     @property
     def free(self) -> bool:
@@ -147,16 +210,24 @@ class _Slot:
 
     @property
     def decodable(self) -> bool:
-        """Admitted and holding a first token: a slot mid-prefill is not."""
-        return self.request is not None and self.prefill is None
+        """Admitted and holding a first token on the host: a slot mid-prefill
+        or with its first token unharvested is not."""
+        return self.request is not None and self.prefill is None and not self.pending_first
 
 
 @dataclasses.dataclass
 class EngineStats:
-    steps: int = 0  # decode steps run (each a decode_step over all slots; macro-steps count executed ones)
-    decode_seconds: float = 0.0  # host wall time of decode blocks, read included
+    prompt_tokens: int = 0  # prompt tokens whose first token was harvested
+    generated_tokens: int = 0  # accepted tokens (first tokens included)
+    steps: int = 0  # decode steps that ran: a block's dispatched rows, a macro-step's rows with a valid lane
+    started: float = dataclasses.field(default_factory=time.monotonic)
+    decode_seconds: float = 0.0  # host wall time of decode dispatches and block reads (accepts included)
     decode_tokens: int = 0  # tokens accepted from decode blocks
     prefill_suspensions: int = 0  # chunked prefills paused mid-prompt by the budget
+
+    def tokens_per_second(self) -> float:
+        dt = time.monotonic() - self.started
+        return self.generated_tokens / dt if dt > 0 else 0.0
 
 
 class _Finish:
@@ -169,6 +240,53 @@ class _Finish:
 
 
 _FINISH = _Finish("stop")
+
+
+def _mark(device: torch.device):
+    """A timing event recorded on the card's stream now (None on the CPU):
+    where a unit of device work starts, for the usage meter's device
+    seconds."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+class _Landing:
+    """A device tensor's copy to the host, queued right after the work that
+    produces it: on the card a non-blocking copy into pinned memory and a
+    CUDA event behind it, so :meth:`numpy` waits for that work only, not for
+    what was queued on the stream later (a later decode block). On the CPU
+    the tensor is already there. ``spans`` are the (start, end) events around
+    the work behind the tensor (``start``: the one that ends at this
+    landing), which :meth:`device_seconds` sums."""
+
+    __slots__ = ("host", "event", "spans")
+
+    def __init__(self, t: torch.Tensor, start=None, spans=()):
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event(enable_timing=True)
+            self.event.record()
+            self.spans = [*spans, (start, self.event)] if start is not None else list(spans)
+        else:
+            self.host, self.event, self.spans = t, None, []
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+    def device_seconds(self) -> float | None:
+        """Seconds of the card's stream between each span's events, summed,
+        once landed; None on the CPU. Spans of one engine never overlap (one
+        stream), and the time between launches counts: while the host
+        launches slower than the card runs, a span is the launching time."""
+        if self.event is None:
+            return None
+        return sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
 
 
 def _unstable_tail(text: str) -> bool:
@@ -243,7 +361,9 @@ class LLMEngine:
         scatter_impl: str | None = None,  # KV scatter; None: env, then "xla"
         policy: SchedulerPolicy | None = None,  # waiting-set order; None: FairSharePolicy
         admission: AdmissionController | None = None,  # shed gate; None: AdmissionConfig.from_env()
-        clock=None,  # monotonic clock of deadlines and the policy (fake clocks in tests)
+        clock=None,  # monotonic clock of deadlines, the policy, the profiler and the usage meter
+        profile=None,  # the hot-path profiler; None: MTPU_PROFILE, then off
+        trace_store=None,  # where this engine's request spans land; None: the process-wide store
     ):
         self.device = resolve_device(device)
         if max_prefill_tokens_per_tick is None:
@@ -269,6 +389,7 @@ class LLMEngine:
             "int8" if quantization == "int8" or given_int8 else None,
             impl=self.paged_impl, scatter_impl=self.scatter_impl,
         )
+        _obs.set_decode_impl(self.impl_plan)
         if params is None:
             if model_dir is not None:
                 # int8 is quantized on the host: the bf16 weights never reach the card
@@ -297,12 +418,30 @@ class LLMEngine:
         self.decode_steps = resolve_decode_steps(decode_steps)  # read once per dispatch
         self._detok: DetokWorker | None = None  # created at the first routed token
         self.slots = [_Slot() for _ in range(max_slots)]
+        self._tenancy_seq = 0  # bumped at every install (scheduler thread only)
         self._clock = clock or time.monotonic
+        self.trace_name = "engine"  # the replica name on spans, journals and the profiler
+        self.profiler = (
+            _profiler.HotPathProfiler(clock=self._clock, name=lambda: self.trace_name)
+            if _profiler.profiling_enabled(profile) else None
+        )
+        self._tick = None  # the in-flight TickProfile (None: profiling off, or between ticks)
         self.policy: SchedulerPolicy = policy or FairSharePolicy(clock=self._clock)
         self.admission = admission or AdmissionController(clock=self._clock)
+        self._trace_store = trace_store if trace_store is not None else _rt.default_store
         self.stats = EngineStats()
+        # the analytic work model is frozen here; the meter shares the
+        # engine's clock and takes the card's peaks (none on the CPU)
+        self.usage = _usage.EngineUsage(
+            _usage.WorkModel.from_engine(cfg, cache=self.cache, weight_bytes=param_bytes(self.params)),
+            clock=self._clock, name=lambda: self.trace_name, device=self.device,
+        )
+        self.admission.usage = self.usage  # sheds are charged to their tenant
         self.error_log: list[str] = []
+        self.error_count = 0
         self._stopped_on_error = False
+        self._metrics_wall = 0.0  # last gauge refresh (throttled)
+        self._counter_flush = {"prompt": 0, "generated": 0, "steps": 0}  # stats flushed into the counters
         self._key = prng_key(seed, self.device)
         self._seed_base = int(seed)
         self._submit_seq = 0
@@ -310,6 +449,23 @@ class LLMEngine:
         self._running = False
         self._thread: threading.Thread | None = None
         self._page_tables = np.zeros((max_slots, self.pages_per_slot), np.int32)
+
+        # the pipelined decode loop: one block in flight ahead of the one
+        # being read; each block's last tokens stay on the device and feed
+        # the next; the host keeps every slot's optimistic position
+        self._device_tokens: torch.Tensor | None = None  # [max_slots] int32, the last block's
+        self._opt_positions = np.zeros((max_slots,), np.int32)
+        self._override = np.zeros((max_slots,), np.int32)
+        self._inflight: collections.deque = collections.deque()  # (landing, macro-step?, snapshot)
+        # prefills whose first tokens are still on their way to the host:
+        # (landing, rows, meta); read after the next decode dispatch
+        self._pending_harvest: collections.deque = collections.deque()
+        self._last_dispatch_at: float | None = None  # feeds mtpu_decode_stall_seconds
+        # tokens-per-dispatch accounting (the multistep gauges)
+        self._ms_dispatches = 0
+        self._ms_tokens = 0
+        self._ms_flush = {"dispatches": 0, "tokens": 0}
+        self._ms_tpd = 0.0
 
     # -- helpers ------------------------------------------------------------
 
@@ -324,33 +480,64 @@ class LLMEngine:
         self._key = keys[0]
         return keys[1]
 
-    def _dev(self, array, dtype=None):
-        return torch.as_tensor(array, dtype=dtype).to(self.device)
+    def _stage(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """One dispatch's host arrays (int32, float32 or bool) on the device:
+        packed into one int32 buffer and sent in one copy, non-blocking from
+        pinned memory on the card. The buffer is fresh each time: PyTorch's
+        pinned-memory cache reuses it only after its copy has run, so a later
+        dispatch never rewrites what a queued copy still reads."""
+        total = sum(a.size for a in arrays)
+        on_card = self.device.type == "cuda"
+        host = torch.empty(total, dtype=torch.int32, pin_memory=on_card)
+        flat = host.numpy()
+        off = 0
+        for a in arrays:
+            flat[off : off + a.size] = (a.view(np.int32) if a.dtype == np.float32 else a).reshape(-1)
+            off += a.size
+        dev = host.to(self.device, non_blocking=True) if on_card else host
+        out, off = [], 0
+        for a in arrays:
+            t = dev[off : off + a.size].view(a.shape)
+            off += a.size
+            if a.dtype == np.float32:
+                t = t.view(torch.float32)
+            elif a.dtype == np.bool_:
+                t = t != 0
+            out.append(t)
+        return out
 
     # -- public API ---------------------------------------------------------
 
     def validate_params(self, params: SamplingParams) -> None:
-        """Raise ValueError for parameters the engine rejects (a 400 upstream)."""
-        if not params.temperature >= 0.0:
-            raise ValueError(f"temperature must be >= 0; got {params.temperature}")
-        if not 0.0 < params.top_p <= 1.0:
-            raise ValueError(f"top_p must be in (0, 1]; got {params.top_p}")
-        if params.top_k < 0:
-            raise ValueError(f"top_k must be >= 0; got {params.top_k}")
-        if params.max_tokens < 1:
-            raise ValueError(f"max_tokens must be >= 1; got {params.max_tokens}")
-        if params.seed is not None and not 0 <= params.seed < 2**31:
-            raise ValueError(f"seed must be in [0, 2**31); got {params.seed}")
+        """Raise ValueError for parameters the engine rejects (a 400
+        upstream). Like the JAX engine it serves every sampling value
+        (negative temperatures and top_p <= 0 sample greedily, a top_p above
+        1 filters nothing, max_tokens below 1 yields one token, a negative
+        seed samples unseeded). The one refusal is a seed outside int32: the
+        JAX engine fails such a request while it prefills (an "error", a 500
+        upstream)."""
+        if params.seed is not None and not -(2**31) <= params.seed < 2**31:
+            raise ValueError(f"seed must be in [-2**31, 2**31); got {params.seed}")
 
     def make_request(
         self, prompt: str, params: SamplingParams | None = None, *, priority: str = DEFAULT_CLASS,
-        tenant: str = "default",
+        tenant: str = "default", trace=_rt.UNSET,
     ) -> Request:
         """Build (but do not enqueue) one validated, tokenized request; its
-        deadline arms here."""
+        deadline arms here. ``trace``: a context an entry point opened (the
+        request takes its id), None when the entry point sampled it out, or
+        unset to open one here."""
         req = Request(prompt=prompt, params=params or SamplingParams(), priority=validate_class(priority),
                       tenant=tenant)
         self.validate_params(req.params)
+        if trace is _rt.UNSET:
+            req.trace = _rt.start_request_trace(
+                req.request_id, entry=self.trace_name, store=self._trace_store,
+                priority=req.priority, tenant=req.tenant,
+            )
+        elif trace is not None:
+            req.request_id = trace.trace_id  # trace id == request id
+            req.trace = trace
         if req.params.seed is None:
             with self._lock:
                 self._submit_seq += 1
@@ -376,20 +563,27 @@ class LLMEngine:
             deadline=req.deadline, enqueued_at=self._clock(),
         )
         occ = self.cache.occupancy()
-        self.admission.admit(entry, depths=self.policy.depths(), pages_used=occ["pages_used"],
-                             pages_total=occ["pages_total"])
+        try:
+            self.admission.admit(entry, depths=self.policy.depths(), pages_used=occ["pages_used"],
+                                 pages_total=occ["pages_total"])
+        except ShedError as e:
+            _rt.event(req.trace, "shed", store=self._trace_store, replica=self.trace_name, reason=e.reason)
+            _rt.finish_root(req.trace, "shed", store=self._trace_store, finish_reason="shed")
+            raise
         req.sched_entry = entry
+        req.queue_span = _rt.begin(req.trace, "queue", replica=self.trace_name, priority=req.priority,
+                                   tenant=req.tenant)
         self.policy.submit(entry)
         return req
 
     def submit(
         self, prompt: str, params: SamplingParams | None = None, *, priority: str = DEFAULT_CLASS,
-        tenant: str = "default",
+        tenant: str = "default", trace=_rt.UNSET,
     ) -> Request:
         """Enqueue one request: ``priority`` (interactive, default, batch) and
         ``tenant`` drive the fair-share policy, ``params.deadline_s`` arms a
         deadline. Raises ``ShedError`` when admission rejects it."""
-        return self.submit_request(self.make_request(prompt, params, priority=priority, tenant=tenant))
+        return self.submit_request(self.make_request(prompt, params, priority=priority, tenant=tenant, trace=trace))
 
     def generate(self, prompt: str, params: SamplingParams | None = None) -> str:
         """Blocking convenience: submit and collect the full completion."""
@@ -414,6 +608,7 @@ class LLMEngine:
         entry = request.sched_entry
         if entry is not None and self.policy.remove(entry):
             self.admission.release(entry)
+            _obs.set_sched_queue_depths(self.policy.depths())
             self._finish_stream(request, _FINISH)
 
     def start(self) -> "LLMEngine":
@@ -431,7 +626,8 @@ class LLMEngine:
 
     def stop(self) -> None:
         """Stop the scheduler and release every caller (partial output for
-        in-flight requests, finish_reason "stop")."""
+        in-flight requests, finish_reason "stop"), then flush the counters,
+        the usage meter and the profiler's gauge."""
         self._running = False
         if self._thread is not None and self._thread is not threading.current_thread():
             self._thread.join(timeout=60)
@@ -440,6 +636,10 @@ class LLMEngine:
             # must land behind every chunk the worker still owes
             self._detok.stop()
         self._release_all(_FINISH)
+        self._flush_token_counters()
+        self.usage.flush()
+        if self.profiler is not None:
+            self.profiler.flush()
 
     # -- scheduler loop -------------------------------------------------------
 
@@ -453,8 +653,11 @@ class LLMEngine:
                 # swallowed)
                 tb = traceback.format_exc()
                 self.error_log.append(tb)
+                self.error_count += 1
+                del self.error_log[:-20]
                 LLMEngine._error_reports.append(tb[-800:])
                 del LLMEngine._error_reports[:-50]
+                _obs.record_scheduler_error()
                 self._stopped_on_error = True
                 self._running = False
                 self._release_all(_Finish("error"))
@@ -463,48 +666,68 @@ class LLMEngine:
                 time.sleep(0.002)
 
     def _release_all(self, marker: _Finish) -> None:
+        self._inflight.clear()
+        self._pending_harvest.clear()
+        self._device_tokens = None
+        self._last_dispatch_at = None
         for entry in self.policy.drain():
             self.admission.release(entry)
             self._finish_stream(entry.payload, marker)
         for slot in self.slots:
             if not slot.free:
                 req = slot.request
-                if slot.prefill is not None:
+                if slot.prefill is not None or slot.pending_first:
                     self._unwind_slot(slot)  # partial KV: never shared
                 else:
-                    self._release_slot(slot)
+                    self._release_slot_pages(slot)
                 self._finish_stream(req, marker)
 
-    def _release_slot(self, slot: _Slot) -> None:
-        """Return a finished slot's pages: trie pages keep their (valid) KV
-        cached, the rest go back to the allocator."""
+    def _release_slot_pages(self, slot: _Slot) -> None:
+        """Return a finished slot's pages (its occupancy charged to its
+        tenant first): trie pages keep their valid KV cached, the rest go
+        back to the allocator; the slot is free after."""
+        self._charge_slot_usage(slot)
         if self.prefix_cache is not None:
             self.prefix_cache.release(slot.trie_pages)
             self.cache.allocator.free(slot.private_pages)
         else:
             self.cache.allocator.free(slot.pages)
-        slot.pages, slot.trie_pages, slot.private_pages = [], [], []
-        slot.prefill = None
-        slot.request = None
+        self._clear_slot(slot)
 
     def _unwind_slot(self, slot: _Slot) -> None:
-        """:meth:`_release_slot` for a slot whose pages never received valid
-        KV (abort, deadline or failure mid-prefill): its trie pages are
-        invalidated, so no later request shares them, unless another live
-        request holds them; what the slot owns alone is freed."""
+        """:meth:`_release_slot_pages` for a slot whose pages never received
+        valid KV (abort, deadline or failure mid-prefill or before its first
+        token was harvested): its trie pages are invalidated, so no later
+        request shares them, unless another live request holds them; what
+        the slot owns alone is freed."""
+        self._charge_slot_usage(slot)
         pc = self.prefix_cache
         if pc is not None:
             pc.invalidate(slot.trie_pages)
             self.cache.allocator.free(slot.private_pages + [p for p in slot.trie_pages if p not in pc._by_page])
         else:
             self.cache.allocator.free(slot.pages)
+        self._clear_slot(slot)
+
+    @staticmethod
+    def _clear_slot(slot: _Slot) -> None:
         slot.pages, slot.trie_pages, slot.private_pages = [], [], []
         slot.prefill = None
+        slot.pending_first = False
+        slot.fresh = False
         slot.request = None
 
+    def _charge_slot_usage(self, slot: _Slot) -> None:
+        """Charge the ending tenancy's occupancy interval (device-seconds and
+        KV page-seconds) to its tenant, once."""
+        req = slot.request
+        if req is not None and slot.claimed_at > 0:
+            self.usage.note_slot_release(req, pages=len(slot.pages), held_s=self._clock() - slot.claimed_at)
+        slot.claimed_at = 0.0
+
     def _fail_slot(self, slot: _Slot, req: Request) -> None:
-        """A prefill that failed: unwind the slot's claim and finish the
-        caller with "error"."""
+        """A prefill that failed after its dispatch: unwind the slot's claim
+        and finish the caller with "error"."""
         self._unwind_slot(slot)
         self._finish_stream(req, _Finish("error"))
 
@@ -513,6 +736,8 @@ class LLMEngine:
         prefill group, its slot installed or not."""
         for slot_idx, req, claim in chunk:
             slot = self.slots[slot_idx]
+            slot.request = req
+            slot.claimed_at = 0.0  # as the JAX engine: a failed group charges no occupancy
             slot.pages, slot.trie_pages, slot.private_pages = claim["pages"], claim["trie_pages"], claim["private_pages"]
             self._fail_slot(slot, req)
 
@@ -528,25 +753,49 @@ class LLMEngine:
             self._deliver_finish(req, marker)
 
     def _deliver_finish(self, req: Request, marker: _Finish) -> None:
+        """The terminal delivery: close the request's trace (sweeping its
+        open spans), journal its usage record, then release the caller."""
+        _rt.finish_request(req, marker.reason, store=self._trace_store)
+        self.usage.note_finish(req, marker.reason)
         req.out_queue.put(marker)
+
+    def _close_queue_span(self, req: Request) -> None:
+        """Close the admission-queue span when the scheduler pops the request
+        for a slot (terminal paths sweep it instead)."""
+        sp = req.queue_span
+        if sp is not None:
+            req.queue_span = None
+            _rt.finish(req.trace, sp, store=self._trace_store, wait_s=round(max(0.0, time.time() - sp.start), 6))
 
     def _ensure_detok(self) -> DetokWorker:
         """The detokenization worker, created (or replaced, if it died) on
-        demand; owned streams re-register from ``req.emitted_len``."""
+        demand; owned streams re-register from ``req.emitted_len``. It
+        detokenizes only: it launches nothing on the card."""
         w = self._detok
         if w is None or not w.alive:
             w = self._detok = DetokWorker(
                 tokenizer=self.tokenizer, deliver=self._deliver_finish,
-                safe_len=_stop_safe_len, unstable_tail=_unstable_tail,
+                safe_len=_stop_safe_len, unstable_tail=_unstable_tail, name=self.trace_name,
             )
         return w
 
     def step(self) -> bool:
         """One scheduler tick: expire deadlines -> admit + prefill -> reap
-        aborts and run one decode block."""
+        aborts, dispatch a decode block, harvest parked first tokens, read
+        the oldest block. With the profiler on, the tick's host time is
+        partitioned into ``catalog.TICK_PHASES``; idle ticks record nothing."""
+        prof = self.profiler
+        tick = None if prof is None else prof.begin_tick()
+        self._tick = tick
         self._expire_deadlines()
+        _tm(tick, "policy")
         admitted = self._admit()
         decoded = self._decode_tick()
+        self._refresh_gauges()
+        _tm(tick, "policy")
+        if tick is not None:
+            self._tick = None
+            prof.end_tick(tick, worked=admitted or decoded)
         return admitted or decoded
 
     def _expire_deadlines(self) -> None:
@@ -557,26 +806,76 @@ class LLMEngine:
         for entry in self.policy.expired(now):
             self.admission.release(entry)
             entry.payload.deadline_expired = True
+            _obs.record_deadline_miss("queued")
             self._finish_stream(entry.payload, _Finish("deadline"))
         for s in self.slots:
             req = s.request
             if req is not None and req.deadline is not None and not req.aborted and now >= req.deadline:
                 req.deadline_expired = True
                 req.aborted = True
+                _obs.record_deadline_miss("prefill" if s.prefill is not None or s.pending_first else "inflight")
+
+    def _refresh_gauges(self) -> None:
+        """Engine-load, queue, page and prefix-cache gauges, the macro-step
+        gauges, and the token-counter and usage deltas, at most every 0.25 s
+        of wall time."""
+        now = time.monotonic()
+        if now - self._metrics_wall < 0.25:
+            return
+        self._metrics_wall = now
+        depths = self.policy.depths()
+        _obs.set_engine_gauges(
+            waiting=sum(depths.values()), active_slots=sum(1 for s in self.slots if not s.free),
+            tokens_per_second=self.stats.tokens_per_second(),
+        )
+        _obs.set_sched_queue_depths(depths)
+        occ = self.cache.occupancy()
+        _obs.set_kv_occupancy(used=occ["pages_used"], free=occ["pages_free"], total_usable=occ["pages_total"])
+        _obs.set_kv_cache_bytes(occ["bytes_total"], self.cache.kv_dtype)
+        if self.prefix_cache is not None:
+            _obs.set_prefix_cache_pages(self.prefix_cache.cached_pages)
+        _obs.set_prefill_backlog(sum(
+            max(0, len(s.request.prompt_tokens) - s.prefill.offset)
+            for s in self.slots if s.prefill is not None and s.request is not None
+        ))
+        d = self._ms_dispatches - self._ms_flush["dispatches"]
+        if d > 0:
+            self._ms_tpd = (self._ms_tokens - self._ms_flush["tokens"]) / d
+            self._ms_flush = {"dispatches": self._ms_dispatches, "tokens": self._ms_tokens}
+        _obs.set_multistep_gauges(
+            decode_steps=max(1, int(self.decode_steps)), tokens_per_dispatch=self._ms_tpd,
+            detok_queue_depth=self._detok.queue_depth() if self._detok is not None else 0,
+        )
+        self._flush_token_counters()
+        self.usage.flush()
+
+    def _flush_token_counters(self) -> None:
+        """Push the stats deltas since the last flush into the token counters
+        (also from ``stop()``, so the last window reaches the registry)."""
+        s, last = self.stats, self._counter_flush
+        _obs.record_token_totals(
+            prompt=s.prompt_tokens - last["prompt"], generated=s.generated_tokens - last["generated"],
+            steps=s.steps - last["steps"],
+        )
+        self._counter_flush = {"prompt": s.prompt_tokens, "generated": s.generated_tokens, "steps": s.steps}
 
     # -- admission and prefill ------------------------------------------------
 
     def _admit(self) -> bool:
-        """Claim slots and pages for policy-ordered requests, then prefill:
-        bucketed prompts in batches of ``prefill_batch``, longer ones as
-        sliced prefills. Under ``prefill_budget`` sliced prefills in flight
-        resume first, then entries convert while budget remains (a short
-        prompt charges its length up front, a long one per chunk); the rest
-        go back to the front of their queues, reservations kept."""
+        """Claim slots and pages for policy-ordered requests, then dispatch
+        their prefills: bucketed prompts in batches of ``prefill_batch``,
+        longer ones as sliced prefills. Under ``prefill_budget`` sliced
+        prefills in flight resume first, then entries convert while budget
+        remains (a short prompt charges its length up front, a long one per
+        chunk); the rest go back to the front of their queues, reservations
+        kept. Every first token is parked for ``_harvest_prefills``."""
+        tick = self._tick
         budget = self.prefill_budget or None  # None: unlimited
         spent = self._advance_pending_prefills(budget, 0)
+        _tm(tick, "prefill_resume")
         free = [i for i, s in enumerate(self.slots) if s.free]
         entries = self.policy.next_batch(len(free)) if free and (budget is None or spent < budget) else []
+        now = self._clock()
         assigned: list[tuple[int, Request, dict]] = []
         for pos, entry in enumerate(entries):
             req = entry.payload
@@ -598,9 +897,12 @@ class LLMEngine:
                 req.sched_entry = entry
                 self.policy.requeue(entries[pos:])
                 break
+            _obs.record_sched_queue_wait(entry.priority, max(0.0, now - entry.enqueued_at))
+            self._close_queue_span(req)
             assigned.append((free[len(assigned)], req, claim))
             if claim["n_prompt"] <= self.prefill_buckets[-1]:
                 spent += claim["n_prompt"]  # bucketed prompts prefill at once
+        _tm(tick, "admit")
         by_bucket: dict[int, list] = {}
         long_ones = []
         for a in assigned:
@@ -619,10 +921,16 @@ class LLMEngine:
                     traceback.print_exc()
                     self._fail_claims(chunk)
         for a in long_ones:
-            self._prefill_long(*a)
+            try:
+                self._prefill_long(*a)
+            except Exception:
+                traceback.print_exc()
+                self._fail_claims([a])
+        _tm(tick, "prefill_dispatch")
         if long_ones:
             # new long prompts advance with what is left of the budget
             spent = self._advance_pending_prefills(budget, spent)
+            _tm(tick, "prefill_resume")
         return bool(assigned) or spent > 0
 
     def _claim_pages(self, req: Request) -> dict | None:
@@ -661,28 +969,32 @@ class LLMEngine:
         return {"pages": pages, "trie_pages": trie_pages, "private_pages": private_pages, "n_prompt": n_prompt}
 
     def _install(self, slot_idx: int, req: Request, claim: dict) -> np.ndarray:
+        """Put ``req`` in a slot under a new tenancy; returns its page-table row."""
         slot = self.slots[slot_idx]
         slot.request = req
+        self._tenancy_seq += 1
+        slot.tenancy = self._tenancy_seq
+        slot.claimed_at = self._clock()
         slot.pages = claim["pages"]
         slot.trie_pages = claim["trie_pages"]
         slot.private_pages = claim["private_pages"]
         slot.generated = req.generated_tokens  # the request's own history
-        slot.emitted_text_len = 0
+        slot.emitted_text_len = req.emitted_len
         slot.prefill = None
-        table = np.zeros((self.pages_per_slot,), np.int32)
+        slot.pending_first = False
+        slot.fresh = False
+        table = np.zeros((self.pages_per_slot,), np.int32)  # past the claim: trash page 0
         table[: len(slot.pages)] = slot.pages
         self._page_tables[slot_idx] = table
         return table
 
-    def _start_decoding(self, slot_idx: int, first_token: int) -> None:
-        slot = self.slots[slot_idx]
-        slot.position = len(slot.request.prompt_tokens)
-        slot.last_token = first_token
-        self._accept_token(slot_idx, first_token)
-
     def _prefill_group(self, bucket: int, group: list) -> None:
         """One batched prefill of up to ``prefill_batch`` prompts padded to
-        ``bucket`` (pad rows target the trash page), then the first tokens."""
+        ``bucket`` (pad rows target the trash page) and its first tokens'
+        sampling, dispatched; the first tokens are parked for the harvest."""
+        t_start, t_wall = time.monotonic(), time.time()
+        for _slot_idx, req, _claim in group:
+            _obs.record_engine_queue_wait(t_start - req.created)
         B = self.prefill_batch
         pad_tok = self.tokenizer.pad_id % self.cfg.vocab_size
         tokens = np.full((B, bucket), pad_tok, np.int32)
@@ -692,6 +1004,7 @@ class LLMEngine:
         top_ps = np.ones((B,), np.float32)
         top_ks = np.zeros((B,), np.int32)
         seeds = np.full((B,), -1, np.int32)
+        start = _mark(self.device)
         for i, (slot_idx, req, claim) in enumerate(group):
             tables[i] = self._install(slot_idx, req, claim)
             n = len(req.prompt_tokens)
@@ -700,25 +1013,32 @@ class LLMEngine:
             p = req.params
             temps[i], top_ps[i], top_ks[i] = p.temperature, p.top_p, p.top_k
             seeds[i] = _req_seed(req)
+        tok_d, tables_d, lens_d, temps_d, top_ps_d, top_ks_d, seeds_d = self._stage(
+            tokens, tables, seq_lens, temps, top_ps, top_ks, seeds)
         logits, _, _ = llama.prefill(
-            self.params, self._dev(tokens), self.cache.k_pages, self.cache.v_pages,
-            self._dev(tables), self._dev(seq_lens), self.cfg,
+            self.params, tok_d, self.cache.k_pages, self.cache.v_pages, tables_d, lens_d, self.cfg,
         )
         first = sample(
-            logits, self._next_key(), self._dev(temps), self._dev(top_ps), self._dev(top_ks),
-            seeds=self._dev(seeds), step_ids=self._dev(seq_lens),
+            logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=lens_d,
             needs_filter=bool(((top_ps < 1.0) | (top_ks > 0)).any()),
-        ).cpu().numpy()
-        for i, (slot_idx, _req, _claim) in enumerate(group):
-            self._start_decoding(slot_idx, int(first[i]))
+        )
+        rows = []
+        for i, (slot_idx, req, claim) in enumerate(group):
+            self.slots[slot_idx].pending_first = True
+            rows.append((slot_idx, req, i, claim["n_prompt"], self.slots[slot_idx].tenancy))
+        self._pending_harvest.append(
+            (_Landing(first, start), rows,
+             {"phase": "prefill", "t_start": t_start, "t_wall": t_wall, "bucket": bucket}))
 
     def _prefill_long(self, slot_idx: int, req: Request, claim: dict) -> None:
         """Install a prompt longer than the largest bucket as a sliced
         prefill: :meth:`_advance_pending_prefills` runs its bucket-sized
         chunks through ``prefill_chunk``, each attending to the pages written
         before it."""
+        t_start = time.monotonic()
+        _obs.record_engine_queue_wait(t_start - req.created)
         table = self._install(slot_idx, req, claim)
-        self.slots[slot_idx].prefill = _PendingPrefill(req=req, table=table)
+        self.slots[slot_idx].prefill = _PendingPrefill(req=req, table=table, t_start=t_start, t_wall=time.time())
 
     def _advance_pending_prefills(self, budget: int | None, spent: int) -> int:
         """Dispatch sliced prefills' chunks, slots in index order, until
@@ -728,13 +1048,16 @@ class LLMEngine:
         C = self.prefill_buckets[-1]
         for i, s in enumerate(self.slots):
             pp = s.prefill
-            if pp is None or s.request.aborted:
+            if pp is None or s.request is None or s.request.aborted:
                 continue  # aborted mid-prefill: the decode tick's reap unwinds it
             n_prompt = len(pp.req.prompt_tokens)
             advanced = False
             try:
                 while pp.offset < n_prompt and (budget is None or spent == 0 or spent < budget):
+                    start = _mark(self.device)
                     pp.logits = self._dispatch_prefill_chunk(pp.req.prompt_tokens, pp.table, pp.offset)
+                    if start is not None:
+                        pp.spans.append((start, _mark(self.device)))
                     step = min(C, n_prompt - pp.offset)
                     pp.offset += step
                     spent += step
@@ -747,164 +1070,318 @@ class LLMEngine:
                     # paused mid-prompt: the next decode block runs between its chunks
                     pp.suspensions += 1
                     self.stats.prefill_suspensions += 1
+                    _obs.record_prefill_sliced()
             except Exception:
                 traceback.print_exc()
                 self._fail_slot(s, s.request)
         return spent
 
     def _dispatch_prefill_chunk(self, prompt_tokens: list, table: np.ndarray, offset: int) -> torch.Tensor:
-        """One bucket-sized chunk at ``offset``; returns its last-token logits."""
+        """One bucket-sized chunk at ``offset``, dispatched; returns its
+        last-token logits (on the device)."""
         C = self.prefill_buckets[-1]
         chunk = prompt_tokens[offset : offset + C]
         toks = np.full((1, C), self.tokenizer.pad_id % self.cfg.vocab_size, np.int32)
         toks[0, : len(chunk)] = chunk
+        toks_d, table_d, len_d = self._stage(toks, table[None, :], np.array([len(chunk)], np.int32))
         logits, _, _ = llama.prefill_chunk(
-            self.params, self._dev(toks), self.cache.k_pages, self.cache.v_pages,
-            self._dev(table[None, :]), self._dev([len(chunk)], torch.int32), self.cfg, q_offset=offset,
+            self.params, toks_d, self.cache.k_pages, self.cache.v_pages, table_d, len_d, self.cfg, q_offset=offset,
         )
         return logits
 
     def _finish_sliced_prefill(self, slot_idx: int, pp: _PendingPrefill) -> None:
-        """Every chunk landed: sample the first token (keyed by seed and
-        position, so slicing cannot change it), read it and start decoding."""
+        """Every chunk dispatched: sample the first token (keyed by seed and
+        position, so slicing cannot change it) and park it for the harvest."""
         req, p = pp.req, pp.req.params
         n_prompt = len(req.prompt_tokens)
+        start = _mark(self.device)
+        temps_d, top_ps_d, top_ks_d, seeds_d, step_d = self._stage(
+            np.array([p.temperature], np.float32), np.array([p.top_p], np.float32), np.array([p.top_k], np.int32),
+            np.array([_req_seed(req)], np.int32), np.array([n_prompt], np.int32),
+        )
         first = sample(
-            pp.logits, self._next_key(), self._dev([p.temperature], torch.float32),
-            self._dev([p.top_p], torch.float32), self._dev([p.top_k], torch.int32),
-            seeds=self._dev([_req_seed(req)], torch.int32), step_ids=self._dev([n_prompt], torch.int32),
+            pp.logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=step_d,
             needs_filter=p.top_p < 1.0 or p.top_k > 0,
         )
-        self.slots[slot_idx].prefill = None
-        self._start_decoding(slot_idx, int(first.cpu()[0]))
+        slot = self.slots[slot_idx]
+        slot.prefill = None
+        slot.pending_first = True
+        self._pending_harvest.append((
+            _Landing(first, start, pp.spans),
+            [(slot_idx, req, 0, n_prompt, slot.tenancy)],
+            {"phase": "prefill_chunked", "t_start": pp.t_start, "t_wall": pp.t_wall,
+             "chunks": -(-n_prompt // self.prefill_buckets[-1]), "ticks": pp.ticks},
+        ))
+
+    def _harvest_prefills(self) -> bool:
+        """Read the parked first tokens (after the decode dispatch, so the
+        reads overlap the block just queued) and light their slots up through
+        the override lane. Slots recycled or aborted while the prefill was in
+        flight are skipped by (request, tenancy); a prefill that failed on the
+        device unwinds every slot it still owns."""
+        tick = self._tick
+        worked = False
+        while self._pending_harvest:
+            landing, rows, meta = self._pending_harvest.popleft()
+            u_start = self._clock()
+            try:
+                first = landing.numpy()  # the prefill's one blocking read
+                _tm_device(tick, "harvest")
+            except Exception:
+                traceback.print_exc()
+                for slot_idx, req, _row, _n, tenancy in rows:
+                    s = self.slots[slot_idx]
+                    if s.request is req and s.tenancy == tenancy:
+                        self._fail_slot(s, req)
+                continue
+            _obs.record_engine_phase(meta["phase"], time.monotonic() - meta["t_start"])
+            # the card's span of the prefill; on the CPU the read on the engine's clock
+            secs = landing.device_seconds()
+            self.usage.note_phase_seconds("prefill", self._clock() - u_start if secs is None else secs)
+            u_calls = 1  # batched admissions share one weight stream
+            for slot_idx, req, row, n_prompt, tenancy in rows:
+                s = self.slots[slot_idx]
+                if s.request is not req or s.tenancy != tenancy or req.aborted:
+                    continue  # recycled or aborted in flight: the reap owns the unwind
+                s.pending_first = False
+                self.stats.prompt_tokens += n_prompt
+                self.usage.note_prompt(req, n_prompt, calls=u_calls)
+                u_calls = 0
+                s.position = n_prompt
+                s.last_token = int(first[row])
+                s.fresh = True
+                worked = True
+                if meta["phase"] == "prefill_chunked":
+                    sliced = meta["ticks"] > 1
+                    _rt.record_span(
+                        req.trace, "prefill", start=meta["t_wall"], store=self._trace_store,
+                        replica=self.trace_name, n_prompt=n_prompt, chunked=True, chunks=meta["chunks"],
+                        sliced=sliced, budget=self.prefill_budget,
+                    )
+                    if sliced:
+                        _rt.record_span(
+                            req.trace, "prefill_wait", start=meta["t_wall"], store=self._trace_store,
+                            replica=self.trace_name, ticks=meta["ticks"], chunks=meta["chunks"],
+                        )
+                else:
+                    _rt.record_span(
+                        req.trace, "prefill", start=meta["t_wall"], store=self._trace_store,
+                        replica=self.trace_name, n_prompt=n_prompt, bucket=meta["bucket"],
+                    )
+                req.decode_span = _rt.begin(req.trace, "decode", replica=self.trace_name, spec_mode="-")
+                self._accept_token(slot_idx, s.last_token)
+            _tm(tick, "accept")
+        return worked
 
     # -- decode -----------------------------------------------------------------
 
-    def _reap_aborted(self) -> None:
-        """Free the slots of aborted requests (deadline-expired ones finish
-        with "deadline"); a slot aborted mid-prefill unwinds its claim."""
-        for slot in self.slots:
-            if not slot.free and slot.request.aborted:
-                req = slot.request
-                if slot.prefill is not None:
-                    self._unwind_slot(slot)
-                else:
-                    self._release_slot(slot)
-                self._finish_stream(req, _Finish("deadline") if req.deadline_expired else _FINISH)
-
     def _decode_tick(self) -> bool:
-        """One decode block over the live slots: up to ``decode_block`` steps,
-        each slot stopping at its host-known step budget, then one read of the
-        block's tokens and their acceptance. With ``decode_steps`` N > 1 the
-        macro-step program runs instead (lanes also die at their stop token
-        on the device) and :meth:`_harvest` accepts its valid rows."""
-        self._reap_aborted()
+        """Reap aborted slots, dispatch a decode block over the decodable
+        ones, harvest the parked first tokens, and read the oldest block when
+        two are in flight or none is decodable."""
+        tick = self._tick
+        for s in self.slots:
+            if not s.free and s.request.aborted:
+                req = s.request
+                if s.prefill is not None or s.pending_first:
+                    self._unwind_slot(s)  # partial KV, or never harvested
+                else:
+                    self._release_slot_pages(s)
+                self._finish_stream(req, _Finish("deadline") if req.deadline_expired else _FINISH)
+        _tm(tick, "policy")
         live = [i for i, s in enumerate(self.slots) if s.decodable]
-        if not live:
-            return False
+        worked = False
+        if live:
+            self._dispatch_block(live)
+            worked = True
+        else:
+            # no decodable slot: a dispatch gap from here on is idleness or
+            # prefill, not a stall of running streams
+            self._last_dispatch_at = None
+        worked = self._harvest_prefills() or worked
+        if self._inflight and (len(self._inflight) >= 2 or not live):
+            worked = self._process_block() or worked
+        return worked
+
+    def _dispatch_block(self, live: list[int]) -> None:
+        """Queue one decode block over ``live`` at the slots' optimistic
+        positions and return before it runs: ``decode_block`` steps, or at
+        ``decode_steps`` N > 1 the macro-step program with per-slot budgets
+        counted from the optimistic positions (the tokens each slot would
+        still accept). Either runs no more steps than the largest budget:
+        the JAX engine runs the rows past it too, which the host drops. A
+        slot that finishes while the block still decodes it writes only its
+        own pages (past its claim, the trash page); a prefill that reuses
+        those pages is queued behind the block on the same stream. The snapshot pins (slot, request,
+        tenancy), so the host drops the rows of a recycled slot."""
+        tick = self._tick
         t0 = time.monotonic()
+        if self._last_dispatch_at is not None:
+            # dispatch-to-dispatch gap while decodable slots existed
+            _obs.record_decode_stall(t0 - self._last_dispatch_at)
+        self._last_dispatch_at = t0
+        _obs.record_engine_batch(len(live))
         S = self.max_slots
-        tokens = np.zeros((S,), np.int32)
-        positions = np.zeros((S,), np.int64)
-        budgets = np.zeros((S,), np.int64)
-        temps = np.ones((S,), np.float32)
+        active = np.zeros((S,), bool)
+        override_mask = np.zeros((S,), bool)
+        temps = np.ones((S,), np.float32)  # dead slots: the no-filter defaults
         top_ps = np.ones((S,), np.float32)
         top_ks = np.zeros((S,), np.int32)
         seeds = np.full((S,), -1, np.int32)
-        snapshot = []
+        budgets = np.ones((S,), np.int32)
         for i in live:
             s = self.slots[i]
+            active[i] = True
+            if s.fresh:
+                # the first token is host-known; continuing slots feed the
+                # previous block's device-resident token
+                self._override[i] = s.last_token
+                override_mask[i] = True
+                self._opt_positions[i] = s.position
+                s.fresh = False
             p = s.request.params
-            tokens[i] = s.last_token
-            positions[i] = s.position
-            budgets[i] = max(1, min(p.max_tokens - len(s.generated), self.max_model_len - 1 - s.position))
             temps[i], top_ps[i], top_ks[i] = p.temperature, p.top_p, p.top_k
             seeds[i] = _req_seed(s.request)
-            snapshot.append((i, s.request))
-        key = self._next_key()
-        tok = self._dev(tokens)
-        pos = self._dev(positions)
-        tables = self._dev(self._page_tables)
-        temps_d, top_ps_d, top_ks_d, seeds_d = (self._dev(a) for a in (temps, top_ps, top_ks, seeds))
+            # remaining max_tokens (counting tokens still in flight) and
+            # remaining context, from the optimistic position
+            g_opt = len(s.generated) + (int(self._opt_positions[i]) - s.position)
+            budgets[i] = max(1, min(s.request.params.max_tokens - g_opt,
+                                    (self.max_model_len - 1) - int(self._opt_positions[i])))
         needs_filter = bool(((top_ps < 1.0) | (top_ks > 0)).any())
         n = max(1, int(self.decode_steps))  # runtime-mutable: read once
-        if n > 1:
-            live_mask = np.zeros((S,), bool)
-            live_mask[live] = True
+        nominal = self.decode_block if n <= 1 else n
+        # the rows past every slot's budget would all be dropped by the host:
+        # they are not dispatched (the JAX engine runs them)
+        n_run = min(nominal, int(budgets[live].max()))
+        prev = self._device_tokens
+        if prev is None:
+            prev = torch.zeros((S,), dtype=torch.int32, device=self.device)
+        key = self._next_key()
+        start = _mark(self.device)
+        if n <= 1:
+            args = self._stage(self._override, override_mask, self._opt_positions, self._page_tables, active,
+                               temps, top_ps, top_ks, seeds)
+            toks, last = self._decode_block_fn(prev, *args[:5], key, *args[5:], n_run=n_run,
+                                               needs_filter=needs_filter)
+            landing, macro = _Landing(toks, start), False
+        else:
+            override, mask_d, pos_d, tables_d, active_d, temps_d, top_ps_d, top_ks_d, seeds_d, budgets_d = (
+                self._stage(self._override, override_mask, self._opt_positions, self._page_tables, active,
+                            temps, top_ps, top_ks, seeds, budgets))
             multistep = build_multistep_fn(
                 self.cfg, paged_impl=self.paged_impl, scatter_impl=self.scatter_impl,
                 eos_id=self.tokenizer.eos_id, n_steps=n,
             )
-            toks, valid, _last = multistep(
-                self.params, self.cache.k_pages, self.cache.v_pages, tok, pos, tables, self._dev(live_mask), key,
-                temps_d, top_ps_d, top_ks_d, seeds_d, self._dev(budgets), needs_filter=needs_filter,
+            toks, valid, last = multistep(
+                self.params, self.cache.k_pages, self.cache.v_pages, prev, override, mask_d, pos_d, tables_d,
+                active_d, key, temps_d, top_ps_d, top_ks_d, seeds_d, budgets_d, n_run=n_run,
+                needs_filter=needs_filter,
             )
-            self._harvest(torch.stack([toks, valid.to(toks.dtype)]).cpu().numpy(), snapshot)  # the one host read
-            self.stats.decode_seconds += time.monotonic() - t0
-            return True
-        n_steps = int(min(self.decode_block, budgets.max()))
+            landing, macro = _Landing(torch.stack([toks, valid.to(toks.dtype)]), start), True
+        self._device_tokens = last
+        snapshot = [(i, self.slots[i].request, self.slots[i].tenancy) for i in live]
+        self._inflight.append((landing, macro, snapshot, (n_run, nominal)))
+        for i in live:
+            self._opt_positions[i] += n_run
+        self.stats.decode_seconds += time.monotonic() - t0
+        _tm(tick, "decode_dispatch")
+
+    def _decode_block_fn(self, prev, override, override_mask, positions, tables, active, key, temps, top_ps,
+                         top_ks, seeds, *, n_run: int, needs_filter: bool):
+        """The first ``n_run`` of a block's ``decode_block`` decode+sample
+        steps over every slot (step keys as for the whole block); tokens feed
+        forward on the device (a fresh slot's first token through the
+        override lane). Returns (tokens [n_run, B], last [B])."""
+        tok = torch.where(override_mask, override, prev)
+        pos = positions
         step_keys = split(key, self.decode_block)
-        steps_out = []
-        for k in range(n_steps):
-            active = self._dev(budgets > k)
+        out = []
+        for k in range(n_run):
             logits, _, _ = llama.decode_step(
                 self.params, tok, pos, self.cache.k_pages, self.cache.v_pages, tables, active, self.cfg,
                 impl=self.paged_impl, scatter_impl=self.scatter_impl,
             )
-            nxt = sample(
-                logits, step_keys[k], temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=pos,
-                needs_filter=needs_filter,
-            )
-            tok = torch.where(active, nxt, tok)  # inactive slots hold their token
-            steps_out.append(tok)
+            nxt = sample(logits, step_keys[k], temps, top_ps, top_ks, seeds=seeds, step_ids=pos,
+                         needs_filter=needs_filter)
+            tok = torch.where(active, nxt, tok)  # dead slots hold steady
+            out.append(tok)
             pos = pos + 1
-        toks = torch.stack(steps_out).cpu().numpy()  # the block's one host read
-        self.stats.steps += n_steps
-        accepted = 0
-        for i, req in snapshot:
-            s = self.slots[i]
-            for k in range(min(n_steps, int(budgets[i]))):
-                if s.request is not req:
-                    break  # finished mid-block
-                s.position += 1
-                s.last_token = int(toks[k, i])
-                self._accept_token(i, s.last_token)
-                accepted += 1
-        self.stats.decode_tokens += accepted
-        self.stats.decode_seconds += time.monotonic() - t0
-        return True
+        return torch.stack(out), tok
 
-    def _harvest(self, toks_valid: np.ndarray, snapshot: list) -> None:
-        """Accept a macro-step's tokens: ``toks_valid`` [2, N, B] holds the
-        tokens and their validity. Each slot takes its valid prefix and stops
-        at the first invalid row (its lane died on the device at its stop
-        token or budget); only steps with a valid row ran."""
-        toks, valid = toks_valid[0], toks_valid[1].astype(bool)
-        self.stats.steps += int(valid.any(axis=1).sum())
+    def _process_block(self) -> bool:
+        """Read the oldest block in flight (its one blocking read) and accept
+        each slot's rows: all of a block's, a macro-step's valid prefix, up
+        to the slot's finish. Rows of slots finished, recycled or aborted
+        since the dispatch are dropped."""
+        tick = self._tick
+        landing, macro, snapshot, (n_steps, nominal) = self._inflight.popleft()
+        t_wait = time.monotonic()
+        u_start = self._clock()
+        out = landing.numpy()
+        _obs.record_engine_phase("decode_wait", time.monotonic() - t_wait)
+        # the card's span of the block; on the CPU the read on the engine's clock
+        secs = landing.device_seconds()
+        self.usage.note_phase_seconds("decode", self._clock() - u_start if secs is None else secs)
+        _tm_device(tick, "harvest")
+        toks, valid = (out[0], out[1].astype(bool)) if macro else (out, None)
+        # a macro-step's rows with no valid lane ran no live step: count the truth
+        executed = n_steps if valid is None else int(valid.any(axis=1).sum())
+        self.stats.steps += executed
+        self.usage.note_decode_steps(executed)
+        worked = False
         accepted = 0
-        for i, req in snapshot:
+        for i, req, tenancy in snapshot:
             s = self.slots[i]
-            if s.request is not req or req.aborted:
-                continue  # finished or aborted while the macro-step ran
-            for k in range(toks.shape[0]):
-                if s.request is not req or not valid[k, i]:
-                    break
+            if s.request is not req or s.tenancy != tenancy or req.aborted:
+                continue  # finished or recycled while the block was in flight
+            taken = 0
+            for k in range(n_steps):
+                if s.request is not req or s.tenancy != tenancy:
+                    break  # finished mid-block
+                if valid is not None and not valid[k, i]:
+                    break  # the lane died on the device: the tail rows are holds
                 s.position += 1
                 s.last_token = int(toks[k, i])
                 self._accept_token(i, s.last_token)
-                accepted += 1
+                taken += 1
+                worked = True
+            accepted += taken
+            if valid is not None and taken < n_steps and s.request is req and s.tenancy == tenancy:
+                # the device retired the lane but the host did not finish the
+                # request: resync through the override lane
+                s.fresh = True
+        self._ms_dispatches += 1
+        self._ms_tokens += accepted
+        # steps saved against the nominal block: the rows not dispatched and,
+        # at N > 1, those whose lanes had all died on the device
+        _obs.record_multistep_dispatch(tokens=accepted, steps_saved=nominal - executed)
+        if self.profiler is not None:
+            self.profiler.note_dispatch_tokens(accepted, steps=int(self.decode_steps))
         self.stats.decode_tokens += accepted
+        self.stats.decode_seconds += time.monotonic() - t_wait
+        _tm(tick, "accept")
+        return worked
 
     def _accept_token(self, slot_idx: int, token: int) -> None:
-        """Book one sampled token: eos / max_tokens / model-length finish,
-        then the text: on the detok worker while ``decode_steps > 1`` (or for
-        a stream it already owns), else inline (incremental detokenization
-        with stop strings and hold-back). The slot and pages are released
-        before the finish marker."""
+        """Book one sampled token: the counters, TTFT/TPOT, eos / max_tokens /
+        model-length finish, then the text: on the detok worker while
+        ``decode_steps > 1`` (or for a stream it already owns), else inline
+        (incremental detokenization with stop strings and hold-back). The
+        slot and pages are released before the finish marker."""
         slot = self.slots[slot_idx]
         req = slot.request
+        self.stats.generated_tokens += 1
+        self.usage.note_token(req, slot.position)
+        now = time.monotonic()
         if req.first_token_at is None:
-            req.first_token_at = time.monotonic()
+            req.first_token_at = now
+            if req.tenant != _CANARY_TENANT:
+                _obs.record_ttft(now - req.created)
+            if req.trace is not None:
+                req.trace.root.attrs["ttft_s"] = round(now - req.created, 6)
+        elif req.tenant != _CANARY_TENANT:
+            _obs.record_tpot(now - req.last_token_at)
+        req.last_token_at = now
         req.n_generated += 1
         finished, reason = False, None
         appended = token != self.tokenizer.eos_id
@@ -915,22 +1392,27 @@ class LLMEngine:
             if len(slot.generated) >= req.params.max_tokens or slot.position + 1 >= self.max_model_len:
                 finished, reason = True, "length"
         w = self._detok
+        tick = self._tick
         if self.decode_steps > 1 or (w is not None and w.owns(req)):
             if w is None or not w.alive:
                 w = self._ensure_detok()
             if w.alive:  # else the inline path below
+                _tm(tick, "accept")
                 if not w.owns(req):
                     prior = slot.generated[:-1] if appended else list(slot.generated)
                     w.register(req, prior, max(slot.emitted_text_len, req.emitted_len))
                 if appended:
                     w.feed(req, token)
+                _tm(tick, "detokenize")  # the enqueue: the decode runs off-thread
                 if finished:
                     # release BEFORE the marker is queued: the worker may
                     # deliver it, and wake the client, at once
-                    self._release_slot(slot)
+                    self._release_slot_pages(slot)
                     self._finish_stream(req, _Finish(reason))
                 return
+        _tm(tick, "accept")
         text = self.tokenizer.decode(slot.generated)
+        _tm(tick, "detokenize")
         for stop_s in req.params.stop:
             idx = text.find(stop_s)
             if idx >= 0:
@@ -942,9 +1424,10 @@ class LLMEngine:
         if new and (finished or not _unstable_tail(new)):
             req.out_queue.put(new)
             slot.emitted_text_len += len(new)
+            req.emitted_len = slot.emitted_text_len
         if finished:
             # a client woken by the marker must find the slot and pages freed
-            self._release_slot(slot)
+            self._release_slot_pages(slot)
             self._finish_stream(req, _Finish(reason))
 
 

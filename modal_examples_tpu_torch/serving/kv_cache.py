@@ -6,7 +6,10 @@ dead slots write) and ``PagedKVCache`` (``[L, P, page_size, Hkv, D]`` K and V
 pages: two tensors, or for ``kv_dtype="int8"`` two :class:`QuantizedKV`,
 four tensors in all). Each sequence claims its whole page budget at
 admission, so decode never runs out mid-flight. ``occupancy()`` is the
-snapshot admission control reads; the occupancy gauges are not ported yet.
+snapshot admission control and ``/metrics`` read (pages used, free and
+usable, the allocated fraction, and the bytes it pins); every ``alloc`` and
+``free`` refreshes the page gauges (``mtpu_kv_pages_used``,
+``mtpu_kv_pages_free``, ``mtpu_kv_page_occupancy``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import threading
 
 import torch
 
+from ..observability import metrics as _obs
 from ..ops.kv_quant import QuantizedKV, is_quantized, kv_dtype_name, kv_empty
 
 
@@ -24,27 +28,52 @@ class OutOfPages(RuntimeError):
 
 
 class PageAllocator:
-    """Thread-safe free list over physical page ids (page 0 is reserved)."""
+    """Thread-safe free list over physical page ids (page 0 is reserved).
 
-    def __init__(self, n_pages: int):
+    Every alloc and free refreshes the page gauges; allocators in one
+    process share them last-writer-wins, and ``track=False`` opts one out."""
+
+    def __init__(self, n_pages: int, *, track: bool = True):
         self.n_pages = n_pages
         self._free = list(range(n_pages - 1, 0, -1))  # pop() yields low ids first
         self._lock = threading.Lock()
+        self._track = track
+
+    def _emit_gauges_locked(self) -> None:
+        if not self._track:
+            return
+        usable = self.n_pages - 1  # page 0 is the reserved trash page
+        free = len(self._free)
+        _obs.set_kv_occupancy(used=usable - free, free=free, total_usable=usable)
 
     def alloc(self, n: int) -> list[int]:
         with self._lock:
             if n > len(self._free):
                 raise OutOfPages(f"need {n} pages, {len(self._free)} free")
-            return [self._free.pop() for _ in range(n)]
+            out = [self._free.pop() for _ in range(n)]
+            self._emit_gauges_locked()
+            return out
 
     def free(self, pages: list[int]) -> None:
         with self._lock:
             self._free.extend(p for p in pages if p != 0)
+            self._emit_gauges_locked()
 
     @property
     def available(self) -> int:
         with self._lock:
             return len(self._free)
+
+    @property
+    def used(self) -> int:
+        with self._lock:
+            return (self.n_pages - 1) - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        """Allocated fraction of the usable pool (0..1)."""
+        usable = self.n_pages - 1
+        return self.used / usable if usable > 0 else 0.0
 
 
 @dataclasses.dataclass
@@ -87,9 +116,20 @@ class PagedKVCache:
 
     def occupancy(self) -> dict:
         """Page-pool snapshot: used, free and usable pages (page 0 is the
-        trash page)."""
+        trash page), the allocated fraction, and the device bytes that
+        fraction pins (dtype-aware through :meth:`bytes`)."""
+        usable = self.n_pages - 1
         free = self.allocator.available
-        return {"pages_used": self.n_pages - 1 - free, "pages_free": free, "pages_total": self.n_pages - 1}
+        used = usable - free
+        bytes_per_page = self.bytes() // self.n_pages
+        return {
+            "pages_used": used,
+            "pages_free": free,
+            "pages_total": usable,
+            "occupancy": used / usable if usable > 0 else 0.0,
+            "bytes_used": used * bytes_per_page,
+            "bytes_total": self.bytes(),
+        }
 
     def pages_for(self, n_tokens: int) -> int:
         return (n_tokens + self.page_size - 1) // self.page_size

@@ -43,25 +43,32 @@ def resolve_decode_steps(arg: int | None = None) -> int:
 def build_multistep_fn(cfg, *, paged_impl: str, scatter_impl: str, eos_id: int, n_steps: int):
     """The N-step decode program for one engine config.
 
-    The returned function takes the JAX program's arguments less its
-    pipelined-dispatch override lane (the engine always feeds each slot's
-    last accepted token): ``(params, k_pages, v_pages, tokens, positions,
+    The returned function takes the JAX program's arguments: ``(params,
+    k_pages, v_pages, prev_tokens, override, override_mask, positions,
     page_tables, active, key, temps, top_ps, top_ks, seeds, budgets)``, plus
     ``needs_filter`` (whether any row has top_p < 1 or top_k > 0, known on
-    the host). ``budgets`` [B] is each slot's count of tokens the host would
+    the host). ``prev_tokens`` [B] is the previous dispatch's device-resident
+    last tokens; a freshly prefilled slot feeds its host-known first token
+    through the override lane (``override`` where ``override_mask``), as the
+    pipelined engine does. ``positions`` are the dispatch's optimistic
+    positions. ``budgets`` [B] is each slot's count of tokens the host would
     still accept. A lane dies when it samples ``eos_id`` or spends its
     budget; the token it dies on is still valid.
 
     Returns ``(toks [N, B], valid [N, B] bool, last [B])``; the pages are
     updated in place. ``valid[k, i]`` means lane ``i`` was live entering step
     ``k``; invalid rows are holds and must not be accepted. Step keys are
-    ``split(key, n_steps)``.
+    ``split(key, n_steps)``. ``n_run`` (at most ``n_steps``; None: all) runs
+    only the first ``n_run`` steps (the engine's choice where every budget
+    ends sooner) and returns their ``n_run`` rows, equal to the whole
+    program's first rows. Nothing in it reads the device from the host.
     """
 
     def multistep_fn(
-        params, k_pages, v_pages, tokens, positions, page_tables, active, key,
-        temps, top_ps, top_ks, seeds, budgets, *, needs_filter: bool | None = None,
+        params, k_pages, v_pages, prev_tokens, override, override_mask, positions, page_tables, active, key,
+        temps, top_ps, top_ks, seeds, budgets, *, n_run: int | None = None, needs_filter: bool | None = None,
     ):
+        tok0 = torch.where(override_mask, override, prev_tokens)
         taken0 = torch.zeros_like(budgets)
 
         def step(live, state, k_i):
@@ -83,7 +90,7 @@ def build_multistep_fn(cfg, *, paged_impl: str, scatter_impl: str, eos_id: int, 
             return state[0], live
 
         _live, state, (toks, valid) = masked_scan(
-            step, hold, active, (tokens, positions, taken0), split(key, n_steps)
+            step, hold, active, (tok0, positions, taken0), split(key, n_steps)[:n_run]
         )
         return toks, valid, state[0]
 

@@ -8,24 +8,37 @@ with ``Retry-After`` when admission sheds. A request's deadline is
 ``deadline_ms`` or the ``x-mtpu-deadline-ms`` header (the header wins), its
 priority class ``priority`` or ``x-mtpu-priority``, its tenant ``user`` or
 ``x-mtpu-tenant``; ``usage.prompt_tokens_details.cached_tokens`` counts the
-prompt tokens served from the prefix cache. Stdlib HTTP, a thread per
+prompt tokens served from the prefix cache. ``n > 1`` fans out one engine
+request per choice (seeded ``seed + i`` when a seed is given); a partial shed
+aborts the admitted siblings and answers 429, and ``n > 1`` with ``stream``
+is a 400. The request's trace opens at submit, and its id comes back as
+``x-mtpu-request-id`` on the 200, the stream and the 500. ``/metrics`` serves
+the catalog's hand-built lines from the engine's stats, then the port's
+registry exposition, never a name twice. Stdlib HTTP, a thread per
 connection; the engine's continuous batching does the multiplexing. Not in
-this slice: the router front, ``n > 1`` (a 400), images and ``/metrics``.
+this slice: the router front and images.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import re
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..observability import catalog as _C
+from ..observability import reqtrace as _rt
 from ..scheduling.admission import ShedError
 from ..scheduling.policy import DEFAULT_CLASS, validate_class
+from ..utils.prometheus import default_registry
 from .engine import LLMEngine
 from .sampling import SamplingParams
+
+_SERVER_ERROR = {"error": {"message": "engine error while processing the request", "type": "server_error"}}
 
 
 def _params_from_body(body: dict, headers=None) -> SamplingParams:
@@ -66,6 +79,44 @@ def _usage(req, n_prompt: int, n_out: int) -> dict:
     }
 
 
+def _metrics_text(eng) -> str:
+    """The ``/metrics`` body: the catalog's hand-built lines from the
+    engine's stats and page pool, each skipped when the registry already
+    owns the series, then the registry's exposition."""
+    s = eng.stats
+    reg_text = default_registry.expose()
+    reg_names = set(re.findall(r"^# TYPE (\S+)", reg_text, re.M))
+    occ = eng.cache.occupancy()
+    hand_built = [
+        (_C.GENERATED_TOKENS_TOTAL, f"{s.generated_tokens}"),
+        (_C.PROMPT_TOKENS_TOTAL, f"{s.prompt_tokens}"),
+        (_C.DECODE_STEPS_TOTAL, f"{s.steps}"),
+        (_C.TOKENS_PER_SECOND, f"{s.tokens_per_second():.3f}"),
+        (_C.ACTIVE_SLOTS, f"{sum(1 for sl in eng.slots if not sl.free)}"),
+        (_C.WAITING_REQUESTS, f"{eng.policy.total_depth()}"),
+        (_C.KV_PAGES_FREE, f"{occ['pages_free']}"),
+        (_C.KV_PAGES_USED, f"{occ['pages_used']}"),
+        (_C.KV_PAGE_OCCUPANCY, f"{occ['occupancy']:.4f}"),
+        (_C.SCHEDULER_ERRORS_TOTAL, f"{eng.error_count}"),
+    ]
+    pc = eng.prefix_cache
+    if pc is not None:
+        hand_built += [
+            (_C.PREFIX_CACHE_HITS_TOTAL, f"{pc.hits}"),
+            (_C.PREFIX_CACHE_MISSES_TOTAL, f"{pc.misses}"),
+            (_C.PREFIX_CACHED_PAGES, f"{pc.cached_pages}"),
+            (_C.PREFIX_CACHE_EVICTIONS_TOTAL, f"{pc.evictions}"),
+        ]
+    lines = [f"{name} {value}" for name, value in hand_built if name not in reg_names]
+    if _C.DECODE_IMPL not in reg_names:
+        plan = eng.impl_plan
+        lines.append(
+            f'{_C.DECODE_IMPL}{{attention="{plan["attention"]}",scatter="{plan["scatter"]}",'
+            f'kv_dtype="{plan["kv_dtype"]}",tp="{plan.get("tp", 1)}",variant="{plan.get("ragged_variant") or "-"}"}} 1'
+        )
+    return "\n".join(lines) + "\n" + reg_text
+
+
 class _Handler(BaseHTTPRequestHandler):
     server_ref: "OpenAIServer"
 
@@ -85,6 +136,14 @@ class _Handler(BaseHTTPRequestHandler):
     def _bad_request(self, message: str) -> None:
         self._json(400, {"error": {"message": message, "type": "invalid_request_error"}})
 
+    def _shed_response(self, e: ShedError) -> None:
+        """Admission refused: 429 with ``Retry-After``, OpenAI's rate-limit shape."""
+        self._json(
+            429,
+            {"error": {"message": str(e), "type": "rate_limit_error", "code": e.reason}},
+            extra_headers={"retry-after": str(math.ceil(e.retry_after_s))},
+        )
+
     def do_GET(self):
         srv = self.server_ref
         if self.path == "/health":
@@ -94,6 +153,13 @@ class _Handler(BaseHTTPRequestHandler):
                 "object": "list",
                 "data": [{"id": srv.model_name, "object": "model", "owned_by": "modal-examples-tpu"}],
             })
+        elif self.path == "/metrics":
+            body = _metrics_text(srv.engine).encode()
+            self.send_response(200)
+            self.send_header("content-type", "text/plain; version=0.0.4")
+            self.send_header("content-length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
         else:
             self._json(404, {"error": "not found"})
 
@@ -102,7 +168,7 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             body = json.loads(self.rfile.read(length)) if length else {}
         except json.JSONDecodeError:
-            self._bad_request("invalid JSON")
+            self._json(400, {"error": "invalid JSON"})
             return
         if self.path == "/v1/chat/completions":
             self._completions(body, chat=True)
@@ -112,10 +178,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(404, {"error": "not found"})
 
     def _completions(self, body: dict, chat: bool) -> None:
-        eng = self.server_ref.engine
+        srv = self.server_ref
+        eng = srv.engine
         try:
-            if int(body.get("n", 1)) != 1:
-                raise ValueError("n != 1 is not supported")
             if chat:
                 prompt = eng.tokenizer.apply_chat_template(body.get("messages") or [])
             else:
@@ -123,43 +188,82 @@ class _Handler(BaseHTTPRequestHandler):
             params = _params_from_body(body, self.headers)
             sched = _sched_kwargs(body, self.headers)
             eng.validate_params(params)
+            n = max(1, int(body.get("n", 1)))  # n <= 0 serves one choice
+            if n > 1 and params.seed is not None:  # the last choice's seed, seed + n - 1
+                eng.validate_params(dataclasses.replace(params, seed=params.seed + n - 1))
         except (ValueError, TypeError, KeyError) as e:
             self._bad_request(str(e))
             return
-        try:
-            req = eng.submit(prompt, params, **sched)
-        except ShedError as e:
-            self._json(
-                429,
-                {"error": {"message": str(e), "type": "rate_limit_error", "code": e.reason}},
-                extra_headers={"retry-after": str(math.ceil(e.retry_after_s))},
-            )
-            return
+        stream = bool(body.get("stream"))
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
         created = int(time.time())
         kind = "chat.completion" if chat else "text_completion"
+        if n > 1 and stream:
+            self._bad_request("n > 1 with stream=true is not supported")
+            return
+        if n > 1:
+            self._fan_out(eng, prompt, params, sched, n, rid, created, kind, chat)
+            return
+        try:
+            req = srv.submit(prompt, params, **sched)
+        except ShedError as e:
+            self._shed_response(e)
+            return
         n_prompt = len(req.prompt_tokens or [])
-        if body.get("stream"):
+        if stream:
             include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
             self._stream(eng, req, rid, created, kind, chat, include_usage, n_prompt)
             return
         text = "".join(eng.stream(req))
         if req.finish_reason == "error":
-            self._json(500, {"error": {"message": "engine error while processing the request", "type": "server_error"}})
+            self._json(500, _SERVER_ERROR, extra_headers={"x-mtpu-request-id": req.request_id})
             return
         n_out = len(eng.tokenizer.encode(text, add_bos=False))
         content = {"message": {"role": "assistant", "content": text}} if chat else {"text": text}
         self._json(200, {
-            "id": rid, "object": kind, "created": created, "model": self.server_ref.model_name,
+            "id": rid, "object": kind, "created": created, "model": srv.model_name,
             "choices": [{"index": 0, **content, "finish_reason": req.finish_reason or "stop"}],
             "usage": _usage(req, n_prompt, n_out),
-        }, extra_headers={"x-request-id": req.request_id})
+        }, extra_headers={"x-mtpu-request-id": req.request_id})
+
+    def _fan_out(self, eng, prompt, params, sched, n, rid, created, kind, chat) -> None:
+        """OpenAI's ``n``: one engine request per choice, batched by the
+        engine. A given seed becomes ``seed + i`` for choice i (else every
+        choice would be the same); without one each request draws its own.
+        A shed part way aborts the admitted siblings and answers 429."""
+        srv = self.server_ref
+        reqs = []
+        try:
+            for i in range(n):
+                p = dataclasses.replace(params, seed=params.seed + i) if params.seed is not None else params
+                reqs.append(srv.submit(prompt, p, **sched))
+        except ShedError as e:
+            for r in reqs:
+                eng.abort(r)
+                for _ in eng.stream(r):
+                    pass
+            self._shed_response(e)
+            return
+        texts = ["".join(eng.stream(r)) for r in reqs]
+        if any(r.finish_reason == "error" for r in reqs):
+            self._json(500, _SERVER_ERROR)
+            return
+        choices = []
+        for i, (r, text) in enumerate(zip(reqs, texts)):
+            content = {"message": {"role": "assistant", "content": text}} if chat else {"text": text}
+            choices.append({"index": i, **content, "finish_reason": r.finish_reason or "stop"})
+        n_prompt = len(reqs[0].prompt_tokens or [])
+        n_out = sum(len(eng.tokenizer.encode(t, add_bos=False)) for t in texts)
+        self._json(200, {
+            "id": rid, "object": kind, "created": created, "model": srv.model_name, "choices": choices,
+            "usage": _usage(reqs[0], n_prompt, n_out),  # the choices share one prompt
+        })
 
     def _stream(self, eng, req, rid, created, kind, chat, include_usage, n_prompt) -> None:
         self.send_response(200)
         self.send_header("content-type", "text/event-stream")
         self.send_header("cache-control", "no-cache")
-        self.send_header("x-request-id", req.request_id)
+        self.send_header("x-mtpu-request-id", req.request_id)
         self.end_headers()
 
         def send(obj) -> None:
@@ -177,7 +281,7 @@ class _Handler(BaseHTTPRequestHandler):
                 delta = {"delta": {"content": piece}} if chat else {"text": piece}
                 send(chunk_of(choices=[{"index": 0, **delta, "finish_reason": None}]))
             if req.finish_reason == "error":
-                send({"error": {"message": "engine error while processing the request", "type": "server_error"}})
+                send(_SERVER_ERROR)
             else:
                 final = {"delta": {}} if chat else {"text": ""}
                 send(chunk_of(choices=[{"index": 0, **final, "finish_reason": req.finish_reason or "stop"}]))
@@ -204,6 +308,11 @@ class OpenAIServer:
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.host, self.port = self.httpd.server_address[:2]
         self._thread: threading.Thread | None = None
+
+    def submit(self, prompt, params, **sched):
+        """Submit one request with its trace opened here, at the entry point
+        (the engine request takes the trace's id). Raises ``ShedError``."""
+        return self.engine.submit(prompt, params, trace=_rt.start_request_trace(entry="api"), **sched)
 
     def start(self) -> "OpenAIServer":
         self.engine.start()

@@ -1,8 +1,9 @@
 """Prefix cache: page-granular prompt KV reuse (the radix-cache analog).
 
-A copy of ``modal_examples_tpu/serving/prefix_cache.py`` without its metrics
-series (the counters stay: ``hits``, ``misses``, ``evictions``, ``stats()``)
-and without the spill hook of the tiered cache (ROADMAP A9). Prompts sharing
+A copy of ``modal_examples_tpu/serving/prefix_cache.py`` with its metrics
+series (``mtpu_prefix_cached_pages``, ``mtpu_prefix_cache_evictions_total``;
+the counters ``hits``, ``misses``, ``evictions`` and ``stats()`` beside them),
+without the spill hook of the tiered cache (ROADMAP A9). Prompts sharing
 a page-aligned token prefix share the physical KV pages of that prefix.
 
 Mechanics:
@@ -30,6 +31,8 @@ from __future__ import annotations
 
 import threading
 import time
+
+from ..observability import metrics as _obs
 
 
 class _Node:
@@ -113,6 +116,7 @@ class PrefixCache:
                     node.last_used = time.monotonic()  # our acquire()d prefix
                 final.append(node.page_id)
                 level = node.children
+            _obs.set_prefix_cache_pages(len(self._by_page))
         return final, displaced
 
     def release(self, page_ids: list[int]) -> None:
@@ -145,6 +149,7 @@ class PrefixCache:
                     children, key = parent
                     del children[key]
                     del self._by_page[pid]
+            _obs.set_prefix_cache_pages(len(self._by_page))
 
     def _find_parent(self, target: _Node):
         def walk(children):
@@ -190,6 +195,8 @@ class PrefixCache:
                 # one allocator call per wave, not one per page
                 self.allocator.free(batch)
             self.evictions += freed
+            _obs.set_prefix_cache_pages(len(self._by_page))
+        _obs.record_prefix_evictions(freed)
         return freed
 
     @property

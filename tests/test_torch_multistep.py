@@ -1,8 +1,9 @@
 """The port's macro-step decode runtime against the JAX package's.
 
 - ``masked_scan`` against the JAX ``masked_scan`` on a toy step whose lanes
-  die at different steps: the same stacked outputs and carry, and once every
-  lane is dead the port runs ``hold``, never ``step``.
+  die at different steps: the same stacked outputs and carry, the dead tail
+  held. The port decides each step on the device (it runs ``step`` and
+  ``hold`` every step and selects), so it never reads the live mask.
 - ``build_multistep_fn`` against the JAX function at tiny f32, read-only and
   writeback structures: tokens, validity and last tokens exactly, pages
   within 1e-5 of their largest value; one lane dies at eos, one at its
@@ -87,8 +88,9 @@ def test_masked_scan_matches_jax_and_holds_the_dead_tail():
     for port, ref in ((tlive, jlive), (tcnt, jcnt), (tacc, jacc), (touts, jouts), (tvalid, jvalid)):
         np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
     assert touts.shape == (6, 4) and tvalid.dtype == torch.bool
-    # the last lane dies after step 3: three steps ran, three holds
-    assert calls == {"step": 3, "hold": 3}
+    # the last lane dies after step 3: both branches ran at every step and the
+    # device selected the holds for steps 4-6 (no host read of the mask)
+    assert calls == {"step": 6, "hold": 6}
     assert (touts[3:] == -1).all() and not tvalid[3:].any()
 
 
@@ -121,6 +123,9 @@ def _multistep_inputs(model):
     )
     args = dict(
         prev=np.array([5, 9, 0, 17], np.int32),
+        # slot 1 is fresh: its first token rides the override lane
+        override=np.array([0, 23, 0, 0], np.int32),
+        override_mask=np.array([False, True, False, False]),
         positions=lens.copy(),
         active=np.array([True, True, False, True]),
         temps=np.array([0.0, 0.8, 1.0, 0.0], np.float32),
@@ -135,9 +140,9 @@ def _multistep_inputs(model):
 def _jax_multistep(model, kp, vp, tables, a, impl, eos_id, n):
     jcfg, _, jparams, _ = model
     fn = jruntime.build_multistep_fn(jcfg, paged_impl=impl, scatter_impl="xla", mesh=None, eos_id=eos_id, n_steps=n)
-    prev = jnp.asarray(a["prev"])  # the port has no override lane: the JAX one is left off
     return fn(
-        jparams, jnp.asarray(kp), jnp.asarray(vp), prev, prev, jnp.zeros(prev.shape, bool), jnp.asarray(a["positions"]),
+        jparams, jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(a["prev"]), jnp.asarray(a["override"]),
+        jnp.asarray(a["override_mask"]), jnp.asarray(a["positions"]),
         jnp.asarray(tables), jnp.asarray(a["active"]), jax.random.PRNGKey(3),
         *(jnp.asarray(a[k]) for k in ("temps", "top_ps", "top_ks", "seeds", "budgets")),
     )
@@ -156,7 +161,8 @@ def test_build_multistep_fn_matches_jax(model, impl):
     fn = tms.build_multistep_fn(tcfg, paged_impl=impl, scatter_impl="xla", eos_id=eos, n_steps=n)
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     toks, valid, last = fn(
-        tparams, tk, tv, t["prev"], t["positions"], torch.from_numpy(tables), t["active"], prng_key(3),
+        tparams, tk, tv, t["prev"], t["override"], t["override_mask"], t["positions"], torch.from_numpy(tables),
+        t["active"], prng_key(3),
         t["temps"], t["top_ps"], t["top_ks"], t["seeds"], t["budgets"],
     )
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
@@ -199,6 +205,21 @@ def _wait_pages_returned(eng, timeout=30.0) -> bool:
     return _pages_returned(eng)
 
 
+def _settled_steps(eng, timeout=30.0) -> int:
+    """``stats.steps`` once the scheduler has read every block in flight (a
+    block leaves ``_inflight`` before its read counts its steps, so the
+    count must also hold still across two looks)."""
+    deadline = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < deadline:
+        now = None if eng._inflight else eng.stats.steps
+        if now is not None and now == last:
+            return now
+        last = now
+        time.sleep(0.05)
+    raise AssertionError("the engine did not settle")
+
+
 def _ref_margin(jparams, jcfg, req, j):
     """Top-2 margin of what the reference sampled for generated token j."""
     toks = list(req.prompt_tokens) + list(req.generated_tokens[:j])
@@ -231,22 +252,30 @@ def test_classic_vs_multistep_matrix(model, kv_dtype, paged_impl):
         for name, kw in SAMPLING.items():
             r = ref_eng.submit(PROMPT, SamplingParams(**kw))
             refs[name] = ("".join(ref_eng.stream(r)), list(r.generated_tokens), r.finish_reason, r.n_generated)
+        ms_steps = {}
         for n in (8, 4, 1):
             ms_eng.decode_steps = n  # read once per dispatch
             for name, kw in SAMPLING.items():
-                steps0 = ms_eng.stats.steps
+                steps0 = _settled_steps(ms_eng)
                 req = ms_eng.submit(PROMPT, SamplingParams(**kw))
                 out = "".join(ms_eng.stream(req))
                 assert (out, req.generated_tokens, req.finish_reason, req.n_generated) == refs[name], (name, n)
-                if n > 1:  # a macro-step counts the steps that ran: one per decoded token here
-                    assert ms_eng.stats.steps - steps0 == req.n_generated - 1, (name, n)
+                if n > 1:
+                    # a macro-step counts the rows a live lane ran: the decoded
+                    # tokens, plus those of the block queued behind the last
+                    # one read (the pipeline runs one block ahead)
+                    steps = _settled_steps(ms_eng) - steps0
+                    assert req.n_generated - 1 <= steps <= req.n_generated - 1 + n, (name, n, steps)
+                    ms_steps.setdefault(n, {})[name] = steps
         for name, kw in SAMPLING.items():
+            jsteps0 = _settled_steps(jeng)
             jr = jeng.submit(PROMPT, JaxParams(**kw))
             jtext = "".join(jeng.stream(jr))
             text, tokens, finish, n_gen = refs[name]
             assert jr.finish_reason == finish and jr.n_generated == n_gen
             if jr.generated_tokens == tokens:
                 assert jtext == text
+                assert _settled_steps(jeng) - jsteps0 == ms_steps[8][name]  # the same pipeline, step for step
                 continue
             j = next(i for i, (a, b) in enumerate(zip(tokens, jr.generated_tokens)) if a != b)
             assert _ref_margin(jparams, jcfg, jr, j) <= MARGIN, (name, f"token {j} differs past the margin")
@@ -355,7 +384,8 @@ def test_dead_detok_worker_falls_back_to_inline(model):
         pieces1, r1 = _serve(eng1, sp)
         pieces8, r8 = _serve(eng8, sp)
         assert pieces8 == pieces1 and r8.generated_tokens == r1.generated_tokens
-        assert r8.emitted_len == 0  # the worker never saw the stream
+        assert not dead.owns(r8)  # the worker never saw the stream
+        assert r8.emitted_len == len("".join(pieces8))  # the inline path's cursor, mirrored as in the JAX engine
         assert _pages_returned(eng8)
     finally:
         eng1.stop()

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from modal_examples_tpu.models import llama as jllama
 from modal_examples_tpu.serving.engine import LLMEngine as JaxEngine
+from modal_examples_tpu.serving.openai_api import OpenAIServer as JaxServer
 from modal_examples_tpu.serving.sampling import SamplingParams as JaxParams
 from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams
 from modal_examples_tpu_torch.models import llama as tllama
@@ -105,7 +106,7 @@ def _post(url, body):
 
 
 def test_openai_server_completions_chat_sse_and_errors(weights):
-    _, tcfg, _, tparams = weights
+    jcfg, tcfg, jparams, tparams = weights
     from modal_examples_tpu_torch.scheduling.admission import AdmissionConfig, AdmissionController
     from modal_examples_tpu_torch.scheduling.policy import PRIORITY_CLASSES
 
@@ -142,8 +143,18 @@ def test_openai_server_completions_chat_sse_and_errors(weights):
         text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks[:-1])
         assert isinstance(text, str)
 
-        status, _, body = _post(base + "/v1/completions", {"prompt": "x", "top_p": 1.5})
-        assert status == 400 and "top_p" in json.loads(body)["error"]["message"]
+        # a top_p above 1 filters nothing: served, as the JAX server serves it
+        jsrv = JaxServer(JaxEngine(jcfg, jparams, **ENGINE_KW), host="127.0.0.1", port=0).start()
+        try:
+            got = [_post(b + "/v1/completions", {"prompt": "x", "top_p": 1.5, "max_tokens": 4, "temperature": 0})
+                   for b in (base, f"http://127.0.0.1:{jsrv.port}")]
+        finally:
+            jsrv.stop()
+        (status, _, body), (jstatus, _, jbody) = got
+        out, jout = json.loads(body), json.loads(jbody)
+        assert status == jstatus == 200
+        assert out["choices"][0]["finish_reason"] == jout["choices"][0]["finish_reason"] == "length"
+        assert out["usage"]["prompt_tokens"] == jout["usage"]["prompt_tokens"]
 
         status, headers, body = _post(f"http://{shed.host}:{shed.port}/v1/completions", {"prompt": "x"})
         assert status == 429 and int(headers["retry-after"]) >= 1
@@ -311,7 +322,7 @@ def test_abort_and_queue_bound(weights):
         list(eng.stream(running))
         assert running.finish_reason == "stop" and running.n_generated < 200
         assert eng.cache.allocator.available == eng.cache.n_pages - 1
-        with pytest.raises(ValueError, match="top_p"):
-            eng.submit("x", SamplingParams(top_p=0.0))
+        with pytest.raises(ValueError, match="seed"):  # the one refusal: a seed outside int32
+            eng.submit("x", SamplingParams(seed=2**31))
     finally:
         eng.stop()
