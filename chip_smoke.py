@@ -3,7 +3,8 @@ against its plain version on the card, serves Llama-2-7B-shaped requests
 (random bf16 weights from a seed, full width) through the port's engine and
 OpenAI server, again 8 decode steps per dispatch, again through the
 write-then-attend decode, again with int8 weights and an int8 KV cache, and
-through the write-then-attend decode over int8 pages, LoRA-fine-tunes the
+through the write-then-attend decode over int8 pages, speculates (a
+self-draft, a 1B-shape draft over int8, prompt lookup), LoRA-fine-tunes the
 same model through ``Trainer``, and prints per-kernel times beside their
 bounds.
 
@@ -123,6 +124,29 @@ Phases (any failure exits non-zero and prints no result):
    total), its host share, dispatch host ms against the block's device span, the
    usage meter's work over the served wall at the card's peaks (each share
    at most 1.0), and the burst's tok/s and TTFT beside phase 3's.
+8. speculation at full width (after phase 7, before training; the resident
+   weights, ``SERVE_KW``), with the counters zeroed just before each burst
+   and read just after: (8a) the verify route (``paged_verify_attention``:
+   the write-then-attend kernels over 8 slots x 5 chain positions, contexts
+   1..1005) against the plain ``reference.paged_verify_attention`` on the
+   card at K4's tolerances, bf16 and int8 pages, bitwise run to run, a
+   planted fault (contexts one short) refused, with its device time, the
+   plain version's and the byte bound; and ``verify_step`` over 5 positions
+   against 5 ``decode_step`` calls (cosine > 0.999, max rel err < 5e-2);
+   (8b) a self-draft (``speculative=(cfg, 4)``, the target's own tensors)
+   serving phase 3's burst: the verify's K4 n_layers x rounds times, K2
+   n_layers x (the draft's 5 steps a round plus the fallback blocks' steps),
+   every greedy token the dense plain forward's argmax or within 5e-2 x its
+   largest logit (the others counted), finish reasons and pages, the rows
+   identical to phase 3's, the usage meter's shares in (0, 1]; (8e) the
+   OpenAI server's ``/metrics`` on that engine: the speculation series equal
+   to its stats; (8c) int8 weights and pages with the random 1B-shape draft
+   of ``bench.py``'s ``llama2-7b-int8-spec-draft1b`` at γ = 4 (the draft on
+   K2-int8 and K3-int8, the verify on K3-int8 and K4-int8, K7), the same
+   exactness check over the int8 weights and dequantized cache rows, and
+   the burst's tok/s beside a non-speculating int8 engine's (one burst
+   each); (8d) prompt lookup (``("ngram", 4)``) over prompts that repeat a
+   phrase, the same checks. Its launches join the kernels line.
 """
 
 from __future__ import annotations
@@ -858,8 +882,9 @@ def plain_mm(x, w, layers):
     return layers.mm(x, w)
 
 
-def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int = 0):
-    """Last-position logits of a dense causal forward built from the plain
+def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int = 0, all_positions: bool = False):
+    """Last-position logits (every position's, ``[S, vocab]``, with
+    ``all_positions``) of a dense causal forward built from the plain
     versions (no kernel): the reference for the served path. Int8 weights go
     through ``qmm_plain``; K and V at the first ``n_cached`` positions (those
     the served path reads back from an int8 cache) go through
@@ -889,7 +914,7 @@ def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int
         gate, up = plain_mm(h, layer["gate"], layers), plain_mm(h, layer["up"], layers)
         x = x + plain_mm((F.silu(gate) * up).to(x.dtype), layer["down"], layers).to(x.dtype)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return plain_mm(x[:, -1], params["lm_head"], layers)
+    return plain_mm(x[0] if all_positions else x[:, -1], params["lm_head"], layers)
 
 
 def check_against_dense(eng, llama, layers, reference):
@@ -1137,6 +1162,7 @@ def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
         raise AssertionError(f"decode launches {counts['paged_decode']} != {cfg.n_layers} x {steps} dispatched steps")
     metrics["launches"] = counts
     log(f"engine metrics: {json.dumps(metrics)}")
+    metrics["tokens"] = [(r.generated_tokens, r.finish_reason) for r in reqs]  # phase 8b's reference rows
     metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
     # the macro-step replay: the same engine and burst, 8 steps per dispatch
     eng.decode_steps = 8
@@ -1491,6 +1517,328 @@ def phase_pipeline_server(eng, OpenAIServer) -> dict:
     finally:
         srv.stop()
     return out
+
+
+# -- phase 8 ----------------------------------------------------------------------
+
+#: speculation depth of phase 8's engines (bench.py's spec configurations)
+SPEC_GAMMA = 4
+#: 8a's verify shape: 8 slots, chains of 5 from the ragged prefixes 0..1000
+VERIFY_T = 5
+#: phrases repeated into 8d's prompts, for prompt lookup (60..690 bytes)
+NGRAM_PHRASES = ("the cat sat on the mat. ", "one two three four, ", "def f(x):\n    return x + 1\n")
+
+
+def draft_1b_config(llama):
+    """The 1B-shape draft of ``bench.py``'s ``llama2-7b-int8-spec-draft1b``
+    (``bench.py:1365-1369``): the target's 32000 vocabulary."""
+    return llama.LlamaConfig(vocab_size=32000, dim=2048, n_layers=16, n_heads=16, n_kv_heads=8, ffn_dim=5632,
+                             max_seq_len=2048)
+
+
+def verify_case(gen, int8: bool, Hq: int = 32, Hkv: int = 32, D: int = 128, ps: int = 16, pps: int = 64) -> dict:
+    """8a's inputs: one layer's pages of a 4-layer cache (bf16, or int8 with
+    scales) over shuffled pages, 8 slots, each a chain of ``VERIFY_T``
+    queries from a prefix of ``DECODE_LENS`` (its last position at most
+    1004, inside the 1024-row table)."""
+    B = len(DECODE_LENS)
+    P = 1 + B * pps
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))[: B * pps] + 1
+    pages = int8_pages if int8 else rand_bf16
+    k_cache, v_cache = pages(gen, 4, P, ps, Hkv, D), pages(gen, 4, P, ps, Hkv, D)
+    pos0 = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    return dict(
+        q=rand_bf16(gen, B, VERIFY_T, Hq, D), k_pages=k_cache[2], v_pages=v_cache[2],
+        page_tables=perm.reshape(B, pps).to(torch.int32).cuda(),
+        positions=pos0[:, None] + torch.arange(VERIFY_T, dtype=torch.int32, device="cuda")[None],
+    )
+
+
+def check_verify_route(pa, reference, int8: bool) -> dict:
+    """8a, kernels: ``paged_verify_attention`` on the card (K4 or K4-int8 over
+    B·T rows) against ``reference.paged_verify_attention`` on the card, held
+    at K4's tolerances (each row within 1e-2 of its largest value; int8 also
+    6e-2 max abs), two launches bitwise equal, and one planted fault refused
+    by the same check (every chain query blind to its own row: contexts one
+    short); then its device time beside the plain version's and the byte
+    bound of the function (each lane's rows read once, q and o once)."""
+    name = "paged_decode_writeback_int8" if int8 else "paged_decode_writeback"
+    c = verify_case(torch.Generator(device="cuda").manual_seed(8), int8)
+    args = [c[n] for n in ("q", "k_pages", "v_pages", "page_tables", "positions")]
+    route = lambda: pa.paged_verify_attention(*args, sm_scale=128**-0.5)  # noqa: E731
+    o, again = route(), route()
+    want = reference.paged_verify_attention(*args, sm_scale=128**-0.5)
+    B, T, Hq, D = c["q"].shape
+    ctx = c["positions"] + 1  # [B, T]: every (lane, chain position, head) row has a context
+    got = writeback_readings(o, want, ctx)
+    blind = pa.paged_decode_attention(c["q"].reshape(B * T, Hq, D), c["k_pages"], c["v_pages"],
+                                      c["page_tables"].repeat_interleave(T, 0), ctx.reshape(-1) - 1,
+                                      sm_scale=128**-0.5)
+    bad = writeback_readings(blind.view(B, T, Hq, D), want, ctx - 1)  # rows that still have a context
+    limit_row = TOL[f"{name}_row"] if int8 else TOL[name]
+    ok = lambda r: r["row_rel"] <= limit_row and (not int8 or r["max_abs"] <= TOL[name])  # noqa: E731
+    log(f"8a {name} verify route, 8 slots x T={T} from prefixes {list(DECODE_LENS)}: {got}, bitwise equal on a "
+        f"second launch {torch.equal(o, again)}; planted fault (contexts one short): {bad}")
+    if ok(bad):
+        raise AssertionError(f"8a: the {name} verify check does not see a planted fault: {bad}")
+    if not ok(got) or not torch.equal(o, again):
+        raise AssertionError(f"8a: the {name} verify route disagrees with paged_verify_attention: {got}")
+    Hkv = c["k_pages"].shape[2]
+    lane_rows = int((c["positions"][:, -1] + 1).sum())  # each lane's rows, once
+    row_bytes = Hkv * (D + 4) if int8 else Hkv * D * 2  # int8 rows carry an f32 scale a head
+    nbytes = 2 * lane_rows * row_bytes + 2 * B * T * Hq * D * 2
+    out = {
+        "shape": f"B=8 x T={T} Hq=Hkv=32 D=128, positions {list(DECODE_LENS)} + 0..{T - 1}",
+        "rows_read_by_the_route": int(ctx.sum()), "rows_of_the_function": lane_rows,
+        "device_ms": device_ms(route), "plain_ms": time_ms(lambda: reference.paged_verify_attention(
+            *args, sm_scale=128**-0.5), reps=5),
+        "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes", **got,
+    }
+    log(f"8a {name} verify route timing: {json.dumps(out)}")
+    return out
+
+
+def check_verify_step(llama, eng) -> dict:
+    """8a, model: prefill 99 tokens, then ``verify_step`` over a 5-token chain
+    against 5 sequential ``decode_step`` calls (the engine's decode structure)
+    from the same prefill, each in its own small cache of the engine's kv
+    dtype: every chain position's logits within the logits contract
+    (cosine > 0.999, max rel err < 5e-2)."""
+    from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
+
+    cfg, params = eng.cfg, eng.params
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, 256, (1, 104), generator=gen, device="cuda", dtype=torch.int32)
+    tables = torch.arange(1, 9, device="cuda", dtype=torch.int32)[None]
+    caches = []
+    for _ in range(2):
+        cache = PagedKVCache.create(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                                    n_pages=9, page_size=16, kv_dtype=eng.cache.kv_dtype, device="cuda")
+        padded = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
+        padded[0, :99] = toks[0, :99]
+        llama.prefill(params, padded, cache.k_pages, cache.v_pages, tables, torch.tensor([99], device="cuda"), cfg)
+        caches.append(cache)
+    active = torch.tensor([True], device="cuda")
+    pos0 = torch.tensor([99], dtype=torch.int32, device="cuda")
+    ver, _, _ = llama.verify_step(params, toks[:, 99:], pos0, caches[0].k_pages, caches[0].v_pages, tables, active,
+                                  cfg)
+    seq = []
+    for t in range(VERIFY_T):
+        lg, _, _ = llama.decode_step(params, toks[0, 99 + t : 100 + t], pos0 + t, caches[1].k_pages,
+                                     caches[1].v_pages, tables, active, cfg, impl=eng.paged_impl)
+        seq.append(lg[0])
+    ref = torch.stack(seq)
+    got = ver[0]
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"8a: verify_step logits malformed: {tuple(got.shape)}")
+    rel = max_err(got, ref) / ref.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(got.float(), ref.float()).min().item()
+    out = {"max_rel_err": rel, "cosine_min": cos, "argmax_equal": int((got.argmax(-1) == ref.argmax(-1)).sum())}
+    log(f"8a verify_step over {VERIFY_T} positions against {VERIFY_T} decode_steps ({eng.cache.kv_dtype} cache): "
+        f"{json.dumps(out)}")
+    if not (rel < 5e-2 and cos > 0.999):
+        raise AssertionError(f"8a: verify_step disagrees with sequential decode steps: {out}")
+    return out
+
+
+def check_spec_exactness(eng, reqs, layers, reference, label: str) -> dict:
+    """Every greedy token the engine committed, against a teacher-forced
+    dense plain forward over the request's prompt and tokens (int8 weights
+    through ``qmm_plain``; over an int8 cache every position's K/V
+    dequantized from its int8 row, as the cache serves them): the forward's
+    argmax at its position, or within 5e-2 x max|logit| of it. Counts the
+    tokens that are not the argmax."""
+    checked = not_argmax = 0
+    worst = 0.0
+    for r in reqs:
+        if r.params.temperature > 0 or not r.generated_tokens:
+            continue
+        n = len(r.prompt_tokens)
+        toks = torch.tensor([r.prompt_tokens + r.generated_tokens[:-1]], dtype=torch.int64, device="cuda")
+        logits = dense_reference_logits(eng.params, eng.cfg, toks, layers, reference,
+                                        n_cached=toks.shape[1] if eng.cache.quantized else 0, all_positions=True)
+        rows = logits[n - 1 :].float()  # row j predicts generated token j
+        gen = torch.tensor(r.generated_tokens, device="cuda")
+        top = rows.max(dim=-1).values
+        gap = (top - rows[torch.arange(len(gen), device="cuda"), gen]) / rows.abs().max(dim=-1).values
+        checked += len(gen)
+        not_argmax += int((gap > 0).sum())
+        worst = max(worst, gap.max().item())
+    out = {"greedy_tokens": checked, "not_argmax": not_argmax, "worst_gap_over_max_logit": worst}
+    log(f"{label} exactness against the dense plain forward: {json.dumps(out)}")
+    if not checked or worst > 5e-2:
+        raise AssertionError(f"{label}: a committed greedy token is not the dense forward's argmax: {out}")
+    return out
+
+
+def spec_counts(fa, pa, qmm) -> dict:
+    return {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches,
+            "paged_decode_writeback": pa.decode_writeback_launches, "paged_decode_int8": pa.decode_int8_launches,
+            "kv_scatter_int8": pa.scatter_int8_launches,
+            "paged_decode_writeback_int8": pa.decode_writeback_int8_launches, "quantized_matmul": qmm.qmm_launches}
+
+
+def zero_counts(fa, pa, qmm) -> None:
+    fa.launches = qmm.qmm_launches = 0
+    pa.decode_launches = pa.scatter_launches = pa.decode_writeback_launches = 0
+    pa.decode_int8_launches = pa.scatter_int8_launches = pa.decode_writeback_int8_launches = 0
+
+
+def serve_spec_burst(fa, pa, qmm, eng, SamplingParams, label: str, requests=None) -> tuple:
+    """The burst through a speculating engine, counters zeroed just before
+    and read just after. Every round launches the verify's attention once a
+    target layer (K4, or K4-int8 over int8 pages); draft mode runs γ draft
+    steps and the completion step every round (the masked scan runs every
+    step on the card), so the draft's decode kernel launches n_draft_layers x
+    (γ + 1) x rounds times, beside the target's n_layers x the steps of the
+    fallback blocks. Returns (requests, metrics)."""
+    zero_counts(fa, pa, qmm)
+    r0, f0, p0, a0 = eng._spec_rounds, eng._spec_fallbacks, eng.stats.spec_proposed, eng.stats.spec_accepted
+    t0 = eng._spec_round_tokens
+    reqs, m = serve_burst(eng, SamplingParams, label, requests)
+    counts = spec_counts(fa, pa, qmm)
+    rounds, fallbacks = eng._spec_rounds - r0, eng._spec_fallbacks - f0
+    proposed, accepted = eng.stats.spec_proposed - p0, eng.stats.spec_accepted - a0
+    m.update(launches=counts, rounds=rounds, fallbacks=fallbacks, proposed=proposed, accepted=accepted,
+             acceptance_rate=accepted / proposed if proposed else 0.0,
+             tokens_per_round=(eng._spec_round_tokens - t0) / rounds if rounds else 0.0)
+    L = eng.cfg.n_layers
+    int8 = eng.cache.quantized
+    verify = counts["paged_decode_writeback_int8" if int8 else "paged_decode_writeback"]
+    decode = counts["paged_decode_int8" if int8 else "paged_decode"]
+    draft_steps = 0 if eng.spec_mode == "ngram" else eng.draft_cfg.n_layers * (eng.spec_gamma + 1) * rounds
+    want = {"verify": L * rounds, "decode": draft_steps + L * m["dispatched_steps"]}
+    log(f"{label}: launches {counts}; rounds {rounds}, fallbacks {fallbacks} ({m['dispatched_steps']} steps "
+        f"dispatched), proposed {proposed}, accepted {accepted}; want verify {want['verify']}, decode {want['decode']}")
+    if rounds <= 0 or verify != want["verify"] or decode != want["decode"] or counts["flash_fwd"] < 1:
+        raise AssertionError(f"{label}: launches {counts} against {want} ({rounds} rounds)")
+    if counts["kv_scatter_int8" if int8 else "kv_scatter"] < L * rounds:
+        raise AssertionError(f"{label}: the verify's scatter launched {counts} times, under once a layer a round")
+    other = ("paged_decode_writeback", "paged_decode", "kv_scatter") if int8 else (
+        "paged_decode_writeback_int8", "paged_decode_int8", "kv_scatter_int8")
+    if any(counts[k] for k in other):
+        raise AssertionError(f"{label}: a kernel of the other cache dtype launched: {counts}")
+    return reqs, m
+
+
+def phase_speculation(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams, params,
+                      phase3: dict) -> dict:
+    """Phase 8: speculative decoding at full width (Llama-2-7B, the resident
+    random bf16 weights, ``SERVE_KW``). (8a) the verify route against
+    ``paged_verify_attention``, bf16 and int8 pages, with its timing; and
+    ``verify_step`` against sequential decode steps. (8b) a self-draft (the
+    target's own tensors, not copied) at γ = 4 serving phase 3's burst:
+    launches, every greedy token at the dense forward's argmax (or within
+    tolerance), acceptance, tokens a round, rows identical to phase 3's,
+    finish reasons and pages, the usage meter's shares in (0, 1]. (8e)
+    ``/metrics`` through the server on that engine: the speculation series
+    equal to its stats. (8c) int8 weights and pages with the random 1B-shape
+    draft at γ = 4 beside a non-speculating int8 engine, one burst each.
+    (8d) prompt lookup (γ = 4) on prompts that repeat a phrase. Returns the
+    metrics, with the launches of 8b-8d summed under ``launches``."""
+    from modal_examples_tpu_torch.models import quantize
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    out = {"verify_route": {name: check_verify_route(pa, reference, int8) for name, int8 in (
+        ("paged_decode_writeback", False), ("paged_decode_writeback_int8", True))}}
+    clear_registry()
+    eng = LLMEngine(cfg, params, **SERVE_KW, speculative=(cfg, SPEC_GAMMA), draft_params=params)
+    if eng.draft_params is not params:
+        raise AssertionError("8b: the self-draft's weights were copied")
+    out["verify_step"] = check_verify_step(llama, eng)
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    reqs, m = serve_spec_burst(fa, pa, qmm, eng, SamplingParams, "8b self-draft, gamma 4")
+    add(m["launches"])
+    for r in reqs:
+        check_finish(r)
+    m["exactness"] = check_spec_exactness(eng, reqs, layers, reference, "8b")
+    m["rows_identical_to_phase3"] = sum(
+        (r.generated_tokens, r.finish_reason) == t for r, t in zip(reqs, phase3["tokens"]))
+    eng.usage.flush()
+    phases = eng.usage.summary()["phases"]
+    shares = {p: (phases[p]["mfu"], phases[p]["mbu"]) for p in phases}
+    if not all(v is not None and 0 < v <= 1.0 for pair in shares.values() for v in pair):
+        raise AssertionError(f"8b: the usage meter's shares (mfu, mbu) {shares}")
+    m["usage_shares_mfu_mbu"] = shares
+    log(f"8b: {json.dumps(m)}")
+    out["self_draft"] = m
+    out["metrics"] = phase_spec_server(eng, OpenAIServer)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qparams = quantize.quantize_llama(params)
+    plain8 = LLMEngine(cfg, qparams, quantization=None, kv_dtype="int8", **SERVE_KW)
+    plain8.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    _, pm = serve_burst(plain8, SamplingParams, "8c int8 engine, no speculation")
+    plain8.stop()
+    del plain8
+    gc.collect()
+    dcfg = draft_1b_config(llama)
+    eng = LLMEngine(cfg, qparams, quantization=None, kv_dtype="int8", **SERVE_KW, speculative=(dcfg, SPEC_GAMMA))
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    reqs, m = serve_spec_burst(fa, pa, qmm, eng, SamplingParams, "8c int8 with the 1B-shape draft, gamma 4")
+    add(m["launches"])
+    if m["launches"]["quantized_matmul"] < 1:
+        raise AssertionError(f"8c: the int8 matmul never launched: {m['launches']}")
+    m["exactness"] = check_spec_exactness(eng, reqs, layers, reference, "8c")
+    m["burst_tok_per_s_without_speculation"] = pm["burst_tok_per_s"]
+    log(f"8c: {json.dumps(m)}; the same burst without speculation {pm['burst_tok_per_s']:.1f} tok/s, with "
+        f"{m['burst_tok_per_s']:.1f} (one burst each, no claim)")
+    out["int8_draft_1b"] = m
+    eng.stop()
+    del eng, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = LLMEngine(cfg, params, **SERVE_KW, speculative=("ngram", SPEC_GAMMA))
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    requests = [((NGRAM_PHRASES[k % len(NGRAM_PHRASES)] * 40)[: 60 + 90 * k],
+                 SamplingParams(max_tokens=48, temperature=0.0)) for k in range(8)]
+    reqs, m = serve_spec_burst(fa, pa, qmm, eng, SamplingParams, "8d prompt lookup, gamma 4", requests)
+    add(m["launches"])
+    m["exactness"] = check_spec_exactness(eng, reqs, layers, reference, "8d")
+    log(f"8d: {json.dumps(m)}")
+    out["ngram"] = m
+    eng.stop()
+    out["launches"] = launches
+    return out
+
+
+def phase_spec_server(eng, OpenAIServer) -> dict:
+    """8e: ``/metrics`` through the OpenAI server on the self-draft engine
+    (idle, after a gauge refresh): the speculation series equal to the
+    engine's stats and counters (the server stops the engine)."""
+    from modal_examples_tpu_torch.observability import catalog as C
+
+    srv = OpenAIServer(eng, model_name="llama2-7b", port=0).start()
+    try:
+        settle(eng)
+        eng._metrics_wall = 0.0
+        eng._refresh_gauges()
+        _, _, text = http(f"http://{srv.host}:{srv.port}", "/metrics")
+        series = {line.split()[0]: float(line.split()[1]) for line in text.splitlines()
+                  if line.startswith("mtpu_spec_")}
+        st = eng.stats
+        # the fallback counter exists once a round fell back; the γ and
+        # tokens-a-round gauges are windows of the refresh throttle, logged
+        want = {C.SPEC_PROPOSED_TOTAL: st.spec_proposed, C.SPEC_ACCEPTED_TOTAL: st.spec_accepted,
+                C.SPEC_ACCEPTANCE_RATE: st.acceptance_rate(), C.SPEC_FALLBACK_TOTAL: eng._spec_fallbacks}
+        log(f"8e /metrics speculation series {series}, stats {want}")
+        for name, v in want.items():
+            got = series.get(name, 0.0 if name == C.SPEC_FALLBACK_TOTAL else None)
+            if got is None or abs(got - v) > 1e-4 * max(1.0, abs(v)):
+                raise AssertionError(f"8e /metrics {name} = {got}, stats {v}")
+    finally:
+        srv.stop()
+    return {"series": series}
 
 
 # -- training ---------------------------------------------------------------------
@@ -2310,6 +2658,12 @@ def main() -> int:
     log(f"phase 7 pipelined engine: ok in {time.monotonic() - t0:.1f}s: {json.dumps(pipeline)}")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    spec = phase_speculation(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams, params,
+                             metrics)
+    log(f"phase 8 speculation: ok in {time.monotonic() - t0:.1f}s: {json.dumps(spec)}")
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
     del params
     gc.collect()
@@ -2323,10 +2677,16 @@ def main() -> int:
         "paged_decode_writeback_int8": wb8["launches"]["paged_decode_writeback_int8"],
         "flash_fwd": serve_counts["flash_fwd"] + int8_counts["flash_fwd"] + train_counts["flash_fwd"],
     }
+    # phase 8 adds its launches (the verify's K3 and K4 or K4-int8, the
+    # drafts' decodes, prefills and fallback blocks) to every kernel it ran
+    counts = {k: v + spec["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
-        f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}; "
-        f"kernels line (flash_fwd summed) {counts}")
+        f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
+        f"speculation {spec['launches']}; kernels line (flash_fwd and phase 8 summed) {counts}")
     rows = phase_numbers(fa, pa, counts, errs)
+    for r in rows:  # the write-then-attend kernels also time their verify route (8a)
+        if r["name"] in spec["verify_route"]:
+            r["verify"] = spec["verify_route"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ paged decode.
 Counterpart of ``modal_examples_tpu/models/llama.py`` (``LlamaConfig``,
 ``init_params``, ``forward`` for dense models, ``prefill``, ``prefill_chunk``,
 ``decode_step`` with its ``impl``/``scatter_impl``, ``_decode_step_writeback``,
-``tp_shard_ok``, ``paged_impl_plan``, ``load_hf_weights``). Architecture:
+``verify_step``, ``tp_shard_ok``, ``paged_impl_plan``, ``load_hf_weights``). Architecture:
 RMSNorm, RoPE, GQA, SwiGLU.
 
 Parameters are a plain dict: ``embed`` [V, D], ``layers`` (a list of per-layer
@@ -570,3 +570,42 @@ def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tab
         o = _paged.paged_decode_attention(q[:, :, 0], k_pg, v_pg, page_tables, ctx_lens)
         x = _finish_layer(layer, x, o.reshape(B, 1, -1), cfg)
     return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg), k_pages, v_pages
+
+
+def verify_step(params, tokens, positions0, k_pages, v_pages, page_tables, active, cfg: LlamaConfig):
+    """T tokens of teacher-forced decode against the paged cache, the
+    target's scoring half of speculative decoding. tokens [B, T] (the
+    committed token, then the proposals), positions0 [B] (the position of
+    ``tokens[:, 0]``), active [B] bool.
+
+    Each layer writes the K/V of all T chain tokens at positions0 ..
+    positions0 + T - 1 (the scatter kernel over the one-layer view on the
+    card), then attends with ``paged_verify_attention``: query t sees the
+    cache up to its own position, so rejected tokens' rows are overwritten
+    later and never read past the accept point. Positions past the table's
+    capacity write trash page 0 (a slot near its length can overshoot by up
+    to T - 1 rejected tokens); their RoPE angle is the last position's.
+    Returns (logits [B, T, vocab], k_pages, v_pages), pages updated in
+    place: ``logits[:, t]`` is the distribution of position positions0 + t + 1."""
+    B, T = tokens.shape
+    ps = k_pages.shape[2]
+    cap = page_tables.shape[1] * ps
+    positions = positions0[:, None] + torch.arange(T, device=tokens.device)[None, :]  # [B, T]
+    valid = active[:, None] & (positions < cap)
+    pos_c = positions.clamp(max=cap - 1)
+    cos, sin = _rope(cfg, pos_c)  # [B, T, hd/2]
+    page_idx, slot = _page_targets(page_tables, pos_c, valid, ps)
+    page_idx, slot = page_idx.reshape(B * T), slot.reshape(B * T)
+    x = params["embed"][tokens]  # [B, T, dim]
+    Hkv, D = cfg.n_kv_heads, cfg.head_dim
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _qkv(layer, x, cfg, cos, sin)  # q [B, Hq, T, D], k/v [B, Hkv, T, D]
+        k_pg, v_pg = k_pages[li], v_pages[li]  # [P, ps, Hkv, D] views
+        _paged.scatter_kv_layer(
+            k_pg, v_pg, k.transpose(1, 2).reshape(B * T, Hkv, D), v.transpose(1, 2).reshape(B * T, Hkv, D),
+            page_idx, slot,
+        )
+        o = _paged.paged_verify_attention(q.transpose(1, 2), k_pg, v_pg, page_tables, positions)  # [B, T, Hq, D]
+        x = _finish_layer(layer, x, o.reshape(B, T, -1), cfg)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return layers.mm(x, _head(params, cfg)), k_pages, v_pages

@@ -1,6 +1,6 @@
 """The port's metric catalog, after ``modal_examples_tpu/observability/catalog.py``:
 the series, span names and tick phases of the paths the port has (the JAX
-package's executor, snapshot, fleet, disaggregation, speculation, watchdog,
+package's executor, snapshot, fleet, disaggregation, watchdog,
 flight-recorder and canary series come with those subsystems).
 
 ONE module owns every metric name: code imports the constant, and no
@@ -136,6 +136,21 @@ MULTISTEP_EARLY_EXIT_STEPS_TOTAL = "mtpu_multistep_early_exit_steps_total"
 #: depth means text emission is falling behind the scheduler)
 MULTISTEP_DETOK_QUEUE_DEPTH = "mtpu_multistep_detok_queue_depth"
 
+# -- speculative decoding (serving/spec_runtime/) --------------------------
+
+#: gauge: dispatched per-slot speculation depth, p50 over the last gauge
+#: window (the adaptive controller's output; 0 means lanes ride the classic
+#: γ=0 path inside the round)
+SPEC_GAMMA = "mtpu_spec_gamma"
+#: gauge: harvested tokens per speculative round over the last gauge window
+#: (held when idle)
+SPEC_TOKENS_PER_DISPATCH = "mtpu_spec_tokens_per_dispatch"
+#: gauge: lifetime draft-token acceptance rate (accepted / proposed)
+SPEC_ACCEPTANCE_RATE = "mtpu_spec_acceptance_rate"
+#: counter: whole decode rounds where no slot speculated and the engine fell
+#: through to the classic block program
+SPEC_FALLBACK_TOTAL = "mtpu_spec_fallback_total"
+
 # -- OpenAI-compatible server /metrics (serving/openai_api.py) --------------
 
 GENERATED_TOKENS_TOTAL = "mtpu_generated_tokens_total"
@@ -143,6 +158,8 @@ PROMPT_TOKENS_TOTAL = "mtpu_prompt_tokens_total"
 DECODE_STEPS_TOTAL = "mtpu_decode_steps_total"
 KV_PAGES_FREE = "mtpu_kv_pages_free"
 DECODE_IMPL = "mtpu_decode_impl"
+SPEC_PROPOSED_TOTAL = "mtpu_spec_proposed_total"
+SPEC_ACCEPTED_TOTAL = "mtpu_spec_accepted_total"
 # (SPEC_ACCEPTANCE_RATE lives in the fused-speculative section above — the
 # /metrics hand-built exposition and the gauge sweep share one name)
 PREFIX_CACHE_HITS_TOTAL = "mtpu_prefix_cache_hits_total"
@@ -424,6 +441,33 @@ CATALOG: dict[str, dict] = {
         "type": "gauge", "labels": [],
         "help": "events pending on the detokenization worker queue",
     },
+    SPEC_PROPOSED_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "draft tokens proposed (speculative mode)",
+    },
+    SPEC_ACCEPTED_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "draft tokens accepted by the target",
+    },
+    SPEC_GAMMA: {
+        "type": "gauge", "labels": [],
+        "help": "dispatched per-slot speculation depth, p50 over the last "
+                "gauge window (adaptive controller output; 0=classic lane)",
+    },
+    SPEC_TOKENS_PER_DISPATCH: {
+        "type": "gauge", "labels": [],
+        "help": "harvested tokens per speculative round over the last "
+                "gauge window",
+    },
+    SPEC_ACCEPTANCE_RATE: {
+        "type": "gauge", "labels": [],
+        "help": "lifetime draft-token acceptance rate (accepted/proposed)",
+    },
+    SPEC_FALLBACK_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "whole rounds where no slot speculated and the engine fell "
+                "through to the classic block program",
+    },
 }
 
 #: every declared metric name
@@ -468,6 +512,11 @@ SPAN_CATALOG: dict[str, dict] = {
     "shed": {
         "attrs": ["replica", "reason"],
         "help": "admission rejected the request (the 429 path; event)",
+    },
+    "spec_verify": {
+        "attrs": ["replica", "proposed", "accepted", "gamma"],
+        "help": "one speculative round's outcome for this request (event; "
+                "gamma = the depth the controller dispatched)",
     },
 }
 

@@ -472,3 +472,36 @@ def set_multistep_gauges(
     )
 
 
+def set_spec_gauges(
+    *, gamma: float, tokens_per_dispatch: float, acceptance_rate: float,
+    registry: Registry | None = None,
+) -> None:
+    """Speculative-round gauges, refreshed with the engine's gauge sweep.
+    ``gamma`` is the p50 of the per-slot depths actually dispatched over the
+    window (the adaptive controller's output, not the configured cap)."""
+    reg = _reg(registry)
+    reg.gauge_set(
+        C.SPEC_GAMMA, float(gamma),
+        help=C.CATALOG[C.SPEC_GAMMA]["help"],
+    )
+    reg.gauge_set(
+        C.SPEC_TOKENS_PER_DISPATCH, float(tokens_per_dispatch),
+        help=C.CATALOG[C.SPEC_TOKENS_PER_DISPATCH]["help"],
+    )
+    reg.gauge_set(
+        C.SPEC_ACCEPTANCE_RATE, float(acceptance_rate),
+        help=C.CATALOG[C.SPEC_ACCEPTANCE_RATE]["help"],
+    )
+
+
+def record_spec_fallback(
+    n: int = 1, *, registry: Registry | None = None
+) -> None:
+    """Whole spec rounds that fell through to the classic block program
+    (every live lane at γ=0: collapse, pressure, or sampled lanes)."""
+    if n <= 0:
+        return
+    _reg(registry).counter_inc(
+        C.SPEC_FALLBACK_TOTAL, float(n),
+        help=C.CATALOG[C.SPEC_FALLBACK_TOTAL]["help"],
+    )

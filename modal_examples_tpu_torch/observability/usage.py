@@ -15,7 +15,12 @@ Copy of ``modal_examples_tpu/observability/usage.py`` (``WorkModel``,
   pipelined loop makes close to zero);
 - decode bytes count the weight stream once per decode step that ran, not
   once per token: the slots of a step share it, and counting it per token
-  would put the byte share above 1 at a batch of 8.
+  would put the byte share above 1 at a batch of 8;
+- a speculative round adds the work its accepted tokens do not count
+  (:meth:`EngineUsage.note_spec_work`): the draft's steps and the verify's
+  rejected chain positions, priced by the same decode formulas, with the
+  target's weight stream once a round (the verify) and the draft's once a
+  draft step.
 
 The pieces:
 
@@ -217,6 +222,8 @@ class EngineUsage:
         self._decode_tokens = 0
         self._decode_steps = 0
         self._decode_ctx_sum = 0
+        self._spec_flops = 0  # speculative rounds' work beyond their accepted tokens
+        self._spec_bytes = 0
         self._phase_seconds = {"prefill": 0.0, "decode": 0.0}
         # per-(tenant, class) buckets + the last-flushed mirror (counters
         # take deltas; the buckets hold the running totals)
@@ -279,6 +286,14 @@ class EngineUsage:
         """``n`` decode steps ran (each streams the weights once)."""
         with self._lock:
             self._decode_steps += int(n)
+
+    def note_spec_work(self, flops: int, nbytes: int) -> None:
+        """Decode work of a speculative round beyond its accepted tokens
+        (which :meth:`note_token` counts): the draft's steps and the verify's
+        rejected chain positions."""
+        with self._lock:
+            self._spec_flops += int(flops)
+            self._spec_bytes += int(nbytes)
 
     def note_phase_seconds(self, phase: str, seconds: float) -> None:
         """Device-attributed seconds for ``phase`` ("prefill" | "decode"):
@@ -350,6 +365,7 @@ class EngineUsage:
                 self._prefill_calls,
             )
             dt, dsteps, dctx = self._decode_tokens, self._decode_steps, self._decode_ctx_sum
+            spec_flops, spec_bytes = self._spec_flops, self._spec_bytes
             secs = dict(self._phase_seconds)
         m = self.model
         chips = self.peaks["chips"]
@@ -362,7 +378,8 @@ class EngineUsage:
                 secs.get("prefill", 0.0),
             ),
             "decode": (
-                m.decode_flops(dt, dctx), m.decode_bytes(dsteps, dctx),
+                m.decode_flops(dt, dctx) + spec_flops,
+                m.decode_bytes(dsteps, dctx) + spec_bytes,
                 secs.get("decode", 0.0),
             ),
         }

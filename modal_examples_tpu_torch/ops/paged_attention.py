@@ -7,10 +7,14 @@ int8 pages ``csrc/kv_scatter_int8.cu``), each beside its plain version.
 
 Counterpart of ``modal_examples_tpu/ops/paged_attention.py``
 (``paged_decode_attention_ragged``, ``paged_decode_attention``,
-``scatter_kv_pages``, ``ragged_variant_for``). The cache is ``[L, P,
-page_size, Hkv, D]`` per array, page 0 being the trash page that padded and
-dead slots write; an int8 cache is a :class:`~.kv_quant.QuantizedKV` per
-array (int8 data plus f32 scales ``[L, P, page_size, Hkv]``).
+``scatter_kv_pages``, ``ragged_variant_for``), plus the dispatcher of the
+speculative verify step's attention (``paged_verify_attention``: the JAX
+package's plain ``reference.paged_verify_attention`` on the CPU, the
+write-then-attend kernel over one row a chain position on the card). The
+cache is ``[L, P, page_size, Hkv, D]`` per array, page 0 being the trash page
+that padded and dead slots write; an int8 cache is a
+:class:`~.kv_quant.QuantizedKV` per array (int8 data plus f32 scales ``[L, P,
+page_size, Hkv]``).
 
 Dispatch is by the tensor's device and the cache's kind and nothing else: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
@@ -369,6 +373,42 @@ def paged_decode_attention(
     if q.device.type == "cpu":
         return paged_decode_writeback_plain(q, k_pages, v_pages, page_tables, context_lens, sm_scale=scale)
     return paged_decode_writeback_cuda(q.contiguous(), k_pages, v_pages, page_tables, context_lens, sm_scale=scale)
+
+
+def paged_verify_attention(
+    q,  # [B, T, Hq, D]: a chain of T queries per sequence
+    k_pages,  # [P, page_size, Hkv, D]: one layer's pages, the chain already written
+    v_pages,
+    page_tables,  # [B, pages_per_seq] int32
+    positions,  # [B, T]: global position of each query
+    *,
+    sm_scale: float | None = None,
+):  # [B, T, Hq, D]
+    """The verify step's attention: query t of a chain attends to cache
+    positions ``<= positions[b, t]``. On the CPU this is the plain
+    ``reference.paged_verify_attention``. On the card it is the
+    write-then-attend decode over B·T rows, one a chain position: the query
+    rows ``[B·T, Hq, D]``, each sequence's page table repeated T times and
+    ``context_lens = min(positions + 1, capacity)``; int8 pages go to its int8
+    kernel. Where the reference rounds the probabilities to bf16 before P.V,
+    the bf16 kernel keeps them f32 (the int8 kernel rounds them, as the
+    reference does)."""
+    if q.device.type == "cpu":
+        return reference.paged_verify_attention(q, k_pages, v_pages, page_tables, positions, sm_scale=sm_scale)
+    return verify_by_rows(q, k_pages, v_pages, page_tables, positions, sm_scale=sm_scale)
+
+
+def verify_by_rows(q, k_pages, v_pages, page_tables, positions, *, sm_scale: float | None = None):
+    """The card's route of :func:`paged_verify_attention`: each chain
+    position a row of ``paged_decode_attention`` (the write-then-attend
+    kernels on CUDA tensors, their plain twins on CPU ones)."""
+    B, T, Hq, D = q.shape
+    cap = page_tables.shape[1] * k_pages.shape[1]
+    ctx = (positions + 1).clamp(max=cap).reshape(B * T).to(torch.int32)
+    o = paged_decode_attention(
+        q.reshape(B * T, Hq, D), k_pages, v_pages, page_tables.repeat_interleave(T, 0), ctx, sm_scale=sm_scale
+    )
+    return o.view(B, T, Hq, D)
 
 
 # -- KV page scatter ------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Plain PyTorch twins of the JAX package's reference attention functions.
 
 Counterpart of ``modal_examples_tpu/ops/reference.py`` (``attention``,
-``attention_with_lse``, ``attention_chunked``, ``paged_decode_attention``)
-plus ``paged_decode_attention_inflight`` from
+``attention_with_lse``, ``attention_chunked``, ``paged_decode_attention``,
+``paged_verify_attention``) plus ``paged_decode_attention_inflight`` from
 ``modal_examples_tpu/ops/paged_attention.py``, the exact-match target of the
 ragged decode kernel. Numerics follow the JAX versions: products of the
 inputs accumulate in f32, the softmax is f32, and probabilities are rounded
@@ -120,3 +120,31 @@ def paged_decode_attention_inflight(
     o = torch.einsum("bhgpt,bpthd->bhgd", p_prefix.float(), vs.float())
     o = o + p_new[..., None] * v_new.to(vs.dtype).float()[:, :, None, :]
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_verify_attention(
+    q,  # [B, T, Hq, D]: a short chain of new tokens per sequence
+    k_pages,  # [P, page_size, Hkv, D]: one layer's pages
+    v_pages,
+    page_tables,  # [B, pages_per_seq] int32
+    positions,  # [B, T]: global position of each query
+    *,
+    sm_scale: float | None = None,
+):  # [B, T, Hq, D]
+    """Teacher-forced attention of a T-token chain against one layer's paged
+    cache, the chain's own K/V already written: query t attends to cache
+    positions ``<= positions[b, t]``. int8 pages (:class:`~.kv_quant.
+    QuantizedKV`) are dequantized in the gather at the query's dtype, so the
+    chain is scored against exactly the values decode reads; the softmax is
+    f32 and its probabilities are rounded to the value dtype before P.V."""
+    B, T, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    S = page_tables.shape[1] * ps
+    ks = kv_gather(k_pages, page_tables.long(), dtype=q.dtype)  # [B, pps, ps, Hkv, D]
+    vs = kv_gather(v_pages, page_tables.long(), dtype=q.dtype)
+    ks = ks.permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    vs = vs.permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    s = _grouped_scores(q.transpose(1, 2), ks, sm_scale)  # [B, Hkv, G, T, S]
+    valid = torch.arange(S, device=q.device)[None, None, :] <= positions.to(q.device)[:, :, None]  # [B, T, S]
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    return _pv(torch.softmax(s, dim=-1), vs, (B, Hq, T, D)).transpose(1, 2)

@@ -82,8 +82,21 @@ FLOPs and bytes per tenant, utilization shares against the card's peaks).
 ``decode_tokens``. The profiler keeps no compile ledger: the port compiles
 no programs at dispatch (its kernels build once, at first use).
 
-Not in this slice: int4 weights, the tiered prefix cache, speculative
-decoding, fault injection, the fleet's claim paths and the canary.
+Speculative decoding (``speculative=(draft config or preset, γ)`` with
+``draft_params=`` or ``draft_model_dir=``, or ``speculative=("ngram", γ)``
+for prompt lookup) is the JAX engine's: the draft keeps its own paged cache
+over the target allocator's page ids (filled by every prefill), and each
+tick runs one round of ``serving/spec_runtime`` (draft propose, one verify
+pass over every chain position, the accept cut) harvested at once through
+``_process_block`` (no round is pipelined: the next one starts from this
+one's accepted tokens). Each slot's γ comes from ``_slot_gamma`` (sampled
+requests never speculate; ``spec_adaptive`` switches on the per-request
+acceptance controller; ``spec_depth`` caps γ at runtime); a round in which
+no slot speculates falls back to one decode block, read at once.
+
+Not in this slice: int4 weights, the tiered prefix cache, fault injection,
+the fleet's claim paths (and with them the speculative ``spec_hold`` of
+adopted and resumed requests) and the canary.
 """
 
 from __future__ import annotations
@@ -116,6 +129,7 @@ from .kv_cache import OutOfPages, PagedKVCache
 from .multistep import DetokWorker, build_multistep_fn, resolve_decode_steps
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, prng_key, sample, split
+from .spec_runtime import AdaptiveGammaController, build_ngram_round_fn, build_spec_round_fn, resolve_spec_adaptive
 
 _CANARY_TENANT = _usage.CANARY_TENANT
 
@@ -188,6 +202,49 @@ class _PendingPrefill:
     spans: list = dataclasses.field(default_factory=list)  # each chunk's (start, end) CUDA events
 
 
+class _NgramIndex:
+    """A slot's n-gram index for prompt-lookup speculation (a copy of the JAX
+    engine's): built once from the prompt and pushed one accepted token at a
+    time, so a proposal costs O(γ). The proposal continues the most recent
+    occurrence of the trailing n-gram strictly before the tail itself, the
+    match starting within the last ``lookback`` tokens."""
+
+    __slots__ = ("n", "lookback", "hist", "occ")
+
+    def __init__(self, n: int, prompt: list[int], lookback: int):
+        self.n = n
+        self.lookback = lookback
+        self.hist: list[int] = []
+        self.occ: dict[tuple, list[int]] = {}  # n-gram -> ascending start positions
+        for tok in prompt:
+            self.push(tok)
+
+    def push(self, token: int) -> None:
+        """Append one accepted token; record the n-gram it completes."""
+        self.hist.append(token)
+        start = len(self.hist) - self.n
+        if start >= 0:
+            self.occ.setdefault(tuple(self.hist[start:]), []).append(start)
+
+    def propose(self, gamma: int) -> list[int]:
+        """Up to ``gamma`` tokens that followed the most recent earlier
+        occurrence of the tail n-gram ([]: no proposal)."""
+        hist, n = self.hist, self.n
+        if len(hist) <= n:
+            return []
+        tail_start = len(hist) - n
+        occs = self.occ.get(tuple(hist[tail_start:]))
+        if not occs:
+            return []
+        lo = max(0, len(hist) - self.lookback)
+        # the last start is the tail itself: the first one before it counts,
+        # if it lies inside the lookback window
+        for j in reversed(occs):
+            if j < tail_start:
+                return [] if j < lo else hist[j + n : j + n + gamma]
+        return []
+
+
 @dataclasses.dataclass
 class _Slot:
     request: Request | None = None
@@ -203,6 +260,7 @@ class _Slot:
     pending_first: bool = False  # prefill dispatched, its first token not yet harvested
     tenancy: int = 0  # per-install id: block and harvest snapshots pin (request, tenancy)
     claimed_at: float = 0.0  # engine clock at install: the usage meter's occupancy interval
+    ngram: _NgramIndex | None = None  # prompt-lookup speculation only
 
     @property
     def free(self) -> bool:
@@ -224,10 +282,15 @@ class EngineStats:
     decode_seconds: float = 0.0  # host wall time of decode dispatches and block reads (accepts included)
     decode_tokens: int = 0  # tokens accepted from decode blocks
     prefill_suspensions: int = 0  # chunked prefills paused mid-prompt by the budget
+    spec_proposed: int = 0  # draft tokens proposed (speculative mode)
+    spec_accepted: int = 0  # draft tokens accepted by the target
 
     def tokens_per_second(self) -> float:
         dt = time.monotonic() - self.started
         return self.generated_tokens / dt if dt > 0 else 0.0
+
+    def acceptance_rate(self) -> float:
+        return self.spec_accepted / self.spec_proposed if self.spec_proposed else 0.0
 
 
 class _Finish:
@@ -349,6 +412,12 @@ class LLMEngine:
         quantization: str | None = None,  # "int8": weight-only int8 serving
         seed: int = 0,
         kv_dtype=None,  # "int8": the quantized paged cache; None: MTPU_KV_DTYPE, then bf16
+        speculative: tuple | None = None,  # (draft preset | LlamaConfig | "ngram", gamma)
+        draft_params: dict | None = None,
+        draft_model_dir: str | None = None,
+        # the per-request adaptive-γ controller; None: MTPU_SPEC_ADAPTIVE, then
+        # off. Runtime-mutable (self.spec_adaptive, like self.spec_depth)
+        spec_adaptive: bool | None = None,
         decode_block: int = 8,
         decode_steps: int | None = None,  # macro-step N; None: env, then 1
         # prompt tokens turned into prefill work a tick; None: the
@@ -390,6 +459,10 @@ class LLMEngine:
             impl=self.paged_impl, scatter_impl=self.scatter_impl,
         )
         _obs.set_decode_impl(self.impl_plan)
+        # speculation is validated before a byte of weights is allocated
+        self.spec_gamma, self.spec_mode, self.draft_cfg = 0, None, None
+        if speculative is not None:
+            self._resolve_speculative(cfg, speculative, draft_params, draft_model_dir)
         if params is None:
             if model_dir is not None:
                 # int8 is quantized on the host: the bf16 weights never reach the card
@@ -467,7 +540,103 @@ class LLMEngine:
         self._ms_flush = {"dispatches": 0, "tokens": 0}
         self._ms_tpd = 0.0
 
+        # speculative decoding: the draft shares the target allocator's page
+        # ids and tables, so allocation, prefix sharing and recycling happen
+        # once; its weights are the caller's, a checkpoint's or drawn from
+        # seed + 1
+        if self.spec_mode == "ngram":
+            self.ngram_n = 2  # trailing-bigram lookup
+            self._ngram_round = build_ngram_round_fn(cfg, gamma=self.spec_gamma)
+        elif self.spec_mode == "draft":
+            draft = self.draft_cfg
+            if draft_params is None:
+                if draft_model_dir is not None:
+                    draft_params = llama.load_hf_weights(draft_model_dir, draft, device=self.device)
+                else:
+                    draft_params = llama.init_params(draft, seed=seed + 1, device=self.device)
+            self.draft_params = draft_params
+            self.draft_cache = dataclasses.replace(
+                PagedKVCache.create(
+                    n_layers=draft.n_layers, n_kv_heads=draft.n_kv_heads, head_dim=draft.head_dim,
+                    n_pages=n_pages, page_size=page_size, kv_dtype=kv_dtype, device=self.device,
+                ),
+                allocator=self.cache.allocator,
+            )
+            self._spec_round_fn = build_spec_round_fn(
+                cfg, draft, paged_impl=self.paged_impl, scatter_impl=self.scatter_impl, gamma=self.spec_gamma,
+            )
+            # the draft's work, priced as the target's is (the usage meter)
+            self._draft_work = _usage.WorkModel.from_engine(
+                draft, cache=self.draft_cache, weight_bytes=param_bytes(draft_params))
+        # both knobs are runtime-mutable: spec_depth caps each round's γ (0:
+        # every round falls back to the decode block), spec_adaptive switches
+        # the per-request controller
+        self.spec_depth = self.spec_gamma
+        self.spec_adaptive = resolve_spec_adaptive(spec_adaptive)
+        self._spec_ctrl = AdaptiveGammaController(self.spec_gamma) if self.spec_gamma else None
+        # spec round accounting, read by the gauges at the refresh throttle
+        self._spec_rounds = 0
+        self._spec_round_tokens = 0
+        self._spec_fallbacks = 0
+        self._spec_flush = {"rounds": 0, "tokens": 0, "fallbacks": 0}
+        self._spec_tpd = 0.0
+        self._spec_gamma_window: list[int] = []  # dispatched per-slot γs
+        self._spec_gamma_p50 = 0.0
+
+    def _resolve_speculative(self, cfg, speculative: tuple, draft_params, draft_model_dir) -> None:
+        """``speculative=(draft, γ)`` checked as the JAX engine checks it
+        (γ >= 1; "ngram" takes no draft arguments; a draft preset must be
+        known; the draft's vocabulary must be the target's), setting
+        ``spec_gamma``, ``spec_mode`` and ``draft_cfg``."""
+        draft, gamma = speculative
+        self.spec_gamma = int(gamma)
+        if self.spec_gamma < 1:
+            raise ValueError("speculative gamma must be >= 1")
+        if draft == "ngram":
+            if draft_model_dir is not None or draft_params is not None:
+                raise ValueError(
+                    "draft_model_dir/draft_params are incompatible with speculative=('ngram', ...): prompt "
+                    "lookup uses no draft model; drop them or pick a draft preset"
+                )
+            self.spec_mode = "ngram"
+            return
+        if isinstance(draft, str):
+            if draft not in MODEL_PRESETS:
+                raise ValueError(f"unknown draft preset {draft!r}; known: {sorted(MODEL_PRESETS)} (or 'ngram')")
+            draft = MODEL_PRESETS[draft]()
+        if draft_model_dir is not None:
+            # the checkpoint's own config describes its weights
+            draft = llama.LlamaConfig.from_hf_config(f"{draft_model_dir}/config.json")
+        if draft.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size {draft.vocab_size} != target {cfg.vocab_size}: speculative accept/reject "
+                "compares token distributions and requires a shared vocabulary"
+            )
+        self.spec_mode, self.draft_cfg = "draft", draft
+
     # -- helpers ------------------------------------------------------------
+
+    #: how far back a prompt lookup's match may start (prompt_lookup_max's analog)
+    NGRAM_LOOKBACK = 1024
+
+    def _ngram_proposals(self, gammas: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Prompt lookup on the host: each slot's trailing n-gram matched
+        against its own prompt and generation through its ``_NgramIndex``,
+        at most ``gammas[i]`` tokens. Returns (proposals [S, γ], n_prop [S])."""
+        gamma = self.spec_gamma
+        props = np.zeros((self.max_slots, gamma), np.int32)
+        n_prop = np.zeros((self.max_slots,), np.int32)
+        for i, s in enumerate(self.slots):
+            if s.free or s.ngram is None:
+                continue
+            budget = min(int(gammas[i]), gamma)
+            if budget <= 0:
+                continue
+            cont = s.ngram.propose(budget)
+            if cont:
+                props[i, : len(cont)] = cont
+                n_prop[i] = len(cont)
+        return props, n_prop
 
     def _bucket_for(self, n: int) -> int:
         for b in self.prefill_buckets:
@@ -709,12 +878,15 @@ class LLMEngine:
             self.cache.allocator.free(slot.pages)
         self._clear_slot(slot)
 
-    @staticmethod
-    def _clear_slot(slot: _Slot) -> None:
+    def _clear_slot(self, slot: _Slot) -> None:
+        if self._spec_ctrl is not None and slot.request is not None:
+            # the controller's acceptance state is per request: it goes with the tenancy
+            self._spec_ctrl.forget(slot.request.request_id)
         slot.pages, slot.trie_pages, slot.private_pages = [], [], []
         slot.prefill = None
         slot.pending_first = False
         slot.fresh = False
+        slot.ngram = None
         slot.request = None
 
     def _charge_slot_usage(self, slot: _Slot) -> None:
@@ -846,6 +1018,24 @@ class LLMEngine:
             decode_steps=max(1, int(self.decode_steps)), tokens_per_dispatch=self._ms_tpd,
             detok_queue_depth=self._detok.queue_depth() if self._detok is not None else 0,
         )
+        if self.spec_gamma:
+            # the dispatched γs' p50 over the window, tokens per spec round
+            # (held when idle), lifetime acceptance, the fallback delta
+            d = self._spec_rounds - self._spec_flush["rounds"]
+            if d > 0:
+                self._spec_tpd = (self._spec_round_tokens - self._spec_flush["tokens"]) / d
+            fb = self._spec_fallbacks - self._spec_flush["fallbacks"]
+            if d > 0 or fb > 0:
+                self._spec_flush = {"rounds": self._spec_rounds, "tokens": self._spec_round_tokens,
+                                    "fallbacks": self._spec_fallbacks}
+            gw = self._spec_gamma_window
+            if gw:
+                self._spec_gamma_p50 = float(np.median(gw))
+                del gw[:]
+            _obs.set_spec_gauges(gamma=self._spec_gamma_p50, tokens_per_dispatch=self._spec_tpd,
+                                 acceptance_rate=self.stats.acceptance_rate())
+            if fb > 0:
+                _obs.record_spec_fallback(fb)
         self._flush_token_counters()
         self.usage.flush()
 
@@ -983,6 +1173,9 @@ class LLMEngine:
         slot.prefill = None
         slot.pending_first = False
         slot.fresh = False
+        if self.spec_mode == "ngram":
+            slot.ngram = _NgramIndex(self.ngram_n, list(req.prompt_tokens) + list(req.generated_tokens),
+                                     self.NGRAM_LOOKBACK)
         table = np.zeros((self.pages_per_slot,), np.int32)  # past the claim: trash page 0
         table[: len(slot.pages)] = slot.pages
         self._page_tables[slot_idx] = table
@@ -1018,6 +1211,10 @@ class LLMEngine:
         logits, _, _ = llama.prefill(
             self.params, tok_d, self.cache.k_pages, self.cache.v_pages, tables_d, lens_d, self.cfg,
         )
+        if self.spec_mode == "draft":
+            # the draft's cache over the same pages (the caches share page ids)
+            llama.prefill(self.draft_params, tok_d, self.draft_cache.k_pages, self.draft_cache.v_pages, tables_d,
+                          lens_d, self.draft_cfg)
         first = sample(
             logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=lens_d,
             needs_filter=bool(((top_ps < 1.0) | (top_ks > 0)).any()),
@@ -1087,6 +1284,9 @@ class LLMEngine:
         logits, _, _ = llama.prefill_chunk(
             self.params, toks_d, self.cache.k_pages, self.cache.v_pages, table_d, len_d, self.cfg, q_offset=offset,
         )
+        if self.spec_mode == "draft":
+            llama.prefill_chunk(self.draft_params, toks_d, self.draft_cache.k_pages, self.draft_cache.v_pages,
+                                table_d, len_d, self.draft_cfg, q_offset=offset)
         return logits
 
     def _finish_sliced_prefill(self, slot_idx: int, pp: _PendingPrefill) -> None:
@@ -1168,7 +1368,8 @@ class LLMEngine:
                         req.trace, "prefill", start=meta["t_wall"], store=self._trace_store,
                         replica=self.trace_name, n_prompt=n_prompt, bucket=meta["bucket"],
                     )
-                req.decode_span = _rt.begin(req.trace, "decode", replica=self.trace_name, spec_mode="-")
+                req.decode_span = _rt.begin(req.trace, "decode", replica=self.trace_name,
+                                            spec_mode=self.spec_mode or "-")
                 self._accept_token(slot_idx, s.last_token)
             _tm(tick, "accept")
         return worked
@@ -1189,6 +1390,8 @@ class LLMEngine:
                     self._release_slot_pages(s)
                 self._finish_stream(req, _Finish("deadline") if req.deadline_expired else _FINISH)
         _tm(tick, "policy")
+        if self.spec_gamma:
+            return self._spec_tick()
         live = [i for i, s in enumerate(self.slots) if s.decodable]
         worked = False
         if live:
@@ -1280,7 +1483,7 @@ class LLMEngine:
             landing, macro = _Landing(torch.stack([toks, valid.to(toks.dtype)]), start), True
         self._device_tokens = last
         snapshot = [(i, self.slots[i].request, self.slots[i].tenancy) for i in live]
-        self._inflight.append((landing, macro, snapshot, (n_run, nominal)))
+        self._inflight.append((landing, macro, snapshot, (n_run, nominal), None))
         for i in live:
             self._opt_positions[i] += n_run
         self.stats.decode_seconds += time.monotonic() - t0
@@ -1308,13 +1511,154 @@ class LLMEngine:
             pos = pos + 1
         return torch.stack(out), tok
 
+    def _spec_tick(self) -> bool:
+        """The decode tick of a speculating engine: harvest the parked first
+        tokens first (nothing is pipelined in spec mode, so slots prefilled
+        this tick join the round), give each decodable slot its γ
+        (``_slot_gamma``; prompt lookup also cuts it to the lookup's length:
+        an empty lookup is not evidence against the request), then run one
+        round, or, when no slot speculates, fall back to one decode block
+        dispatched and read at once."""
+        tick = self._tick
+        worked = self._harvest_prefills()
+        live = [i for i, s in enumerate(self.slots) if s.decodable]
+        if not live:
+            return worked
+        gammas = np.zeros((self.max_slots,), np.int32)
+        batch_fill = len(live) / max(1, self.max_slots)
+        # chunked prefills mid-slice or first tokens parked: admission is
+        # live, and long rounds would stretch the tick it rides on
+        prefill_pressure = bool(self._pending_harvest) or any(s.prefill is not None for s in self.slots)
+        for i in live:
+            s = self.slots[i]
+            s.fresh = False  # rounds feed host tokens directly
+            gammas[i] = self._slot_gamma(s, batch_fill, prefill_pressure)
+        ngram_props = None
+        if self.spec_mode == "ngram":
+            ngram_props = self._ngram_proposals(gammas)
+            gammas = np.minimum(gammas, ngram_props[1])
+        _tm(tick, "admit")  # the round's staging: slot-state bookkeeping
+        if not gammas[live].any():
+            # nobody speculates: the decode block is cheaper than a γ-shaped
+            # verify, so speculation never costs latency. Slots re-enter it
+            # through the override lane (a round ends on host-known tokens)
+            self._spec_fallbacks += 1
+            for i in live:
+                self.slots[i].fresh = True
+            self._dispatch_block(live)
+            worked = self._harvest_prefills() or True
+            return self._process_block() or worked
+        return self._spec_round(live, gammas, ngram_props) or worked
+
+    def _slot_gamma(self, s: _Slot, batch_fill: float, prefill_pressure: bool) -> int:
+        """A slot's proposal budget for the next round (0: the classic lane
+        of the same round). Sampled requests never speculate (the accept
+        path is not (seed, position)-keyed; the classic lane keeps them
+        token-identical to a non-speculative engine), and no proposal goes
+        past the request's own end."""
+        p = s.request.params
+        if p.temperature > 0:
+            return 0
+        cap = max(0, min(int(self.spec_depth), self.spec_gamma))
+        if self.spec_adaptive and self._spec_ctrl is not None:
+            g = self._spec_ctrl.gamma_for(s.request.request_id, gamma_cap=cap, batch_fill=batch_fill,
+                                          prefill_pressure=prefill_pressure)
+        else:
+            g = cap
+        room = min(p.max_tokens - len(s.generated) - 1, (self.max_model_len - 1) - s.position - 1)
+        return max(0, min(g, room))
+
+    def _spec_round(self, live: list[int], gammas: np.ndarray, ngram_props=None) -> bool:
+        """One speculative round over ``live``: propose (the draft model on
+        the card, or the host's lookups), verify and accept in one dispatch,
+        queued on ``_inflight`` with its ``spec_meta`` and read at once by
+        ``_process_block`` (the next round depends on this one's acceptance).
+        The host arrays go to the card in one staged copy."""
+        tick = self._tick
+        t0 = time.monotonic()
+        if self._last_dispatch_at is not None:
+            _obs.record_decode_stall(t0 - self._last_dispatch_at)
+        self._last_dispatch_at = t0
+        _obs.record_engine_batch(len(live))
+        S = self.max_slots
+        tokens = np.zeros((S,), np.int32)
+        positions = np.zeros((S,), np.int32)
+        active = np.zeros((S,), bool)
+        temps = np.ones((S,), np.float32)  # dead slots: the no-filter defaults
+        top_ps = np.ones((S,), np.float32)
+        top_ks = np.zeros((S,), np.int32)
+        seeds = np.full((S,), -1, np.int32)
+        for i in live:
+            s = self.slots[i]
+            tokens[i], positions[i], active[i] = s.last_token, s.position, True
+            p = s.request.params
+            temps[i], top_ps[i], top_ks[i] = p.temperature, p.top_p, p.top_k
+            seeds[i] = _req_seed(s.request)
+        needs_filter = bool(((top_ps < 1.0) | (top_ks > 0)).any())
+        key = self._next_key()
+        start = _mark(self.device)
+        if self.spec_mode == "ngram":
+            props, n_prop = ngram_props
+            staged = self._stage(props, n_prop, gammas, tokens, positions, self._page_tables, active, temps, top_ps,
+                                 top_ks, seeds)
+            toks, valid, _ = self._ngram_round(
+                self.params, self.cache.k_pages, self.cache.v_pages, *staged[:7], key, *staged[7:],
+                needs_filter=needs_filter,
+            )
+            proposed = n_prop
+        else:
+            staged = self._stage(tokens, positions, self._page_tables, active, gammas, temps, top_ps, top_ks, seeds)
+            toks, valid, _ = self._spec_round_fn(
+                self.params, self.draft_params, self.cache.k_pages, self.cache.v_pages, self.draft_cache.k_pages,
+                self.draft_cache.v_pages, *staged[:5], key, *staged[5:], needs_filter=needs_filter,
+            )
+            # the draft proposes its whole budget (lanes that died at the
+            # table's capacity were still paid for)
+            proposed = gammas
+        self._device_tokens = None  # a round ends on host-known tokens
+        landing = _Landing(torch.stack([toks, valid.to(toks.dtype)]), start)
+        snapshot = [(i, self.slots[i].request, self.slots[i].tenancy) for i in live]
+        rows = self.spec_gamma + 1
+        self._inflight.append((landing, True, snapshot, (rows, rows),
+                               {"gammas": gammas, "proposed": proposed, "positions": positions}))
+        self.stats.decode_seconds += time.monotonic() - t0
+        _tm(tick, "decode_dispatch")
+        return self._process_block()
+
+    def _note_spec_work(self, meta: dict, taken: dict) -> None:
+        """A round's work for the usage meter beyond its accepted tokens: the
+        target's weights once (the verify), the verify's chain positions no
+        token was accepted from, and the draft's steps (its γ proposals and
+        the completion step a lane, its weights once a step with a live
+        lane), priced by the decode formulas."""
+        self.usage.note_decode_steps(1)
+        m = self.usage.model
+        flops = nbytes = 0
+        d_lanes = d_ctx = 0
+        for i, n_taken in taken.items():
+            g, pos = int(meta["gammas"][i]), int(meta["positions"][i])
+            rejected = range(pos + n_taken, pos + g + 1)  # chain positions past the accepted ones
+            flops += m.decode_flops(len(rejected), sum(rejected))
+            nbytes += m.decode_bytes(0, sum(rejected))
+            if self.spec_mode == "draft" and g:
+                d_lanes += g + 1
+                d_ctx += sum(range(pos, pos + g + 1))
+        if d_lanes:
+            dm = self._draft_work
+            steps = int(max(meta["gammas"][i] for i in taken)) + 1
+            flops += dm.decode_flops(d_lanes, d_ctx)
+            nbytes += dm.decode_bytes(steps, d_ctx)
+        self.usage.note_spec_work(flops, nbytes)
+
     def _process_block(self) -> bool:
         """Read the oldest block in flight (its one blocking read) and accept
-        each slot's rows: all of a block's, a macro-step's valid prefix, up
-        to the slot's finish. Rows of slots finished, recycled or aborted
-        since the dispatch are dropped."""
+        each slot's rows: all of a block's, a macro-step's or a speculative
+        round's valid prefix, up to the slot's finish. Rows of slots
+        finished, recycled or aborted since the dispatch are dropped. A round
+        (``spec_meta`` set) counts one step, its proposals and acceptances,
+        feeds the controller and ends each slot on a host-known token."""
         tick = self._tick
-        landing, macro, snapshot, (n_steps, nominal) = self._inflight.popleft()
+        landing, macro, snapshot, (n_steps, nominal), spec_meta = self._inflight.popleft()
         t_wait = time.monotonic()
         u_start = self._clock()
         out = landing.numpy()
@@ -1324,12 +1668,15 @@ class LLMEngine:
         self.usage.note_phase_seconds("decode", self._clock() - u_start if secs is None else secs)
         _tm_device(tick, "harvest")
         toks, valid = (out[0], out[1].astype(bool)) if macro else (out, None)
-        # a macro-step's rows with no valid lane ran no live step: count the truth
+        # a macro-step's rows with no valid lane ran no live step: count the
+        # truth; a speculative round is one verify pass
         executed = n_steps if valid is None else int(valid.any(axis=1).sum())
-        self.stats.steps += executed
-        self.usage.note_decode_steps(executed)
+        self.stats.steps += 1 if spec_meta is not None else executed
+        if spec_meta is None:
+            self.usage.note_decode_steps(executed)
         worked = False
         accepted = 0
+        taken_by_slot = {}
         for i, req, tenancy in snapshot:
             s = self.slots[i]
             if s.request is not req or s.tenancy != tenancy or req.aborted:
@@ -1346,17 +1693,43 @@ class LLMEngine:
                 taken += 1
                 worked = True
             accepted += taken
-            if valid is not None and taken < n_steps and s.request is req and s.tenancy == tenancy:
+            taken_by_slot[i] = taken
+            if spec_meta is not None:
+                n_p, acc = int(spec_meta["proposed"][i]), max(0, taken - 1)
+                self.stats.spec_proposed += n_p
+                self.stats.spec_accepted += acc
+                _rt.event(req.trace, "spec_verify", store=self._trace_store, replica=self.trace_name,
+                          proposed=n_p, accepted=acc, gamma=int(spec_meta["gammas"][i]))
+                if s.request is req and s.tenancy == tenancy:
+                    if self._spec_ctrl is not None and n_p > 0:
+                        # the controller sees what the host accepted (stop
+                        # and length cuts included)
+                        self._spec_ctrl.observe(req.request_id, n_p, acc)
+                    # the next dispatch re-feeds the last accepted token
+                    s.fresh = True
+            elif valid is not None and taken < n_steps and s.request is req and s.tenancy == tenancy:
                 # the device retired the lane but the host did not finish the
                 # request: resync through the override lane
                 s.fresh = True
-        self._ms_dispatches += 1
-        self._ms_tokens += accepted
-        # steps saved against the nominal block: the rows not dispatched and,
-        # at N > 1, those whose lanes had all died on the device
-        _obs.record_multistep_dispatch(tokens=accepted, steps_saved=nominal - executed)
-        if self.profiler is not None:
-            self.profiler.note_dispatch_tokens(accepted, steps=int(self.decode_steps))
+        if spec_meta is None:
+            self._ms_dispatches += 1
+            self._ms_tokens += accepted
+            # steps saved against the nominal block: the rows not dispatched
+            # and, at N > 1, those whose lanes had all died on the device
+            _obs.record_multistep_dispatch(tokens=accepted, steps_saved=nominal - executed)
+            if self.profiler is not None:
+                self.profiler.note_dispatch_tokens(accepted, steps=int(self.decode_steps))
+        else:
+            # spec rounds keep their own tokens-per-dispatch series; fallback
+            # rounds are counted at their dispatch
+            self._spec_rounds += 1
+            self._spec_round_tokens += accepted
+            gw = self._spec_gamma_window
+            gw.extend(int(spec_meta["gammas"][i]) for i, _req, _tenancy in snapshot)
+            del gw[:-4096]
+            self._note_spec_work(spec_meta, taken_by_slot)
+            if self.profiler is not None:
+                self.profiler.note_dispatch_tokens(accepted, steps=1)
         self.stats.decode_tokens += accepted
         self.stats.decode_seconds += time.monotonic() - t_wait
         _tm(tick, "accept")
@@ -1365,7 +1738,8 @@ class LLMEngine:
     def _accept_token(self, slot_idx: int, token: int) -> None:
         """Book one sampled token: the counters, TTFT/TPOT, eos / max_tokens /
         model-length finish, then the text: on the detok worker while
-        ``decode_steps > 1`` (or for a stream it already owns), else inline
+        ``decode_steps > 1`` or the engine speculates (or for a stream it
+        already owns), else inline
         (incremental detokenization with stop strings and hold-back). The
         slot and pages are released before the finish marker."""
         slot = self.slots[slot_idx]
@@ -1389,11 +1763,13 @@ class LLMEngine:
             finished, reason = True, "stop"
         else:
             slot.generated.append(token)
+            if slot.ngram is not None:
+                slot.ngram.push(token)  # the prompt-lookup index, O(1)
             if len(slot.generated) >= req.params.max_tokens or slot.position + 1 >= self.max_model_len:
                 finished, reason = True, "length"
         w = self._detok
         tick = self._tick
-        if self.decode_steps > 1 or (w is not None and w.owns(req)):
+        if self.decode_steps > 1 or self.spec_gamma > 0 or (w is not None and w.owns(req)):
             if w is None or not w.alive:
                 w = self._ensure_detok()
             if w.alive:  # else the inline path below

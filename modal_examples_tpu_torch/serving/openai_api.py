@@ -13,7 +13,8 @@ request per choice (seeded ``seed + i`` when a seed is given); a partial shed
 aborts the admitted siblings and answers 429, and ``n > 1`` with ``stream``
 is a 400. The request's trace opens at submit, and its id comes back as
 ``x-mtpu-request-id`` on the 200, the stream and the 500. ``/metrics`` serves
-the catalog's hand-built lines from the engine's stats, then the port's
+the catalog's hand-built lines from the engine's stats (with the speculation
+counters on a speculating engine), then the port's
 registry exposition, never a name twice. Stdlib HTTP, a thread per
 connection; the engine's continuous batching does the multiplexing. Not in
 this slice: the router front and images.
@@ -99,6 +100,12 @@ def _metrics_text(eng) -> str:
         (_C.KV_PAGE_OCCUPANCY, f"{occ['occupancy']:.4f}"),
         (_C.SCHEDULER_ERRORS_TOTAL, f"{eng.error_count}"),
     ]
+    if eng.spec_gamma:
+        hand_built += [
+            (_C.SPEC_PROPOSED_TOTAL, f"{s.spec_proposed}"),
+            (_C.SPEC_ACCEPTED_TOTAL, f"{s.spec_accepted}"),
+            (_C.SPEC_ACCEPTANCE_RATE, f"{s.acceptance_rate():.4f}"),
+        ]
     pc = eng.prefix_cache
     if pc is not None:
         hand_built += [

@@ -1,7 +1,10 @@
 """Token sampling, with JAX's threefry PRNG reproduced bit for bit.
 
 Counterpart of ``modal_examples_tpu/serving/sampling.py``: ``SamplingParams``,
-``seeded_row_keys`` and ``sample``. A seeded row's key is
+``seeded_row_keys`` and ``sample``; plus :func:`uniform` and a per-row
+:func:`categorical`, equal to ``jax.random.uniform`` and
+``vmap(jax.random.categorical)`` over split keys, which speculative decoding
+draws with. A seeded row's key is
 ``fold_in(fold_in(PRNGKey(0), seed), position)``, a function of the request's
 seed and its decode position only. That (seed, position) contract is what
 makes a request's tokens independent of batch composition and dispatch
@@ -82,13 +85,31 @@ def random_bits32(keys, n: int):
     return a ^ b
 
 
+def _unit_floats(bits):
+    """uint32 words -> f32 in [0, 1): 23 random mantissa bits under exponent 0, minus 1."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key, shape: tuple):
+    """``jax.random.uniform(key, shape)`` (f32 in [0, 1)) for one key [2]."""
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.clamp(_unit_floats(random_bits32(key[None], n)[0]), min=0.0).reshape(shape)
+
+
 def gumbel(keys, n: int):
     """``jax.random.gumbel(key, (n,), float32)`` (mode "low") per key -> [R, n]."""
-    bits = random_bits32(keys, n)
-    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    u = (mant - 1.0) + _F32_TINY  # floats * (1 - tiny) + tiny; 1 - tiny == 1 in f32
+    u = _unit_floats(random_bits32(keys, n)) + _F32_TINY  # floats * (1 - tiny) + tiny; 1 - tiny == 1 in f32
     u = torch.clamp(u, min=_F32_TINY)
     return -torch.log(-torch.log(u))
+
+
+def categorical(keys, logits):
+    """``vmap(jax.random.categorical)(keys, logits)``: row i of logits [R, V]
+    (f32) drawn with key i of keys [R, 2], as the argmax of the logits plus
+    gumbel noise. Returns int64 [R]."""
+    return torch.argmax(logits + gumbel(keys, logits.shape[-1]), dim=-1)
 
 
 # -- sampling -------------------------------------------------------------------

@@ -4,7 +4,10 @@
 - every ``csrc/*.cu`` kernel has a launching wrapper (``*_cuda``) that counts
   its launches in a module-level integer, and a plain twin (``*_plain``);
 - no ``try`` surrounds a kernel launch, so a CUDA tensor never falls back to
-  the plain version.
+  the plain version;
+- the speculation modules are scanned, and nothing in the port imports the
+  single-sequence oracle ``serving/speculative.py`` (the JAX package's
+  quarantine of its oracle): only tests do.
 """
 
 import ast
@@ -71,6 +74,35 @@ def test_import_scan_reaches_the_macro_step_path():
     for mod in ("ops/scan_loop.py", "serving/multistep/__init__.py", "serving/multistep/runtime.py",
                 "serving/multistep/detok.py"):
         assert mod in names
+
+
+def test_import_scan_reaches_the_speculation_path():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("serving/spec_runtime/__init__.py", "serving/spec_runtime/runtime.py",
+                "serving/spec_runtime/controller.py", "serving/speculative.py"):
+        assert mod in names
+
+
+def _imports_of(path: Path):
+    """(module, names) of every import in ``path``, relative ones resolved
+    against its package."""
+    pkg = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Import):
+            yield from ((a.name, ()) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = list(pkg[: len(pkg) - node.level + 1]) if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            yield mod, tuple(a.name for a in node.names)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_nothing_in_the_port_imports_the_speculative_oracle(path):
+    oracle = "modal_examples_tpu_torch.serving.speculative"
+    for mod, names in _imports_of(path):
+        assert mod != oracle and not mod.startswith(oracle + "."), f"{path.name} imports the oracle"
+        if mod == "modal_examples_tpu_torch.serving":
+            assert "speculative" not in names, f"{path.name} imports the oracle"
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
