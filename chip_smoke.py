@@ -4,8 +4,10 @@ against its plain version on the card, serves Llama-2-7B-shaped requests
 OpenAI server, again 8 decode steps per dispatch, again through the
 write-then-attend decode, again with int8 weights and an int8 KV cache, and
 through the write-then-attend decode over int8 pages, speculates (a
-self-draft, a 1B-shape draft over int8, prompt lookup), LoRA-fine-tunes the
-same model through ``Trainer``, and prints per-kernel times beside their
+self-draft, a 1B-shape draft over int8, prompt lookup), runs the other
+inference workloads (SD3-shape text-to-image through K1, bge-small
+embeddings, whisper-base transcription, CLIP-L), LoRA-fine-tunes the same
+model through ``Trainer``, and prints per-kernel times beside their
 bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
@@ -147,10 +149,29 @@ Phases (any failure exits non-zero and prints no result):
    the burst's tok/s beside a non-speculating int8 engine's (one burst
    each); (8d) prompt lookup (``("ngram", 4)``) over prompts that repeat a
    phrase, the same checks. Its launches join the kernels line.
+9. the north star's other inference workloads at full width on random
+   weights from seeds (after phase 8, before training): (9a) K1 at the
+   SD3 MMDiT's joint attention shape (B=1, H=24, S=154+1024, D=64, full)
+   against its plain version, bitwise run to run, a planted fault (the
+   ragged last key tile left out) refused, timed beside SDPA; (9b)
+   ``bench.py``'s text-to-image run: ``mmdit_sample`` at
+   ``MMDiTConfig.sd3_shape()`` in bf16 (modulation leaves drawn nonzero),
+   4 steps at guidance 4, then the SD3 VAE's decode to 512 x 512: K1 2 x 4
+   x 24 times an image, the latents against the reference's plain
+   attention products (a planted fault, the last block's attention zeroed,
+   refused), img/s split into sampling and decode; (9c) bge-small
+   embeddings at B=256, S=512 (unit norm, a half-masked batch equal to the
+   half alone, two rows against the CPU run, tok/s); (9d) whisper-base over
+   8 x 30 s, 64 greedy tokens (the encoder with cuDNN's TF32 allowed
+   around it and one chunk's tokens against the CPU run, by the top-2
+   margin rule; ``align_tokens``; a ``StreamingTranscriber``; x-realtime);
+   (9e) CLIP-L on 2 x 77 tokens against the CPU run. Its K1 launches join
+   the kernels line; K1's row carries 9a's figures under ``joint``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -1841,6 +1862,325 @@ def phase_spec_server(eng, OpenAIServer) -> dict:
     return {"series": series}
 
 
+# -- phase 9 ----------------------------------------------------------------------
+
+#: the MMDiT's joint attention at SD3-Medium's shape: 154 text tokens (CLIP-L
+#: and CLIP-G's 77 each) before 1024 image patches (a 64 x 64 latent in 2 x 2
+#: patches), 24 heads of 64, full attention
+JOINT_SHAPE = dict(B=1, H=24, S=154 + 1024, D=64)
+#: the text-to-image run of ``bench.py``'s image child: 4 Euler steps at
+#: guidance 4, one image, then the SD3 VAE's decode to 512 x 512
+T2I_STEPS, T2I_GUIDANCE, T2I_TEXT = 4, 4.0, 154
+T2I_TIMED = 3  # images timed after one warm-up
+#: the K1 pipeline's final latents against the plain-attention pipeline's:
+#: cosine of the latents, cosine of their departure from the shared noise
+#: (the part the model computed), max |diff| / max |plain|. The last two
+#: exist because a planted fault in the last of 24 blocks barely moves the
+#: latents' cosine, which the shared noise dominates
+T2I_COSINE_MIN, T2I_STEP_COSINE_MIN, T2I_REL_MAX = 0.99, 0.999, 5e-2
+#: the port's card run against its CPU run, f32 models (bert, whisper, CLIP)
+CPU_AGREE = 1e-4
+#: ``bench.py``'s embedding batch (B, S) and transcription batch (chunks,
+#: frames, greedy tokens)
+EMBED_BATCH = (256, 512)
+ASR_BATCH = (8, 3000, 64)
+
+
+def cosine(a, b) -> float:
+    return torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0).item()
+
+
+def to_cpu(params):
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    return tree_util.map(lambda t: t.cpu(), params)
+
+
+def joint_k1(fa, card: str) -> dict:
+    """9a: K1 at the joint shape against its plain version on the card,
+    bitwise run to run, a planted fault (the ragged last key tile, keys
+    1152..1177, left out) refused; device, single, back-to-back, plain and
+    SDPA times and the operation bound."""
+    B, H, S, D = (JOINT_SHAPE[k] for k in "BHSD")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = flash_case(gen, B, H, H, S, S, D)
+    scale = D**-0.5
+    o, lse = fa.flash_forward_cuda(q, k, v, causal=False, sm_scale=scale)
+    o2, _ = fa.flash_forward_cuda(q, k, v, causal=False, sm_scale=scale)
+    want, want_lse = fa.flash_forward_plain(q, k, v, causal=False, sm_scale=scale)
+    err, err_lse = max_err(o, want), max_err(lse, want_lse)
+    tile = S // 128 * 128  # the kernel's key tiles are 128 rows at D=64: keys tile.. are the ragged last one
+    fault, _ = fa.flash_forward_cuda(q, k[:, :, :tile].contiguous(), v[:, :, :tile].contiguous(), causal=False,
+                                     sm_scale=scale)
+    fault_err = max_err(fault, want)
+    log(f"9a K1 at the joint shape B={B} H={H} S={S} D={D} (full): max|o-plain|={err:.3g} max|lse-plain|="
+        f"{err_lse:.3g}, bitwise run to run {torch.equal(o, o2)}; planted fault (keys {tile}..{S - 1} left out): "
+        f"max|o-plain|={fault_err:.3g}; SDPA max|o-plain|={max_err(sdpa(q, k, v, False), want):.3g}")
+    if not (err <= TOL["flash_fwd"] and err_lse <= 1e-3 and torch.equal(o, o2)):
+        raise AssertionError(f"K1 at the joint shape: error {err}, lse {err_lse}, bitwise {torch.equal(o, o2)}")
+    if not fault_err > TOL["flash_fwd"]:
+        raise AssertionError(f"the check does not see the ragged last key tile left out: {fault_err}")
+    flops = 4 * B * H * S * S * D
+    nbytes = 4 * B * H * S * D * 2 + B * H * S * 4  # q, k, v in; o, lse out
+    kernel = lambda: fa.flash_forward_cuda(q, k, v, causal=False, sm_scale=scale)  # noqa: E731
+    library = lambda: sdpa(q, k, v, False)  # noqa: E731
+    out = dict(
+        shape=f"B={B} H={H} S={S} (154 text + 1024 image) D={D}, full attention", max_abs_err=err,
+        ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: fa.flash_forward_plain(q, k, v, causal=False, sm_scale=scale), reps=5),
+        bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+        bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+        library_ms=time_ms(library), library_ms_b2b=back_to_back_ms(library), library_device_ms=device_ms(library),
+    )
+    log(f"9a K1 at the joint shape ({card}): device {out['device_ms']:.4f} ms, single {out['ms']:.4f}, back-to-back "
+        f"{out['ms_b2b']:.4f}; plain {out['plain_ms']:.4f}; SDPA device {out['library_device_ms']:.4f}, back-to-back "
+        f"{out['library_ms_b2b']:.4f}; bound {out['bound_ms']:.4f} by {out['bound_by']}")
+    return out
+
+
+def open_the_gates(params: dict, seed: int) -> None:
+    """Draw the MMDiT's zero-initialised leaves (every modulation, the final
+    projection) from a seeded N(0, 0.02) in place: with them zero every
+    block is the identity, the velocity is exactly zero, and no check could
+    see the attention."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    groups = [params["blocks"], params.get("last_block", {}), params]
+    for group in groups:
+        for name, t in group.items():
+            if isinstance(t, torch.Tensor) and ("_mod_" in name or name.startswith("final_")):
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda", dtype=torch.float32).mul_(0.02))
+
+
+def text_to_image(fa, diffusion, vae, reference, tree_util, card: str) -> dict:
+    """9b: ``bench.py``'s text-to-image run at SD3-Medium's shape in bf16
+    through ``mmdit_sample`` and ``vae.decode``: K1 launched 2 forwards x
+    steps x blocks times, counters zeroed just before; the image finite in
+    [-1, 1]; the latents against the same run with the reference's plain
+    attention products (same weights, same noise) within the ``T2I_*``
+    limits, and a planted fault (the last block's attention output zeroed)
+    refused by the same check; img/s over 3 images after a warm-up,
+    sampling and decode timed by CUDA events."""
+    mcfg = diffusion.MMDiTConfig.sd3_shape()
+    vcfg = dataclasses.replace(vae.VAEConfig.sd3_shape(), dtype="bfloat16")
+    t0 = time.monotonic()
+    params = diffusion.mmdit_init(mcfg, seed=0, device="cuda")
+    open_the_gates(params, seed=1)
+    vparams = vae.init_params(vcfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_util.leaves(params))
+    log(f"9b MMDiT sd3_shape ({n_params / 1e9:.3f}B parameters, bf16) and SD3 VAE drawn in {time.monotonic() - t0:.1f}s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    text = torch.randn((1, T2I_TEXT, mcfg.text_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    pooled = torch.randn((1, mcfg.pooled_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    null_t, null_p = torch.zeros_like(text), torch.zeros_like(pooled)
+    shape = (1, mcfg.img_size, mcfg.img_size, mcfg.channels)
+    noise = torch.randn(shape, generator=gen, device="cuda")
+
+    def sample(noise):
+        return diffusion.mmdit_sample(params, text, pooled, null_t, null_p, mcfg, steps=T2I_STEPS,
+                                      guidance=T2I_GUIDANCE, noise=noise)
+
+    fa.launches = 0
+    lat = sample(noise)
+    img = vae.decode(vparams, lat.to(torch.bfloat16), vcfg)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    want = 2 * T2I_STEPS * mcfg.n_layers
+    px = mcfg.img_size * vcfg.downscale
+    log(f"9b K1 launches for one image: {launches} (2 forwards x {T2I_STEPS} steps x {mcfg.n_layers} blocks = {want}); "
+        f"image {tuple(img.shape)} {img.dtype}, range [{img.min().item():.4f}, {img.max().item():.4f}]")
+    if launches != want:
+        raise AssertionError(f"K1 launched {launches} times for one image, not {want}")
+    if img.shape != (1, px, px, 3) or not torch.isfinite(img).all() or img.abs().max().item() > 1.0:
+        raise AssertionError(f"the image is not finite {px}x{px} RGB in [-1, 1]: {tuple(img.shape)}")
+    real = fa.flash_attention
+
+    def with_attention(fn):
+        fa.flash_attention = fn
+        lat = sample(noise)
+        fa.flash_attention = real
+        return lat
+
+    plain = with_attention(lambda q, k, v, causal=True, sm_scale=None: reference.attention(q, k, v, causal=causal))
+    calls = itertools.count()
+
+    def last_block_zeroed(q, k, v, causal=True, sm_scale=None):
+        o = real(q, k, v, causal, sm_scale)
+        return torch.zeros_like(o) if next(calls) % mcfg.n_layers == mcfg.n_layers - 1 else o
+
+    faulty = with_attention(last_block_zeroed)
+
+    def agreement(x):
+        return dict(cosine=cosine(x, plain), cosine_of_the_step=cosine(x - noise, plain - noise),
+                    max_rel_err=max_err(x, plain) / plain.abs().max().item())
+
+    ok, bad = agreement(lat), agreement(faulty)
+    log(f"9b latents, K1 against the reference's plain products: {ok}; planted fault (the last block's attention "
+        f"output zeroed): {bad}")
+    def agrees(r):
+        return (r["cosine"] >= T2I_COSINE_MIN and r["cosine_of_the_step"] >= T2I_STEP_COSINE_MIN
+                and r["max_rel_err"] <= T2I_REL_MAX)
+
+    if not agrees(ok):
+        raise AssertionError(f"the K1 pipeline disagrees with the plain-attention pipeline: {ok}")
+    if agrees(bad):
+        raise AssertionError(f"the agreement check does not see the last block's attention zeroed: {bad}")
+    del plain, faulty
+    sampling, decoding = [], []
+    for i in range(T2I_TIMED):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        lat = sample(torch.randn(shape, generator=gen, device="cuda"))
+        marks[1].record()
+        img = vae.decode(vparams, lat.to(torch.bfloat16), vcfg)
+        marks[2].record()
+        marks[2].synchronize()
+        sampling.append(marks[0].elapsed_time(marks[1]))
+        decoding.append(marks[1].elapsed_time(marks[2]))
+        if not torch.isfinite(img).all():
+            raise AssertionError(f"timed image {i} is not finite")
+    total_s = (sum(sampling) + sum(decoding)) / 1e3
+    out = dict(
+        k1_launches_per_image=launches, agreement=ok, fault=bad, images=T2I_TIMED,
+        img_per_s=T2I_TIMED / total_s, sampling_ms=sampling, decode_ms=decoding,
+        resolution=f"{px}x{px}", steps=T2I_STEPS, guidance=T2I_GUIDANCE,
+    )
+    log(f"9b text-to-image ({card}): {out['img_per_s']:.4f} img/s over {T2I_TIMED} images; sampling ms "
+        f"{sampling}, VAE decode ms {decoding}")
+    del params, vparams
+    return out
+
+
+def embeddings(bert, card: str) -> dict:
+    """9c: bge-small (f32) at ``bench.py``'s B=256, S=512: unit-norm
+    embeddings; half of each row masked gives the embedding of the first
+    half alone (and moves it); two rows against the port's CPU run; tok/s."""
+    cfg = bert.BertConfig.bge_small_en()
+    params = bert.init_params(cfg, seed=0, device="cuda")
+    B, S = EMBED_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    emb = bert.embed(params, toks, mask, cfg)
+    norm_err = (torch.linalg.vector_norm(emb, dim=-1) - 1).abs().max().item()
+    half = mask.clone()
+    half[:, S // 2:] = 0
+    padded = bert.embed(params, toks, half, cfg)
+    alone = bert.embed(params, toks[:, : S // 2].contiguous(), None, cfg)
+    pad_err, moved = max_err(padded, alone), max_err(padded, emb)
+    cpu = bert.embed(to_cpu(params), toks[:2].cpu(), mask[:2].cpu(), cfg)
+    cpu_err = max_err(emb[:2].cpu(), cpu)
+    log(f"9c bge-small B={B} S={S}: max|norm-1|={norm_err:.3g}; half masked against the first half alone "
+        f"{pad_err:.3g} (moved {moved:.3g} from the unmasked); two rows against the CPU run {cpu_err:.3g}")
+    if not (norm_err <= 1e-5 and pad_err <= 1e-5 and moved > 1e-3 and cpu_err <= CPU_AGREE):
+        raise AssertionError(f"bge-small: norm {norm_err}, padding {pad_err}, moved {moved}, cpu {cpu_err}")
+    ms = time_ms(lambda: bert.embed(params, toks, mask, cfg), reps=5, warmup=1)
+    out = dict(batch=B, seq=S, ms=ms, tok_per_s=B * S / (ms / 1e3), cpu_max_abs=cpu_err)
+    log(f"9c bge-small embeddings ({card}): {out['tok_per_s']:.0f} tok/s ({ms:.2f} ms a batch of {B} x {S})")
+    return out
+
+
+def first_divergence(toks, ref, margins, tol: float) -> dict:
+    """Greedy tokens against a reference run's: equal up to the first
+    position where they differ, and there the reference's top-2 logit margin
+    within ``tol`` (a near-tie); the positions after it are not compared."""
+    toks, ref = toks.tolist(), ref.tolist()
+    for p, (a, b) in enumerate(zip(toks, ref)):
+        if a != b:
+            if margins[p] > tol:
+                raise AssertionError(f"greedy token {p}: {a} against {b} with a top-2 margin of {margins[p]}")
+            return dict(compared=p + 1, equal=p, near_tie_at=p, margin=margins[p], not_compared=len(ref) - p - 1)
+    return dict(compared=len(ref), equal=len(ref), near_tie_at=None, not_compared=0)
+
+
+def transcription(whisper, audio, StreamingTranscriber, card: str) -> dict:
+    """9d: whisper-base (f32), 8 chunks x 3000 frames, 64 greedy tokens, as
+    ``bench.py``'s ASR child: one chunk's encoder states (cuDNN's TF32 left
+    on around the call: the entry point turns it off for its own
+    convolutions) and tokens against the port's CPU run (tokens by the
+    margin rule); ``align_tokens`` monotone and within the audio; a
+    ``StreamingTranscriber`` over 5 s of tones in 0.5 s pieces, then a
+    flush; x-realtime."""
+    cfg = whisper.WhisperConfig.base()
+    params = whisper.init_params(cfg, seed=0, device="cuda")
+    B, T, n_tok = ASR_BATCH
+    mel = torch.randn((B, T, cfg.n_mels), generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    cpu_params = to_cpu(params)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    states = whisper.encode(params, mel[:1], cfg)
+    torch.backends.cudnn.allow_tf32 = allow
+    enc_err = max_err(states.cpu(), whisper.encode(cpu_params, mel[:1].cpu(), cfg))
+    toks = whisper.greedy_transcribe(params, mel, cfg, bos_id=0, eos_id=1, max_tokens=n_tok)
+    ref = whisper.greedy_transcribe(cpu_params, mel[:1].cpu(), cfg, bos_id=0, eos_id=1, max_tokens=n_tok)[0]
+    buf = torch.cat([torch.zeros(1, dtype=torch.int32), ref])[None]
+    logits = whisper.decode(cpu_params, buf, whisper.encode(cpu_params, mel[:1].cpu(), cfg), cfg)[0, :-1]
+    top2 = logits.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    tokens = first_divergence(toks[0].cpu(), ref, margins, tol=1e-3)
+    times = whisper.align_tokens(params, mel[:1], toks[:1], cfg, bos_id=0)
+    monotone = bool((np.diff(times[0, :, 0]) >= 0).all() and (times[0, :, 1] >= times[0, :, 0]).all())
+    within = float(times.max()) <= T * 0.01 + 1e-6
+    log(f"9d whisper-base: encoder states against the CPU run {enc_err:.3g} (cuDNN TF32 allowed outside); chunk 0's "
+        f"tokens against the CPU run {tokens}; align_tokens monotone {monotone}, last end {float(times.max()):.2f}s "
+        f"of {T * 0.01:.0f}s")
+    if not (enc_err <= CPU_AGREE and monotone and within):
+        raise AssertionError(f"whisper-base: encoder {enc_err}, monotone {monotone}, within the audio {within}")
+    wave = audio.synth_tone_audio([440.0, 880.0, 1320.0], seconds=5.0)
+    st = StreamingTranscriber(params, cfg, bos_id=0, eos_id=1)
+    t0 = time.monotonic()
+    updates = [st.feed(wave[i:i + 8000]) for i in range(0, len(wave), 8000)]
+    final = st.flush()
+    stream_s = time.monotonic() - t0
+    log(f"9d streaming: {sum(u is not None for u in updates)} updates over 10 pieces and a flush in {stream_s:.2f}s; "
+        f"{len(final.committed_text)} characters committed")
+    ms = time_ms(lambda: whisper.greedy_transcribe(params, mel, cfg, bos_id=0, eos_id=1, max_tokens=n_tok), reps=2,
+                 warmup=1)
+    audio_s = B * T * audio.HOP / audio.SAMPLE_RATE  # 10 ms a frame
+    out = dict(chunks=B, frames=T, tokens=n_tok, ms=ms, x_realtime=audio_s / (ms / 1e3), encoder_cpu_max_abs=enc_err,
+               greedy=tokens, streaming_s=stream_s)
+    log(f"9d whisper-base transcription ({card}): {out['x_realtime']:.1f}x realtime ({ms:.1f} ms for {audio_s:.0f} s "
+        "of audio)")
+    return out
+
+
+def clip_text_states(clip_text) -> dict:
+    """9e: CLIP-L on 2 x 77 tokens: hidden and pooled states against the
+    port's CPU run."""
+    cfg = clip_text.CLIPTextConfig.clip_l()
+    params = clip_text.init_params(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size - 1, (2, cfg.max_len), generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+    toks[0, 20] = toks[1, 76] = cfg.eos_token_id
+    hidden, pooled = clip_text.forward(params, toks, cfg)
+    h_cpu, p_cpu = clip_text.forward(to_cpu(params), toks.cpu(), cfg)
+    errs = dict(hidden=max_err(hidden.cpu(), h_cpu), pooled=max_err(pooled.cpu(), p_cpu))
+    log(f"9e CLIP-L 2 x 77 tokens against the CPU run: {errs}")
+    if not max(errs.values()) <= CPU_AGREE:
+        raise AssertionError(f"CLIP-L disagrees with its CPU run: {errs}")
+    return errs
+
+
+def phase_inference_workloads(fa, reference, card: str) -> dict:
+    """Phase 9: the north star's other inference workloads at full width on
+    random weights from seeds (9a-9e)."""
+    from modal_examples_tpu_torch.models import bert, clip_text, diffusion, vae, whisper
+    from modal_examples_tpu_torch.serving.streaming_asr import StreamingTranscriber
+    from modal_examples_tpu_torch.utils import audio
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    out = {"joint_k1": joint_k1(fa, card)}
+    out["text_to_image"] = text_to_image(fa, diffusion, vae, reference, tree_util, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["embeddings"] = embeddings(bert, card)
+    out["transcription"] = transcription(whisper, audio, StreamingTranscriber, card)
+    out["clip_l"] = clip_text_states(clip_text)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- training ---------------------------------------------------------------------
 
 
@@ -2664,6 +3004,9 @@ def main() -> int:
     log(f"phase 8 speculation: ok in {time.monotonic() - t0:.1f}s: {json.dumps(spec)}")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    workloads = phase_inference_workloads(fa, reference, card)
+    log(f"phase 9 inference workloads ({card}): ok in {time.monotonic() - t0:.1f}s: {json.dumps(workloads)}")
     train = phase_training(fa, llama, lora, training, params)
     del params
     gc.collect()
@@ -2680,13 +3023,19 @@ def main() -> int:
     # phase 8 adds its launches (the verify's K3 and K4 or K4-int8, the
     # drafts' decodes, prefills and fallback blocks) to every kernel it ran
     counts = {k: v + spec["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 9's image: the MMDiT's joint attention, once a block a forward
+    counts["flash_fwd"] += workloads["text_to_image"]["k1_launches_per_image"]
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
-        f"speculation {spec['launches']}; kernels line (flash_fwd and phase 8 summed) {counts}")
+        f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}; "
+        f"kernels line (flash_fwd, phases 8 and 9 summed) {counts}")
+    errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     rows = phase_numbers(fa, pa, counts, errs)
     for r in rows:  # the write-then-attend kernels also time their verify route (8a)
         if r["name"] in spec["verify_route"]:
             r["verify"] = spec["verify_route"][r["name"]]
+        if r["name"] == "flash_fwd":  # and K1 its joint attention (9a)
+            r["joint"] = workloads["joint_k1"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

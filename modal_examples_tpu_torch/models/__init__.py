@@ -1,1 +1,4 @@
-"""Llama model and LoRA adapters of the port."""
+"""Models of the port: Llama (with LoRA adapters and int8 weights), and for
+the other inference workloads bert (embeddings), whisper (transcription),
+clip_text, vae and diffusion (text-to-image: the DiT and the SD3-family
+MMDiT)."""

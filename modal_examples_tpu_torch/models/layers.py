@@ -1,24 +1,30 @@
 """Transformer building blocks used by the Llama model (plain PyTorch).
 
-Counterpart of the subset of ``modal_examples_tpu/models/layers.py`` that
-Llama uses: ``rms_norm``, ``rotary_embedding`` (with llama-3.1
-``rope_scaling``), ``apply_rope``, ``mm`` (dense, or over an int8
-``QuantizedWeight`` through the int8 matmul kernel), the LoRA-aware
-projections ``_proj_f32``/``_proj``, ``swiglu_mlp``, ``attention_op`` and
+Counterpart of ``modal_examples_tpu/models/layers.py``: ``rms_norm``,
+``layer_norm``, ``rotary_embedding`` (with llama-3.1 ``rope_scaling``),
+``apply_rope``, ``mm`` (dense, or over an int8 ``QuantizedWeight`` through
+the int8 matmul kernel), the LoRA-aware projections ``_proj_f32``/``_proj``,
+``swiglu_mlp``, ``quick_gelu``, ``gelu_mlp``, ``attention_op`` and
 ``causal_self_attention``. Norms and softmax-adjacent math run in f32;
-products accumulate in f32.
+products accumulate in f32. Three helpers serve the other models:
+``SeededInit`` (random parameters drawn on the device), ``from_numpy_tree``
+(a JAX parameter tree's numpy leaves as tensors) and ``exact_f32_convs``
+(cuDNN's f32 convolutions without TF32).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops import flash_attention as _flash
 from ..ops import quantized_matmul as _qmm
 from ..ops import reference
+from ..utils import tree
 from .quantize import QuantizedWeight
 
 
@@ -27,6 +33,15 @@ def rms_norm(x, weight, eps: float = 1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm in f32 (mean, then the mean squared deviation), cast back to
+    the input dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * weight.float() + bias.float()).to(x.dtype)
 
 
 def rotary_embedding(positions, head_dim: int, theta: float = 10000.0, rope_scaling: dict | None = None):
@@ -139,6 +154,21 @@ def swiglu_mlp(params: dict, x, lora: dict | None = None, lora_scale: float = 1.
     return _proj(h, params["down"], "down", lora, lora_scale)
 
 
+def quick_gelu(x):
+    """CLIP's activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu_mlp(params: dict, x, *, exact: bool = False):
+    """GELU feed-forward with biases (``fc_w``, ``fc_b``, ``proj_w``,
+    ``proj_b``): f32 sums, the activation in f32 and rounded to the input
+    dtype before the second product. ``exact`` selects erf-GELU (BERT,
+    Whisper) over the tanh approximation."""
+    h = mm(x, params["fc_w"]) + params["fc_b"].float()
+    h = F.gelu(h, approximate="none" if exact else "tanh").to(x.dtype)
+    return (mm(h, params["proj_w"]) + params["proj_b"].float()).to(x.dtype)
+
+
 def attention_op(q, k, v, causal: bool, impl: str = "flash"):
     """``flash``: the flash kernels (forward and backward); ``xla``: the plain
     dense attention, differentiated by autograd (the JAX name is kept)."""
@@ -177,3 +207,49 @@ def causal_self_attention(
     o = attention_op(q, k, v, causal, attn_impl)
     o = o.transpose(1, 2).reshape(B, S, E)
     return _proj(o, params["wo"], "wo", lora, lora_scale)
+
+
+class SeededInit:
+    """Random parameters drawn on one device in one dtype from a seeded
+    ``torch.Generator`` (a full-size init never holds an f32 copy): ``dense``
+    is N(0, 1) times ``scale``, by default fan_in**-0.5 with fan_in the
+    contraction dim ``shape[-2]`` (the JAX ``init_dense``); ``full`` a
+    constant (zero biases and zero-init leaves, unit norms)."""
+
+    def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
+        self.device, self.dtype = device, dtype
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(self, *shape: int, scale: float | None = None):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+        w = torch.randn(shape, generator=self.gen, device=self.device, dtype=self.dtype)
+        return w.mul_(fan_in**-0.5 if scale is None else scale)
+
+    def full(self, value: float, *shape: int):
+        return torch.full(shape, value, device=self.device, dtype=self.dtype)
+
+
+def from_numpy_tree(np_tree, dtype: torch.dtype, device: torch.device, transform=None):
+    """A JAX parameter tree with numpy leaves (bf16 ones as ml_dtypes arrays)
+    as the same structure of ``dtype`` tensors on ``device``. ``transform``
+    (numpy in, numpy out) changes a leaf's layout first; values are kept
+    exactly (every bf16 and f32 value is an f32 value)."""
+
+    def conv(a):
+        a = np.asarray(a, np.float32)
+        if transform is not None:
+            a = transform(a)
+        return torch.tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return tree.map(conv, np_tree)
+
+
+@contextlib.contextmanager
+def exact_f32_convs():
+    """cuDNN's f32 convolutions in f32, not TF32, for the block's duration:
+    PyTorch lets cuDNN use TF32 by default, which the f32 models' reference
+    does not. The other cuDNN flags keep their values; the previous ones
+    come back on exit."""
+    c = torch.backends.cudnn
+    with c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic, allow_tf32=False):
+        yield

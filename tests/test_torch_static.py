@@ -83,6 +83,14 @@ def test_import_scan_reaches_the_speculation_path():
         assert mod in names
 
 
+def test_import_scan_reaches_the_inference_workloads():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("models/bert.py", "models/whisper.py", "models/clip_text.py", "models/vae.py",
+                "models/diffusion.py", "serving/streaming_asr.py", "utils/audio.py", "utils/metrics.py",
+                "utils/images.py"):
+        assert mod in names
+
+
 def _imports_of(path: Path):
     """(module, names) of every import in ``path``, relative ones resolved
     against its package."""
