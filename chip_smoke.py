@@ -7,8 +7,9 @@ through the write-then-attend decode over int8 pages, speculates (a
 self-draft, a 1B-shape draft over int8, prompt lookup), runs the other
 inference workloads (SD3-shape text-to-image through K1, bge-small
 embeddings, whisper-base transcription, CLIP-L), LoRA-fine-tunes the same
-model through ``Trainer``, and prints per-kernel times beside their
-bounds.
+model through ``Trainer``, serves Mixtral-8x7B (bf16 at depth 8, int8 at
+full depth through the OpenAI server), and prints per-kernel times beside
+their bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -167,6 +168,30 @@ Phases (any failure exits non-zero and prints no result):
    margin rule; ``align_tokens``; a ``StreamingTranscriber``; x-realtime);
    (9e) CLIP-L on 2 x 77 tokens against the CPU run. Its K1 launches join
    the kernels line; K1's row carries 9a's figures under ``joint``.
+10. Mixtral-8x7B (after training, every earlier tree freed): (10a) K7 at
+   the expert products, M = 8 and 2048 over [4096, 14336] and
+   [14336, 4096], against ``qmm_plain`` within 1e-3 of its largest value,
+   bitwise run to run, a planted fault (the last K tile left out) refused,
+   timed single, back to back and on the profiler beside the bf16 GEMM
+   (K7's row carries these under ``expert``); (10b) ``mixtral_8x7b()`` in
+   bf16 at full width and depth 8 (23.7 GB) through the ragged engine at
+   N=1 and 8 (rows identical) and the write-then-attend engine, counters
+   zeroed around each burst (the decode kernel n_layers x dispatched
+   steps), each structure's prefill + decode step against the plain
+   reference with f32 expert activations (cosine > 0.999, max rel err <
+   5e-2) with the reference routed through the served choices (the free-
+   running reference's numbers logged), the choices against the plain
+   routing of the same layer inputs (equal outside ties within 1e-6, ties
+   counted) and against the free-running reference's (at least 80% equal,
+   the rest counted), and the port's ``forward`` on the card held the same
+   way;
+   (10c) ``build_engine("mixtral-8x7b", quantization="int8")`` at 32
+   layers with an int8 cache: weights at most 0.52 of the bf16 bytes,
+   phase 3's burst (K2-int8 n_layers x dispatched steps, K7 (4 + 3 x 8) x
+   32 + 1 a pass), the same dense and routing checks over the int8 weights
+   and cache rows, the burst again through ``OpenAIServer``, tok/s, TTFT
+   and the peak memory (under the card's). Its launches join the kernels
+   line.
 """
 
 from __future__ import annotations
@@ -903,13 +928,46 @@ def plain_mm(x, w, layers):
     return layers.mm(x, w)
 
 
-def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int = 0, all_positions: bool = False):
+def plain_moe(layer, h, cfg, layers, routes: list | None = None, forced=None):
+    """The reference's serving experts (``moe_swiglu_nodrop``) from plain
+    versions: the router and every expert on f32 activations (bf16 weights
+    widened to f32, int8 ones through ``qmm_plain``), each token's top k
+    renormalised, the combine summed in f32, the result in ``h``'s dtype.
+    ``forced`` ([T, k] expert indices) replaces each token's top k by the
+    given experts, weighted by their own probabilities here. Appends
+    (probs [T, E], top-k indices [T, k]) to ``routes``."""
+    import torch.nn.functional as F
+
+    from modal_examples_tpu_torch.models.quantize import QuantizedWeight
+
+    x = h.reshape(-1, cfg.dim).float()
+    probs = torch.softmax(x @ layer["router"].float(), dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.top_k_experts, dim=-1)
+    if forced is not None:
+        top_i = forced.to(top_i.device).long()
+        top_p = probs.gather(1, top_i)
+    combine = torch.zeros_like(probs).scatter_(1, top_i, top_p / top_p.sum(dim=-1, keepdim=True))
+    out = torch.zeros_like(x)
+    for e in range(cfg.n_experts):
+        wg, wu, wd = (QuantizedWeight(q=w.q[e], scale=w.scale[e]) if isinstance(w, QuantizedWeight) else w[e]
+                      for w in (layer["moe_gate"], layer["moe_up"], layer["moe_down"]))
+        y = plain_mm(F.silu(plain_mm(x, wg, layers)) * plain_mm(x, wu, layers), wd, layers)
+        out += combine[:, e, None] * y
+    if routes is not None:
+        routes.append((probs, top_i))
+    return out.reshape(h.shape).to(h.dtype)
+
+
+def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int = 0, all_positions: bool = False,
+                           routes: list | None = None, forced: list | None = None):
     """Last-position logits (every position's, ``[S, vocab]``, with
     ``all_positions``) of a dense causal forward built from the plain
     versions (no kernel): the reference for the served path. Int8 weights go
     through ``qmm_plain``; K and V at the first ``n_cached`` positions (those
     the served path reads back from an int8 cache) go through
-    ``dequantize_kv(quantize_kv(.))``."""
+    ``dequantize_kv(quantize_kv(.))``. A mixture of experts runs
+    :func:`plain_moe`, its routing appended to ``routes`` layer by layer,
+    with layer l's experts forced to ``forced[l]`` where that is given."""
     import torch.nn.functional as F
 
     from modal_examples_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
@@ -924,7 +982,7 @@ def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int
     cos, sin = layers.rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     x = params["embed"][tokens]
     D = cfg.head_dim
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
         h = layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q = plain_mm(h, layer["wq"], layers).to(x.dtype).view(1, S, cfg.n_heads, D).transpose(1, 2)
         k = plain_mm(h, layer["wk"], layers).to(x.dtype).view(1, S, cfg.n_kv_heads, D).transpose(1, 2)
@@ -932,17 +990,21 @@ def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int
         o = reference.attention(layers.apply_rope(q, cos, sin), cached(layers.apply_rope(k, cos, sin)), cached(v))
         x = x + plain_mm(o.transpose(1, 2).reshape(1, S, -1), layer["wo"], layers).to(x.dtype)
         h = layers.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        if cfg.n_experts:
+            x = x + plain_moe(layer, h, cfg, layers, routes, None if forced is None else forced[li])
+            continue
         gate, up = plain_mm(h, layer["gate"], layers), plain_mm(h, layer["up"], layers)
         x = x + plain_mm((F.silu(gate) * up).to(x.dtype), layer["down"], layers).to(x.dtype)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return plain_mm(x[0] if all_positions else x[:, -1], params["lm_head"], layers)
 
 
-def check_against_dense(eng, llama, layers, reference):
-    """Prefill 99 tokens + one decode step (the engine's ``paged_impl``)
-    through the kernels (own small cache of the engine's kv dtype) against
-    the dense plain forward of the same 100 tokens. Returns (errors, prefill
-    logits, tokens)."""
+def served_logits(eng, llama) -> tuple:
+    """Prefill 99 random tokens + one decode step (the engine's
+    ``paged_impl``) through the kernels, in a small cache of the engine's kv
+    dtype of their own. Returns (the 100 tokens, {"prefill", "decode":
+    logits [1, vocab]}, how many positions the decode step reads back from
+    an int8 cache)."""
     from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
 
     cfg, params = eng.cfg, eng.params
@@ -960,21 +1022,35 @@ def check_against_dense(eng, llama, layers, reference):
     dec, _, _ = llama.decode_step(params, toks[0, 99:], torch.tensor([99], device="cuda"),
                                   cache.k_pages, cache.v_pages, tables,
                                   torch.tensor([True], device="cuda"), cfg, impl=eng.paged_impl)
-    out = {}
     # prefill attends over its own K/V before they are written; the decode
     # step reads the 99 cached positions back from the cache
-    for name, got, n, n_cached in (("prefill", pre, 99, 0), ("decode", dec, 100, 99 if cache.quantized else 0)):
-        ref = dense_reference_logits(params, cfg, toks[:, :n], layers, reference, n_cached)
-        if got.shape != (1, cfg.vocab_size) or not torch.isfinite(got).all():
-            raise AssertionError(f"{name} logits malformed: {tuple(got.shape)}")
-        rel = max_err(got, ref) / ref.abs().max().item()
-        cos = torch.nn.functional.cosine_similarity(got.float(), ref.float()).item()
-        log(f"{name} logits vs dense plain forward: max rel err {rel:.3g}, cosine {cos:.6f}, "
-            f"argmax {int(got.argmax())} vs {int(ref.argmax())}")
-        if not (rel < 5e-2 and cos > 0.999):
-            raise AssertionError(f"{name} logits disagree with the dense plain forward")
-        out[name] = {"max_rel_err": rel, "cosine": cos}
-    return out, pre, toks
+    return toks, {"prefill": pre, "decode": dec}, 99 if cache.quantized else 0
+
+
+def logits_vs(name: str, got, ref, vocab: int, hold: bool = True) -> dict:
+    """Max relative error and cosine of ``got`` against ``ref``, logged;
+    with ``hold``, refused outside cosine > 0.999 and max rel err < 5e-2."""
+    if got.shape != (1, vocab) or not torch.isfinite(got).all():
+        raise AssertionError(f"{name} logits malformed: {tuple(got.shape)}")
+    rel = max_err(got, ref) / ref.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(got.float(), ref.float()).item()
+    log(f"{name} logits vs dense plain forward: max rel err {rel:.3g}, cosine {cos:.6f}, "
+        f"argmax {int(got.argmax())} vs {int(ref.argmax())}")
+    if hold and not (rel < 5e-2 and cos > 0.999):
+        raise AssertionError(f"{name} logits disagree with the dense plain forward")
+    return {"max_rel_err": rel, "cosine": cos}
+
+
+def check_against_dense(eng, llama, layers, reference):
+    """Prefill 99 tokens + one decode step (:func:`served_logits`) against
+    the dense plain forward of the same 100 tokens. Returns (errors, prefill
+    logits, tokens)."""
+    toks, got, n_cached = served_logits(eng, llama)
+    out = {}
+    for name, n, nc in (("prefill", 99, 0), ("decode", 100, n_cached)):
+        ref = dense_reference_logits(eng.params, eng.cfg, toks[:, :n], layers, reference, nc)
+        out[name] = logits_vs(name, got[name], ref, eng.cfg.vocab_size)
+    return out, got["prefill"], toks
 
 
 class BlockWatch:
@@ -2181,6 +2257,352 @@ def phase_inference_workloads(fa, reference, card: str) -> dict:
     return out
 
 
+# -- phase 10 ---------------------------------------------------------------------
+
+#: 10a: K7 at Mixtral's expert products, (K, N) of gate/up and of down, at a
+#: decode step's M and the prefill batch's
+EXPERT_SHAPES = ((4096, 14336), (14336, 4096))
+EXPERT_MS = (8, 2048)
+#: 10b: the bf16 Mixtral at full width and this depth (about 23.7 GB)
+MOE_BF16_LAYERS = 8
+#: routing, held two ways: the served choices against the plain f32 routing
+#: of the same layer inputs must agree wherever the k-th and (k+1)-th
+#: probabilities differ by more than ROUTE_TIE (nearer pairs are ties,
+#: counted); against the free-running reference's routing (its own f32
+#: hidden states, which the served bf16 ones drift from: a token whose
+#: choice flips at one layer drifts at the next), at least ROUTE_AGREE of the
+#: choices must agree (a router choosing 2 of 8 at random would share 1 in
+#: 28), the disagreements counted with their largest margin
+ROUTE_TIE = 1e-6
+ROUTE_AGREE = 0.8
+#: the served logits' contract against the plain reference (as phases 3-8)
+CONTRACT = {"cosine_min": 0.999, "max_rel_err": 5e-2}
+
+
+def expert_k7() -> dict:
+    """10a: K7 at ``EXPERT_SHAPES`` x ``EXPERT_MS`` against ``qmm_plain``
+    (within 1e-3 of its largest value), bitwise run to run, a planted fault
+    (the last 128 columns of x zeroed: the last K tile of either path left
+    out) refused; timed single, back to back and on the profiler over two
+    weight copies in turn (each 58.7 MB, past the 50 MB L2), beside the bf16
+    GEMM over the dequantized weights."""
+    from modal_examples_tpu_torch.models.quantize import dequantize_weight, quantize_weight
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out, worst = {}, 0.0
+    for K, N in EXPERT_SHAPES:
+        weights = [quantize_weight(torch.randn(K, N, generator=gen, device="cuda")) for _ in range(2)]
+        bf16 = [dequantize_weight(w, torch.bfloat16) for w in weights]
+        w = weights[0]
+        for M in EXPERT_MS:
+            x = rand_bf16(gen, M, K)
+            want = qmm.qmm_plain(x, w.q, w.scale)
+            got = qmm.qmm_cuda(x, w.q, w.scale)
+            tol = 1e-3 * want.abs().max().item()
+            err = max_err(got, want)
+            cut = x.clone()
+            cut[:, -128:] = 0
+            fault = max_err(qmm.qmm_cuda(cut, w.q, w.scale), want)
+            label = f"M={M} K={K} N={N}"
+            if not err <= tol:
+                raise AssertionError(f"10a K7 {label}: max abs err {err} over {tol}")
+            if not torch.equal(got, qmm.qmm_cuda(x, w.q, w.scale)):
+                raise AssertionError(f"10a K7 {label}: two launches differ")
+            if not fault > tol:
+                raise AssertionError(f"10a K7 {label}: the planted fault (last K tile left out) passed: {fault}")
+            flops, nbytes = 2 * M * N * K, M * K * 2 + K * N + N * 4 + M * N * 4  # x, q, scale in; f32 out
+            kernel = cycling([lambda w=w: qmm.qmm_cuda(x, w.q, w.scale) for w in weights])
+            bf16_mm = cycling([lambda wd=wd: torch.mm(x, wd) for wd in bf16])
+            out[label] = dict(
+                path=qmm.kernel_path(x, w.q), max_abs_err=err, rel_err=err / want.abs().max().item(),
+                fault_err=fault, ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+                plain_ms=time_ms(lambda: qmm.qmm_plain(x, w.q, w.scale), reps=5),
+                bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+                bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+                bf16_mm_ms=time_ms(bf16_mm), bf16_mm_ms_b2b=back_to_back_ms(bf16_mm),
+                bf16_mm_device_ms=device_ms(bf16_mm),
+            )
+            worst = max(worst, err)
+            log(f"10a K7 {label}: {json.dumps(out[label])}")
+        del weights, bf16, w
+    return {"shapes": out, "max_abs_err": worst}
+
+
+class RouteWatch:
+    """Records the served path's routing while it is entered: each call of
+    ``moe._nodrop_weights`` (one a layer) as (layer input [T, D], router,
+    top-k indices [T, k])."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.inner = self.moe._nodrop_weights
+
+        def recording(x, router, top_k):
+            got = self.inner(x, router, top_k)
+            self.calls.append((x, router, got[0]))
+            return got
+
+        self.moe._nodrop_weights = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._nodrop_weights = self.inner
+
+
+def plain_route(x, router, k: int):
+    """The reference's routing of ``x`` [T, D] in plain f32: (probs, top-k indices)."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    return probs, torch.topk(probs, k, dim=-1).indices
+
+
+def compare_routes(served: list, ref: list, k: int) -> dict:
+    """Expert choices (sets of k a token) of ``served`` against ``ref``,
+    both lists of (probs or None, top-k indices) a layer: agreements, ties
+    (the reference's k-th and (k+1)-th probabilities within ``ROUTE_TIE``)
+    and the disagreements outside the ties with the largest margin among
+    them."""
+    agree = ties = tie_disagree = far_disagree = 0
+    far_margin = 0.0
+    for s_idx, (r_probs, r_idx) in zip(served, ref, strict=True):
+        same = (s_idx.sort(dim=-1).values == r_idx.sort(dim=-1).values).all(dim=-1)
+        top = r_probs.sort(dim=-1, descending=True).values
+        margin = top[:, k - 1] - top[:, k]
+        tie = margin <= ROUTE_TIE
+        agree += int(same.sum())
+        ties += int(tie.sum())
+        tie_disagree += int((~same & tie).sum())
+        far_disagree += int((~same & ~tie).sum())
+        if (~same & ~tie).any():
+            far_margin = max(far_margin, margin[~same & ~tie].max().item())
+    n = agree + tie_disagree + far_disagree
+    return {"choices": n, "agree": agree, "agree_share": agree / n, "ties": ties, "tie_disagree": tie_disagree,
+            "far_disagree": far_disagree, "far_disagree_max_margin": far_margin}
+
+
+def moe_dense_check(eng, llama, layers, reference, moe, label: str) -> dict:
+    """Prefill + one decode step (the engine's structure,
+    :func:`served_logits`) against the plain reference with f32 expert
+    activations. Held at the contract: the reference routed through the
+    experts the served path chose (each token's choices a layer, weighted by
+    the reference's own f32 probabilities), so that a near-tie which the
+    served bf16 hidden state breaks the other way does not swap an expert
+    between the two. The choices themselves are held against the plain
+    routing of the same layer inputs (equal outside ties within
+    ``ROUTE_TIE``). Reported: the free-running reference (its own routing
+    from its own hidden states), and the share of its choices the served
+    path makes (held at ``ROUTE_AGREE``). Then the port's ``forward`` on the
+    card over the 99 tokens, held the same way."""
+    cfg = eng.cfg
+    L, k = cfg.n_layers, cfg.top_k_experts
+    with RouteWatch(moe) as watch:
+        toks, got, n_cached = served_logits(eng, llama)
+    if len(watch.calls) != 2 * L:
+        raise AssertionError(f"{label}: {len(watch.calls)} routed layers served, want {2 * L}")
+    pre, dec = watch.calls[:L], watch.calls[L:]
+    served = {"prefill": [(x[:99], r, i[:99]) for x, r, i in pre], "decode": dec}
+    forced = [torch.cat([p[2][:99], d[2]]) for p, d in zip(pre, dec)]  # positions 0..98, then 99
+    errs = {}
+    for name, n, nc in (("prefill", 99, 0), ("decode", 100, n_cached)):
+        ref = dense_reference_logits(eng.params, cfg, toks[:, :n], layers, reference, nc,
+                                     forced=[f[:n] for f in forced])
+        errs[name] = logits_vs(f"{label} {name} (the served routing)", got[name], ref, cfg.vocab_size)
+        own: list = []
+        free = dense_reference_logits(eng.params, cfg, toks[:, :n], layers, reference, nc, routes=own)
+        errs[name]["own_routing"] = logits_vs(f"{label} {name} (the reference's own routing, not held)", got[name],
+                                              free, cfg.vocab_size, hold=False)
+        rows = slice(0, 99) if name == "prefill" else slice(99, 100)
+        ids = [i for _, _, i in served[name]]
+        errs[name]["routing"] = {
+            "same_input": compare_routes(ids, [plain_route(x, r, k) for x, r, _ in served[name]], k),
+            "vs_reference": compare_routes(ids, [(p[rows], i[rows]) for p, i in own], k),
+        }
+        r = errs[name]["routing"]
+        if r["same_input"]["far_disagree"] or r["vs_reference"]["agree_share"] < ROUTE_AGREE:
+            raise AssertionError(f"{label} {name}: expert choices disagree: {r}")
+    with RouteWatch(moe) as watch:
+        fwd = llama.forward(eng.params, toks[:, :99].long(), cfg)[:, -1]
+    ref = dense_reference_logits(eng.params, cfg, toks[:, :99], layers, reference,
+                                 forced=[i for _, _, i in watch.calls])
+    errs["forward"] = logits_vs(f"{label} forward on the card (its routing)", fwd, ref, cfg.vocab_size)
+    log(f"{label} dense check: {json.dumps(errs)}")
+    return errs
+
+
+def phase_moe_bf16(fa, pa, qmm, llama, layers, reference, moe, LLMEngine, SamplingParams) -> dict:
+    """10b: ``mixtral_8x7b()`` at ``MOE_BF16_LAYERS`` layers, bf16, random
+    weights from a seed. The ragged (K2) engine serves phase 3's burst at
+    N=1 and N=8 (greedy and seeded rows identical), the write-then-attend
+    (K4) engine at N=1, counters zeroed just before each burst and read just
+    after; each structure's prefill + decode step against the plain
+    reference, with the routing and the card's ``forward``."""
+    from modal_examples_tpu_torch.models.quantize import param_bytes
+
+    cfg = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(), n_layers=MOE_BF16_LAYERS)
+    t0 = time.monotonic()
+    params = llama.init_params(cfg, seed=14, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.monotonic() - t0, "params_b": cfg.param_count / 1e9, "weight_gb": param_bytes(params) / 1e9}
+    log(f"10b mixtral bf16 at {cfg.n_layers} layers: init {out['init_s']:.1f}s, {out['params_b']:.2f}B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    L = cfg.n_layers
+    for impl, kernel in (("xla", "paged_decode"), ("pallas-writeback", "paged_decode_writeback")):
+        eng = LLMEngine(cfg, params, paged_impl=impl, **SERVE_KW)
+        eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+        runs = {}
+        for n in ((1, 8) if impl == "xla" else (1,)):
+            eng.decode_steps = n
+            zero_counts(fa, pa, qmm)
+            reqs, m = serve_burst(eng, SamplingParams, f"10b mixtral bf16 {impl}, N={n}")
+            m["launches"] = counts = spec_counts(fa, pa, qmm)
+            steps = m["dispatched_steps"]
+            other = "paged_decode_writeback" if kernel == "paged_decode" else "paged_decode"
+            if counts[kernel] != L * steps or counts[other] or counts["quantized_matmul"]:
+                raise AssertionError(f"10b {impl} N={n} launches {counts}: want {L} x {steps} {kernel} alone")
+            if counts["flash_fwd"] < 1 or counts["kv_scatter"] < (L * steps if impl != "xla" else 1):
+                raise AssertionError(f"10b {impl} N={n} launches {counts}: want K1 and K3")
+            runs[n] = (reqs, m)
+        if impl == "xla":
+            runs[8][1]["rows_held"] = check_same_tokens(runs[8][0], runs[1][0], "10b mixtral bf16, N=8 against N=1")
+        out[impl] = {f"n{n}": m for n, (_, m) in runs.items()}
+        out[impl]["dense_check"] = moe_dense_check(eng, llama, layers, reference, moe, f"10b mixtral bf16 {impl}")
+        eng.stop()
+        del eng
+    launches = {}
+    for impl in ("xla", "pallas-writeback"):
+        for m in out[impl].values():
+            for k, v in m.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    del params
+    return out
+
+
+def phase_moe_int8(fa, pa, qmm, llama, layers, reference, moe, build_engine, OpenAIServer, SamplingParams) -> dict:
+    """10c: ``build_engine("mixtral-8x7b", quantization="int8")`` at full
+    depth with an int8 cache; weight bytes at most 0.52 of the bf16 count;
+    phase 3's burst with the counters zeroed just before and read just after
+    (K2-int8 n_layers x dispatched steps, K7 (4 + 3 E) n_layers + 1 a pass);
+    the dense check over the same int8 weights and cache rows; the burst
+    again through ``OpenAIServer``; the peak memory under the card's."""
+    from modal_examples_tpu_torch.models.quantize import param_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = build_engine("mixtral-8x7b", quantization="int8", kv_dtype="int8", **SERVE_KW)
+    torch.cuda.synchronize()
+    cfg, L, E = eng.cfg, eng.cfg.n_layers, eng.cfg.n_experts
+    w_bytes = param_bytes(eng.params)
+    out = {"init_s": time.monotonic() - t0, "params_b": cfg.param_count / 1e9, "weight_gb": w_bytes / 1e9,
+           "weight_ratio": w_bytes / (2 * cfg.param_count), "cache_gb": eng.cache.bytes() / 1e9,
+           "plan": eng.impl_plan}
+    log(f"10c mixtral-8x7b int8: {json.dumps(out)}")
+    if not out["weight_ratio"] <= 0.52:
+        raise AssertionError(f"10c int8 weights {out['weight_ratio']} of the bf16 count, over 0.52")
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    zero_counts(fa, pa, qmm)
+    reqs, m = serve_burst(eng, SamplingParams, "10c mixtral-8x7b int8")
+    counts = spec_counts(fa, pa, qmm)
+    steps, per_pass = m["dispatched_steps"], (4 + 3 * E) * L + 1  # attention's four, three an expert; lm_head
+    if counts["paged_decode_int8"] != L * steps:
+        raise AssertionError(f"10c launches {counts}: want {L} x {steps} K2-int8")
+    if counts["paged_decode"] or counts["kv_scatter"] or counts["paged_decode_writeback"]:
+        raise AssertionError(f"10c launched a bf16 cache kernel: {counts}")
+    if counts["kv_scatter_int8"] < 1 or counts["flash_fwd"] < 1:
+        raise AssertionError(f"10c: a kernel of the int8 path never launched: {counts}")
+    if counts["quantized_matmul"] % per_pass or counts["quantized_matmul"] < per_pass * (steps + 1):
+        raise AssertionError(f"10c K7 launches {counts['quantized_matmul']}: want a multiple of {per_pass}, "
+                             f"at least {per_pass} x ({steps} steps + a prefill)")
+    m.update(launches=counts, k7_per_decode_step=per_pass,
+             prefill_passes=counts["quantized_matmul"] // per_pass - steps)
+    out["burst"] = m
+    log(f"10c burst: {json.dumps(m)}")
+    out["dense_check"] = moe_dense_check(eng, llama, layers, reference, moe, "10c mixtral-8x7b int8")
+    out["server"] = moe_server_burst(eng, OpenAIServer, SamplingParams, reqs)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["card_gb"] = torch.cuda.get_device_properties(0).total_memory / 1e9
+    if not out["peak_gb"] < out["card_gb"]:
+        raise AssertionError(f"10c peak memory {out['peak_gb']} GB not under the card's {out['card_gb']} GB")
+    log(f"10c mixtral-8x7b int8: burst {m['burst_tok_per_s']:.1f} tok/s, decode {m['decode_tok_per_s']:.1f} tok/s, "
+        f"TTFT median {m['ttft_s_median']:.3f}s, K7 {per_pass} a decode step, peak {out['peak_gb']:.2f} GB "
+        f"of {out['card_gb']:.2f} GB")
+    return out
+
+
+def moe_server_burst(eng, OpenAIServer, SamplingParams, direct: list) -> dict:
+    """Phase 3's 8 requests at once through ``/v1/completions``, streamed
+    with usage (one thread each): every answer a 200 ending in ``[DONE]``
+    with a finish reason that its token count explains (the usage chunk
+    counts generated tokens), every page back after; the greedy and seeded
+    rows' texts beside the direct burst's (logged: the arrival order
+    changes the prefill groups). Stops the server and the engine."""
+    import concurrent.futures
+
+    srv = OpenAIServer(eng, model_name="mixtral-8x7b", port=0).start()
+    base = f"http://{srv.host}:{srv.port}"
+    try:
+        bodies = [{"prompt": p, "max_tokens": sp.max_tokens, "temperature": sp.temperature, "top_p": sp.top_p,
+                   "stream": True, "stream_options": {"include_usage": True},
+                   **({} if sp.seed is None else {"seed": sp.seed})} for p, sp in make_requests(SamplingParams)]
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            answers = list(pool.map(lambda b: http(base, "/v1/completions", b), bodies))
+        wall = time.monotonic() - t0
+        same = held = tokens = 0
+        for body, (status, _, text), ref in zip(bodies, answers, direct):
+            events = [e for e in text.split("\n\n") if e]
+            if status != 200 or events[-1] != "data: [DONE]":
+                raise AssertionError(f"10c server: {status} {text[-300:]}")
+            chunks = [json.loads(e[len("data: "):]) for e in events[:-1]]
+            n = chunks[-1]["usage"]["completion_tokens"]
+            finish = [c["choices"][0]["finish_reason"] for c in chunks if c["choices"]][-1]
+            got = "".join(c["choices"][0]["text"] for c in chunks if c["choices"])
+            if not ((finish == "length" and n == body["max_tokens"]) or (finish == "stop" and n <= body["max_tokens"])):
+                raise AssertionError(f"10c server: finish {finish} with {n} tokens for max_tokens={body['max_tokens']}")
+            tokens += n
+            if body["temperature"] == 0.0 or "seed" in body:
+                held += 1
+                same += got == eng.tokenizer.decode(ref.generated_tokens)
+        settle(eng)
+        check_pages_returned(eng, "10c server")
+        out = {"requests": len(bodies), "wall_s": wall, "tok_per_s": tokens / wall, "completion_tokens": tokens,
+               "greedy_and_seeded_rows": held, "rows_equal_to_the_direct_burst": same}
+        log(f"10c server burst: {json.dumps(out)}")
+        return out
+    finally:
+        srv.stop()
+
+
+def phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams) -> dict:
+    """Phase 10: Mixtral-8x7B through the port's entry points (after
+    training, every earlier tree freed)."""
+    from modal_examples_tpu_torch.models import moe
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+    from modal_examples_tpu_torch.serving.engine import build_engine
+
+    out = {"expert_k7": expert_k7()}
+    log("phase 10a K7 at the expert shapes: ok")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bf16"] = phase_moe_bf16(fa, pa, qmm, llama, layers, reference, moe, LLMEngine, SamplingParams)
+    log("phase 10b mixtral bf16: ok")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int8"] = phase_moe_int8(fa, pa, qmm, llama, layers, reference, moe, build_engine, OpenAIServer,
+                                 SamplingParams)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(out["bf16"]["launches"])
+    for k, v in out["int8"]["burst"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
 # -- training ---------------------------------------------------------------------
 
 
@@ -3011,6 +3433,9 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    mixtral = phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams)
+    log(f"phase 10 mixtral-8x7b ({card}): ok in {time.monotonic() - t0:.1f}s: {json.dumps(mixtral)}")
     serve_counts, int8_counts, train_counts = metrics["launches"], int8["launches"], train["launches"]
     wb_counts = wb["launches"]
     counts = {
@@ -3025,17 +3450,22 @@ def main() -> int:
     counts = {k: v + spec["launches"].get(k, 0) for k, v in counts.items()}
     # phase 9's image: the MMDiT's joint attention, once a block a forward
     counts["flash_fwd"] += workloads["text_to_image"]["k1_launches_per_image"]
+    # phase 10's Mixtral bursts (bf16 K1/K2/K3/K4, int8 K1/K7/K2-int8/K3-int8)
+    counts = {k: v + mixtral["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
-        f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}; "
-        f"kernels line (flash_fwd, phases 8 and 9 summed) {counts}")
+        f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
+        f"mixtral {mixtral['launches']}; kernels line (phases 8, 9 and 10 summed) {counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
+    errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
     rows = phase_numbers(fa, pa, counts, errs)
     for r in rows:  # the write-then-attend kernels also time their verify route (8a)
         if r["name"] in spec["verify_route"]:
             r["verify"] = spec["verify_route"][r["name"]]
         if r["name"] == "flash_fwd":  # and K1 its joint attention (9a)
             r["joint"] = workloads["joint_k1"]
+        if r["name"] == "quantized_matmul":  # and K7 Mixtral's expert products (10a)
+            r["expert"] = mixtral["expert_k7"]["shapes"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

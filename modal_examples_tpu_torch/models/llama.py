@@ -2,15 +2,19 @@
 paged decode.
 
 Counterpart of ``modal_examples_tpu/models/llama.py`` (``LlamaConfig``,
-``init_params``, ``forward`` for dense models, ``prefill``, ``prefill_chunk``,
+``init_params``, ``_mlp_block``, ``forward``, ``prefill``, ``prefill_chunk``,
 ``decode_step`` with its ``impl``/``scatter_impl``, ``_decode_step_writeback``,
 ``verify_step``, ``tp_shard_ok``, ``paged_impl_plan``, ``load_hf_weights``). Architecture:
-RMSNorm, RoPE, GQA, SwiGLU.
+RMSNorm, RoPE, GQA, SwiGLU, or top-k routed SwiGLU experts (Mixtral) where
+``n_experts > 0``.
 
 Parameters are a plain dict: ``embed`` [V, D], ``layers`` (a list of per-layer
-dicts, weights [in, out] as in the JAX tree), ``final_norm``, and ``lm_head``
-[D, V] unless embeddings are tied. :func:`params_from_jax` converts the JAX
-tree (layers stacked on axis 0) and is the only place where layout changes.
+dicts, weights [in, out] as in the JAX tree; a mixture of experts has
+``router`` [D, E], ``moe_gate``/``moe_up`` [E, D, F] and ``moe_down``
+[E, F, D] in place of ``gate``/``up``/``down``), ``final_norm``, and
+``lm_head`` [D, V] unless embeddings are tied. :func:`params_from_jax`
+converts the JAX tree (layers stacked on axis 0) and is the only place where
+layout changes.
 
 Structure of the serving functions (the JAX package's read-only-pages
 design): attention reads the cache, never writes it; every layer's new K/V
@@ -38,6 +42,7 @@ from ..ops.kv_quant import kv_gather
 from ..utils.device import resolve_device
 from ..utils.safetensors import SafeFile
 from . import layers
+from . import moe as _moe
 from .quantize import LLAMA_TARGETS, QuantizedWeight, _qmax, bits_of, quantize_weight_host
 
 
@@ -54,6 +59,11 @@ class LlamaConfig:
     max_seq_len: int = 4096
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
+    # mixture of experts (Mixtral): n_experts > 0 replaces the dense SwiGLU
+    # with top-k routed SwiGLU experts (models.moe)
+    n_experts: int = 0
+    top_k_experts: int = 2
+    expert_capacity_factor: float = 1.5
     # llama-3.1 rope scaling: tuple(sorted(dict.items())) or None
     rope_scaling: tuple | None = None
 
@@ -68,10 +78,14 @@ class LlamaConfig:
     @property
     def param_count(self) -> int:
         emb = self.vocab_size * self.dim * (1 if self.tie_embeddings else 2)
+        if self.n_experts > 0:
+            mlp = self.n_experts * 3 * self.dim * self.ffn_dim + self.dim * self.n_experts
+        else:
+            mlp = 3 * self.dim * self.ffn_dim
         per_layer = (
             self.dim * self.head_dim * (self.n_heads + 2 * self.n_kv_heads)
             + self.n_heads * self.head_dim * self.dim
-            + 3 * self.dim * self.ffn_dim
+            + mlp
             + 2 * self.dim
         )
         return emb + self.n_layers * per_layer + self.dim
@@ -114,6 +128,20 @@ class LlamaConfig:
         return LlamaConfig(n_kv_heads=8, ffn_dim=14336, max_seq_len=4096)
 
     @staticmethod
+    def mixtral_8x7b() -> "LlamaConfig":
+        return LlamaConfig(
+            n_kv_heads=8, ffn_dim=14336, rope_theta=1e6, max_seq_len=32768, n_experts=8, top_k_experts=2,
+        )
+
+    @staticmethod
+    def tiny_moe(vocab_size: int = 512) -> "LlamaConfig":
+        """Test-tier Mixtral-shape config."""
+        return LlamaConfig(
+            vocab_size=vocab_size, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+            ffn_dim=256, max_seq_len=256, n_experts=4, top_k_experts=2,
+        )
+
+    @staticmethod
     def tiny(vocab_size: int = 512) -> "LlamaConfig":
         """Test-tier config."""
         return LlamaConfig(
@@ -124,11 +152,6 @@ class LlamaConfig:
     @staticmethod
     def from_hf_config(path: str | Path) -> "LlamaConfig":
         cfg = json.loads(Path(path).read_text())
-        if cfg.get("num_local_experts", 0) > 0:  # the reference reads n_experts / top_k_experts
-            raise NotImplementedError(
-                f"{path}: a mixture-of-experts config (num_local_experts="
-                f"{cfg['num_local_experts']}) is not ported yet (ROADMAP A3)"
-            )
         scaling = cfg.get("rope_scaling")
         llama3 = isinstance(scaling, dict) and scaling.get("rope_type", scaling.get("type")) == "llama3"
         return LlamaConfig(
@@ -142,11 +165,20 @@ class LlamaConfig:
             norm_eps=cfg.get("rms_norm_eps", 1e-5),
             max_seq_len=cfg.get("max_position_embeddings", 4096),
             tie_embeddings=cfg.get("tie_word_embeddings", False),
+            n_experts=cfg.get("num_local_experts", 0),
+            top_k_experts=cfg.get("num_experts_per_tok", 2),
             rope_scaling=tuple(sorted(scaling.items())) if llama3 else None,
         )
 
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "gate", "up", "down")
+_MOE_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router", "moe_gate", "moe_up", "moe_down")
+
+
+def _layer_keys(cfg: LlamaConfig) -> tuple:
+    """The leaves of one layer: the dense SwiGLU's, or the router and the
+    stacked experts' of a mixture of experts."""
+    return _MOE_KEYS if cfg.n_experts > 0 else _LAYER_KEYS
 
 
 # -- parameters -----------------------------------------------------------------
@@ -162,12 +194,12 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device=None, map_layer=None)
     dt = cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def dense(n_in: int, n_out: int, scale: float | None = None):
-        w = torch.randn((n_in, n_out), generator=gen, device=device, dtype=dt)
-        return w.mul_(n_in**-0.5 if scale is None else scale)
+    def dense(*shape: int, scale: float | None = None):
+        w = torch.randn(shape, generator=gen, device=device, dtype=dt)
+        return w.mul_(shape[-2] ** -0.5 if scale is None else scale)
 
-    D, hd, F = cfg.dim, cfg.head_dim, cfg.ffn_dim
-    params = {"embed": dense(cfg.vocab_size, D, 0.02), "layers": []}
+    D, hd, F, E = cfg.dim, cfg.head_dim, cfg.ffn_dim, cfg.n_experts
+    params = {"embed": dense(cfg.vocab_size, D, scale=0.02), "layers": []}
     for _ in range(cfg.n_layers):
         layer = {
             "attn_norm": torch.ones(D, dtype=dt, device=device),
@@ -176,10 +208,11 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0, device=None, map_layer=None)
             "wv": dense(D, cfg.n_kv_heads * hd),
             "wo": dense(cfg.n_heads * hd, D),
             "mlp_norm": torch.ones(D, dtype=dt, device=device),
-            "gate": dense(D, F),
-            "up": dense(D, F),
-            "down": dense(F, D),
         }
+        if E > 0:  # router [D, E]; experts stacked on axis 0
+            layer.update(router=dense(D, E), moe_gate=dense(E, D, F), moe_up=dense(E, D, F), moe_down=dense(E, F, D))
+        else:
+            layer.update(gate=dense(D, F), up=dense(D, F), down=dense(F, D))
         params["layers"].append(layer if map_layer is None else map_layer(layer))
     params["final_norm"] = torch.ones(D, dtype=dt, device=device)
     if not cfg.tie_embeddings:
@@ -207,12 +240,12 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
         return torch.tensor(a).to(device=device, dtype=dt)
 
     stacked = np_params["layers"]
-    missing = set(_LAYER_KEYS) - set(stacked)
-    if missing or set(stacked) - set(_LAYER_KEYS):
-        raise ValueError(f"layer leaves {sorted(stacked)} are not the dense llama set {_LAYER_KEYS}")
+    keys = _layer_keys(cfg)
+    if set(stacked) != set(keys):
+        raise ValueError(f"layer leaves {sorted(stacked)} are not the llama set {keys}")
     params = {
         "embed": conv(np_params["embed"]),
-        "layers": [{k: conv(stacked[k], li) for k in _LAYER_KEYS} for li in range(cfg.n_layers)],
+        "layers": [{k: conv(stacked[k], li) for k in keys} for li in range(cfg.n_layers)],
         "final_norm": conv(np_params["final_norm"]),
     }
     if not cfg.tie_embeddings:
@@ -232,7 +265,10 @@ _HF_LAYER = {
     "mlp.gate_proj.weight": "gate",
     "mlp.up_proj.weight": "up",
     "mlp.down_proj.weight": "down",
+    "block_sparse_moe.gate.weight": "router",
 }
+#: Mixtral's expert matrices (``block_sparse_moe.experts.{e}.<name>.weight``)
+_HF_EXPERT = {"w1": "moe_gate", "w3": "moe_up", "w2": "moe_down"}
 _UNTRANSPOSED = ("embed", "final_norm", "attn_norm", "mlp_norm")
 
 
@@ -245,8 +281,12 @@ def load_hf_weights(model_dir, cfg: LlamaConfig, dtype=None, quantization: str |
     unquantized leaf. ``quantization="int8"`` quantizes ``LLAMA_TARGETS``
     and ``lm_head`` on the host (:func:`~.quantize.quantize_weight_host`,
     from the stored values) and moves only the int8 weights and their
-    scales. ``lm_head`` is not read when embeddings are tied; a mixture of
-    experts raises (ROADMAP A3)."""
+    scales. ``lm_head`` is not read when embeddings are tied. A mixture of
+    experts reads Mixtral's layout: ``block_sparse_moe.gate`` becomes
+    ``router`` [D, E] (never quantized) and each layer's
+    ``experts.{e}.w1``/``w3``/``w2`` are transposed and stacked into
+    ``moe_gate``/``moe_up`` [E, D, F] and ``moe_down`` [E, F, D] once all E
+    are read (quantized as stacks, scales [E, 1, out])."""
     device = resolve_device(device)
     dt = dtype or cfg.torch_dtype
     bits = None
@@ -264,31 +304,50 @@ def load_hf_weights(model_dir, cfg: LlamaConfig, dtype=None, quantization: str |
             return quantize_weight_host(w.contiguous(), bits, device)
         return w.to(device=device, dtype=dt).contiguous()
 
+    def place_stack(mats: list):  # E [in, out] host matrices -> one [E, in, out] leaf on the device
+        w = torch.stack(mats)
+        return w.to(device=device, dtype=dt) if bits is None else quantize_weight_host(w, bits, device)
+
+    keys = _layer_keys(cfg)
     top: dict = {}
     per_layer: list[dict] = [{} for _ in range(cfg.n_layers)]
+    experts: dict = {}  # (layer, leaf) -> {expert: [in, out] host tensor} until all E are read
     for path in files:
         with SafeFile(path) as f:
             for key in f.keys():
-                if "block_sparse_moe" in key:
-                    raise NotImplementedError(f"{path}: {key}: mixture-of-experts weights are not ported yet (ROADMAP A3)")
                 name = _HF_TOP.get(key)
                 if name is not None:
                     if not (name == "lm_head" and cfg.tie_embeddings):
                         top[name] = place(f.get_tensor(key), name)
                     continue
                 m = re.fullmatch(r"model\.layers\.(\d+)\.(.+)", key)
-                if m and m.group(2) in _HF_LAYER and int(m.group(1)) < cfg.n_layers:
+                if not m or int(m.group(1)) >= cfg.n_layers:
+                    continue
+                li = int(m.group(1))
+                if m.group(2) in _HF_LAYER and _HF_LAYER[m.group(2)] in keys:
                     name = _HF_LAYER[m.group(2)]
-                    per_layer[int(m.group(1))][name] = place(f.get_tensor(key), name)
+                    per_layer[li][name] = place(f.get_tensor(key), name)
+                    continue
+                e = re.fullmatch(r"block_sparse_moe\.experts\.(\d+)\.(w[123])\.weight", m.group(2))
+                if e and cfg.n_experts > 0 and int(e.group(1)) < cfg.n_experts:
+                    name = _HF_EXPERT[e.group(2)]
+                    got = experts.setdefault((li, name), {})
+                    got[int(e.group(1))] = f.get_tensor(key).T
+                    if len(got) == cfg.n_experts:
+                        per_layer[li][name] = place_stack([got[i] for i in range(cfg.n_experts)])
+                        del experts[(li, name)]
     want_top = ["embed", "final_norm"] + ([] if cfg.tie_embeddings else ["lm_head"])
+    wanted = [(k, v) for k, v in _HF_LAYER.items() if v in keys] + [
+        (f"block_sparse_moe.experts.*.{k}.weight", v) for k, v in _HF_EXPERT.items() if v in keys
+    ]
     missing = [k for k, v in _HF_TOP.items() if v in want_top and v not in top] + [
-        f"model.layers.{li}.{k}" for li, got in enumerate(per_layer) for k, v in _HF_LAYER.items() if v not in got
+        f"model.layers.{li}.{k}" for li, got in enumerate(per_layer) for k, v in wanted if v not in got
     ]
     if missing:
         raise KeyError(f"{model_dir}: checkpoint lacks {missing[:8]}{' ...' if len(missing) > 8 else ''}")
     params = {
         "embed": top["embed"],
-        "layers": [{k: got[k] for k in _LAYER_KEYS} for got in per_layer],
+        "layers": [{k: got[k] for k in keys} for got in per_layer],
         "final_norm": top["final_norm"],
     }
     if not cfg.tie_embeddings:
@@ -307,6 +366,29 @@ def _rope(cfg: LlamaConfig, positions):
     )
 
 
+def _mlp_block(layer: dict, h, cfg: LlamaConfig, *, lora=None, lora_scale: float = 1.0, moe_impl: str = "nodrop"):
+    """Post-norm MLP of one layer: the dense SwiGLU, or with
+    ``cfg.n_experts > 0`` the top-k routed SwiGLU experts. ``moe_impl``
+    "capacity" is the GShard dispatch at about top_k / E of the work; any
+    other value (the serving default "nodrop") runs every expert on every
+    token, so incremental decode reproduces the full forward. Returns (out
+    in h's dtype, aux load-balance loss, or None for a dense layer)."""
+    if cfg.n_experts > 0:
+        if lora is not None and any(f"{n}_a" in lora for n in ("gate", "up", "down")):
+            raise ValueError(
+                "LoRA MLP adapters (gate/up/down) are not supported for MoE "
+                "expert MLPs; restrict LoRAConfig.targets to attention "
+                "projections (wq/wk/wv/wo) for n_experts > 0"
+            )
+        experts = (layer["router"], layer["moe_gate"], layer["moe_up"], layer["moe_down"], h.reshape(-1, cfg.dim))
+        if moe_impl == "capacity":
+            flat, aux = _moe.moe_swiglu_capacity(*experts, cfg.top_k_experts, cfg.expert_capacity_factor)
+        else:
+            flat, aux = _moe.moe_swiglu_nodrop(*experts, cfg.top_k_experts)
+        return flat.reshape(h.shape).to(h.dtype), aux
+    return layers.swiglu_mlp(layer, h, lora=lora, lora_scale=lora_scale), None
+
+
 # -- forward (training) ---------------------------------------------------------
 
 
@@ -322,13 +404,15 @@ def forward(
     return_aux: bool = False,
     moe_impl: str = "nodrop",
     input_embeds=None,
-):  # [B, S, vocab] f32
+):  # [B, S, vocab] f32 (, aux)
     """Full-sequence forward with causal attention (flash kernels or the
     plain ``xla`` attention), differentiable in the adapters and the base.
-    Dense models only: MoE (``return_aux``, ``moe_impl``) and
-    ``input_embeds`` wait for ROADMAP A3."""
-    if return_aux or moe_impl != "nodrop" or input_embeds is not None:
-        raise NotImplementedError("MoE and multimodal forward are not ported yet (ROADMAP A3)")
+    ``return_aux`` also returns the mean over layers of the MoE load-balance
+    loss (0 for a dense model); ``moe_impl`` picks the expert formulation
+    (:func:`_mlp_block`). ``input_embeds`` (the multimodal prefix) waits for
+    ROADMAP A11's ``vlm``."""
+    if input_embeds is not None:
+        raise NotImplementedError("input_embeds (a multimodal prefix) waits for the vlm model (ROADMAP A11)")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -340,6 +424,7 @@ def forward(
     else:
         unstacked = {k: t.unbind(0) for k, t in lora["layers"].items()}
         per_layer = [{k: ts[li] for k, ts in unstacked.items()} for li in range(n)]
+    auxes = []
     for layer, llayer in zip(params["layers"], per_layer):
         h = layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         x = x + layers.causal_self_attention(
@@ -347,9 +432,15 @@ def forward(
             causal=True, attn_impl=attn_impl, lora=llayer, lora_scale=lora_scale,
         )
         h = layers.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-        x = x + layers.swiglu_mlp(layer, h, lora=llayer, lora_scale=lora_scale)
+        h, aux = _mlp_block(layer, h, cfg, lora=llayer, lora_scale=lora_scale, moe_impl=moe_impl)
+        x = x + h
+        if aux is not None:
+            auxes.append(aux)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.mm(x, _head(params, cfg))
+    logits = layers.mm(x, _head(params, cfg))
+    if return_aux:  # a dense model's loss is 0, as the reference's mean of zeros
+        return logits, torch.stack(auxes).mean() if auxes else torch.zeros((), device=logits.device)
+    return logits
 
 
 # -- serving ----------------------------------------------------------------------
@@ -370,7 +461,7 @@ def _finish_layer(layer: dict, x, o, cfg: LlamaConfig):
     """Output projection, residual, MLP, residual. o: [B, S, Hq*D]."""
     x = x + layers.mm(o, layer["wo"]).to(x.dtype)
     h = layers.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    return x + layers.swiglu_mlp(layer, h)
+    return x + _mlp_block(layer, h, cfg)[0]
 
 
 def _page_targets(page_tables, positions, valid, page_size: int):

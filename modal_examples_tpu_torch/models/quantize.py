@@ -4,10 +4,11 @@ Counterpart of ``modal_examples_tpu/models/quantize.py`` (int8 part):
 ``QuantizedWeight``, ``SUPPORTED``, ``_qmax``, ``quantize_weight``,
 ``dequantize_weight``, ``LLAMA_TARGETS``, ``bits_of``, ``quantize_llama``,
 ``init_quantized_llama``, ``quantize_weight_host`` and ``param_bytes``. Weights are int8 ``[din, dout]``
-with per-output-channel f32 scales ``[1, dout]`` (symmetric), and
-``layers.mm`` multiplies them through the int8 matmul kernel
-(``ops/quantized_matmul.py``), which reads the int8 bytes and never a bf16
-copy.
+with per-output-channel f32 scales ``[1, dout]`` (symmetric; a stack of
+experts ``[E, din, dout]`` has scales ``[E, 1, dout]``), and ``layers.mm``
+multiplies them through the int8 matmul kernel (``ops/quantized_matmul.py``),
+which reads the int8 bytes and never a bf16 copy (an expert's ``q[e]`` and
+``scale[e]`` are contiguous views, one launch each).
 
 int4 (``bits=4``, ``"int4"``) raises ``NotImplementedError``: the kernel is
 int8 only and the port has no packed int4 type yet (ROADMAP A2).
@@ -25,8 +26,8 @@ from ..utils.device import resolve_device
 
 @dataclasses.dataclass
 class QuantizedWeight:
-    q: torch.Tensor  # int8 [din, dout]
-    scale: torch.Tensor  # f32 [1, dout]
+    q: torch.Tensor  # int8 [..., din, dout]
+    scale: torch.Tensor  # f32 [..., 1, dout]
 
     @property
     def shape(self):
@@ -69,8 +70,8 @@ def dequantize_weight(qw: QuantizedWeight, dtype=torch.bfloat16):
     return (qw.q.float() * qw.scale).to(dtype)
 
 
-#: the matmul weights a llama tree quantizes (the MoE names are kept for the
-#: day MoE is ported); norms and embeddings stay in the model dtype
+#: the matmul weights a llama tree quantizes, dense and expert; norms,
+#: embeddings and the MoE router stay in the model dtype
 LLAMA_TARGETS = (
     "wq", "wk", "wv", "wo", "gate", "up", "down",
     "moe_gate", "moe_up", "moe_down",

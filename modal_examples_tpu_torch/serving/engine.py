@@ -379,17 +379,17 @@ def _req_seed(req: Request) -> int:
     return req.auto_seed if req.auto_seed is not None else -1
 
 
-#: the model names ``build_engine`` takes, as the JAX engine's; its MoE
-#: presets ("mixtral-8x7b", "tiny-moe") wait for ROADMAP A3
+#: the model names ``build_engine`` takes, as the JAX engine's
 MODEL_PRESETS = {
     "llama2-7b": llama.LlamaConfig.llama2_7b,
     "llama3-8b": llama.LlamaConfig.llama3_8b,
     "llama3.1-8b": llama.LlamaConfig.llama31_8b,
     "llama3.2-1b": llama.LlamaConfig.llama32_1b,
     "mistral-7b": llama.LlamaConfig.mistral_7b,
+    "mixtral-8x7b": llama.LlamaConfig.mixtral_8x7b,
     "tiny": llama.LlamaConfig.tiny,
+    "tiny-moe": llama.LlamaConfig.tiny_moe,
 }
-_MOE_PRESETS = ("mixtral-8x7b", "tiny-moe")
 
 
 class LLMEngine:
@@ -1812,8 +1812,6 @@ def build_engine(model: str = "llama2-7b", model_dir: str | None = None, **engin
     ``config.json``, its weights and, where it has one, its tokenizer)."""
     if model_dir is not None:
         cfg = llama.LlamaConfig.from_hf_config(f"{model_dir}/config.json")
-    elif model in _MOE_PRESETS:
-        raise NotImplementedError(f"model preset {model!r} is a mixture of experts, not ported yet (ROADMAP A3)")
     elif model not in MODEL_PRESETS:
         raise ValueError(f"unknown model preset {model!r}; known: {sorted(MODEL_PRESETS)}")
     else:

@@ -135,6 +135,7 @@ HF = {
     "down": "mlp.down_proj.weight",
 }
 NORMS = {"attn_norm": "input_layernorm.weight", "mlp_norm": "post_attention_layernorm.weight"}
+EXPERTS = {"moe_gate": "w1", "moe_up": "w3", "moe_down": "w2"}
 
 
 def _hf_config(tie: bool = False) -> dict:
@@ -146,10 +147,11 @@ def _hf_config(tie: bool = False) -> dict:
 
 
 def write_checkpoint(path, cfg_json: dict, seed: int = 0, *, bf16: bool = False) -> dict:
-    """Random f32 JAX params under HF llama names, in two shards (layer 0
-    with the embeddings, the rest in the second), plus ``config.json``.
-    ``bf16`` stores every tensor as BF16 (through the package's torch
-    writer). Returns the HF-named arrays."""
+    """Random f32 JAX params under HF llama names (Mixtral's
+    ``block_sparse_moe`` names for a config with ``num_local_experts``), in
+    two shards (layer 0 with the embeddings, the rest in the second), plus
+    ``config.json``. ``bf16`` stores every tensor as BF16 (through the
+    package's torch writer). Returns the HF-named arrays."""
     path.mkdir(parents=True, exist_ok=True)
     (path / "config.json").write_text(json.dumps(cfg_json))
     jcfg = dataclasses.replace(jllama.LlamaConfig.from_hf_config(path / "config.json"), dtype="float32")
@@ -159,7 +161,14 @@ def write_checkpoint(path, cfg_json: dict, seed: int = 0, *, bf16: bool = False)
         raw["lm_head.weight"] = np.ascontiguousarray(params["lm_head"].T)
     for i in range(jcfg.n_layers):
         for ours, name in HF.items():
-            raw[f"model.layers.{i}.{name}"] = np.ascontiguousarray(params["layers"][ours][i].T)
+            if ours in params["layers"]:
+                raw[f"model.layers.{i}.{name}"] = np.ascontiguousarray(params["layers"][ours][i].T)
+        if jcfg.n_experts:
+            raw[f"model.layers.{i}.block_sparse_moe.gate.weight"] = np.ascontiguousarray(params["layers"]["router"][i].T)
+            for ours, name in EXPERTS.items():
+                for e in range(jcfg.n_experts):
+                    raw[f"model.layers.{i}.block_sparse_moe.experts.{e}.{name}.weight"] = np.ascontiguousarray(
+                        params["layers"][ours][i][e].T)
         for ours, name in NORMS.items():
             raw[f"model.layers.{i}.{name}"] = np.ascontiguousarray(params["layers"][ours][i])
     shards = [{k: v for k, v in raw.items() if ".layers.1." not in k}, {k: v for k, v in raw.items() if ".layers.1." in k}]
@@ -240,10 +249,18 @@ def test_load_hf_weights_refusals(tmp_path):
     (tmp_path / "model-00002-of-00002.safetensors").unlink()
     with pytest.raises(KeyError, match="model.layers.1"):
         tllama.load_hf_weights(tmp_path, cfg(tmp_path / "config.json"), device="cpu")
-    safetensors.numpy.save_file({"model.layers.1.block_sparse_moe.gate.weight": raw["model.norm.weight"]},
-                                str(tmp_path / "model-00002-of-00002.safetensors"))
-    with pytest.raises(NotImplementedError, match="A3"):
-        tllama.load_hf_weights(tmp_path, cfg(tmp_path / "config.json"), device="cpu")
+    # a mixture of experts loads; an expert missing from its stack is named
+    moe_dir = tmp_path / "moe"
+    moe_raw = write_checkpoint(moe_dir, {**_hf_config(), "num_local_experts": 4, "num_experts_per_tok": 2})
+    moe = tllama.load_hf_weights(moe_dir, cfg(moe_dir / "config.json"), device="cpu")
+    assert moe["layers"][1]["moe_down"].shape == (4, 48, 32) and moe["layers"][1]["router"].shape == (32, 4)
+    assert torch.equal(moe["layers"][1]["moe_down"][3], torch.from_numpy(
+        moe_raw["model.layers.1.block_sparse_moe.experts.3.w2.weight"]).T.to(moe["layers"][1]["moe_down"].dtype))
+    shard = safetensors.numpy.load_file(str(moe_dir / "model-00002-of-00002.safetensors"))
+    del shard["model.layers.1.block_sparse_moe.experts.2.w3.weight"]
+    safetensors.numpy.save_file(shard, str(moe_dir / "model-00002-of-00002.safetensors"))
+    with pytest.raises(KeyError, match=r"model\.layers\.1\.block_sparse_moe\.experts\.\*\.w3"):
+        tllama.load_hf_weights(moe_dir, cfg(moe_dir / "config.json"), device="cpu")
 
 
 def test_build_engine_loads_the_checkpoint_as_the_jax_engine(tmp_path):
@@ -284,8 +301,20 @@ def test_build_engine_loads_the_checkpoint_as_the_jax_engine(tmp_path):
     finally:
         jeng.stop()
         teng.stop()
-    with pytest.raises(NotImplementedError, match="A3"):
-        build_engine("mixtral-8x7b", device="cpu")
+    # the mixture-of-experts presets: the JAX engine's configs, and the tiny one serves
+    from modal_examples_tpu.serving.engine import MODEL_PRESETS as JAX_PRESETS
+    from modal_examples_tpu_torch.serving.engine import MODEL_PRESETS
+
+    for name in ("mixtral-8x7b", "tiny-moe"):
+        assert dataclasses.asdict(MODEL_PRESETS[name]()) == dataclasses.asdict(JAX_PRESETS[name]())
+    teng = build_engine("tiny-moe", device="cpu", **kw)
+    try:
+        assert teng.cfg.n_experts == 4 and teng.params["layers"][0]["moe_gate"].shape == (4, 128, 256)
+        req = teng.submit("experts", SamplingParams(max_tokens=4, temperature=0.0))
+        "".join(teng.stream(req))
+        assert req.finish_reason == "length" and len(req.generated_tokens) == 4
+    finally:
+        teng.stop()
     with pytest.raises(ValueError, match="unknown model preset"):
         build_engine("llama9", device="cpu")
 

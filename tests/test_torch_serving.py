@@ -272,8 +272,9 @@ def test_mixtral_config_raises_where_the_reference_reads_experts(tmp_path):
     }))
     jcfg = jllama.LlamaConfig.from_hf_config(path)
     assert (jcfg.n_experts, jcfg.top_k_experts) == (8, 2)
-    with pytest.raises(NotImplementedError, match="A3"):
-        tllama.LlamaConfig.from_hf_config(path)
+    tcfg = tllama.LlamaConfig.from_hf_config(path)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.param_count == jcfg.param_count
     dense = json.loads(path.read_text())
     del dense["num_local_experts"]
     path.write_text(json.dumps(dense))

@@ -261,8 +261,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         Trainer(lambda p, b: 0.0, make_optimizer(), mesh=object())
     cfg = tllama.LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="A3"):
-        tllama.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg, return_aux=True)
+    with pytest.raises(NotImplementedError, match="A11"):
+        tllama.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg, input_embeds=torch.zeros((1, 2, cfg.dim)))
 
 
 class _Volume:
