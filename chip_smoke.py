@@ -8,8 +8,10 @@ self-draft, a 1B-shape draft over int8, prompt lookup), runs the other
 inference workloads (SD3-shape text-to-image through K1, bge-small
 embeddings, whisper-base transcription, CLIP-L), LoRA-fine-tunes the same
 model through ``Trainer``, serves Mixtral-8x7B (bf16 at depth 8, int8 at
-full depth through the OpenAI server), and prints per-kernel times beside
-their bounds.
+full depth through the OpenAI server), runs the serverless surface on the
+card (functions, a Cls and Llama-2-7B behind ``@app.server`` in spawned
+GPU containers, and the CLI), and prints per-kernel times beside their
+bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -192,6 +194,34 @@ Phases (any failure exits non-zero and prints no result):
    and cache rows, the burst again through ``OpenAIServer``, tok/s, TTFT
    and the peak memory (under the card's). Its launches join the kernels
    line.
+11. the serverless surface (after phase 10 freed Mixtral): app files
+   written into a temporary directory under ``build/``, each importing
+   ``modal_examples_tpu_torch`` and nothing of the JAX package, driven
+   through ``app.run()``, ``ServerHandle.serve()`` and the CLI; containers
+   are spawned processes that find phase 1's kernel libraries built (each
+   reports the sources it compiled: none; the script alone still builds
+   every kernel, in phase 1, before any container starts). (11a) ``@app.function(gpu=
+   "H100")``: ``.remote``, ``.map`` over 4 inputs and ``.spawn``, each
+   running K1 at the engine's prefill batch in the container against its
+   plain version there (2e-2) with the container's launch count; a function
+   without ``gpu=`` sees no card; ``gpu="H100:2"`` fails its boot naming the
+   spec; a ``@app.cls(gpu="H100")`` probe's cold boot split into spawn and
+   import, ``@enter`` (a CUDA context and every kernel library loaded) and
+   first result, and the warm round trip (median of 20 no-op calls).
+   (11b) ``@app.server(gpu="H100")`` whose ``@enter`` builds phase 3's
+   Llama-2-7B engine from phase 3's seed and starts ``OpenAIServer``:
+   phase 3's 8 requests as concurrent streamed ``/v1/completions``, every
+   greedy and seeded row equal to phase 3's direct burst, the container's
+   K1, K2 and K3 counts (zeroed before the burst) above 0, ``@exit``
+   stopping the server and its port closed; boot to port-ready split into
+   spawn and import, weights, engine and server; burst tok/s, TTFT and the
+   container's peak memory. (11c) ``@app.cls(gpu="H100")`` with the engine
+   loaded once in ``@enter`` and a ``@batched`` ``generate``: ``.remote``,
+   then ``.map`` over phase 3's 8 prompts (one batch, submitted back to
+   back as phase 3's burst): rows equal to the direct burst, one ``@enter``
+   in one container. (11d) ``python -m modal_examples_tpu_torch run`` on
+   11a's file: exit 0 and K1's result printed. The containers' launches
+   join the kernels line, marked ``container_launches`` in their rows.
 """
 
 from __future__ import annotations
@@ -2603,6 +2633,509 @@ def phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, Sam
     return out
 
 
+# -- phase 11 ---------------------------------------------------------------------
+
+#: 11a's warm round trip: no-op method calls, median
+WARM_CALLS = 20
+
+APP_ENGINE = '''
+"""Phase 3's engine for chip_smoke.py's phase 11 containers: Llama-2-7B from
+phase 3's seed (bf16, 8 slots, buckets 128/256/512, pages of 16, decode
+block 8), warmed by one short request as phase 3 warms it."""
+import time
+
+import torch
+
+from modal_examples_tpu_torch import LLMEngine, SamplingParams
+from modal_examples_tpu_torch.models import llama
+from modal_examples_tpu_torch.ops import flash_attention as fa
+from modal_examples_tpu_torch.ops import paged_attention as pa
+
+
+def build(t: dict):
+    cfg = llama.LlamaConfig.llama2_7b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t["weights_at"] = time.time()
+    eng = LLMEngine(cfg, params, max_slots=8, max_model_len=1024, prefill_buckets=(128, 256, 512), prefill_batch=4,
+                    decode_block=8, seed=0, device="cuda")
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    t["engine_at"] = time.time()
+    return eng
+
+
+def zero_counts() -> None:
+    fa.launches = pa.decode_launches = pa.scatter_launches = 0
+
+
+def counts() -> dict:
+    return {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
+'''
+
+APP_FUNCTIONS = '''
+"""chip_smoke.py phase 11a and 11d: functions and a Cls on the card, and
+the CLI's entry point."""
+import json
+import os
+import time
+
+import torch
+
+import modal_examples_tpu_torch as mtpu
+
+app = mtpu.App("smoke-functions")
+#: phase 2's first K1 case, the engine's prefill batch: B, H, S, D
+K1_SHAPE = (4, 32, 512, 128)
+
+
+@app.function(gpu="H100", max_containers=1, timeout=600)
+def k1_check(seed: int) -> dict:
+    """K1 against its plain version at K1_SHAPE, in this container."""
+    from modal_examples_tpu_torch.ops import _build
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+
+    B, H, S, D = K1_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    o, _ = fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=D**-0.5)
+    torch.cuda.synchronize()
+    want, _ = fa.flash_forward_plain(q, k, v, causal=True, sm_scale=D**-0.5)
+    return {"card": torch.cuda.get_device_name(0), "max_abs_err": (o.float() - want.float()).abs().max().item(),
+            "k1_launches": fa.launches, "compiled": list(_build.compiled), "pid": os.getpid()}
+
+
+@app.function(max_containers=1, timeout=300)
+def cpu_probe() -> dict:
+    return {"cuda_available": torch.cuda.is_available(), "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+@app.function(gpu="H100:2", timeout=300)
+def two_cards() -> str:
+    return "ran on two cards"
+
+
+@app.cls(gpu="H100", max_containers=1, timeout=600)
+class Probe:
+    @mtpu.enter()
+    def load(self):
+        """A CUDA context and every kernel library of the checkout loaded."""
+        from modal_examples_tpu_torch.ops import _build
+
+        self.entered_at = time.time()
+        torch.zeros(1, device="cuda")
+        for name in _build.kernel_names():
+            _build.load(name)
+        self.ready_at = time.time()
+
+    @mtpu.method()
+    def boot(self) -> dict:
+        from modal_examples_tpu_torch.ops import _build
+
+        return {"entered_at": self.entered_at, "ready_at": self.ready_at, "returned_at": time.time(),
+                "compiled": list(_build.compiled)}
+
+    @mtpu.method()
+    def ping(self) -> int:
+        return 0
+
+
+@app.local_entrypoint()
+def main(seed: int = 0):
+    print("11d " + json.dumps(k1_check.remote(seed)))
+'''
+
+APP_SERVER = '''
+"""chip_smoke.py phase 11b: Llama-2-7B served by an @app.server container."""
+import os
+import threading
+import time
+
+import torch
+
+import modal_examples_tpu_torch as mtpu
+from smoke_engine import build, counts, zero_counts
+
+app = mtpu.App("smoke-server")
+PORT = @PORT@
+EXIT_MARK = @EXIT_MARK@
+
+
+@app.server(port=PORT, gpu="H100", startup_timeout=600, timeout=600)
+class LlamaServer:
+    @mtpu.enter()
+    def start(self):
+        from modal_examples_tpu_torch import OpenAIServer
+
+        self.boot = {"entered_at": time.time()}
+        self.engine = build(self.boot)
+        # the requests the server submits, for their tokens and their TTFT on
+        # the engine's clock; while a burst is held, they are parked until
+        # the burst is whole and then queued together
+        self.requests, self.burst, self.lock = [], 0, threading.Lock()
+        submit = self.engine.submit_request
+
+        def recording_submit(req):
+            with self.lock:
+                self.requests.append(req)
+                if len(self.requests) < self.burst:
+                    return req  # parked
+                batch = sorted(self.requests, key=lambda r: len(r.prompt_tokens)) if self.burst else [req]
+                self.burst = 0
+                for r in batch:
+                    submit(r)
+            return req
+
+        self.engine.submit_request = recording_submit
+        self.server = OpenAIServer(self.engine, model_name="llama2-7b", port=PORT).start()
+        self.boot["server_at"] = time.time()
+
+    @mtpu.method()
+    def zero_counts(self, hold: int = 0) -> None:
+        """Counts to 0 and no request recorded. ``hold``: the next ``hold``
+        requests are queued together, shortest prompt first, as phase 3's
+        direct burst queues its 8, so the engine finds them at one tick;
+        otherwise each is queued as it arrives."""
+        zero_counts()
+        with self.lock:
+            self.requests.clear()
+            self.burst = hold
+
+    @mtpu.method()
+    def report(self) -> dict:
+        from modal_examples_tpu_torch.ops import _build
+
+        reqs = sorted(self.requests, key=lambda r: r.created)
+        return {**self.boot, "launches": counts(), "peak_bytes": torch.cuda.max_memory_allocated(),
+                "rows": [{"prompt": r.prompt, "tokens": list(r.generated_tokens), "n_generated": r.n_generated,
+                          "finish_reason": r.finish_reason, "ttft_s": r.first_token_at - r.created} for r in reqs],
+                "compiled": list(_build.compiled), "card": torch.cuda.get_device_name(0), "pid": os.getpid()}
+
+    @mtpu.exit()
+    def stop(self):
+        self.server.stop()  # and the engine
+        with open(EXIT_MARK, "w") as f:
+            f.write("stopped")
+'''
+
+APP_CLS = '''
+"""chip_smoke.py phase 11c: a @app.cls whose @enter loads the engine once."""
+import os
+import time
+
+import modal_examples_tpu_torch as mtpu
+from smoke_engine import build, counts, zero_counts
+
+app = mtpu.App("smoke-cls")
+#: @enter calls in this process (one: the container serves every input)
+ENTERS = []
+
+
+@app.cls(gpu="H100", max_containers=1, timeout=600)
+class Generator:
+    @mtpu.enter()
+    def load(self):
+        ENTERS.append(time.time())
+        self.boot = {"entered_at": time.time()}
+        self.engine = build(self.boot)
+
+    @mtpu.method()
+    @mtpu.batched(max_batch_size=8, wait_ms=500)
+    def generate(self, prompts: list, params: list) -> list:
+        """The batch's requests submitted back to back, as phase 3's direct
+        burst submits its 8, then streamed."""
+        from modal_examples_tpu_torch import SamplingParams
+
+        reqs = [self.engine.make_request(p, SamplingParams(**sp)) for p, sp in zip(prompts, params)]
+        for r in reqs:
+            self.engine.submit_request(r)
+        texts = ["".join(self.engine.stream(r)) for r in reqs]
+        return [{"tokens": list(r.generated_tokens), "finish_reason": r.finish_reason, "text": t,
+                 "enters": len(ENTERS), "pid": os.getpid()} for r, t in zip(reqs, texts)]
+
+    @mtpu.method()
+    def zero_counts(self) -> None:
+        zero_counts()
+
+    @mtpu.method()
+    def counts(self) -> dict:
+        return counts()
+'''
+
+
+def write_app(dirpath: Path, name: str, template: str, **values) -> Path:
+    text = template
+    for key, value in values.items():
+        text = text.replace(f"@{key}@", repr(value))
+    path = dirpath / f"{name}.py"
+    path.write_text(text.lstrip())
+    return path
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stream_completion(base: str, body: dict) -> dict:
+    """One streamed ``/v1/completions`` with usage: text, finish and
+    completion tokens."""
+    req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"content-type": "application/json"})
+    t0 = time.monotonic()
+    chunks = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status = r.status
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                chunks.append(None)
+                break
+            chunks.append(json.loads(line[len("data: "):]))
+    if status != 200 or not chunks or chunks[-1] is not None:
+        raise AssertionError(f"11b: status {status}, stream not ended by [DONE]")
+    chunks = chunks[:-1]
+    return {"text": "".join(c["choices"][0]["text"] for c in chunks if c["choices"]),
+            "finish": [c["choices"][0]["finish_reason"] for c in chunks if c["choices"]][-1],
+            "completion_tokens": chunks[-1]["usage"]["completion_tokens"], "wall_s": time.monotonic() - t0}
+
+
+def served_rows(bodies: list, got: list, rows: list, direct: list, decode, label: str, hold: bool) -> dict:
+    """Each streamed answer beside the container's own request for its prompt
+    (its tokens' text, their count in the usage, its finish), then each
+    greedy and seeded row's tokens and finish beside phase 3's direct burst:
+    held with ``hold``, counted without it (arrival order sets the prefill
+    groups there). Returns the rows compared and the rows equal."""
+    by_prompt = {r["prompt"]: r for r in rows}
+    if sorted(by_prompt) != sorted(b["prompt"] for b in bodies):
+        raise AssertionError(f"{label}: the container served {len(rows)} requests, not the burst's {len(bodies)}")
+    compared = equal = 0
+    for i, (body, g, (tokens, finish)) in enumerate(zip(bodies, got, direct)):
+        r = by_prompt[body["prompt"]]
+        if (g["text"], g["completion_tokens"], g["finish"]) != (decode(r["tokens"]), r["n_generated"],
+                                                                r["finish_reason"]):
+            raise AssertionError(f"{label} row {i}: the streamed answer ({g['completion_tokens']} tokens, "
+                                 f"{g['finish']}) is not the container's request ({r['n_generated']}, "
+                                 f"{r['finish_reason']})")
+        if body["temperature"] > 0 and "seed" not in body:
+            continue
+        compared += 1
+        equal += (r["tokens"], r["finish_reason"]) == (list(tokens), finish)
+    log(f"{label}: {equal} of {compared} greedy and seeded rows' tokens equal to phase 3's direct burst")
+    if hold and equal != compared:
+        raise AssertionError(f"{label}: {compared - equal} greedy or seeded rows' tokens differ from phase 3's "
+                             f"direct burst")
+    return {"greedy_and_seeded_rows": compared, "rows_equal_to_the_direct_burst": equal}
+
+
+def phase11_functions(mtpu, load_module_from_path, path: Path) -> dict:
+    """11a: ``@app.function(gpu="H100")`` through ``.remote``, ``.map`` over
+    4 inputs and ``.spawn``, each K1 against its plain version in the
+    container; a function without ``gpu=`` sees no card; ``gpu="H100:2"``
+    fails at boot naming the spec; a Cls's cold boot split and a warm
+    round trip."""
+    mod = load_module_from_path(str(path))
+    app = mod.app
+    out = {}
+    with app.run():
+        # the two side containers boot while the card's first one does
+        probe = mod.cpu_probe.spawn()
+        two = mod.two_cards.spawn()
+        t0 = time.monotonic()
+        first = mod.k1_check.remote(0)
+        out["first_remote_s"] = time.monotonic() - t0
+        rows = [first, *mod.k1_check.map(range(1, 5)), mod.k1_check.spawn(5).get(timeout=600)]
+        for i, r in enumerate(rows):
+            if not (r["max_abs_err"] <= TOL["flash_fwd"] and r["k1_launches"] > 0 and not r["compiled"]):
+                raise AssertionError(f"11a call {i}: {r}")
+        if len({r["pid"] for r in rows}) != 1 or [r["k1_launches"] for r in rows] != list(range(1, 7)):
+            raise AssertionError(f"11a: one container (max_containers=1) should run K1 once a call: {rows}")
+        out["k1"] = {"card": first["card"], "calls": len(rows), "max_abs_err": max(r["max_abs_err"] for r in rows),
+                     "container_launches": rows[-1]["k1_launches"], "compiled_in_container": first["compiled"]}
+        p = probe.get(timeout=300)
+        if p["cuda_available"] or p["CUDA_VISIBLE_DEVICES"] != "":
+            raise AssertionError(f"11a: a container without gpu= sees a card: {p}")
+        out["cpu_container"] = p
+        try:
+            two.get(timeout=300)
+        except RuntimeError as e:
+            if "H100:2" not in str(e):
+                raise
+            out["two_cards_boot_error"] = str(e)
+        else:
+            raise AssertionError("11a: a gpu='H100:2' function ran on a one-card host")
+        t_submit = time.time()
+        boot = mod.Probe().boot.remote()
+        t_done = time.time()
+        if boot["compiled"]:
+            raise AssertionError(f"11a: the Probe container compiled {boot['compiled']}")
+        out["cold_boot_s"] = {"spawn_and_import": boot["entered_at"] - t_submit,
+                              "enter": boot["ready_at"] - boot["entered_at"],
+                              "first_result": t_done - boot["ready_at"], "total": t_done - t_submit}
+        warm = []
+        for _ in range(WARM_CALLS):
+            t0 = time.perf_counter()
+            mod.Probe().ping.remote()
+            warm.append(time.perf_counter() - t0)
+        out["warm_round_trip_ms"] = statistics.median(warm) * 1e3
+    log(f"11a functions: {json.dumps(out)}")
+    return out
+
+
+def phase11_server(mtpu, load_module_from_path, path: Path, exit_mark: Path, port: int, SamplingParams,
+                   direct: list, decode) -> dict:
+    """11b: ``@app.server(gpu="H100")`` serving Llama-2-7B at full width;
+    phase 3's 8 requests as concurrent streamed ``/v1/completions``, twice:
+    queued as they arrive (rows counted), then held and queued together as
+    the direct burst queues them (rows held). The counts go to 0 just before
+    each burst and are read just after it."""
+    import concurrent.futures
+
+    mod = load_module_from_path(str(path))
+    app = mod.app
+    handle = app.registered_servers["LlamaServer"]
+    bodies = [{"prompt": p, "max_tokens": sp.max_tokens, "temperature": sp.temperature, "top_p": sp.top_p,
+               "stream": True, "stream_options": {"include_usage": True},
+               **({} if sp.seed is None else {"seed": sp.seed})} for p, sp in make_requests(SamplingParams)]
+    bursts = {}
+    with app.run():
+        t0 = time.time()
+        base = handle.serve()
+        ready = time.time()
+        server = mtpu.Cls.from_name("smoke-server", "LlamaServer")()
+        for name, hold in (("arrival", False), ("one_tick", True)):
+            server.zero_counts.remote(len(bodies) if hold else 0)
+            t1 = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+                got = list(pool.map(lambda b: stream_completion(base, b), bodies))
+            wall = time.monotonic() - t1
+            rep = server.report.remote()
+            for body, g in zip(bodies, got):
+                n = g["completion_tokens"]
+                if not ((g["finish"] == "length" and n == body["max_tokens"]) or
+                        (g["finish"] == "stop" and n <= body["max_tokens"])):
+                    raise AssertionError(f"11b: finish {g['finish']} with {n} tokens for "
+                                         f"max_tokens={body['max_tokens']}")
+            rows = served_rows(bodies, got, rep["rows"], direct, decode, f"11b server ({name})", hold)
+            if min(rep["launches"].values()) <= 0 or rep["compiled"]:
+                raise AssertionError(f"11b: the container's launches {rep['launches']}, compiled {rep['compiled']}")
+            ttfts = [r["ttft_s"] for r in rep["rows"]]
+            bursts[name] = {**rows, "launches": rep["launches"],
+                            "burst_tok_per_s": sum(g["completion_tokens"] for g in got) / wall, "wall_s": wall,
+                            "ttft_s_median": statistics.median(ttfts), "ttft_s_first_arrival": ttfts[0],
+                            "ttft_s_max": max(ttfts)}
+        handle.stop()
+        if not exit_mark.exists() or port_accepts(port):
+            raise AssertionError("11b: @exit did not stop the server, or its port still accepts")
+    launches = {k: sum(b["launches"][k] for b in bursts.values()) for k in bursts["arrival"]["launches"]}
+    out = {"card": rep["card"], **bursts, "launches": launches,
+           "boot_s": {"spawn_and_import": rep["entered_at"] - t0, "weights": rep["weights_at"] - rep["entered_at"],
+                      "engine": rep["engine_at"] - rep["weights_at"], "server": rep["server_at"] - rep["engine_at"],
+                      "port_ready": ready - t0},
+           "peak_gb": rep["peak_bytes"] / 1e9}
+    log(f"11b server: {json.dumps(out)}")
+    return out
+
+
+def port_accepts(port: int) -> bool:
+    """Whether a connection to the port on this host is accepted."""
+    import socket
+
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=1.0):
+            return True
+    except OSError:
+        return False
+
+
+def phase11_cls(load_module_from_path, path: Path, SamplingParams, direct: list) -> dict:
+    """11c: ``@app.cls(gpu="H100")``: ``.remote`` on the first request, then
+    ``.map`` over phase 3's 8, batched into one engine burst."""
+    mod = load_module_from_path(str(path))
+    reqs = make_requests(SamplingParams)
+    params = [{"max_tokens": sp.max_tokens, "temperature": sp.temperature, "seed": sp.seed, "top_p": sp.top_p}
+              for _, sp in reqs]
+    with mod.app.run():
+        gen = mod.Generator()
+        t0 = time.monotonic()
+        first = gen.generate.remote(reqs[0][0], params[0])
+        first_s = time.monotonic() - t0
+        gen.zero_counts.remote()
+        t0 = time.monotonic()
+        rows = list(gen.generate.map([p for p, _ in reqs], params))
+        wall = time.monotonic() - t0
+        launches = gen.counts.remote()
+    held = 0
+    for i, (r, sp, (tokens, finish)) in enumerate(zip([first, *rows], [params[0], *params], [direct[0], *direct])):
+        if sp["temperature"] > 0 and sp["seed"] is None:
+            continue
+        if (r["tokens"], r["finish_reason"]) != (list(tokens), finish):
+            raise AssertionError(f"11c row {i}: tokens differ from phase 3's direct burst")
+        held += 1
+    if {r["enters"] for r in [first, *rows]} != {1} or len({r["pid"] for r in [first, *rows]}) != 1:
+        raise AssertionError("11c: @enter ran more than once, or the inputs ran in more than one container")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"11c: the container's launches {launches}")
+    out = {"rows_held": held, "launches": launches, "remote_s": first_s, "map_wall_s": wall,
+           "map_tok_per_s": sum(len(r["tokens"]) for r in rows) / wall}
+    log(f"11c cls: {json.dumps(out)}")
+    return out
+
+
+def phase11_cli(path: Path) -> dict:
+    """11d: ``python -m modal_examples_tpu_torch run`` on 11a's file: exit 0
+    and the entry point's result printed."""
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "modal_examples_tpu_torch", "run", str(path), "--seed", "7"],
+                          capture_output=True, text=True, timeout=600, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("11d ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"11d: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    r = json.loads(lines[-1][4:])
+    if not (r["max_abs_err"] <= TOL["flash_fwd"] and r["k1_launches"] > 0):
+        raise AssertionError(f"11d: {r}")
+    out = {"seconds": time.monotonic() - t0, "max_abs_err": r["max_abs_err"], "k1_launches": r["k1_launches"]}
+    log(f"11d cli: {json.dumps(out)}")
+    return out
+
+
+def phase_serverless(SamplingParams, direct: list, decode) -> dict:
+    """Phase 11: the serverless surface on the card, through the port's own
+    entry points (``app.run()``, ``ServerHandle.serve()``, the CLI). The app
+    files go into a temporary directory; each imports
+    ``modal_examples_tpu_torch`` and nothing of the JAX package. The parent
+    built every kernel in phase 1, so no container runs nvcc."""
+    import tempfile
+
+    import modal_examples_tpu_torch as mtpu
+    from modal_examples_tpu_torch.core.app import load_module_from_path
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="smoke-apps-", dir=ROOT / "build") as d:
+        d = Path(d)
+        port = free_port()
+        write_app(d, "smoke_engine", APP_ENGINE)
+        functions = write_app(d, "smoke_functions", APP_FUNCTIONS)
+        server = write_app(d, "smoke_server", APP_SERVER, PORT=port, EXIT_MARK=str(d / "exit_mark"))
+        cls_app = write_app(d, "smoke_cls", APP_CLS)
+        t0 = time.monotonic()
+        out["functions"] = phase11_functions(mtpu, load_module_from_path, functions)
+        out["server"] = phase11_server(mtpu, load_module_from_path, server, d / "exit_mark", port, SamplingParams,
+                                       direct, decode)
+        out["cls"] = phase11_cls(load_module_from_path, cls_app, SamplingParams, direct)
+        out["cli"] = phase11_cli(functions)
+        out["seconds"] = time.monotonic() - t0
+    launches = {k: out["server"]["launches"][k] + out["cls"]["launches"][k] for k in out["server"]["launches"]}
+    launches["flash_fwd"] += out["functions"]["k1"]["container_launches"] + out["cli"]["k1_launches"]
+    out["container_launches"] = launches
+    return out
+
+
 # -- training ---------------------------------------------------------------------
 
 
@@ -3394,6 +3927,7 @@ def main() -> int:
     phase_server(eng, OpenAIServer)
     log("phase 4 server: ok")
     params, bf16_cache_bytes = eng.params, eng.cache.bytes()
+    decode = eng.tokenizer.decode  # phase 11 holds served texts against phase 3's tokens
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3436,6 +3970,10 @@ def main() -> int:
     t0 = time.monotonic()
     mixtral = phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams)
     log(f"phase 10 mixtral-8x7b ({card}): ok in {time.monotonic() - t0:.1f}s: {json.dumps(mixtral)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serverless = phase_serverless(SamplingParams, metrics["tokens"], decode)
+    log(f"phase 11 serverless surface ({card}): ok in {serverless['seconds']:.1f}s: {json.dumps(serverless)}")
     serve_counts, int8_counts, train_counts = metrics["launches"], int8["launches"], train["launches"]
     wb_counts = wb["launches"]
     counts = {
@@ -3452,12 +3990,18 @@ def main() -> int:
     counts["flash_fwd"] += workloads["text_to_image"]["k1_launches_per_image"]
     # phase 10's Mixtral bursts (bf16 K1/K2/K3/K4, int8 K1/K7/K2-int8/K3-int8)
     counts = {k: v + mixtral["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 11's containers: K1, K2 and K3 in the server's and the Cls's, K1
+    # in 11a's and 11d's function containers (marked in their rows)
+    counts = {k: v + serverless["container_launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
-        f"mixtral {mixtral['launches']}; kernels line (phases 8, 9 and 10 summed) {counts}")
+        f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}; kernels line "
+        f"(phases 8, 9, 10 and 11 summed) {counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
+    errs["flash_fwd"] = max(errs["flash_fwd"], serverless["functions"]["k1"]["max_abs_err"],
+                            serverless["cli"]["max_abs_err"])
     rows = phase_numbers(fa, pa, counts, errs)
     for r in rows:  # the write-then-attend kernels also time their verify route (8a)
         if r["name"] in spec["verify_route"]:
@@ -3466,6 +4010,8 @@ def main() -> int:
             r["joint"] = workloads["joint_k1"]
         if r["name"] == "quantized_matmul":  # and K7 Mixtral's expert products (10a)
             r["expert"] = mixtral["expert_k7"]["shapes"]
+        if r["name"] in serverless["container_launches"]:  # launches in phase 11's containers
+            r["container_launches"] = serverless["container_launches"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The port's metric catalog, after ``modal_examples_tpu/observability/catalog.py``:
 the series, span names and tick phases of the paths the port has (the JAX
-package's executor, snapshot, fleet, disaggregation, watchdog,
-flight-recorder and canary series come with those subsystems).
+package's snapshot, fleet, disaggregation, watchdog, flight-recorder and
+canary series come with those subsystems).
 
 ONE module owns every metric name: code imports the constant, and no
 ``mtpu_*`` metric-name literal stands anywhere else in the package.
@@ -10,6 +10,31 @@ unsuffixed gauges. Labels are listed per series in :data:`CATALOG`.
 """
 
 from __future__ import annotations
+
+# -- call lifecycle (core/executor.py) --------------------------------------
+
+#: histogram {function, phase}: per-phase call latency; phases are
+#: queue | boot | dispatch | execute | serialize | total
+CALL_DURATION_SECONDS = "mtpu_call_duration_seconds"
+#: histogram {function}: submit -> dispatch wait (the queue phase, dedicated
+#: series so queue-wait distributions can be scraped without a phase filter)
+QUEUE_WAIT_SECONDS = "mtpu_queue_wait_seconds"
+#: gauge {function}: inputs submitted but not yet completed
+INFLIGHT_INPUTS = "mtpu_inflight_inputs"
+#: counter {function, reason}: retry attempts scheduled;
+#: reason = timeout | container_death | user_error
+RETRIES_TOTAL = "mtpu_retries_total"
+#: counter {function, reason}: containers killed by the supervisor
+#: (reason = timeout is the only kill the scheduler makes today)
+CONTAINER_KILLS_TOTAL = "mtpu_container_kills_total"
+#: gauge: supervisor-process resident set size, sampled by the executor
+HOST_RSS_BYTES = "mtpu_host_rss_bytes"
+#: counter {function, action}: autoscaler decisions recorded to the journal;
+#: action = scale_up | scale_down | kill
+SCALER_DECISIONS_TOTAL = "mtpu_scaler_decisions_total"
+#: counter {point}: injected faults that FIRED, by catalog point name
+#: (faults/inject.py POINTS)
+FAULTS_INJECTED_TOTAL = "mtpu_faults_injected_total"
 
 # -- serving engine (serving/engine.py batch loop) --------------------------
 
@@ -216,6 +241,46 @@ CANARY_TOKENS_TOTAL = "mtpu_canary_tokens_total"
 #: machine-readable catalog: name -> {type, labels, help}; the recorders
 #: take each series' help text from here.
 CATALOG: dict[str, dict] = {
+    CALL_DURATION_SECONDS: {
+        "type": "histogram",
+        "labels": ["function", "phase"],
+        "help": "per-phase call latency "
+                "(queue|boot|dispatch|execute|serialize|total)",
+    },
+    QUEUE_WAIT_SECONDS: {
+        "type": "histogram",
+        "labels": ["function"],
+        "help": "submit-to-dispatch queue wait",
+    },
+    INFLIGHT_INPUTS: {
+        "type": "gauge",
+        "labels": ["function"],
+        "help": "inputs submitted but not yet completed",
+    },
+    RETRIES_TOTAL: {
+        "type": "counter",
+        "labels": ["function", "reason"],
+        "help": "retry attempts scheduled "
+                "(reason=timeout|container_death|user_error)",
+    },
+    CONTAINER_KILLS_TOTAL: {
+        "type": "counter",
+        "labels": ["function", "reason"],
+        "help": "containers killed by the supervisor",
+    },
+    HOST_RSS_BYTES: {
+        "type": "gauge", "labels": [],
+        "help": "supervisor-process resident set size (bytes)",
+    },
+    SCALER_DECISIONS_TOTAL: {
+        "type": "counter", "labels": ["function", "action"],
+        "help": "autoscaler decisions journaled "
+                "(action=scale_up|scale_down|kill)",
+    },
+    FAULTS_INJECTED_TOTAL: {
+        "type": "counter", "labels": ["point"],
+        "help": "injected faults fired, by faults/inject.py catalog point",
+    },
     ENGINE_PHASE_SECONDS: {
         "type": "histogram",
         "labels": ["phase"],

@@ -1,10 +1,11 @@
 """The bounded JSONL journal, after ``modal_examples_tpu/observability/journal.py``.
 
-The port writes one journal, the usage meter's per-request billing lines
-(``usage.jsonl`` under the state directory). :data:`JOURNALS` owns the
+The port writes two journals: the executor autoscaler's decisions
+(``scaler.jsonl``) and the usage meter's per-request billing lines
+(``usage.jsonl``), under the state directory. :data:`JOURNALS` owns the
 name -> file mapping and :func:`named_journal` resolves it; the JAX
-package's other journals (autoscaler, fleet, watchdog, chaos, compiles,
-alerts, prefix store, canary) come with the subsystems that write them.
+package's other journals (fleet, watchdog, chaos, compiles, alerts, prefix
+store, canary) come with the subsystems that write them.
 
 Records are plain dicts, one JSON object per line, kept in a bounded
 in-memory ring and appended to the file. The file is bounded: past
@@ -17,6 +18,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 from collections import deque
 from pathlib import Path
 
@@ -29,6 +31,7 @@ _MAX_FILE_RECORDS = 4096
 
 #: every journal the port writes: name -> file under ``<state_dir>``
 JOURNALS: dict[str, str] = {
+    "scaler": "scaler.jsonl",  # executor autoscaler (core/executor.py)
     "usage": "usage.jsonl",  # per-request usage records (observability/usage.py)
 }
 
@@ -51,6 +54,40 @@ def named_journal(name: str, root=None, *, path=None) -> "DecisionJournal":
     if root is not None:
         return DecisionJournal(journal_path(name, root), name=name)
     return DecisionJournal(name=name)
+
+
+def make_record(
+    *,
+    function: str,
+    action: str,
+    trigger: str,
+    queue_depth: int = 0,
+    inflight: int = 0,
+    free_slots: int = 0,
+    containers_before: int = 0,
+    containers_after: int = 0,
+    idle_ages: list[float] | None = None,
+    **extra,
+) -> dict:
+    """One autoscaler record. ``action`` is what the autoscaler did
+    (``scale_up`` | ``scale_down`` | ``kill``), ``trigger`` why
+    (``queue_pressure`` | ``min_containers`` | ``idle`` | ``single_use_spent``
+    | ``timeout``)."""
+    rec = {
+        "at": time.time(),
+        "function": function,
+        "action": action,
+        "trigger": trigger,
+        "queue_depth": queue_depth,
+        "inflight": inflight,
+        "free_slots": free_slots,
+        "containers_before": containers_before,
+        "containers_after": containers_after,
+    }
+    if idle_ages:
+        rec["idle_ages_s"] = [round(a, 3) for a in idle_ages]
+    rec.update(extra)
+    return rec
 
 
 class DecisionJournal:
@@ -104,3 +141,38 @@ class DecisionJournal:
             os.replace(tmp, self.path)
         except OSError:
             pass
+
+    def tail(
+        self, n: int = 50, *, function: str | None = None
+    ) -> list[dict]:
+        """Newest-last slice of the journal. The JSONL file holds every
+        record, so it is the primary source; the ring covers a state dir
+        whose file writes fail."""
+        recs = self._read_file()
+        with self._lock:
+            ring = list(self._ring)
+        if len(recs) < len(ring):
+            recs = ring  # file writes failing: the ring is all we have
+        if function is not None:
+            recs = [r for r in recs if r.get("function") == function]
+        return recs[-n:]
+
+    def _read_file(self) -> list[dict]:
+        try:
+            text = self.path.read_text()
+        except OSError:
+            return []
+        out = []
+        for line in text.splitlines():
+            if not line.strip():
+                continue
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+        return out
+
+
+#: process-wide journal of the executor autoscaler's decisions (state-dir
+#: backed), read back by the gateway's ``/autoscaler`` route
+default_journal = named_journal("scaler")

@@ -1,7 +1,8 @@
 """Copy of ``modal_examples_tpu/observability/metrics.py``: the port keeps its own instance.
 
-Recorders: the narrow API the serving engine, the scheduler, the prefix
-cache, the profiler and the usage meter call to emit metric series from
+Recorders: the narrow API the executor, the fault gate, the serving
+engine, the scheduler, the prefix cache, the profiler and the usage meter
+call to emit metric series from
 :mod:`.catalog` into the port's process-wide prometheus registry
 (:mod:`..utils.prometheus`). Only the recorders of those paths are copied;
 a later slice copies the rest with the subsystem that calls them.
@@ -19,6 +20,105 @@ from . import catalog as C
 
 def _reg(registry: Registry | None) -> Registry:
     return registry if registry is not None else default_registry
+
+
+# -- call lifecycle (executor) ----------------------------------------------
+
+
+def record_phase(
+    function: str, phase: str, seconds: float, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).histogram_observe(
+        C.CALL_DURATION_SECONDS,
+        seconds,
+        labels={"function": function, "phase": phase},
+        help=C.CATALOG[C.CALL_DURATION_SECONDS]["help"],
+    )
+
+
+def record_queue_wait(
+    function: str, seconds: float, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).histogram_observe(
+        C.QUEUE_WAIT_SECONDS,
+        seconds,
+        labels={"function": function},
+        help=C.CATALOG[C.QUEUE_WAIT_SECONDS]["help"],
+    )
+    record_phase(function, "queue", seconds, registry=registry)
+
+
+def set_inflight(
+    function: str, n: int, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).gauge_set(
+        C.INFLIGHT_INPUTS,
+        float(n),
+        labels={"function": function},
+        help=C.CATALOG[C.INFLIGHT_INPUTS]["help"],
+    )
+
+
+def record_retry(
+    function: str, reason: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.RETRIES_TOTAL,
+        1.0,
+        labels={"function": function, "reason": reason},
+        help=C.CATALOG[C.RETRIES_TOTAL]["help"],
+    )
+
+
+def record_container_kill(
+    function: str, reason: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.CONTAINER_KILLS_TOTAL,
+        1.0,
+        labels={"function": function, "reason": reason},
+        help=C.CATALOG[C.CONTAINER_KILLS_TOTAL]["help"],
+    )
+
+
+def sample_host_rss(*, registry: Registry | None = None) -> float | None:
+    """Current process RSS in bytes into the gauge (Linux: /proc/self/statm;
+    silently a no-op elsewhere). Returns the sampled value."""
+    import os as _os
+
+    try:
+        with open("/proc/self/statm") as f:
+            rss_pages = int(f.read().split()[1])
+        rss = rss_pages * _os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+    _reg(registry).gauge_set(
+        C.HOST_RSS_BYTES, float(rss),
+        help=C.CATALOG[C.HOST_RSS_BYTES]["help"],
+    )
+    return float(rss)
+
+
+def record_scaler_decision(
+    function: str, action: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.SCALER_DECISIONS_TOTAL, 1.0,
+        labels={"function": function, "action": action},
+        help=C.CATALOG[C.SCALER_DECISIONS_TOTAL]["help"],
+    )
+
+
+def record_fault_injected(
+    point: str, *, registry: Registry | None = None
+) -> None:
+    """One fired fault point (faults/inject.py). Only FIRES count — a
+    reached-but-passing point is free, preserving the zero-cost gate."""
+    _reg(registry).counter_inc(
+        C.FAULTS_INJECTED_TOTAL, 1.0,
+        labels={"point": point},
+        help=C.CATALOG[C.FAULTS_INJECTED_TOTAL]["help"],
+    )
 
 
 # -- serving engine ---------------------------------------------------------

@@ -1,8 +1,8 @@
 """Hot-path time attribution for the serving engine: per-tick host/device
 phase accounting. A copy of ``modal_examples_tpu/observability/profiler.py``
 without its compile telemetry (the port compiles no program at dispatch: its
-kernels build once, at first use) and without the process-wide registry of
-profilers that the JAX package's gateway reads.
+kernels build once, at first use). The process-wide registry of profilers
+(:func:`active_profilers`) is the gateway's ``/profile`` source.
 
 **Tick anatomy** — the scheduler thread accounts each ``step()`` into named
 phases (:data:`~.catalog.TICK_PHASES`) via monotonic deltas on the engine's
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 
 from ..utils.stats import percentile_nearest_rank as _pct
@@ -109,6 +110,7 @@ class HotPathProfiler:
         self._dispatches = 0
         self._dispatch_tokens = 0
         self._decode_steps = 1
+        register(self)
 
     @property
     def replica(self) -> str:
@@ -239,3 +241,23 @@ class HotPathProfiler:
         request-span timestamps)."""
         with self._lock:
             return {"ticks": [dict(e) for e in self._ring]}
+
+
+# -- process registry (the gateway's /profile source) ------------------------
+
+_registry_lock = threading.Lock()
+#: weak refs so the registry never pins a dead engine's profiler (the
+#: profiler's lazy-name callable holds the engine)
+_profilers: list = []
+
+
+def register(profiler: HotPathProfiler) -> None:
+    with _registry_lock:
+        _profilers.append(weakref.ref(profiler))
+        # drop dead refs opportunistically; cap the list
+        _profilers[:] = [r for r in _profilers if r() is not None][-64:]
+
+
+def active_profilers() -> list[HotPathProfiler]:
+    with _registry_lock:
+        return [p for p in (r() for r in _profilers) if p is not None]

@@ -1,11 +1,14 @@
 """Spans and the JSONL trace store, after ``modal_examples_tpu/observability/trace.py``.
 
-The request tracer (:mod:`.reqtrace`) records its spans here: one JSONL
-file per trace under ``<state_dir>/traces/`` (or a ``TraceStore``'s own
-root), one JSON object per span. Span timestamps are wall-clock
-(``time.time()``). ``MTPU_TRACE=0`` disables tracing entirely. The JAX
-package's call-lifecycle context (the executor's ambient trace) comes with
-the executor.
+The request tracer (:mod:`.reqtrace`) and the executor's call tracer record
+their spans here: one JSONL file per trace under ``<state_dir>/traces/``
+(or a ``TraceStore``'s own root), one JSON object per span. Every
+``.remote/.map/.spawn`` call gets a trace whose id is the call's input id
+(``in-...``): the executor opens the queue, boot and dispatch spans on the
+supervisor side, the container worker its execute and serialize spans,
+which ship back over the worker's pipe into the same trace. Span
+timestamps are wall-clock (``time.time()``): supervisor and containers
+share a host. ``MTPU_TRACE=0`` disables tracing entirely.
 """
 
 from __future__ import annotations
@@ -162,6 +165,14 @@ class TraceStore:
             return token
         matches = sorted(p.stem for p in self.root.glob(f"{token}*.jsonl"))
         return matches[0] if len(matches) == 1 else None
+
+    def list_traces(self, limit: int = 50) -> list[str]:
+        files = sorted(
+            self.root.glob("*.jsonl"),
+            key=lambda p: p.stat().st_mtime,
+            reverse=True,
+        )
+        return [p.stem for p in files[:limit]]
 
     def _maybe_gc(self) -> None:
         now = time.monotonic()

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 
 from . import metrics as _obs
 from .journal import DecisionJournal, named_journal
@@ -237,6 +238,7 @@ class EngineUsage:
         # Σ tenant buckets + canary == the engine's stats counters
         self._canary = {"prompt_tokens": 0, "generated_tokens": 0}
         self._canary_flushed = {"prompt_tokens": 0, "generated_tokens": 0}
+        register(self)
 
     @property
     def replica(self) -> str:
@@ -489,3 +491,37 @@ class EngineUsage:
                 phase, mfu=p["mfu"], mbu=p["mbu"],
                 tflops=p["achieved_tflops"], registry=reg,
             )
+
+
+def journal_tenant_totals(records: list[dict]) -> dict:
+    """Fold per-request journal records into per-tenant token totals — the
+    offline half of the conservation contract (Σ journal == the engine's
+    prefill+decode counters for the same run)."""
+    out: dict[str, dict] = {}
+    for rec in records:
+        t = str(rec.get("tenant", "default"))
+        b = out.setdefault(
+            t, {"prompt_tokens": 0, "generated_tokens": 0, "requests": 0}
+        )
+        b["prompt_tokens"] += int(rec.get("prompt_tokens", 0) or 0)
+        b["generated_tokens"] += int(rec.get("generated_tokens", 0) or 0)
+        b["requests"] += 1
+    return out
+
+
+# -- process registry (the gateway's /usage source) --------------------------
+
+_registry_lock = threading.Lock()
+#: weak refs, so the registry never pins a dead engine's meter
+_meters: list = []
+
+
+def register(meter: EngineUsage) -> None:
+    with _registry_lock:
+        _meters.append(weakref.ref(meter))
+        _meters[:] = [r for r in _meters if r() is not None][-64:]
+
+
+def active_meters() -> list[EngineUsage]:
+    with _registry_lock:
+        return [m for m in (r() for r in _meters) if m is not None]

@@ -33,6 +33,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: the sources this process compiled (a container that finds its checkout's
+#: libraries built compiles none)
+compiled: list[str] = []
 
 
 def kernel_names() -> list[str]:
@@ -90,6 +93,7 @@ def build(names: list[str] | None = None, *, verbose: bool = False) -> dict[str,
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
             logs[name] = log
+            compiled.append(name)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return logs

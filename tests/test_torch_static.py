@@ -91,6 +91,15 @@ def test_import_scan_reaches_the_inference_workloads():
         assert mod in names
 
 
+def test_import_scan_reaches_the_platform_layer():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("__main__.py", "core/app.py", "core/cls.py", "core/function.py", "core/executor.py",
+                "core/container_worker.py", "core/serialization.py", "core/resources.py", "core/image.py",
+                "core/cli.py", "web/gateway.py", "web/server.py", "storage/volume.py", "storage/secret.py",
+                "faults/inject.py", "utils/log.py"):
+        assert mod in names
+
+
 def _imports_of(path: Path):
     """(module, names) of every import in ``path``, relative ones resolved
     against its package."""
