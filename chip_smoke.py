@@ -6,12 +6,14 @@ write-then-attend decode, again with int8 weights and an int8 KV cache, and
 through the write-then-attend decode over int8 pages, speculates (a
 self-draft, a 1B-shape draft over int8, prompt lookup), runs the other
 inference workloads (SD3-shape text-to-image through K1, bge-small
-embeddings, whisper-base transcription, CLIP-L), LoRA-fine-tunes the same
-model through ``Trainer``, serves Mixtral-8x7B (bf16 at depth 8, int8 at
-full depth through the OpenAI server), runs the serverless surface on the
-card (functions, a Cls and Llama-2-7B behind ``@app.server`` in spawned
-GPU containers, and the CLI), and prints per-kernel times beside their
-bounds.
+embeddings, whisper-base transcription, CLIP-L), runs the operations layer
+over the same model (the gateway's health, alert and incident routes, the
+correctness canary with a planted drift), LoRA-fine-tunes the same model
+through ``Trainer`` and then an int8 base of it, serves Mixtral-8x7B (bf16
+at depth 8, int8 at full depth through the OpenAI server), runs the
+serverless surface on the card (functions, a Cls and Llama-2-7B behind
+``@app.server`` in spawned GPU containers, and the CLI), and prints
+per-kernel times beside their bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -170,7 +172,7 @@ Phases (any failure exits non-zero and prints no result):
    margin rule; ``align_tokens``; a ``StreamingTranscriber``; x-realtime);
    (9e) CLIP-L on 2 x 77 tokens against the CPU run. Its K1 launches join
    the kernels line; K1's row carries 9a's figures under ``joint``.
-10. Mixtral-8x7B (after training, every earlier tree freed): (10a) K7 at
+10. Mixtral-8x7B (after phase 12, every earlier tree freed): (10a) K7 at
    the expert products, M = 8 and 2048 over [4096, 14336] and
    [14336, 4096], against ``qmm_plain`` within 1e-3 of its largest value,
    bitwise run to run, a planted fault (the last K tile left out) refused,
@@ -222,6 +224,26 @@ Phases (any failure exits non-zero and prints no result):
    in one container. (11d) ``python -m modal_examples_tpu_torch run`` on
    11a's file: exit 0 and K1's result printed. The containers' launches
    join the kernels line, marked ``container_launches`` in their rows.
+12. LoRA on the int8 base (after training freed the bf16 base, before
+   Mixtral): ``init_quantized_llama`` at Llama-2-7B's full width and depth
+   (random int8 weights drawn on the card), rank 16 on all seven
+   projections (f32 adapters), B=2 x S=512: the first step's adapter
+   gradients through K7 and the flash kernels against the same step through
+   ``qmm_plain`` and the xla attention (cosine >= 0.999 per target); then,
+   counters zeroed, 1 warm-up and 3 timed ``Trainer`` steps: K7 7 x
+   n_layers + 1 times a step, K1, K5 and K6 n_layers times a step, finite
+   losses, the b adapters moved, the peak memory below the bf16 base's. Its
+   launches join the kernels line.
+13. the operations layer (after phase 9, before training; the resident
+   bf16 weights, ``SERVE_KW``): a gateway's ``/healthz``, ``/alerts`` and
+   ``/incidents`` over HTTP; the canary's golden set through the engine
+   (counters zeroed: K1, K2 and K3 launched): a first round records the
+   golden, a second passes bit-exact, a third with
+   ``engine.canary_token_corrupt`` armed reports drift on the first probe's
+   first token and captures a ``canary_drift`` incident bundle naming the
+   probe request, which ``/incidents`` then lists; the fingerprint names
+   ``cuda`` and this card; the probes' TTFT and e2e logged. Its launches
+   join the kernels line.
 """
 
 from __future__ import annotations
@@ -239,6 +261,7 @@ import subprocess
 import sys
 import time
 import traceback
+import urllib.error
 import urllib.request
 import warnings
 from pathlib import Path
@@ -3152,6 +3175,12 @@ def check_grads_against_xla(loss_fn, adapters, batch, targets) -> dict:
     b-gradients carry the comparison."""
     flash = adapter_grads(loss_fn, adapters, batch, "flash")
     xla = adapter_grads(loss_fn, adapters, batch, "xla")
+    return compare_adapter_grads(flash, xla, targets, "flash vs xla")
+
+
+def compare_adapter_grads(flash, xla, targets, label: str) -> dict:
+    """Per target: the b-gradients' cosine (held at ``GRAD_COSINE_MIN``) and
+    max relative error; every a-gradient must be exactly zero (b = 0)."""
     out = {}
     for t in targets:
         if flash[f"{t}_a"].abs().max() != 0 or xla[f"{t}_a"].abs().max() != 0:
@@ -3160,10 +3189,10 @@ def check_grads_against_xla(loss_fn, adapters, batch, targets) -> dict:
         cos = torch.nn.functional.cosine_similarity(f, x, dim=0).item()
         rel = max_err(f, x) / x.abs().max().item()
         out[t] = {"cosine": cos, "max_rel_err": rel}
-        log(f"  {t}_b grad flash vs xla: cosine {cos:.6f}, max rel err {rel:.3g}, max|g| {x.abs().max().item():.3g}")
+        log(f"  {t}_b grad {label}: cosine {cos:.6f}, max rel err {rel:.3g}, max|g| {x.abs().max().item():.3g}")
     worst = min(v["cosine"] for v in out.values())
     if not worst >= GRAD_COSINE_MIN:
-        raise AssertionError(f"adapter gradients disagree with attn_impl='xla': cosine {worst} < {GRAD_COSINE_MIN}")
+        raise AssertionError(f"adapter gradients disagree ({label}): cosine {worst} < {GRAD_COSINE_MIN}")
     return out
 
 
@@ -3176,8 +3205,8 @@ def lora_training_setup(llama, lora, training, params, steps: int):
     lcfg = lora.LoRAConfig(rank=16)
     B, S = 2, 512
     adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(0), params, lcfg)
-    for p in params["layers"]:
-        if any(t.requires_grad for t in p.values()):
+    for p in params["layers"]:  # bf16 tensors, or int8 QuantizedWeights (no requires_grad)
+        if any(getattr(t, "requires_grad", False) for t in p.values()):
             raise AssertionError("the base must be frozen")
     tok_gen = torch.Generator(device="cuda").manual_seed(1)
     batches = [
@@ -3247,6 +3276,215 @@ def phase_training(fa, llama, lora, training, params) -> dict:
         f"(median of {steps - 1} after 1 warm-up), peak {metrics['peak_gb']:.2f} GB of {metrics['card_gb']:.2f} GB; "
         f"{json.dumps(metrics)}")
     return metrics
+
+
+# -- phase 12 ---------------------------------------------------------------------
+
+
+class plain_int8_products:
+    """K7's plain version (``qmm_plain``) in place of the kernel's wrapper for
+    the products of a ``with`` block: the comparison path of phase 12. The
+    plain version counts no launch."""
+
+    def __init__(self, qmm):
+        self.qmm, self.kernel = qmm, qmm.qmm_cuda
+
+    def __enter__(self):
+        self.qmm.qmm_cuda = self.qmm.qmm_plain
+
+    def __exit__(self, *exc):
+        self.qmm.qmm_cuda = self.kernel
+
+
+def phase_int8_lora(fa, qmm, llama, lora, training, quantize, bf16_peak_gb: float) -> dict:
+    """``bench.py``'s int8 LoRA step at full Llama-2-7B width and depth:
+    ``init_quantized_llama`` (random int8 weights drawn on the card), rank
+    16 on all seven projections (f32 adapters, as the reference's), B=2 x
+    S=512, the masked next-token loss. The first step's adapter gradients
+    through K7 and the flash kernels against the same step through K7's and
+    attention's plain versions; then, counters zeroed, 1 warm-up and 3 timed
+    ``Trainer`` steps: K7 7 x n_layers + 1 times a step (the forward; the
+    backward's ``dX = (dY * scale) @ q^T`` is a bf16 product), K1, K5 and K6
+    n_layers times a step; the peak memory below the bf16 base's."""
+    steps = 4
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.monotonic()
+    qparams = quantize.init_quantized_llama(cfg, seed=0, bits=8, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    _, lcfg, adapters, batches, loss_fn = lora_training_setup(llama, lora, training, qparams, steps)
+    if any(v.dtype != torch.float32 for v in adapters["layers"].values()):
+        raise AssertionError("adapters over an int8 base must be f32")
+    B, S = batches[0]["tokens"].shape
+    log(f"phase 12 int8 LoRA: llama2-7b int8 base ({quantize.param_bytes(qparams) / 1e9:.2f} GB, drawn in "
+        f"{init_s:.1f}s), LoRA rank {lcfg.rank} f32 on {lcfg.targets}, B={B} S={S}")
+    t0 = time.monotonic()
+    kernels = adapter_grads(loss_fn, adapters, batches[0], "flash")
+    with plain_int8_products(qmm):
+        plain = adapter_grads(loss_fn, adapters, batches[0], "xla")
+    grads = compare_adapter_grads(kernels, plain, lcfg.targets, "K7 + flash vs plain int8 products + xla")
+    grad_s = time.monotonic() - t0
+    del kernels, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4))
+    state = trainer.init_state(adapters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    qmm.qmm_launches = 0
+    step_s, losses, k7_steps = [], [], []
+    for batch in batches:
+        k7_before = qmm.qmm_launches
+        t1 = time.monotonic()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        losses.append(m["loss"].item())
+        k7_steps.append(qmm.qmm_launches - k7_before)
+    counts = {"quantized_matmul": qmm.qmm_launches, "flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+              "flash_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    k7_want = len(lcfg.targets) * cfg.n_layers + isinstance(qparams.get("lm_head"), quantize.QuantizedWeight)
+    log(f"phase 12 steps: loss {losses}, step s {step_s}, K7 a step {k7_steps}, launches {counts}")
+    if k7_steps != [k7_want] * steps:
+        raise AssertionError(f"K7 launches a step {k7_steps}: want {k7_want}")
+    flash_want = cfg.n_layers * steps
+    if [counts[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] != [flash_want] * 3:
+        raise AssertionError(f"flash launches {counts}: want {flash_want} each")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite int8 LoRA loss: {losses}")
+    moved = {t: state.params["layers"][f"{t}_b"].abs().max().item() for t in lcfg.targets}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"b adapters did not move off zero: {moved}")
+    if not peak < bf16_peak_gb:
+        raise AssertionError(f"int8 LoRA peak {peak:.2f} GB is not below the bf16 base's {bf16_peak_gb:.2f} GB")
+    step_med = statistics.median(step_s[1:])
+    out = {
+        "train_tok_per_s": B * S / step_med,
+        "step_ms_median": 1e3 * step_med,
+        "step_ms": [1e3 * x for x in step_s],
+        "losses": losses,
+        "k7_per_step": k7_want,
+        "peak_gb": peak,
+        "bf16_peak_gb": bf16_peak_gb,
+        "base_gb": quantize.param_bytes(qparams) / 1e9,
+        "grad_check_s": grad_s,
+        "launches": counts,
+        "grad_check": grads,
+    }
+    log(f"phase 12 metrics: {out['train_tok_per_s']:.1f} tok/s, step {out['step_ms_median']:.1f} ms (median of "
+        f"{steps - 1} after 1 warm-up), K7 {k7_want} a step, peak {peak:.2f} GB against the bf16 base's "
+        f"{bf16_peak_gb:.2f} GB; {json.dumps(out)}")
+    return out
+
+
+# -- phase 13 ---------------------------------------------------------------------
+
+
+def http_json(url: str) -> tuple:
+    """(status, JSON body) of one GET, error statuses included."""
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_observability(fa, pa, llama, LLMEngine, params) -> dict:
+    """The operations layer over Llama-2-7B on the card (phase 3's resident
+    bf16 weights and ``SERVE_KW``): a gateway answers ``/healthz``,
+    ``/alerts`` and ``/incidents`` over HTTP; the canary records a golden
+    (three greedy probes), a second round passes bit-exact, and a third with
+    ``engine.canary_token_corrupt`` armed reports drift on the first probe's
+    first token and captures a ``canary_drift`` incident bundle naming the
+    probe request, listed by ``/incidents`` after. The counters are zeroed
+    just before the rounds and read just after: K1, K2 and K3 launched."""
+    from modal_examples_tpu_torch import App, SamplingParams
+    from modal_examples_tpu_torch.faults import inject
+    from modal_examples_tpu_torch.observability import canary, incident, reqtrace
+    from modal_examples_tpu_torch.web.gateway import Gateway
+
+    t0 = time.monotonic()
+    cfg = llama.LlamaConfig.llama2_7b()
+    eng = LLMEngine(cfg, params, **SERVE_KW)
+    eng.trace_name = "smoke-7b"
+    golden_dir = ROOT / "build" / f"canary-{os.getpid()}"
+    gw = Gateway(App("smoke-observability")).start()
+    out: dict = {}
+    try:
+        routes = {}
+        for path in ("/healthz", "/alerts", "/incidents"):
+            code, body = http_json(gw.base_url + path)
+            routes[path] = code
+            if path == "/healthz":
+                if code not in (200, 503) or body["status"] not in ("ok", "degraded") or not body["slos"]:
+                    raise AssertionError(f"/healthz answered {code}: {body}")
+                out["healthz"] = {"status": body["status"], "slos": {r["name"]: r["ok"] for r in body["slos"]}}
+            elif code != 200:
+                raise AssertionError(f"{path} answered {code}: {body}")
+            elif path == "/alerts":
+                out["alert_rules"] = [r["rule"] for r in body["rules"]]
+        out["routes"] = routes
+        fp = canary.fingerprint(eng)
+        if (fp["backend"], fp["device"], fp["kernel_impl"]) != ("cuda", torch.cuda.get_device_name(0), "cuda"):
+            raise AssertionError(f"the canary's identity does not name this card: {fp}")
+        prober = canary.CanaryProber(eng, interval_s=3600.0, store=canary.GoldenStore(root=golden_dir))
+        eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+        fa.launches = pa.decode_launches = pa.scatter_launches = 0
+        rounds = [prober.probe_once()["smoke-7b"], prober.probe_once()["smoke-7b"]]
+        plan = inject.FaultPlan({"engine.canary_token_corrupt": {"on_hit": 1}}, seed=0)
+        with inject.active(plan):
+            rounds.append(prober.probe_once()["smoke-7b"])
+        counts = {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
+        verdicts = [[r["result"] for r in rnd] for rnd in rounds]
+        log(f"phase 13 canary rounds {verdicts}, launches {counts}, fingerprint {fp}")
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"a kernel of the canary's path never launched: {counts}")
+        if verdicts != [["recorded"] * 3, ["pass"] * 3, ["drift", "pass", "pass"]]:
+            raise AssertionError(f"canary verdicts {verdicts}: want recorded, pass, drift on g0")
+        drift = rounds[2][0]
+        if drift["mismatch_at"] != 0 or drift["tokens"][0] != (drift["expected"][0] + 1) % cfg.vocab_size:
+            raise AssertionError(f"the drift is not the planted flip: {drift}")
+        if [r["tokens"] for r in rounds[1]] != [r["tokens"] for r in rounds[0]]:
+            raise AssertionError("the second round's tokens are not the golden's")
+        bundles = [m for m in incident.list_incidents()
+                   if m["trigger"] == "canary_drift" and drift["request_id"] in m.get("reason", "")]
+        if len(bundles) != 1:
+            raise AssertionError(f"want one canary_drift bundle naming {drift['request_id']}: {bundles}")
+        code, listed = http_json(gw.base_url + "/incidents")
+        code2, manifest = http_json(f"{gw.base_url}/incidents/{bundles[0]['id']}")
+        if code != 200 or bundles[0]["id"] not in [m["id"] for m in listed["incidents"]] or code2 != 200:
+            raise AssertionError(f"/incidents does not list the drift bundle: {code} {code2}")
+        code, cn = http_json(gw.base_url + "/canary")
+        if code != 200 or not cn["journal"]:
+            raise AssertionError(f"/canary answered {code}: {cn}")
+        probes = [r for rnd in rounds for r in rnd]
+        # random weights decode to few printable bytes, so a probe may stream
+        # no text piece before its end (no client-side TTFT): the engine's
+        # clock on the probe's trace root (``ttft_s``) times every probe
+        engine_ttft = [next(sp["attrs"]["ttft_s"] for sp in reqtrace.read_trace(r["request_id"])
+                            if sp["name"] == "request") for r in probes]
+        out.update({
+            "verdicts": verdicts,
+            "launches": counts,
+            "fingerprint": fp,
+            "incident": {"id": bundles[0]["id"], "reason": bundles[0]["reason"], "files": sorted(bundles[0]["files"])},
+            "probe_ttft_s": engine_ttft,
+            "probe_ttft_client_s": [r["ttft"] for r in probes],
+            "probe_e2e_s": [r["e2e"] for r in probes],
+            "probe_ttft_s_median": statistics.median(engine_ttft),
+            "probe_e2e_s_median": statistics.median(r["e2e"] for r in probes),
+            "seconds": time.monotonic() - t0,
+        })
+    finally:
+        gw.stop()
+        eng.stop()
+        shutil.rmtree(golden_dir, ignore_errors=True)
+    log(f"phase 13 observability: ok in {out['seconds']:.1f}s; probe TTFT median {out['probe_ttft_s_median']:.3f}s, "
+        f"e2e median {out['probe_e2e_s_median']:.3f}s; {json.dumps(out)}")
+    return out
 
 
 # -- phase 6 ----------------------------------------------------------------------
@@ -3897,10 +4135,11 @@ def main() -> int:
     # the engines' request traces and usage journals land in the checkout's build/
     os.environ.setdefault("MTPU_STATE_DIR", str(ROOT / "build" / "state"))
     from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams, training
-    from modal_examples_tpu_torch.models import layers, llama, lora
+    from modal_examples_tpu_torch.models import layers, llama, lora, quantize
     from modal_examples_tpu_torch.ops import _build, reference
     from modal_examples_tpu_torch.ops import flash_attention as fa
     from modal_examples_tpu_torch.ops import paged_attention as pa
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3963,8 +4202,16 @@ def main() -> int:
     t0 = time.monotonic()
     workloads = phase_inference_workloads(fa, reference, card)
     log(f"phase 9 inference workloads ({card}): ok in {time.monotonic() - t0:.1f}s: {json.dumps(workloads)}")
+    observability = phase_observability(fa, pa, llama, LLMEngine, params)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    lora8 = phase_int8_lora(fa, qmm, llama, lora, training, quantize, train["peak_gb"])
+    log(f"phase 12 int8 LoRA ({card}): ok in {time.monotonic() - t0:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -3993,11 +4240,14 @@ def main() -> int:
     # phase 11's containers: K1, K2 and K3 in the server's and the Cls's, K1
     # in 11a's and 11d's function containers (marked in their rows)
     counts = {k: v + serverless["container_launches"].get(k, 0) for k, v in counts.items()}
+    # phase 12's int8 LoRA steps (K7, K1, K5, K6) and phase 13's canary
+    # rounds (K1, K2, K3)
+    counts = {k: v + lora8["launches"].get(k, 0) + observability["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
-        f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}; kernels line "
-        f"(phases 8, 9, 10 and 11 summed) {counts}")
+        f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}, int8 LoRA "
+        f"{lora8['launches']}, canary {observability['launches']}; kernels line (phases 8-13 summed) {counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
     errs["flash_fwd"] = max(errs["flash_fwd"], serverless["functions"]["k1"]["max_abs_err"],

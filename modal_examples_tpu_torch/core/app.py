@@ -27,6 +27,7 @@ import contextlib
 import datetime as _dt
 import inspect
 import json
+import os
 import sys
 import threading
 import time
@@ -107,6 +108,15 @@ class AppRun:
             pools = list(self._pools.values())
         for p in pools:
             p.shutdown()
+        # this run's series outlive the process through the file push
+        # gateway (observability/export.py): the CLI's ``metrics`` and a
+        # gateway's ``/metrics`` read the pushed exposition later
+        try:
+            from ..observability.export import push_metrics_file
+
+            push_metrics_file(f"app-{self.app.name}-{os.getpid()}")
+        except Exception:
+            pass  # metrics must never break shutdown
 
 
 class _LocalEntrypoint:

@@ -1,6 +1,8 @@
 """The port's CLI, after ``modal_examples_tpu/core/cli.py`` (``tpurun``):
 ``run`` / ``deploy`` / ``serve`` / ``app`` / ``secret``, the analog of
-``modal run`` etc.
+``modal run`` etc., and the observability subcommands over the state
+directory (traces, pushed metrics, the tsdb, alerts, incidents, the canary,
+usage, the kernel build ledger, the autoscaler journal).
 
 Reference spec: ``modal run 01_getting_started/hello_world.py``
 (README.md:17-21); auto-generated CLI flags from the ``local_entrypoint``
@@ -15,6 +17,18 @@ Usage:
     python -m modal_examples_tpu_torch serve script.py    # host web endpoints and servers
     python -m modal_examples_tpu_torch secret create NAME K=V ...
     python -m modal_examples_tpu_torch app list
+    python -m modal_examples_tpu_torch trace [ID [--perfetto] | list [--limit N]]  # call/request traces
+    python -m modal_examples_tpu_torch explain REQUEST_ID    # request lifecycle narrative
+    python -m modal_examples_tpu_torch metrics [--json]      # merged pushed prometheus expositions
+    python -m modal_examples_tpu_torch metrics --watch S [--rate]  # live tsdb deltas
+    python -m modal_examples_tpu_torch profile [N] [--json]  # tick phases + the kernel build ledger
+    python -m modal_examples_tpu_torch usage [N] [--json]    # per-tenant usage meters + MFU/MBU
+    python -m modal_examples_tpu_torch canary [N] [--json]   # golden-set probe results + drift
+    python -m modal_examples_tpu_torch tsdb [--series NAME]  # on-disk metrics history (MTPU_TSDB=1)
+    python -m modal_examples_tpu_torch alerts [--last N]     # alert rules + fire/clear history
+    python -m modal_examples_tpu_torch incidents [list|show|capture]  # incident bundles
+    python -m modal_examples_tpu_torch scaler [N] [--function TAG]    # autoscaler decisions
+    python -m modal_examples_tpu_torch top [--watch S]       # serving summary + SLO burn rates
 
 The JAX package's other subcommands wait with their subsystems
 (:data:`WAITING_COMMANDS`): each exits non-zero naming its ROADMAP item.
@@ -26,6 +40,7 @@ import argparse
 import inspect
 import json
 import os
+import re
 import sys
 
 from .._internal import config as _config
@@ -51,6 +66,31 @@ def _build_entrypoint_parser(fn, prog: str) -> argparse.ArgumentParser:
             typ = ann if ann in (int, float, str) else (type(default) if default is not None and type(default) in (int, float, str) else str)
             p.add_argument(flag, type=typ, default=default, required=required)
     return p
+
+
+_NEGATIVE_NUMBER = re.compile(r"^-\d+(\.\d+)?$")
+
+
+def _pop_flag(
+    argv: list[str], flag: str, usage: str
+) -> tuple[list[str], str | None]:
+    """Extract ``<flag> VALUE`` from argv; returns (rest, value_or_None).
+    A flag present without its value — or followed by another flag-shaped
+    token (``--x``/``-o``; negative numbers pass) — exits with ``usage``."""
+    if flag not in argv:
+        return argv, None
+    i = argv.index(flag)
+    if i + 1 >= len(argv):
+        raise SystemExit(usage)
+    value = argv[i + 1]
+    if value.startswith("-") and not _NEGATIVE_NUMBER.match(value):
+        raise SystemExit(usage)
+    return argv[:i] + argv[i + 2 :], value
+
+
+def _pop_dir_flag(argv: list[str], usage: str) -> tuple[list[str], str | None]:
+    """Extract ``--dir PATH`` from argv; returns (rest, path_or_None)."""
+    return _pop_flag(argv, "--dir", usage)
 
 
 def _load_app(path: str):
@@ -195,26 +235,1118 @@ def cmd_app(argv: list[str]) -> int:
     raise SystemExit(f"usage: {PROG} app list")
 
 
+def cmd_trace(argv: list[str]) -> int:
+    """Render one trace as an indented span tree — either id namespace:
+    executor calls (``in-...``, ``FunctionCall.call_id``) and serving
+    requests (``req-...``, ``x-mtpu-request-id``) live in the same store,
+    and a unique id PREFIX resolves too.
+
+    trace ID           — the spans of one call/request
+    trace ID --perfetto [-o FILE] [--profile SNAP.json] [--tsdb]
+                       — emit the trace as Chrome-trace/Perfetto JSON
+                         (loads in chrome://tracing and ui.perfetto.dev;
+                         request traces get one track per replica).
+                         ``--profile`` merges a saved hot-path profiler
+                         snapshot (the gateway's ``/profile`` payload, or
+                         a bare {replica: {ticks, compiles}} map) as
+                         tick-phase counter tracks + compile slices on
+                         the owning replica tracks; ``--tsdb`` rides the
+                         on-disk flight-recorder window overlapping the
+                         spans along as counter tracks
+    trace list [--limit N]
+                       — most recently active traces, newest first
+    ``--dir PATH`` overrides the trace root (default ``<state_dir>/traces``;
+    ``os.pathsep``-separated roots merge per-replica stores, like explain).
+    """
+    from ..observability import reqtrace as _reqtrace
+    from ..observability.trace import TraceStore
+
+    argv, root = _pop_dir_flag(argv, "usage: python -m modal_examples_tpu_torch trace ... --dir PATH")
+    stores = (
+        [TraceStore(root=p) for p in root.split(os.pathsep) if p]
+        if root
+        else [TraceStore()]
+    )
+    store = stores[0]
+    if not argv or argv[0] == "list":
+        rest, limit_s = _pop_flag(
+            argv[1:], "--limit", "usage: python -m modal_examples_tpu_torch trace list [--limit N]"
+        )
+        if limit_s is None and rest:  # bare N still accepted
+            limit_s, rest = rest[0], rest[1:]
+        limit = int(limit_s) if limit_s is not None else 20
+        ids = store.list_traces(limit=limit)
+        if not ids:
+            print(f"no traces in {store.root}")
+            return 0
+        for tid in ids:
+            spans = store.read(tid)
+            roots = [s for s in spans if s.get("parent_id") is None]
+            head = roots[0] if roots else (spans[0] if spans else {})
+            attrs = head.get("attrs") or {}
+            dur = (head.get("end") or 0) - (head.get("start") or 0)
+            status = head.get("status", "?")
+            print(
+                f"{tid}  {attrs.get('function', '?'):<24} "
+                f"{dur * 1000:>9.1f}ms  {status}  ({len(spans)} spans)"
+            )
+        return 0
+    # by-id: resolve either namespace (whitelisted token, no raw-path
+    # fallback) and MERGE the given stores — a per-replica-store fleet's
+    # request trace renders/exports complete, not one store's slice
+    trace_id = _reqtrace.resolve(argv[0], stores=stores)
+    spans = _reqtrace.read_trace(trace_id, stores=stores) if trace_id else []
+    if not spans:
+        raise SystemExit(f"no trace {argv[0]!r} in {store.root}")
+    if "--perfetto" in argv:
+        from ..observability.export import spans_to_chrome_trace
+
+        usage_p = (
+            "usage: python -m modal_examples_tpu_torch trace ID --perfetto [-o FILE] "
+            "[--profile SNAP.json] [--tsdb]"
+        )
+        argv, out_file = _pop_flag(argv, "-o", usage_p)
+        argv, prof_file = _pop_flag(argv, "--profile", usage_p)
+        with_tsdb = "--tsdb" in argv
+        argv = [a for a in argv if a != "--tsdb"]
+        tsdb = None
+        if with_tsdb:
+            # the on-disk flight-recorder window overlapping the spans
+            # (±30 s) rides along as counter tracks next to the tick-phase
+            # tracks (the reference's docs/observability.md#metrics-history)
+            from ..observability import timeseries as _tsm
+
+            at = [s.get("start") or 0.0 for s in spans]
+            at += [s.get("end") or 0.0 for s in spans]
+            at = [t for t in at if t]
+            if at:
+                tsdb = _tsm.read_window(min(at) - 30.0, max(at) + 30.0)
+        profile = None
+        if prof_file:
+            from pathlib import Path as _Path
+
+            doc_in = json.loads(_Path(prof_file).read_text())
+            # accept the gateway's /profile payload or a bare
+            # {replica: {ticks, compiles}} map
+            nodes = doc_in.get("replicas", doc_in)
+            profile = {
+                name: node.get("perfetto", node)
+                for name, node in nodes.items()
+                if isinstance(node, dict)
+            }
+        doc = spans_to_chrome_trace(
+            spans, trace_id, profile=profile, tsdb=tsdb
+        )
+        if out_file:
+            from pathlib import Path as _Path
+
+            _Path(out_file).write_text(json.dumps(doc, indent=1))
+            print(
+                f"wrote {len(doc['traceEvents'])} events to {out_file} "
+                "(open in chrome://tracing or ui.perfetto.dev)"
+            )
+        else:
+            print(json.dumps(doc))
+        return 0
+    spans.sort(key=lambda s: (s.get("start") or 0.0))
+    by_parent: dict = {}
+    for s in spans:
+        by_parent.setdefault(s.get("parent_id"), []).append(s)
+    t0 = min(s.get("start") or 0.0 for s in spans)
+
+    def render(span: dict, depth: int) -> None:
+        dur = ((span.get("end") or span["start"]) - span["start"]) * 1000
+        rel = (span["start"] - t0) * 1000
+        attrs = span.get("attrs") or {}
+        extras = " ".join(f"{k}={v}" for k, v in attrs.items())
+        mark = "" if span.get("status") == "ok" else f" [{span.get('status')}]"
+        print(
+            f"{'  ' * depth}{span['name']:<{24 - 2 * min(depth, 8)}} "
+            f"+{rel:>8.1f}ms {dur:>9.1f}ms{mark}"
+            + (f"  {extras}" if extras else "")
+        )
+        for child in by_parent.get(span.get("span_id"), []):
+            render(child, depth + 1)
+
+    print(f"trace {trace_id}")
+    for s in by_parent.get(None, []):
+        render(s, 0)
+    # spans whose parent never landed (e.g. the container died before its
+    # dispatch span closed) still print, flat, rather than vanishing
+    known = {s.get("span_id") for s in spans}
+    for s in spans:
+        pid = s.get("parent_id")
+        if pid is not None and pid not in known:
+            render(s, 0)
+    return 0
+
+
+def cmd_explain(argv: list[str]) -> int:
+    """Merge one request's spans across trace stores and render the
+    lifecycle narrative (the reference's docs/observability.md):
+
+        $ python -m modal_examples_tpu_torch explain req-4f2a...
+        request req-4f2a...: serving request trace — stop in 412.0ms ...
+          +   0.0ms  queued 12.1ms (class=interactive, replica dec-0)
+          +  12.3ms  placed: prefill=pre-0 decode=dec-0
+          +  13.0ms  prefill on pre-0 340.2ms (512 prompt tokens)
+          ...
+
+    Takes either id namespace — a serving request id (``req-…``, from the
+    ``x-mtpu-request-id`` response header) or an executor call id
+    (``in-…``) — full or unique prefix, and says which kind it found.
+    ``--dir`` accepts one or more store roots (``os.pathsep``-separated)
+    for merging per-replica trace dirs; default is ``<state_dir>/traces``.
+    """
+    from ..observability import reqtrace as _reqtrace
+    from ..observability.trace import TraceStore
+
+    usage = "usage: python -m modal_examples_tpu_torch explain REQUEST_ID [--dir PATH[:PATH...]]"
+    argv, root = _pop_dir_flag(argv, usage)
+    if not argv:
+        raise SystemExit(usage)
+    stores = (
+        [TraceStore(root=p) for p in root.split(os.pathsep) if p]
+        if root
+        else None
+    )
+    rid = _reqtrace.resolve(argv[0], stores=stores)
+    if rid is None:
+        raise SystemExit(f"no trace matching {argv[0]!r}")
+    spans = _reqtrace.read_trace(rid, stores=stores)
+    for line in _reqtrace.explain_lines(spans, rid):
+        print(line)
+    return 0
+
+
+def cmd_profile(argv: list[str]) -> int:
+    """Hot-path time attribution (the reference's docs/observability.md#hot-path-profiling):
+    the scheduler-tick phase table (p50/p95 per catalog.TICK_PHASES entry),
+    the host-vs-device overhead fraction, and the compile ledger's biggest
+    builds — from the pushed metrics files plus
+    ``<state_dir>/compiles.jsonl``. Engines emit these series only under
+    ``MTPU_PROFILE`` (bench configs opt in), so an empty table means no
+    profiled engine has pushed yet. torch-free by construction.
+
+    profile [N]        — phase table + top N ledger compiles (default 10)
+    profile --json     — the machine-readable payload
+    ``--dir PATH`` overrides the state-dir root (``metrics/`` +
+    ``compiles.jsonl`` live under it).
+    """
+    from pathlib import Path
+
+    from ..observability import catalog as C
+    from ..observability import profiler as _prof
+    from ..observability.export import pushed_jobs
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    argv, root = _pop_dir_flag(argv, "usage: python -m modal_examples_tpu_torch profile [N] [--json]")
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    top_n = int(argv[0]) if argv else 10
+
+    jobs = pushed_jobs(Path(root) / "metrics" if root else None)
+    merged = parse_exposition(merge_expositions(jobs)) if jobs else None
+    ledger = _prof.read_ledger(
+        path=Path(root) / "compiles.jsonl" if root else None, n=2000
+    )
+    builds = [r for r in ledger if r.get("event") == "end"]
+    unfinished = _prof.unfinished_builds(ledger)
+
+    phases: dict = {}
+    ratio = None
+    decode_steps = None
+    tokens_per_dispatch = None
+    spec_gamma = None
+    spec_accept = None
+    spec_tpd = None
+    lookups: dict = {}
+    roofline: dict = {}
+    if merged is not None:
+        # roofline position (the reference's docs/observability.md#roofline-and-usage-
+        # accounting): the usage meter's achieved-vs-peak gauges per phase
+        for series, key in (
+            (C.MFU, "mfu"),
+            (C.HBM_BW_UTIL, "mbu"),
+            (C.ACHIEVED_TFLOPS, "tflops"),
+        ):
+            for labels, v in merged.series(series):
+                roofline.setdefault(labels.get("phase", "?"), {})[key] = v
+        for phase in C.TICK_PHASES + (C.TICK_TOTAL_PHASE,):
+            q = merged.histogram_quantiles(
+                C.TICK_PHASE_SECONDS, quantiles=(0.5, 0.95),
+                aggregate={"phase": phase},
+            )
+            if q:
+                phases[phase] = {
+                    "p50": q["p50"], "p95": q["p95"], "count": q["count"],
+                }
+        # a 0..1 fraction must never sum across jobs: show the worst
+        ratio = merged.peak(C.HOST_OVERHEAD_RATIO) or None
+        # macro-step decode (docs/multistep.md): configured N + the
+        # harvested tokens-per-dispatch — gauges, so peak, never sum
+        decode_steps = merged.peak(C.MULTISTEP_DECODE_STEPS) or None
+        tokens_per_dispatch = (
+            merged.peak(C.MULTISTEP_TOKENS_PER_DISPATCH) or None
+        )
+        # fused speculative rounds (docs/speculative.md#series): dispatched
+        # γ p50 + acceptance — gauges, so peak, never sum
+        spec_gamma = merged.peak(C.SPEC_GAMMA) or None
+        spec_accept = merged.peak(C.SPEC_ACCEPTANCE_RATE) or None
+        spec_tpd = merged.peak(C.SPEC_TOKENS_PER_DISPATCH) or None
+        for labels, v in merged.series(C.COMPILES_TOTAL):
+            entry = lookups.setdefault(
+                labels.get("program", "?"), {"hit": 0, "miss": 0}
+            )
+            entry[labels.get("cache", "miss")] = int(v)
+
+    top = sorted(
+        builds, key=lambda r: r.get("seconds") or 0.0, reverse=True
+    )[:top_n]
+    if as_json:
+        print(json.dumps({
+            "host_overhead_ratio": ratio,
+            "decode_steps": decode_steps,
+            "tokens_per_dispatch": tokens_per_dispatch,
+            "spec_gamma": spec_gamma,
+            "spec_acceptance_rate": spec_accept,
+            "spec_tokens_per_dispatch": spec_tpd,
+            "roofline": roofline,
+            "phases": phases,
+            "compile_lookups": lookups,
+            "compile_total_s": round(
+                sum(r.get("seconds") or 0.0 for r in builds), 3
+            ),
+            "compiles_n": len(builds),
+            "top_compiles": top,
+            "unfinished_builds": unfinished,
+        }))
+        return 0
+
+    if ratio is not None:
+        print(f"host overhead ratio: {ratio:.3f} (1 - device-blocked/total)")
+    if decode_steps is not None:
+        tpd = (
+            f"{tokens_per_dispatch:.1f}"
+            if tokens_per_dispatch is not None else "-"
+        )
+        print(
+            f"macro-step decode: N={decode_steps:.0f} configured, "
+            f"{tpd} tokens/dispatch"
+        )
+    if spec_gamma is not None or spec_accept:
+        acc = f"{spec_accept:.2f}" if spec_accept is not None else "-"
+        stpd = f"{spec_tpd:.1f}" if spec_tpd is not None else "-"
+        print(
+            f"speculative decode: gamma p50 {spec_gamma or 0:.0f}, "
+            f"acceptance {acc}, {stpd} tokens/round"
+        )
+    tot = roofline.get("total")
+    if tot is not None:
+        bound = (
+            "compute-bound"
+            if tot.get("mfu", 0.0) >= tot.get("mbu", 0.0)
+            else "bandwidth-bound"
+        )
+        print(
+            f"roofline: MFU {tot.get('mfu', 0.0):.4f}  "
+            f"MBU {tot.get('mbu', 0.0):.4f}  "
+            f"{tot.get('tflops', 0.0):.3f} TFLOP/s achieved ({bound})"
+        )
+    if phases:
+        print(f"{'PHASE':<18} {'P50 ms':>9} {'P95 ms':>9} {'TICKS':>7}")
+        for phase in list(C.TICK_PHASES) + [C.TICK_TOTAL_PHASE]:
+            q = phases.get(phase)
+            if q:
+                print(
+                    f"{phase:<18} {q['p50'] * 1000:>9.3f} "
+                    f"{q['p95'] * 1000:>9.3f} {q['count']:>7}"
+                )
+    else:
+        print(
+            "no tick-phase series in pushed metrics "
+            "(run a bench or an engine with MTPU_PROFILE=1 first)"
+        )
+    if lookups:
+        print("\ncompile-cache lookups per program (miss=fresh build):")
+        for program, entry in sorted(lookups.items()):
+            print(
+                f"  {program:<16} miss={entry['miss']:<5} hit={entry['hit']}"
+            )
+    if top:
+        print(f"\ntop compiles ({len(builds)} ledgered builds):")
+        for r in top:
+            print(
+                f"  {r.get('seconds', 0.0):>8.3f}s  "
+                f"{r.get('program', '?'):<16} {r.get('shape_key', '?'):<14} "
+                f"({r.get('replica', '?')})"
+            )
+    if unfinished:
+        # the ≥40-slot ceiling diagnosis: a begin event with no end means
+        # the build crashed or hung — name it loudly
+        print("\nUNFINISHED builds (began, never completed — crash/hang?):")
+        for r in unfinished:
+            print(
+                f"  {r.get('program', '?')} {r.get('shape_key', '?')} "
+                f"on {r.get('replica', '?')}"
+            )
+    return 0
+
+
+def cmd_usage(argv: list[str]) -> int:
+    """Hardware-utilization accounting (the reference's docs/observability.md#roofline-and-
+    usage-accounting): the per-tenant/per-class usage counters (prompt +
+    generated tokens, device-seconds, KV page-seconds, sheds) from the
+    pushed metrics files, the roofline MFU/MBU gauges, and the newest
+    per-request records from ``<state_dir>/usage.jsonl``. torch-free by
+    construction.
+
+    usage [N]        — tenant table + last N journal records (default 10)
+    usage --json     — the machine-readable payload
+    ``--dir PATH`` overrides the state-dir root.
+    """
+    from pathlib import Path
+
+    from ..observability import catalog as C
+    from ..observability import usage as _usage
+    from ..observability.export import pushed_jobs
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    argv, root = _pop_dir_flag(argv, "usage: python -m modal_examples_tpu_torch usage [N] [--json]")
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    last = int(argv[0]) if argv else 10
+
+    jobs = pushed_jobs(Path(root) / "metrics" if root else None)
+    merged = parse_exposition(merge_expositions(jobs)) if jobs else None
+
+    tenants: dict = {}
+    roofline: dict = {}
+    if merged is not None:
+        for series, field in (
+            (C.USAGE_PROMPT_TOKENS_TOTAL, "prompt_tokens"),
+            (C.USAGE_GENERATED_TOKENS_TOTAL, "generated_tokens"),
+            (C.USAGE_DEVICE_SECONDS_TOTAL, "device_seconds"),
+            (C.USAGE_KV_PAGE_SECONDS_TOTAL, "kv_page_seconds"),
+            (C.USAGE_SHEDS_TOTAL, "sheds"),
+        ):
+            for labels, v in merged.series(series):
+                key = (
+                    labels.get("tenant", "?"), labels.get("class", "?")
+                )
+                tenants.setdefault(key, {})[field] = v
+        for series, field in (
+            (C.MFU, "mfu"),
+            (C.HBM_BW_UTIL, "mbu"),
+            (C.ACHIEVED_TFLOPS, "tflops"),
+        ):
+            for labels, v in merged.series(series):
+                roofline.setdefault(
+                    labels.get("phase", "?"), {}
+                )[field] = v
+
+    records = named_journal("usage", root).tail(last)
+    journal_totals = _usage.journal_tenant_totals(records)
+
+    if as_json:
+        print(json.dumps({
+            "tenants": [
+                {"tenant": t, "class": k, **fields}
+                for (t, k), fields in sorted(tenants.items())
+            ],
+            "roofline": roofline,
+            "journal_totals": journal_totals,
+            "records": records,
+        }))
+        return 0
+
+    if tenants:
+        print(
+            f"{'TENANT':<14} {'CLASS':<13} {'PROMPT':>9} {'GEN':>8} "
+            f"{'DEV s':>9} {'PAGE s':>11} {'SHEDS':>6}"
+        )
+        for (t, k), f in sorted(tenants.items()):
+            print(
+                f"{t:<14} {k:<13} {int(f.get('prompt_tokens', 0)):>9} "
+                f"{int(f.get('generated_tokens', 0)):>8} "
+                f"{f.get('device_seconds', 0.0):>9.3f} "
+                f"{f.get('kv_page_seconds', 0.0):>11.3f} "
+                f"{int(f.get('sheds', 0)):>6}"
+            )
+    else:
+        print(
+            "no usage series in pushed metrics "
+            "(run a bench or a serving engine first)"
+        )
+    tot = roofline.get("total")
+    if tot is not None:
+        bound = (
+            "compute-bound"
+            if tot.get("mfu", 0.0) >= tot.get("mbu", 0.0)
+            else "bandwidth-bound"
+        )
+        print(
+            f"\nroofline: MFU {tot.get('mfu', 0.0):.4f}  "
+            f"MBU {tot.get('mbu', 0.0):.4f}  "
+            f"{tot.get('tflops', 0.0):.3f} TFLOP/s achieved ({bound})"
+        )
+    if records:
+        print(f"\nlast {len(records)} usage records (usage.jsonl):")
+        for r in records:
+            print(
+                f"  {r.get('request_id', '?'):<18} "
+                f"{r.get('tenant', '?'):<12} {r.get('class', '?'):<10} "
+                f"prompt={r.get('prompt_tokens', 0):<6} "
+                f"gen={r.get('generated_tokens', 0):<6} "
+                f"cached={r.get('cached_prompt_tokens', 0):<6} "
+                f"{r.get('finish_reason', '?')}"
+            )
+    return 0
+
+
+def cmd_canary(argv: list[str]) -> int:
+    """Correctness-canary status
+    (the reference's docs/observability.md#correctness-canary): per-replica golden-set
+    probe counts from the pushed metrics files plus the newest probe
+    rounds from ``<state_dir>/canary.jsonl``. torch-free by construction.
+
+    canary [N]        — replica table + last N journal records (default 10)
+    canary --json     — the machine-readable payload
+    ``--dir PATH`` overrides the state-dir root.
+    """
+    from pathlib import Path
+
+    from ..observability import catalog as C
+    from ..observability.export import pushed_jobs
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    argv, root = _pop_dir_flag(argv, "usage: python -m modal_examples_tpu_torch canary [N] [--json]")
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    last = int(argv[0]) if argv else 10
+
+    jobs = pushed_jobs(Path(root) / "metrics" if root else None)
+    merged = parse_exposition(merge_expositions(jobs)) if jobs else None
+
+    replicas: dict = {}
+    if merged is not None:
+        for labels, v in merged.series(C.CANARY_PROBES_TOTAL):
+            rep = replicas.setdefault(labels.get("replica", "?"), {})
+            rep[labels.get("result", "?")] = rep.get(
+                labels.get("result", "?"), 0.0
+            ) + v
+        for labels, v in merged.series(C.CANARY_DRIFT_TOTAL):
+            replicas.setdefault(
+                labels.get("replica", "?"), {}
+            )["drift_total"] = v
+        for labels, v in merged.series(C.CANARY_FAILING):
+            replicas.setdefault(
+                labels.get("replica", "?"), {}
+            )["failing_streak"] = v
+
+    records = named_journal("canary", root).tail(last)
+
+    if as_json:
+        print(json.dumps({
+            "replicas": [
+                {"replica": name, **fields}
+                for name, fields in sorted(replicas.items())
+            ],
+            "records": records,
+        }))
+        return 0
+
+    if replicas:
+        print(
+            f"{'REPLICA':<18} {'PASS':>6} {'DRIFT':>6} {'ERROR':>6} "
+            f"{'RECORDED':>9} {'STREAK':>7}"
+        )
+        for name, f in sorted(replicas.items()):
+            print(
+                f"{name:<18} {int(f.get('pass', 0)):>6} "
+                f"{int(f.get('drift', 0)):>6} {int(f.get('error', 0)):>6} "
+                f"{int(f.get('recorded', 0)):>9} "
+                f"{int(f.get('failing_streak', 0)):>7}"
+            )
+    else:
+        print(
+            "no canary series in pushed metrics "
+            "(arm the prober: MTPU_CANARY_INTERVAL, or run a bench)"
+        )
+    if records:
+        print(f"\nlast {len(records)} canary records (canary.jsonl):")
+        for r in records:
+            action = r.get("action", "?")
+            if action == "round":
+                results = r.get("results", {})
+                summary = " ".join(
+                    f"{k}={v}" for k, v in sorted(results.items())
+                )
+                print(
+                    f"  round      {r.get('replica', '?'):<16} {summary}"
+                )
+            else:
+                print(
+                    f"  {action:<10} {r.get('replica', '?'):<16} "
+                    f"{r.get('reason', r.get('weight', ''))}"
+                )
+    return 0
+
+
+def cmd_metrics(argv: list[str]) -> int:
+    """Print the merged prometheus exposition of every pushed job file
+    (``<state_dir>/metrics/*.prom`` — the local pushgateway) — the same text
+    a scraper sees on the gateway's ``/metrics``. ``--json`` prints
+    {job: path} of the sources instead.
+
+    ``--watch S [--rate]`` switches to the flight recorder: live DELTAS
+    from the on-disk tsdb (``<state_dir>/tsdb/``, written by any process
+    running ``MTPU_TSDB=1``) refreshed every S seconds — each series'
+    current value plus its change over the refresh window (``--rate``
+    renders per-second rates instead), which a one-shot exposition dump
+    structurally cannot show (the reference's docs/observability.md#metrics-history)."""
+    from ..observability.export import _metrics_dir, read_pushed_metrics
+
+    usage = "usage: python -m modal_examples_tpu_torch metrics [--json] [--watch S [--rate]] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, watch_s = _pop_flag(argv, "--watch", usage)
+    as_rate = "--rate" in argv
+    argv = [a for a in argv if a != "--rate"]
+    if watch_s is not None:
+        return _metrics_watch(float(watch_s), root, as_rate)
+    if "--json" in argv:
+        d = _metrics_dir(root)
+        print(json.dumps({p.stem: str(p) for p in sorted(d.glob("*.prom"))}))
+        return 0
+    text = read_pushed_metrics(root)
+    if not text:
+        print("no pushed metrics (run an app first, or scrape a live /metrics)")
+        return 0
+    print(text, end="")
+    return 0
+
+
+def _series_key(entry) -> str:
+    name, labels = entry[0], entry[1]
+    if not labels:
+        return name
+    inner = ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
+    return f"{name}{{{inner}}}"
+
+
+def _metrics_watch(watch: float, root, as_rate: bool) -> int:
+    """The `python -m modal_examples_tpu_torch metrics --watch` loop: render the newest tsdb sample
+    and the per-series delta (or rate) against the previous refresh."""
+    import time as _time
+
+    from ..observability import timeseries as _ts
+
+    prev: dict | None = None
+    try:
+        while True:
+            cur = _ts.read_latest(root=root)
+            print("\033[2J\033[H", end="")
+            if cur is None:
+                print(
+                    f"no tsdb samples under {_ts.tsdb_dir(root)} "
+                    "(start an engine/bench with MTPU_TSDB=1)"
+                )
+                _time.sleep(watch)
+                continue
+            rows: list[tuple[str, float, float | None]] = []
+            prev_vals = (
+                {
+                    _series_key(e): (e[3], e[4])
+                    for e in prev.get("series", ())
+                }
+                if prev is not None
+                else {}
+            )
+            dt = cur["at"] - prev["at"] if prev is not None else None
+            for e in cur.get("series", ()):
+                key = _series_key(e)
+                value = e[3]
+                delta = None
+                if key in prev_vals and dt and dt > 0:
+                    d = value - prev_vals[key][0]
+                    delta = (d / dt) if as_rate else d
+                rows.append((key, value, delta))
+            moved = [r for r in rows if r[2]]
+            still = [r for r in rows if not r[2]]
+            when = _time.strftime(
+                "%H:%M:%S", _time.localtime(cur["at"])
+            )
+            unit = "/s" if as_rate else f"/{dt:.1f}s" if dt else ""
+            print(
+                f"tsdb {_ts.tsdb_dir(root)}  sample {when}  "
+                f"{len(rows)} series  (delta{unit or ': first sample'})"
+            )
+            print(f"{'SERIES':<56} {'VALUE':>12} {'DELTA':>12}")
+            shown = 0
+            for key, value, delta in (
+                sorted(moved, key=lambda r: -abs(r[2])) + sorted(still)
+            ):
+                if shown >= 40:
+                    hidden_moved = max(0, len(moved) - shown)
+                    note = (
+                        f"{hidden_moved} still changing"
+                        if hidden_moved
+                        else "unchanged"
+                    )
+                    print(f"… {len(rows) - shown} more ({note})")
+                    break
+                d = f"{delta:+.3f}" if delta is not None else "-"
+                print(f"{key:<56} {value:>12.3f} {d:>12}")
+                shown += 1
+            prev = cur
+            _time.sleep(watch)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_tsdb(argv: list[str]) -> int:
+    """Metrics-history view of the on-disk tsdb segment ring
+    (``<state_dir>/tsdb/``, the reference's docs/observability.md#metrics-history).
+
+    tsdb                      — summary: segments, window covered, series
+    tsdb --series NAME [--label k=v] [--window S] [--sum]
+                              — (time, value) points for one series,
+                                newest last; ``--sum`` reads a histogram's
+                                cumulative seconds instead of its count
+    tsdb --rate ...           — the per-second increase over the window
+                                (counter-reset aware), instead of points
+    tsdb --perfetto FILE [--window S]
+                              — export the window's counter tracks as
+                                Chrome-trace JSON (ui.perfetto.dev)
+    tsdb --json               — machine-readable payload
+    ``--dir PATH`` overrides the state-dir root.
+    """
+    from pathlib import Path
+
+    from ..observability import timeseries as _ts
+
+    usage = (
+        "usage: python -m modal_examples_tpu_torch tsdb [--series NAME [--label k=v] [--sum] [--rate]]"
+        " [--window S] [--perfetto FILE] [--json] [--dir PATH]"
+    )
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, series = _pop_flag(argv, "--series", usage)
+    argv, label_s = _pop_flag(argv, "--label", usage)
+    argv, window_s = _pop_flag(argv, "--window", usage)
+    argv, perfetto = _pop_flag(argv, "--perfetto", usage)
+    as_json = "--json" in argv
+    as_rate = "--rate" in argv
+    as_sum = "--sum" in argv
+
+    labels = None
+    if label_s:
+        k, _, v = label_s.partition("=")
+        labels = {k: v}
+
+    records = _ts.read_window(root=root)
+    if window_s is not None and records:
+        lo = records[-1]["at"] - float(window_s)
+        records = [r for r in records if r["at"] >= lo]
+    if not records:
+        print(
+            f"no tsdb samples under {_ts.tsdb_dir(root)} "
+            "(start an engine/bench with MTPU_TSDB=1)"
+        )
+        return 0
+
+    if perfetto:
+        from ..observability.export import spans_to_chrome_trace
+
+        doc = spans_to_chrome_trace([], "tsdb-window", tsdb=records)
+        Path(perfetto).write_text(json.dumps(doc, indent=1))
+        print(
+            f"wrote {perfetto} ({len(records)} samples as counter tracks "
+            "— open in chrome://tracing or ui.perfetto.dev)"
+        )
+        return 0
+
+    span = records[-1]["at"] - records[0]["at"]
+    if series:
+        pts = _ts.series_points(
+            series, records, labels=labels,
+            field="sum" if as_sum else "value",
+        )
+        if as_rate:
+            r = _ts.rate(pts)
+            if as_json:
+                print(json.dumps({"series": series, "rate_per_s": r}))
+            elif r is None:
+                print(f"not enough points for a rate ({len(pts)} in window)")
+            else:
+                print(f"{series}: {r:.6f}/s over {span:.1f}s")
+            return 0
+        if as_json:
+            print(json.dumps({"series": series, "points": pts}))
+            return 0
+        if not pts:
+            print(f"no points for {series} in the window")
+            return 0
+        import time as _time
+
+        for at, v in pts:
+            when = _time.strftime("%H:%M:%S", _time.localtime(at))
+            print(f"{when}  {v:.6f}")
+        return 0
+
+    names = _ts.series_names(records)
+    if as_json:
+        print(json.dumps({
+            "dir": str(_ts.tsdb_dir(root)),
+            "samples": len(records),
+            "window_s": round(span, 3),
+            "first_at": records[0]["at"],
+            "last_at": records[-1]["at"],
+            "series": names,
+        }))
+        return 0
+    segs = sorted(_ts.tsdb_dir(root).glob("seg-*.jsonl"))
+    print(
+        f"{_ts.tsdb_dir(root)}: {len(segs)} segments, "
+        f"{len(records)} samples covering {span:.1f}s, "
+        f"{len(names)} series"
+    )
+    for name in names:
+        print(f"  {name}")
+    return 0
+
+
+def cmd_alerts(argv: list[str]) -> int:
+    """Alert rules + fire/clear history
+    (the reference's docs/observability.md#alert-rules): the declarative rule set, each
+    rule's condition evaluated one-shot over the on-disk tsdb window, and
+    the newest transitions from the ``alerts`` journal.
+
+    alerts [--last N]   — rule table + last N journal records (default 20)
+    alerts --json       — machine-readable payload
+    ``--dir PATH`` overrides the state-dir root.
+    """
+    from ..observability import alerts as _alerts
+    from ..observability import timeseries as _ts
+
+    usage = "usage: python -m modal_examples_tpu_torch alerts [--last N] [--json] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, last_s = _pop_flag(argv, "--last", usage)
+    last = int(last_s) if last_s is not None else 20
+    as_json = "--json" in argv
+
+    records = _ts.read_window(root=root)
+    rows = _alerts.evaluate_offline(records)
+    history = _alerts.read_alert_journal(last, root)
+    if as_json:
+        print(json.dumps({
+            "rules": rows,
+            "history": history,
+            "tsdb_samples": len(records),
+        }))
+        return 0
+    if not records:
+        print(
+            "no tsdb window to evaluate "
+            "(start an engine/bench with MTPU_TSDB=1); rule set:"
+        )
+    print(
+        f"{'RULE':<20} {'KIND':<10} {'SERIES':<32} {'THRESH':>7} "
+        f"{'NOW':<5} DESCRIPTION"
+    )
+    for r in rows:
+        now_s = "FIRE" if r["firing"] else "ok"
+        print(
+            f"{r['rule']:<20} {r['kind']:<10} {r['series']:<32} "
+            f"{r['threshold']:>7} {now_s:<5} {r['description']}"
+        )
+    if history:
+        import time as _time
+
+        print()
+        print(f"{'WHEN':<20} {'EVENT':<6} {'RULE':<20} VALUE")
+        for rec in history:
+            when = _time.strftime(
+                "%Y-%m-%d %H:%M:%S", _time.localtime(rec.get("at", 0))
+            )
+            print(
+                f"{when:<20} {rec.get('event', '?'):<6} "
+                f"{rec.get('rule', '?'):<20} {rec.get('value')}"
+            )
+    return 0
+
+
+def cmd_incidents(argv: list[str]) -> int:
+    """Incident bundles (the reference's docs/observability.md#incident-bundles).
+
+    incidents [list] [--json]    — bundle index, newest first
+    incidents show ID [--file NAME]
+                                 — one bundle's manifest (or one bundled
+                                   file raw); a unique id prefix resolves
+    incidents capture [--reason TEXT] [--trigger T]
+                                 — capture a bundle right now (trigger
+                                   ``manual``; ``revalidate_chip.sh``'s
+                                   stage wrapper passes ``stage_failure``)
+    ``--dir PATH`` overrides the state-dir root.
+    """
+    from ..observability import incident as _incident
+
+    usage = (
+        "usage: python -m modal_examples_tpu_torch incidents [list [--json] | show ID [--file NAME] "
+        "| capture [--reason TEXT] [--trigger T]] [--dir PATH]"
+    )
+    argv, root = _pop_dir_flag(argv, usage)
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    sub = argv[0] if argv else "list"
+
+    if sub == "capture":
+        argv, reason = _pop_flag(argv[1:], "--reason", usage)
+        argv, trigger = _pop_flag(argv, "--trigger", usage)
+        if trigger is not None and trigger not in _incident.TRIGGERS:
+            raise SystemExit(
+                f"unknown trigger {trigger!r}; one of {_incident.TRIGGERS}"
+            )
+        bundle = _incident.capture(
+            trigger or "manual",
+            reason=reason or "python -m modal_examples_tpu_torch incidents capture",
+            root=root, force=True,
+        )
+        if bundle is None:
+            print("capture failed (read-only state dir?)")
+            return 1
+        print(bundle)
+        return 0
+
+    if sub == "show":
+        argv, file_name = _pop_flag(argv, "--file", usage)
+        if len(argv) < 2:
+            raise SystemExit(usage)
+        manifest = _incident.read_manifest(argv[1], root=root)
+        if manifest is None:
+            raise SystemExit(f"no incident bundle {argv[1]!r}")
+        if file_name:
+            body = _incident.read_bundle_file(
+                manifest["id"], file_name, root=root
+            )
+            if body is None:
+                raise SystemExit(
+                    f"no file {file_name!r} in {manifest['id']} "
+                    f"(files: {sorted(manifest.get('files', {}))})"
+                )
+            print(body, end="")
+            return 0
+        print(json.dumps(manifest, indent=1))
+        return 0
+
+    if sub != "list":
+        raise SystemExit(usage)
+    manifests = _incident.list_incidents(root=root)
+    if as_json:
+        print(json.dumps(manifests))
+        return 0
+    if not manifests:
+        print(f"no incident bundles under {_incident.incidents_dir(root)}")
+        return 0
+    import time as _time
+
+    print(
+        f"{'ID':<34} {'TRIGGER':<20} {'WHEN':<20} {'TSDB':>5} "
+        f"{'TRACES':>6}  REASON"
+    )
+    for m in manifests:
+        when = _time.strftime(
+            "%Y-%m-%d %H:%M:%S", _time.localtime(m.get("at", 0))
+        )
+        print(
+            f"{m.get('id', '?'):<34} {m.get('trigger', '?'):<20} "
+            f"{when:<20} {m.get('tsdb_records', 0):>5} "
+            f"{len(m.get('open_traces', ())):>6}  {m.get('reason', '')}"
+        )
+    return 0
+
+
+def cmd_scaler(argv: list[str]) -> int:
+    """Print the autoscaler decision journal, newest last.
+
+    scaler [N]            — last N decisions (default 20)
+    scaler --function TAG — only one function's decisions
+    scaler --json         — raw JSONL records
+    ``--dir PATH`` overrides the journal directory (default: state dir).
+    """
+    from ..observability.journal import named_journal
+
+    argv, root = _pop_dir_flag(argv, "usage: python -m modal_examples_tpu_torch scaler ... --dir PATH")
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    argv, function = _pop_flag(
+        argv, "--function", "usage: python -m modal_examples_tpu_torch scaler [N] [--function TAG]"
+    )
+    n = int(argv[0]) if argv else 20
+
+    journal = named_journal("scaler", root)
+    recs = journal.tail(n, function=function)
+    if not recs:
+        print(f"no autoscaler decisions in {journal.path}")
+        return 0
+    if as_json:
+        for r in recs:
+            print(json.dumps(r))
+        return 0
+    import time as _time
+
+    print(
+        f"{'WHEN':<20} {'FUNCTION':<24} {'ACTION':<11} {'TRIGGER':<17} "
+        f"{'QUEUE':>5} {'POOL':>7}  DETAIL"
+    )
+    for r in recs:
+        when = _time.strftime(
+            "%Y-%m-%d %H:%M:%S", _time.localtime(r.get("at", 0))
+        )
+        pool = f"{r.get('containers_before', '?')}->{r.get('containers_after', '?')}"
+        detail = []
+        if r.get("spawned"):
+            detail.append(f"spawned={r['spawned']}")
+        if r.get("idle_ages_s"):
+            detail.append(f"idle={r['idle_ages_s'][0]:.1f}s")
+        if r.get("container") is not None:
+            detail.append(f"container={r['container']}")
+        print(
+            f"{when:<20} {r.get('function', '?'):<24} "
+            f"{r.get('action', '?'):<11} {r.get('trigger', '?'):<17} "
+            f"{r.get('queue_depth', 0):>5} {pool:>7}  {' '.join(detail)}"
+        )
+    return 0
+
+
+def cmd_top(argv: list[str]) -> int:
+    """Live serving summary: engine load, token-level latency, SLO burn
+    rates, and recent autoscaler decisions — from the pushed metrics files
+    plus the decision journal (the ``htop`` of the framework).
+
+    ``--watch S`` refreshes every S seconds until interrupted;
+    ``--dir PATH`` overrides the state dir roots.
+    """
+    from ..observability import catalog as C
+    from ..observability.export import pushed_jobs
+    from ..observability.journal import named_journal
+    from ..observability.slo import evaluate
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    usage = "usage: python -m modal_examples_tpu_torch top [--watch S] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, watch_s = _pop_flag(argv, "--watch", usage)
+    watch = float(watch_s) if watch_s is not None else None
+
+    from pathlib import Path
+
+    metrics_root = Path(root) / "metrics" if root else None
+    journal = named_journal("scaler", root)
+
+    def render() -> None:
+        jobs = pushed_jobs(metrics_root)
+        if not jobs:
+            print("no pushed metrics yet (run an app or bench first)")
+        merged = parse_exposition(merge_expositions(jobs))
+
+        def fmt_q(name):
+            q = merged.histogram_quantiles(
+                name, quantiles=(0.5, 0.95), aggregate={}
+            )
+            if q is None:
+                return "     -/-    "
+            return f"{q['p50'] * 1000:>6.1f}/{q['p95'] * 1000:<6.1f}"
+
+        print(f"jobs: {len(jobs)} ({', '.join(sorted(jobs)) or 'none'})")
+        print(
+            f"tokens/s {merged.total(C.TOKENS_PER_SECOND):>8.1f}   "
+            f"active slots {merged.total(C.ACTIVE_SLOTS):>4.0f}   "
+            f"waiting {merged.total(C.WAITING_REQUESTS):>4.0f}   "
+            # a 0..1 fraction must never sum across jobs: show the worst
+            f"kv occupancy {merged.peak(C.KV_PAGE_OCCUPANCY):>5.2f}"
+        )
+        print(
+            f"ttft p50/p95 ms {fmt_q(C.TTFT_SECONDS)}   "
+            f"tpot p50/p95 ms {fmt_q(C.TPOT_SECONDS)}"
+        )
+        # macro-step decode (docs/multistep.md): configured N + harvested
+        # tokens-per-dispatch, when a multistep engine has pushed (gauges:
+        # peak, never sum across jobs)
+        ms_n = merged.peak(C.MULTISTEP_DECODE_STEPS)
+        if ms_n:
+            print(
+                f"macro-step decode: N={ms_n:.0f}   tokens/dispatch "
+                f"{merged.peak(C.MULTISTEP_TOKENS_PER_DISPATCH):.1f}"
+            )
+        # fused speculative decode (docs/speculative.md#series): dispatched
+        # γ p50 + acceptance, when a spec engine has pushed (gauges: peak)
+        sp_acc = merged.peak(C.SPEC_ACCEPTANCE_RATE)
+        if merged.peak(C.SPEC_GAMMA) or sp_acc:
+            print(
+                f"speculative decode: gamma p50 "
+                f"{merged.peak(C.SPEC_GAMMA):.0f}   acceptance "
+                f"{sp_acc:.2f}   tokens/round "
+                f"{merged.peak(C.SPEC_TOKENS_PER_DISPATCH):.1f}"
+            )
+        # the resolved decode plan, incl. the tensor-parallel degree and the
+        # PER-SHARD ragged variant (paged_impl_plan(mesh=...)) — so a TP
+        # deployment's dashboard shows the sharded plan actually running
+        for labels, _v in merged.series(C.DECODE_IMPL):
+            print(
+                f"decode impl: attention={labels.get('attention', '?')} "
+                f"variant={labels.get('variant', '-')} "
+                f"scatter={labels.get('scatter', '?')} "
+                f"kv_dtype={labels.get('kv_dtype', '?')} "
+                f"tp={labels.get('tp', '1')}"
+            )
+        # the fleet's watchdog line (per-replica health) comes with
+        # serving/health.py (ROADMAP A9)
+        print()
+        print(f"{'SLO':<22} {'TARGET':>10} {'OBSERVED':>10} {'BURN':>6}  OK")
+        for r in evaluate(merged, burn_rate_registry=merged):
+            obs = "-" if r["observed"] is None else f"{r['observed']:.4f}"
+            burn = "-" if r["burn_rate"] is None else f"{r['burn_rate']:.2f}"
+            print(
+                f"{r['name']:<22} {r['target']:>10.4f} {obs:>10} {burn:>6}  "
+                f"{'ok' if r['ok'] else 'VIOLATING'}"
+            )
+        recs = journal.tail(5)
+        if recs:
+            print()
+            print("recent autoscaler decisions:")
+            for r in recs:
+                print(
+                    f"  {r.get('function', '?')}: {r.get('action')} "
+                    f"({r.get('trigger')}) queue={r.get('queue_depth')} "
+                    f"pool {r.get('containers_before')}->"
+                    f"{r.get('containers_after')}"
+                )
+
+    if watch is None:
+        render()
+        return 0
+    import time as _time
+
+    try:
+        while True:
+            print("\033[2J\033[H", end="")
+            render()
+            _time.sleep(watch)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 #: subcommands of the JAX package that wait with their subsystems:
 #: name -> the ROADMAP item
 WAITING_COMMANDS = {
     "examples": "A13 (the platform layer's rest)",
     "docs": "A13 (the platform layer's rest)",
     "snapshot": "A13 (snapshot/)",
-    "trace": "A6 (observability/reqtrace.py's merged reads)",
-    "explain": "A6 (observability/reqtrace.py's merged reads)",
     "benchdiff": "A8 (the port's benchmark)",
-    "metrics": "A6 (observability/export.py)",
-    "profile": "A6 (the profiler's ledger and CLI)",
-    "usage": "A6 (the usage CLI)",
-    "canary": "A6 (observability/canary.py)",
-    "tsdb": "A6 (observability/timeseries.py)",
-    "alerts": "A6 (observability/alerts.py)",
-    "incidents": "A6 (observability/incident.py)",
-    "incident": "A6 (observability/incident.py)",
-    "scaler": "A6 (the observability CLI)",
     "sched": "A9 (scheduling/router.py)",
-    "top": "A6 (observability/slo.py)",
     "disagg": "A9 (serving/disagg/)",
     "prefixstore": "A9 (serving/prefix_store/)",
     "chaos": "A9 (faults/chaos.py)",
@@ -228,6 +1360,18 @@ COMMANDS = {
     "serve": cmd_serve,
     "secret": cmd_secret,
     "app": cmd_app,
+    "trace": cmd_trace,
+    "explain": cmd_explain,
+    "metrics": cmd_metrics,
+    "profile": cmd_profile,
+    "usage": cmd_usage,
+    "canary": cmd_canary,
+    "tsdb": cmd_tsdb,
+    "alerts": cmd_alerts,
+    "incidents": cmd_incidents,
+    "incident": cmd_incidents,  # `incident capture` reads naturally
+    "scaler": cmd_scaler,
+    "top": cmd_top,
 }
 
 

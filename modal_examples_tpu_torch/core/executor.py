@@ -44,6 +44,7 @@ import dataclasses
 import itertools
 import os
 import queue as _queue
+import socket
 import threading
 import time
 import traceback
@@ -70,6 +71,11 @@ from .resources import GPU_SPEC_ENV, select_gpu_spec
 from .retries import Retries
 
 _log = get_logger("executor")
+
+#: seconds a container may take from spawn to ready before it is killed and
+#: its queued inputs fail: a container that hangs at boot surfaces as an
+#: error, never as a wait without end
+BOOT_TIMEOUT_S = 600.0
 
 #: host-RSS sampling throttle (process-wide; every pool's tick shares it)
 _RSS_SAMPLE_EVERY_S = 2.0
@@ -257,6 +263,11 @@ def _container_main(conn, cfg_bytes: bytes) -> None:
 
         try:
             ex = begin("execute")
+            if ex is not None:
+                # nested user spans (observability.span) ride the same buffer
+                _tr.set_context(
+                    _tr.TraceContext(trace["trace_id"], ex.span_id, spans.append)
+                )
             try:
                 args, kwargs = ser.deserialize(payload)
                 result = call_fn(method_name, args, kwargs)
@@ -392,6 +403,14 @@ def _container_main(conn, cfg_bytes: bytes) -> None:
             hook()
         except Exception:
             traceback.print_exc()
+    try:
+        # this container's registry (e.g. a served engine's histograms)
+        # outlives it through the file push gateway
+        from ..observability.export import push_metrics_file
+
+        push_metrics_file(f"container-{cfg.function_tag}-{os.getpid()}")
+    except Exception:
+        pass  # metrics must never break container shutdown
     try:
         send(("bye",))
     except Exception:
@@ -549,6 +568,8 @@ class _Container:
         # observability: boot wall-clock window + boot info, consumed by the
         # first dispatched input's "boot" span
         self.boot_wall_start = time.time()
+        self.boot_timeout_s = BOOT_TIMEOUT_S
+        self.boot_deadline = time.monotonic() + self.boot_timeout_s
         self.ready_wall: float | None = None
         self.boot_info: dict = {}
         self._boot_span_pending = True
@@ -567,12 +588,18 @@ class _Container:
 
     def _watch_proc(self) -> None:
         self.proc.wait()
-        # If the child died before connecting, unblock the accept().
+        # If the child died before connecting, wake the reader's accept() by
+        # connecting and hanging up: its handshake then fails and the reader
+        # marks the container dead. Closing the listening socket would not
+        # do: on Linux that does not wake a thread blocked in its accept(),
+        # and the container would count as booting for ever.
         if self.conn is None:
             try:
-                self._listener.close()
-            except Exception:
-                pass
+                with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+                    s.settimeout(5.0)
+                    s.connect(self._sock_path)
+            except OSError:
+                pass  # the reader has accepted already and closed the socket
 
     # -- dispatch -----------------------------------------------------------
 
@@ -693,7 +720,7 @@ class _Container:
             try:
                 conn = self._listener.accept()
             except (OSError, EOFError):
-                return  # child died before connecting (watchdog closed us)
+                return  # child died before connecting (the watchdog woke us)
             finally:
                 try:
                     self._listener.close()
@@ -708,6 +735,8 @@ class _Container:
                 if kind == "ready":
                     self.ever_ready = True
                     self.ready_wall = time.time()
+                    with self.lock:  # idle time starts when it can serve
+                        self.last_active = time.monotonic()
                     info = msg[1] if len(msg) > 1 else {}
                     self.boot_info = info or {}
                     self.ready.set()
@@ -907,6 +936,10 @@ class FunctionPool:
                 c.proc.wait(max(0.05, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 c.kill()
+                try:
+                    c.proc.wait(2.0)
+                except subprocess.TimeoutExpired:
+                    c.proc.kill()  # past SIGTERM's grace: no container outlives its pool
 
     # -- failure/retry ------------------------------------------------------
 
@@ -1090,6 +1123,27 @@ class FunctionPool:
 
     def _enforce_timeouts(self, now: float) -> None:
         for c in list(self.containers):
+            if (not c.ready.is_set() and not c.dead and c.kill_reason is None
+                    and now >= c.boot_deadline):
+                # a boot that hangs fails the queued inputs as a boot error
+                c.boot_error = TimeoutError(
+                    f"container {c.idx} for {self.spec.tag} did not boot within "
+                    f"{c.boot_timeout_s:g} s"
+                )
+                n_live = len([
+                    x for x in self.containers
+                    if not x.dead and x.kill_reason is None and not x.reaped
+                ])
+                self._journal_decision(
+                    "kill", "boot_timeout",
+                    containers_before=n_live,
+                    containers_after=n_live - 1,
+                    container=c.idx,
+                    boot_timeout_s=c.boot_timeout_s,
+                )
+                c.kill_reason = "boot_timeout"
+                c.kill()
+                continue
             with c.lock:
                 expired = [
                     qi
@@ -1260,7 +1314,9 @@ class FunctionPool:
             if c.dead:
                 continue
             with c.lock:
-                idle = not c.active and c.last_active < idle_cut
+                # a container still booting is not idle: reaping it would
+                # kill every boot slower than the scaledown window
+                idle = c.ready.is_set() and not c.active and c.last_active < idle_cut
                 spent = c.retired and not c.active and c.inputs_served > 0
                 idle_age = now - c.last_active
             # count only containers not already doomed: shutdown is async

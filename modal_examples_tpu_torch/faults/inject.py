@@ -2,10 +2,11 @@
 seeded plans, and a zero-cost activation gate.
 
 The port keeps the executor's two points (``executor.container_death``,
-``executor.timeout``, hit in ``core/executor.py``). The serving fleet's
-points (engine, router, disaggregation, prefix store) come with those
-subsystems (ROADMAP A9), and so does the request-trace event a fired fault
-leaves in the JAX package (``reqtrace.note_fault``).
+``executor.timeout``, hit in ``core/executor.py``) and the canary's
+(``engine.canary_token_corrupt``, hit in ``serving/engine.py``). The serving
+fleet's points (engine, router, disaggregation, prefix store) come with
+those subsystems (ROADMAP A9). A fired fault leaves a ``fault`` event on the
+request trace of the thread's ambient frame (``reqtrace.note_fault``).
 
 - :data:`POINTS` is the one catalog of named fault points.
 - :class:`FaultPlan` decides, deterministically, WHICH hits of a point
@@ -43,6 +44,15 @@ POINTS: dict[str, dict] = {
         "component": "core/executor.py",
         "effect": "the dispatched input exceeds its timeout",
         "recovery": "retry with jittered backoff (mtpu_retries_total)",
+    },
+    "engine.canary_token_corrupt": {
+        "component": "serving/engine.py",
+        "effect": "one accepted decode token is deterministically flipped "
+                  "(+1 mod vocab) — ONLY on __canary__ probe requests, so "
+                  "user-visible streams are never corrupted",
+        "recovery": "the canary prober detects bit-exact drift against the "
+                    "golden store -> a canary_drift incident bundle and the "
+                    "failing streak (mtpu_canary_failing)",
     },
 }
 
@@ -183,8 +193,12 @@ def fire(point: str) -> bool:
     plan = _active_plan
     if plan is not None and plan.should_fire(point):
         from ..observability import metrics as _obs
+        from ..observability import reqtrace as _reqtrace
 
         _obs.record_fault_injected(point)
+        # a fired fault becomes a span event on the request whose operation
+        # this thread is running (no-op without an ambient frame)
+        _reqtrace.note_fault(point)
         return True
     return False
 

@@ -106,23 +106,62 @@ class _MmF32(torch.autograd.Function):
         return dx, dw
 
 
+class _MmPromoted(torch.autograd.Function):
+    """``x @ w`` with f32 on one side (f32 adapters over an int8 base meet
+    bf16 activations): the product in f32, as ``jnp.dot`` promotes it. The
+    inputs are saved in their own dtypes and upcast again in the backward,
+    so a bf16 ``x`` is not kept as an f32 copy for each adapter. The
+    backward is the VJP of the promoted product: ``dX = dY @ w^T`` and
+    ``dW = x^T @ dY`` in f32, each rounded to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = (dy @ w.float().T).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = (x.float().T @ dy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+class _QMm(torch.autograd.Function):
+    """``(x @ q) * scale`` over a frozen int8 weight: the forward on the int8
+    matmul kernel (its plain version for CPU tensors), the backward the VJP of
+    JAX's ``jnp.dot(x, q.astype(x.dtype), preferred_element_type=f32) *
+    scale``: ``dX = (dY * scale) @ q^T`` in x's dtype. ``q`` is dequantized
+    for this one product and freed after it, so a backward over the whole
+    base holds one layer's model-dtype copy at a time. ``q`` and ``scale``
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        qmm = _qmm.qmm_cuda if x.is_cuda else _qmm.qmm_plain
+        return qmm(x, q, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale = ctx.saved_tensors
+        dy = (dy * scale).to(ctx.x_dtype)
+        return dy @ q.to(ctx.x_dtype).T, None, None
+
+
 def mm(x, w):
     """``x @ w`` ([..., K] x [K, N]) with f32 accumulation, returned in f32.
     ``w`` may be an int8 :class:`QuantizedWeight`: ``(x @ q) * scale``, through
-    the int8 matmul kernel on the card (its plain version on the CPU). That
-    product is forward-only until the int8 LoRA base is ported (ROADMAP A2)."""
+    the int8 matmul kernel on the card (its plain version on the CPU), and
+    differentiable in ``x`` (the int8 LoRA base)."""
     if isinstance(w, QuantizedWeight):
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "mm over an int8 QuantizedWeight is forward-only: its backward "
-                "(the int8 LoRA base, ROADMAP A2) is not ported yet"
-            )
-        flat = x.reshape(-1, x.shape[-1])
-        qmm = _qmm.qmm_cuda if x.is_cuda else _qmm.qmm_plain
-        return qmm(flat.contiguous(), w.q, w.scale).reshape(*x.shape[:-1], w.shape[-1])
-    if x.dtype == torch.float32:
-        return x @ w.float()
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        return _QMm.apply(flat, w.q, w.scale).reshape(*x.shape[:-1], w.shape[-1])
     flat = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32 or w.dtype == torch.float32:
+        out = _MmPromoted.apply(flat, w)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
     if x.is_cuda:
         out = _MmF32.apply(flat, w)
     else:

@@ -4,7 +4,7 @@ Counterpart of ``modal_examples_tpu/models/lora.py`` (``LoRAConfig``,
 ``DEFAULT_TARGETS``, ``init_lora``, ``delta``, ``merge``, ``param_count``).
 Adapters keep the JAX layout: ``{"layers": {"<target>_a": [L, din, r],
 "<target>_b": [L, r, dout]}}``, stacked over layers, in the base weight's
-dtype. The forward applies them on the fly (``llama.forward(lora=...)``:
+dtype (f32 over an int8 base). The forward applies them on the fly (``llama.forward(lora=...)``:
 ``x @ W + (x @ a) @ b * scale``, never materialising ``W + a b``); the
 optimizer state covers only the adapters. :func:`lora_from_jax` carries the
 JAX adapters across for the tests.
@@ -18,6 +18,7 @@ import torch
 
 from ..utils.device import resolve_device
 from . import layers
+from .quantize import QuantizedWeight
 
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
@@ -36,12 +37,19 @@ class LoRAConfig:
 def init_lora(generator: torch.Generator, params: dict, lcfg: LoRAConfig) -> dict:
     """Adapters for the base's layer weights: ``a ~ N(0, 1) / rank`` drawn in
     f32 on ``generator``'s device, ``b = 0`` (so the model starts exactly at
-    the base), both in each base weight's dtype and on its device."""
+    the base), both in each base weight's dtype and on its device. Over an
+    int8 :class:`~.quantize.QuantizedWeight` base the adapters take the
+    scale's dtype (f32), as the reference's do: int8 adapters would round
+    ``a`` to zeros."""
     out = {}
     n_layers = len(params["layers"])
     for name in lcfg.targets:
         w = params["layers"][0][name]
-        din, dout = w.shape
+        if isinstance(w, QuantizedWeight):
+            w = w.scale  # real-valued adapters, on the base's device
+            din, dout = params["layers"][0][name].shape
+        else:
+            din, dout = w.shape
         a = torch.randn((n_layers, din, lcfg.rank), generator=generator, device=generator.device) / lcfg.rank
         out[f"{name}_a"] = a.to(device=w.device, dtype=w.dtype)
         out[f"{name}_b"] = torch.zeros((n_layers, lcfg.rank, dout), dtype=w.dtype, device=w.device)

@@ -11,7 +11,7 @@ which reads the int8 bytes and never a bf16 copy (an expert's ``q[e]`` and
 ``scale[e]`` are contiguous views, one launch each).
 
 int4 (``bits=4``, ``"int4"``) raises ``NotImplementedError``: the kernel is
-int8 only and the port has no packed int4 type yet (ROADMAP A2).
+int8 only and the port has no packed int4 type yet (ROADMAP A2b).
 """
 
 from __future__ import annotations
@@ -39,10 +39,10 @@ class QuantizedWeight:
 
 
 #: quantization modes the engine accepts; "int4" is refused until packed
-#: int4 is ported (ROADMAP A2)
+#: int4 is ported (ROADMAP A2b)
 SUPPORTED = (None, "int8", "int4")
 
-_INT4 = "int4 weights are not ported yet (ROADMAP A2: packed int4 and its matmul kernel)"
+_INT4 = "int4 weights are not ported yet (ROADMAP A2b: packed int4 and its matmul kernel)"
 
 
 def _qmax(bits: int) -> float:

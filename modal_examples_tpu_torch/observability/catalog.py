@@ -1,7 +1,9 @@
 """The port's metric catalog, after ``modal_examples_tpu/observability/catalog.py``:
-the series, span names and tick phases of the paths the port has (the JAX
-package's snapshot, fleet, disaggregation, watchdog, flight-recorder and
-canary series come with those subsystems).
+the series, span names and tick phases of the paths the port has, the
+flight recorder's (tsdb, alerts, incidents, SLO burn), the correctness
+canary's and the kernel builds' (the JAX package's snapshot, fleet and
+disaggregation series come with those subsystems; the watchdog's state
+gauge is declared because an alert rule reads it).
 
 ONE module owns every metric name: code imports the constant, and no
 ``mtpu_*`` metric-name literal stands anywhere else in the package.
@@ -229,18 +231,152 @@ USAGE_KV_PAGE_SECONDS_TOTAL = "mtpu_usage_kv_page_seconds_total"
 #: request was rejected (the per-tenant split of mtpu_sheds_total)
 USAGE_SHEDS_TOTAL = "mtpu_usage_sheds_total"
 
-# -- correctness canary (the canary tenant of observability/usage.py) -------
+# -- correctness canary (observability/canary.py) ---------------------------
 
+#: counter {replica, result}: golden-set probes completed per replica;
+#: result = pass (bit-exact vs golden) | drift (token mismatch) | error
+#: (probe died before finishing) | recorded (golden captured on first
+#: contact with this model+fingerprint — never compared, never gated)
+CANARY_PROBES_TOTAL = "mtpu_canary_probes_total"
+#: counter {replica}: probes whose generated tokens diverged bit-exact
+#: from the pinned golden transcript — the numeric-drift sentinel the
+#: canary_drift alert rule keys on
+CANARY_DRIFT_TOTAL = "mtpu_canary_drift_total"
+#: histogram {replica}: client-observed TTFT of canary probes (submit ->
+#: first streamed piece) — active latency probing on the real serving path
+CANARY_TTFT_SECONDS = "mtpu_canary_ttft_seconds"
+#: histogram {replica}: client-observed inter-piece latency of canary
+#: probes (the probe-side TPOT proxy)
+CANARY_TPOT_SECONDS = "mtpu_canary_tpot_seconds"
+#: histogram {replica}: end-to-end canary probe latency (submit -> stream
+#: drained) — the canary_latency_burn alert rule's input
+CANARY_E2E_SECONDS = "mtpu_canary_e2e_seconds"
 #: counter {replica, kind}: synthetic canary tokens (kind=prompt|generated)
 #: — excluded from per-tenant usage billing and the usage journal, counted
 #: here instead so conservation stays closed: Σ usage tenants + canary ==
 #: engine totals
 CANARY_TOKENS_TOTAL = "mtpu_canary_tokens_total"
+#: gauge {replica}: consecutive failing canary rounds (0 = passing)
+CANARY_FAILING = "mtpu_canary_failing"
+
+# -- flight recorder: metrics history, alerts, incidents ---------------------
+
+#: counter: sampler scrape cycles appended to the on-disk tsdb
+#: (emitted only while MTPU_TSDB is on — the zero-cost-when-off gate)
+TSDB_SAMPLES_TOTAL = "mtpu_tsdb_samples_total"
+#: histogram: wall seconds one scrape cycle spent snapshotting the registry
+#: and appending its record (the sampler's own overhead)
+TSDB_SCRAPE_SECONDS = "mtpu_tsdb_scrape_seconds"
+#: counter: tsdb segment rotations (a new JSONL segment opened; old
+#: segments LRU-pruned past the ring bound)
+TSDB_ROTATIONS_TOTAL = "mtpu_tsdb_rotations_total"
+#: gauge: distinct (series, label set) pairs captured by the last scrape
+TSDB_SERIES = "mtpu_tsdb_series"
+#: gauge {rule}: 1 while the named alert rule is firing, 0 otherwise
+ALERTS_ACTIVE = "mtpu_alerts_active"
+#: counter {rule}: fire transitions of the named alert rule (clears don't
+#: count — the journal carries the full fire/clear history)
+ALERTS_FIRED_TOTAL = "mtpu_alerts_fired_total"
+#: counter {trigger}: incident bundles captured; trigger = watchdog_wedge |
+#: watchdog_quarantine | scheduler_crash | chaos_invariant | alert |
+#: canary_drift | stage_failure | manual
+INCIDENTS_CAPTURED_TOTAL = "mtpu_incidents_captured_total"
+#: gauge {slo}: observed/target burn rate per declared SLO (>1 = violating)
+SLO_BURN_RATE = "mtpu_slo_burn_rate"
+#: gauge {replica, state}: one-hot replica classification by the progress
+#: watchdog (state = healthy | degraded | wedged | quarantined); emitted by
+#: the watchdog (serving/health.py, which comes with the fleet layer), read
+#: by the ``replica_wedged`` alert rule
+WATCHDOG_REPLICA_STATE = "mtpu_watchdog_replica_state"
+
+# -- kernel builds (ops/_build.py): the port's compile ledger ----------------
+
+#: counter {program, cache}: kernel-library lookups at first use; cache =
+#: miss (an nvcc build, timed and appended to <state_dir>/compiles.jsonl)
+#: | hit (a library already built under build/kernels)
+COMPILES_TOTAL = "mtpu_compiles_total"
+#: histogram {program}: seconds one kernel build took (program = the csrc
+#: kernel's name)
+COMPILE_SECONDS = "mtpu_compile_seconds"
 
 
 #: machine-readable catalog: name -> {type, labels, help}; the recorders
 #: take each series' help text from here.
 CATALOG: dict[str, dict] = {
+    CANARY_PROBES_TOTAL: {
+        "type": "counter", "labels": ["replica", "result"],
+        "help": "golden-set canary probes per replica "
+                "(result=pass|drift|error|recorded)",
+    },
+    CANARY_DRIFT_TOTAL: {
+        "type": "counter", "labels": ["replica"],
+        "help": "canary probes whose generated tokens diverged from the "
+                "pinned golden transcript",
+    },
+    CANARY_TTFT_SECONDS: {
+        "type": "histogram", "labels": ["replica"],
+        "help": "client-observed TTFT of canary probes",
+    },
+    CANARY_TPOT_SECONDS: {
+        "type": "histogram", "labels": ["replica"],
+        "help": "client-observed inter-piece latency of canary probes",
+    },
+    CANARY_E2E_SECONDS: {
+        "type": "histogram", "labels": ["replica"],
+        "help": "end-to-end canary probe latency (submit -> stream drained)",
+    },
+    CANARY_FAILING: {
+        "type": "gauge", "labels": ["replica"],
+        "help": "consecutive failing canary rounds per replica (0=passing)",
+    },
+    TSDB_SAMPLES_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "sampler scrape cycles appended to the on-disk tsdb",
+    },
+    TSDB_SCRAPE_SECONDS: {
+        "type": "histogram", "labels": [],
+        "help": "wall seconds per tsdb scrape cycle (sampler overhead)",
+    },
+    TSDB_ROTATIONS_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "tsdb segment rotations (ring-bounded JSONL segments)",
+    },
+    TSDB_SERIES: {
+        "type": "gauge", "labels": [],
+        "help": "distinct series captured by the last tsdb scrape",
+    },
+    ALERTS_ACTIVE: {
+        "type": "gauge", "labels": ["rule"],
+        "help": "1 while the named alert rule is firing, 0 otherwise",
+    },
+    ALERTS_FIRED_TOTAL: {
+        "type": "counter", "labels": ["rule"],
+        "help": "fire transitions of the named alert rule",
+    },
+    INCIDENTS_CAPTURED_TOTAL: {
+        "type": "counter", "labels": ["trigger"],
+        "help": "incident bundles captured (trigger=watchdog_wedge|"
+                "watchdog_quarantine|scheduler_crash|chaos_invariant|"
+                "alert|canary_drift|stage_failure|manual)",
+    },
+    SLO_BURN_RATE: {
+        "type": "gauge", "labels": ["slo"],
+        "help": "observed/target burn rate per declared SLO (>1 violating)",
+    },
+    WATCHDOG_REPLICA_STATE: {
+        "type": "gauge", "labels": ["replica", "state"],
+        "help": "one-hot watchdog classification per replica "
+                "(state=healthy|degraded|wedged|quarantined)",
+    },
+    COMPILES_TOTAL: {
+        "type": "counter", "labels": ["program", "cache"],
+        "help": "kernel-library lookups at first use "
+                "(cache=miss nvcc build, ledgered | hit already built)",
+    },
+    COMPILE_SECONDS: {
+        "type": "histogram", "labels": ["program"],
+        "help": "kernel build seconds (program=the csrc kernel)",
+    },
     CALL_DURATION_SECONDS: {
         "type": "histogram",
         "labels": ["function", "phase"],
@@ -583,10 +719,23 @@ SPAN_CATALOG: dict[str, dict] = {
         "help": "one speculative round's outcome for this request (event; "
                 "gamma = the depth the controller dispatched)",
     },
+    "fault": {
+        "attrs": ["replica", "point"],
+        "help": "an injected fault (faults/inject.py POINTS) fired on this "
+                "request's path (event)",
+    },
 }
 
 #: every declared request-span name
 ALL_SPAN_NAMES = frozenset(SPAN_CATALOG)
+
+#: span names the executor call tracer mints (core/executor.py + the
+#: container worker): a separate namespace from the request spans above
+#: (trace id ``in-…`` vs ``req-…``), listed so renderers and exporters can
+#: tell the two trace kinds apart
+CALL_SPAN_NAMES = frozenset(
+    {"call", "queue", "boot", "dispatch", "execute", "serialize", "retry"}
+)
 
 #: buckets for batch-size-style histograms (counts, not seconds)
 COUNT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)

@@ -1,11 +1,13 @@
 """The bounded JSONL journal, after ``modal_examples_tpu/observability/journal.py``.
 
-The port writes two journals: the executor autoscaler's decisions
-(``scaler.jsonl``) and the usage meter's per-request billing lines
-(``usage.jsonl``), under the state directory. :data:`JOURNALS` owns the
-name -> file mapping and :func:`named_journal` resolves it; the JAX
-package's other journals (fleet, watchdog, chaos, compiles, alerts, prefix
-store, canary) come with the subsystems that write them.
+The port writes five journals under the state directory: the executor
+autoscaler's decisions (``scaler.jsonl``), the kernel builds
+(``compiles.jsonl``), alert fire/clear transitions (``alerts.jsonl``), the
+usage meter's per-request billing lines (``usage.jsonl``) and the canary's
+probe results (``canary.jsonl``). :data:`JOURNALS` owns the name -> file
+mapping and :func:`named_journal` resolves it; the JAX package's other
+journals (fleet, watchdog, chaos, prefix store) come with the subsystems
+that write them.
 
 Records are plain dicts, one JSON object per line, kept in a bounded
 in-memory ring and appended to the file. The file is bounded: past
@@ -32,7 +34,10 @@ _MAX_FILE_RECORDS = 4096
 #: every journal the port writes: name -> file under ``<state_dir>``
 JOURNALS: dict[str, str] = {
     "scaler": "scaler.jsonl",  # executor autoscaler (core/executor.py)
+    "compiles": "compiles.jsonl",  # kernel builds (ops/_build.py)
+    "alerts": "alerts.jsonl",  # alert fire/clear (observability/alerts.py)
     "usage": "usage.jsonl",  # per-request usage records (observability/usage.py)
+    "canary": "canary.jsonl",  # golden-set probe results (observability/canary.py)
 }
 
 

@@ -1,8 +1,9 @@
 """Copy of ``modal_examples_tpu/observability/metrics.py``: the port keeps its own instance.
 
 Recorders: the narrow API the executor, the fault gate, the serving
-engine, the scheduler, the prefix cache, the profiler and the usage meter
-call to emit metric series from
+engine, the scheduler, the prefix cache, the profiler, the usage meter,
+the kernel builds, the flight recorder (tsdb, alerts, incidents) and the
+canary call to emit metric series from
 :mod:`.catalog` into the port's process-wide prometheus registry
 (:mod:`..utils.prometheus`). Only the recorders of those paths are copied;
 a later slice copies the rest with the subsystem that calls them.
@@ -604,4 +605,149 @@ def record_spec_fallback(
     _reg(registry).counter_inc(
         C.SPEC_FALLBACK_TOTAL, float(n),
         help=C.CATALOG[C.SPEC_FALLBACK_TOTAL]["help"],
+    )
+
+
+def record_compile(
+    program: str, seconds: float, cache_hit: bool, *,
+    registry: Registry | None = None,
+) -> None:
+    """One kernel-library lookup (``ops/_build.py``): every lookup counts
+    under its outcome label; only misses (nvcc builds) carry a
+    build-seconds observation."""
+    reg = _reg(registry)
+    reg.counter_inc(
+        C.COMPILES_TOTAL, 1.0,
+        labels={"program": program, "cache": "hit" if cache_hit else "miss"},
+        help=C.CATALOG[C.COMPILES_TOTAL]["help"],
+    )
+    if not cache_hit:
+        reg.histogram_observe(
+            C.COMPILE_SECONDS, seconds,
+            labels={"program": program},
+            help=C.CATALOG[C.COMPILE_SECONDS]["help"],
+        )
+
+
+def record_tsdb_sample(
+    series: int, seconds: float, *, registry: Registry | None = None
+) -> None:
+    """One sampler scrape cycle: the series count it captured and the wall
+    time it cost. Called only by the tsdb sampler — with MTPU_TSDB unset
+    nothing reaches here (the zero-cost gate)."""
+    reg = _reg(registry)
+    reg.counter_inc(
+        C.TSDB_SAMPLES_TOTAL, 1.0,
+        help=C.CATALOG[C.TSDB_SAMPLES_TOTAL]["help"],
+    )
+    reg.gauge_set(
+        C.TSDB_SERIES, float(series),
+        help=C.CATALOG[C.TSDB_SERIES]["help"],
+    )
+    reg.histogram_observe(
+        C.TSDB_SCRAPE_SECONDS, seconds,
+        # µs-scale buckets (the tick-phase rationale): a scrape costs
+        # well under a millisecond — default buckets would collapse every
+        # observation into their first bound
+        buckets=C.TICK_PHASE_BUCKETS,
+        help=C.CATALOG[C.TSDB_SCRAPE_SECONDS]["help"],
+    )
+
+
+def record_tsdb_rotation(*, registry: Registry | None = None) -> None:
+    _reg(registry).counter_inc(
+        C.TSDB_ROTATIONS_TOTAL, 1.0,
+        help=C.CATALOG[C.TSDB_ROTATIONS_TOTAL]["help"],
+    )
+
+
+def set_alert_active(
+    rule: str, firing: bool, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).gauge_set(
+        C.ALERTS_ACTIVE, 1.0 if firing else 0.0,
+        labels={"rule": rule},
+        help=C.CATALOG[C.ALERTS_ACTIVE]["help"],
+    )
+
+
+def record_alert_fired(
+    rule: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.ALERTS_FIRED_TOTAL, 1.0,
+        labels={"rule": rule},
+        help=C.CATALOG[C.ALERTS_FIRED_TOTAL]["help"],
+    )
+
+
+def record_incident_captured(
+    trigger: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.INCIDENTS_CAPTURED_TOTAL, 1.0,
+        labels={"trigger": trigger},
+        help=C.CATALOG[C.INCIDENTS_CAPTURED_TOTAL]["help"],
+    )
+
+
+def record_canary_probe(
+    replica: str, result: str, *, registry: Registry | None = None
+) -> None:
+    """One completed golden-set probe (result=pass|drift|error|recorded)."""
+    _reg(registry).counter_inc(
+        C.CANARY_PROBES_TOTAL, 1.0,
+        labels={"replica": replica, "result": result},
+        help=C.CATALOG[C.CANARY_PROBES_TOTAL]["help"],
+    )
+
+
+def record_canary_drift(
+    replica: str, *, registry: Registry | None = None
+) -> None:
+    """One probe whose tokens diverged from the golden transcript."""
+    _reg(registry).counter_inc(
+        C.CANARY_DRIFT_TOTAL, 1.0,
+        labels={"replica": replica},
+        help=C.CATALOG[C.CANARY_DRIFT_TOTAL]["help"],
+    )
+
+
+def record_canary_latency(
+    replica: str, *, ttft: float | None = None, tpot: float | None = None,
+    e2e: float | None = None, registry: Registry | None = None,
+) -> None:
+    """Client-observed probe latencies — measured from the canary's side
+    of the stream, so they price the full router/engine path, not just the
+    decode tick."""
+    reg = _reg(registry)
+    labels = {"replica": replica}
+    if ttft is not None:
+        reg.histogram_observe(
+            C.CANARY_TTFT_SECONDS, float(ttft), labels=labels,
+            buckets=C.TOKEN_TIME_BUCKETS,
+            help=C.CATALOG[C.CANARY_TTFT_SECONDS]["help"],
+        )
+    if tpot is not None:
+        reg.histogram_observe(
+            C.CANARY_TPOT_SECONDS, float(tpot), labels=labels,
+            buckets=C.TOKEN_TIME_BUCKETS,
+            help=C.CATALOG[C.CANARY_TPOT_SECONDS]["help"],
+        )
+    if e2e is not None:
+        reg.histogram_observe(
+            C.CANARY_E2E_SECONDS, float(e2e), labels=labels,
+            buckets=C.TOKEN_TIME_BUCKETS,
+            help=C.CATALOG[C.CANARY_E2E_SECONDS]["help"],
+        )
+
+
+def set_canary_failing(
+    replica: str, streak: int, *, registry: Registry | None = None
+) -> None:
+    """Consecutive failing canary rounds (0 clears)."""
+    _reg(registry).gauge_set(
+        C.CANARY_FAILING, float(streak),
+        labels={"replica": replica},
+        help=C.CATALOG[C.CANARY_FAILING]["help"],
     )

@@ -1,8 +1,10 @@
 """Hot-path time attribution for the serving engine: per-tick host/device
 phase accounting. A copy of ``modal_examples_tpu/observability/profiler.py``
-without its compile telemetry (the port compiles no program at dispatch: its
-kernels build once, at first use). The process-wide registry of profilers
-(:func:`active_profilers`) is the gateway's ``/profile`` source.
+without its per-dispatch compile telemetry (the port compiles no program at
+dispatch: its kernels build once, at first use, and ``ops/_build.py``
+ledgers each build into the ``compiles`` journal that :func:`read_ledger`
+reads). The process-wide registry of profilers (:func:`active_profilers`)
+is the gateway's ``/profile`` source.
 
 **Tick anatomy** — the scheduler thread accounts each ``step()`` into named
 phases (:data:`~.catalog.TICK_PHASES`) via monotonic deltas on the engine's
@@ -32,6 +34,7 @@ from collections import deque
 from ..utils.stats import percentile_nearest_rank as _pct
 from . import catalog as C
 from . import metrics as _obs
+from .journal import named_journal
 
 #: the one env switch (resolved once in ``LLMEngine.__init__``, the
 #: MTPU_KV_DTYPE rule): unset/0 = off — bench configs opt in explicitly
@@ -261,3 +264,26 @@ def register(profiler: HotPathProfiler) -> None:
 def active_profilers() -> list[HotPathProfiler]:
     with _registry_lock:
         return [p for p in (r() for r in _profilers) if p is not None]
+
+
+def read_ledger(path=None, n: int = 200) -> list[dict]:
+    """Newest-last slice of the compile ledger, which the port's kernel
+    builds write (``ops/_build.py``): torch-free, so the CLI's ``profile``
+    and the gateway read it without touching an engine."""
+    return named_journal("compiles", path=path).tail(n)
+
+
+def unfinished_builds(records: list[dict]) -> list[dict]:
+    """``begin`` events with no matching later ``end``: the offline
+    diagnosis for a build that crashed or hung. Pairing is strictly ordered:
+    an ``end`` closes only begins that precede it, so a ledger spanning
+    several runs still reports a later run's crash of a kernel that built
+    fine earlier."""
+    open_begins: dict[tuple, dict] = {}
+    for rec in records:
+        key = (rec.get("replica"), rec.get("program"), rec.get("shape_key"))
+        if rec.get("event") == "begin":
+            open_begins[key] = rec
+        elif rec.get("event") == "end":
+            open_begins.pop(key, None)
+    return list(open_begins.values())

@@ -4,30 +4,38 @@ A :class:`RequestTraceContext` is minted ONCE at the entry point (the
 OpenAI server, or a bare ``engine.make_request``) and rides ON the request
 object: explicit propagation, because a request's spans are opened and
 closed from the submitting thread and the engine's scheduler thread. The
-trace id IS the request id (``req-…``). Span names and attribute keys are
-cataloged (:data:`~.catalog.SPAN_CATALOG`). Sampling (``MTPU_TRACE_SAMPLE``,
-deterministic per request id) and the ``MTPU_TRACE=0`` switch keep the hot
-path near zero cost when tracing is off: an unsampled request carries
-``trace=None`` and every helper here is a None-safe no-op.
+trace id IS the request id (``req-…``), the same rule the executor tracer
+uses for calls (``in-…``): the CLI's ``trace`` and ``explain`` resolve
+either namespace from the same :class:`~.trace.TraceStore`. Span names and
+attribute keys are cataloged (:data:`~.catalog.SPAN_CATALOG`). Sampling
+(``MTPU_TRACE_SAMPLE``, deterministic per request id) and the
+``MTPU_TRACE=0`` switch keep the hot path near zero cost when tracing is
+off: an unsampled request carries ``trace=None`` and every helper here is a
+None-safe no-op.
+
+Fault firings (:mod:`...faults.inject`) become span events on the affected
+request through the thread-ambient frame (:func:`active` /
+:func:`note_fault`). Reads merge one trace id across every registered
+store (:func:`read_trace`, :func:`list_traces`, :func:`resolve`), and
+:func:`explain_lines` renders a merged trace as a lifecycle narrative.
 
 A context that never records a span leaves no file behind. One that did
 is closed by :func:`finish_request`, which sweeps any still-open spans
 with the terminal status before recording the root, so an abort or a
-scheduler error never leaks a dangling span.
-
-The JAX package's fleet paths (the disaggregated-serving wire, the ambient
-frame that fault injection records into, merged reads over several
-replicas' stores, ``tpurun explain``) come with those subsystems.
+scheduler error never leaks a dangling span. The disaggregated-serving
+wire (``wire``/``from_wire``) comes with ``serving/disagg/`` (ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
 import uuid
 
 from ..utils.determinism import unit_float
+from . import catalog as _C
 from .trace import Span, TraceStore, default_store, tracing_enabled
 
 #: the root span every request trace starts with (catalog-declared)
@@ -41,12 +49,33 @@ ROOT_SPAN = "request"
 UNSET = object()
 
 
-#: the id namespace of serving requests
+def resolve_entry_trace(trace, entry: str, store=None):
+    """The one rule every submit layer applies to its ``trace=`` kwarg:
+    pass an upstream value through verbatim (including an explicit None —
+    the upstream mint sampled the request OUT), mint only when no
+    upstream entry point ran (``UNSET``)."""
+    if trace is not UNSET:
+        return trace
+    return start_request_trace(entry=entry, store=store)
+
+#: id-namespace prefixes: serving requests vs executor calls
 REQUEST_PREFIX = "req-"
+CALL_PREFIX = "in-"
 
 
 def new_request_id() -> str:
     return f"{REQUEST_PREFIX}{uuid.uuid4().hex[:12]}"
+
+
+def trace_kind(trace_id: str) -> str:
+    """Which id namespace a trace id belongs to: ``request`` (serving,
+    ``req-…``), ``call`` (executor, ``in-…``), or ``unknown``."""
+    tid = str(trace_id)
+    if tid.startswith(REQUEST_PREFIX):
+        return "request"
+    if tid.startswith(CALL_PREFIX):
+        return "call"
+    return "unknown"
 
 
 def sample_rate() -> float:
@@ -109,6 +138,13 @@ class RequestTraceContext:
     @property
     def done(self) -> bool:
         return self._done
+
+    def open_spans(self) -> list[str]:
+        """Names of spans begun but not yet finished (test surface: the
+        no-dangling-span invariant asserts this drains to [])."""
+        with self._lock:
+            return [sp.name for sp in self._open.values()]
+
 
 def start_request_trace(
     request_id: str | None = None,
@@ -281,3 +317,341 @@ def finish_request(req, reason: str, *, store: TraceStore | None = None) -> None
         finish_reason=reason,
         n_generated=int(getattr(req, "n_generated", 0) or 0),
     )
+
+
+# --------------------------------------------------------------------------
+# thread-ambient frame: fault firings / retry waits attach to the request
+# whose operation is running on this thread
+# --------------------------------------------------------------------------
+
+_tl = threading.local()
+
+
+@contextlib.contextmanager
+def active(
+    ctx: RequestTraceContext | None,
+    *,
+    parent: str | None = None,
+    replica: str | None = None,
+):
+    """Scope ``ctx`` as this THREAD's ambient request: code that has no
+    request in hand (the fault gate, the transfer loop) records events
+    through :func:`note_fault` / :func:`ambient_event` onto whatever
+    request the thread is currently working for. ``ctx=None`` scopes an
+    EMPTY frame — an unsampled request must not inherit an outer one."""
+    prev = getattr(_tl, "frame", None)
+    _tl.frame = (ctx, parent, replica) if ctx is not None else None
+    try:
+        yield
+    finally:
+        _tl.frame = prev
+
+
+def _frame():
+    return getattr(_tl, "frame", None)
+
+
+def current() -> RequestTraceContext | None:
+    fr = _frame()
+    return fr[0] if fr is not None else None
+
+
+def begin_ambient(name: str, **attrs) -> Span | None:
+    fr = _frame()
+    if fr is None:
+        return None
+    ctx, parent, replica = fr
+    if replica is not None:
+        attrs.setdefault("replica", replica)
+    return begin(ctx, name, parent=parent, **attrs)
+
+
+def finish_ambient(span: Span | None, status: str = "ok", **attrs) -> None:
+    fr = _frame()
+    if fr is None or span is None:
+        return
+    finish(fr[0], span, status, **attrs)
+
+
+def ambient_event(name: str, **attrs) -> None:
+    fr = _frame()
+    if fr is None:
+        return
+    ctx, parent, replica = fr
+    if replica is not None:
+        attrs.setdefault("replica", replica)
+    event(ctx, name, parent=parent, **attrs)
+
+
+def note_fault(point: str) -> None:
+    """Called by :func:`...faults.inject.fire` ONLY when a fault actually
+    fires (the disabled gate never reaches here): the firing becomes a
+    ``fault`` event on the ambient request's trace, so a chaos episode's
+    injections are visible per-request on the fleet timeline."""
+    fr = _frame()
+    if fr is None:
+        return
+    ctx, parent, replica = fr
+    kw = {"replica": replica} if replica is not None else {}
+    event(ctx, "fault", parent=parent, point=point, **kw)
+
+
+# --------------------------------------------------------------------------
+# multi-store reads: one trace id, N replica stores
+# --------------------------------------------------------------------------
+
+_MAX_EXTRA_STORES = 16
+_extra_stores: list[TraceStore] = []
+_extra_lock = threading.Lock()
+
+
+def register_store(store: TraceStore | None) -> None:
+    """Make a per-replica store visible to merged reads in THIS process
+    (the gateway's ``/traces/<id>`` and the CLI's ``explain`` run over every
+    registered store plus the default). Bounded; duplicates ignored."""
+    if store is None or store is default_store:
+        return
+    with _extra_lock:
+        if any(s is store for s in _extra_stores):
+            return
+        _extra_stores.append(store)
+        del _extra_stores[:-_MAX_EXTRA_STORES]
+
+
+def known_stores() -> list[TraceStore]:
+    with _extra_lock:
+        return [default_store, *_extra_stores]
+
+
+def read_trace(
+    trace_id: str, stores: list[TraceStore] | None = None
+) -> list[dict]:
+    """One trace id's spans merged across stores (deduped by span id,
+    sorted by start) — prefill-replica, transfer, and decode-replica spans
+    stitch back into the single tree the trace id names."""
+    seen: set = set()
+    out: list[dict] = []
+    for st in stores if stores is not None else known_stores():
+        for s in st.read(trace_id):
+            sid = s.get("span_id")
+            if sid in seen:
+                continue
+            seen.add(sid)
+            out.append(s)
+    out.sort(key=lambda s: (s.get("start") or 0.0))
+    return out
+
+
+def list_traces(
+    limit: int = 50, stores: list[TraceStore] | None = None
+) -> list[str]:
+    """Most recently active trace ids merged across stores (newest first,
+    deduped) — the index view matching what :func:`read_trace` can serve:
+    a request whose spans live only in a per-replica store must still
+    appear in the gateway's ``/traces`` listing."""
+    entries: list[tuple[float, str]] = []
+    for st in stores if stores is not None else known_stores():
+        try:
+            for p in st.root.glob("*.jsonl"):
+                entries.append((p.stat().st_mtime, p.stem))
+        except OSError:
+            continue
+    entries.sort(reverse=True)
+    seen: set = set()
+    out: list[str] = []
+    for _, tid in entries:
+        if tid in seen:
+            continue
+        seen.add(tid)
+        out.append(tid)
+        if len(out) >= limit:
+            break
+    return out
+
+
+def resolve(
+    token: str, stores: list[TraceStore] | None = None
+) -> str | None:
+    """Resolve a full or unique-prefix trace id across stores — either id
+    namespace (``in-…`` executor calls, ``req-…`` serving requests)."""
+    for st in stores if stores is not None else known_stores():
+        hit = st.resolve(token)
+        if hit is not None:
+            return hit
+    return None
+
+
+# --------------------------------------------------------------------------
+# the CLI's `explain`: merged span tree -> lifecycle narrative
+# --------------------------------------------------------------------------
+
+
+def _ms(x: float) -> float:
+    return (x or 0.0) * 1000.0
+
+
+def _dur_ms(s: dict) -> float:
+    start = s.get("start") or 0.0
+    return _ms(max(0.0, (s.get("end") or start) - start))
+
+
+def explain_lines(spans: list[dict], trace_id: str) -> list[str]:
+    """Render a merged request trace as a human-readable lifecycle
+    narrative (the CLI's ``explain``); executor call traces get a one-line
+    summary pointing at the phase-tree renderer instead."""
+    if not spans:
+        return [f"no spans recorded for {trace_id}"]
+    kind = trace_kind(trace_id)
+    by_name: dict[str, list[dict]] = {}
+    for s in spans:
+        by_name.setdefault(s.get("name", "?"), []).append(s)
+    t0 = min(s.get("start") or 0.0 for s in spans)
+
+    def attr(s, key, default="-"):
+        return (s.get("attrs") or {}).get(key, default)
+
+    if kind == "call" or (
+        # no request root and the span names look like the executor
+        # tracer's (catalog.CALL_SPAN_NAMES): an unprefixed/legacy id
+        # still renders as a call trace ("queue" exists in both
+        # namespaces, so a req-… id never takes this branch)
+        kind != "request"
+        and ROOT_SPAN not in by_name
+        and set(by_name) & _C.CALL_SPAN_NAMES
+    ):
+        lines = [
+            f"{trace_id}: executor call trace ({len(spans)} spans) — "
+            f"`python -m modal_examples_tpu_torch trace {trace_id}` renders the phase tree"
+        ]
+        for s in sorted(spans, key=lambda s: s.get("start") or 0.0):
+            mark = "" if s.get("status") == "ok" else f" [{s.get('status')}]"
+            lines.append(
+                f"  +{_ms((s.get('start') or 0.0) - t0):>8.1f}ms  "
+                f"{s.get('name', '?'):<12} {_dur_ms(s):>9.1f}ms{mark}"
+            )
+        return lines
+
+    root = (by_name.get(ROOT_SPAN) or [None])[0]
+    rattrs = (root or {}).get("attrs") or {}
+    reason = rattrs.get("finish_reason", "?")
+    header = f"request {trace_id}: serving request trace"
+    if root is not None:
+        header += (
+            f" — {reason} in {_dur_ms(root):.1f}ms"
+            f" (entry {rattrs.get('replica', '?')}"
+        )
+        if "priority" in rattrs:
+            header += f", class={rattrs['priority']}"
+        if "tenant" in rattrs:
+            header += f", tenant={rattrs['tenant']}"
+        header += ")"
+    lines = [header]
+
+    chunks = by_name.get("chunk", [])
+    spec_events = by_name.get("spec_verify", [])
+    for s in sorted(spans, key=lambda s: (s.get("start") or 0.0)):
+        name = s.get("name", "?")
+        if name in (ROOT_SPAN, "chunk", "spec_verify"):
+            continue
+        if name == "queue":
+            text = (
+                f"queued {_dur_ms(s):.1f}ms "
+                f"(class={attr(s, 'priority')}, replica {attr(s, 'replica')})"
+            )
+        elif name == "placement":
+            pre = attr(s, "prefill_replica")
+            if pre != "-":
+                text = (
+                    f"placed: prefill={pre} "
+                    f"decode={attr(s, 'decode_replica')}"
+                )
+            else:
+                text = (
+                    f"placed on {attr(s, 'decode_replica', attr(s, 'replica'))}"
+                    f" (route={attr(s, 'route')})"
+                )
+        elif name == "prefill":
+            chunked = attr(s, "chunked", False) is True
+            sliced = attr(s, "sliced", False) is True
+            detail = ""
+            if chunked:
+                detail = f", chunked x{attr(s, 'chunks', '?')}"
+                if sliced:
+                    detail += f" sliced (budget {attr(s, 'budget', '?')})"
+            text = (
+                f"prefill on {attr(s, 'replica')} {_dur_ms(s):.1f}ms "
+                f"({attr(s, 'n_prompt', '?')} prompt tokens{detail})"
+            )
+        elif name == "prefill_wait":
+            text = (
+                f"prefill sliced over {attr(s, 'ticks', '?')} ticks "
+                f"({attr(s, 'chunks', '?')} chunks interleaved with decode, "
+                f"{_dur_ms(s):.1f}ms residency)"
+            )
+        elif name == "migrate":
+            text = (
+                f"migrated {attr(s, 'pages', '?')} pages "
+                f"{attr(s, 'source')} -> {attr(s, 'target')} "
+                f"{_dur_ms(s):.1f}ms ({attr(s, 'result', s.get('status'))})"
+            )
+        elif name == "transfer":
+            n_chunks = attr(s, "chunks", None) or len(
+                [c for c in chunks if c.get("parent_id") == s.get("span_id")]
+            )
+            text = (
+                f"transfer {attr(s, 'wire_bytes', '?')} bytes in "
+                f"{n_chunks} chunks {_dur_ms(s):.1f}ms"
+            )
+        elif name == "adopt":
+            text = (
+                f"adopted {attr(s, 'pages', '?')} pages on "
+                f"{attr(s, 'replica')} {_dur_ms(s):.2f}ms"
+            )
+        elif name == "decode":
+            ttft = rattrs.get("ttft_s")
+            text = f"decode on {attr(s, 'replica')} {_dur_ms(s):.1f}ms"
+            if ttft is not None:
+                text += f": TTFT {_ms(ttft):.1f}ms"
+            text += (
+                f", {rattrs.get('n_generated', '?')} tokens, finish={reason}"
+            )
+        elif name == "fault":
+            text = (
+                f"fault injected: {attr(s, 'point')} "
+                f"(replica {attr(s, 'replica')})"
+            )
+        elif name == "retry_wait":
+            text = (
+                f"transfer retry round {attr(s, 'round')}: "
+                f"{attr(s, 'pending')} chunks pending, "
+                f"{attr(s, 'delay_s')}s backoff"
+            )
+        elif name == "shed":
+            text = f"shed by admission ({attr(s, 'reason')})"
+        elif name == "tier_promote":
+            text = (
+                f"prefix tier promote: {attr(s, 'pages')} pages from "
+                f"{attr(s, 'tier')}"
+            )
+        else:
+            extras = " ".join(
+                f"{k}={v}" for k, v in (s.get("attrs") or {}).items()
+            )
+            text = f"{name} {_dur_ms(s):.1f}ms {extras}".rstrip()
+        mark = "" if s.get("status") in ("ok", None) else f" [{s.get('status')}]"
+        lines.append(
+            f"  +{_ms((s.get('start') or 0.0) - t0):>8.1f}ms  {text}{mark}"
+        )
+    if spec_events:
+        proposed = sum(int(attr(s, "proposed", 0) or 0) for s in spec_events)
+        accepted = sum(int(attr(s, "accepted", 0) or 0) for s in spec_events)
+        lines.append(
+            f"  spec verify: {len(spec_events)} ticks, "
+            f"{accepted}/{proposed} draft tokens accepted"
+        )
+    return lines
+
+
+#: catalog cross-check convenience (the static guard imports the catalog
+#: directly; this keeps the two modules' views trivially identical)
+ALL_SPAN_NAMES = _C.ALL_SPAN_NAMES

@@ -13,6 +13,8 @@ share a host. ``MTPU_TRACE=0`` disables tracing entirely.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import json
 import os
@@ -21,6 +23,7 @@ import threading
 import time
 import uuid
 from pathlib import Path
+from typing import Callable
 
 from .._internal import config as _config
 
@@ -216,3 +219,63 @@ class TraceStore:
 
 #: process-wide default store (state-dir backed)
 default_store = TraceStore()
+
+
+# --------------------------------------------------------------------------
+# Context propagation — supervisor -> container worker -> user code
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TraceContext:
+    """The ambient trace for the current execution context: new spans created
+    with :func:`span` become children of ``span_id`` and are delivered to
+    ``sink`` when finished (the store's ``record`` in the supervisor, a
+    buffer shipped over the pipe in a container worker)."""
+
+    trace_id: str
+    span_id: str | None
+    sink: Callable[[dict], None]
+
+
+_current: contextvars.ContextVar[TraceContext | None] = contextvars.ContextVar(
+    "mtpu-trace-ctx", default=None
+)
+
+
+def current_context() -> TraceContext | None:
+    return _current.get()
+
+
+def current_trace_id() -> str | None:
+    ctx = _current.get()
+    return ctx.trace_id if ctx else None
+
+
+def set_context(ctx: TraceContext | None) -> contextvars.Token:
+    return _current.set(ctx)
+
+
+@contextlib.contextmanager
+def span(name: str, **attrs):
+    """User-facing span context manager: nests under the ambient trace (a
+    no-op yielding None outside one). Works inside container workers — the
+    span ships back with the call's execute/serialize spans — and in the
+    supervisor process."""
+    ctx = _current.get()
+    if ctx is None or not tracing_enabled():
+        yield None
+        return
+    sp = Span(
+        trace_id=ctx.trace_id, name=name, parent_id=ctx.span_id, attrs=attrs
+    )
+    token = _current.set(TraceContext(ctx.trace_id, sp.span_id, ctx.sink))
+    try:
+        yield sp
+        sp.finish("ok")
+    except BaseException:
+        sp.finish("error")
+        raise
+    finally:
+        _current.reset(token)
+        ctx.sink(sp.to_dict())

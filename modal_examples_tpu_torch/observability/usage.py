@@ -46,11 +46,8 @@ import time
 import weakref
 
 from . import metrics as _obs
+from .canary import CANARY_TENANT  # the synthetic probe tenant: excluded from billing
 from .journal import DecisionJournal, named_journal
-
-#: the synthetic probe tenant (the reference's ``observability/canary.py``):
-#: excluded from usage billing
-CANARY_TENANT = "__canary__"
 
 #: dense bf16 peak TFLOP/s and HBM GB/s of one card, by
 #: ``torch.cuda.get_device_name()``: the H100 SXM's data-sheet figures, the
@@ -491,6 +488,12 @@ class EngineUsage:
                 phase, mfu=p["mfu"], mbu=p["mbu"],
                 tflops=p["achieved_tflops"], registry=reg,
             )
+
+
+def read_usage_journal(path=None, n: int = 500) -> list[dict]:
+    """Newest-last slice of the usage journal (torch-free: the CLI's
+    ``usage`` and the gateway read it without touching an engine)."""
+    return named_journal("usage", path=path).tail(n)
 
 
 def journal_tenant_totals(records: list[dict]) -> dict:

@@ -6,7 +6,11 @@ repository root (``build/`` is git-ignored). The hash covers the source, the
 shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
 rebuilds and an unchanged one loads as it is.
 :func:`build` starts every missing library's ``nvcc`` at once and waits for
-all of them. A failed build raises; nothing falls back.
+all of them. A failed build raises; nothing falls back. Every lookup counts
+in ``mtpu_compiles_total{program,cache}``, and every nvcc run appends a
+``begin`` and an ``end`` record (its seconds) to the ``compiles`` journal
+under the state directory: the port's compile ledger, which the CLI's
+``profile`` reads.
 
 Calling convention of every entry point: pointers and the CUDA stream are
 ``c_void_p`` (a Python int would be cut to 32 bits otherwise), and the entry
@@ -22,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -84,6 +89,12 @@ def build(names: list[str] | None = None, *, verbose: bool = False) -> dict[str,
             tmp,
             out,
         )
+    for name in names:
+        if name not in procs:
+            _ledger(name, "hit")
+    started = time.monotonic()
+    for name in procs:
+        _ledger(name, "begin")
     logs, errors = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -94,9 +105,31 @@ def build(names: list[str] | None = None, *, verbose: bool = False) -> dict[str,
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
             logs[name] = log
             compiled.append(name)
+            _ledger(name, "end", time.monotonic() - started)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return logs
+
+
+def _ledger(name: str, event: str, seconds: float = 0.0) -> None:
+    """One kernel-library lookup into the metrics and, for an nvcc run, its
+    ``begin``/``end`` record into the compile ledger (best effort: a state
+    directory that refuses writes costs the record, never the build)."""
+    from ..observability import metrics as _obs
+    from ..observability.journal import named_journal
+
+    try:
+        if event != "begin":
+            _obs.record_compile(name, seconds, cache_hit=event == "hit")
+        if event == "hit":
+            return
+        rec = {"at": time.time(), "event": event, "replica": f"pid-{os.getpid()}",
+               "program": name, "shape_key": library_path(name).stem.rsplit("-", 1)[-1]}
+        if event == "end":
+            rec.update(seconds=round(float(seconds), 6), cache="miss")
+        named_journal("compiles").record(rec)
+    except Exception:
+        pass
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -94,9 +94,17 @@ requests never speculate; ``spec_adaptive`` switches on the per-request
 acceptance controller; ``spec_depth`` caps γ at runtime); a round in which
 no slot speculates falls back to one decode block, read at once.
 
-Not in this slice: int4 weights, the tiered prefix cache, fault injection,
-the fleet's claim paths (and with them the speculative ``spec_hold`` of
-adopted and resumed requests) and the canary.
+The flight recorder rides the engine as in the reference: the constructor
+starts the process-wide tsdb sampler when ``MTPU_TSDB`` is on and registers
+the engine with the incident collector, a scheduler crash captures a
+``scheduler_crash`` bundle before the callers are released, and the
+canary's probes (tenant ``__canary__``) stay out of the TTFT/TPOT
+histograms; the ``engine.canary_token_corrupt`` fault point flips one of
+their tokens.
+
+Not in this slice: int4 weights, the tiered prefix cache, the fleet's fault
+points and claim paths (and with them the speculative ``spec_hold`` of
+adopted and resumed requests).
 """
 
 from __future__ import annotations
@@ -113,12 +121,15 @@ import uuid
 import numpy as np
 import torch
 
+from ..faults import inject as _inject
 from ..models import llama
 from ..models.quantize import SUPPORTED as _QUANT_MODES
 from ..models.quantize import QuantizedWeight, bits_of, init_quantized_llama, param_bytes, quantize_llama
+from ..observability import incident as _incident
 from ..observability import metrics as _obs
 from ..observability import profiler as _profiler
 from ..observability import reqtrace as _rt
+from ..observability import timeseries as _ts
 from ..observability import usage as _usage
 from ..ops.kv_quant import resolve_kv_dtype
 from ..scheduling.admission import AdmissionController, ShedError
@@ -499,6 +510,12 @@ class LLMEngine:
             if _profiler.profiling_enabled(profile) else None
         )
         self._tick = None  # the in-flight TickProfile (None: profiling off, or between ticks)
+        # flight recorder: MTPU_TSDB=1 starts the process-wide tsdb sampler
+        # once (off the hot path either way), and the incident collector
+        # learns about this engine so a capture can snapshot its impl plan
+        # and open requests
+        _ts.ensure_sampler()
+        _incident.register_engine(self)
         self.policy: SchedulerPolicy = policy or FairSharePolicy(clock=self._clock)
         self.admission = admission or AdmissionController(clock=self._clock)
         self._trace_store = trace_store if trace_store is not None else _rt.default_store
@@ -813,26 +830,47 @@ class LLMEngine:
     # -- scheduler loop -------------------------------------------------------
 
     def _loop(self) -> None:
-        while self._running:
-            try:
-                worked = self.step()
-            except Exception:
-                # a scheduler-logic error: record it, poison the engine and
-                # release every caller with finish_reason="error" (loud, never
-                # swallowed)
-                tb = traceback.format_exc()
-                self.error_log.append(tb)
-                self.error_count += 1
-                del self.error_log[:-20]
-                LLMEngine._error_reports.append(tb[-800:])
-                del LLMEngine._error_reports[:-50]
-                _obs.record_scheduler_error()
-                self._stopped_on_error = True
+        try:
+            while self._running:
+                try:
+                    worked = self.step()
+                except Exception:
+                    # a scheduler-logic error: record it, poison the engine
+                    # and release every caller with finish_reason="error"
+                    # (loud, never swallowed)
+                    tb = traceback.format_exc()
+                    self.error_log.append(tb)
+                    self.error_count += 1
+                    del self.error_log[:-20]
+                    LLMEngine._error_reports.append(tb[-800:])
+                    del LLMEngine._error_reports[:-50]
+                    _obs.record_scheduler_error()
+                    self._stopped_on_error = True
+                    self._running = False
+                    # capture BEFORE the release sweep frees the slots: the
+                    # bundle's open-request traces are the victims
+                    _incident.capture(
+                        "scheduler_crash",
+                        reason=tb.strip().splitlines()[-1] if tb else "",
+                        replica=self.trace_name,
+                    )
+                    self._release_all(_Finish("error"))
+                    return
+                if not worked:
+                    time.sleep(0.002)
+        finally:
+            if self._running:
+                # the thread is dying without stop() (a BaseException): the
+                # callers get finish_reason="error" instead of a stream that
+                # nothing feeds, and the engine is poisoned
                 self._running = False
+                self._stopped_on_error = True
+                _incident.capture(
+                    "scheduler_crash",
+                    reason="scheduler thread died without stop()",
+                    replica=self.trace_name,
+                )
                 self._release_all(_Finish("error"))
-                return
-            if not worked:
-                time.sleep(0.002)
 
     def _release_all(self, marker: _Finish) -> None:
         self._inflight.clear()
@@ -1744,6 +1782,10 @@ class LLMEngine:
         slot and pages are released before the finish marker."""
         slot = self.slots[slot_idx]
         req = slot.request
+        # canary drift injection: flip one accepted token, only on the
+        # synthetic probe tenant, so only the golden comparison sees it
+        if req.tenant == _CANARY_TENANT and _inject.fire("engine.canary_token_corrupt"):
+            token = (token + 1) % self.cfg.vocab_size
         self.stats.generated_tokens += 1
         self.usage.note_token(req, slot.position)
         now = time.monotonic()

@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 import re
 import threading
+import time
 from collections import defaultdict
 
 #: default latency buckets (seconds) — sub-ms dispatch up to multi-minute
@@ -276,6 +277,25 @@ class Registry:
                 return float(self._histograms[key]["count"])
             return self._counters.get(key, 0.0)
 
+    def all_series(self) -> list[tuple]:
+        """Every series in the registry as ``(name, labels, kind, value,
+        hsum)`` tuples: counters/gauges carry their value (``hsum`` 0.0),
+        histograms their cumulative observation count with ``hsum`` = the
+        cumulative sum — one locked pass, no exposition round trip. The
+        time-series sampler's scrape surface (observability/timeseries.py)."""
+        out: list[tuple] = []
+        with self._lock:
+            for (name, lbls), v in self._counters.items():
+                out.append((name, dict(lbls), "counter", float(v), 0.0))
+            for (name, lbls), v in self._gauges.items():
+                out.append((name, dict(lbls), "gauge", float(v), 0.0))
+            for (name, lbls), h in self._histograms.items():
+                out.append(
+                    (name, dict(lbls), "histogram",
+                     float(h["count"]), float(h["sum"]))
+                )
+        return out
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -292,6 +312,15 @@ class Registry:
 default_registry = Registry()
 
 
+def push_to_dict(metrics_dict, job: str, registry: Registry | None = None) -> None:
+    """Push this process's metrics into a shared Dict — the pushgateway
+    pattern for ephemeral containers (each push overwrites the job's slot,
+    tagged with a timestamp)."""
+    reg = registry or default_registry
+    metrics_dict[job] = {"at": time.time(), "metrics": reg.snapshot(),
+                         "text": reg.expose()}
+
+
 _SAMPLE_RE = re.compile(
     r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
     r"(?:\{(?P<labels>.*)\})?"
@@ -305,3 +334,171 @@ _UNESCAPE_RE = re.compile(r"\\(.)")
 _UNESCAPE_MAP = {"n": "\n", '"': '"', "\\": "\\"}
 
 
+def _unescape_label_value(v: str) -> str:
+    # one left-to-right pass: sequential .replace() calls corrupt values
+    # where an escaped backslash precedes 'n' ('a\\nb' must round-trip to
+    # a backslash + 'n', not a newline)
+    return _UNESCAPE_RE.sub(
+        lambda m: _UNESCAPE_MAP.get(m.group(1), "\\" + m.group(1)), v
+    )
+
+
+def parse_exposition(text: str) -> Registry:
+    """Reconstruct a :class:`Registry` from Prometheus text exposition.
+
+    The inverse of :meth:`Registry.expose` — counters/gauges land as values,
+    histogram ``_bucket``/``_sum``/``_count`` child series are de-cumulated
+    back into per-bucket counts, so ``histogram_quantiles``/``value``/
+    ``total`` work on a *pushed* ``.prom`` file exactly as on the live
+    registry (what the CLI's ``top`` and SLO evaluation over pushed jobs need).
+    Unparseable lines are skipped; untyped samples read as gauges.
+    """
+    reg = Registry()
+    types: dict[str, str] = {}
+    helps: dict[str, str] = {}
+    # (name, labels_tuple) -> {"buckets": [(le, cum)], "sum": s, "count": n}
+    hists: dict[tuple, dict] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            name, _, t = line[len("# TYPE "):].partition(" ")
+            types[name] = t.strip()
+            continue
+        if line.startswith("# HELP "):
+            name, _, h = line[len("# HELP "):].partition(" ")
+            helps[name] = h
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            continue
+        name = m.group("name")
+        try:
+            value = float(m.group("rest").split()[0])
+        except (ValueError, IndexError):
+            continue
+        labels = {
+            k: _unescape_label_value(v)
+            for k, v in _LABEL_RE.findall(m.group("labels") or "")
+        }
+        base, part = name, None
+        for suffix in ("_bucket", "_sum", "_count"):
+            stem = name[: -len(suffix)]
+            if name.endswith(suffix) and types.get(stem) == "histogram":
+                base, part = stem, suffix
+                break
+        if part is not None:
+            le = labels.pop("le", None)
+            key = (base, tuple(sorted(labels.items())))
+            h = hists.setdefault(key, {"buckets": [], "sum": 0.0, "count": 0})
+            if part == "_bucket" and le is not None:
+                bound = math.inf if le == "+Inf" else float(le)
+                h["buckets"].append((bound, value))
+            elif part == "_sum":
+                h["sum"] = value
+            elif part == "_count":
+                h["count"] = int(value)
+            continue
+        if types.get(name) == "counter":
+            reg.counter_inc(name, value, labels=labels or None,
+                            help=helps.get(name, ""))
+        else:
+            reg.gauge_set(name, value, labels=labels or None,
+                          help=helps.get(name, ""))
+    for (name, lbl_t), h in hists.items():
+        pairs = sorted(h["buckets"])
+        finite = tuple(le for le, _ in pairs if not math.isinf(le))
+        counts, prev = [], 0.0
+        for _, cum in pairs:
+            counts.append(int(cum - prev))
+            prev = cum
+        if not any(math.isinf(le) for le, _ in pairs):
+            counts.append(max(0, h["count"] - int(prev)))  # missing +Inf
+        with reg._lock:
+            reg._histograms[(name, lbl_t)] = {
+                "buckets": finite,
+                "counts": counts,
+                "sum": h["sum"],
+                "count": h["count"] or int(prev),
+            }
+            reg._types[name] = "histogram"
+            if name in helps:
+                reg._help[name] = helps[name]
+    return reg
+
+
+def merge_expositions(jobs: dict[str, str]) -> str:
+    """Merge per-job exposition texts into ONE valid exposition.
+
+    Each sample gains a ``job`` label (the pushgateway convention), every
+    metric name keeps exactly one ``# HELP``/``# TYPE`` header, and no
+    non-format comment lines are emitted — duplicate headers and ``# job:``
+    banners both violate the text format and break scrapers.
+    """
+    helps: dict[str, str] = {}
+    types: dict[str, str] = {}
+    samples: dict[str, list[str]] = {}
+    order: list[str] = []
+
+    def base_name(name: str) -> str:
+        for suffix in ("_bucket", "_sum", "_count"):
+            stem = name[: -len(suffix)]
+            if name.endswith(suffix) and types.get(stem) in (
+                "histogram", "summary"
+            ):
+                return stem
+        return name
+
+    for job, text in sorted(jobs.items()):
+        for line in text.splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith("# HELP "):
+                _, _, rest = line.partition("# HELP ")
+                name, _, help_text = rest.partition(" ")
+                helps.setdefault(name, help_text)
+                continue
+            if line.startswith("# TYPE "):
+                _, _, rest = line.partition("# TYPE ")
+                name, _, type_text = rest.partition(" ")
+                types.setdefault(name, type_text)
+                continue
+            if line.startswith("#"):
+                continue  # drop free-form comments: not part of the format
+            m = _SAMPLE_RE.match(line)
+            if m is None:
+                continue
+            name = m.group("name")
+            labels = m.group("labels") or ""
+            job_label = f'job="{escape_label_value(job)}"'
+            labels = f"{labels},{job_label}" if labels else job_label
+            group = base_name(name)
+            if group not in samples:
+                samples[group] = []
+                order.append(group)
+            samples[group].append(f"{name}{{{labels}}} {m.group('rest')}")
+
+    lines: list[str] = []
+    for group in order:
+        if group in helps:
+            lines.append(f"# HELP {group} {helps[group]}")
+        if group in types:
+            lines.append(f"# TYPE {group} {types[group]}")
+        lines.extend(samples[group])
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def aggregate_exposition(metrics_dict) -> str:
+    """Merge all jobs' pushed text expositions (the gateway's /metrics).
+
+    Series from different jobs are distinguished by an added ``job`` label;
+    headers are deduplicated so the output is itself a valid exposition.
+    """
+    jobs = {
+        job: payload["text"] for job, payload in sorted(metrics_dict.items())
+    }
+    return merge_expositions(jobs)

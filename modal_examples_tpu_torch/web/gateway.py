@@ -10,12 +10,15 @@ exact same scheduling path (autoscaling, @concurrent, @batched) as RPC
 traffic. Generator functions stream as ``text/event-stream`` (SSE), matching
 07_web/streaming.py:38-45.
 
-The port serves the built-in routes whose modules it has: ``/metrics`` (the
-port's process registry), ``/traces`` (call and request traces),
-``/profile`` (the engines' hot-path profilers), ``/usage`` (their usage
-meters) and ``/autoscaler`` (the executor's journal). The others answer 501
-naming the ROADMAP item they wait on (:data:`WAITING_ROUTES`). The websocket
-endpoint decorator raises: ``web/websocket.py`` waits (ROADMAP A13).
+The port serves the built-in routes whose modules it has: ``/healthz`` (the
+SLO gate), ``/metrics`` (the process registry merged with the pushed
+expositions), ``/alerts``, ``/incidents[/<id>[?file=NAME]]``, ``/canary``,
+``/traces`` (call and request traces, merged across the registered
+stores), ``/profile`` (the engines' hot-path profilers and the kernel
+build ledger), ``/usage`` (their usage meters) and ``/autoscaler`` (the
+executor's journal). The fleet's routes answer 501 naming the ROADMAP item
+they wait on (:data:`WAITING_ROUTES`). The websocket endpoint decorator
+raises: ``web/websocket.py`` waits (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -57,10 +60,6 @@ BUILTIN_ROUTES: dict[str, str] = {
 #: built-in routes over modules the port does not have yet: label -> what
 #: they wait on. They answer 501 with that text.
 WAITING_ROUTES: dict[str, str] = {
-    "healthz": "observability/slo.py (ROADMAP A6)",
-    "alerts": "observability/alerts.py and timeseries.py (ROADMAP A6)",
-    "incidents": "observability/incident.py (ROADMAP A6)",
-    "canary": "observability/canary.py (ROADMAP A6)",
     "health": "serving/health.py (ROADMAP A9)",
     "fleet": "fleet/ (ROADMAP A9)",
     "disagg": "serving/disagg/ (ROADMAP A9)",
@@ -92,12 +91,12 @@ def _coerce_kwargs(fn, raw: dict) -> dict:
     return out
 
 
-def _profile_snapshot() -> dict:
+def _profile_snapshot(last: int = 20) -> dict:
     """Hot-path profiler snapshot: per-replica overhead summaries and
-    Perfetto-ready ring snapshots from every live profiler in the process
-    (the ``/profile`` route's payload). Empty ``replicas`` means no engine
-    in this process runs with ``MTPU_PROFILE`` on. The port compiles no
-    program at dispatch, so there is no compile ledger."""
+    Perfetto-ready ring snapshots from every live profiler in the process,
+    plus the newest records of the kernel build ledger (the ``/profile``
+    route's payload). Empty ``replicas`` means no engine in this process
+    runs with ``MTPU_PROFILE`` on."""
     from ..observability import profiler as _prof
 
     replicas = {}
@@ -106,7 +105,70 @@ def _profile_snapshot() -> dict:
             "summary": p.overhead_summary(),
             "perfetto": p.perfetto_snapshot(),
         }
-    return {"replicas": replicas}
+    # the unfinished scan reads a deep tail whatever the display size
+    deep = _prof.read_ledger(n=2000)
+    return {
+        "replicas": replicas,
+        "ledger": deep[-last:] if last else [],
+        "unfinished_builds": _prof.unfinished_builds(deep),
+    }
+
+
+def _alerts_snapshot(last: int = 20) -> dict:
+    """Alert-rule snapshot: per-rule firing state (from the live evaluator
+    when this process runs the tsdb sampler, else a one-shot evaluation
+    over the on-disk window) and the newest fire/clear transitions of the
+    ``alerts`` journal: the ``/alerts`` route's payload."""
+    from ..observability import alerts as _alerts
+    from ..observability import timeseries as _ts
+
+    sampler = _ts.global_sampler()
+    ev = sampler.evaluator if sampler is not None else None
+    if ev is not None:
+        rules = ev.snapshot()
+        active = ev.active()
+    else:
+        rules = _alerts.evaluate_offline(_ts.read_window())
+        active = [r["rule"] for r in rules if r["firing"]]
+    return {
+        "rules": rules,
+        "active": active,
+        "live_evaluator": ev is not None,
+        "history": _alerts.read_alert_journal(last),
+    }
+
+
+def _incidents_snapshot() -> dict:
+    """The incident-bundle index: the ``/incidents`` route's payload."""
+    from ..observability import incident as _incident
+
+    return {"incidents": _incident.list_incidents()}
+
+
+def _canary_snapshot(last: int = 20) -> dict:
+    """Correctness-canary snapshot: the live prober's state (when this
+    process runs one), per-replica probe, drift and failing-streak values
+    from the registry, and the newest records of the ``canary`` journal:
+    the ``/canary`` route's payload."""
+    from ..observability import canary as _canary
+    from ..observability import catalog as C
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import default_registry as reg
+
+    probes: dict = {}
+    for labels, v in reg.series(C.CANARY_PROBES_TOTAL):
+        rep = labels.get("replica", "?")
+        probes.setdefault(rep, {})[labels.get("result", "?")] = int(v)
+    drift = {labels.get("replica", "?"): int(v) for labels, v in reg.series(C.CANARY_DRIFT_TOTAL)}
+    failing = {labels.get("replica", "?"): int(v) for labels, v in reg.series(C.CANARY_FAILING)}
+    prober = _canary.live_prober()
+    return {
+        "probes": probes,
+        "drift": drift,
+        "failing": failing,
+        "prober": prober.snapshot() if prober is not None else None,
+        "journal": named_journal("canary").tail(last),
+    }
 
 
 def _usage_snapshot(last: int = 10) -> dict:
@@ -270,8 +332,11 @@ class _Handler(BaseHTTPRequestHandler):
             return default
 
     def _serve_builtin(self, parsed, method: str) -> bool:
-        """Built-in routes: ``/metrics`` (prometheus exposition of the
-        port's registry), ``/traces[/<id>]`` (call and request span JSON), ``/profile``, ``/usage[?n=N]``,
+        """Built-in routes: ``/healthz`` (200 or 503 with the SLO report),
+        ``/metrics`` (prometheus exposition: the registry merged with the
+        pushed files), ``/alerts[?n=N]``, ``/incidents[/<id>[?file=NAME]]``,
+        ``/canary[?n=N]``, ``/traces[/<id>[?explain=1]]`` (call and request
+        span JSON), ``/profile[?n=N]``, ``/usage[?n=N]``,
         ``/autoscaler[?function=tag&n=N]``, ``/`` (the
         :data:`BUILTIN_ROUTES` index), and 501 for :data:`WAITING_ROUTES`.
         User endpoints with the same label win — these only answer when no
@@ -280,20 +345,31 @@ class _Handler(BaseHTTPRequestHandler):
         label = parts[0] if parts else ""
         if method != "GET" or (label and label not in BUILTIN_ROUTES):
             return False
+        q = {k: v[-1] for k, v in urllib.parse.parse_qs(parsed.query).items()}
         if not label:
             self._respond_json(200, _root_index())
         elif label in WAITING_ROUTES:
             self._respond_json(
                 501, {"error": f"/{label} waits on {WAITING_ROUTES[label]}"}
             )
+        elif label == "healthz":
+            from ..observability.slo import healthz
+
+            payload = healthz()
+            self._respond_json(200 if payload["status"] == "ok" else 503, payload)
+        elif label == "alerts":
+            self._respond_json(200, _alerts_snapshot(last=self._query_int(parsed, 20)))
+        elif label == "incidents":
+            self._serve_incident(parts, q)
+        elif label == "canary":
+            self._respond_json(200, _canary_snapshot(last=self._query_int(parsed, 20)))
         elif label == "usage":
             self._respond_json(200, _usage_snapshot(last=self._query_int(parsed, 10)))
         elif label == "profile":
-            self._respond_json(200, _profile_snapshot())
+            self._respond_json(200, _profile_snapshot(last=self._query_int(parsed, 20)))
         elif label == "autoscaler":
             from ..observability.journal import default_journal
 
-            q = {k: v[-1] for k, v in urllib.parse.parse_qs(parsed.query).items()}
             self._respond_json(
                 200,
                 {
@@ -303,31 +379,59 @@ class _Handler(BaseHTTPRequestHandler):
                 },
             )
         elif label == "metrics":
-            from ..utils.prometheus import default_registry
+            from ..observability.export import live_and_pushed_metrics
 
-            body = default_registry.expose().encode()
+            body = live_and_pushed_metrics(job=f"gateway-{self.gateway.app.name}").encode()
             self.send_response(200)
             self.send_header("content-type", "text/plain; version=0.0.4")
             self.send_header("content-length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
         elif len(parts) > 1 and parts[1]:  # /traces/<id>
-            from ..observability.trace import default_store
+            from ..observability import reqtrace as _reqtrace
 
+            # either id namespace, merged across the registered stores;
             # resolve() whitelists the token shape: an unresolvable token is
             # a 404, never a raw-path read
             token = urllib.parse.unquote(parts[1])
-            trace_id = default_store.resolve(token)
-            spans = default_store.read(trace_id) if trace_id else []
+            trace_id = _reqtrace.resolve(token)
+            spans = _reqtrace.read_trace(trace_id) if trace_id else []
             if not spans:
                 self._respond_json(404, {"error": f"no trace {token!r}"})
             else:
-                self._respond_json(200, {"trace_id": trace_id, "spans": spans})
+                payload = {"trace_id": trace_id, "kind": _reqtrace.trace_kind(trace_id), "spans": spans}
+                if q.get("explain"):
+                    payload["narrative"] = _reqtrace.explain_lines(spans, trace_id)
+                self._respond_json(200, payload)
         else:
-            from ..observability.trace import default_store
+            from ..observability import reqtrace as _reqtrace
 
-            self._respond_json(200, {"traces": default_store.list_traces()})
+            self._respond_json(200, {"traces": _reqtrace.list_traces()})
         return True
+
+    def _serve_incident(self, parts: list[str], q: dict) -> None:
+        """``/incidents``: the index; ``/incidents/<id>``: the manifest;
+        ``?file=NAME``: one bundled file (the manifest whitelists the names
+        a capture wrote)."""
+        from ..observability import incident as _incident
+
+        if not (len(parts) > 1 and parts[1]):
+            self._respond_json(200, _incidents_snapshot())
+            return
+        token = urllib.parse.unquote(parts[1])
+        manifest = _incident.read_manifest(token)
+        if manifest is None:
+            self._respond_json(404, {"error": f"no incident {token!r}"})
+            return
+        name = q.get("file")
+        if not name:
+            self._respond_json(200, manifest)
+            return
+        body = _incident.read_bundle_file(manifest["id"], name)
+        if body is None:
+            self._respond_json(404, {"error": f"no file {name!r} in {manifest['id']}"})
+        else:
+            self._respond_json(200, {"id": manifest["id"], "file": name, "content": body})
 
     def _handle(self, method: str) -> None:
         route, parsed = self._route()

@@ -11,6 +11,9 @@ import shutil
 import pytest
 
 from modal_examples_tpu_torch.ops import _build
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 KERNELS = _build.kernel_names()
 

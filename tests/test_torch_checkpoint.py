@@ -29,6 +29,9 @@ from modal_examples_tpu_torch.models import quantize as tquant
 from modal_examples_tpu_torch.models.quantize import QuantizedWeight
 from modal_examples_tpu_torch.serving.engine import build_engine
 from modal_examples_tpu_torch.utils import safetensors as tst
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 DTYPES = ["BF16", "F16", "F32", "I8", "I32", "I64"]
 

@@ -32,6 +32,9 @@ from modal_examples_tpu_torch.models import vae as tvae
 from modal_examples_tpu_torch.ops import flash_attention as tflash
 from modal_examples_tpu_torch.ops import reference as tref
 from modal_examples_tpu_torch.utils import images as timages
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 
 def _perturbed(tree, seed: int):

@@ -23,6 +23,9 @@ from modal_examples_tpu.models import bert as jbert
 from modal_examples_tpu.models import layers as jlayers
 from modal_examples_tpu_torch.models import bert as tbert
 from modal_examples_tpu_torch.models import layers as tlayers
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 
 def _perturbed(tree, seed: int):

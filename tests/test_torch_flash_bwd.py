@@ -19,6 +19,9 @@ import jax.numpy as jnp
 
 from modal_examples_tpu_torch.ops import flash_attention as tfa
 from modal_examples_tpu_torch.ops import reference as tref
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 jfa = importlib.import_module("modal_examples_tpu.ops.flash_attention")
 

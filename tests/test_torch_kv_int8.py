@@ -49,6 +49,9 @@ from modal_examples_tpu_torch.ops import kv_quant as tkv
 from modal_examples_tpu_torch.ops import paged_attention as tpa
 from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
 from test_torch_ops import assert_split_model_matches, row_rel_err, split_edge_case
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 # the JAX package's ops/__init__ re-exports functions under their modules' names
 jpa = importlib.import_module("modal_examples_tpu.ops.paged_attention")

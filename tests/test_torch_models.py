@@ -19,6 +19,9 @@ from modal_examples_tpu.models import layers as jlayers
 from modal_examples_tpu.models import llama as jllama
 from modal_examples_tpu_torch.models import layers as tlayers
 from modal_examples_tpu_torch.models import llama as tllama
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 PS = 16
 

@@ -44,6 +44,9 @@ from modal_examples_tpu_torch.models import quantize as tquant
 from modal_examples_tpu_torch.models.quantize import QuantizedWeight
 from modal_examples_tpu_torch.observability.usage import WorkModel
 from test_torch_checkpoint import _assert_tree_equal, write_checkpoint
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 F32_TOL = 1e-5
 #: bf16 trees: one bf16 rounding of the SwiGLU product, relative to the largest output

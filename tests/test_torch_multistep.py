@@ -42,6 +42,9 @@ from modal_examples_tpu_torch.ops.scan_loop import masked_scan
 from modal_examples_tpu_torch.serving import multistep as tms
 from modal_examples_tpu_torch.serving.multistep import DetokWorker
 from modal_examples_tpu_torch.serving.sampling import prng_key
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 PROMPT = "the quick brown fox jumps over the lazy dog and naps in the sun"
 MARGIN = 1e-3

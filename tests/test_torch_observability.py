@@ -45,6 +45,9 @@ from modal_examples_tpu_torch.observability import usage as tusage
 from modal_examples_tpu_torch.observability.trace import TraceStore
 from modal_examples_tpu_torch.scheduling.admission import ShedError
 from modal_examples_tpu_torch.utils.prometheus import default_registry as port_registry
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 ROOT = Path(__file__).resolve().parent.parent
 ENGINE_KW = dict(max_slots=3, max_model_len=96, page_size=8, prefill_buckets=(16, 32), decode_block=4, seed=0,

@@ -23,6 +23,9 @@ from modal_examples_tpu.ops import reference as jref
 from modal_examples_tpu_torch.ops import flash_attention as tfa
 from modal_examples_tpu_torch.ops import paged_attention as tpa
 from modal_examples_tpu_torch.ops import reference as tref
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 # the JAX package's ops/__init__ re-exports functions under their modules' names
 jfa = importlib.import_module("modal_examples_tpu.ops.flash_attention")

@@ -36,6 +36,9 @@ from modal_examples_tpu_torch import LLMEngine, SamplingParams
 from modal_examples_tpu_torch.models import llama as tllama
 from modal_examples_tpu_torch.observability import catalog as C
 from modal_examples_tpu_torch.utils.prometheus import default_registry
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 ENGINE_KW = dict(max_slots=3, max_model_len=96, page_size=8, prefill_buckets=(16, 32), decode_block=4, seed=0)
 #: prompt lengths 12, 41 (chunked: past the 32 bucket), 20, 3, 71 (chunked), 16, 9, 28

@@ -21,11 +21,19 @@ from modal_examples_tpu.observability import catalog as JC
 from modal_examples_tpu.observability.journal import default_journal as jjournal
 from modal_examples_tpu.utils.prometheus import default_registry as jreg
 from modal_examples_tpu_torch.core import app as papp
+from modal_examples_tpu_torch.core import executor as pexecutor
 from modal_examples_tpu_torch.core.executor import FunctionTimeoutError as PTimeout
 from modal_examples_tpu_torch.core.serialization import RemoteError as PRemoteError
 from modal_examples_tpu_torch.observability import catalog as PC
 from modal_examples_tpu_torch.observability.journal import default_journal as pjournal
 from modal_examples_tpu_torch.utils.prometheus import default_registry as preg
+from test_torch_time_limit import share_cores, time_limits
+
+share_cores()
+
+#: every test here drives containers (at most ~5 s alone, teardown included):
+#: a test has 60 s, the module's app contexts 120 s to open or close
+_limit_module, _limit_test = time_limits(test_s=60, module_s=120)
 
 PROGRAM = '''
 import os
@@ -120,6 +128,14 @@ def slow_echo(x):
 
 
 @app.function(timeout=30)
+def with_user_span(x: int) -> int:
+    from @PKG@.observability import span
+
+    with span("user-phase", tag="inner"):
+        return x + 1
+
+
+@app.function(timeout=30)
 def whoami() -> str:
     return os.environ.get("MTPU_TASK_ID", "")
 
@@ -135,7 +151,9 @@ def slow_id(x):
     return x
 
 
-@app.function(timeout=30, scaledown_window=0.4)
+# the window outlasts a boot under load: the reference's reaper counts a
+# booting container as idle, and one reaped before it connects hangs its call
+@app.function(timeout=30, scaledown_window=5.0)
 def ping() -> str:
     return "pong"
 
@@ -155,6 +173,33 @@ class CrashAtBoot:
     @mtpu.enter()
     def setup(self):
         os._exit(3)  # the container dies before it is ready, every boot
+
+    @mtpu.method()
+    def f(self):
+        return 1
+
+
+@app.function(timeout=30)
+def never_started() -> int:
+    return 1
+
+
+@app.cls(timeout=30, scaledown_window=0.2)
+class SlowBoot:
+    @mtpu.enter()
+    def setup(self):
+        time.sleep(1.0)  # a boot five times the scaledown window
+
+    @mtpu.method()
+    def f(self):
+        return 1
+
+
+@app.cls(timeout=30)
+class HangsAtBoot:
+    @mtpu.enter()
+    def setup(self):
+        time.sleep(3600)  # the container never becomes ready
 
     @mtpu.method()
     def f(self):
@@ -352,6 +397,26 @@ class TestFaultTolerance:
         assert same(both, lambda m: m.sleeper.remote(0.01)) == "done"
 
 
+class TestTraces:
+    def test_user_spans_ship_back_from_the_container(self, both):
+        """``span`` inside a remote function nests under the call's execute
+        span and ships back with it, in both packages."""
+        from modal_examples_tpu.observability.trace import default_store as jstore
+        from modal_examples_tpu_torch.observability.trace import default_store as pstore
+
+        shapes = []
+        for m, store in zip(both, (jstore, pstore)):
+            call = m.with_user_span.spawn(1)
+            assert call.get(timeout=30) == 2 and call.call_id.startswith("in-")
+            spans = store.read(call.call_id)
+            by_id = {sp["span_id"]: sp for sp in spans}
+            user = [sp for sp in spans if sp["name"] == "user-phase"]
+            assert len(user) == 1 and user[0]["attrs"] == {"tag": "inner"}
+            assert by_id[user[0]["parent_id"]]["name"] == "execute"
+            shapes.append(sorted((sp["name"], by_id.get(sp["parent_id"], {}).get("name")) for sp in spans))
+        assert shapes[0] == shapes[1]
+
+
 class TestContainers:
     def test_single_use_containers_fresh_each_input(self, both):
         for m in both:
@@ -360,6 +425,36 @@ class TestContainers:
     def test_inline_backend_runs_in_the_caller(self, both, monkeypatch):
         monkeypatch.setenv("MTPU_BACKEND", "inline")  # read when the pool is made
         assert same(both, lambda m: m.where.remote()) == "the caller"
+
+    def test_a_boot_that_hangs_fails_its_call_within_the_boot_timeout(self, both, monkeypatch):
+        """The port's bound on a container's boot (``BOOT_TIMEOUT_S``): the
+        reference waits for a hung boot without end."""
+        monkeypatch.setattr(pexecutor, "BOOT_TIMEOUT_S", 3.0)  # read when the container is made
+        t0 = time.monotonic()
+        err = raised(lambda m: m.HangsAtBoot().f.remote(), both[1])
+        assert isinstance(err, TimeoutError) and "did not boot within 3 s" in str(err), err
+        assert time.monotonic() - t0 < 30
+        decisions = [r for r in pjournal.tail(50) if r.get("trigger") == "boot_timeout"]
+        assert decisions and decisions[-1]["action"] == "kill"
+
+    def test_a_container_that_dies_before_it_connects_fails_its_call(self, both, monkeypatch):
+        """The interpreter exits before the worker connects (``false`` in its
+        place): each death is seen (the supervisor's blocked accept is
+        woken) and the third fails the call as a crash loop. The reference
+        waits for the first such container without end."""
+        import shutil
+        import sys
+
+        monkeypatch.setattr(sys, "executable", shutil.which("false"))
+        t0 = time.monotonic()
+        err = raised(lambda m: m.never_started.remote(), both[1])
+        assert isinstance(err, RuntimeError) and "crash-looping at boot" in str(err), err
+        assert time.monotonic() - t0 < 30
+
+    def test_a_boot_slower_than_the_scaledown_window_is_not_reaped(self, both):
+        """A container is idle only once it can serve: the reference reaps a
+        booting one, and a boot slower than the window never serves."""
+        assert both[1].SlowBoot().f.remote() == 1
 
     def test_crash_loop_breaker(self, both):
         j, p = (raised(lambda m: m.CrashAtBoot().f.remote(), m) for m in both)
@@ -500,7 +595,7 @@ class TestAutoscalerJournal:
             assert m.ping.remote() == "pong"
             kinds, recs = self._kinds(journal, m.ping.spec.tag, wait_for=("scale_down", "idle"))
             down = [r for r in recs if r["action"] == "scale_down"][0]
-            assert down["idle_ages_s"][0] >= 0.4 and down["scaledown_window_s"] == pytest.approx(0.4)
+            assert down["idle_ages_s"][0] >= 5.0 and down["scaledown_window_s"] == pytest.approx(5.0)
             out.append(kinds)
         assert out[0] == out[1] == [("scale_down", "idle"), ("scale_up", "queue_pressure")]
 

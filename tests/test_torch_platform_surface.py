@@ -2,8 +2,8 @@
 volumes, secrets, schedules and deploy/lookup held against the reference
 (mirrors ``tests/test_primitives.py`` and ``tests/test_deploy.py``), and the
 port's own parts: the ``gpu=`` grammar, ``tpu=`` refused, containers without
-a card, a ``gpu=`` boot on a card-less host, the gateway's 501 routes, the
-CLI, and callables by reference with ``cloudpickle`` hidden. Tests marked
+a card, a ``gpu=`` boot on a card-less host, the gateway's routes (501 for
+the fleet's), the CLI, and callables by reference with ``cloudpickle`` hidden. Tests marked
 ``gpu`` run a ``gpu="H100"`` function on the card and skip elsewhere.
 """
 
@@ -32,7 +32,14 @@ from modal_examples_tpu_torch.core.resources import (
     select_gpu_spec,
 )
 
+from test_torch_time_limit import assert_no_workers, read_line, share_cores, stop_child, time_limits
+
+share_cores()
+
 ROOT = Path(__file__).resolve().parent.parent
+#: tests here spawn containers, CLI children and ``serve`` (at most ~4 s
+#: alone): a test has 60 s, the module's app contexts 120 s
+_limit_module, _limit_test = time_limits(test_s=60, module_s=120)
 H100 = "NVIDIA H100 80GB HBM3"
 
 
@@ -232,13 +239,22 @@ class TestOptions:
 
         assert f.spec.container_config().env["MTPU_GPU_SPEC"] == "H100:2,ANY:1"
 
-    def test_waiting_pieces_name_their_roadmap_items(self):
+    def test_waiting_pieces_name_their_roadmap_items(self, tmp_path):
+        from modal_examples_tpu_torch.core.cli import WAITING_COMMANDS
+        from modal_examples_tpu_torch.web.gateway import WAITING_ROUTES
+
         with pytest.raises(NotImplementedError, match="A13"):
             pm.websocket_endpoint()
         with pytest.raises(NotImplementedError, match="A13"):
             pm.Image.debian_slim().export_oci("/nonexistent")
         out = run_cli("modal_examples_tpu_torch", "chaos")
         assert out.returncode != 0 and "A9" in out.stderr
+        # what still waits is A8's, A9's and A13's; the observability
+        # subcommands (A6) are served
+        assert {v.split()[0] for v in WAITING_COMMANDS.values()} == {"A8", "A9", "A13"}
+        assert all("(ROADMAP A9)" in v for v in WAITING_ROUTES.values())
+        out = run_cli("modal_examples_tpu_torch", "alerts", env={"MTPU_STATE_DIR": str(tmp_path / "state")})
+        assert out.returncode == 0 and "kv_pressure" in out.stdout, out.stderr
 
 
 # -- containers -----------------------------------------------------------------
@@ -297,6 +313,7 @@ def test_run_cli_on_a_file(containers_app, tmp_path):
                   env={"MTPU_STATE_DIR": str(tmp_path / "state")})
     assert out.returncode == 0, out.stderr
     assert "RESULT  5" in out.stdout  # the container's CUDA_VISIBLE_DEVICES is ""
+    assert_no_workers(env_marker=f"MTPU_STATE_DIR={tmp_path / 'state'}")
 
 
 # -- deploy ---------------------------------------------------------------------
@@ -346,9 +363,16 @@ def get(url):
         return e.code, e.read().decode()
 
 
-def test_gateway_serves_what_the_port_has_and_501_for_the_rest():
+def test_gateway_serves_what_the_port_has_and_501_for_the_rest(monkeypatch):
     from modal_examples_tpu_torch.web.gateway import BUILTIN_ROUTES, WAITING_ROUTES, Gateway
 
+    # generous SLO targets: the process registry may carry other tests'
+    # deliberate failures, and /healthz answers 503 on a violated target
+    for var in ("MTPU_SLO_TTFT_P95_S", "MTPU_SLO_TPOT_P95_S", "MTPU_SLO_CALL_P95_S"):
+        monkeypatch.setenv(var, "1000000")
+    for var in ("MTPU_SLO_ERROR_RATE", "MTPU_SLO_RETRY_RATE", "MTPU_SLO_DEADLINE_MISS_RATE"):
+        monkeypatch.setenv(var, "1.0")
+    assert set(WAITING_ROUTES) == {"health", "fleet", "disagg", "chaos", "prefixstore"}
     app = pm.App("gateway-routes")
 
     @app.function()
@@ -363,8 +387,7 @@ def test_gateway_serves_what_the_port_has_and_501_for_the_rest():
             for label in BUILTIN_ROUTES:
                 status, body = get(f"{gw.base_url}/{label}")
                 if label in WAITING_ROUTES:
-                    item = "A6" if label in ("healthz", "alerts", "incidents", "canary") else "A9"
-                    assert status == 501 and item in json.loads(body)["error"], label
+                    assert status == 501 and "A9" in json.loads(body)["error"], label
                 else:
                     assert status == 200, label
             status, body = get(f"{gw.base_url}/")
@@ -474,18 +497,23 @@ def echo(text: str = ""):
 def test_serve_cli_hosts_the_endpoints(tmp_path):
     path = tmp_path / "served_app.py"
     path.write_text(SERVED)
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "modal_examples_tpu_torch", "serve", str(path), "--timeout", "60"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env={**os.environ, "PYTHONPATH": str(ROOT), "MTPU_STATE_DIR": str(tmp_path / "state")},
-    )
+    state = tmp_path / "state"
+    # stderr to a file: a pipe nobody drains would block the child once full
+    with open(tmp_path / "serve.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "modal_examples_tpu_torch", "serve", str(path), "--timeout", "60"],
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT), "MTPU_STATE_DIR": str(state)},
+        )
     try:
-        line = proc.stdout.readline().strip()
-        assert line.startswith("serving: http://127.0.0.1:") and line.endswith("/echo"), line
+        line = read_line(proc.stdout, 40).strip()
+        assert line.startswith("serving: http://127.0.0.1:") and line.endswith("/echo"), (
+            line, (tmp_path / "serve.err").read_text()[-2000:])
         assert request(line[len("serving: "):] + "?text=hi")[::2] == (200, json.dumps({"echo": "hi"}))
     finally:
-        proc.terminate()
-        proc.wait(timeout=30)
+        stop_child(proc)
+    assert proc.returncode is not None
+    assert_no_workers(env_marker=f"MTPU_STATE_DIR={state}")
 
 
 def test_app_and_secret_cli(tmp_path):

@@ -25,6 +25,9 @@ from modal_examples_tpu.serving.engine import LLMEngine as JaxEngine
 from modal_examples_tpu.serving.sampling import SamplingParams as JaxParams
 from modal_examples_tpu_torch import LLMEngine, SamplingParams
 from modal_examples_tpu_torch.models import llama as tllama
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 PACKAGES = {"jax": types.SimpleNamespace(kv=jkv, pc=jpc), "torch": types.SimpleNamespace(kv=tkv, pc=tpc)}
 

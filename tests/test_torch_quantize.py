@@ -28,6 +28,9 @@ from modal_examples_tpu_torch.models import layers as tlayers
 from modal_examples_tpu_torch.models import llama as tllama
 from modal_examples_tpu_torch.models import quantize as tquant
 from modal_examples_tpu_torch.ops import quantized_matmul as tqmm
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 # the JAX package's ops/__init__ re-exports functions under their modules' names
 jqmm = importlib.import_module("modal_examples_tpu.ops.quantized_matmul")
@@ -160,12 +163,17 @@ def test_mm_over_quantized_weight_matches_jax():
 
 
 def test_quantized_mm_is_forward_only():
+    """Named for the product before the int8 LoRA base landed: ``mm`` over a
+    ``QuantizedWeight`` now takes a gradient in x (``dX = (dY * scale) @
+    q^T``; ``tests/test_torch_lora_int8.py`` holds it against JAX) and its
+    forward is the same with or without one."""
     tw = tquant.quantize_weight(torch.from_numpy(_weight(6, (32, 16))))
     x = torch.randn(3, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A2"):
-        tlayers.mm(x, tw)
+    y = tlayers.mm(x, tw)
+    y.sum().backward()
+    np.testing.assert_array_equal(x.grad.numpy(), (torch.ones(3, 16) * tw.scale).float() @ tw.q.float().T)
     with torch.no_grad():
-        assert tlayers.mm(x, tw).shape == (3, 16)
+        assert torch.equal(tlayers.mm(x, tw), y.detach()) and y.shape == (3, 16)
 
 
 def test_int4_and_unknown_modes_raise():
@@ -209,3 +217,26 @@ def test_quantized_matmul_kernel_matches_plain_on_card(M, K, N):
     assert tqmm.qmm_launches == before + 1
     assert ((out - want).abs().max() / want.abs().max()).item() < 1e-3
     assert torch.equal(out, tqmm.qmm_cuda(x, qw.q, qw.scale))
+
+
+@pytest.mark.gpu
+def test_int8_mm_backward_on_card():
+    """The int8 LoRA base's product on the card: the forward is one K7
+    launch, within 1e-3 of the plain version's largest value, and the
+    backward is the closed form ``(dY * scale) @ q^T`` in bf16 within 1e-2
+    (``chip_smoke.py`` phase 12 runs it at 7B; ``test_torch_lora_int8.py``
+    holds it against JAX on the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = tquant.quantize_weight(torch.randn(512, 384, generator=g, device="cuda"))
+    x = torch.randn(64, 512, generator=g, device="cuda").bfloat16().requires_grad_(True)
+    before = tqmm.qmm_launches
+    y = tlayers.mm(x, w)
+    assert tqmm.qmm_launches == before + 1
+    want = tqmm.qmm_plain(x.detach(), w.q, w.scale)
+    assert ((y.detach() - want).abs().max() / want.abs().max()).item() < 1e-3
+    dy = torch.randn(64, 384, generator=g, device="cuda")
+    y.backward(dy)
+    ref = (dy * w.scale).bfloat16() @ w.q.bfloat16().T
+    assert ((x.grad.float() - ref.float()).abs().max() / ref.float().abs().max()).item() < 1e-2

@@ -12,6 +12,9 @@ import jax.numpy as jnp
 
 from modal_examples_tpu.serving import sampling as js
 from modal_examples_tpu_torch.serving import sampling as ts
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 
 def test_jax_derivation_is_the_partitionable_one():

@@ -32,6 +32,9 @@ from modal_examples_tpu.ops import kv_quant as jkv
 from modal_examples_tpu_torch.ops import _build
 from modal_examples_tpu_torch.ops import kv_quant as tkv
 from modal_examples_tpu_torch.ops import paged_attention as tpa
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 # the JAX package's ops/__init__ re-exports functions under their modules' names
 jpa = importlib.import_module("modal_examples_tpu.ops.paged_attention")

@@ -30,6 +30,9 @@ from modal_examples_tpu.serving.openai_api import OpenAIServer as JaxServer
 from modal_examples_tpu.serving.sampling import SamplingParams as JaxParams
 from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams
 from modal_examples_tpu_torch.models import llama as tllama
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 PACKAGES = {
     "jax": types.SimpleNamespace(pol=jpol, adm=jadm),

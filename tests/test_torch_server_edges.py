@@ -37,6 +37,9 @@ from modal_examples_tpu_torch import LLMEngine, OpenAIServer
 from modal_examples_tpu_torch.models import llama as tllama
 from modal_examples_tpu_torch.serving import engine as tengine
 from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 ENGINE_KW = dict(max_slots=4, max_model_len=128, page_size=16, prefill_buckets=(16, 32), kv_dtype="float32",
                  decode_block=4, seed=0)

@@ -43,6 +43,9 @@ from modal_examples_tpu_torch.models import llama as tllama
 from modal_examples_tpu_torch.observability import catalog as C
 from modal_examples_tpu_torch.utils.prometheus import default_registry
 from modal_examples_tpu_torch.utils.safetensors import save_file
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 ENGINE_KW = dict(max_slots=4, max_model_len=96, page_size=8, prefill_buckets=(16, 32), decode_block=4, seed=0)
 #: prompt lengths 24 (a repeated phrase), 41 (chunked), 20, 27 (repeated), 71

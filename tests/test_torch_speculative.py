@@ -56,6 +56,9 @@ from modal_examples_tpu_torch.serving import speculative as tspec
 from modal_examples_tpu_torch.serving.engine import _NgramIndex
 from modal_examples_tpu_torch.serving.spec_runtime import controller as tctrl
 from modal_examples_tpu_torch.serving.spec_runtime import runtime as trt
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 # the JAX package's ops/__init__ re-exports functions under their modules' names
 jref = importlib.import_module("modal_examples_tpu.ops.reference")

@@ -25,6 +25,9 @@ from modal_examples_tpu.serving.sampling import SamplingParams as JaxParams
 from modal_examples_tpu.utils.prometheus import default_registry
 from modal_examples_tpu_torch import LLMEngine, SamplingParams
 from modal_examples_tpu_torch.models import llama as tllama
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 ENGINE_KW = dict(max_slots=4, max_model_len=256, page_size=16, prefill_buckets=(16, 32), kv_dtype="float32",
                  decode_block=4)

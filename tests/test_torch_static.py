@@ -14,6 +14,9 @@ import ast
 from pathlib import Path
 
 import pytest
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "modal_examples_tpu_torch"

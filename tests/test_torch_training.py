@@ -38,6 +38,9 @@ from modal_examples_tpu_torch.training import CheckpointManager, Trainer, cross_
 from modal_examples_tpu_torch.training import trainer as ttrainer
 from modal_examples_tpu_torch.training.resilience import device_health, run_resilient
 from modal_examples_tpu_torch.utils.tracking import RunLogger
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 B, S = 2, 32
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)

@@ -30,6 +30,9 @@ from modal_examples_tpu_torch.models import whisper as twhisper
 from modal_examples_tpu_torch.serving import streaming_asr as tstream
 from modal_examples_tpu_torch.utils import audio as taudio
 from modal_examples_tpu_torch.utils import metrics as tmetrics
+from test_torch_time_limit import share_cores
+
+share_cores()
 
 BOS, EOS = 0, 1
 
