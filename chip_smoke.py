@@ -12,7 +12,9 @@ correctness canary with a planted drift), LoRA-fine-tunes the same model
 through ``Trainer`` and then an int8 base of it, serves Mixtral-8x7B (bf16
 at depth 8, int8 at full depth through the OpenAI server), runs the
 serverless surface on the card (functions, a Cls and Llama-2-7B behind
-``@app.server`` in spawned GPU containers, and the CLI), and prints
+``@app.server`` in spawned GPU containers, and the CLI), then the rest of the
+platform layer (a snapshot-restored engine, a resumable LoRA fine-tune,
+streaming ASR over a websocket, a sandbox, an OCI export), and prints
 per-kernel times beside their bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
@@ -244,6 +246,37 @@ Phases (any failure exits non-zero and prints no result):
    probe request, which ``/incidents`` then lists; the fingerprint names
    ``cuda`` and this card; the probes' TTFT and e2e logged. Its launches
    join the kernels line.
+14. the platform layer's rest (after phase 11, in the same spawned-container
+   setup; app files under ``build/``). (14a) ``@app.cls(gpu="H100",
+   enable_memory_snapshot=True)``: its ``@enter(snap=True)`` draws
+   Llama-2-7B-width weights at depth 4 on the card from phase 3's seed
+   (2.1 GB of bf16), its ``@enter()`` loads the kernel libraries and builds
+   the engine; three boots, each a fresh container: a miss that captures, a
+   hit that runs no snap hook (counted inside the container through a
+   ``Dict``), and a fallback after one byte of the payload is flipped; each
+   serves phase 3's first 4 prompts greedy with K1, K2 and K3 counted above
+   0, every boot's rows equal to the first's; logged: the entry's bytes,
+   capture and restore seconds and GB/s, and each boot's split (spawn,
+   interpreter, ``import torch``, the app file, the kernel libraries, the
+   snap hooks or the restore, the other hooks). (14b) a LoRA fine-tune in
+   ``@app.function(gpu="H100")`` (Llama-2-7B bf16, full depth, rank 16 on
+   all seven projections, B=2 x S=512), checkpoints on a ``Volume``:
+   attempt 1 trains 2 steps, saves, commits and raises; the retry (a fresh
+   container) reloads, resumes at step 2 with the adapters attempt 1 saved
+   (bitwise) and trains steps 3-4; its losses equal an uninterrupted 4-step
+   run's (bitwise when phase 2 found the flash backward kernels bitwise
+   from launch to launch, else 1e-3 relative); K1, K5 and K6 n_layers times
+   a step in each container; progress through a ``Dict``; logged: the step
+   median, the checkpoint's bytes and its write-plus-commit seconds. (14c)
+   the gateway's ``@websocket_endpoint`` streaming whisper-base on the card
+   (phase 9's weights): 8 s of seeded audio in 0.5 s float32 chunks, then
+   "end"; the final transcript equal to an in-process
+   ``StreamingTranscriber``'s over the same chunks, committed text never
+   retracted; the first partial's latency logged. (14d) a ``Sandbox`` exec
+   (``nvidia-smi`` names the card, an exit code, an exec timeout) and
+   ``Image.cuda_base().add_local_file(...).export_oci(...)`` with every
+   digest checked. The containers' launches join the kernels line, marked
+   ``container_launches``.
 """
 
 from __future__ import annotations
@@ -801,8 +834,10 @@ def rel_err(a, b) -> float:
     return max_err(a, b) / b.float().abs().max().item()
 
 
-def phase_backward_vs_plain(fa, errs: dict) -> None:
-    """dQ and dK/dV kernels against flash_backward_plain on the same inputs."""
+def phase_backward_vs_plain(fa, errs: dict) -> bool:
+    """dQ and dK/dV kernels against flash_backward_plain on the same inputs,
+    each launched twice. Returns whether every second launch equalled the
+    first, bitwise (phase 14b's loss tolerance follows from it)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = [  # (B, Hq, Hkv, S, causal, nonzero dlse, D)
         (2, 32, 32, 512, True, False, 128),   # the training path's shape (MHA)
@@ -815,11 +850,15 @@ def phase_backward_vs_plain(fa, errs: dict) -> None:
         (2, 4, 2, 200, True, False, 256),
         (2, 4, 2, 200, False, True, 256),
     ]
+    bitwise = True
     for B, Hq, Hkv, S, causal, nz, D in cases:
         args, o = bwd_case(fa, gen, B, Hq, Hkv, S, causal, nz, D)
         dq = fa.flash_bwd_dq_cuda(*args, causal=causal, sm_scale=D**-0.5)
         dk, dv = fa.flash_bwd_dkv_cuda(*args, causal=causal, sm_scale=D**-0.5)
+        again = (fa.flash_bwd_dq_cuda(*args, causal=causal, sm_scale=D**-0.5),
+                 *fa.flash_bwd_dkv_cuda(*args, causal=causal, sm_scale=D**-0.5))
         torch.cuda.synchronize()
+        bitwise = bitwise and all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
         q, k, v, do, lse, _, dlse = args
         want = fa.flash_backward_plain(q, k, v, o, lse, do, dlse, causal=causal, sm_scale=D**-0.5)
         rel = [rel_err(g, w) for g, w in zip((dq, dk, dv), want)]
@@ -829,6 +868,8 @@ def phase_backward_vs_plain(fa, errs: dict) -> None:
             raise AssertionError(f"flash backward kernels disagree with flash_backward_plain: {rel}")
         errs["flash_bwd_dq"] = max(errs.get("flash_bwd_dq", 0.0), max_err(dq, want[0]))
         errs["flash_bwd_dkv"] = max(errs.get("flash_bwd_dkv", 0.0), max_err(dk, want[1]), max_err(dv, want[2]))
+    log(f"K5/K6 flash bwd: second launches bitwise equal to the first in every case: {bitwise}")
+    return bitwise
 
 
 def phase_int8_kernels_vs_plain(pa, errs: dict) -> None:
@@ -3159,6 +3200,496 @@ def phase_serverless(SamplingParams, direct: list, decode) -> dict:
     return out
 
 
+# -- phase 14 ---------------------------------------------------------------------
+
+#: 14a: Llama-2-7B width at this depth in the snapshot-enabled class (2.1 GB
+#: of bf16 weights: embedding and head, 2 x 262 MB, and 4 x 404 MB of layers)
+SNAP_DEPTH = 4
+#: 14a: phase 3's first prompts, served greedy on each boot
+SNAP_PROMPTS = 4
+#: 14b: the fine-tune's steps before the interruption, and in all
+LORA_FAIL_AFTER, LORA_STEPS = 2, 4
+#: 14b: relative loss tolerance when phase 2 finds the flash backward
+#: kernels not bitwise from launch to launch
+LORA_LOSS_RTOL = 1e-3
+#: 14c: seconds of seeded audio, sent in chunks of this many seconds
+ASR_AUDIO_S, ASR_CHUNK_S = 8.0, 0.5
+
+APP_SNAPSHOT = '''
+"""chip_smoke.py phase 14a: a snapshot-enabled GPU class. Its snap hook draws
+Llama-2-7B-width weights at depth @DEPTH@ on the card from phase 3's seed; its
+other hook loads the kernel libraries and builds the engine."""
+import dataclasses
+import os
+import time
+
+import torch
+
+import modal_examples_tpu_torch as mtpu
+
+app = mtpu.App("smoke-snapshot")
+PROGRESS = @PROGRESS@
+
+
+@app.cls(gpu="H100", enable_memory_snapshot=True, max_containers=1, timeout=900)
+class Engine:
+    @mtpu.enter(snap=True)
+    def load(self):
+        from modal_examples_tpu_torch.models import llama
+
+        runs = mtpu.Dict.from_name(PROGRESS)
+        runs["snap_hook_runs"] = runs.get("snap_hook_runs", 0) + 1  # counted from inside the container
+        self.cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=@DEPTH@)
+        self.params = llama.init_params(self.cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+
+    @mtpu.enter()
+    def start(self):
+        from modal_examples_tpu_torch import LLMEngine, SamplingParams
+        from modal_examples_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
+        for name in _build.kernel_names():
+            _build.load(name)
+        self.kernels_s = time.perf_counter() - t0
+        self.engine = LLMEngine(self.cfg, self.params, max_slots=8, max_model_len=1024,
+                                prefill_buckets=(128, 256, 512), prefill_batch=4, decode_block=8, seed=0,
+                                device="cuda")
+        self.engine.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+
+    @mtpu.method()
+    def generate(self, prompts: list, max_tokens: list) -> dict:
+        """The prompts greedy, submitted back to back; K1, K2 and K3 counted
+        from 0 around the burst."""
+        from modal_examples_tpu_torch import SamplingParams
+        from modal_examples_tpu_torch.core.executor import boot_info
+        from modal_examples_tpu_torch.ops import _build
+        from modal_examples_tpu_torch.ops import flash_attention as fa
+        from modal_examples_tpu_torch.ops import paged_attention as pa
+
+        fa.launches = pa.decode_launches = pa.scatter_launches = 0
+        reqs = [self.engine.make_request(p, SamplingParams(max_tokens=n, temperature=0.0))
+                for p, n in zip(prompts, max_tokens)]
+        for r in reqs:
+            self.engine.submit_request(r)
+        for r in reqs:
+            "".join(self.engine.stream(r))
+        return {"rows": [(list(r.generated_tokens), r.finish_reason) for r in reqs],
+                "launches": {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches,
+                             "kv_scatter": pa.scatter_launches},
+                "boot": boot_info(), "kernels_s": self.kernels_s, "compiled": list(_build.compiled),
+                "snap_hook_runs": mtpu.Dict.from_name(PROGRESS).get("snap_hook_runs", 0),
+                "card": torch.cuda.get_device_name(0), "pid": os.getpid()}
+'''
+
+APP_LORA = '''
+"""A resumable LoRA fine-tune through the platform layer, after the JAX
+package's examples/06_gpu_and_ml/llm-finetuning/lora_finetune.py: adapters
+on all seven projections, checkpoints on a Volume (reloaded before the scan
+for checkpoints, committed after each save), a retry in a fresh container
+that resumes from the latest step, progress through a Dict. Written by
+chip_smoke.py (phase 14b: Llama-2-7B on the card) and by
+tests/test_torch_lora_resume.py (the example's tiny f32 config on the CPU)."""
+import hashlib
+import time
+
+import torch
+
+import modal_examples_tpu_torch as mtpu
+
+SETUP = @SETUP@
+
+app = mtpu.App("lora-resume")
+ckpt_vol = mtpu.Volume.from_name(SETUP["volume"], create_if_missing=True)
+
+
+def config():
+    from modal_examples_tpu_torch.models import llama
+
+    if SETUP["config"] == "llama2_7b":
+        return llama.LlamaConfig.llama2_7b()
+    return llama.LlamaConfig(**SETUP["config"])
+
+
+def digest(tree) -> str:
+    """sha256 over the bytes of every tensor of ``tree``, in its order."""
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    h = hashlib.sha256()
+    for t in tree_util.leaves(tree):
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@app.function(gpu=SETUP["gpu"], volumes={SETUP["mount"]: ckpt_vol}, timeout=900,
+              retries=mtpu.Retries(initial_delay=0.0, max_retries=1), single_use_containers=True)
+def finetune(run: str, max_steps: int, fail_after: int = 0) -> dict:
+    """Train ``run`` to ``max_steps``, from its latest checkpoint if it has
+    one. A run started from scratch with ``fail_after`` saves and commits
+    at that step, then raises (the retry resumes there)."""
+    from modal_examples_tpu_torch.models import llama, lora
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.training import (CheckpointManager, Trainer, TrainState, cross_entropy_loss,
+                                                   make_optimizer)
+
+    device = SETUP["device"]
+    if SETUP.get("threads"):  # the CPU's GEMMs, summed in one order from process to process
+        torch.set_num_threads(SETUP["threads"])
+    progress = mtpu.Dict.from_name(SETUP["progress"])
+    cfg = config()
+    base = llama.init_params(cfg, seed=0, device=device)
+    lcfg = lora.LoRAConfig(rank=SETUP["rank"])
+    adapters = lora.init_lora(torch.Generator(device=device).manual_seed(0), base, lcfg)
+    B, S = SETUP["batch"]
+
+    def batch_at(step: int) -> dict:
+        gen = torch.Generator(device=device).manual_seed(1 + step)
+        return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device),
+                "mask": torch.ones((B, S), device=device)}
+
+    def loss_fn(ad, batch):
+        logits = llama.forward(base, batch["tokens"], cfg, attn_impl="flash", lora=ad, lora_scale=lcfg.scale)
+        return cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
+
+    trainer = Trainer(loss_fn, make_optimizer(SETUP["lr"]))
+    state = trainer.init_state(adapters)
+    # reload first: a retry's fresh container must see the dead attempt's
+    # commits before it scans for checkpoints
+    ckpt_vol.reload()
+    ckpts = CheckpointManager(f"{SETUP['mount']}/{run}", keep_n=2, volume=ckpt_vol)
+    start, loaded = 0, None
+    if ckpts.latest_step() is not None:
+        start = ckpts.latest_step()
+        restored = ckpts.restore({"adapters": state.params, "opt": state.opt_state})
+        state = TrainState(params=restored["adapters"], opt_state=restored["opt"], step=start)
+        loaded = digest(state.params)
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    losses, step_s = {}, []
+    for step in range(start, max_steps):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch_at(step))
+        losses[step + 1] = m["loss"].item()  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        progress[f"{run}/step"] = step + 1
+        if step + 1 == fail_after and start == 0:
+            t0 = time.perf_counter()
+            path = ckpts.save(step + 1, {"adapters": state.params, "opt": state.opt_state})
+            progress[f"{run}/interrupted"] = {
+                "step": step + 1, "digest": digest(state.params), "losses": losses, "step_s": step_s,
+                "save_s": time.perf_counter() - t0, "bytes": sum(p.stat().st_size for p in path.rglob("*")),
+                "launches": {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                             "flash_bwd_dkv": fa.dkv_launches}}
+            raise RuntimeError(f"interrupted after the step {step + 1} checkpoint")
+    ckpts.save(max_steps, {"adapters": state.params, "opt": state.opt_state})
+    return {"resumed_from": start, "loaded_digest": loaded, "final_digest": digest(state.params),
+            "losses": losses, "step_s": step_s,
+            "launches": {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches}}
+'''
+
+APP_ASR = '''
+"""chip_smoke.py phase 14c: streaming ASR over a websocket. The handler runs
+in the gateway's process, on the whisper-base weights the caller puts in
+MODEL; binary frames are float32 PCM, the text frame "end" flushes."""
+import numpy as np
+
+import modal_examples_tpu_torch as mtpu
+from modal_examples_tpu_torch.serving.streaming_asr import StreamingTranscriber
+from modal_examples_tpu_torch.web.websocket import ConnectionClosed
+
+app = mtpu.App("smoke-asr")
+MODEL = {}
+
+
+@app.function()
+@mtpu.websocket_endpoint()
+def transcribe_ws(ws):
+    t = StreamingTranscriber(MODEL["params"], MODEL["cfg"], bos_id=0, eos_id=1)
+    try:
+        while True:
+            kind, payload = ws.receive()
+            if kind == "text" and payload == b"end":
+                ws.send_json({"type": "final", "text": t.flush().committed_text})
+                return
+            res = t.feed(np.frombuffer(payload, np.float32))
+            if res is not None:
+                ws.send_json({"type": "partial", "committed": res.committed_text, "pending": res.partial_text})
+    except ConnectionClosed:
+        pass
+'''
+
+
+def boot_split(boot: dict, t_submit: float, t_first: float, kernels_s: float) -> dict:
+    """A container's boot, from the supervisor's spawn to its first result:
+    spawn, interpreter, ``import torch``, the app file, the kernel libraries
+    loaded, snap hooks or restore (and capture), the other hooks."""
+    s = boot["boot_s"]
+    out = {k: s[k] for k in ("spawn", "interpreter", "handshake", "import_torch", "app_file") if k in s}
+    for k in ("snap_hooks", "restore", "capture"):
+        if k in s:
+            out[k] = s[k]
+    out["kernel_libraries"] = kernels_s
+    out["other_enter_hooks"] = s.get("enter_hooks", 0.0) - kernels_s
+    out["to_first_result"] = t_first - t_submit
+    return out
+
+
+def phase14_snapshot(load_module_from_path, path: Path, snap_dir: Path, SamplingParams) -> dict:
+    """14a: three boots of a snapshot-enabled class, each in a fresh
+    container: a miss that captures, a hit that runs no snap hook, a fallback
+    after a corrupted payload; the same greedy rows each time."""
+    import modal_examples_tpu_torch as mtpu
+    from modal_examples_tpu_torch.snapshot.store import SnapshotStore
+
+    mod = load_module_from_path(str(path))
+    reqs = make_requests(SamplingParams)[:SNAP_PROMPTS]
+    prompts, max_tokens = [p for p, _ in reqs], [sp.max_tokens for _, sp in reqs]
+    progress = mtpu.Dict.from_name(mod.PROGRESS)
+    store = SnapshotStore(root=snap_dir)
+    boots = {}
+    for name in ("miss", "hit", "fallback"):
+        if name == "fallback":  # one byte of the payload flipped
+            [entry] = store.entries()
+            with open(store._state_path(entry["key"]), "r+b") as f:
+                f.seek(entry["size_bytes"] // 2)
+                b = f.read(1)
+                f.seek(-1, 1)
+                f.write(bytes([b[0] ^ 0xFF]))
+        runs_before = progress.get("snap_hook_runs", 0)
+        with mod.app.run():
+            t0 = time.time()
+            r = mod.Engine().generate.remote(prompts, max_tokens)
+            t1 = time.time()
+        boot = r["boot"]
+        if boot.get("snapshot") != name or r["compiled"]:
+            raise AssertionError(f"14a {name} boot: snapshot {boot.get('snapshot')}, compiled {r['compiled']}")
+        ran = progress.get("snap_hook_runs", 0) - runs_before
+        if ran != (0 if name == "hit" else 1) or r["snap_hook_runs"] != progress.get("snap_hook_runs", 0):
+            raise AssertionError(f"14a {name} boot: the snap hook ran {ran} times in the container")
+        if min(r["launches"].values()) <= 0:
+            raise AssertionError(f"14a {name} boot: launches {r['launches']}")
+        [entry] = store.entries()
+        boots[name] = {"split_s": boot_split(boot, t0, t1, r["kernels_s"]), "launches": r["launches"],
+                       "captured": boot.get("captured"), "rows": r["rows"], "entry_bytes": entry["size_bytes"],
+                       "card": r["card"]}
+    for name in ("hit", "fallback"):
+        if boots[name]["rows"] != boots["miss"]["rows"]:
+            raise AssertionError(f"14a: the {name} boot's greedy rows differ from the miss boot's")
+    if not (boots["miss"]["captured"] and boots["fallback"]["captured"] and not boots["hit"]["captured"]):
+        raise AssertionError(f"14a: captured {[(k, b['captured']) for k, b in boots.items()]}")
+    nbytes = boots["miss"]["entry_bytes"]
+    out = {"entry_bytes": nbytes, "card": boots["miss"]["card"],
+           "capture_s": boots["miss"]["split_s"]["capture"], "restore_s": boots["hit"]["split_s"]["restore"],
+           "split_s": {k: b["split_s"] for k, b in boots.items()},
+           "launches": {k: sum(b["launches"][k] for b in boots.values()) for k in boots["miss"]["launches"]},
+           "rows_equal": True}
+    out["capture_gb_per_s"] = nbytes / 1e9 / out["capture_s"]
+    out["restore_gb_per_s"] = nbytes / 1e9 / out["restore_s"]
+    log(f"14a snapshot-restored engine ({out['card']}): entry {nbytes / 1e9:.3f} GB, capture {out['capture_s']:.2f} s "
+        f"({out['capture_gb_per_s']:.2f} GB/s), restore {out['restore_s']:.2f} s ({out['restore_gb_per_s']:.2f} GB/s); "
+        f"boot split miss {json.dumps(out['split_s']['miss'])}; hit {json.dumps(out['split_s']['hit'])}; "
+        f"fallback {json.dumps(out['split_s']['fallback'])}")
+    return out
+
+
+def phase14_lora(load_module_from_path, path: Path, progress_name: str, n_layers: int, bitwise: bool) -> dict:
+    """14b: the resumable fine-tune. Attempt 1 trains LORA_FAIL_AFTER steps,
+    saves, commits and raises; the retry (a fresh container) resumes there
+    and trains to LORA_STEPS; an uninterrupted run trains LORA_STEPS in one
+    container. The retry loads what attempt 1 saved, bitwise, and its losses
+    equal the uninterrupted run's (bitwise when phase 2 found the flash
+    backward kernels bitwise from launch to launch, else LORA_LOSS_RTOL)."""
+    import modal_examples_tpu_torch as mtpu
+
+    mod = load_module_from_path(str(path))
+    progress = mtpu.Dict.from_name(progress_name)
+    with mod.app.run():
+        resumed = mod.finetune.remote("resumed", LORA_STEPS, LORA_FAIL_AFTER)
+        straight = mod.finetune.remote("straight", LORA_STEPS)
+    first = progress["resumed/interrupted"]
+    if resumed["resumed_from"] != LORA_FAIL_AFTER or resumed["loaded_digest"] != first["digest"]:
+        raise AssertionError(f"14b: the retry resumed from {resumed['resumed_from']}, loaded adapters "
+                             f"{'equal to' if resumed['loaded_digest'] == first['digest'] else 'unlike'} the saved ones")
+    want = {str(k): v for k, v in straight["losses"].items()}
+    got = {str(k): v for k, v in {**first["losses"], **resumed["losses"]}.items()}
+    if set(got) != set(want):
+        raise AssertionError(f"14b: steps {sorted(got)} against {sorted(want)}")
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    if (bitwise and got != want) or rel > LORA_LOSS_RTOL:
+        raise AssertionError(f"14b: losses {got} against the uninterrupted run's {want} (bitwise {bitwise})")
+    for label, launches, steps in (("attempt 1", first["launches"], LORA_FAIL_AFTER),
+                                   ("the retry", resumed["launches"], LORA_STEPS - LORA_FAIL_AFTER),
+                                   ("the uninterrupted run", straight["launches"], LORA_STEPS)):
+        if launches != {k: n_layers * steps for k in launches}:
+            raise AssertionError(f"14b {label}: launches {launches}, want {n_layers} x {steps} each")
+    # each container's first step warms its libraries up: left out
+    steps_s = first["step_s"][1:] + resumed["step_s"][1:] + straight["step_s"][1:]
+    out = {"losses": got, "losses_equal": got == want, "max_rel": rel, "tolerance": "bitwise" if bitwise else LORA_LOSS_RTOL,
+           "step_ms_median": 1e3 * statistics.median(steps_s), "checkpoint_bytes": first["bytes"],
+           "write_and_commit_s": first["save_s"],
+           "launches": {k: first["launches"][k] + resumed["launches"][k] + straight["launches"][k]
+                        for k in first["launches"]}}
+    log(f"14b resumable LoRA fine-tune: {json.dumps(out)}")
+    return out
+
+
+def phase14_asr(load_module_from_path, path: Path) -> dict:
+    """14c: whisper-base streamed over the gateway's websocket: 8 s of seeded
+    audio in 0.5 s float32 chunks, then "end". The final transcript equals an
+    in-process ``StreamingTranscriber``'s on the card over the same chunks;
+    committed text never retracts; the first partial's latency logged."""
+    from modal_examples_tpu_torch.models import whisper
+    from modal_examples_tpu_torch.serving.streaming_asr import StreamingTranscriber
+    from modal_examples_tpu_torch.utils import audio
+    from modal_examples_tpu_torch.web.gateway import Gateway
+    from modal_examples_tpu_torch.web.websocket import connect
+
+    cfg = whisper.WhisperConfig.base()
+    params = whisper.init_params(cfg, seed=0, device="cuda")  # phase 9's weights
+    rng = np.random.default_rng(14)
+    wave = (audio.synth_tone_audio([330.0, 660.0, 990.0], seconds=ASR_AUDIO_S)
+            + 0.05 * rng.standard_normal(int(ASR_AUDIO_S * audio.SAMPLE_RATE))).astype(np.float32)
+    n = int(ASR_CHUNK_S * audio.SAMPLE_RATE)
+    chunks = [wave[i:i + n] for i in range(0, len(wave), n)]
+    local = StreamingTranscriber(params, cfg, bos_id=0, eos_id=1)
+    expected = [local.feed(c) for c in chunks]
+    final_local = local.flush().committed_text
+    mod = load_module_from_path(str(path))
+    mod.MODEL.update(params=params, cfg=cfg)
+    with mod.app.run():
+        gw = Gateway(mod.app).start()
+        try:
+            host, port = gw.httpd.server_address[:2]
+            ws = connect(host, port, "/transcribe_ws", read_timeout=120)
+            partials, first_latency = [], None
+            for c, want in zip(chunks, expected):
+                t0 = time.perf_counter()
+                ws.send_bytes(c.tobytes())
+                if want is not None:  # this chunk completes an update: one event is due
+                    evt = json.loads(ws.receive()[1])
+                    if first_latency is None:
+                        first_latency = time.perf_counter() - t0
+                    partials.append(evt)
+            ws.send_text("end")
+            final = json.loads(ws.receive()[1])
+            ws.close()
+        finally:
+            gw.stop()
+    committed = [e["committed"] for e in partials]
+    if final["type"] != "final" or any(e["type"] != "partial" for e in partials) or not partials:
+        raise AssertionError(f"14c: events {partials} then {final}")
+    if final["text"] != final_local or committed != [r.committed_text for r in expected if r is not None]:
+        raise AssertionError(f"14c: the websocket's transcript {final['text']!r} is not the in-process one "
+                             f"{final_local!r}")
+    if any(not b.startswith(a) for a, b in zip(committed, committed[1:] + [final["text"]])):
+        raise AssertionError(f"14c: committed text retracted: {committed} then {final['text']!r}")
+    out = {"partials": len(partials), "final_chars": len(final["text"]), "first_partial_s": first_latency,
+           "audio_s": ASR_AUDIO_S, "chunk_s": ASR_CHUNK_S}
+    log(f"14c streaming ASR over a websocket: {json.dumps(out)}")
+    return out
+
+
+def check_oci_layout(dest: Path) -> dict:
+    """The layout's index, manifest, config and layers: every blob's digest
+    and size, every layer's diff_id over its uncompressed tar."""
+    import gzip
+    import hashlib
+
+    def blob(digest: str) -> bytes:
+        data = (dest / "blobs" / "sha256" / digest.split(":")[1]).read_bytes()
+        if "sha256:" + hashlib.sha256(data).hexdigest() != digest:
+            raise AssertionError(f"14d: blob {digest} does not hash to its name")
+        return data
+
+    if json.loads((dest / "oci-layout").read_text()) != {"imageLayoutVersion": "1.0.0"}:
+        raise AssertionError("14d: oci-layout")
+    [mdesc] = json.loads((dest / "index.json").read_text())["manifests"]
+    manifest = json.loads(blob(mdesc["digest"]))
+    config = json.loads(blob(manifest["config"]["digest"]))
+    for ldesc, diff_id in zip(manifest["layers"], config["rootfs"]["diff_ids"], strict=True):
+        data = blob(ldesc["digest"])
+        if ldesc["size"] != len(data) or "sha256:" + hashlib.sha256(gzip.decompress(data)).hexdigest() != diff_id:
+            raise AssertionError(f"14d: layer {ldesc['digest']} size or diff_id")
+    return {"layers": len(manifest["layers"]), "history": len(config["history"]),
+            "base": config["history"][0]["created_by"]}
+
+
+def phase14_cheap(tmpdir: Path) -> dict:
+    """14d: a ``Sandbox`` on the card's machine (stdout, the exit code, an
+    exec timeout) and ``Image.cuda_base().add_local_file(...).export_oci``."""
+    import modal_examples_tpu_torch as mtpu
+
+    sb = mtpu.Sandbox.create(timeout=120)
+    try:
+        p = sb.exec("nvidia-smi", "--query-gpu=name", "--format=csv,noheader")
+        code, name = p.wait(), p.stdout.read().strip()
+        bad = sb.exec(sys.executable, "-c", "import sys; print('out'); sys.exit(3)")
+        bad_code, bad_out = bad.wait(), bad.stdout.read().strip()
+        t0 = time.monotonic()
+        slow = sb.exec(sys.executable, "-c", "import time; time.sleep(60)", timeout=1.0)
+        slow_code, slow_s = slow.wait(), time.monotonic() - t0
+    finally:
+        sb.cleanup()
+    if code != 0 or name != torch.cuda.get_device_name(0) or (bad_code, bad_out) != (3, "out") or slow_code >= 0 \
+            or slow_s > 30:
+        raise AssertionError(f"14d sandbox: nvidia-smi {code} {name!r}, exit {bad_code} {bad_out!r}, "
+                             f"timeout {slow_code} after {slow_s:.1f}s")
+    (tmpdir / "weights.txt").write_text("phase 14d\n")
+    img = mtpu.Image.cuda_base().add_local_file(str(tmpdir / "weights.txt"), "/weights.txt")
+    summary = img.export_oci(str(tmpdir / "oci"), tag="smoke")
+    layout = check_oci_layout(tmpdir / "oci")
+    if layout["layers"] != 1 or "cuda_base" not in layout["base"] or summary["n_layers"] != 1:
+        raise AssertionError(f"14d OCI: {layout}, {summary}")
+    out = {"sandbox": {"card_seen": name, "exit_code": bad_code, "timeout_code": slow_code, "timeout_s": slow_s},
+           "oci": {**layout, "manifest_digest": summary["manifest_digest"]}}
+    log(f"14d cheap checks: {json.dumps(out)}")
+    return out
+
+
+def phase_platform_rest(SamplingParams, n_layers: int, bwd_bitwise: bool) -> dict:
+    """Phase 14: the platform layer's rest on the card, after phase 11, in
+    the same spawned-container setup: (14a) a snapshot-restored engine,
+    (14b) a resumable LoRA fine-tune, (14c) streaming ASR over a websocket,
+    (14d) a sandbox and an OCI export."""
+    import tempfile
+
+    import modal_examples_tpu_torch as mtpu
+    from modal_examples_tpu_torch.core.app import load_module_from_path
+
+    out = {}
+    t0 = time.monotonic()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke-apps-", dir=ROOT / "build") as d:
+        d = Path(d)
+        snap_dir = d / "snapshots"
+        old = os.environ.get("MTPU_SNAPSHOT_DIR")
+        os.environ["MTPU_SNAPSHOT_DIR"] = str(snap_dir)  # resolved client-side when the pool is made
+        progress = mtpu.Dict.from_name(f"smoke-14-{os.getpid()}")
+        try:
+            snap = write_app(d, "smoke_snapshot", APP_SNAPSHOT, DEPTH=SNAP_DEPTH, PROGRESS=progress.name)
+            out["snapshot"] = phase14_snapshot(load_module_from_path, snap, snap_dir, SamplingParams)
+            shutil.rmtree(snap_dir, ignore_errors=True)
+            lora_app = write_app(d, "smoke_lora", APP_LORA, SETUP={
+                "config": "llama2_7b", "rank": 16, "batch": (2, 512), "lr": 1e-4, "device": "cuda", "gpu": "H100",
+                "mount": str(d / "ckpts"), "volume": f"smoke-lora-{os.getpid()}", "progress": progress.name})
+            out["lora"] = phase14_lora(load_module_from_path, lora_app, progress.name, n_layers, bwd_bitwise)
+            mtpu.Volume.delete(f"smoke-lora-{os.getpid()}")
+            out["asr"] = phase14_asr(load_module_from_path, write_app(d, "smoke_asr", APP_ASR))
+            out["cheap"] = phase14_cheap(d)
+        finally:
+            mtpu.Dict.delete(progress.name)
+            if old is None:
+                os.environ.pop("MTPU_SNAPSHOT_DIR", None)
+            else:
+                os.environ["MTPU_SNAPSHOT_DIR"] = old
+    out["seconds"] = time.monotonic() - t0
+    launches = dict(out["snapshot"]["launches"])
+    for k, v in out["lora"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out["container_launches"] = launches
+    return out
+
+
+
 # -- training ---------------------------------------------------------------------
 
 
@@ -4159,7 +4690,7 @@ def main() -> int:
             line.strip() for line in ptxas.get(name, "").splitlines() if "registers" in line or "spill" in line))
     check_sass(_build)
     errs = phase_kernels_vs_plain(fa, pa)
-    phase_backward_vs_plain(fa, errs)
+    bwd_bitwise = phase_backward_vs_plain(fa, errs)
     phase_int8_kernels_vs_plain(pa, errs)
     log(f"phase 2 kernels vs plain (tolerances {TOL}): {errs}")
     eng, metrics = phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams)
@@ -4221,6 +4752,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serverless = phase_serverless(SamplingParams, metrics["tokens"], decode)
     log(f"phase 11 serverless surface ({card}): ok in {serverless['seconds']:.1f}s: {json.dumps(serverless)}")
+    rest = phase_platform_rest(SamplingParams, llama.LlamaConfig.llama2_7b().n_layers, bwd_bitwise)
+    log(f"phase 14 the platform layer's rest ({card}): ok in {rest['seconds']:.1f}s: {json.dumps(rest)}")
     serve_counts, int8_counts, train_counts = metrics["launches"], int8["launches"], train["launches"]
     wb_counts = wb["launches"]
     counts = {
@@ -4238,16 +4771,21 @@ def main() -> int:
     # phase 10's Mixtral bursts (bf16 K1/K2/K3/K4, int8 K1/K7/K2-int8/K3-int8)
     counts = {k: v + mixtral["launches"].get(k, 0) for k, v in counts.items()}
     # phase 11's containers: K1, K2 and K3 in the server's and the Cls's, K1
-    # in 11a's and 11d's function containers (marked in their rows)
-    counts = {k: v + serverless["container_launches"].get(k, 0) for k, v in counts.items()}
+    # in 11a's and 11d's function containers; phase 14's: K1, K2 and K3 in
+    # 14a's three boots, K1, K5 and K6 in 14b's three training containers
+    # (marked in their rows)
+    containers = {k: serverless["container_launches"].get(k, 0) + rest["container_launches"].get(k, 0)
+                  for k in {*serverless["container_launches"], *rest["container_launches"]}}
+    counts = {k: v + containers.get(k, 0) for k, v in counts.items()}
     # phase 12's int8 LoRA steps (K7, K1, K5, K6) and phase 13's canary
     # rounds (K1, K2, K3)
     counts = {k: v + lora8["launches"].get(k, 0) + observability["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
-        f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}, int8 LoRA "
-        f"{lora8['launches']}, canary {observability['launches']}; kernels line (phases 8-13 summed) {counts}")
+        f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}, phase 14's "
+        f"containers {rest['container_launches']}, int8 LoRA "
+        f"{lora8['launches']}, canary {observability['launches']}; kernels line (phases 8-14 summed) {counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
     errs["flash_fwd"] = max(errs["flash_fwd"], serverless["functions"]["k1"]["max_abs_err"],
@@ -4260,8 +4798,8 @@ def main() -> int:
             r["joint"] = workloads["joint_k1"]
         if r["name"] == "quantized_matmul":  # and K7 Mixtral's expert products (10a)
             r["expert"] = mixtral["expert_k7"]["shapes"]
-        if r["name"] in serverless["container_launches"]:  # launches in phase 11's containers
-            r["container_launches"] = serverless["container_launches"][r["name"]]
+        if r["name"] in containers:  # launches in phase 11's and phase 14's containers
+            r["container_launches"] = containers[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

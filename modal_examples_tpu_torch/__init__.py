@@ -2,10 +2,12 @@
 serving engines and LoRA fine-tuning, on NVIDIA GPUs.
 
 Same subpackage layout as the JAX package (``core/``, ``web/``,
-``storage/``, ``faults/``, ``ops/``, ``models/``, ``serving/``,
-``training/``, ``utils/``, ``scheduling/``, ``observability/``); each module
-names its counterpart. The platform layer (``App``, ``Function``, ``Cls``,
-containers, images, volumes, secrets, the CLI ``python -m
+``storage/``, ``faults/``, ``snapshot/``, ``ops/``, ``models/``,
+``serving/``, ``training/``, ``utils/``, ``scheduling/``,
+``observability/``); each module names its counterpart. The platform layer
+(``App``, ``Function``, ``Cls``, containers with memory snapshots, images
+and their OCI export, volumes and bucket mounts, secrets, ``Dict`` and
+``Queue``, sandboxes, web and websocket endpoints, the CLI ``python -m
 modal_examples_tpu_torch run|deploy|serve``) takes ``gpu="H100"`` where the
 JAX package takes ``tpu=``, and imports no torch until a container checks
 its cards or user code asks for it. Serving: ``LLMEngine`` and
@@ -40,10 +42,12 @@ from .core.function import (
 from .core.image import Image
 from .core.resources import GPUSpec, parse_gpu_spec
 from .core.retries import Retries
+from .core.sandbox import ContainerProcess, Sandbox, forward
 from .core.schedules import Cron, Period
 from .core.serialization import RemoteError
+from .storage.dict_queue import Dict, Queue
 from .storage.secret import Secret
-from .storage.volume import Volume
+from .storage.volume import CloudBucketMount, Volume
 from .web.endpoints import (
     asgi_app,
     fastapi_endpoint,
@@ -75,8 +79,11 @@ def __getattr__(name: str):
 
 __all__ = [
     "App",
+    "CloudBucketMount",
     "Cls",
+    "ContainerProcess",
     "Cron",
+    "Dict",
     "Function",
     "FunctionCall",
     "FunctionTimeoutError",
@@ -86,9 +93,11 @@ __all__ = [
     "LLMEngine",
     "OpenAIServer",
     "Period",
+    "Queue",
     "RemoteError",
     "Retries",
     "SamplingParams",
+    "Sandbox",
     "Secret",
     "Volume",
     "asgi_app",
@@ -98,6 +107,7 @@ __all__ = [
     "enter",
     "exit",
     "fastapi_endpoint",
+    "forward",
     "gather",
     "method",
     "parameter",

@@ -56,7 +56,6 @@ def _validate_priority(priority: str) -> None:
 
 #: options the port refuses until their subsystem lands: name -> what waits
 WAITING_OPTIONS = {
-    "enable_memory_snapshot": "memory snapshots wait with snapshot/ (ROADMAP A13)",
     "cluster_size": "@clustered multi-host slices wait with ROADMAP A10",
     "cluster_chips_per_host": "@clustered multi-host slices wait with ROADMAP A10",
     "region": "region routing waits with the fleet (ROADMAP A9)",
@@ -195,9 +194,7 @@ class App:
         enable_memory_snapshot: bool = False,
         experimental_options: dict | None = None,
     ) -> Callable[[Callable], Function]:
-        refuse_waiting_options(
-            {"tpu": tpu, "region": region, "enable_memory_snapshot": enable_memory_snapshot}
-        )
+        refuse_waiting_options({"tpu": tpu, "region": region})
         _validate_priority(priority)
 
         def deco(fn: Callable) -> Function:
@@ -225,6 +222,7 @@ class App:
                 web=getattr(fn, "__mtpu_web__", None),
                 priority=priority,
                 max_pending_inputs=max_pending_inputs,
+                enable_memory_snapshot=enable_memory_snapshot,
                 serialized=serialized,
                 experimental_options=dict(experimental_options or {}),
             )
@@ -257,9 +255,7 @@ class App:
         experimental_options: dict | None = None,
         region: str | None = None,
     ) -> Callable[[type], Cls]:
-        refuse_waiting_options(
-            {"tpu": tpu, "region": region, "enable_memory_snapshot": enable_memory_snapshot}
-        )
+        refuse_waiting_options({"tpu": tpu, "region": region})
         _validate_priority(priority)
 
         def deco(user_cls: type) -> Cls:
@@ -284,6 +280,7 @@ class App:
                 methods_meta=meta["methods"],
                 priority=priority,
                 max_pending_inputs=max_pending_inputs,
+                enable_memory_snapshot=enable_memory_snapshot,
                 experimental_options=dict(experimental_options or {}),
             )
             c = Cls(self, user_cls, spec, meta)

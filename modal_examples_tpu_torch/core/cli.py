@@ -17,6 +17,9 @@ Usage:
     python -m modal_examples_tpu_torch serve script.py    # host web endpoints and servers
     python -m modal_examples_tpu_torch secret create NAME K=V ...
     python -m modal_examples_tpu_torch app list
+    python -m modal_examples_tpu_torch examples [list | run [pattern] [--timeout S]]
+    python -m modal_examples_tpu_torch docs [OUT_DIR]         # render the literate examples
+    python -m modal_examples_tpu_torch snapshot [list | inspect KEY | clear [KEY]] [--dir PATH]
     python -m modal_examples_tpu_torch trace [ID [--perfetto] | list [--limit N]]  # call/request traces
     python -m modal_examples_tpu_torch explain REQUEST_ID    # request lifecycle narrative
     python -m modal_examples_tpu_torch metrics [--json]      # merged pushed prometheus expositions
@@ -233,6 +236,151 @@ def cmd_app(argv: list[str]) -> int:
             print(f"{name}\t{entry.get('source_file')}")
         return 0
     raise SystemExit(f"usage: {PROG} app list")
+
+
+def cmd_examples(argv: list[str]) -> int:
+    """List or run the example corpus (internal/run_example.py parity:
+    subprocess per example with a timeout bound). ``run`` runs each example
+    through this package's ``run``: an example written for the JAX package
+    imports that package, and runs on it."""
+    from ..utils.docs import get_examples, repo_root
+
+    examples = get_examples()
+    if not argv or argv[0] == "list":
+        for e in examples:
+            print(e.path)
+        return 0
+    if argv[0] == "run":
+        import subprocess
+        import tempfile
+
+        timeout = 600.0
+        cli_timeout = "--timeout" in argv
+        if cli_timeout:
+            timeout = float(argv[argv.index("--timeout") + 1])
+        pattern = argv[1] if len(argv) > 1 and not argv[1].startswith("-") else ""
+        targets = [e for e in examples if pattern in str(e.path)]
+        if not targets:
+            raise SystemExit(f"no examples match {pattern!r}")
+        failures = []
+        for e in targets:
+            env = dict(os.environ)
+            env.setdefault("MTPU_STATE_DIR", tempfile.mkdtemp(prefix="mtpu-ex-"))
+            # cheap-mode defaults (the reference's frontmatter env overrides,
+            # SURVEY §4): CI runs on CPU unless the caller opts into a chip
+            env.setdefault("MTPU_TPU", "")
+            for k, v in e.env.items():  # per-example frontmatter env
+                env.setdefault(k, str(v))
+            # precedence: explicit CLI flag > frontmatter > default
+            eff_timeout = timeout if cli_timeout else (e.timeout or timeout)
+            print(f"=== {e.path} ===", flush=True)
+            try:
+                proc = subprocess.run(
+                    [sys.executable, "-m", "modal_examples_tpu_torch", "run",
+                     str(repo_root() / e.path)],
+                    timeout=eff_timeout,
+                    env=env,
+                )
+                if proc.returncode != 0:
+                    failures.append(str(e.path))
+            except subprocess.TimeoutExpired:
+                failures.append(f"{e.path} (timeout {eff_timeout}s)")
+        if failures:
+            print(f"FAILED ({len(failures)}/{len(targets)}):")
+            for f in failures:
+                print(" ", f)
+            return 1
+        print(f"all {len(targets)} example(s) passed")
+        return 0
+    raise SystemExit(f"usage: {PROG} examples [list | run [pattern] [--timeout S]]")
+
+
+def cmd_docs(argv: list[str]) -> int:
+    """Render the literate examples to markdown (the examples ARE the docs —
+    internal/utils.py render_example_md parity)."""
+    from pathlib import Path
+
+    from ..utils.docs import get_examples, render_example_md, repo_root
+
+    out_dir = Path(argv[0]) if argv else repo_root() / "docs"
+    n = 0
+    for e in get_examples():
+        src = (repo_root() / e.path).read_text()
+        md = render_example_md(src)
+        target = out_dir / e.path.with_suffix(".md")
+        target.parent.mkdir(parents=True, exist_ok=True)
+        target.write_text(md)
+        n += 1
+    index = []
+    # hand-written guides live next to the rendered examples; the index
+    # links both so regeneration never clobbers the guide entries
+    guides = sorted(
+        p.name for p in out_dir.glob("*.md") if p.name != "index.md"
+    )
+    if guides:
+        index.append("# Guides\n")
+        for g in guides:
+            title = g.removesuffix(".md").replace("_", " ")
+            index.append(f"- [{title}]({g})")
+        index.append("")
+    index.append("# Examples\n")
+    for e in get_examples():
+        index.append(f"- [{e.module_name}]({e.path.with_suffix('.md')})")
+    (out_dir / "index.md").write_text("\n".join(index) + "\n")
+    print(f"rendered {n} example docs to {out_dir}")
+    return 0
+
+
+def cmd_snapshot(argv: list[str]) -> int:
+    """Inspect the memory-snapshot store (modal_examples_tpu_torch.snapshot).
+
+    list     — one line per entry: key, size, age, last use, function tag
+    inspect  — full meta.json for one key (manifest, rebuild markers, ...)
+    clear    — delete one entry (``clear KEY``) or every entry (``clear``)
+
+    ``--dir PATH`` overrides the store root (default: MTPU_SNAPSHOT_DIR or
+    ``<state_dir>/snapshots``).
+    """
+    from ..snapshot.store import SnapshotStore
+
+    argv, root = _pop_dir_flag(argv, f"usage: {PROG} snapshot ... --dir PATH")
+    store = SnapshotStore(root=root)
+    sub = argv[0] if argv else "list"
+    if sub == "list":
+        entries = store.entries()
+        if not entries:
+            print(f"no snapshots in {store.root}")
+            return 0
+        import time as _time
+
+        now = _time.time()
+        print(f"{'KEY':<34} {'SIZE':>9} {'AGE':>8} {'USED':>8}  FUNCTION")
+        for e in entries:
+            size_kb = e.get("size_bytes", 0) / 1024
+            age = now - e.get("created_at", now)
+            used = now - e.get("last_used", now)
+            tag = (e.get("manifest") or {}).get("tag", "")
+            print(
+                f"{e['key']:<34} {size_kb:>7.1f}kB {age:>7.0f}s {used:>7.0f}s  {tag}"
+            )
+        return 0
+    if sub == "inspect":
+        if len(argv) < 2:
+            raise SystemExit(f"usage: {PROG} snapshot inspect KEY")
+        meta = store.inspect(argv[1])
+        if meta is None:
+            raise SystemExit(f"no snapshot {argv[1]!r} in {store.root}")
+        print(json.dumps(meta, indent=2))
+        return 0
+    if sub == "clear":
+        if len(argv) >= 2:
+            ok = store.delete(argv[1])
+            print(f"{'deleted' if ok else 'no such entry'}: {argv[1]}")
+            return 0 if ok else 1
+        n = store.clear()
+        print(f"cleared {n} snapshot(s) from {store.root}")
+        return 0
+    raise SystemExit(f"usage: {PROG} snapshot [list | inspect KEY | clear [KEY]] [--dir PATH]")
 
 
 def cmd_trace(argv: list[str]) -> int:
@@ -1342,9 +1490,6 @@ def cmd_top(argv: list[str]) -> int:
 #: subcommands of the JAX package that wait with their subsystems:
 #: name -> the ROADMAP item
 WAITING_COMMANDS = {
-    "examples": "A13 (the platform layer's rest)",
-    "docs": "A13 (the platform layer's rest)",
-    "snapshot": "A13 (snapshot/)",
     "benchdiff": "A8 (the port's benchmark)",
     "sched": "A9 (scheduling/router.py)",
     "disagg": "A9 (serving/disagg/)",
@@ -1360,6 +1505,9 @@ COMMANDS = {
     "serve": cmd_serve,
     "secret": cmd_secret,
     "app": cmd_app,
+    "examples": cmd_examples,
+    "docs": cmd_docs,
+    "snapshot": cmd_snapshot,
     "trace": cmd_trace,
     "explain": cmd_explain,
     "metrics": cmd_metrics,

@@ -11,9 +11,10 @@ typed instance parameters via ``modal.parameter()`` (9 uses);
 ``@enter`` is where weights go to the card and the kernels load (the
 port's are built once per checkout, ``ops/_build.py``) — the reference's
 pipeline load and CUDA warmup. The container then serves many inputs against
-the resident state. ``enter(snap=True)`` keeps its mark, but the port has no
-memory-snapshot layer yet (``snapshot/``, ROADMAP A13): such hooks run on
-every boot.
+the resident state. With ``enable_memory_snapshot=True``, the ``snap=True``
+hooks run only until a boot has captured their state (``snapshot/``): later
+boots restore it, tensors back onto the container's card, and run the other
+hooks.
 """
 
 from __future__ import annotations
@@ -44,8 +45,10 @@ def method(*, is_generator: bool | None = None) -> Callable:
 def enter(*, snap: bool = False) -> Callable:
     """Lifecycle hook run once at container start (before any input).
 
-    ``snap=True`` marks the hook as snapshot-eligible (gpu_snapshot.py:41-47);
-    with no snapshot layer in the port yet, it runs on every boot, first.
+    ``snap=True`` marks the hook as snapshot-eligible: its effects (weights on
+    the card) are captured after the first warm boot (``enable_memory_snapshot
+    =True``) by the memory-snapshot layer so later cold starts resume past it
+    (gpu_snapshot.py:41-47 analog). Such hooks run first.
     """
 
     def deco(fn):
@@ -90,12 +93,19 @@ def _collect_lifecycle(user_cls: type) -> dict:
         if isinstance(val, _Parameter):
             meta["parameters"][name] = val
             setattr(user_cls, name, val.default)
-    # run snap=True enters first, matching the reference's ordering
+    # run snap=True enters first, matching snapshot-restore ordering
     meta["enter"].sort(
         key=lambda n: not getattr(getattr(user_cls, n), "__mtpu_enter__", {}).get(
             "snap", False
         )
     )
+    # snapshot-eligible hooks, in run order (the memory-snapshot layer skips
+    # these on a restored boot; see modal_examples_tpu_torch.snapshot)
+    meta["snap_enter"] = [
+        n
+        for n in meta["enter"]
+        if getattr(getattr(user_cls, n), "__mtpu_enter__", {}).get("snap", False)
+    ]
     return meta
 
 

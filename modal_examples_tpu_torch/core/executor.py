@@ -23,7 +23,10 @@ Container model:
   (dynamic_batching.py:29,57);
 - Cls containers instantiate the user class and run ``@enter`` hooks once
   before serving inputs, and ``@exit`` hooks at shutdown (text_to_image.py:
-  92-137) — load-once-serve-many;
+  92-137) — load-once-serve-many; with ``enable_memory_snapshot=True`` a
+  boot restores the state its ``snap=True`` hooks left (``snapshot/``,
+  tensors back onto the container's card) instead of running them, once a
+  first boot captured it;
 - a container of a function without ``gpu=`` sees no card
   (``CUDA_VISIBLE_DEVICES=""``) and creates no CUDA context; one with
   ``gpu=`` checks at boot that its cards satisfy the request
@@ -34,8 +37,10 @@ Container model:
   ``build/kernels`` (the counterpart of the JAX package's shared XLA compile
   cache) and builds only what is missing.
 
-The JAX package's ``@clustered`` gang scheduler waits (ROADMAP A10), and so
-do memory snapshots (``snapshot/``, ROADMAP A13).
+A container's ready message carries its boot split (:func:`boot_info`):
+spawn, interpreter, ``import torch``, the app file, and the snapshot layer's
+restore or ``snap=True`` hooks, capture and other hooks. The JAX package's
+``@clustered`` gang scheduler waits (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -147,6 +152,41 @@ class ContainerConfig:
     sys_paths: list[str]
     max_concurrent_inputs: int
     volumes: list[tuple[str, str]]  # (mount path, host path)
+    # memory snapshots (enable_memory_snapshot=True on a Cls): resolved
+    # client-side so supervisor and container agree on the store entry
+    snapshot_key: str | None = None
+    snapshot_dir: str | None = None
+
+
+#: the env var a supervisor sets to the wall time of a container's spawn
+SPAWNED_AT_ENV = "MTPU_SPAWNED_AT"
+#: this container's boot info (the ready message), for :func:`boot_info`
+_boot: dict = {}
+
+
+def boot_info() -> dict:
+    """Inside a container: the boot info its ready message carried. ``gpu``
+    and ``cards`` (a ``gpu=`` container's boot check), ``snapshot`` (``off``,
+    ``miss``, ``hit`` or ``fallback``) and ``captured``, and ``boot_s``: the
+    seconds of ``spawn`` (the supervisor's spawn call to the process's
+    start), ``interpreter`` (to the worker's first line), ``handshake`` (the
+    config received), ``import_torch``, ``app_file`` (the function or class
+    imported) and the snapshot layer's ``restore``, ``snap_hooks``,
+    ``capture`` and ``enter_hooks``."""
+    return dict(_boot)
+
+
+def _process_start_wall() -> float | None:
+    """Wall time this process started (``/proc``; 1/CLK_TCK resolution)."""
+    try:
+        stat = Path("/proc/self/stat").read_text()
+        ticks = int(stat[stat.rindex(")") + 2:].split()[19])
+        for line in Path("/proc/stat").read_text().splitlines():
+            if line.startswith("btime "):
+                return int(line.split()[1]) + ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        pass
+    return None
 
 
 def _mount_volumes(volumes: list[tuple[str, str]]) -> None:
@@ -165,14 +205,19 @@ def _mount_volumes(volumes: list[tuple[str, str]]) -> None:
             _log.warning("cannot mount volume at %s: %s", mount_path, e)
 
 
-def _check_gpus() -> dict:
+def _check_gpus(timings: dict | None = None) -> dict:
     """Boot check of a ``gpu=`` container: the visible cards must satisfy
     the request in ``MTPU_GPU_SPEC`` (the first spec they do is kept there).
-    Raises naming the request otherwise. Returns the boot info it adds."""
+    Raises naming the request otherwise. Returns the boot info it adds;
+    ``timings`` receives the seconds of ``import_torch``."""
     request = os.environ.get(GPU_SPEC_ENV)
     if not request:
         return {}
+    t0 = time.perf_counter()
     import torch
+
+    if timings is not None:
+        timings["import_torch"] = time.perf_counter() - t0
 
     names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
     spec = select_gpu_spec(request, names)
@@ -180,19 +225,9 @@ def _check_gpus() -> dict:
     return {"gpu": str(spec), "cards": names[: spec.count]}
 
 
-def _build_and_enter(user_cls: type, params: dict | None, meta: dict):
-    """Construct the user object, set its parameters, run its ``@enter``
-    hooks in order."""
-    obj = user_cls()
-    for k, v in (params or {}).items():
-        setattr(obj, k, v)
-    for name in meta.get("enter", []):
-        getattr(obj, name)()
-    return obj
-
-
-def _container_main(conn, cfg_bytes: bytes) -> None:
-    """Entry point of a container process."""
+def _container_main(conn, cfg_bytes: bytes, timings: dict) -> None:
+    """Entry point of a container process; ``timings`` holds the boot's
+    parts so far and receives the rest."""
     cfg: ContainerConfig = ser.deserialize(cfg_bytes)
     os.environ.update(cfg.env)
     os.environ[_config.TASK_ID_ENV] = f"ta-{uuid.uuid4().hex[:12]}"
@@ -214,12 +249,27 @@ def _container_main(conn, cfg_bytes: bytes) -> None:
 
     exit_hooks: list[Callable] = []
     try:
-        boot_info = _check_gpus()
+        boot_info = _check_gpus(timings)
+        t0 = time.perf_counter()
         target = ser.function_from_bytes(cfg.fn_bytes)
+        timings["app_file"] = time.perf_counter() - t0
         if cfg.is_cls:
             cls, meta = target  # (user class, lifecycle metadata dict)
             params = ser.deserialize(cfg.cls_params) if cfg.cls_params else {}
-            obj = _build_and_enter(cls, params, meta)
+            # snapshot-aware boot: restore past snap=True @enter hooks when
+            # the store has an entry for this spec, else run them and capture
+            from ..snapshot import build_and_enter
+
+            obj, snap_info = build_and_enter(
+                cls,
+                params,
+                meta,
+                snapshot_key=cfg.snapshot_key,
+                snapshot_dir=cfg.snapshot_dir,
+                tag=cfg.function_tag,
+                timings=timings,
+            )
+            boot_info.update(snap_info)
             exit_hooks = [getattr(obj, n) for n in meta.get("exit", [])]
 
             def call_fn(method_name, args, kwargs):
@@ -230,6 +280,8 @@ def _container_main(conn, cfg_bytes: bytes) -> None:
             def call_fn(method_name, args, kwargs):
                 return target(*args, **kwargs)
 
+        boot_info["boot_s"] = timings
+        _boot.update(boot_info)
         send(("ready", boot_info))
     except BaseException as e:  # boot failure
         send(("boot_error", ser.serialize_exception(e)))
@@ -523,11 +575,20 @@ def worker_entry() -> None:
     boots from its own entrypoint). The config arrives over an authenticated
     AF_UNIX connection, the same channel used for inputs/results.
     """
+    entered = time.time()
+    timings: dict = {}
+    started = _process_start_wall()
+    spawned = os.environ.pop(SPAWNED_AT_ENV, "")
+    if started is not None:
+        timings["interpreter"] = max(0.0, entered - started)
+        if spawned:
+            timings["spawn"] = max(0.0, started - float(spawned))
     sock = os.environ.pop("MTPU_WORKER_SOCKET")
     authkey = bytes.fromhex(os.environ.pop("MTPU_WORKER_AUTHKEY"))
     conn = Client(sock, family="AF_UNIX", authkey=authkey)
     cfg_bytes = conn.recv()
-    _container_main(conn, cfg_bytes)
+    timings["handshake"] = time.time() - entered
+    _container_main(conn, cfg_bytes, timings)
 
 
 class _Container:
@@ -557,6 +618,7 @@ class _Container:
         # it the kernel libraries built under its build/kernels
         env["PYTHONPATH"] = os.pathsep.join(py_paths)
         env.update(self.extra_env)
+        env[SPAWNED_AT_ENV] = repr(time.time())
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "modal_examples_tpu_torch.core.container_worker"],
             env=env,
@@ -634,6 +696,7 @@ class _Container:
                     "mode": "cold",
                     "container": self.idx,
                     "gpu": (self.boot_info or {}).get("gpu", ""),
+                    "snapshot": (self.boot_info or {}).get("snapshot", "off"),
                 },
             )
             sp.end = self.ready_wall or time.time()
@@ -739,6 +802,11 @@ class _Container:
                         self.last_active = time.monotonic()
                     info = msg[1] if len(msg) > 1 else {}
                     self.boot_info = info or {}
+                    if info:
+                        try:
+                            self.pool.on_container_ready(self, info)
+                        except Exception:
+                            traceback.print_exc()
                     self.ready.set()
                 elif kind == "boot_error":
                     exc, _tb = ser.deserialize_exception(msg[1])
@@ -840,6 +908,9 @@ class FunctionPool:
         self.boot_crashes = 0
         self.boot_error: BaseException | None = None
         self._inflight_n = 0  # submitted minus completed (the gauge's source)
+        # while True, scale-up is capped at one container so the first warm
+        # boot can capture a snapshot every later boot restores from
+        self._snapshot_gate = bool(self.container_config.snapshot_key)
         self.lock = threading.Lock()
         self.wake = threading.Condition(self.lock)
         self.closed = False
@@ -940,6 +1011,17 @@ class FunctionPool:
                     c.proc.wait(2.0)
                 except subprocess.TimeoutExpired:
                     c.proc.kill()  # past SIGTERM's grace: no container outlives its pool
+
+    def on_container_ready(self, container: "_Container", info: dict) -> None:
+        """Boot telemetry from the container's ``ready`` message: cold-start
+        snapshot hit/miss accounting (utils/metrics.py -> prometheus)."""
+        result = info.get("snapshot")
+        if result and result != "off":
+            from ..utils.metrics import record_snapshot_boot
+
+            record_snapshot_boot(
+                self.spec.tag, result, captured=info.get("captured", False)
+            )
 
     # -- failure/retry ------------------------------------------------------
 
@@ -1271,6 +1353,26 @@ class FunctionPool:
                 with self.lock:
                     self.pending.extendleft(reversed(e.still_owned))
 
+    def _snapshot_pending_first_capture(self) -> bool:
+        """True while boots should serialize behind the first warm boot: the
+        spec wants memory snapshots but the store has no entry yet, so a
+        thundering herd of cold boots would all pay the full @enter cost.
+        Once a snapshot exists (or the first boot came up without producing
+        one — capture failed or state isn't capturable) the gate opens for
+        good."""
+        if not self._snapshot_gate:
+            return False
+        from ..snapshot.store import SnapshotStore
+
+        store = SnapshotStore(root=self.container_config.snapshot_dir)
+        if store.has(self.container_config.snapshot_key):
+            self._snapshot_gate = False
+            return False
+        if any(c.ever_ready for c in self.containers):
+            self._snapshot_gate = False
+            return False
+        return True
+
     def _autoscale(self, now: float) -> None:
         with self.lock:
             pending_n = len(self.pending)
@@ -1285,6 +1387,8 @@ class FunctionPool:
                 (pending_n - free_slots + self.spec_max_concurrent - 1)
                 // self.spec_max_concurrent,
             )
+        if want > 0 and self._snapshot_pending_first_capture():
+            want = min(want, max(0, 1 - len(live)))
         if want > 0:
             for _ in range(want):
                 self._spawn_container()
@@ -1295,9 +1399,15 @@ class FunctionPool:
                 free_slots=free_slots,
                 spawned=want,
             )
-        # keep min_containers warm
+        # keep min_containers warm (snapshot gate: warm one first, the rest
+        # boot as restores once the capture lands)
         warm_spawned = 0
         while len([c for c in self.containers if not c.dead]) < self.spec.min_containers:
+            if (
+                self._snapshot_pending_first_capture()
+                and len([c for c in self.containers if not c.dead]) >= 1
+            ):
+                break
             self._spawn_container()
             warm_spawned += 1
         if warm_spawned:
@@ -1381,9 +1491,26 @@ class InlinePool:
             _check_gpus()
             target = ser.function_from_bytes(cfg.fn_bytes)
             if cfg.is_cls:
+                from ..snapshot import build_and_enter
+
                 cls, meta = target
                 params = ser.deserialize(cfg.cls_params) if cfg.cls_params else {}
-                obj = _build_and_enter(cls, params, meta)
+                obj, boot = build_and_enter(
+                    cls,
+                    params,
+                    meta,
+                    snapshot_key=cfg.snapshot_key,
+                    snapshot_dir=cfg.snapshot_dir,
+                    tag=cfg.function_tag,
+                )
+                if boot.get("snapshot", "off") != "off":
+                    from ..utils.metrics import record_snapshot_boot
+
+                    record_snapshot_boot(
+                        self.spec.tag,
+                        boot["snapshot"],
+                        captured=boot.get("captured", False),
+                    )
                 self._obj = obj
                 self._exit_hooks = [getattr(obj, n) for n in meta.get("exit", [])]
 

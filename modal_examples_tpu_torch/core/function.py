@@ -106,6 +106,7 @@ class FunctionSpec:
     #: bound on queued (undispatched) inputs; None = unbounded. Exceeding it
     #: sheds: pool.submit raises ShedError, the gateway answers 429.
     max_pending_inputs: int | None = None
+    enable_memory_snapshot: bool = False
     serialized: bool = False  # ship-by-value parity flag (reference: serialized=True)
     experimental_options: dict = dataclasses.field(default_factory=dict)
 
@@ -122,6 +123,26 @@ class FunctionSpec:
             volumes.append((mount_path, str(vol.local_path)))
         sys_paths = self.image.sys_path_additions() + self._source_dirs()
         fn_bytes = ser.function_to_bytes(self.raw_target)
+        snapshot_key = snapshot_dir = None
+        if self.enable_memory_snapshot and self.is_cls_method:
+            # key + store root are resolved client-side so the supervisor (the
+            # autoscaler's first-warm-boot gate) and the container agree on
+            # exactly which entry a boot will hit; the gpu= request is in
+            # env, so a gpu= container never shares an entry with one
+            # without gpu=
+            from ..snapshot.store import (
+                compute_snapshot_key,
+                default_root,
+                source_hash_for,
+            )
+
+            snapshot_key = compute_snapshot_key(
+                image_digest=self.image.digest(),
+                source_hash=source_hash_for(self.raw_target, fn_bytes),
+                env=env,
+                cls_params=self.cls_params_bytes,
+            )
+            snapshot_dir = str(default_root())
         return _exec.ContainerConfig(
             function_tag=self.tag,
             fn_bytes=fn_bytes,
@@ -131,6 +152,8 @@ class FunctionSpec:
             sys_paths=sys_paths,
             max_concurrent_inputs=self.max_concurrent_inputs,
             volumes=volumes,
+            snapshot_key=snapshot_key,
+            snapshot_dir=snapshot_dir,
         )
 
     def batched_for(self, method_name: str) -> "BatchedConfig | None":

@@ -17,8 +17,8 @@ build recipe a real image build would execute. The CUDA base,
 :meth:`Image.cuda_base`, declares Python, torch and the CUDA toolkit, with no
 jax: it stands where the JAX package's ``tpu_base`` stands. Every other layer
 and the digest are the JAX package's, so one chain gives one digest in both
-packages once the base layer is left out. ``export_oci`` waits with
-``core/oci.py`` (ROADMAP A13).
+packages once the base layer is left out. :meth:`Image.export_oci` writes an
+OCI image layout (``core/oci.py``).
 """
 
 from __future__ import annotations
@@ -117,10 +117,12 @@ class Image:
     # -- introspection / application ---------------------------------------
 
     def export_oci(self, dest: str, *, tag: str = "latest") -> dict:
-        """The OCI image layout export waits with ``core/oci.py``."""
-        raise NotImplementedError(
-            "Image.export_oci: the port has no core/oci.py yet (ROADMAP A13)"
-        )
+        """Serialize as a spec-valid OCI image layout at ``dest`` (local
+        content becomes real layer blobs; network steps become provenance
+        history). See :mod:`modal_examples_tpu_torch.core.oci`."""
+        from .oci import export_oci
+
+        return export_oci(self, dest, tag=tag)
 
     @property
     def layers(self) -> tuple[ImageLayer, ...]:

@@ -1,8 +1,8 @@
 """The port's metric catalog, after ``modal_examples_tpu/observability/catalog.py``:
 the series, span names and tick phases of the paths the port has, the
 flight recorder's (tsdb, alerts, incidents, SLO burn), the correctness
-canary's and the kernel builds' (the JAX package's snapshot, fleet and
-disaggregation series come with those subsystems; the watchdog's state
+canary's, the kernel builds' and the memory snapshots' (the JAX package's
+fleet and disaggregation series come with those subsystems; the watchdog's state
 gauge is declared because an alert rule reads it).
 
 ONE module owns every metric name: code imports the constant, and no
@@ -34,6 +34,14 @@ HOST_RSS_BYTES = "mtpu_host_rss_bytes"
 #: counter {function, action}: autoscaler decisions recorded to the journal;
 #: action = scale_up | scale_down | kill
 SCALER_DECISIONS_TOTAL = "mtpu_scaler_decisions_total"
+
+# -- memory snapshots (snapshot/) --------------------------------------------
+
+#: counter {function, result}: snapshot-enabled container boots;
+#: result = hit | miss | fallback
+SNAPSHOT_BOOTS_METRIC = "mtpu_snapshot_boots_total"
+#: counter {function}: snapshots captured and published to the store
+SNAPSHOT_CAPTURES_METRIC = "mtpu_snapshot_captures_total"
 #: counter {point}: injected faults that FIRED, by catalog point name
 #: (faults/inject.py POINTS)
 FAULTS_INJECTED_TOTAL = "mtpu_faults_injected_total"
@@ -88,6 +96,12 @@ KV_PAGE_OCCUPANCY = "mtpu_kv_page_occupancy"
 KV_CACHE_BYTES = "mtpu_kv_cache_bytes"
 #: counter: zero-ref prefix-cache pages reclaimed under allocator pressure
 PREFIX_CACHE_EVICTIONS_TOTAL = "mtpu_prefix_cache_evictions_total"
+#: gauge: total payload bytes resident in the memory-snapshot store
+SNAPSHOT_STORE_BYTES = "mtpu_snapshot_store_bytes"
+#: gauge: entries resident in the memory-snapshot store
+SNAPSHOT_STORE_ENTRIES = "mtpu_snapshot_store_entries"
+#: counter {result}: snapshot-store lookups (result = hit | miss)
+SNAPSHOT_STORE_GETS_TOTAL = "mtpu_snapshot_store_gets_total"
 
 # -- request scheduler (scheduling/) ---------------------------------------
 
@@ -404,6 +418,16 @@ CATALOG: dict[str, dict] = {
         "labels": ["function", "reason"],
         "help": "containers killed by the supervisor",
     },
+    SNAPSHOT_BOOTS_METRIC: {
+        "type": "counter",
+        "labels": ["function", "result"],
+        "help": "snapshot-enabled container boots (result=hit|miss|fallback)",
+    },
+    SNAPSHOT_CAPTURES_METRIC: {
+        "type": "counter",
+        "labels": ["function"],
+        "help": "memory snapshots captured and published to the store",
+    },
     HOST_RSS_BYTES: {
         "type": "gauge", "labels": [],
         "help": "supervisor-process resident set size (bytes)",
@@ -496,6 +520,18 @@ CATALOG: dict[str, dict] = {
     PREFIX_CACHE_EVICTIONS_TOTAL: {
         "type": "counter", "labels": [],
         "help": "zero-ref prefix-cache pages reclaimed under pressure",
+    },
+    SNAPSHOT_STORE_BYTES: {
+        "type": "gauge", "labels": [],
+        "help": "total payload bytes resident in the snapshot store",
+    },
+    SNAPSHOT_STORE_ENTRIES: {
+        "type": "gauge", "labels": [],
+        "help": "entries resident in the snapshot store",
+    },
+    SNAPSHOT_STORE_GETS_TOTAL: {
+        "type": "counter", "labels": ["result"],
+        "help": "snapshot-store lookups (result=hit|miss)",
     },
     SHEDS_TOTAL: {
         "type": "counter", "labels": ["class", "reason"],

@@ -2,8 +2,8 @@
 
 Recorders: the narrow API the executor, the fault gate, the serving
 engine, the scheduler, the prefix cache, the profiler, the usage meter,
-the kernel builds, the flight recorder (tsdb, alerts, incidents) and the
-canary call to emit metric series from
+the kernel builds, the snapshot store, the flight recorder (tsdb, alerts,
+incidents) and the canary call to emit metric series from
 :mod:`.catalog` into the port's process-wide prometheus registry
 (:mod:`..utils.prometheus`). Only the recorders of those paths are copied;
 a later slice copies the rest with the subsystem that calls them.
@@ -421,6 +421,30 @@ def record_prefix_evictions(
             C.PREFIX_CACHE_EVICTIONS_TOTAL, float(n),
             help=C.CATALOG[C.PREFIX_CACHE_EVICTIONS_TOTAL]["help"],
         )
+
+
+def set_snapshot_store_size(
+    *, entries: int, total_bytes: int, registry: Registry | None = None
+) -> None:
+    reg = _reg(registry)
+    reg.gauge_set(
+        C.SNAPSHOT_STORE_ENTRIES, float(entries),
+        help=C.CATALOG[C.SNAPSHOT_STORE_ENTRIES]["help"],
+    )
+    reg.gauge_set(
+        C.SNAPSHOT_STORE_BYTES, float(total_bytes),
+        help=C.CATALOG[C.SNAPSHOT_STORE_BYTES]["help"],
+    )
+
+
+def record_snapshot_store_get(
+    result: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.SNAPSHOT_STORE_GETS_TOTAL, 1.0,
+        labels={"result": result},
+        help=C.CATALOG[C.SNAPSHOT_STORE_GETS_TOTAL]["help"],
+    )
 
 
 # -- roofline / usage accounting (observability/usage.py) ---------------------

@@ -1,6 +1,6 @@
 """Copy of ``modal_examples_tpu/storage/volume.py``: a shared durable
-filesystem with commit/reload semantics. ``CloudBucketMount`` (and
-``storage/gcs.py`` behind it) waits (ROADMAP A13).
+filesystem with commit/reload semantics, and ``CloudBucketMount``, a GCS
+bucket synced through ``storage/gcs.py``.
 
 Reference spec: ``modal.Volume.from_name(name, create_if_missing=True)``
 mounted at a path in the container (vllm_inference.py:77-81), with explicit
@@ -175,3 +175,75 @@ class Volume:
 
     def __repr__(self) -> str:
         return f"Volume({self.name!r})"
+
+
+class CloudBucketMount:
+    """Mount an object-store bucket as a filesystem path.
+
+    Reference: S3/GCS mounts in 12_datasets/coco.py:26-29 and
+    10_integrations/s3_bucket_mount.py. Here it is a GCS bucket:
+    ``pull()``/``push()`` sync objects through a real GCS JSON-API client
+    (storage.gcs — stdlib urllib, bearer auth via Secret env or the GCE
+    metadata server). The mount path itself is a host directory, so dataset
+    examples also run end-to-end with no cloud credentials at all (the
+    zero-egress dev mode).
+    """
+
+    def __init__(
+        self,
+        bucket_name: str,
+        *,
+        bucket_endpoint_url: str | None = None,
+        key_prefix: str | None = None,
+        secret=None,
+        read_only: bool = False,
+    ):
+        self.bucket_name = bucket_name
+        self.key_prefix = key_prefix or ""
+        self.read_only = read_only
+        self.bucket_endpoint_url = bucket_endpoint_url
+        self.secret = secret  # may carry GCS_TOKEN for authenticated pulls
+        root = _config.state_dir() / "buckets" / bucket_name
+        root.mkdir(parents=True, exist_ok=True)
+        self.local_path = root / self.key_prefix if self.key_prefix else root
+        self.local_path.mkdir(parents=True, exist_ok=True)
+
+    def _client(self):
+        """The real GCS JSON-API client (storage.gcs). ``bucket_endpoint_
+        url`` overrides the endpoint — production GCS by default, a local
+        fake-gcs-server in tests, an S3-compatible proxy if needed."""
+        from .gcs import GCSClient
+
+        kw = {}
+        if self.bucket_endpoint_url:
+            kw["endpoint"] = self.bucket_endpoint_url
+        if self.secret is not None:
+            # Secret-provided credential wins over process env / metadata
+            token = self.secret.env_vars().get("GCS_TOKEN")
+            if token:
+                kw["token"] = token
+        return GCSClient(**kw)
+
+    def pull(self) -> int:
+        """Materialize gs://bucket/prefix into the local mount path (the
+        reference's read-mount semantics: coco.py:26-29 reads the bucket
+        through the filesystem). Returns the number of objects pulled."""
+        from .gcs import sync_prefix_to_dir
+
+        return sync_prefix_to_dir(
+            self._client(), self.bucket_name, self.key_prefix, self.local_path
+        )
+
+    def push(self) -> int:
+        """Upload the local mount path back under gs://bucket/prefix (the
+        write-back half for read-write mounts). Returns objects pushed."""
+        if self.read_only:
+            raise PermissionError("read_only mount cannot push")
+        from .gcs import sync_dir_to_prefix
+
+        return sync_dir_to_prefix(
+            self._client(), self.local_path, self.bucket_name, self.key_prefix
+        )
+
+    def __repr__(self) -> str:
+        return f"CloudBucketMount({self.bucket_name!r}, prefix={self.key_prefix!r})"

@@ -1,10 +1,48 @@
-"""Transcription error rates: a copy of ``word_error_rate`` and
-``character_error_rate`` from ``modal_examples_tpu/utils/metrics.py`` (the
-rest of that file belongs to the platform layer). Edit distances run in
-Python; the reference's optional native Levenshtein gives the same
-numbers."""
+"""Copy of ``modal_examples_tpu/utils/metrics.py``: transcription error
+rates (``word_error_rate``, ``character_error_rate``) and the cold-start
+memory-snapshot recorder :func:`record_snapshot_boot`, pushed from the
+executor's supervisor on every snapshot-enabled container boot. Edit
+distances run in Python; the reference's optional native Levenshtein gives
+the same numbers."""
 
 from __future__ import annotations
+
+#: Prometheus metric names for memory-snapshot cold-start accounting
+#: (``snapshot/``). Labels: function=<spec tag>, and result=hit|miss|fallback
+#: on the boots counter. Declared in the catalog (observability.catalog).
+from ..observability.catalog import (  # noqa: F401
+    SNAPSHOT_BOOTS_METRIC,
+    SNAPSHOT_CAPTURES_METRIC,
+)
+
+
+def record_snapshot_boot(
+    tag: str, result: str, *, captured: bool = False, registry=None
+) -> None:
+    """Count one snapshot-enabled container boot.
+
+    ``result`` is the boot's snapshot outcome: ``"hit"`` (restored past
+    ``snap=True`` hooks), ``"miss"`` (no entry yet; cold boot + capture), or
+    ``"fallback"`` (an entry existed but couldn't be used; cold boot).
+    ``captured=True`` additionally counts a published snapshot. The executor
+    calls this on the supervisor side from the container's ready message, so
+    the registry lives in the client process that serves /metrics."""
+    from .prometheus import default_registry
+
+    reg = registry if registry is not None else default_registry
+    reg.counter_inc(
+        SNAPSHOT_BOOTS_METRIC,
+        1.0,
+        labels={"function": tag, "result": result},
+        help="snapshot-enabled container boots by outcome (hit/miss/fallback)",
+    )
+    if captured:
+        reg.counter_inc(
+            SNAPSHOT_CAPTURES_METRIC,
+            1.0,
+            labels={"function": tag},
+            help="memory snapshots captured and published to the store",
+        )
 
 
 def _levenshtein(a: list[str], b: list[str]) -> int:

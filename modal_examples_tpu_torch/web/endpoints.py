@@ -59,7 +59,12 @@ def web_server(
 
 
 def websocket_endpoint(*, label: str | None = None) -> Callable:
-    """Websocket handlers wait with ``web/websocket.py`` (ROADMAP A13)."""
-    raise NotImplementedError(
-        "websocket_endpoint: the port has no web/websocket.py yet (ROADMAP A13)"
-    )
+    """Websocket handler: ``fn(ws, **query_params)`` receives a live
+    ``web.websocket.WebSocket`` (blocking receive/send) after the RFC 6455
+    handshake. The reference's streaming-ASR tier serves this shape via
+    fastapi websockets (streaming_kyutai_stt.py); here the stdlib gateway
+    speaks the protocol itself. Handlers run in the gateway process (a
+    live socket cannot cross the container boundary) — keep them thin and
+    call ``.remote`` for heavy work, or keep model state in the module.
+    """
+    return _mark("websocket_endpoint", label=label)

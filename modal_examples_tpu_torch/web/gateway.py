@@ -17,8 +17,10 @@ expositions), ``/alerts``, ``/incidents[/<id>[?file=NAME]]``, ``/canary``,
 stores), ``/profile`` (the engines' hot-path profilers and the kernel
 build ledger), ``/usage`` (their usage meters) and ``/autoscaler`` (the
 executor's journal). The fleet's routes answer 501 naming the ROADMAP item
-they wait on (:data:`WAITING_ROUTES`). The websocket endpoint decorator
-raises: ``web/websocket.py`` waits (ROADMAP A13).
+they wait on (:data:`WAITING_ROUTES`). A ``@websocket_endpoint`` route
+upgrades the connection (``web/websocket.py``) and runs its handler in the
+gateway's process, as the reference's does: a live socket cannot cross into
+a container.
 """
 
 from __future__ import annotations
@@ -409,6 +411,29 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond_json(200, {"traces": _reqtrace.list_traces()})
         return True
 
+    def _serve_websocket(self, fn, parsed) -> None:
+        """Upgrade to a websocket (426 without ``Upgrade: websocket``) and
+        run the handler ``fn(ws, **query)`` here: the live socket cannot
+        cross the container boundary (``endpoints.websocket_endpoint``)."""
+        if (self.headers.get("Upgrade") or "").lower() != "websocket":
+            self._respond_json(426, {"error": "websocket endpoint: upgrade required"})
+            return
+        from .websocket import ConnectionClosed, perform_handshake
+
+        ws = perform_handshake(self)
+        if ws is None:
+            return
+        raw = {k: v[-1] for k, v in urllib.parse.parse_qs(parsed.query).items()}
+        try:
+            fn.raw_f(ws, **_coerce_kwargs(fn.raw_f, raw))
+        except ConnectionClosed:
+            pass
+        except BaseException as e:
+            _log.warning("websocket handler error: %s: %s", type(e).__name__, e)
+        finally:
+            ws.close()
+            self.close_connection = True
+
     def _serve_incident(self, parts: list[str], q: dict) -> None:
         """``/incidents``: the index; ``/incidents/<id>``: the manifest;
         ``?file=NAME``: one bundled file (the manifest whitelists the names
@@ -442,6 +467,9 @@ class _Handler(BaseHTTPRequestHandler):
             return
         fn = route["function"]
         web = fn.spec.web
+        if web["type"] == "websocket_endpoint":
+            self._serve_websocket(fn, parsed)
+            return
         if web["type"] in ("wsgi_app", "asgi_app"):
             # the function returns an app object, built once (under the
             # route lock: concurrent first requests must not double-build)

@@ -211,12 +211,21 @@ class TestOptions:
 
     @pytest.mark.parametrize("option,item", [("enable_memory_snapshot", "snapshot"), ("region", "A9")])
     def test_waiting_options_name_their_roadmap_item(self, option, item):
+        from modal_examples_tpu_torch.core.app import WAITING_OPTIONS
+
         app = pm.App("waiting-options")
-        value = True if option == "enable_memory_snapshot" else "us-east"
+        if option == "enable_memory_snapshot":
+            # landed with snapshot/: the option no longer waits, and reaches
+            # the spec of a function and of a class
+            assert option not in WAITING_OPTIONS
+            f = app.function(enable_memory_snapshot=True)(lambda: 1)
+            C = app.cls(enable_memory_snapshot=True)(type("C", (), {"m": pm.method()(lambda self: 1)}))
+            assert f.spec.enable_memory_snapshot and C._spec.enable_memory_snapshot
+            return
         with pytest.raises(NotImplementedError, match=item):
-            app.function(**{option: value})
+            app.function(**{option: "us-east"})
         with pytest.raises(NotImplementedError, match=item):
-            app.cls(**{option: value})
+            app.cls(**{option: "us-east"})
 
     def test_cluster_size_names_a10(self):
         app = pm.App("waiting-cluster")
@@ -243,15 +252,15 @@ class TestOptions:
         from modal_examples_tpu_torch.core.cli import WAITING_COMMANDS
         from modal_examples_tpu_torch.web.gateway import WAITING_ROUTES
 
-        with pytest.raises(NotImplementedError, match="A13"):
-            pm.websocket_endpoint()
-        with pytest.raises(NotImplementedError, match="A13"):
-            pm.Image.debian_slim().export_oci("/nonexistent")
+        # A13 landed: the websocket decorator marks its handler, and the OCI
+        # export writes a layout
+        assert pm.websocket_endpoint()(lambda ws: None).__mtpu_web__["type"] == "websocket_endpoint"
+        assert pm.Image.debian_slim().export_oci(str(tmp_path / "oci"))["n_layers"] == 1
         out = run_cli("modal_examples_tpu_torch", "chaos")
         assert out.returncode != 0 and "A9" in out.stderr
-        # what still waits is A8's, A9's and A13's; the observability
-        # subcommands (A6) are served
-        assert {v.split()[0] for v in WAITING_COMMANDS.values()} == {"A8", "A9", "A13"}
+        # what still waits is A8's and A9's; the observability (A6) and the
+        # examples, docs and snapshot subcommands (A13) are served
+        assert {v.split()[0] for v in WAITING_COMMANDS.values()} == {"A8", "A9"}
         assert all("(ROADMAP A9)" in v for v in WAITING_ROUTES.values())
         out = run_cli("modal_examples_tpu_torch", "alerts", env={"MTPU_STATE_DIR": str(tmp_path / "state")})
         assert out.returncode == 0 and "kv_pressure" in out.stdout, out.stderr

@@ -103,6 +103,14 @@ def test_import_scan_reaches_the_platform_layer():
         assert mod in names
 
 
+def test_import_scan_reaches_the_platform_layers_rest():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("storage/dict_queue.py", "core/sandbox.py", "web/websocket.py", "core/oci.py", "storage/gcs.py",
+                "utils/docs.py", "snapshot/__init__.py", "snapshot/store.py", "snapshot/codec.py",
+                "snapshot/capture.py", "snapshot/restore.py"):
+        assert mod in names
+
+
 def _imports_of(path: Path):
     """(module, names) of every import in ``path``, relative ones resolved
     against its package."""
