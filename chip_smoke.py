@@ -8,7 +8,9 @@ self-draft, a 1B-shape draft over int8, prompt lookup), runs the other
 inference workloads (SD3-shape text-to-image through K1, bge-small
 embeddings, whisper-base transcription, CLIP-L), runs the operations layer
 over the same model (the gateway's health, alert and incident routes, the
-correctness canary with a planted drift), LoRA-fine-tunes the same model
+correctness canary with a planted drift), the failure and fleet layers over
+the same weights (disaggregated prefill/decode, live KV migration, reactive
+failover, the watchdog, the router front), LoRA-fine-tunes the same model
 through ``Trainer`` and then an int8 base of it, serves Mixtral-8x7B (bf16
 at depth 8, int8 at full depth through the OpenAI server), runs the
 serverless surface on the card (functions, a Cls and Llama-2-7B behind
@@ -277,6 +279,38 @@ Phases (any failure exits non-zero and prints no result):
    ``Image.cuda_base().add_local_file(...).export_oci(...)`` with every
    digest checked. The containers' launches join the kernels line, marked
    ``container_launches``.
+15. the failure and fleet layers (after phase 13, before training; phase
+   3's resident bf16 weights under every engine, none copying them;
+   ``SERVE_KW``). (15a) phase 3's 700-token prompt prefilled by
+   ``prefill_sync``, its 44 pages extracted, serialized (MTKV1),
+   deserialized and adopted into a second engine's cache: bitwise on the
+   card, and the bytes equal to the same pages copied page by page into a
+   CPU cache and serialized there; bytes and GB/s of each step logged.
+   (15b) one prefill replica (its loop never runs) and two decode replicas
+   behind ``DisaggCoordinator`` serve phase 3's 8 requests twice: staged
+   (every request prefilled and shipped while the decode loops are stopped:
+   K1 and K3 only on the prefill side, then K2 and K3 only on the decode
+   side) and live (the decode loops running, a ``FleetWatchdog`` at the
+   reference's thresholds polling: every replica healthy throughout);
+   greedy and seeded rows token-identical to a unified engine serving each
+   request alone, finish reasons equal, every page back on all three
+   engines; per-request TTFT and the pages, bytes and seconds migrated
+   logged; whether the alone rows equal phase 3's batched burst is logged
+   as a finding. (15c) the burst decoding on decode replica A, the 4
+   longest prompts' requests moved to B mid-decode by ``migrate_live``
+   (four threads): token-identical to the unmigrated rows, texts too.
+   (15f) ``OpenAIServer(router=coordinator)`` answers a completion and a
+   stream over HTTP, their requests carrying the unified tokens. (15d)
+   ``engine.scheduler_crash`` armed while only A's loop runs: the streams,
+   consumed through ``stream_with_failover``, resume on B with the same
+   request objects, the held rows' tokens and streamed texts equal to the
+   uninterrupted run's (no duplicated character). (15e)
+   ``engine.scheduler_freeze`` on A under a ``FleetWatchdog``: A goes
+   degraded (router weight 0.25; a new request lands on B) and then wedged
+   (error-stopped; the frozen stream resumes on B), the peer stays healthy,
+   the gateway's ``/health`` and ``python -m modal_examples_tpu_torch
+   health`` show it. Then 15a and 15b over int8 pages (K3-int8, K2-int8).
+   The phase's peak memory is logged; its launches join the kernels line.
 """
 
 from __future__ import annotations
@@ -4659,6 +4693,584 @@ def int8_rows(pa, gen) -> list:
     return rows
 
 
+# -- phase 15: the failure and fleet layers ------------------------------------------
+
+#: the migrations' wire chunk on the card: a 7B block of phase 3's longest
+#: prompt is ~360 MB of bf16, ~90 chunks of this size
+FLEET_CHUNK_BYTES = 4 << 20
+#: phase 15c's live migrations start once each moved request has this many tokens
+MIGRATE_AFTER_TOKENS = 2
+#: the watchdog's poll on the card (its thresholds are the reference's defaults)
+WATCHDOG_POLL_S = 0.1
+
+
+def fleet_counts(fa, pa, qmm) -> dict:
+    return {k: v for k, v in spec_counts(fa, pa, qmm).items() if v}
+
+
+def wait_for(cond, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.005)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def rows_of(reqs) -> list:
+    return [(list(r.generated_tokens), r.finish_reason) for r in reqs]
+
+
+def hold_rows(reqs, ref_rows: list, label: str) -> int:
+    """Greedy and seeded rows token-identical to ``ref_rows`` (rows with an
+    engine-assigned seed draw a new one per engine and are skipped), every
+    finish reason equal. Returns the rows held."""
+    held = 0
+    for r, (toks, fin) in zip(reqs, ref_rows):
+        if r.finish_reason != fin:
+            raise AssertionError(f"{label}: {r.request_id} finished {r.finish_reason}, the reference {fin}")
+        if r.params.temperature > 0 and r.params.seed is None:
+            continue
+        if list(r.generated_tokens) != toks:
+            raise AssertionError(f"{label}: {r.request_id} tokens differ from the reference run")
+        held += 1
+    log(f"{label}: {held} greedy and seeded rows token-identical to the reference run")
+    return held
+
+
+def fleet_unified_alone(LLMEngine, cfg, params, kv: str, requests) -> tuple:
+    """The held reference: one unified engine serving each request alone (as
+    ``prefill_sync`` prefills it), and the burst's texts."""
+    free_fleet()
+    eng = LLMEngine(cfg, params, kv_dtype=kv, **SERVE_KW)
+    try:
+        reqs, texts = [], []
+        for p, sp in requests:
+            r = eng.submit(p, sp)
+            texts.append("".join(eng.stream(r)))
+            check_finish(r)
+            reqs.append(r)
+        check_pages_returned(eng, f"15b unified alone ({kv})")
+    finally:
+        eng.stop()
+    return reqs, texts
+
+
+def phase15_codec(LLMEngine, cfg, params, kv: str, prompt: str, sp, card: str) -> dict:
+    """15a: phase 3's 700-token prompt prefilled on one card engine, its pages
+    extracted, serialized, deserialized and adopted into a second engine's
+    cache (bitwise); the card's bytes against the same pages copied page by
+    page into a CPU cache and serialized there."""
+    from modal_examples_tpu_torch.serving.disagg import transport as tr
+    from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
+
+    free_fleet()
+    src = LLMEngine(cfg, params, kv_dtype=kv, **SERVE_KW)
+    dst = LLMEngine(cfg, params, kv_dtype=kv, **SERVE_KW)
+    try:
+        req = src.make_request(prompt, sp)
+        state = src.prefill_sync(req)
+        ids = state["claim"]["pages"][: state["n_kv_pages"]]
+        torch.cuda.synchronize()
+        secs = {}
+        t = time.perf_counter()
+        block = src.extract_request_pages(req, state)  # one gather and one copy to the host a leaf
+        secs["extract"] = time.perf_counter() - t
+        t = time.perf_counter()
+        wire = tr.serialize_block(block)
+        secs["serialize"] = time.perf_counter() - t
+        t = time.perf_counter()
+        back = tr.deserialize_block(wire)
+        secs["deserialize"] = time.perf_counter() - t
+        new = dst.cache.allocator.alloc(len(ids))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.adopt_pages(dst.cache, back, new)
+        torch.cuda.synchronize()
+        secs["adopt"] = time.perf_counter() - t
+        src_ids = torch.tensor(ids, device=src.device)
+        dst_ids = torch.tensor(new, device=dst.device)
+        leaves = []
+        for (name, a), (name_b, b) in zip(tr.wire_leaves(src.cache), tr.wire_leaves(dst.cache)):
+            if name != name_b or not torch.equal(a.index_select(1, src_ids), b.index_select(1, dst_ids)):
+                raise AssertionError(f"15a ({kv}): adopted leaf {name} is not the source's pages bitwise")
+            leaves.append(name)
+        # the same pages through the CPU: copied page by page into a CPU cache
+        host = PagedKVCache.create(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                                   n_pages=len(ids) + 1, page_size=src.cache.page_size, kv_dtype=kv, device="cpu")
+        for (_, card_leaf), (_, host_leaf) in zip(tr.wire_leaves(src.cache), tr.wire_leaves(host)):
+            for j, p in enumerate(ids):
+                host_leaf[:, j + 1].copy_(card_leaf[:, p].cpu())
+        host_wire = tr.serialize_block(tr.extract_pages(host, list(range(1, len(ids) + 1)),
+                                                        block_hashes=block.block_hashes, meta=block.meta))
+        if host_wire != wire:
+            raise AssertionError(f"15a ({kv}): the card's block differs from the CPU round trip's bytes")
+        if block.meta["position"] != len(req.prompt_tokens) or block.n_pages != len(ids):
+            raise AssertionError(f"15a ({kv}): block meta {block.meta['position']} / {block.n_pages} pages")
+        src.release_claim(state["claim"])
+        dst.cache.allocator.free(new)
+        nbytes = block.nbytes()
+        out = {
+            "kv_dtype": kv, "card": card, "pages": len(ids), "leaves": leaves, "block_bytes": nbytes,
+            "wire_bytes": len(wire), "seconds": secs,
+            "gb_per_s": {k: (len(wire) if k in ("serialize", "deserialize") else nbytes) / v / 1e9
+                         for k, v in secs.items()},
+        }
+    finally:
+        src.stop()
+        dst.stop()
+    log(f"15a codec ({kv}, {card}): {len(ids)} pages, {len(wire)} wire bytes, bitwise on the card and equal to "
+        f"the CPU round trip's bytes; {json.dumps(out)}")
+    return out
+
+
+def fleet(LLMEngine, cfg, params, kv: str):
+    """One prefill replica (its loop never runs) and two decode replicas
+    over the one set of weights, behind a ``DisaggCoordinator``."""
+    from modal_examples_tpu_torch.scheduling.router import EngineReplica
+    from modal_examples_tpu_torch.serving.disagg import DisaggCoordinator
+
+    free_fleet()
+    reps = [EngineReplica(LLMEngine(cfg, params, kv_dtype=kv, **SERVE_KW), name, role=role)
+            for name, role in (("prefill-0", "prefill"), ("decode-a", "decode"), ("decode-b", "decode"))]
+    for r in reps:  # one set of weights: no engine holds a copy
+        if r.engine.params["layers"][0]["wq"].data_ptr() != params["layers"][0]["wq"].data_ptr():
+            raise AssertionError(f"phase 15: {r.name}'s engine copied the weights")
+    return DisaggCoordinator(reps, chunk_bytes=FLEET_CHUNK_BYTES), reps
+
+
+def free_fleet() -> None:
+    """Collect the engines of the step before (their caches sit in reference
+    cycles until a collection) before the next step builds its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def owner_and_peer(co, reqs) -> tuple:
+    owners = {r._router_replica.name for r in reqs}
+    if len(owners) != 1:
+        raise AssertionError(f"the burst landed on {owners}: want one decode replica")
+    (owner,) = owners
+    a = next(r for r in co.replicas if r.name == owner)
+    b = next(r for r in co.replicas if r.serves_requests and r.name != owner)
+    return a, b
+
+
+def submit_through(co, requests) -> tuple:
+    """Each request through the coordinator (its prefill, transfer and
+    enqueue on the caller's thread); per request the seconds, pages and wire
+    bytes migrated."""
+    reqs, moved = [], []
+    for p, sp in requests:
+        pages0, bytes0 = co.pages_migrated, co.bytes_migrated
+        t = time.monotonic()
+        reqs.append(co.submit(p, sp))
+        moved.append({"seconds": time.monotonic() - t, "pages": co.pages_migrated - pages0,
+                      "wire_bytes": co.bytes_migrated - bytes0})
+    return reqs, moved
+
+
+def phase15_disagg(fa, pa, qmm, LLMEngine, cfg, params, kv: str, requests, ref_rows, card: str) -> dict:
+    """15b: phase 3's burst through the coordinator, twice. Staged: every
+    request prefilled and shipped while the decode loops are still stopped
+    (the prefill side's launches), then decoded (the decode side's). Live:
+    the decode loops running, the watchdog polling the decode replicas (every
+    replica healthy throughout), per-request TTFT. Both token-identical to
+    the unified engine serving each request alone; every page back."""
+    from modal_examples_tpu_torch.serving.health import FleetWatchdog, progress_age, replica_snapshot
+
+    co, reps = fleet(LLMEngine, cfg, params, kv)
+    out: dict = {"kv_dtype": kv, "card": card}
+    try:
+        zero_counts(fa, pa, qmm)
+        reqs, moved = submit_through(co, requests)
+        prefill_side = fleet_counts(fa, pa, qmm)
+        zero_counts(fa, pa, qmm)
+        for r in reqs:
+            "".join(co.stream(r))
+            check_finish(r)
+        settle(reqs[0]._router_replica.engine)
+        decode_side = fleet_counts(fa, pa, qmm)
+        scatter = "kv_scatter_int8" if kv == "int8" else "kv_scatter"
+        decode_k = "paged_decode_int8" if kv == "int8" else "paged_decode"
+        if not (prefill_side.get("flash_fwd", 0) > 0 and prefill_side.get(scatter, 0) > 0
+                and not prefill_side.get(decode_k)):
+            raise AssertionError(f"15b ({kv}) prefill side launches {prefill_side}: want K1 and K3, no decode")
+        if not (decode_side.get(decode_k, 0) > 0 and decode_side.get(scatter, 0) > 0
+                and not decode_side.get("flash_fwd")):
+            raise AssertionError(f"15b ({kv}) decode side launches {decode_side}: want K2 and K3, no K1")
+        out["staged"] = {"held": hold_rows(reqs, ref_rows, f"15b staged ({kv})"), "moved": moved,
+                         "launches": {"prefill_side": prefill_side, "decode_side": decode_side}}
+        launches = {k: prefill_side.get(k, 0) + decode_side.get(k, 0) for k in {*prefill_side, *decode_side}}
+        for r in reps:
+            check_pages_returned(r.engine, f"15b staged ({kv}) {r.name}")
+        # live: the decode loops running, the watchdog over the decode replicas
+        for e in co.serving_engines():
+            e.start()
+        wd = FleetWatchdog(co.router, poll_s=WATCHDOG_POLL_S, journal_path=ROOT / "build" / "state" / "fleet-15b.jsonl")
+        states: set = set()
+        ages: list = []
+        polls = {"n": 0}
+        real_poll = wd._poll_replica
+
+        def poll(replica, now):  # record what the ladder saw, and the worst progress age
+            acts = real_poll(replica, now)
+            states.add(replica.health_state)
+            polls["n"] += 1
+            age = progress_age(replica_snapshot(replica, now))
+            if age is not None:
+                ages.append(age)
+            return acts
+
+        wd._poll_replica = poll
+        wd.start()
+        zero_counts(fa, pa, qmm)
+        try:
+            t0 = time.monotonic()
+            reqs_live, moved_live = submit_through(co, requests)
+            for r in reqs_live:
+                "".join(co.stream(r))
+                check_finish(r)
+            wall = time.monotonic() - t0
+            settle(reqs_live[0]._router_replica.engine)
+            time.sleep(3 * WATCHDOG_POLL_S)
+        finally:
+            wd.stop()
+        live_counts = fleet_counts(fa, pa, qmm)
+        for k, v in live_counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if states != {"healthy"} or any(e["action"] != "transition" or e["state"] != "healthy" for e in wd.events):
+            raise AssertionError(f"15b ({kv}): the watchdog saw {states}, events {wd.events[-5:]}")
+        stats = co.stats()["migrations"]
+        if stats["ok"] != 2 * len(requests) or stats["fallback"] or stats["aborted"]:
+            raise AssertionError(f"15b ({kv}) migrations {stats}")
+        for r in reps:
+            check_pages_returned(r.engine, f"15b live ({kv}) {r.name}")
+        out["live"] = {
+            "held": hold_rows(reqs_live, ref_rows, f"15b live ({kv})"),
+            "ttft_s": [r.first_token_at - r.created for r in reqs_live],
+            "moved": moved_live,
+            "wall_s": wall,
+            "burst_tok_per_s": sum(r.n_generated for r in reqs_live) / wall,
+            "watchdog_polls": polls["n"],
+            "watchdog_states": sorted(states),
+            "watchdog_max_progress_age_s": max(ages, default=0.0),
+            "launches": live_counts,
+        }
+        out["migrations"] = stats
+        out["launches"] = launches
+    finally:
+        for r in reps:
+            r.engine.stop()
+    log(f"15b disaggregated serving ({kv}, {card}): {json.dumps(out)}")
+    return out
+
+
+def phase15_live_migration(fa, pa, qmm, co, requests, ref_rows, ref_texts, card: str) -> dict:
+    """15c: the burst decoding on decode replica A; the 4 longest prompts'
+    requests, each past its first tokens, moved to B with ``migrate_live``
+    (four threads, so one scheduler tick detaches them all): their tokens
+    and texts identical to the unmigrated rows."""
+    import threading
+
+    for e in co.serving_engines():
+        e.start()
+    zero_counts(fa, pa, qmm)
+    reqs, _ = submit_through(co, requests)
+    a, b = owner_and_peer(co, reqs)
+    pieces = [[] for _ in reqs]
+    readers = [threading.Thread(target=lambda i=i: pieces[i].extend(co.stream(reqs[i]))) for i in range(len(reqs))]
+    for t in readers:
+        t.start()
+    longest = sorted(range(len(reqs)), key=lambda i: -len(reqs[i].prompt_tokens))[:4]
+    wait_for(lambda: all(len(reqs[i].generated_tokens) >= MIGRATE_AFTER_TOKENS for i in longest), 120,
+             "the migrated requests' first tokens")
+    blocks = []
+    real_out = a.engine.migrate_out
+
+    def migrate_out(req, **kw):  # the blocks' sizes, for the log
+        kind, block = real_out(req, **kw)
+        if block is not None:
+            blocks.append({"pages": block.n_pages, "bytes": block.nbytes(), "position": block.meta["position"],
+                           "generated": len(block.meta["resume"]["generated"])})
+        return kind, block
+
+    a.engine.migrate_out = migrate_out
+    results, secs = [None] * 4, [0.0] * 4
+
+    def move(j, i):
+        t = time.monotonic()
+        results[j] = co.migrate_live(reqs[i], b.name)
+        secs[j] = time.monotonic() - t
+
+    movers = [threading.Thread(target=move, args=(j, i)) for j, i in enumerate(longest)]
+    for t in movers:
+        t.start()
+    for t in movers + readers:
+        t.join(timeout=600)
+    del a.engine.migrate_out
+    if results != ["ok"] * 4:
+        raise AssertionError(f"15c: migrate_live results {results}: want four mid-decode moves")
+    moved_to_b = [reqs[i]._router_replica.name for i in longest]
+    if moved_to_b != [b.name] * 4:
+        raise AssertionError(f"15c: owners after the moves {moved_to_b}")
+    for r in reqs:
+        check_finish(r)
+    held = hold_rows(reqs, ref_rows, "15c live migration")
+    texts = ["".join(p) for p in pieces]
+    for i, (t, want) in enumerate(zip(texts, ref_texts)):
+        if reqs[i].params.seed is not None or reqs[i].params.temperature == 0:
+            if t != want:
+                raise AssertionError(f"15c: request {i}'s streamed text differs from the reference's")
+    for eng in (a.engine, b.engine):
+        settle(eng)
+        check_pages_returned(eng, "15c")
+    out = {"card": card, "moved": [reqs[i].request_id for i in longest], "source": a.name, "target": b.name,
+           "seconds": secs, "blocks": blocks, "held": held, "launches": fleet_counts(fa, pa, qmm)}
+    log(f"15c live migration ({card}): {json.dumps(out)}")
+    return out
+
+
+def phase15_router_front(fa, pa, qmm, co, OpenAIServer, requests, ref_rows, ref_texts, card: str) -> dict:
+    """15f: ``OpenAIServer(router=coordinator)`` answers a completion and a
+    stream over HTTP; the requests it placed (recorded by an instance wrapper
+    on the coordinator's ``submit``) carry the unified run's tokens."""
+    placed = []
+    real_submit = co.submit
+
+    def submit(*a, **kw):
+        r = real_submit(*a, **kw)
+        placed.append(r)
+        return r
+
+    co.submit = submit
+    srv = OpenAIServer(router=co, model_name="llama2-7b", port=0).start()
+    base = f"http://{srv.host}:{srv.port}"
+    zero_counts(fa, pa, qmm)
+    try:
+        bodies = []
+        for i in (0, 2):
+            p, sp = requests[i]
+            bodies.append({"prompt": p, "max_tokens": sp.max_tokens, "temperature": sp.temperature,
+                           "top_p": sp.top_p, "seed": sp.seed})
+        status, headers, text = http(base, "/v1/completions", bodies[0])
+        done = json.loads(text)
+        streamed = stream_completion(base, dict(bodies[1], stream=True, stream_options={"include_usage": True}))
+    finally:
+        srv.stop()
+        del co.submit
+    if status != 200 or len(placed) != 2 or headers.get("x-mtpu-request-id") != placed[0].request_id:
+        raise AssertionError(f"15f: status {status}, {len(placed)} placed, headers {headers}")
+    got = [(done["choices"][0]["text"], done["choices"][0]["finish_reason"]),
+           (streamed["text"], streamed["finish"])]
+    for (r, (t, fin)), i in zip(zip(placed, got), (0, 2)):
+        if (list(r.generated_tokens), r.finish_reason) != ref_rows[i] or t != ref_texts[i] or fin != ref_rows[i][1]:
+            raise AssertionError(f"15f: request {i} through the router front differs from the unified run")
+    out = {"card": card, "requests": [r.request_id for r in placed], "owners": [r._router_replica.name for r in placed],
+           "launches": fleet_counts(fa, pa, qmm)}
+    log(f"15f router front ({card}): a completion and a stream through OpenAIServer(router=...), tokens equal to "
+        f"the unified run's; {json.dumps(out)}")
+    return out
+
+
+def phase15_failover(fa, pa, qmm, co, requests, ref_rows, ref_texts, card: str) -> dict:
+    """15d: ``engine.scheduler_crash`` armed while only decode replica A's
+    loop runs, once every request has its first tokens: the streams,
+    consumed through ``stream_with_failover``, resume on B: the same request
+    objects and ids, no duplicated character (the streamed texts equal the
+    uninterrupted run's), tokens held to the uninterrupted run."""
+    import threading
+
+    from modal_examples_tpu_torch.faults import inject
+
+    for e in co.serving_engines():
+        e.stop()
+    zero_counts(fa, pa, qmm)
+    reqs, _ = submit_through(co, requests)
+    ids = [r.request_id for r in reqs]
+    a, b = owner_and_peer(co, reqs)
+    a.engine.start()
+    pieces = [[] for _ in reqs]
+    readers = [threading.Thread(target=lambda i=i: pieces[i].extend(co.stream(reqs[i]))) for i in range(len(reqs))]
+    for t in readers:
+        t.start()
+    wait_for(lambda: all(len(r.generated_tokens) >= MIGRATE_AFTER_TOKENS or r.finish_reason for r in reqs), 120,
+             "the burst's first tokens")
+    plan = inject.FaultPlan({"engine.scheduler_crash": {"on_hit": 1}}, seed=0)
+    with inject.active(plan):
+        wait_for(lambda: plan.fired().get("engine.scheduler_crash") == 1, 60, "the injected crash")
+    generated_at_crash = [len(r.generated_tokens) for r in reqs]
+    for t in readers:
+        t.join(timeout=600)
+    resumed = [r.request_id for r in reqs if r._router_replica is b]
+    if not resumed or [r.request_id for r in reqs] != ids:
+        raise AssertionError(f"15d: {len(resumed)} requests resumed on {b.name}")
+    for r in reqs:
+        check_finish(r)
+    held = hold_rows(reqs, ref_rows, "15d reactive failover")
+    # the held rows' streamed texts against the uninterrupted run's: equal
+    # texts leave no duplicated (and no missing) character
+    texts = ["".join(p) for p in pieces]
+    kept = [i for i, r in enumerate(reqs) if r.params.seed is not None or r.params.temperature == 0]
+    dup = sum(max(0, len(texts[i]) - len(ref_texts[i])) for i in kept)
+    if dup or any(texts[i] != ref_texts[i] for i in kept):
+        raise AssertionError(f"15d: streamed texts differ from the uninterrupted run's ({dup} extra characters)")
+    for eng in (a.engine, b.engine):
+        settle(eng)
+        check_pages_returned(eng, "15d")
+    out = {"card": card, "victim": a.name, "target": b.name, "resumed": resumed, "generated_at_crash":
+           generated_at_crash, "duplicated_chars": dup, "held": held, "exempted_positions": [],
+           "launches": fleet_counts(fa, pa, qmm)}
+    log(f"15d reactive failover ({card}): {json.dumps(out)}")
+    return out
+
+
+def phase15_health(fa, pa, qmm, co, requests, card: str) -> dict:
+    """15e: ``engine.scheduler_freeze`` armed while only decode replica A's
+    loop runs a request: under a ``FleetWatchdog`` at the reference's
+    thresholds A goes degraded (its router weight drops to 0.25, and a new
+    request lands on B) and then wedged (the ladder error-stops it and the
+    frozen stream resumes on B); the gateway's ``/health`` route and
+    ``python -m modal_examples_tpu_torch health`` show it."""
+    import threading
+
+    from modal_examples_tpu_torch import App
+    from modal_examples_tpu_torch.faults import inject
+    from modal_examples_tpu_torch.serving.health import FleetWatchdog, WatchdogPolicy
+    from modal_examples_tpu_torch.web.gateway import Gateway
+
+    for e in co.serving_engines():
+        e.stop()
+    zero_counts(fa, pa, qmm)
+    p, sp = requests[7]
+    long_sp = dataclasses.replace(sp, max_tokens=SERVE_KW["max_model_len"] - 1 - 700)
+    req = co.submit(p, long_sp)
+    (a, b) = owner_and_peer(co, [req])
+    a.engine.start()
+    pieces: list = []
+    reader = threading.Thread(target=lambda: pieces.extend(co.stream(req)))
+    reader.start()
+    wait_for(lambda: len(req.generated_tokens) >= MIGRATE_AFTER_TOKENS, 120, "the frozen request's first tokens")
+    policy = WatchdogPolicy()
+    wd = FleetWatchdog(co.router, policy=policy, poll_s=WATCHDOG_POLL_S).start()
+    t_freeze = time.monotonic()
+    try:
+        plan = inject.FaultPlan({"engine.scheduler_freeze": {"on_hit": 1}}, seed=0)
+        with inject.active(plan):
+            wait_for(lambda: plan.fired().get("engine.scheduler_freeze") == 1, 60, "the injected freeze")
+        wait_for(lambda: a.health_state == "degraded", policy.degraded_after_s + 10, f"{a.name} degraded")
+        t_degraded = time.monotonic() - t_freeze
+        weight = co.router.health_weight(a.name)
+        fresh = co.submit(*requests[0])
+        landed = fresh._router_replica.name
+        fresh_text = "".join(co.stream(fresh))
+        wait_for(lambda: a.health_state == "wedged", policy.wedged_after_s + 10, f"{a.name} wedged")
+        t_wedged = time.monotonic() - t_freeze
+        reader.join(timeout=600)
+        gw = Gateway(App("smoke-fleet")).start()
+        try:
+            code, view = http_json(gw.base_url + "/health")
+        finally:
+            gw.stop()
+    finally:
+        wd.stop()
+    cli = subprocess.run([sys.executable, "-m", "modal_examples_tpu_torch", "health"], capture_output=True, text=True,
+                         cwd=ROOT, timeout=120, env=dict(os.environ))
+    actions = [(e.get("action"), e.get("state")) for e in wd.events if e.get("replica") == a.name]
+    peer_events = [e for e in wd.events if e.get("replica") == b.name]
+    if peer_events:
+        raise AssertionError(f"15e: the peer {b.name} left healthy: {peer_events}")
+    if weight != policy.degraded_weight or landed != b.name:
+        raise AssertionError(f"15e: {a.name} degraded at weight {weight}, the new request landed on {landed}")
+    if ("transition", "degraded") not in actions or ("transition", "wedged") not in actions or \
+            ("stop_revive", None) not in actions:
+        raise AssertionError(f"15e: the ladder's actions on {a.name}: {actions}")
+    if req.finish_reason not in ("length", "stop") or req._router_replica is not b:
+        raise AssertionError(f"15e: the frozen stream ended {req.finish_reason} on {req._router_replica.name}")
+    if code != 200 or view["replicas"].get(a.name, {}).get("state") != "wedged":
+        raise AssertionError(f"15e: /health answered {code}: {view}")
+    if cli.returncode != 0 or "wedged" not in cli.stdout or a.name not in cli.stdout:
+        raise AssertionError(f"15e: the health CLI printed {cli.stdout[-800:]} {cli.stderr[-800:]}")
+    for e in co.serving_engines():
+        e.stop()
+    a.engine.revive()
+    for eng in (a.engine, b.engine):
+        check_pages_returned(eng, "15e")
+    out = {"card": card, "frozen": a.name, "peer": b.name, "degraded_after_s": t_degraded,
+           "wedged_after_s": t_wedged, "weight_degraded": weight, "new_request_on": landed,
+           "ladder": actions, "health_route": view["replicas"], "fresh_chars": len(fresh_text),
+           "frozen_request": {"finish": req.finish_reason, "generated": len(req.generated_tokens)},
+           "launches": fleet_counts(fa, pa, qmm)}
+    log(f"15e health ({card}): {json.dumps(out)}\n{cli.stdout}")
+    return out
+
+
+def phase_fleet_layers(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, params, phase3_rows,
+                       card: str) -> dict:
+    """Phase 15: the failure and fleet layers over phase 3's resident bf16
+    weights (every engine built over that one set; none copies it): 15a the
+    MTKV1 codec on the card, 15b disaggregated serving, 15c live migration,
+    15f the router front, 15d reactive failover, 15e the watchdog; then 15a
+    and 15b again over int8 pages."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    requests = make_requests(SamplingParams)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    out: dict = {"card": card}
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    uni, texts = fleet_unified_alone(LLMEngine, cfg, params, "bfloat16", requests)
+    ref_rows = rows_of(uni)
+    # the burst's engine-seeded rows drew other seeds: greedy and seeded rows compared
+    kept = [i for i, (_, sp) in enumerate(requests) if sp.seed is not None or sp.temperature == 0]
+    same = all((list(phase3_rows[i][0]), phase3_rows[i][1]) == ref_rows[i] for i in kept)
+    log(f"15b finding: each request served alone {'equals' if same else 'differs from'} phase 3's batched burst "
+        f"token for token ({card})")
+    out["alone_equals_phase3_burst"] = same
+    out["codec"] = {"bfloat16": phase15_codec(LLMEngine, cfg, params, "bfloat16", *requests[7], card)}
+    out["disagg"] = {"bfloat16": phase15_disagg(fa, pa, qmm, LLMEngine, cfg, params, "bfloat16", requests, ref_rows,
+                                                card)}
+    add(out["disagg"]["bfloat16"]["launches"])
+    co, reps = fleet(LLMEngine, cfg, params, "bfloat16")
+    try:
+        out["live_migration"] = phase15_live_migration(fa, pa, qmm, co, requests, ref_rows, texts, card)
+        add(out["live_migration"]["launches"])
+        out["router_front"] = phase15_router_front(fa, pa, qmm, co, OpenAIServer, requests, ref_rows, texts, card)
+        add(out["router_front"]["launches"])
+        out["failover"] = phase15_failover(fa, pa, qmm, co, requests, ref_rows, texts, card)
+        add(out["failover"]["launches"])
+        out["health"] = phase15_health(fa, pa, qmm, co, requests, card)
+        add(out["health"]["launches"])
+    finally:
+        for r in reps:
+            r.engine.stop()
+    del co, reps
+    out["peak_gb_bf16"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    uni8, _ = fleet_unified_alone(LLMEngine, cfg, params, "int8", requests)
+    out["codec"]["int8"] = phase15_codec(LLMEngine, cfg, params, "int8", *requests[7], card)
+    out["disagg"]["int8"] = phase15_disagg(fa, pa, qmm, LLMEngine, cfg, params, "int8", requests, rows_of(uni8), card)
+    add(out["disagg"]["int8"]["launches"])
+    for k in ("flash_fwd", "paged_decode", "kv_scatter", "paged_decode_int8", "kv_scatter_int8"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"phase 15: {k} never launched: {launches}")
+    out["launches"] = launches
+    out["weights_gb"] = weights_gb
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 the failure and fleet layers ({card}): ok in {out['seconds']:.1f}s, weights {weights_gb:.2f} GB, "
+        f"peak {out['peak_gb']:.2f} GB; launches {launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the GPU only", file=sys.stderr)
@@ -4736,6 +5348,10 @@ def main() -> int:
     observability = phase_observability(fa, pa, llama, LLMEngine, params)
     gc.collect()
     torch.cuda.empty_cache()
+    fleet_layers = phase_fleet_layers(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, params,
+                                      metrics["tokens"], card)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
     del params
     gc.collect()
@@ -4780,12 +5396,16 @@ def main() -> int:
     # phase 12's int8 LoRA steps (K7, K1, K5, K6) and phase 13's canary
     # rounds (K1, K2, K3)
     counts = {k: v + lora8["launches"].get(k, 0) + observability["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 15's fleet: K1 and K3 on the prefill replica, K2 and K3 on the
+    # decode replicas, the int8 pages' K2-int8 and K3-int8
+    counts = {k: v + fleet_layers["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
         f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}, phase 14's "
         f"containers {rest['container_launches']}, int8 LoRA "
-        f"{lora8['launches']}, canary {observability['launches']}; kernels line (phases 8-14 summed) {counts}")
+        f"{lora8['launches']}, canary {observability['launches']}, fleet {fleet_layers['launches']}; kernels line "
+        f"(phases 8-15 summed) {counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
     errs["flash_fwd"] = max(errs["flash_fwd"], serverless["functions"]["k1"]["max_abs_err"],

@@ -58,7 +58,7 @@ def _validate_priority(priority: str) -> None:
 WAITING_OPTIONS = {
     "cluster_size": "@clustered multi-host slices wait with ROADMAP A10",
     "cluster_chips_per_host": "@clustered multi-host slices wait with ROADMAP A10",
-    "region": "region routing waits with the fleet (ROADMAP A9)",
+    "region": "region routing waits with the fleet (ROADMAP A9c)",
 }
 
 

@@ -32,6 +32,9 @@ Usage:
     python -m modal_examples_tpu_torch incidents [list|show|capture]  # incident bundles
     python -m modal_examples_tpu_torch scaler [N] [--function TAG]    # autoscaler decisions
     python -m modal_examples_tpu_torch top [--watch S]       # serving summary + SLO burn rates
+    python -m modal_examples_tpu_torch sched [--watch S]     # queue depths, sheds, router affinity
+    python -m modal_examples_tpu_torch disagg [--watch S]    # replica roles + page migrations
+    python -m modal_examples_tpu_torch health [--last N]     # watchdog classification + ladder journal
 
 The JAX package's other subcommands wait with their subsystems
 (:data:`WAITING_COMMANDS`): each exits non-zero naming its ROADMAP item.
@@ -1381,6 +1384,7 @@ def cmd_top(argv: list[str]) -> int:
     from ..observability.export import pushed_jobs
     from ..observability.journal import named_journal
     from ..observability.slo import evaluate
+    from ..serving.health import decode_watchdog_series
     from ..utils.prometheus import merge_expositions, parse_exposition
 
     usage = "usage: python -m modal_examples_tpu_torch top [--watch S] [--dir PATH]"
@@ -1449,8 +1453,20 @@ def cmd_top(argv: list[str]) -> int:
                 f"kv_dtype={labels.get('kv_dtype', '?')} "
                 f"tp={labels.get('tp', '1')}"
             )
-        # the fleet's watchdog line (per-replica health) comes with
-        # serving/health.py (ROADMAP A9)
+        # the gray-failure watchdog: per-replica classification and
+        # progress age, when a watchdog has pushed
+        wd = decode_watchdog_series(merged)
+        wd_states = wd["states"]
+        if wd_states:
+            wd_ages = wd["ages"]
+            print(
+                "replica health: "
+                + "  ".join(
+                    f"{name}={state}"
+                    + (f"({wd_ages[name]:.1f}s)" if wd_ages.get(name) else "")
+                    for name, state in sorted(wd_states.items())
+                )
+            )
         print()
         print(f"{'SLO':<22} {'TARGET':>10} {'OBSERVED':>10} {'BURN':>6}  OK")
         for r in evaluate(merged, burn_rate_registry=merged):
@@ -1487,16 +1503,283 @@ def cmd_top(argv: list[str]) -> int:
     return 0
 
 
+def cmd_sched(argv: list[str]) -> int:
+    """Live scheduler view: per-class queue depth + admission wait, shed
+    rates by reason, deadline misses, and router affinity, from the pushed
+    metrics files (the scheduling companion of ``top``).
+
+    ``--watch S`` refreshes every S seconds; ``--dir PATH`` overrides the
+    state dir root.
+    """
+    from ..observability import catalog as C
+    from ..observability.export import pushed_jobs
+    from ..scheduling.policy import PRIORITY_CLASSES
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    usage = f"usage: {PROG} sched [--watch S] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, watch_s = _pop_flag(argv, "--watch", usage)
+    watch = float(watch_s) if watch_s is not None else None
+
+    from pathlib import Path
+
+    metrics_root = Path(root) / "metrics" if root else None
+
+    def render() -> None:
+        jobs = pushed_jobs(metrics_root)
+        if not jobs:
+            print("no pushed metrics yet (run an app or bench first)")
+        merged = parse_exposition(merge_expositions(jobs))
+        print(f"jobs: {len(jobs)} ({', '.join(sorted(jobs)) or 'none'})")
+        print(
+            f"{'CLASS':<13} {'QUEUED':>6} {'ADMITTED':>9} {'SHED':>6} "
+            f"{'WAIT p50/p95 ms':>18}"
+        )
+        for klass in PRIORITY_CLASSES:
+            depth = merged.total(C.SCHED_QUEUE_DEPTH, {"class": klass})
+            admitted = merged.total(
+                C.REQUESTS_ADMITTED_TOTAL, {"class": klass}
+            )
+            shed = merged.total(C.SHEDS_TOTAL, {"class": klass})
+            q = merged.histogram_quantiles(
+                C.SCHED_QUEUE_WAIT_SECONDS,
+                quantiles=(0.5, 0.95),
+                aggregate={"class": klass},
+            )
+            wait = (
+                f"{q['p50'] * 1000:>7.1f}/{q['p95'] * 1000:<7.1f}"
+                if q
+                else "      -/-     "
+            )
+            print(
+                f"{klass:<13} {depth:>6.0f} {admitted:>9.0f} {shed:>6.0f} "
+                f"{wait:>18}"
+            )
+        offered = merged.total(C.REQUESTS_ADMITTED_TOTAL) + merged.total(
+            C.SHEDS_TOTAL
+        )
+        shed_rate = (
+            merged.total(C.SHEDS_TOTAL) / offered if offered else 0.0
+        )
+        by_reason = {}
+        for lbls, v in merged.series(C.SHEDS_TOTAL):
+            reason = lbls.get("reason", "?")
+            by_reason[reason] = by_reason.get(reason, 0.0) + v
+        reasons = " ".join(
+            f"{r}={int(v)}" for r, v in sorted(by_reason.items())
+        )
+        print(
+            f"shed rate {shed_rate:.4f}"
+            + (f"   by reason: {reasons}" if reasons else "")
+        )
+        misses = {
+            lbls.get("stage", "?"): v
+            for lbls, v in merged.series(C.DEADLINE_MISSES_TOTAL)
+        }
+        if misses:
+            print(
+                "deadline misses: "
+                + " ".join(f"{k}={int(v)}" for k, v in sorted(misses.items()))
+            )
+        routed = merged.total(C.ROUTER_REQUESTS_TOTAL)
+        if routed:
+            print(
+                f"router: {int(routed)} placed, "
+                f"{int(merged.total(C.ROUTER_AFFINITY_HITS_TOTAL))} affinity "
+                f"hits, "
+                f"{int(merged.total(C.ROUTER_REQUESTS_TOTAL, {'route': 'fallback'}))}"
+                f" fallbacks"
+            )
+
+    if watch is None:
+        render()
+        return 0
+    import time as _time
+
+    try:
+        while True:
+            print("\033[2J\033[H", end="")
+            render()
+            _time.sleep(watch)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_disagg(argv: list[str]) -> int:
+    """Live disaggregated-serving view: replica roles and the outstanding
+    and completed migrations (wire bytes, chunk retries, latency
+    quantiles), from the pushed metrics files (the disagg companion of
+    ``sched``). The prefix tiers' table waits with ROADMAP A9b.
+
+    ``--watch S`` refreshes every S seconds; ``--dir PATH`` overrides the
+    state dir root.
+    """
+    from ..observability import catalog as C
+    from ..observability.export import pushed_jobs
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    usage = f"usage: {PROG} disagg [--watch S] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, watch_s = _pop_flag(argv, "--watch", usage)
+    watch = float(watch_s) if watch_s is not None else None
+
+    from pathlib import Path
+
+    metrics_root = Path(root) / "metrics" if root else None
+
+    def render() -> None:
+        jobs = pushed_jobs(metrics_root)
+        if not jobs:
+            print("no pushed metrics yet (run an app or bench first)")
+        merged = parse_exposition(merge_expositions(jobs))
+        print(f"jobs: {len(jobs)} ({', '.join(sorted(jobs)) or 'none'})")
+        roles = sorted(
+            (lbls.get("replica", "?"), lbls.get("role", "?"))
+            for lbls, v in merged.series(C.REPLICA_ROLE)
+            if v
+        )
+        if roles:
+            print(f"{'REPLICA':<24} ROLE")
+            for name, role in roles:
+                print(f"{name:<24} {role}")
+        else:
+            print("no role-tagged replicas (unified fleet)")
+        by_result = {
+            lbls.get("result", "?"): v
+            for lbls, v in merged.series(C.DISAGG_MIGRATIONS_TOTAL)
+        }
+        inflight = merged.total(C.DISAGG_MIGRATIONS_INFLIGHT)
+        q = merged.histogram_quantiles(
+            C.DISAGG_MIGRATION_SECONDS, quantiles=(0.5, 0.95), aggregate={}
+        )
+        lat = (
+            f"{q['p50'] * 1000:.1f}/{q['p95'] * 1000:.1f} ms"
+            if q
+            else "-/-"
+        )
+        print(
+            f"migrations: {int(sum(by_result.values()))} total "
+            f"({' '.join(f'{k}={int(v)}' for k, v in sorted(by_result.items())) or 'none'})"
+            f"   inflight {int(inflight)}"
+        )
+        print(
+            f"  pages {int(merged.total(C.DISAGG_PAGES_MIGRATED_TOTAL))}   "
+            f"wire bytes {int(merged.total(C.DISAGG_MIGRATION_BYTES_TOTAL))}   "
+            f"chunk retries "
+            f"{int(merged.total(C.DISAGG_CHUNK_RETRIES_TOTAL))}   "
+            f"latency p50/p95 {lat}"
+        )
+        print("prefix tiers: not in the port yet (ROADMAP A9b)")
+
+    if watch is None:
+        render()
+        return 0
+    import time as _time
+
+    try:
+        while True:
+            print("\033[2J\033[H", end="")
+            render()
+            _time.sleep(watch)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_health(argv: list[str]) -> int:
+    """Gray-failure watchdog view: per-replica progress classification,
+    watermark ages, ladder counters, and the last N watchdog decisions from
+    the journal (``<state_dir>/watchdog.jsonl``) plus the pushed watchdog
+    metric series.
+
+    ``--last N`` shows the newest N journal records (default 20);
+    ``--dir PATH`` overrides the state dir root.
+    """
+    from pathlib import Path
+
+    from ..observability.export import pushed_jobs
+    from ..observability.journal import named_journal
+    from ..serving.health import decode_watchdog_series
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    usage = f"usage: {PROG} health [--last N] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, last_s = _pop_flag(argv, "--last", usage)
+    last = int(last_s) if last_s is not None else 20
+
+    records = named_journal("watchdog", root).tail(last)
+
+    jobs = pushed_jobs(Path(root) / "metrics" if root else None)
+    merged = parse_exposition(merge_expositions(jobs)) if jobs else None
+
+    wd = (
+        decode_watchdog_series(merged)
+        if merged is not None
+        else {"states": {}, "ages": {}, "transitions": {}, "recoveries": {}}
+    )
+    states, ages = wd["states"], wd["ages"]
+    transitions, recoveries = wd["transitions"], wd["recoveries"]
+
+    if not records and not states:
+        print(
+            "no watchdog activity recorded yet "
+            "(run a FleetWatchdog over a router's replicas)"
+        )
+        return 0
+    if states:
+        print(f"{'REPLICA':<16} {'STATE':<12} {'PROGRESS AGE':>12}")
+        for name in sorted(states):
+            age = ages.get(name)
+            print(
+                f"{name:<16} {states[name]:<12} "
+                f"{('%.2fs' % age) if age is not None else '-':>12}"
+            )
+    if transitions:
+        print(
+            "transitions: "
+            + "  ".join(
+                f"{k}={int(v)}" for k, v in sorted(transitions.items())
+            )
+        )
+    if recoveries:
+        print(
+            "ladder actions: "
+            + "  ".join(
+                f"{k}={int(v)}" for k, v in sorted(recoveries.items())
+            )
+        )
+    if records:
+        print()
+        print(f"{'ACTION':<16} {'REPLICA':<16} DETAIL")
+        for rec in records:
+            action = rec.get("action", "?")
+            who = rec.get("replica") or rec.get("transfer_id") or "?"
+            if action == "transition":
+                detail = (
+                    f"-> {rec.get('state')} (raw={rec.get('raw')}, "
+                    f"age={rec.get('progress_age_s')}s, "
+                    f"outstanding={rec.get('outstanding')})"
+                )
+            elif action == "down_weight":
+                detail = f"weight={rec.get('weight')}"
+            elif action == "quarantine":
+                detail = f"for {rec.get('quarantine_s')}s"
+            elif action == "abort_transfer":
+                detail = f"stalled > {rec.get('stall_s')}s"
+            else:
+                detail = ""
+            print(f"{action:<16} {who:<16} {detail}")
+    return 0
+
+
 #: subcommands of the JAX package that wait with their subsystems:
 #: name -> the ROADMAP item
 WAITING_COMMANDS = {
     "benchdiff": "A8 (the port's benchmark)",
-    "sched": "A9 (scheduling/router.py)",
-    "disagg": "A9 (serving/disagg/)",
-    "prefixstore": "A9 (serving/prefix_store/)",
-    "chaos": "A9 (faults/chaos.py)",
-    "fleet": "A9 (fleet/)",
-    "health": "A9 (serving/health.py)",
+    "prefixstore": "A9b (serving/prefix_store/)",
+    "chaos": "A9c (faults/chaos.py)",
+    "fleet": "A9c (fleet/)",
 }
 
 COMMANDS = {
@@ -1520,6 +1803,9 @@ COMMANDS = {
     "incident": cmd_incidents,  # `incident capture` reads naturally
     "scaler": cmd_scaler,
     "top": cmd_top,
+    "sched": cmd_sched,
+    "disagg": cmd_disagg,
+    "health": cmd_health,
 }
 
 

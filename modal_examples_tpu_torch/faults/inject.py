@@ -2,11 +2,14 @@
 seeded plans, and a zero-cost activation gate.
 
 The port keeps the executor's two points (``executor.container_death``,
-``executor.timeout``, hit in ``core/executor.py``) and the canary's
-(``engine.canary_token_corrupt``, hit in ``serving/engine.py``). The serving
-fleet's points (engine, router, disaggregation, prefix store) come with
-those subsystems (ROADMAP A9). A fired fault leaves a ``fault`` event on the
-request trace of the thread's ambient frame (``reqtrace.note_fault``).
+``executor.timeout``, hit in ``core/executor.py``), the engine's (the
+canary's token corrupt, the scheduler crash and freeze, page exhaustion, a
+slow decode tick; ``serving/engine.py``), the disaggregation wire's
+(``serving/disagg/``) and the router's health flap
+(``scheduling/router.py``). The prefix tier's and prefix store's points
+come with those subsystems (ROADMAP A9b). A fired fault leaves a ``fault``
+event on the request trace of the thread's ambient frame
+(``reqtrace.note_fault``).
 
 - :data:`POINTS` is the one catalog of named fault points.
 - :class:`FaultPlan` decides, deterministically, WHICH hits of a point
@@ -53,6 +56,66 @@ POINTS: dict[str, dict] = {
         "recovery": "the canary prober detects bit-exact drift against the "
                     "golden store -> a canary_drift incident bundle and the "
                     "failing streak (mtpu_canary_failing)",
+    },
+    "disagg.chunk_corrupt": {
+        "component": "serving/disagg/transport.py",
+        "effect": "one wire chunk's payload is flipped (stale crc)",
+        "recovery": "crc mismatch -> resumable retry re-sends that chunk",
+    },
+    "disagg.chunk_drop": {
+        "component": "serving/disagg/transport.py",
+        "effect": "one wire chunk silently vanishes",
+        "recovery": "gap detected -> next round re-sends the missing seq",
+    },
+    "disagg.replica_death": {
+        "component": "serving/disagg/transport.py",
+        "effect": "ConnectionError mid-transfer (peer died)",
+        "recovery": "coordinator unified fallback: re-prefill on decode",
+    },
+    "disagg.transfer_stall": {
+        "component": "serving/disagg/transport.py",
+        "effect": "the sender goes quiet between chunks — no error, the "
+                  "peer just never sees the next seq",
+        "recovery": "watchdog aborts the stalled transfer (stale seq "
+                    "watermark) -> TransportError -> unified fallback",
+    },
+    "disagg.adopt_corrupt": {
+        "component": "serving/disagg/roles.py",
+        "effect": "the reassembled block corrupts before adoption",
+        "recovery": "loud TransportError -> unified fallback",
+    },
+    "disagg.reserve_shed": {
+        "component": "serving/disagg/roles.py",
+        "effect": "decode-side admission sheds the migration reservation",
+        "recovery": "honest 429 before any byte moves (ShedError)",
+    },
+    "router.health_flap": {
+        "component": "scheduling/router.py",
+        "effect": "a replica's health probe reports unhealthy once",
+        "recovery": "evicted from candidates, re-probed, re-admitted",
+    },
+    "engine.scheduler_crash": {
+        "component": "serving/engine.py",
+        "effect": "the scheduler thread's step() raises",
+        "recovery": "inflight/queued requests fail LOUDLY with "
+                    "finish_reason='error'; the loop survives",
+    },
+    "engine.scheduler_freeze": {
+        "component": "serving/engine.py",
+        "effect": "the scheduler thread silently stops making progress "
+                  "(no exception, healthy() stays true) until stop()",
+        "recovery": "watchdog classifies wedged from stale watermarks -> "
+                    "stop(reason='error') -> streams failover (health.py)",
+    },
+    "engine.out_of_pages": {
+        "component": "serving/engine.py",
+        "effect": "a page claim reports allocator exhaustion",
+        "recovery": "preemption-safe requeue; admitted on a later tick",
+    },
+    "engine.slow_decode": {
+        "component": "serving/engine.py",
+        "effect": "one decode tick stalls (~50 ms)",
+        "recovery": "latency only; requests still terminate",
     },
 }
 

@@ -32,10 +32,10 @@ burn gauges.
 
 Drift handling: journal the round (the ``canary`` journal), capture a
 ``canary_drift`` incident bundle naming the mismatching probe request, and
-keep the failing streak in ``mtpu_canary_failing``. The router-driven
-prober over many replicas, which down-weights a drifting replica
-(``router.set_health_weight``), comes with ``scheduling/router.py``
-(ROADMAP A9).
+keep the failing streak in ``mtpu_canary_failing``. Over a router the
+prober walks ``router.replicas`` (the healthy non-prefill ones) and, at
+``fail_threshold`` failing rounds, down-weights the drifting replica
+(``router.set_health_weight``) until a passing round restores it.
 
 torch-light and engine-lazy: importable without torch (the CLI and gateway
 read side); torch is touched only through an engine that already exists.
@@ -348,31 +348,37 @@ class _LocalReplica:
 
 
 class CanaryProber:
-    """Background golden-set prober over the local serving engine.
+    """Background golden-set prober over a router's serving replicas, or
+    over one local engine.
 
-    Each round probes the engine; the first contact with a (model,
-    fingerprint) identity records the golden instead of gating. Consecutive
-    failing rounds (any drift in the round) count in the streak
-    (``mtpu_canary_failing``); the first passing round clears it. Every
-    round lands in the ``canary`` journal; every drift captures a
-    ``canary_drift`` incident bundle whose reason names the mismatching
-    probe request id, so the bundle's open-trace section contains the
-    probe's trace. A router over many replicas (with its
-    ``set_health_weight`` down-weighting) waits with ROADMAP A9."""
+    ``target`` is a router (anything with ``replicas``: each round probes
+    every healthy non-prefill replica) or an ``LLMEngine`` (probed as the one
+    replica). The first contact with a (model, fingerprint) identity records
+    the golden instead of gating. Consecutive failing rounds (any drift in
+    the round) count in the streak (``mtpu_canary_failing``); at
+    ``fail_threshold`` a router's replica is down-weighted to
+    ``degraded_weight`` through ``router.set_health_weight``, and the first
+    passing round clears the streak and restores weight 1.0. Every round
+    lands in the ``canary`` journal; every drift captures a ``canary_drift``
+    incident bundle whose reason names the mismatching probe request id, so
+    the bundle's open-trace section contains the probe's trace."""
 
     def __init__(
-        self, engine, *, interval_s=None, store=None, registry=None,
-        journal_path=None, clock=time.monotonic,
+        self, target, *, interval_s=None, store=None, registry=None,
+        journal_path=None, fail_threshold: int = 2,
+        degraded_weight: float = 0.25, clock=time.monotonic,
     ):
-        if hasattr(engine, "replicas"):
-            raise NotImplementedError(
-                "CanaryProber over a router's replicas waits with "
-                "scheduling/router.py (ROADMAP A9); pass the LLMEngine"
-            )
         if interval_s is None:
             raw = os.environ.get(INTERVAL_ENV, "")
             interval_s = float(raw) if raw else DEFAULT_INTERVAL_S
-        self.replica = _LocalReplica(engine)
+        if hasattr(target, "replicas"):
+            self.router, self.replica = target, None
+        else:
+            self.router, self.replica = None, _LocalReplica(target)
+        self.fail_threshold = max(1, int(fail_threshold))
+        self.degraded_weight = float(degraded_weight)
+        #: replicas this prober down-weighted (it only restores its own)
+        self._downweighted: set[str] = set()
         self.interval_s = float(interval_s)
         self.store = store or GoldenStore()
         self.registry = registry
@@ -396,7 +402,12 @@ class CanaryProber:
     # -- one round ------------------------------------------------------------
 
     def _serving_replicas(self) -> list:
-        return [self.replica] if self.replica.healthy() else []
+        if self.router is None:
+            return [self.replica] if self.replica.healthy() else []
+        return [
+            r for r in self.router.replicas
+            if getattr(r, "role", "unified") != "prefill" and r.healthy()
+        ]
 
     def probe_replica(self, replica) -> list[dict]:
         engine = replica.engine
@@ -453,6 +464,21 @@ class CanaryProber:
                     f"(streak {streak})"
                 ),
             )
+            if streak >= self.fail_threshold and hasattr(self.router, "set_health_weight"):
+                self.router.set_health_weight(name, self.degraded_weight)
+                with self._lock:
+                    self._downweighted.add(name)
+                self._record(
+                    action="down_weight", replica=name,
+                    weight=self.degraded_weight, streak=streak,
+                )
+        elif compared:
+            with self._lock:
+                restore = name in self._downweighted
+                self._downweighted.discard(name)
+            if restore:
+                self.router.set_health_weight(name, 1.0)
+                self._record(action="restore_weight", replica=name, weight=1.0)
 
     def probe_once(self) -> dict:
         """One full round over every healthy serving replica."""

@@ -1,9 +1,9 @@
 """The port's metric catalog, after ``modal_examples_tpu/observability/catalog.py``:
 the series, span names and tick phases of the paths the port has, the
 flight recorder's (tsdb, alerts, incidents, SLO burn), the correctness
-canary's, the kernel builds' and the memory snapshots' (the JAX package's
-fleet and disaggregation series come with those subsystems; the watchdog's state
-gauge is declared because an alert rule reads it).
+canary's, the kernel builds' and the memory snapshots', and those of the
+router, disaggregated serving, failover and the gray-failure watchdog (the JAX
+package's prefix-tier and fleet series come with those subsystems).
 
 ONE module owns every metric name: code imports the constant, and no
 ``mtpu_*`` metric-name literal stands anywhere else in the package.
@@ -297,11 +297,81 @@ ALERTS_FIRED_TOTAL = "mtpu_alerts_fired_total"
 INCIDENTS_CAPTURED_TOTAL = "mtpu_incidents_captured_total"
 #: gauge {slo}: observed/target burn rate per declared SLO (>1 = violating)
 SLO_BURN_RATE = "mtpu_slo_burn_rate"
+# -- gray-failure watchdog (serving/health.py) ------------------------------
+
 #: gauge {replica, state}: one-hot replica classification by the progress
-#: watchdog (state = healthy | degraded | wedged | quarantined); emitted by
-#: the watchdog (serving/health.py, which comes with the fleet layer), read
-#: by the ``replica_wedged`` alert rule
+#: watchdog (state = healthy | degraded | wedged | quarantined; exactly one
+#: state reads 1 per replica)
 WATCHDOG_REPLICA_STATE = "mtpu_watchdog_replica_state"
+#: gauge {replica}: worst stale age (seconds) among the replica's mandatory
+#: progress watermarks — 0 while idle (staleness only counts against
+#: outstanding work)
+WATCHDOG_PROGRESS_AGE_SECONDS = "mtpu_watchdog_progress_age_seconds"
+#: counter {state}: classification transitions (entering the labeled state)
+WATCHDOG_TRANSITIONS_TOTAL = "mtpu_watchdog_transitions_total"
+#: counter {action}: recovery-ladder actions taken; action = down_weight |
+#: restore_weight | abort_transfer | stop_revive | quarantine | unquarantine
+WATCHDOG_RECOVERIES_TOTAL = "mtpu_watchdog_recoveries_total"
+
+# -- multi-replica routing (scheduling/router.py) ---------------------------
+
+#: counter {route}: router placements; route = affinity | fallback
+ROUTER_REQUESTS_TOTAL = "mtpu_router_requests_total"
+#: counter: repeated shared-prefix prompts landed on their affinity replica
+ROUTER_AFFINITY_HITS_TOTAL = "mtpu_router_affinity_hits_total"
+#: counter: unhealthy replicas re-admitted to the candidate set after a
+#: successful health re-probe (docs/faults.md: unhealthy is not a one-way
+#: door — flapped replicas rejoin route()/plan() once they probe healthy)
+ROUTER_READMISSIONS_TOTAL = "mtpu_router_readmissions_total"
+
+# -- disaggregated serving (serving/disagg) ----------------------------------
+
+#: counter {result}: page migrations between replicas;
+#: result = ok | fallback (unified re-prefill) | aborted (client/deadline)
+DISAGG_MIGRATIONS_TOTAL = "mtpu_disagg_migrations_total"
+#: counter: KV pages successfully migrated prefill -> decode
+DISAGG_PAGES_MIGRATED_TOTAL = "mtpu_disagg_pages_migrated_total"
+#: counter: serialized wire bytes of successful migrations (int8 caches
+#: ship ~half the bf16 bytes — the PR 5 residency win on the wire)
+DISAGG_MIGRATION_BYTES_TOTAL = "mtpu_disagg_migration_bytes_total"
+#: histogram: end-to-end migration latency (prefill start -> adopt/fail)
+DISAGG_MIGRATION_SECONDS = "mtpu_disagg_migration_seconds"
+#: gauge: migrations currently in flight (prefilling or on the wire)
+DISAGG_MIGRATIONS_INFLIGHT = "mtpu_disagg_migrations_inflight"
+#: counter: transfer chunks re-sent after loss/corruption (resumable retry)
+DISAGG_CHUNK_RETRIES_TOTAL = "mtpu_disagg_chunk_retries_total"
+#: gauge {replica, role}: info metric (value 1) — each replica's serving
+#: role (prefill | decode | unified)
+REPLICA_ROLE = "mtpu_replica_role"
+
+# -- in-flight request failover (serving/failover.py) ------------------------
+
+#: counter {mode, result}: in-flight request takeovers; mode = reactive
+#: (replica died — re-prefill prompt+generated-prefix from the decode
+#: checkpoint) | migrate (proactive live KV migration on drain/rebalance);
+#: result = ok | failed (no healthy target / resubmission shed)
+FAILOVER_TOTAL = "mtpu_failover_total"
+#: counter: generated-prefix tokens replayed (teacher-forced through the
+#: decode program) on reactive failover — the work redone because the dead
+#: replica's KV was lost; the prompt half re-prefills from the (often
+#: warm) prefix cache — docs/failover.md
+FAILOVER_TOKENS_REPLAYED_TOTAL = "mtpu_failover_tokens_replayed_total"
+#: histogram: client-observed takeover latency — stream error detected (or
+#: migration started) to the resumed request accepted on the new replica
+FAILOVER_TAKEOVER_SECONDS = "mtpu_failover_takeover_seconds"
+#: counter {result}: proactive live migrations of MID-DECODE requests
+#: (result = ok | fallback (reactive resume carried it after a wire/adopt
+#: failure) | aborted (client abort / deadline during the migration) |
+#: failed (reservation shed, victim unresponsive, or the fallback resume
+#: itself refused — the request was NOT moved))
+MIGRATION_LIVE_TOTAL = "mtpu_migration_live_total"
+#: counter: decode tokens carried across live migrations (each migrated
+#: request contributes its generated-so-far count — the work scale-in no
+#: longer throws away; ``fleet.jsonl``'s ``tokens_migrated`` source)
+MIGRATION_LIVE_TOKENS_TOTAL = "mtpu_migration_live_tokens_total"
+#: histogram: live-migration latency, checkpoint extraction -> adopted on
+#: the target (the bound on drain time per request)
+MIGRATION_LIVE_SECONDS = "mtpu_migration_live_seconds"
 
 # -- kernel builds (ops/_build.py): the port's compile ledger ----------------
 
@@ -381,6 +451,93 @@ CATALOG: dict[str, dict] = {
         "type": "gauge", "labels": ["replica", "state"],
         "help": "one-hot watchdog classification per replica "
                 "(state=healthy|degraded|wedged|quarantined)",
+    },
+    WATCHDOG_PROGRESS_AGE_SECONDS: {
+        "type": "gauge", "labels": ["replica"],
+        "help": "worst stale age among a replica's mandatory progress "
+                "watermarks (0 while idle)",
+    },
+    WATCHDOG_TRANSITIONS_TOTAL: {
+        "type": "counter", "labels": ["state"],
+        "help": "watchdog classification transitions (entering the state)",
+    },
+    WATCHDOG_RECOVERIES_TOTAL: {
+        "type": "counter", "labels": ["action"],
+        "help": "watchdog recovery-ladder actions (action=down_weight|"
+                "restore_weight|abort_transfer|stop_revive|quarantine|"
+                "unquarantine)",
+    },
+    ROUTER_REQUESTS_TOTAL: {
+        "type": "counter", "labels": ["route"],
+        "help": "router placements (route=affinity|fallback)",
+    },
+    ROUTER_AFFINITY_HITS_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "repeated shared-prefix prompts landed on their affinity "
+                "replica",
+    },
+    ROUTER_READMISSIONS_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "unhealthy replicas re-admitted after a health re-probe",
+    },
+    DISAGG_MIGRATIONS_TOTAL: {
+        "type": "counter", "labels": ["result"],
+        "help": "page migrations between replicas "
+                "(result=ok|fallback|aborted)",
+    },
+    DISAGG_PAGES_MIGRATED_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "KV pages successfully migrated prefill -> decode",
+    },
+    DISAGG_MIGRATION_BYTES_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "serialized wire bytes of successful page migrations",
+    },
+    DISAGG_MIGRATION_SECONDS: {
+        "type": "histogram", "labels": [],
+        "help": "end-to-end migration latency (prefill start to adopt/fail)",
+    },
+    DISAGG_MIGRATIONS_INFLIGHT: {
+        "type": "gauge", "labels": [],
+        "help": "migrations currently in flight",
+    },
+    DISAGG_CHUNK_RETRIES_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "transfer chunks re-sent after loss/corruption",
+    },
+    REPLICA_ROLE: {
+        "type": "gauge", "labels": ["replica", "role"],
+        "help": "replica serving role, info metric "
+                "(role=prefill|decode|unified, value 1)",
+    },
+    FAILOVER_TOTAL: {
+        "type": "counter", "labels": ["mode", "result"],
+        "help": "in-flight request takeovers "
+                "(mode=reactive|migrate, result=ok|failed)",
+    },
+    FAILOVER_TOKENS_REPLAYED_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "generated-prefix tokens replayed through the decode "
+                "program on reactive failover",
+    },
+    FAILOVER_TAKEOVER_SECONDS: {
+        "type": "histogram", "labels": [],
+        "help": "takeover latency: failure detected to resumed request "
+                "accepted on the new replica",
+    },
+    MIGRATION_LIVE_TOTAL: {
+        "type": "counter", "labels": ["result"],
+        "help": "proactive live migrations of mid-decode requests "
+                "(result=ok|fallback|aborted|failed)",
+    },
+    MIGRATION_LIVE_TOKENS_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "decode tokens carried across live migrations",
+    },
+    MIGRATION_LIVE_SECONDS: {
+        "type": "histogram", "labels": [],
+        "help": "live-migration latency: checkpoint extraction to adopted "
+                "on the target",
     },
     COMPILES_TOTAL: {
         "type": "counter", "labels": ["program", "cache"],
@@ -759,6 +916,50 @@ SPAN_CATALOG: dict[str, dict] = {
         "attrs": ["replica", "point"],
         "help": "an injected fault (faults/inject.py POINTS) fired on this "
                 "request's path (event)",
+    },
+    "retry_wait": {
+        "attrs": ["replica", "round", "pending", "delay_s"],
+        "help": "jittered backoff before a transfer chunk-retry round "
+                "(event)",
+    },
+    "watchdog": {
+        "attrs": ["replica", "state", "action"],
+        "help": "the gray-failure watchdog intervened on this request's "
+                "replica (serving/health.py ladder: state=wedged, "
+                "action=stop_revive|quarantine) — shows between the hang "
+                "and the failover seam on the stitched timeline (event)",
+    },
+    "failover": {
+        "attrs": ["replica", "source", "target", "mode", "position",
+                  "tokens_replayed", "result"],
+        "help": "an in-flight request's takeover by another replica "
+                "(mode=reactive re-prefill | migrate live KV move); "
+                "extends the SAME trace id past the failed replica's root "
+                "close, so `tpurun explain` shows death and resumption on "
+                "one timeline",
+    },
+    "adopt": {
+        "attrs": ["replica", "pages"],
+        "help": "migrated block scattered into the decode replica's cache "
+                "(on its scheduler thread)",
+    },
+    "chunk": {
+        "attrs": ["replica", "seq", "nbytes", "round"],
+        "help": "one wire chunk send (child of transfer)",
+    },
+    "transfer": {
+        "attrs": ["replica", "chunks", "rounds", "wire_bytes"],
+        "help": "chunked wire transfer of a serialized page block",
+    },
+    "migrate": {
+        "attrs": ["replica", "source", "target", "pages", "wire_bytes",
+                  "result"],
+        "help": "one disagg page migration end to end "
+                "(result=ok|fallback|aborted)",
+    },
+    "placement": {
+        "attrs": ["replica", "route", "prefill_replica", "decode_replica"],
+        "help": "router placement decision (route() or disagg plan())",
     },
 }
 

@@ -1,13 +1,13 @@
 """The bounded JSONL journal, after ``modal_examples_tpu/observability/journal.py``.
 
-The port writes five journals under the state directory: the executor
+The port writes six journals under the state directory: the executor
 autoscaler's decisions (``scaler.jsonl``), the kernel builds
 (``compiles.jsonl``), alert fire/clear transitions (``alerts.jsonl``), the
 usage meter's per-request billing lines (``usage.jsonl``) and the canary's
 probe results (``canary.jsonl``). :data:`JOURNALS` owns the name -> file
-mapping and :func:`named_journal` resolves it; the JAX package's other
-journals (fleet, watchdog, chaos, prefix store) come with the subsystems
-that write them.
+mapping and :func:`named_journal` resolves it; the watchdog's ladder
+decisions land in ``watchdog.jsonl``. The JAX package's other journals
+(fleet, chaos, prefix store) come with the subsystems that write them.
 
 Records are plain dicts, one JSON object per line, kept in a bounded
 in-memory ring and appended to the file. The file is bounded: past
@@ -38,6 +38,7 @@ JOURNALS: dict[str, str] = {
     "alerts": "alerts.jsonl",  # alert fire/clear (observability/alerts.py)
     "usage": "usage.jsonl",  # per-request usage records (observability/usage.py)
     "canary": "canary.jsonl",  # golden-set probe results (observability/canary.py)
+    "watchdog": "watchdog.jsonl",  # gray-failure ladder (serving/health.py)
 }
 
 

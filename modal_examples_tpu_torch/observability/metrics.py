@@ -337,6 +337,202 @@ def record_deadline_miss(
     )
 
 
+# -- multi-replica routing (scheduling/router.py) ---------------------------
+
+
+def record_router_route(
+    route: str, *, affinity_hit: bool = False,
+    registry: Registry | None = None,
+) -> None:
+    reg = _reg(registry)
+    reg.counter_inc(
+        C.ROUTER_REQUESTS_TOTAL, 1.0,
+        labels={"route": route},
+        help=C.CATALOG[C.ROUTER_REQUESTS_TOTAL]["help"],
+    )
+    if affinity_hit:
+        reg.counter_inc(
+            C.ROUTER_AFFINITY_HITS_TOTAL, 1.0,
+            help=C.CATALOG[C.ROUTER_AFFINITY_HITS_TOTAL]["help"],
+        )
+
+
+def record_router_readmission(*, registry: Registry | None = None) -> None:
+    _reg(registry).counter_inc(
+        C.ROUTER_READMISSIONS_TOTAL, 1.0,
+        help=C.CATALOG[C.ROUTER_READMISSIONS_TOTAL]["help"],
+    )
+
+# -- disaggregated serving (serving/disagg) ----------------------------------
+
+
+def record_migration(
+    result: str, *, pages: int = 0, wire_bytes: int = 0,
+    registry: Registry | None = None,
+) -> None:
+    """One finished migration attempt (result = ok|fallback|aborted); a
+    successful one also counts its pages and wire bytes."""
+    reg = _reg(registry)
+    reg.counter_inc(
+        C.DISAGG_MIGRATIONS_TOTAL, 1.0,
+        labels={"result": result},
+        help=C.CATALOG[C.DISAGG_MIGRATIONS_TOTAL]["help"],
+    )
+    if pages:
+        reg.counter_inc(
+            C.DISAGG_PAGES_MIGRATED_TOTAL, float(pages),
+            help=C.CATALOG[C.DISAGG_PAGES_MIGRATED_TOTAL]["help"],
+        )
+    if wire_bytes:
+        reg.counter_inc(
+            C.DISAGG_MIGRATION_BYTES_TOTAL, float(wire_bytes),
+            help=C.CATALOG[C.DISAGG_MIGRATION_BYTES_TOTAL]["help"],
+        )
+
+
+def record_migration_seconds(
+    seconds: float, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).histogram_observe(
+        C.DISAGG_MIGRATION_SECONDS, seconds,
+        help=C.CATALOG[C.DISAGG_MIGRATION_SECONDS]["help"],
+    )
+
+
+def set_migrations_inflight(
+    n: int, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).gauge_set(
+        C.DISAGG_MIGRATIONS_INFLIGHT, float(n),
+        help=C.CATALOG[C.DISAGG_MIGRATIONS_INFLIGHT]["help"],
+    )
+
+
+def record_disagg_chunk_retries(
+    n: int, *, registry: Registry | None = None
+) -> None:
+    if n > 0:
+        _reg(registry).counter_inc(
+            C.DISAGG_CHUNK_RETRIES_TOTAL, float(n),
+            help=C.CATALOG[C.DISAGG_CHUNK_RETRIES_TOTAL]["help"],
+        )
+
+
+def set_replica_role(
+    replica: str, role: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).gauge_set(
+        C.REPLICA_ROLE, 1.0,
+        labels={"replica": replica, "role": role},
+        help=C.CATALOG[C.REPLICA_ROLE]["help"],
+    )
+
+# -- in-flight request failover (serving/failover.py) ------------------------
+
+
+def record_failover(
+    mode: str, result: str, *, tokens_replayed: int = 0,
+    registry: Registry | None = None,
+) -> None:
+    """One in-flight takeover attempt (mode=reactive|migrate); a reactive
+    resume also counts the generated-prefix tokens it re-prefilled."""
+    reg = _reg(registry)
+    reg.counter_inc(
+        C.FAILOVER_TOTAL, 1.0,
+        labels={"mode": mode, "result": result},
+        help=C.CATALOG[C.FAILOVER_TOTAL]["help"],
+    )
+    if tokens_replayed:
+        reg.counter_inc(
+            C.FAILOVER_TOKENS_REPLAYED_TOTAL, float(tokens_replayed),
+            help=C.CATALOG[C.FAILOVER_TOKENS_REPLAYED_TOTAL]["help"],
+        )
+
+
+def record_failover_takeover(
+    seconds: float, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).histogram_observe(
+        C.FAILOVER_TAKEOVER_SECONDS, seconds,
+        buckets=C.TOKEN_TIME_BUCKETS,
+        help=C.CATALOG[C.FAILOVER_TAKEOVER_SECONDS]["help"],
+    )
+
+
+def record_live_migration(
+    result: str, *, tokens: int = 0, registry: Registry | None = None
+) -> None:
+    """One proactive live migration of a mid-decode request; a successful
+    one counts the decode tokens it carried (fleet.jsonl's
+    ``tokens_migrated`` source)."""
+    reg = _reg(registry)
+    reg.counter_inc(
+        C.MIGRATION_LIVE_TOTAL, 1.0,
+        labels={"result": result},
+        help=C.CATALOG[C.MIGRATION_LIVE_TOTAL]["help"],
+    )
+    if tokens:
+        reg.counter_inc(
+            C.MIGRATION_LIVE_TOKENS_TOTAL, float(tokens),
+            help=C.CATALOG[C.MIGRATION_LIVE_TOKENS_TOTAL]["help"],
+        )
+
+
+def record_live_migration_seconds(
+    seconds: float, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).histogram_observe(
+        C.MIGRATION_LIVE_SECONDS, seconds,
+        help=C.CATALOG[C.MIGRATION_LIVE_SECONDS]["help"],
+    )
+
+# -- gray-failure watchdog (serving/health.py) ------------------------------
+
+
+def set_watchdog_state(
+    replica: str, state: str, active: bool, *,
+    registry: Registry | None = None,
+) -> None:
+    """One cell of the one-hot per-replica classification gauge — callers
+    sweep every state so exactly one reads 1 (stale states read 0, never
+    linger at their old value)."""
+    _reg(registry).gauge_set(
+        C.WATCHDOG_REPLICA_STATE, 1.0 if active else 0.0,
+        labels={"replica": replica, "state": state},
+        help=C.CATALOG[C.WATCHDOG_REPLICA_STATE]["help"],
+    )
+
+
+def set_watchdog_progress_age(
+    replica: str, seconds: float, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).gauge_set(
+        C.WATCHDOG_PROGRESS_AGE_SECONDS, float(seconds),
+        labels={"replica": replica},
+        help=C.CATALOG[C.WATCHDOG_PROGRESS_AGE_SECONDS]["help"],
+    )
+
+
+def record_watchdog_transition(
+    state: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.WATCHDOG_TRANSITIONS_TOTAL, 1.0,
+        labels={"state": state},
+        help=C.CATALOG[C.WATCHDOG_TRANSITIONS_TOTAL]["help"],
+    )
+
+
+def record_watchdog_recovery(
+    action: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.WATCHDOG_RECOVERIES_TOTAL, 1.0,
+        labels={"action": action},
+        help=C.CATALOG[C.WATCHDOG_RECOVERIES_TOTAL]["help"],
+    )
+
+
 # -- hot-path profiler (observability/profiler.py) ----------------------------
 
 

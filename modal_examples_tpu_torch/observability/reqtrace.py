@@ -22,8 +22,9 @@ store (:func:`read_trace`, :func:`list_traces`, :func:`resolve`), and
 A context that never records a span leaves no file behind. One that did
 is closed by :func:`finish_request`, which sweeps any still-open spans
 with the terminal status before recording the root, so an abort or a
-scheduler error never leaks a dangling span. The disaggregated-serving
-wire (``wire``/``from_wire``) comes with ``serving/disagg/`` (ROADMAP A9).
+scheduler error never leaks a dangling span. :func:`wire` and
+:func:`from_wire` carry a context across the disaggregated-serving hop in
+the MTKV1 envelope's meta (``serving/disagg/``).
 """
 
 from __future__ import annotations
@@ -317,6 +318,38 @@ def finish_request(req, reason: str, *, store: TraceStore | None = None) -> None
         finish_reason=reason,
         n_generated=int(getattr(req, "n_generated", 0) or 0),
     )
+
+
+# --------------------------------------------------------------------------
+# the disagg hop: trace context on the MTKV1 wire
+# --------------------------------------------------------------------------
+
+
+def wire(ctx: RequestTraceContext | None, *, parent: str | None = None) -> dict | None:
+    """The trace context as a JSON-safe dict for the MTKV1 envelope's
+    ``meta``: the trace id and the span a decode replica in another process
+    parents under."""
+    if ctx is None:
+        return None
+    return {"trace_id": ctx.trace_id, "parent_id": parent or ctx.root.span_id}
+
+
+def from_wire(d: dict | None, *, store: TraceStore | None = None) -> RequestTraceContext | None:
+    """Reconstruct a context from :func:`wire` on the receiving replica. It
+    does not own the root (the minting process records it); its spans parent
+    under the wire's ``parent_id`` and land in this side's store, and
+    :func:`read_trace` merges the stores back into one tree."""
+    if not d or not tracing_enabled():
+        return None
+    tid = str(d.get("trace_id") or "")
+    # the wire is untrusted input and the trace id becomes a file name under
+    # the store root: it must look like a request id
+    if not tid.startswith(REQUEST_PREFIX) or not TraceStore._ID_TOKEN_RE.match(tid):
+        return None
+    root = Span(trace_id=tid, name=ROOT_SPAN)
+    if d.get("parent_id"):
+        root.span_id = d["parent_id"]
+    return RequestTraceContext(tid, root, store or default_store, owns_root=False)
 
 
 # --------------------------------------------------------------------------

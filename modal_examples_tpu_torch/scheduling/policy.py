@@ -4,8 +4,8 @@ A copy of ``modal_examples_tpu/scheduling/policy.py``: the priority classes
 (``PRIORITY_CLASSES``, ``DEFAULT_CLASS``, ``CLASS_RANK``,
 ``validate_class``), ``ScheduledRequest``, the ``SchedulerPolicy`` contract
 and its two policies. The engine asks its policy for the next admission
-batch instead of popping one FIFO. ``oldest_enqueued_at`` (the queue-age
-watermark of the health layer, ROADMAP A9) is not copied.
+batch instead of popping one FIFO. ``oldest_enqueued_at`` is the queue-age
+watermark that ``serving/health.py`` reads.
 
 Two levels of differentiation (:class:`FairSharePolicy`, the engine's
 default):
@@ -110,6 +110,15 @@ class SchedulerPolicy(abc.ABC):
     def total_depth(self) -> int:
         return sum(self.depths().values())
 
+    def oldest_enqueued_at(self) -> float | None:
+        """``enqueued_at`` of the oldest queued entry, or None when empty:
+        the queue-age-head progress watermark (``serving/health.py``). A head
+        that only gets older while the scheduler keeps ticking is a gray
+        failure the depth gauges cannot see. The concrete policies override
+        this with an O(depth) scan; the default None opts a custom policy
+        out of the signal."""
+        return None
+
     def drain(self) -> list[ScheduledRequest]:
         """Pop everything (engine stop/release path)."""
         out: list[ScheduledRequest] = []
@@ -173,6 +182,9 @@ class FIFOPolicy(SchedulerPolicy):
                 d[e.priority] = d.get(e.priority, 0) + 1
             return d
 
+    def oldest_enqueued_at(self) -> float | None:
+        with self._lock:
+            return min((e.enqueued_at for e in self._queue if e.enqueued_at), default=None)
 
 
 class FairSharePolicy(SchedulerPolicy):
@@ -294,3 +306,13 @@ class FairSharePolicy(SchedulerPolicy):
                 c: sum(len(q) for q in tenants.values())
                 for c, tenants in self._queues.items()
             }
+
+    def oldest_enqueued_at(self) -> float | None:
+        with self._lock:
+            oldest = None
+            for tenants in self._queues.values():
+                for q in tenants.values():
+                    for e in q:
+                        if e.enqueued_at and (oldest is None or e.enqueued_at < oldest):
+                            oldest = e.enqueued_at
+            return oldest

@@ -102,9 +102,31 @@ canary's probes (tenant ``__canary__``) stay out of the TTFT/TPOT
 histograms; the ``engine.canary_token_corrupt`` fault point flips one of
 their tokens.
 
-Not in this slice: int4 weights, the tiered prefix cache, the fleet's fault
-points and claim paths (and with them the speculative ``spec_hold`` of
-adopted and resumed requests).
+The fleet's claim paths (``serving/disagg``, ``serving/failover.py``), as
+in the reference: :meth:`LLMEngine.prefill_sync` prefills one request
+without a slot on an engine whose loop never runs (a prefill replica; on a
+started engine it raises), :meth:`~LLMEngine.extract_request_pages` and
+:meth:`~LLMEngine.release_claim` ship and free its pages;
+:meth:`~LLMEngine.submit_adopted` queues a request whose KV arrives as a
+wire block, adopted on the scheduler thread at admission (``index_copy_`` on
+the engine's stream, ordered behind the block in flight);
+:meth:`~LLMEngine.submit_resumed` resumes a request from a decode
+checkpoint: the original prompt is prefilled again and the generated prefix
+replayed teacher-forced through the decode block body, one token a dispatch
+at the block's batch width, so the rebuilt KV is the decode-written KV bit
+for bit; :meth:`~LLMEngine.migrate_out` detaches a running request on the
+scheduler thread (``_run_on_scheduler``) as a block with its decode state.
+An adopted, migrated or replayed tenancy rebuilds its prompt-lookup index,
+and in draft mode holds γ at 0 (``_Slot.spec_hold``: its draft cache has a
+hole). The progress watermarks (``self.watermarks``,
+``serving/health.py``) note each start, tick, dispatch and accepted token;
+the fault points ``engine.scheduler_crash`` (the loop releases every caller
+with "error" and lives on), ``engine.scheduler_freeze``,
+``engine.out_of_pages`` and ``engine.slow_decode`` are the reference's.
+``stop(reason="error")`` poisons the engine until :meth:`~LLMEngine.revive`.
+
+Not in this slice: int4 weights and the tiered prefix cache
+(``tiered_prefix=``, ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -139,6 +161,7 @@ from ..utils.tokenizer import load_tokenizer
 from .kv_cache import OutOfPages, PagedKVCache
 from .multistep import DetokWorker, build_multistep_fn, resolve_decode_steps
 from .prefix_cache import PrefixCache
+from .health import EngineWatermarks
 from .sampling import SamplingParams, prng_key, sample, split
 from .spec_runtime import AdaptiveGammaController, build_ngram_round_fn, build_spec_round_fn, resolve_spec_adaptive
 
@@ -195,6 +218,15 @@ class Request:
     trace: object | None = dataclasses.field(default=None, repr=False)
     queue_span: object | None = dataclasses.field(default=None, repr=False)
     decode_span: object | None = dataclasses.field(default=None, repr=False)
+    # the fleet's claim paths: the replica that owns the request behind a
+    # router; the span a prefill replica's spans parent under; an adopted
+    # block's state and a resumed request's replay, read at admission; the
+    # original prompt of a resumed request (checkpoints never compound)
+    _router_replica: object | None = dataclasses.field(default=None, repr=False)
+    _trace_parent: str | None = dataclasses.field(default=None, repr=False)
+    _adopted_state: dict | None = dataclasses.field(default=None, repr=False)
+    _resume_state: dict | None = dataclasses.field(default=None, repr=False)
+    _orig_prompt_tokens: list | None = dataclasses.field(default=None, repr=False)
 
 
 @dataclasses.dataclass
@@ -272,6 +304,9 @@ class _Slot:
     tenancy: int = 0  # per-install id: block and harvest snapshots pin (request, tenancy)
     claimed_at: float = 0.0  # engine clock at install: the usage meter's occupancy interval
     ngram: _NgramIndex | None = None  # prompt-lookup speculation only
+    # draft mode: an adopted or replayed tenancy never proposes (its draft
+    # cache has a hole where the shipped or replayed KV is)
+    spec_hold: bool = False
 
     @property
     def free(self) -> bool:
@@ -444,7 +479,12 @@ class LLMEngine:
         clock=None,  # monotonic clock of deadlines, the policy, the profiler and the usage meter
         profile=None,  # the hot-path profiler; None: MTPU_PROFILE, then off
         trace_store=None,  # where this engine's request spans land; None: the process-wide store
+        tiered_prefix=None,  # the tiered prefix cache: waits with ROADMAP A9b
     ):
+        if tiered_prefix:
+            raise NotImplementedError(
+                "tiered_prefix= (the HBM/host/Volume prefix tiers) waits with ROADMAP A9b in the port"
+            )
         self.device = resolve_device(device)
         if max_prefill_tokens_per_tick is None:
             raw = os.environ.get("MTPU_PREFILL_BUDGET", "")
@@ -504,6 +544,9 @@ class LLMEngine:
         self.slots = [_Slot() for _ in range(max_slots)]
         self._tenancy_seq = 0  # bumped at every install (scheduler thread only)
         self._clock = clock or time.monotonic
+        # progress watermarks (serving/health.py): the watchdog reads them
+        # through replica_snapshot
+        self.watermarks = EngineWatermarks(clock=self._clock)
         self.trace_name = "engine"  # the replica name on spans, journals and the profiler
         self.profiler = (
             _profiler.HotPathProfiler(clock=self._clock, name=lambda: self.trace_name)
@@ -538,6 +581,12 @@ class LLMEngine:
         self._lock = threading.Lock()
         self._running = False
         self._thread: threading.Thread | None = None
+        # the slot-free prefill of a prefill replica (prefill_sync): callers
+        # serialize on the lock; the pending count is the router's load signal
+        self._prefill_sync_lock = threading.Lock()
+        self._prefill_sync_pending = 0
+        # control commands run on the scheduler thread (migrate_out)
+        self._ctrl: collections.deque = collections.deque()
         self._page_tables = np.zeros((max_slots, self.pages_per_slot), np.int32)
 
         # the pipelined decode loop: one block in flight ahead of the one
@@ -797,6 +846,233 @@ class LLMEngine:
             _obs.set_sched_queue_depths(self.policy.depths())
             self._finish_stream(request, _FINISH)
 
+    # -- disaggregated prefill/decode (serving/disagg) -------------------------
+
+    def prefill_sync(self, req: Request) -> dict:
+        """Prefill ``req`` without a decode slot: claim its pages, fill their
+        KV (bucketed or chunked), sample the first token, and return the
+        claim and sampler state for :meth:`extract_request_pages`, the
+        prefill replica's half of disaggregated serving. Only legal while the
+        scheduler loop is not running (a prefill replica never starts its
+        loop); concurrent callers serialize on a lock."""
+        self._prefill_sync_pending += 1
+        try:
+            return self._prefill_sync_locked(req)
+        finally:
+            self._prefill_sync_pending -= 1
+
+    def _prefill_sync_locked(self, req: Request) -> dict:
+        with self._prefill_sync_lock:
+            if self._running:
+                raise RuntimeError(
+                    "prefill_sync requires a stopped engine: prefill-role replicas never start their scheduler loop"
+                )
+            claim = self._claim_pages(req)
+            if claim is None:
+                raise OutOfPages(f"prefill replica out of KV pages for {req.request_id}")
+            t_start, t_wall = time.monotonic(), time.time()
+            u_start = self._clock()
+            try:
+                first = self._prefill_pages(req, claim)
+            except Exception:
+                # a failed prefill must not leak the claim or leave unwritten pages in the trie
+                self.release_claim(claim, valid=False)
+                raise
+            self.stats.prompt_tokens += claim["n_prompt"]
+            self.usage.note_prompt(req, claim["n_prompt"])
+            self.usage.note_phase_seconds("prefill", self._clock() - u_start)
+            _obs.record_engine_phase("prefill", time.monotonic() - t_start)
+            _rt.record_span(req.trace, "prefill", start=t_wall, parent=req._trace_parent, store=self._trace_store,
+                            replica=self.trace_name, n_prompt=claim["n_prompt"])
+            return {
+                "claim": claim,
+                "position": claim["n_prompt"],
+                "first_token": first,
+                # only pages holding prompt KV ship; the decode side
+                # allocates its growth pages empty
+                "n_kv_pages": self.cache.pages_for(claim["n_prompt"]),
+            }
+
+    def _prefill_pages(self, req: Request, claim: dict) -> int:
+        """Fill ``claim``'s pages with ``req``'s prompt KV and sample the
+        first token, touching no slot: a bucketed prompt rides row 0 of the
+        ``(prefill_batch, bucket)`` prefill the slot path runs, a longer one
+        its chunks. Returns the first token (read at once)."""
+        pages, n_prompt = claim["pages"], claim["n_prompt"]
+        table = np.zeros((self.pages_per_slot,), np.int32)
+        table[: len(pages)] = pages
+        if n_prompt > self.prefill_buckets[-1]:
+            logits = None
+            for offset in range(0, n_prompt, self.prefill_buckets[-1]):
+                logits = self._dispatch_prefill_chunk(req.prompt_tokens, table, offset)
+            first = self._sample_first(req, logits)
+        else:
+            first = self._prefill_rows(self._bucket_for(n_prompt), [(req, table)])
+        return int(first.cpu()[0])
+
+    def release_claim(self, claim: dict, *, valid: bool = True) -> None:
+        """Free a slot-free page claim. ``valid=True``: the pages hold real
+        KV, so trie pages stay cached (the prefill replica's prefix cache
+        keeps warming) and private pages are freed. ``valid=False``: the
+        prefill never completed, and the claim unwinds."""
+        if not valid:
+            self._unwind_claim(claim)
+        elif self.prefix_cache is not None:
+            self.prefix_cache.release(claim["trie_pages"])
+            self.cache.allocator.free(claim["private_pages"])
+        else:
+            self.cache.allocator.free(claim["pages"])
+
+    def extract_request_pages(self, req: Request, state: dict):
+        """The prefilled pages of a :meth:`prefill_sync` result as a
+        wire-ready :class:`~.disagg.transport.PageBlock` (every cache leaf,
+        the prompt's chained block hashes, the sampler meta)."""
+        from .disagg.transport import chain_hashes, extract_pages
+
+        used = state["claim"]["pages"][: state["n_kv_pages"]]
+        return extract_pages(
+            self.cache, used,
+            block_hashes=chain_hashes(req.prompt_tokens, self.cache.page_size),
+            meta={
+                "request_id": req.request_id,
+                "prompt_tokens": [int(t) for t in req.prompt_tokens],
+                "position": int(state["position"]),
+                "first_token": int(state["first_token"]),
+                "auto_seed": req.auto_seed,
+                # the trace context rides the envelope: a decode replica in
+                # another process keeps stitching the same trace
+                "trace": _rt.wire(req.trace, parent=req._trace_parent),
+            },
+        )
+
+    def submit_adopted(self, req: Request, entry, block) -> Request:
+        """Queue a request whose prompt KV was prefilled elsewhere.
+        ``block`` (a deserialized ``PageBlock``) is adopted at admission on
+        the scheduler thread and decode continues from the migrated
+        position. ``entry`` is the admission reservation the coordinator
+        took on this engine before any byte moved."""
+        if block.kv_dtype != self.cache.kv_dtype:
+            raise ValueError(
+                f"migrated block is {block.kv_dtype}, this cache is {self.cache.kv_dtype}: "
+                "disagg peers must share a kv_dtype"
+            )
+        req._adopted_state = {
+            "block": block,
+            "position": int(block.meta["position"]),
+            "first_token": int(block.meta["first_token"]),
+            # the decode-state leg of a live-migrated mid-decode block
+            "resume": block.meta.get("resume"),
+        }
+        req.sched_entry = entry
+        req.queue_span = _rt.begin(req.trace, "queue", replica=self.trace_name, priority=req.priority,
+                                   tenant=req.tenant)
+        self.policy.submit(entry)
+        return req
+
+    # -- in-flight request failover (serving/failover.py) ----------------------
+
+    def submit_resumed(self, req: Request, *, prompt_tokens, generated, emitted_len: int = 0) -> Request:
+        """Queue a request resumed from a decode checkpoint; its stream
+        continues here, token-identical to the uninterrupted run.
+        ``prompt_tokens`` is the ORIGINAL prompt, ``generated`` the tokens
+        accepted before the failure. The prompt is prefilled again, the
+        generated prefix but its last token replayed through the decode body
+        (:meth:`_replay_decode_prefix`), and the last token fed at its
+        original position through the override lane. Sampling is keyed by
+        (seed, position) and the request keeps its seed, so every later
+        token is the uninterrupted stream's; emission resumes at
+        ``emitted_len``. The same request object (id, out_queue, trace) rides
+        through, so a blocked ``stream()`` consumer continues."""
+        if req.aborted:
+            # a client abort landed in the failover window: honor it
+            self._finish_stream(req, _Finish("deadline" if req.deadline_expired else "stop"))
+            return req
+        req.finish_reason = None
+        base = [int(t) for t in prompt_tokens]
+        gen = [int(t) for t in generated]
+        req._orig_prompt_tokens = base
+        req.generated_tokens = gen
+        req.emitted_len = int(emitted_len)
+        req.n_generated = max(req.n_generated, len(gen))
+        req.created = time.monotonic()
+        if gen and (len(gen) >= req.params.max_tokens or len(base) + len(gen) >= self.max_model_len):
+            # the failure landed on the last token: nothing left to decode
+            self._finish_stream(req, _Finish("length"))
+            return req
+        req.prompt_tokens = list(base)
+        req._resume_state = {"replay": gen} if gen else None
+        return self.submit_request(req)
+
+    def migrate_out(self, req: Request, *, timeout: float = 30.0):
+        """Detach ``req`` for a live migration, on the scheduler thread.
+        Returns ``("block", PageBlock)`` for a request mid-decode (its KV
+        pages for [0, position) with the decode-state leg in the meta; the
+        slot is released, trie pages staying cached), ``("requeue", None)``
+        for one still queued or mid-prefill (nothing to ship: the caller
+        resubmits the prompt), or ``("gone", None)``. Raises when the loop
+        is stopped or unresponsive: the caller falls back to the reactive
+        resume."""
+        return self._run_on_scheduler(lambda: self._migrate_out_on_sched(req), timeout)
+
+    def _migrate_out_on_sched(self, req: Request):
+        from .disagg.transport import chain_hashes, extract_pages
+
+        entry = req.sched_entry
+        if entry is not None and self.policy.remove(entry):
+            # still queued: the reservation goes back, the caller resubmits elsewhere
+            self.admission.release(entry)
+            req.sched_entry = None
+            _obs.set_sched_queue_depths(self.policy.depths())
+            self._close_queue_span(req)
+            return ("requeue", None)
+        for s in self.slots:
+            if s.request is not req:
+                continue
+            if req.aborted:
+                return ("gone", None)
+            if s.prefill is not None or s.pending_first:
+                # mid-prefill: partial KV must neither ship nor stay cached;
+                # nothing was emitted, so a fresh submission is token-identical
+                self._unwind_slot(s)
+                return ("requeue", None)
+            # mid-decode: KV for [0, position) is complete (each accepted
+            # token's predecessor was fed by a block already read); blocks
+            # still in flight write positions >= position only, which the
+            # target overwrites as it decodes. The gather queues behind them
+            # on the stream.
+            if self._detok is not None and self._detok.owns(req):
+                # the emitted cursor must be final before it ships
+                self._detok.flush(timeout=5.0)
+            n_kv = self.cache.pages_for(s.position)
+            base = req._orig_prompt_tokens if req._orig_prompt_tokens is not None else req.prompt_tokens
+            covered = list(base) + [int(t) for t in req.generated_tokens[:-1]]
+            block = extract_pages(
+                self.cache, s.pages[:n_kv],
+                block_hashes=chain_hashes(covered, self.cache.page_size),
+                meta={
+                    "request_id": req.request_id,
+                    "prompt_tokens": [int(t) for t in base],
+                    "position": int(s.position),
+                    "first_token": int(s.last_token),
+                    "auto_seed": req.auto_seed,
+                    "resume": {
+                        "generated": [int(t) for t in req.generated_tokens],
+                        "emitted_len": int(req.emitted_len),
+                    },
+                    "trace": _rt.wire(req.trace),
+                },
+            )
+            sp = req.decode_span
+            if sp is not None:
+                req.decode_span = None
+                _rt.finish(req.trace, sp, store=self._trace_store)
+            # valid KV: trie pages stay cached, private pages are freed
+            self._release_slot_pages(s)
+            return ("block", block)
+        return ("gone", None)
+
+    # -- lifecycle ----------------------------------------------------------------
+
     def start(self) -> "LLMEngine":
         with self._lock:
             if self._stopped_on_error:
@@ -805,15 +1081,32 @@ class LLMEngine:
                     + (self.error_log or ["?"])[-1]
                 )
             if not self._running:
+                # starting is progress: a revived engine must not show the
+                # watchdog its previous life's stale watermarks
+                self.watermarks.note_start()
                 self._running = True
                 self._thread = threading.Thread(target=self._loop, daemon=True)
                 self._thread.start()
         return self
 
-    def stop(self) -> None:
+    def revive(self) -> "LLMEngine":
+        """Clear the stopped-on-error poison so :meth:`start` may run again
+        (the router's re-probe, ``EngineReplica.probe``). Stopping on error
+        already released every caller and freed every slot, so a revived
+        engine starts empty; ``error_log`` stays for diagnosis."""
+        with self._lock:
+            self._stopped_on_error = False
+        return self
+
+    def stop(self, *, reason: str = "stop") -> None:
         """Stop the scheduler and release every caller (partial output for
-        in-flight requests, finish_reason "stop"), then flush the counters,
-        the usage meter and the profiler's gauge."""
+        in-flight requests, finish_reason ``reason``), then flush the
+        counters, the usage meter and the profiler's gauge.
+        ``reason="error"`` (the watchdog's wedged-scheduler rung, a fleet
+        reap) also poisons the engine until :meth:`revive`, and live streams
+        take the reactive failover instead of ending as a truncated "stop"."""
+        if reason == "error":
+            self._stopped_on_error = True
         self._running = False
         if self._thread is not None and self._thread is not threading.current_thread():
             self._thread.join(timeout=60)
@@ -821,7 +1114,7 @@ class LLMEngine:
             # drain held text BEFORE the release sweep: its direct markers
             # must land behind every chunk the worker still owes
             self._detok.stop()
-        self._release_all(_FINISH)
+        self._release_all(_FINISH if reason == "stop" else _Finish(reason))
         self._flush_token_counters()
         self.usage.flush()
         if self.profiler is not None:
@@ -834,6 +1127,16 @@ class LLMEngine:
             while self._running:
                 try:
                     worked = self.step()
+                except _inject.FaultError:
+                    # an injected scheduler crash: every caller, in flight
+                    # and queued, ends with "error" and the loop lives on
+                    # (a fault is not a scheduler-logic error: no poison)
+                    for s in self.slots:
+                        if s.request is not None:
+                            _rt.event(s.request.trace, "fault", store=self._trace_store, replica=self.trace_name,
+                                      point="engine.scheduler_crash")
+                    self._release_all(_Finish("error"))
+                    worked = False
                 except Exception:
                     # a scheduler-logic error: record it, poison the engine
                     # and release every caller with finish_reason="error"
@@ -873,6 +1176,10 @@ class LLMEngine:
                 self._release_all(_Finish("error"))
 
     def _release_all(self, marker: _Finish) -> None:
+        while self._ctrl:
+            # a stopping or crashed engine must not leave a migration caller waiting
+            _fn, out_q = self._ctrl.popleft()
+            out_q.put(("err", RuntimeError("engine released all requests")))
         self._inflight.clear()
         self._pending_harvest.clear()
         self._device_tokens = None
@@ -908,13 +1215,21 @@ class LLMEngine:
         request shares them, unless another live request holds them; what
         the slot owns alone is freed."""
         self._charge_slot_usage(slot)
+        self._unwind_claim({"pages": slot.pages, "trie_pages": slot.trie_pages, "private_pages": slot.private_pages})
+        self._clear_slot(slot)
+
+    def _unwind_claim(self, claim: dict) -> None:
+        """Invalidate and free a claim whose pages never received valid KV,
+        the one ownership rule of the slot paths and the slot-free one: trie
+        pages another live request holds stay theirs; what the claim owns
+        alone goes back to the allocator."""
         pc = self.prefix_cache
         if pc is not None:
-            pc.invalidate(slot.trie_pages)
-            self.cache.allocator.free(slot.private_pages + [p for p in slot.trie_pages if p not in pc._by_page])
+            pc.invalidate(claim["trie_pages"])
+            self.cache.allocator.free(
+                list(claim["private_pages"]) + [p for p in claim["trie_pages"] if p not in pc._by_page])
         else:
-            self.cache.allocator.free(slot.pages)
-        self._clear_slot(slot)
+            self.cache.allocator.free(claim["pages"])
 
     def _clear_slot(self, slot: _Slot) -> None:
         if self._spec_ctrl is not None and slot.request is not None:
@@ -924,6 +1239,7 @@ class LLMEngine:
         slot.prefill = None
         slot.pending_first = False
         slot.fresh = False
+        slot.spec_hold = False
         slot.ngram = None
         slot.request = None
 
@@ -994,9 +1310,26 @@ class LLMEngine:
         aborts, dispatch a decode block, harvest parked first tokens, read
         the oldest block. With the profiler on, the tick's host time is
         partitioned into ``catalog.TICK_PHASES``; idle ticks record nothing."""
+        # fault point: a scheduler-thread crash (_loop releases every caller)
+        _inject.check("engine.scheduler_crash")
         prof = self.profiler
         tick = None if prof is None else prof.begin_tick()
         self._tick = tick
+        if _inject.fire("engine.scheduler_freeze"):
+            # fault point: a silent freeze. The thread stays alive and
+            # healthy() true, but no tick, dispatch or accept lands again
+            # until stop() (the watchdog's wedged rung) ends the hold
+            for s in self.slots:
+                if s.request is not None:
+                    _rt.event(s.request.trace, "fault", store=self._trace_store, replica=self.trace_name,
+                              point="engine.scheduler_freeze")
+            while self._running:
+                time.sleep(0.005)
+            self._tick = None
+            return False
+        self.watermarks.note_tick()
+        self._drain_ctrl()
+        _tm(tick, "ctrl")
         self._expire_deadlines()
         _tm(tick, "policy")
         admitted = self._admit()
@@ -1007,6 +1340,33 @@ class LLMEngine:
             self._tick = None
             prof.end_tick(tick, worked=admitted or decoded)
         return admitted or decoded
+
+    def _drain_ctrl(self) -> None:
+        """Run the control commands queued for the scheduler thread
+        (``migrate_out``); each result or exception goes back to its caller."""
+        while self._ctrl:
+            fn, out_q = self._ctrl.popleft()
+            try:
+                out_q.put(("ok", fn()))
+            except Exception as e:  # the caller re-raises; the loop lives
+                out_q.put(("err", e))
+
+    def _run_on_scheduler(self, fn, timeout: float = 30.0):
+        """Run ``fn`` on the scheduler thread (the one that owns the cache
+        and the stream order of its writes) and return its result. Raises
+        RuntimeError when the loop is not running and TimeoutError when it
+        stops serving commands: callers fall back to the reactive path."""
+        if not self._running:
+            raise RuntimeError("engine scheduler is not running")
+        out_q: queue.Queue = queue.Queue()
+        self._ctrl.append((fn, out_q))
+        try:
+            status, val = out_q.get(timeout=timeout)
+        except queue.Empty:
+            raise TimeoutError(f"scheduler did not service the control command in {timeout}s") from None
+        if status == "err":
+            raise val
+        return val
 
     def _expire_deadlines(self) -> None:
         """Queued work past its deadline is cancelled before it takes a slot
@@ -1105,17 +1465,33 @@ class LLMEngine:
         entries = self.policy.next_batch(len(free)) if free and (budget is None or spent < budget) else []
         now = self._clock()
         assigned: list[tuple[int, Request, dict]] = []
+        taken = 0  # free slots used (prefills and adoptions)
+        adopted_any = False
         for pos, entry in enumerate(entries):
             req = entry.payload
-            if budget is not None and spent >= budget and not req.aborted:
+            if budget is not None and spent >= budget and not req.aborted and req._adopted_state is None:
                 # budget spent: this entry and the rest still hold their
                 # reservations; aborted ones still drain (they cost nothing)
+                # and adopted blocks ship ready-made KV (no prefill tokens)
                 self.policy.requeue(entries[pos:])
                 break
             self.admission.release(entry)  # the reservation becomes a claim, or goes with the request
             req.sched_entry = None
             if req.aborted:
                 self._finish_stream(req, _Finish("deadline") if req.deadline_expired else _FINISH)
+                continue
+            if req._adopted_state is not None:
+                # migrated KV arrives as a wire block: adopted here, on the
+                # scheduler thread, so its writes queue behind the block in flight
+                status = self._admit_adopted(free[taken], req, entry, now)
+                if status == "retry":
+                    self.admission.reserve(entry)
+                    req.sched_entry = entry
+                    self.policy.requeue(entries[pos:])
+                    break
+                if status == "ok":
+                    taken += 1
+                    adopted_any = True
                 continue
             claim = self._claim_pages(req)
             if claim is None:
@@ -1127,7 +1503,8 @@ class LLMEngine:
                 break
             _obs.record_sched_queue_wait(entry.priority, max(0.0, now - entry.enqueued_at))
             self._close_queue_span(req)
-            assigned.append((free[len(assigned)], req, claim))
+            assigned.append((free[taken], req, claim))
+            taken += 1
             if claim["n_prompt"] <= self.prefill_buckets[-1]:
                 spent += claim["n_prompt"]  # bucketed prompts prefill at once
         _tm(tick, "admit")
@@ -1159,13 +1536,82 @@ class LLMEngine:
             # new long prompts advance with what is left of the budget
             spent = self._advance_pending_prefills(budget, spent)
             _tm(tick, "prefill_resume")
-        return bool(assigned) or spent > 0
+        return bool(assigned) or adopted_any or spent > 0
+
+    def _admit_adopted(self, slot_idx: int, req: Request, entry, now: float) -> str:
+        """Install a migrated request: allocate its whole page budget, adopt
+        the shipped block into the leading pages and decode on from the
+        migrated position, the migrated token riding the override lane as a
+        prefill's first token does. Returns "ok", "retry" (no pages: the
+        caller requeues) or "failed" (a corrupt or incompatible block: the
+        stream ends with "error" and no slot is used)."""
+        from .disagg.transport import TransportError, adopt_pages
+
+        state = req._adopted_state
+        block = state["block"]
+        n_pages = self.request_cost(req)
+        try:
+            pages = self.cache.allocator.alloc(n_pages)
+        except OutOfPages:
+            if self.prefix_cache is None:
+                return "retry"
+            self.prefix_cache.evict(n_pages)
+            try:
+                pages = self.cache.allocator.alloc(n_pages)
+            except OutOfPages:
+                return "retry"
+        req._adopted_state = None
+        if req.trace is None:
+            # a migration from another process: the context rides the block's meta
+            req.trace = _rt.from_wire(block.meta.get("trace"), store=self._trace_store)
+        t_wall = time.time()
+        try:
+            adopt_pages(self.cache, block, pages[: block.n_pages])
+        except TransportError:
+            traceback.print_exc()
+            self.cache.allocator.free(pages)
+            _rt.record_span(req.trace, "adopt", start=t_wall, status="error", parent=req._trace_parent,
+                            store=self._trace_store, replica=self.trace_name)
+            self._finish_stream(req, _Finish("error"))
+            return "failed"
+        _rt.record_span(req.trace, "adopt", start=t_wall, parent=req._trace_parent, store=self._trace_store,
+                        replica=self.trace_name, pages=block.n_pages)
+        # adopted pages are all private: this replica's trie never saw them
+        claim = {"pages": list(pages), "trie_pages": [], "private_pages": list(pages)}
+        resume = state.get("resume")
+        if resume:
+            # a live-migrated request arrives with its accepted history and
+            # emitted-text cursor: detokenization, stop strings and
+            # max_tokens continue where the source replica left off
+            req.generated_tokens = [int(t) for t in resume["generated"]]
+            req.emitted_len = int(resume.get("emitted_len", 0))
+            req.n_generated = max(req.n_generated, len(req.generated_tokens))
+        self._install(slot_idx, req, claim)  # also rebuilds the prompt-lookup index from the history
+        slot = self.slots[slot_idx]
+        slot.position = state["position"]
+        slot.last_token = state["first_token"]
+        slot.fresh = True  # the migrated token rides the override lane
+        # draft mode: the draft cache's KV never crossed the wire
+        slot.spec_hold = self.spec_mode == "draft"
+        _obs.record_sched_queue_wait(entry.priority, max(0.0, now - entry.enqueued_at))
+        self._close_queue_span(req)
+        req.decode_span = _rt.begin(req.trace, "decode", replica=self.trace_name, spec_mode=self.spec_mode or "-")
+        if not resume:
+            # a first-token block: the token is accepted here, as a local
+            # prefill's is at harvest; a mid-decode block's last token was
+            # accepted (and its text emitted) on the source replica
+            self._accept_token(slot_idx, state["first_token"])
+        return "ok"
 
     def _claim_pages(self, req: Request) -> dict | None:
         """Claim ``req``'s page budget: the longest cached prefix of full
         prompt pages is shared from the trie, the rest allocated (evicting
         zero-ref cached pages under pressure), and the full prompt pages
         inserted into the trie. None when the pages are not there."""
+        # fault point: allocator exhaustion (the slot path requeues;
+        # prefill_sync raises OutOfPages and the coordinator falls back)
+        if _inject.fire("engine.out_of_pages"):
+            return None
         n_prompt = len(req.prompt_tokens)
         n_pages = self.request_cost(req)
         pc = self.prefix_cache
@@ -1211,6 +1657,7 @@ class LLMEngine:
         slot.prefill = None
         slot.pending_first = False
         slot.fresh = False
+        slot.spec_hold = False
         if self.spec_mode == "ngram":
             slot.ngram = _NgramIndex(self.ngram_n, list(req.prompt_tokens) + list(req.generated_tokens),
                                      self.NGRAM_LOOKBACK)
@@ -1226,18 +1673,32 @@ class LLMEngine:
         t_start, t_wall = time.monotonic(), time.time()
         for _slot_idx, req, _claim in group:
             _obs.record_engine_queue_wait(t_start - req.created)
+        start = _mark(self.device)
+        tables = [(req, self._install(slot_idx, req, claim)) for slot_idx, req, claim in group]
+        first = self._prefill_rows(bucket, tables)
+        rows = []
+        for i, (slot_idx, req, claim) in enumerate(group):
+            self.slots[slot_idx].pending_first = True
+            rows.append((slot_idx, req, i, claim["n_prompt"], self.slots[slot_idx].tenancy))
+        self._pending_harvest.append(
+            (_Landing(first, start), rows,
+             {"phase": "prefill", "t_start": t_start, "t_wall": t_wall, "bucket": bucket}))
+
+    def _prefill_rows(self, bucket: int, rows: list) -> torch.Tensor:
+        """Dispatch one batched prefill of up to ``prefill_batch`` prompts,
+        each ``(request, page-table row)``, padded to ``bucket`` (pad rows
+        target the trash page), and its first tokens' sampling; returns the
+        sampled tokens ``[prefill_batch]`` on the device."""
         B = self.prefill_batch
-        pad_tok = self.tokenizer.pad_id % self.cfg.vocab_size
-        tokens = np.full((B, bucket), pad_tok, np.int32)
+        tokens = np.full((B, bucket), self.tokenizer.pad_id % self.cfg.vocab_size, np.int32)
         tables = np.zeros((B, self.pages_per_slot), np.int32)
         seq_lens = np.ones((B,), np.int32)
         temps = np.ones((B,), np.float32)
         top_ps = np.ones((B,), np.float32)
         top_ks = np.zeros((B,), np.int32)
         seeds = np.full((B,), -1, np.int32)
-        start = _mark(self.device)
-        for i, (slot_idx, req, claim) in enumerate(group):
-            tables[i] = self._install(slot_idx, req, claim)
+        for i, (req, table) in enumerate(rows):
+            tables[i] = table
             n = len(req.prompt_tokens)
             tokens[i, :n] = req.prompt_tokens
             seq_lens[i] = n
@@ -1253,17 +1714,21 @@ class LLMEngine:
             # the draft's cache over the same pages (the caches share page ids)
             llama.prefill(self.draft_params, tok_d, self.draft_cache.k_pages, self.draft_cache.v_pages, tables_d,
                           lens_d, self.draft_cfg)
-        first = sample(
+        return sample(
             logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=lens_d,
             needs_filter=bool(((top_ps < 1.0) | (top_ks > 0)).any()),
         )
-        rows = []
-        for i, (slot_idx, req, claim) in enumerate(group):
-            self.slots[slot_idx].pending_first = True
-            rows.append((slot_idx, req, i, claim["n_prompt"], self.slots[slot_idx].tenancy))
-        self._pending_harvest.append(
-            (_Landing(first, start), rows,
-             {"phase": "prefill", "t_start": t_start, "t_wall": t_wall, "bucket": bucket}))
+
+    def _sample_first(self, req: Request, logits: torch.Tensor) -> torch.Tensor:
+        """Sample a chunked prompt's first token from its last chunk's logits
+        (keyed by seed and position, so slicing cannot change it)."""
+        p = req.params
+        temps_d, top_ps_d, top_ks_d, seeds_d, step_d = self._stage(
+            np.array([p.temperature], np.float32), np.array([p.top_p], np.float32), np.array([p.top_k], np.int32),
+            np.array([_req_seed(req)], np.int32), np.array([len(req.prompt_tokens)], np.int32),
+        )
+        return sample(logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=step_d,
+                      needs_filter=p.top_p < 1.0 or p.top_k > 0)
 
     def _prefill_long(self, slot_idx: int, req: Request, claim: dict) -> None:
         """Install a prompt longer than the largest bucket as a sliced
@@ -1330,17 +1795,10 @@ class LLMEngine:
     def _finish_sliced_prefill(self, slot_idx: int, pp: _PendingPrefill) -> None:
         """Every chunk dispatched: sample the first token (keyed by seed and
         position, so slicing cannot change it) and park it for the harvest."""
-        req, p = pp.req, pp.req.params
+        req = pp.req
         n_prompt = len(req.prompt_tokens)
         start = _mark(self.device)
-        temps_d, top_ps_d, top_ks_d, seeds_d, step_d = self._stage(
-            np.array([p.temperature], np.float32), np.array([p.top_p], np.float32), np.array([p.top_k], np.int32),
-            np.array([_req_seed(req)], np.int32), np.array([n_prompt], np.int32),
-        )
-        first = sample(
-            pp.logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=step_d,
-            needs_filter=p.top_p < 1.0 or p.top_k > 0,
-        )
+        first = self._sample_first(req, pp.logits)
         slot = self.slots[slot_idx]
         slot.prefill = None
         slot.pending_first = True
@@ -1386,7 +1844,21 @@ class LLMEngine:
                 self.usage.note_prompt(req, n_prompt, calls=u_calls)
                 u_calls = 0
                 s.position = n_prompt
-                s.last_token = int(first[row])
+                rs = req._resume_state
+                if rs is not None:
+                    # a failover resume: replay the accepted generated prefix
+                    # through the decode block body, then feed the last
+                    # accepted token (the client has it) through the override
+                    # lane in place of the prefill's sample, so the next token
+                    # carries the uninterrupted run's (seed, position) key
+                    replay = rs["replay"]
+                    self._replay_decode_prefix(slot_idx, replay)
+                    s.position = n_prompt + len(replay) - 1
+                    s.last_token = int(replay[-1])
+                    # draft mode: the replay rebuilt the target's KV only
+                    s.spec_hold = self.spec_mode == "draft"
+                else:
+                    s.last_token = int(first[row])
                 s.fresh = True
                 worked = True
                 if meta["phase"] == "prefill_chunked":
@@ -1408,9 +1880,39 @@ class LLMEngine:
                     )
                 req.decode_span = _rt.begin(req.trace, "decode", replica=self.trace_name,
                                             spec_mode=self.spec_mode or "-")
-                self._accept_token(slot_idx, s.last_token)
+                if rs is not None:
+                    # the fed token was accepted (and its text emitted) before the failure
+                    req._resume_state = None
+                else:
+                    self._accept_token(slot_idx, s.last_token)
             _tm(tick, "accept")
         return worked
+
+    def _replay_decode_prefix(self, slot_idx: int, replay: list) -> None:
+        """Rebuild a resumed request's generated-prefix KV: feed each
+        accepted token but the last through the decode block's step body
+        (``llama.decode_step`` over all ``max_slots`` rows, this one active,
+        the token through the override lane), one token a dispatch. The same
+        body at the same batch width over the same inputs writes the KV the
+        lost replica's decode wrote, bit for bit (a prefill of those
+        positions differs by a bf16 rounding and flips greedy near-ties).
+        The dispatches queue on the engine's stream; nothing is read."""
+        if len(replay) <= 1:
+            return  # generated[-1] rides the override lane of live decode
+        S = self.max_slots
+        base_pos = self.slots[slot_idx].position
+        active = np.zeros((S,), bool)
+        active[slot_idx] = True
+        tokens = np.zeros((S,), np.int32)
+        positions = np.zeros((S,), np.int32)
+        for i, tok in enumerate(replay[:-1]):
+            tokens[slot_idx] = int(tok)
+            positions[slot_idx] = base_pos + i
+            tok_d, pos_d, tables_d, active_d = self._stage(tokens, positions, self._page_tables, active)
+            llama.decode_step(
+                self.params, tok_d, pos_d, self.cache.k_pages, self.cache.v_pages, tables_d, active_d, self.cfg,
+                impl=self.paged_impl, scatter_impl=self.scatter_impl,
+            )
 
     # -- decode -----------------------------------------------------------------
 
@@ -1419,6 +1921,13 @@ class LLMEngine:
         ones, harvest the parked first tokens, and read the oldest block when
         two are in flight or none is decodable."""
         tick = self._tick
+        if _inject.fire("engine.slow_decode"):
+            # fault point: one stalled decode tick (latency only)
+            for s in self.slots:
+                if s.request is not None:
+                    _rt.event(s.request.trace, "fault", store=self._trace_store, replica=self.trace_name,
+                              point="engine.slow_decode")
+            time.sleep(0.05)
         for s in self.slots:
             if not s.free and s.request.aborted:
                 req = s.request
@@ -1439,10 +1948,20 @@ class LLMEngine:
             # no decodable slot: a dispatch gap from here on is idleness or
             # prefill, not a stall of running streams
             self._last_dispatch_at = None
+            self._idle_watermarks()
         worked = self._harvest_prefills() or worked
         if self._inflight and (len(self._inflight) >= 2 or not live):
             worked = self._process_block() or worked
         return worked
+
+    def _idle_watermarks(self) -> None:
+        """No slot is decodable: no dispatch or accept is owed, so both
+        watermarks restart here. The watchdog reads them only while a slot
+        is decodable; without this, the first look after a slot lights up on
+        an idle engine (a resumed request mid-replay) would read the age of
+        the last dispatch before the engine went idle."""
+        self.watermarks.note_dispatch()
+        self.watermarks.note_accept()
 
     def _dispatch_block(self, live: list[int]) -> None:
         """Queue one decode block over ``live`` at the slots' optimistic
@@ -1461,6 +1980,7 @@ class LLMEngine:
             # dispatch-to-dispatch gap while decodable slots existed
             _obs.record_decode_stall(t0 - self._last_dispatch_at)
         self._last_dispatch_at = t0
+        self.watermarks.note_dispatch()
         _obs.record_engine_batch(len(live))
         S = self.max_slots
         active = np.zeros((S,), bool)
@@ -1561,6 +2081,7 @@ class LLMEngine:
         worked = self._harvest_prefills()
         live = [i for i, s in enumerate(self.slots) if s.decodable]
         if not live:
+            self._idle_watermarks()
             return worked
         gammas = np.zeros((self.max_slots,), np.int32)
         batch_fill = len(live) / max(1, self.max_slots)
@@ -1592,10 +2113,11 @@ class LLMEngine:
         """A slot's proposal budget for the next round (0: the classic lane
         of the same round). Sampled requests never speculate (the accept
         path is not (seed, position)-keyed; the classic lane keeps them
-        token-identical to a non-speculative engine), and no proposal goes
-        past the request's own end."""
+        token-identical to a non-speculative engine), neither does a
+        ``spec_hold`` tenancy, and no proposal goes past the request's own
+        end."""
         p = s.request.params
-        if p.temperature > 0:
+        if p.temperature > 0 or s.spec_hold:
             return 0
         cap = max(0, min(int(self.spec_depth), self.spec_gamma))
         if self.spec_adaptive and self._spec_ctrl is not None:
@@ -1617,6 +2139,7 @@ class LLMEngine:
         if self._last_dispatch_at is not None:
             _obs.record_decode_stall(t0 - self._last_dispatch_at)
         self._last_dispatch_at = t0
+        self.watermarks.note_dispatch()
         _obs.record_engine_batch(len(live))
         S = self.max_slots
         tokens = np.zeros((S,), np.int32)
@@ -1788,6 +2311,7 @@ class LLMEngine:
             token = (token + 1) % self.cfg.vocab_size
         self.stats.generated_tokens += 1
         self.usage.note_token(req, slot.position)
+        self.watermarks.note_accept()
         now = time.monotonic()
         if req.first_token_at is None:
             req.first_token_at = now

@@ -1,7 +1,6 @@
-"""OpenAI-compatible HTTP server over one LLM engine.
+"""OpenAI-compatible HTTP server over one LLM engine or a router's replicas.
 
-Counterpart of ``modal_examples_tpu/serving/openai_api.py`` for a single
-engine: ``/health``, ``/v1/models``, ``/v1/completions`` and
+Counterpart of ``modal_examples_tpu/serving/openai_api.py``: ``/health``, ``/v1/models``, ``/v1/completions`` and
 ``/v1/chat/completions``, JSON or SSE streaming (with the
 ``stream_options.include_usage`` usage chunk), 400 on bad parameters and 429
 with ``Retry-After`` when admission sheds. A request's deadline is
@@ -16,8 +15,12 @@ is a 400. The request's trace opens at submit, and its id comes back as
 the catalog's hand-built lines from the engine's stats (with the speculation
 counters on a speculating engine), then the port's
 registry exposition, never a name twice. Stdlib HTTP, a thread per
-connection; the engine's continuous batching does the multiplexing. Not in
-this slice: the router front and images.
+connection; the engine's continuous batching does the multiplexing. With
+``router=`` (a ``PrefixAffinityRouter`` or a ``DisaggCoordinator``) every
+request is placed by the router and streamed through its failover path
+(``serving/failover.py``): a replica dying mid-stream is resumed on a peer
+and the stream goes on with no duplicated characters. The port takes no
+images.
 """
 
 from __future__ import annotations
@@ -221,7 +224,7 @@ class _Handler(BaseHTTPRequestHandler):
             include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
             self._stream(eng, req, rid, created, kind, chat, include_usage, n_prompt)
             return
-        text = "".join(eng.stream(req))
+        text = "".join(srv.stream_request(req))
         if req.finish_reason == "error":
             self._json(500, _SERVER_ERROR, extra_headers={"x-mtpu-request-id": req.request_id})
             return
@@ -246,12 +249,12 @@ class _Handler(BaseHTTPRequestHandler):
                 reqs.append(srv.submit(prompt, p, **sched))
         except ShedError as e:
             for r in reqs:
-                eng.abort(r)
-                for _ in eng.stream(r):
+                srv.abort_request(r)
+                for _ in srv.stream_request(r):
                     pass
             self._shed_response(e)
             return
-        texts = ["".join(eng.stream(r)) for r in reqs]
+        texts = ["".join(srv.stream_request(r)) for r in reqs]
         if any(r.finish_reason == "error" for r in reqs):
             self._json(500, _SERVER_ERROR)
             return
@@ -283,8 +286,9 @@ class _Handler(BaseHTTPRequestHandler):
                 chunk["usage"] = None  # content chunks carry null; the last one the totals
             return chunk
 
+        srv = self.server_ref
         try:
-            for piece in eng.stream(req):
+            for piece in srv.stream_request(req):
                 delta = {"delta": {"content": piece}} if chat else {"text": piece}
                 send(chunk_of(choices=[{"index": 0, **delta, "finish_reason": None}]))
             if req.finish_reason == "error":
@@ -299,37 +303,97 @@ class _Handler(BaseHTTPRequestHandler):
         except BrokenPipeError:
             # client went away: free the slot, drain to the terminal marker
             if req.finish_reason is None:
-                eng.abort(req)
-                for _ in eng.stream(req):
+                srv.abort_request(req)
+                for _ in srv.stream_request(req):
                     pass
 
 
 class OpenAIServer:
-    """HTTP front end for one engine; ``start()`` binds and serves in a
-    background thread (``port=0`` picks a free port)."""
+    """HTTP front end; ``start()`` binds and serves in a background thread
+    (``port=0`` picks a free port).
 
-    def __init__(self, engine: LLMEngine, model_name: str = "mtpu-llm", host: str = "127.0.0.1", port: int = 8000):
+    Fronts ONE engine (``engine=``) or a router's replicas (``router=``):
+    exactly one of the two. With a router, ``self.engine`` is the first
+    replica that serves requests end to end (its tokenizer, ``/metrics`` and
+    parameter checks stand for the fleet: the replicas serve one model)."""
+
+    def __init__(self, engine: LLMEngine | None = None, model_name: str = "mtpu-llm", host: str = "127.0.0.1",
+                 port: int = 8000, *, router=None):
+        if (engine is None) == (router is None):
+            raise ValueError("pass exactly one of engine= or router=")
+        self.router = router
+        if engine is None:
+            # prefill-role replicas under a coordinator never own a request
+            serving = [r for r in router.replicas if getattr(r, "serves_requests", True)]
+            engine = (serving or router.replicas)[0].engine
         self.engine = engine
         self.model_name = model_name
         handler = type("BoundHandler", (_Handler,), {"server_ref": self})
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.host, self.port = self.httpd.server_address[:2]
         self._thread: threading.Thread | None = None
+        self._canary = None
 
     def submit(self, prompt, params, **sched):
         """Submit one request with its trace opened here, at the entry point
-        (the engine request takes the trace's id). Raises ``ShedError``."""
-        return self.engine.submit(prompt, params, trace=_rt.start_request_trace(entry="api"), **sched)
+        (the request takes the trace's id), through the router when there is
+        one. Raises ``ShedError``."""
+        trace = _rt.start_request_trace(entry="api")
+        if self.router is not None:
+            return self.router.submit(prompt, params, trace=trace, **sched)
+        return self.engine.submit(prompt, params, trace=trace, **sched)
+
+    def stream_request(self, req):
+        """One submitted request's text pieces: through the router's
+        failover path when there is one (a dead replica's streams resume on
+        a peer, the overlap clipped), else the engine's stream."""
+        if self.router is not None:
+            return self.router.stream(req)
+        return self.engine.stream(req)
+
+    def abort_request(self, req) -> None:
+        """Abort wherever the request lives now (after a failover, not
+        necessarily the replica that first took it)."""
+        if self.router is not None:
+            self.router.abort(req)
+        else:
+            self.engine.abort(req)
+
+    def _engines(self) -> list:
+        """Engines whose scheduler loop this server owns: a coordinator's
+        ``serving_engines()`` (a prefill replica's loop never runs), else
+        every replica's, else the one engine."""
+        if self.router is None:
+            return [self.engine]
+        serving = getattr(self.router, "serving_engines", None)
+        return serving() if serving is not None else [r.engine for r in self.router.replicas]
+
+    def _maybe_start_canary(self) -> None:
+        """``MTPU_CANARY_INTERVAL`` arms the golden-set prober over a router
+        front's replicas (a coordinator's weight-bearing router underneath)."""
+        import os
+
+        from ..observability.canary import INTERVAL_ENV, CanaryProber
+
+        if self.router is None or not os.environ.get(INTERVAL_ENV):
+            return
+        self._canary = CanaryProber(getattr(self.router, "router", self.router)).start()
 
     def start(self) -> "OpenAIServer":
-        self.engine.start()
+        for eng in self._engines():
+            eng.start()
+        self._maybe_start_canary()
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._thread.start()
         return self
 
     def stop(self) -> None:
+        if self._canary is not None:
+            self._canary.stop()
+            self._canary = None
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)
-        self.engine.stop()
+        for eng in self._engines():
+            eng.stop()

@@ -3,7 +3,7 @@
 A copy of ``modal_examples_tpu/serving/prefix_cache.py`` with its metrics
 series (``mtpu_prefix_cached_pages``, ``mtpu_prefix_cache_evictions_total``;
 the counters ``hits``, ``misses``, ``evictions`` and ``stats()`` beside them),
-without the spill hook of the tiered cache (ROADMAP A9). Prompts sharing
+without the spill hook of the tiered cache (ROADMAP A9b). Prompts sharing
 a page-aligned token prefix share the physical KV pages of that prefix.
 
 Mechanics:

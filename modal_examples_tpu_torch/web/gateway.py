@@ -15,9 +15,11 @@ SLO gate), ``/metrics`` (the process registry merged with the pushed
 expositions), ``/alerts``, ``/incidents[/<id>[?file=NAME]]``, ``/canary``,
 ``/traces`` (call and request traces, merged across the registered
 stores), ``/profile`` (the engines' hot-path profilers and the kernel
-build ledger), ``/usage`` (their usage meters) and ``/autoscaler`` (the
-executor's journal). The fleet's routes answer 501 naming the ROADMAP item
-they wait on (:data:`WAITING_ROUTES`). A ``@websocket_endpoint`` route
+build ledger), ``/usage`` (their usage meters), ``/autoscaler`` (the
+executor's journal), ``/health`` (the gray-failure watchdog's per-replica
+classification) and ``/disagg`` (replica roles and migrations). The prefix
+store's, the fleet's and the chaos harness's routes answer 501 naming the
+ROADMAP item they wait on (:data:`WAITING_ROUTES`). A ``@websocket_endpoint`` route
 upgrades the connection (``web/websocket.py``) and runs its handler in the
 gateway's process, as the reference's does: a live socket cannot cross into
 a container.
@@ -62,11 +64,9 @@ BUILTIN_ROUTES: dict[str, str] = {
 #: built-in routes over modules the port does not have yet: label -> what
 #: they wait on. They answer 501 with that text.
 WAITING_ROUTES: dict[str, str] = {
-    "health": "serving/health.py (ROADMAP A9)",
-    "fleet": "fleet/ (ROADMAP A9)",
-    "disagg": "serving/disagg/ (ROADMAP A9)",
-    "chaos": "faults/chaos.py (ROADMAP A9)",
-    "prefixstore": "serving/prefix_store/ (ROADMAP A9)",
+    "fleet": "fleet/ (ROADMAP A9c)",
+    "chaos": "faults/chaos.py (ROADMAP A9c)",
+    "prefixstore": "serving/prefix_store/ (ROADMAP A9b)",
 }
 
 
@@ -91,6 +91,50 @@ def _coerce_kwargs(fn, raw: dict) -> dict:
             pass
         out[name] = value
     return out
+
+
+def _disagg_snapshot() -> dict:
+    """Disaggregated-serving snapshot from the process registry: replica
+    roles and the migration counters and latency (the ``/disagg`` route's
+    payload; ``python -m modal_examples_tpu_torch disagg`` renders the same
+    series). The prefix tiers' occupancy and hits come with ROADMAP A9b."""
+    from ..observability import catalog as C
+    from ..utils.prometheus import default_registry as reg
+
+    roles = {labels.get("replica", "?"): labels.get("role", "?") for labels, _v in reg.series(C.REPLICA_ROLE)}
+    by_result = {labels.get("result", "?"): v for labels, v in reg.series(C.DISAGG_MIGRATIONS_TOTAL)}
+    return {
+        "replicas": roles,
+        "migrations": {
+            "by_result": by_result,
+            "inflight": reg.value(C.DISAGG_MIGRATIONS_INFLIGHT),
+            "pages": reg.total(C.DISAGG_PAGES_MIGRATED_TOTAL),
+            "bytes": reg.total(C.DISAGG_MIGRATION_BYTES_TOTAL),
+            "latency": reg.histogram_quantiles(C.DISAGG_MIGRATION_SECONDS),
+        },
+    }
+
+
+def _health_snapshot(last: int = 20) -> dict:
+    """Gray-failure watchdog snapshot: per-replica classification and
+    progress age (``mtpu_watchdog_replica_state`` /
+    ``mtpu_watchdog_progress_age_seconds`` from the live registry), the
+    transition and recovery counters, and the newest ladder decisions of
+    ``<state_dir>/watchdog.jsonl`` (the ``/health`` route's payload).
+    ``/healthz`` is the SLO gate; this is the per-replica progress view."""
+    from ..observability.journal import named_journal
+    from ..serving.health import decode_watchdog_series
+    from ..utils.prometheus import default_registry as reg
+
+    wd = decode_watchdog_series(reg)
+    return {
+        "replicas": {
+            name: {"state": state, "progress_age_s": wd["ages"].get(name)} for name, state in wd["states"].items()
+        },
+        "transitions": wd["transitions"],
+        "recoveries": wd["recoveries"],
+        "journal": named_journal("watchdog").tail(last),
+    }
 
 
 def _profile_snapshot(last: int = 20) -> dict:
@@ -339,8 +383,9 @@ class _Handler(BaseHTTPRequestHandler):
         pushed files), ``/alerts[?n=N]``, ``/incidents[/<id>[?file=NAME]]``,
         ``/canary[?n=N]``, ``/traces[/<id>[?explain=1]]`` (call and request
         span JSON), ``/profile[?n=N]``, ``/usage[?n=N]``,
-        ``/autoscaler[?function=tag&n=N]``, ``/`` (the
-        :data:`BUILTIN_ROUTES` index), and 501 for :data:`WAITING_ROUTES`.
+        ``/autoscaler[?function=tag&n=N]``, ``/health[?n=N]``, ``/disagg``,
+        ``/`` (the :data:`BUILTIN_ROUTES` index), and 501 for
+        :data:`WAITING_ROUTES`.
         User endpoints with the same label win — these only answer when no
         route claimed the path."""
         parts = parsed.path.strip("/").split("/")
@@ -369,6 +414,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond_json(200, _usage_snapshot(last=self._query_int(parsed, 10)))
         elif label == "profile":
             self._respond_json(200, _profile_snapshot(last=self._query_int(parsed, 20)))
+        elif label == "health":
+            self._respond_json(200, _health_snapshot(last=self._query_int(parsed, 20)))
+        elif label == "disagg":
+            self._respond_json(200, _disagg_snapshot())
         elif label == "autoscaler":
             from ..observability.journal import default_journal
 

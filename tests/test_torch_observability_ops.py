@@ -434,11 +434,48 @@ def test_canary_record_pass_drift_and_identity_on_the_tiny_engine(state, weights
 
 
 def test_a_router_prober_waits_with_a9():
+    """The router prober landed with ``scheduling/router.py`` (ROADMAP A9a):
+    over a router it walks ``router.replicas`` (none here: a round probes
+    nothing) instead of refusing."""
+
     class Router:
         replicas = []
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        pcanary.CanaryProber(Router())
+    prober = pcanary.CanaryProber(Router(), interval_s=3600.0)
+    assert prober.router is not None and prober.replica is None
+    assert prober.probe_once() == {} and prober.rounds == 1
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_a_router_prober_down_weights_a_drifting_replica(pkg, state, monkeypatch):
+    """Rounds over a router's replica, fed to ``_note_round``: two drifting
+    rounds down-weight it to 0.25 (``fail_threshold`` 2), a passing round
+    restores 1.0, as the JAX prober does."""
+    mod = jcanary if pkg == "jax" else pcanary
+    calls = []
+
+    class Replica:
+        name, role = "r0", "unified"
+
+        def healthy(self):
+            return True
+
+    class Router:
+        replicas = [Replica()]
+
+        def set_health_weight(self, name, w):
+            calls.append((name, w))
+
+    prober = mod.CanaryProber(Router(), interval_s=3600.0)
+    drift = [{"probe": "g0", "result": "drift", "request_id": "req-x", "mismatch_at": 0}]
+    passing = [{"probe": "g0", "result": "pass", "request_id": "req-y"}]
+    mock_capture = []
+    monkeypatch.setattr(
+        (jincident if pkg == "jax" else pincident), "capture", lambda *a, **k: mock_capture.append(k))
+    for results in (drift, drift, passing, passing):
+        prober._note_round(Router.replicas[0], results)
+    assert calls == [("r0", 0.25), ("r0", 1.0)]
+    assert len(mock_capture) == 2
 
 
 # -- the compile ledger -----------------------------------------------------------------
@@ -648,7 +685,7 @@ def test_every_observability_subcommand_is_served(populated):
     assert not served & set(pcli.WAITING_COMMANDS)
     # A13's examples, docs and snapshot subcommands are served too
     assert {"examples", "docs", "snapshot"} <= set(pcli.COMMANDS)
-    assert {v.split()[0] for v in pcli.WAITING_COMMANDS.values()} == {"A8", "A9"}
+    assert {v.split()[0] for v in pcli.WAITING_COMMANDS.values()} == {"A8", "A9b", "A9c"}
 
 
 def test_the_cli_runs_as_a_module(populated, tmp_path):

@@ -258,10 +258,11 @@ class TestOptions:
         assert pm.Image.debian_slim().export_oci(str(tmp_path / "oci"))["n_layers"] == 1
         out = run_cli("modal_examples_tpu_torch", "chaos")
         assert out.returncode != 0 and "A9" in out.stderr
-        # what still waits is A8's and A9's; the observability (A6) and the
-        # examples, docs and snapshot subcommands (A13) are served
-        assert {v.split()[0] for v in WAITING_COMMANDS.values()} == {"A8", "A9"}
-        assert all("(ROADMAP A9)" in v for v in WAITING_ROUTES.values())
+        # what still waits is A8's, A9b's and A9c's; the observability (A6),
+        # the examples, docs and snapshot subcommands (A13) and the fleet
+        # layers' sched, disagg and health (A9a) are served
+        assert {v.split()[0] for v in WAITING_COMMANDS.values()} == {"A8", "A9b", "A9c"}
+        assert all(v.endswith(("(ROADMAP A9b)", "(ROADMAP A9c)")) for v in WAITING_ROUTES.values())
         out = run_cli("modal_examples_tpu_torch", "alerts", env={"MTPU_STATE_DIR": str(tmp_path / "state")})
         assert out.returncode == 0 and "kv_pressure" in out.stdout, out.stderr
 
@@ -381,7 +382,7 @@ def test_gateway_serves_what_the_port_has_and_501_for_the_rest(monkeypatch):
         monkeypatch.setenv(var, "1000000")
     for var in ("MTPU_SLO_ERROR_RATE", "MTPU_SLO_RETRY_RATE", "MTPU_SLO_DEADLINE_MISS_RATE"):
         monkeypatch.setenv(var, "1.0")
-    assert set(WAITING_ROUTES) == {"health", "fleet", "disagg", "chaos", "prefixstore"}
+    assert set(WAITING_ROUTES) == {"fleet", "chaos", "prefixstore"}
     app = pm.App("gateway-routes")
 
     @app.function()

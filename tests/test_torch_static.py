@@ -168,3 +168,10 @@ def test_no_try_around_a_launch():
                     for n in ast.walk(node) if isinstance(n, ast.Call)
                 }
                 assert not called & (launchers | set(KERNELS)), f"{path.name}: try around a kernel launch"
+
+
+def test_import_scan_reaches_the_fleet_layers():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("serving/health.py", "serving/failover.py", "serving/disagg/__init__.py",
+                "serving/disagg/transport.py", "serving/disagg/roles.py", "scheduling/router.py"):
+        assert mod in names

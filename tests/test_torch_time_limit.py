@@ -152,6 +152,25 @@ def time_limits(*, test_s: float, module_s: float):
     return _limit_module, _limit_test
 
 
+def thread_guard(grace_s: float = 15.0):
+    """The autouse module fixture of a file whose tests start threads (an
+    engine's scheduler loop, a watchdog, a detokenization worker): when the
+    module ends, no thread it started may be alive (``grace_s`` for the last
+    ones to exit)."""
+
+    @pytest.fixture(scope="module", autouse=True)
+    def _no_thread_outlives_the_module():
+        before = set(threading.enumerate())
+        yield
+        deadline = time.monotonic() + grace_s
+        while (left := [t for t in threading.enumerate() if t not in before and t.is_alive()]) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert not left, f"threads outlived the module: {[t.name for t in left]}"
+
+    return _no_thread_outlives_the_module
+
+
 def read_line(stream, timeout_s: float) -> str:
     """The next line of a child's text ``stream``, or TimeoutError after
     ``timeout_s`` (a thread reads, so the caller's wait is bounded)."""
