@@ -311,6 +311,35 @@ Phases (any failure exits non-zero and prints no result):
    the gateway's ``/health`` and ``python -m modal_examples_tpu_torch
    health`` show it. Then 15a and 15b over int8 pages (K3-int8, K2-int8).
    The phase's peak memory is logged; its launches join the kernels line.
+16. the prefix tiers, the fleet autoscaler and the chaos runner (after
+   phase 15, before training). (16a) phase 6b's 320-token shared prompt (20
+   pages) in 8 rows through an engine with ``tiered_prefix=`` over an
+   ephemeral ``Volume`` (shared store, replica "a", the 64 MiB host tier)
+   beside the same rows with the cache off: served, the 20 pages recorded,
+   the trie evicted (the spill: extract, serialize, demote timed, the
+   host/volume split logged), served again: the promoted pages bitwise equal
+   to the recorded ones before the prefill's rewrite and after the request,
+   the first row's ``cached_tokens`` 16 x the pages promoted, every row's
+   tokens the cache-off run's, every page back; the promote's volume read,
+   deserialize and adopt timed, and the promoted prompt's TTFT against the
+   cache-off one; bf16, then int8 pages. (16b) replica "b" over a's store
+   promotes what a demoted (volume hits from a peer);
+   ``tiered.volume_corrupt`` drops the block in flight, the stored files
+   unchanged, the prompt recomputed; ``prefix_store.owner_death`` kills the
+   chain's owner mid-spill and the survivor takes its lease over
+   (``owner_takeover`` journaled) and promotes warm; tokens identical
+   throughout. (16c) a ``FleetAutoscaler`` over a ``PrefixAffinityRouter``
+   of Llama-2-7B-width replicas at depth 4 built by a
+   ``SnapshotWarmFactory`` and ticked under a fake clock: 16 requests over 8
+   slots scale up on ``queue_pressure`` with a warm (snapshot-restored)
+   boot, the new replica's rows the seed's; an idle tick scales it down and
+   its two live streams migrate to the seed token-identically before its
+   engine stops; ``fleet.jsonl`` and ``/fleet`` agree; one load-generator
+   step through ``OpenAIServer(router=)``. (16d) ``run_chaos(seed=0,
+   strict=True)`` on the card (``LlamaConfig.tiny`` engines): every fault
+   point fired, the invariants "ok" after all 15 episodes, 0 wedged,
+   ``/chaos`` answering. The phase's seconds and peak memory are logged; its
+   launches join the kernels line.
 """
 
 from __future__ import annotations
@@ -5158,7 +5187,10 @@ def phase15_health(fa, pa, qmm, co, requests, card: str) -> dict:
         plan = inject.FaultPlan({"engine.scheduler_freeze": {"on_hit": 1}}, seed=0)
         with inject.active(plan):
             wait_for(lambda: plan.fired().get("engine.scheduler_freeze") == 1, 60, "the injected freeze")
-        wait_for(lambda: a.health_state == "degraded", policy.degraded_after_s + 10, f"{a.name} degraded")
+        # the watchdog publishes the state before it journals the transition
+        # and down-weights the replica: wait for the whole rung
+        wait_for(lambda: a.health_state == "degraded" and co.router.health_weight(a.name) != 1.0,
+                 policy.degraded_after_s + 10, f"{a.name} degraded and down-weighted")
         t_degraded = time.monotonic() - t_freeze
         weight = co.router.health_weight(a.name)
         fresh = co.submit(*requests[0])
@@ -5271,6 +5303,477 @@ def phase_fleet_layers(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingPara
     return out
 
 
+# -- phase 16 ---------------------------------------------------------------------
+
+#: 16c: the fleet's model, Llama-2-7B at full width cut to phase 14's depth
+FLEET_DEPTH = SNAP_DEPTH
+#: 16c: live streams on the scale-in victim, and their length
+DRAIN_STREAMS, DRAIN_TOKENS = 2, 160
+
+
+class TierClock:
+    """Wall seconds and bytes of each step of a tiered engine's spill and
+    promote: wrappers on ``tiered_cache``'s module names and on the store's
+    ``put``/``get`` of one engine (the adopt synchronizes the card, so its
+    copies are timed)."""
+
+    STEPS = ("extract", "serialize", "demote", "volume_read", "deserialize", "adopt")
+
+    def __init__(self, eng):
+        from modal_examples_tpu_torch.serving.disagg import tiered_cache as tc
+
+        self.tc, self.eng = tc, eng
+        self.seconds = dict.fromkeys(self.STEPS, 0.0)
+        self.bytes = dict.fromkeys(self.STEPS, 0)
+        self._saved = {}
+
+    def _wrap(self, owner, name: str, step: str, nbytes, sync: bool = False):
+        fn = getattr(owner, name)
+        self._saved[(owner, name)] = fn
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            self.seconds[step] += time.perf_counter() - t
+            self.bytes[step] += nbytes(a, out)
+            return out
+
+        setattr(owner, name, timed)
+
+    def __enter__(self):
+        tc, store = self.tc, self.eng.tiered.store
+        self._wrap(tc, "extract_pages", "extract", lambda a, out: out.nbytes())
+        self._wrap(tc, "serialize_block", "serialize", lambda a, out: len(out))
+        self._wrap(store, "put", "demote", lambda a, out: len(a[1]) if out == "written" else 0)
+        self._wrap(store, "get", "volume_read", lambda a, out: len(out) if out else 0)
+        self._wrap(tc, "deserialize_block", "deserialize", lambda a, out: out.nbytes())
+        self._wrap(tc, "adopt_pages", "adopt", lambda a, out: a[1].nbytes(), sync=True)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in self._saved.items():
+            if owner is self.tc:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)  # the instance attribute shadowed the method
+        return False
+
+    def report(self) -> dict:
+        return {s: {"s": self.seconds[s], "bytes": self.bytes[s],
+                    "gb_per_s": self.bytes[s] / 1e9 / self.seconds[s] if self.seconds[s] else None}
+                for s in self.STEPS}
+
+
+def trie_page_ids(eng, tokens) -> list:
+    pages, _ = eng.prefix_cache.acquire(tokens)
+    eng.prefix_cache.release(pages)
+    return pages
+
+
+def page_bytes(eng, ids) -> dict:
+    """Every leaf of ``ids`` on the host (bf16 as int16 bits: compared with ``torch.equal``)."""
+    from modal_examples_tpu_torch.serving.disagg import extract_pages
+
+    block = extract_pages(eng.cache, ids)
+    return {k: (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).clone() for k, v in block.leaves.items()}
+
+
+def same_bytes(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def tier_rows(SamplingParams) -> list:
+    """Phase 6b's 320-token shared prompt (20 full pages) alone, in the
+    sampling of its 8 rows (the engine-seeded ones given a seed, so every
+    row can be held)."""
+    reqs = shared_prefix_requests(SamplingParams)
+    system = reqs[0][0][: SYSTEM_TOKENS - 1]
+    return [(system, SamplingParams(max_tokens=sp.max_tokens, temperature=sp.temperature,
+                                    seed=700 + i if sp.seed is None else sp.seed)) for i, (_, sp) in enumerate(reqs)]
+
+
+def serve_rows(eng, rows, label: str, first_alone: bool = True) -> tuple:
+    """``rows`` through ``eng``, the first alone (its TTFT timed), the rest
+    as one burst; every finish checked, every page back."""
+    reqs = [eng.make_request(p, sp) for p, sp in rows]
+    head = reqs[:1] if first_alone else []
+    for group in (head, reqs[len(head):]):
+        for r in group:
+            eng.submit_request(r)
+        for r in group:
+            "".join(eng.stream(r))
+            check_finish(r)
+    settle(eng)
+    check_pages_returned(eng, label)
+    return reqs, reqs[0].first_token_at - reqs[0].created
+
+
+def phase16_tiers(fa, pa, qmm, LLMEngine, cfg, params, SamplingParams, kv: str, card: str) -> dict:
+    """16a over one kv dtype: the rows with the cache off (the reference),
+    then through a tiered engine: served, the 20 pages recorded, spilled,
+    served again (promoted bitwise before and after the prefill's rewrite,
+    the reference's tokens, ``cached_tokens`` = promoted pages x 16)."""
+    from modal_examples_tpu_torch.storage.volume import Volume
+
+    rows = tier_rows(SamplingParams)
+    free_fleet()
+    off = LLMEngine(cfg, params, kv_dtype=kv, enable_prefix_cache=False, **SERVE_KW)
+    try:
+        off.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+        ref, ttft_off = serve_rows(off, rows, f"16a cache off ({kv})")
+    finally:
+        off.stop()
+    del off
+    free_fleet()
+    vol_cm = Volume.ephemeral()
+    vol = vol_cm.__enter__()
+    eng = LLMEngine(cfg, params, kv_dtype=kv, tiered_prefix={"volume": vol, "shared": True, "replica": "a"},
+                    **SERVE_KW)
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    zero_counts(fa, pa, qmm)
+    first, _ = serve_rows(eng, rows, f"16a tiered round 1 ({kv})")
+    tokens = first[0].prompt_tokens
+    ids = trie_page_ids(eng, tokens)
+    if len(ids) != SYSTEM_TOKENS // 16:
+        raise AssertionError(f"16a ({kv}): {len(ids)} trie pages for the shared prompt, want {SYSTEM_TOKENS // 16}")
+    recorded = page_bytes(eng, ids)
+    page_nbytes = sum(v.nbytes for v in recorded.values()) // len(ids)
+    with TierClock(eng) as spill_clock:
+        t = time.perf_counter()
+        eng.prefix_cache.evict(10_000)
+        spill_s = time.perf_counter() - t
+    st = eng.tiered.stats()
+    split = {"host": st["host"]["blocks"], "volume": st["volume"]["blocks"]}
+    log(f"16a spill ({kv}, {card}): {len(ids)} pages of {page_nbytes} B in {spill_s:.3f}s, split {split}, "
+        f"host {st['host']['bytes']} B of {st['host']['budget_bytes']}; steps {json.dumps(spill_clock.report())}")
+    promoted = []
+    promote = eng.tiered.promote
+
+    def watch(key_tokens, *, n_have):
+        got = promote(key_tokens, n_have=n_have)
+        if got and not promoted:
+            promoted.append((list(got), page_bytes(eng, got)))
+        return got
+
+    eng.tiered.promote = watch
+    with TierClock(eng) as promote_clock:
+        second, ttft_promoted = serve_rows(eng, rows, f"16a tiered round 2 ({kv})")
+    del eng.tiered.promote
+    counts = fleet_counts(fa, pa, qmm)
+    st2 = eng.tiered.stats()
+    if not promoted or len(promoted[0][0]) != len(ids) or not same_bytes(promoted[0][1], recorded):
+        raise AssertionError(f"16a ({kv}): the promoted pages are not the recorded ones, bitwise")
+    after = page_bytes(eng, trie_page_ids(eng, tokens))
+    if not same_bytes(after, recorded):
+        raise AssertionError(f"16a ({kv}): the pages changed when prefill rewrote them over the promotion")
+    if second[0].cached_prompt_tokens != len(promoted[0][0]) * 16:
+        raise AssertionError(f"16a ({kv}): cached_tokens {second[0].cached_prompt_tokens}, "
+                             f"{len(promoted[0][0])} pages promoted")
+    held = hold_rows(first, rows_of(ref), f"16a round 1 ({kv})") + hold_rows(second, rows_of(ref),
+                                                                            f"16a round 2 ({kv})")
+    hits = st2["hits"]
+    if hits["host"] != split["host"] or hits["volume"] != split["volume"]:
+        raise AssertionError(f"16a ({kv}): tier hits {hits}, the spill split {split}")
+    out = {
+        "page_bytes": page_nbytes, "pages": len(ids), "split": split, "hits": hits, "rows_held": held,
+        "spill_s": spill_s, "spill": spill_clock.report(), "promote": promote_clock.report(),
+        "ttft_promoted_s": ttft_promoted, "ttft_cache_off_s": ttft_off, "launches": counts,
+        "cached_tokens": second[0].cached_prompt_tokens, "card": card,
+    }
+    log(f"16a tiers ({kv}, {card}): promoted {len(ids)} pages bitwise before and after the rewrite, split "
+        f"{split}, hits {hits}, TTFT promoted {ttft_promoted:.3f}s vs cache off {ttft_off:.3f}s; promote steps "
+        f"{json.dumps(out['promote'])}; launches {counts}")
+    return out, eng, (vol_cm, vol), rows, ref
+
+
+def phase16_replicas(fa, pa, qmm, LLMEngine, cfg, params, eng_a, vol, rows, ref, card: str) -> dict:
+    """16b over the bf16 store of 16a: replica "b" promotes what "a"
+    demoted (peer volume hits), ``tiered.volume_corrupt`` drops a block in
+    flight and recomputes (the stored file untouched), and
+    ``prefix_store.owner_death`` kills the chain's owner mid-spill: the
+    survivor takes the lease over and promotes warm."""
+    import hashlib
+
+    from modal_examples_tpu_torch.faults import inject
+    from modal_examples_tpu_torch.faults.chaos import _force_spill as force_spill
+    from modal_examples_tpu_torch.observability.journal import named_journal
+
+    out: dict = {}
+    zero_counts(fa, pa, qmm)
+    force_spill(eng_a)  # every block of the chain on the shared volume
+    eng_b = LLMEngine(cfg, params, tiered_prefix={"volume": vol, "shared": True, "replica": "b"}, **SERVE_KW)
+    try:
+        got, _ = serve_rows(eng_b, rows, "16b replica b")
+        st = eng_b.tiered.stats()
+        if st["hits"]["volume"] <= 0 or st["store"]["hits"]["peer"] <= 0:
+            raise AssertionError(f"16b: replica b had no volume hit from a's spill: {st['hits']} {st['store']['hits']}")
+        out["cross_replica"] = {"hits": st["hits"], "peer_hits": st["store"]["hits"]["peer"],
+                                "rows_held": hold_rows(got, rows_of(ref), "16b replica b")}
+        # in-flight corruption: the promote drops the block, prefill recomputes
+        force_spill(eng_b)
+        store = eng_b.tiered.store
+        digests = {h: hashlib.sha256((vol.local_path / store._rel(h)).read_bytes()).hexdigest()
+                   for h in sorted(store._index) if store.exists(h)}
+        plan = inject.FaultPlan({"tiered.volume_corrupt": {"on_hit": 1}})
+        with inject.active(plan):
+            got, _ = serve_rows(eng_b, rows, "16b volume corrupt")
+        after = {h: hashlib.sha256((vol.local_path / store._rel(h)).read_bytes()).hexdigest()
+                 for h in digests if store.exists(h)}
+        if plan.fired() != {"tiered.volume_corrupt": 1} or after != digests or got[0].cached_prompt_tokens:
+            raise AssertionError(f"16b volume corrupt: fired {plan.fired()}, stored files kept "
+                                 f"{after == digests}, cached_tokens {got[0].cached_prompt_tokens}")
+        out["volume_corrupt"] = {"fired": plan.fired(), "stored_files_kept": len(after),
+                                 "rows_held": hold_rows(got, rows_of(ref), "16b volume corrupt")}
+        # owner death: both replicas warm on the chain, the owner dies mid-spill
+        serve_rows(eng_a, rows[:1], "16b warm a", first_alone=False)
+        for e in (eng_a, eng_b):
+            e.prefix_cache.evict(10_000)
+            e.tiered.store.heartbeat()
+        head = chain_head(eng_a, rows)
+        owner = eng_a.tiered.store.owner_for(head)
+        dead, survivor = (eng_a, eng_b) if owner == "a" else (eng_b, eng_a)
+        n0 = len(named_journal("prefix_store").tail(1 << 20))
+        base = survivor.tiered.store.board.takeovers
+        plan = inject.FaultPlan({"prefix_store.owner_death": {"on_hit": 1}})
+        with inject.active(plan):
+            # the chaos runner's owner-death leg: the owner's blocks dropped
+            # from the store first, so its demotes are writes, not dedup skips
+            force_spill(dead, rewrite=True, only_chain=head)
+            force_spill(survivor, only_chain=head)
+            dead.tiered.store.register_replica()
+            vol_hits = survivor.tiered.stats()["hits"]["volume"]
+            got, _ = serve_rows(survivor, rows, "16b owner death survivor")
+        takeovers = [r for r in named_journal("prefix_store").tail(1 << 20)[n0:] if r["action"] == "owner_takeover"]
+        warm = survivor.tiered.stats()["hits"]["volume"] - vol_hits
+        if plan.fired() != {"prefix_store.owner_death": 1} or survivor.tiered.store.board.takeovers <= base \
+                or not takeovers or warm <= 0:
+            raise AssertionError(f"16b owner death: fired {plan.fired()}, takeovers {takeovers}, warm hits {warm}")
+        out["owner_death"] = {"dead": dead.tiered.store.replica, "survivor": survivor.tiered.store.replica,
+                              "takeover": {k: takeovers[0][k] for k in ("from", "to", "reason")},
+                              "warm_volume_hits": warm, "rows_held": hold_rows(got, rows_of(ref), "16b owner death")}
+    finally:
+        eng_b.stop()
+    out["launches"] = fleet_counts(fa, pa, qmm)
+    out["card"] = card
+    log(f"16b across replicas and under faults ({card}): {json.dumps(out)}")
+    return out
+
+
+def chain_head(eng, rows) -> str:
+    """The chained hash of the shared prompt's first page."""
+    from modal_examples_tpu_torch.serving.disagg.transport import chain_hashes
+
+    return chain_hashes(eng.make_request(rows[0][0], trace=None).prompt_tokens, 16)[0]
+
+
+def phase16_fleet(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, gw, card: str) -> dict:
+    """16c: ``FleetAutoscaler`` over a ``PrefixAffinityRouter`` of
+    Llama-2-7B-width replicas at depth 4, built by a ``SnapshotWarmFactory``
+    and driven by ``tick()`` under a fake clock: a 16-request burst over 8
+    slots raises a queue scale-up whose replica boots warm from the snapshot
+    and serves the seed's rows; idle ticks raise a scale-down whose victim's
+    live streams migrate through ``drain_replica`` to the seed, token for
+    token, its engine stopped at zero outstanding; ``fleet.jsonl`` and
+    ``/fleet`` agree; one load-generator step through the fleet's server."""
+    import threading
+
+    from modal_examples_tpu_torch.fleet import FleetAutoscaler, SnapshotWarmFactory
+    from modal_examples_tpu_torch.fleet import loadgen
+    from modal_examples_tpu_torch.observability.journal import named_journal
+    from modal_examples_tpu_torch.scheduling.router import EngineReplica, PrefixAffinityRouter
+    from modal_examples_tpu_torch.snapshot import SnapshotStore
+    from modal_examples_tpu_torch.utils import tree
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=FLEET_DEPTH)
+    snap_dir = ROOT / "build" / f"fleet-snap-{os.getpid()}"
+    engines = []
+    boots: dict = {}
+
+    def build(name, role, params=None):
+        t = time.perf_counter()
+        eng = LLMEngine(cfg, params, **SERVE_KW)
+        torch.cuda.synchronize()
+        boots[name] = {"build_s": time.perf_counter() - t, "warm": params is not None}
+        engines.append(eng)
+        return EngineReplica(eng, name, role=role)
+
+    n_journal = len(named_journal("fleet").tail(1 << 20))
+    factory = SnapshotWarmFactory(build, snapshot_key=f"smoke-fleet-{os.getpid()}", store=SnapshotStore(root=snap_dir))
+    out: dict = {"card": card, "depth": FLEET_DEPTH}
+    clock = FakeClock()
+    try:
+        t = time.perf_counter()
+        seed, boot = factory("decode-0", "decode")
+        out["cold_boot_s"] = time.perf_counter() - t  # build + capture of the snapshot
+        if boot != "cold" or not factory.store.has(factory.snapshot_key):
+            raise AssertionError(f"16c: the seed booted {boot}, snapshot captured {factory.store.has(factory.snapshot_key)}")
+        out["snapshot_bytes"] = factory.store.entries()[0]["size_bytes"]
+        router = PrefixAffinityRouter([seed])
+        auto = FleetAutoscaler(router, factory, up_ticks=1, down_ticks=1, cooldown_s=0.0, slos=(), clock=clock,
+                               max_replicas={"decode": 2})
+        seed.engine.start()
+        burst = burst16(SamplingParams)
+        zero_counts(fa, pa, qmm)
+        reqs = [seed.submit(p, sp) for p, sp in burst]
+        acts = auto.tick()
+        if [(a["action"], a["trigger"], a["boot"]) for a in acts] != [("scale_up", "queue_pressure", "warm")]:
+            raise AssertionError(f"16c: the burst's tick decided {acts}")
+        grown = router.replicas[-1]
+        out["warm_boot_s"] = acts[0]["boot_s"]
+        out["scale_up"] = {k: acts[0][k] for k in ("trigger", "boot", "queued", "replicas_after")}
+        for r in reqs:
+            "".join(seed.engine.stream(r))
+            check_finish(r)
+        a, b = tree.leaves(seed.engine.params), tree.leaves(grown.engine.params)
+        if len(a) != len(b) or any(not torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("16c: the warm replica's weights differ from the seed's")
+        again = [grown.submit(p, sp) for p, sp in burst[:8]]
+        for r in again:
+            "".join(grown.engine.stream(r))
+            check_finish(r)
+        out["warm_rows_held"] = hold_rows(again, rows_of(reqs[:8]), "16c warm replica against the seed")
+        # drain by migration: live streams on the scale-in victim move to the seed
+        long = [(p, SamplingParams(max_tokens=DRAIN_TOKENS, temperature=0.0)) for p, _ in burst[:DRAIN_STREAMS]]
+        ref = [seed.submit(p, sp) for p, sp in long]
+        for r in ref:
+            "".join(seed.engine.stream(r))
+        live = [grown.submit(p, sp) for p, sp in long]
+        readers = [threading.Thread(target=lambda r=r: "".join(grown.engine.stream(r))) for r in live]
+        for th in readers:
+            th.start()
+        wait_for(lambda: all(len(r.generated_tokens) >= MIGRATE_AFTER_TOKENS for r in live), 60, "16c live streams")
+        clock.t += 1.0
+        acts = auto.tick()
+        if [(a["action"], a["replica"]) for a in acts] != [("scale_down", grown.name)]:
+            raise AssertionError(f"16c: the idle tick decided {acts}")
+        t = time.monotonic()
+        while auto._draining and time.monotonic() - t < 120:
+            clock.t += 1.0
+            auto.tick()
+            time.sleep(0.02)
+        for th in readers:
+            th.join(timeout=120)
+        if auto._draining or grown.outstanding() or grown.engine._running:
+            raise AssertionError(f"16c: the victim did not drain ({grown.outstanding()} outstanding)")
+        out["drained_rows_held"] = hold_rows(live, rows_of(ref), "16c drained streams against the seed")
+        records = named_journal("fleet").tail(1 << 20)[n_journal:]
+        migrated = sum(r.get("migrated", 0) for r in records if r["action"] == "drain_migrate")
+        if migrated != DRAIN_STREAMS:
+            raise AssertionError(f"16c: {migrated} streams migrated, want {DRAIN_STREAMS}: {records}")
+        decisions = sorted((r["action"], r["trigger"]) for r in records if r["action"] in ("scale_up", "scale_down"))
+        code, fleet_view = http_json(gw.base_url + "/fleet?n=50")
+        served = sorted((act, trig) for act, by in fleet_view["decisions"].items() for trig, n in by.items()
+                        for _ in range(int(n)))
+        if code != 200 or served != decisions or decisions != [("scale_down", "idle"), ("scale_up", "queue_pressure")]:
+            raise AssertionError(f"16c: /fleet answered {code} {fleet_view['decisions']}, the journal {decisions}")
+        out["journal"] = [{k: r.get(k) for k in ("action", "trigger", "replica", "boot", "migrated",
+                                                  "tokens_migrated")} for r in records]
+        out["launches_burst_and_drain"] = fleet_counts(fa, pa, qmm)
+        srv = OpenAIServer(router=router, port=0).start()
+        try:
+            gen = loadgen.LoadGenerator(f"http://127.0.0.1:{srv.port}", seed=0)
+            gen.warm()
+            out["loadgen"] = gen.run_step(4.0, 3.0, label="4rps")
+        finally:
+            srv.stop()
+        auto.stop(drain=True)
+    finally:
+        for eng in engines:
+            eng.stop()
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    out["launches"] = fleet_counts(fa, pa, qmm)
+    step = out["loadgen"]
+    log(f"16c fleet autoscaler ({card}): cold boot {out['cold_boot_s']:.2f}s (build {boots['decode-0']['build_s']:.2f}s "
+        f"+ capture of {out['snapshot_bytes'] / 1e9:.3f} GB), warm boot {out['warm_boot_s']:.2f}s (build "
+        f"{boots[grown.name]['build_s']:.2f}s after the restore); loadgen step {json.dumps(step)}; {json.dumps(out)}")
+    return out
+
+
+def phase16_chaos(fa, pa, qmm, gw, card: str) -> dict:
+    """16d: the chaos runner on the card at the reference's fleet shapes
+    (``LlamaConfig.tiny``, head dim 32): every fault point fired, the
+    invariants "ok" after each episode, zero wedged; ``/chaos`` answers."""
+    from modal_examples_tpu_torch.faults import ALL_FAULT_POINTS
+    from modal_examples_tpu_torch.faults.chaos import run_chaos
+
+    zero_counts(fa, pa, qmm)
+    t = time.monotonic()
+    report = run_chaos(seed=0, strict=True)
+    seconds = time.monotonic() - t
+    launches = fleet_counts(fa, pa, qmm)
+    if report["points_missed"] or set(report["points_fired"]) != set(ALL_FAULT_POINTS) or report["wedged"] \
+            or report["invariants"] != "ok" or any(ep["invariants"] != "ok" for ep in report["episodes"]):
+        raise AssertionError(f"16d chaos: {json.dumps(report)[:2000]}")
+    code, view = http_json(gw.base_url + "/chaos?n=20")
+    if code != 200 or view["wedged"] != 0 or [e["episode"] for e in view["episodes"]][-len(report["episodes"]):] \
+            != [e["episode"] for e in report["episodes"]]:
+        raise AssertionError(f"16d: /chaos answered {code}: {view}")
+    out = {"seconds": seconds, "episodes": {ep["episode"]: ep["invariants"] for ep in report["episodes"]},
+           "points_fired": len(report["points_fired"]), "injected_total": report["injected_total"],
+           "recovered": report["recovered"], "wedged": report["wedged"], "launches": launches, "card": card}
+    log(f"16d chaos ({card}): {len(report['episodes'])} episodes ok in {seconds:.1f}s, "
+        f"{out['points_fired']} points fired, 0 wedged; launches {launches}")
+    return out
+
+
+def phase_tiers_fleet_chaos(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, params, card: str) -> dict:
+    """Phase 16: the prefix tiers (16a, 16b) over phase 3's resident bf16
+    weights, the fleet autoscaler (16c) at depth 4, the chaos runner (16d)."""
+    from modal_examples_tpu_torch import App
+    from modal_examples_tpu_torch.web.gateway import Gateway
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"card": card, "tiers": {}}
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    tier, eng_a, (vol_cm, vol), rows, ref = phase16_tiers(fa, pa, qmm, LLMEngine, cfg, params, SamplingParams,
+                                                          "bfloat16", card)
+    out["tiers"]["bfloat16"] = tier
+    add(tier["launches"])
+    try:
+        out["replicas"] = phase16_replicas(fa, pa, qmm, LLMEngine, cfg, params, eng_a, vol, rows, ref, card)
+        add(out["replicas"]["launches"])
+    finally:
+        eng_a.stop()
+        vol_cm.__exit__(None, None, None)
+    del eng_a
+    tier8, eng8, (vol8, _), _, _ = phase16_tiers(fa, pa, qmm, LLMEngine, cfg, params, SamplingParams, "int8", card)
+    eng8.stop()
+    vol8.__exit__(None, None, None)
+    del eng8
+    out["tiers"]["int8"] = tier8
+    add(tier8["launches"])
+    out["peak_gb_tiers"] = torch.cuda.max_memory_allocated() / 1e9
+    free_fleet()
+    gw = Gateway(App("smoke-fleet")).start()
+    try:
+        out["fleet"] = phase16_fleet(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, gw, card)
+        add(out["fleet"]["launches"])
+        free_fleet()
+        out["chaos"] = phase16_chaos(fa, pa, qmm, gw, card)
+        add(out["chaos"]["launches"])
+    finally:
+        gw.stop()
+    for k in ("flash_fwd", "paged_decode", "kv_scatter", "paged_decode_int8", "kv_scatter_int8"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"phase 16: {k} never launched: {launches}")
+    out["launches"] = launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.monotonic() - t0
+    free_fleet()
+    log(f"phase 16 the prefix tiers, the fleet autoscaler and the chaos runner ({card}): ok in "
+        f"{out['seconds']:.1f}s, peak {out['peak_gb']:.2f} GB; launches {launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the GPU only", file=sys.stderr)
@@ -5350,6 +5853,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_layers = phase_fleet_layers(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, params,
                                       metrics["tokens"], card)
+    free_fleet()
+    tiers = phase_tiers_fleet_chaos(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, params, card)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
@@ -5399,13 +5904,16 @@ def main() -> int:
     # phase 15's fleet: K1 and K3 on the prefill replica, K2 and K3 on the
     # decode replicas, the int8 pages' K2-int8 and K3-int8
     counts = {k: v + fleet_layers["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 16's tiers (K1, K3, K2 and their int8 twins), the depth-4 fleet
+    # and the chaos runner's tiny engines
+    counts = {k: v + tiers["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
         f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}, phase 14's "
         f"containers {rest['container_launches']}, int8 LoRA "
-        f"{lora8['launches']}, canary {observability['launches']}, fleet {fleet_layers['launches']}; kernels line "
-        f"(phases 8-15 summed) {counts}")
+        f"{lora8['launches']}, canary {observability['launches']}, fleet {fleet_layers['launches']}, tiers, autoscaler "
+        f"and chaos {tiers['launches']}; kernels line (phases 8-16 summed) {counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
     errs["flash_fwd"] = max(errs["flash_fwd"], serverless["functions"]["k1"]["max_abs_err"],

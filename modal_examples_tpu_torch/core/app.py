@@ -58,7 +58,6 @@ def _validate_priority(priority: str) -> None:
 WAITING_OPTIONS = {
     "cluster_size": "@clustered multi-host slices wait with ROADMAP A10",
     "cluster_chips_per_host": "@clustered multi-host slices wait with ROADMAP A10",
-    "region": "region routing waits with the fleet (ROADMAP A9c)",
 }
 
 
@@ -194,7 +193,7 @@ class App:
         enable_memory_snapshot: bool = False,
         experimental_options: dict | None = None,
     ) -> Callable[[Callable], Function]:
-        refuse_waiting_options({"tpu": tpu, "region": region})
+        refuse_waiting_options({"tpu": tpu})
         _validate_priority(priority)
 
         def deco(fn: Callable) -> Function:
@@ -220,6 +219,7 @@ class App:
                 schedule=schedule,
                 is_generator=inspect.isgeneratorfunction(fn),
                 web=getattr(fn, "__mtpu_web__", None),
+                region=region,
                 priority=priority,
                 max_pending_inputs=max_pending_inputs,
                 enable_memory_snapshot=enable_memory_snapshot,
@@ -255,7 +255,7 @@ class App:
         experimental_options: dict | None = None,
         region: str | None = None,
     ) -> Callable[[type], Cls]:
-        refuse_waiting_options({"tpu": tpu, "region": region})
+        refuse_waiting_options({"tpu": tpu})
         _validate_priority(priority)
 
         def deco(user_cls: type) -> Cls:
@@ -278,6 +278,7 @@ class App:
                 scaledown_window=scaledown_window,
                 max_concurrent_inputs=getattr(user_cls, "__mtpu_concurrent__", 1),
                 methods_meta=meta["methods"],
+                region=region,
                 priority=priority,
                 max_pending_inputs=max_pending_inputs,
                 enable_memory_snapshot=enable_memory_snapshot,

@@ -35,9 +35,12 @@ Usage:
     python -m modal_examples_tpu_torch sched [--watch S]     # queue depths, sheds, router affinity
     python -m modal_examples_tpu_torch disagg [--watch S]    # replica roles + page migrations
     python -m modal_examples_tpu_torch health [--last N]     # watchdog classification + ladder journal
+    python -m modal_examples_tpu_torch prefixstore [--last N]  # shared prefix store: hits, dedup, takeovers
+    python -m modal_examples_tpu_torch fleet [--last N]      # fleet autoscaler decisions + boot latency
+    python -m modal_examples_tpu_torch chaos [--last N]      # chaos episodes + injected faults
 
-The JAX package's other subcommands wait with their subsystems
-(:data:`WAITING_COMMANDS`): each exits non-zero naming its ROADMAP item.
+The JAX package's ``benchdiff`` waits with the port's benchmark
+(:data:`WAITING_COMMANDS`): it exits non-zero naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -1610,7 +1613,7 @@ def cmd_disagg(argv: list[str]) -> int:
     """Live disaggregated-serving view: replica roles and the outstanding
     and completed migrations (wire bytes, chunk retries, latency
     quantiles), from the pushed metrics files (the disagg companion of
-    ``sched``). The prefix tiers' table waits with ROADMAP A9b.
+    ``sched``), and the tiered prefix cache's per-tier occupancy and hits.
 
     ``--watch S`` refreshes every S seconds; ``--dir PATH`` overrides the
     state dir root.
@@ -1670,7 +1673,24 @@ def cmd_disagg(argv: list[str]) -> int:
             f"{int(merged.total(C.DISAGG_CHUNK_RETRIES_TOTAL))}   "
             f"latency p50/p95 {lat}"
         )
-        print("prefix tiers: not in the port yet (ROADMAP A9b)")
+        hits = {
+            lbls.get("tier", "?"): v
+            for lbls, v in merged.series(C.PREFIX_TIER_HITS_TOTAL)
+        }
+        total_hits = sum(hits.values())
+        print()
+        print(f"{'TIER':<8} {'BLOCKS':>8} {'BYTES':>12} {'HITS':>8} {'RATE':>6}")
+        for tier in ("hbm", "host", "volume"):
+            pages = merged.total(C.PREFIX_TIER_PAGES, {"tier": tier})
+            tier_bytes = merged.total(C.PREFIX_TIER_BYTES, {"tier": tier})
+            h = hits.get(tier, 0.0)
+            rate = h / total_hits if total_hits else 0.0
+            occ = "-" if tier == "hbm" else f"{int(pages)}"
+            occ_b = "-" if tier == "hbm" else f"{int(tier_bytes)}"
+            print(
+                f"{tier:<8} {occ:>8} {occ_b:>12} {int(h):>8} {rate:>6.2f}"
+            )
+
 
     if watch is None:
         render()
@@ -1773,13 +1793,242 @@ def cmd_health(argv: list[str]) -> int:
     return 0
 
 
+def cmd_chaos(argv: list[str]) -> int:
+    """Chaos-harness view: the last fault-injection episodes (faults
+    injected per catalog point, recoveries, and invariant results) from
+    the chaos journal (``<state_dir>/chaos.jsonl``) plus pushed metrics
+    (the fault-injection companion of ``disagg``).
+
+    ``--last N`` shows the newest N episodes (default 10); ``--dir PATH``
+    overrides the state dir root.
+    """
+    from pathlib import Path
+
+    from ..observability import catalog as C
+    from ..observability.export import pushed_jobs
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    usage = f"usage: {PROG} chaos [--last N] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, last_s = _pop_flag(argv, "--last", usage)
+    last = int(last_s) if last_s is not None else 10
+
+    episodes = named_journal("chaos", root).tail(last)
+
+    # per-point injected totals: pushed metrics when available (the chaos
+    # runner pushes job "chaos"), else aggregated from the journal records
+    jobs = pushed_jobs(Path(root) / "metrics" if root else None)
+    injected: dict[str, float] = {}
+    if jobs:
+        merged = parse_exposition(merge_expositions(jobs))
+        for lbls, v in merged.series(C.FAULTS_INJECTED_TOTAL):
+            injected[lbls.get("point", "?")] = v
+        readmissions = merged.total(C.ROUTER_READMISSIONS_TOTAL)
+    else:
+        readmissions = 0.0
+    if not injected:
+        for ep in episodes:
+            for point, n in (ep.get("injected") or {}).items():
+                injected[point] = injected.get(point, 0) + n
+
+    if not episodes and not injected:
+        print(
+            "no chaos episodes recorded yet "
+            "(run `python -m pytest tests/test_torch_chaos.py` or "
+            "faults.chaos.run_chaos first)"
+        )
+        return 0
+    if injected:
+        print(f"{'FAULT POINT':<28} {'INJECTED':>9}")
+        for point in sorted(injected):
+            print(f"{point:<28} {int(injected[point]):>9}")
+        print(f"{'total':<28} {int(sum(injected.values())):>9}")
+    if readmissions:
+        print(f"router re-admissions: {int(readmissions)}")
+    if episodes:
+        print()
+        print(
+            f"{'EPISODE':<20} {'INJ':>4} {'FINISHED':<24} {'SHED':>4} "
+            f"{'WEDGED':>6} INVARIANTS"
+        )
+        for ep in episodes:
+            finished = " ".join(
+                f"{k}={v}" for k, v in sorted(
+                    (ep.get("finished") or {}).items()
+                )
+            )
+            inv = ep.get("invariants")
+            print(
+                f"{ep.get('episode', '?'):<20} "
+                f"{sum((ep.get('injected') or {}).values()):>4} "
+                f"{finished:<24} {ep.get('shed', 0):>4} "
+                f"{ep.get('wedged', 0):>6} "
+                f"{'ok' if inv == 'ok' else f'VIOLATED: {inv}'}"
+            )
+    return 0
+
+
+def cmd_prefixstore(argv: list[str]) -> int:
+    """Shared prefix-store view: fleet-wide dedup ratio, hit origins
+    (self vs peer — peer hits are the cross-replica wins the store
+    exists for), resident bytes, and the lease-takeover journal tail,
+    from the pushed metrics files plus ``<state_dir>/prefix_store.jsonl``
+    (the shared-KV companion of ``disagg``).
+
+    ``--last N`` shows the newest N journal records (default 10);
+    ``--dir PATH`` overrides the state dir root.
+    """
+    from pathlib import Path
+
+    from ..observability import catalog as C
+    from ..observability.export import pushed_jobs
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    usage = f"usage: {PROG} prefixstore [--last N] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, last_s = _pop_flag(argv, "--last", usage)
+    last = int(last_s) if last_s is not None else 10
+
+    jobs = pushed_jobs(Path(root) / "metrics" if root else None)
+    records = named_journal("prefix_store", root).tail(last)
+    if not jobs and not records:
+        print(
+            "no shared prefix-store activity yet "
+            "(serve with tiered_prefix shared=True, or run the chaos "
+            "runner first)"
+        )
+        return 0
+
+    if jobs:
+        merged = parse_exposition(merge_expositions(jobs))
+        hits = {
+            lbls.get("origin", "?"): v
+            for lbls, v in merged.series(C.PREFIX_STORE_HITS_TOTAL)
+        }
+        total_hits = sum(hits.values())
+        misses = merged.total(C.PREFIX_STORE_MISSES_TOTAL)
+        looked = total_hits + misses
+        print(f"jobs: {len(jobs)} ({', '.join(sorted(jobs)) or 'none'})")
+        print(
+            f"hits: {int(total_hits)} "
+            f"(self={int(hits.get('self', 0))} "
+            f"peer={int(hits.get('peer', 0))})   "
+            f"misses {int(misses)}   "
+            f"hit rate {total_hits / looked if looked else 0.0:.2f}"
+        )
+        print(
+            f"dedup ratio {merged.total(C.PREFIX_STORE_DEDUP_RATIO):.2f}   "
+            f"resident bytes "
+            f"{int(merged.total(C.PREFIX_STORE_BYTES))}   "
+            f"owner takeovers "
+            f"{int(merged.total(C.PREFIX_STORE_OWNER_TAKEOVERS_TOTAL))}"
+        )
+    if records:
+        print()
+        print(f"{'ACTION':<16} {'CHAIN':<14} {'FROM':<12} {'TO':<12} REASON")
+        for rec in records:
+            print(
+                f"{rec.get('action', '?'):<16} "
+                f"{str(rec.get('chain', '?'))[:12]:<14} "
+                f"{str(rec.get('from', '-')):<12} "
+                f"{str(rec.get('to', '-')):<12} "
+                f"{rec.get('reason', '-')}"
+            )
+    return 0
+
+
+def cmd_fleet(argv: list[str]) -> int:
+    """Fleet-autoscaler view: replica counts by role, scale decisions by
+    action/trigger, boot latency (warm snapshot-restore vs cold init), and
+    the newest decision-journal records (``<state_dir>/fleet.jsonl``):
+    the replica-fleet companion of ``scaler``.
+
+    ``--last N`` shows the newest N journal records (default 20);
+    ``--dir PATH`` overrides the state dir root.
+    """
+    from pathlib import Path
+
+    from ..observability import catalog as C
+    from ..observability.export import pushed_jobs
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import merge_expositions, parse_exposition
+
+    usage = f"usage: {PROG} fleet [--last N] [--dir PATH]"
+    argv, root = _pop_dir_flag(argv, usage)
+    argv, last_s = _pop_flag(argv, "--last", usage)
+    last = int(last_s) if last_s is not None else 20
+
+    journal = named_journal("fleet", root)
+    records = journal.tail(last)
+
+    jobs = pushed_jobs(Path(root) / "metrics" if root else None)
+    merged = parse_exposition(merge_expositions(jobs)) if jobs else None
+
+    replicas: dict[str, float] = {}
+    decisions: dict[tuple[str, str], float] = {}
+    if merged is not None:
+        for lbls, v in merged.series(C.FLEET_REPLICAS):
+            replicas[lbls.get("role", "?")] = v
+        for lbls, v in merged.series(C.FLEET_DECISIONS_TOTAL):
+            decisions[(lbls.get("action", "?"), lbls.get("trigger", "?"))] = v
+    if not decisions:
+        # no pushed metrics: aggregate over the WHOLE journal (its own
+        # file bound), not the --last display window — the counts table
+        # prints as totals and must not be silently capped at N
+        for rec in journal.tail(1 << 20):
+            key = (rec.get("action", "?"), rec.get("trigger", "?"))
+            decisions[key] = decisions.get(key, 0) + 1
+
+    if not records and not decisions:
+        print(
+            "no fleet decisions recorded yet "
+            "(run a FleetAutoscaler first)"
+        )
+        return 0
+    if replicas:
+        print("replicas: " + "  ".join(
+            f"{role}={int(n)}" for role, n in sorted(replicas.items()) if n
+        ))
+    if decisions:
+        print(f"{'ACTION':<12} {'TRIGGER':<16} {'COUNT':>6}")
+        for (action, trigger), n in sorted(decisions.items()):
+            print(f"{action:<12} {trigger:<16} {int(n):>6}")
+    if merged is not None:
+        for boot in ("warm", "cold"):
+            q = merged.histogram_quantiles(
+                C.FLEET_BOOT_SECONDS, quantiles=(0.5, 0.95),
+                aggregate={"boot": boot},
+            )
+            if q:
+                print(
+                    f"{boot} boots: p50 {q['p50'] * 1000:.0f} ms   "
+                    f"p95 {q['p95'] * 1000:.0f} ms"
+                )
+    if records:
+        print()
+        print(
+            f"{'ACTION':<12} {'ROLE':<8} {'REPLICA':<14} {'TRIGGER':<16} "
+            f"{'BOOT':<6} {'N->N':>7}"
+        )
+        for rec in records:
+            boot = rec.get("boot") or "-"
+            before = rec.get("replicas_before")
+            after = rec.get("replicas_after")
+            sizes = f"{before}->{after}" if before is not None else "-"
+            print(
+                f"{rec.get('action', '?'):<12} {rec.get('role', '?'):<8} "
+                f"{rec.get('replica', '?'):<14} {rec.get('trigger', '?'):<16} "
+                f"{boot:<6} {sizes:>7}"
+            )
+    return 0
+
+
 #: subcommands of the JAX package that wait with their subsystems:
 #: name -> the ROADMAP item
 WAITING_COMMANDS = {
     "benchdiff": "A8 (the port's benchmark)",
-    "prefixstore": "A9b (serving/prefix_store/)",
-    "chaos": "A9c (faults/chaos.py)",
-    "fleet": "A9c (fleet/)",
 }
 
 COMMANDS = {
@@ -1806,6 +2055,9 @@ COMMANDS = {
     "sched": cmd_sched,
     "disagg": cmd_disagg,
     "health": cmd_health,
+    "prefixstore": cmd_prefixstore,
+    "chaos": cmd_chaos,
+    "fleet": cmd_fleet,
 }
 
 

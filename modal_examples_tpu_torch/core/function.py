@@ -99,6 +99,9 @@ class FunctionSpec:
     methods_meta: dict | None = None  # Cls: per-method {batched, is_generator}
     is_generator: bool = False
     web: dict | None = None
+    #: the region the function is pinned to, carried on the spec as the
+    #: JAX package carries it (placement reads no region on one host)
+    region: str | None = None
     force_inline: bool = False
     #: scheduling class for this function's inputs (interactive|default|
     #: batch); per-call override via .remote(..., priority=)

@@ -6,8 +6,11 @@ The port keeps the executor's two points (``executor.container_death``,
 canary's token corrupt, the scheduler crash and freeze, page exhaustion, a
 slow decode tick; ``serving/engine.py``), the disaggregation wire's
 (``serving/disagg/``) and the router's health flap
-(``scheduling/router.py``). The prefix tier's and prefix store's points
-come with those subsystems (ROADMAP A9b). A fired fault leaves a ``fault``
+(``scheduling/router.py``), the tiered prefix cache's volume corruption
+(``serving/disagg/tiered_cache.py``) and the shared prefix store's owner
+death (``serving/prefix_store/store.py``): every point of the JAX package's
+catalog. The seeded chaos runner (``faults/chaos.py``) fires each of them
+end to end. A fired fault leaves a ``fault``
 event on the request trace of the thread's ambient frame
 (``reqtrace.note_fault``).
 
@@ -116,6 +119,19 @@ POINTS: dict[str, dict] = {
         "component": "serving/engine.py",
         "effect": "one decode tick stalls (~50 ms)",
         "recovery": "latency only; requests still terminate",
+    },
+    "tiered.volume_corrupt": {
+        "component": "serving/disagg/tiered_cache.py",
+        "effect": "bytes read from the Volume tier are corrupted",
+        "recovery": "corrupt block dropped; prefix KV recomputed",
+    },
+    "prefix_store.owner_death": {
+        "component": "serving/prefix_store/store.py",
+        "effect": "the chain's owner replica dies mid-spill: it drops out "
+                  "of the store membership and the write never lands",
+        "recovery": "atomic temp+rename leaves no torn block; rendezvous "
+                    "remaps the chain and the survivor's next spill takes "
+                    "the lease over (journaled owner_takeover)",
     },
 }
 

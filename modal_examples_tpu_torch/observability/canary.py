@@ -241,7 +241,10 @@ def probe_engine(
     carries its tokens for :meth:`GoldenStore.record`; with one, tokens are
     compared bit-exact and report ``"pass"`` or ``"drift"``. A probe that
     dies (shed, engine error) reports ``"error"`` — an unreachable replica
-    is a health problem, not numeric drift."""
+    is a health problem, not numeric drift. A probe whose stream fails after
+    its submit (an engine stopped on a scheduler error refuses to start) is
+    aborted, so it does not sit in the queue and decode, unread, once the
+    replica is revived (the JAX package leaves it queued)."""
     from ..serving.sampling import SamplingParams
 
     submit = submit or engine.submit
@@ -254,6 +257,7 @@ def probe_engine(
         ttft = None
         gaps = []
         rec: dict = {"probe": g["id"], "replica": replica}
+        req = None
         try:
             req = submit(
                 g["prompt"], params, tenant=CANARY_TENANT,
@@ -300,6 +304,8 @@ def probe_engine(
                     )
         except Exception as e:  # shed / engine stopped: health, not drift
             rec.update(result="error", error=f"{type(e).__name__}: {e}")
+            if req is not None and req.finish_reason is None:
+                engine.abort(req)
         _obs.record_canary_probe(replica, rec["result"], registry=registry)
         if rec["result"] == "drift":
             _obs.record_canary_drift(replica, registry=registry)
@@ -546,7 +552,9 @@ class CanaryProber:
                 "interval_s": self.interval_s,
                 "rounds": self.rounds,
                 "drifts": self.drifts,
+                "fail_threshold": self.fail_threshold,
                 "streaks": dict(self._streaks),
+                "downweighted": sorted(self._downweighted),
                 "last": {
                     name: [
                         {

@@ -2,8 +2,8 @@
 the series, span names and tick phases of the paths the port has, the
 flight recorder's (tsdb, alerts, incidents, SLO burn), the correctness
 canary's, the kernel builds' and the memory snapshots', and those of the
-router, disaggregated serving, failover and the gray-failure watchdog (the JAX
-package's prefix-tier and fleet series come with those subsystems).
+router, disaggregated serving, failover, the gray-failure watchdog, the
+tiered prefix cache, the shared prefix store and the fleet autoscaler.
 
 ONE module owns every metric name: code imports the constant, and no
 ``mtpu_*`` metric-name literal stands anywhere else in the package.
@@ -373,6 +373,49 @@ MIGRATION_LIVE_TOKENS_TOTAL = "mtpu_migration_live_tokens_total"
 #: the target (the bound on drain time per request)
 MIGRATION_LIVE_SECONDS = "mtpu_migration_live_seconds"
 
+# -- tiered prefix cache (serving/disagg/tiered_cache.py) -------------------
+
+#: counter {tier}: prefix PAGES served per tier (page units on every tier,
+#: so rates are comparable); tier = hbm (trie-shared pages) | host (RAM
+#: promotes) | volume (spill promotes). Only tiered engines emit it.
+PREFIX_TIER_HITS_TOTAL = "mtpu_prefix_tier_hits_total"
+#: gauge {tier}: prefix blocks resident per spill tier (host | volume)
+PREFIX_TIER_PAGES = "mtpu_prefix_tier_pages"
+#: gauge {tier}: serialized bytes resident per spill tier (host | volume)
+PREFIX_TIER_BYTES = "mtpu_prefix_tier_bytes"
+
+# -- shared prefix store (serving/prefix_store/) ----------------------------
+
+#: counter {origin}: blocks served by the fleet-shared store; origin =
+#: self (this replica wrote it) | peer (another replica's spill — the
+#: cross-replica warmth the store exists for)
+PREFIX_STORE_HITS_TOTAL = "mtpu_prefix_store_hits_total"
+#: counter: store lookups that found nothing (or a torn block, dropped)
+PREFIX_STORE_MISSES_TOTAL = "mtpu_prefix_store_misses_total"
+#: gauge: logical spill attempts per physical write (> 1.0 = the fleet
+#: stopped paying N copies of shared chains)
+PREFIX_STORE_DEDUP_RATIO = "mtpu_prefix_store_dedup_ratio"
+#: gauge: serialized bytes resident in the shared store
+PREFIX_STORE_BYTES = "mtpu_prefix_store_bytes"
+#: counter: spill leases taken over from a dead/expired owner replica
+#: (journaled in prefix_store.jsonl; the chaos owner-death episode's proof)
+PREFIX_STORE_OWNER_TAKEOVERS_TOTAL = "mtpu_prefix_store_owner_takeovers_total"
+
+# -- fleet autoscaler (fleet/) ---------------------------------------------
+
+#: gauge {role}: replicas currently registered in the fleet, by serving
+#: role (prefill | decode | unified) — the closed-loop autoscaler's output
+FLEET_REPLICAS = "mtpu_fleet_replicas"
+#: counter {action, trigger}: fleet autoscaler decisions journaled to
+#: <state_dir>/fleet.jsonl; action = scale_up | scale_down, trigger =
+#: slo_burn | queue_pressure | kv_pressure | shed_pressure | idle |
+#: min_replicas (floor fill) | drain_timeout (forced reap) | quarantine
+#: (the watchdog benched a replica: replace its capacity)
+FLEET_DECISIONS_TOTAL = "mtpu_fleet_decisions_total"
+#: histogram {boot}: replica build+start seconds at scale-out;
+#: boot = warm (snapshot-restored params) | cold (full init)
+FLEET_BOOT_SECONDS = "mtpu_fleet_boot_seconds"
+
 # -- kernel builds (ops/_build.py): the port's compile ledger ----------------
 
 #: counter {program, cache}: kernel-library lookups at first use; cache =
@@ -538,6 +581,57 @@ CATALOG: dict[str, dict] = {
         "type": "histogram", "labels": [],
         "help": "live-migration latency: checkpoint extraction to adopted "
                 "on the target",
+    },
+    PREFIX_TIER_HITS_TOTAL: {
+        "type": "counter", "labels": ["tier"],
+        "help": "prefix pages served per tier (tier=hbm|host|volume)",
+    },
+    PREFIX_TIER_PAGES: {
+        "type": "gauge", "labels": ["tier"],
+        "help": "prefix blocks resident per spill tier",
+    },
+    PREFIX_TIER_BYTES: {
+        "type": "gauge", "labels": ["tier"],
+        "help": "serialized bytes resident per spill tier",
+    },
+    PREFIX_STORE_HITS_TOTAL: {
+        "type": "counter", "labels": ["origin"],
+        "help": "shared prefix-store blocks served (origin=self|peer; "
+                "peer = another replica's spill promoted here)",
+    },
+    PREFIX_STORE_MISSES_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "shared prefix-store lookups that found nothing "
+                "(torn blocks dropped count here too)",
+    },
+    PREFIX_STORE_DEDUP_RATIO: {
+        "type": "gauge", "labels": [],
+        "help": "logical spill attempts per physical store write "
+                "(> 1.0 = cross-replica dedup is paying)",
+    },
+    PREFIX_STORE_BYTES: {
+        "type": "gauge", "labels": [],
+        "help": "serialized bytes resident in the shared prefix store",
+    },
+    PREFIX_STORE_OWNER_TAKEOVERS_TOTAL: {
+        "type": "counter", "labels": [],
+        "help": "spill leases taken over from dead/expired owner replicas",
+    },
+    FLEET_REPLICAS: {
+        "type": "gauge", "labels": ["role"],
+        "help": "replicas registered in the fleet, by serving role",
+    },
+    FLEET_DECISIONS_TOTAL: {
+        "type": "counter", "labels": ["action", "trigger"],
+        "help": "fleet autoscaler decisions journaled "
+                "(action=scale_up|scale_down, trigger=slo_burn|"
+                "queue_pressure|kv_pressure|shed_pressure|idle|"
+                "min_replicas|drain_timeout|quarantine)",
+    },
+    FLEET_BOOT_SECONDS: {
+        "type": "histogram", "labels": ["boot"],
+        "help": "replica build+start seconds at scale-out "
+                "(boot=warm snapshot-restored | cold full init)",
     },
     COMPILES_TOTAL: {
         "type": "counter", "labels": ["program", "cache"],
@@ -960,6 +1054,11 @@ SPAN_CATALOG: dict[str, dict] = {
     "placement": {
         "attrs": ["replica", "route", "prefill_replica", "decode_replica"],
         "help": "router placement decision (route() or disagg plan())",
+    },
+    "tier_promote": {
+        "attrs": ["replica", "tier", "pages"],
+        "help": "prefix pages promoted from a lower cache tier during the "
+                "claim (event)",
     },
 }
 

@@ -1,13 +1,14 @@
 """The bounded JSONL journal, after ``modal_examples_tpu/observability/journal.py``.
 
-The port writes six journals under the state directory: the executor
-autoscaler's decisions (``scaler.jsonl``), the kernel builds
+The port writes the JAX package's nine journals under the state directory:
+the executor autoscaler's decisions (``scaler.jsonl``), the kernel builds
 (``compiles.jsonl``), alert fire/clear transitions (``alerts.jsonl``), the
-usage meter's per-request billing lines (``usage.jsonl``) and the canary's
-probe results (``canary.jsonl``). :data:`JOURNALS` owns the name -> file
-mapping and :func:`named_journal` resolves it; the watchdog's ladder
-decisions land in ``watchdog.jsonl``. The JAX package's other journals
-(fleet, chaos, prefix store) come with the subsystems that write them.
+usage meter's per-request billing lines (``usage.jsonl``), the canary's
+probe results (``canary.jsonl``), the watchdog's ladder decisions
+(``watchdog.jsonl``), the fleet autoscaler's decisions (``fleet.jsonl``),
+the chaos runner's episodes (``chaos.jsonl``) and the shared prefix store's
+lease takeovers and GC sweeps (``prefix_store.jsonl``). :data:`JOURNALS`
+owns the name -> file mapping and :func:`named_journal` resolves it.
 
 Records are plain dicts, one JSON object per line, kept in a bounded
 in-memory ring and appended to the file. The file is bounded: past
@@ -39,6 +40,10 @@ JOURNALS: dict[str, str] = {
     "usage": "usage.jsonl",  # per-request usage records (observability/usage.py)
     "canary": "canary.jsonl",  # golden-set probe results (observability/canary.py)
     "watchdog": "watchdog.jsonl",  # gray-failure ladder (serving/health.py)
+    "fleet": "fleet.jsonl",  # fleet autoscaler (fleet/autoscaler.py)
+    "chaos": "chaos.jsonl",  # chaos episodes (faults/chaos.py)
+    # shared prefix store: lease takeovers and GC sweeps (serving/prefix_store/)
+    "prefix_store": "prefix_store.jsonl",
 }
 
 

@@ -486,6 +486,122 @@ def record_live_migration_seconds(
         help=C.CATALOG[C.MIGRATION_LIVE_SECONDS]["help"],
     )
 
+
+def record_tier_hit(
+    tier: str, *, n: int = 1, registry: Registry | None = None
+) -> None:
+    """``n`` prefix PAGES served from ``tier`` — page units on every tier
+    (hbm counts the trie-shared pages of a claim, host/volume count
+    promoted pages), so the per-tier rates are comparable fractions."""
+    _reg(registry).counter_inc(
+        C.PREFIX_TIER_HITS_TOTAL, float(n),
+        labels={"tier": tier},
+        help=C.CATALOG[C.PREFIX_TIER_HITS_TOTAL]["help"],
+    )
+
+
+def set_tier_occupancy(
+    tier: str, *, pages: int, total_bytes: int,
+    registry: Registry | None = None,
+) -> None:
+    reg = _reg(registry)
+    reg.gauge_set(
+        C.PREFIX_TIER_PAGES, float(pages),
+        labels={"tier": tier},
+        help=C.CATALOG[C.PREFIX_TIER_PAGES]["help"],
+    )
+    reg.gauge_set(
+        C.PREFIX_TIER_BYTES, float(total_bytes),
+        labels={"tier": tier},
+        help=C.CATALOG[C.PREFIX_TIER_BYTES]["help"],
+    )
+
+
+# -- shared prefix store (serving/prefix_store/) ------------------------------
+
+
+def record_prefix_store_hit(
+    origin: str, *, n: int = 1, registry: Registry | None = None
+) -> None:
+    """``n`` blocks served by the fleet-shared store; ``origin`` is
+    ``"self"`` (this replica's own spill) or ``"peer"`` (another
+    replica's — the cross-replica warmth the store exists for)."""
+    _reg(registry).counter_inc(
+        C.PREFIX_STORE_HITS_TOTAL, float(n),
+        labels={"origin": origin},
+        help=C.CATALOG[C.PREFIX_STORE_HITS_TOTAL]["help"],
+    )
+
+
+def record_prefix_store_miss(
+    *, n: int = 1, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.PREFIX_STORE_MISSES_TOTAL, float(n),
+        help=C.CATALOG[C.PREFIX_STORE_MISSES_TOTAL]["help"],
+    )
+
+
+def set_prefix_store_occupancy(
+    *, total_bytes: int, dedup_ratio: float,
+    registry: Registry | None = None,
+) -> None:
+    reg = _reg(registry)
+    reg.gauge_set(
+        C.PREFIX_STORE_BYTES, float(total_bytes),
+        help=C.CATALOG[C.PREFIX_STORE_BYTES]["help"],
+    )
+    reg.gauge_set(
+        C.PREFIX_STORE_DEDUP_RATIO, float(dedup_ratio),
+        help=C.CATALOG[C.PREFIX_STORE_DEDUP_RATIO]["help"],
+    )
+
+
+def record_prefix_store_takeover(
+    *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.PREFIX_STORE_OWNER_TAKEOVERS_TOTAL, 1.0,
+        help=C.CATALOG[C.PREFIX_STORE_OWNER_TAKEOVERS_TOTAL]["help"],
+    )
+
+
+# -- fleet autoscaler (fleet/) ------------------------------------------------
+
+
+def set_fleet_replicas(
+    role: str, n: int, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).gauge_set(
+        C.FLEET_REPLICAS, float(n),
+        labels={"role": role},
+        help=C.CATALOG[C.FLEET_REPLICAS]["help"],
+    )
+
+
+def record_fleet_decision(
+    action: str, trigger: str, *, registry: Registry | None = None
+) -> None:
+    _reg(registry).counter_inc(
+        C.FLEET_DECISIONS_TOTAL, 1.0,
+        labels={"action": action, "trigger": trigger},
+        help=C.CATALOG[C.FLEET_DECISIONS_TOTAL]["help"],
+    )
+
+
+def record_fleet_boot(
+    seconds: float, boot: str, *, registry: Registry | None = None
+) -> None:
+    """One replica build+start at scale-out; ``boot`` says whether the
+    params came back from a memory snapshot (``warm``) or full init
+    (``cold``) — the near-instant-scale-out evidence."""
+    _reg(registry).histogram_observe(
+        C.FLEET_BOOT_SECONDS, seconds,
+        labels={"boot": boot},
+        help=C.CATALOG[C.FLEET_BOOT_SECONDS]["help"],
+    )
+
+
 # -- gray-failure watchdog (serving/health.py) ------------------------------
 
 

@@ -1,15 +1,17 @@
 """Disaggregated prefill/decode serving, after
 ``modal_examples_tpu/serving/disagg/``: the KV-page transport
-(:mod:`.transport`) and role-aware replica coordination (:mod:`.roles`).
+(:mod:`.transport`), role-aware replica coordination (:mod:`.roles`) and
+the tiered prefix cache (:mod:`.tiered_cache`).
 
 A prefill replica computes a prompt's KV and ships the finished pages to a
 decode replica, which adopts them into its own paged cache and continues,
 so neither phase steals the other's step time. The tiered prefix cache
-(``TieredPrefixCache``: HBM, host RAM and ``Volume`` tiers) waits with
-ROADMAP A9b.
+spills evicted prefix pages HBM -> host RAM -> ``Volume`` over the same
+page (de)serialization and promotes them back on demand.
 """
 
 from .roles import DisaggCoordinator
+from .tiered_cache import TieredPrefixCache
 from .transport import (
     ChunkAssembler,
     PageBlock,
@@ -28,6 +30,7 @@ __all__ = [
     "DisaggCoordinator",
     "PageBlock",
     "TransferAborted",
+    "TieredPrefixCache",
     "TransportError",
     "adopt_pages",
     "deserialize_block",

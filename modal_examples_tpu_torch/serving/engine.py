@@ -125,8 +125,10 @@ with "error" and lives on), ``engine.scheduler_freeze``,
 ``engine.out_of_pages`` and ``engine.slow_decode`` are the reference's.
 ``stop(reason="error")`` poisons the engine until :meth:`~LLMEngine.revive`.
 
-Not in this slice: int4 weights and the tiered prefix cache
-(``tiered_prefix=``, ROADMAP A9b).
+``tiered_prefix=`` wraps the prefix trie with the host-RAM and ``Volume``
+spill tiers (``serving/disagg/tiered_cache.py``): evicted prefix pages spill
+on the eviction wave and promote back inside ``_claim_pages``. Not in the
+port: int4 weights.
 """
 
 from __future__ import annotations
@@ -479,12 +481,12 @@ class LLMEngine:
         clock=None,  # monotonic clock of deadlines, the policy, the profiler and the usage meter
         profile=None,  # the hot-path profiler; None: MTPU_PROFILE, then off
         trace_store=None,  # where this engine's request spans land; None: the process-wide store
-        tiered_prefix=None,  # the tiered prefix cache: waits with ROADMAP A9b
+        # the tiered prefix cache: True for the env-default sizing, or a dict
+        # of TieredPrefixCache kwargs (host_bytes=, volume=, shared=,
+        # replica=); evicted prefix pages spill HBM -> host RAM -> Volume
+        # and promote back on the next shared-prefix prompt
+        tiered_prefix=None,
     ):
-        if tiered_prefix:
-            raise NotImplementedError(
-                "tiered_prefix= (the HBM/host/Volume prefix tiers) waits with ROADMAP A9b in the port"
-            )
         self.device = resolve_device(device)
         if max_prefill_tokens_per_tick is None:
             raw = os.environ.get("MTPU_PREFILL_BUDGET", "")
@@ -538,6 +540,15 @@ class LLMEngine:
         self.prefill_buckets = tuple(b for b in sorted(prefill_buckets) if b <= max_model_len) or (max_model_len,)
         self.prefill_batch = max(1, min(prefill_batch, max_slots))
         self.prefix_cache = PrefixCache(self.cache.allocator, page_size) if enable_prefix_cache else None
+        # the tiered prefix cache wraps the trie with host-RAM and Volume
+        # spill tiers over the disagg page (de)serialization
+        self.tiered = None
+        if tiered_prefix and self.prefix_cache is not None:
+            from .disagg.tiered_cache import TieredPrefixCache
+
+            kw = dict(tiered_prefix) if isinstance(tiered_prefix, dict) else {}
+            self.tiered = TieredPrefixCache(self.cache, self.prefix_cache, **kw)
+            self.prefix_cache.spill = self.tiered.spill_pages
         self.decode_block = max(1, int(decode_block))
         self.decode_steps = resolve_decode_steps(decode_steps)  # read once per dispatch
         self._detok: DetokWorker | None = None  # created at the first routed token
@@ -1605,9 +1616,16 @@ class LLMEngine:
 
     def _claim_pages(self, req: Request) -> dict | None:
         """Claim ``req``'s page budget: the longest cached prefix of full
-        prompt pages is shared from the trie, the rest allocated (evicting
-        zero-ref cached pages under pressure), and the full prompt pages
-        inserted into the trie. None when the pages are not there."""
+        prompt pages is shared from the trie, the next ones promoted from the
+        lower tiers (a tiered engine), the rest allocated (evicting zero-ref
+        cached pages under pressure), and the full prompt pages inserted into
+        the trie. None when the pages are not there. Runs under the request's
+        ambient trace frame, so a fault fired in here (allocator exhaustion,
+        tier corruption) and a promotion land on the request's timeline."""
+        with _rt.active(req.trace, replica=self.trace_name):
+            return self._claim_pages_traced(req)
+
+    def _claim_pages_traced(self, req: Request) -> dict | None:
         # fault point: allocator exhaustion (the slot path requeues;
         # prefill_sync raises OutOfPages and the coordinator falls back)
         if _inject.fire("engine.out_of_pages"):
@@ -1615,8 +1633,19 @@ class LLMEngine:
         n_prompt = len(req.prompt_tokens)
         n_pages = self.request_cost(req)
         pc = self.prefix_cache
-        shared = pc.acquire(req.prompt_tokens)[0] if pc is not None else []
-        need = n_pages - len(shared)
+        shared: list[int] = []
+        promoted: list[int] = []
+        if pc is not None:
+            shared = pc.acquire(req.prompt_tokens)[0]
+            if self.tiered is not None and shared:
+                # page units, as the host and volume counts promote records
+                _obs.record_tier_hit("hbm", n=len(shared))
+            if self.tiered is not None:
+                # consecutive full prompt pages past the trie hit, restored
+                # from host RAM or the Volume with their KV written; they
+                # join the trie as fresh inserts below
+                promoted = self.tiered.promote(req.prompt_tokens, n_have=len(shared))
+        need = n_pages - len(shared) - len(promoted)
         try:
             fresh = self.cache.allocator.alloc(need)
         except OutOfPages:
@@ -1627,11 +1656,13 @@ class LLMEngine:
                 fresh = self.cache.allocator.alloc(need)
             except OutOfPages:
                 pc.release(shared)
+                self.cache.allocator.free(promoted)
                 return None
-        pages = shared + fresh
-        # clamped to the prompt: the last shared page may hold growth positions
-        req.cached_prompt_tokens = min(n_prompt, len(shared) * self.cache.page_size)
-        trie_pages, private_pages = list(shared), list(fresh)
+        pages = shared + promoted + fresh
+        # trie hits and tier promotions, clamped to the prompt: the last
+        # shared page may hold growth positions
+        req.cached_prompt_tokens = min(n_prompt, (len(shared) + len(promoted)) * self.cache.page_size)
+        trie_pages, private_pages = list(shared), list(promoted) + list(fresh)
         if pc is not None:
             pc.hits += bool(shared)
             pc.misses += not shared
@@ -1640,6 +1671,8 @@ class LLMEngine:
             self.cache.allocator.free(displaced)
             trie_pages, private_pages = list(final), pages[n_full:]
             pages = final + private_pages
+            if self.tiered is not None:
+                self.tiered.register(req.prompt_tokens, final)
         return {"pages": pages, "trie_pages": trie_pages, "private_pages": private_pages, "n_prompt": n_prompt}
 
     def _install(self, slot_idx: int, req: Request, claim: dict) -> np.ndarray:

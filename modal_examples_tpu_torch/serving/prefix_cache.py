@@ -2,9 +2,10 @@
 
 A copy of ``modal_examples_tpu/serving/prefix_cache.py`` with its metrics
 series (``mtpu_prefix_cached_pages``, ``mtpu_prefix_cache_evictions_total``;
-the counters ``hits``, ``misses``, ``evictions`` and ``stats()`` beside them),
-without the spill hook of the tiered cache (ROADMAP A9b). Prompts sharing
-a page-aligned token prefix share the physical KV pages of that prefix.
+the counters ``hits``, ``misses``, ``evictions`` and ``stats()`` beside them)
+and the spill hook of the tiered cache (``serving/disagg/tiered_cache.py``).
+Prompts sharing a page-aligned token prefix share the physical KV pages of
+that prefix.
 
 Mechanics:
 - a trie keyed by full-page token tuples; each node owns one physical page
@@ -55,6 +56,13 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0  # monotonic: pages reclaimed by evict()
+        #: optional spill hook (set by the engine when a TieredPrefixCache
+        #: wraps this trie): called with the page ids of each eviction wave
+        #: before their pages return to the allocator, so the lower tier can
+        #: read the device pages while they still hold valid KV. Runs under
+        #: this cache's lock and on the cache-owning thread (evict is only
+        #: reached from the engine's claim path): it must not call back in.
+        self.spill = None
 
     def _page_keys(self, tokens: list[int]) -> list[tuple]:
         n_full = len(tokens) // self.page_size
@@ -193,6 +201,10 @@ class PrefixCache:
                     batch.append(node.page_id)
                     freed += 1
                 # one allocator call per wave, not one per page
+                if self.spill is not None:
+                    # the evicted pages' KV is still resident: the lower
+                    # tier serializes it before the pages are reused
+                    self.spill(batch)
                 self.allocator.free(batch)
             self.evictions += freed
             _obs.set_prefix_cache_pages(len(self._by_page))

@@ -17,9 +17,12 @@ expositions), ``/alerts``, ``/incidents[/<id>[?file=NAME]]``, ``/canary``,
 stores), ``/profile`` (the engines' hot-path profilers and the kernel
 build ledger), ``/usage`` (their usage meters), ``/autoscaler`` (the
 executor's journal), ``/health`` (the gray-failure watchdog's per-replica
-classification) and ``/disagg`` (replica roles and migrations). The prefix
-store's, the fleet's and the chaos harness's routes answer 501 naming the
-ROADMAP item they wait on (:data:`WAITING_ROUTES`). A ``@websocket_endpoint`` route
+classification), ``/disagg`` (replica roles, migrations and the prefix
+tiers), ``/prefixstore`` (the shared prefix store's counters and ownership
+journal), ``/fleet`` (the fleet autoscaler's replicas, decisions and boot
+latencies) and ``/chaos`` (injected faults and the chaos episode journal).
+A route over a module the port does not have answers 501 naming the ROADMAP
+item it waits on (:data:`WAITING_ROUTES`, empty now). A ``@websocket_endpoint`` route
 upgrades the connection (``web/websocket.py``) and runs its handler in the
 gateway's process, as the reference's does: a live socket cannot cross into
 a container.
@@ -63,11 +66,7 @@ BUILTIN_ROUTES: dict[str, str] = {
 
 #: built-in routes over modules the port does not have yet: label -> what
 #: they wait on. They answer 501 with that text.
-WAITING_ROUTES: dict[str, str] = {
-    "fleet": "fleet/ (ROADMAP A9c)",
-    "chaos": "faults/chaos.py (ROADMAP A9c)",
-    "prefixstore": "serving/prefix_store/ (ROADMAP A9b)",
-}
+WAITING_ROUTES: dict[str, str] = {}
 
 
 def _coerce_kwargs(fn, raw: dict) -> dict:
@@ -95,14 +94,20 @@ def _coerce_kwargs(fn, raw: dict) -> dict:
 
 def _disagg_snapshot() -> dict:
     """Disaggregated-serving snapshot from the process registry: replica
-    roles and the migration counters and latency (the ``/disagg`` route's
-    payload; ``python -m modal_examples_tpu_torch disagg`` renders the same
-    series). The prefix tiers' occupancy and hits come with ROADMAP A9b."""
+    roles, the migration counters and latency, and the prefix tiers'
+    occupancy and hits (the ``/disagg`` route's payload; ``python -m
+    modal_examples_tpu_torch disagg`` renders the same series)."""
     from ..observability import catalog as C
     from ..utils.prometheus import default_registry as reg
 
     roles = {labels.get("replica", "?"): labels.get("role", "?") for labels, _v in reg.series(C.REPLICA_ROLE)}
     by_result = {labels.get("result", "?"): v for labels, v in reg.series(C.DISAGG_MIGRATIONS_TOTAL)}
+    tiers: dict = {}
+    for labels, v in reg.series(C.PREFIX_TIER_PAGES):
+        tiers.setdefault(labels.get("tier", "?"), {})["pages"] = v
+    for labels, v in reg.series(C.PREFIX_TIER_BYTES):
+        tiers.setdefault(labels.get("tier", "?"), {})["bytes"] = v
+    hits = {labels.get("tier", "?"): v for labels, v in reg.series(C.PREFIX_TIER_HITS_TOTAL)}
     return {
         "replicas": roles,
         "migrations": {
@@ -112,6 +117,89 @@ def _disagg_snapshot() -> dict:
             "bytes": reg.total(C.DISAGG_MIGRATION_BYTES_TOTAL),
             "latency": reg.histogram_quantiles(C.DISAGG_MIGRATION_SECONDS),
         },
+        "tiers": {"occupancy": tiers, "hits": hits},
+    }
+
+
+def _fleet_snapshot(last: int = 20) -> dict:
+    """Fleet-autoscaler snapshot: replica counts by role and decision
+    counters from the process registry, boot-latency quantiles by kind
+    (warm snapshot-restore vs cold init), plus the newest records from the
+    fleet decision journal: the ``/fleet`` route's payload (``python -m
+    modal_examples_tpu_torch fleet`` renders the same data from pushed
+    metrics)."""
+    from ..observability import catalog as C
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import default_registry as reg
+
+    replicas = {
+        labels.get("role", "?"): v
+        for labels, v in reg.series(C.FLEET_REPLICAS)
+    }
+    decisions: dict = {}
+    for labels, v in reg.series(C.FLEET_DECISIONS_TOTAL):
+        action = labels.get("action", "?")
+        decisions.setdefault(action, {})[labels.get("trigger", "?")] = v
+    boots = {
+        boot: reg.histogram_quantiles(
+            C.FLEET_BOOT_SECONDS, aggregate={"boot": boot}
+        )
+        for boot in ("warm", "cold")
+    }
+    journal = named_journal("fleet").tail(last)
+    return {
+        "replicas": replicas,
+        "decisions": decisions,
+        "boot_seconds": {k: v for k, v in boots.items() if v},
+        "journal": journal,
+    }
+
+
+def _chaos_snapshot(last: int = 10) -> dict:
+    """Chaos-harness snapshot: injected-fault counters per catalog point
+    (live registry) plus the newest episode records from the chaos journal
+    (the ``/chaos`` route's payload; ``python -m modal_examples_tpu_torch
+    chaos`` renders the same data from pushed metrics and the journal)."""
+    from ..observability import catalog as C
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import default_registry as reg
+
+    injected = {
+        labels.get("point", "?"): v
+        for labels, v in reg.series(C.FAULTS_INJECTED_TOTAL)
+    }
+    episodes = named_journal("chaos").tail(last)
+    return {
+        "injected": injected,
+        "injected_total": sum(injected.values()),
+        "router_readmissions": reg.total(C.ROUTER_READMISSIONS_TOTAL),
+        "episodes": episodes,
+        "wedged": sum(int(e.get("wedged", 0)) for e in episodes),
+    }
+
+
+def _prefixstore_snapshot(last: int = 10) -> dict:
+    """Shared prefix-store snapshot: fleet-wide dedup/hit/takeover
+    counters (live registry) plus the newest ownership records from the
+    ``prefix_store`` journal (the ``/prefixstore`` route's payload;
+    ``python -m modal_examples_tpu_torch prefixstore`` renders the same data
+    from pushed metrics and the journal)."""
+    from ..observability import catalog as C
+    from ..observability.journal import named_journal
+    from ..utils.prometheus import default_registry as reg
+
+    hits = {
+        labels.get("origin", "?"): v
+        for labels, v in reg.series(C.PREFIX_STORE_HITS_TOTAL)
+    }
+    return {
+        "hits": hits,
+        "hits_total": sum(hits.values()),
+        "misses": reg.total(C.PREFIX_STORE_MISSES_TOTAL),
+        "dedup_ratio": reg.total(C.PREFIX_STORE_DEDUP_RATIO),
+        "bytes": reg.total(C.PREFIX_STORE_BYTES),
+        "owner_takeovers": reg.total(C.PREFIX_STORE_OWNER_TAKEOVERS_TOTAL),
+        "journal": named_journal("prefix_store").tail(last),
     }
 
 
@@ -384,6 +472,7 @@ class _Handler(BaseHTTPRequestHandler):
         ``/canary[?n=N]``, ``/traces[/<id>[?explain=1]]`` (call and request
         span JSON), ``/profile[?n=N]``, ``/usage[?n=N]``,
         ``/autoscaler[?function=tag&n=N]``, ``/health[?n=N]``, ``/disagg``,
+        ``/fleet[?n=N]``, ``/chaos[?n=N]``, ``/prefixstore[?n=N]``,
         ``/`` (the :data:`BUILTIN_ROUTES` index), and 501 for
         :data:`WAITING_ROUTES`.
         User endpoints with the same label win — these only answer when no
@@ -418,6 +507,12 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond_json(200, _health_snapshot(last=self._query_int(parsed, 20)))
         elif label == "disagg":
             self._respond_json(200, _disagg_snapshot())
+        elif label == "fleet":
+            self._respond_json(200, _fleet_snapshot(last=self._query_int(parsed, 20)))
+        elif label == "chaos":
+            self._respond_json(200, _chaos_snapshot(last=self._query_int(parsed, 10)))
+        elif label == "prefixstore":
+            self._respond_json(200, _prefixstore_snapshot(last=self._query_int(parsed, 10)))
         elif label == "autoscaler":
             from ..observability.journal import default_journal
 

@@ -11,7 +11,8 @@ claim paths) against the JAX package, over the same tiny f32 weights:
   ``disagg.adopt_corrupt`` end as in the JAX package (a 429, or the unified
   fallback with the same tokens), and every page comes back on every engine;
 - ``prefill_sync`` refuses a started engine, ``engine.out_of_pages`` fails it
-  without leaking a page, ``tiered_prefix=`` names ROADMAP A9b;
+  without leaking a page, ``tiered_prefix=True`` spills into a default host
+  tier;
 - ``OpenAIServer(router=coordinator)`` serves the same tokens over HTTP;
   the gateway's ``/disagg`` route reads the migrations.
 
@@ -232,8 +233,21 @@ def test_prefill_sync_refuses_a_started_engine_and_fails_without_leaking(weights
             eng.prefill_sync(eng.make_request(PROMPTS[0]))
     finally:
         eng.stop()
-    with pytest.raises(NotImplementedError, match="A9b"):
-        LLMEngine(tcfg, tparams, device="cpu", tiered_prefix=True, **ENGINE_KW)
+    # tiered_prefix=True: the trie's evictions spill into a host tier of
+    # the default budget (MTPU_TIER_HOST_BYTES unset: 64 MiB), no volume
+    eng = LLMEngine(tcfg, tparams, device="cpu", tiered_prefix=True, **ENGINE_KW)
+    try:
+        assert eng.prefix_cache.spill == eng.tiered.spill_pages
+        st = eng.tiered.stats()
+        assert st["host"] == {"blocks": 0, "bytes": 0, "budget_bytes": 64 * 1024 * 1024}
+        assert st["volume"]["enabled"] is False
+        req = eng.submit(PROMPTS[1], SamplingParams(max_tokens=2, temperature=0.0))  # 41 tokens: 5 full pages
+        "".join(eng.stream(req))
+        eng.stop()  # the finished claim's pages are back in the trie at zero refs
+        eng.prefix_cache.evict(10_000)
+        assert eng.tiered.stats()["host"]["blocks"] == eng.tiered.spilled == 5
+    finally:
+        eng.stop()
 
 
 def _post(url: str, body: dict) -> dict:

@@ -685,7 +685,9 @@ def test_every_observability_subcommand_is_served(populated):
     assert not served & set(pcli.WAITING_COMMANDS)
     # A13's examples, docs and snapshot subcommands are served too
     assert {"examples", "docs", "snapshot"} <= set(pcli.COMMANDS)
-    assert {v.split()[0] for v in pcli.WAITING_COMMANDS.values()} == {"A8", "A9b", "A9c"}
+    # the fleet layers' prefixstore, fleet and chaos are served; only A8 waits
+    assert {"prefixstore", "fleet", "chaos"} <= set(pcli.COMMANDS)
+    assert {v.split()[0] for v in pcli.WAITING_COMMANDS.values()} == {"A8"}
 
 
 def test_the_cli_runs_as_a_module(populated, tmp_path):

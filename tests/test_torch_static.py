@@ -7,7 +7,9 @@
   the plain version;
 - the speculation modules are scanned, and nothing in the port imports the
   single-sequence oracle ``serving/speculative.py`` (the JAX package's
-  quarantine of its oracle): only tests do.
+  quarantine of its oracle): only tests do;
+- the drivers ``fleet/loadgen.py`` and ``faults/chaos.py`` are scanned, and
+  no module of the port imports them: tests and ``chip_smoke.py`` do.
 """
 
 import ast
@@ -175,3 +177,26 @@ def test_import_scan_reaches_the_fleet_layers():
     for mod in ("serving/health.py", "serving/failover.py", "serving/disagg/__init__.py",
                 "serving/disagg/transport.py", "serving/disagg/roles.py", "scheduling/router.py"):
         assert mod in names
+
+
+def test_import_scan_reaches_the_prefix_tiers_fleet_and_chaos():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("serving/prefix_store/__init__.py", "serving/prefix_store/ownership.py",
+                "serving/prefix_store/store.py", "serving/disagg/tiered_cache.py", "fleet/__init__.py",
+                "fleet/autoscaler.py", "fleet/loadgen.py", "faults/chaos.py"):
+        assert mod in names
+
+
+DRIVERS = ("modal_examples_tpu_torch.fleet.loadgen", "modal_examples_tpu_torch.faults.chaos")
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_FILES if PKG in p.parents], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_of_the_port_imports_a_driver(path):
+    """The load generator and the chaos runner drive the serving path from
+    outside; a production import would put them on it (the JAX package's
+    layering rule)."""
+    for mod, names in _imports_of(path):
+        for driver in DRIVERS:
+            assert mod != driver and not mod.startswith(driver + "."), f"{path.name} imports {driver}"
+            parent, leaf = driver.rsplit(".", 1)
+            assert not (mod == parent and leaf in names), f"{path.name} imports {driver}"
