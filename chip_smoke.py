@@ -16,8 +16,10 @@ at depth 8, int8 at full depth through the OpenAI server), runs the
 serverless surface on the card (functions, a Cls and Llama-2-7B behind
 ``@app.server`` in spawned GPU containers, and the CLI), then the rest of the
 platform layer (a snapshot-restored engine, a resumable LoRA fine-tune,
-streaming ASR over a websocket, a sandbox, an OCI export), and prints
-per-kernel times beside their bounds.
+streaming ASR over a websocket, a sandbox, an OCI export), then serves
+Llama-2-7B with int4 weights on the int4 matmul kernel and trains QLoRA over
+them, DreamBooth-LoRA on the SD3-shape MMDiT, ControlNet's DiT and
+whisper-base, and prints per-kernel times beside their bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -340,6 +342,43 @@ Phases (any failure exits non-zero and prints no result):
    point fired, the invariants "ok" after all 15 episodes, 0 wedged,
    ``/chaos`` answering. The phase's seconds and peak memory are logged; its
    launches join the kernels line.
+17. int4 weights and the training paths (after phase 14, every earlier
+   tree freed; ``benchmarks_torch/int4_training.py`` runs it alone). (17a)
+   K7-int4 (``csrc/quantized_matmul_int4.cu``, built in phase 1: its ptxas
+   report logged, ``HMMA`` in its SASS) against ``qmm_int4_plain`` at M = 1,
+   8, 64, 65, 300 and 2048 over every Llama-2-7B weight shape and a ragged
+   4000 x 11000, and at Mixtral's expert shapes at M = 8: within 1e-3 of
+   the plain version's largest value, bitwise run to run, the check shown
+   to refuse two planted faults (the nibbles read swapped, the last K split
+   of the launch lost); ``quantize_weight(bits=4)`` on the card bitwise the
+   CPU's; its times at [8 | 2048, 4096] x [4096, 11008] over four weight
+   copies (single, back to back, the profiler's device time), the bound,
+   the plain version, ``torch._weight_int4pack_mm`` where it computes the
+   function, and the bf16 GEMM. (17b) ``llama2_7b()`` with int4 weights
+   drawn by ``init_quantized_llama(bits=4)`` on the card (at most 0.53 of
+   the same tree's int8 bytes, the payload exactly half) serving phase 3's
+   burst over bf16 pages, counters zeroed: K7-int4 a multiple of 7 x 32 + 1
+   and at least that a dispatched step, no K7, K2 32 x the dispatched
+   steps, K1, K3; prefill + one decode step against the dense plain forward
+   over the same int4 weights; every greedy token the dense forward's
+   argmax or within 5e-2 of its largest logit; then ``OpenAIServer``.
+   (17c) QLoRA: phase 12 over the int4 base (rank 16, f32 adapters, B=2 x
+   S=512): the first step's adapter gradients through K7-int4 and the flash
+   kernels against ``qmm_int4_plain`` and the xla attention (cosine >=
+   0.999 per target), 1 + 2 counted ``Trainer`` steps (K7-int4 225 a step,
+   K1, K5, K6 32), the peak below phase 12's. (17d) DreamBooth-LoRA on
+   ``MMDiTConfig.sd3_shape()`` (bf16, modulation drawn nonzero), rank 16,
+   alpha 32 over ``DIT_TARGETS`` through ``init_lora_tree`` and
+   ``merge_tree`` (b = 0 merges to the base bitwise), B=2 of 512 px latents
+   and 154 text tokens (joint S = 1178), ``mmdit_flow_loss``: the first
+   step's adapter gradients through K1 and K5/K6 against the plain
+   attention products (cosine >= 0.999 per target), 1 + 2 counted steps
+   (K1, K5, K6 24 a step), step ms and peak; K5/K6 timed at that shape.
+   (17e) ``flow_loss(control=)`` at ``controlnet.py``'s DiT config and
+   whisper-base fine-tuned as ``fine_tune_asr.py`` does, 2 ``Trainer``
+   steps each on the card, the first step's loss and gradients within
+   ``CPU_AGREE`` of the port's CPU run (f32, TF32 off). K7-int4's row joins
+   the kernels line; K5's and K6's carry 17d's shape under ``joint``.
 """
 
 from __future__ import annotations
@@ -415,10 +454,11 @@ K1_CASES = [
     (2, 4, 2, 200, 200, 0, True, 256),
 ]
 # instructions each library's SASS must hold: the products on wgmma (HGMMA)
-# fed by TMA (UTMALDG); the four decode kernels' rows streamed by cp.async
-# (LDGSTS)
+# fed by TMA (UTMALDG); the int4 matmul's on mma.sync (HMMA); the four
+# decode kernels' rows streamed by cp.async (LDGSTS)
 SASS_CHECKED = {
     **{name: ("HGMMA", "UTMALDG") for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul")},
+    "quantized_matmul_int4": ("HMMA",),  # mma.sync over nibbles sign-extended in registers
     **{name: ("LDGSTS",) for name in ("paged_decode", "paged_decode_int8", "paged_decode_writeback",
                                       "paged_decode_writeback_int8")},
 }
@@ -912,6 +952,7 @@ def phase_backward_vs_plain(fa, errs: dict) -> bool:
         (2, 8, 2, 300, True, False, 32),
         (2, 4, 2, 200, True, False, 256),
         (2, 4, 2, 200, False, True, 256),
+        (DREAMBOOTH_B, 24, 24, 1178, False, False, 64),  # the MMDiT's joint attention in DreamBooth (17d)
     ]
     bitwise = True
     for B, Hq, Hkv, S, causal, nz, D in cases:
@@ -1076,12 +1117,14 @@ def check_finish(req) -> None:
 
 
 def plain_mm(x, w, layers):
-    """``layers.mm`` with no kernel: ``qmm_plain`` for an int8 weight."""
+    """``layers.mm`` with no kernel: ``qmm_plain`` for an int8 weight,
+    ``qmm_int4_plain`` for an int4 one."""
     from modal_examples_tpu_torch.models.quantize import QuantizedWeight
-    from modal_examples_tpu_torch.ops.quantized_matmul import qmm_plain
+    from modal_examples_tpu_torch.ops.quantized_matmul import qmm_int4_plain, qmm_plain
 
     if isinstance(w, QuantizedWeight):
-        return qmm_plain(x.reshape(-1, x.shape[-1]), w.q, w.scale).reshape(*x.shape[:-1], w.shape[-1])
+        plain = qmm_int4_plain if w.bits == 4 else qmm_plain
+        return plain(x.reshape(-1, x.shape[-1]), w.q, w.scale).reshape(*x.shape[:-1], w.shape[-1])
     return layers.mm(x, w)
 
 
@@ -5774,6 +5817,597 @@ def phase_tiers_fleet_chaos(fa, pa, qmm, llama, LLMEngine, OpenAIServer, Samplin
     return out
 
 
+# -- phase 17: int4 weights, QLoRA, DreamBooth-LoRA, ControlNet and Whisper training --------
+
+#: Mixtral's expert products K7-int4 takes at decode (M = 8)
+QMM4_EXPERT = ((4096, 14336), (14336, 4096))
+#: K7-int4's timed shape (gate/up of Llama-2-7B) at the decode step and the prefill batch
+QMM4_TIMED = (4096, 11008)
+QMM4_TIMED_MS = (("decode", 8), ("prefill", 2048))
+#: phase 12's int8-base LoRA peak on an H100 (16.18 GB, PERF.md §6): 17c's
+#: bound when phase 17 runs alone; the whole script holds 17c to its phase 12
+INT8_LORA_PEAK_GB = 16.18
+#: 17b: int4 weights at most this share of the int8 engine's (the payload
+#: is exactly half; the f32 scales and the bf16 embeddings and norms stay)
+INT4_WEIGHT_RATIO_MAX = 0.53
+#: 17c QLoRA: 1 warm-up and 2 timed steps (phase 12 takes 3 timed)
+QLORA_STEPS = 3
+#: 17d DreamBooth-LoRA on the SD3-shape MMDiT: the batch (512 px latents,
+#: 154 text tokens: the joint S is 1178) and 1 warm-up + 2 timed steps
+DREAMBOOTH_B = 2
+DREAMBOOTH_STEPS = 3
+DREAMBOOTH_TEXT = 154
+#: 17e: controlnet.py's DiT config and batch; whisper-base fine-tuned on
+#: 2 x 30 s of audio with 32 tokens, 2 Trainer steps each
+CONTROLNET_CFG = dict(img_size=16, patch=2, dim=96, n_layers=3, n_heads=4, text_dim=16, text_len=4, control=True)
+CONTROLNET_B = 16
+WHISPER_FT = (2, 3000, 32)
+FT_STEPS = 2
+
+
+def int4_planted_faults(qmm, x, w, want) -> dict:
+    """Two faults K7-int4's check must refuse, run through the kernel: the
+    packed nibbles read in the swapped order (each byte's halves exchanged),
+    and the last K split of the launch's plan lost (the K rows of that split
+    zeroed in ``x``: the sum without that split's partial)."""
+    plan = qmm.int4_plan(x, w.q)
+    if plan["splits"] < 2:
+        raise AssertionError(f"17a: the planted split fault wants a split launch: {plan}")
+    swapped = ((w.q & 0xF) << 4) | (w.q >> 4)
+    lost = x.clone()
+    lost[:, (plan["splits"] - 1) * plan["chunk"] * 64:] = 0
+    faults = {"nibbles swapped": rel_err(qmm.qmm_int4_cuda(x, swapped, w.scale), want),
+              "last K split lost": rel_err(qmm.qmm_int4_cuda(lost, w.q, w.scale), want)}
+    torch.cuda.synchronize()
+    if not min(faults.values()) > TOL["quantized_matmul"]:
+        raise AssertionError(f"17a: the K7-int4 check does not see a planted fault: {faults}")
+    return {**faults, "plan": plan}
+
+
+def int4_library(w, x):
+    """One PyTorch call computing K7-int4's function on ``w``:
+    ``torch._weight_int4pack_mm`` with the per-channel scales repeated over
+    128-row groups and zero points 0 (its dequantization is (u - 8) * scale
+    + zero over unsigned nibbles u = q + 8), where this build has it for
+    CUDA and its output agrees with the plain version (its scales and output
+    are bf16). Returns (fn of x, name), or (None, why not)."""
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+
+    K, N = w.shape
+    u = (w.values().to(torch.int32) + 8).T.contiguous()  # [N, K] unsigned nibbles
+    group = 128
+    sz = torch.stack([w.scale.reshape(1, N).expand(K // group, N), torch.zeros(K // group, N, device="cuda")],
+                     dim=-1).to(torch.bfloat16).contiguous()
+    want = qmm.qmm_int4_plain(x, w.q, w.scale)
+    tried = []
+    for order, packed in (("even row high", (u[:, 0::2] << 4) | u[:, 1::2]), ("even row low", (u[:, 1::2] << 4) | u[:, 0::2])):
+        try:
+            wp = torch._convert_weight_to_int4pack(packed.to(torch.uint8).contiguous(), 8)
+            got = torch._weight_int4pack_mm(x, wp, group, sz)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, AttributeError, TypeError) as e:
+            tried.append(f"{order}: {type(e).__name__}: {str(e)[:160]}")
+            continue
+        rel = rel_err(got, want)
+        tried.append(f"{order}: max|out-plain|/max|plain| {rel:.3g}")
+        if rel < 2e-2:  # bf16 scales and output
+            return (lambda xx: torch._weight_int4pack_mm(xx, wp, group, sz)), \
+                f"torch._weight_int4pack_mm (groups of {group}, per-channel scales repeated, zero points 0; " \
+                f"bf16 scales and output; nibbles {order}; {rel:.3g} of the plain version's largest value)"
+    log(f"17a library probe: torch._weight_int4pack_mm does not compute the function here: {tried}")
+    return None, f"none: torch._weight_int4pack_mm does not compute it here ({'; '.join(tried)})"
+
+
+def phase17_matmul(qmm, quantize, errs: dict, card: str) -> dict:
+    """17a: K7-int4 against ``qmm_int4_plain`` at M = 1, 8, 64, 65, 300 and
+    2048 over every Llama-2-7B weight shape and a ragged 4000 x 11000, and
+    at Mixtral's expert shapes at M = 8: within 1e-3 of the plain version's
+    largest value, bitwise from launch to launch; the check shown to refuse
+    two planted faults; ``quantize_weight(bits=4)`` on the card bitwise
+    equal to the same call on the CPU (nibbles and scales). Then K7-int4's
+    numbers at the decode step's and the prefill batch's gate/up shape, four
+    weight copies in turn (90 MB of nibbles, beyond the 50 MB L2)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out: dict = {"shapes": {}}
+    for K, N in QMM_SHAPES + [(K, N) for K, N in QMM4_EXPERT]:
+        w32 = torch.randn(K, N, generator=gen, device="cuda")
+        w = quantize.quantize_weight(w32, bits=4)
+        host = quantize.quantize_weight(w32.cpu(), bits=4)
+        if not (torch.equal(w.q.cpu(), host.q) and torch.equal(w.scale.cpu(), host.scale)):
+            raise AssertionError(f"17a: quantize_weight(bits=4) of {K} x {N} on the card differs from the CPU's")
+        del w32, host
+        worst = 0.0
+        for M in (8,) if (K, N) in QMM4_EXPERT else QMM_MS:
+            x = rand_bf16(gen, M, K)
+            got = qmm.qmm_int4_cuda(x, w.q, w.scale)
+            again = qmm.qmm_int4_cuda(x, w.q, w.scale)
+            torch.cuda.synchronize()
+            want = qmm.qmm_int4_plain(x, w.q, w.scale)
+            rel = rel_err(got, want)
+            plan = qmm.int4_plan(x, w.q)
+            if not rel <= TOL["quantized_matmul"] or not torch.equal(got, again):
+                raise AssertionError(f"17a K7-int4 M={M} K={K} N={N} {plan}: {rel}, bitwise {torch.equal(got, again)}")
+            errs["quantized_matmul_int4"] = max(errs.get("quantized_matmul_int4", 0.0), max_err(got, want))
+            worst = max(worst, rel)
+            if (K, N) == QMM4_TIMED and M == 8:
+                out["faults"] = int4_planted_faults(qmm, x, w, want)
+        out["shapes"][f"{K}x{N}"] = worst
+        log(f"17a K7-int4 K={K} N={N}: worst max|out-plain|/max|plain| {worst:.3g} over M "
+            f"{(8,) if (K, N) in QMM4_EXPERT else QMM_MS}, bitwise run to run; card quantization = CPU's")
+        del w
+    log(f"17a planted faults (refused): {out['faults']}")
+    K, N = QMM4_TIMED
+    weights = [quantize.quantize_weight(torch.randn(K, N, generator=gen, device="cuda"), bits=4) for _ in range(4)]
+    bf16_weights = [quantize.dequantize_weight(w, torch.bfloat16) for w in weights]
+    for label, M in QMM4_TIMED_MS:
+        x = rand_bf16(gen, M, K)
+        flops, nbytes = 2 * M * N * K, K * N // 2 + 4 * N + 2 * M * K + 4 * M * N  # nibbles, scale, x in; f32 out
+        kernel = cycling([lambda w=w: qmm.qmm_int4_cuda(x, w.q, w.scale) for w in weights])
+        libs = [int4_library(weights[0], x)]
+        if libs[0][0] is not None:
+            libs += [int4_library(w, x) for w in weights[1:]]
+        bf16_mm = cycling([lambda wd=wd: torch.mm(x, wd) for wd in bf16_weights])
+        row = dict(
+            shape=f"M={M} K={K} N={N}", plan=qmm.int4_plan(x, weights[0].q),
+            ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+            plain_ms=time_ms(cycling([lambda w=w: qmm.qmm_int4_plain(x, w.q, w.scale) for w in weights]), reps=5),
+            bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+            bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+            library_op=libs[0][1], bf16_mm_ms=time_ms(bf16_mm), bf16_mm_ms_b2b=back_to_back_ms(bf16_mm),
+            bf16_mm_device_ms=device_ms(bf16_mm),
+        )
+        if libs[0][0] is None:
+            row.update(library_ms=None, library_ms_b2b=None)
+        else:
+            library = cycling([lambda fn=fn: fn(x) for fn, _ in libs])
+            row.update(library_ms=time_ms(library), library_ms_b2b=back_to_back_ms(library),
+                       library_device_ms=device_ms(library))
+        out[label] = row
+        log(f"17a K7-int4 {label} ({card}): {json.dumps(row)}")
+    del weights, bf16_weights
+    return out
+
+
+def int4_payload(params, quantize) -> tuple:
+    """(packed int4 bytes, their elements) over every int4 weight of a tree."""
+    ws = [w for w in quantize._weights(params) if w.bits == 4]
+    return sum(w.q.numel() for w in ws), sum(w.shape.numel() for w in ws)
+
+
+def phase17_serving(fa, pa, qmm, llama, layers, reference, quantize, LLMEngine, OpenAIServer, SamplingParams,
+                    card: str) -> dict:
+    """17b: ``llama2_7b()`` at full width and depth with int4 weights drawn
+    by ``init_quantized_llama(bits=4)`` on the card, phase 3's engine
+    settings and 8 requests over bf16 pages, counters zeroed just before the
+    burst: K7-int4 a multiple of 7 x n_layers + 1 and at least that many a
+    dispatched step, no K7, K2 n_layers x the dispatched steps, K1 and K3;
+    weights at most 0.53 of the same tree's int8 bytes (the payload exactly
+    half); prefill + one decode step against the dense plain forward over
+    the same int4 weights; every greedy token the dense forward's argmax or
+    within 5e-2 of its largest logit; then the server."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.monotonic()
+    q4 = quantize.init_quantized_llama(cfg, seed=0, bits=4, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    packed, elements = int4_payload(q4, quantize)
+    w4 = quantize.param_bytes(q4)
+    w8 = w4 + elements - packed  # the same tree at a byte an element
+    ratio = w4 / w8
+    log(f"17b int4 llama2-7b drawn in {init_s:.1f}s: {w4 / 1e9:.3f} GB ({ratio:.4f} of the int8 tree's "
+        f"{w8 / 1e9:.3f} GB; payload {packed / 1e9:.3f} GB for {elements / 1e9:.3f}G elements)")
+    if 2 * packed != elements or not ratio <= INT4_WEIGHT_RATIO_MAX:
+        raise AssertionError(f"17b int4 bytes: payload {packed} for {elements} elements, {ratio} of int8")
+    eng = LLMEngine(cfg, q4, **SERVE_KW)
+    if eng.impl_plan["weights"] != "int4":
+        raise AssertionError(f"17b plan {eng.impl_plan}")
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    zero_counts(fa, pa, qmm)
+    qmm.qmm_int4_launches = 0
+    reqs, metrics = serve_burst(eng, SamplingParams, "17b int4 engine")
+    counts = {"flash_fwd": fa.launches, "quantized_matmul_int4": qmm.qmm_int4_launches,
+              "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches,
+              "quantized_matmul": qmm.qmm_launches}
+    steps = metrics["dispatched_steps"]
+    per_pass = 7 * cfg.n_layers + 1  # seven projections a layer, then lm_head
+    log(f"17b int4 engine launches {counts}")
+    if counts["paged_decode"] != cfg.n_layers * steps or counts["quantized_matmul"]:
+        raise AssertionError(f"17b launches {counts}: want K2 {cfg.n_layers} x {steps}, no K7")
+    if min(counts["flash_fwd"], counts["kv_scatter"]) < 1:
+        raise AssertionError(f"17b: a kernel of the int4 path never launched: {counts}")
+    if counts["quantized_matmul_int4"] % per_pass or counts["quantized_matmul_int4"] < per_pass * steps:
+        raise AssertionError(f"17b K7-int4 launches {counts['quantized_matmul_int4']}: want a multiple of "
+                             f"{per_pass}, at least {per_pass} x {steps} steps")
+    metrics.update(launches=counts, k7_int4_per_pass=per_pass, weight_gb=w4 / 1e9, int8_tree_gb=w8 / 1e9,
+                   weight_ratio=ratio, init_s=init_s)
+    log(f"17b int4 engine metrics ({card}): {json.dumps(metrics)}")
+    metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
+    metrics["exactness"] = check_spec_exactness(eng, reqs, layers, reference, "17b int4 greedy rows")
+    before = qmm.qmm_int4_launches
+    phase_server(eng, OpenAIServer)  # also stops the engine
+    metrics["server_k7_int4"] = qmm.qmm_int4_launches - before
+    if metrics["server_k7_int4"] < per_pass:
+        raise AssertionError(f"17b: the server's requests launched K7-int4 {metrics['server_k7_int4']} times")
+    metrics["launches"]["quantized_matmul_int4"] = qmm.qmm_int4_launches
+    log(f"17b server: ok, K7-int4 {metrics['server_k7_int4']} launches")
+    return metrics
+
+
+class plain_int4_products:
+    """K7-int4's plain version in place of its wrapper for a ``with`` block:
+    17c's comparison path (the plain version counts no launch)."""
+
+    def __init__(self, qmm):
+        self.qmm, self.kernel = qmm, qmm.qmm_int4_cuda
+
+    def __enter__(self):
+        self.qmm.qmm_int4_cuda = self.qmm.qmm_int4_plain
+
+    def __exit__(self, *exc):
+        self.qmm.qmm_int4_cuda = self.kernel
+
+
+def phase17_qlora(fa, qmm, llama, lora, training, quantize, int8_peak_gb: float, card: str) -> dict:
+    """17c: QLoRA, phase 12 over an int4 base: ``init_quantized_llama(bits=4)``
+    at Llama-2-7B's full width and depth, rank 16 on all seven projections
+    (f32 adapters), B=2 x S=512. The first step's adapter gradients through
+    K7-int4 and the flash kernels against ``qmm_int4_plain`` and the xla
+    attention (cosine >= 0.999 per target); then, counters zeroed, 1
+    warm-up and 2 timed ``Trainer`` steps: K7-int4 7 x n_layers + 1 times a
+    step, K1, K5 and K6 n_layers times; the peak below the int8 base's."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.monotonic()
+    q4 = quantize.init_quantized_llama(cfg, seed=0, bits=4, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    _, lcfg, adapters, batches, loss_fn = lora_training_setup(llama, lora, training, q4, QLORA_STEPS)
+    if any(v.dtype != torch.float32 for v in adapters["layers"].values()):
+        raise AssertionError("17c: adapters over an int4 base must be f32")
+    B, S = batches[0]["tokens"].shape
+    log(f"17c QLoRA: llama2-7b int4 base ({quantize.param_bytes(q4) / 1e9:.3f} GB, drawn in {init_s:.1f}s), "
+        f"rank {lcfg.rank} f32 on {lcfg.targets}, B={B} S={S}")
+    kernels = adapter_grads(loss_fn, adapters, batches[0], "flash")
+    with plain_int4_products(qmm):
+        plain = adapter_grads(loss_fn, adapters, batches[0], "xla")
+    grads = compare_adapter_grads(kernels, plain, lcfg.targets, "K7-int4 + flash vs plain int4 products + xla")
+    del kernels, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4))
+    state = trainer.init_state(adapters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    qmm.qmm_int4_launches = 0
+    step_s, losses, per_step = [], [], []
+    for batch in batches:
+        before = qmm.qmm_int4_launches
+        t1 = time.monotonic()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        losses.append(m["loss"].item())
+        per_step.append(qmm.qmm_int4_launches - before)
+    counts = {"quantized_matmul_int4": qmm.qmm_int4_launches, "flash_fwd": fa.launches,
+              "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = 7 * cfg.n_layers + 1
+    log(f"17c steps: loss {losses}, step s {step_s}, K7-int4 a step {per_step}, launches {counts}")
+    if per_step != [want] * QLORA_STEPS:
+        raise AssertionError(f"17c K7-int4 launches a step {per_step}: want {want}")
+    if [counts[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] != [cfg.n_layers * QLORA_STEPS] * 3:
+        raise AssertionError(f"17c flash launches {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"17c non-finite loss: {losses}")
+    if min(state.params["layers"][f"{t}_b"].abs().max().item() for t in lcfg.targets) <= 0:
+        raise AssertionError("17c: b adapters did not move off zero")
+    if not peak < int8_peak_gb:
+        raise AssertionError(f"17c QLoRA peak {peak:.2f} GB is not below the int8 base's {int8_peak_gb:.2f} GB")
+    step_med = statistics.median(step_s[1:])
+    out = {"train_tok_per_s": B * S / step_med, "step_ms_median": 1e3 * step_med, "step_ms": [1e3 * x for x in step_s],
+           "losses": losses, "k7_int4_per_step": want, "peak_gb": peak, "int8_peak_gb": int8_peak_gb,
+           "base_gb": quantize.param_bytes(q4) / 1e9, "launches": counts, "grad_check": grads}
+    log(f"17c QLoRA ({card}): {out['train_tok_per_s']:.1f} tok/s, step {out['step_ms_median']:.1f} ms, peak "
+        f"{peak:.2f} GB against the int8 base's {int8_peak_gb:.2f} GB; {json.dumps(out)}")
+    return out
+
+
+def joint_bwd_rows(fa, card: str) -> dict:
+    """K5 and K6 at 17d's joint shape (B=2, H=24, S=1178, D=64, full):
+    single, back-to-back and device ms, the plain version's, PyTorch's flash
+    backward (dQ, dK and dV together) and the bounds."""
+    B, H, S, D = DREAMBOOTH_B, 24, DREAMBOOTH_TEXT + 1024, 64
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    args, o = bwd_case(fa, gen, B, H, H, S, False, False, D)
+    q, k, v, do = args[:4]
+    out_l, lse_l, cq, ck, mq, mk, seed, offset, _ = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, False, False, scale=D**-0.5)
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out_l, lse_l, cq, ck, mq, mk, 0.0, False, seed, offset, scale=D**-0.5)
+
+    lib = dict(library_ms=time_ms(library), library_ms_b2b=back_to_back_ms(library), library_device_ms=device_ms(library))
+    one_product = 2 * S * S * D * B * H
+    tensor_bytes, row_bytes = B * H * S * D * 2, B * H * S * 4
+    rows = {}
+    for name, fn, plain, n_products, n_tensors in (
+        ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_plain, 3, 5),
+        ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_plain, 4, 6),
+    ):
+        flops, nbytes = n_products * one_product, n_tensors * tensor_bytes + 3 * row_bytes
+        call = lambda fn=fn: fn(*args, causal=False, sm_scale=D**-0.5)  # noqa: E731
+        rows[name] = dict(
+            shape=f"B={B} H={H} S={S} ({DREAMBOOTH_TEXT} text + 1024 image) D={D}, full attention",
+            ms=time_ms(call), ms_b2b=back_to_back_ms(call), device_ms=device_ms(call),
+            plain_ms=time_ms(lambda plain=plain: plain(*args, causal=False, sm_scale=D**-0.5), reps=3),
+            bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+            bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes", **lib,
+        )
+    log(f"17d K5/K6 at the joint shape ({card}): {json.dumps(rows)}")
+    return rows
+
+
+def dreambooth_grads(fa, loss_fn, adapters, batch, reference=None) -> dict:
+    """Adapter gradients of ``loss_fn`` (the flash entry, or ``reference``'s
+    plain products in its place) keyed by path."""
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    leaves = [t.detach().requires_grad_(True) for t in tree_util.leaves(adapters)]
+    real = fa.flash_attention
+    if reference is not None:
+        fa.flash_attention = lambda q, k, v, causal=True, sm_scale=None: reference.attention(q, k, v, causal=causal)
+    try:
+        loss = loss_fn(tree_util.unflatten(adapters, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        fa.flash_attention = real
+    return tree_util.unflatten(adapters, list(grads))
+
+
+def compare_tree_grads(kernel: dict, plain: dict, targets, label: str) -> dict:
+    """Per target (its b-gradients over every block joined): cosine, held at
+    ``GRAD_COSINE_MIN``, and max relative error; every a-gradient exactly
+    zero (b = 0)."""
+    def by_target(g):
+        out: dict = {}
+        for group in (g["blocks"], g.get("last_block", {})):
+            for name, ab in group.items():
+                if ab["a"].abs().max() != 0:
+                    raise AssertionError(f"{label}: {name} a-gradient is not zero with b = 0")
+                out.setdefault(name, []).append(ab["b"].float().flatten())
+        return {k: torch.cat(v) for k, v in out.items()}
+
+    kb, pb = by_target(kernel), by_target(plain)
+    out = {}
+    for t in targets:
+        cos = torch.nn.functional.cosine_similarity(kb[t], pb[t], dim=0).item()
+        out[t] = {"cosine": cos, "max_rel_err": max_err(kb[t], pb[t]) / pb[t].abs().max().item()}
+    log(f"17d adapter gradients, {label}: {json.dumps(out)}")
+    if not min(v["cosine"] for v in out.values()) >= GRAD_COSINE_MIN:
+        raise AssertionError(f"17d adapter gradients disagree ({label}): {out}")
+    return out
+
+
+def phase17_dreambooth(fa, diffusion, lora, training, reference, card: str) -> dict:
+    """17d: DreamBooth-LoRA on ``MMDiTConfig.sd3_shape()`` (2.03B, bf16; the
+    zero-initialised modulation drawn nonzero), ``LoRAConfig(rank=16,
+    alpha=32, targets=DIT_TARGETS)`` through ``init_lora_tree`` and
+    ``merge_tree`` (with b = 0 the merged tree is the base, bitwise), B=2
+    of 512 px latents and 154 text tokens (joint S = 1178), the
+    ``mmdit_flow_loss`` over the merged tree. The first step's adapter
+    gradients through K1 and K5/K6 against the same step with the plain
+    attention products (cosine >= 0.999 per target); then, counters zeroed,
+    1 warm-up and 2 timed ``Trainer`` steps (the port's AdamW): K1, K5 and
+    K6 once a block a step."""
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    mcfg = diffusion.MMDiTConfig.sd3_shape()
+    t0 = time.monotonic()
+    base = diffusion.mmdit_init(mcfg, seed=0, device="cuda")
+    open_the_gates(base, seed=1)
+    lcfg = lora.LoRAConfig(rank=16, alpha=32, targets=lora.DIT_TARGETS)
+    adapters = lora.init_lora_tree(torch.Generator(device="cuda").manual_seed(2), base, lcfg)
+    merged = lora.merge_tree(base, adapters, lcfg)
+    same = all(torch.equal(a, b) for a, b in zip(tree_util.leaves(merged), tree_util.leaves(base)))
+    del merged
+    if not same:
+        raise AssertionError("17d: merge_tree with b = 0 is not the base, bitwise")
+    n_base = sum(t.numel() for t in tree_util.leaves(base))
+    n_lora = sum(t.numel() for t in tree_util.leaves(adapters))
+    log(f"17d MMDiT sd3_shape {n_base / 1e9:.3f}B bf16 and {n_lora / 1e6:.2f}M adapter parameters in "
+        f"{time.monotonic() - t0:.1f}s; merge_tree with b = 0 bitwise the base: {same}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, hw = DREAMBOOTH_B, mcfg.img_size
+    batches = [{
+        "latents": torch.randn((B, hw, hw, mcfg.channels), generator=gen, device="cuda"),
+        "text": torch.randn((B, DREAMBOOTH_TEXT, mcfg.text_dim), generator=gen, device="cuda").to(torch.bfloat16),
+        "pooled": torch.randn((B, mcfg.pooled_dim), generator=gen, device="cuda").to(torch.bfloat16),
+        "t": torch.rand((B,), generator=gen, device="cuda"),
+        "eps": torch.randn((B, hw, hw, mcfg.channels), generator=gen, device="cuda"),
+    } for _ in range(DREAMBOOTH_STEPS)]
+
+    def loss_fn(ad, b):
+        return diffusion.mmdit_flow_loss(lora.merge_tree(base, ad, lcfg), b["latents"], b["text"], b["pooled"], mcfg,
+                                         t=b["t"], eps=b["eps"])
+
+    t0 = time.monotonic()
+    kernel = dreambooth_grads(fa, loss_fn, adapters, batches[0])
+    plain = dreambooth_grads(fa, loss_fn, adapters, batches[0], reference)
+    grads = compare_tree_grads(kernel, plain, lcfg.targets, "K1 + K5/K6 vs the plain attention products")
+    grad_s = time.monotonic() - t0
+    del kernel, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4))
+    state = trainer.init_state(adapters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    step_s, losses = [], []
+    for b in batches:
+        t1 = time.monotonic()
+        state, m = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        losses.append(m["loss"].item())
+    counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"17d steps: loss {losses}, step s {step_s}, launches {counts}")
+    if counts != {k: mcfg.n_layers * DREAMBOOTH_STEPS for k in counts}:
+        raise AssertionError(f"17d launches {counts}: want {mcfg.n_layers} x {DREAMBOOTH_STEPS} each")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"17d non-finite loss: {losses}")
+    moved = min(ab["b"].abs().max().item() for ab in state.params["blocks"].values())
+    if not moved > 0:
+        raise AssertionError("17d: b adapters did not move off zero")
+    step_med = statistics.median(step_s[1:])
+    out = {"params_b": n_base / 1e9, "adapter_params_m": n_lora / 1e6, "batch": B, "joint_s": DREAMBOOTH_TEXT + 1024,
+           "step_ms_median": 1e3 * step_med, "step_ms": [1e3 * x for x in step_s], "losses": losses,
+           "peak_gb": peak, "grad_check_s": grad_s, "launches": counts, "grad_check": grads, "merge_bitwise": same}
+    log(f"17d DreamBooth-LoRA ({card}): step {out['step_ms_median']:.1f} ms, peak {peak:.2f} GB; {json.dumps(out)}")
+    del base, adapters, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["joint_bwd"] = joint_bwd_rows(fa, card)
+    return out
+
+
+def card_vs_cpu_step(loss_fn, params_cpu, batch_cpu, label: str) -> dict:
+    """The first step's loss and gradients on the card against the same
+    step on the CPU (same weights and inputs, f32, TF32 off): max abs <=
+    ``CPU_AGREE``. Returns the readings."""
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    def step(params, batch):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_util.leaves(params)]
+        loss = loss_fn(tree_util.unflatten(params, leaves), batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    to_card = lambda t: t.cuda() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    lc, gc_ = step(params_cpu, batch_cpu)
+    lg, gg = step(tree_util.map(to_card, params_cpu), tree_util.map(to_card, batch_cpu))
+    loss_err = abs(lg.item() - lc.item())
+    grad_err = max(max_err(a.cpu(), b) for a, b in zip(gg, gc_))
+    grad_max = max(b.abs().max().item() for b in gc_)
+    out = {"loss_card": lg.item(), "loss_cpu": lc.item(), "loss_abs_err": loss_err, "grad_max_abs_err": grad_err,
+           "grad_largest": grad_max}
+    log(f"17e {label}, card against CPU: {json.dumps(out)}")
+    if not (loss_err <= CPU_AGREE and grad_err <= CPU_AGREE):
+        raise AssertionError(f"17e {label}: the card's first step disagrees with the CPU's: {out}")
+    return out
+
+
+def trainer_steps(training, loss_fn, params, batch, lr: float, steps: int) -> dict:
+    trainer = training.Trainer(loss_fn, training.make_optimizer(lr))
+    state = trainer.init_state(params)
+    step_s, losses = [], []
+    for _ in range(steps):
+        t1 = time.monotonic()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        losses.append(m["loss"].item())
+    if not all(math.isfinite(x) for x in losses) or state.step != steps:
+        raise AssertionError(f"trainer steps: losses {losses}, step {state.step}")
+    return {"losses": losses, "step_ms": [1e3 * x for x in step_s]}
+
+
+def phase17_controlnet_whisper(diffusion, whisper, layers, training, card: str) -> dict:
+    """17e: ``flow_loss(control=)`` at ``controlnet.py``'s DiT config (f32,
+    its zero-initialised leaves drawn nonzero, a batch of 16, null_prob 0 as
+    it trains) and whisper-base (f32) fine-tuned as ``fine_tune_asr.py``
+    does (the masked next-token loss over ``whisper.forward``, 2 x 30 s, 32
+    tokens), each through ``Trainer`` for 2 steps on the card, the first
+    step's loss and gradients held to the port's CPU run of the same inputs
+    and weights within ``CPU_AGREE``."""
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    out = {}
+    cfg = diffusion.DiTConfig(**CONTROLNET_CFG)
+    params = diffusion.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(19)
+    for t in tree_util.leaves(params):  # the zero-init leaves (modulation, projections) drawn nonzero
+        if not t.any():
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
+    B, hw = CONTROLNET_B, cfg.img_size
+    batch = {"images": torch.rand((B, hw, hw, 3), generator=gen) * 2 - 1,
+             "control": (torch.rand((B, hw, hw, 3), generator=gen) > 0.7).float(),
+             "text": torch.zeros((B, cfg.text_len, cfg.text_dim)),
+             "t": torch.rand((B,), generator=gen), "eps": torch.randn((B, hw, hw, 3), generator=gen),
+             "drop": torch.zeros((B,), dtype=torch.bool)}
+
+    def dit_loss(p, b):
+        return diffusion.flow_loss(p, b["images"], b["text"], cfg, control=b["control"], null_prob=0.0, t=b["t"],
+                                   eps=b["eps"], drop=b["drop"])
+
+    out["controlnet"] = card_vs_cpu_step(dit_loss, params, batch, "controlnet flow_loss")
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    out["controlnet"].update(trainer_steps(training, dit_loss, tree_util.map(lambda t: t.cuda(), params), card_batch,
+                                           2e-3, FT_STEPS))
+    wcfg = whisper.WhisperConfig.base()
+    wparams = whisper.init_params(wcfg, seed=0, device="cpu")
+    nb, frames, S = WHISPER_FT
+    toks = torch.randint(0, wcfg.vocab_size, (nb, S), generator=gen)
+    mask = torch.ones((nb, S))
+    mask[1, S // 2:] = 0.0
+    wbatch = {"mel": torch.randn((nb, frames, wcfg.n_mels), generator=gen), "tokens": toks, "mask": mask}
+
+    def asr_loss(p, b):
+        logits = whisper.forward(p, b["mel"], b["tokens"], wcfg)
+        return training.cross_entropy_loss(logits[:, :-1], b["tokens"][:, 1:], b["mask"][:, 1:])
+
+    out["whisper"] = card_vs_cpu_step(asr_loss, wparams, wbatch, "whisper-base fine-tune")
+    out["whisper"].update(trainer_steps(training, asr_loss, tree_util.map(lambda t: t.cuda(), wparams),
+                                        {k: v.cuda() for k, v in wbatch.items()}, 3e-3, FT_STEPS))
+    log(f"17e ControlNet and Whisper training ({card}): {json.dumps(out)}")
+    return out
+
+
+def phase_int4_and_training(fa, pa, qmm, errs: dict, int8_peak_gb: float, card: str) -> dict:
+    """Phase 17: int4 weights on K7-int4 (17a the kernel, 17b serving, 17c
+    QLoRA), DreamBooth-LoRA on the SD3-shape MMDiT (17d), ControlNet and
+    Whisper training (17e). Returns its readings, its launches and
+    K7-int4's kernels-line row."""
+    from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams, training
+    from modal_examples_tpu_torch.models import diffusion, layers, llama, lora, quantize, whisper
+    from modal_examples_tpu_torch.ops import reference
+
+    t0 = time.monotonic()
+    out: dict = {"card": card}
+    out["matmul"] = phase17_matmul(qmm, quantize, errs, card)
+    free_fleet()
+    out["serving"] = phase17_serving(fa, pa, qmm, llama, layers, reference, quantize, LLMEngine, OpenAIServer,
+                                     SamplingParams, card)
+    free_fleet()
+    out["qlora"] = phase17_qlora(fa, qmm, llama, lora, training, quantize, int8_peak_gb, card)
+    free_fleet()
+    out["dreambooth"] = phase17_dreambooth(fa, diffusion, lora, training, reference, card)
+    free_fleet()
+    out["controlnet_whisper"] = phase17_controlnet_whisper(diffusion, whisper, layers, training, card)
+    launches: dict = {}
+    for part in ("serving", "qlora", "dreambooth"):
+        for k, v in out[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("quantized_matmul_int4", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode", "kv_scatter"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"phase 17: {k} never launched: {launches}")
+    out["launches"] = launches
+    dec = out["matmul"]["decode"]
+    out["row"] = dict(
+        name="quantized_matmul_int4", route="cuda", source="modal_examples_tpu_torch/csrc/quantized_matmul_int4.cu",
+        replaces="modal_examples_tpu/models/layers.py:100", launches=launches["quantized_matmul_int4"],
+        max_abs_err=errs["quantized_matmul_int4"],
+        **{k: dec[k] for k in ("ms", "ms_b2b", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                               "library_ms_b2b", "library_op", "bf16_mm_ms", "bf16_mm_ms_b2b", "shape")},
+        replaces_note="no Pallas kernel: the JAX package's int4 product is XLA's dot over jnp.int4",
+        prefill=out["matmul"]["prefill"],
+    )
+    out["seconds"] = time.monotonic() - t0
+    log(f"phase 17 int4 weights and the training paths ({card}): ok in {out['seconds']:.1f}s; launches {launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the GPU only", file=sys.stderr)
@@ -5875,6 +6509,9 @@ def main() -> int:
     log(f"phase 11 serverless surface ({card}): ok in {serverless['seconds']:.1f}s: {json.dumps(serverless)}")
     rest = phase_platform_rest(SamplingParams, llama.LlamaConfig.llama2_7b().n_layers, bwd_bitwise)
     log(f"phase 14 the platform layer's rest ({card}): ok in {rest['seconds']:.1f}s: {json.dumps(rest)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p17 = phase_int4_and_training(fa, pa, qmm, errs, lora8["peak_gb"], card)
     serve_counts, int8_counts, train_counts = metrics["launches"], int8["launches"], train["launches"]
     wb_counts = wb["launches"]
     counts = {
@@ -5907,13 +6544,17 @@ def main() -> int:
     # phase 16's tiers (K1, K3, K2 and their int8 twins), the depth-4 fleet
     # and the chaos runner's tiny engines
     counts = {k: v + tiers["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 17's int4 serving (K1, K2, K3), QLoRA (K1, K5, K6) and
+    # DreamBooth-LoRA (K1, K5, K6); K7-int4's launches are its own row's
+    counts = {k: v + p17["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
         f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}, phase 14's "
         f"containers {rest['container_launches']}, int8 LoRA "
         f"{lora8['launches']}, canary {observability['launches']}, fleet {fleet_layers['launches']}, tiers, autoscaler "
-        f"and chaos {tiers['launches']}; kernels line (phases 8-16 summed) {counts}")
+        f"and chaos {tiers['launches']}, int4 and training {p17['launches']}; kernels line (phases 8-17 summed) "
+        f"{counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
     errs["flash_fwd"] = max(errs["flash_fwd"], serverless["functions"]["k1"]["max_abs_err"],
@@ -5928,6 +6569,9 @@ def main() -> int:
             r["expert"] = mixtral["expert_k7"]["shapes"]
         if r["name"] in containers:  # launches in phase 11's and phase 14's containers
             r["container_launches"] = containers[r["name"]]
+        if r["name"] in p17["dreambooth"]["joint_bwd"]:  # and K5/K6 DreamBooth's joint attention (17d)
+            r["joint"] = p17["dreambooth"]["joint_bwd"][r["name"]]
+    rows.append(p17["row"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

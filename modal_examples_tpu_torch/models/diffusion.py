@@ -1,7 +1,8 @@
-"""Text-to-image diffusion, inference: a DiT and the SD3-family MMDiT, both
-rectified-flow models sampled by Euler steps with classifier-free guidance.
+"""Text-to-image diffusion: a DiT and the SD3-family MMDiT, both
+rectified-flow models sampled by Euler steps with classifier-free guidance
+and trained by flow matching.
 
-Counterpart of the inference half of ``modal_examples_tpu/models/diffusion.py``:
+Counterpart of ``modal_examples_tpu/models/diffusion.py``:
 - ``DiTConfig``, ``timestep_embedding``, ``patchify``/``unpatchify``,
   ``init_params``, ``forward`` (adaLN-zero blocks with self-attention,
   cross-attention to text states and an optional ControlNet-style
@@ -10,8 +11,13 @@ Counterpart of the inference half of ``modal_examples_tpu/models/diffusion.py``:
   their own modulation and projections, RMS q/k norms, JOINT attention over
   [context; image]; ``context_pre_only_last`` builds the final block as
   diffusers' ``context_pre_only`` block, whose continuous norm chunks are
-  (scale, shift)), ``mmdit_sample`` and ``load_mmdit_hf_weights``.
-Training (the flow losses, the diffusion LoRA) is not ported yet.
+  (scale, shift)), ``mmdit_sample`` and ``load_mmdit_hf_weights``;
+- the rectified-flow losses ``flow_loss`` (the DiT, with classifier-free
+  guidance dropout onto the null text and ControlNet's ``control=``) and
+  ``mmdit_flow_loss``, differentiable end to end: the MMDiT's bf16 joint
+  attention trains through the flash kernel's ``autograd.Function`` (the
+  forward kernel, then the dQ and dK/dV kernels in the backward). The
+  diffusion LoRA is ``models/lora.py``'s tree LoRA, merged inside the loss.
 
 Attention, chosen by dtype and nothing else: the MMDiT's joint attention in
 bf16 goes through ``ops.flash_attention.flash_attention(causal=False)``,
@@ -23,7 +29,10 @@ probabilities to bf16 and divides by their sum at the end, where the
 reference normalises in f32 first.
 
 The samplers draw their starting noise from ``generator`` (a
-``torch.Generator`` on the latents' device) or take it as ``noise=``; each
+``torch.Generator`` on the latents' device) or take it as ``noise=``; the
+losses draw ``t``, ``eps`` (and the DiT's dropout ``drop``) from
+``generator`` or take them as arguments, where the reference splits a
+``jax.random`` key (the tests hand both the same numbers); each
 Euler step runs the conditional forward, then the unconditional one, as
 the reference does. Layer norms and RMS norms compute their statistics in
 f32 and round them to the activation dtype, as ``jnp.mean``/``jnp.var`` do
@@ -305,6 +314,36 @@ def sample(params: dict, text_states, cfg: DiTConfig, *, steps: int = 8, guidanc
     return x.clamp(-1.0, 1.0)
 
 
+def _flow_draws(x, generator, t, eps):
+    B, dev = x.shape[0], x.device
+    if t is None:
+        t = torch.rand((B,), generator=generator, device=dev)
+    if eps is None:
+        eps = torch.randn(x.shape, generator=generator, device=dev)
+    return t.to(device=dev, dtype=torch.float32), eps.to(device=dev, dtype=torch.float32)
+
+
+def flow_loss(params: dict, images, text_states, cfg: DiTConfig, *, null_prob: float = 0.1, control=None,
+              generator: torch.Generator | None = None, t=None, eps=None, drop=None):
+    """Rectified-flow matching loss with classifier-free-guidance dropout:
+    ``x_t = (1 - t) images + t eps``, the velocity target ``eps - images``,
+    and each row's text replaced by the null embedding where ``drop`` (drawn
+    with probability ``null_prob``) is set. ``t`` [B] uniform, ``eps`` like
+    ``images`` and ``drop`` [B] bool come from ``generator`` unless given.
+    ``control`` conditions every row (ControlNet). Returns the mean squared
+    error, a scalar."""
+    t, eps = _flow_draws(images, generator, t, eps)
+    if drop is None:
+        drop = torch.rand((images.shape[0],), generator=generator, device=images.device) < null_prob
+    tb = t[:, None, None, None]
+    x_t = (1 - tb) * images + tb * eps
+    target_v = eps - images
+    null = _null_text(params, text_states.shape)
+    text_in = torch.where(drop.to(text_states.device)[:, None, None], null, text_states)
+    pred = forward(params, x_t, t, text_in, cfg, control=control)
+    return ((pred - target_v) ** 2).mean()
+
+
 # -- MMDiT ---------------------------------------------------------------------
 
 
@@ -443,6 +482,19 @@ def mmdit_sample(params: dict, text_states, pooled, null_states, null_pooled, cf
         v = v_u + guidance * (v_c - v_u)
         x = x + (ts[i + 1] - ts[i]) * v
     return x
+
+
+def mmdit_flow_loss(params: dict, latents, text_states, pooled, cfg: MMDiTConfig, *,
+                    generator: torch.Generator | None = None, t=None, eps=None):
+    """Rectified-flow matching loss for the MMDiT (training and DreamBooth
+    fine-tuning): ``x_t = (1 - t) latents + t eps`` against the velocity
+    ``eps - latents``, in f32 over the f32 prediction. ``t`` [B] and ``eps``
+    come from ``generator`` unless given."""
+    t, eps = _flow_draws(latents, generator, t, eps)
+    tb = t[:, None, None, None]
+    x_t = (1 - tb) * latents + tb * eps
+    pred = mmdit_forward(params, x_t, t, text_states, pooled, cfg)
+    return ((pred - (eps - latents)) ** 2).mean()
 
 
 def load_mmdit_hf_weights(model_dir, cfg: MMDiTConfig, dtype=None, device=None) -> dict:

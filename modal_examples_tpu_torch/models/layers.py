@@ -2,10 +2,10 @@
 
 Counterpart of ``modal_examples_tpu/models/layers.py``: ``rms_norm``,
 ``layer_norm``, ``rotary_embedding`` (with llama-3.1 ``rope_scaling``),
-``apply_rope``, ``mm`` (dense, or over an int8 ``QuantizedWeight`` through
-the int8 matmul kernel), the LoRA-aware projections ``_proj_f32``/``_proj``,
-``swiglu_mlp``, ``quick_gelu``, ``gelu_mlp``, ``attention_op`` and
-``causal_self_attention``. Norms and softmax-adjacent math run in f32;
+``apply_rope``, ``mm`` (dense, or over an int8 or int4 ``QuantizedWeight``
+through the int8 or int4 matmul kernel), the LoRA-aware projections
+``_proj_f32``/``_proj``, ``swiglu_mlp``, ``quick_gelu``, ``gelu_mlp``,
+``attention_op`` and ``causal_self_attention``. Norms and softmax-adjacent math run in f32;
 products accumulate in f32. Three helpers serve the other models:
 ``SeededInit`` (random parameters drawn on the device), ``from_numpy_tree``
 (a JAX parameter tree's numpy leaves as tensors) and ``exact_f32_convs``
@@ -128,36 +128,41 @@ class _MmPromoted(torch.autograd.Function):
 
 
 class _QMm(torch.autograd.Function):
-    """``(x @ q) * scale`` over a frozen int8 weight: the forward on the int8
-    matmul kernel (its plain version for CPU tensors), the backward the VJP of
-    JAX's ``jnp.dot(x, q.astype(x.dtype), preferred_element_type=f32) *
-    scale``: ``dX = (dY * scale) @ q^T`` in x's dtype. ``q`` is dequantized
-    for this one product and freed after it, so a backward over the whole
-    base holds one layer's model-dtype copy at a time. ``q`` and ``scale``
-    get no gradient."""
+    """``(x @ q) * scale`` over a frozen int8 or int4 weight: the forward on
+    the int8 matmul kernel or the int4 one (their plain versions for CPU
+    tensors), the backward the VJP of JAX's ``jnp.dot(x, q.astype(x.dtype),
+    preferred_element_type=f32) * scale``: ``dX = (dY * scale) @ q^T`` in
+    x's dtype. ``q`` (int4: unpacked) is converted for this one product and
+    freed after it, so a backward over the whole base holds one layer's
+    model-dtype copy at a time. ``q`` and ``scale`` get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, q, scale):
+    def forward(ctx, x, q, scale, bits):
         ctx.save_for_backward(q, scale)
-        ctx.x_dtype = x.dtype
-        qmm = _qmm.qmm_cuda if x.is_cuda else _qmm.qmm_plain
+        ctx.x_dtype, ctx.bits, ctx.rows = x.dtype, bits, x.shape[-1]
+        if bits == 4:
+            qmm = _qmm.qmm_int4_cuda if x.is_cuda else _qmm.qmm_int4_plain
+        else:
+            qmm = _qmm.qmm_cuda if x.is_cuda else _qmm.qmm_plain
         return qmm(x, q, scale)
 
     @staticmethod
     def backward(ctx, dy):
         q, scale = ctx.saved_tensors
         dy = (dy * scale).to(ctx.x_dtype)
-        return dy @ q.to(ctx.x_dtype).T, None, None
+        if ctx.bits == 4:
+            q = _qmm.unpack_int4(q, ctx.rows)
+        return dy @ q.to(ctx.x_dtype).T, None, None, None
 
 
 def mm(x, w):
     """``x @ w`` ([..., K] x [K, N]) with f32 accumulation, returned in f32.
-    ``w`` may be an int8 :class:`QuantizedWeight`: ``(x @ q) * scale``, through
-    the int8 matmul kernel on the card (its plain version on the CPU), and
-    differentiable in ``x`` (the int8 LoRA base)."""
+    ``w`` may be a :class:`QuantizedWeight`: ``(x @ q) * scale``, through
+    the int8 matmul kernel or the int4 one on the card (their plain versions
+    on the CPU), and differentiable in ``x`` (the quantized LoRA base)."""
     if isinstance(w, QuantizedWeight):
         flat = x.reshape(-1, x.shape[-1]).contiguous()
-        return _QMm.apply(flat, w.q, w.scale).reshape(*x.shape[:-1], w.shape[-1])
+        return _QMm.apply(flat, w.q, w.scale, w.bits).reshape(*x.shape[:-1], w.shape[-1])
     flat = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32 or w.dtype == torch.float32:
         out = _MmPromoted.apply(flat, w)

@@ -39,11 +39,12 @@ import torch
 from ..ops import flash_attention as _flash
 from ..ops import paged_attention as _paged
 from ..ops.kv_quant import kv_gather
+from ..ops.quantized_matmul import pack_int4
 from ..utils.device import resolve_device
 from ..utils.safetensors import SafeFile
 from . import layers
 from . import moe as _moe
-from .quantize import LLAMA_TARGETS, QuantizedWeight, _qmax, bits_of, quantize_weight_host
+from .quantize import LLAMA_TARGETS, QuantizedWeight, bits_of, quantize_weight_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,17 +226,19 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
     0, weights [in, out]) as this module's parameter dict: layers unstacked
     into a list, every other layout kept. A quantized leaf (the JAX
     ``QuantizedWeight``, numpy ``q`` and ``scale``) becomes a
-    :class:`QuantizedWeight` with its int8 and f32 values as they are."""
+    :class:`QuantizedWeight` with its integer and f32 values as they are: an
+    ``int4`` ``q`` (``ml_dtypes.int4``) packed two rows a byte, bit for bit."""
     device = resolve_device(device)
     dt = cfg.torch_dtype
 
     def conv(a, li=None):
         if hasattr(a, "q"):
             q, scale = (np.asarray(t) if li is None else np.asarray(t)[li] for t in (a.q, a.scale))
-            return QuantizedWeight(
-                q=torch.from_numpy(q.astype(np.int8)).to(device),
-                scale=torch.from_numpy(scale.astype(np.float32)).to(device),
-            )
+            q8 = torch.from_numpy(q.astype(np.int8))
+            scale = torch.from_numpy(scale.astype(np.float32)).to(device)
+            if str(q.dtype) == "int4":
+                return QuantizedWeight(q=pack_int4(q8).to(device), scale=scale, bits=4, rows=q.shape[-2])
+            return QuantizedWeight(q=q8.to(device), scale=scale)
         a = np.asarray(a if li is None else a[li], np.float32)  # bf16 leaves arrive as ml_dtypes arrays
         return torch.tensor(a).to(device=device, dtype=dt)
 
@@ -278,10 +281,11 @@ def load_hf_weights(model_dir, cfg: LlamaConfig, dtype=None, quantization: str |
     each tensor goes to ``device`` (transposed from HF's [out, in] to
     [in, out] there) before the next is read, so the host never holds the
     checkpoint. ``dtype`` (default ``cfg.dtype``) is the dtype of every
-    unquantized leaf. ``quantization="int8"`` quantizes ``LLAMA_TARGETS``
-    and ``lm_head`` on the host (:func:`~.quantize.quantize_weight_host`,
-    from the stored values) and moves only the int8 weights and their
-    scales. ``lm_head`` is not read when embeddings are tied. A mixture of
+    unquantized leaf. ``quantization="int8"`` or ``"int4"`` quantizes
+    ``LLAMA_TARGETS`` and ``lm_head`` on the host
+    (:func:`~.quantize.quantize_weight_host`, from the stored values) and
+    moves only the int8 (packed int4) weights and their scales.
+    ``lm_head`` is not read when embeddings are tied. A mixture of
     experts reads Mixtral's layout: ``block_sparse_moe.gate`` becomes
     ``router`` [D, E] (never quantized) and each layer's
     ``experts.{e}.w1``/``w3``/``w2`` are transposed and stacked into
@@ -292,7 +296,6 @@ def load_hf_weights(model_dir, cfg: LlamaConfig, dtype=None, quantization: str |
     bits = None
     if quantization is not None:
         bits = bits_of(quantization)
-        _qmax(bits)  # int4 raises before a byte is read
     files = sorted(Path(model_dir).glob("*.safetensors"))
     if not files:
         raise FileNotFoundError(f"no safetensors under {model_dir}")
@@ -580,8 +583,8 @@ def paged_impl_plan(
     (``attention`` "ragged"), the two writeback impls write each layer's
     token first and attend with the write-then-attend decode ("writeback").
     ``ragged_variant`` is the TPU formulation's label for the ragged shapes;
-    ``weights`` is "int8" for quantized weights (the int8 matmul kernel) or
-    the model dtype. Nothing is downgraded: every structure serves every kv
+    ``weights`` is "int8" or "int4" for quantized weights (the int8 or int4
+    matmul kernel) or the model dtype. Nothing is downgraded: every structure serves every kv
     dtype, int8 pages through the int8 kernels of the same structure."""
     _check_impls(impl, scatter_impl)
     on_card = torch.device(device).type == "cuda"

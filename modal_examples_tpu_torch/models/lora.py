@@ -1,19 +1,28 @@
 """LoRA: low-rank adapters as a pytree of their own beside the frozen base.
 
 Counterpart of ``modal_examples_tpu/models/lora.py`` (``LoRAConfig``,
-``DEFAULT_TARGETS``, ``init_lora``, ``delta``, ``merge``, ``param_count``).
+``DEFAULT_TARGETS``, ``init_lora``, ``delta``, ``merge``, ``param_count``,
+and the generic tree LoRA of the diffusion models: ``DIT_TARGETS``,
+``init_lora_tree``, ``merge_tree``).
 Adapters keep the JAX layout: ``{"layers": {"<target>_a": [L, din, r],
 "<target>_b": [L, r, dout]}}``, stacked over layers, in the base weight's
-dtype (f32 over an int8 base). The forward applies them on the fly (``llama.forward(lora=...)``:
+dtype (f32 over an int8 or int4 base: QLoRA). The forward applies them on the fly (``llama.forward(lora=...)``:
 ``x @ W + (x @ a) @ b * scale``, never materialising ``W + a b``); the
-optimizer state covers only the adapters. :func:`lora_from_jax` carries the
-JAX adapters across for the tests.
+optimizer state covers only the adapters. :func:`lora_from_jax` and
+:func:`lora_tree_from_jax` carry the JAX adapters across for the tests.
+
+The tree LoRA puts an ``{"a": [..., din, r], "b": [..., r, dout]}`` pair in
+place of every targeted leaf of any nested parameter dict (leading stack
+dims kept, the base's dtype); training merges it into the weights inside the
+loss (:func:`merge_tree`), so gradients reach only the adapters and the
+model's forward is unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..utils.device import resolve_device
@@ -38,9 +47,9 @@ def init_lora(generator: torch.Generator, params: dict, lcfg: LoRAConfig) -> dic
     """Adapters for the base's layer weights: ``a ~ N(0, 1) / rank`` drawn in
     f32 on ``generator``'s device, ``b = 0`` (so the model starts exactly at
     the base), both in each base weight's dtype and on its device. Over an
-    int8 :class:`~.quantize.QuantizedWeight` base the adapters take the
-    scale's dtype (f32), as the reference's do: int8 adapters would round
-    ``a`` to zeros."""
+    int8 or int4 :class:`~.quantize.QuantizedWeight` base the adapters take
+    the scale's dtype (f32) and the base's logical shape, as the reference's
+    do: integer adapters would round ``a`` to zeros."""
     out = {}
     n_layers = len(params["layers"])
     for name in lcfg.targets:
@@ -89,3 +98,83 @@ def lora_from_jax(np_lora: dict, *, dtype=torch.float32, device=None) -> dict:
             for k, v in np_lora["layers"].items()
         }
     }
+
+
+# -- the generic tree LoRA (diffusion, any model) ------------------------------
+
+#: the MMDiT's attention and MLP projections, the DreamBooth target set
+#: (their names in ``diffusion.mmdit_init``)
+DIT_TARGETS = (
+    "img_wq", "img_wk", "img_wv", "img_wo",
+    "ctx_wq", "ctx_wk", "ctx_wv", "ctx_wo",
+    "img_fc1", "img_fc2", "ctx_fc1", "ctx_fc2",
+)
+
+
+def init_lora_tree(generator: torch.Generator, params: dict, lcfg: LoRAConfig) -> dict:
+    """Adapters for any nested parameter dict: every tensor leaf whose key is
+    in ``lcfg.targets`` and has at least 2 dims gets ``{"a", "b"}``, with
+    ``[..., din, dout]`` giving ``a [..., din, r] ~ N(0, 1) / r`` (drawn in
+    f32 on ``generator``'s device, in walk order) and ``b = 0``, both in the
+    leaf's dtype and on its device. The tree mirrors the nesting; a
+    ``ValueError`` names the targets when nothing matches."""
+    found = []
+
+    def walk(node: dict, out: dict) -> dict:
+        for name, v in node.items():
+            if isinstance(v, dict):
+                sub = walk(v, {})
+                if sub:
+                    out[name] = sub
+            elif name in lcfg.targets and isinstance(v, torch.Tensor) and v.dim() >= 2:
+                found.append((out, name, v))
+                out[name] = None  # filled below, in walk order
+        return out
+
+    tree = walk(params, {})
+    if not found:
+        raise ValueError(f"no leaves matched targets {lcfg.targets!r}; check the names against the model's tree")
+    for parent, name, w in found:
+        *stack, din, dout = w.shape
+        a = torch.randn((*stack, din, lcfg.rank), generator=generator, device=generator.device) / lcfg.rank
+        parent[name] = {
+            "a": a.to(device=w.device, dtype=w.dtype),
+            "b": torch.zeros((*stack, lcfg.rank, dout), dtype=w.dtype, device=w.device),
+        }
+    return tree
+
+
+def merge_tree(params: dict, lora_tree: dict, lcfg: LoRAConfig) -> dict:
+    """The base tree plus each adapter's ``(a @ b) * scale``, summed in f32
+    and rounded to the base leaf's dtype, the structure kept (untargeted
+    leaves are the base's own tensors). Differentiable in the adapters: the
+    diffusion LoRA trains through it."""
+
+    def walk(p_node: dict, l_node) -> dict:
+        out = {}
+        for name, v in p_node.items():
+            l_v = l_node.get(name) if isinstance(l_node, dict) else None
+            if isinstance(v, dict):
+                out[name] = walk(v, l_v or {})
+            elif isinstance(l_v, dict) and "a" in l_v:
+                ab = torch.matmul(l_v["a"].float(), l_v["b"].float())
+                out[name] = (v.float() + ab * lcfg.scale).to(v.dtype)
+            else:
+                out[name] = v
+        return out
+
+    return walk(params, lora_tree)
+
+
+def lora_tree_from_jax(np_tree: dict, *, dtype=None, device=None) -> dict:
+    """A JAX tree-LoRA (numpy leaves) as this module's: the nesting kept,
+    each leaf in ``dtype`` (default: its own, bf16 leaves as bf16)."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        want = dtype or (torch.bfloat16 if str(node.dtype) == "bfloat16" else torch.float32)
+        return torch.tensor(np.asarray(node, np.float32)).to(device=device, dtype=want)
+
+    return conv(np_tree)

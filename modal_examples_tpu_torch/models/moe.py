@@ -135,16 +135,17 @@ def moe_mlp_ep(params: dict, x, cfg: MoEConfig, mesh, *, axis: str = "expert"):
 
 def _mm(h, w):
     """``h @ w`` with f32 sums, returned in f32; ``w`` may be an int8
-    :class:`~.quantize.QuantizedWeight` (the int8 matmul kernel on the card).
+    :class:`~.quantize.QuantizedWeight` (the int8 or int4 matmul kernel on
+    the card).
     ``h`` enters at its own dtype."""
     return layers.mm(h, w)
 
 
 def _expert(w, e: int):
     """Expert ``e``'s matrix of a stacked [E, ...] leaf: a contiguous view
-    (an int8 leaf's ``q[e]`` and ``scale[e]``)."""
+    (a quantized leaf's ``q[e]`` and ``scale[e]``, int8 or packed int4)."""
     if isinstance(w, QuantizedWeight):
-        return QuantizedWeight(q=w.q[e], scale=w.scale[e])
+        return dataclasses.replace(w, q=w.q[e], scale=w.scale[e])
     return w[e]
 
 

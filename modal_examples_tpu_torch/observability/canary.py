@@ -99,7 +99,7 @@ def _device_name(engine) -> str:
 
 
 #: the kernels (``csrc/<name>.cu``) a decode plan launches, by attention
-#: structure and cache dtype; int8 weights add the int8 matmul
+#: structure and cache dtype; int8 weights add the int8 matmul, int4 the int4 one
 _PLAN_KERNELS = {
     ("ragged", False): ("flash_fwd", "kv_scatter", "paged_decode"),
     ("ragged", True): ("flash_fwd", "kv_scatter_int8", "paged_decode_int8"),
@@ -115,6 +115,8 @@ def plan_kernels(plan: dict) -> list[str]:
     names = list(_PLAN_KERNELS.get((plan.get("attention"), int8_kv), ()))
     if plan.get("weights") == "int8":
         names.append("quantized_matmul")
+    elif plan.get("weights") == "int4":
+        names.append("quantized_matmul_int4")
     return sorted(names)
 
 

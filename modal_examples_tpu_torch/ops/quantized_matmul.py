@@ -1,5 +1,5 @@
-"""Int8-weight matmul: the kernel ``csrc/quantized_matmul.cu`` and its plain
-version.
+"""Int8- and int4-weight matmuls: the kernels ``csrc/quantized_matmul.cu``
+(K7) and ``csrc/quantized_matmul_int4.cu`` (K7-int4) and their plain versions.
 
 Counterpart of ``modal_examples_tpu/ops/quantized_matmul.py``
 (``quantize_int8``, ``dequantize_int8``, ``quantized_matmul``): int8 weights
@@ -8,9 +8,15 @@ Counterpart of ``modal_examples_tpu/ops/quantized_matmul.py``
 entry falls back to XLA for shapes that do not tile; the kernel here takes
 every shape, on one of three paths it picks by shape (:func:`kernel_path`).
 
+int4 weights are packed two contraction rows a byte (:func:`pack_int4`:
+``[..., ceil(K/2), N]`` uint8, the even row in the low nibble), the layout
+K7-int4 reads; the JAX package holds them as ``jnp.int4`` and multiplies
+them through XLA's dot, so K7-int4 replaces no Pallas kernel.
+
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
-:func:`qmm_plain`, a CUDA tensor launches the kernel or raises.
-``qmm_launches`` counts kernel launches.
+:func:`qmm_plain` or :func:`qmm_int4_plain`, a CUDA tensor launches the
+kernel or raises. ``qmm_launches`` and ``qmm_int4_launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from . import _build
 
 #: kernel launches since the last reset (the main path's proof of use)
 qmm_launches = 0
+qmm_int4_launches = 0
 
 
 def quantize_int8(w, axis: int = 0):
@@ -124,3 +131,90 @@ def quantized_matmul(x, w_q, w_scale):
     if x.device.type == "cpu":
         return qmm_plain(xb, w_q, w_scale).to(x.dtype)
     return qmm_cuda(xb.contiguous(), w_q, w_scale.contiguous()).to(x.dtype)
+
+
+# -- int4 ------------------------------------------------------------------------
+
+
+def pack_int4(q):
+    """int8 values in [-8, 7] ``[..., K, N]`` -> uint8 ``[..., ceil(K/2), N]``:
+    byte ``(kp, n)`` holds row ``2 kp`` in its low nibble and row ``2 kp + 1``
+    in its high nibble; an odd K is padded with a zero nibble."""
+    if q.shape[-2] % 2:
+        q = torch.cat([q, q.new_zeros((*q.shape[:-2], 1, q.shape[-1]))], dim=-2)
+    b = q.contiguous().view(torch.uint8) & 0xF
+    return b[..., 0::2, :] | (b[..., 1::2, :] << 4)
+
+
+def unpack_int4(packed, rows: int):
+    """The int8 values of :func:`pack_int4`'s bytes, ``[..., rows, N]``."""
+    nib = torch.stack([packed & 0xF, packed >> 4], dim=-2).to(torch.int16)  # [..., Kp, 2, N]
+    vals = ((nib ^ 8) - 8).to(torch.int8)  # sign-extend the nibble
+    return vals.reshape(*packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])[..., :rows, :]
+
+
+def qmm_int4_plain(x, w_packed, w_scale):
+    """K7-int4's function in plain PyTorch: ``(x @ q) * scale`` in f32 over
+    the unpacked int4 values (K from ``x``), f32 out."""
+    q = unpack_int4(w_packed, x.shape[-1])
+    return (x.float() @ q.float()) * w_scale.float().reshape(1, -1)
+
+
+def _lib_int4():
+    lib = _build.load("quantized_matmul_int4")
+    fn = lib.quantized_matmul_int4
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.quantized_matmul_int4_plan.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        lib.quantized_matmul_int4_plan.restype = ctypes.c_int
+    return lib
+
+
+def int4_plan(x, w_packed) -> dict:
+    """K7-int4's plan for a launch on ``x`` [M, K] and ``w_packed``: rows of
+    x a block, K splits (f32 partials summed in the launch above 1), 64-deep
+    K tiles a split, ints of ticket scratch."""
+    dev = x.device
+    splits, chunk, tickets = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rows = _lib_int4().quantized_matmul_int4_plan(
+        _build.ptr(x), _build.ptr(w_packed), x.shape[0], w_packed.shape[1], x.shape[1],
+        _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()),
+        ctypes.byref(splits), ctypes.byref(chunk), ctypes.byref(tickets))
+    return {"rows": rows, "splits": splits.value, "chunk": chunk.value, "tickets": tickets.value}
+
+
+def qmm_int4_cuda(x, w_packed, w_scale):
+    """Launch ``csrc/quantized_matmul_int4.cu``: bf16 ``x`` [M, K], packed
+    int4 ``w_packed`` uint8 [ceil(K/2), N], f32 ``w_scale`` with N values;
+    returns f32 [M, N]. One launch for every shape."""
+    global qmm_int4_launches
+    dev = x.device
+    if not (x.is_cuda and w_packed.is_cuda and w_scale.is_cuda) or w_packed.device != dev or w_scale.device != dev:
+        raise ValueError(
+            f"x, w_packed and w_scale must be CUDA tensors on one device; got {x.device}, {w_packed.device}, "
+            f"{w_scale.device}")
+    if x.dtype != torch.bfloat16 or w_packed.dtype != torch.uint8 or w_scale.dtype != torch.float32:
+        raise ValueError(f"want bf16 x, uint8 w_packed, f32 w_scale; got {x.dtype}, {w_packed.dtype}, {w_scale.dtype}")
+    if x.dim() != 2 or w_packed.dim() != 2 or w_packed.shape[0] != (x.shape[1] + 1) // 2 \
+            or w_scale.numel() != w_packed.shape[1]:
+        raise ValueError(
+            f"shapes x {tuple(x.shape)}, w_packed {tuple(w_packed.shape)}, w_scale {tuple(w_scale.shape)} disagree")
+    for name, t in (("x", x), ("w_packed", w_packed), ("w_scale", w_scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    M, K = x.shape
+    N = w_packed.shape[1]
+    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    lib = _lib_int4()
+    plan = int4_plan(x, w_packed)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    part = torch.empty((plan["splits"], M, N), dtype=torch.float32, device=dev) if plan["splits"] > 1 else out
+    tickets = _build.ticket_buffer("quantized_matmul_int4", dev, plan["tickets"]) if plan["tickets"] else out
+    err = lib.quantized_matmul_int4(
+        _build.ptr(x), _build.ptr(w_packed), _build.ptr(w_scale), _build.ptr(out), _build.ptr(part),
+        _build.ptr(tickets), M, N, K, sms, _build.stream_ptr(dev),
+    )
+    qmm_int4_launches += 1
+    _build.check(lib, "quantized_matmul_int4", err)
+    return out

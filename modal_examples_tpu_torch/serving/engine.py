@@ -54,8 +54,9 @@ Sampling is keyed by (request seed, position) exactly as in the JAX engine
 tokens do not depend on batch composition or on how steps are grouped into
 blocks.
 
-Quantized serving (``quantization="int8"``: int8 weights through the int8
-matmul kernel; ``kv_dtype="int8"``: the int8 paged cache with its decode and
+Quantized serving (``quantization="int8"`` or ``"int4"``: int8 weights
+through the int8 matmul kernel, packed int4 through the int4 one;
+``kv_dtype="int8"``: the int8 paged cache with its decode and
 scatter kernels) follows the JAX engine's arguments.
 
 The decode structure (``paged_impl``, ``scatter_impl``; argument, then
@@ -127,8 +128,7 @@ with "error" and lives on), ``engine.scheduler_freeze``,
 
 ``tiered_prefix=`` wraps the prefix trie with the host-RAM and ``Volume``
 spill tiers (``serving/disagg/tiered_cache.py``): evicted prefix pages spill
-on the eviction wave and promote back inside ``_claim_pages``. Not in the
-port: int4 weights.
+on the eviction wave and promote back inside ``_claim_pages``.
 """
 
 from __future__ import annotations
@@ -457,7 +457,7 @@ class LLMEngine:
         prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048),
         prefill_batch: int = 4,
         enable_prefix_cache: bool = True,
-        quantization: str | None = None,  # "int8": weight-only int8 serving
+        quantization: str | None = None,  # "int8"/"int4": weight-only quantized serving
         seed: int = 0,
         kv_dtype=None,  # "int8": the quantized paged cache; None: MTPU_KV_DTYPE, then bf16
         speculative: tuple | None = None,  # (draft preset | LlamaConfig | "ngram", gamma)
@@ -504,12 +504,11 @@ class LLMEngine:
         # resolved once and passed to every decode_step
         self.paged_impl = paged_impl or os.environ.get("MTPU_PAGED_IMPL", "xla")
         self.scatter_impl = scatter_impl or os.environ.get("MTPU_SCATTER_IMPL", "xla")
-        given_int8 = params is not None and isinstance(params["layers"][0]["wq"], QuantizedWeight)
+        given = params["layers"][0]["wq"] if params is not None else None
+        weights = quantization or (f"int{given.bits}" if isinstance(given, QuantizedWeight) else None)
         # validates both impl names before a byte is allocated
         self.impl_plan = llama.paged_impl_plan(
-            cfg, self.device, self.kv_dtype,
-            "int8" if quantization == "int8" or given_int8 else None,
-            impl=self.paged_impl, scatter_impl=self.scatter_impl,
+            cfg, self.device, self.kv_dtype, weights, impl=self.paged_impl, scatter_impl=self.scatter_impl,
         )
         _obs.set_decode_impl(self.impl_plan)
         # speculation is validated before a byte of weights is allocated
@@ -518,7 +517,7 @@ class LLMEngine:
             self._resolve_speculative(cfg, speculative, draft_params, draft_model_dir)
         if params is None:
             if model_dir is not None:
-                # int8 is quantized on the host: the bf16 weights never reach the card
+                # int8 and int4 are quantized on the host: the bf16 weights never reach the card
                 params = llama.load_hf_weights(model_dir, cfg, quantization=quantization, device=self.device)
             elif quantization is not None:
                 # drawn and quantized layer by layer: no resident bf16 tree

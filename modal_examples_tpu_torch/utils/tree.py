@@ -1,5 +1,7 @@
 """Nested containers of tensors (the JAX package's pytrees): dicts, lists,
-tuples and dataclass instances, with every other value a leaf.
+tuples and dataclass instances, with every other value a leaf. A dataclass
+field whose metadata has ``static`` set is no child: it rides along with its
+node unchanged (the ``meta_fields`` of JAX's ``register_dataclass``).
 
 ``leaves`` and ``map`` walk them in one fixed order (dict insertion order,
 dataclass field order), so a flat list of leaves and a structure rebuild
@@ -18,8 +20,12 @@ def _children(node) -> list | None:
     if isinstance(node, (list, tuple)):
         return list(node)
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return [getattr(node, f.name) for f in dataclasses.fields(node)]
+        return [getattr(node, f.name) for f in _data_fields(node)]
     return None
+
+
+def _data_fields(node) -> list:
+    return [f for f in dataclasses.fields(node) if not f.metadata.get("static")]
 
 
 def _rebuild(node, children: list):
@@ -27,7 +33,7 @@ def _rebuild(node, children: list):
         return dict(zip(node.keys(), children))
     if isinstance(node, (list, tuple)):
         return type(node)(children)
-    return dataclasses.replace(node, **{f.name: c for f, c in zip(dataclasses.fields(node), children)})
+    return dataclasses.replace(node, **{f.name: c for f, c in zip(_data_fields(node), children)})
 
 
 def leaves(tree) -> list:

@@ -125,11 +125,6 @@ def test_quantize_weight_host_is_bitwise_jax(dtype, shape):
     assert torch.equal(got.q, tquant.quantize_weight_host(w_t.numpy() if dtype == "float32" else w_t, device="cpu").q)
 
 
-def test_quantize_weight_host_int4_names_a2():
-    with pytest.raises(NotImplementedError, match="A2"):
-        tquant.quantize_weight_host(torch.ones(4, 4), bits=4, device="cpu")
-
-
 # -- load_hf_weights -----------------------------------------------------------------
 
 HF = {
@@ -247,8 +242,8 @@ def test_load_hf_weights_refusals(tmp_path):
     with pytest.raises(FileNotFoundError):
         tllama.load_hf_weights(tmp_path, tllama.LlamaConfig.tiny(), device="cpu")
     raw = write_checkpoint(tmp_path, _hf_config())
-    with pytest.raises(NotImplementedError, match="A2"):
-        tllama.load_hf_weights(tmp_path, cfg(tmp_path / "config.json"), quantization="int4", device="cpu")
+    int4 = tllama.load_hf_weights(tmp_path, cfg(tmp_path / "config.json"), quantization="int4", device="cpu")
+    assert int4["layers"][1]["down"].bits == 4 and int4["layers"][1]["down"].shape == (48, 32)
     (tmp_path / "model-00002-of-00002.safetensors").unlink()
     with pytest.raises(KeyError, match="model.layers.1"):
         tllama.load_hf_weights(tmp_path, cfg(tmp_path / "config.json"), device="cpu")

@@ -177,12 +177,16 @@ def test_quantized_mm_is_forward_only():
 
 
 def test_int4_and_unknown_modes_raise():
+    """Named for the refusals before int4 landed: ``int3`` still raises, an
+    ``int4`` engine builds (``tests/test_torch_int4.py`` holds it)."""
     w = torch.from_numpy(_weight(7, (32, 16)))
-    with pytest.raises(NotImplementedError, match="A2"):
-        tquant.quantize_weight(w, bits=4)
+    assert tquant.quantize_weight(w, bits=4).bits == 4
+    with pytest.raises(ValueError, match="bits"):
+        tquant.quantize_weight(w, bits=3)
     cfg = tllama.LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="A2"):
-        LLMEngine(cfg, quantization="int4", device="cpu", max_slots=2, max_model_len=64)
+    eng4 = LLMEngine(cfg, quantization="int4", device="cpu", max_slots=2, max_model_len=64)
+    assert eng4.impl_plan["weights"] == "int4" and eng4.params["layers"][1]["up"].bits == 4
+    eng4.stop()
     with pytest.raises(ValueError, match="unknown quantization"):
         LLMEngine(cfg, quantization="int3", device="cpu", max_slots=2, max_model_len=64)
     eng = LLMEngine(cfg, quantization="int8", device="cpu", max_slots=2, max_model_len=64)

@@ -64,6 +64,7 @@ def test_there_are_kernels():
     assert KERNELS == [
         "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "kv_scatter", "kv_scatter_int8", "paged_decode",
         "paged_decode_int8", "paged_decode_writeback", "paged_decode_writeback_int8", "quantized_matmul",
+        "quantized_matmul_int4",
     ]
 
 
