@@ -1,10 +1,11 @@
 """Phase 17 of ``chip_smoke.py`` alone: int4 weights on the int4 matmul
 kernel (K7-int4) and the training paths of the diffusion models and Whisper.
 
-Builds the kernels (phase 1: K7-int4's ptxas register and spill report and
-its ``HMMA`` count in the SASS), runs phase 2's flash backward checks (K5/K6
-at DreamBooth's joint shape among them), then ``phase_int4_and_training``:
-K7-int4 against its plain version with two planted faults and its timings
+Builds the kernels (phase 1: K7-int4's ptxas register and spill report for
+each path's instance and the SASS counts of every checked library), runs
+phase 2's flash backward checks (K5/K6 at DreamBooth's joint shape among
+them), then ``phase_int4_and_training``: K7-int4 against its plain version
+on the path each shape takes, with three planted faults, and its timings
 (17a), Llama-2-7B served in int4 through the engine and the server (17b),
 QLoRA over the int4 base (17c), DreamBooth-LoRA on the SD3-shape MMDiT (17d),
 and ControlNet and Whisper training held to the CPU (17e). Prints each
@@ -50,9 +51,7 @@ def main() -> int:
     t0 = time.monotonic()
     ptxas = _build.build(verbose=True)
     cs.log(f"build {time.monotonic() - t0:.1f}s; card: {card}")
-    cs.log("quantized_matmul_int4 ptxas: " + " | ".join(
-        line.strip() for line in ptxas.get("quantized_matmul_int4", "").splitlines()
-        if "registers" in line or "spill" in line))
+    cs.log("quantized_matmul_int4 ptxas: " + " | ".join(cs.ptxas_summary(ptxas.get("quantized_matmul_int4", ""))))
     cs.check_sass(_build)
     errs: dict = {}
     cs.phase_backward_vs_plain(fa, errs)

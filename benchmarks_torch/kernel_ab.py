@@ -14,7 +14,10 @@ runs, summed). Back-to-back is the kernel's time only while the host
 enqueues faster than the card runs; for a kernel shorter than the wrapper's
 host time (~0.03-0.05 ms) only the device time is. The int8 matmul cycles
 over four weight copies (more than the 50 MB L2), as a decode step streams
-its weights, at M = 8 over every weight shape of Llama-2-7B and at M = 2048.
+its weights, at M = 8 over every weight shape of Llama-2-7B and at M = 2048;
+the int4 matmul (K7-int4) the same way, and at M = 1024 (a QLoRA step's
+B=2 x S=512 forward), through either library's C API (the other tree's may
+predate the path query).
 The decode kernels (ragged and write-then-attend, bf16 and int8 pages)
 cycle over four layers of one cache (``chip_smoke.CYCLED_LAYERS``), at phase
 5's shape (8 slots, prefixes 0..1000, Hq = Hkv = 32), the burst's (8 slots at
@@ -35,6 +38,7 @@ entry takes none). Prints one JSON line per shape. Run from the repository
 root on one GPU:
 
     python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul|
+        quantized_matmul_int4|
         paged_decode|paged_decode_int8|paged_decode_writeback|paged_decode_writeback_int8|
         kv_scatter|kv_scatter_int8] [--rounds R]
 """
@@ -68,6 +72,8 @@ SHAPES = {
     "flash_bwd_dkv": [(2, 32, 512)],
     "quantized_matmul": [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
                          (2048, 4096, 11008)],
+    "quantized_matmul_int4": [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
+                              (1024, 4096, 11008), (2048, 4096, 11008)],
 }
 # the ragged decode kernels: (label, Hkv, prefixes) at B = 8, Hq = 32
 DECODE_SHAPES = [("phase 5", 32, cs.DECODE_LENS), ("burst", 32, (20, 64, 130, 200, 300, 450, 511, 760)),
@@ -170,6 +176,32 @@ def qmm_call(x, w):
     return out
 
 
+def qmm4_call(x, w):
+    """The int4 matmul through whichever library is loaded: this tree's
+    wrapper, or the C entry of a library without the path query (the same
+    plan and launch signatures)."""
+    lib = _build._libs["quantized_matmul_int4"]
+    if hasattr(lib, "quantized_matmul_int4_path"):
+        return qmm.qmm_int4_cuda(x, w.q, w.scale)
+    fn = lib.quantized_matmul_int4
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+        lib.quantized_matmul_int4_plan.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        lib.quantized_matmul_int4_plan.restype = ctypes.c_int
+    (M, K), N = x.shape, w.q.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits, chunk, tickets = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.quantized_matmul_int4_plan(_build.ptr(x), _build.ptr(w.q), M, N, K, sms, ctypes.byref(splits),
+                                   ctypes.byref(chunk), ctypes.byref(tickets))
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    part = torch.empty((splits.value, M, N), dtype=torch.float32, device=x.device) if splits.value > 1 else out
+    ticket = _build.ticket_buffer("quantized_matmul_int4-other", x.device, tickets.value) if tickets.value else out
+    err = fn(*(_build.ptr(t) for t in (x, w.q, w.scale, out, part, ticket)), M, N, K, sms,
+             _build.stream_ptr(x.device))
+    _build.check(lib, "quantized_matmul_int4", err)
+    return out
+
+
 def case(kernel: str, gen, shape):
     """(launch, check) over one set of inputs: ``check()`` launches once and
     returns the error against the plain version."""
@@ -195,6 +227,15 @@ def case(kernel: str, gen, shape):
         x = cs.rand_bf16(gen, M, K)
         want = qmm.qmm_plain(x, weights[0].q, weights[0].scale)
         return cs.cycling([lambda w=w: qmm_call(x, w) for w in weights]), lambda: cs.rel_err(qmm_call(x, weights[0]), want)
+    if kernel == "quantized_matmul_int4":
+        from modal_examples_tpu_torch.models.quantize import quantize_weight
+
+        M, K, N = shape
+        weights = [quantize_weight(torch.randn(K, N, generator=gen, device="cuda"), bits=4) for _ in range(4)]
+        x = cs.rand_bf16(gen, M, K)
+        want = qmm.qmm_int4_plain(x, weights[0].q, weights[0].scale)
+        return (cs.cycling([lambda w=w: qmm4_call(x, w) for w in weights]),
+                lambda: cs.rel_err(qmm4_call(x, weights[0]), want))
     B, H, S = shape
     if kernel == "flash_fwd":
         q, k, v = cs.flash_case(gen, B, H, H, S, S, D)
@@ -221,7 +262,7 @@ def describe(kernel: str, shape) -> str:
     if kernel in DECODE_KERNELS:
         label, Hkv, lens = shape
         return f"{label}: B=8 Hq=32 Hkv={Hkv} D={D} prefixes {list(lens)}, layers {cs.CYCLED_LAYERS} in turn"
-    if kernel == "quantized_matmul":
+    if kernel in ("quantized_matmul", "quantized_matmul_int4"):
         return "M={} K={} N={} (four weight copies in turn)".format(*shape)
     if kernel in SCATTER_KERNELS:
         L, N = cs.SCATTER_SHAPES[shape]

@@ -1,22 +1,25 @@
 """Where a LoRA training step's time goes on the card, for the port's trainer.
 
 Builds the training path of ``chip_smoke.py`` (Llama-2-7B, full depth,
-frozen random bf16 base from seed 0, rank-16 LoRA on all seven
-projections, B=2 x S=512, ``Trainer(loss_fn, make_optimizer(1e-4))``),
+frozen random bf16 base from seed 0, or with ``--int4`` the int4 base of
+phase 17c (QLoRA, ``init_quantized_llama(bits=4)``, f32 adapters), rank-16
+LoRA on all seven projections, B=2 x S=512, ``Trainer(loss_fn,
+make_optimizer(1e-4))``),
 takes two warm-up steps, times two more without the profiler (host clock
 around a synchronised step), then profiles one ``Trainer.train_step`` with
 ``torch.profiler``. Prints the host wall time with and without the profiler
 (which adds host time), the device busy time (sum of kernel times on the
 one stream), the device idle share against both walls, the time in the
-port's flash kernels (forward, dQ, dK/dV), in matrix products and in the
-remaining kernels, and the kernels by total device time. Run from the
-repository root on one GPU:
+port's kernels (flash forward, dQ, dK/dV; K7-int4's three paths), in
+matrix products and in the remaining kernels, and the kernels by total
+device time. Run from the repository root on one GPU:
 
-    python3 benchmarks_torch/profile_train.py
+    python3 benchmarks_torch/profile_train.py [--int4]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -32,16 +35,20 @@ sys.path.insert(0, str(ROOT))
 from benchmarks_torch.profile_engine import _dev_us  # noqa: E402
 from chip_smoke import lora_training_setup  # noqa: E402
 from modal_examples_tpu_torch import training  # noqa: E402
-from modal_examples_tpu_torch.models import llama, lora  # noqa: E402
+from modal_examples_tpu_torch.models import llama, lora, quantize  # noqa: E402
 
 KERNEL_NAMES = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel": "flash_bwd_dq",
-                "flash_bwd_dkv_kernel": "flash_bwd_dkv"}
+                "flash_bwd_dkv_kernel": "flash_bwd_dkv", "qmm4_wgmma_kernel": "quantized_matmul_int4 wgmma",
+                "qmm4_ring_kernel": "quantized_matmul_int4 ring", "qmm_int4_kernel": "quantized_matmul_int4 masked"}
 # cuBLAS / cuBLASLt / CUTLASS matrix-product kernels (the frozen base's and the
 # adapters' products); cuBLASLt names its Hopper kernels nvjet_*
 GEMM_FRAGMENTS = ("gemm", "xmma", "cutlass", "gemv", "splitK", "nvjet")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--int4", action="store_true", help="QLoRA over an int4 base (phase 17c) instead of bf16")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA device", file=sys.stderr)
         return 2
@@ -50,7 +57,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     cfg = llama.LlamaConfig.llama2_7b()
-    params = llama.init_params(cfg, seed=0, device="cuda")
+    if args.int4:
+        params = quantize.init_quantized_llama(cfg, seed=0, bits=4, device="cuda")
+    else:
+        params = llama.init_params(cfg, seed=0, device="cuda")
     _, _, adapters, batches, loss_fn = lora_training_setup(llama, lora, training, params, steps=5)
     trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4))
     state = trainer.init_state(adapters)
@@ -90,6 +100,7 @@ def main() -> int:
     top = sorted(kernels, key=lambda e: -_dev_us(e))[:15]
     print(json.dumps({
         "card": card,
+        "base": "int4" if args.int4 else "bf16",
         "step": state.step,
         "loss": metrics["loss"].item(),
         "wall_ms": wall_ms,

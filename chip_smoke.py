@@ -298,7 +298,8 @@ Phases (any failure exits non-zero and prints no result):
    request alone, finish reasons equal, every page back on all three
    engines; per-request TTFT and the pages, bytes and seconds migrated
    logged; whether the alone rows equal phase 3's batched burst is logged
-   as a finding. (15c) the burst decoding on decode replica A, the 4
+   as a finding. (15c) the burst, placed while the decode loops are
+   stopped, decoding on decode replica A, the 4
    longest prompts' requests moved to B mid-decode by ``migrate_live``
    (four threads): token-identical to the unmigrated rows, texts too.
    (15f) ``OpenAIServer(router=coordinator)`` answers a completion and a
@@ -344,13 +345,16 @@ Phases (any failure exits non-zero and prints no result):
    launches join the kernels line.
 17. int4 weights and the training paths (after phase 14, every earlier
    tree freed; ``benchmarks_torch/int4_training.py`` runs it alone). (17a)
-   K7-int4 (``csrc/quantized_matmul_int4.cu``, built in phase 1: its ptxas
-   report logged, ``HMMA`` in its SASS) against ``qmm_int4_plain`` at M = 1,
-   8, 64, 65, 300 and 2048 over every Llama-2-7B weight shape and a ragged
-   4000 x 11000, and at Mixtral's expert shapes at M = 8: within 1e-3 of
-   the plain version's largest value, bitwise run to run, the check shown
-   to refuse two planted faults (the nibbles read swapped, the last K split
-   of the launch lost); ``quantize_weight(bits=4)`` on the card bitwise the
+   K7-int4 (``csrc/quantized_matmul_int4.cu``, built in phase 1: each
+   path's registers and spills logged, ``HGMMA``, ``UTMALDG`` and ``HMMA``
+   in its SASS) against ``qmm_int4_plain`` at M = 1, 8, 64, 65, 300 and
+   2048 over every Llama-2-7B weight shape and a ragged 4000 x 11000, and
+   at Mixtral's expert shapes at M = 8: within 1e-3 of the plain version's
+   largest value, bitwise run to run, each launch on its shape's path
+   ("ring" at M <= 64, "wgmma" above, "masked" for the ragged shape), the
+   check shown to refuse three planted faults (the nibbles read swapped and
+   the last K split of the launch lost at M = 8, the last K tile lost at
+   M = 2048); ``quantize_weight(bits=4)`` on the card bitwise the
    CPU's; its times at [8 | 2048, 4096] x [4096, 11008] over four weight
    copies (single, back to back, the profiler's device time), the bound,
    the plain version, ``torch._weight_int4pack_mm`` where it computes the
@@ -361,12 +365,15 @@ Phases (any failure exits non-zero and prints no result):
    and at least that a dispatched step, no K7, K2 32 x the dispatched
    steps, K1, K3; prefill + one decode step against the dense plain forward
    over the same int4 weights; every greedy token the dense forward's
-   argmax or within 5e-2 of its largest logit; then ``OpenAIServer``.
+   argmax or within 5e-2 of its largest logit; then ``OpenAIServer``;
+   outside the timed burst, the dense check's and the server's K7-int4
+   launches counted by path (both "wgmma" and "ring", no other).
    (17c) QLoRA: phase 12 over the int4 base (rank 16, f32 adapters, B=2 x
-   S=512): the first step's adapter gradients through K7-int4 and the flash
-   kernels against ``qmm_int4_plain`` and the xla attention (cosine >=
-   0.999 per target), 1 + 2 counted ``Trainer`` steps (K7-int4 225 a step,
-   K1, K5, K6 32), the peak below phase 12's. (17d) DreamBooth-LoRA on
+   S=512): the first step's adapter gradients through K7-int4 (every
+   launch on "wgmma") and the flash kernels against ``qmm_int4_plain`` and
+   the xla attention (cosine >= 0.999 per target), 1 + 2 counted
+   ``Trainer`` steps (K7-int4 225 a step, K1, K5, K6 32), the peak below
+   phase 12's. (17d) DreamBooth-LoRA on
    ``MMDiTConfig.sd3_shape()`` (bf16, modulation drawn nonzero), rank 16,
    alpha 32 over ``DIT_TARGETS`` through ``init_lora_tree`` and
    ``merge_tree`` (b = 0 merges to the base bitwise), B=2 of 512 px latents
@@ -454,11 +461,12 @@ K1_CASES = [
     (2, 4, 2, 200, 200, 0, True, 256),
 ]
 # instructions each library's SASS must hold: the products on wgmma (HGMMA)
-# fed by TMA (UTMALDG); the int4 matmul's on mma.sync (HMMA); the four
-# decode kernels' rows streamed by cp.async (LDGSTS)
+# fed by TMA (UTMALDG); the int4 matmul's prefill path on wgmma and TMA, its
+# decode ring on TMA and mma.sync (HMMA), its masked path on mma.sync; the
+# four decode kernels' rows streamed by cp.async (LDGSTS)
 SASS_CHECKED = {
     **{name: ("HGMMA", "UTMALDG") for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul")},
-    "quantized_matmul_int4": ("HMMA",),  # mma.sync over nibbles sign-extended in registers
+    "quantized_matmul_int4": ("HGMMA", "UTMALDG", "HMMA"),
     **{name: ("LDGSTS",) for name in ("paged_decode", "paged_decode_int8", "paged_decode_writeback",
                                       "paged_decode_writeback_int8")},
 }
@@ -534,6 +542,38 @@ def max_err(a, b) -> float:
 def sdpa(q, k, v, causal: bool):
     """PyTorch's attention on the same inputs: a yardstick, never the port's path."""
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line per kernel instance of an ``-Xptxas -v`` report: the entry's
+    name (the kernel and its template arguments, from the mangled symbol),
+    its registers and its spills; and any line where ptxas says it
+    serialized wgmma instructions."""
+    def demangle(symbol: str) -> str:  # the last name of a (nested) mangled symbol and its integer arguments
+        i, last, args = symbol.find("N") + 1 if symbol.startswith("_ZN") else 2, symbol, ""
+        while i < len(symbol) and symbol[i].isdigit():
+            j = i
+            while symbol[j].isdigit():
+                j += 1
+            n = int(symbol[i:j])
+            last, i = symbol[j:j + n], j + n
+        if symbol[i:i + 1] == "I":
+            args = "<" + ", ".join(re.findall(r"L[a-z](\d+)E", symbol[i:symbol.find("EE", i) + 1])) + ">"
+        return last + args
+
+    out, name = [], None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name, spills = demangle(entry.group(1)), "spills not reported"
+        elif "spill" in line and name:
+            spills = line.strip()
+        elif "registers" in line and name:
+            out.append(f"{name}: {re.search(r'Used \d+ registers', line).group(0)}, {spills}")
+            name = None
+        elif "C7513" in line:
+            out.append(line.strip())
+    return out
 
 
 def check_sass(_build) -> None:
@@ -1131,14 +1171,15 @@ def plain_mm(x, w, layers):
 def plain_moe(layer, h, cfg, layers, routes: list | None = None, forced=None):
     """The reference's serving experts (``moe_swiglu_nodrop``) from plain
     versions: the router and every expert on f32 activations (bf16 weights
-    widened to f32, int8 ones through ``qmm_plain``), each token's top k
+    widened to f32, int8 ones through ``qmm_plain``, int4 ones through
+    ``qmm_int4_plain``), each token's top k
     renormalised, the combine summed in f32, the result in ``h``'s dtype.
     ``forced`` ([T, k] expert indices) replaces each token's top k by the
     given experts, weighted by their own probabilities here. Appends
     (probs [T, E], top-k indices [T, k]) to ``routes``."""
     import torch.nn.functional as F
 
-    from modal_examples_tpu_torch.models.quantize import QuantizedWeight
+    from modal_examples_tpu_torch.models.moe import _expert
 
     x = h.reshape(-1, cfg.dim).float()
     probs = torch.softmax(x @ layer["router"].float(), dim=-1)
@@ -1149,8 +1190,8 @@ def plain_moe(layer, h, cfg, layers, routes: list | None = None, forced=None):
     combine = torch.zeros_like(probs).scatter_(1, top_i, top_p / top_p.sum(dim=-1, keepdim=True))
     out = torch.zeros_like(x)
     for e in range(cfg.n_experts):
-        wg, wu, wd = (QuantizedWeight(q=w.q[e], scale=w.scale[e]) if isinstance(w, QuantizedWeight) else w[e]
-                      for w in (layer["moe_gate"], layer["moe_up"], layer["moe_down"]))
+        # the port's own expert view: an int4 stack keeps its bits and rows
+        wg, wu, wd = (_expert(w, e) for w in (layer["moe_gate"], layer["moe_up"], layer["moe_down"]))
         y = plain_mm(F.silu(plain_mm(x, wg, layers)) * plain_mm(x, wu, layers), wd, layers)
         out += combine[:, e, None] * y
     if routes is not None:
@@ -5042,14 +5083,19 @@ def phase15_live_migration(fa, pa, qmm, co, requests, ref_rows, ref_texts, card:
     """15c: the burst decoding on decode replica A; the 4 longest prompts'
     requests, each past its first tokens, moved to B with ``migrate_live``
     (four threads, so one scheduler tick detaches them all): their tokens
-    and texts identical to the unmigrated rows."""
+    and texts identical to the unmigrated rows. The burst is placed while the
+    decode loops are stopped, so every request starts decoding in the same
+    tick and the moved ones are mid-decode when the moves land, however fast
+    a replica decodes."""
     import threading
 
     for e in co.serving_engines():
-        e.start()
+        e.stop()
     zero_counts(fa, pa, qmm)
     reqs, _ = submit_through(co, requests)
     a, b = owner_and_peer(co, reqs)
+    for e in (a.engine, b.engine):
+        e.start()
     pieces = [[] for _ in reqs]
     readers = [threading.Thread(target=lambda i=i: pieces[i].extend(co.stream(reqs[i]))) for i in range(len(reqs))]
     for t in readers:
@@ -5845,23 +5891,32 @@ WHISPER_FT = (2, 3000, 32)
 FT_STEPS = 2
 
 
-def int4_planted_faults(qmm, x, w, want) -> dict:
-    """Two faults K7-int4's check must refuse, run through the kernel: the
-    packed nibbles read in the swapped order (each byte's halves exchanged),
-    and the last K split of the launch's plan lost (the K rows of that split
-    zeroed in ``x``: the sum without that split's partial)."""
+def int4_planted_faults(qmm, x, w, want, x_prefill, want_prefill) -> dict:
+    """Three faults K7-int4's check must refuse, run through the kernel: at
+    the decode step (the ring path) the packed nibbles read in the swapped
+    order (each byte's halves exchanged) and the last K split of the
+    launch's plan lost (the K rows of that split zeroed in ``x``: the sum
+    without that split's partial); at the prefill batch (the wgmma path) the
+    last K tile lost (its rows zeroed in ``x``: the ring's last turn
+    dropped)."""
     plan = qmm.int4_plan(x, w.q)
-    if plan["splits"] < 2:
-        raise AssertionError(f"17a: the planted split fault wants a split launch: {plan}")
+    if plan["splits"] < 2 or plan["path"] != "ring":
+        raise AssertionError(f"17a: the planted split fault wants a split launch on the ring: {plan}")
+    prefill = qmm.int4_plan(x_prefill, w.q)
+    if prefill["path"] != "wgmma":
+        raise AssertionError(f"17a: the planted prefill fault wants the wgmma path: {prefill}")
     swapped = ((w.q & 0xF) << 4) | (w.q >> 4)
     lost = x.clone()
-    lost[:, (plan["splits"] - 1) * plan["chunk"] * 64:] = 0
+    lost[:, (plan["splits"] - 1) * plan["chunk"] * plan["k_tile"]:] = 0
+    lost_tile = x_prefill.clone()
+    lost_tile[:, (prefill["chunk"] - 1) * prefill["k_tile"]:] = 0
     faults = {"nibbles swapped": rel_err(qmm.qmm_int4_cuda(x, swapped, w.scale), want),
-              "last K split lost": rel_err(qmm.qmm_int4_cuda(lost, w.q, w.scale), want)}
+              "last K split lost": rel_err(qmm.qmm_int4_cuda(lost, w.q, w.scale), want),
+              "prefill: last K tile lost": rel_err(qmm.qmm_int4_cuda(lost_tile, w.q, w.scale), want_prefill)}
     torch.cuda.synchronize()
     if not min(faults.values()) > TOL["quantized_matmul"]:
         raise AssertionError(f"17a: the K7-int4 check does not see a planted fault: {faults}")
-    return {**faults, "plan": plan}
+    return {**faults, "plan": plan, "prefill_plan": prefill}
 
 
 def int4_library(w, x):
@@ -5902,13 +5957,16 @@ def phase17_matmul(qmm, quantize, errs: dict, card: str) -> dict:
     """17a: K7-int4 against ``qmm_int4_plain`` at M = 1, 8, 64, 65, 300 and
     2048 over every Llama-2-7B weight shape and a ragged 4000 x 11000, and
     at Mixtral's expert shapes at M = 8: within 1e-3 of the plain version's
-    largest value, bitwise from launch to launch; the check shown to refuse
-    two planted faults; ``quantize_weight(bits=4)`` on the card bitwise
+    largest value, bitwise from launch to launch, each launch on the path
+    its shape must take (``qmm.int4_kernel_path`` equal to the Python rule
+    ``qmm.int4_path_rule``: "ring" at M <= 64 and "wgmma" above for every
+    model shape, "masked" for the ragged one); the check shown to refuse
+    three planted faults; ``quantize_weight(bits=4)`` on the card bitwise
     equal to the same call on the CPU (nibbles and scales). Then K7-int4's
     numbers at the decode step's and the prefill batch's gate/up shape, four
     weight copies in turn (90 MB of nibbles, beyond the 50 MB L2)."""
     gen = torch.Generator(device="cuda").manual_seed(17)
-    out: dict = {"shapes": {}}
+    out: dict = {"shapes": {}, "paths": {}}
     for K, N in QMM_SHAPES + [(K, N) for K, N in QMM4_EXPERT]:
         w32 = torch.randn(K, N, generator=gen, device="cuda")
         w = quantize.quantize_weight(w32, bits=4)
@@ -5916,9 +5974,15 @@ def phase17_matmul(qmm, quantize, errs: dict, card: str) -> dict:
         if not (torch.equal(w.q.cpu(), host.q) and torch.equal(w.scale.cpu(), host.scale)):
             raise AssertionError(f"17a: quantize_weight(bits=4) of {K} x {N} on the card differs from the CPU's")
         del w32, host
-        worst = 0.0
+        worst, paths, decode = 0.0, {}, None
         for M in (8,) if (K, N) in QMM4_EXPERT else QMM_MS:
             x = rand_bf16(gen, M, K)
+            path = qmm.int4_kernel_path(x, w.q)
+            want_path = "masked" if (K, N) == QMM_SHAPES[-1] else "wgmma" if M > 64 else "ring"
+            if not path == qmm.int4_path_rule(x, w.q) == want_path:
+                raise AssertionError(f"17a K7-int4 M={M} K={K} N={N}: path {path}, rule "
+                                     f"{qmm.int4_path_rule(x, w.q)}, want {want_path}")
+            paths[M] = path
             got = qmm.qmm_int4_cuda(x, w.q, w.scale)
             again = qmm.qmm_int4_cuda(x, w.q, w.scale)
             torch.cuda.synchronize()
@@ -5930,10 +5994,14 @@ def phase17_matmul(qmm, quantize, errs: dict, card: str) -> dict:
             errs["quantized_matmul_int4"] = max(errs.get("quantized_matmul_int4", 0.0), max_err(got, want))
             worst = max(worst, rel)
             if (K, N) == QMM4_TIMED and M == 8:
-                out["faults"] = int4_planted_faults(qmm, x, w, want)
+                decode = (x, want)
+            if (K, N) == QMM4_TIMED and M == 2048:
+                out["faults"] = int4_planted_faults(qmm, decode[0], w, decode[1], x, want)
         out["shapes"][f"{K}x{N}"] = worst
+        out["paths"][f"{K}x{N}"] = paths
         log(f"17a K7-int4 K={K} N={N}: worst max|out-plain|/max|plain| {worst:.3g} over M "
-            f"{(8,) if (K, N) in QMM4_EXPERT else QMM_MS}, bitwise run to run; card quantization = CPU's")
+            f"{(8,) if (K, N) in QMM4_EXPERT else QMM_MS}, bitwise run to run; paths {paths}; "
+            "card quantization = CPU's")
         del w
     log(f"17a planted faults (refused): {out['faults']}")
     K, N = QMM4_TIMED
@@ -6021,16 +6089,45 @@ def phase17_serving(fa, pa, qmm, llama, layers, reference, quantize, LLMEngine, 
     metrics.update(launches=counts, k7_int4_per_pass=per_pass, weight_gb=w4 / 1e9, int8_tree_gb=w8 / 1e9,
                    weight_ratio=ratio, init_s=init_s)
     log(f"17b int4 engine metrics ({card}): {json.dumps(metrics)}")
-    metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
-    metrics["exactness"] = check_spec_exactness(eng, reqs, layers, reference, "17b int4 greedy rows")
-    before = qmm.qmm_int4_launches
-    phase_server(eng, OpenAIServer)  # also stops the engine
+    # outside the timed burst, each K7-int4 launch's path is counted: the
+    # dense check's 128-row prefill and the server's requests
+    with int4_path_tally(qmm) as tally:
+        metrics["dense_check"] = check_against_dense(eng, llama, layers, reference)[0]
+        metrics["exactness"] = check_spec_exactness(eng, reqs, layers, reference, "17b int4 greedy rows")
+        before = qmm.qmm_int4_launches
+        phase_server(eng, OpenAIServer)  # also stops the engine
     metrics["server_k7_int4"] = qmm.qmm_int4_launches - before
+    metrics["k7_int4_paths"] = tally.paths
     if metrics["server_k7_int4"] < per_pass:
         raise AssertionError(f"17b: the server's requests launched K7-int4 {metrics['server_k7_int4']} times")
+    if set(tally.paths) != {"wgmma", "ring"}:
+        raise AssertionError(f"17b: K7-int4's launches by path {tally.paths}: want wgmma at prefill, ring at decode")
     metrics["launches"]["quantized_matmul_int4"] = qmm.qmm_int4_launches
-    log(f"17b server: ok, K7-int4 {metrics['server_k7_int4']} launches")
+    log(f"17b server: ok, K7-int4 {metrics['server_k7_int4']} launches; the dense check's and the server's "
+        f"by path {tally.paths}")
     return metrics
+
+
+class int4_path_tally:
+    """K7-int4's wrapper wrapped for a ``with`` block outside the timed
+    windows: each launch's path (``qmm.int4_kernel_path``, the kernel's own
+    plan) counted into ``self.paths``, so a phase can show which path its
+    launches took."""
+
+    def __init__(self, qmm):
+        self.qmm, self.kernel, self.paths = qmm, qmm.qmm_int4_cuda, {}
+
+    def __enter__(self):
+        def counted(x, w_packed, w_scale):
+            path = self.qmm.int4_kernel_path(x, w_packed)
+            self.paths[path] = self.paths.get(path, 0) + 1
+            return self.kernel(x, w_packed, w_scale)
+
+        self.qmm.qmm_int4_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.qmm.qmm_int4_cuda = self.kernel
 
 
 class plain_int4_products:
@@ -6066,7 +6163,11 @@ def phase17_qlora(fa, qmm, llama, lora, training, quantize, int8_peak_gb: float,
     B, S = batches[0]["tokens"].shape
     log(f"17c QLoRA: llama2-7b int4 base ({quantize.param_bytes(q4) / 1e9:.3f} GB, drawn in {init_s:.1f}s), "
         f"rank {lcfg.rank} f32 on {lcfg.targets}, B={B} S={S}")
-    kernels = adapter_grads(loss_fn, adapters, batches[0], "flash")
+    with int4_path_tally(qmm) as tally:
+        kernels = adapter_grads(loss_fn, adapters, batches[0], "flash")
+    if set(tally.paths) != {"wgmma"}:
+        raise AssertionError(f"17c: K7-int4's launches at M = {B * S} by path {tally.paths}: want wgmma only")
+    log(f"17c K7-int4 launches of the gradient check by path: {tally.paths}")
     with plain_int4_products(qmm):
         plain = adapter_grads(loss_fn, adapters, batches[0], "xla")
     grads = compare_adapter_grads(kernels, plain, lcfg.targets, "K7-int4 + flash vs plain int4 products + xla")
@@ -6434,9 +6535,8 @@ def main() -> int:
     t0 = time.monotonic()
     ptxas = _build.build(verbose=True)
     log(f"phase 1 build: {time.monotonic() - t0:.1f}s for {_build.kernel_names()}")
-    for name in SASS_CHECKED:  # registers and spills a thread, one pair of lines per kernel instance
-        log(f"{name} ptxas: " + " | ".join(
-            line.strip() for line in ptxas.get(name, "").splitlines() if "registers" in line or "spill" in line))
+    for name in SASS_CHECKED:  # registers and spills a thread, per kernel instance
+        log(f"{name} ptxas: " + " | ".join(ptxas_summary(ptxas.get(name, ""))))
     check_sass(_build)
     errs = phase_kernels_vs_plain(fa, pa)
     bwd_bitwise = phase_backward_vs_plain(fa, errs)

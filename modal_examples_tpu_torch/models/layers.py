@@ -160,15 +160,24 @@ def mm(x, w):
     ``w`` may be a :class:`QuantizedWeight`: ``(x @ q) * scale``, through
     the int8 matmul kernel or the int4 one on the card (their plain versions
     on the CPU), and differentiable in ``x`` (the quantized LoRA base)."""
+    # no gradient to record (serving): each product's forward, called
+    # directly, without an autograd node's host cost a launch
+    graph = torch.is_grad_enabled() and (x.requires_grad or getattr(w, "requires_grad", False))
     if isinstance(w, QuantizedWeight):
         flat = x.reshape(-1, x.shape[-1]).contiguous()
-        return _QMm.apply(flat, w.q, w.scale, w.bits).reshape(*x.shape[:-1], w.shape[-1])
+        if graph:
+            out = _QMm.apply(flat, w.q, w.scale, w.bits)
+        elif w.bits == 4:
+            out = (_qmm.qmm_int4_cuda if x.is_cuda else _qmm.qmm_int4_plain)(flat, w.q, w.scale)
+        else:
+            out = (_qmm.qmm_cuda if x.is_cuda else _qmm.qmm_plain)(flat, w.q, w.scale)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
     flat = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32 or w.dtype == torch.float32:
-        out = _MmPromoted.apply(flat, w)
+        out = _MmPromoted.apply(flat, w) if graph else flat.float() @ w.float()
         return out.reshape(*x.shape[:-1], w.shape[-1])
     if x.is_cuda:
-        out = _MmF32.apply(flat, w)
+        out = _MmF32.apply(flat, w) if graph else torch.mm(flat, w, out_dtype=torch.float32)
     else:
         out = flat.float() @ w.float()
     return out.reshape(*x.shape[:-1], w.shape[-1])

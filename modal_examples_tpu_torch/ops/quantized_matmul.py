@@ -11,7 +11,9 @@ every shape, on one of three paths it picks by shape (:func:`kernel_path`).
 int4 weights are packed two contraction rows a byte (:func:`pack_int4`:
 ``[..., ceil(K/2), N]`` uint8, the even row in the low nibble), the layout
 K7-int4 reads; the JAX package holds them as ``jnp.int4`` and multiplies
-them through XLA's dot, so K7-int4 replaces no Pallas kernel.
+them through XLA's dot, so K7-int4 replaces no Pallas kernel. K7-int4 too
+picks one of three paths by shape (:func:`int4_kernel_path`, the rule
+mirrored in :func:`int4_path_rule`).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 :func:`qmm_plain` or :func:`qmm_int4_plain`, a CUDA tensor launches the
@@ -160,6 +162,10 @@ def qmm_int4_plain(x, w_packed, w_scale):
     return (x.float() @ q.float()) * w_scale.float().reshape(1, -1)
 
 
+#: K7-int4's three paths, by the number ``quantized_matmul_int4_path`` returns
+INT4_PATHS = ("masked", "ring", "wgmma")
+
+
 def _lib_int4():
     lib = _build.load("quantized_matmul_int4")
     fn = lib.quantized_matmul_int4
@@ -168,26 +174,51 @@ def _lib_int4():
         fn.restype = ctypes.c_int
         lib.quantized_matmul_int4_plan.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         lib.quantized_matmul_int4_plan.restype = ctypes.c_int
+        lib.quantized_matmul_int4_path.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.quantized_matmul_int4_path.restype = ctypes.c_int
     return lib
 
 
+def int4_path_rule(x, w_packed) -> str:
+    """The path K7-int4's plan picks for ``x`` [M, K] and ``w_packed``
+    [ceil(K/2), N], in Python: "wgmma" at M > 64 and "ring" at M <= 64 where
+    TMA can describe both operands (16-byte aligned bases, N % 16 == 0,
+    K % 8 == 0), "masked" for any other shape. ``int4_kernel_path`` asks the
+    kernel itself; the two must agree."""
+    (M, K), N = x.shape, w_packed.shape[1]
+    tma = x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0 and N % 16 == 0 and K % 8 == 0 and K > 0
+    return INT4_PATHS[0] if not tma else INT4_PATHS[2] if M > 64 else INT4_PATHS[1]
+
+
 def int4_plan(x, w_packed) -> dict:
-    """K7-int4's plan for a launch on ``x`` [M, K] and ``w_packed``: rows of
-    x a block, K splits (f32 partials summed in the launch above 1), 64-deep
-    K tiles a split, ints of ticket scratch."""
+    """K7-int4's plan for a launch on ``x`` [M, K] and ``w_packed``: its path,
+    rows of x a block, K splits (f32 partials summed in the launch above 1),
+    K tiles a split and the depth of one (``k_tile``), ints of ticket
+    scratch."""
     dev = x.device
-    splits, chunk, tickets = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rows = _lib_int4().quantized_matmul_int4_plan(
-        _build.ptr(x), _build.ptr(w_packed), x.shape[0], w_packed.shape[1], x.shape[1],
+    lib = _lib_int4()
+    splits, chunk, tickets, k_tile = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    M, K, N = x.shape[0], x.shape[1], w_packed.shape[1]
+    rows = lib.quantized_matmul_int4_plan(
+        _build.ptr(x), _build.ptr(w_packed), M, N, K,
         _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()),
         ctypes.byref(splits), ctypes.byref(chunk), ctypes.byref(tickets))
-    return {"rows": rows, "splits": splits.value, "chunk": chunk.value, "tickets": tickets.value}
+    path = lib.quantized_matmul_int4_path(_build.ptr(x), _build.ptr(w_packed), M, N, K, ctypes.byref(k_tile))
+    return {"path": INT4_PATHS[path], "rows": rows, "splits": splits.value, "chunk": chunk.value,
+            "k_tile": k_tile.value, "tickets": tickets.value}
+
+
+def int4_kernel_path(x, w_packed) -> str:
+    """The path a K7-int4 launch on ``x`` and ``w_packed`` takes, from the
+    kernel's own plan (see :func:`int4_path_rule`)."""
+    return int4_plan(x, w_packed)["path"]
 
 
 def qmm_int4_cuda(x, w_packed, w_scale):
     """Launch ``csrc/quantized_matmul_int4.cu``: bf16 ``x`` [M, K], packed
     int4 ``w_packed`` uint8 [ceil(K/2), N], f32 ``w_scale`` with N values;
-    returns f32 [M, N]. One launch for every shape."""
+    returns f32 [M, N]. The kernel picks its path by shape
+    (:func:`int4_kernel_path`); one launch in every case."""
     global qmm_int4_launches
     dev = x.device
     if not (x.is_cuda and w_packed.is_cuda and w_scale.is_cuda) or w_packed.device != dev or w_scale.device != dev:
@@ -207,10 +238,12 @@ def qmm_int4_cuda(x, w_packed, w_scale):
     N = w_packed.shape[1]
     sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
     lib = _lib_int4()
-    plan = int4_plan(x, w_packed)
+    splits, chunk, n_tickets = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.quantized_matmul_int4_plan(_build.ptr(x), _build.ptr(w_packed), M, N, K, sms, ctypes.byref(splits),
+                                   ctypes.byref(chunk), ctypes.byref(n_tickets))
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    part = torch.empty((plan["splits"], M, N), dtype=torch.float32, device=dev) if plan["splits"] > 1 else out
-    tickets = _build.ticket_buffer("quantized_matmul_int4", dev, plan["tickets"]) if plan["tickets"] else out
+    part = torch.empty((splits.value, M, N), dtype=torch.float32, device=dev) if splits.value > 1 else out
+    tickets = _build.ticket_buffer("quantized_matmul_int4", dev, n_tickets.value) if n_tickets.value else out
     err = lib.quantized_matmul_int4(
         _build.ptr(x), _build.ptr(w_packed), _build.ptr(w_scale), _build.ptr(out), _build.ptr(part),
         _build.ptr(tickets), M, N, K, sms, _build.stream_ptr(dev),

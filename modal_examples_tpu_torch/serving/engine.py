@@ -115,7 +115,8 @@ the engine's stream, ordered behind the block in flight);
 checkpoint: the original prompt is prefilled again and the generated prefix
 replayed teacher-forced through the decode block body, one token a dispatch
 at the block's batch width, so the rebuilt KV is the decode-written KV bit
-for bit; :meth:`~LLMEngine.migrate_out` detaches a running request on the
+for bit, at most ``decode_block`` tokens a tick (the slot decodes once the
+replay ends); :meth:`~LLMEngine.migrate_out` detaches a running request on the
 scheduler thread (``_run_on_scheduler``) as a block with its decode state.
 An adopted, migrated or replayed tenancy rebuilds its prompt-lookup index,
 and in draft mode holds γ at 0 (``_Slot.spec_hold``: its draft cache has a
@@ -164,10 +165,55 @@ from .kv_cache import OutOfPages, PagedKVCache
 from .multistep import DetokWorker, build_multistep_fn, resolve_decode_steps
 from .prefix_cache import PrefixCache
 from .health import EngineWatermarks
-from .sampling import SamplingParams, prng_key, sample, split
+from .sampling import SamplingParams, block_noise, prng_key, sample, split
 from .spec_runtime import AdaptiveGammaController, build_ngram_round_fn, build_spec_round_fn, resolve_spec_adaptive
 
 _CANARY_TENANT = _usage.CANARY_TENANT
+
+
+class _Turns:
+    """First-come turns at the interpreter for the host work of the
+    process's engines: a scheduler tick, and a prefill on a caller's thread
+    (:meth:`LLMEngine.prefill_sync`), each run in one turn. The host work is
+    a run of small launches, each of which releases and retakes the
+    interpreter lock; two such runs side by side hand the lock back and
+    forth at every launch and each takes several times its own length, so a
+    decode replica's tick beside a caller's prefill reads as stale progress
+    to the watchdog. A waiter that does not get a turn within ``wait_s``
+    runs without one, so an engine stuck inside its turn slows the others
+    and stops none."""
+
+    def __init__(self, wait_s: float):
+        self.wait_s = wait_s
+        self._cv = threading.Condition()
+        self._holder: int | None = None
+        self._queue: collections.deque = collections.deque()
+
+    def acquire(self) -> bool:
+        me = threading.get_ident()
+        deadline = time.monotonic() + self.wait_s
+        with self._cv:
+            self._queue.append(me)
+            while self._holder is not None or self._queue[0] != me:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    self._queue.remove(me)
+                    self._cv.notify_all()
+                    return False
+                self._cv.wait(left)
+            self._queue.popleft()
+            self._holder = me
+            return True
+
+    def release(self) -> None:
+        with self._cv:
+            self._holder = None
+            self._cv.notify_all()
+
+
+#: the process's turns (the interpreter is one per process); a turn waits
+#: at most about a 7B decode tick's host work
+_TURNS = _Turns(wait_s=0.5)
 
 
 def _tm(tick, phase: str) -> None:
@@ -309,6 +355,9 @@ class _Slot:
     # draft mode: an adopted or replayed tenancy never proposes (its draft
     # cache has a hole where the shipped or replayed KV is)
     spec_hold: bool = False
+    # a failover resume: the generated tokens still to feed through the
+    # decode body (``_replay_tick``) before the slot decodes
+    replay: list[int] | None = None
 
     @property
     def free(self) -> bool:
@@ -316,9 +365,10 @@ class _Slot:
 
     @property
     def decodable(self) -> bool:
-        """Admitted and holding a first token on the host: a slot mid-prefill
-        or with its first token unharvested is not."""
-        return self.request is not None and self.prefill is None and not self.pending_first
+        """Admitted and holding a first token on the host: a slot mid-prefill,
+        with its first token unharvested or mid-replay is not."""
+        return (self.request is not None and self.prefill is None and not self.pending_first
+                and self.replay is None)
 
 
 @dataclasses.dataclass
@@ -866,9 +916,12 @@ class LLMEngine:
         scheduler loop is not running (a prefill replica never starts its
         loop); concurrent callers serialize on a lock."""
         self._prefill_sync_pending += 1
+        turn = _TURNS.acquire()
         try:
             return self._prefill_sync_locked(req)
         finally:
+            if turn:
+                _TURNS.release()
             self._prefill_sync_pending -= 1
 
     def _prefill_sync_locked(self, req: Request) -> dict:
@@ -1035,7 +1088,7 @@ class LLMEngine:
             _obs.set_sched_queue_depths(self.policy.depths())
             self._close_queue_span(req)
             return ("requeue", None)
-        for s in self.slots:
+        for i, s in enumerate(self.slots):
             if s.request is not req:
                 continue
             if req.aborted:
@@ -1045,6 +1098,10 @@ class LLMEngine:
                 # nothing was emitted, so a fresh submission is token-identical
                 self._unwind_slot(s)
                 return ("requeue", None)
+            if s.replay is not None:
+                # mid-replay: the rest of the generated prefix first, so the
+                # KV covers every accepted token but the last
+                self._replay_decode_prefix(i, len(s.replay))
             # mid-decode: KV for [0, position) is complete (each accepted
             # token's predecessor was fed by a block already read); blocks
             # still in flight write positions >= position only, which the
@@ -1250,6 +1307,7 @@ class LLMEngine:
         slot.pending_first = False
         slot.fresh = False
         slot.spec_hold = False
+        slot.replay = None
         slot.ngram = None
         slot.request = None
 
@@ -1337,15 +1395,20 @@ class LLMEngine:
                 time.sleep(0.005)
             self._tick = None
             return False
-        self.watermarks.note_tick()
-        self._drain_ctrl()
-        _tm(tick, "ctrl")
-        self._expire_deadlines()
-        _tm(tick, "policy")
-        admitted = self._admit()
-        decoded = self._decode_tick()
-        self._refresh_gauges()
-        _tm(tick, "policy")
+        turn = _TURNS.acquire()
+        try:
+            self.watermarks.note_tick()
+            self._drain_ctrl()
+            _tm(tick, "ctrl")
+            self._expire_deadlines()
+            _tm(tick, "policy")
+            admitted = self._admit()
+            decoded = self._decode_tick()
+            self._refresh_gauges()
+            _tm(tick, "policy")
+        finally:
+            if turn:
+                _TURNS.release()
         if tick is not None:
             self._tick = None
             prof.end_tick(tick, worked=admitted or decoded)
@@ -1879,13 +1942,13 @@ class LLMEngine:
                 rs = req._resume_state
                 if rs is not None:
                     # a failover resume: replay the accepted generated prefix
-                    # through the decode block body, then feed the last
-                    # accepted token (the client has it) through the override
-                    # lane in place of the prefill's sample, so the next token
-                    # carries the uninterrupted run's (seed, position) key
+                    # through the decode block body, a slice a tick
+                    # (``_replay_tick``), then feed the last accepted token
+                    # (the client has it) through the override lane in place
+                    # of the prefill's sample, so the next token carries the
+                    # uninterrupted run's (seed, position) key
                     replay = rs["replay"]
-                    self._replay_decode_prefix(slot_idx, replay)
-                    s.position = n_prompt + len(replay) - 1
+                    s.replay = [int(t) for t in replay[:-1]] or None
                     s.last_token = int(replay[-1])
                     # draft mode: the replay rebuilt the target's KV only
                     s.spec_hold = self.spec_mode == "draft"
@@ -1920,31 +1983,48 @@ class LLMEngine:
             _tm(tick, "accept")
         return worked
 
-    def _replay_decode_prefix(self, slot_idx: int, replay: list) -> None:
-        """Rebuild a resumed request's generated-prefix KV: feed each
-        accepted token but the last through the decode block's step body
-        (``llama.decode_step`` over all ``max_slots`` rows, this one active,
-        the token through the override lane), one token a dispatch. The same
-        body at the same batch width over the same inputs writes the KV the
-        lost replica's decode wrote, bit for bit (a prefill of those
-        positions differs by a bf16 rounding and flips greedy near-ties).
-        The dispatches queue on the engine's stream; nothing is read."""
-        if len(replay) <= 1:
-            return  # generated[-1] rides the override lane of live decode
+    def _replay_tick(self) -> bool:
+        """Feed the replaying slots the next slice of their generated
+        prefixes, at most ``decode_block`` steps a tick in all, so a long
+        replay neither holds the other slots' streams nor stops the
+        scheduler's ticks (the watchdog's progress signal) for its whole
+        length."""
+        budget = self.decode_block
+        for i, s in enumerate(self.slots):
+            if s.replay is not None and budget > 0:
+                budget -= self._replay_decode_prefix(i, budget)
+        return budget < self.decode_block
+
+    def _replay_decode_prefix(self, slot_idx: int, n: int) -> int:
+        """Rebuild up to ``n`` more positions of a resumed request's
+        generated-prefix KV: feed the slot's next replay tokens through the
+        decode block's step body (``llama.decode_step`` over all
+        ``max_slots`` rows, this one active, the token through the override
+        lane), one token a dispatch, advancing its position. The same body
+        at the same batch width over the same inputs writes the KV the lost
+        replica's decode wrote, bit for bit (a prefill of those positions
+        differs by a bf16 rounding and flips greedy near-ties); how the
+        replay is sliced over ticks changes no input. The dispatches queue
+        on the engine's stream; nothing is read. Returns the steps fed; the
+        slot decodes once its replay is empty."""
+        s = self.slots[slot_idx]
         S = self.max_slots
-        base_pos = self.slots[slot_idx].position
         active = np.zeros((S,), bool)
         active[slot_idx] = True
         tokens = np.zeros((S,), np.int32)
         positions = np.zeros((S,), np.int32)
-        for i, tok in enumerate(replay[:-1]):
-            tokens[slot_idx] = int(tok)
-            positions[slot_idx] = base_pos + i
+        fed = s.replay[:n]
+        for tok in fed:
+            tokens[slot_idx] = tok
+            positions[slot_idx] = s.position
             tok_d, pos_d, tables_d, active_d = self._stage(tokens, positions, self._page_tables, active)
             llama.decode_step(
                 self.params, tok_d, pos_d, self.cache.k_pages, self.cache.v_pages, tables_d, active_d, self.cfg,
                 impl=self.paged_impl, scatter_impl=self.scatter_impl,
             )
+            s.position += 1
+        s.replay = s.replay[n:] or None
+        return len(fed)
 
     # -- decode -----------------------------------------------------------------
 
@@ -1969,10 +2049,11 @@ class LLMEngine:
                     self._release_slot_pages(s)
                 self._finish_stream(req, _Finish("deadline") if req.deadline_expired else _FINISH)
         _tm(tick, "policy")
+        replayed = self._replay_tick()
         if self.spec_gamma:
-            return self._spec_tick()
+            return self._spec_tick() or replayed
         live = [i for i, s in enumerate(self.slots) if s.decodable]
-        worked = False
+        worked = replayed
         if live:
             self._dispatch_block(live)
             worked = True
@@ -2088,14 +2169,16 @@ class LLMEngine:
         tok = torch.where(override_mask, override, prev)
         pos = positions
         step_keys = split(key, self.decode_block)
+        # the block's sampling noise in one derivation (it depends on the keys
+        # and positions only, not on the tokens fed forward)
+        noise = block_noise(step_keys[:n_run], seeds, positions, self.cfg.vocab_size)
         out = []
         for k in range(n_run):
             logits, _, _ = llama.decode_step(
                 self.params, tok, pos, self.cache.k_pages, self.cache.v_pages, tables, active, self.cfg,
                 impl=self.paged_impl, scatter_impl=self.scatter_impl,
             )
-            nxt = sample(logits, step_keys[k], temps, top_ps, top_ks, seeds=seeds, step_ids=pos,
-                         needs_filter=needs_filter)
+            nxt = sample(logits, step_keys[k], temps, top_ps, top_ks, needs_filter=needs_filter, noise=noise[k])
             tok = torch.where(active, nxt, tok)  # dead slots hold steady
             out.append(tok)
             pos = pos + 1

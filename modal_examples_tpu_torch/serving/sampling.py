@@ -125,6 +125,25 @@ def seeded_row_keys(key, seeds, step_ids):
     return torch.where((seeds >= 0)[:, None], seeded, base)
 
 
+def block_noise(step_keys, seeds, positions, V: int):
+    """The gumbel noise that :func:`sample` draws at each of ``n`` decode
+    steps, derived at once: [n, B, V], row (k, i) drawn with
+    ``seeded_row_keys(step_keys[k], seeds, positions + k)[i]``. Every word
+    comes from the same threefry inputs as one step's draw, so the noise is
+    bitwise a step's; one derivation issues the hash's integer ops once a
+    block instead of once a step. ``step_keys`` [n, 2], ``seeds`` and
+    ``positions`` [B]."""
+    n, B = step_keys.shape[0], seeds.shape[0]
+    lo = torch.arange(B, dtype=torch.int64, device=step_keys.device)[None, :]
+    a, b = threefry2x32(step_keys[:, :1], step_keys[:, 1:], torch.zeros_like(lo), lo)
+    base = torch.stack([a, b], dim=-1)  # split(step_keys[k], B) for every k: [n, B, 2]
+    zero = torch.zeros((B, 2), dtype=torch.int64, device=step_keys.device)
+    steps = torch.arange(n, dtype=positions.dtype, device=positions.device)[:, None]
+    seeded = fold_in(fold_in(zero, seeds)[None], positions[None, :] + steps)
+    keys = torch.where((seeds >= 0)[None, :, None], seeded, base)
+    return gumbel(keys.reshape(n * B, 2), V).reshape(n, B, V)
+
+
 def _mask_topk_topp(scaled, top_p, top_k):
     V = scaled.shape[-1]
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
@@ -142,12 +161,15 @@ def _mask_topk_topp(scaled, top_p, top_k):
     return torch.where(keep, scaled, torch.full_like(scaled, float("-inf")))
 
 
-def sample(logits, key, temperature, top_p, top_k, seeds=None, step_ids=None, *, needs_filter: bool | None = None):
+def sample(logits, key, temperature, top_p, top_k, seeds=None, step_ids=None, *, needs_filter: bool | None = None,
+           noise=None):
     """Per-row sampling of logits [B, V] (f32); temperature 0 is greedy.
     Returns int32 tokens [B]. Rows with ``seeds >= 0`` draw with their
     (seed, step_id) key; the others with splits of ``key``. ``needs_filter``
     (whether any row has top_p < 1 or top_k > 0) lets a caller that knows it
-    on the host skip the device read; None computes it from the tensors."""
+    on the host skip the device read; None computes it from the tensors.
+    ``noise`` [B, V] is this step's draw when the caller derived it already
+    (:func:`block_noise`); ``key``, ``seeds`` and ``step_ids`` are then unused."""
     B, V = logits.shape
     greedy = torch.argmax(logits, dim=-1)
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
@@ -155,11 +177,11 @@ def sample(logits, key, temperature, top_p, top_k, seeds=None, step_ids=None, *,
         needs_filter = bool(((top_p < 1.0) | (top_k > 0)).any())
     if needs_filter:
         scaled = _mask_topk_topp(scaled, top_p, top_k)
-    if seeds is not None:
+    if noise is None and seeds is not None:
         if step_ids is None:
             step_ids = torch.zeros_like(seeds)
         noise = gumbel(seeded_row_keys(key, seeds, step_ids), V)
-    else:
+    elif noise is None:
         noise = gumbel(key[None], B * V).reshape(B, V)
     sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)

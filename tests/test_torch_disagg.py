@@ -14,7 +14,9 @@ claim paths) against the JAX package, over the same tiny f32 weights:
   without leaking a page, ``tiered_prefix=True`` spills into a default host
   tier;
 - ``OpenAIServer(router=coordinator)`` serves the same tokens over HTTP;
-  the gateway's ``/disagg`` route reads the migrations.
+  the gateway's ``/disagg`` route reads the migrations;
+- the engines' turns at the interpreter go first come, and a waiter gives
+  up after its wait.
 
 Token ids are compared, never text (random tiny weights may decode to no
 printable text). Each test stops every engine it starts; no thread outlives
@@ -281,6 +283,52 @@ def test_the_openai_server_fronts_a_coordinator(weights, unified):
     finally:
         srv.stop()
         _stop(engines)
+
+
+def test_engine_turns_go_first_come_and_a_stuck_holder_stops_no_one():
+    """The engines of one process take turns at the interpreter (a tick, a
+    caller's prefill): waiters get the turn in arrival order, and a waiter
+    gives up after ``wait_s`` and runs without a turn, so a holder stuck in
+    its turn stalls no one."""
+    import time
+
+    from modal_examples_tpu_torch.serving.engine import _Turns
+
+    turns = _Turns(wait_s=5.0)
+    order: list = []
+    assert turns.acquire()
+
+    def take(name):
+        assert turns.acquire()
+        order.append(name)
+        turns.release()
+
+    first = threading.Thread(target=take, args=("first",))
+    first.start()
+    while not turns._queue:
+        time.sleep(0.001)
+    second = threading.Thread(target=take, args=("second",))
+    second.start()
+    while len(turns._queue) < 2:
+        time.sleep(0.001)
+    turns.release()
+    for t in (first, second):
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert order == ["first", "second"]
+
+    stuck = _Turns(wait_s=0.05)
+    assert stuck.acquire()
+    t0 = time.monotonic()
+    got = []
+    waiter = threading.Thread(target=lambda: got.append(stuck.acquire()))
+    waiter.start()
+    waiter.join(timeout=10)
+    assert not waiter.is_alive() and got == [False]
+    assert 0.04 <= time.monotonic() - t0 < 5.0 and not stuck._queue
+    stuck.release()
+    assert stuck.acquire()
+    stuck.release()
 
 
 def test_no_thread_of_a_stopped_fleet_survives(weights):

@@ -8,6 +8,9 @@ weights shared with the JAX package:
   are the JAX engine's, bf16 and int8 pages, greedy and seeded; the streamed
   text equals the uninterrupted text: no duplicated character;
 - ``drain_replica`` moves a queued and a running request off a replica;
+- a resume replays its generated prefix at most ``decode_block`` steps a
+  tick, its slot not decodable until the replay ends, and a live migration
+  mid-replay is token-identical;
 - a draft-mode speculating engine holds γ at 0 for an adopted or a replayed
   tenancy (``spec_hold``); a prompt-lookup one rebuilds its n-gram index
   from the shipped history;
@@ -277,6 +280,88 @@ def test_a_speculating_tenancy_that_was_adopted_or_replayed(weights, uninterrupt
         src.stop()
         eng.stop()
     assert _pages_back(eng)
+
+
+def _replaying(eng, req, ticks: int = 50):
+    """Step ``eng`` by hand until ``req``'s slot is mid-replay."""
+    for _ in range(ticks):
+        eng.step()
+        for s in eng.slots:
+            if s.request is req and s.replay is not None:
+                return s
+    raise AssertionError("the request never started its replay")
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_a_resume_replays_a_decode_block_a_tick(weights, uninterrupted, kv):
+    """A resumed request's generated prefix goes through the decode body at
+    most ``decode_block`` steps a tick, its slot not decodable until the
+    replay ends, so a long replay holds neither the other slots' streams
+    nor the scheduler's ticks for its whole length; the tokens and the text
+    are the uninterrupted run's."""
+    toks, finish, text, prompt_tokens = uninterrupted[kv, "seeded"]
+    block = ENGINE_KW["decode_block"]
+    eng = _engine(weights, kv)
+    fed: list = []
+    real = eng._replay_decode_prefix
+
+    def replay(i, n):
+        got = real(i, n)
+        fed[-1] += got
+        return got
+
+    eng._replay_decode_prefix = replay
+    gen = toks[: 5 * block + 2]
+    req = eng.make_request(PROMPT, SamplingParams(**SAMPLING["seeded"]))
+    eng.submit_resumed(req, prompt_tokens=prompt_tokens, generated=gen, emitted_len=0)
+    held = []
+    try:
+        for _ in range(60):
+            fed.append(0)
+            eng.step()
+            slot = next((s for s in eng.slots if s.request is req), None)
+            if slot is not None and slot.replay is not None:
+                held.append(not slot.decodable)
+            if slot is not None and slot.decodable:
+                assert slot.position == len(prompt_tokens) + len(gen) - 1
+                break
+        eng.start()
+        out = "".join(eng.stream(req))
+    finally:
+        eng.stop()
+    assert sum(fed) == len(gen) - 1 and max(fed) == block
+    assert len([f for f in fed if f]) == -(-(len(gen) - 1) // block)
+    assert held and all(held)
+    assert (req.generated_tokens, req.finish_reason) == (toks, finish)
+    assert out == text
+    assert _pages_back(eng)
+
+
+def test_a_live_migration_mid_replay_is_token_identical(weights, uninterrupted):
+    """A request migrated while its resume is mid-replay finishes the replay
+    on the source first, so the shipped KV covers every accepted token but
+    the last; the target continues with the uninterrupted run's tokens."""
+    toks, finish, text, prompt_tokens = uninterrupted["bfloat16", "seeded"]
+    a, b = _engine(weights), _engine(weights)
+    ra, rb = EngineReplica(a, "mr-a"), EngineReplica(b, "mr-b")
+    # a's loop never runs: this thread is its scheduler thread
+    a.migrate_out = lambda req, timeout=30.0: a._migrate_out_on_sched(req)
+    b.start()
+    try:
+        req = a.make_request(PROMPT, SamplingParams(**SAMPLING["seeded"]))
+        a.submit_resumed(req, prompt_tokens=prompt_tokens, generated=toks[:20], emitted_len=0)
+        slot = _replaying(a, req)
+        left = len(slot.replay)
+        assert left > 0
+        result = fo.migrate_request(ra, rb, req, chunk_bytes=512)
+        out = "".join(b.stream(req))
+    finally:
+        a.stop()
+        b.stop()
+    assert result == "ok" and req._router_replica is rb
+    assert (req.generated_tokens, req.finish_reason) == (toks, finish)
+    assert out == text
+    assert _pages_back(a) and _pages_back(b)
 
 
 def test_checkpoints_as_the_jax_package():

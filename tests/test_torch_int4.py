@@ -10,7 +10,10 @@ order); a whole tiny model's logits at 1e-4 of the largest logit in f32 and
 within the logit contract (cosine > 0.999, max rel < 5e-2) in bf16; QLoRA's
 loss at rtol 1e-5 and adapter gradients at ``test_torch_lora_int8.py``'s
 rtol 1e-4 (atol 1e-6). The engine's greedy stream over its own int4 tree
-equals the dense forward's argmax continuation (exact tokens). The CUDA
+equals the dense forward's argmax continuation (exact tokens).
+``chip_smoke.plain_moe`` over int4 experts matches the JAX
+``moe_swiglu_nodrop`` at 1e-4 of the largest value, and K7-int4's path rule
+(mirrored in Python) is held on shapes and alignments. The CUDA
 kernel runs only on the card: ``tests/test_torch_int4_card.py`` (marked
 ``gpu``) and ``chip_smoke.py`` phase 17 at Llama-2-7B's shapes.
 """
@@ -204,6 +207,34 @@ def test_qmm_int4_plain_matches_jax_mm(M, K, N):
     np.testing.assert_allclose(out[0].numpy(), ref, **tol)
 
 
+def _aligned_by(nbytes, shape, dtype):
+    """A contiguous tensor whose first element sits ``nbytes`` past a
+    16-byte aligned base."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    flat = torch.zeros(int(np.prod(shape)) + 16, dtype=dtype)
+    skip = (-flat.data_ptr() % 16 + nbytes) // itemsize
+    return flat[skip: skip + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.parametrize("M,K,N,x_off,w_off,want", [
+    (8, 64, 48, 0, 0, "ring"), (1, 64, 48, 0, 0, "ring"), (64, 128, 32, 0, 0, "ring"),
+    (65, 64, 48, 0, 0, "wgmma"), (2048, 64, 16, 0, 0, "wgmma"),
+    (8, 64, 40, 0, 0, "masked"), (70, 96, 24, 0, 0, "masked"), (5, 33, 16, 0, 0, "masked"),
+    (300, 36, 16, 0, 0, "masked"), (8, 64, 48, 2, 0, "masked"), (70, 64, 48, 0, 4, "masked"),
+], ids=["decode", "one-row", "m64", "m65", "prefill", "ragged-N", "ragged-N-prefill", "odd-K", "K%8",
+        "x-unaligned", "w-unaligned"])
+def test_int4_path_rule(M, K, N, x_off, w_off, want):
+    """K7-int4's path rule, mirrored in Python (``int4_path_rule``; the
+    card's ``int4_kernel_path`` asks the kernel's plan and the card tests
+    and ``chip_smoke.py`` 17a hold the two equal): the TMA paths need
+    16-byte aligned bases, N % 16 == 0 and K % 8 == 0; "ring" at M <= 64,
+    "wgmma" above; anything else "masked"."""
+    x = _aligned_by(x_off, (M, K), torch.bfloat16)
+    w = _aligned_by(w_off, ((K + 1) // 2, N), torch.uint8)
+    assert (x.data_ptr() % 16 == 0) == (x_off == 0) and (w.data_ptr() % 16 == 0) == (w_off == 0)
+    assert tqmm.int4_path_rule(x, w) == want
+
+
 def test_qmm_int4_cuda_refuses_cpu_tensors():
     before = tqmm.qmm_int4_launches
     w = tquant.quantize_weight(torch.from_numpy(_weight(6, (32, 16))), bits=4)
@@ -349,6 +380,33 @@ def test_mixtral_tiny_int4_forward_matches_jax():
     tokens = np.random.default_rng(12).integers(0, 64, (2, 16)).astype(np.int32)
     ref = np.asarray(jllama.forward(jq, jnp.asarray(tokens), jcfg, attn_impl="xla"), np.float32)
     got = tllama.forward(tparams, torch.from_numpy(tokens).long(), tcfg, attn_impl="xla").numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=LOGIT_TOL * np.abs(ref).max())
+
+
+def test_chip_smoke_plain_moe_over_int4_experts_matches_jax():
+    """``chip_smoke.plain_moe``, the card's reference for the served
+    experts, over a Mixtral-tiny layer quantized to int4 by each package:
+    each expert's view keeps ``bits`` and ``rows``, so its products go
+    through ``qmm_int4_plain``. f32 within 1e-4 of the largest output value
+    of the JAX ``moe_swiglu_nodrop`` (the same products, another summation
+    order)."""
+    import chip_smoke
+
+    from modal_examples_tpu.models import moe as jmoe
+
+    kw = dict(vocab_size=64, dim=32, n_layers=2, n_heads=2, n_kv_heads=2, ffn_dim=64, max_seq_len=128,
+              dtype="float32", n_experts=4, top_k_experts=2)
+    jcfg, tcfg = jllama.LlamaConfig(**kw), tllama.LlamaConfig(**kw)
+    jparams = jllama.init_params(jax.random.PRNGKey(6), jcfg)
+    tparams = tllama.params_from_jax(jax.tree.map(lambda a: np.asarray(a, np.float32), jparams), tcfg, device="cpu")
+    jlayer = jax.tree.map(lambda a: a[0], jquant.quantize_llama(jparams, bits=4)["layers"])
+    tlayer = tquant.quantize_llama(tparams, bits=4)["layers"][0]
+    assert tlayer["moe_down"].bits == 4 and tlayer["moe_down"].q.shape == (4, 32, 32)
+    h = np.random.default_rng(13).standard_normal((12, 32)).astype(np.float32)
+    ref, _ = jmoe.moe_swiglu_nodrop(jlayer["router"], jlayer["moe_gate"], jlayer["moe_up"], jlayer["moe_down"],
+                                    jnp.asarray(h), jcfg.top_k_experts)
+    ref = np.asarray(ref)
+    got = chip_smoke.plain_moe(tlayer, torch.from_numpy(h), tcfg, tlayers).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=LOGIT_TOL * np.abs(ref).max())
 
 

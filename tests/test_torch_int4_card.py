@@ -26,17 +26,25 @@ def _card():
         pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
 
 
+#: the path each shape must take: the TMA paths for Llama-2-7B's widths,
+#: the masked one where N % 16 != 0 or K % 8 != 0
+TMA_SHAPES = {(4096, 4096), (4096, 11008)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 8, 64, 65, 300])
+@pytest.mark.parametrize("M", [1, 8, 16, 64, 65, 128, 129, 300, 2048])
 @pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (4000, 11000), (513, 384)])
 def test_int4_matmul_kernel_matches_plain_on_card(M, K, N):
     """Run on the card (``python3 chip_smoke.py`` phase 17a covers the
-    path's shapes): one launch within 1e-3 of the plain version's largest
-    value, the same bits twice."""
+    path's shapes): one launch on the path the shape picks ("ring" at
+    M <= 64, "wgmma" above, "masked" for a ragged N or odd K), within 1e-3 of
+    the plain version's largest value, the same bits twice."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
     qw = tquant.quantize_weight(torch.randn(K, N, generator=g, device="cuda"), bits=4)
+    want_path = ("wgmma" if M > 64 else "ring") if (K, N) in TMA_SHAPES else "masked"
+    assert tqmm.int4_kernel_path(x, qw.q) == tqmm.int4_path_rule(x, qw.q) == want_path
     before = tqmm.qmm_int4_launches
     out = tqmm.qmm_int4_cuda(x, qw.q, qw.scale)
     torch.cuda.synchronize()
