@@ -34,13 +34,19 @@ than the L2); the prefill batch's 2048 tokens x 32 layers; and one layer's view 
 tokens through ``scatter_kv_layer``, cycled over the 32 layers of one
 cache. Each must be bitwise equal to its plain version (error 0.0); the
 other tree's int8 scatter may be the one before the row partition (its C
-entry takes none). Prints one JSON line per shape. Run from the repository
-root on one GPU:
+entry takes none). ``paged_decode_writeback_fold`` is the write-then-attend
+step of one layer at the decode shapes: this tree's K4 writing each
+layer's 8 new rows itself (the folded write) against the other tree's K3
+over the one-layer view followed by its K4 (a library without the folded
+write: its C entry takes no new rows), cycled over the four layers, each
+with its own new rows; its error is the largest difference from this
+tree's K3 -> K4 output (0.0: bitwise). Prints one JSON line per shape. Run
+from the repository root on one GPU:
 
     python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul|
         quantized_matmul_int4|
         paged_decode|paged_decode_int8|paged_decode_writeback|paged_decode_writeback_int8|
-        kv_scatter|kv_scatter_int8] [--rounds R]
+        paged_decode_writeback_fold|kv_scatter|kv_scatter_int8] [--rounds R]
 """
 
 from __future__ import annotations
@@ -82,6 +88,7 @@ DECODE_KERNELS = ("paged_decode", "paged_decode_int8", "paged_decode_writeback",
 SHAPES.update({kernel: DECODE_SHAPES for kernel in DECODE_KERNELS})
 SCATTER_KERNELS = ("kv_scatter", "kv_scatter_int8")
 SHAPES.update({kernel: list(cs.SCATTER_SHAPES) for kernel in SCATTER_KERNELS})
+SHAPES["paged_decode_writeback_fold"] = DECODE_SHAPES
 D = 128
 
 
@@ -99,11 +106,45 @@ def build_other(name: str, csrc: Path):
         _build.CSRC, _build.BUILD_DIR = here, build_dir
 
 
+def write_then_attend_call(args, new):
+    """One layer's write-then-attend step through whichever libraries are
+    loaded: this tree's folded K4 (one launch), or the other tree's K3 over
+    the one-layer view and then its K4 (``split_writeback_call``)."""
+    lib = _build._libs["paged_decode_writeback"]
+    k_new, v_new, page_idx, slot = new
+    if hasattr(lib, "paged_decode_writeback_folds"):
+        return pa.paged_decode_writeback_cuda(*args, sm_scale=D**-0.5, k_new=k_new, v_new=v_new, page_idx=page_idx,
+                                              slot=slot)
+    pa.scatter_kv_layer(args[1], args[2], k_new, v_new, page_idx, slot)
+    return split_writeback_call(lib, args)
+
+
+def split_writeback_call(lib, args):
+    """K4 through the C entry of the split design before the folded write
+    (no new rows)."""
+    q, k_pages, v_pages, tables, ctx = args
+    fn = lib.paged_decode_writeback
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    (B, Hq, _), (P, ps, Hkv, _) = q.shape, k_pages.shape
+    splits, work, tickets = pa._split_scratch(lib, "paged_decode_writeback", q, Hkv, ps, tables.shape[1])
+    out = torch.empty_like(q)
+    err = fn(*(_build.ptr(t) for t in (q, k_pages, v_pages, tables, ctx, out, work, tickets)), B, Hq, Hkv, D, P, ps,
+             tables.shape[1], splits, D**-0.5, _build.stream_ptr(q.device))
+    _build.check(lib, "paged_decode_writeback", err)
+    return out
+
+
 def decode_call(kernel: str, args):
     """A decode kernel through whichever library is loaded: this tree's
-    wrapper, or the C entry of the kernel before the split design (one block
-    per (sequence, kv head), no workspace)."""
+    wrapper, the write-then-attend kernel's split-design entry from before
+    the folded write, or the C entry of the kernel before the split design
+    (one block per (sequence, kv head), no workspace)."""
     lib = _build._libs[kernel]
+    if kernel == "paged_decode_writeback" and hasattr(lib, "paged_decode_writeback_split_rows") and not hasattr(
+            lib, "paged_decode_writeback_folds"):
+        return split_writeback_call(lib, args)
     if hasattr(lib, f"{kernel}_split_rows"):
         return getattr(pa, f"{kernel}_cuda")(*args, sm_scale=D**-0.5)
     if kernel == "paged_decode_writeback":  # one layer's bf16 pages, contexts counting the current token
@@ -219,6 +260,21 @@ def case(kernel: str, gen, shape):
     if kernel in SCATTER_KERNELS:
         t = cs.scatter_timed(pa, gen, shape, int8=kernel.endswith("int8"))
         return t["launch"], t["check"]
+    if kernel == "paged_decode_writeback_fold":
+        _, Hkv, lens = shape
+        c = cs.decode_case(gen, 8, 32, Hkv, L=32, lens=lens)
+        ctx = c["prefix_lens"] + 1
+        pos = (ctx - 1).long()
+        page_idx = c["page_tables"].gather(1, (pos // 16)[:, None])[:, 0].int().contiguous()
+        slot = (pos % 16).int()
+        per_layer = [([c["q"], c["k_pages"][li], c["v_pages"][li], c["page_tables"], ctx],
+                      (cs.rand_bf16(gen, 8, Hkv, D), cs.rand_bf16(gen, 8, Hkv, D), page_idx, slot))
+                     for li in cs.CYCLED_LAYERS]
+        args, new = per_layer[0]
+        pa.scatter_kv_layer(args[1], args[2], *new)
+        want = pa.paged_decode_writeback_cuda(*args, sm_scale=D**-0.5)  # this tree's K3 -> K4
+        return (cs.cycling([lambda a=a, n=n: write_then_attend_call(a, n) for a, n in per_layer]),
+                lambda: cs.max_err(write_then_attend_call(args, new), want))
     if kernel == "quantized_matmul":
         from modal_examples_tpu_torch.models.quantize import quantize_weight
 
@@ -259,7 +315,7 @@ def case(kernel: str, gen, shape):
 
 
 def describe(kernel: str, shape) -> str:
-    if kernel in DECODE_KERNELS:
+    if kernel in DECODE_KERNELS or kernel == "paged_decode_writeback_fold":
         label, Hkv, lens = shape
         return f"{label}: B=8 Hq=32 Hkv={Hkv} D={D} prefixes {list(lens)}, layers {cs.CYCLED_LAYERS} in turn"
     if kernel in ("quantized_matmul", "quantized_matmul_int4"):
@@ -285,7 +341,9 @@ def main() -> int:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     pa.scatter_int8_cuda = scatter_int8_call
-    libs = {"this": _build.load(args.kernel), "other": build_other(args.kernel, args.other.resolve())}
+    names = ["paged_decode_writeback", "kv_scatter"] if args.kernel == "paged_decode_writeback_fold" else [args.kernel]
+    libs = {"this": {n: _build.load(n) for n in names},
+            "other": {n: build_other(n, args.other.resolve()) for n in names}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape in SHAPES[args.kernel]:
         launch, check = case(args.kernel, gen, shape)
@@ -293,16 +351,16 @@ def main() -> int:
         if args.kernel in SCATTER_KERNELS:
             out["bound_ms"] = 1e3 * cs.scatter_bytes(*cs.SCATTER_SHAPES[shape], args.kernel.endswith("int8")) / cs.PEAK_BYTES
         for side, lib in libs.items():
-            _build._libs[args.kernel] = lib
+            _build._libs.update(lib)
             out[f"{side}_err"] = check()
         times = {f"{side}_{how}": [] for side in libs for how in ("ms", "single_ms", "device_ms")}
         for _ in range(args.rounds):
             for side in ("this", "other", "other", "this"):
-                _build._libs[args.kernel] = libs[side]
+                _build._libs.update(libs[side])
                 times[f"{side}_ms"].append(cs.back_to_back_ms(launch))
                 times[f"{side}_single_ms"].append(cs.time_ms(launch))
                 times[f"{side}_device_ms"].append(cs.device_ms(launch))
-        _build._libs[args.kernel] = libs["this"]
+        _build._libs.update(libs["this"])
         out.update(times)
         out.update({f"{k}_median": statistics.median(v) for k, v in times.items()})
         print(json.dumps(out), flush=True)

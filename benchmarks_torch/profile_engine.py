@@ -16,9 +16,14 @@ serves int8 weights (``quantization="int8"``, drawn from the same seed and
 quantized layer by layer) over an int8 KV cache. ``--paged-impl`` picks the
 decode structure (``pallas-writeback``: the write-then-attend decode) and
 ``--decode-steps N`` runs the macro-step program, so the decode tick is one
-dispatch of N steps. Run from the repository root on one GPU:
+dispatch of N steps. Each tick also reports its kernel launches (every
+kernel the profiler saw, counted). ``--tree DIR`` profiles another
+checkout's port (for example the parent commit's, unpacked with ``git
+archive`` into a git-ignored directory: its kernels build into its own
+``build/kernels``), so two trees are compared in turns by running this
+script once for each. Run from the repository root on one GPU:
 
-    python3 benchmarks_torch/profile_engine.py [--int8] [--paged-impl IMPL] [--decode-steps N]
+    python3 benchmarks_torch/profile_engine.py [--int8] [--paged-impl IMPL] [--decode-steps N] [--tree DIR]
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+# the port under test: this checkout's, or another's (``--tree DIR``)
+TREE = Path(sys.argv[sys.argv.index("--tree") + 1]).resolve() if "--tree" in sys.argv else ROOT
+sys.path.insert(0, str(TREE))
 
 from chip_smoke import make_requests  # noqa: E402
 from modal_examples_tpu_torch import LLMEngine, SamplingParams  # noqa: E402
@@ -48,6 +55,7 @@ KERNEL_NAMES = {
     "paged_decode_int8_split_kernel": "paged_decode_int8", "kv_scatter_int8_kernel": "kv_scatter_int8",
     "qmm_wgmma_kernel": "quantized_matmul", "qmm_ring_kernel": "quantized_matmul", "qmm_kernel": "quantized_matmul",
     "paged_decode_writeback_split_kernel": "paged_decode_writeback",
+    "paged_decode_writeback_fold_kernel": "paged_decode_writeback",
     "paged_decode_writeback_int8_split_kernel": "paged_decode_writeback_int8",
 }
 
@@ -82,6 +90,7 @@ def profiled_tick(eng: LLMEngine, name: str) -> dict:
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if kernels else "not measured",
+        "launches": sum(e.count for e in kernels),
         "port_kernels_ms": ours,
         "host_reads": {"count": sum(e.count for e in reads), "host_ms": sum(e.cpu_time_total for e in reads) / 1e3},
         "top_kernels": [
@@ -95,6 +104,7 @@ def main() -> int:
     ap.add_argument("--int8", action="store_true", help="int8 weights and an int8 KV cache")
     ap.add_argument("--paged-impl", default="xla", choices=llama.PAGED_IMPLS, help="the decode structure")
     ap.add_argument("--decode-steps", type=int, default=1, help="decode steps per dispatch (macro-step N)")
+    ap.add_argument("--tree", type=Path, default=ROOT, help="the checkout whose port to profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_engine: needs a CUDA device", file=sys.stderr)
@@ -119,8 +129,8 @@ def main() -> int:
     live = sum(not s.free for s in eng.slots)
     for r in results:
         print(json.dumps(r), flush=True)
-    print(json.dumps({"card": card, "live_slots_after": live, "requests": len(reqs), "decode_block": eng.decode_block,
-                      "decode_steps": eng.decode_steps, "plan": eng.impl_plan}))
+    print(json.dumps({"card": card, "tree": str(TREE), "live_slots_after": live, "requests": len(reqs),
+                      "decode_block": eng.decode_block, "decode_steps": eng.decode_steps, "plan": eng.impl_plan}))
     eng.stop()
     return 0
 

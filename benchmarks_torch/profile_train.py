@@ -4,7 +4,8 @@ Builds the training path of ``chip_smoke.py`` (Llama-2-7B, full depth,
 frozen random bf16 base from seed 0, or with ``--int4`` the int4 base of
 phase 17c (QLoRA, ``init_quantized_llama(bits=4)``, f32 adapters), rank-16
 LoRA on all seven projections, B=2 x S=512, ``Trainer(loss_fn,
-make_optimizer(1e-4))``),
+make_optimizer(1e-4))``; with ``--mixtral`` phase 18's path: Mixtral-8x7B
+over an int8 base from seed 0, attention-only LoRA, the capacity experts),
 takes two warm-up steps, times two more without the profiler (host clock
 around a synchronised step), then profiles one ``Trainer.train_step`` with
 ``torch.profiler``. Prints the host wall time with and without the profiler
@@ -14,7 +15,7 @@ port's kernels (flash forward, dQ, dK/dV; K7-int4's three paths), in
 matrix products and in the remaining kernels, and the kernels by total
 device time. Run from the repository root on one GPU:
 
-    python3 benchmarks_torch/profile_train.py [--int4]
+    python3 benchmarks_torch/profile_train.py [--int4 | --mixtral]
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from benchmarks_torch.profile_engine import _dev_us  # noqa: E402
-from chip_smoke import lora_training_setup  # noqa: E402
+from chip_smoke import lora_training_setup, moe_lora_setup  # noqa: E402
 from modal_examples_tpu_torch import training  # noqa: E402
 from modal_examples_tpu_torch.models import llama, lora, quantize  # noqa: E402
 
@@ -48,6 +49,7 @@ GEMM_FRAGMENTS = ("gemm", "xmma", "cutlass", "gemv", "splitK", "nvjet")
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--int4", action="store_true", help="QLoRA over an int4 base (phase 17c) instead of bf16")
+    ap.add_argument("--mixtral", action="store_true", help="Mixtral-8x7B LoRA over an int8 base (phase 18)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA device", file=sys.stderr)
@@ -56,12 +58,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    cfg = llama.LlamaConfig.llama2_7b()
-    if args.int4:
-        params = quantize.init_quantized_llama(cfg, seed=0, bits=4, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.mixtral:
+        params = quantize.init_quantized_llama(llama.LlamaConfig.mixtral_8x7b(), seed=0, bits=8, device="cuda")
+        _, _, adapters, batches, loss_over = moe_lora_setup(llama, lora, training, params, 5, [])
+        loss_fn = loss_over(params)
     else:
-        params = llama.init_params(cfg, seed=0, device="cuda")
-    _, _, adapters, batches, loss_fn = lora_training_setup(llama, lora, training, params, steps=5)
+        cfg = llama.LlamaConfig.llama2_7b()
+        if args.int4:
+            params = quantize.init_quantized_llama(cfg, seed=0, bits=4, device="cuda")
+        else:
+            params = llama.init_params(cfg, seed=0, device="cuda")
+        _, _, adapters, batches, loss_fn = lora_training_setup(llama, lora, training, params, steps=5)
     trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4))
     state = trainer.init_state(adapters)
     for batch in batches[:2]:  # warm-up
@@ -100,7 +108,7 @@ def main() -> int:
     top = sorted(kernels, key=lambda e: -_dev_us(e))[:15]
     print(json.dumps({
         "card": card,
-        "base": "int4" if args.int4 else "bf16",
+        "base": "mixtral int8" if args.mixtral else "int4" if args.int4 else "bf16",
         "step": state.step,
         "loss": metrics["loss"].item(),
         "wall_ms": wall_ms,

@@ -57,7 +57,16 @@ Phases (any failure exits non-zero and prints no result):
    zero, launched twice and required bitwise equal, with the same check
    shown to refuse planted faults (bf16: the last 64-row chunk skipped, the
    last split dropped, K2's bf16 probabilities; int8: the last page and the
-   last split dropped);
+   last split dropped); then K4 with the folded write (the step's new rows
+   written by K4 itself, ``write_then_attend``) against K3 over the
+   one-layer view followed by K4, pages and output bitwise, at those
+   contexts with dead slots (on a stale table, with an empty context, on an
+   all-trash table) and at the split edges, G = 1 and 4, and over verify
+   chains that straddle the split edges and run past the table's end; and
+   against its plain twin at K4's limits; the check shown to refuse two
+   planted faults (the longest context's write skipped, so its stale row
+   is read; the row written by the wrong split's block, a variant of the
+   kernel built for it under ``build/variants``);
 3. the engine serving 8 requests (prompts of 20..700 tokens, one chunked),
    with the launch counters zeroed just before and read just after: every
    serving kernel must have launched, the decode kernel n_layers x the
@@ -72,10 +81,12 @@ Phases (any failure exits non-zero and prints no result):
 4. the OpenAI server: one completion, one streamed chat completion;
    then (phase 3b) write-then-attend serving: ``paged_impl=
    "pallas-writeback"`` at ``decode_steps=8``, then 1, counters zeroed each
-   time: the writeback decode kernel n_layers x decode steps times, no
-   ragged decode launch, the scatter at least once a layer a step, every
-   page returned, N=8 token-identical to N=1; prefill + one writeback decode
-   step against a dense plain forward;
+   time: the writeback decode kernel n_layers x decode steps times, each
+   launch folded (writing the step's rows), no ragged decode launch, the
+   scatter only in prefills (once a prefill call), every page returned;
+   then at N=1 with the writes unfolded (K3, then K4); N=8, N=1 and the
+   unfolded run token-identical; prefill + one writeback decode step
+   against a dense plain forward;
    then int8 serving: the same weights quantized (``quantize_llama``) in an
    engine with an int8 KV cache serving the same 8 requests, counters
    zeroed: the int8 decode kernel n_layers x decode steps times, no bf16
@@ -386,6 +397,20 @@ Phases (any failure exits non-zero and prints no result):
    steps each on the card, the first step's loss and gradients within
    ``CPU_AGREE`` of the port's CPU run (f32, TF32 off). K7-int4's row joins
    the kernels line; K5's and K6's carry 17d's shape under ``joint``.
+18. Mixtral LoRA training on the capacity experts (right after phase 10,
+   over 10c's int8 tree): Mixtral-8x7B at full width and depth, frozen
+   random int8 base, rank-16 LoRA on ``wq/wk/wv/wo`` (f32 adapters), B=2 x
+   S=512, cross entropy + 0.01 x aux from ``forward(moe_impl="capacity",
+   return_aux=True)``, the experts through ``moe.CapacityExperts`` (one
+   expert's f32 matrices alive at a time, nothing widened saved). The
+   adapter gradients at a cut depth of 2 against the unplanned einsums,
+   with flash and with ``attn_impl="xla"`` attention, routed as the first
+   run (cosine >= 0.999 per target; the xla run routed freely logged);
+   then 1 + 2 counted
+   ``Trainer`` steps: K1, K5, K6 32 a step, K7 on the attention projections
+   and lm_head, the first step's saved tensors watched (no floating tensor
+   shaped as an expert stack or one expert's matrix), step ms, loss, aux, peak memory under
+   the card's.
 """
 
 from __future__ import annotations
@@ -823,6 +848,190 @@ def writeback_cases(gen, int8: bool):
                    writeback_case(gen, 8, 32, Hkv, L=4, ctx=ctx, int8=int8, dead=dead))
 
 
+# -- the folded write: K4 writing the new rows itself ---------------------------------
+
+#: the writer block of the folded write in ``csrc/paged_decode.cuh``, and
+#: the planted fault built from it: the row handed to the split after the
+#: one that holds its position (an empty split, which exits at once)
+FOLD_WRITER = "const int writer = max(n_used - 1, 0);"
+FOLD_WRONG_WRITER = "const int writer = n_used;"
+
+
+def fold_decode_case(gen, Hkv: int, ctx, dead: tuple) -> dict:
+    """A decode step of one layer through the folded write: ``writeback_case``
+    plus each slot's new K/V rows, written where its context's last row
+    sits. The slots in ``dead`` are dead: they write trash page 0, slot 0
+    with equal rows, so that race has one result (as ``scatter_case``'s
+    dead tokens), and attend their one row (or none) through their table,
+    all trash for the last slot when it is among them, a stale one for the
+    others."""
+    B, ps = len(ctx), 16
+    c = writeback_case(gen, B, 32, Hkv, L=4, ctx=ctx, dead=B - 1 in dead)
+    dead_mask = torch.zeros(B, dtype=torch.bool, device="cuda")
+    dead_mask[list(dead)] = True
+    pos = (c["context_lens"] - 1).clamp(min=0).long()
+    page = c["page_tables"].gather(1, (pos // ps)[:, None])[:, 0]
+    k_new, v_new = rand_bf16(gen, B, Hkv, 128), rand_bf16(gen, B, Hkv, 128)
+    if dead:
+        k_new[dead_mask], v_new[dead_mask] = k_new[dead[0]].clone(), v_new[dead[0]].clone()
+    c.update(k_new=k_new, v_new=v_new,
+             page_idx=torch.where(dead_mask, 0, page).int(), slot=torch.where(dead_mask, 0, pos % ps).int(),
+             positions=None, chain=1, trash_writers=int(dead_mask.sum()))
+    return c
+
+
+def fold_verify_case(gen, Hkv: int, pos0) -> dict:
+    """A verify step's rows through the folded write: chains of
+    ``VERIFY_T`` from ``pos0`` over one layer's pages (64 x 16 rows), each
+    chain row a query row, its table repeated; rows past the table's
+    capacity write trash page 0, slot 0 (``llama.verify_step``'s targets)."""
+    B, T, ps, pps = len(pos0), VERIFY_T, 16, 64
+    c = writeback_case(gen, B, 32, Hkv, L=4, ctx=[1] * B, dead=False)
+    cap = pps * ps
+    positions = torch.tensor(pos0, device="cuda")[:, None] + torch.arange(T, device="cuda")[None]
+    valid = positions < cap
+    pc = positions.clamp(max=cap - 1)
+    page = c["page_tables"].long().gather(1, pc // ps)
+    rows = B * T
+    c.update(q=rand_bf16(gen, rows, 32, 128), page_tables=c["page_tables"].repeat_interleave(T, 0),
+             context_lens=(positions + 1).clamp(max=cap).reshape(rows).int(),
+             k_new=rand_bf16(gen, rows, Hkv, 128), v_new=rand_bf16(gen, rows, Hkv, 128),
+             page_idx=torch.where(valid, page, 0).reshape(rows).int(),
+             slot=torch.where(valid, pc % ps, 0).reshape(rows).int(),
+             positions=positions.reshape(rows).int(), chain=T, trash_writers=int((~valid).sum()))
+    return c
+
+
+FOLD_NEW = ("k_new", "v_new", "page_idx", "slot", "positions", "chain")
+
+
+def fold_sequence(pa, c) -> tuple:
+    """K3 over the one-layer view, then K4: the pages and output of the
+    sequence the folded write replaces, from fresh copies of the pages."""
+    kp, vp = c["k_pages"].clone(), c["v_pages"].clone()
+    pa.scatter_kv_layer(kp, vp, c["k_new"], c["v_new"], c["page_idx"], c["slot"])
+    o = pa.paged_decode_writeback_cuda(c["q"], kp, vp, c["page_tables"], c["context_lens"], sm_scale=128**-0.5)
+    return kp, vp, o
+
+
+def fold_launch(pa, c, **changed) -> tuple:
+    """One folded launch on fresh copies of the pages: (pages, output)."""
+    kp, vp = c["k_pages"].clone(), c["v_pages"].clone()
+    new = {n: changed.get(n, c[n]) for n in FOLD_NEW}
+    o = pa.paged_decode_writeback_cuda(c["q"], kp, vp, c["page_tables"], c["context_lens"], sm_scale=128**-0.5,
+                                       **new)
+    return kp, vp, o
+
+
+def fold_differs(got: tuple, want: tuple, c) -> dict:
+    """Where a folded launch differs from K3 -> K4: pages (trash page 0's
+    row 0 left out where several rows race for it with different values,
+    and then each of its elements required to be one of theirs: the
+    writers' 16-byte stores interleave) and output, bitwise."""
+    pages = []
+    for g, w in zip(got[:2], want[:2]):
+        if c["trash_writers"] > 1 and not torch.equal(g[0, 0], w[0, 0]):
+            new = c["k_new"] if g is got[0] else c["v_new"]
+            writers = new[(c["page_idx"] == 0) & (c["slot"] == 0)]
+            pages.append(not bool((writers == g[0, 0][None]).any(dim=0).all())
+                         or not torch.equal(g[1:], w[1:]) or not torch.equal(g[0, 1:], w[0, 1:]))
+        else:
+            pages.append(not torch.equal(g, w))
+    rows = (got[2] != want[2]).flatten(1).any(dim=1)
+    return {"pages": any(pages), "rows_differing": int(rows.sum()), "output": bool(rows.any())}
+
+
+def build_variant(tag: str, name: str, path: str, old: str, new: str):
+    """``csrc/<name>.cu``'s library built from a copy of ``csrc`` with one
+    line of ``path`` changed (``old`` must occur once): a planted fault,
+    under ``build/variants/<tag>``."""
+    import ctypes
+
+    from modal_examples_tpu_torch.ops import _build
+
+    root = ROOT / "build" / "variants" / tag
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC, root / "csrc")
+    src = (root / "csrc" / path).read_text()
+    if src.count(old) != 1:
+        raise AssertionError(f"the planted fault's line {old!r} is not once in {path}")
+    (root / "csrc" / path).write_text(src.replace(old, new))
+    here = (_build.CSRC, _build.BUILD_DIR)
+    _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "kernels"
+    try:
+        _build.build([name])
+        lib = ctypes.CDLL(str(_build.library_path(name)))
+    finally:
+        _build.CSRC, _build.BUILD_DIR = here
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
+    return lib
+
+
+def fold_cases(gen):
+    """(label, case) of phase 2's folded-write checks: decode steps at
+    ``WRITEBACK_CTX`` (slot 0 dead on its stale table, slot 4's empty
+    context dead, the last slot dead on an all-trash table) and at the split
+    edges, G = 1
+    and 4; verify chains from prefixes on both sides of the split edges, at
+    page starts and past the table's end."""
+    split = decode_split_rows()
+    edges = tuple(min(n + 1, 64 * 16) for n in split_edge_lens(split))
+    for Hkv in (32, 8):
+        yield (f"K4 folded decode Hkv={Hkv}, contexts {WRITEBACK_CTX}",
+               fold_decode_case(gen, Hkv, WRITEBACK_CTX, (0, 4, len(WRITEBACK_CTX) - 1)))
+        yield f"K4 folded decode Hkv={Hkv}, contexts {edges}", fold_decode_case(gen, Hkv, edges, ())
+    pos0 = (split - 2, split - 4, 2 * split - 1, 16, 0, 333, 64 * 16 - 3, 64 * 16 - 1)
+    yield f"K4 folded verify 8 x T={VERIFY_T} from {pos0}", fold_verify_case(gen, 8, pos0)
+
+
+def check_folds(pa, gen) -> float:
+    """Phase 2's folded write: for each of ``fold_cases``, the folded K4
+    against K3 -> K4 on the same inputs, pages and output bitwise (two
+    folded launches), and against its plain twin at K4's limits
+    (``writeback_passes``); then two planted faults that the bitwise check
+    must refuse: the longest context's write skipped (its row sent to the
+    trash page, so nothing writes or stages it: the stale row is read), and
+    the row written by the wrong split's block (a variant of the kernel,
+    ``FOLD_WRONG_WRITER``: the row never lands). Returns the largest max abs
+    error against the plain twin."""
+    from modal_examples_tpu_torch.ops import _build
+
+    variant = build_variant("fold-wrong-writer", "paged_decode_writeback", "paged_decode.cuh", FOLD_WRITER,
+                            FOLD_WRONG_WRITER)
+    worst = 0.0
+    for label, c in fold_cases(gen):
+        want = fold_sequence(pa, c)
+        got, again = fold_launch(pa, c), fold_launch(pa, c)
+        torch.cuda.synchronize()
+        diff, diff2 = fold_differs(got, want, c), fold_differs(again, want, c)
+        kq, vq = c["k_pages"].clone(), c["v_pages"].clone()
+        plain = pa.paged_decode_writeback_plain(c["q"], kq, vq, c["page_tables"], c["context_lens"],
+                                                sm_scale=128**-0.5, **{n: c[n] for n in FOLD_NEW})
+        vs_plain = writeback_readings(got[2], plain, c["context_lens"])
+        longest = int(torch.where(c["page_idx"] > 0, c["context_lens"], -1).argmax())
+        to_trash = torch.tensor([longest], device="cuda")
+        skipped = fold_differs(fold_launch(pa, c, page_idx=c["page_idx"].index_fill(0, to_trash, 0),
+                                           slot=c["slot"].index_fill(0, to_trash, 0)), want, c)
+        _build._libs["paged_decode_writeback"], this = variant, _build._libs["paged_decode_writeback"]
+        try:
+            wrong = fold_differs(fold_launch(pa, c), want, c)
+        finally:
+            _build._libs["paged_decode_writeback"] = this
+        log(f"{label}: against K3 -> K4 {diff} (again {diff2}); against the plain twin {vs_plain}; planted "
+            f"faults: write of row {longest} skipped {skipped}, written by the wrong split's block {wrong}")
+        if diff["pages"] or diff["output"] or diff2["pages"] or diff2["output"]:
+            raise AssertionError(f"{label}: the folded write is not bitwise K3 -> K4: {diff}, {diff2}")
+        if not writeback_passes("paged_decode_writeback", vs_plain):
+            raise AssertionError(f"{label}: the folded write disagrees with its plain twin: {vs_plain}")
+        if not (skipped["output"] and skipped["pages"]):
+            raise AssertionError(f"{label}: the check does not see a skipped write (stale row read): {skipped}")
+        if not wrong["pages"]:
+            raise AssertionError(f"{label}: the check does not see the row written by the wrong block: {wrong}")
+        worst = max(worst, vs_plain["max_abs"])
+    return worst
+
+
 def scatter_case(gen, L, N, P, Hkv=32, D=128, ps=16, seed=2, dead=True):
     """N tokens on distinct targets (drawn from ``seed``); with ``dead``, two
     of them are dead on trash page 0 slot 0 (given equal rows, so the race
@@ -945,6 +1154,7 @@ def phase_kernels_vs_plain(fa, pa) -> dict:
         e = check_writeback(pa, "paged_decode_writeback", c, label)
         errs["paged_decode_writeback"] = max(errs.get("paged_decode_writeback", 0.0), e)
         del c
+    errs["paged_decode_writeback_folded"] = check_folds(pa, gen)
     for L, N, P in [(32, 8, 513), (32, 2048, 513)]:  # decode step; prefill batch 4 x 512
         k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P)
         kp, vp = rand_bf16(gen, L, P, 16, 32, 128), rand_bf16(gen, L, P, 16, 32, 128)
@@ -1521,32 +1731,73 @@ def phase_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams):
     return eng, metrics
 
 
+class unfolded_writes:
+    """Within it, the write-then-attend step runs as before the folded
+    write: K3 over the one-layer view, then K4 (``pa.write_then_attend``,
+    which ``llama`` looks up at each call, swapped)."""
+
+    def __init__(self, pa):
+        self.pa, self.fold = pa, pa.write_then_attend
+
+    def __enter__(self):
+        pa = self.pa
+
+        def scatter_then_attend(q, k_pages, v_pages, page_tables, context_lens, k_new, v_new, page_idx, slot, *,
+                                positions=None, chain=1, sm_scale=None):
+            pa.scatter_kv_layer(k_pages, v_pages, k_new, v_new, page_idx, slot)
+            return pa.paged_decode_attention(q, k_pages, v_pages, page_tables, context_lens, sm_scale=sm_scale)
+
+        pa.write_then_attend = scatter_then_attend
+        return self
+
+    def __exit__(self, *exc):
+        self.pa.write_then_attend = self.fold
+
+
 def phase_writeback_engine(fa, pa, llama, layers, reference, LLMEngine, SamplingParams, params) -> dict:
     """Phase 3b: the same weights and burst through ``paged_impl=
     "pallas-writeback"`` at ``decode_steps=8``, counters zeroed just before
-    and read just after; then the same engine at N=1; then the dense check
-    through the writeback decode step."""
+    and read just after: K4 once a layer a step, every launch folded (the
+    step's rows written by K4 itself), K3 only in prefills (one a prefill
+    call, as K1 is once a layer); then the same engine at N=1; then at N=1
+    with the writes unfolded (``unfolded_writes``: K3, then K4): the three
+    runs' tokens identical; then the dense check through the writeback
+    decode step."""
     cfg = llama.LlamaConfig.llama2_7b()
     eng = LLMEngine(cfg, params, paged_impl="pallas-writeback", decode_steps=8, max_slots=8, max_model_len=1024,
                     prefill_buckets=(128, 256, 512), prefill_batch=4, decode_block=8, seed=0, device="cuda")
     eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
     out = {}
-    for n in (8, 1):
+    L = cfg.n_layers
+    for n, fold in ((8, True), (1, True), (1, False)):
         eng.decode_steps = n
         fa.launches = pa.decode_launches = pa.decode_writeback_launches = pa.scatter_launches = 0
-        reqs, m = serve_burst(eng, SamplingParams, f"writeback engine, N={n}")
+        pa.decode_writeback_fold_launches = 0
+        label = f"writeback engine, N={n}" + ("" if fold else ", writes unfolded (K3, then K4)")
+        if fold:
+            reqs, m = serve_burst(eng, SamplingParams, label)
+        else:
+            with unfolded_writes(pa):
+                reqs, m = serve_burst(eng, SamplingParams, label)
         m["launches"] = {"flash_fwd": fa.launches, "paged_decode_writeback": pa.decode_writeback_launches,
+                         "paged_decode_writeback_folded": pa.decode_writeback_fold_launches,
                          "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
         steps, counts = m["dispatched_steps"], m["launches"]
-        log(f"writeback engine N={n} launches {counts}")
-        if counts["paged_decode_writeback"] != cfg.n_layers * steps or counts["paged_decode"]:
-            raise AssertionError(f"writeback launches {counts}: want {cfg.n_layers} x {steps} K4, no K2")
-        if counts["kv_scatter"] < cfg.n_layers * steps or counts["flash_fwd"] < 1:
-            raise AssertionError(f"writeback launches {counts}: want K3 once a layer a step, and K1")
-        out[n] = (reqs, m)
-    m8, m1 = out[8][1], out[1][1]
-    m8["rows_held"] = check_same_tokens(out[8][0], out[1][0], "writeback engine, N=8 against N=1")
-    metrics = {"n8": m8, "n1": m1, "launches": m8["launches"]}
+        log(f"{label} launches {counts}")
+        if counts["paged_decode_writeback"] != L * steps or counts["paged_decode"]:
+            raise AssertionError(f"writeback launches {counts}: want {L} x {steps} K4, no K2")
+        if counts["flash_fwd"] < 1 or counts["flash_fwd"] % L:
+            raise AssertionError(f"writeback launches {counts}: want K1 once a layer a prefill call")
+        prefills = counts["flash_fwd"] // L
+        want = (L * steps, prefills) if fold else (0, prefills + L * steps)
+        if (counts["paged_decode_writeback_folded"], counts["kv_scatter"]) != want:
+            raise AssertionError(f"{label} launches {counts}: want (folded K4, K3) {want}")
+        out[(n, fold)] = (reqs, m)
+    m8, m1, m1u = (out[k][1] for k in ((8, True), (1, True), (1, False)))
+    m8["rows_held"] = check_same_tokens(out[(8, True)][0], out[(1, True)][0], "writeback engine, N=8 against N=1")
+    m1["rows_held_unfolded"] = check_same_tokens(out[(1, True)][0], out[(1, False)][0],
+                                                 "writeback engine at N=1, folded against unfolded")
+    metrics = {"n8": m8, "n1": m1, "n1_unfolded": m1u, "launches": m8["launches"]}
     log(f"writeback engine: burst {m8['burst_tok_per_s']:.1f} tok/s at N=8, {m1['burst_tok_per_s']:.1f} at N=1; "
         f"decode {m8['decode_tok_per_s']:.1f} / {m1['decode_tok_per_s']:.1f} tok/s; "
         f"TTFT median {m8['ttft_s_median']:.3f}s at N=8, {m1['ttft_s_median']:.3f}s at N=1")
@@ -2013,12 +2264,13 @@ def spec_counts(fa, pa, qmm) -> dict:
     return {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches,
             "paged_decode_writeback": pa.decode_writeback_launches, "paged_decode_int8": pa.decode_int8_launches,
             "kv_scatter_int8": pa.scatter_int8_launches,
-            "paged_decode_writeback_int8": pa.decode_writeback_int8_launches, "quantized_matmul": qmm.qmm_launches}
+            "paged_decode_writeback_int8": pa.decode_writeback_int8_launches, "quantized_matmul": qmm.qmm_launches,
+            "paged_decode_writeback_folded": pa.decode_writeback_fold_launches}
 
 
 def zero_counts(fa, pa, qmm) -> None:
     fa.launches = qmm.qmm_launches = 0
-    pa.decode_launches = pa.scatter_launches = pa.decode_writeback_launches = 0
+    pa.decode_launches = pa.scatter_launches = pa.decode_writeback_launches = pa.decode_writeback_fold_launches = 0
     pa.decode_int8_launches = pa.scatter_int8_launches = pa.decode_writeback_int8_launches = 0
 
 
@@ -2050,8 +2302,12 @@ def serve_spec_burst(fa, pa, qmm, eng, SamplingParams, label: str, requests=None
         f"dispatched), proposed {proposed}, accepted {accepted}; want verify {want['verify']}, decode {want['decode']}")
     if rounds <= 0 or verify != want["verify"] or decode != want["decode"] or counts["flash_fwd"] < 1:
         raise AssertionError(f"{label}: launches {counts} against {want} ({rounds} rounds)")
-    if counts["kv_scatter_int8" if int8 else "kv_scatter"] < L * rounds:
+    # the verify writes its chain: over int8 pages by K3-int8 first, over
+    # bf16 pages by K4 itself (every verify launch folded)
+    if int8 and counts["kv_scatter_int8"] < L * rounds:
         raise AssertionError(f"{label}: the verify's scatter launched {counts} times, under once a layer a round")
+    if counts["paged_decode_writeback_folded"] != (0 if int8 else verify):
+        raise AssertionError(f"{label}: {counts}: want every bf16 verify launch folded ({verify}), no other")
     other = ("paged_decode_writeback", "paged_decode", "kv_scatter") if int8 else (
         "paged_decode_writeback_int8", "paged_decode_int8", "kv_scatter_int8")
     if any(counts[k] for k in other):
@@ -2702,8 +2958,9 @@ def phase_moe_bf16(fa, pa, qmm, llama, layers, reference, moe, LLMEngine, Sampli
             other = "paged_decode_writeback" if kernel == "paged_decode" else "paged_decode"
             if counts[kernel] != L * steps or counts[other] or counts["quantized_matmul"]:
                 raise AssertionError(f"10b {impl} N={n} launches {counts}: want {L} x {steps} {kernel} alone")
-            if counts["flash_fwd"] < 1 or counts["kv_scatter"] < (L * steps if impl != "xla" else 1):
-                raise AssertionError(f"10b {impl} N={n} launches {counts}: want K1 and K3")
+            folded = L * steps if impl != "xla" else 0  # the writeback step's rows written by K4 itself
+            if counts["flash_fwd"] < 1 or counts["kv_scatter"] < 1 or counts["paged_decode_writeback_folded"] != folded:
+                raise AssertionError(f"10b {impl} N={n} launches {counts}: want K1, K3 and {folded} folded K4")
             runs[n] = (reqs, m)
         if impl == "xla":
             runs[8][1]["rows_held"] = check_same_tokens(runs[8][0], runs[1][0], "10b mixtral bf16, N=8 against N=1")
@@ -2721,13 +2978,16 @@ def phase_moe_bf16(fa, pa, qmm, llama, layers, reference, moe, LLMEngine, Sampli
     return out
 
 
-def phase_moe_int8(fa, pa, qmm, llama, layers, reference, moe, build_engine, OpenAIServer, SamplingParams) -> dict:
+def phase_moe_int8(fa, pa, qmm, llama, layers, reference, moe, build_engine, OpenAIServer, SamplingParams,
+                   keep: dict) -> dict:
     """10c: ``build_engine("mixtral-8x7b", quantization="int8")`` at full
     depth with an int8 cache; weight bytes at most 0.52 of the bf16 count;
     phase 3's burst with the counters zeroed just before and read just after
     (K2-int8 n_layers x dispatched steps, K7 (4 + 3 E) n_layers + 1 a pass);
     the dense check over the same int8 weights and cache rows; the burst
-    again through ``OpenAIServer``; the peak memory under the card's."""
+    again through ``OpenAIServer``; the peak memory under the card's. The
+    engine stops at the end, and its int8 tree goes to ``keep["params"]``
+    (phase 18 trains over it)."""
     from modal_examples_tpu_torch.models.quantize import param_bytes
 
     gc.collect()
@@ -2771,6 +3031,8 @@ def phase_moe_int8(fa, pa, qmm, llama, layers, reference, moe, build_engine, Ope
     log(f"10c mixtral-8x7b int8: burst {m['burst_tok_per_s']:.1f} tok/s, decode {m['decode_tok_per_s']:.1f} tok/s, "
         f"TTFT median {m['ttft_s_median']:.3f}s, K7 {per_pass} a decode step, peak {out['peak_gb']:.2f} GB "
         f"of {out['card_gb']:.2f} GB")
+    eng.stop()
+    keep["params"] = eng.params
     return out
 
 
@@ -2818,9 +3080,10 @@ def moe_server_burst(eng, OpenAIServer, SamplingParams, direct: list) -> dict:
         srv.stop()
 
 
-def phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams) -> dict:
+def phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams, keep: dict) -> dict:
     """Phase 10: Mixtral-8x7B through the port's entry points (after
-    training, every earlier tree freed)."""
+    training, every earlier tree freed); 10c's int8 tree is left in
+    ``keep["params"]``."""
     from modal_examples_tpu_torch.models import moe
     from modal_examples_tpu_torch.ops import quantized_matmul as qmm
     from modal_examples_tpu_torch.serving.engine import build_engine
@@ -2834,13 +3097,261 @@ def phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, Sam
     gc.collect()
     torch.cuda.empty_cache()
     out["int8"] = phase_moe_int8(fa, pa, qmm, llama, layers, reference, moe, build_engine, OpenAIServer,
-                                 SamplingParams)
+                                 SamplingParams, keep)
     gc.collect()
     torch.cuda.empty_cache()
     launches = dict(out["bf16"]["launches"])
     for k, v in out["int8"]["burst"]["launches"].items():
         launches[k] = launches.get(k, 0) + v
     out["launches"] = launches
+    return out
+
+
+# -- phase 18: Mixtral LoRA training on the capacity experts --------------------------
+
+#: attention-only adapters, as the reference's MoE tests restrict them
+MOE_LORA_TARGETS = ("wq", "wk", "wv", "wo")
+#: the reference tests' loss: cross entropy + 0.01 x the mean aux loss
+MOE_AUX_WEIGHT = 0.01
+#: the gradient check's cut depth (the unplanned formula's widened stacks,
+#: 5.6 GB a layer, fit beside the tree there)
+MOE_GRAD_LAYERS = 2
+#: 1 warm-up and 2 timed steps (cut for time, as phase 17's)
+MOE_TRAIN_STEPS = 3
+
+
+class unplanned_experts:
+    """Within it, the capacity path runs the reference's einsums over every
+    widened stack at once (``moe.capacity_experts_plain``) in place of
+    ``moe.CapacityExperts``: the gradient check's comparison path."""
+
+    def __init__(self, moe):
+        self.moe, self.apply = moe, moe.CapacityExperts.apply
+
+    def __enter__(self):
+        self.moe.CapacityExperts.apply = self.moe.capacity_experts_plain
+
+    def __exit__(self, *exc):
+        self.moe.CapacityExperts.apply = self.apply
+
+
+class RouteReplay:
+    """The capacity path's top-k choices (``moe._topk``, called once a layer
+    in order): ``recording()`` keeps a run's, ``replaying()`` makes the next
+    run take them (each choice's probability from that run's own router, so
+    the gradient through the router stays), ``comparing()`` lets a run route
+    freely and counts the tokens whose choices differ from the recorded
+    ones. Routing is discontinuous: a bf16 rounding in the attention output
+    flips a near-tie and moves that token (and, past a full expert, the
+    ones behind it) to other experts, as phase 10's ``RouteWatch`` found
+    for serving."""
+
+    def __init__(self, moe):
+        self.moe, self.topk, self.choices, self.flips = moe, moe._topk, [], 0
+
+    def _run(self, fn):
+        class _Ctx:
+            def __enter__(ctx):
+                self.calls = 0
+                self.moe._topk = fn
+
+            def __exit__(ctx, *exc):
+                self.moe._topk = self.topk
+        return _Ctx()
+
+    def recording(self):
+        self.choices = []
+
+        def record(probs, k):
+            vals, idx = self.topk(probs, k)
+            self.choices.append(idx.detach())
+            return vals, idx
+        return self._run(record)
+
+    def replaying(self):
+        def replay(probs, k):
+            idx = self.choices[self.calls]
+            self.calls += 1
+            return probs.gather(-1, idx), idx
+        return self._run(replay)
+
+    def comparing(self):
+        self.flips = 0
+
+        def compare(probs, k):
+            vals, idx = self.topk(probs, k)
+            self.flips += int((idx != self.choices[self.calls]).any(dim=-1).sum())
+            self.calls += 1
+            return vals, idx
+        return self._run(compare)
+
+
+class SavedWatch:
+    """``torch.autograd.graph.saved_tensors_hooks`` that records the dtype
+    and element count of every tensor saved for the backward (the tensor
+    itself is handed back, nothing kept)."""
+
+    def __init__(self):
+        self.saved = []
+        self.hooks = torch.autograd.graph.saved_tensors_hooks(self.pack, lambda t: t)
+
+    def pack(self, t):
+        self.saved.append((t.dtype, t.numel(), tuple(t.shape)))
+        return t
+
+    def __enter__(self):
+        self.hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.hooks.__exit__(*exc)
+
+
+def moe_lora_setup(llama, lora, training, params, steps: int, auxes: list):
+    """Phase 18's training path: Mixtral-8x7B over the frozen int8
+    ``params``, rank-16 LoRA on ``MOE_LORA_TARGETS``, ``steps`` batches of
+    B=2 x S=512 random tokens, cross entropy + ``MOE_AUX_WEIGHT`` x aux from
+    ``forward(moe_impl="capacity", return_aux=True)`` (each aux appended to
+    ``auxes``). Returns (cfg, lcfg, adapters, batches, loss_over), where
+    ``loss_over(base)`` is the loss over ``base`` (a cut of ``params``)."""
+    cfg = llama.LlamaConfig.mixtral_8x7b()
+    lcfg = lora.LoRAConfig(rank=16, targets=MOE_LORA_TARGETS)
+    B, S = 2, 512
+    tok_gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=tok_gen, device="cuda")}
+               for _ in range(steps)]
+
+    def loss_over(base):
+        def loss_fn(ad, batch, attn_impl="flash"):
+            logits, aux = llama.forward(base, batch["tokens"], cfg, attn_impl=attn_impl, lora=ad,
+                                        lora_scale=lcfg.scale, moe_impl="capacity", return_aux=True)
+            auxes.append(aux.detach())
+            return training.cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:]) + MOE_AUX_WEIGHT * aux
+        return loss_fn
+
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(0), params, lcfg)
+    return cfg, lcfg, adapters, batches, loss_over
+
+
+def phase_moe_training(fa, qmm, llama, lora, training, moe, params, card: str) -> dict:
+    """Phase 18 (after phase 10, over 10c's int8 tree): Mixtral-8x7B at full
+    width and depth, frozen int8 base (random weights from phase 10c's
+    seed), rank-16 LoRA on the attention projections (f32 adapters), B=2 x
+    S=512 random tokens, the loss of the reference's MoE tests: cross
+    entropy + 0.01 x aux from ``forward(moe_impl="capacity",
+    return_aux=True)``, the experts at capacity factor 1.5 through
+    ``moe.CapacityExperts`` (f32 products, TF32 off). First, at a cut depth
+    of ``MOE_GRAD_LAYERS``, the adapter gradients against the same step
+    through the unplanned einsums (``unplanned_experts``) and the same flash
+    attention, and against the unplanned einsums with ``attn_impl="xla"``,
+    both routed through the first run's top-2 choices (``RouteReplay``; the
+    f32 products summed in another order are enough to move a near-tie in
+    the second layer): cosine per target at least ``GRAD_COSINE_MIN`` each;
+    the second comparison routed freely is logged with the tokens it
+    rerouted. Then, counters zeroed, 1 warm-up and 2
+    timed ``Trainer`` steps at full depth: K1, K5 and K6 n_layers times a
+    step, K7 on the attention projections (and lm_head), losses finite; the
+    first step's saved tensors watched: none is a floating tensor shaped as
+    an expert stack or one expert's matrix, nor of a stack's E x D x F
+    elements; the peak memory under the card's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    auxes = []
+    cfg, lcfg, adapters, batches, loss_over = moe_lora_setup(llama, lora, training, params, MOE_TRAIN_STEPS, auxes)
+    B, S = batches[0]["tokens"].shape
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"phase 18 mixtral-8x7b LoRA ({card}): int8 base resident, {base_gb:.2f} GB allocated; LoRA rank "
+        f"{lcfg.rank} on {lcfg.targets}, B={B} S={S}, capacity factor {cfg.expert_capacity_factor}")
+    # the gradient check at a cut depth: the planned experts and the flash
+    # kernels against the unplanned einsums and the plain attention
+    t0 = time.monotonic()
+    cut = {**params, "layers": params["layers"][:MOE_GRAD_LAYERS]}
+    cut_adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(0), cut, lcfg)
+    routes = RouteReplay(moe)
+    with routes.recording():
+        planned = adapter_grads(loss_over(cut), cut_adapters, batches[0], "flash")
+    with unplanned_experts(moe), routes.replaying():
+        same_attention = adapter_grads(loss_over(cut), cut_adapters, batches[0], "flash")
+    plan = compare_adapter_grads(planned, same_attention, lcfg.targets,
+                                 f"planned vs unplanned experts, both through flash, depth {MOE_GRAD_LAYERS}, "
+                                 f"routed as the planned run")
+    with unplanned_experts(moe), routes.replaying():
+        unplanned = adapter_grads(loss_over(cut), cut_adapters, batches[0], "xla")
+    grads = compare_adapter_grads(planned, unplanned, lcfg.targets,
+                                  f"planned experts + flash vs unplanned einsums + xla, depth {MOE_GRAD_LAYERS}, "
+                                  f"routed as the planned run")
+    with unplanned_experts(moe), routes.comparing():
+        free = adapter_grads(loss_over(cut), cut_adapters, batches[0], "xla")
+    free_cos = {t: torch.nn.functional.cosine_similarity(planned[f"{t}_b"].flatten(), free[f"{t}_b"].flatten(),
+                                                         dim=0).item() for t in lcfg.targets}
+    log(f"phase 18 the same comparison routed freely (logged, not held): cosine {free_cos}, tokens whose top-2 "
+        f"moved {routes.flips} of {B * S * MOE_GRAD_LAYERS} token-layers")
+    grad_s = time.monotonic() - t0
+    del cut, cut_adapters, planned, same_attention, unplanned, free
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if any(v.dtype != torch.float32 for v in adapters["layers"].values()):
+        raise AssertionError("adapters over an int8 base must be f32")
+    trainer = training.Trainer(loss_over(params), training.make_optimizer(1e-4))
+    state = trainer.init_state(adapters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = qmm.qmm_launches = 0
+    auxes.clear()
+    step_s, losses, per_step = [], [], []
+    watch = SavedWatch()
+    for i, batch in enumerate(batches):
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches, qmm.qmm_launches)
+        t1 = time.monotonic()
+        if i == 0:
+            with watch:
+                state, m = trainer.train_step(state, batch)
+        else:
+            state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        losses.append(m["loss"].item())
+        per_step.append([a - b for a, b in zip((fa.launches, fa.dq_launches, fa.dkv_launches, qmm.qmm_launches),
+                                               before)])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    L, D, Fd, E = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_experts
+    stack_shapes = {(E, D, Fd), (E, Fd, D), (D, Fd), (Fd, D)}  # a stack, or one expert's matrix
+    widened = [x for x in watch.saved if x[0].is_floating_point and (x[2] in stack_shapes or x[1] == E * D * Fd)]
+    k7_want = len(lcfg.targets) * L + int(hasattr(params.get("lm_head"), "scale"))
+    counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches,
+              "quantized_matmul": qmm.qmm_launches}
+    log(f"phase 18 steps: loss {losses}, aux {[a.item() for a in auxes]}, step s {step_s}, launches a step "
+        f"(K1, K5, K6, K7) {per_step}; saved tensors {len(watch.saved)}, shaped as an expert stack or matrix "
+        f"{widened}")
+    if per_step != [[L, L, L, k7_want]] * len(batches):
+        raise AssertionError(f"phase 18 launches a step {per_step}: want K1, K5, K6 {L} each and K7 {k7_want}")
+    if widened:
+        raise AssertionError(f"phase 18 saved a widened expert matrix for the backward: {widened}")
+    if not all(math.isfinite(x) for x in losses + [a.item() for a in auxes]):
+        raise AssertionError(f"non-finite MoE LoRA loss or aux: {losses}, {auxes}")
+    moved = {t: state.params["layers"][f"{t}_b"].abs().max().item() for t in lcfg.targets}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"b adapters did not move off zero: {moved}")
+    if not peak < card_gb:
+        raise AssertionError(f"phase 18 peak {peak:.2f} GB not under the card's {card_gb:.2f} GB")
+    step_med = statistics.median(step_s[1:])
+    out = {
+        "card": card, "train_tok_per_s": B * S / step_med, "step_ms_median": 1e3 * step_med,
+        "step_ms": [1e3 * x for x in step_s], "losses": losses, "aux": [a.item() for a in auxes],
+        "launches_a_step": dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul"),
+                                    per_step[-1])),
+        "peak_gb": peak, "card_gb": card_gb, "base_gb": base_gb, "saved_tensors": len(watch.saved),
+        "saved_gb": sum(n * (4 if dt == torch.float32 else 2 if dt in (torch.bfloat16, torch.float16) else 1)
+                        for dt, n, _ in watch.saved) / 1e9,
+        "grad_check_s": grad_s, "grad_check": grads, "launches": counts,
+        "grad_check_free": {"cosine": free_cos, "tokens_rerouted": routes.flips}, "grad_check_plan": plan,
+        "cut": f"1 + {MOE_TRAIN_STEPS - 1} steps (time); the gradient check at depth {MOE_GRAD_LAYERS}",
+    }
+    log(f"phase 18 metrics ({card}): {out['train_tok_per_s']:.1f} tok/s, step {out['step_ms_median']:.1f} ms "
+        f"(median of {MOE_TRAIN_STEPS - 1} after 1 warm-up), peak {peak:.2f} GB of {card_gb:.2f} GB; "
+        f"{json.dumps(out)}")
     return out
 
 
@@ -4611,6 +5122,15 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
         bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", library_ms=None, library_ms_b2b=None,
         library_op="none: no PyTorch call attends over a paged cache",
     ))
+    # the same kernel with the folded write: its own row, the sequence it
+    # replaces (K3 over the one-layer view, then K4) beside it
+    f = folded_timing(pa, gen, per_layer, nbytes)
+    rows.append(dict(
+        name="paged_decode_writeback_folded", source="modal_examples_tpu_torch/csrc/paged_decode_writeback.cu",
+        replaces="modal_examples_tpu/ops/paged_attention.py:72 with the one-layer write of :927",
+        shape=rows[-1]["shape"] + ", each launch writing its 8 new rows", **f,
+        library_ms=None, library_ms_b2b=None, library_op="none: no PyTorch call attends over a paged cache",
+    ))
     del c, per_layer, kernel
     rows.append(scatter_row(pa, gen, int8=False))
     # K5/K6 at the training path's shape: B=2, Hq=Hkv=32, S=512, D=128, causal
@@ -4656,8 +5176,51 @@ def phase_numbers(fa, pa, counts: dict, errs: dict) -> list:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_b2b", "device_ms", "plain_ms",
             "bound_ms",
             "bound_by", "library_ms", "library_ms_b2b", "library_op", "bf16_mm_ms", "bf16_mm_ms_b2b", "shape", "path",
-            "prefill", "shapes")
+            "prefill", "shapes", "unfolded_device_ms", "unfolded_ms", "unfolded_ms_b2b", "equal_to_unfolded")
     return [{k: r[k] for k in keys if k in r} for r in rows]
+
+
+def folded_timing(pa, gen, per_layer: list, nbytes: int) -> dict:
+    """K4 with the folded write at phase 5's K4 shape (``per_layer``: each
+    cycled layer's arguments): each layer's 8 new rows, where each context's
+    last row sits, written by K4 itself, against the sequence it replaces,
+    K3 over the one-layer view and then K4, on the same inputs; device time
+    (the sequence's as the sum of its two launches' readings, each in a
+    window of its own: one window over both once read less than K4 alone),
+    single-launch time, and the byte bound with the new rows read once and
+    written once."""
+    q, _, _, tables, ctx = per_layer[0]
+    B, Hkv = q.shape[0], per_layer[0][1].shape[2]
+    pos = (ctx - 1).long()
+    page_idx = tables.gather(1, (pos // 16)[:, None])[:, 0].int().contiguous()
+    slot = (pos % 16).int()
+    news = [(rand_bf16(gen, B, Hkv, 128), rand_bf16(gen, B, Hkv, 128)) for _ in per_layer]
+
+    def fold(a, n):
+        return pa.paged_decode_writeback_cuda(*a, sm_scale=128**-0.5, k_new=n[0], v_new=n[1], page_idx=page_idx,
+                                              slot=slot)
+
+    def unfold(a, n):
+        pa.scatter_kv_layer(a[1], a[2], n[0], n[1], page_idx, slot)
+        return pa.paged_decode_writeback_cuda(*a, sm_scale=128**-0.5)
+
+    folded = cycling([lambda a=a, n=n: fold(a, n) for a, n in zip(per_layer, news)])
+    unfolded = cycling([lambda a=a, n=n: unfold(a, n) for a, n in zip(per_layer, news)])
+    scatters = cycling([lambda a=a, n=n: pa.scatter_kv_layer(a[1], a[2], n[0], n[1], page_idx, slot)
+                        for a, n in zip(per_layer, news)])
+    attends = cycling([lambda a=a: pa.paged_decode_writeback_cuda(*a, sm_scale=128**-0.5) for a in per_layer])
+    a0, n0 = per_layer[0], news[0]
+    out = dict(device_ms=device_ms(folded), unfolded_device_ms=device_ms(scatters) + device_ms(attends),
+               ms=time_ms(folded),
+               unfolded_ms=time_ms(unfolded), ms_b2b=back_to_back_ms(folded),
+               unfolded_ms_b2b=back_to_back_ms(unfolded),
+               plain_ms=time_ms(lambda: pa.paged_decode_writeback_plain(
+                   *a0, sm_scale=128**-0.5, k_new=n0[0], v_new=n0[1], page_idx=page_idx, slot=slot), reps=5),
+               bound_ms=1e3 * (nbytes + 2 * 2 * B * Hkv * 128 * 2) / PEAK_BYTES, bound_by="bytes",
+               equal_to_unfolded=bool(torch.equal(fold(per_layer[0], news[0]), unfold(per_layer[0], news[0]))))
+    if not out["equal_to_unfolded"]:
+        raise AssertionError("phase 5: the folded K4 is not bitwise K3 -> K4 on the timed inputs")
+    return out
 
 
 def scatter_row(pa, gen, int8: bool) -> dict:
@@ -6601,8 +7164,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    mixtral = phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams)
+    keep = {}
+    mixtral = phase_mixtral(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams, keep)
     log(f"phase 10 mixtral-8x7b ({card}): ok in {time.monotonic() - t0:.1f}s: {json.dumps(mixtral)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    from modal_examples_tpu_torch.models import moe
+
+    moe_train = phase_moe_training(fa, qmm, llama, lora, training, moe, keep.pop("params"), card)
+    log(f"phase 18 mixtral-8x7b LoRA on the capacity experts ({card}): ok in {time.monotonic() - t0:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
     serverless = phase_serverless(SamplingParams, metrics["tokens"], decode)
@@ -6618,6 +7189,7 @@ def main() -> int:
         **serve_counts, **train_counts,
         **{k: int8_counts[k] for k in ("quantized_matmul", "paged_decode_int8", "kv_scatter_int8")},
         "paged_decode_writeback": wb_counts["paged_decode_writeback"],
+        "paged_decode_writeback_folded": wb_counts["paged_decode_writeback_folded"],
         "paged_decode_writeback_int8": wb8["launches"]["paged_decode_writeback_int8"],
         "flash_fwd": serve_counts["flash_fwd"] + int8_counts["flash_fwd"] + train_counts["flash_fwd"],
     }
@@ -6638,6 +7210,8 @@ def main() -> int:
     # phase 12's int8 LoRA steps (K7, K1, K5, K6) and phase 13's canary
     # rounds (K1, K2, K3)
     counts = {k: v + lora8["launches"].get(k, 0) + observability["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 18's Mixtral LoRA steps (K1, K5, K6, K7)
+    counts = {k: v + moe_train["launches"].get(k, 0) for k, v in counts.items()}
     # phase 15's fleet: K1 and K3 on the prefill replica, K2 and K3 on the
     # decode replicas, the int8 pages' K2-int8 and K3-int8
     counts = {k: v + fleet_layers["launches"].get(k, 0) for k, v in counts.items()}
@@ -6652,7 +7226,8 @@ def main() -> int:
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
         f"mixtral {mixtral['launches']}, phase 11's containers {serverless['container_launches']}, phase 14's "
         f"containers {rest['container_launches']}, int8 LoRA "
-        f"{lora8['launches']}, canary {observability['launches']}, fleet {fleet_layers['launches']}, tiers, autoscaler "
+        f"{lora8['launches']}, Mixtral LoRA {moe_train['launches']}, canary {observability['launches']}, fleet "
+        f"{fleet_layers['launches']}, tiers, autoscaler "
         f"and chaos {tiers['launches']}, int4 and training {p17['launches']}; kernels line (phases 8-17 summed) "
         f"{counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])

@@ -72,6 +72,37 @@
 // 8-row stages per warp all ran 0.030-0.047 ms against this design's 0.027
 // (bf16 ragged decode); none changed what bounds the kernel (PERF.md).
 //
+// The folded write (FOLD: the bf16 write-then-attend kernel's second
+// instance, launched when fold_k is non-null). The launch also takes R = B
+// new rows: row r's K/V [Hkv, D] goes to (page, slot) = (fold_page[r],
+// fold_slot[r]) of the layer's pages and sits at position fold_pos[r] of
+// sequence r (null: context_lens[r] - 1, a decode step's token); sequences
+// come in chains of ``chain`` consecutive rows that share a page table (a
+// speculative verify's T chain tokens, one row each; 1 for decode). Two
+// rules, one writer and no read-back:
+//   * a context row at position pos of sequence r that a row of r's chain
+//     writes in this launch (the chain row j = r - (fold_pos[r] - pos), when
+//     (fold_page[j], fold_slot[j]) is that row's place in r's table) is
+//     staged from fold_k/fold_v row j by the same cp.async that stages the
+//     other rows, never read back from the pages (the staging keeps each
+//     row's K and V addresses, so the copy loop takes no select);
+//   * the block (r, h, last split with rows, or 0) copies row r's head h into
+//     the pages after its P.V, 16 bytes a thread, from the copy it staged
+//     (it holds the row's position) or else from fold_k/fold_v. One block a
+//     (row, head), so no two race, except dead and past-capacity rows, which
+//     all target trash page 0, slot 0, as the scatter's do (the same race,
+//     never attended by a live sequence).
+// So no block reads a place that a block of the launch writes, the writes
+// need no ordering inside the launch, and the next launch on the stream sees
+// them. The staged bytes are those the scatter would have written: every
+// live row's result and every page are bitwise the scatter's followed by
+// this kernel's unfolded launch (a dead row attends its own trash write,
+// where that sequence attends the last of the racing trash writes).
+// Measured (NVIDIA H100 SXM, phase 5's shape, PERF.md): this form costs
+// ~1 us over the unfolded launch, against ~2 us for the scatter's launch it
+// replaces; a first form (the row copied at the block's start, a select on
+// each copy's source) cost 2.2 us, as much as the scatter.
+//
 // Partials and combine: each block writes its f32 acc[G][D], m[G], l[G] to
 // the workspace [B, Hq, n_split, D + 2]. The last block of a (sequence, kv
 // head) to take its atomic ticket merges the splits in split order, the
@@ -116,6 +147,13 @@ struct Params {
   int* tickets;                 // [B * Hkv], zero between launches
   int layer, P, ps, Hkv, G, D, pps, n_split;
   float sm_scale;
+  // the folded write (bf16 write-then-attend; fold_k null otherwise)
+  const __nv_bfloat16* fold_k;  // [B, Hkv, D] the launch's new rows
+  const __nv_bfloat16* fold_v;
+  const int* fold_page;         // [B] where each goes in the layer's pages
+  const int* fold_slot;
+  const int* fold_pos;          // [B] its position in its sequence (null: context_lens - 1)
+  int chain;                    // rows a chain, sharing a page table
 };
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16(x)); }
@@ -199,11 +237,12 @@ __host__ __device__ inline int row_stride(int D) {
 // D * sizeof(T) is).
 template <class Page>
 struct Smem {
-  size_t row, k, v, ks, vs, q, kvn, p, red, stat, wst, mw, flag, total;
-  __host__ __device__ Smem(int G, int D, int n_split) {
+  size_t row, vrow, k, v, ks, vs, q, kvn, p, red, stat, wst, mw, flag, total;
+  __host__ __device__ Smem(int G, int D, int n_split, bool fold = false) {
     const size_t rows = (size_t)SPLIT * row_stride<Page>(D);
-    row = 0;                                           // long long [SPLIT] row index of each cached row
-    k = row + SPLIT * sizeof(long long);               // T [SPLIT][D], rows row_stride bytes apart
+    row = 0;                                           // long long [SPLIT] row index of each cached row (FOLD: its K address)
+    vrow = row + SPLIT * sizeof(long long);            // FOLD only: [SPLIT] each row's V address
+    k = vrow + (fold ? SPLIT * sizeof(long long) : 0);  // T [SPLIT][D], rows row_stride bytes apart
     v = k + rows;                                      // T [SPLIT][D], the same
     ks = v + rows;                                     // float [SPLIT] K scales (int8)
     vs = ks + (Page::SCALED ? SPLIT * sizeof(float) : 0);
@@ -279,8 +318,28 @@ __device__ void merge(const Params& p, const float* vn_s, float* stat, float* mw
   }
 }
 
-template <class Page, bool INFLIGHT, bool ROUND_P>
+// The folded write's copy of sequence b's new row, head h, into (page,
+// slot) of the layer's pages: 16 bytes a thread over the block's first 2 x
+// D / 8 threads (K, then V), read from its staged copy in shared memory
+// (``staged_k``, the V row ``v_from_k`` bytes after it) or else from
+// fold_k/fold_v.
+template <class T>
+__device__ __forceinline__ void write_row(const Params& p, int b, int h, int page, int slot,
+                                          const unsigned char* staged_k, size_t v_from_k = 0) {
+  const int per = p.D * (int)sizeof(T) / 16, tid = threadIdx.x;
+  if (tid >= 2 * per) return;
+  const int a = tid / per, v = tid % per;
+  const uint4 val = staged_k != nullptr
+      ? *reinterpret_cast<const uint4*>(staged_k + (a ? v_from_k : 0) + 16 * v)
+      : reinterpret_cast<const uint4*>((a ? p.fold_v : p.fold_k) + ((size_t)b * p.Hkv + h) * p.D)[v];
+  const size_t to = (((size_t)p.layer * p.P + page) * p.ps + slot) * p.Hkv + h;
+  unsigned char* pages = (unsigned char*)const_cast<void*>(a ? p.v_pages : p.k_pages);
+  *reinterpret_cast<uint4*>(pages + to * p.D * sizeof(T) + 16 * v) = val;
+}
+
+template <class Page, bool INFLIGHT, bool ROUND_P, bool FOLD = false>
 __device__ __forceinline__ void decode_split(const Params& p) {
+  static_assert(!FOLD || (!INFLIGHT && !Page::SCALED), "the folded write is the bf16 write-then-attend kernel's");
   using T = typename Page::T;
   constexpr int VEC = Page::VEC;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -290,10 +349,17 @@ __device__ __forceinline__ void decode_split(const Params& p) {
   const int cached = min(max(p.prefix_lens[b], 0), p.pps * p.ps);  // rows to attend
   const int n_used = (cached + SPLIT - 1) / SPLIT;
   if (s >= n_used && !(s == 0 && n_used == 0)) return;  // an empty split
+  const int writer = max(n_used - 1, 0);  // the split that holds the new row's position
+  // the folded write: this sequence's own new row, its place and its
+  // position, loaded beside the context length (the staging rule and the
+  // writer read them)
+  const int mine = FOLD ? (p.fold_pos ? p.fold_pos[b] : p.prefix_lens[b] - 1) : 0;
+  const int mpage = FOLD ? p.fold_page[b] : 0, mslot = FOLD ? p.fold_slot[b] : 0;
 
-  const Smem<Page> L(G, D, p.n_split);
+  const Smem<Page> L(G, D, p.n_split, FOLD);
   const int rs = row_stride<Page>(D);
   long long* row_s = (long long*)(smem + L.row);
+  const unsigned char** vsrc_s = (const unsigned char**)(smem + L.vrow);  // FOLD
   unsigned char* k_s = smem + L.k;
   unsigned char* v_s = smem + L.v;
   float* ks_s = (float*)(smem + L.ks);
@@ -319,6 +385,7 @@ __device__ __forceinline__ void decode_split(const Params& p) {
     }
   }
   if (n_used == 0) {
+    if (FOLD) write_row<T>(p, b, h, mpage, mslot, nullptr);
     __syncthreads();
     if (INFLIGHT) new_scores(p, q_s, kn_s, snew_s);
     __syncthreads();
@@ -329,22 +396,43 @@ __device__ __forceinline__ void decode_split(const Params& p) {
   // the split's rows: a thread indexes one, and each warp stages its own 32
   // (their K as one cp.async group, then their V, the int8 scales with
   // them), neighbouring lanes on neighbouring 16 bytes of a row
+  // (FOLD: the addresses of each row's K and V instead, the new rows'
+  // in fold_k/fold_v, so the copies below take no select)
   const int t0 = s * SPLIT, n = min(SPLIT, cached - t0);
+  const size_t row_bytes = (size_t)D * sizeof(T);
   if (tid < n) {
     const int pos = t0 + tid;
     const int page = p.page_tables[(size_t)b * p.pps + pos / p.ps];
-    row_s[tid] = (((long long)p.layer * p.P + page) * p.ps + pos % p.ps) * p.Hkv + h;
+    const long long row = (((long long)p.layer * p.P + page) * p.ps + pos % p.ps) * p.Hkv + h;
+    if (FOLD) {
+      const unsigned char* kr = (const unsigned char*)p.k_pages + row * row_bytes;
+      const unsigned char* vr = (const unsigned char*)p.v_pages + row * row_bytes;
+      const int j = b - (mine - pos);  // the chain row at this position, if any
+      if (j >= b - b % p.chain && j <= b) {
+        const int fp = j == b ? mpage : p.fold_page[j], fs = j == b ? mslot : p.fold_slot[j];
+        if (fp == page && fs == pos % p.ps) {
+          kr = (const unsigned char*)(p.fold_k + ((size_t)j * p.Hkv + h) * D);
+          vr = (const unsigned char*)(p.fold_v + ((size_t)j * p.Hkv + h) * D);
+        }
+      }
+      row_s[tid] = (long long)kr;
+      vsrc_s[tid] = vr;
+    } else {
+      row_s[tid] = row;
+    }
   }
   __syncwarp();
   const int lo = warp * CHUNK, rows = max(0, min(CHUNK, n - lo));
-  const size_t row_bytes = (size_t)D * sizeof(T);
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
     const unsigned char* src = (const unsigned char*)(a ? p.v_pages : p.k_pages);
     unsigned char* dst = a ? v_s : k_s;
     for (int i = lane; i < rows * NV; i += 32) {
       const int r = lo + i / NV, v = i % NV;
-      cp_async16(dst + r * rs + 16 * v, src + row_s[r] * row_bytes + 16 * v);
+      if (FOLD)
+        cp_async16(dst + r * rs + 16 * v, (a ? vsrc_s[r] : (const unsigned char*)row_s[r]) + 16 * v);
+      else
+        cp_async16(dst + r * rs + 16 * v, src + row_s[r] * row_bytes + 16 * v);
     }
     if (Page::SCALED && lane < rows) cp_async4((a ? vs_s : ks_s) + tid, (a ? p.v_scales : p.k_scales) + row_s[tid]);
     cp_async_commit();
@@ -424,6 +512,14 @@ __device__ __forceinline__ void decode_split(const Params& p) {
     }
   }
   __syncthreads();
+  // the new row into the pages, from its staged copy when this block staged
+  // it (the writer holds its position), else from fold_k/fold_v
+  if (FOLD && s == writer) {
+    const int r = mine - t0;
+    const unsigned char* mk = (const unsigned char*)(p.fold_k + ((size_t)b * p.Hkv + h) * D);
+    const bool staged = r >= 0 && r < n && (const unsigned char*)row_s[r] == mk;
+    write_row<T>(p, b, h, mpage, mslot, staged ? smem + L.k + (size_t)r * rs : nullptr, L.v - L.k);
+  }
 
   // the block's partial: the warps' pieces merged in warp order
   float* w = p.work + ((size_t)b * Hq + h * G) * p.n_split * (D + 2);
@@ -469,7 +565,7 @@ int launch(void (*kernel)(Params), const Params& p, int B, int Hq, cudaStream_t 
       p.ps <= 0 || p.n_split <= 0 || p.n_split > 65535 || p.n_split * SPLIT < p.pps * p.ps)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const size_t smem = Smem<Page>(p.G, p.D, p.n_split).total;
+  const size_t smem = Smem<Page>(p.G, p.D, p.n_split, p.fold_k != nullptr).total;
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -645,11 +645,12 @@ def decode_step(
 
 def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg: LlamaConfig):
     """Write-then-attend decode: each layer writes this token's K/V into its
-    pages (the scatter kernel over the one-layer view on the card), then the
-    write-then-attend decode attends over ``positions + 1`` rows, reading the
-    current token back from the cache. Dead slots write trash page 0 and
-    attend one row. Both writeback impls launch the same kernel (its int8
-    twin, after the int8 scatter, over an int8 cache)."""
+    pages, then the write-then-attend decode attends over ``positions + 1``
+    rows, the current token among them (``_paged.write_then_attend``: over
+    bf16 pages on the card one launch of the write-then-attend kernel does
+    both; over an int8 cache the int8 scatter, then its int8 twin). Dead
+    slots write trash page 0 and attend one row. Both writeback impls launch
+    the same kernels."""
     B = tokens.shape[0]
     ps = k_pages.shape[2]
     cos, sin = _rope(cfg, positions[:, None])  # [B, 1, hd/2]
@@ -660,8 +661,8 @@ def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tab
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)
         k_pg, v_pg = k_pages[li], v_pages[li]  # [P, ps, Hkv, D] views
-        _paged.scatter_kv_layer(k_pg, v_pg, k[:, :, 0], v[:, :, 0], page_idx, slot)
-        o = _paged.paged_decode_attention(q[:, :, 0], k_pg, v_pg, page_tables, ctx_lens)
+        o = _paged.write_then_attend(q[:, :, 0], k_pg, v_pg, page_tables, ctx_lens, k[:, :, 0], v[:, :, 0], page_idx,
+                                     slot)
         x = _finish_layer(layer, x, o.reshape(B, 1, -1), cfg)
     return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg), k_pages, v_pages
 
@@ -673,8 +674,9 @@ def verify_step(params, tokens, positions0, k_pages, v_pages, page_tables, activ
     ``tokens[:, 0]``), active [B] bool.
 
     Each layer writes the K/V of all T chain tokens at positions0 ..
-    positions0 + T - 1 (the scatter kernel over the one-layer view on the
-    card), then attends with ``paged_verify_attention``: query t sees the
+    positions0 + T - 1 and attends with ``paged_verify_attention`` (on the
+    card over bf16 pages one launch of the write-then-attend kernel does
+    both; the scatter kernel first over int8 pages): query t sees the
     cache up to its own position, so rejected tokens' rows are overwritten
     later and never read past the accept point. Positions past the table's
     capacity write trash page 0 (a slot near its length can overshoot by up
@@ -695,11 +697,11 @@ def verify_step(params, tokens, positions0, k_pages, v_pages, page_tables, activ
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)  # q [B, Hq, T, D], k/v [B, Hkv, T, D]
         k_pg, v_pg = k_pages[li], v_pages[li]  # [P, ps, Hkv, D] views
-        _paged.scatter_kv_layer(
-            k_pg, v_pg, k.transpose(1, 2).reshape(B * T, Hkv, D), v.transpose(1, 2).reshape(B * T, Hkv, D),
-            page_idx, slot,
-        )
-        o = _paged.paged_verify_attention(q.transpose(1, 2), k_pg, v_pg, page_tables, positions)  # [B, T, Hq, D]
+        o = _paged.paged_verify_attention(
+            q.transpose(1, 2), k_pg, v_pg, page_tables, positions,
+            k_new=k.transpose(1, 2).reshape(B * T, Hkv, D), v_new=v.transpose(1, 2).reshape(B * T, Hkv, D),
+            page_idx=page_idx, slot=slot,
+        )  # [B, T, Hq, D]
         x = _finish_layer(layer, x, o.reshape(B, T, -1), cfg)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return layers.mm(x, _head(params, cfg)), k_pages, v_pages

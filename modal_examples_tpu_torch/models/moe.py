@@ -20,6 +20,15 @@ kernel with no f32 copy of any expert weight. The hidden state entering the
 layer is already bf16, so the only extra rounding is of the SwiGLU product
 before the down projection, the rounding the dense ``layers.swiglu_mlp``
 makes too. The capacity path (training scale) keeps the reference's f32.
+
+The capacity path's experts run as one ``torch.autograd.Function``
+(:class:`CapacityExperts`) with a memory plan of its own: the reference
+dequantizes every expert stack to bf16 and widens it to f32 for its einsums
+(under ``jit``, XLA decides what stays alive). Done eagerly, that held three
+f32 stacks a layer for the backward, 5.6 GB a Mixtral layer. Here one
+expert's widened matrices live at a time, nothing widened is saved, and the
+backward widens them again: the same values, the same f32 products.
+:func:`capacity_experts_plain` is the unplanned formula.
 """
 
 from __future__ import annotations
@@ -184,22 +193,92 @@ def moe_swiglu_nodrop(router, w_gate, w_up, w_down, x, top_k: int):
     return out, aux
 
 
+def _widened(w, e: int):
+    """Expert ``e``'s matrix of a stack in f32: a quantized leaf (int8 or
+    packed int4) dequantized to bf16 first, as the reference does, then
+    widened; a plain leaf widened from its own dtype."""
+    m = _expert(w, e)
+    return (dequantize_weight(m) if isinstance(m, QuantizedWeight) else m).float()
+
+
+def capacity_experts_plain(expert_in, w_gate, w_up, w_down):
+    """The capacity path's expert products as the reference writes them:
+    every stack dequantized (quantized leaves to bf16) and widened to f32 at
+    once, then ``einsum`` over all experts. expert_in [E, C, D] f32 ->
+    [E, C, D] f32. Under autograd it saves the three widened stacks; the
+    card's training path runs :class:`CapacityExperts` instead."""
+    wg, wu, wd = ((dequantize_weight(w) if isinstance(w, QuantizedWeight) else w).float()
+                  for w in (w_gate, w_up, w_down))
+    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, wg)) * torch.einsum("ecd,edf->ecf", expert_in, wu)
+    return torch.einsum("ecf,efd->ecd", h, wd)
+
+
+class CapacityExperts(torch.autograd.Function):
+    """:func:`capacity_experts_plain`'s function with a memory plan: one
+    expert at a time, each of its matrices widened to f32 (:func:`_widened`:
+    the reference's values) just before its products and dropped after
+    them. The forward saves ``expert_in`` and the stacks as they are held
+    (a :class:`~.quantize.QuantizedWeight` or a plain tensor), never a widened
+    copy; the backward widens each expert's matrices again, recomputes its
+    gate and up products (``a``, ``b``), and returns d``expert_in`` and, for a
+    plain stack that needs one, its gradient (in the stack's dtype).
+
+    Per expert, with h = silu(a) * b, a = x W_g, b = x W_u, y = h W_d:
+    dh = dy W_d^T, db = dh silu(a), da = dh b silu'(a), dx = da W_g^T +
+    db W_u^T, dW_g = x^T da, dW_u = x^T db, dW_d = h^T dy, silu'(a) =
+    sigmoid(a) (1 + a (1 - sigmoid(a)))."""
+
+    @staticmethod
+    def forward(ctx, expert_in, w_gate, w_up, w_down):
+        stacks = (w_gate, w_up, w_down)
+        ctx.quantized = [w if isinstance(w, QuantizedWeight) else None for w in stacks]
+        ctx.save_for_backward(expert_in, *(None if isinstance(w, QuantizedWeight) else w for w in stacks))
+        out = torch.empty_like(expert_in)
+        for e in range(expert_in.shape[0]):
+            x = expert_in[e]
+            h = F.silu(x @ _widened(w_gate, e)) * (x @ _widened(w_up, e))
+            out[e] = h @ _widened(w_down, e)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        expert_in, *plain = ctx.saved_tensors
+        w_gate, w_up, w_down = (q if q is not None else t for q, t in zip(ctx.quantized, plain))
+        need = [isinstance(w, torch.Tensor) and n for w, n in zip((w_gate, w_up, w_down), ctx.needs_input_grad[1:])]
+        dx = torch.empty_like(expert_in) if ctx.needs_input_grad[0] else None
+        dw = [torch.empty_like(w) if n else None for w, n in zip((w_gate, w_up, w_down), need)]
+        for e in range(expert_in.shape[0]):
+            x, dy = expert_in[e], g_out[e].float()
+            wg, wu, wd = _widened(w_gate, e), _widened(w_up, e), _widened(w_down, e)
+            a, b = x @ wg, x @ wu
+            sig = torch.sigmoid(a)
+            silu = a * sig
+            dh = dy @ wd.T
+            db = dh * silu
+            da = dh * b * (sig * (1 + a * (1 - sig)))
+            if dx is not None:
+                dx[e] = da @ wg.T + db @ wu.T
+            if dw[0] is not None:
+                dw[0][e] = (x.T @ da).to(dw[0].dtype)
+            if dw[1] is not None:
+                dw[1][e] = (x.T @ db).to(dw[1].dtype)
+            if dw[2] is not None:
+                dw[2][e] = ((silu * b).T @ dy).to(dw[2].dtype)
+        return (dx, *dw)
+
+
 def moe_swiglu_capacity(router, w_gate, w_up, w_down, x, top_k: int, capacity_factor: float):
     """Capacity-routed SwiGLU experts (the GShard dispatch): each expert
     computes only its capacity slots, about top_k / E of the no-drop work,
     for compute-bound training and prefill (tokens over capacity drop, so it
     is not the no-drop path). int8 leaves are dequantized to bf16 first, as
-    in the reference. Returns (out [T, D] f32, aux load-balance loss)."""
-    w_gate, w_up, w_down = (
-        dequantize_weight(w) if isinstance(w, QuantizedWeight) else w for w in (w_gate, w_up, w_down)
-    )
+    in the reference; the expert products run through
+    :class:`CapacityExperts` (module docstring). Returns (out [T, D] f32, aux
+    load-balance loss)."""
     E, D, Fd = w_gate.shape
     cfg = MoEConfig(n_experts=E, top_k=top_k, capacity_factor=capacity_factor, d_model=D, d_ff=Fd)
     xf = x.float()
     dispatch, combine, aux = _route(xf, router.float(), cfg, cfg.capacity(x.shape[0]))
     expert_in = torch.einsum("tec,td->ecd", dispatch, xf)  # [E, C, D]
-    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, w_gate.float())) * torch.einsum(
-        "ecd,edf->ecf", expert_in, w_up.float()
-    )
-    expert_out = torch.einsum("ecf,efd->ecd", h, w_down.float())
+    expert_out = CapacityExperts.apply(expert_in, w_gate, w_up, w_down)
     return torch.einsum("tec,ecd->td", combine, expert_out), aux

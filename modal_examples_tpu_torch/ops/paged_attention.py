@@ -20,7 +20,10 @@ Dispatch is by the tensor's device and the cache's kind and nothing else: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
 ``decode_launches``, ``decode_writeback_launches``, ``scatter_launches``,
 ``decode_int8_launches``, ``decode_writeback_int8_launches`` and
-``scatter_int8_launches`` count kernel launches.
+``scatter_int8_launches`` count kernel launches;
+``decode_writeback_fold_launches`` counts the write-then-attend kernel's
+launches that also wrote the new rows (the folded write,
+:func:`write_then_attend`), which ``decode_writeback_launches`` counts too.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .kv_quant import is_quantized, kv_gather, kv_scatter
 #: kernel launches since the last reset (the main path's proof of use)
 decode_launches = 0
 decode_writeback_launches = 0
+decode_writeback_fold_launches = 0
 scatter_launches = 0
 decode_int8_launches = 0
 decode_writeback_int8_launches = 0
@@ -227,12 +231,22 @@ def paged_decode_attention_ragged(
 # -- write-then-attend decode attention ---------------------------------------------
 
 
-def paged_decode_writeback_plain(q, k_pages, v_pages, page_tables, context_lens, *, sm_scale=None):
+def paged_decode_writeback_plain(
+    q, k_pages, v_pages, page_tables, context_lens, *, sm_scale=None,
+    k_new=None, v_new=None, page_idx=None, slot=None, positions=None, chain: int = 1,
+):
     """The kernel's function in plain PyTorch: over one layer's pages, the
     first ``context_lens[b]`` rows of each sequence (int8 pages dequantized
     at the query's dtype), ``q * scale`` in f32, an f32 softmax whose
     probabilities stay f32 in the P.V product, divided by the softmax sum; a
-    sequence with no context gives zeros."""
+    sequence with no context gives zeros. With ``k_new`` (the folded write),
+    first the rows ``k_new``/``v_new`` ``[B, Hkv, D]`` go to ``(page_idx,
+    slot)`` in place (``kv_scatter``), as the kernel writes them;
+    ``positions`` and ``chain`` only steer where the kernel stages them
+    from."""
+    if k_new is not None:
+        kv_scatter(k_pages, k_new, page_idx, slot, leading_layer=False)
+        kv_scatter(v_pages, v_new, page_idx, slot, leading_layer=False)
     B, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     pps = page_tables.shape[1]
@@ -255,15 +269,23 @@ def _decode_writeback_lib():
     lib = _build.load("paged_decode_writeback")
     fn = lib.paged_decode_writeback
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def paged_decode_writeback_cuda(q, k_pages, v_pages, page_tables, context_lens, *, sm_scale: float):
+def paged_decode_writeback_cuda(
+    q, k_pages, v_pages, page_tables, context_lens, *, sm_scale: float,
+    k_new=None, v_new=None, page_idx=None, slot=None, positions=None, chain: int = 1,
+):
     """Launch ``csrc/paged_decode_writeback.cu`` on one layer's bf16 pages
-    ``[P, ps, Hkv, D]`` (a contiguous view of the cache)."""
-    global decode_writeback_launches
+    ``[P, ps, Hkv, D]`` (a contiguous view of the cache). With ``k_new``
+    (the folded write) the launch first writes the rows ``k_new``/``v_new``
+    ``[B, Hkv, D]`` to ``(page_idx, slot)`` ``[B]`` and attends with them;
+    ``positions`` ``[B]`` is where each sits in its sequence (default
+    ``context_lens - 1``), and rows come in chains of ``chain`` that share a
+    page table (a verify's chain tokens)."""
+    global decode_writeback_launches, decode_writeback_fold_launches
     dev = q.device
     bf16 = torch.bfloat16
     _require_cuda("q", q, dev, bf16)
@@ -275,6 +297,22 @@ def paged_decode_writeback_cuda(q, k_pages, v_pages, page_tables, context_lens, 
     P, ps, Hkv, _ = k_pages.shape
     for pages in (k_pages, v_pages):
         _require_rows("writeback decode kernel", pages, D, 8)
+    fold = [None] * 5
+    if k_new is not None:
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            _require_cuda(name, t, dev, bf16)
+            if t.shape != (B, Hkv, D) or t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned [{B}, {Hkv}, {D}]; got {tuple(t.shape)}")
+        ints = {"page_idx": page_idx, "slot": slot}
+        if positions is not None:
+            ints["positions"] = positions
+        for name, t in ints.items():
+            _require_cuda(name, t, dev, torch.int32)
+            if t.shape != (B,):
+                raise ValueError(f"{name} must be [{B}]; got {tuple(t.shape)}")
+        if chain < 1 or B % chain:
+            raise ValueError(f"{B} rows do not split into chains of {chain}")
+        fold = [k_new, v_new, page_idx, slot, positions]
     out = torch.empty_like(q)
     lib = _decode_writeback_lib()
     pps = page_tables.shape[1]
@@ -282,9 +320,11 @@ def paged_decode_writeback_cuda(q, k_pages, v_pages, page_tables, context_lens, 
     err = lib.paged_decode_writeback(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(page_tables),
         _build.ptr(context_lens), _build.ptr(out), _build.ptr(work), _build.ptr(tickets),
+        *(None if t is None else _build.ptr(t) for t in fold), chain,
         B, Hq, Hkv, D, P, ps, pps, splits, sm_scale, _build.stream_ptr(dev),
     )
     decode_writeback_launches += 1
+    decode_writeback_fold_launches += k_new is not None
     _build.check(lib, "paged_decode_writeback", err)
     return out
 
@@ -375,39 +415,93 @@ def paged_decode_attention(
     return paged_decode_writeback_cuda(q.contiguous(), k_pages, v_pages, page_tables, context_lens, sm_scale=scale)
 
 
+def write_then_attend(
+    q,  # [B, Hq, D]
+    k_pages,  # [P, page_size, Hkv, D]: one layer's pages
+    v_pages,
+    page_tables,  # [B, pages_per_seq] int32
+    context_lens,  # [B] int32: tokens in the cache, the new one included
+    k_new,  # [B, Hkv, D]: the new token's K (written here)
+    v_new,
+    page_idx,  # [B] int32: where each new row goes (dead slots: trash page 0, slot 0)
+    slot,
+    *,
+    positions=None,  # [B] int32: each new row's position (default context_lens - 1)
+    chain: int = 1,  # rows a chain sharing a page table (a verify's T)
+    sm_scale: float | None = None,
+):  # [B, Hq, D]
+    """The write-then-attend step of one layer: the new rows into the pages
+    in place, then :func:`paged_decode_attention` over them. bf16 pages on
+    the card run both in one launch of the write-then-attend kernel (the
+    folded write: :func:`paged_decode_writeback_cuda` with ``k_new``), on the
+    CPU its plain twin (the scatter, then the plain attention); int8 pages
+    run :func:`scatter_kv_layer` (the int8 scatter kernel) and then the int8
+    write-then-attend kernel."""
+    if is_quantized(k_pages):
+        scatter_kv_layer(k_pages, v_pages, k_new, v_new, page_idx, slot)
+        return paged_decode_attention(q, k_pages, v_pages, page_tables, context_lens, sm_scale=sm_scale)
+    B, Hq, D = q.shape
+    _, _, Hkv, Dk = k_pages.shape
+    if Dk != D or v_pages.shape != k_pages.shape or Hq % Hkv:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
+    fold = dict(k_new=k_new.to(k_pages.dtype).contiguous(), v_new=v_new.to(v_pages.dtype).contiguous(),
+                page_idx=page_idx, slot=slot, positions=positions, chain=chain)
+    scale = D**-0.5 if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return paged_decode_writeback_plain(q, k_pages, v_pages, page_tables, context_lens, sm_scale=scale, **fold)
+    return paged_decode_writeback_cuda(q.contiguous(), k_pages, v_pages, page_tables, context_lens, sm_scale=scale,
+                                       **fold)
+
+
 def paged_verify_attention(
     q,  # [B, T, Hq, D]: a chain of T queries per sequence
-    k_pages,  # [P, page_size, Hkv, D]: one layer's pages, the chain already written
+    k_pages,  # [P, page_size, Hkv, D]: one layer's pages
     v_pages,
     page_tables,  # [B, pages_per_seq] int32
     positions,  # [B, T]: global position of each query
     *,
     sm_scale: float | None = None,
+    k_new=None,  # [B·T, Hkv, D]: the chain's K (written here), or None: already written
+    v_new=None,
+    page_idx=None,  # [B·T] int32: where each chain row goes
+    slot=None,
 ):  # [B, T, Hq, D]
     """The verify step's attention: query t of a chain attends to cache
-    positions ``<= positions[b, t]``. On the CPU this is the plain
-    ``reference.paged_verify_attention``. On the card it is the
-    write-then-attend decode over B·T rows, one a chain position: the query
-    rows ``[B·T, Hq, D]``, each sequence's page table repeated T times and
-    ``context_lens = min(positions + 1, capacity)``; int8 pages go to its int8
-    kernel. Where the reference rounds the probabilities to bf16 before P.V,
-    the bf16 kernel keeps them f32 (the int8 kernel rounds them, as the
-    reference does)."""
+    positions ``<= positions[b, t]``. With ``k_new`` the chain's rows are
+    written first (on the card by the same launch, :func:`verify_by_rows`).
+    On the CPU this is the plain ``reference.paged_verify_attention``. On
+    the card it is the write-then-attend decode over B·T rows, one a chain
+    position: the query rows ``[B·T, Hq, D]``, each sequence's page table
+    repeated T times and ``context_lens = min(positions + 1, capacity)``;
+    int8 pages go to its int8 kernel. Where the reference rounds the
+    probabilities to bf16 before P.V, the bf16 kernel keeps them f32 (the
+    int8 kernel rounds them, as the reference does)."""
     if q.device.type == "cpu":
+        if k_new is not None:
+            scatter_kv_layer(k_pages, v_pages, k_new, v_new, page_idx, slot)
         return reference.paged_verify_attention(q, k_pages, v_pages, page_tables, positions, sm_scale=sm_scale)
-    return verify_by_rows(q, k_pages, v_pages, page_tables, positions, sm_scale=sm_scale)
+    return verify_by_rows(q, k_pages, v_pages, page_tables, positions, sm_scale=sm_scale, k_new=k_new, v_new=v_new,
+                          page_idx=page_idx, slot=slot)
 
 
-def verify_by_rows(q, k_pages, v_pages, page_tables, positions, *, sm_scale: float | None = None):
+def verify_by_rows(q, k_pages, v_pages, page_tables, positions, *, sm_scale: float | None = None, k_new=None,
+                   v_new=None, page_idx=None, slot=None):
     """The card's route of :func:`paged_verify_attention`: each chain
     position a row of ``paged_decode_attention`` (the write-then-attend
-    kernels on CUDA tensors, their plain twins on CPU ones)."""
+    kernels on CUDA tensors, their plain twins on CPU ones); with ``k_new``
+    a row of :func:`write_then_attend` in chains of T, each row writing its
+    own chain token (rows past the table's capacity to the trash page, as
+    ``page_idx``/``slot`` say) and every row staging the chain tokens it
+    attends from ``k_new``/``v_new``."""
     B, T, Hq, D = q.shape
     cap = page_tables.shape[1] * k_pages.shape[1]
     ctx = (positions + 1).clamp(max=cap).reshape(B * T).to(torch.int32)
-    o = paged_decode_attention(
-        q.reshape(B * T, Hq, D), k_pages, v_pages, page_tables.repeat_interleave(T, 0), ctx, sm_scale=sm_scale
-    )
+    args = (q.reshape(B * T, Hq, D), k_pages, v_pages, page_tables.repeat_interleave(T, 0), ctx)
+    if k_new is None:
+        o = paged_decode_attention(*args, sm_scale=sm_scale)
+    else:
+        o = write_then_attend(*args, k_new, v_new, page_idx, slot, positions=positions.reshape(B * T).to(torch.int32),
+                              chain=T, sm_scale=sm_scale)
     return o.view(B, T, Hq, D)
 
 

@@ -12,6 +12,17 @@
   own int8 route (dequantize in the gather), within 1e-5 in f32; a context
   of 0 gives zeros there too. Their wrapper refuses tensors off the card.
 - ``kv_scatter(leading_layer=False)`` bitwise as JAX, bf16 and int8.
+- The folded write (the write-then-attend kernel writing the new rows
+  itself, ``write_then_attend``): its plain twin bitwise equal to
+  ``scatter_kv_layer`` followed by ``paged_decode_writeback_plain``, pages
+  and output, with a dead slot on trash page 0 and one with a stale table;
+  the entry within 1e-5 of the JAX write-then-attend (``kv_scatter``, then
+  ``paged_decode_attention(impl="xla")``) in f32; the kernel's staging rule
+  (which context rows it stages from the new rows instead of the pages),
+  mirrored here, giving bitwise the scatter-then-attend output for decode
+  steps and for verify chains that straddle the kernel's split edge and run
+  past the table's capacity; the verify route with the chain's rows folded
+  against the scatter followed by the reference verify attention.
 - ``llama.decode_step`` for each of the four impls against the JAX function
   with the same impl (tiny f32): logits and pages within 1e-5 of their
   largest value; the writeback structure over an int8 cache the same way.
@@ -219,6 +230,218 @@ def test_kv_scatter_one_layer_is_bitwise_jax(dtype):
         np.testing.assert_array_equal(port.scale.numpy(), np.asarray(ref.scale))
     else:
         np.testing.assert_array_equal(port.float().numpy(), np.asarray(ref, np.float32))
+
+
+# -- the folded write ------------------------------------------------------------------
+
+
+def _split_rows() -> int:
+    src = (Path(tpa.__file__).resolve().parent.parent / "csrc" / "paged_decode.cuh").read_text()
+    return int(re.search(r"constexpr int SPLIT = (\d+);", src).group(1))
+
+
+def _fold_case(seed, hq, hkv, ctx, pps=PPS, dtype=torch.float32):
+    """A decode step's write-then-attend over one layer (``_case``'s pages and
+    tables; its last slot dead on an all-trash table), the new rows written
+    where each context's last row sits; the first slot also dead, with the
+    stale table a freed slot keeps. Dead slots attend one row and write trash
+    page 0, slot 0 with equal rows (so the race there has one result, as
+    ``scatter_kv_pages`` says)."""
+    c = _case(seed, hq, hkv, ctx=ctx, pps=pps)
+    rng = np.random.default_rng(seed + 100)
+    B = len(ctx)
+    c["ctx"][0] = 1
+    dead = np.zeros(B, bool)
+    dead[[0, B - 1]] = True
+    pos = c["ctx"] - 1
+    page_idx = np.where(dead, 0, c["tables"][np.arange(B), pos // PS]).astype(np.int32)
+    slot = np.where(dead, 0, pos % PS).astype(np.int32)
+    k_new = rng.standard_normal((B, hkv, D)).astype(np.float32)
+    v_new = rng.standard_normal((B, hkv, D)).astype(np.float32)
+    k_new[0], v_new[0] = k_new[-1], v_new[-1]
+    q, kp, vp, tables, lens = _port_args(c, dtype)
+    return dict(q=q, kp=kp, vp=vp, tables=tables, ctx=lens, k_new=torch.from_numpy(k_new).to(dtype),
+                v_new=torch.from_numpy(v_new).to(dtype), page_idx=torch.from_numpy(page_idx),
+                slot=torch.from_numpy(slot), np=c)
+
+
+FOLD_CTX = [1, PS, PS + 1, 17, PPS * PS, 1]
+
+
+@pytest.mark.parametrize("hq,hkv", GROUPS)
+def test_folded_twin_is_the_scatter_then_the_plain_attention(hq, hkv):
+    """Bitwise, pages and output, in bf16: the plain twin of the folded
+    kernel against the sequence it replaces."""
+    f = _fold_case(11, hq, hkv, FOLD_CTX, dtype=torch.bfloat16)
+    new = dict(k_new=f["k_new"], v_new=f["v_new"], page_idx=f["page_idx"], slot=f["slot"])
+    kp, vp = f["kp"].clone(), f["vp"].clone()
+    got = tpa.paged_decode_writeback_plain(f["q"], kp, vp, f["tables"], f["ctx"], **new)
+    kq, vq = f["kp"].clone(), f["vp"].clone()
+    tpa.scatter_kv_layer(kq, vq, f["k_new"], f["v_new"], f["page_idx"], f["slot"])
+    want = tpa.paged_decode_writeback_plain(f["q"], kq, vq, f["tables"], f["ctx"])
+    assert torch.equal(kp, kq) and torch.equal(vp, vq) and torch.equal(got, want)
+    assert not torch.equal(kp, f["kp"])  # the rows went in
+    kr, vr = f["kp"].clone(), f["vp"].clone()
+    assert torch.equal(tpa.write_then_attend(f["q"], kr, vr, f["tables"], f["ctx"], **new), want)
+    assert torch.equal(kr, kq) and torch.equal(vr, vq)
+
+
+@pytest.mark.parametrize("hq,hkv", GROUPS)
+def test_folded_entry_matches_the_jax_write_then_attend(hq, hkv):
+    """``write_then_attend`` against the JAX package's two calls, in f32:
+    ``kv_scatter`` into one layer's pages, then ``paged_decode_attention``
+    (the xla formulation); pages bitwise, output within 1e-5."""
+    f = _fold_case(12, hq, hkv, FOLD_CTX)
+    c = f["np"]
+    jk = jkv.kv_scatter(jnp.asarray(c["kp"]), jnp.asarray(f["k_new"].numpy()), jnp.asarray(f["page_idx"].numpy()),
+                        jnp.asarray(f["slot"].numpy()), leading_layer=False)
+    jv = jkv.kv_scatter(jnp.asarray(c["vp"]), jnp.asarray(f["v_new"].numpy()), jnp.asarray(f["page_idx"].numpy()),
+                        jnp.asarray(f["slot"].numpy()), leading_layer=False)
+    ref = jpa.paged_decode_attention(jnp.asarray(c["q"]), jk, jv, jnp.asarray(c["tables"]),
+                                     jnp.asarray(f["ctx"].numpy()), impl="xla")
+    kp, vp = f["kp"].clone(), f["vp"].clone()
+    got = tpa.write_then_attend(f["q"], kp, vp, f["tables"], f["ctx"], f["k_new"], f["v_new"], f["page_idx"],
+                                f["slot"])
+    np.testing.assert_array_equal(kp.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(vp.numpy(), np.asarray(jv))
+    _close(got, ref, 1e-5)
+
+
+def _staged_rows(tables, ctx, page_idx, slot, positions, chain):
+    """The write-then-attend kernel's staging rule, mirrored
+    (``csrc/paged_decode.cuh``, the folded write): for row r, the context
+    positions it stages from the launch's new rows, as {position: new row}.
+    A position pos takes the chain row j = r - (positions[r] - pos) when j is
+    in r's chain and that row's target is pos's place in r's table."""
+    out = []
+    for r in range(len(ctx)):
+        n, mine, first = min(int(ctx[r]), tables.shape[1] * PS), int(positions[r]), r - r % chain
+        staged = {}
+        for pos in range(n):
+            j = r - (mine - pos)
+            if first <= j <= r and page_idx[j] == tables[r, pos // PS] and slot[j] == pos % PS:
+                staged[pos] = j
+        out.append(staged)
+    return out
+
+
+def _attend_as_staged(q, kp, vp, tables, ctx, k_new, v_new, staged):
+    """Each row's output over the pages as they stood before the launch,
+    its staged positions taken from the new rows (plain attention, f32)."""
+    outs = []
+    for r, rows in enumerate(staged):
+        k, v = kp.clone(), vp.clone()
+        for pos, j in rows.items():
+            k[tables[r, pos // PS], pos % PS], v[tables[r, pos // PS], pos % PS] = k_new[j], v_new[j]
+        outs.append(tpa.paged_decode_writeback_plain(q[r:r + 1], k, v, tables[r:r + 1], ctx[r:r + 1]))
+    return torch.cat(outs)
+
+
+def test_the_kernels_staging_rule_gives_the_scatter_then_attend_decode():
+    """A decode step: every live slot stages exactly its new row, at its
+    context's last position; the dead slot on an all-trash table stages its
+    own trash row, the one with a stale table stages nothing; and the result
+    is bitwise the scatter followed by the attention."""
+    f = _fold_case(13, 4, 2, FOLD_CTX)
+    positions = f["ctx"] - 1
+    staged = _staged_rows(f["tables"], f["ctx"], f["page_idx"], f["slot"], positions, 1)
+    B = len(FOLD_CTX)
+    assert staged[0] == {} and staged[-1] == {0: B - 1}
+    assert all(staged[r] == {int(positions[r]): r} for r in range(1, B - 1))
+    got = _attend_as_staged(f["q"], f["kp"], f["vp"], f["tables"], f["ctx"], f["k_new"], f["v_new"], staged)
+    kq, vq = f["kp"].clone(), f["vp"].clone()
+    want = tpa.write_then_attend(f["q"], kq, vq, f["tables"], f["ctx"], f["k_new"], f["v_new"], f["page_idx"],
+                                 f["slot"])
+    assert torch.equal(got, want)
+
+
+def _verify_fold_case(seed, T, pos0, pps, hq=4, hkv=2):
+    """B chains of T tokens each at positions pos0[b].. over one layer's
+    pages, the tables full; rows past the table's capacity target trash
+    page 0, slot 0 (``llama.verify_step``'s targets)."""
+    rng = np.random.default_rng(seed)
+    B = len(pos0)
+    P = 1 + B * pps
+    tables = torch.from_numpy((rng.permutation(P - 1)[: B * pps] + 1).reshape(B, pps).astype(np.int32))
+    positions = torch.tensor(pos0)[:, None] + torch.arange(T)[None, :]
+    cap = pps * PS
+    valid = positions < cap
+    pc = positions.clamp(max=cap - 1)
+    page_idx = torch.where(valid, tables.gather(1, (pc // PS).long()), 0).int().reshape(B * T)
+    slot = torch.where(valid, pc % PS, 0).int().reshape(B * T)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    return dict(q=t(B, T, hq, D), kp=t(P, PS, hkv, D), vp=t(P, PS, hkv, D), tables=tables, positions=positions,
+                k_new=t(B * T, hkv, D), v_new=t(B * T, hkv, D), page_idx=page_idx, slot=slot, cap=cap)
+
+
+def test_the_kernels_staging_rule_gives_the_scatter_then_attend_verify():
+    """Verify chains of 5 at positions that straddle the kernel's split edge
+    (``SPLIT`` rows a block), start a page, and run past the table's
+    capacity: each chain row stages every chain row at or before it that
+    lands in its table, the rows past capacity none of theirs, and the
+    result is bitwise the scatter followed by the rows' attention."""
+    split, T = _split_rows(), 5
+    pps = 2 * split // PS
+    cap = pps * PS
+    pos0 = [split - 2, split - 5, PS, cap - 2, 0]
+    f = _verify_fold_case(14, T, pos0, pps)
+    B = len(pos0)
+    rows_q = f["q"].reshape(B * T, 4, D)
+    tables = f["tables"].repeat_interleave(T, 0)
+    ctx = (f["positions"] + 1).clamp(max=cap).reshape(B * T).int()
+    positions = f["positions"].reshape(B * T).int()
+    staged = _staged_rows(tables, ctx, f["page_idx"], f["slot"], positions, T)
+    for b, p0 in enumerate(pos0):
+        for t in range(T):
+            want = {p0 + i: b * T + i for i in range(t + 1) if p0 + i < cap}
+            assert staged[b * T + t] == want, (b, t)
+    got = _attend_as_staged(rows_q, f["kp"], f["vp"], tables, ctx, f["k_new"], f["v_new"], staged)
+    kq, vq = f["kp"].clone(), f["vp"].clone()
+    want = tpa.verify_by_rows(f["q"], kq, vq, f["tables"], f["positions"], k_new=f["k_new"], v_new=f["v_new"],
+                              page_idx=f["page_idx"], slot=f["slot"])
+    assert torch.equal(got, want.reshape(B * T, 4, D))
+
+
+def test_verify_route_with_the_chain_folded_matches_the_reference():
+    """``verify_by_rows`` writing the chain (its CPU route: the plain twin)
+    against ``scatter_kv_layer`` and the reference verify attention, f32
+    within 1e-5; ``paged_verify_attention`` with the chain's rows on the CPU
+    is bitwise those two calls, pages too."""
+    split = _split_rows()
+    pps = 2 * split // PS
+    f = _verify_fold_case(15, 5, [split - 2, PS - 1, pps * PS - 3], pps)
+    new = dict(k_new=f["k_new"], v_new=f["v_new"], page_idx=f["page_idx"], slot=f["slot"])
+    kq, vq = f["kp"].clone(), f["vp"].clone()
+    tpa.scatter_kv_layer(kq, vq, f["k_new"], f["v_new"], f["page_idx"], f["slot"])
+    ref = tref.paged_verify_attention(f["q"], kq, vq, f["tables"], f["positions"])
+    kp, vp = f["kp"].clone(), f["vp"].clone()
+    _close(tpa.verify_by_rows(f["q"], kp, vp, f["tables"], f["positions"], **new), ref.numpy(), 1e-5)
+    assert torch.equal(kp, kq) and torch.equal(vp, vq)
+    kp, vp = f["kp"].clone(), f["vp"].clone()
+    assert torch.equal(tpa.paged_verify_attention(f["q"], kp, vp, f["tables"], f["positions"], **new), ref)
+    assert torch.equal(kp, kq) and torch.equal(vp, vq)
+
+
+def test_int8_pages_write_then_attend_through_the_int8_scatter():
+    """Over int8 pages ``write_then_attend`` is the int8 scatter, then the
+    int8 write-then-attend route: bitwise those two calls."""
+    f = _fold_case(16, 4, 2, FOLD_CTX)
+    a, b = (tkv.quantize_kv(f["kp"]), tkv.quantize_kv(f["vp"])), (tkv.quantize_kv(f["kp"]), tkv.quantize_kv(f["vp"]))
+    got = tpa.write_then_attend(f["q"], *a, f["tables"], f["ctx"], f["k_new"], f["v_new"], f["page_idx"], f["slot"])
+    tpa.scatter_kv_layer(*b, f["k_new"], f["v_new"], f["page_idx"], f["slot"])
+    want = tpa.paged_decode_attention(f["q"], *b, f["tables"], f["ctx"])
+    assert torch.equal(got, want)
+    for x, y in zip(a, b):
+        assert torch.equal(x.data, y.data) and torch.equal(x.scale, y.scale)
+
+
+def test_folded_wrapper_refuses_cpu_tensors_and_bad_rows():
+    f = _fold_case(17, 4, 2, FOLD_CTX, dtype=torch.bfloat16)
+    before = (tpa.decode_writeback_launches, tpa.decode_writeback_fold_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa.paged_decode_writeback_cuda(f["q"], f["kp"], f["vp"], f["tables"], f["ctx"], sm_scale=1.0,
+                                        k_new=f["k_new"], v_new=f["v_new"], page_idx=f["page_idx"], slot=f["slot"])
+    assert (tpa.decode_writeback_launches, tpa.decode_writeback_fold_launches) == before
 
 
 # -- the model's decode step ---------------------------------------------------------
