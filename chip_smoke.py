@@ -411,6 +411,32 @@ Phases (any failure exits non-zero and prints no result):
    and lm_head, the first step's saved tensors watched (no floating tensor
    shaped as an expert stack or one expert's matrix), step ms, loss, aux, peak memory under
    the card's.
+19. tensor and data parallelism (after phase 17, in rank processes that end
+   with the phase; Llama-2-7B at full width, random weights from phase 3's
+   seed, each rank drawing them and keeping its shards): 19a one rank over
+   NCCL, ``LLMEngine(mesh=make_mesh({"tensor": 1}))`` behind
+   ``OpenAIServer``, phase 3's burst held as phase 3 queues it (its greedy
+   and seeded rows equal to phase 3's tokens; the model's collectives
+   counted on the one-wide group); 19b two ranks in two processes sharing
+   the one card over gloo with CUDA tensors: each collective the path calls
+   probed on CUDA tensors (a refused one staged through host tensors by the
+   phase, and logged), prefill and one decode step's logits against the
+   one-card port (cosine > 0.999, max rel err < 5e-2, greedy tokens by the
+   top-2 margin rule), K1, K2, K3, K4 (folded) and K7 against their plain
+   versions at the per-shard shapes, phase 3's burst through rank 0's
+   server on the read-only and write-then-attend structures, bf16 and int8
+   (weights and pages; the int8 model cut to depth 8 for time), with
+   ``tp="2"`` on ``/metrics``, and the dense path at depth 4; 19c data-parallel LoRA (the 7B bf16 base on each rank, rank
+   16 on the seven projections, B=1 a rank x S=512): the ``pmean``-ed
+   adapter gradients against one rank's B=2 gradients (cosine >= 0.999 per
+   target), then 1 + 2 ``Trainer`` steps, step ms and each rank's peak;
+   19d ring and Ulysses attention over the two ranks (S = 2 x 2048, H 32, D
+   128, causal and full) against K1 over the whole sequence, the ring's
+   gradients (K5, K6) against the whole-sequence backward (within twice
+   K5/K6's tolerance: each within it of the exact gradient); 19e
+   ``@clustered(size=1)`` with ``gpu="H100"``: one container joins an NCCL
+   group of one and runs K1. No figure of 19b-19d is a multi-card speed:
+   two ranks share one card.
 """
 
 from __future__ import annotations
@@ -7072,6 +7098,709 @@ def phase_int4_and_training(fa, pa, qmm, errs: dict, int8_peak_gb: float, card: 
     return out
 
 
+# -- phase 19: tensor and data parallelism over torch.distributed --------------------
+
+
+#: 19b's Llama-2-7B depth for the int8 bursts and the bf16 write-then-attend
+#: burst: cut from 32 to 8 for time (every collective of two ranks sharing
+#: one card over gloo is a host round trip; listed in PERF.md §4); the
+#: read-only bf16 burst and the logit check run all 32 layers
+TP_CUT_LAYERS = 8
+#: the dense path's depth (a cut) and its prompts x new tokens
+TP_DENSE_LAYERS, TP_DENSE_SHAPE = 4, (4, 16)
+#: 19b's logit check: 4 prompts of 96 tokens prefilled, then one decode step
+TP_LOGIT_SHAPE = (4, 96)
+#: 19d: B, H, S over two ranks, D
+RING_SHAPE = (1, 32, 2 * 2048, 128)
+#: the collectives 19b checks on CUDA tensors over gloo
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all", "broadcast_object_list")
+#: 19c: the global batch (B = 1 a rank), the steps after the warm one
+DP_BATCH, DP_STEPS = (2, 512), 2
+DP_PADDED_LEN = 320  # 19c's second row: 320 of its 512 tokens counted
+
+
+class AllToAllByGather:
+    """``torch.distributed`` with ``all_to_all`` done by one ``all_gather``
+    through host tensors: the phase's own stand-in for ``parallel.
+    collectives``' ``dist`` (the port's collectives never stage on their
+    own), installed where gloo refuses all_to_all (19b's probe; on the
+    card's torch build gloo has no alltoall at all, CPU tensors neither).
+    Every rank's sends are gathered and this rank's blocks taken."""
+
+    def __init__(self, dist):
+        self._dist = dist
+
+    def __getattr__(self, name):
+        return getattr(self._dist, name)
+
+    def all_to_all(self, recv, send, group=None):
+        me = self._dist.get_rank(group=group)
+        flat = torch.cat([s.reshape(-1) for s in send]).cpu()
+        parts = [torch.empty_like(flat) for _ in recv]
+        self._dist.all_gather(parts, flat, group=group)
+        start = sum(s.numel() for s in send[:me])
+        for r, p in zip(recv, parts):
+            r.copy_(p[start:start + r.numel()].view(r.shape))
+
+
+class P2PThroughHost:
+    """``torch.distributed`` with ``batch_isend_irecv`` done through host
+    copies: the phase's own stand-in for ``parallel.collectives``' ``dist``
+    in 19d (gloo's send and recv take CPU tensors only). Each op's tensor is
+    copied to the host and exchanged; a received one is copied back."""
+
+    def __init__(self, dist):
+        self.inner = dist
+        self.staged = 0  # exchanges staged
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def batch_isend_irecv(self, ops):
+        host = [op.tensor.cpu() for op in ops]
+        staged = [self.inner.P2POp(op.op, h, op.peer, op.group, op.tag) for op, h in zip(ops, host)]
+        for work in self.inner.batch_isend_irecv(staged):
+            work.wait()
+        for op, h in zip(ops, host):
+            if op.op is self.inner.irecv:
+                op.tensor.copy_(h)
+        self.staged += 1
+        return []
+
+
+def gloo_cuda_probe() -> dict:
+    """Each collective the phase's paths call, once on CUDA tensors over the
+    gloo group of every rank: "ok", or the error gloo raised (a finding)."""
+    import torch.distributed as dist
+
+    out = {}
+    x = torch.ones(4, device="cuda")
+    for op in GLOO_CUDA_OPS:
+        try:
+            if op == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = y.sum().item() == 4 * dist.get_world_size()
+            elif op == "broadcast":
+                y = x.clone()
+                dist.broadcast(y, src=0)
+                ok = True
+            elif op == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+                dist.all_gather(parts, x)
+                ok = all(p.sum().item() == 4 for p in parts)
+            elif op == "all_to_all":
+                send = list(torch.ones(dist.get_world_size(), 2, device="cuda").unbind(0))
+                recv = [torch.empty_like(s) for s in send]
+                dist.all_to_all(recv, send)
+                ok = all(r.sum().item() == 2 for r in recv)
+            else:
+                box = [{"probe": 1} if dist.get_rank() == 0 else None]
+                dist.broadcast_object_list(box, src=0)
+                ok = box[0] == {"probe": 1}
+            torch.cuda.synchronize()
+            out[op] = "ok" if ok else "wrong result"
+        except RuntimeError as e:  # a refusal on CUDA tensors is this probe's finding
+            out[op] = f"refused: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def stage_refused(collectives, probe: dict) -> list:
+    """All-to-all by gather where gloo refused it (``AllToAllByGather``, in
+    this rank's ``parallel.collectives``); any other refusal fails the
+    phase. Returns the ops staged."""
+    import torch.distributed as dist
+
+    other = {op: r for op, r in probe.items() if r != "ok" and op != "all_to_all"}
+    if other:
+        raise AssertionError(f"19b: gloo refused collectives the TP path needs on CUDA tensors: {other}")
+    if probe["all_to_all"] == "ok":
+        return []
+    collectives.dist = AllToAllByGather(dist)
+    return ["all_to_all"]
+
+
+def kernel_counts(fa, pa, qmm) -> dict:
+    return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches,
+            "paged_decode": pa.decode_launches, "paged_decode_int8": pa.decode_int8_launches,
+            "kv_scatter": pa.scatter_launches, "kv_scatter_int8": pa.scatter_int8_launches,
+            "paged_decode_writeback": pa.decode_writeback_launches,
+            "paged_decode_writeback_folded": pa.decode_writeback_fold_launches,
+            "paged_decode_writeback_int8": pa.decode_writeback_int8_launches, "quantized_matmul": qmm.qmm_launches}
+
+
+def zero_kernel_counts(fa, pa, qmm) -> None:
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    pa.decode_launches = pa.decode_int8_launches = pa.scatter_launches = pa.scatter_int8_launches = 0
+    pa.decode_writeback_launches = pa.decode_writeback_fold_launches = pa.decode_writeback_int8_launches = 0
+    qmm.qmm_launches = 0
+
+
+def held_burst(eng, OpenAIServer, SamplingParams, hold: bool) -> tuple:
+    """Phase 3's 8 requests as concurrent streamed ``/v1/completions``
+    through an ``OpenAIServer`` on ``eng`` (with ``hold``: parked until all
+    8 arrived, then queued shortest prompt first, as phase 3's direct burst
+    queues them, so the engine finds them at one tick). Returns (the bodies,
+    the streamed answers, the engine's requests in prompt order, /metrics,
+    wall seconds)."""
+    import concurrent.futures
+
+    bodies = [{"prompt": p, "max_tokens": sp.max_tokens, "temperature": sp.temperature, "top_p": sp.top_p,
+               "stream": True, "stream_options": {"include_usage": True},
+               **({} if sp.seed is None else {"seed": sp.seed})} for p, sp in make_requests(SamplingParams)]
+    recorded, lock = [], __import__("threading").Lock()
+    submit = eng.submit_request
+
+    def recording_submit(req):
+        with lock:
+            recorded.append(req)
+            if hold and len(recorded) < len(bodies):
+                return req  # parked
+            batch = sorted(recorded, key=lambda r: len(r.prompt_tokens)) if hold else [req]
+            for r in batch:
+                submit(r)
+        return req
+
+    eng.submit_request = recording_submit
+    server = OpenAIServer(eng, model_name="llama2-7b", port=0).start()
+    base = f"http://{server.host}:{server.port}"
+    try:
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            got = list(pool.map(lambda b: stream_completion(base, b), bodies))
+        wall = time.monotonic() - t0
+        settle(eng)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        check_pages_returned(eng, "19 burst")
+    finally:
+        eng.submit_request = submit
+        server.stop()  # and the engine (a tensor-parallel engine's stop releases its followers)
+    by_prompt = {r.prompt: r for r in recorded}
+    reqs = [by_prompt[b["prompt"]] for b in bodies]
+    for b, g, r in zip(bodies, got, reqs):
+        check_finish(r)
+        if (g["completion_tokens"], g["finish"]) != (r.n_generated, r.finish_reason):
+            raise AssertionError(f"19: the streamed answer ({g}) is not the engine's request ({r.n_generated}, "
+                                 f"{r.finish_reason})")
+    return bodies, got, reqs, metrics, wall
+
+
+def tp_engine_kw() -> dict:
+    """Phase 3's engine settings."""
+    return dict(max_slots=8, max_model_len=1024, prefill_buckets=(128, 256, 512), prefill_batch=4, decode_block=8,
+                seed=0)
+
+
+def tp19a(rank: int, rows_path: str) -> dict:
+    """19a (one rank over NCCL): Llama-2-7B at full width and depth through
+    ``LLMEngine(mesh=make_mesh({"tensor": 1}))`` and ``OpenAIServer``,
+    phase 3's burst held as phase 3 queues it; its greedy and seeded rows
+    must equal phase 3's tokens exactly; the model's collectives run on the
+    one-wide NCCL group and are counted. Then the same held burst through
+    the engine with no mesh, timed in the same process."""
+    from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams
+    from modal_examples_tpu_torch.models import llama
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.ops import paged_attention as pa
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+    from modal_examples_tpu_torch.parallel import collectives, make_mesh
+    from modal_examples_tpu_torch.parallel.cluster import rank_backend
+
+    mesh = make_mesh({"tensor": 1})
+    cfg = llama.LlamaConfig.llama2_7b()
+    eng = LLMEngine(cfg, mesh=mesh, device="cuda", **tp_engine_kw())
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))  # phase 3's warm-up
+    zero_kernel_counts(fa, pa, qmm)
+    collectives.counts.clear()
+    _, got, reqs, metrics, wall = held_burst(eng, OpenAIServer, SamplingParams, hold=True)
+    launches = kernel_counts(fa, pa, qmm)
+    calls = dict(collectives.counts)
+    rows = json.loads(Path(rows_path).read_text())
+    held = equal = 0
+    for r, (tokens, finish) in zip(reqs, rows):
+        if r.params.temperature > 0 and r.params.seed is None:
+            continue  # an engine-assigned seed: set at arrival
+        held += 1
+        equal += (list(r.generated_tokens), r.finish_reason) == (tokens, finish)
+    if equal != held:
+        raise AssertionError(f"19a: {held - equal} of {held} greedy and seeded rows differ from phase 3's tokens")
+    if min(launches[k] for k in ("flash_fwd", "paged_decode", "kv_scatter")) <= 0 or not calls.get("psum"):
+        raise AssertionError(f"19a: launches {launches}, collectives {calls}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same held burst through the engine with no mesh, in this process:
+    # what the one-wide group's collectives cost end to end
+    one = LLMEngine(cfg, device="cuda", **tp_engine_kw())
+    one.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    _, got_one, reqs_one, _, wall_one = held_burst(one, OpenAIServer, SamplingParams, hold=True)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = sum(list(a.generated_tokens) == list(b.generated_tokens) for a, b in zip(reqs, reqs_one))
+    return {"backend": rank_backend(), "world": 1, "rows_held": held, "rows_equal": equal, "launches": launches,
+            "collective_calls": calls, "burst_tok_per_s": sum(g["completion_tokens"] for g in got) / wall,
+            "burst_tok_per_s_no_mesh": sum(g["completion_tokens"] for g in got_one) / wall_one,
+            "rows_equal_to_no_mesh": same, "metrics_tp": 'tp="1"' in metrics}
+
+
+def margin_rule(got, ref) -> dict:
+    """The port's logit contract (cosine, max relative error) and greedy
+    tokens by the top-2 margin rule: a row's argmax must agree wherever the
+    reference's top-2 margin exceeds twice the largest logit error."""
+    g, r = got.float().flatten(1), ref.float().flatten(1)
+    cos = torch.nn.functional.cosine_similarity(g, r, dim=1).min().item()
+    err = (g - r).abs().max().item()
+    rel = err / r.abs().max().item()
+    top2 = r.topk(2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1])
+    clear = margin > 2 * err
+    agree = (g.argmax(1) == r.argmax(1))
+    return {"cosine_min": cos, "max_rel_err": rel, "max_abs_err": err, "rows_clear": int(clear.sum()),
+            "rows_clear_agreeing": int((agree & clear).sum()), "rows_agreeing": int(agree.sum()),
+            "ok": cos > CONTRACT["cosine_min"] and rel < CONTRACT["max_rel_err"] and bool((agree | ~clear).all())}
+
+
+def tp_logits(llama, cfg, params, mesh, tokens, tables, lens) -> tuple:
+    """Prefill ``tokens``, then one decode step of each row's greedy token:
+    both logits (bf16 pages, one layer's cache for this rank's heads)."""
+    from modal_examples_tpu_torch.ops.sharded import mesh_tp_degree
+    from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
+
+    tp = mesh_tp_degree(mesh)
+    c = PagedKVCache.create(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads // tp, head_dim=cfg.head_dim,
+                            n_pages=1 + tables.numel(), page_size=16, kv_dtype="bfloat16", device="cuda")
+    with torch.no_grad():
+        pre, kp, vp = llama.prefill(params, tokens, c.k_pages, c.v_pages, tables, lens, cfg, mesh=mesh)
+        nxt = pre.argmax(-1).int()
+        dec, _, _ = llama.decode_step(params, nxt, lens, kp, vp, tables, torch.ones_like(lens, dtype=torch.bool), cfg,
+                                      mesh=mesh)
+    return pre, dec
+
+
+def tp_logit_inputs(cfg):
+    B, S = TP_LOGIT_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    pps = (S + 1 + 15) // 16
+    tables = (1 + torch.arange(B * pps, device="cuda", dtype=torch.int32)).reshape(B, pps)
+    lens = torch.tensor([S, S - 17, S - 40, 33][:B], dtype=torch.int32, device="cuda")
+    return tokens, tables, lens
+
+
+def tp19_reference(llama, path: Path) -> None:
+    """The one-card port's prefill and decode logits on phase 3's weights,
+    for 19b (computed here, before the ranks start)."""
+    cfg = llama.LlamaConfig.llama2_7b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    pre, dec = tp_logits(llama, cfg, params, None, *tp_logit_inputs(cfg))
+    torch.save({"prefill": pre.cpu(), "decode": dec.cpu()}, path)
+    del params
+
+
+def local_kernels(fa, pa, qmm, gen) -> dict:
+    """Each kernel of the TP path against its plain version at one rank's
+    shapes at TP=2 (16 of 32 heads): K1, K2, K3, K4 with the folded write,
+    K7 column- and row-parallel."""
+    out = {}
+    q, k, v = flash_case(gen, 4, 16, 16, 512, 512)
+    o, _ = fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=128**-0.5)
+    want, _ = fa.flash_forward_plain(q, k, v, causal=True, sm_scale=128**-0.5)
+    out["flash_fwd"] = max_err(o, want)
+    c = decode_case(gen, 8, 16, 16, L=4)
+    out["paged_decode"] = check_decode("paged_decode", pa.paged_decode_cuda, pa.paged_decode_plain, c,
+                                       "19b K2 at 16 kv heads")
+    L, N, P = 32, 8, 513
+    k_all, v_all, page_idx, slot = scatter_case(gen, L, N, P, Hkv=16)
+    kp, vp = rand_bf16(gen, L, P, 16, 16, 128), rand_bf16(gen, L, P, 16, 16, 128)
+    kq, vq = kp.clone(), vp.clone()
+    pa.scatter_cuda(kp, vp, k_all, v_all, page_idx, slot)
+    pa.scatter_plain(kq, vq, k_all, v_all, page_idx.long(), slot.long())
+    out["kv_scatter"] = max(max_err(kp, kq), max_err(vp, vq))
+    B, ctx = 8, [1, 16, 17, 1001, 334, 512, 700, 1]
+    c = writeback_case(gen, B, 16, 16, L=4, ctx=ctx, dead=True)
+    pos = (c["context_lens"] - 1).long()
+    page = c["page_tables"].gather(1, (pos // 16)[:, None])[:, 0]
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[-1] = False
+    fold = dict(k_new=rand_bf16(gen, B, 16, 128), v_new=rand_bf16(gen, B, 16, 128),
+                page_idx=torch.where(live, page, 0).int(), slot=torch.where(live, pos % 16, 0).int())
+    kp, vp = c["k_pages"].clone(), c["v_pages"].clone()
+    o = pa.paged_decode_writeback_cuda(c["q"], kp, vp, c["page_tables"], c["context_lens"], sm_scale=128**-0.5,
+                                       **fold)
+    kq, vq = c["k_pages"].clone(), c["v_pages"].clone()
+    want = pa.paged_decode_writeback_plain(c["q"], kq, vq, c["page_tables"], c["context_lens"], sm_scale=128**-0.5,
+                                           **fold)
+    if not (torch.equal(kp, kq) and torch.equal(vp, vq)):
+        raise AssertionError("19b: the folded write's pages differ from its plain version's at 16 kv heads")
+    out["paged_decode_writeback_folded"] = rel_err(o, want)
+    for K, Nn in ((4096, 2048), (2048, 4096)):
+        w = torch.randn(K, Nn, generator=gen, device="cuda")
+        wq, ws = qmm.quantize_int8(w)
+        for M in (8, 512):
+            x = rand_bf16(gen, M, K)
+            out[f"quantized_matmul {M}x{K}x{Nn}"] = rel_err(qmm.qmm_cuda(x, wq, ws), qmm.qmm_plain(x, wq, ws))
+    torch.cuda.synchronize()
+    limits = {"flash_fwd": TOL["flash_fwd"], "paged_decode": TOL["paged_decode"], "kv_scatter": 0.0,
+              "paged_decode_writeback_folded": TOL["paged_decode_writeback"]}
+    for name, e in out.items():
+        lim = limits.get(name, TOL["quantized_matmul"])
+        if not e <= lim:
+            raise AssertionError(f"19b: {name} at the per-shard shape disagrees with its plain version: {e} > {lim}")
+    return out
+
+
+def tp_serve(m, cfg, mesh, rank: int, label: str, **kw) -> dict:
+    """One 8-request burst through rank 0's TP engine and server (rank 1
+    follows): finish reasons, token counts, pages returned, ``tp="2"`` on
+    /metrics. The kernels launched: rank 0's burst, and the follower's whole
+    run with its warm-up's (rank 0's ``warm_up`` counts) to subtract."""
+    fa, pa, qmm = m["fa"], m["pa"], m["qmm"]
+    zero_kernel_counts(fa, pa, qmm)
+    if rank:
+        m["follow"](cfg, mesh=mesh, device="cuda")
+        return {"launches": kernel_counts(fa, pa, qmm)}
+    eng = m["LLMEngine"](cfg, mesh=mesh, device="cuda", **tp_engine_kw(), **kw)
+    try:
+        eng.generate("warm up", m["SamplingParams"](max_tokens=2, temperature=0.0))
+        settle(eng)
+        warm = kernel_counts(fa, pa, qmm)
+        zero_kernel_counts(fa, pa, qmm)
+        _, got, reqs, metrics, wall = held_burst(eng, m["OpenAIServer"], m["SamplingParams"], hold=True)
+        launches = kernel_counts(fa, pa, qmm)
+        plan = dict(eng.impl_plan)
+    finally:
+        eng.stop()  # releases the follower (a no-op once the server stopped it)
+    if 'tp="2"' not in metrics:
+        raise AssertionError(f"19b {label}: /metrics does not carry tp=\"2\"")
+    out = {"launches": launches, "warm_up": warm, "plan": plan, "wall_s": wall,
+           "tok_per_s_two_ranks_sharing_one_card_over_gloo": sum(g["completion_tokens"] for g in got) / wall,
+           "finish": [r.finish_reason for r in reqs], "tokens": [len(r.generated_tokens) for r in reqs]}
+    log(f"19b {label}: {json.dumps(out)}")
+    return out
+
+
+def dense_logits(tensor_parallel, params, cfg, tokens, mesh):
+    """``decode_step_dense``'s logits [B, T - 1, V] with ``tokens`` [B, T]
+    fed one position at a time (the dense cache; ``mesh``: this rank's
+    shards)."""
+    if mesh is not None:
+        params = tensor_parallel.shard_params_tp(params, cfg, mesh)
+    B, T = tokens.shape
+    cache = tensor_parallel.DenseKVCache.create(cfg, B, T, mesh, dtype=params["embed"].dtype, device="cuda")
+    out = []
+    with torch.no_grad():
+        for pos in range(T - 1):
+            positions = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+            logits, cache = tensor_parallel.decode_step_dense(params, tokens[:, pos], cache, positions, cfg, mesh=mesh)
+            out.append(logits.float())
+    return torch.stack(out, dim=1)
+
+
+def tp19b(rank: int, ref_path: str) -> dict:
+    """19b (two ranks in two processes sharing the one card, gloo over CUDA
+    tensors): the collectives probed, the logits against the one-card port,
+    the kernels at the per-shard shapes, four bursts through rank 0's
+    server, the dense path at a cut depth."""
+    import torch.distributed as dist
+
+    from modal_examples_tpu_torch import LLMEngine, OpenAIServer, SamplingParams
+    from modal_examples_tpu_torch.models import llama
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.ops import paged_attention as pa
+    from modal_examples_tpu_torch.ops import quantized_matmul as qmm
+    from modal_examples_tpu_torch.parallel import collectives, make_mesh
+    from modal_examples_tpu_torch.serving import tensor_parallel
+    from modal_examples_tpu_torch.serving.engine import follow
+
+    t0 = time.monotonic()
+    probe = gloo_cuda_probe()
+    staged = stage_refused(collectives, probe)
+    mesh = make_mesh({"tensor": 2})
+    cfg = llama.LlamaConfig.llama2_7b()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "gloo_cuda": probe,
+           "staged_through_host": staged}
+    params = llama.init_params(cfg, seed=0, device="cuda", map_layer=lambda layer: llama.shard_layer(layer, cfg, mesh))
+    params = llama.shard_params(params, cfg, mesh, layers=False)
+    out["rank_weights_gb"] = sum(t.numel() * t.element_size() for t in
+                                 [params["embed"], params["lm_head"], *(w for l in params["layers"]
+                                                                         for w in l.values())]) / 1e9
+    pre, dec = tp_logits(llama, cfg, params, mesh, *tp_logit_inputs(cfg))
+    ref = torch.load(ref_path)
+    out["logits"] = {"prefill": margin_rule(pre.cpu(), ref["prefill"]), "decode": margin_rule(dec.cpu(), ref["decode"])}
+    if not all(v["ok"] for v in out["logits"].values()):
+        raise AssertionError(f"19b: TP=2 logits outside the contract: {out['logits']}")
+    del params, pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kernels_at_local_shapes"] = local_kernels(fa, pa, qmm, torch.Generator(device="cuda").manual_seed(rank))
+    m = dict(fa=fa, pa=pa, qmm=qmm, LLMEngine=LLMEngine, OpenAIServer=OpenAIServer, SamplingParams=SamplingParams,
+             follow=follow)
+    cut = dataclasses.replace(cfg, n_layers=TP_CUT_LAYERS)
+    out["bursts"] = {}
+    for label, kw, c in (("read-only bf16", {}, cfg), ("write-then-attend bf16", {"paged_impl": "pallas-writeback"}, cut),
+                         ("int8 weights and pages", {"quantization": "int8", "kv_dtype": "int8"}, cut),
+                         ("int8 write-then-attend", {"quantization": "int8", "kv_dtype": "int8",
+                                                     "paged_impl": "pallas-writeback"}, cut)):
+        out["bursts"][label] = tp_serve(m, c, mesh, rank, label, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dense_cfg = dataclasses.replace(cfg, n_layers=TP_DENSE_LAYERS)
+    full = llama.init_params(dense_cfg, seed=0, device="cuda")
+    B, n_new = TP_DENSE_SHAPE
+    prompts = torch.randint(0, cfg.vocab_size, (B, 8), generator=torch.Generator(device="cuda").manual_seed(3),
+                            device="cuda", dtype=torch.int32)
+    lens = torch.tensor([8, 5, 7, 3], dtype=torch.int32, device="cuda")
+    t1 = time.monotonic()
+    toks = tensor_parallel.generate_tp(full, dense_cfg, prompts, lens, n_new, mesh=mesh, max_len=64)
+    torch.cuda.synchronize()
+    one = tensor_parallel.generate_tp(full, dense_cfg, prompts, lens, n_new, max_len=64)
+    # decode_step_dense's logits at every position of the TP=2 run's tokens,
+    # at TP=2 and on one rank, held by the port's logit contract
+    logits = [dense_logits(tensor_parallel, full, dense_cfg, toks, m) for m in (mesh, None)]
+    out["dense"] = {"layers": TP_DENSE_LAYERS, "shape": [B, n_new], "s": time.monotonic() - t1,
+                    "tokens_equal_to_one_rank": int((toks == one).all(dim=1).sum()),
+                    "logits": margin_rule(*(x.reshape(-1, x.shape[-1]).cpu() for x in logits))}
+    if not out["dense"]["logits"]["ok"]:
+        raise AssertionError(f"19b dense path: TP=2 logits outside the contract: {out['dense']}")
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["collective_calls"] = dict(collectives.counts)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def dp19c(rank: int) -> dict:
+    """19c: data-parallel LoRA over the two ranks (gloo over CUDA tensors):
+    Llama-2-7B's bf16 base on each, rank-16 adapters on the seven
+    projections, each rank's B=1 x S=512 row of a B=2 batch whose second
+    row is padded (the ranks count different tokens, and the loss is the
+    mean over the global batch's tokens). The gradients summed over the
+    ranks (``Trainer.loss_and_grads``) against one rank's B=2 gradients on
+    the same data (cosine per target); then 1 + 2 ``Trainer`` steps."""
+    from modal_examples_tpu_torch import training
+    from modal_examples_tpu_torch.models import llama, lora
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"data": 2})
+    cfg = llama.LlamaConfig.llama2_7b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    lcfg = lora.LoRAConfig(rank=16)
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(0), params, lcfg)
+    B, S = DP_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lens = torch.tensor([S, DP_PADDED_LEN], device="cuda")
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None]).float()
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda"), "mask": mask}
+               for _ in range(1 + DP_STEPS)]
+
+    def loss_fn(ad, batch):
+        logits = llama.forward(params, batch["tokens"], cfg, attn_impl="flash", lora=ad, lora_scale=lcfg.scale)
+        return training.cross_entropy_terms(logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
+
+    trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4), mesh=mesh)
+    _, grads = trainer.loss_and_grads(adapters, batches[0])
+    out = {}
+    if rank == 0:
+        _, ref = training.Trainer(loss_fn, training.make_optimizer(1e-4)).loss_and_grads(adapters, batches[0])
+        out["grad_check"] = compare_adapter_grads(grads["layers"], ref["layers"], lcfg.targets,
+                                                  "19c sum over ranks of B=1 a rank vs one rank's B=2")
+        del ref
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = trainer.init_state(adapters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    step_s, losses = [], []
+    for batch in batches:
+        t0 = time.monotonic()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(m["loss"].item())
+    out.update(launches={"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches},
+               step_ms=[1e3 * s for s in step_s], losses=losses, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    want = cfg.n_layers * len(batches)
+    if out["launches"] != {k: want for k in out["launches"]} or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"19c rank {rank}: {out}")
+    del params, state, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def exact_attention_grads(q, k, v, do, causal: bool, heads_per_chunk: int = 8) -> list:
+    """dQ, dK, dV of ``sum(o * do)`` for plain attention in f32 over the
+    whole sequence (no TF32): the exact gradient that 19d holds the bf16
+    kernels' gradients to. Computed a few heads at a time."""
+    S, Skv = q.shape[2], k.shape[2]
+    grads = [torch.empty(t.shape, dtype=torch.float32, device=t.device) for t in (q, k, v)]
+    mask = torch.ones(S, Skv, dtype=torch.bool, device=q.device).triu(1) if causal else None
+    for h in range(0, q.shape[1], heads_per_chunk):
+        heads = slice(h, h + heads_per_chunk)
+        qf, kf, vf = (t[:, heads].float().requires_grad_(True) for t in (q, k, v))
+        s = (qf @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        if mask is not None:
+            s = s.masked_fill(mask, float("-inf"))
+        (torch.softmax(s, dim=-1) @ vf).backward(do[:, heads].float())
+        for g, t in zip(grads, (qf, kf, vf)):
+            g[:, heads] = t.grad
+        del s, qf, kf, vf
+    return grads
+
+
+def ring19d(rank: int) -> dict:
+    """19d: ring and Ulysses attention over the two ranks (S = 2 x 2048, H
+    32, D 128, causal and full) against K1 over the whole sequence on one
+    rank. The ring's gradients (K5, K6 at each hop) and K5/K6's over the
+    whole sequence are each held against the exact f32 gradient at K5/K6's
+    tolerance; the ring against the whole-sequence backward is reported."""
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.ops import ring_attention as ra
+    from modal_examples_tpu_torch.parallel import collectives, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the exact gradient in full f32
+    # gloo's send and recv refuse CUDA tensors ("Bad address" on the card):
+    # the ring's hops go through host copies, done here, not by the port
+    p2p = collectives.dist = P2PThroughHost(collectives.dist)
+    mesh = make_mesh({"seq": 2})
+    B, H, S, D = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = flash_case(gen, B, H, H, S, S, D)
+    do = rand_bf16(gen, B, H, S, D)
+    out, launches = {}, {}
+    tol = {"q": TOL["flash_bwd_dq"], "k": TOL["flash_bwd_dkv"], "v": TOL["flash_bwd_dkv"]}
+    for causal in (True, False):
+        # the whole sequence on this rank: the reference (its launches not counted)
+        want = fa.flash_attention(q, k, v, causal)
+        full = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        (fa.flash_attention(*full, causal).float() * do.float()).sum().backward()
+        exact = exact_attention_grads(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        ring = ra.ring_attention_sharded(q, k, v, mesh, causal=causal)
+        uly = ra.ulysses_attention_sharded(q, k, v, mesh, causal=causal)
+        blocks = [t.chunk(2, dim=2)[rank].contiguous().requires_grad_(True) for t in (q, k, v)]
+        o = ra.ring_attention(*blocks, axis_name="seq", causal=causal, mesh=mesh)
+        (o.float() * do.chunk(2, dim=2)[rank].float()).sum().backward()
+        torch.cuda.synchronize()
+        for name, n in (("flash_fwd", fa.launches), ("flash_bwd_dq", fa.dq_launches),
+                        ("flash_bwd_dkv", fa.dkv_launches)):
+            launches[name] = launches.get(name, 0) + n
+        mine = [e.chunk(2, dim=2)[rank] for e in exact]
+        key = "causal" if causal else "full"
+        out[key] = {"ring_rel_err": rel_err(ring, want), "ulysses_rel_err": rel_err(uly, want),
+                    "ring_grad_vs_exact": {n: rel_err(b.grad, e) for n, b, e in zip("qkv", blocks, mine)},
+                    "whole_grad_vs_exact": {n: rel_err(f.grad, e) for n, f, e in zip("qkv", full, exact)},
+                    "ring_grad_vs_whole": {n: rel_err(b.grad, f.grad.chunk(2, dim=2)[rank])
+                                           for n, b, f in zip("qkv", blocks, full)}}
+        held = all(out[key][g][n] <= tol[n] for g in ("ring_grad_vs_exact", "whole_grad_vs_exact") for n in tol)
+        if not (out[key]["ring_rel_err"] <= TOL["flash_fwd"] and out[key]["ulysses_rel_err"] <= TOL["flash_fwd"]
+                and held):
+            raise AssertionError(f"19d {key}: {out[key]}")
+        del exact, mine, full, blocks
+    out["launches"] = launches
+    out["ppermute_staged_through_host"] = p2p.staged
+    collectives.dist = p2p.inner
+    return out
+
+
+APP_CLUSTERED = '''
+"""chip_smoke.py phase 19e: @clustered(size=1) on the card."""
+import torch
+
+import modal_examples_tpu_torch as mtpu
+
+app = mtpu.App("smoke-clustered")
+
+
+@app.function(gpu="H100", timeout=600)
+@mtpu.experimental.clustered(size=1)
+def one_rank_k1() -> dict:
+    import torch.distributed as dist
+
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.parallel import cluster, collectives, make_mesh
+
+    info = cluster.get_cluster_info()
+    device = cluster.init_distributed()
+    mesh = make_mesh({"data": 1})
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(4, 32, 512, 128, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    o, _ = fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=128**-0.5)
+    want, _ = fa.flash_forward_plain(q, k, v, causal=True, sm_scale=128**-0.5)
+    total = collectives.psum(torch.ones(1, device="cuda"), "data", mesh).item()
+    return {"rank": info.rank, "size": info.size, "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "device": str(device), "card": torch.cuda.get_device_name(0), "k1_launches": fa.launches,
+            "max_abs_err": (o.float() - want.float()).abs().max().item(), "psum": total}
+'''
+
+
+def phase19_clustered(card: str) -> dict:
+    from modal_examples_tpu_torch.core.app import load_module_from_path
+
+    tmp = ROOT / "build" / "smoke-apps-19"
+    tmp.mkdir(parents=True, exist_ok=True)
+    mod = load_module_from_path(str(write_app(tmp, "smoke_clustered", APP_CLUSTERED)))
+    with mod.app.run():
+        r = mod.one_rank_k1.remote()
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not (r["backend"] == "nccl" and r["world"] == 1 and r["k1_launches"] == 1 and r["psum"] == 1.0
+            and r["max_abs_err"] <= TOL["flash_fwd"]):
+        raise AssertionError(f"19e: {r}")
+    log(f"19e @clustered(size=1) ({card}): {json.dumps(r)}")
+    return r
+
+
+def phase_parallel(llama, metrics: dict, card: str) -> dict:
+    """Phase 19: tensor and data parallelism, in rank processes that end
+    with the phase (``parallel.cluster.RankGang``), so no process group
+    outlives it."""
+    from modal_examples_tpu_torch.parallel.cluster import RankGang
+
+    t0 = time.monotonic()
+    work = ROOT / "build" / "phase19"
+    work.mkdir(parents=True, exist_ok=True)
+    rows_path, ref_path = work / "phase3_rows.json", work / "onecard_logits.pt"
+    rows_path.write_text(json.dumps([[list(t), f] for t, f in metrics["tokens"]]))
+    tp19_reference(llama, ref_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card}
+    with RankGang(1, backend="nccl", device="cuda") as g:
+        (out["19a"],) = g.run(tp19a, str(rows_path))
+    log(f"19a one rank over NCCL ({card}): {json.dumps(out['19a'])}")
+    with RankGang(2, backend="gloo", device="cuda") as g:
+        out["19b"] = g.run(tp19b, str(ref_path))
+        log(f"19b two ranks sharing one card over gloo ({card}): {json.dumps(out['19b'])}")
+        out["19c"] = g.run(dp19c)
+        log(f"19c data-parallel LoRA, two ranks sharing one card over gloo ({card}): {json.dumps(out['19c'])}")
+        out["19d"] = g.run(ring19d)
+        log(f"19d ring and Ulysses attention, two ranks sharing one card over gloo ({card}): "
+            f"{json.dumps(out['19d'])}")
+    out["19e"] = phase19_clustered(card)
+    shutil.rmtree(work, ignore_errors=True)
+    parts = [out["19a"]["launches"], *(r["launches"] for key in ("19c", "19d") for r in out[key])]
+    lead, follower = out["19b"]
+    for label, burst in lead["bursts"].items():
+        # the follower's whole run, less the warm-up both ranks ran
+        parts += [burst["launches"], {k: v - burst["warm_up"].get(k, 0)
+                                      for k, v in follower["bursts"][label]["launches"].items()}]
+    launches: dict = {}
+    for part in parts:
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    launches["flash_fwd"] = launches.get("flash_fwd", 0) + out["19e"]["k1_launches"]
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the GPU only", file=sys.stderr)
@@ -7183,6 +7912,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p17 = phase_int4_and_training(fa, pa, qmm, errs, lora8["peak_gb"], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = phase_parallel(llama, metrics, card)
+    log(f"phase 19 tensor and data parallelism ({card}): ok in {par['seconds']:.1f}s: {json.dumps(par)}")
     serve_counts, int8_counts, train_counts = metrics["launches"], int8["launches"], train["launches"]
     wb_counts = wb["launches"]
     counts = {
@@ -7221,6 +7954,11 @@ def main() -> int:
     # phase 17's int4 serving (K1, K2, K3), QLoRA (K1, K5, K6) and
     # DreamBooth-LoRA (K1, K5, K6); K7-int4's launches are its own row's
     counts = {k: v + p17["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 19's ranks: 19a's burst over NCCL (K1, K2, K3), 19b's four
+    # bursts at the per-shard shapes on both ranks (K1, K2, K3, K4 folded,
+    # K7, K2-int8, K3-int8, K4-int8), 19c's data-parallel steps and 19d's
+    # ring (K1, K5, K6), 19e's container (K1)
+    counts = {k: v + par["launches"].get(k, 0) for k, v in counts.items()}
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
@@ -7228,7 +7966,8 @@ def main() -> int:
         f"containers {rest['container_launches']}, int8 LoRA "
         f"{lora8['launches']}, Mixtral LoRA {moe_train['launches']}, canary {observability['launches']}, fleet "
         f"{fleet_layers['launches']}, tiers, autoscaler "
-        f"and chaos {tiers['launches']}, int4 and training {p17['launches']}; kernels line (phases 8-17 summed) "
+        f"and chaos {tiers['launches']}, int4 and training {p17['launches']}, parallel {par['launches']}; kernels "
+        f"line (phases 8-19 summed) "
         f"{counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])

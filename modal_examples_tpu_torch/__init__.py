@@ -119,6 +119,27 @@ __all__ = [
 ]
 
 
+class _Experimental:
+    """``mtpu.experimental``, after ``modal.experimental``: the clusters API
+    (simple_torch_cluster.py:97-111). ``parallel.cluster`` imports no torch
+    at load."""
+
+    @staticmethod
+    def clustered(size: int, chips_per_host: int | None = None):
+        from .parallel.cluster import clustered as _clustered
+
+        return _clustered(size, chips_per_host)
+
+    @staticmethod
+    def get_cluster_info():
+        from .parallel.cluster import get_cluster_info as _gci
+
+        return _gci()
+
+
+experimental = _Experimental()
+
+
 class _Functions:
     """Compat namespace: ``modal.functions.gather`` spelling."""
 

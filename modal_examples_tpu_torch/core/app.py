@@ -55,10 +55,8 @@ def _validate_priority(priority: str) -> None:
 
 
 #: options the port refuses until their subsystem lands: name -> what waits
-WAITING_OPTIONS = {
-    "cluster_size": "@clustered multi-host slices wait with ROADMAP A10",
-    "cluster_chips_per_host": "@clustered multi-host slices wait with ROADMAP A10",
-}
+#: (empty since ``@clustered`` landed with ROADMAP A10)
+WAITING_OPTIONS: dict[str, str] = {}
 
 
 def refuse_waiting_options(options: dict) -> None:
@@ -198,6 +196,7 @@ class App:
 
         def deco(fn: Callable) -> Function:
             fn_name = name or fn.__name__
+            cluster_cfg = getattr(fn, "__mtpu_cluster__", None) or {}
             spec = FunctionSpec(
                 tag=f"{self.name}.{fn_name}",
                 app_name=self.name,
@@ -225,6 +224,8 @@ class App:
                 enable_memory_snapshot=enable_memory_snapshot,
                 serialized=serialized,
                 experimental_options=dict(experimental_options or {}),
+                cluster_size=cluster_cfg.get("size", 0),
+                cluster_chips_per_host=cluster_cfg.get("chips_per_host"),
             )
             f = Function(self, fn, spec)
             self.registered_functions[fn_name] = f

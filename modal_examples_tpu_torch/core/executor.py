@@ -39,8 +39,15 @@ Container model:
 
 A container's ready message carries its boot split (:func:`boot_info`):
 spawn, interpreter, ``import torch``, the app file, and the snapshot layer's
-restore or ``snap=True`` hooks, capture and other hooks. The JAX package's
-``@clustered`` gang scheduler waits (ROADMAP A10).
+restore or ``snap=True`` hooks, capture and other hooks.
+
+``@clustered(size=n, chips_per_host=k)`` functions go to :class:`ClusterPool`
+(the JAX package's gang scheduler): one call boots ``n`` containers with the
+rank and coordinator env (``parallel.cluster``), and a container whose
+``chips_per_host`` is above 1 runs the function in that many rank processes
+(``parallel.cluster.spawn_ranks``, the reference's ``torchrun
+--nproc-per-node``), which join one process group across the containers.
+A rank or a container that fails fails the call.
 """
 
 from __future__ import annotations
@@ -276,9 +283,18 @@ def _container_main(conn, cfg_bytes: bytes, timings: dict) -> None:
                 return getattr(obj, method_name)(*args, **kwargs)
 
         else:
+            chips = int(os.environ.get(CLUSTER_CHIPS_ENV, "1")) if CLUSTER_RANK_ENV in os.environ else 1
+            if chips > 1:
+                from ..parallel.cluster import spawn_ranks
 
-            def call_fn(method_name, args, kwargs):
-                return target(*args, **kwargs)
+                def call_fn(method_name, args, kwargs):
+                    # one rank process a card of this host; rank 0's value is the container's
+                    return spawn_ranks(_call_by_ref, chips, args=(cfg.fn_bytes, args, kwargs), init=False)[0]
+
+            else:
+
+                def call_fn(method_name, args, kwargs):
+                    return target(*args, **kwargs)
 
         boot_info["boot_s"] = timings
         _boot.update(boot_info)
@@ -552,6 +568,17 @@ class _QueuedInput:
             "trace_id": self.call.trace_id,
             "parent_id": self.dispatch_span.span_id,
         }
+
+
+#: the cluster env protocol's names (``parallel.cluster``, which imports no torch)
+CLUSTER_RANK_ENV = "MTPU_CLUSTER_RANK"
+CLUSTER_CHIPS_ENV = "MTPU_CLUSTER_CHIPS_PER_HOST"
+
+
+def _call_by_ref(local_rank: int, fn_bytes: bytes, args: tuple, kwargs: dict):
+    """A clustered function's body in one of its container's rank
+    processes."""
+    return ser.function_from_bytes(fn_bytes)(*args, **kwargs)
 
 
 def _end_dispatch_span(pool, qi: _QueuedInput, status: str, **attrs) -> None:
@@ -1631,7 +1658,166 @@ class InlinePool:
                 traceback.print_exc()
 
 
+class ClusterPool:
+    """Gang scheduling for ``@clustered(size=n)`` functions.
+
+    One ``.remote()`` boots n containers, injects the rank and coordinator
+    env (the cluster-info analog of simple_torch_cluster.py:101-111),
+    dispatches the same input to all, and resolves with rank 0's return
+    value once every rank finishes. Any rank failing fails the call and
+    tears the gang down. A container with ``chips_per_host`` above 1 runs
+    the function in that many rank processes (module docstring); the
+    coordinator is a ``tcp://`` port on this host, rank 0's container."""
+
+    def __init__(self, spec, runner):
+        self.spec = spec
+        self.runner = runner
+        self.container_config = spec.container_config()
+        self.spec_max_concurrent = 1
+        self.size = spec.cluster_size
+        self.chips_per_host = spec.cluster_chips_per_host or (spec.gpu[0].count if spec.gpu else 1)
+        self.closed = False
+        self._lock = threading.Lock()
+        self._active_containers: list[_Container] = []
+
+    def submit(self, method_name: str, args: tuple, kwargs: dict, *, priority: str | None = None) -> _Call:
+        del priority  # a gang runs one call at a time; nothing to order
+        if self.closed:
+            raise RuntimeError("app run context is closed")
+        call = _Call(f"in-{uuid.uuid4().hex[:16]}", None, self.spec.retries)
+        threading.Thread(target=self._run_gang, args=(call, method_name, args, kwargs), daemon=True).start()
+        return call
+
+    # _Container callbacks ---------------------------------------------------
+
+    def handle_failure(self, qi: _QueuedInput, exc: BaseException, reason: str | None = None) -> None:
+        qi.call.set_exception(exc)
+
+    def on_container_ready(self, container, info: dict) -> None:
+        pass  # gang containers are plain functions; no snapshot boots to record
+
+    def on_container_dead(self, container, orphans: list[_QueuedInput]) -> None:
+        err = container.boot_error or RuntimeError(
+            f"cluster container rank={container.extra_env.get(CLUSTER_RANK_ENV)} died"
+        )
+        for qi in orphans:
+            qi.call.set_exception(err)
+
+    # gang logic -------------------------------------------------------------
+
+    def _run_gang(self, call: _Call, method_name, args, kwargs) -> None:
+        while True:
+            try:
+                self._run_gang_once(call, method_name, args, kwargs)
+                return
+            except BaseException as e:
+                call.attempt += 1
+                r = self.spec.retries
+                if (
+                    r is not None
+                    and call.attempt <= r.max_retries
+                    and not call.cancelled
+                    and not self.closed
+                    # generators stream through the caller's queue as they
+                    # run; a retry would duplicate already-delivered items
+                    and not self.spec.is_generator
+                ):
+                    time.sleep(r.delay_for_attempt(call.attempt, key=call.input_id))
+                    continue
+                call.set_exception(e)
+                return
+
+    def _run_gang_once(self, call: _Call, method_name, args, kwargs) -> None:
+        from ..parallel import cluster as _cluster
+
+        containers: list[_Container] = []
+        try:
+            coord = f"127.0.0.1:{_cluster.free_port()}"
+            ips = ",".join(["127.0.0.1"] * self.size)
+            payload = ser.serialize((args, kwargs))
+            for rank in range(self.size):
+                if self.closed:
+                    raise RuntimeError("app run context is closed")
+                extra = {
+                    _cluster.RANK_ENV: str(rank),
+                    _cluster.SIZE_ENV: str(self.size),
+                    _cluster.COORD_ENV: coord,
+                    _cluster.IPS_ENV: ips,
+                    _cluster.CHIPS_ENV: str(self.chips_per_host),
+                }
+                c = _Container(self, extra_env=extra)
+                containers.append(c)
+                with self._lock:
+                    self._active_containers.append(c)
+
+            boot_deadline = time.monotonic() + BOOT_TIMEOUT_S
+            while True:
+                if call.cancelled:
+                    raise InputCancelled(call.input_id)
+                dead = next((c for c in containers if c.dead or c.boot_error is not None), None)
+                if dead is not None:
+                    raise dead.boot_error or RuntimeError("cluster container died during boot")
+                if all(c.ready.is_set() for c in containers):
+                    break
+                if time.monotonic() > boot_deadline:
+                    raise TimeoutError(f"cluster containers failed to boot within {BOOT_TIMEOUT_S:g}s")
+                time.sleep(0.05)
+
+            rank_calls = []
+            deadline = time.monotonic() + self.spec.timeout if self.spec.timeout else None
+            for rank, c in enumerate(containers):
+                sub = _Call(f"{call.input_id}-r{rank}", deadline, None)
+                if rank == 0:
+                    # rank 0's yields stream straight through to the caller,
+                    # so @clustered generator functions work like plain ones
+                    sub.gen_queue = call.gen_queue
+                c.dispatch(_QueuedInput(sub, method_name, payload))
+                rank_calls.append(sub)
+            # fail fast: any rank failing (or dying) fails the whole gang;
+            # don't block on rank 0 while another rank deadlocks a collective
+            pending = set(rank_calls)
+            while pending:
+                if call.cancelled:
+                    raise InputCancelled(call.input_id)
+                if deadline is not None and time.monotonic() > deadline:
+                    raise FunctionTimeoutError(f"{self.spec.tag} gang exceeded timeout={self.spec.timeout}s")
+                for sub in list(pending):
+                    if sub.done.wait(0.02):
+                        pending.discard(sub)
+                        if not sub.ok:
+                            raise sub.exc
+            call.set_result(rank_calls[0].value)
+        finally:
+            for c in containers:
+                c.shutdown(graceful=True)
+            deadline = time.monotonic() + 5.0
+            for c in containers:
+                try:
+                    c.proc.wait(max(0.05, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    c.kill()
+            with self._lock:
+                for c in containers:
+                    if c in self._active_containers:
+                        self._active_containers.remove(c)
+
+    def shutdown(self) -> None:
+        self.closed = True
+        with self._lock:
+            containers = list(self._active_containers)
+        for c in containers:
+            c.kill()
+        deadline = time.monotonic() + 5.0
+        for c in containers:
+            try:
+                c.proc.wait(max(0.05, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+
+
 def make_pool(spec, runner):
+    if spec.cluster_size > 0:  # any @clustered function, including size=1
+        return ClusterPool(spec, runner)
     if _config.backend() == "inline" or spec.force_inline:
         return InlinePool(spec, runner)
     return FunctionPool(spec, runner)

@@ -112,6 +112,8 @@ class FunctionSpec:
     enable_memory_snapshot: bool = False
     serialized: bool = False  # ship-by-value parity flag (reference: serialized=True)
     experimental_options: dict = dataclasses.field(default_factory=dict)
+    cluster_size: int = 0  # >0: gang-scheduled containers (@clustered)
+    cluster_chips_per_host: int | None = None  # rank processes a container (the cards of a host)
 
     def container_config(self) -> _exec.ContainerConfig:
         env: dict[str, str] = {}

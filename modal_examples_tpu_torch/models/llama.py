@@ -4,7 +4,8 @@ paged decode.
 Counterpart of ``modal_examples_tpu/models/llama.py`` (``LlamaConfig``,
 ``init_params``, ``_mlp_block``, ``forward``, ``prefill``, ``prefill_chunk``,
 ``decode_step`` with its ``impl``/``scatter_impl``, ``_decode_step_writeback``,
-``verify_step``, ``tp_shard_ok``, ``paged_impl_plan``, ``load_hf_weights``). Architecture:
+``verify_step``, ``tp_shard_ok``, ``paged_impl_plan``, ``load_hf_weights``,
+``partition_specs``; ``shard_params`` is the engine's ``_shard_params``). Architecture:
 RMSNorm, RoPE, GQA, SwiGLU, or top-k routed SwiGLU experts (Mixtral) where
 ``n_experts > 0``.
 
@@ -24,6 +25,21 @@ with the in-flight token as an extra softmax column. The writeback impls
 of ``decode_step`` keep the JAX package's older write-then-attend structure
 instead (one scatter and one attention per layer). Padded positions and
 dead slots write trash page 0, slot 0. Cache updates are in place.
+
+Tensor parallelism (``mesh=`` with a ``tensor`` axis): each rank holds its
+local shards (:func:`shard_params`, the Megatron layout of
+:func:`partition_specs`) and runs the serving functions on them: the
+column-parallel ``wq``/``wk``/``wv``/``gate``/``up`` give it its local heads
+and ffn columns, the kernels run on those heads through ``ops.sharded``,
+the row-parallel ``wo``/``down`` partial products are summed over the axis
+in f32 (``psum``) and rounded once after the sum, as the JAX ``psum`` of f32
+partial sums is; the vocab-sharded embedding is a masked local lookup (exact
+zeros outside the rank's rows) summed over the axis, and the
+column-parallel ``lm_head`` (or the tied ``embed.T``) gives each rank a
+block of the vocabulary, all-gathered into the full logits on every rank.
+A mixture of experts shards each expert's ffn dim and keeps the router
+whole. On a one-wide ``tensor`` axis the same collectives run over a group
+of one, and every value is the one-card path's.
 """
 
 from __future__ import annotations
@@ -36,9 +52,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import flash_attention as _flash
 from ..ops import paged_attention as _paged
+from ..ops import sharded as _sharded
 from ..ops.kv_quant import kv_gather
+from ..parallel import collectives as _coll
+from ..parallel.mesh import TENSOR, P, shard_tensor
 from ..ops.quantized_matmul import pack_int4
 from ..utils.device import resolve_device
 from ..utils.safetensors import SafeFile
@@ -256,6 +274,91 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
     return params
 
 
+
+def partition_specs(cfg: LlamaConfig) -> dict:
+    """Tensor-parallel placements over the ``tensor`` axis, the JAX
+    package's (layers with their stacked leading axis): column-parallel
+    in-projections, row-parallel out-projections, the embedding split over
+    the vocabulary. A mixture of experts splits each expert's ffn dim and
+    keeps the router whole."""
+    if cfg.n_experts > 0:
+        mlp = {
+            "router": P(None, None, None),
+            "moe_gate": P(None, None, None, TENSOR),
+            "moe_up": P(None, None, None, TENSOR),
+            "moe_down": P(None, None, TENSOR, None),
+        }
+    else:
+        mlp = {"gate": P(None, None, TENSOR), "up": P(None, None, TENSOR), "down": P(None, TENSOR, None)}
+    specs = {
+        "embed": P(TENSOR, None),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, None, TENSOR),
+            "wk": P(None, None, TENSOR),
+            "wv": P(None, None, TENSOR),
+            "wo": P(None, TENSOR, None),
+            "mlp_norm": P(None, None),
+            **mlp,
+        },
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, TENSOR)
+    return specs
+
+
+def _shard_leaf(w, spec: P, mesh):
+    """This rank's block of one leaf. A quantized weight splits ``q`` by the
+    placement and its per-output-channel scale by the output dim's only (the
+    contraction axis of a scale has size 1); an int4 ``q`` split on its
+    contraction rows must split on a byte boundary (two rows a byte)."""
+    if not isinstance(w, QuantizedWeight):
+        return shard_tensor(w, spec, mesh)
+    scale_spec = P(*spec[:-2], None, spec[-1])
+    if w.bits != 4 or spec[-2] is None:
+        return dataclasses.replace(w, q=shard_tensor(w.q, spec, mesh), scale=shard_tensor(w.scale, scale_spec, mesh))
+    tp = _coll.axis_size(spec[-2], mesh)
+    if w.din % tp or (w.din // tp) % 2:
+        raise ValueError(
+            f"an int4 weight's {w.din} contraction rows split over {tp} ranks as {w.din / tp:g} a rank: the packed "
+            "rows split only on a byte boundary (an even count a rank)"
+        )
+    return dataclasses.replace(
+        w, q=shard_tensor(w.q, spec, mesh), scale=shard_tensor(w.scale, scale_spec, mesh), rows=w.din // tp,
+    )
+
+
+def shard_layer(layer: dict, cfg: LlamaConfig, mesh) -> dict:
+    """One layer's leaves cut to this rank's blocks (the per-layer
+    placements: :func:`partition_specs` without the stacked axis)."""
+    specs = partition_specs(cfg)["layers"]
+    return {k: _shard_leaf(w, P(*specs[k][1:]), mesh) for k, w in layer.items()}
+
+
+def shard_params(params: dict, cfg: LlamaConfig, mesh, *, layers: bool = True) -> dict:
+    """This rank's blocks of a full parameter dict (the JAX engine's
+    ``_shard_params``, quantized trees included), each a contiguous copy so
+    the full leaf can be freed. ``init_params(map_layer=)`` with
+    :func:`shard_layer` draws a sharded tree a layer at a time instead, and
+    ``layers=False`` then cuts the rest. Head counts, the vocabulary and the
+    ffn dim must divide the tensor degree; otherwise it raises."""
+    tp = _sharded.mesh_tp_degree(mesh)
+    if not tp_shard_ok(cfg, tp):
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} / n_heads={cfg.n_heads} must be divisible by the tensor axis size {tp} "
+            "for kv-head-sharded TP serving"
+        )
+    specs = partition_specs(cfg)
+    out = {
+        "embed": _shard_leaf(params["embed"], specs["embed"], mesh),
+        "layers": [shard_layer(layer, cfg, mesh) for layer in params["layers"]] if layers else params["layers"],
+        "final_norm": params["final_norm"],
+    }
+    if "lm_head" in params:
+        out["lm_head"] = _shard_leaf(params["lm_head"], specs["lm_head"], mesh)
+    return out
+
 #: HF llama tensor names (stored [out, in]) -> this module's names
 _HF_TOP = {"model.embed_tokens.weight": "embed", "model.norm.weight": "final_norm", "lm_head.weight": "lm_head"}
 _HF_LAYER = {
@@ -369,13 +472,43 @@ def _rope(cfg: LlamaConfig, positions):
     )
 
 
-def _mlp_block(layer: dict, h, cfg: LlamaConfig, *, lora=None, lora_scale: float = 1.0, moe_impl: str = "nodrop"):
+def _row_sum(partial, mesh):
+    """A row-parallel product's f32 partial summed over the tensor axis (no
+    mesh: the product itself). The caller rounds once, after the sum."""
+    return partial if mesh is None else _coll.psum(partial, TENSOR, mesh)
+
+
+def _embed(params: dict, tokens, mesh):
+    """The token embeddings: under a mesh, a lookup in this rank's block of
+    the vocabulary, exact zeros for the tokens outside it, summed over the
+    tensor axis (one rank holds each row, so the sum is exact)."""
+    table = params["embed"]
+    if mesh is None:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens.long() - _coll.axis_index(TENSOR, mesh) * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return _coll.psum(x, TENSOR, mesh)
+
+
+def _logits(x, params: dict, cfg: LlamaConfig, mesh):
+    """``x @ head`` in f32; under a mesh this rank's vocabulary block,
+    all-gathered so every rank holds the full logits."""
+    out = layers.mm(x, _head(params, cfg))
+    return out if mesh is None else _coll.all_gather(out, TENSOR, gather_dim=-1, mesh=mesh)
+
+
+def _mlp_block(layer: dict, h, cfg: LlamaConfig, *, lora=None, lora_scale: float = 1.0, moe_impl: str = "nodrop",
+               mesh=None):
     """Post-norm MLP of one layer: the dense SwiGLU, or with
     ``cfg.n_experts > 0`` the top-k routed SwiGLU experts. ``moe_impl``
     "capacity" is the GShard dispatch at about top_k / E of the work; any
     other value (the serving default "nodrop") runs every expert on every
-    token, so incremental decode reproduces the full forward. Returns (out
-    in h's dtype, aux load-balance loss, or None for a dense layer)."""
+    token, so incremental decode reproduces the full forward. Under a
+    ``mesh`` the ffn dim is this rank's block and the f32 partial output is
+    summed over the tensor axis before its one rounding. Returns (out in h's
+    dtype, aux load-balance loss, or None for a dense layer)."""
     if cfg.n_experts > 0:
         if lora is not None and any(f"{n}_a" in lora for n in ("gate", "up", "down")):
             raise ValueError(
@@ -385,11 +518,18 @@ def _mlp_block(layer: dict, h, cfg: LlamaConfig, *, lora=None, lora_scale: float
             )
         experts = (layer["router"], layer["moe_gate"], layer["moe_up"], layer["moe_down"], h.reshape(-1, cfg.dim))
         if moe_impl == "capacity":
+            if mesh is not None:
+                raise NotImplementedError(
+                    "the capacity experts under a mesh are TP training (ROADMAP A10b, param_specs)")
             flat, aux = _moe.moe_swiglu_capacity(*experts, cfg.top_k_experts, cfg.expert_capacity_factor)
         else:
             flat, aux = _moe.moe_swiglu_nodrop(*experts, cfg.top_k_experts)
+            flat = _row_sum(flat, mesh)
         return flat.reshape(h.shape).to(h.dtype), aux
-    return layers.swiglu_mlp(layer, h, lora=lora, lora_scale=lora_scale), None
+    if mesh is None:
+        return layers.swiglu_mlp(layer, h, lora=lora, lora_scale=lora_scale), None
+    a = torch.nn.functional.silu(layers.mm(h, layer["gate"])) * layers.mm(h, layer["up"])
+    return _row_sum(layers.mm(a.to(h.dtype), layer["down"]), mesh).to(h.dtype), None
 
 
 # -- forward (training) ---------------------------------------------------------
@@ -407,20 +547,44 @@ def forward(
     return_aux: bool = False,
     moe_impl: str = "nodrop",
     input_embeds=None,
+    mesh=None,  # a mesh with a "tensor" axis: the rank's shards, the flash kernel per head shard
 ):  # [B, S, vocab] f32 (, aux)
     """Full-sequence forward with causal attention (flash kernels or the
     plain ``xla`` attention), differentiable in the adapters and the base.
     ``return_aux`` also returns the mean over layers of the MoE load-balance
     loss (0 for a dense model); ``moe_impl`` picks the expert formulation
     (:func:`_mlp_block`). ``input_embeds`` (the multimodal prefix) waits for
-    ROADMAP A11's ``vlm``."""
+    ROADMAP A11's ``vlm``. Under ``mesh=`` the rank's shards run the
+    serving layers' column/row-parallel products (module docstring) with
+    the flash kernel on the local heads; its collectives carry no gradient,
+    so tensor-parallel training (LoRA over a sharded base) raises: it waits
+    for ROADMAP A10b's ``param_specs``."""
     if input_embeds is not None:
         raise NotImplementedError("input_embeds (a multimodal prefix) waits for the vlm model (ROADMAP A11)")
+    if mesh is not None and (lora is not None or torch.is_grad_enabled()):
+        raise NotImplementedError(
+            "a gradient through the tensor-parallel forward is TP training (ROADMAP A10b, param_specs); run it "
+            "under torch.no_grad() without adapters"
+        )
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = params["embed"][tokens]
     cos, sin = _rope(cfg, positions)
+    if mesh is not None:
+        x = _embed(params, tokens, mesh)
+        auxes = []
+        for layer in params["layers"]:
+            q, k, v = _qkv(layer, x, cfg, cos, sin)
+            o = _sharded.sharded_flash_attention(mesh, q.contiguous(), k.contiguous(), v.contiguous(), True,
+                                                 heads=_heads(cfg))
+            x, aux = _finish_layer(layer, x, o.transpose(1, 2).reshape(B, S, -1), cfg, mesh, moe_impl=moe_impl)
+            if aux is not None:
+                auxes.append(aux)
+        logits = _logits(layers.rms_norm(x, params["final_norm"], cfg.norm_eps), params, cfg, mesh)
+        if return_aux:
+            return logits, torch.stack(auxes).mean() if auxes else torch.zeros((), device=logits.device)
+        return logits
+    x = params["embed"][tokens]
     n = len(params["layers"])
     if lora is None:
         per_layer = [None] * n
@@ -449,22 +613,33 @@ def forward(
 # -- serving ----------------------------------------------------------------------
 
 
+def _heads(cfg: LlamaConfig) -> tuple[int, int]:
+    """The model's global (query, kv) head counts, which ``ops.sharded``
+    checks each rank's shards against."""
+    return cfg.n_heads, cfg.n_kv_heads
+
+
 def _qkv(layer: dict, x, cfg: LlamaConfig, cos, sin):
-    """Norm, projections and RoPE for [B, S, dim] -> q [B,Hq,S,D], k/v [B,Hkv,S,D]."""
+    """Norm, projections and RoPE for [B, S, dim] -> q [B,Hq,S,D], k/v
+    [B,Hkv,S,D]: the heads of the rank's ``wq``/``wk``/``wv`` columns (all
+    of them without a mesh)."""
     B, S, _ = x.shape
     D = cfg.head_dim
     h = layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = layers.mm(h, layer["wq"]).to(x.dtype).view(B, S, cfg.n_heads, D).transpose(1, 2)
-    k = layers.mm(h, layer["wk"]).to(x.dtype).view(B, S, cfg.n_kv_heads, D).transpose(1, 2)
-    v = layers.mm(h, layer["wv"]).to(x.dtype).view(B, S, cfg.n_kv_heads, D).transpose(1, 2)
+    q = layers.mm(h, layer["wq"]).to(x.dtype).view(B, S, -1, D).transpose(1, 2)
+    k = layers.mm(h, layer["wk"]).to(x.dtype).view(B, S, -1, D).transpose(1, 2)
+    v = layers.mm(h, layer["wv"]).to(x.dtype).view(B, S, -1, D).transpose(1, 2)
     return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
 
 
-def _finish_layer(layer: dict, x, o, cfg: LlamaConfig):
-    """Output projection, residual, MLP, residual. o: [B, S, Hq*D]."""
-    x = x + layers.mm(o, layer["wo"]).to(x.dtype)
+def _finish_layer(layer: dict, x, o, cfg: LlamaConfig, mesh=None, *, moe_impl: str = "nodrop"):
+    """Output projection (row-parallel under a mesh: the f32 partials
+    summed, then rounded), residual, MLP, residual. o: [B, S, Hq*D] (the
+    rank's heads). Returns (x, the MoE aux loss or None)."""
+    x = x + _row_sum(layers.mm(o, layer["wo"]), mesh).to(x.dtype)
     h = layers.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    return x + _mlp_block(layer, h, cfg)[0]
+    out, aux = _mlp_block(layer, h, cfg, moe_impl=moe_impl, mesh=mesh)
+    return x + out, aux
 
 
 def _page_targets(page_tables, positions, valid, page_size: int):
@@ -478,41 +653,44 @@ def _page_targets(page_tables, positions, valid, page_size: int):
     )
 
 
-def _last_logits(params, x, lens, cfg: LlamaConfig):
+def _last_logits(params, x, lens, cfg: LlamaConfig, mesh=None):
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = (lens.long() - 1).clamp(min=0)
     x_last = x[torch.arange(x.shape[0], device=x.device), last]
-    return layers.mm(x_last, _head(params, cfg))
+    return _logits(x_last, params, cfg, mesh)
 
 
-def prefill(params, tokens, k_pages, v_pages, page_tables, seq_lens, cfg: LlamaConfig):
+def prefill(params, tokens, k_pages, v_pages, page_tables, seq_lens, cfg: LlamaConfig, *, mesh=None):
     """Process padded prompts [B, S], writing their K/V into the pages.
     Returns (last-token logits [B, vocab] f32, k_pages, v_pages) with the
-    pages updated in place."""
+    pages updated in place. Under ``mesh=`` the rank's shards and its pages'
+    kv heads (the flash kernel and the scatter per head shard)."""
     B, S = tokens.shape
     ps = k_pages.shape[2]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     valid = positions < seq_lens[:, None]
     cos, sin = _rope(cfg, positions)
     page_idx, slot = _page_targets(page_tables, positions, valid, ps)
-    x = params["embed"][tokens]
-    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    x = _embed(params, tokens, mesh)
+    L, Hkv, D = cfg.n_layers, k_pages.shape[3], cfg.head_dim
     k_all = torch.empty((L, B, S, Hkv, D), dtype=x.dtype, device=x.device)
     v_all = torch.empty_like(k_all)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)
-        o = _flash.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-        x = _finish_layer(layer, x, o.transpose(1, 2).reshape(B, S, -1), cfg)
+        o = _sharded.sharded_flash_attention(mesh, q.contiguous(), k.contiguous(), v.contiguous(), True,
+                                             heads=_heads(cfg))
+        x, _ = _finish_layer(layer, x, o.transpose(1, 2).reshape(B, S, -1), cfg, mesh)
         k_all[li] = k.transpose(1, 2)
         v_all[li] = v.transpose(1, 2)
-    _paged.scatter_kv_pages(
-        k_pages, v_pages, k_all.view(L, B * S, Hkv, D), v_all.view(L, B * S, Hkv, D),
-        page_idx.reshape(-1), slot.reshape(-1),
+    _sharded.sharded_scatter_kv_pages(
+        mesh, k_pages, v_pages, k_all.view(L, B * S, Hkv, D), v_all.view(L, B * S, Hkv, D),
+        page_idx.reshape(-1), slot.reshape(-1), heads=_heads(cfg),
     )
-    return _last_logits(params, x, seq_lens, cfg), k_pages, v_pages
+    return _last_logits(params, x, seq_lens, cfg, mesh), k_pages, v_pages
 
 
-def prefill_chunk(params, tokens, k_pages, v_pages, page_tables, chunk_lens, cfg: LlamaConfig, *, q_offset: int):
+def prefill_chunk(params, tokens, k_pages, v_pages, page_tables, chunk_lens, cfg: LlamaConfig, *, q_offset: int,
+                  mesh=None):
     """One chunk [B, C] of a long prompt at positions q_offset..: attends to the
     cached prefix (page gather) plus itself through the flash kernel with
     ``q_offset``, then writes its K/V. ``q_offset`` is page-aligned (chunks are
@@ -528,8 +706,8 @@ def prefill_chunk(params, tokens, k_pages, v_pages, page_tables, chunk_lens, cfg
     page_idx, slot = _page_targets(page_tables, positions, valid, ps)
     n_pp = q_offset // ps
     prefix_tables = page_tables[:, :n_pp].long()
-    x = params["embed"][tokens]
-    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    x = _embed(params, tokens, mesh)
+    L, Hkv, D = cfg.n_layers, k_pages.shape[3], cfg.head_dim
     k_all = torch.empty((L, B, C, Hkv, D), dtype=x.dtype, device=dev)
     v_all = torch.empty_like(k_all)
     for li, layer in enumerate(params["layers"]):
@@ -542,15 +720,16 @@ def prefill_chunk(params, tokens, k_pages, v_pages, page_tables, chunk_lens, cfg
             v_full = torch.cat([pv, v.to(pv.dtype)], dim=2)
         else:
             k_full, v_full = k.contiguous(), v.contiguous()
-        o = _flash.flash_attention_chunked(q.contiguous(), k_full, v_full, q_offset=q_offset)
-        x = _finish_layer(layer, x, o.transpose(1, 2).reshape(B, C, -1), cfg)
+        o = _sharded.sharded_flash_attention_chunked(mesh, q.contiguous(), k_full, v_full, q_offset=q_offset,
+                                                     heads=_heads(cfg))
+        x, _ = _finish_layer(layer, x, o.transpose(1, 2).reshape(B, C, -1), cfg, mesh)
         k_all[li] = k.transpose(1, 2)
         v_all[li] = v.transpose(1, 2)
-    _paged.scatter_kv_pages(
-        k_pages, v_pages, k_all.view(L, B * C, Hkv, D), v_all.view(L, B * C, Hkv, D),
-        page_idx.reshape(-1), slot.reshape(-1),
+    _sharded.sharded_scatter_kv_pages(
+        mesh, k_pages, v_pages, k_all.view(L, B * C, Hkv, D), v_all.view(L, B * C, Hkv, D),
+        page_idx.reshape(-1), slot.reshape(-1), heads=_heads(cfg),
     )
-    return _last_logits(params, x, chunk_lens, cfg), k_pages, v_pages
+    return _last_logits(params, x, chunk_lens, cfg, mesh), k_pages, v_pages
 
 
 #: the decode structures the JAX engine names (``paged_impl``), and its scatter impls
@@ -573,7 +752,7 @@ def tp_shard_ok(cfg: LlamaConfig, tp: int) -> bool:
 
 def paged_impl_plan(
     cfg: LlamaConfig, device, kv_dtype: str = "bfloat16", weights: str | None = None, *,
-    impl: str = "xla", scatter_impl: str = "xla",
+    impl: str = "xla", scatter_impl: str = "xla", mesh=None,
 ) -> dict:
     """What the serving functions run for this config on ``device``: always
     the flash prefill and the page scatter (their int8 kernels for an int8
@@ -585,18 +764,30 @@ def paged_impl_plan(
     ``ragged_variant`` is the TPU formulation's label for the ragged shapes;
     ``weights`` is "int8" or "int4" for quantized weights (the int8 or int4
     matmul kernel) or the model dtype. Nothing is downgraded: every structure serves every kv
-    dtype, int8 pages through the int8 kernels of the same structure."""
+    dtype, int8 pages through the int8 kernels of the same structure.
+
+    ``mesh`` makes the plan per shard, as the JAX one is: ``tp`` is the
+    tensor degree and the variant is the one of the local ``Hkv // tp``
+    heads. A head count the degree does not divide raises (the JAX plan
+    downgrades to its XLA gather; the port has no path around the kernels)."""
     _check_impls(impl, scatter_impl)
+    tp = _sharded.mesh_tp_degree(mesh)
+    if not tp_shard_ok(cfg, tp):
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} / n_heads={cfg.n_heads} not divisible by tp={tp}: head-sharded kernels "
+            "need whole heads per shard"
+        )
     on_card = torch.device(device).type == "cuda"
     writeback = impl.endswith("-writeback")
     return {
         "attention": "writeback" if writeback else "ragged",
-        "ragged_variant": None if writeback else _paged.ragged_variant_for(cfg.n_kv_heads, kv_dtype),
+        "ragged_variant": None if writeback else _paged.ragged_variant_for(cfg.n_kv_heads // tp, kv_dtype),
         "scatter": "kernel",
         "prefill": "flash",
         "impl": "cuda" if on_card else "plain",
         "kv_dtype": str(kv_dtype),
         "weights": weights or cfg.dtype,
+        "tp": tp,
         "requested": impl,
         "downgraded": [],
     }
@@ -604,7 +795,7 @@ def paged_impl_plan(
 
 def decode_step(
     params, tokens, positions, k_pages, v_pages, page_tables, active, cfg: LlamaConfig,
-    impl: str = "xla", scatter_impl: str = "xla",
+    impl: str = "xla", scatter_impl: str = "xla", *, mesh=None,
 ):
     """One decode token per slot against the paged cache. tokens/positions
     [B]; active [B] bool (dead slots attend an empty prefix and write trash
@@ -617,36 +808,38 @@ def decode_step(
     write every layer's K/V in one scatter after the last layer;
     "xla-writeback" and "pallas-writeback" run :func:`_decode_step_writeback`.
     ``scatter_impl`` names the JAX package's scatter choice; both values run
-    the scatter kernel."""
+    the scatter kernel. Under ``mesh=`` the rank's shards and kv heads."""
     _check_impls(impl, scatter_impl)
     if impl.endswith("-writeback"):
-        return _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg)
+        return _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg, mesh)
     B = tokens.shape[0]
     ps = k_pages.shape[2]
     cos, sin = _rope(cfg, positions[:, None])  # [B, 1, hd/2]
     page_idx, slot = _page_targets(page_tables, positions[:, None], active[:, None], ps)
     prefix_lens = torch.where(active, positions, torch.zeros_like(positions)).int()
-    x = params["embed"][tokens][:, None]  # [B, 1, dim]
-    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    x = _embed(params, tokens, mesh)[:, None]  # [B, 1, dim]
+    L, Hkv, D = cfg.n_layers, k_pages.shape[3], cfg.head_dim
     k_all = torch.empty((L, B, Hkv, D), dtype=x.dtype, device=x.device)
     v_all = torch.empty_like(k_all)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)
         k_tok, v_tok = k[:, :, 0], v[:, :, 0]  # [B, Hkv, D]
-        o = _paged.paged_decode_attention_ragged(
-            q[:, :, 0], k_pages, v_pages, li, page_tables, prefix_lens, k_tok, v_tok
+        o = _sharded.sharded_ragged_decode(
+            mesh, q[:, :, 0], k_pages, v_pages, li, page_tables, prefix_lens, k_tok, v_tok, heads=_heads(cfg),
         )  # [B, Hq, D]
-        x = _finish_layer(layer, x, o.reshape(B, 1, -1), cfg)
+        x, _ = _finish_layer(layer, x, o.reshape(B, 1, -1), cfg, mesh)
         k_all[li] = k_tok
         v_all[li] = v_tok
-    _paged.scatter_kv_pages(k_pages, v_pages, k_all, v_all, page_idx[:, 0], slot[:, 0])
-    return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg), k_pages, v_pages
+    _sharded.sharded_scatter_kv_pages(mesh, k_pages, v_pages, k_all, v_all, page_idx[:, 0], slot[:, 0],
+                                      heads=_heads(cfg))
+    return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg, mesh), k_pages, v_pages
 
 
-def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg: LlamaConfig):
+def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tables, active, cfg: LlamaConfig,
+                           mesh=None):
     """Write-then-attend decode: each layer writes this token's K/V into its
     pages, then the write-then-attend decode attends over ``positions + 1``
-    rows, the current token among them (``_paged.write_then_attend``: over
+    rows, the current token among them (``sharded_write_then_attend``: over
     bf16 pages on the card one launch of the write-then-attend kernel does
     both; over an int8 cache the int8 scatter, then its int8 twin). Dead
     slots write trash page 0 and attend one row. Both writeback impls launch
@@ -657,17 +850,17 @@ def _decode_step_writeback(params, tokens, positions, k_pages, v_pages, page_tab
     page_idx, slot = _page_targets(page_tables, positions[:, None], active[:, None], ps)
     page_idx, slot = page_idx[:, 0], slot[:, 0]
     ctx_lens = torch.where(active, positions + 1, torch.ones_like(positions)).int()
-    x = params["embed"][tokens][:, None]  # [B, 1, dim]
+    x = _embed(params, tokens, mesh)[:, None]  # [B, 1, dim]
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)
         k_pg, v_pg = k_pages[li], v_pages[li]  # [P, ps, Hkv, D] views
-        o = _paged.write_then_attend(q[:, :, 0], k_pg, v_pg, page_tables, ctx_lens, k[:, :, 0], v[:, :, 0], page_idx,
-                                     slot)
-        x = _finish_layer(layer, x, o.reshape(B, 1, -1), cfg)
-    return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg), k_pages, v_pages
+        o = _sharded.sharded_write_then_attend(mesh, q[:, :, 0], k_pg, v_pg, page_tables, ctx_lens, k[:, :, 0],
+                                               v[:, :, 0], page_idx, slot, heads=_heads(cfg))
+        x, _ = _finish_layer(layer, x, o.reshape(B, 1, -1), cfg, mesh)
+    return _last_logits(params, x, torch.ones(B, device=x.device, dtype=torch.long), cfg, mesh), k_pages, v_pages
 
 
-def verify_step(params, tokens, positions0, k_pages, v_pages, page_tables, active, cfg: LlamaConfig):
+def verify_step(params, tokens, positions0, k_pages, v_pages, page_tables, active, cfg: LlamaConfig, *, mesh=None):
     """T tokens of teacher-forced decode against the paged cache, the
     target's scoring half of speculative decoding. tokens [B, T] (the
     committed token, then the proposals), positions0 [B] (the position of
@@ -692,16 +885,16 @@ def verify_step(params, tokens, positions0, k_pages, v_pages, page_tables, activ
     cos, sin = _rope(cfg, pos_c)  # [B, T, hd/2]
     page_idx, slot = _page_targets(page_tables, pos_c, valid, ps)
     page_idx, slot = page_idx.reshape(B * T), slot.reshape(B * T)
-    x = params["embed"][tokens]  # [B, T, dim]
-    Hkv, D = cfg.n_kv_heads, cfg.head_dim
+    x = _embed(params, tokens, mesh)  # [B, T, dim]
+    Hkv, D = k_pages.shape[3], cfg.head_dim
     for li, layer in enumerate(params["layers"]):
         q, k, v = _qkv(layer, x, cfg, cos, sin)  # q [B, Hq, T, D], k/v [B, Hkv, T, D]
         k_pg, v_pg = k_pages[li], v_pages[li]  # [P, ps, Hkv, D] views
-        o = _paged.paged_verify_attention(
-            q.transpose(1, 2), k_pg, v_pg, page_tables, positions,
+        o = _sharded.sharded_paged_verify_attention(
+            mesh, q.transpose(1, 2), k_pg, v_pg, page_tables, positions,
             k_new=k.transpose(1, 2).reshape(B * T, Hkv, D), v_new=v.transpose(1, 2).reshape(B * T, Hkv, D),
-            page_idx=page_idx, slot=slot,
+            page_idx=page_idx, slot=slot, heads=_heads(cfg),
         )  # [B, T, Hq, D]
-        x = _finish_layer(layer, x, o.reshape(B, T, -1), cfg)
+        x, _ = _finish_layer(layer, x, o.reshape(B, T, -1), cfg, mesh)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.mm(x, _head(params, cfg)), k_pages, v_pages
+    return _logits(x, params, cfg, mesh), k_pages, v_pages

@@ -4,8 +4,10 @@ the serving formulation that runs every expert on every token.
 Counterpart of ``modal_examples_tpu/models/moe.py`` (``MoEConfig``,
 ``init_params``, ``_route``, ``_expert_ffn``, ``moe_mlp``, ``_mm``,
 ``_swiglu_expert``, ``moe_swiglu_nodrop``, ``moe_swiglu_capacity``).
-``moe_mlp_ep``, the expert-parallel layer over a device mesh, waits for the
-port's mesh (ROADMAP A10) and raises.
+``moe_mlp_ep`` is the expert-parallel layer over a mesh axis of rank
+processes (``parallel``): each rank holds its tokens and its block of the
+experts, and two ``all_to_all`` exchanges carry the dispatched tokens to
+their experts' ranks and the results back.
 
 Top-k keeps ``lax.top_k``'s order (the larger value first, the lower index
 first among equals) through a stable sort, and the top-1 of the aux loss is
@@ -138,8 +140,39 @@ def moe_mlp(params: dict, x, cfg: MoEConfig, *, groups: int = 1):
 
 
 def moe_mlp_ep(params: dict, x, cfg: MoEConfig, mesh, *, axis: str = "expert"):
-    """Expert parallelism over a device mesh: not ported yet."""
-    raise NotImplementedError("moe_mlp_ep (experts sharded over a mesh axis, all_to_all) waits for ROADMAP A10")
+    """Expert parallelism over the mesh axis ``axis`` of ``n`` ranks: this
+    rank's tokens ``x`` [T/n, D] and its experts (``w_in``/``w_out`` are its
+    block of E/n experts, the blocked layout: global expert ``e`` lives on
+    rank ``e // (E/n)``; ``router`` whole). Routing and capacities are per
+    rank, as ``moe_mlp(groups=n)`` makes them per group; the dispatched
+    activations go to their experts' ranks by ``all_to_all`` and come back
+    the same way. Returns (this rank's out [T/n, D], the aux loss averaged
+    over the axis)."""
+    from ..parallel import collectives
+
+    if mesh is None:
+        raise ValueError("moe_mlp_ep runs over a mesh's expert axis (parallel.make_mesh); moe_mlp(groups=n) is "
+                         "its one-device form")
+    n = collectives.axis_size(axis, mesh)
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not split over {n} ranks")
+    e_loc = cfg.n_experts // n
+    if params["w_in"].shape[0] != e_loc:
+        raise ValueError(f"w_in holds {params['w_in'].shape[0]} experts; this rank's block is {e_loc}")
+    t, d = x.shape
+    cap = cfg.capacity(t)
+    dispatch, combine, aux = _route(x, params["router"], cfg, cap)  # [t, E, C]
+    expert_in = torch.einsum("tec,td->ecd", dispatch, x)  # [E, C, D]
+    # block j of the experts goes to rank j; each rank receives every rank's
+    # tokens for its experts, stacked by source rank: [n, E/n, C, D]
+    recv = collectives.all_to_all(expert_in.reshape(n, e_loc, cap, d), axis, split_dim=0, concat_dim=0, tiled=False,
+                                  mesh=mesh)
+    h = recv.transpose(0, 1).reshape(e_loc, n * cap, d)
+    out_loc = _expert_ffn(params["w_in"], params["w_out"], h)  # [E/n, n*C, D]
+    back = collectives.all_to_all(out_loc.reshape(e_loc, n, cap, d).transpose(0, 1), axis, split_dim=0, concat_dim=0,
+                                  tiled=False, mesh=mesh)  # block j: this rank's tokens through rank j's experts
+    out = torch.einsum("tec,ecd->td", combine, back.reshape(cfg.n_experts, cap, d))
+    return out, collectives.pmean(aux, axis, mesh)
 
 
 def _mm(h, w):

@@ -99,7 +99,7 @@ def bits_of(quantization: str) -> int:
     return 8 if quantization == "int8" else 4
 
 
-def _quantize_layer(layer: dict, targets, bits: int) -> dict:
+def quantize_layer(layer: dict, targets, bits: int) -> dict:
     return {name: quantize_weight(w, bits) if name in targets else w for name, w in layer.items()}
 
 
@@ -109,7 +109,7 @@ def quantize_llama(params: dict, targets=LLAMA_TARGETS, *, bits: int = 8) -> dic
     callers that own the weights outright use :func:`init_quantized_llama`."""
     _qmax(bits)
     out = dict(params)
-    out["layers"] = [_quantize_layer(layer, targets, bits) for layer in params["layers"]]
+    out["layers"] = [quantize_layer(layer, targets, bits) for layer in params["layers"]]
     if "lm_head" in params:
         out["lm_head"] = quantize_weight(params["lm_head"], bits)
     return out
@@ -123,7 +123,7 @@ def init_quantized_llama(cfg, *, seed: int = 0, bits: int = 8, device=None) -> d
 
     _qmax(bits)
     params = llama.init_params(
-        cfg, seed=seed, device=device, map_layer=lambda layer: _quantize_layer(layer, LLAMA_TARGETS, bits)
+        cfg, seed=seed, device=device, map_layer=lambda layer: quantize_layer(layer, LLAMA_TARGETS, bits)
     )
     if "lm_head" in params:
         params["lm_head"] = quantize_weight(params["lm_head"], bits)

@@ -3,7 +3,8 @@ f32 scales (:class:`QuantizedKV`).
 
 Counterpart of ``modal_examples_tpu/ops/kv_quant.py``: ``QuantizedKV``,
 ``is_quantized``, ``resolve_kv_dtype``, ``kv_dtype_name``, ``quantize_kv``,
-``dequantize_kv``, ``kv_empty``, ``kv_gather`` and ``kv_scatter``. The JAX
+``dequantize_kv``, ``kv_empty``, ``kv_gather``, ``shard_kv`` and
+``kv_scatter``. The JAX
 functions return new arrays; ``kv_scatter`` here writes the pages in place
 and returns them (all layers, or one layer's pages with
 ``leading_layer=False``).
@@ -147,3 +148,18 @@ def kv_scatter(pages, update, page_idx, slot, *, leading_layer: bool = True):
         return pages
     pages[idx] = update.to(pages.dtype)
     return pages
+
+
+def shard_kv(pages, data_spec, scale_spec, mesh):
+    """This rank's block of cache pages under a placement: plain pages take
+    ``data_spec``; int8 pages split their f32 scales with their data on the
+    same kv-head axis (``scale_spec``, the data's placement without the D
+    axis), so dequantization never needs another rank's scales. The one
+    placement of the paged (``ops.sharded.shard_cache_pages``) and dense
+    (``serving.tensor_parallel.DenseKVCache``) tensor-parallel caches."""
+    from ..parallel.mesh import shard_tensor
+
+    if is_quantized(pages):
+        return QuantizedKV(data=shard_tensor(pages.data, data_spec, mesh),
+                           scale=shard_tensor(pages.scale, scale_spec, mesh))
+    return shard_tensor(pages, data_spec, mesh)

@@ -130,6 +130,16 @@ with "error" and lives on), ``engine.scheduler_freeze``,
 ``tiered_prefix=`` wraps the prefix trie with the host-RAM and ``Volume``
 spill tiers (``serving/disagg/tiered_cache.py``): evicted prefix pages spill
 on the eviction wave and promote back inside ``_claim_pages``.
+
+Every device call (a batched prefill and its first tokens, a chunk, a
+sliced prompt's first token, a replay step, a decode block) goes through
+``self.runner`` (``serving/runner.py``). ``mesh=`` (a mesh with a
+``tensor`` axis, ``parallel.make_mesh``) is tensor-parallel serving, the
+JAX engine's one flag: this process is the axis's rank 0, holds its shards
+(``_model_state``) and decides everything as on one card; its runner ships
+each call to the other ranks, which run :func:`follow`. Speculation, the
+macro-step, the tiered cache and the page moves of disaggregated serving
+and migration under a mesh raise (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -149,7 +159,9 @@ import torch
 from ..faults import inject as _inject
 from ..models import llama
 from ..models.quantize import SUPPORTED as _QUANT_MODES
-from ..models.quantize import QuantizedWeight, bits_of, init_quantized_llama, param_bytes, quantize_llama
+from ..models.quantize import (
+    LLAMA_TARGETS, QuantizedWeight, bits_of, param_bytes, quantize_layer, quantize_llama, quantize_weight,
+)
 from ..observability import incident as _incident
 from ..observability import metrics as _obs
 from ..observability import profiler as _profiler
@@ -157,6 +169,7 @@ from ..observability import reqtrace as _rt
 from ..observability import timeseries as _ts
 from ..observability import usage as _usage
 from ..ops.kv_quant import resolve_kv_dtype
+from ..ops.sharded import mesh_tp_degree
 from ..scheduling.admission import AdmissionController, ShedError
 from ..scheduling.policy import DEFAULT_CLASS, FairSharePolicy, ScheduledRequest, SchedulerPolicy, validate_class
 from ..utils.device import resolve_device
@@ -165,7 +178,8 @@ from .kv_cache import OutOfPages, PagedKVCache
 from .multistep import DetokWorker, build_multistep_fn, resolve_decode_steps
 from .prefix_cache import PrefixCache
 from .health import EngineWatermarks
-from .sampling import SamplingParams, block_noise, prng_key, sample, split
+from .runner import ModelRunner, control_group, share_settings
+from .sampling import SamplingParams, sample
 from .spec_runtime import AdaptiveGammaController, build_ngram_round_fn, build_spec_round_fn, resolve_spec_adaptive
 
 _CANARY_TENANT = _usage.CANARY_TENANT
@@ -287,7 +301,6 @@ class _PendingPrefill:
     offset: int = 0  # token offset of the next chunk
     ticks: int = 0  # ticks that dispatched at least one chunk
     suspensions: int = 0  # times the budget paused this prefill mid-prompt
-    logits: torch.Tensor | None = None  # the last dispatched chunk's logits
     t_start: float = 0.0  # monotonic, for the phase histogram
     t_wall: float = 0.0  # wall clock, for the trace spans
     spans: list = dataclasses.field(default_factory=list)  # each chunk's (start, end) CUDA events
@@ -490,6 +503,75 @@ MODEL_PRESETS = {
 }
 
 
+def _check_tp_engine(cfg, tp: int, *, speculative, decode_steps, tiered_prefix) -> None:
+    """What a tensor-parallel engine takes, checked before a byte is
+    allocated: a process group (the mesh is one), whole heads a rank (the
+    cache shards on the kv-head axis), rank 0 of the axis, and none of the
+    options whose tensor-parallel form waits."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("a tensor-parallel engine needs a process group: parallel.cluster.init_distributed()")
+    if tp > 1 and (cfg.n_kv_heads % tp or cfg.n_heads % tp):
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} / n_heads={cfg.n_heads} must be divisible by the tensor axis size {tp} "
+            "for kv-head-sharded TP serving"
+        )
+    if dist.get_rank() != 0:
+        raise RuntimeError("the engine runs on rank 0; every other rank of the mesh runs serving.engine.follow()")
+    if speculative is not None:
+        raise NotImplementedError("speculative decoding under tensor parallelism waits (ROADMAP A10b)")
+    if resolve_decode_steps(decode_steps) > 1:
+        raise NotImplementedError("the macro-step (decode_steps > 1) under tensor parallelism waits (ROADMAP A10b)")
+    if tiered_prefix:
+        raise NotImplementedError("the tiered prefix cache under tensor parallelism is not ported (ROADMAP A10b)")
+
+
+def _model_state(cfg, params, *, model_dir, quantization, seed: int, kv_dtype, device, mesh, n_pages: int,
+                 page_size: int):
+    """The weights (this rank's shards under a mesh) and the paged cache
+    (this rank's kv heads) of an engine, made the same way on every rank
+    from rank 0's settings. Given or loaded weights are quantized, then cut;
+    drawn ones are drawn, quantized and cut a layer at a time, so no rank
+    holds the whole tree."""
+    tp = mesh_tp_degree(mesh)
+    if params is None and model_dir is None:
+        bits = bits_of(quantization) if quantization is not None else None
+
+        def per_layer(layer):
+            # drawn and quantized layer by layer: no resident bf16 tree
+            if bits is not None:
+                layer = quantize_layer(layer, LLAMA_TARGETS, bits)
+            return layer if mesh is None else llama.shard_layer(layer, cfg, mesh)
+
+        params = llama.init_params(cfg, seed=seed, device=device, map_layer=per_layer)
+        if bits is not None and "lm_head" in params:
+            params["lm_head"] = quantize_weight(params["lm_head"], bits)
+        if mesh is not None:
+            params = llama.shard_params(params, cfg, mesh, layers=False)
+    else:
+        if params is None:
+            # int8 and int4 are quantized on the host: the bf16 weights never reach the card
+            params = llama.load_hf_weights(model_dir, cfg, quantization=quantization, device=device)
+        elif quantization is not None:
+            params = quantize_llama(params, bits=bits_of(quantization))
+        if mesh is not None:
+            params = llama.shard_params(params, cfg, mesh)
+    cache = PagedKVCache.create(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads // tp, head_dim=cfg.head_dim,
+        n_pages=n_pages, page_size=page_size, kv_dtype=resolve_kv_dtype(kv_dtype), device=device,
+    )
+    return params, cache
+
+
+#: the settings rank 0's engine resolves and its followers build from
+_STATE_SETTINGS = ("model_dir", "quantization", "seed", "kv_dtype", "n_pages", "page_size")
+
+
+def _weights_source(params, model_dir) -> str:
+    return "given" if params is not None else ("loaded" if model_dir is not None else "drawn")
+
+
 class LLMEngine:
     #: every scheduler-loop traceback from any engine in this process (capped)
     _error_reports: list = []
@@ -536,8 +618,16 @@ class LLMEngine:
         # replica=); evicted prefix pages spill HBM -> host RAM -> Volume
         # and promote back on the next shared-prefix prompt
         tiered_prefix=None,
+        # tensor parallelism (a mesh with a "tensor" axis, parallel.make_mesh):
+        # this process is the axis's rank 0; every other rank runs follow()
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.tp = mesh_tp_degree(mesh)
+        if mesh is not None:
+            _check_tp_engine(cfg, self.tp, speculative=speculative, decode_steps=decode_steps,
+                             tiered_prefix=tiered_prefix)
         if max_prefill_tokens_per_tick is None:
             raw = os.environ.get("MTPU_PREFILL_BUDGET", "")
             max_prefill_tokens_per_tick = int(raw) if raw else 0
@@ -559,33 +649,29 @@ class LLMEngine:
         # validates both impl names before a byte is allocated
         self.impl_plan = llama.paged_impl_plan(
             cfg, self.device, self.kv_dtype, weights, impl=self.paged_impl, scatter_impl=self.scatter_impl,
+            mesh=mesh,
         )
         _obs.set_decode_impl(self.impl_plan)
         # speculation is validated before a byte of weights is allocated
         self.spec_gamma, self.spec_mode, self.draft_cfg = 0, None, None
         if speculative is not None:
             self._resolve_speculative(cfg, speculative, draft_params, draft_model_dir)
-        if params is None:
-            if model_dir is not None:
-                # int8 and int4 are quantized on the host: the bf16 weights never reach the card
-                params = llama.load_hf_weights(model_dir, cfg, quantization=quantization, device=self.device)
-            elif quantization is not None:
-                # drawn and quantized layer by layer: no resident bf16 tree
-                params = init_quantized_llama(cfg, seed=seed, bits=bits_of(quantization), device=self.device)
-            else:
-                params = llama.init_params(cfg, seed=seed, device=self.device)
-        elif quantization is not None:
-            params = quantize_llama(params, bits=bits_of(quantization))
-        self.params = params
         self.max_slots = max_slots
         self.max_model_len = max_model_len
         self.pages_per_slot = (max_model_len + page_size - 1) // page_size
         if n_pages is None:
             n_pages = 1 + max_slots * self.pages_per_slot
-        self.cache = PagedKVCache.create(
-            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            n_pages=n_pages, page_size=page_size, kv_dtype=kv_dtype, device=self.device,
-        )
+        self.decode_block = max(1, int(decode_block))
+        # under a mesh, the followers build from these settings, as resolved here
+        settings = dict(cfg=cfg, weights=_weights_source(params, model_dir), model_dir=model_dir,
+                        quantization=quantization, seed=seed, kv_dtype=self.kv_dtype, n_pages=n_pages,
+                        page_size=page_size, decode_block=self.decode_block, paged_impl=self.paged_impl,
+                        scatter_impl=self.scatter_impl)
+        control = control_group(mesh)
+        if control[0] is not None:
+            share_settings(settings, control)
+        self.params, self.cache = _model_state(cfg, params, device=self.device, mesh=mesh,
+                                               **{k: settings[k] for k in _STATE_SETTINGS})
         self.prefill_buckets = tuple(b for b in sorted(prefill_buckets) if b <= max_model_len) or (max_model_len,)
         self.prefill_batch = max(1, min(prefill_batch, max_slots))
         self.prefix_cache = PrefixCache(self.cache.allocator, page_size) if enable_prefix_cache else None
@@ -598,7 +684,6 @@ class LLMEngine:
             kw = dict(tiered_prefix) if isinstance(tiered_prefix, dict) else {}
             self.tiered = TieredPrefixCache(self.cache, self.prefix_cache, **kw)
             self.prefix_cache.spill = self.tiered.spill_pages
-        self.decode_block = max(1, int(decode_block))
         self.decode_steps = resolve_decode_steps(decode_steps)  # read once per dispatch
         self._detok: DetokWorker | None = None  # created at the first routed token
         self.slots = [_Slot() for _ in range(max_slots)]
@@ -635,7 +720,12 @@ class LLMEngine:
         self._stopped_on_error = False
         self._metrics_wall = 0.0  # last gauge refresh (throttled)
         self._counter_flush = {"prompt": 0, "generated": 0, "steps": 0}  # stats flushed into the counters
-        self._key = prng_key(seed, self.device)
+        # the device calls (prefills, chunks, decode blocks) and the key
+        # chain; under a mesh it ships each call to the follower ranks
+        self.runner = ModelRunner(
+            cfg, self.params, self.cache, device=self.device, seed=seed, decode_block=self.decode_block,
+            paged_impl=self.paged_impl, scatter_impl=self.scatter_impl, mesh=mesh, control=control,
+        )
         self._seed_base = int(seed)
         self._submit_seq = 0
         self._lock = threading.Lock()
@@ -688,6 +778,7 @@ class LLMEngine:
                 ),
                 allocator=self.cache.allocator,
             )
+            self.runner.draft = (self.draft_params, self.draft_cache, draft)
             self._spec_round_fn = build_spec_round_fn(
                 cfg, draft, paged_impl=self.paged_impl, scatter_impl=self.scatter_impl, gamma=self.spec_gamma,
             )
@@ -771,35 +862,14 @@ class LLMEngine:
         return self.prefill_buckets[-1]
 
     def _next_key(self):
-        keys = split(self._key, 2)
-        self._key = keys[0]
-        return keys[1]
+        return self.runner.next_key()
 
     def _stage(self, *arrays: np.ndarray) -> list[torch.Tensor]:
-        """One dispatch's host arrays (int32, float32 or bool) on the device:
-        packed into one int32 buffer and sent in one copy, non-blocking from
-        pinned memory on the card. The buffer is fresh each time: PyTorch's
-        pinned-memory cache reuses it only after its copy has run, so a later
-        dispatch never rewrites what a queued copy still reads."""
-        total = sum(a.size for a in arrays)
-        on_card = self.device.type == "cuda"
-        host = torch.empty(total, dtype=torch.int32, pin_memory=on_card)
-        flat = host.numpy()
-        off = 0
-        for a in arrays:
-            flat[off : off + a.size] = (a.view(np.int32) if a.dtype == np.float32 else a).reshape(-1)
-            off += a.size
-        dev = host.to(self.device, non_blocking=True) if on_card else host
-        out, off = [], 0
-        for a in arrays:
-            t = dev[off : off + a.size].view(a.shape)
-            off += a.size
-            if a.dtype == np.float32:
-                t = t.view(torch.float32)
-            elif a.dtype == np.bool_:
-                t = t != 0
-            out.append(t)
-        return out
+        return self.runner.stage(*arrays)
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} under tensor parallelism is not ported (ROADMAP A10b)")
 
     # -- public API ---------------------------------------------------------
 
@@ -915,6 +985,7 @@ class LLMEngine:
         prefill replica's half of disaggregated serving. Only legal while the
         scheduler loop is not running (a prefill replica never starts its
         loop); concurrent callers serialize on a lock."""
+        self._no_mesh("a slot-free prefill (disaggregated serving)")
         self._prefill_sync_pending += 1
         turn = _TURNS.acquire()
         try:
@@ -965,10 +1036,9 @@ class LLMEngine:
         table = np.zeros((self.pages_per_slot,), np.int32)
         table[: len(pages)] = pages
         if n_prompt > self.prefill_buckets[-1]:
-            logits = None
             for offset in range(0, n_prompt, self.prefill_buckets[-1]):
-                logits = self._dispatch_prefill_chunk(req.prompt_tokens, table, offset)
-            first = self._sample_first(req, logits)
+                self._dispatch_prefill_chunk(-1, req.prompt_tokens, table, offset)
+            first = self._sample_first(-1, req)
         else:
             first = self._prefill_rows(self._bucket_for(n_prompt), [(req, table)])
         return int(first.cpu()[0])
@@ -992,6 +1062,7 @@ class LLMEngine:
         the prompt's chained block hashes, the sampler meta)."""
         from .disagg.transport import chain_hashes, extract_pages
 
+        self._no_mesh("extracting a request's pages")
         used = state["claim"]["pages"][: state["n_kv_pages"]]
         return extract_pages(
             self.cache, used,
@@ -1014,6 +1085,7 @@ class LLMEngine:
         the scheduler thread and decode continues from the migrated
         position. ``entry`` is the admission reservation the coordinator
         took on this engine before any byte moved."""
+        self._no_mesh("adopting another engine's pages")
         if block.kv_dtype != self.cache.kv_dtype:
             raise ValueError(
                 f"migrated block is {block.kv_dtype}, this cache is {self.cache.kv_dtype}: "
@@ -1075,6 +1147,7 @@ class LLMEngine:
         resubmits the prompt), or ``("gone", None)``. Raises when the loop
         is stopped or unresponsive: the caller falls back to the reactive
         resume."""
+        self._no_mesh("a live migration")
         return self._run_on_scheduler(lambda: self._migrate_out_on_sched(req), timeout)
 
     def _migrate_out_on_sched(self, req: Request):
@@ -1142,6 +1215,8 @@ class LLMEngine:
 
     def start(self) -> "LLMEngine":
         with self._lock:
+            if self.runner.closed:
+                raise RuntimeError("a stopped tensor-parallel engine has released its followers")
             if self._stopped_on_error:
                 raise RuntimeError(
                     "engine stopped after a scheduler error; last traceback:\n"
@@ -1161,6 +1236,7 @@ class LLMEngine:
         (the router's re-probe, ``EngineReplica.probe``). Stopping on error
         already released every caller and freed every slot, so a revived
         engine starts empty; ``error_log`` stays for diagnosis."""
+        self._no_mesh("reviving an engine")
         with self._lock:
             self._stopped_on_error = False
         return self
@@ -1186,6 +1262,8 @@ class LLMEngine:
         self.usage.flush()
         if self.profiler is not None:
             self.profiler.flush()
+        # a tensor-parallel engine's stop releases its followers: it is final
+        self.runner.close()
 
     # -- scheduler loop -------------------------------------------------------
 
@@ -1800,30 +1878,17 @@ class LLMEngine:
             p = req.params
             temps[i], top_ps[i], top_ks[i] = p.temperature, p.top_p, p.top_k
             seeds[i] = _req_seed(req)
-        tok_d, tables_d, lens_d, temps_d, top_ps_d, top_ks_d, seeds_d = self._stage(
-            tokens, tables, seq_lens, temps, top_ps, top_ks, seeds)
-        logits, _, _ = llama.prefill(
-            self.params, tok_d, self.cache.k_pages, self.cache.v_pages, tables_d, lens_d, self.cfg,
-        )
-        if self.spec_mode == "draft":
-            # the draft's cache over the same pages (the caches share page ids)
-            llama.prefill(self.draft_params, tok_d, self.draft_cache.k_pages, self.draft_cache.v_pages, tables_d,
-                          lens_d, self.draft_cfg)
-        return sample(
-            logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=lens_d,
-            needs_filter=bool(((top_ps < 1.0) | (top_ks > 0)).any()),
-        )
+        return self.runner.prefill(tokens, tables, seq_lens, temps, top_ps, top_ks, seeds)
 
-    def _sample_first(self, req: Request, logits: torch.Tensor) -> torch.Tensor:
+    def _sample_first(self, slot_idx: int, req: Request) -> torch.Tensor:
         """Sample a chunked prompt's first token from its last chunk's logits
         (keyed by seed and position, so slicing cannot change it)."""
         p = req.params
-        temps_d, top_ps_d, top_ks_d, seeds_d, step_d = self._stage(
-            np.array([p.temperature], np.float32), np.array([p.top_p], np.float32), np.array([p.top_k], np.int32),
-            np.array([_req_seed(req)], np.int32), np.array([len(req.prompt_tokens)], np.int32),
+        return self.runner.sample_first(
+            slot_idx, np.array([p.temperature], np.float32), np.array([p.top_p], np.float32),
+            np.array([p.top_k], np.int32), np.array([_req_seed(req)], np.int32),
+            np.array([len(req.prompt_tokens)], np.int32),
         )
-        return sample(logits, self._next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=step_d,
-                      needs_filter=p.top_p < 1.0 or p.top_k > 0)
 
     def _prefill_long(self, slot_idx: int, req: Request, claim: dict) -> None:
         """Install a prompt longer than the largest bucket as a sliced
@@ -1850,7 +1915,7 @@ class LLMEngine:
             try:
                 while pp.offset < n_prompt and (budget is None or spent == 0 or spent < budget):
                     start = _mark(self.device)
-                    pp.logits = self._dispatch_prefill_chunk(pp.req.prompt_tokens, pp.table, pp.offset)
+                    self._dispatch_prefill_chunk(i, pp.req.prompt_tokens, pp.table, pp.offset)
                     if start is not None:
                         pp.spans.append((start, _mark(self.device)))
                     step = min(C, n_prompt - pp.offset)
@@ -1871,21 +1936,14 @@ class LLMEngine:
                 self._fail_slot(s, s.request)
         return spent
 
-    def _dispatch_prefill_chunk(self, prompt_tokens: list, table: np.ndarray, offset: int) -> torch.Tensor:
-        """One bucket-sized chunk at ``offset``, dispatched; returns its
-        last-token logits (on the device)."""
+    def _dispatch_prefill_chunk(self, slot_idx: int, prompt_tokens: list, table: np.ndarray, offset: int) -> None:
+        """One bucket-sized chunk at ``offset``, dispatched; the runner keeps
+        its last-token logits (on the device) for the slot's first token."""
         C = self.prefill_buckets[-1]
         chunk = prompt_tokens[offset : offset + C]
         toks = np.full((1, C), self.tokenizer.pad_id % self.cfg.vocab_size, np.int32)
         toks[0, : len(chunk)] = chunk
-        toks_d, table_d, len_d = self._stage(toks, table[None, :], np.array([len(chunk)], np.int32))
-        logits, _, _ = llama.prefill_chunk(
-            self.params, toks_d, self.cache.k_pages, self.cache.v_pages, table_d, len_d, self.cfg, q_offset=offset,
-        )
-        if self.spec_mode == "draft":
-            llama.prefill_chunk(self.draft_params, toks_d, self.draft_cache.k_pages, self.draft_cache.v_pages,
-                                table_d, len_d, self.draft_cfg, q_offset=offset)
-        return logits
+        self.runner.prefill_chunk(slot_idx, toks, table[None, :], np.array([len(chunk)], np.int32), offset)
 
     def _finish_sliced_prefill(self, slot_idx: int, pp: _PendingPrefill) -> None:
         """Every chunk dispatched: sample the first token (keyed by seed and
@@ -1893,7 +1951,7 @@ class LLMEngine:
         req = pp.req
         n_prompt = len(req.prompt_tokens)
         start = _mark(self.device)
-        first = self._sample_first(req, pp.logits)
+        first = self._sample_first(slot_idx, req)
         slot = self.slots[slot_idx]
         slot.prefill = None
         slot.pending_first = True
@@ -2017,11 +2075,7 @@ class LLMEngine:
         for tok in fed:
             tokens[slot_idx] = tok
             positions[slot_idx] = s.position
-            tok_d, pos_d, tables_d, active_d = self._stage(tokens, positions, self._page_tables, active)
-            llama.decode_step(
-                self.params, tok_d, pos_d, self.cache.k_pages, self.cache.v_pages, tables_d, active_d, self.cfg,
-                impl=self.paged_impl, scatter_impl=self.scatter_impl,
-            )
+            self.runner.replay_step(tokens, positions, self._page_tables, active)
             s.position += 1
         s.replay = s.replay[n:] or None
         return len(fed)
@@ -2127,18 +2181,19 @@ class LLMEngine:
         # the rows past every slot's budget would all be dropped by the host:
         # they are not dispatched (the JAX engine runs them)
         n_run = min(nominal, int(budgets[live].max()))
-        prev = self._device_tokens
-        if prev is None:
-            prev = torch.zeros((S,), dtype=torch.int32, device=self.device)
-        key = self._next_key()
         start = _mark(self.device)
         if n <= 1:
-            args = self._stage(self._override, override_mask, self._opt_positions, self._page_tables, active,
-                               temps, top_ps, top_ks, seeds)
-            toks, last = self._decode_block_fn(prev, *args[:5], key, *args[5:], n_run=n_run,
-                                               needs_filter=needs_filter)
+            toks, last = self.runner.decode_block(
+                self._device_tokens is None, self._override, override_mask, self._opt_positions, self._page_tables,
+                active, temps, top_ps, top_ks, seeds, n_run, needs_filter,
+            )
             landing, macro = _Landing(toks, start), False
         else:
+            self._no_mesh("the macro-step (decode_steps > 1)")
+            prev = self._device_tokens
+            if prev is None:
+                prev = torch.zeros((S,), dtype=torch.int32, device=self.device)
+            key = self._next_key()
             override, mask_d, pos_d, tables_d, active_d, temps_d, top_ps_d, top_ks_d, seeds_d, budgets_d = (
                 self._stage(self._override, override_mask, self._opt_positions, self._page_tables, active,
                             temps, top_ps, top_ks, seeds, budgets))
@@ -2152,6 +2207,7 @@ class LLMEngine:
                 needs_filter=needs_filter,
             )
             landing, macro = _Landing(torch.stack([toks, valid.to(toks.dtype)]), start), True
+            self.runner.last = last
         self._device_tokens = last
         snapshot = [(i, self.slots[i].request, self.slots[i].tenancy) for i in live]
         self._inflight.append((landing, macro, snapshot, (n_run, nominal), None))
@@ -2159,30 +2215,6 @@ class LLMEngine:
             self._opt_positions[i] += n_run
         self.stats.decode_seconds += time.monotonic() - t0
         _tm(tick, "decode_dispatch")
-
-    def _decode_block_fn(self, prev, override, override_mask, positions, tables, active, key, temps, top_ps,
-                         top_ks, seeds, *, n_run: int, needs_filter: bool):
-        """The first ``n_run`` of a block's ``decode_block`` decode+sample
-        steps over every slot (step keys as for the whole block); tokens feed
-        forward on the device (a fresh slot's first token through the
-        override lane). Returns (tokens [n_run, B], last [B])."""
-        tok = torch.where(override_mask, override, prev)
-        pos = positions
-        step_keys = split(key, self.decode_block)
-        # the block's sampling noise in one derivation (it depends on the keys
-        # and positions only, not on the tokens fed forward)
-        noise = block_noise(step_keys[:n_run], seeds, positions, self.cfg.vocab_size)
-        out = []
-        for k in range(n_run):
-            logits, _, _ = llama.decode_step(
-                self.params, tok, pos, self.cache.k_pages, self.cache.v_pages, tables, active, self.cfg,
-                impl=self.paged_impl, scatter_impl=self.scatter_impl,
-            )
-            nxt = sample(logits, step_keys[k], temps, top_ps, top_ks, needs_filter=needs_filter, noise=noise[k])
-            tok = torch.where(active, nxt, tok)  # dead slots hold steady
-            out.append(tok)
-            pos = pos + 1
-        return torch.stack(out), tok
 
     def _spec_tick(self) -> bool:
         """The decode tick of a speculating engine: harvest the parked first
@@ -2488,13 +2520,53 @@ class LLMEngine:
             self._finish_stream(req, _Finish(reason))
 
 
-def build_engine(model: str = "llama2-7b", model_dir: str | None = None, **engine_kw) -> LLMEngine:
+def follow(cfg, params: dict | None = None, *, mesh, device=None, journal: list | None = None) -> dict:
+    """A follower rank of a tensor-parallel engine: receive rank 0's
+    resolved settings (``LLMEngine``'s cache size and dtype, decode
+    structure, seed and weights' source), make this rank's shards and cache
+    from them, then run each device call rank 0 ships until rank 0's engine
+    stops. It reads no clock, no environment variable and decides nothing
+    (``serving.runner``). ``params`` are the weights rank 0 was given, if it
+    was given any; ``device`` is this rank's card. ``journal`` collects the
+    calls run. Returns the settings received."""
+    import torch.distributed as dist
+
+    tp = mesh_tp_degree(mesh)
+    if dist.get_rank() == 0 or tp <= 1:
+        raise RuntimeError("follow() runs on the ranks after 0 of a tensor axis wider than 1")
+    control = control_group(mesh)
+    s = share_settings(None, control)
+    if s["cfg"] != cfg:
+        raise ValueError(f"this rank's model config differs from rank 0's: {cfg} != {s['cfg']}")
+    if _weights_source(params, s["model_dir"]) != s["weights"]:
+        raise ValueError(f"rank 0's weights are {s['weights']}; this rank's are {_weights_source(params, s['model_dir'])}")
+    device = resolve_device(device)
+    params, cache = _model_state(cfg, params, device=device, mesh=mesh, **{k: s[k] for k in _STATE_SETTINGS})
+    runner = ModelRunner(
+        cfg, params, cache, device=device, seed=s["seed"], decode_block=s["decode_block"],
+        paged_impl=s["paged_impl"], scatter_impl=s["scatter_impl"], mesh=mesh, control=control, journal=journal,
+    )
+    runner.serve_calls()
+    return s
+
+
+def build_engine(model: str = "llama2-7b", model_dir: str | None = None, **engine_kw) -> LLMEngine | None:
     """An engine by preset name, or for the checkpoint in ``model_dir`` (its
-    ``config.json``, its weights and, where it has one, its tokenizer)."""
+    ``config.json``, its weights and, where it has one, its tokenizer).
+    With ``mesh=`` every rank of the mesh calls it: rank 0 gets the engine,
+    every other rank follows (:func:`follow`) until that engine stops, and
+    then gets None."""
     if model_dir is not None:
         cfg = llama.LlamaConfig.from_hf_config(f"{model_dir}/config.json")
     elif model not in MODEL_PRESETS:
         raise ValueError(f"unknown model preset {model!r}; known: {sorted(MODEL_PRESETS)}")
     else:
         cfg = MODEL_PRESETS[model]()
+    mesh = engine_kw.get("mesh")
+    if mesh is not None and mesh_tp_degree(mesh) > 1:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            follow(cfg, engine_kw.get("params"), mesh=mesh, device=engine_kw.get("device"))
+            return None
     return LLMEngine(cfg, model_dir=model_dir, **engine_kw)

@@ -7,6 +7,7 @@ from .trainer import (
     TrainState,
     Trainer,
     cross_entropy_loss,
+    cross_entropy_terms,
     make_optimizer,
     warmup_cosine,
 )
@@ -17,6 +18,7 @@ __all__ = [
     "TrainState",
     "Trainer",
     "cross_entropy_loss",
+    "cross_entropy_terms",
     "device_health",
     "make_optimizer",
     "run_resilient",

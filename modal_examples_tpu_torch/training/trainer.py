@@ -18,8 +18,21 @@ moments to bf16 parameters); a schedule's count starts at 0 on the first
 update. A step builds new parameter and moment tensors and leaves the old
 state intact (JAX donated it instead).
 
-The JAX trainer's mesh sharding (``mesh``, ``param_specs``) waits for
-ROADMAP A10: there is one card and no ``torch.distributed`` here yet.
+Data parallelism (``mesh=`` with a ``data`` axis, ``parallel.make_mesh``):
+every rank gets the global batch (the JAX trainer's ``P("data")`` input),
+cuts it into the ``grad_accum`` microbatches as the JAX step does, takes its
+block of each microbatch's dim 0, and runs the step on it. The trainable
+gradients are summed over the axis in one all-reduce per dtype (the leaves
+flattened into one buffer, as DDP's buckets are) before the optimizer, so
+every rank applies the same update and the parameters stay replicated.
+The loss and the gradient norm are the global batch's, as the JAX trainer
+reports them. A ``loss_fn`` that returns a pair ``(total, count)``
+(:func:`cross_entropy_terms`) is divided by the count summed over the
+ranks: a masked loss whose token counts differ across ranks is the mean
+over the global batch's tokens, as in JAX. A scalar ``loss_fn`` counts as
+a mean over equal-weight blocks, so the ranks are averaged.
+``param_specs`` (tensor-parallel or FSDP training) waits for ROADMAP A10b's
+later items and raises.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import DATA, P, axis_sizes, shard_tensor
 from ..utils import tree
 from ..utils.tracking import RunLogger
 
@@ -43,14 +57,30 @@ class TrainState:
     step: int
 
 
+def _token_ll(logits, targets):
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, -1, targets[..., None].long())[..., 0]
+
+
 def cross_entropy_loss(logits, targets, mask=None):
     """Mean next-token cross entropy; logits [B,S,V] f32, targets [B,S]."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    ll = _token_ll(logits, targets)
     if mask is None:
         return -ll.mean()
     mask = mask.float()
     return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def cross_entropy_terms(logits, targets, mask=None):
+    """``(total, count)``: the summed next-token cross entropy and the
+    number of tokens it counts, whose ratio is :func:`cross_entropy_loss`.
+    A ``loss_fn`` returns this pair so that ``Trainer(mesh=)`` divides by
+    the global batch's count."""
+    ll = _token_ll(logits, targets)
+    if mask is None:
+        return -ll.sum(), torch.tensor(float(ll.numel()), device=ll.device)
+    mask = mask.float()
+    return -(ll * mask).sum(), mask.sum()
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -142,11 +172,22 @@ def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int, floor: fl
     return schedule
 
 
-class Trainer:
-    """Training loop around a pure loss function on one device.
+def _per_count(total, count, grads):
+    """A loss pair's total and gradients divided by its count (at least
+    one); a scalar loss (``count`` None) as it is."""
+    if count is None:
+        return total, grads
+    count = count.float().clamp(min=1.0)
+    return total / count, tree.map(lambda g: (g.float() / count).to(g.dtype), grads)
 
-    ``loss_fn(params, batch) -> scalar`` defines the model; accumulation and
-    the optimizer live here. ``train_step`` returns a new state.
+
+class Trainer:
+    """Training loop around a pure loss function, on one device or data
+    parallel over a mesh's ``data`` axis (module docstring).
+
+    ``loss_fn(params, batch) -> scalar`` defines the model; accumulation,
+    the gradient average and the optimizer live here. ``train_step``
+    returns a new state.
     """
 
     def __init__(
@@ -156,50 +197,98 @@ class Trainer:
         *,
         mesh=None,
         param_specs=None,
+        batch_axis: str = DATA,
         grad_accum: int = 1,
         remat: bool = False,
     ):
-        if mesh is not None or param_specs is not None:
-            raise NotImplementedError("mesh-sharded training is not ported yet (ROADMAP A10)")
+        if param_specs is not None:
+            raise NotImplementedError(
+                "param_specs (tensor-parallel or FSDP training) is not ported; data parallelism is (mesh=): "
+                "ROADMAP A10b"
+            )
+        if mesh is not None and batch_axis not in axis_sizes(mesh):
+            raise ValueError(f"the mesh has no {batch_axis!r} axis to split the batch over: {axis_sizes(mesh)}")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1; got {grad_accum}")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.grad_accum = grad_accum
         self.remat = remat
+        self.mesh = mesh
+        self.batch_axis = batch_axis
 
     def init_state(self, params) -> TrainState:
         return TrainState(params=params, opt_state=self.optimizer.init(params), step=0)
 
     def _value_and_grad(self, params, batch):
+        """``(loss, gradients)`` of ``batch`` on this rank alone (a pair's
+        total divided by its count)."""
+        return _per_count(*self._terms_and_grad(params, batch))
+
+    def _terms_and_grad(self, params, batch):
+        """``(total, count, gradients of total)``; ``count`` is None for a
+        scalar ``loss_fn``."""
         flat = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
         p_tree = tree.unflatten(params, flat)
         if self.remat:
-            loss = checkpoint(self.loss_fn, p_tree, batch, use_reentrant=False)
+            out = checkpoint(self.loss_fn, p_tree, batch, use_reentrant=False)
         else:
-            loss = self.loss_fn(p_tree, batch)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            out = self.loss_fn(p_tree, batch)
+        total, count = out if isinstance(out, tuple) else (out, None)
+        grads = torch.autograd.grad(total, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-        return loss.detach(), tree.unflatten(params, grads)
+        return total.detach(), count, tree.unflatten(params, grads)
+
+    def shard_batch(self, batch):
+        """This rank's block of the global batch (dim 0 of every leaf split
+        over the data axis); the batch itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        return tree.map(lambda x: shard_tensor(x, P(self.batch_axis), self.mesh), batch)
+
+    def _micro_loss_and_grads(self, params, micro):
+        """One microbatch of the global batch: its loss and this rank's
+        share of its gradients (summed over the data axis, they are the
+        microbatch's gradients)."""
+        total, count, grads = self._terms_and_grad(params, self.shard_batch(micro))
+        if self.mesh is not None:
+            from ..parallel import collectives
+
+            if count is None:  # a scalar loss: each rank's block weighs one
+                count = torch.ones((), device=total.device)
+            both = collectives.psum(torch.stack([total.float(), count.float()]), self.batch_axis, self.mesh)
+            total, count = both[0], both[1]
+        return _per_count(total, count, grads)
+
+    def loss_and_grads(self, params, batch):
+        """The loss and the trainable gradients of the global ``batch``
+        (under a mesh, summed over the data axis, so every rank holds the
+        same), averaged over the ``grad_accum`` microbatches."""
+        n = self.grad_accum
+        loss, grads = None, None
+        for i in range(n):
+            micro = batch if n == 1 else tree.map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i], batch)
+            micro_loss, micro_grads = self._micro_loss_and_grads(params, micro)
+            if grads is None:
+                loss, grads = micro_loss, micro_grads
+            else:
+                loss = loss + micro_loss
+                grads = tree.map(torch.add, grads, micro_grads)
+        if self.mesh is not None:
+            from ..parallel import collectives
+
+            grads = collectives.psum_tree(grads, self.batch_axis, self.mesh)
+        if n > 1:
+            loss = loss / n
+            grads = tree.map(lambda g: g / n, grads)
+        return loss, grads
 
     def train_step(self, state: TrainState, batch):
         """One optimizer step over ``batch`` (a pytree of tensors with the
-        batch on dim 0). Returns (new_state, {"loss", "grad_norm"})."""
-        if self.grad_accum > 1:
-            n = self.grad_accum
-            loss_sum, grad_sum = None, None
-            for i in range(n):
-                micro = tree.map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i], batch)
-                loss, grads = self._value_and_grad(state.params, micro)
-                if grad_sum is None:
-                    loss_sum, grad_sum = loss, grads
-                else:
-                    loss_sum = loss_sum + loss
-                    grad_sum = tree.map(torch.add, grad_sum, grads)
-            loss = loss_sum / n
-            grads = tree.map(lambda g: g / n, grad_sum)
-        else:
-            loss, grads = self._value_and_grad(state.params, batch)
+        batch on dim 0; under a mesh the global batch, of which this rank
+        takes its block of each microbatch). Returns (new_state, {"loss",
+        "grad_norm"})."""
+        loss, grads = self.loss_and_grads(state.params, batch)
         grad_norm = global_norm(grads)
         updates, opt_state = self.optimizer.update(grads, state.opt_state, state.params)
         params = apply_updates(state.params, updates)

@@ -172,7 +172,8 @@ def test_moe_mlp_matches_jax(moe_case, factor, groups):
 
 def test_moe_mlp_ep_waits_for_a10(moe_case):
     gelu, _, x = moe_case
-    with pytest.raises(NotImplementedError, match="A10"):
+    # A10 landed: expert parallelism runs over a mesh (tests/test_torch_parallel.py); without one it refuses
+    with pytest.raises(ValueError, match="mesh"):
         tmoe.moe_mlp_ep({k: _t(v) for k, v in gelu.items()}, _t(x), tmoe.MoEConfig(), mesh=None)
     with pytest.raises(ValueError, match="groups"):
         tmoe.moe_mlp({k: _t(v) for k, v in gelu.items()}, _t(x), tmoe.MoEConfig(), groups=3)

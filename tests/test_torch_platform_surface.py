@@ -244,8 +244,11 @@ class TestOptions:
             def f(self):
                 return 1
 
-        with pytest.raises(NotImplementedError, match="A10"):
-            C.with_options(cluster_size=2)
+        # A10 landed: the option reaches the spec (a gang of containers)
+        from modal_examples_tpu_torch.core.app import WAITING_OPTIONS
+
+        assert "cluster_size" not in WAITING_OPTIONS
+        assert C.with_options(cluster_size=2)._spec.cluster_size == 2
 
     def test_gpu_spec_reaches_the_container_env(self):
         app = pm.App("gpu-env")

@@ -9,7 +9,14 @@
   single-sequence oracle ``serving/speculative.py`` (the JAX package's
   quarantine of its oracle): only tests do;
 - the drivers ``fleet/loadgen.py`` and ``faults/chaos.py`` are scanned, and
-  no module of the port imports them: tests and ``chip_smoke.py`` do.
+  no module of the port imports them: tests and ``chip_smoke.py`` do;
+- the parallel layer (``parallel/``, ``ops/sharded.py``,
+  ``ops/ring_attention.py``, ``serving/tensor_parallel.py``,
+  ``serving/runner.py``) is scanned, and the serving code
+  (``models/llama.py``, ``serving/``) reaches the attention and scatter
+  kernels K1-K4 only through ``ops/sharded.py``'s dispatchers, the
+  counterpart of the JAX guard
+  ``tests/test_static.py::test_serving_path_reaches_pallas_only_through_sharded_dispatch``.
 """
 
 import ast
@@ -201,3 +208,72 @@ def test_no_module_of_the_port_imports_a_driver(path):
             assert mod != driver and not mod.startswith(driver + "."), f"{path.name} imports {driver}"
             parent, leaf = driver.rsplit(".", 1)
             assert not (mod == parent and leaf in names), f"{path.name} imports {driver}"
+
+
+def test_import_scan_reaches_the_parallel_layer():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("parallel/__init__.py", "parallel/cluster.py", "parallel/mesh.py", "parallel/collectives.py",
+                "ops/sharded.py", "ops/ring_attention.py", "serving/tensor_parallel.py", "serving/runner.py"):
+        assert mod in names
+
+
+#: the serving code, which reaches K1-K4 only through ``ops/sharded.py`` (the JAX guard's scope)
+SHARDED_DISPATCH_SCOPE = ("models/llama.py", "serving")
+#: the modules of K1-K4's entries
+ATTENTION_KERNEL_MODULES = ("ops/flash_attention.py", "ops/paged_attention.py")
+
+
+def _kernel_reaching_entry_points() -> set[str]:
+    """Top-level functions of the attention and scatter modules that
+    (transitively within their module) launch a kernel: the counterpart of
+    the JAX guard's ``pallas_call``-reachable entries."""
+    entries: set[str] = set()
+    for rel in ATTENTION_KERNEL_MODULES:
+        tree = _tree(PKG / rel)
+        funcs = {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+        def refs(fn):
+            return {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)} | {
+                n.attr for n in ast.walk(fn) if isinstance(n, ast.Attribute)}
+
+        reach = {name for name, fn in funcs.items() if any(_launches(fn, k) for k in KERNELS)}
+        changed = True
+        while changed:
+            changed = False
+            for name, fn in funcs.items():
+                if name not in reach and refs(fn) & reach:
+                    reach.add(name)
+                    changed = True
+        entries |= {n for n in reach if not n.startswith("_")}
+    return entries
+
+
+SERVING_ENTRIES = {
+    "flash_attention", "flash_attention_chunked", "paged_decode_attention", "paged_decode_attention_ragged",
+    "scatter_kv_pages", "write_then_attend", "paged_verify_attention",
+}
+
+
+def test_serving_path_reaches_the_kernels_only_through_sharded_dispatch():
+    """Under ``mesh=`` each rank holds its local heads, and the kernels must
+    see the local shapes through the one dispatch layer that checks the
+    shard (``ops/sharded.py``): the serving code references no kernel entry
+    directly, only its ``sharded_*`` dispatcher, and every serving entry has
+    one."""
+    entries = _kernel_reaching_entry_points()
+    assert SERVING_ENTRIES <= entries, entries  # the guard guards the serving surface
+    sharded = _tree(PKG / "ops" / "sharded.py")
+    sharded_refs = {n.id for n in ast.walk(sharded) if isinstance(n, ast.Name)} | {
+        n.attr for n in ast.walk(sharded) if isinstance(n, ast.Attribute)}
+    assert not SERVING_ENTRIES - sharded_refs, f"serving entries without a dispatcher: {SERVING_ENTRIES - sharded_refs}"
+    paths = []
+    for scope in SHARDED_DISPATCH_SCOPE:
+        p = PKG / scope
+        paths += sorted(p.rglob("*.py")) if p.is_dir() else [p]
+    violations = []
+    for path in paths:
+        for node in ast.walk(_tree(path)):
+            name = node.id if isinstance(node, ast.Name) else node.attr if isinstance(node, ast.Attribute) else None
+            if name in entries:
+                violations.append(f"{path.relative_to(PKG)}:{node.lineno} {name}")
+    assert not violations, violations

@@ -262,7 +262,7 @@ def test_cross_entropy_matches_jax():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A10"):
-        Trainer(lambda p, b: 0.0, make_optimizer(), mesh=object())
+        Trainer(lambda p, b: 0.0, make_optimizer(), param_specs={})
     cfg = tllama.LlamaConfig.tiny()
     with pytest.raises(NotImplementedError, match="A11"):
         tllama.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg, input_embeds=torch.zeros((1, 2, cfg.dim)))
