@@ -19,7 +19,11 @@ platform layer (a snapshot-restored engine, a resumable LoRA fine-tune,
 streaming ASR over a websocket, a sandbox, an OCI export), then serves
 Llama-2-7B with int4 weights on the int4 matmul kernel and trains QLoRA over
 them, DreamBooth-LoRA on the SD3-shape MMDiT, ControlNet's DiT and
-whisper-base, and prints per-kernel times beside their bounds.
+whisper-base, runs tensor and data parallelism over torch.distributed,
+holds the f32 instances of the flash kernels, serves a LLaVA-shape
+vision-language model through the OpenAI server, trains GPT, an f32 Llama's
+LoRA, the detector, OCR, SAM and the video DiT, runs GRPO, and prints
+per-kernel times beside their bounds.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -437,6 +441,40 @@ Phases (any failure exits non-zero and prints no result):
    ``@clustered(size=1)`` with ``gpu="H100"``: one container joins an NCCL
    group of one and runs K1. No figure of 19b-19d is a multi-card speed:
    two ranks share one card.
+20. C11's f32 flash instances and A11's models (after phase 16, before
+   training, over phase 3's weights). (20a) K1-f32, K5-f32 and K6-f32
+   (``csrc/flash_*_f32.cu``: SIMT f32 FMAs, no TF32) against their plain
+   versions at ``F32_CASES`` (GPT's default shape B=8, H=6, S=256, D=64;
+   D=32 and 128; a ragged S=300, causal and not; GQA; a chunk at q_offset
+   496; a nonzero lse cotangent) within ``F32_TOL`` of the largest value,
+   each launched twice and bitwise equal, the check shown to refuse each
+   kernel with its last tile dropped (variants under ``build/variants``).
+   (20b) CLIP ViT-L/14 at 224 px (f32, random from a seed) and its
+   projector in front of phase 3's Llama-2-7B bf16 weights: the tower
+   against its CPU run (1e-4 of the largest value), an image request's
+   prefill and first decode logits against the dense plain forward with
+   ``input_embeds`` (the logit contract, the top-2 margin rule), then
+   ``OpenAIServer`` with counters zeroed: two chat requests with PNG
+   ``data:`` URIs (two images) beside five of phase 3's requests through
+   ``/v1/completions`` (their rows phase 3's), then the first image again
+   (``cached_tokens`` at least its image pages); K1, K2 and K3 launched,
+   the two images' answers different, every page returned; the tower's ms,
+   image and text TTFT, burst tok/s, peak GB. (20c) GPT at its default
+   config (f32, 6 layers, dim 384, block 256, B=8): gradients through the
+   f32 instances against ``attn_impl="xla"`` (cosine >= 0.9999 per leaf),
+   1 + 2 ``Trainer`` steps (each f32 instance 6 a step), ``generate`` of 32
+   tokens; C11 shown repaired: ``Trainer`` over an f32 Llama (head dim 64,
+   8 layers) with rank-16 LoRA, B=2 x S=512, adapter gradients against xla
+   (cosine >= 0.9999), 1 + 2 steps (8 launches of each a step). (20d) the
+   detector, OCR (numpy lines: the card's machine has no PIL), SAM and the
+   video DiT at their default configs: loss and gradients against the
+   port's CPU run within 1e-4 of the largest value, one ``Trainer`` step
+   each, ``video.sample`` with the first frame pinned. (20e) ``GRPOTrainer``
+   at ``llama32_1b()`` width in bf16: group 8, a 32-token prompt, 8 new
+   tokens, 1 + 2 steps; the first step's importance ratio 1 within 2^-7,
+   the policy moved, the reference unchanged; step s and peak GB. The
+   f32 instances' rows join the kernels line at GPT's default shape, with
+   SDPA's memory-efficient f32 kernels as the library column.
 """
 
 from __future__ import annotations
@@ -452,6 +490,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import urllib.error
@@ -466,6 +505,7 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+PEAK_F32_FLOPS = 67e12  # H100 SXM dense f32 outside the tensor cores (data sheet)
 # bf16 tolerances against the plain versions (f32 math inside both):
 # flash differs by the final bf16 rounding and summation order; decode also
 # rounds unnormalised probabilities to bf16 where the plain version rounds
@@ -971,27 +1011,7 @@ def build_variant(tag: str, name: str, path: str, old: str, new: str):
     """``csrc/<name>.cu``'s library built from a copy of ``csrc`` with one
     line of ``path`` changed (``old`` must occur once): a planted fault,
     under ``build/variants/<tag>``."""
-    import ctypes
-
-    from modal_examples_tpu_torch.ops import _build
-
-    root = ROOT / "build" / "variants" / tag
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(_build.CSRC, root / "csrc")
-    src = (root / "csrc" / path).read_text()
-    if src.count(old) != 1:
-        raise AssertionError(f"the planted fault's line {old!r} is not once in {path}")
-    (root / "csrc" / path).write_text(src.replace(old, new))
-    here = (_build.CSRC, _build.BUILD_DIR)
-    _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "kernels"
-    try:
-        _build.build([name])
-        lib = ctypes.CDLL(str(_build.library_path(name)))
-    finally:
-        _build.CSRC, _build.BUILD_DIR = here
-    err_fn = getattr(lib, f"{name}_error_string")
-    err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
-    return lib
+    return build_variants(tag, [name], {path: (old, new)})[name]
 
 
 def fold_cases(gen):
@@ -1436,7 +1456,7 @@ def plain_moe(layer, h, cfg, layers, routes: list | None = None, forced=None):
 
 
 def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int = 0, all_positions: bool = False,
-                           routes: list | None = None, forced: list | None = None):
+                           routes: list | None = None, forced: list | None = None, input_embeds=None):
     """Last-position logits (every position's, ``[S, vocab]``, with
     ``all_positions``) of a dense causal forward built from the plain
     versions (no kernel): the reference for the served path. Int8 weights go
@@ -1444,7 +1464,9 @@ def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int
     the served path reads back from an int8 cache) go through
     ``dequantize_kv(quantize_kv(.))``. A mixture of experts runs
     :func:`plain_moe`, its routing appended to ``routes`` layer by layer,
-    with layer l's experts forced to ``forced[l]`` where that is given."""
+    with layer l's experts forced to ``forced[l]`` where that is given.
+    ``input_embeds`` [1, P, dim] takes the first P positions' embeddings
+    (the multimodal prefix), in the model dtype."""
     import torch.nn.functional as F
 
     from modal_examples_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
@@ -1458,6 +1480,8 @@ def dense_reference_logits(params, cfg, tokens, layers, reference, n_cached: int
     positions = torch.arange(S, device=tokens.device)[None]
     cos, sin = layers.rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     x = params["embed"][tokens]
+    if input_embeds is not None:
+        x = torch.cat([input_embeds.to(x.dtype), x[:, input_embeds.shape[1]:]], dim=1)
     D = cfg.head_dim
     for li, layer in enumerate(params["layers"]):
         h = layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
@@ -4383,19 +4407,19 @@ def adapter_grads(loss_fn, adapters, batch, attn_impl):
     return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
 
-def check_grads_against_xla(loss_fn, adapters, batch, targets) -> dict:
+def check_grads_against_xla(loss_fn, adapters, batch, targets, cosine_min: float = GRAD_COSINE_MIN) -> dict:
     """The first step's adapter gradients through the flash kernels against
     the plain xla attention (autograd through dense attention) on the card.
     b = 0 at init, so every a-gradient is exactly zero on both paths and the
     b-gradients carry the comparison."""
     flash = adapter_grads(loss_fn, adapters, batch, "flash")
     xla = adapter_grads(loss_fn, adapters, batch, "xla")
-    return compare_adapter_grads(flash, xla, targets, "flash vs xla")
+    return compare_adapter_grads(flash, xla, targets, "flash vs xla", cosine_min)
 
 
-def compare_adapter_grads(flash, xla, targets, label: str) -> dict:
-    """Per target: the b-gradients' cosine (held at ``GRAD_COSINE_MIN``) and
-    max relative error; every a-gradient must be exactly zero (b = 0)."""
+def compare_adapter_grads(flash, xla, targets, label: str, cosine_min: float = GRAD_COSINE_MIN) -> dict:
+    """Per target: the b-gradients' cosine (held at ``cosine_min``) and max
+    relative error; every a-gradient must be exactly zero (b = 0)."""
     out = {}
     for t in targets:
         if flash[f"{t}_a"].abs().max() != 0 or xla[f"{t}_a"].abs().max() != 0:
@@ -4406,8 +4430,8 @@ def compare_adapter_grads(flash, xla, targets, label: str) -> dict:
         out[t] = {"cosine": cos, "max_rel_err": rel}
         log(f"  {t}_b grad {label}: cosine {cos:.6f}, max rel err {rel:.3g}, max|g| {x.abs().max().item():.3g}")
     worst = min(v["cosine"] for v in out.values())
-    if not worst >= GRAD_COSINE_MIN:
-        raise AssertionError(f"adapter gradients disagree ({label}): cosine {worst} < {GRAD_COSINE_MIN}")
+    if not worst >= cosine_min:
+        raise AssertionError(f"adapter gradients disagree ({label}): cosine {worst} < {cosine_min}")
     return out
 
 
@@ -7801,6 +7825,754 @@ def phase_parallel(llama, metrics: dict, card: str) -> dict:
     return out
 
 
+# -- phase 20: C11's f32 flash instances, A11's models --------------------------
+
+# f32 instances against their plain versions: max|out - plain| / max|plain|
+# (f32 products in both, sums in another order)
+F32_TOL = 1e-4
+# (B, Hq, Hkv, S, Skv, q_offset, causal, D, nonzero dlse); the backward runs
+# where S == Skv and q_offset == 0 (self-attention, as in JAX)
+F32_CASES = [
+    (8, 6, 6, 256, 256, 0, True, 64, False),     # GPT's default config: dim 384, 6 heads, block 256, B=8
+    (2, 4, 4, 256, 256, 0, True, 32, False),     # GPT's tiny head dim
+    (2, 8, 8, 256, 256, 0, True, 128, False),
+    (2, 8, 2, 300, 300, 0, True, 64, False),     # ragged S, causal, GQA
+    (2, 8, 8, 300, 300, 0, False, 64, True),     # ragged S, full attention, an lse cotangent
+    (2, 8, 2, 256, 256, 0, True, 128, True),     # GQA at D=128 with an lse cotangent
+    (1, 8, 8, 200, 700, 496, True, 64, False),   # a chunk at q_offset 496 over a ragged Skv (forward only)
+]
+# the planted fault: each kernel's last tile of the other side dropped
+F32_FAULTS = {
+    "flash_fwd_f32": ("const int n_tiles = (kv_end + TILE - 1) / TILE;",
+                      "const int n_tiles = (kv_end + TILE - 1) / TILE - 1;"),
+    "flash_bwd_dq_f32": ("const int n_tiles = (kv_end + TILE - 1) / TILE;",
+                         "const int n_tiles = (kv_end + TILE - 1) / TILE - 1;"),
+    "flash_bwd_dkv_f32": ("const int n_tiles = (S + TILE - 1) / TILE;",
+                          "const int n_tiles = (S + TILE - 1) / TILE - 1;"),
+}
+
+
+def rand_f32(gen, *shape):
+    return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32)
+
+
+def f32_launch_all(fa, q, k, v, do, dlse, *, causal, q_offset, scale) -> tuple:
+    """The three f32 instances on one case: (o, lse) and, for
+    self-attention, (dq, dk, dv) from the kernel's own o and lse."""
+    o, lse = fa.flash_forward_f32_cuda(q, k, v, causal=causal, sm_scale=scale, q_offset=q_offset)
+    if do is None:
+        return (o, lse), None
+    delta = (do * o).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, dlse)
+    dq = fa.flash_bwd_dq_f32_cuda(*args, causal=causal, sm_scale=scale)
+    dk, dv = fa.flash_bwd_dkv_f32_cuda(*args, causal=causal, sm_scale=scale)
+    return (o, lse), (dq, dk, dv)
+
+
+def f32_case(fa, gen, B, Hq, Hkv, S, Skv, q_offset, causal, D, nz) -> dict:
+    """One case of ``F32_CASES``: each instance launched twice (bitwise
+    equal required) and held against its plain twin on the same inputs
+    (the backward's from the kernel's own o and lse) at ``F32_TOL``."""
+    q, k, v = rand_f32(gen, B, Hq, S, D), rand_f32(gen, B, Hkv, Skv, D), rand_f32(gen, B, Hkv, Skv, D)
+    bwd = S == Skv and q_offset == 0
+    do = rand_f32(gen, B, Hq, S, D) if bwd else None
+    dlse = (rand_f32(gen, B, Hq, S) if nz else torch.zeros(B, Hq, S, device="cuda")) if bwd else None
+    scale = D**-0.5
+    fwd, grads = f32_launch_all(fa, q, k, v, do, dlse, causal=causal, q_offset=q_offset, scale=scale)
+    fwd2, grads2 = f32_launch_all(fa, q, k, v, do, dlse, causal=causal, q_offset=q_offset, scale=scale)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(fwd + (grads or ()), fwd2 + (grads2 or ())))
+    want_o, want_lse = fa.flash_forward_f32_plain(q, k, v, causal=causal, sm_scale=scale, q_offset=q_offset)
+    r = {"case": f"B={B} Hq={Hq} Hkv={Hkv} S={S} Skv={Skv} q_offset={q_offset} causal={causal} D={D} "
+                 f"dlse={'randn' if nz else 0}",
+         "bitwise": bitwise, "o": rel_err(fwd[0], want_o), "lse": rel_err(fwd[1], want_lse),
+         "abs": {"flash_fwd_f32": max(max_err(fwd[0], want_o), max_err(fwd[1], want_lse))}}
+    if bwd:
+        o, lse = fwd
+        delta = (do * o).sum(dim=-1)
+        pa = (q, k, v, do, lse, delta, dlse)
+        want_dq = fa.flash_bwd_dq_f32_plain(*pa, causal=causal, sm_scale=scale)
+        want_dk, want_dv = fa.flash_bwd_dkv_f32_plain(*pa, causal=causal, sm_scale=scale)
+        r.update(dq=rel_err(grads[0], want_dq), dk=rel_err(grads[1], want_dk), dv=rel_err(grads[2], want_dv))
+        r["abs"]["flash_bwd_dq_f32"] = max_err(grads[0], want_dq)
+        r["abs"]["flash_bwd_dkv_f32"] = max(max_err(grads[1], want_dk), max_err(grads[2], want_dv))
+    return r
+
+
+def f32_passes(r: dict) -> bool:
+    return all(r[key] <= F32_TOL for key in ("o", "lse", "dq", "dk", "dv") if key in r)
+
+
+def build_variants(tag: str, names: list, edits: dict) -> dict:
+    """The libraries of ``csrc/<name>.cu`` for each of ``names``, built
+    together from one copy of ``csrc`` under ``build/variants/<tag>`` with
+    each file of ``edits`` (path -> (old line, new line), the old line once
+    in that file) changed: planted faults."""
+    import ctypes
+
+    from modal_examples_tpu_torch.ops import _build
+
+    root = ROOT / "build" / "variants" / tag
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC, root / "csrc")
+    for path, (old, new) in edits.items():
+        src = (root / "csrc" / path).read_text()
+        if src.count(old) != 1:
+            raise AssertionError(f"the planted fault's line {old!r} is not once in {path}")
+        (root / "csrc" / path).write_text(src.replace(old, new))
+    here = (_build.CSRC, _build.BUILD_DIR)
+    _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "kernels"
+    try:
+        _build.build(list(names))
+        libs = {name: ctypes.CDLL(str(_build.library_path(name))) for name in names}
+    finally:
+        _build.CSRC, _build.BUILD_DIR = here
+    for name, lib in libs.items():
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
+    return libs
+
+
+class swapped_libs:
+    """``_build``'s loaded libraries replaced by ``libs`` for the block's
+    duration (the wrappers then launch the variants)."""
+
+    def __init__(self, libs: dict):
+        self.libs = libs
+
+    def __enter__(self):
+        from modal_examples_tpu_torch.ops import _build
+
+        for name in self.libs:
+            _build.load(name)  # the real one loaded, so its slot can be restored
+        self.saved = {name: _build._libs[name] for name in self.libs}
+        _build._libs.update(self.libs)
+
+    def __exit__(self, *exc):
+        from modal_examples_tpu_torch.ops import _build
+
+        _build._libs.update(self.saved)
+
+
+def f32_fault_refused(fa) -> dict:
+    """The planted faults (``F32_FAULTS``) run on GPT's default case: the
+    same check must refuse each kernel's variant."""
+    libs = build_variants("flash-f32-last-tile", list(F32_FAULTS),
+                          {f"{name}.cu": edit for name, edit in F32_FAULTS.items()})
+    B, Hq, Hkv, S, Skv, q_offset, causal, D, nz = F32_CASES[0]
+    with swapped_libs(libs):
+        r = f32_case(fa, torch.Generator(device="cuda").manual_seed(20), B, Hq, Hkv, S, Skv, q_offset, causal,
+                     D, nz)
+    refused = {"flash_fwd_f32": r["o"] > F32_TOL, "flash_bwd_dq_f32": r["dq"] > F32_TOL,
+               "flash_bwd_dkv_f32": max(r["dk"], r["dv"]) > F32_TOL}
+    log(f"20a planted faults (the last tile dropped): rel o {r['o']:.3g}, dq {r['dq']:.3g}, dk {r['dk']:.3g}, "
+        f"dv {r['dv']:.3g}; refused {refused}")
+    if not all(refused.values()):
+        raise AssertionError(f"the f32 flash check did not refuse a planted fault: {refused}")
+    return refused
+
+
+def phase20_flash_f32(fa, errs: dict) -> dict:
+    """20a: K1-f32, K5-f32 and K6-f32 against their plain versions at
+    ``F32_CASES`` (plain products with TF32 off), bitwise run to run, and
+    the planted faults refused."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    for case in F32_CASES:
+        r = f32_case(fa, gen, *case)
+        log(f"20a f32 flash {r['case']}: rel o {r['o']:.3g} lse {r['lse']:.3g}"
+            + (f" dq {r['dq']:.3g} dk {r['dk']:.3g} dv {r['dv']:.3g}" if "dq" in r else "")
+            + f"; bitwise run to run {r['bitwise']}")
+        if not (f32_passes(r) and r["bitwise"]):
+            raise AssertionError(f"an f32 flash instance disagrees with its plain version (tolerance {F32_TOL}) "
+                                 f"or is not bitwise run to run: {r}")
+        for name, e in r["abs"].items():
+            errs[name] = max(errs.get(name, 0.0), e)
+        rows.append({k: r[k] for k in r if k != "abs"})
+    return {"cases": rows, "faults_refused": f32_fault_refused(fa)}
+
+
+# 20b: VLM serving at LLaVA-1.5-7B width
+VLM_TEXT = "Describe the picture in one sentence."
+#: phase 3's requests served beside the image requests (each in its own
+#: bucket, greedy or seeded, so their rows must be phase 3's)
+VLM_TEXT_ROWS = (0, 2, 3, 4, 6)
+VLM_AGREE = 1e-4  # the tower on the card against its CPU run, of the largest value
+
+
+def vlm_images() -> dict:
+    """Two 224 px RGB test images from a seed (uint8): a gradient with
+    noise, and stripes with noise."""
+    rng = np.random.default_rng(20)
+    yy, xx = np.mgrid[0:224, 0:224]
+    a = np.stack([xx, yy, (xx + yy) // 2], axis=-1) + rng.integers(0, 24, (224, 224, 3))
+    b = np.stack([(xx // 16 % 2) * 200, (yy // 28 % 2) * 180, np.full_like(xx, 90)], axis=-1)
+    b = b + rng.integers(0, 40, (224, 224, 3))
+    return {"A": np.clip(a, 0, 255).astype(np.uint8), "B": np.clip(b, 0, 255).astype(np.uint8)}
+
+
+def png_uri(img) -> str:
+    import base64
+
+    from modal_examples_tpu_torch.utils import images
+
+    return "data:image/png;base64," + base64.b64encode(images.to_png(img)).decode()
+
+
+def sse(base: str, path: str, body: dict) -> dict:
+    """One streamed completion (chat or text) with usage: its text, finish,
+    usage and wall time."""
+    req = urllib.request.Request(base + path, data=json.dumps({**body, "stream": True,
+                                                               "stream_options": {"include_usage": True}}).encode(),
+                                 headers={"content-type": "application/json"})
+    t0 = time.monotonic()
+    pieces, finish, usage = [], None, None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise AssertionError(f"{path}: status {r.status}")
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            chunk = json.loads(line[len("data: "):])
+            if chunk.get("usage"):
+                usage = chunk["usage"]
+            for c in chunk.get("choices") or []:
+                piece = (c.get("delta") or {}).get("content") if "delta" in c else c.get("text")
+                if piece:
+                    pieces.append(piece)
+                finish = c.get("finish_reason") or finish
+    return {"text": "".join(pieces), "finish": finish, "usage": usage, "wall_s": time.monotonic() - t0}
+
+
+def vlm_body(img) -> dict:
+    """A chat request for ``img``: one seeded row. Both images' rows draw
+    the same noise (seed and positions), so where they differ the image
+    made them differ; random weights' greedy rows often do not depend on
+    an image at all (their argmax follows the last text tokens)."""
+    return {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": VLM_TEXT}, {"type": "image_url", "image_url": {"url": png_uri(img)}}]}],
+        "max_tokens": 24, "temperature": 1.0, "seed": 77}
+
+
+def text_body(prompt: str, sp) -> dict:
+    body = {"prompt": prompt, "max_tokens": sp.max_tokens, "temperature": sp.temperature, "top_p": sp.top_p}
+    if sp.seed is not None:
+        body["seed"] = sp.seed
+    return body
+
+
+def vlm_dense_check(llama, layers, reference, vlm, params, cfg, vcfg, vparams, image) -> dict:
+    """An image request's prefill logits (its image tokens' embeddings and
+    40 text tokens) and its first decode step's, through the served
+    functions (``prefill(input_embeds=)`` with K1 and K3, ``decode_step``
+    with K2), against the dense plain forward with the same
+    ``input_embeds``: the logit contract and the top-2 margin rule."""
+    from modal_examples_tpu_torch.serving.kv_cache import PagedKVCache
+
+    n_img = vcfg.n_image_tokens
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    text = torch.randint(0, 256, (1, 40), generator=gen, device="cuda", dtype=torch.int32)
+    toks = torch.cat([torch.zeros((1, n_img), dtype=torch.int32, device="cuda"), text], dim=1)
+    S = toks.shape[1]
+    embeds = vlm.encode_image(vparams, image[None], vcfg)
+    cache = PagedKVCache.create(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                                n_pages=33, page_size=16, kv_dtype=cfg.dtype, device="cuda")
+    tables = torch.arange(1, 33, device="cuda", dtype=torch.int32)[None]
+    padded = torch.zeros((1, 512), dtype=torch.int32, device="cuda")
+    padded[0, : S - 1] = toks[0, : S - 1]
+    pre, _, _ = llama.prefill(params, padded, cache.k_pages, cache.v_pages, tables,
+                              torch.tensor([S - 1], device="cuda"), cfg, input_embeds=embeds)
+    dec, _, _ = llama.decode_step(params, toks[0, S - 1:], torch.tensor([S - 1], device="cuda"), cache.k_pages,
+                                  cache.v_pages, tables, torch.tensor([True], device="cuda"), cfg)
+    out = {}
+    for name, got, n in (("prefill", pre, S - 1), ("decode", dec, S)):
+        ref = dense_reference_logits(params, cfg, toks[:, :n], layers, reference, input_embeds=embeds)
+        out[name] = margin_rule(got, ref)
+        log(f"20b image request's {name} logits vs the dense plain forward with input_embeds: {out[name]}")
+        if not out[name]["ok"]:
+            raise AssertionError(f"20b: the image request's {name} logits break the logit contract")
+    return out
+
+
+def phase20_vlm(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams, params, phase3: dict,
+                decode, card: str) -> dict:
+    """20b: CLIP ViT-L/14 at 224 px (f32, random from a seed) and its
+    projector in front of phase 3's Llama-2-7B bf16 weights (LLaVA-1.5-7B's
+    shape), served through ``OpenAIServer``."""
+    from modal_examples_tpu_torch.models import vlm
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    t_phase = time.monotonic()
+    cfg = llama.LlamaConfig.llama2_7b()
+    vcfg = vlm.VLMConfig(vision=vlm.ViTConfig.clip_vit_l_14(), llm_dim=cfg.dim)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    vparams = vlm.init_vision_params(vcfg, seed=20, device="cuda")
+    tower_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    imgs = vlm_images()
+    pixels = {k: torch.from_numpy(vlm.preprocess_image(v, 224)).cuda() for k, v in imgs.items()}
+    # the tower on the card against its CPU run (same f32 weights and image)
+    emb = vlm.encode_image(vparams, pixels["A"][None], vcfg)
+    cpu_params = tree_util.map(lambda t: t.cpu(), vparams)
+    want = vlm.encode_image(cpu_params, pixels["A"][None].cpu(), vcfg)
+    del cpu_params
+    tower_rel = max_err(emb.cpu(), want) / want.abs().max().item()
+    log(f"20b CLIP ViT-L/14 tower + projector ({tower_gb:.3f} GB f32): card vs CPU max|d|/max {tower_rel:.3g}")
+    if not tower_rel <= VLM_AGREE:
+        raise AssertionError(f"20b: the tower's embeddings on the card disagree with its CPU run: {tower_rel}")
+    four = torch.stack([pixels["A"], pixels["B"]] * 2)  # a prefill group of image rows (prefill_batch 4)
+    tower_ms = time_ms(lambda: vlm.encode_image(vparams, four, vcfg), reps=10)
+    contract = vlm_dense_check(llama, layers, reference, vlm, params, cfg, vcfg, vparams, pixels["A"])
+
+    eng = LLMEngine(cfg, params, vision=(vcfg, vparams), **SERVE_KW)
+    eng.generate("warm up", SamplingParams(max_tokens=2, temperature=0.0))
+    submitted = []  # the server's engine requests, for their token rows
+    submit_request = eng.submit_request
+
+    def capture(req):
+        submitted.append(req)
+        return submit_request(req)
+
+    eng.submit_request = capture
+    srv = OpenAIServer(eng, port=0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    burst_requests = make_requests(SamplingParams)
+    jobs = [("image A", "/v1/chat/completions", vlm_body(imgs["A"])),
+            ("image B", "/v1/chat/completions", vlm_body(imgs["B"]))]
+    jobs += [(f"text row {i}", "/v1/completions", text_body(*burst_requests[i])) for i in VLM_TEXT_ROWS]
+    results: dict = {}
+    try:
+        settle(eng)
+        fa.launches = pa.decode_launches = pa.scatter_launches = 0
+        t0 = time.monotonic()
+
+        def run(label, path, body):
+            results[label] = sse(base, path, body)
+
+        threads = [threading.Thread(target=run, args=job) for job in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = {"flash_fwd": fa.launches, "paged_decode": pa.decode_launches, "kv_scatter": pa.scatter_launches}
+        if len(results) != len(jobs) or min(counts.values()) <= 0:
+            raise AssertionError(f"20b: {len(results)} of {len(jobs)} answered; launches {counts}")
+        again = sse(base, "/v1/chat/completions", vlm_body(imgs["A"]))  # the shared image, now cached
+        settle(eng)
+        check_pages_returned(eng, "20b")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        srv.stop()
+        eng.stop()
+    n_img = vcfg.n_image_tokens
+    cached = again["usage"]["prompt_tokens_details"]["cached_tokens"]
+    if cached < (n_img // eng.cache.page_size) * eng.cache.page_size:
+        raise AssertionError(f"20b: the shared image's second request reused {cached} tokens, not its "
+                             f"{n_img} image tokens' pages")
+    pre_a = vlm.preprocess_image(imgs["A"], 224)
+    image_rows = {("A" if np.array_equal(r.image, pre_a) else "B"): r for r in submitted[:len(jobs)]
+                  if r.image is not None}
+    if sorted(image_rows) != ["A", "B"] or image_rows["A"].generated_tokens == image_rows["B"].generated_tokens:
+        raise AssertionError("20b: the two images' seeded rows (same seed, same text) are the same")
+    rows_equal = 0
+    by_prompt = {r.prompt: r for r in submitted[:len(jobs)] if r.image is None}
+    for i in VLM_TEXT_ROWS:
+        prompt, sp = burst_requests[i]
+        got, want = by_prompt[prompt], phase3["tokens"][i]
+        if decode(got.generated_tokens) != results[f"text row {i}"]["text"]:
+            raise AssertionError(f"20b: text row {i}'s streamed text is not its request's tokens")
+        if sp.temperature > 0 and sp.seed is None:
+            continue
+        if (got.generated_tokens, got.finish_reason) != tuple(want):
+            raise AssertionError(f"20b: text row {i} differs from phase 3's row beside the image requests")
+        rows_equal += 1
+    tokens_out = sum(r["usage"]["completion_tokens"] for r in results.values())
+    out = {
+        "tower_gb": tower_gb, "tower_vs_cpu_rel": tower_rel, "tower_ms_batch4": tower_ms,
+        "contract": contract, "launches": counts,
+        # TTFT on the engine's clock: from the request's creation to its first token
+        "image_ttft_s": [image_rows[k].first_token_at - image_rows[k].created for k in ("A", "B")],
+        "text_ttft_s_median": statistics.median(by_prompt[burst_requests[i][0]].first_token_at
+                                                - by_prompt[burst_requests[i][0]].created for i in VLM_TEXT_ROWS),
+        "cached_image_ttft_s": submitted[-1].first_token_at - submitted[-1].created, "cached_tokens": cached,
+        "burst_tok_per_s": tokens_out / wall, "burst_wall_s": wall, "text_rows_equal_to_phase3": rows_equal,
+        "same_image_same_tokens": submitted[-1].generated_tokens == image_rows["A"].generated_tokens,
+        "peak_gb": peak_gb, "seconds": time.monotonic() - t_phase,
+    }
+    log(f"20b VLM serving ({card}): {json.dumps(out)}")
+    del vparams
+    return out
+
+
+# 20c: GPT and an f32 Llama through the f32 flash instances
+F32_GRAD_COSINE_MIN = 0.9999
+F32_LORA_CFG = dict(vocab_size=32000, dim=1024, n_layers=8, n_heads=16, n_kv_heads=8, ffn_dim=2816,
+                    max_seq_len=1024, dtype="float32")  # head dim 64: the f32 instances' widths
+
+
+def grads_cosine(a: dict, b: dict, label: str) -> dict:
+    """Per leaf: cosine and max relative error of ``a`` against ``b``, held
+    at ``F32_GRAD_COSINE_MIN``."""
+    out = {}
+    for k in a:
+        x, y = a[k].float().flatten(), b[k].float().flatten()
+        out[k] = {"cosine": torch.nn.functional.cosine_similarity(x, y, dim=0).item(),
+                  "max_rel_err": max_err(x, y) / max(y.abs().max().item(), 1e-30)}
+    worst = min(out, key=lambda k: out[k]["cosine"])
+    log(f"{label}: worst cosine {out[worst]['cosine']:.7f} ({worst}), max rel err "
+        f"{max(v['max_rel_err'] for v in out.values()):.3g}")
+    if not out[worst]["cosine"] >= F32_GRAD_COSINE_MIN:
+        raise AssertionError(f"{label}: {worst} cosine {out[worst]['cosine']} < {F32_GRAD_COSINE_MIN}")
+    return out
+
+
+def f32_counts(fa) -> dict:
+    return {"flash_fwd_f32": fa.f32_launches, "flash_bwd_dq_f32": fa.dq_f32_launches,
+            "flash_bwd_dkv_f32": fa.dkv_f32_launches}
+
+
+def zero_f32_counts(fa) -> None:
+    fa.f32_launches = fa.dq_f32_launches = fa.dkv_f32_launches = 0
+
+
+def timed_steps(trainer, state, batch, steps: int) -> tuple:
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(m["loss"].item())
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return state, {"losses": losses, "step_ms": [1e3 * s for s in step_s]}
+
+
+def phase20_gpt(fa, training, card: str) -> dict:
+    """GPT at its default config (f32, 6 layers, dim 384, block 256, B=8):
+    the gradients through K1/K5/K6-f32 against ``attn_impl="xla"``, then
+    1 + 2 counted ``Trainer`` steps (3 x 6 launches of each f32 instance)
+    and a 32-token ``generate``."""
+    import torch.nn.functional as F
+
+    from modal_examples_tpu_torch.models import gpt
+    from modal_examples_tpu_torch.serving import sampling
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    cfg = gpt.GPTConfig()
+    params = gpt.init_params(cfg, seed=20, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, cfg.block_size + 1), generator=gen, device="cuda")}
+
+    def loss_fn(p, b, attn_impl="flash"):
+        logits = gpt.forward(p, b["tokens"][:, :-1], cfg, attn_impl=attn_impl)
+        return F.cross_entropy(logits.reshape(-1, cfg.vocab_size), b["tokens"][:, 1:].reshape(-1))
+
+    def grads(attn_impl):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_util.leaves(params)]
+        g = torch.autograd.grad(loss_fn(tree_util.unflatten(params, leaves), batch, attn_impl), leaves)
+        return {str(i): t for i, t in enumerate(g)}
+
+    check = grads_cosine(grads("flash"), grads("xla"), "20c GPT gradients, flash (f32 instances) vs xla")
+    trainer = training.Trainer(loss_fn, training.make_optimizer(3e-4))
+    state = trainer.init_state(params)
+    zero_f32_counts(fa)
+    state, steps = timed_steps(trainer, state, batch, 3)
+    counts = f32_counts(fa)
+    if counts != {k: 3 * cfg.n_layers for k in counts}:
+        raise AssertionError(f"20c GPT steps launched {counts}: want {3 * cfg.n_layers} of each f32 instance")
+    prompt = batch["tokens"][0, :16]
+    t0 = time.monotonic()
+    toks = gpt.generate(state.params, cfg, prompt, 32, sampling.prng_key(0))
+    gen_s = time.monotonic() - t0
+    if toks.shape != (32,) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"20c GPT generate gave {toks}")
+    out = {"grad_cosine_min": min(v["cosine"] for v in check.values()),
+           "grad_max_rel_err": max(v["max_rel_err"] for v in check.values()), **steps,
+           "launches": counts, "generate_32_s": gen_s}
+    log(f"20c GPT default config ({card}): {json.dumps(out)}")
+    return out
+
+
+def phase20_llama_f32(fa, llama, lora, training, card: str) -> dict:
+    """C11 shown repaired: ``Trainer`` over an f32 Llama (head dim 64) with
+    rank-16 LoRA on the seven projections, B=2 x S=512, through the f32
+    flash instances: the adapter gradients against ``attn_impl="xla"``
+    (cosine >= ``F32_GRAD_COSINE_MIN``), then 1 + 2 counted steps."""
+    cfg = llama.LlamaConfig(**F32_LORA_CFG)
+    params = llama.init_params(cfg, seed=22, device="cuda")
+    lcfg = lora.LoRAConfig(rank=16)
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(23), params, lcfg)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device="cuda"),
+             "mask": torch.ones((2, 512), device="cuda")}
+
+    def loss_fn(ad, b, attn_impl="flash"):
+        logits = llama.forward(params, b["tokens"], cfg, attn_impl=attn_impl, lora=ad, lora_scale=lcfg.scale)
+        return training.cross_entropy_loss(logits[:, :-1], b["tokens"][:, 1:], b["mask"][:, 1:])
+
+    check = check_grads_against_xla(loss_fn, adapters, batch, lcfg.targets, cosine_min=F32_GRAD_COSINE_MIN)
+    trainer = training.Trainer(loss_fn, training.make_optimizer(1e-4))
+    state = trainer.init_state(adapters)
+    zero_f32_counts(fa)
+    state, steps = timed_steps(trainer, state, batch, 3)
+    counts = f32_counts(fa)
+    if counts != {k: 3 * cfg.n_layers for k in counts}:
+        raise AssertionError(f"20c f32 Llama LoRA steps launched {counts}: want {3 * cfg.n_layers} of each")
+    out = {"grad_cosine_min": min(v["cosine"] for v in check.values()), **steps, "launches": counts}
+    log(f"20c f32 Llama LoRA through Trainer with attn_impl='flash' ({card}): {json.dumps(out)}")
+    return out
+
+
+# 20d: the detector, OCR, SAM and the video DiT at their default configs
+MODEL_AGREE = 1e-4  # the card against the port's CPU run, of the largest value
+
+
+def card_vs_cpu(loss_fn, params, batch, label: str) -> dict:
+    """The loss and every gradient of ``loss_fn(params, batch)`` on the card
+    against the same on the CPU (f32, TF32 off): each within
+    ``MODEL_AGREE`` of its largest value (the loss relative)."""
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    def step(p, b):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_util.leaves(p)]
+        loss = loss_fn(tree_util.unflatten(p, leaves), b)
+        return loss.detach().float(), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    lg, gg = step(params, batch)
+    lc, gc_ = step(tree_util.map(cpu, params), tree_util.map(cpu, batch))
+    loss_rel = abs(lg.item() - lc.item()) / max(abs(lc.item()), 1e-30)
+    grad_rel = max(max_err(a.cpu(), b) / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(gg, gc_) if a is not None and b.abs().max() > 0)
+    out = {"loss": lg.item(), "loss_rel": loss_rel, "grad_rel_max": grad_rel}
+    log(f"20d {label}, card against CPU: {json.dumps(out)}")
+    if not (loss_rel <= MODEL_AGREE and grad_rel <= MODEL_AGREE):
+        raise AssertionError(f"20d {label}: the card disagrees with the port's CPU run: {out}")
+    return out
+
+
+def one_step(training, loss_fn, params, batch, label: str) -> dict:
+    """One ``Trainer`` step: a finite loss, every parameter tree changed."""
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    trainer = training.Trainer(loss_fn, training.make_optimizer(1e-3))
+    state = trainer.init_state(params)
+    t0 = time.monotonic()
+    new, m = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.monotonic() - t0)
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(tree_util.leaves(new.params), tree_util.leaves(params)))
+    if not (math.isfinite(m["loss"].item()) and moved > 0):
+        raise AssertionError(f"20d {label}: step loss {m['loss'].item()}, {moved} leaves changed")
+    return {"step_loss": m["loss"].item(), "step_ms": ms, "leaves_changed": moved,
+            "leaves": len(tree_util.leaves(params))}
+
+
+def phase20_models(training, card: str) -> dict:
+    """20d: each model at its default config on the card against the port's
+    CPU run of the same f32 weights and inputs, one ``Trainer`` step each,
+    and ``video.sample`` with the first frame pinned."""
+    from modal_examples_tpu_torch.models import ocr, segmentation, video, vision
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    # the detector
+    dcfg = vision.DetectorConfig()
+    dparams = vision.init_params(dcfg, seed=30, device="cuda")
+    dbatch = vision.synthetic_batch(gen, 16, dcfg)
+    dloss = lambda p, b: vision.detection_loss(p, b, dcfg)  # noqa: E731
+    out["detector"] = {**card_vs_cpu(dloss, dparams, dbatch, "detector"),
+                       **one_step(training, dloss, dparams, dbatch, "detector")}
+    # OCR: numpy lines (the card's machine has no PIL to render text)
+    ocfg = ocr.OCRConfig()
+    oparams = ocr.init_params(ocfg, seed=31, device="cuda")
+    rng = np.random.default_rng(31)
+    labels = np.zeros((16, 14), np.int32)
+    for i in range(16):
+        n = int(rng.integers(3, 12))
+        labels[i, :n] = rng.integers(1, len(ocr.CHARSET) + 1, n)
+    obatch = {"images": torch.from_numpy(rng.random((16, ocfg.height, ocfg.width, 1), dtype=np.float32)).cuda(),
+              "labels": torch.from_numpy(labels).cuda()}
+    oloss = lambda p, b: ocr.ctc_loss(p, b["images"], b["labels"], ocfg)  # noqa: E731
+    out["ocr"] = {**card_vs_cpu(oloss, oparams, obatch, "OCR"), **one_step(training, oloss, oparams, obatch, "OCR"),
+                  "greedy": ocr.greedy_decode(oparams, obatch["images"][:2], ocfg)}
+    # SAM
+    scfg = segmentation.SAMConfig()
+    sparams = segmentation.init_params(scfg, seed=32, device="cuda")
+    imgs, pts, masks = segmentation.synthetic_batch(gen, 8, scfg)
+    sbatch = {"images": imgs, "points": pts, "masks": masks}
+    sloss = lambda p, b: segmentation.segmentation_loss(p, b["images"], b["points"], b["masks"], scfg)  # noqa: E731
+    out["sam"] = {**card_vs_cpu(sloss, sparams, sbatch, "SAM"), **one_step(training, sloss, sparams, sbatch, "SAM")}
+    # the video DiT: its zero-initialised leaves drawn nonzero so every block computes
+    vcfg = video.VideoDiTConfig()
+    vparams = video.init_params(vcfg, seed=33, device="cuda")
+    for name, t in [*vparams["layers"].items(), *vparams.items()]:
+        if isinstance(t, torch.Tensor) and (name.startswith("mod_") or name == "xwo" or name.startswith("final_")):
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda").mul_(0.02))
+    B = 4
+    shape = (B, vcfg.frames, vcfg.img_size, vcfg.img_size, vcfg.channels)
+    vbatch = {"video": torch.randn(shape, generator=gen, device="cuda"),
+              "text": torch.randn((B, vcfg.text_len, vcfg.text_dim), generator=gen, device="cuda"),
+              "t": torch.rand((B,), generator=gen, device="cuda"), "eps": torch.randn(shape, generator=gen, device="cuda"),
+              "pin": torch.tensor([True, False, True, False], device="cuda"),
+              "drop": torch.tensor([False, False, True, False], device="cuda")}
+    vloss = lambda p, b: video.flow_loss(p, b["video"], b["text"], vcfg, t=b["t"], eps=b["eps"], pin=b["pin"],  # noqa: E731
+                                         drop=b["drop"])
+    out["video"] = {**card_vs_cpu(vloss, vparams, vbatch, "video DiT"),
+                    **one_step(training, vloss, vparams, vbatch, "video DiT")}
+    first = vbatch["video"][:, 0]
+    t0 = time.monotonic()
+    clip = video.sample(vparams, vbatch["text"], vcfg, first_frame=first, generator=gen)
+    torch.cuda.synchronize()
+    if not (torch.equal(clip[:, 0], first) and bool(torch.isfinite(clip).all()) and tuple(clip.shape) == shape):
+        raise AssertionError("20d: video.sample did not keep the first frame pinned, or gave a non-finite clip")
+    out["video"]["sample_s"] = time.monotonic() - t0
+    log(f"20d the detector, OCR, SAM and the video DiT ({card}): {json.dumps(out)}")
+    return out
+
+
+# 20e: GRPO at llama3.2-1b width in bf16
+GRPO_PROMPT, GRPO_GROUP, GRPO_NEW = 32, 8, 8
+GRPO_RATIO_TOL = 2.0**-7  # bf16's resolution at 1
+
+
+def phase20_grpo(llama, card: str) -> dict:
+    """``GRPOTrainer`` over ``llama32_1b()`` (bf16, random from a seed):
+    group 8, a 32-token prompt, 8 new tokens; one warm step, then two more.
+    The first step's importance ratio (the reference, still the behavior
+    policy, over the rollout) is 1 within bf16's resolution; the update
+    moves the policy and leaves the reference alone."""
+    from modal_examples_tpu_torch.serving import sampling
+    from modal_examples_tpu_torch.training import grpo
+    from modal_examples_tpu_torch.utils import tree as tree_util
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.LlamaConfig.llama32_1b()
+    params = llama.init_params(cfg, seed=40, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    prompt = torch.randint(0, cfg.vocab_size, (GRPO_PROMPT,), generator=gen, device="cuda")
+
+    def reward(tokens):
+        new = tokens[:, GRPO_PROMPT:]
+        return ((new % 7 == 0).sum(dim=1).float() + 0.1 * (new[:, 0] % 5).float()).tolist()
+
+    trainer = grpo.GRPOTrainer(cfg, params, reward, grpo.GRPOConfig(group_size=GRPO_GROUP, max_new=GRPO_NEW),
+                               learning_rate=1e-5)
+    ref_sums = [t.float().sum().item() for t in tree_util.leaves(trainer.ref)]
+    step_s, rewards = [], []
+    for i in range(3):
+        t0 = time.monotonic()
+        m = trainer.step(prompt, GRPO_PROMPT, sampling.prng_key(100 + i))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        rewards.append(m)
+        if i == 0:  # the first step's ratio: the reference is the policy the rollout came from
+            last = trainer.last
+            with torch.no_grad():
+                lps = grpo._completion_logprobs(trainer.ref, cfg, last["tokens"], GRPO_PROMPT, GRPO_NEW)
+            ratio_dev = (torch.exp(lps - last["behavior_lps"]) - 1).abs().max().item()
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(tree_util.leaves(trainer.policy),
+                                                           tree_util.leaves(trainer.ref)))
+    ref_same = [t.float().sum().item() for t in tree_util.leaves(trainer.ref)] == ref_sums
+    out = {"first_step_ratio_max_dev": ratio_dev, "leaves_moved": moved, "ref_unchanged": ref_same,
+           "step_s": step_s, "rewards": rewards, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"20e GRPO at llama3.2-1b width, bf16 ({card}): {json.dumps(out)}")
+    if not (ratio_dev <= GRPO_RATIO_TOL and moved > 0 and ref_same):
+        raise AssertionError(f"20e: ratio deviation {ratio_dev}, {moved} leaves moved, reference unchanged {ref_same}")
+    del trainer, params
+    return out
+
+
+def phase_a11(fa, pa, llama, layers, reference, lora, training, LLMEngine, OpenAIServer, SamplingParams, params,
+              phase3: dict, decode, errs: dict, card: str) -> dict:
+    """Phase 20: C11's f32 flash instances (20a) and A11's models on the card
+    (20b-20e). Returns each part's readings, the f32 instances' launches on
+    their main path (20c's steps) and the phase's seconds."""
+    t0 = time.monotonic()
+    out = {"flash_f32": phase20_flash_f32(fa, errs)}
+    out["vlm"] = phase20_vlm(fa, pa, llama, layers, reference, LLMEngine, OpenAIServer, SamplingParams, params,
+                             phase3, decode, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gpt"] = phase20_gpt(fa, training, card)
+    out["llama_f32_lora"] = phase20_llama_f32(fa, llama, lora, training, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["models"] = phase20_models(training, card)
+    out["grpo"] = phase20_grpo(llama, card)
+    out["launches"] = {**out["vlm"]["launches"], **{
+        k: out["gpt"]["launches"][k] + out["llama_f32_lora"]["launches"][k] for k in out["gpt"]["launches"]}}
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def f32_rows(fa, counts: dict, errs: dict) -> list:
+    """The kernels line's rows of the three f32 instances at GPT's default
+    shape (B=8, H=6, S=256, D=64, causal): single and back-to-back launches,
+    the profiler's device time, the plain versions, the bound at the f32
+    CUDA-core peak and PyTorch's f32 attention (SDPA's memory-efficient
+    kernels, forward and backward) on the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    B, H, S, D = 8, 6, 256, 64
+    q, k, v, do = (rand_f32(gen, B, H, S, D) for _ in range(4))
+    scale = D**-0.5
+    o, lse = fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale)
+    delta = (do * o).sum(dim=-1)
+    dlse = torch.zeros_like(lse)
+    args = (q, k, v, do, lse, delta, dlse)
+    one = 2 * 0.5 * S * S * D * B * H  # FLOPs of one causal S x S x D product, all heads
+    tensor_bytes, row_bytes = B * H * S * D * 4, B * H * S * 4
+    out_e, lse_e, seed_e, off_e = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, True, 0.0, True, scale=scale)
+
+    def library_bwd():
+        return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            do, q, k, v, None, out_e, lse_e, seed_e, off_e, 0.0, [True, True, True, False], True, scale=scale)
+
+    def library_fwd():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(q, k, v, None, False, 0.0, True, scale=scale)
+
+    specs = [
+        ("flash_fwd_f32", lambda: fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale),
+         lambda: fa.flash_forward_f32_plain(q, k, v, causal=True, sm_scale=scale), 2, 4 * tensor_bytes + row_bytes,
+         40, library_fwd, "aten._scaled_dot_product_efficient_attention (f32)"),
+        ("flash_bwd_dq_f32", lambda: fa.flash_bwd_dq_f32_cuda(*args, causal=True, sm_scale=scale),
+         lambda: fa.flash_bwd_dq_f32_plain(*args, causal=True, sm_scale=scale), 3, 5 * tensor_bytes + 3 * row_bytes,
+         244, library_bwd, "aten._scaled_dot_product_efficient_attention_backward (f32; dQ, dK and dV together)"),
+        ("flash_bwd_dkv_f32", lambda: fa.flash_bwd_dkv_f32_cuda(*args, causal=True, sm_scale=scale),
+         lambda: fa.flash_bwd_dkv_f32_plain(*args, causal=True, sm_scale=scale), 4, 6 * tensor_bytes + 3 * row_bytes,
+         278, library_bwd, "aten._scaled_dot_product_efficient_attention_backward (f32; dQ, dK and dV together)"),
+    ]
+    rows = []
+    for name, kernel, plain, n_products, nbytes, line, library, library_op in specs:
+        flops = n_products * one
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        rows.append(dict(
+            name=name, route="cuda", source=f"modal_examples_tpu_torch/csrc/{name}.cu",
+            replaces=f"modal_examples_tpu/ops/flash_attention.py:{line} (f32 inputs)", launches=counts[name],
+            max_abs_err=errs[name], ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+            plain_ms=time_ms(plain, reps=5), bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=time_ms(library),
+            library_ms_b2b=back_to_back_ms(library), library_device_ms=device_ms(library), library_op=library_op,
+            shape=f"B={B} H={H} S={S} D={D} causal, f32 (GPT's default config)",
+        ))
+        r = rows[-1]
+        log(f"{name}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f}, device {r['device_ms']:.4f} (plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} / device {r['library_device_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on the GPU only", file=sys.stderr)
@@ -7883,6 +8655,11 @@ def main() -> int:
     tiers = phase_tiers_fleet_chaos(fa, pa, qmm, llama, LLMEngine, OpenAIServer, SamplingParams, params, card)
     gc.collect()
     torch.cuda.empty_cache()
+    p20 = phase_a11(fa, pa, llama, layers, reference, lora, training, LLMEngine, OpenAIServer, SamplingParams, params,
+                    metrics, decode, errs, card)
+    log(f"phase 20 C11's f32 flash instances and A11's models ({card}): ok in {p20['seconds']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_training(fa, llama, lora, training, params)
     del params
     gc.collect()
@@ -7959,6 +8736,10 @@ def main() -> int:
     # K7, K2-int8, K3-int8, K4-int8), 19c's data-parallel steps and 19d's
     # ring (K1, K5, K6), 19e's container (K1)
     counts = {k: v + par["launches"].get(k, 0) for k, v in counts.items()}
+    # phase 20's VLM burst (K1, K2, K3); the f32 instances' launches are 20c's
+    # GPT and f32 Llama training steps
+    counts = {k: v + p20["launches"].get(k, 0) for k, v in counts.items()}
+    counts.update({k: p20["launches"][k] for k in ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")})
     log(f"launches: serving {serve_counts}, write-then-attend serving at N=8 {wb_counts}, int8 serving "
         f"{int8_counts}, int8 write-then-attend serving at N=8 {wb8['launches']}, training {train_counts}, "
         f"speculation {spec['launches']}, text-to-image K1 {workloads['text_to_image']['k1_launches_per_image']}, "
@@ -7966,8 +8747,8 @@ def main() -> int:
         f"containers {rest['container_launches']}, int8 LoRA "
         f"{lora8['launches']}, Mixtral LoRA {moe_train['launches']}, canary {observability['launches']}, fleet "
         f"{fleet_layers['launches']}, tiers, autoscaler "
-        f"and chaos {tiers['launches']}, int4 and training {p17['launches']}, parallel {par['launches']}; kernels "
-        f"line (phases 8-19 summed) "
+        f"and chaos {tiers['launches']}, int4 and training {p17['launches']}, parallel {par['launches']}, phase 20 "
+        f"{p20['launches']}; kernels line (phases 8-20 summed) "
         f"{counts}")
     errs["flash_fwd"] = max(errs["flash_fwd"], workloads["joint_k1"]["max_abs_err"])
     errs["quantized_matmul"] = max(errs["quantized_matmul"], mixtral["expert_k7"]["max_abs_err"])
@@ -7986,6 +8767,7 @@ def main() -> int:
         if r["name"] in p17["dreambooth"]["joint_bwd"]:  # and K5/K6 DreamBooth's joint attention (17d)
             r["joint"] = p17["dreambooth"]["joint_bwd"][r["name"]]
     rows.append(p17["row"])
+    rows += f32_rows(fa, counts, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,11 @@ through the int8 or int4 matmul kernel), the LoRA-aware projections
 ``attention_op`` and ``causal_self_attention``. Norms and softmax-adjacent math run in f32;
 products accumulate in f32. Three helpers serve the other models:
 ``SeededInit`` (random parameters drawn on the device), ``from_numpy_tree``
-(a JAX parameter tree's numpy leaves as tensors) and ``exact_f32_convs``
-(cuDNN's f32 convolutions without TF32).
+(a JAX parameter tree's numpy leaves as tensors), ``exact_f32_convs``
+(cuDNN's f32 convolutions without TF32), ``check_exact_f32_matmuls``
+(an f32 model's products refuse to run where PyTorch lets them take TF32)
+and ``conv_same_nhwc`` (XLA's "SAME" convolution over NHWC inputs and HWIO
+kernels, the JAX vision models' layout).
 """
 
 from __future__ import annotations
@@ -306,3 +309,33 @@ def exact_f32_convs():
     c = torch.backends.cudnn
     with c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic, allow_tf32=False):
         yield
+
+
+def check_exact_f32_matmuls(device) -> None:
+    """Raise where PyTorch would run f32 matmuls on ``device`` in TF32 (which
+    rounds the inputs to a 10-bit mantissa; the f32 models' reference does
+    not): ``torch.backends.cuda.matmul.allow_tf32`` set, or a float32 matmul
+    precision below "highest". The defaults pass; the CPU never takes TF32."""
+    if torch.device(device).type != "cuda":
+        return
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "an f32 model's products would take TF32 on the card: set torch.backends.cuda.matmul.allow_tf32 = "
+            "False and torch.set_float32_matmul_precision('highest') (the defaults)"
+        )
+
+
+def conv_same_nhwc(x, w, stride=1):
+    """XLA's "SAME" convolution of NHWC ``x`` [B, H, W, Cin] with an HWIO
+    kernel [k, k, Cin, Cout] (``lax.conv_general_dilated`` with
+    ``("NHWC", "HWIO", "NHWC")``): each spatial side padded by
+    ``max((ceil(n/s) - 1) * s + k - n, 0)``, the smaller half first.
+    ``stride`` an int or (sh, sw). Returns NHWC."""
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride
+    pads = []
+    for n, k, st in ((x.shape[1], w.shape[0], sh), (x.shape[2], w.shape[1], sw)):
+        total = max((-(-n // st) - 1) * st + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    (top, bottom), (left, right) = pads
+    xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    return F.conv2d(xc, w.permute(3, 2, 0, 1), stride=(sh, sw)).permute(0, 2, 3, 1)

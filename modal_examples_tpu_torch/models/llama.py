@@ -492,6 +492,15 @@ def _embed(params: dict, tokens, mesh):
     return _coll.psum(x, TENSOR, mesh)
 
 
+def _with_prefix(x, input_embeds):
+    """Token embeddings [B, S, dim] with the first P positions replaced by
+    ``input_embeds`` [B, P, dim] (the multimodal prefix) in x's dtype."""
+    if input_embeds is None:
+        return x
+    P = input_embeds.shape[1]
+    return torch.cat([input_embeds.to(x.dtype), x[:, P:]], dim=1)
+
+
 def _logits(x, params: dict, cfg: LlamaConfig, mesh):
     """``x @ head`` in f32; under a mesh this rank's vocabulary block,
     all-gathered so every rank holds the full logits."""
@@ -553,14 +562,15 @@ def forward(
     plain ``xla`` attention), differentiable in the adapters and the base.
     ``return_aux`` also returns the mean over layers of the MoE load-balance
     loss (0 for a dense model); ``moe_impl`` picks the expert formulation
-    (:func:`_mlp_block`). ``input_embeds`` (the multimodal prefix) waits for
-    ROADMAP A11's ``vlm``. Under ``mesh=`` the rank's shards run the
+    (:func:`_mlp_block`). ``input_embeds`` [B, P, dim] (the multimodal
+    prefix, ``models.vlm``) replaces the embedding lookup of the first P
+    positions, cast to the model dtype. Under ``mesh=`` the rank's shards run the
     serving layers' column/row-parallel products (module docstring) with
     the flash kernel on the local heads; its collectives carry no gradient,
     so tensor-parallel training (LoRA over a sharded base) raises: it waits
     for ROADMAP A10b's ``param_specs``."""
-    if input_embeds is not None:
-        raise NotImplementedError("input_embeds (a multimodal prefix) waits for the vlm model (ROADMAP A11)")
+    if input_embeds is not None and mesh is not None:
+        raise NotImplementedError("input_embeds (a multimodal prefix) under tensor parallelism is ROADMAP A10b")
     if mesh is not None and (lora is not None or torch.is_grad_enabled()):
         raise NotImplementedError(
             "a gradient through the tensor-parallel forward is TP training (ROADMAP A10b, param_specs); run it "
@@ -584,7 +594,7 @@ def forward(
         if return_aux:
             return logits, torch.stack(auxes).mean() if auxes else torch.zeros((), device=logits.device)
         return logits
-    x = params["embed"][tokens]
+    x = _with_prefix(params["embed"][tokens], input_embeds)
     n = len(params["layers"])
     if lora is None:
         per_layer = [None] * n
@@ -660,18 +670,25 @@ def _last_logits(params, x, lens, cfg: LlamaConfig, mesh=None):
     return _logits(x_last, params, cfg, mesh)
 
 
-def prefill(params, tokens, k_pages, v_pages, page_tables, seq_lens, cfg: LlamaConfig, *, mesh=None):
+def prefill(params, tokens, k_pages, v_pages, page_tables, seq_lens, cfg: LlamaConfig, *, input_embeds=None,
+            mesh=None):
     """Process padded prompts [B, S], writing their K/V into the pages.
     Returns (last-token logits [B, vocab] f32, k_pages, v_pages) with the
-    pages updated in place. Under ``mesh=`` the rank's shards and its pages'
+    pages updated in place. ``input_embeds`` [B, P, dim] replaces the
+    embedding lookup of the first P positions (the multimodal path: image
+    tokens at positions 0..P-1, ``tokens[:, :P]`` placeholders; RoPE,
+    attention and the scatter see the whole sequence, so image tokens are
+    ordinary cache entries). Under ``mesh=`` the rank's shards and its pages'
     kv heads (the flash kernel and the scatter per head shard)."""
+    if input_embeds is not None and mesh is not None:
+        raise NotImplementedError("input_embeds (a multimodal prefix) under tensor parallelism is ROADMAP A10b")
     B, S = tokens.shape
     ps = k_pages.shape[2]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     valid = positions < seq_lens[:, None]
     cos, sin = _rope(cfg, positions)
     page_idx, slot = _page_targets(page_tables, positions, valid, ps)
-    x = _embed(params, tokens, mesh)
+    x = _with_prefix(_embed(params, tokens, mesh), input_embeds)
     L, Hkv, D = cfg.n_layers, k_pages.shape[3], cfg.head_dim
     k_all = torch.empty((L, B, S, Hkv, D), dtype=x.dtype, device=x.device)
     v_all = torch.empty_like(k_all)

@@ -13,8 +13,15 @@ backward computes ``delta = rowsum(dO*O)`` in f32 and runs the dQ and dK/dV
 kernels (their plain versions for CPU tensors).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises. ``launches``,
-``dq_launches`` and ``dkv_launches`` count kernel launches.
+plain version, a CUDA tensor launches the kernel or raises. On the card the
+dtype picks the instance: bf16 runs the wgmma kernels above, f32 their f32
+instances (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_dq_f32.cu``,
+``csrc/flash_bwd_dkv_f32.cu``: f32 products on the CUDA cores, no TF32, at
+head dims 32, 64 and 128), as the reference's kernels compute at any input
+dtype; any other dtype raises. The f32 instances' plain twins are the plain
+versions above, run at f32. ``launches``, ``dq_launches`` and
+``dkv_launches`` count the bf16 kernels' launches, ``f32_launches``,
+``dq_f32_launches`` and ``dkv_f32_launches`` the f32 instances'.
 """
 
 from __future__ import annotations
@@ -29,8 +36,12 @@ from . import _build
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+f32_launches = 0
+dq_f32_launches = 0
+dkv_f32_launches = 0
 
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+_F32_HEAD_DIMS = (32, 64, 128)
 
 
 def _resolve_scale(D: int, sm_scale: float | None) -> float:
@@ -72,9 +83,28 @@ def flash_forward_plain(q, k, v, *, causal: bool, sm_scale: float, q_offset: int
     return o.reshape(B, Hq, S, D).to(q.dtype), lse.reshape(B, Hq, S)
 
 
-def _lib():
-    lib = _build.load("flash_fwd")
-    fn = lib.flash_fwd
+def _check_kernel_inputs(what: str, D: int, head_dims: tuple, tensors: tuple, *, tma: bool) -> None:
+    """A launch's inputs, each ``(name, tensor, dtype)``: on the first one's
+    card, of its dtype, contiguous; with ``tma`` the tiled [B, H, S, D] ones
+    on 16-byte boundaries (TMA loads their tiles); a head dim the kernel
+    has."""
+    device = tensors[0][1].device
+    for name, t, dt in tensors:
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} must be a CUDA tensor on {device}")
+        if t.dtype != dt:
+            raise ValueError(f"{what} takes {dt} {name}; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tma and t.dim() == 4 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
+    if D not in head_dims:
+        raise ValueError(f"{what} takes head dim in {head_dims}; got {D}")
+
+
+def _lib(name: str = "flash_fwd"):
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -84,21 +114,15 @@ def _lib():
 def flash_forward_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
     """Launch ``csrc/flash_fwd.cu``: bf16, contiguous, 16-byte aligned, head
     dim in 32/64/128/256. The kernel runs Q.K^T and P.V on wgmma over tiles
-    that TMA brings into a shared-memory ring; it rounds P to bf16 for P.V."""
+    that TMA brings into a shared-memory ring; it rounds P to bf16 for P.V.
+    An f32 ``q`` goes to the f32 instance (:func:`flash_forward_f32_cuda`)."""
     global launches
+    if q.dtype == torch.float32:
+        return flash_forward_f32_cuda(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
     B, Hq, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash kernel takes bfloat16; {name} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim must be one of {_KERNEL_HEAD_DIMS}; got {D}")
+    _check_kernel_inputs("the flash kernel", D, _KERNEL_HEAD_DIMS,
+                         tuple((n, t, torch.bfloat16) for n, t in (("q", q), ("k", k), ("v", v))), tma=True)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -108,6 +132,32 @@ def flash_forward_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int 
     )
     launches += 1
     _build.check(lib, "flash_fwd", err)
+    return o, lse
+
+
+def flash_forward_f32_plain(q, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
+    """The f32 instance's plain twin: :func:`flash_forward_plain` at f32."""
+    return flash_forward_plain(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+
+
+def flash_forward_f32_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
+    """Launch ``csrc/flash_fwd_f32.cu``: f32 q/k/v, contiguous, head dim in
+    32/64/128. Both products are f32 FMAs on the CUDA cores (no TF32), the
+    online softmax in f32; o is f32."""
+    global f32_launches
+    B, Hq, S, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    _check_kernel_inputs("the f32 flash kernel", D, _F32_HEAD_DIMS,
+                         tuple((n, t, torch.float32) for n, t in (("q", q), ("k", k), ("v", v))), tma=False)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    lib = _lib("flash_fwd_f32")
+    err = lib.flash_fwd_f32(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), _build.ptr(lse),
+        B, Hq, Hkv, S, Skv, D, q_offset, int(causal), sm_scale, _build.stream_ptr(q.device),
+    )
+    f32_launches += 1
+    _build.check(lib, "flash_fwd_f32", err)
     return o, lse
 
 
@@ -178,39 +228,33 @@ def flash_backward_plain(q, k, v, o, lse, do, dlse, *, causal: bool, sm_scale: f
     return dq, dk, dv
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta, dlse) -> None:
+def _check_bwd_inputs(q, k, v, do, lse, delta, dlse, dtype=torch.bfloat16) -> None:
+    """The backward kernels' inputs: q/k/v/do of ``dtype`` (bf16: the wgmma
+    kernels, 16-byte aligned; f32: the f32 instances), f32 lse/delta/dlse
+    [B, Hq, S]."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     if k.shape != (B, Hkv, S, D) or v.shape != k.shape or do.shape != q.shape:
         raise ValueError(f"want q/do [B,Hq,S,D], k/v [B,Hkv,S,D]; got {q.shape}, {k.shape}, {v.shape}, {do.shape}")
     if Hq % Hkv:
         raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hkv}")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash backward kernels take head dim in {_KERNEL_HEAD_DIMS}; got {D}")
-    for name, t, dt in (
-        ("q", q, torch.bfloat16), ("k", k, torch.bfloat16), ("v", v, torch.bfloat16),
-        ("do", do, torch.bfloat16), ("lse", lse, torch.float32),
-        ("delta", delta, torch.float32), ("dlse", dlse, torch.float32),
-    ):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
-        if t.dtype != dt:
-            raise ValueError(f"flash backward kernels take {dt} {name}; got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    bf16 = dtype == torch.bfloat16
+    _check_kernel_inputs(
+        "flash backward kernels" if bf16 else "the f32 flash backward kernels", D,
+        _KERNEL_HEAD_DIMS if bf16 else _F32_HEAD_DIMS,
+        (("q", q, dtype), ("k", k, dtype), ("v", v, dtype), ("do", do, dtype), ("lse", lse, torch.float32),
+         ("delta", delta, torch.float32), ("dlse", dlse, torch.float32)), tma=bf16,
+    )
     for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
         if t.shape != (B, Hq, S):
             raise ValueError(f"{name} must be [B, Hq, S] = {(B, Hq, S)}; got {tuple(t.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
 
 
 def _bwd_lib(name: str):
     lib = _build.load(name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        n_ptrs = 8 if name == "flash_bwd_dq" else 9
+        n_ptrs = 8 if name.startswith("flash_bwd_dq") else 9
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -219,8 +263,11 @@ def _bwd_lib(name: str):
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_bwd_dq.cu``: bf16 q/k/v/do, f32 lse/delta/dlse
     [B, Hq, S], all contiguous, the bf16 ones 16-byte aligned (TMA loads
-    their tiles; S, dP and dQ run on wgmma). Returns dq in bf16."""
+    their tiles; S, dP and dQ run on wgmma). Returns dq in bf16. An f32
+    ``q`` goes to the f32 instance (:func:`flash_bwd_dq_f32_cuda`)."""
     global dq_launches
+    if q.dtype == torch.float32:
+        return flash_bwd_dq_f32_cuda(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse)
     B, Hq, S, D = q.shape
     dq = torch.empty_like(q)
@@ -237,8 +284,11 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_bwd_dkv.cu``: inputs as :func:`flash_bwd_dq_cuda`
     (all four products run on wgmma). Returns (dk, dv) in bf16, already
-    summed over each kv head's query heads."""
+    summed over each kv head's query heads. An f32 ``q`` goes to the f32
+    instance (:func:`flash_bwd_dkv_f32_cuda`)."""
     global dkv_launches
+    if q.dtype == torch.float32:
+        return flash_bwd_dkv_f32_cuda(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse)
     B, Hq, S, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -249,6 +299,52 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale:
     )
     dkv_launches += 1
     _build.check(lib, "flash_bwd_dkv", err)
+    return dk, dv
+
+
+def flash_bwd_dq_f32_plain(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
+    """The f32 dQ instance's plain twin: :func:`flash_bwd_dq_plain` at f32."""
+    return flash_bwd_dq_plain(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
+
+
+def flash_bwd_dq_f32_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
+    """Launch ``csrc/flash_bwd_dq_f32.cu``: every input f32 and contiguous,
+    head dim in 32/64/128; P, dS and dQ in f32 FMAs on the CUDA cores.
+    Returns dq in f32."""
+    global dq_f32_launches
+    _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32)
+    B, Hq, S, D = q.shape
+    dq = torch.empty_like(q)
+    lib = _bwd_lib("flash_bwd_dq_f32")
+    err = lib.flash_bwd_dq_f32(
+        *(_build.ptr(t) for t in (q, k, v, do, lse, delta, dlse, dq)),
+        B, Hq, k.shape[1], S, D, int(causal), sm_scale, _build.stream_ptr(q.device),
+    )
+    dq_f32_launches += 1
+    _build.check(lib, "flash_bwd_dq_f32", err)
+    return dq
+
+
+def flash_bwd_dkv_f32_plain(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
+    """The f32 dK/dV instance's plain twin: :func:`flash_bwd_dkv_plain` at f32."""
+    return flash_bwd_dkv_plain(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
+
+
+def flash_bwd_dkv_f32_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
+    """Launch ``csrc/flash_bwd_dkv_f32.cu``: inputs as
+    :func:`flash_bwd_dq_f32_cuda`. Returns (dk, dv) in f32, summed over each
+    kv head's query heads."""
+    global dkv_f32_launches
+    _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32)
+    B, Hq, S, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_lib("flash_bwd_dkv_f32")
+    err = lib.flash_bwd_dkv_f32(
+        *(_build.ptr(t) for t in (q, k, v, do, lse, delta, dlse, dk, dv)),
+        B, Hq, k.shape[1], S, D, int(causal), sm_scale, _build.stream_ptr(q.device),
+    )
+    dkv_f32_launches += 1
+    _build.check(lib, "flash_bwd_dkv_f32", err)
     return dk, dv
 
 

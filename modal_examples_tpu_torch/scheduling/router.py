@@ -25,8 +25,8 @@ landed where their prefix KV is.
 
 Replicas are duck-typed (``name``/``encode``/``submit``/``stream``/
 ``abort``/``outstanding``/``capacity``/``healthy``): :class:`EngineReplica`
-adapts an in-process ``LLMEngine``. The port's engines take no images, so
-no ``image=`` rides through.
+adapts an in-process ``LLMEngine``; an ``image=`` rides through to an
+engine built with ``vision=``.
 """
 
 from __future__ import annotations

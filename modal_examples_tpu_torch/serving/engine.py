@@ -138,14 +138,29 @@ sliced prompt's first token, a replay step, a decode block) goes through
 JAX engine's one flag: this process is the axis's rank 0, holds its shards
 (``_model_state``) and decides everything as on one card; its runner ships
 each call to the other ranks, which run :func:`follow`. Speculation, the
-macro-step, the tiered cache and the page moves of disaggregated serving
-and migration under a mesh raise (ROADMAP A10b).
+macro-step, the tiered cache, the vision tower and the page moves of
+disaggregated serving and migration under a mesh raise (ROADMAP A10b).
+
+Multimodal serving (``vision=(models.vlm.VLMConfig, vision params)``, the
+JAX engine's): ``submit(prompt, params, image)`` puts the image's
+``n_image_tokens`` placeholder ids ahead of the text (cut to the largest
+bucket less the image tokens: image prompts never chunk), and an image
+request's prompt is charged to the prefill budget up front. With the prefix
+cache on, its image positions key the trie (``cache_key_tokens``) by the
+image's SHA-256 above the vocabulary, so requests with equal images share
+those pages and different images never do. Image prompts prefill in groups
+of their own: the tower's projected patch states enter ``llama.prefill`` as
+``input_embeds``, one step with the prefill (``runner.prefill_mm``).
+``vision=`` with ``speculative=`` raises, and image requests refuse the
+slot-free prefill of disaggregated serving and the failover resume, as in
+the reference.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import os
 import queue
 import threading
@@ -289,6 +304,13 @@ class Request:
     _adopted_state: dict | None = dataclasses.field(default=None, repr=False)
     _resume_state: dict | None = dataclasses.field(default=None, repr=False)
     _orig_prompt_tokens: list | None = dataclasses.field(default=None, repr=False)
+    # multimodal: the preprocessed [S, S, 3] f32 image (models.vlm), whose
+    # n_image_tokens placeholder ids lead prompt_tokens
+    image: object | None = dataclasses.field(default=None, repr=False)
+    # the prefix cache's key when it must differ from prompt_tokens: an
+    # image's positions key by a content hash above the vocabulary, so equal
+    # images share KV pages and different ones never do
+    cache_key_tokens: list | None = None
 
 
 @dataclasses.dataclass
@@ -621,10 +643,17 @@ class LLMEngine:
         # tensor parallelism (a mesh with a "tensor" axis, parallel.make_mesh):
         # this process is the axis's rank 0; every other rank runs follow()
         mesh=None,
+        # multimodal serving: (models.vlm.VLMConfig, vision params); image
+        # requests prefill with the tower's projected patch states as their
+        # first n_image_tokens positions
+        vision: tuple | None = None,
     ):
         self.device = resolve_device(device)
         self.mesh = mesh
         self.tp = mesh_tp_degree(mesh)
+        if vision is not None and mesh is not None:
+            raise NotImplementedError("vision= under tensor parallelism (the tower replicated on every rank) is "
+                                      "ROADMAP A10b")
         if mesh is not None:
             _check_tp_engine(cfg, self.tp, speculative=speculative, decode_steps=decode_steps,
                              tiered_prefix=tiered_prefix)
@@ -684,6 +713,20 @@ class LLMEngine:
             kw = dict(tiered_prefix) if isinstance(tiered_prefix, dict) else {}
             self.tiered = TieredPrefixCache(self.cache, self.prefix_cache, **kw)
             self.prefix_cache.spill = self.tiered.spill_pages
+        # multimodal serving (models.vlm): checked as the JAX engine checks it
+        self.vision_cfg = self.vision_params = None
+        if vision is not None:
+            self.vision_cfg, self.vision_params = vision
+            if self.vision_cfg.llm_dim != cfg.dim:
+                raise ValueError(f"vision projector dim {self.vision_cfg.llm_dim} != model dim {cfg.dim}")
+            if self.vision_cfg.n_image_tokens >= self.prefill_buckets[-1]:
+                raise ValueError(
+                    f"n_image_tokens {self.vision_cfg.n_image_tokens} must be < the largest prefill bucket "
+                    f"{self.prefill_buckets[-1]} (multimodal prompts do not chunk)"
+                )
+            if speculative is not None:
+                raise ValueError("vision= with speculative= is not supported: the draft model's cache would miss "
+                                 "the image-token KV")
         self.decode_steps = resolve_decode_steps(decode_steps)  # read once per dispatch
         self._detok: DetokWorker | None = None  # created at the first routed token
         self.slots = [_Slot() for _ in range(max_slots)]
@@ -726,6 +769,8 @@ class LLMEngine:
             cfg, self.params, self.cache, device=self.device, seed=seed, decode_block=self.decode_block,
             paged_impl=self.paged_impl, scatter_impl=self.scatter_impl, mesh=mesh, control=control,
         )
+        if vision is not None:
+            self.runner.vision = vision
         self._seed_base = int(seed)
         self._submit_seq = 0
         self._lock = threading.Lock()
@@ -885,13 +930,19 @@ class LLMEngine:
             raise ValueError(f"seed must be in [-2**31, 2**31); got {params.seed}")
 
     def make_request(
-        self, prompt: str, params: SamplingParams | None = None, *, priority: str = DEFAULT_CLASS,
+        self, prompt: str, params: SamplingParams | None = None, image=None, *, priority: str = DEFAULT_CLASS,
         tenant: str = "default", trace=_rt.UNSET,
     ) -> Request:
         """Build (but do not enqueue) one validated, tokenized request; its
         deadline arms here. ``trace``: a context an entry point opened (the
         request takes its id), None when the entry point sampled it out, or
-        unset to open one here."""
+        unset to open one here. ``image`` (a PIL image or an [H, W, 3]
+        array) makes a multimodal request: its ``n_image_tokens`` placeholder
+        ids lead the prompt, the text keeps what is left of the largest
+        bucket, and with the prefix cache on its image positions key by the
+        image's SHA-256 above the vocabulary (``cache_key_tokens``)."""
+        if image is not None and self.vision_cfg is None:
+            raise ValueError("engine was built without vision=; cannot take images")
         req = Request(prompt=prompt, params=params or SamplingParams(), priority=validate_class(priority),
                       tenant=tenant)
         self.validate_params(req.params)
@@ -907,12 +958,32 @@ class LLMEngine:
             with self._lock:
                 self._submit_seq += 1
                 req.auto_seed = (self._seed_base * 1_000_003 + self._submit_seq) % (2**31 - 1)
-        # prompts past the largest bucket prefill in chunks; the hard cap is
-        # the model length minus one decode position
-        req.prompt_tokens = self.tokenizer.encode(prompt)[: self.max_model_len - 1]
+        if image is not None:
+            self._image_prompt(req, image)
+        else:
+            # prompts past the largest bucket prefill in chunks; the hard cap
+            # is the model length minus one decode position
+            req.prompt_tokens = self.tokenizer.encode(prompt)[: self.max_model_len - 1]
         if req.params.deadline_s is not None:
             req.deadline = self._clock() + float(req.params.deadline_s)
         return req
+
+    def _image_prompt(self, req: Request, image) -> None:
+        """A multimodal request's prompt: the image preprocessed, its
+        placeholder ids first, the text cut to the largest bucket (and the
+        model length) less the image tokens (image prompts never chunk)."""
+        from ..models import vlm
+
+        req.image = vlm.preprocess_image(image, self.vision_cfg.vision.image_size)
+        n_img = self.vision_cfg.n_image_tokens
+        budget = min(self.prefill_buckets[-1] - n_img, self.max_model_len - 1 - n_img)
+        text = self.tokenizer.encode(req.prompt)[:budget]
+        req.prompt_tokens = [self.tokenizer.pad_id % self.cfg.vocab_size] * n_img + text
+        if self.prefix_cache is not None:
+            # one content id repeated (the trie's depth already encodes the
+            # position), above the vocabulary so it never meets a text key
+            digest = hashlib.sha256(np.asarray(req.image).tobytes()).digest()
+            req.cache_key_tokens = [self.cfg.vocab_size + int.from_bytes(digest[:8], "little")] * n_img + text
 
     def request_cost(self, req: Request) -> int:
         """KV pages ``req`` claims (admission's reservation unit): its prompt
@@ -942,13 +1013,15 @@ class LLMEngine:
         return req
 
     def submit(
-        self, prompt: str, params: SamplingParams | None = None, *, priority: str = DEFAULT_CLASS,
+        self, prompt: str, params: SamplingParams | None = None, image=None, *, priority: str = DEFAULT_CLASS,
         tenant: str = "default", trace=_rt.UNSET,
     ) -> Request:
         """Enqueue one request: ``priority`` (interactive, default, batch) and
         ``tenant`` drive the fair-share policy, ``params.deadline_s`` arms a
-        deadline. Raises ``ShedError`` when admission rejects it."""
-        return self.submit_request(self.make_request(prompt, params, priority=priority, tenant=tenant, trace=trace))
+        deadline, ``image`` makes it multimodal (:meth:`make_request`).
+        Raises ``ShedError`` when admission rejects it."""
+        return self.submit_request(
+            self.make_request(prompt, params, image, priority=priority, tenant=tenant, trace=trace))
 
     def generate(self, prompt: str, params: SamplingParams | None = None) -> str:
         """Blocking convenience: submit and collect the full completion."""
@@ -986,6 +1059,9 @@ class LLMEngine:
         scheduler loop is not running (a prefill replica never starts its
         loop); concurrent callers serialize on a lock."""
         self._no_mesh("a slot-free prefill (disaggregated serving)")
+        if req.image is not None:
+            raise ValueError("multimodal requests do not take the disagg prefill path (image-token KV keys by "
+                             "content hash, not position)")
         self._prefill_sync_pending += 1
         turn = _TURNS.acquire()
         try:
@@ -1066,7 +1142,7 @@ class LLMEngine:
         used = state["claim"]["pages"][: state["n_kv_pages"]]
         return extract_pages(
             self.cache, used,
-            block_hashes=chain_hashes(req.prompt_tokens, self.cache.page_size),
+            block_hashes=chain_hashes(req.cache_key_tokens or req.prompt_tokens, self.cache.page_size),
             meta={
                 "request_id": req.request_id,
                 "prompt_tokens": [int(t) for t in req.prompt_tokens],
@@ -1118,6 +1194,8 @@ class LLMEngine:
         token is the uninterrupted stream's; emission resumes at
         ``emitted_len``. The same request object (id, out_queue, trace) rides
         through, so a blocked ``stream()`` consumer continues."""
+        if req.image is not None:
+            raise ValueError("multimodal requests do not take the failover resume path")
         if req.aborted:
             # a client abort landed in the failover window: honor it
             self._finish_stream(req, _Finish("deadline" if req.deadline_expired else "stop"))
@@ -1129,6 +1207,7 @@ class LLMEngine:
         req.generated_tokens = gen
         req.emitted_len = int(emitted_len)
         req.n_generated = max(req.n_generated, len(gen))
+        req.cache_key_tokens = None
         req.created = time.monotonic()
         if gen and (len(gen) >= req.params.max_tokens or len(base) + len(gen) >= self.max_model_len):
             # the failure landed on the last token: nothing left to decode
@@ -1656,21 +1735,22 @@ class LLMEngine:
             self._close_queue_span(req)
             assigned.append((free[taken], req, claim))
             taken += 1
-            if claim["n_prompt"] <= self.prefill_buckets[-1]:
-                spent += claim["n_prompt"]  # bucketed prompts prefill at once
+            if claim["n_prompt"] <= self.prefill_buckets[-1] or req.image is not None:
+                spent += claim["n_prompt"]  # bucketed (and image) prompts prefill at once
         _tm(tick, "admit")
-        by_bucket: dict[int, list] = {}
+        by_bucket: dict[tuple, list] = {}  # (bucket, multimodal?) -> assignments
         long_ones = []
         for a in assigned:
-            if a[2]["n_prompt"] > self.prefill_buckets[-1]:
+            if a[2]["n_prompt"] > self.prefill_buckets[-1] and a[1].image is None:  # image prompts are capped
                 long_ones.append(a)
             else:
-                by_bucket.setdefault(self._bucket_for(a[2]["n_prompt"]), []).append(a)
-        for bucket, group in by_bucket.items():
+                key = (self._bucket_for(a[2]["n_prompt"]), a[1].image is not None)
+                by_bucket.setdefault(key, []).append(a)
+        for (bucket, is_mm), group in by_bucket.items():
             for i in range(0, len(group), self.prefill_batch):
                 chunk = group[i : i + self.prefill_batch]
                 try:
-                    self._prefill_group(bucket, chunk)
+                    self._prefill_group(bucket, chunk, is_mm=is_mm)
                 except Exception:
                     # a failed prefill must not leak its claims, hang its
                     # callers or leave never-written pages in the trie
@@ -1773,10 +1853,12 @@ class LLMEngine:
         n_prompt = len(req.prompt_tokens)
         n_pages = self.request_cost(req)
         pc = self.prefix_cache
+        # an image request keys the trie by its image's content ids
+        key_tokens = req.cache_key_tokens or req.prompt_tokens
         shared: list[int] = []
         promoted: list[int] = []
         if pc is not None:
-            shared = pc.acquire(req.prompt_tokens)[0]
+            shared = pc.acquire(key_tokens)[0]
             if self.tiered is not None and shared:
                 # page units, as the host and volume counts promote records
                 _obs.record_tier_hit("hbm", n=len(shared))
@@ -1784,7 +1866,7 @@ class LLMEngine:
                 # consecutive full prompt pages past the trie hit, restored
                 # from host RAM or the Volume with their KV written; they
                 # join the trie as fresh inserts below
-                promoted = self.tiered.promote(req.prompt_tokens, n_have=len(shared))
+                promoted = self.tiered.promote(key_tokens, n_have=len(shared))
         need = n_pages - len(shared) - len(promoted)
         try:
             fresh = self.cache.allocator.alloc(need)
@@ -1807,12 +1889,12 @@ class LLMEngine:
             pc.hits += bool(shared)
             pc.misses += not shared
             n_full = n_prompt // self.cache.page_size
-            final, displaced = pc.insert(req.prompt_tokens, pages[:n_full], len(shared))
+            final, displaced = pc.insert(key_tokens, pages[:n_full], len(shared))
             self.cache.allocator.free(displaced)
             trie_pages, private_pages = list(final), pages[n_full:]
             pages = final + private_pages
             if self.tiered is not None:
-                self.tiered.register(req.prompt_tokens, final)
+                self.tiered.register(key_tokens, final)
         return {"pages": pages, "trie_pages": trie_pages, "private_pages": private_pages, "n_prompt": n_prompt}
 
     def _install(self, slot_idx: int, req: Request, claim: dict) -> np.ndarray:
@@ -1839,16 +1921,17 @@ class LLMEngine:
         self._page_tables[slot_idx] = table
         return table
 
-    def _prefill_group(self, bucket: int, group: list) -> None:
+    def _prefill_group(self, bucket: int, group: list, is_mm: bool = False) -> None:
         """One batched prefill of up to ``prefill_batch`` prompts padded to
         ``bucket`` (pad rows target the trash page) and its first tokens'
-        sampling, dispatched; the first tokens are parked for the harvest."""
+        sampling, dispatched; the first tokens are parked for the harvest.
+        ``is_mm``: image prompts, the vision tower and the prefill one step."""
         t_start, t_wall = time.monotonic(), time.time()
         for _slot_idx, req, _claim in group:
             _obs.record_engine_queue_wait(t_start - req.created)
         start = _mark(self.device)
         tables = [(req, self._install(slot_idx, req, claim)) for slot_idx, req, claim in group]
-        first = self._prefill_rows(bucket, tables)
+        first = self._prefill_rows(bucket, tables, is_mm=is_mm)
         rows = []
         for i, (slot_idx, req, claim) in enumerate(group):
             self.slots[slot_idx].pending_first = True
@@ -1857,11 +1940,13 @@ class LLMEngine:
             (_Landing(first, start), rows,
              {"phase": "prefill", "t_start": t_start, "t_wall": t_wall, "bucket": bucket}))
 
-    def _prefill_rows(self, bucket: int, rows: list) -> torch.Tensor:
+    def _prefill_rows(self, bucket: int, rows: list, is_mm: bool = False) -> torch.Tensor:
         """Dispatch one batched prefill of up to ``prefill_batch`` prompts,
         each ``(request, page-table row)``, padded to ``bucket`` (pad rows
         target the trash page), and its first tokens' sampling; returns the
-        sampled tokens ``[prefill_batch]`` on the device."""
+        sampled tokens ``[prefill_batch]`` on the device. ``is_mm``: every
+        row an image request, its image encoded in the same step (pad rows
+        encode a black image)."""
         B = self.prefill_batch
         tokens = np.full((B, bucket), self.tokenizer.pad_id % self.cfg.vocab_size, np.int32)
         tables = np.zeros((B, self.pages_per_slot), np.int32)
@@ -1878,6 +1963,12 @@ class LLMEngine:
             p = req.params
             temps[i], top_ps[i], top_ks[i] = p.temperature, p.top_p, p.top_k
             seeds[i] = _req_seed(req)
+        if is_mm:
+            S = self.vision_cfg.vision.image_size
+            images = np.zeros((B, S, S, 3), np.float32)
+            for i, (req, _table) in enumerate(rows):
+                images[i] = req.image
+            return self.runner.prefill_mm(images, tokens, tables, seq_lens, temps, top_ps, top_ks, seeds)
         return self.runner.prefill(tokens, tables, seq_lens, temps, top_ps, top_ks, seeds)
 
     def _sample_first(self, slot_idx: int, req: Request) -> torch.Tensor:

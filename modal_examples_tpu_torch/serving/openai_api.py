@@ -19,13 +19,24 @@ connection; the engine's continuous batching does the multiplexing. With
 ``router=`` (a ``PrefixAffinityRouter`` or a ``DisaggCoordinator``) every
 request is placed by the router and streamed through its failover path
 (``serving/failover.py``): a replica dying mid-stream is resumed on a peer
-and the stream goes on with no duplicated characters. The port takes no
-images.
+and the stream goes on with no duplicated characters.
+
+Images (the JAX server's ``_extract_images``): a chat message's content may
+be a list of parts, ``{"type": "text"}`` and ``{"type": "image_url",
+"image_url": {"url": "data:image/...;base64,..."}}``; the text parts are
+joined and the one image goes to the engine with the request (an engine built
+with ``vision=``). Only ``data:`` URIs are accepted (nothing is fetched), a
+second image is a 400, and an image sent to an engine without a vision tower
+is a 400. PNG is decoded by the port's own ``utils/images.py``; other formats
+(and PNGs it does not read) go through PIL where it is installed, else they
+are a 400 that names the format.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import io
 import json
 import math
 import re
@@ -38,11 +49,88 @@ from ..observability import catalog as _C
 from ..observability import reqtrace as _rt
 from ..scheduling.admission import ShedError
 from ..scheduling.policy import DEFAULT_CLASS, validate_class
+from ..utils import images as _images
 from ..utils.prometheus import default_registry
 from .engine import LLMEngine
 from .sampling import SamplingParams
 
 _SERVER_ERROR = {"error": {"message": "engine error while processing the request", "type": "server_error"}}
+
+
+_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+            (b"MM\x00*", "TIFF"))
+
+
+def _image_format(raw: bytes, url: str) -> str:
+    """The image's format by its leading bytes, else by the data URI's MIME type."""
+    if raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
+        return "WEBP"
+    for magic, name in _FORMATS:
+        if raw.startswith(magic):
+            return name
+    mime = url[5:].split(";", 1)[0].split(",", 1)[0]
+    return mime or "unknown"
+
+
+def _decode_image(raw: bytes, url: str):
+    """A data URI's bytes as an image: a PNG through ``utils/images.py`` (an
+    [H, W, 3] uint8 array), anything else (and a PNG that reader does not
+    take) through PIL where it is installed. ValueError (a 400) otherwise."""
+    if raw.startswith(_images.PNG_SIGNATURE):
+        try:
+            return _images.from_png(raw)
+        except ValueError as e:
+            reason, fmt = f"{e}", "PNG"
+    else:
+        reason, fmt = "", _image_format(raw, url)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"cannot decode a {fmt} image here: the server reads 8-bit RGB PNG itself and other images through PIL, "
+            f"which is not installed" + (f" ({reason})" if reason else "")
+        ) from None
+    try:
+        image = Image.open(io.BytesIO(raw))
+        image.load()
+    except Exception as e:
+        raise ValueError(f"could not decode image: {e}") from e
+    return image
+
+
+def _extract_images(messages: list) -> tuple[list, object]:
+    """OpenAI multimodal content parts -> (text-flattened messages, image or
+    None): text parts joined by newlines, at most one ``image_url`` part over
+    all messages, given as a ``data:`` URI."""
+    image = None
+    flat = []
+    for m in messages:
+        content = m.get("content")
+        if not isinstance(content, list):
+            flat.append(m)
+            continue
+        texts = []
+        for part in content:
+            ptype = part.get("type")
+            if ptype == "text":
+                texts.append(part.get("text", ""))
+            elif ptype == "image_url":
+                url = (part.get("image_url") or {}).get("url", "")
+                if not url.startswith("data:"):
+                    raise ValueError("only data: URIs are supported for image_url (inline base64; this server does "
+                                     "not fetch URLs)")
+                if image is not None:
+                    # answering about the first image only would be confidently wrong
+                    raise ValueError("multiple images per request are not supported")
+                try:
+                    raw = base64.b64decode(url.split(",", 1)[1] if "," in url else "")
+                except ValueError as e:
+                    raise ValueError(f"could not decode image: {e}") from e
+                image = _decode_image(raw, url)
+            else:
+                raise ValueError(f"unsupported content part type {ptype!r}")
+        flat.append({**m, "content": "\n".join(t for t in texts if t)})
+    return flat, image
 
 
 def _params_from_body(body: dict, headers=None) -> SamplingParams:
@@ -190,11 +278,15 @@ class _Handler(BaseHTTPRequestHandler):
     def _completions(self, body: dict, chat: bool) -> None:
         srv = self.server_ref
         eng = srv.engine
+        image = None
         try:
             if chat:
-                prompt = eng.tokenizer.apply_chat_template(body.get("messages") or [])
+                messages, image = _extract_images(body.get("messages") or [])
+                prompt = eng.tokenizer.apply_chat_template(messages)
             else:
                 prompt = body.get("prompt") or ""
+            if image is not None and eng.vision_cfg is None:
+                raise ValueError("this model does not accept images (engine has no vision tower)")
             params = _params_from_body(body, self.headers)
             sched = _sched_kwargs(body, self.headers)
             eng.validate_params(params)
@@ -212,10 +304,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._bad_request("n > 1 with stream=true is not supported")
             return
         if n > 1:
-            self._fan_out(eng, prompt, params, sched, n, rid, created, kind, chat)
+            self._fan_out(eng, prompt, params, sched, n, rid, created, kind, chat, image)
             return
         try:
-            req = srv.submit(prompt, params, **sched)
+            req = srv.submit(prompt, params, image=image, **sched)
         except ShedError as e:
             self._shed_response(e)
             return
@@ -236,7 +328,7 @@ class _Handler(BaseHTTPRequestHandler):
             "usage": _usage(req, n_prompt, n_out),
         }, extra_headers={"x-mtpu-request-id": req.request_id})
 
-    def _fan_out(self, eng, prompt, params, sched, n, rid, created, kind, chat) -> None:
+    def _fan_out(self, eng, prompt, params, sched, n, rid, created, kind, chat, image=None) -> None:
         """OpenAI's ``n``: one engine request per choice, batched by the
         engine. A given seed becomes ``seed + i`` for choice i (else every
         choice would be the same); without one each request draws its own.
@@ -246,7 +338,7 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             for i in range(n):
                 p = dataclasses.replace(params, seed=params.seed + i) if params.seed is not None else params
-                reqs.append(srv.submit(prompt, p, **sched))
+                reqs.append(srv.submit(prompt, p, image=image, **sched))
         except ShedError as e:
             for r in reqs:
                 srv.abort_request(r)
@@ -334,11 +426,13 @@ class OpenAIServer:
         self._thread: threading.Thread | None = None
         self._canary = None
 
-    def submit(self, prompt, params, **sched):
-        """Submit one request with its trace opened here, at the entry point
-        (the request takes the trace's id), through the router when there is
-        one. Raises ``ShedError``."""
+    def submit(self, prompt, params, image=None, **sched):
+        """Submit one request (``image``: a multimodal one) with its trace
+        opened here, at the entry point (the request takes the trace's id),
+        through the router when there is one. Raises ``ShedError``."""
         trace = _rt.start_request_trace(entry="api")
+        if image is not None:
+            sched = {**sched, "image": image}
         if self.router is not None:
             return self.router.submit(prompt, params, trace=trace, **sched)
         return self.engine.submit(prompt, params, trace=trace, **sched)

@@ -102,6 +102,7 @@ class ModelRunner:
         self.last = None  # the last decode block's tokens [max_slots], on the device
         self.chunk_logits: dict = {}  # a sliced prompt's last chunk's logits, by slot
         self.draft = None  # (params, cache, cfg) of a speculating engine's draft: prefilled beside the target
+        self.vision = None  # (VLMConfig, vision params) of a multimodal engine (never under a mesh)
         self.journal = journal
         self.closed = False  # rank 0 released its followers (a stopped tensor-parallel engine)
         # the control group (:func:`control_group`): made here unless the engine made it
@@ -194,6 +195,30 @@ class ModelRunner:
             # the draft's cache over the same pages (the caches share page ids)
             d_params, d_cache, d_cfg = self.draft
             llama.prefill(d_params, tok_d, d_cache.k_pages, d_cache.v_pages, tables_d, lens_d, d_cfg)
+        return sample(
+            logits, self.next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=lens_d,
+            needs_filter=bool(((top_ps < 1.0) | (top_ks > 0)).any()),
+        )
+
+    def prefill_mm(self, images, tokens, tables, seq_lens, temps, top_ps, top_ks, seeds):
+        """A batched multimodal prefill: the vision tower over ``images``
+        [B, S, S, 3], its projected patch states as each row's first
+        positions (``llama.prefill(input_embeds=)``), and the first tokens'
+        sampling, one step; returns the tokens [B] on the device."""
+        return self._run("prefill_mm", images, tokens, tables, seq_lens, temps, top_ps, top_ks, seeds)
+
+    def _prefill_mm(self, images, tokens, tables, seq_lens, temps, top_ps, top_ks, seeds):
+        from ..models import vlm
+
+        vcfg, vparams = self.vision
+        tok_d, tables_d, lens_d, temps_d, top_ps_d, top_ks_d, seeds_d = self.stage(
+            tokens, tables, seq_lens, temps, top_ps, top_ks, seeds)
+        images_d = torch.from_numpy(images).to(self.device)
+        embeds = vlm.encode_image(vparams, images_d, vcfg)
+        logits, _, _ = llama.prefill(
+            self.params, tok_d, self.cache.k_pages, self.cache.v_pages, tables_d, lens_d, self.cfg,
+            input_embeds=embeds,
+        )
         return sample(
             logits, self.next_key(), temps_d, top_ps_d, top_ks_d, seeds=seeds_d, step_ids=lens_d,
             needs_filter=bool(((top_ps < 1.0) | (top_ks > 0)).any()),

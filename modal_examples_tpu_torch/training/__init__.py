@@ -1,5 +1,6 @@
 """Training: the train step, optimizer, checkpoint/resume and preemption
-handling of the port (counterpart of ``modal_examples_tpu/training``)."""
+handling of the port, and GRPO (``training.grpo``) (counterpart of
+``modal_examples_tpu/training``)."""
 
 from .checkpoints import CheckpointManager
 from .resilience import PreemptionGuard, device_health, run_resilient

@@ -69,7 +69,8 @@ def _launches(fn: ast.FunctionDef, kernel: str) -> bool:
 
 def test_there_are_kernels():
     assert KERNELS == [
-        "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "kv_scatter", "kv_scatter_int8", "paged_decode",
+        "flash_bwd_dkv", "flash_bwd_dkv_f32", "flash_bwd_dq", "flash_bwd_dq_f32", "flash_fwd", "flash_fwd_f32",
+        "kv_scatter", "kv_scatter_int8", "paged_decode",
         "paged_decode_int8", "paged_decode_writeback", "paged_decode_writeback_int8", "quantized_matmul",
         "quantized_matmul_int4",
     ]
@@ -208,6 +209,13 @@ def test_no_module_of_the_port_imports_a_driver(path):
             assert mod != driver and not mod.startswith(driver + "."), f"{path.name} imports {driver}"
             parent, leaf = driver.rsplit(".", 1)
             assert not (mod == parent and leaf in names), f"{path.name} imports {driver}"
+
+
+def test_import_scan_reaches_a11s_models():
+    names = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    for mod in ("models/gpt.py", "models/vlm.py", "models/vision.py", "models/ocr.py", "models/segmentation.py",
+                "models/video.py", "training/grpo.py"):
+        assert mod in names
 
 
 def test_import_scan_reaches_the_parallel_layer():

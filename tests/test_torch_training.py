@@ -264,8 +264,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         Trainer(lambda p, b: 0.0, make_optimizer(), param_specs={})
     cfg = tllama.LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tllama.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg, input_embeds=torch.zeros((1, 2, cfg.dim)))
+    # input_embeds is ported (the multimodal prefix); under a mesh it waits for A10b
+    with pytest.raises(NotImplementedError, match="A10b"):
+        tllama.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg, input_embeds=torch.zeros((1, 2, cfg.dim)),
+                       mesh=object())
 
 
 class _Volume:
