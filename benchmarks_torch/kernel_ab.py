@@ -40,11 +40,15 @@ layer's 8 new rows itself (the folded write) against the other tree's K3
 over the one-layer view followed by its K4 (a library without the folded
 write: its C entry takes no new rows), cycled over the four layers, each
 with its own new rows; its error is the largest difference from this
-tree's K3 -> K4 output (0.0: bitwise). Prints one JSON line per shape. Run
-from the repository root on one GPU:
+tree's K3 -> K4 output (0.0: bitwise). The f32 flash instances
+(``flash_fwd_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) run at
+``chip_smoke.F32_TIMED``'s causal shapes (GPT's default config, the f32
+Llama of phase 20c) through their wrappers (both trees' C entries take the
+same arguments), held as max|out - plain| / max|plain| over their outputs.
+Prints one JSON line per shape. Run from the repository root on one GPU:
 
     python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul|
-        quantized_matmul_int4|
+        flash_fwd_f32|flash_bwd_dq_f32|flash_bwd_dkv_f32|quantized_matmul_int4|
         paged_decode|paged_decode_int8|paged_decode_writeback|paged_decode_writeback_int8|
         paged_decode_writeback_fold|kv_scatter|kv_scatter_int8] [--rounds R]
 """
@@ -89,6 +93,10 @@ SHAPES.update({kernel: DECODE_SHAPES for kernel in DECODE_KERNELS})
 SCATTER_KERNELS = ("kv_scatter", "kv_scatter_int8")
 SHAPES.update({kernel: list(cs.SCATTER_SHAPES) for kernel in SCATTER_KERNELS})
 SHAPES["paged_decode_writeback_fold"] = DECODE_SHAPES
+# the f32 instances: (B, Hq, Hkv, S, D), causal, at chip_smoke.F32_TIMED's
+# shapes (GPT's default config, 20c's f32 Llama)
+F32_KERNELS = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+SHAPES.update({kernel: [shape[1:] for shape in cs.F32_TIMED] for kernel in F32_KERNELS})
 D = 128
 
 
@@ -292,6 +300,8 @@ def case(kernel: str, gen, shape):
         want = qmm.qmm_int4_plain(x, weights[0].q, weights[0].scale)
         return (cs.cycling([lambda w=w: qmm4_call(x, w) for w in weights]),
                 lambda: cs.rel_err(qmm4_call(x, weights[0]), want))
+    if kernel in F32_KERNELS:
+        return f32_case(kernel, gen, *shape)
     B, H, S = shape
     if kernel == "flash_fwd":
         q, k, v = cs.flash_case(gen, B, H, H, S, S, D)
@@ -314,12 +324,40 @@ def case(kernel: str, gen, shape):
     return launch, lambda: max(cs.rel_err(g, w) for g, w in zip(launch(), want))
 
 
+def f32_case(kernel: str, gen, B, Hq, Hkv, S, Dh):
+    """An f32 instance at a causal shape through its wrapper (the two
+    trees' C entries take the same arguments); the error is the largest
+    of its outputs' max|out - plain| / max|plain|."""
+    q, do = cs.rand_f32(gen, B, Hq, S, Dh), cs.rand_f32(gen, B, Hq, S, Dh)
+    k, v = cs.rand_f32(gen, B, Hkv, S, Dh), cs.rand_f32(gen, B, Hkv, S, Dh)
+    scale = Dh**-0.5
+    o, lse = fa.flash_forward_f32_plain(q, k, v, causal=True, sm_scale=scale)
+    args = (q, k, v, do, lse, (do * o).sum(dim=-1), torch.zeros_like(lse))
+    if kernel == "flash_fwd_f32":
+        kernel_fn, plain, args = fa.flash_forward_f32_cuda, fa.flash_forward_f32_plain, (q, k, v)
+    elif kernel == "flash_bwd_dq_f32":
+        kernel_fn, plain = fa.flash_bwd_dq_f32_cuda, fa.flash_bwd_dq_f32_plain
+    else:
+        kernel_fn, plain = fa.flash_bwd_dkv_f32_cuda, fa.flash_bwd_dkv_f32_plain
+
+    def launch():
+        return kernel_fn(*args, causal=True, sm_scale=scale)
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    want = as_tuple(plain(*args, causal=True, sm_scale=scale))
+    return launch, lambda: max(cs.rel_err(g, w) for g, w in zip(as_tuple(launch()), want))
+
+
 def describe(kernel: str, shape) -> str:
     if kernel in DECODE_KERNELS or kernel == "paged_decode_writeback_fold":
         label, Hkv, lens = shape
         return f"{label}: B=8 Hq=32 Hkv={Hkv} D={D} prefixes {list(lens)}, layers {cs.CYCLED_LAYERS} in turn"
     if kernel in ("quantized_matmul", "quantized_matmul_int4"):
         return "M={} K={} N={} (four weight copies in turn)".format(*shape)
+    if kernel in F32_KERNELS:
+        return "B={} Hq={} Hkv={} S={} D={} causal, f32".format(*shape)
     if kernel in SCATTER_KERNELS:
         L, N = cs.SCATTER_SHAPES[shape]
         return f"{shape}: L={L} N={N} Hkv=32 D={D}, {cs.scatter_bytes(L, N, kernel.endswith('int8'))} bytes"

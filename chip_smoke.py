@@ -443,12 +443,14 @@ Phases (any failure exits non-zero and prints no result):
    two ranks share one card.
 20. C11's f32 flash instances and A11's models (after phase 16, before
    training, over phase 3's weights). (20a) K1-f32, K5-f32 and K6-f32
-   (``csrc/flash_*_f32.cu``: SIMT f32 FMAs, no TF32) against their plain
-   versions at ``F32_CASES`` (GPT's default shape B=8, H=6, S=256, D=64;
-   D=32 and 128; a ragged S=300, causal and not; GQA; a chunk at q_offset
-   496; a nonzero lse cotangent) within ``F32_TOL`` of the largest value,
-   each launched twice and bitwise equal, the check shown to refuse each
-   kernel with its last tile dropped (variants under ``build/variants``).
+   (``csrc/flash_*_f32.cu``: K1-f32 and K6-f32 on the tensor cores by the
+   3xTF32 split, K5-f32 SIMT f32 FMAs) against their plain versions at
+   ``F32_CASES`` (GPT's default shape B=8, H=6, S=256, D=64; D=32 and 128;
+   a ragged S=300, causal and not; GQA; a chunk at q_offset 496; a nonzero
+   lse cotangent) within ``F32_TOL`` of the largest value, each launched
+   twice and bitwise equal, the check shown to refuse each kernel with its
+   last tile dropped and K1-f32 and K6-f32 with one TF32 pass (variants
+   under ``build/variants``).
    (20b) CLIP ViT-L/14 at 224 px (f32, random from a seed) and its
    projector in front of phase 3's Llama-2-7B bf16 weights: the tower
    against its CPU run (1e-4 of the largest value), an image request's
@@ -473,8 +475,10 @@ Phases (any failure exits non-zero and prints no result):
    at ``llama32_1b()`` width in bf16: group 8, a 32-token prompt, 8 new
    tokens, 1 + 2 steps; the first step's importance ratio 1 within 2^-7,
    the policy moved, the reference unchanged; step s and peak GB. The
-   f32 instances' rows join the kernels line at GPT's default shape, with
-   SDPA's memory-efficient f32 kernels as the library column.
+   f32 instances' rows join the kernels line at GPT's default shape and,
+   under ``at_shapes``, 20c's f32 Llama shape (``F32_TIMED``), with both
+   operations bounds (f32 FMAs, three TF32 passes) and SDPA's
+   memory-efficient f32 kernels as the library column.
 """
 
 from __future__ import annotations
@@ -506,6 +510,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 PEAK_F32_FLOPS = 67e12  # H100 SXM dense f32 outside the tensor cores (data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores (data sheet)
 # bf16 tolerances against the plain versions (f32 math inside both):
 # flash differs by the final bf16 rounding and summation order; decode also
 # rounds unnormalised probabilities to bf16 where the plain version rounds
@@ -554,9 +559,11 @@ K1_CASES = [
 # instructions each library's SASS must hold: the products on wgmma (HGMMA)
 # fed by TMA (UTMALDG); the int4 matmul's prefill path on wgmma and TMA, its
 # decode ring on TMA and mma.sync (HMMA), its masked path on mma.sync; the
-# four decode kernels' rows streamed by cp.async (LDGSTS)
+# f32 forward and dK/dV on tf32 wgmma, fed by TMA; the four decode kernels'
+# rows streamed by cp.async (LDGSTS)
 SASS_CHECKED = {
-    **{name: ("HGMMA", "UTMALDG") for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul")},
+    **{name: ("HGMMA", "UTMALDG") for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul",
+                                               "flash_fwd_f32", "flash_bwd_dkv_f32")},
     "quantized_matmul_int4": ("HGMMA", "UTMALDG", "HMMA"),
     **{name: ("LDGSTS",) for name in ("paged_decode", "paged_decode_int8", "paged_decode_writeback",
                                       "paged_decode_writeback_int8")},
@@ -7841,14 +7848,21 @@ F32_CASES = [
     (2, 8, 2, 256, 256, 0, True, 128, True),     # GQA at D=128 with an lse cotangent
     (1, 8, 8, 200, 700, 496, True, 64, False),   # a chunk at q_offset 496 over a ragged Skv (forward only)
 ]
-# the planted fault: each kernel's last tile of the other side dropped
+# the planted faults, each as the kernels it builds and its edits (a file of
+# csrc -> (line, faulty line)): each kernel's last tile of the other side
+# dropped (the dK/dV kernel's last query tile of each head); and in the two
+# kernels on the tensor cores the small parts zeroed, so the two big.small
+# products add nothing: one TF32 pass
 F32_FAULTS = {
-    "flash_fwd_f32": ("const int n_tiles = (kv_end + TILE - 1) / TILE;",
-                      "const int n_tiles = (kv_end + TILE - 1) / TILE - 1;"),
-    "flash_bwd_dq_f32": ("const int n_tiles = (kv_end + TILE - 1) / TILE;",
-                         "const int n_tiles = (kv_end + TILE - 1) / TILE - 1;"),
-    "flash_bwd_dkv_f32": ("const int n_tiles = (S + TILE - 1) / TILE;",
-                          "const int n_tiles = (S + TILE - 1) / TILE - 1;"),
+    "last tile dropped": (["flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"], {
+        "flash_fwd_f32.cu": ("const int n_tiles = (kv_end + BK - 1) / BK;",
+                             "const int n_tiles = (kv_end + BK - 1) / BK - 1;"),
+        "flash_bwd_dq_f32.cu": ("const int n_tiles = (kv_end + TILE - 1) / TILE;",
+                                "const int n_tiles = (kv_end + TILE - 1) / TILE - 1;"),
+        "flash_bwd_dkv_f32.cu": ("const int n_qt = (S - q_begin + BQ - 1) / BQ;",
+                                 "const int n_qt = (S - q_begin + BQ - 1) / BQ - 1;")}),
+    "one TF32 pass": (["flash_fwd_f32", "flash_bwd_dkv_f32"], {
+        "flash_tf32.cuh": ("  small = round_tf32(x - __uint_as_float(big));", "  small = 0u;")}),
 }
 
 
@@ -7954,20 +7968,23 @@ class swapped_libs:
         _build._libs.update(self.saved)
 
 
-def f32_fault_refused(fa) -> dict:
+def f32_fault_refused(fa, faults=tuple(F32_FAULTS)) -> dict:
     """The planted faults (``F32_FAULTS``) run on GPT's default case: the
-    same check must refuse each kernel's variant."""
-    libs = build_variants("flash-f32-last-tile", list(F32_FAULTS),
-                          {f"{name}.cu": edit for name, edit in F32_FAULTS.items()})
+    same check must refuse each kernel's variant. Returns {fault: {kernel:
+    refused}}."""
     B, Hq, Hkv, S, Skv, q_offset, causal, D, nz = F32_CASES[0]
-    with swapped_libs(libs):
-        r = f32_case(fa, torch.Generator(device="cuda").manual_seed(20), B, Hq, Hkv, S, Skv, q_offset, causal,
-                     D, nz)
-    refused = {"flash_fwd_f32": r["o"] > F32_TOL, "flash_bwd_dq_f32": r["dq"] > F32_TOL,
-               "flash_bwd_dkv_f32": max(r["dk"], r["dv"]) > F32_TOL}
-    log(f"20a planted faults (the last tile dropped): rel o {r['o']:.3g}, dq {r['dq']:.3g}, dk {r['dk']:.3g}, "
-        f"dv {r['dv']:.3g}; refused {refused}")
-    if not all(refused.values()):
+    refused = {}
+    for fault in faults:
+        names, edits = F32_FAULTS[fault]
+        libs = build_variants("flash-f32-" + fault.replace(" ", "-"), names, edits)
+        with swapped_libs(libs):
+            r = f32_case(fa, torch.Generator(device="cuda").manual_seed(20), B, Hq, Hkv, S, Skv, q_offset,
+                         causal, D, nz)
+        rel = {"flash_fwd_f32": r["o"], "flash_bwd_dq_f32": r["dq"], "flash_bwd_dkv_f32": max(r["dk"], r["dv"])}
+        refused[fault] = {name: rel[name] > F32_TOL for name in names}
+        log(f"20a planted faults ({fault}): rel o {r['o']:.3g}, lse {r['lse']:.3g}, dq {r['dq']:.3g}, "
+            f"dk {r['dk']:.3g}, dv {r['dv']:.3g}; refused {refused[fault]}")
+    if not all(ok for by_name in refused.values() for ok in by_name.values()):
         raise AssertionError(f"the f32 flash check did not refuse a planted fault: {refused}")
     return refused
 
@@ -8516,61 +8533,87 @@ def phase_a11(fa, pa, llama, layers, reference, lora, training, LLMEngine, OpenA
     return out
 
 
-def f32_rows(fa, counts: dict, errs: dict) -> list:
-    """The kernels line's rows of the three f32 instances at GPT's default
-    shape (B=8, H=6, S=256, D=64, causal): single and back-to-back launches,
-    the profiler's device time, the plain versions, the bound at the f32
-    CUDA-core peak and PyTorch's f32 attention (SDPA's memory-efficient
-    kernels, forward and backward) on the same inputs."""
+# the f32 instances' timed shapes: (label, B, Hq, Hkv, S, D), causal
+F32_TIMED = [("GPT's default config", 8, 6, 6, 256, 64),
+             ("20c's f32 Llama (F32_LORA_CFG)", 2, 16, 8, 512, 64)]
+
+
+def f32_bounds(flops: float, nbytes: float) -> dict:
+    """The least time of an f32-accurate product on the card, both ways: f32
+    FMAs at the CUDA cores' peak, and three TF32 passes at the tensor cores'
+    (the 3xTF32 split); the smaller names the row's operations bound, the
+    bytes over HBM's rate the other side."""
+    simt, tf32x3, t_bytes = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    t_ops = min(simt, tf32x3)
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_ms_simt_f32": 1e3 * max(simt, t_bytes), "bound_ms_3xtf32": 1e3 * max(tf32x3, t_bytes)}
+
+
+def f32_timed(fa, label, B, Hq, Hkv, S, D) -> dict:
+    """The three f32 instances at one causal shape: single and back-to-back
+    launches, the profiler's device time, the plain versions, both bounds
+    and PyTorch's f32 attention (SDPA's memory-efficient kernels, forward and
+    backward; K and V repeated to every query head where Hkv < Hq, as that
+    call takes no GQA) on the same inputs. Returns {name: readings}."""
     gen = torch.Generator(device="cuda").manual_seed(25)
-    B, H, S, D = 8, 6, 256, 64
-    q, k, v, do = (rand_f32(gen, B, H, S, D) for _ in range(4))
+    q, do = rand_f32(gen, B, Hq, S, D), rand_f32(gen, B, Hq, S, D)
+    k, v = rand_f32(gen, B, Hkv, S, D), rand_f32(gen, B, Hkv, S, D)
     scale = D**-0.5
     o, lse = fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale)
     delta = (do * o).sum(dim=-1)
     dlse = torch.zeros_like(lse)
     args = (q, k, v, do, lse, delta, dlse)
-    one = 2 * 0.5 * S * S * D * B * H  # FLOPs of one causal S x S x D product, all heads
-    tensor_bytes, row_bytes = B * H * S * D * 4, B * H * S * 4
+    one = 2 * 0.5 * S * S * D * B * Hq  # FLOPs of one causal S x S x D product, all query heads
+    q_bytes, kv_bytes, row_bytes = B * Hq * S * D * 4, B * Hkv * S * D * 4, B * Hq * S * 4
+    kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
     out_e, lse_e, seed_e, off_e = torch.ops.aten._scaled_dot_product_efficient_attention(
-        q, k, v, None, True, 0.0, True, scale=scale)
+        q, kr, vr, None, True, 0.0, True, scale=scale)
 
     def library_bwd():
         return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
-            do, q, k, v, None, out_e, lse_e, seed_e, off_e, 0.0, [True, True, True, False], True, scale=scale)
+            do, q, kr, vr, None, out_e, lse_e, seed_e, off_e, 0.0, [True, True, True, False], True, scale=scale)
 
     def library_fwd():
-        return torch.ops.aten._scaled_dot_product_efficient_attention(q, k, v, None, False, 0.0, True, scale=scale)
+        return torch.ops.aten._scaled_dot_product_efficient_attention(q, kr, vr, None, False, 0.0, True,
+                                                                       scale=scale)
 
     specs = [
         ("flash_fwd_f32", lambda: fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale),
-         lambda: fa.flash_forward_f32_plain(q, k, v, causal=True, sm_scale=scale), 2, 4 * tensor_bytes + row_bytes,
-         40, library_fwd, "aten._scaled_dot_product_efficient_attention (f32)"),
+         lambda: fa.flash_forward_f32_plain(q, k, v, causal=True, sm_scale=scale), 2,
+         2 * q_bytes + 2 * kv_bytes + row_bytes, library_fwd, "aten._scaled_dot_product_efficient_attention (f32)"),
         ("flash_bwd_dq_f32", lambda: fa.flash_bwd_dq_f32_cuda(*args, causal=True, sm_scale=scale),
-         lambda: fa.flash_bwd_dq_f32_plain(*args, causal=True, sm_scale=scale), 3, 5 * tensor_bytes + 3 * row_bytes,
-         244, library_bwd, "aten._scaled_dot_product_efficient_attention_backward (f32; dQ, dK and dV together)"),
+         lambda: fa.flash_bwd_dq_f32_plain(*args, causal=True, sm_scale=scale), 3,
+         3 * q_bytes + 2 * kv_bytes + 3 * row_bytes, library_bwd,
+         "aten._scaled_dot_product_efficient_attention_backward (f32; dQ, dK and dV together)"),
         ("flash_bwd_dkv_f32", lambda: fa.flash_bwd_dkv_f32_cuda(*args, causal=True, sm_scale=scale),
-         lambda: fa.flash_bwd_dkv_f32_plain(*args, causal=True, sm_scale=scale), 4, 6 * tensor_bytes + 3 * row_bytes,
-         278, library_bwd, "aten._scaled_dot_product_efficient_attention_backward (f32; dQ, dK and dV together)"),
+         lambda: fa.flash_bwd_dkv_f32_plain(*args, causal=True, sm_scale=scale), 4,
+         2 * q_bytes + 4 * kv_bytes + 3 * row_bytes, library_bwd,
+         "aten._scaled_dot_product_efficient_attention_backward (f32; dQ, dK and dV together)"),
     ]
-    rows = []
-    for name, kernel, plain, n_products, nbytes, line, library, library_op in specs:
-        flops = n_products * one
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        rows.append(dict(
-            name=name, route="cuda", source=f"modal_examples_tpu_torch/csrc/{name}.cu",
-            replaces=f"modal_examples_tpu/ops/flash_attention.py:{line} (f32 inputs)", launches=counts[name],
-            max_abs_err=errs[name], ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
-            plain_ms=time_ms(plain, reps=5), bound_ms=1e3 * max(t_ops, t_bytes),
-            bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=time_ms(library),
+    out = {}
+    for name, kernel, plain, n_products, nbytes, library, library_op in specs:
+        r = out[name] = dict(
+            ms=time_ms(kernel), ms_b2b=back_to_back_ms(kernel), device_ms=device_ms(kernel),
+            plain_ms=time_ms(plain, reps=5), **f32_bounds(n_products * one, nbytes), library_ms=time_ms(library),
             library_ms_b2b=back_to_back_ms(library), library_device_ms=device_ms(library), library_op=library_op,
-            shape=f"B={B} H={H} S={S} D={D} causal, f32 (GPT's default config)",
-        ))
-        r = rows[-1]
-        log(f"{name}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f}, device {r['device_ms']:.4f} (plain "
-            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} / device {r['library_device_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']})")
-    return rows
+            shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} causal, f32 ({label})")
+        log(f"{name} at {r['shape']}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f}, device "
+            f"{r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} / device "
+            f"{r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}: f32 FMAs "
+            f"{r['bound_ms_simt_f32']:.4f}, 3xTF32 {r['bound_ms_3xtf32']:.4f})")
+    return out
+
+
+def f32_rows(fa, counts: dict, errs: dict) -> list:
+    """The kernels line's rows of the three f32 instances: their readings at
+    GPT's default shape (B=8, H=6, S=256, D=64, causal), and at 20c's f32
+    Llama shape under ``at_shapes`` beside them (``f32_timed``)."""
+    timed = [f32_timed(fa, *shape) for shape in F32_TIMED]
+    lines = {"flash_fwd_f32": 40, "flash_bwd_dq_f32": 244, "flash_bwd_dkv_f32": 278}
+    return [dict(name=name, route="cuda", source=f"modal_examples_tpu_torch/csrc/{name}.cu",
+                 replaces=f"modal_examples_tpu/ops/flash_attention.py:{line} (f32 inputs)", launches=counts[name],
+                 max_abs_err=errs[name], **timed[0][name], at_shapes=[t[name] for t in timed])
+            for name, line in lines.items()]
 
 
 def main() -> int:

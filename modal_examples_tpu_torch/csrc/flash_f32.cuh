@@ -1,21 +1,21 @@
-// Shared pieces of the f32 flash attention kernels (flash_fwd_f32.cu,
-// flash_bwd_dq_f32.cu, flash_bwd_dkv_f32.cu): the f32 instances of the
-// forward, dQ and dK/dV kernels, for models whose attention runs in f32
-// (the reference's Pallas bodies upcast to f32 and write the input's dtype,
-// so an f32 model's attention is f32 throughout).
+// Shared pieces of the SIMT f32 flash kernel flash_bwd_dq_f32.cu: the f32
+// instance of the dQ kernel, for models whose attention runs in f32 (the
+// reference's Pallas bodies upcast to f32 and write the input's dtype, so
+// an f32 model's attention is f32 throughout). The f32 forward and dK/dV
+// run on the tensor cores by a 3xTF32 split instead (flash_tf32.cuh).
 //
-// Design, shared by the three: plain SIMT f32 arithmetic with fmaf on the
-// CUDA cores, never TF32 or bf16 staging (TF32 would round the inputs to a
-// 10-bit mantissa, which the reference's f32 body does not). A block owns
-// ROWS "own" rows of one (batch, head) plane: WARPS warps of R rows each.
-// It walks the other side's rows in tiles of TILE = 32 rows staged in
-// shared memory, one lane per tile row: each lane computes its row's dot
-// products against the warp's R own rows (the own rows in shared memory,
-// read as broadcasts; the tile rows padded to D + 1 floats so the 32 lanes
-// read 32 banks). Products that sum over the tile (P.V, dS.K, P^T.dO,
-// dS^T.Q) broadcast each lane's value with a shuffle while every lane
-// accumulates D / 32 output columns in registers. The order of every sum
-// is fixed, so a launch is bitwise repeatable.
+// Design: plain SIMT f32 arithmetic with fmaf on the CUDA cores, never one
+// TF32 pass or bf16 staging (TF32 alone would round the inputs to a 10-bit
+// mantissa, which the reference's f32 body does not). A block owns ROWS
+// "own" rows of one (batch, head) plane: WARPS warps of R rows each. It
+// walks the other side's rows in tiles of TILE = 32 rows staged in shared
+// memory, one lane per tile row: each lane computes its row's dot products
+// against the warp's R own rows (the own rows in shared memory, read as
+// broadcasts; the tile rows padded to D + 1 floats so the 32 lanes read 32
+// banks). The product that sums over the tile (dS.K) broadcasts each
+// lane's value with a shuffle while every lane accumulates D / 32 output
+// columns in registers. The order of every sum is fixed, so a launch is
+// bitwise repeatable.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,8 +53,8 @@ __device__ __forceinline__ void stage_rows(float* dst, int stride, const float* 
   }
 }
 
-// dynamic shared memory of a kernel: two [ROWS, D] own-row arrays and two
-// [TILE, D + 1] tile arrays (the forward uses one own-row array)
+// dynamic shared memory of the kernel: two [ROWS, D] own-row arrays and two
+// [TILE, D + 1] tile arrays
 template <int D>
 constexpr size_t smem_bytes(int own_arrays) {
   return sizeof(float) * ((size_t)own_arrays * ROWS * D + 2 * TILE * (D + 1));

@@ -338,8 +338,9 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 3-D map over a contiguous array [planes, rows, cols] of bf16 (elem_bytes
-// 2) or int8 (elem_bytes 1) whose box is one panel: box_rows rows of SW
-// bytes (box_cols = SW / elem_bytes columns), with the matching swizzle.
+// 2), int8 (elem_bytes 1) or f32 (elem_bytes 4) whose box is one panel:
+// box_rows rows of SW bytes (box_cols = SW / elem_bytes columns), with the
+// matching swizzle.
 // Reads past `rows` (or `cols`, `planes`) are filled with zeros, so a box at
 // a ragged edge of one plane never reads the next plane. The row stride
 // (cols * elem_bytes) must be a multiple of 16 bytes. Returns a cudaError_t
@@ -353,7 +354,10 @@ inline int encode_3d(CUtensorMap* map, const void* base, int cols, int rows, int
   const cuuint64_t strides[2] = {row_bytes, row_bytes * rows};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult r = fn(map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUtensorMapDataType type = elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = fn(map, type, 3,
                   const_cast<void*>(base), dims, strides, box,
                   elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,

@@ -15,11 +15,13 @@ kernels (their plain versions for CPU tensors).
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. On the card the
 dtype picks the instance: bf16 runs the wgmma kernels above, f32 their f32
-instances (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_dq_f32.cu``,
-``csrc/flash_bwd_dkv_f32.cu``: f32 products on the CUDA cores, no TF32, at
-head dims 32, 64 and 128), as the reference's kernels compute at any input
-dtype; any other dtype raises. The f32 instances' plain twins are the plain
-versions above, run at f32. ``launches``, ``dq_launches`` and
+instances at head dims 32, 64 and 128, as the reference's kernels compute at
+any input dtype; any other dtype raises. The f32 forward and dK/dV
+(``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_dkv_f32.cu``) run every product
+on the tensor cores, f32-accurate by a 3xTF32 split (three TF32 products a
+product, ``csrc/flash_tf32.cuh``), over tiles that TMA loads; the f32 dQ
+(``csrc/flash_bwd_dq_f32.cu``) is f32 FMAs on the CUDA cores. The f32
+instances' plain twins are the plain versions above, run at f32. ``launches``, ``dq_launches`` and
 ``dkv_launches`` count the bf16 kernels' launches, ``f32_launches``,
 ``dq_f32_launches`` and ``dkv_f32_launches`` the f32 instances'.
 """
@@ -141,14 +143,15 @@ def flash_forward_f32_plain(q, k, v, *, causal: bool, sm_scale: float, q_offset:
 
 
 def flash_forward_f32_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
-    """Launch ``csrc/flash_fwd_f32.cu``: f32 q/k/v, contiguous, head dim in
-    32/64/128. Both products are f32 FMAs on the CUDA cores (no TF32), the
-    online softmax in f32; o is f32."""
+    """Launch ``csrc/flash_fwd_f32.cu``: f32 q/k/v, contiguous, 16-byte
+    aligned (TMA loads the K/V tiles), head dim in 32/64/128. Both products
+    run on the tensor cores as three TF32 products each (the 3xTF32 split:
+    f32-accurate, never one TF32 pass), the online softmax in f32; o is f32."""
     global f32_launches
     B, Hq, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     _check_kernel_inputs("the f32 flash kernel", D, _F32_HEAD_DIMS,
-                         tuple((n, t, torch.float32) for n, t in (("q", q), ("k", k), ("v", v))), tma=False)
+                         tuple((n, t, torch.float32) for n, t in (("q", q), ("k", k), ("v", v))), tma=True)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = _lib("flash_fwd_f32")
@@ -228,10 +231,10 @@ def flash_backward_plain(q, k, v, o, lse, do, dlse, *, causal: bool, sm_scale: f
     return dq, dk, dv
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta, dlse, dtype=torch.bfloat16) -> None:
+def _check_bwd_inputs(q, k, v, do, lse, delta, dlse, dtype=torch.bfloat16, tma: bool = True) -> None:
     """The backward kernels' inputs: q/k/v/do of ``dtype`` (bf16: the wgmma
-    kernels, 16-byte aligned; f32: the f32 instances), f32 lse/delta/dlse
-    [B, Hq, S]."""
+    kernels; f32: the f32 instances), f32 lse/delta/dlse [B, Hq, S]; with
+    ``tma`` (every kernel but the f32 dQ) the tiled ones 16-byte aligned."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     if k.shape != (B, Hkv, S, D) or v.shape != k.shape or do.shape != q.shape:
@@ -243,7 +246,7 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, dlse, dtype=torch.bfloat16) -> No
         "flash backward kernels" if bf16 else "the f32 flash backward kernels", D,
         _KERNEL_HEAD_DIMS if bf16 else _F32_HEAD_DIMS,
         (("q", q, dtype), ("k", k, dtype), ("v", v, dtype), ("do", do, dtype), ("lse", lse, torch.float32),
-         ("delta", delta, torch.float32), ("dlse", dlse, torch.float32)), tma=bf16,
+         ("delta", delta, torch.float32), ("dlse", dlse, torch.float32)), tma=tma,
     )
     for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
         if t.shape != (B, Hq, S):
@@ -312,7 +315,7 @@ def flash_bwd_dq_f32_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_sca
     head dim in 32/64/128; P, dS and dQ in f32 FMAs on the CUDA cores.
     Returns dq in f32."""
     global dq_f32_launches
-    _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32)
+    _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32, tma=False)
     B, Hq, S, D = q.shape
     dq = torch.empty_like(q)
     lib = _bwd_lib("flash_bwd_dq_f32")
@@ -332,8 +335,9 @@ def flash_bwd_dkv_f32_plain(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_s
 
 def flash_bwd_dkv_f32_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_bwd_dkv_f32.cu``: inputs as
-    :func:`flash_bwd_dq_f32_cuda`. Returns (dk, dv) in f32, summed over each
-    kv head's query heads."""
+    :func:`flash_bwd_dq_f32_cuda`, q/k/v/do also 16-byte aligned (TMA loads
+    their tiles). Its four products run on the tensor cores by the 3xTF32
+    split. Returns (dk, dv) in f32, summed over each kv head's query heads."""
     global dkv_f32_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32)
     B, Hq, S, D = q.shape
