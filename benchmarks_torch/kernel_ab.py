@@ -6,13 +6,16 @@ unpacked with ``git archive`` into a git-ignored directory. Both libraries
 build from their sources (``ops/_build.py``; the other one into
 ``build/kernels_ab/``), both are held against the plain version on the timed
 inputs, then each is timed in the order this, other, other, this (``--rounds``
-times) three ways: CUDA events around 50 back-to-back launches
+times) four ways: CUDA events around 50 back-to-back launches
 (``chip_smoke.back_to_back_ms``), the median of 20 single launches each
-between its own events (``chip_smoke.time_ms``, phase 5's ``ms``), and the
-device time of 40 launches under ``torch.profiler`` (every kernel a launch
-runs, summed). Back-to-back is the kernel's time only while the host
-enqueues faster than the card runs; for a kernel shorter than the wrapper's
-host time (~0.03-0.05 ms) only the device time is. The int8 matmul cycles
+between its own events (``chip_smoke.time_ms``, phase 5's ``ms``), the
+device time of 40 launches queued behind a spin kernel between CUDA events
+(``chip_smoke.device_ms``), and the kernels' own time of 40 launches under
+``torch.profiler`` (every kernel a launch runs, summed: ``profiler_ms``,
+sound in a fresh process such as this one). Back-to-back is the kernel's
+time only while the host enqueues faster than the card runs; for a kernel
+shorter than the wrapper's host time (~0.03-0.05 ms) only the last two
+are. The int8 matmul cycles
 over four weight copies (more than the 50 MB L2), as a decode step streams
 its weights, at M = 8 over every weight shape of Llama-2-7B and at M = 2048;
 the int4 matmul (K7-int4) the same way, and at M = 1024 (a QLoRA step's
@@ -43,8 +46,12 @@ with its own new rows; its error is the largest difference from this
 tree's K3 -> K4 output (0.0: bitwise). The f32 flash instances
 (``flash_fwd_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) run at
 ``chip_smoke.F32_TIMED``'s causal shapes (GPT's default config, the f32
-Llama of phase 20c) through their wrappers (both trees' C entries take the
-same arguments), held as max|out - plain| / max|plain| over their outputs.
+Llama of phase 20c, that shape at S=1024 and 2048) through their wrappers
+(both trees' C entries take the same arguments), held as max|out - plain| /
+max|plain| over their outputs; each round also takes PyTorch's f32
+attention on the same inputs (``chip_smoke.f32_library``: the forward for
+``flash_fwd_f32``, the backward, dQ, dK and dV together, for the other two)
+in the same three ways, as ``library_*``.
 Prints one JSON line per shape. Run from the repository root on one GPU:
 
     python3 benchmarks_torch/kernel_ab.py OTHER [--kernel flash_fwd|flash_bwd_dq|flash_bwd_dkv|quantized_matmul|
@@ -94,7 +101,7 @@ SCATTER_KERNELS = ("kv_scatter", "kv_scatter_int8")
 SHAPES.update({kernel: list(cs.SCATTER_SHAPES) for kernel in SCATTER_KERNELS})
 SHAPES["paged_decode_writeback_fold"] = DECODE_SHAPES
 # the f32 instances: (B, Hq, Hkv, S, D), causal, at chip_smoke.F32_TIMED's
-# shapes (GPT's default config, 20c's f32 Llama)
+# shapes (GPT's default config, 20c's f32 Llama, it at S=1024 and 2048)
 F32_KERNELS = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 SHAPES.update({kernel: [shape[1:] for shape in cs.F32_TIMED] for kernel in F32_KERNELS})
 D = 128
@@ -253,7 +260,8 @@ def qmm4_call(x, w):
 
 def case(kernel: str, gen, shape):
     """(launch, check) over one set of inputs: ``check()`` launches once and
-    returns the error against the plain version."""
+    returns the error against the plain version; an f32 instance's adds
+    PyTorch's f32 call on the same inputs (``f32_case``)."""
     if kernel in DECODE_KERNELS:
         _, Hkv, lens = shape
         c = cs.decode_case(gen, 8, 32, Hkv, L=32, int8=kernel.endswith("int8"), lens=lens)
@@ -325,14 +333,17 @@ def case(kernel: str, gen, shape):
 
 
 def f32_case(kernel: str, gen, B, Hq, Hkv, S, Dh):
-    """An f32 instance at a causal shape through its wrapper (the two
-    trees' C entries take the same arguments); the error is the largest
-    of its outputs' max|out - plain| / max|plain|."""
+    """(launch, check, library) of an f32 instance at a causal shape
+    through its wrapper (the two trees' C entries take the same arguments):
+    the error is the largest of its outputs' max|out - plain| / max|plain|;
+    ``library`` is PyTorch's f32 call on the same inputs
+    (``chip_smoke.f32_library``)."""
     q, do = cs.rand_f32(gen, B, Hq, S, Dh), cs.rand_f32(gen, B, Hq, S, Dh)
     k, v = cs.rand_f32(gen, B, Hkv, S, Dh), cs.rand_f32(gen, B, Hkv, S, Dh)
     scale = Dh**-0.5
     o, lse = fa.flash_forward_f32_plain(q, k, v, causal=True, sm_scale=scale)
     args = (q, k, v, do, lse, (do * o).sum(dim=-1), torch.zeros_like(lse))
+    library_fwd, library_bwd = cs.f32_library(q, k, v, do, scale)
     if kernel == "flash_fwd_f32":
         kernel_fn, plain, args = fa.flash_forward_f32_cuda, fa.flash_forward_f32_plain, (q, k, v)
     elif kernel == "flash_bwd_dq_f32":
@@ -347,7 +358,29 @@ def f32_case(kernel: str, gen, B, Hq, Hkv, S, Dh):
         return out if isinstance(out, tuple) else (out,)
 
     want = as_tuple(plain(*args, causal=True, sm_scale=scale))
-    return launch, lambda: max(cs.rel_err(g, w) for g, w in zip(as_tuple(launch()), want))
+    return (launch, lambda: max(cs.rel_err(g, w) for g, w in zip(as_tuple(launch()), want)),
+            library_fwd if kernel == "flash_fwd_f32" else library_bwd)
+
+
+def profiler_ms(fn, n: int = 40, windows: int = 3) -> float | None:
+    """The kernels' own time of a call of ``fn`` by ``torch.profiler``
+    after 3 warm-up calls: the kernel events of ``n`` calls summed over
+    ``n``. A window in which some kernel's events are not a whole number of
+    calls (the profiler lost some) is taken again; None where none of
+    ``windows`` is whole."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+        if events and all(e.count % n == 0 for e in events):
+            return sum(e.self_device_time_total for e in events) / 1e3 / n
+    print(f"profiler_ms: no whole window in {windows}", file=sys.stderr, flush=True)
+    return None
 
 
 def describe(kernel: str, shape) -> str:
@@ -384,25 +417,32 @@ def main() -> int:
             "other": {n: build_other(n, args.other.resolve()) for n in names}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape in SHAPES[args.kernel]:
-        launch, check = case(args.kernel, gen, shape)
+        launch, check, *library = case(args.kernel, gen, shape)
         out = {"card": card, "kernel": args.kernel, "shape": describe(args.kernel, shape), "other": str(args.other)}
         if args.kernel in SCATTER_KERNELS:
             out["bound_ms"] = 1e3 * cs.scatter_bytes(*cs.SCATTER_SHAPES[shape], args.kernel.endswith("int8")) / cs.PEAK_BYTES
         for side, lib in libs.items():
             _build._libs.update(lib)
             out[f"{side}_err"] = check()
-        times = {f"{side}_{how}": [] for side in libs for how in ("ms", "single_ms", "device_ms")}
+        sides = ("this", "other", "library") if library else ("this", "other")
+        hows = ("ms", "single_ms", "device_ms", "profiler_ms")
+        times = {f"{side}_{how}": [] for side in sides for how in hows}
         for _ in range(args.rounds):
-            for side in ("this", "other", "other", "this"):
-                _build._libs.update(libs[side])
-                times[f"{side}_ms"].append(cs.back_to_back_ms(launch))
-                times[f"{side}_single_ms"].append(cs.time_ms(launch))
-                times[f"{side}_device_ms"].append(cs.device_ms(launch))
+            for side in ("this", "other", "other", "this") + sides[2:]:
+                fn = library[0] if side == "library" else launch
+                if side != "library":
+                    _build._libs.update(libs[side])
+                times[f"{side}_ms"].append(cs.back_to_back_ms(fn))
+                times[f"{side}_single_ms"].append(cs.time_ms(fn))
+                times[f"{side}_device_ms"].append(cs.device_ms(fn))
+                times[f"{side}_profiler_ms"].append(profiler_ms(fn))
         _build._libs.update(libs["this"])
         out.update(times)
-        out.update({f"{k}_median": statistics.median(v) for k, v in times.items()})
+        # a reading that could not be taken is None and no median's part
+        out.update({f"{k}_median": statistics.median(r) if (r := [x for x in v if x is not None]) else None
+                    for k, v in times.items()})
         print(json.dumps(out), flush=True)
-        del launch, check
+        del launch, check, library
         torch.cuda.empty_cache()
     return 0
 

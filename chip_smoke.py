@@ -39,9 +39,10 @@ Phases (any failure exits non-zero and prints no result):
 2. each kernel against its plain version at the main paths' shapes
    (Hq=Hkv=32, D=128, page_size 16) and a GQA shape (Hkv=8); the flash
    forward also at a ragged S=300 (causal and not), a chunk at
-   q_offset=496 over a ragged Skv=700, and D=64 and 256; the flash
-   backward kernels also non-causal, at a ragged S=300, at D=32, 64 and 256
-   and with a nonzero lse cotangent; the int8 matmul at M = 1, 8, 64, 65,
+   q_offset=496 over a ragged Skv=700, and D=64, 256 and 80 (zero-padded
+   to the 128 instance by the wrappers); the flash backward kernels also
+   non-causal, at a ragged S=300, at D=32, 64, 256 and 80 and with a
+   nonzero lse cotangent; the int8 matmul at M = 1, 8, 64, 65,
    300 and 2048 over every weight shape of the model (each must take a TMA
    path; the path is logged) and a ragged 4000 x 11000, each launched twice
    and required bitwise equal; the ragged decodes (bf16 and int8 pages) at
@@ -114,8 +115,10 @@ Phases (any failure exits non-zero and prints no result):
    timed two ways (CUDA events): the median of single launches (``ms``,
    ``library_ms``) and 50 back-to-back launches (``ms_b2b``,
    ``library_ms_b2b``); the four decode kernels cycled over four layers of
-   one cache (so their rows come from HBM) and also timed by the profiler's
-   device time (``device_ms``); the two scatters' device time and byte
+   one cache (so their rows come from HBM) and also by their device time
+   (``device_ms``: 40 calls queued behind a spin kernel between CUDA
+   events, null where the host could not keep ahead); the two
+   scatters' device time and byte
    bound also at a prefill batch and one layer's view (``shapes``); then
    the card's name and power limit, then the result line.
 6. the engine surface, over the same resident weights (after phase 3b over
@@ -197,7 +200,7 @@ Phases (any failure exits non-zero and prints no result):
    the expert products, M = 8 and 2048 over [4096, 14336] and
    [14336, 4096], against ``qmm_plain`` within 1e-3 of its largest value,
    bitwise run to run, a planted fault (the last K tile left out) refused,
-   timed single, back to back and on the profiler beside the bf16 GEMM
+   timed single, back to back and by device time beside the bf16 GEMM
    (K7's row carries these under ``expert``); (10b) ``mixtral_8x7b()`` in
    bf16 at full width and depth 8 (23.7 GB) through the ragged engine at
    N=1 and 8 (rows identical) and the write-then-attend engine, counters
@@ -371,7 +374,7 @@ Phases (any failure exits non-zero and prints no result):
    the last K split of the launch lost at M = 8, the last K tile lost at
    M = 2048); ``quantize_weight(bits=4)`` on the card bitwise the
    CPU's; its times at [8 | 2048, 4096] x [4096, 11008] over four weight
-   copies (single, back to back, the profiler's device time), the bound,
+   copies (single, back to back, device time), the bound,
    the plain version, ``torch._weight_int4pack_mm`` where it computes the
    function, and the bf16 GEMM. (17b) ``llama2_7b()`` with int4 weights
    drawn by ``init_quantized_llama(bits=4)`` on the card (at most 0.53 of
@@ -443,14 +446,16 @@ Phases (any failure exits non-zero and prints no result):
    two ranks share one card.
 20. C11's f32 flash instances and A11's models (after phase 16, before
    training, over phase 3's weights). (20a) K1-f32, K5-f32 and K6-f32
-   (``csrc/flash_*_f32.cu``: K1-f32 and K6-f32 on the tensor cores by the
-   3xTF32 split, K5-f32 SIMT f32 FMAs) against their plain versions at
-   ``F32_CASES`` (GPT's default shape B=8, H=6, S=256, D=64; D=32 and 128;
-   a ragged S=300, causal and not; GQA; a chunk at q_offset 496; a nonzero
-   lse cotangent) within ``F32_TOL`` of the largest value, each launched
-   twice and bitwise equal, the check shown to refuse each kernel with its
-   last tile dropped and K1-f32 and K6-f32 with one TF32 pass (variants
-   under ``build/variants``).
+   (``csrc/flash_*_f32.cu``, on the tensor cores by the 3xTF32 split)
+   against their plain versions at ``F32_CASES`` (GPT's default shape B=8,
+   H=6, S=256, D=64; D=32 and 128; a ragged S=300, causal and not; GQA; a
+   chunk at q_offset 496; a nonzero lse cotangent; the GPT sweep's D=16,
+   zero-padded to 32) within ``F32_TOL`` of the largest value, each
+   launched twice and bitwise equal, the check shown to refuse each kernel
+   with its last tile dropped and with one TF32 pass (variants under
+   ``build/variants``); the padding's cost at D=16 (the padded wrappers and
+   backward, which pads once for both kernels, against the D=32 instance's
+   at the sweep's shape).
    (20b) CLIP ViT-L/14 at 224 px (f32, random from a seed) and its
    projector in front of phase 3's Llama-2-7B bf16 weights: the tower
    against its CPU run (1e-4 of the largest value), an image request's
@@ -476,7 +481,8 @@ Phases (any failure exits non-zero and prints no result):
    tokens, 1 + 2 steps; the first step's importance ratio 1 within 2^-7,
    the policy moved, the reference unchanged; step s and peak GB. The
    f32 instances' rows join the kernels line at GPT's default shape and,
-   under ``at_shapes``, 20c's f32 Llama shape (``F32_TIMED``), with both
+   under ``at_shapes``, 20c's f32 Llama shape and that shape at S=1024 and
+   2048 (``F32_TIMED``), with both
    operations bounds (f32 FMAs, three TF32 passes) and SDPA's
    memory-efficient f32 kernels as the library column.
 """
@@ -555,15 +561,16 @@ K1_CASES = [
     (1, 32, 32, 204, 700, 496, True, 128),    # q_offset a multiple of 16, not of the tile; ragged Skv
     (2, 8, 2, 300, 300, 0, True, 64),         # other head dims
     (2, 4, 2, 200, 200, 0, True, 256),
+    (2, 8, 2, 300, 300, 0, True, 80),         # a head dim between instances: zero-padded to 128
 ]
 # instructions each library's SASS must hold: the products on wgmma (HGMMA)
 # fed by TMA (UTMALDG); the int4 matmul's prefill path on wgmma and TMA, its
 # decode ring on TMA and mma.sync (HMMA), its masked path on mma.sync; the
-# f32 forward and dK/dV on tf32 wgmma, fed by TMA; the four decode kernels'
+# three f32 instances on tf32 wgmma, fed by TMA; the four decode kernels'
 # rows streamed by cp.async (LDGSTS)
 SASS_CHECKED = {
     **{name: ("HGMMA", "UTMALDG") for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul",
-                                               "flash_fwd_f32", "flash_bwd_dkv_f32")},
+                                               "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")},
     "quantized_matmul_int4": ("HGMMA", "UTMALDG", "HMMA"),
     **{name: ("LDGSTS",) for name in ("paged_decode", "paged_decode_int8", "paged_decode_writeback",
                                       "paged_decode_writeback_int8")},
@@ -596,24 +603,61 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int = 40) -> float:
-    """Device time of a call of ``fn`` (every kernel it launches), from
-    ``torch.profiler`` over ``n`` calls after 3 warm-up calls: the kernel's
-    own time where a single or back-to-back launch reads the host. A window
-    in which the profiler recorded no device time is taken again, at most
-    twice, then refused."""
+_spin_cycles_per_ms: list = []
+
+
+def spin_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` a millisecond on this card, timed
+    once by CUDA events."""
+    if not _spin_cycles_per_ms:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _spin_cycles_per_ms.append(10_000_000 / start.elapsed_time(end))
+    return _spin_cycles_per_ms[0]
+
+
+def device_ms(fn, n: int = 40, tries: int = 4) -> float | None:
+    """Device time of a call of ``fn`` (every kernel it launches and the
+    card's own gaps between them; none of the host's time): after 3 warm-up
+    calls, ``n`` calls queued behind a spin kernel (``torch.cuda._sleep``)
+    long enough for the host to enqueue them all, timed between two CUDA
+    events. A try in which the card reached the first event before the host
+    had enqueued the last call (the host may then have set the pace) is
+    taken again with four times the spin; None (not measured) after
+    ``tries``. No ``torch.profiler`` here: late in a long process it loses
+    kernel events and hands some to later windows."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-        if total > 0:
-            return total / 1e3 / n
-    raise RuntimeError("torch.profiler recorded no device time in three windows")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    spin_ms = 2e3 * (time.perf_counter() - t0) + 1.0  # twice the host's time to enqueue n calls
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(tries):
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+        spin_ms *= 4
+    log(f"device_ms: the card caught up with the host in {tries} tries (last spin {spin_ms / 4:.1f} ms): "
+        f"not measured")
+    return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    """A reading for a log line: 4 decimals, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def back_to_back_ms(fn, n: int = 50) -> float:
@@ -1255,6 +1299,7 @@ def phase_backward_vs_plain(fa, errs: dict) -> bool:
         (2, 8, 2, 300, True, False, 32),
         (2, 4, 2, 200, True, False, 256),
         (2, 4, 2, 200, False, True, 256),
+        (2, 8, 2, 300, True, True, 80),       # a head dim between instances: zero-padded to 128
         (DREAMBOOTH_B, 24, 24, 1178, False, False, 64),  # the MMDiT's joint attention in DreamBooth (17d)
     ]
     bitwise = True
@@ -2562,8 +2607,9 @@ def joint_k1(fa, card: str) -> dict:
         bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
         library_ms=time_ms(library), library_ms_b2b=back_to_back_ms(library), library_device_ms=device_ms(library),
     )
-    log(f"9a K1 at the joint shape ({card}): device {out['device_ms']:.4f} ms, single {out['ms']:.4f}, back-to-back "
-        f"{out['ms_b2b']:.4f}; plain {out['plain_ms']:.4f}; SDPA device {out['library_device_ms']:.4f}, back-to-back "
+    log(f"9a K1 at the joint shape ({card}): device {fmt_ms(out['device_ms'])} ms, single {out['ms']:.4f}, "
+        f"back-to-back {out['ms_b2b']:.4f}; plain {out['plain_ms']:.4f}; SDPA device "
+        f"{fmt_ms(out['library_device_ms'])}, back-to-back "
         f"{out['library_ms_b2b']:.4f}; bound {out['bound_ms']:.4f} by {out['bound_by']}")
     return out
 
@@ -2837,7 +2883,7 @@ def expert_k7() -> dict:
     """10a: K7 at ``EXPERT_SHAPES`` x ``EXPERT_MS`` against ``qmm_plain``
     (within 1e-3 of its largest value), bitwise run to run, a planted fault
     (the last 128 columns of x zeroed: the last K tile of either path left
-    out) refused; timed single, back to back and on the profiler over two
+    out) refused; timed single, back to back and by device time over two
     weight copies in turn (each 58.7 MB, past the 50 MB L2), beside the bf16
     GEMM over the dequantized weights."""
     from modal_examples_tpu_torch.models.quantize import dequantize_weight, quantize_weight
@@ -5267,7 +5313,8 @@ def folded_timing(pa, gen, per_layer: list, nbytes: int) -> dict:
                         for a, n in zip(per_layer, news)])
     attends = cycling([lambda a=a: pa.paged_decode_writeback_cuda(*a, sm_scale=128**-0.5) for a in per_layer])
     a0, n0 = per_layer[0], news[0]
-    out = dict(device_ms=device_ms(folded), unfolded_device_ms=device_ms(scatters) + device_ms(attends),
+    unfolded_parts = (device_ms(scatters), device_ms(attends))
+    out = dict(device_ms=device_ms(folded), unfolded_device_ms=None if None in unfolded_parts else sum(unfolded_parts),
                ms=time_ms(folded),
                unfolded_ms=time_ms(unfolded), ms_b2b=back_to_back_ms(folded),
                unfolded_ms_b2b=back_to_back_ms(unfolded),
@@ -7847,21 +7894,22 @@ F32_CASES = [
     (2, 8, 8, 300, 300, 0, False, 64, True),     # ragged S, full attention, an lse cotangent
     (2, 8, 2, 256, 256, 0, True, 128, True),     # GQA at D=128 with an lse cotangent
     (1, 8, 8, 200, 700, 496, True, 64, False),   # a chunk at q_offset 496 over a ragged Skv (forward only)
+    (8, 4, 4, 128, 128, 0, True, 16, False),     # the GPT sweep's dim 64 / 4 heads: D=16, zero-padded to 32
 ]
 # the planted faults, each as the kernels it builds and its edits (a file of
 # csrc -> (line, faulty line)): each kernel's last tile of the other side
-# dropped (the dK/dV kernel's last query tile of each head); and in the two
-# kernels on the tensor cores the small parts zeroed, so the two big.small
+# dropped (the dK/dV kernel's last query tile of each head); and in all
+# three, on the tensor cores, the small parts zeroed, so the two big.small
 # products add nothing: one TF32 pass
 F32_FAULTS = {
     "last tile dropped": (["flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"], {
         "flash_fwd_f32.cu": ("const int n_tiles = (kv_end + BK - 1) / BK;",
                              "const int n_tiles = (kv_end + BK - 1) / BK - 1;"),
-        "flash_bwd_dq_f32.cu": ("const int n_tiles = (kv_end + TILE - 1) / TILE;",
-                                "const int n_tiles = (kv_end + TILE - 1) / TILE - 1;"),
+        "flash_bwd_dq_f32.cu": ("const int n_tiles = (kv_end + BK - 1) / BK;",
+                                "const int n_tiles = (kv_end + BK - 1) / BK - 1;"),
         "flash_bwd_dkv_f32.cu": ("const int n_qt = (S - q_begin + BQ - 1) / BQ;",
                                  "const int n_qt = (S - q_begin + BQ - 1) / BQ - 1;")}),
-    "one TF32 pass": (["flash_fwd_f32", "flash_bwd_dkv_f32"], {
+    "one TF32 pass": (["flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"], {
         "flash_tf32.cuh": ("  small = round_tf32(x - __uint_as_float(big));", "  small = 0u;")}),
 }
 
@@ -7989,10 +8037,41 @@ def f32_fault_refused(fa, faults=tuple(F32_FAULTS)) -> dict:
     return refused
 
 
+# the GPT sweep's attention (examples/06_gpu_and_ml/hyperparameter-sweep/
+# hp_sweep_gpt.py: dim 64 over 4 heads, block 128, batch 8): (B, Hq, S)
+SWEEP_SHAPE = (8, 4, 128)
+
+
+def f32_padding_cost(fa) -> dict:
+    """The cost of C12's zero-padding at the GPT sweep's D=16: each f32
+    wrapper's time, and the backward's (``_flash_backward``: delta, then
+    dQ and dK/dV on inputs padded once for both), in single calls and 50
+    back-to-back between CUDA events, the pad copies included, at D=16
+    (padded to the D=32 instance; outputs views of the first 16 columns)
+    against the same calls at D=32, which copy nothing, causal."""
+    B, H, S = SWEEP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out = {}
+    for D in (16, 32):
+        q, k, v, do = (rand_f32(gen, B, H, S, D) for _ in range(4))
+        scale = D**-0.5
+        o, lse = fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale)
+        dlse = torch.zeros_like(lse)
+        args = (q, k, v, do, lse, (do * o).sum(dim=-1), dlse)
+        calls = {"flash_fwd_f32": lambda: fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale),
+                 "flash_bwd_dq_f32": lambda: fa.flash_bwd_dq_f32_cuda(*args, causal=True, sm_scale=scale),
+                 "flash_bwd_dkv_f32": lambda: fa.flash_bwd_dkv_f32_cuda(*args, causal=True, sm_scale=scale),
+                 "backward": lambda: fa._flash_backward(q, k, v, o, lse, do, dlse, causal=True, sm_scale=scale)}
+        out[f"D={D}"] = {name: {"ms": time_ms(fn), "ms_b2b": back_to_back_ms(fn)} for name, fn in calls.items()}
+    log(f"20a C12's padding at B={B} H={H} S={S} causal, f32: D=16 (padded to 32) {out['D=16']} against the "
+        f"D=32 instance {out['D=32']}")
+    return out
+
+
 def phase20_flash_f32(fa, errs: dict) -> dict:
     """20a: K1-f32, K5-f32 and K6-f32 against their plain versions at
-    ``F32_CASES`` (plain products with TF32 off), bitwise run to run, and
-    the planted faults refused."""
+    ``F32_CASES`` (plain products with TF32 off), bitwise run to run, the
+    planted faults refused, and the padding's cost at D=16."""
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows = []
     for case in F32_CASES:
@@ -8006,7 +8085,7 @@ def phase20_flash_f32(fa, errs: dict) -> dict:
         for name, e in r["abs"].items():
             errs[name] = max(errs.get(name, 0.0), e)
         rows.append({k: r[k] for k in r if k != "abs"})
-    return {"cases": rows, "faults_refused": f32_fault_refused(fa)}
+    return {"cases": rows, "faults_refused": f32_fault_refused(fa), "padding_cost": f32_padding_cost(fa)}
 
 
 # 20b: VLM serving at LLaVA-1.5-7B width
@@ -8535,7 +8614,9 @@ def phase_a11(fa, pa, llama, layers, reference, lora, training, LLMEngine, OpenA
 
 # the f32 instances' timed shapes: (label, B, Hq, Hkv, S, D), causal
 F32_TIMED = [("GPT's default config", 8, 6, 6, 256, 64),
-             ("20c's f32 Llama (F32_LORA_CFG)", 2, 16, 8, 512, 64)]
+             ("20c's f32 Llama (F32_LORA_CFG)", 2, 16, 8, 512, 64),
+             ("S=1024", 2, 16, 8, 1024, 64),
+             ("S=2048", 2, 16, 8, 2048, 64)]
 
 
 def f32_bounds(flops: float, nbytes: float) -> dict:
@@ -8549,23 +8630,13 @@ def f32_bounds(flops: float, nbytes: float) -> dict:
             "bound_ms_simt_f32": 1e3 * max(simt, t_bytes), "bound_ms_3xtf32": 1e3 * max(tf32x3, t_bytes)}
 
 
-def f32_timed(fa, label, B, Hq, Hkv, S, D) -> dict:
-    """The three f32 instances at one causal shape: single and back-to-back
-    launches, the profiler's device time, the plain versions, both bounds
-    and PyTorch's f32 attention (SDPA's memory-efficient kernels, forward and
-    backward; K and V repeated to every query head where Hkv < Hq, as that
-    call takes no GQA) on the same inputs. Returns {name: readings}."""
-    gen = torch.Generator(device="cuda").manual_seed(25)
-    q, do = rand_f32(gen, B, Hq, S, D), rand_f32(gen, B, Hq, S, D)
-    k, v = rand_f32(gen, B, Hkv, S, D), rand_f32(gen, B, Hkv, S, D)
-    scale = D**-0.5
-    o, lse = fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale)
-    delta = (do * o).sum(dim=-1)
-    dlse = torch.zeros_like(lse)
-    args = (q, k, v, do, lse, delta, dlse)
-    one = 2 * 0.5 * S * S * D * B * Hq  # FLOPs of one causal S x S x D product, all query heads
-    q_bytes, kv_bytes, row_bytes = B * Hq * S * D * 4, B * Hkv * S * D * 4, B * Hq * S * 4
-    kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+def f32_library(q, k, v, do, scale: float):
+    """PyTorch's f32 attention on the same causal inputs, forward and
+    backward (SDPA's memory-efficient kernels; K and V repeated to every
+    query head where Hkv < Hq, as that call takes no GQA): the yardstick
+    calls ``(library_fwd, library_bwd)``, never the port's path."""
+    G = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(G, dim=1) for t in (k, v))
     out_e, lse_e, seed_e, off_e = torch.ops.aten._scaled_dot_product_efficient_attention(
         q, kr, vr, None, True, 0.0, True, scale=scale)
 
@@ -8577,6 +8648,25 @@ def f32_timed(fa, label, B, Hq, Hkv, S, D) -> dict:
         return torch.ops.aten._scaled_dot_product_efficient_attention(q, kr, vr, None, False, 0.0, True,
                                                                        scale=scale)
 
+    return library_fwd, library_bwd
+
+
+def f32_timed(fa, label, B, Hq, Hkv, S, D) -> dict:
+    """The three f32 instances at one causal shape: single and back-to-back
+    launches, their device time, the plain versions, both bounds
+    and PyTorch's f32 attention (``f32_library``) on the same inputs.
+    Returns {name: readings}."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    q, do = rand_f32(gen, B, Hq, S, D), rand_f32(gen, B, Hq, S, D)
+    k, v = rand_f32(gen, B, Hkv, S, D), rand_f32(gen, B, Hkv, S, D)
+    scale = D**-0.5
+    o, lse = fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale)
+    delta = (do * o).sum(dim=-1)
+    dlse = torch.zeros_like(lse)
+    args = (q, k, v, do, lse, delta, dlse)
+    one = 2 * 0.5 * S * S * D * B * Hq  # FLOPs of one causal S x S x D product, all query heads
+    q_bytes, kv_bytes, row_bytes = B * Hq * S * D * 4, B * Hkv * S * D * 4, B * Hq * S * 4
+    library_fwd, library_bwd = f32_library(q, k, v, do, scale)
     specs = [
         ("flash_fwd_f32", lambda: fa.flash_forward_f32_cuda(q, k, v, causal=True, sm_scale=scale),
          lambda: fa.flash_forward_f32_plain(q, k, v, causal=True, sm_scale=scale), 2,
@@ -8598,16 +8688,16 @@ def f32_timed(fa, label, B, Hq, Hkv, S, D) -> dict:
             library_ms_b2b=back_to_back_ms(library), library_device_ms=device_ms(library), library_op=library_op,
             shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} causal, f32 ({label})")
         log(f"{name} at {r['shape']}: {r['ms']:.4f} ms, back-to-back {r['ms_b2b']:.4f}, device "
-            f"{r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} / device "
-            f"{r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}: f32 FMAs "
+            f"{fmt_ms(r['device_ms'])} (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} / device "
+            f"{fmt_ms(r['library_device_ms'])}, bound {r['bound_ms']:.4f} by {r['bound_by']}: f32 FMAs "
             f"{r['bound_ms_simt_f32']:.4f}, 3xTF32 {r['bound_ms_3xtf32']:.4f})")
     return out
 
 
 def f32_rows(fa, counts: dict, errs: dict) -> list:
     """The kernels line's rows of the three f32 instances: their readings at
-    GPT's default shape (B=8, H=6, S=256, D=64, causal), and at 20c's f32
-    Llama shape under ``at_shapes`` beside them (``f32_timed``)."""
+    GPT's default shape (B=8, H=6, S=256, D=64, causal), and at every
+    ``F32_TIMED`` shape under ``at_shapes`` beside them (``f32_timed``)."""
     timed = [f32_timed(fa, *shape) for shape in F32_TIMED]
     lines = {"flash_fwd_f32": 40, "flash_bwd_dq_f32": 244, "flash_bwd_dkv_f32": 278}
     return [dict(name=name, route="cuda", source=f"modal_examples_tpu_torch/csrc/{name}.cu",

@@ -1,6 +1,6 @@
-// Shared pieces of the f32 flash kernels that run on the tensor cores
-// (flash_fwd_f32.cu, flash_bwd_dkv_f32.cu): f32-accurate products from
-// TF32 ones by a 3xTF32 split.
+// Shared pieces of the f32 flash kernels, which run on the tensor cores
+// (flash_fwd_f32.cu, flash_bwd_dq_f32.cu, flash_bwd_dkv_f32.cu):
+// f32-accurate products from TF32 ones by a 3xTF32 split.
 //
 // The split: each f32 operand x is carried as big = rna(x), its top 19 bits
 // rounded to nearest, ties away from zero (as cvt.rna.tf32.f32), and
@@ -19,11 +19,11 @@
 // depth runs along its rows as it lands (Q and K in Q.K^T) is read where it
 // is. One whose depth runs down its columns (V in P.V, dO and Q in dV and
 // dK) is first written transposed, big and small parts, into a tile of its
-// own (transpose_tile; way (a)). The A operand of those products is the
-// previous product's f32 accumulator, taken as register fragments with no
-// data moving between threads (acc_to_a): that fixes the order of the
-// depth within each 8-chunk, and the transposed tile is written in the
-// same order.
+// own (transpose_tile; way (a)), as is K in dS.K, whose depth is the keys.
+// The A operand of those products is the previous product's f32
+// accumulator, taken as register fragments with no data moving between
+// threads (acc_to_a): that fixes the order of the depth within each
+// 8-chunk, and the transposed tile is written in the same order.
 //
 // Tiles are f32 panels of 32 columns (128 bytes) by R rows, in TMA's
 // 128-byte swizzle; hopper.cuh's descriptors walk them as they walk bf16's
@@ -89,6 +89,23 @@ __device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
 // K-major descriptor of depth step kk (8 columns) of a tile of `rows` rows
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int kk) {
   return hopper::make_desc(tile + (kk / 4) * rows * SW + (kk % 4) * 32, 16, 8 * SW, SW);
+}
+
+// desc_k of step kk from step 0's descriptor: a step moves only the start
+// address, in the descriptor's low 14 bits (16-byte units; shared
+// addresses stay below 256 KB, so the sum never carries out of them)
+__device__ __forceinline__ uint64_t desc_step(uint64_t d0, int rows, int kk) {
+  return d0 + (uint64_t)(((kk / 4) * rows * SW + (kk % 4) * 32) >> 4);
+}
+
+// A zero the compiler cannot see through. Added to the tiles' addresses at
+// the top of a loop's body, it keeps the descriptors of every depth step of
+// tiles that do not move from being hoisted out of the loop and held in
+// registers across it (a D = 128 kernel has over a hundred of them).
+__device__ __forceinline__ uint32_t opaque_zero() {
+  uint32_t z;
+  asm volatile("mov.u32 %0, 0;\n" : "=r"(z));
+  return z;
 }
 
 // The A fragment of depth chunk j (8 columns) of an m64nN f32 accumulator,
@@ -164,6 +181,47 @@ __device__ __forceinline__ void transpose_tile(const float* __restrict__ src, co
       const uint32_t dst = swz(c, 8 * j + 4 * h, COLS) / 4;
       *reinterpret_cast<uint4*>(big + dst) = make_uint4(b[0], b[1], b[2], b[3]);
       *reinterpret_cast<uint4*>(small + dst) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+    }
+  }
+}
+
+// Splits a tile of DEPTH rows by COLS columns (as TMA landed it) in place
+// and writes it transposed and split in the same pass: transpose_tile<true>
+// over all its columns, with every value it reads written back as its big
+// part and its small part put at the same offset from `small`. Each value is
+// read and written by one thread, at addresses whose reads are free of bank
+// conflicts, so the pass needs no barrier of its own.
+template <int DEPTH, int COLS, int THREADS>
+__device__ __forceinline__ void split_transpose_tile(float* __restrict__ tile, float* __restrict__ small,
+                                                     float* __restrict__ big_t, float* __restrict__ small_t,
+                                                     int tid) {
+  constexpr int UNITS = COLS * DEPTH / 4 / THREADS, BATCH = UNITS < 4 ? UNITS : 4;
+  static_assert((COLS * DEPTH / 4) % THREADS == 0 && UNITS % BATCH == 0, "a tile is whole batches of units");
+#pragma unroll
+  for (int u0 = 0; u0 < UNITS; u0 += BATCH) {
+    float x[BATCH][4];
+#pragma unroll
+    for (int v = 0; v < BATCH; ++v) {
+      const int u = tid + (u0 + v) * THREADS;
+      const int c = u % COLS, j = u / COLS / 2, h = u / COLS % 2;  // row c; chunk j's positions 4h..4h+3
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[v][i] = tile[swz(8 * j + 2 * i + h, c, DEPTH) / 4];  // source row 8j + 2i + h
+    }
+#pragma unroll
+    for (int v = 0; v < BATCH; ++v) {
+      const int u = tid + (u0 + v) * THREADS;
+      const int c = u % COLS, j = u / COLS / 2, h = u / COLS % 2;
+      uint32_t b[4], sm[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        split(x[v][i], b[i], sm[i]);
+        const uint32_t at = swz(8 * j + 2 * i + h, c, DEPTH) / 4;
+        tile[at] = __uint_as_float(b[i]);
+        small[at] = __uint_as_float(sm[i]);
+      }
+      const uint32_t dst = swz(c, 8 * j + 4 * h, COLS) / 4;
+      *reinterpret_cast<uint4*>(big_t + dst) = make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(small_t + dst) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
     }
   }
 }

@@ -15,15 +15,24 @@ kernels (their plain versions for CPU tensors).
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. On the card the
 dtype picks the instance: bf16 runs the wgmma kernels above, f32 their f32
-instances at head dims 32, 64 and 128, as the reference's kernels compute at
-any input dtype; any other dtype raises. The f32 forward and dK/dV
-(``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_dkv_f32.cu``) run every product
-on the tensor cores, f32-accurate by a 3xTF32 split (three TF32 products a
-product, ``csrc/flash_tf32.cuh``), over tiles that TMA loads; the f32 dQ
-(``csrc/flash_bwd_dq_f32.cu``) is f32 FMAs on the CUDA cores. The f32
-instances' plain twins are the plain versions above, run at f32. ``launches``, ``dq_launches`` and
-``dkv_launches`` count the bf16 kernels' launches, ``f32_launches``,
-``dq_f32_launches`` and ``dkv_f32_launches`` the f32 instances'.
+instances (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_dq_f32.cu``,
+``csrc/flash_bwd_dkv_f32.cu``), as the reference's kernels compute at any
+input dtype; any other dtype raises. The f32 instances run every product on
+the tensor cores, f32-accurate by a 3xTF32 split (three TF32 products a
+product, ``csrc/flash_tf32.cuh``), over tiles that TMA loads. Their plain
+twins are the plain versions above, run at f32.
+
+The kernels are built at head dims 32, 64, 128 and 256 (bf16) and 32, 64
+and 128 (f32); the reference computes at any D. Every ``*_cuda`` wrapper
+hands any other D to :func:`at_instance`, which zero-pads it up to the next
+instance, calls the wrapper again and slices the outputs back, so any
+1 <= D <= 256 (bf16) or D <= 128 (f32) runs on the kernels; the backward
+pads once for its two kernels. What no instance takes (f32 above 128,
+anything above 256) raises, naming the departure (:func:`kernel_head_dim`).
+
+``launches``, ``dq_launches`` and ``dkv_launches`` count the bf16 kernels'
+launches, ``f32_launches``, ``dq_f32_launches`` and ``dkv_f32_launches`` the
+f32 instances'.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -44,6 +54,59 @@ dkv_f32_launches = 0
 
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _F32_HEAD_DIMS = (32, 64, 128)
+
+
+def kernel_head_dim(D: int, dtype) -> int:
+    """The instance a head dim of ``D`` runs at on the card in ``dtype``: the
+    smallest built one at least ``D`` (f32: 32/64/128; else the bf16
+    kernels' 32/64/128/256), the inputs zero-padded up to it
+    (:func:`at_instance`). Raises ``ValueError`` naming the departure where
+    none is wide enough."""
+    dims = _F32_HEAD_DIMS if dtype == torch.float32 else _KERNEL_HEAD_DIMS
+    if D < 1:
+        raise ValueError(f"head dim must be positive; got {D}")
+    for width in dims:
+        if D <= width:
+            return width
+    if D <= _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"the f32 flash kernels take head dim up to {dims[-1]}; got {D}. A departure: an f32 instance "
+            f"wider than 128 does not fit shared memory (at D=256 K1-f32's split Q alone is 64 x 256 x 4 x 2 = "
+            f"128 KB beside its K/V ring), and no shipped f32 config reaches it")
+    raise ValueError(
+        f"the flash kernels take head dim up to {_KERNEL_HEAD_DIMS[-1]}; got {D}. A departure: no instance is "
+        f"wider, as the decode kernels stop at 256 (ops/paged_attention.py)")
+
+
+def at_instance(launch, *args, **kw):
+    """``launch(*args, **kw)`` at the instance for the first argument's head
+    dim D (:func:`kernel_head_dim` in its dtype). Where D is not an
+    instance, the 4-D arguments (q, k, v, do) are zero-padded along D to the
+    instance's width (fresh contiguous tensors, so TMA's 16-byte alignment
+    holds) and the 4-D outputs (o, dq, dk, dv) come back as views of their
+    first D columns; the per-row ones (lse, delta, dlse) pass as they are.
+    Exact: zero columns add nothing to Q.K^T, dO.V^T, dS.K, dS^T.Q or
+    P^T.dO, and the padded output columns are dropped. ``sm_scale`` arrives
+    in ``kw`` already resolved from the true D and is passed on untouched:
+    it must not follow the padded width. An instance's own D takes the
+    launch as it is, with no copy. ``launch`` may be a plain version (the
+    CPU tests drive it so)."""
+    D = args[0].shape[-1]
+    width = kernel_head_dim(D, args[0].dtype)
+    if width == D:
+        return launch(*args, **kw)
+    out = launch(*(F.pad(a, (0, width - D)) if a.dim() == 4 else a for a in args), **kw)
+
+    def trim(t):
+        return t[..., :D] if t.dim() == 4 else t
+
+    return tuple(map(trim, out)) if isinstance(out, tuple) else trim(out)
+
+
+def _padded(q) -> bool:
+    """Whether q's head dim is no instance, so its launch goes through
+    :func:`at_instance` (which raises where none is wide enough)."""
+    return kernel_head_dim(q.shape[-1], q.dtype) != q.shape[-1]
 
 
 def _resolve_scale(D: int, sm_scale: float | None) -> float:
@@ -85,11 +148,11 @@ def flash_forward_plain(q, k, v, *, causal: bool, sm_scale: float, q_offset: int
     return o.reshape(B, Hq, S, D).to(q.dtype), lse.reshape(B, Hq, S)
 
 
-def _check_kernel_inputs(what: str, D: int, head_dims: tuple, tensors: tuple, *, tma: bool) -> None:
+def _check_kernel_inputs(what: str, tensors: tuple) -> None:
     """A launch's inputs, each ``(name, tensor, dtype)``: on the first one's
-    card, of its dtype, contiguous; with ``tma`` the tiled [B, H, S, D] ones
-    on 16-byte boundaries (TMA loads their tiles); a head dim the kernel
-    has."""
+    card, of its dtype, contiguous; the tiled [B, H, S, D] ones on 16-byte
+    boundaries (TMA loads their tiles). The head dim is the wrapper's
+    guard's (:func:`_padded`)."""
     device = tensors[0][1].device
     for name, t, dt in tensors:
         if not t.is_cuda or t.device != device:
@@ -98,10 +161,8 @@ def _check_kernel_inputs(what: str, D: int, head_dims: tuple, tensors: tuple, *,
             raise ValueError(f"{what} takes {dt} {name}; got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if tma and t.dim() == 4 and t.data_ptr() % 16:
+        if t.dim() == 4 and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (its tiles are loaded by TMA)")
-    if D not in head_dims:
-        raise ValueError(f"{what} takes head dim in {head_dims}; got {D}")
 
 
 def _lib(name: str = "flash_fwd"):
@@ -115,16 +176,18 @@ def _lib(name: str = "flash_fwd"):
 
 def flash_forward_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
     """Launch ``csrc/flash_fwd.cu``: bf16, contiguous, 16-byte aligned, head
-    dim in 32/64/128/256. The kernel runs Q.K^T and P.V on wgmma over tiles
-    that TMA brings into a shared-memory ring; it rounds P to bf16 for P.V.
-    An f32 ``q`` goes to the f32 instance (:func:`flash_forward_f32_cuda`)."""
+    dim up to 256 (:func:`at_instance` pads it to 32/64/128/256). The kernel
+    runs Q.K^T and P.V on wgmma over tiles that TMA brings into a
+    shared-memory ring; it rounds P to bf16 for P.V. An f32 ``q`` goes to
+    the f32 instance (:func:`flash_forward_f32_cuda`)."""
     global launches
     if q.dtype == torch.float32:
         return flash_forward_f32_cuda(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+    if _padded(q):
+        return at_instance(flash_forward_cuda, q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
     B, Hq, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    _check_kernel_inputs("the flash kernel", D, _KERNEL_HEAD_DIMS,
-                         tuple((n, t, torch.bfloat16) for n, t in (("q", q), ("k", k), ("v", v))), tma=True)
+    _check_kernel_inputs("the flash kernel", tuple((n, t, torch.bfloat16) for n, t in (("q", q), ("k", k), ("v", v))))
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -144,14 +207,16 @@ def flash_forward_f32_plain(q, k, v, *, causal: bool, sm_scale: float, q_offset:
 
 def flash_forward_f32_cuda(q, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
     """Launch ``csrc/flash_fwd_f32.cu``: f32 q/k/v, contiguous, 16-byte
-    aligned (TMA loads the K/V tiles), head dim in 32/64/128. Both products
-    run on the tensor cores as three TF32 products each (the 3xTF32 split:
-    f32-accurate, never one TF32 pass), the online softmax in f32; o is f32."""
+    aligned (TMA loads the K/V tiles), head dim up to 128 (padded to
+    32/64/128). Both products run on the tensor cores as three TF32 products
+    each (the 3xTF32 split: f32-accurate, never one TF32 pass), the online
+    softmax in f32; o is f32."""
     global f32_launches
+    if _padded(q):
+        return at_instance(flash_forward_f32_cuda, q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
     B, Hq, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    _check_kernel_inputs("the f32 flash kernel", D, _F32_HEAD_DIMS,
-                         tuple((n, t, torch.float32) for n, t in (("q", q), ("k", k), ("v", v))), tma=True)
+    _check_kernel_inputs("the f32 flash kernel", tuple((n, t, torch.float32) for n, t in (("q", q), ("k", k), ("v", v))))
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = _lib("flash_fwd_f32")
@@ -231,10 +296,10 @@ def flash_backward_plain(q, k, v, o, lse, do, dlse, *, causal: bool, sm_scale: f
     return dq, dk, dv
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta, dlse, dtype=torch.bfloat16, tma: bool = True) -> None:
+def _check_bwd_inputs(q, k, v, do, lse, delta, dlse, dtype=torch.bfloat16) -> None:
     """The backward kernels' inputs: q/k/v/do of ``dtype`` (bf16: the wgmma
-    kernels; f32: the f32 instances), f32 lse/delta/dlse [B, Hq, S]; with
-    ``tma`` (every kernel but the f32 dQ) the tiled ones 16-byte aligned."""
+    kernels; f32: the f32 instances) and 16-byte aligned (TMA loads their
+    tiles), f32 lse/delta/dlse [B, Hq, S]."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     if k.shape != (B, Hkv, S, D) or v.shape != k.shape or do.shape != q.shape:
@@ -243,10 +308,9 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, dlse, dtype=torch.bfloat16, tma: 
         raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hkv}")
     bf16 = dtype == torch.bfloat16
     _check_kernel_inputs(
-        "flash backward kernels" if bf16 else "the f32 flash backward kernels", D,
-        _KERNEL_HEAD_DIMS if bf16 else _F32_HEAD_DIMS,
+        "flash backward kernels" if bf16 else "the f32 flash backward kernels",
         (("q", q, dtype), ("k", k, dtype), ("v", v, dtype), ("do", do, dtype), ("lse", lse, torch.float32),
-         ("delta", delta, torch.float32), ("dlse", dlse, torch.float32)), tma=tma,
+         ("delta", delta, torch.float32), ("dlse", dlse, torch.float32)),
     )
     for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
         if t.shape != (B, Hq, S):
@@ -271,6 +335,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: 
     global dq_launches
     if q.dtype == torch.float32:
         return flash_bwd_dq_f32_cuda(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
+    if _padded(q):
+        return at_instance(flash_bwd_dq_cuda, q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse)
     B, Hq, S, D = q.shape
     dq = torch.empty_like(q)
@@ -292,6 +358,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale:
     global dkv_launches
     if q.dtype == torch.float32:
         return flash_bwd_dkv_f32_cuda(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
+    if _padded(q):
+        return at_instance(flash_bwd_dkv_cuda, q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse)
     B, Hq, S, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -312,10 +380,13 @@ def flash_bwd_dq_f32_plain(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_sc
 
 def flash_bwd_dq_f32_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_bwd_dq_f32.cu``: every input f32 and contiguous,
-    head dim in 32/64/128; P, dS and dQ in f32 FMAs on the CUDA cores.
-    Returns dq in f32."""
+    q/k/v/do also 16-byte aligned (TMA loads their tiles), head dim up to
+    128 (padded to 32/64/128). S, dP and dQ = dS.K run on the tensor cores
+    by the 3xTF32 split, P and dS in f32 registers. Returns dq in f32."""
     global dq_f32_launches
-    _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32, tma=False)
+    if _padded(q):
+        return at_instance(flash_bwd_dq_f32_cuda, q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
+    _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32)
     B, Hq, S, D = q.shape
     dq = torch.empty_like(q)
     lib = _bwd_lib("flash_bwd_dq_f32")
@@ -335,10 +406,11 @@ def flash_bwd_dkv_f32_plain(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_s
 
 def flash_bwd_dkv_f32_cuda(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_bwd_dkv_f32.cu``: inputs as
-    :func:`flash_bwd_dq_f32_cuda`, q/k/v/do also 16-byte aligned (TMA loads
-    their tiles). Its four products run on the tensor cores by the 3xTF32
-    split. Returns (dk, dv) in f32, summed over each kv head's query heads."""
+    :func:`flash_bwd_dq_f32_cuda`. Its four products run on the tensor cores
+    by the 3xTF32 split. Returns (dk, dv) in f32, summed over each kv head's query heads."""
     global dkv_f32_launches
+    if _padded(q):
+        return at_instance(flash_bwd_dkv_f32_cuda, q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
     _check_bwd_inputs(q, k, v, do, lse, delta, dlse, torch.float32)
     B, Hq, S, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -360,8 +432,14 @@ def _flash_backward(q, k, v, o, lse, do, dlse, *, causal: bool, sm_scale: float)
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(dim=-1)
     args = (q, k, v, do, lse, delta, dlse.contiguous())
-    dq = flash_bwd_dq_cuda(*args, causal=causal, sm_scale=sm_scale)
-    dk, dv = flash_bwd_dkv_cuda(*args, causal=causal, sm_scale=sm_scale)
+    # a head dim between instances pads q, k, v and do once for both kernels
+    return at_instance(_backward_kernels, *args, causal=causal, sm_scale=sm_scale)
+
+
+def _backward_kernels(q, k, v, do, lse, delta, dlse, *, causal: bool, sm_scale: float):
+    """(dq, dk, dv) from the dQ and dK/dV kernels on the same inputs."""
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dlse, causal=causal, sm_scale=sm_scale)
     return dq, dk, dv
 
 

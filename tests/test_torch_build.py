@@ -32,18 +32,15 @@ def _paths():
 
 def test_the_kernels_share_a_header():
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == [
-        "flash_f32.cuh", "flash_tf32.cuh", "hopper.cuh", "paged_decode.cuh"]
+        "flash_tf32.cuh", "hopper.cuh", "paged_decode.cuh"]
     including = [n for n in KERNELS if '#include "hopper.cuh"' in (_build.CSRC / f"{n}.cu").read_text()]
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quantized_matmul"} <= set(including)
     including = [n for n in KERNELS if '#include "paged_decode.cuh"' in (_build.CSRC / f"{n}.cu").read_text()]
     assert including == ["paged_decode", "paged_decode_int8", "paged_decode_writeback", "paged_decode_writeback_int8"]
-    # the SIMT f32 dQ alone on flash_f32.cuh; the f32 forward and dK/dV, on
-    # the tensor cores by the 3xTF32 split, on flash_tf32.cuh (which
-    # includes hopper.cuh)
-    including = [n for n in KERNELS if '#include "flash_f32.cuh"' in (_build.CSRC / f"{n}.cu").read_text()]
-    assert including == ["flash_bwd_dq_f32"]
+    # the three f32 instances, on the tensor cores by the 3xTF32 split, on
+    # flash_tf32.cuh (which includes hopper.cuh); no SIMT f32 header is left
     including = [n for n in KERNELS if '#include "flash_tf32.cuh"' in (_build.CSRC / f"{n}.cu").read_text()]
-    assert including == ["flash_bwd_dkv_f32", "flash_fwd_f32"]
+    assert including == ["flash_bwd_dkv_f32", "flash_bwd_dq_f32", "flash_fwd_f32"]
     assert '#include "hopper.cuh"' in (_build.CSRC / "flash_tf32.cuh").read_text()
 
 

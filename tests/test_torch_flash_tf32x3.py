@@ -1,6 +1,6 @@
 """The 3xTF32 split of the f32 flash kernels on the tensor cores
-(``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_dkv_f32.cu``), emulated in
-torch on the CPU and held against the JAX package's Pallas kernels (in
+(``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_dq_f32.cu``,
+``csrc/flash_bwd_dkv_f32.cu``), emulated in torch on the CPU and held against the JAX package's Pallas kernels (in
 interpret mode, as ``tests/test_torch_gpt.py`` runs them).
 
 The emulation does the kernels' arithmetic: each f32 operand x is split
@@ -12,11 +12,13 @@ scores are scaled by sm_scale*log2(e) and exponentiated with exp2, lse =
 (m + log2(l))*ln(2), and the backward's P^T and dS^T come from K.Q^T and
 V.dO^T with the forward's lse and delta = rowsum(dO*O); the softmax is
 taken whole where the kernel takes it tile by tile (they differ by f32
-rounding). Forward (o, lse) and dK/dV (dS^T.Q and P^T.dO summed over each
-kv head's query heads) must agree with the Pallas kernels within
-``chip_smoke.F32_TOL`` of the largest value, and one TF32 pass (big.big
-alone: the "one TF32 pass" fault of ``chip_smoke.F32_FAULTS``) on the same
-inputs must not.
+rounding). dQ takes P and dS from S = Q.K^T and dP = dO.V^T, then dS.K,
+every one of the three products in three passes. Forward (o, lse), dQ and
+dK/dV (dS^T.Q and P^T.dO summed over each kv head's query heads) must
+agree with the Pallas kernels within ``chip_smoke.F32_TOL`` of the largest
+value, and one TF32 pass (big.big alone: the "one TF32 pass" fault of
+``chip_smoke.F32_FAULTS``) on the same inputs must not, in each of o, dQ
+and dK/dV.
 """
 
 import importlib
@@ -108,6 +110,18 @@ def emulated_dkv(q, k, v, do, lse, delta, dlse, causal: bool, scale: float, pass
     return dk, dv
 
 
+def emulated_dq(q, k, v, do, lse, delta, dlse, causal: bool, scale: float, passes: int):
+    G = q.shape[1] // k.shape[1]
+    kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    s = mm(q, kr.transpose(-1, -2), passes)       # [B, Hq, query, key]
+    dp = mm(do, vr.transpose(-1, -2), passes)
+    lse2 = (lse * math.log2(math.e))[..., None]
+    p = torch.exp2(s * (scale * math.log2(math.e)) - lse2)
+    p = torch.where(mask(q.shape[2], causal) & torch.isfinite(lse2), p, torch.zeros_like(p))
+    ds = p * (dp + (dlse - delta)[..., None])
+    return mm(ds, kr, passes) * scale
+
+
 def rel(got, want) -> float:
     want = np.asarray(want, np.float32)
     return float(np.abs(np.asarray(got, np.float32) - want).max() / np.abs(want).max())
@@ -124,16 +138,18 @@ def test_3xtf32_split_matches_the_pallas_kernels_and_one_pass_does_not(case):
     dlse = rng.standard_normal((B, Hq, S)).astype(np.float32) if nz else np.zeros((B, Hq, S), np.float32)
     (want_o, want_lse), vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_with_lse(q, k, v, causal=causal),
                                       *map(jnp.asarray, (q, k, v)))
-    _, want_dk, want_dv = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    want_dq, want_dk, want_dv = vjp((jnp.asarray(do), jnp.asarray(dlse)))
     tq, tk, tv, tdo, tdlse = map(torch.from_numpy, (q, k, v, do, dlse))
     scale = D**-0.5
     errs = {}
     for passes in (3, 1):
         o, lse = emulated_forward(tq, tk, tv, causal, scale, passes)
         delta = (tdo * o).sum(dim=-1)
+        dq = emulated_dq(tq, tk, tv, tdo, lse, delta, tdlse, causal, scale, passes)
         dk, dv = emulated_dkv(tq, tk, tv, tdo, lse, delta, tdlse, causal, scale, passes)
-        errs[passes] = {"o": rel(o, want_o), "lse": rel(lse, want_lse), "dk": rel(dk, want_dk),
-                        "dv": rel(dv, want_dv)}
+        errs[passes] = {"o": rel(o, want_o), "lse": rel(lse, want_lse), "dq": rel(dq, want_dq),
+                        "dk": rel(dk, want_dk), "dv": rel(dv, want_dv)}
     assert all(e <= cs.F32_TOL for e in errs[3].values()), errs
     assert max(errs[1].values()) > cs.F32_TOL, errs
     assert errs[1]["o"] > cs.F32_TOL and max(errs[1]["dk"], errs[1]["dv"]) > cs.F32_TOL, errs
+    assert errs[1]["dq"] > cs.F32_TOL, errs
