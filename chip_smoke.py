@@ -440,9 +440,20 @@ Phases (any failure exits non-zero and prints no result):
    19d ring and Ulysses attention over the two ranks (S = 2 x 2048, H 32, D
    128, causal and full) against K1 over the whole sequence, the ring's
    gradients (K5, K6) against the whole-sequence backward (within twice
-   K5/K6's tolerance: each within it of the exact gradient); 19e
+   K5/K6's tolerance: each within it of the exact gradient); 19f
+   full-parameter training through ``Trainer(param_specs=)`` on the same
+   two ranks: (i) TP=2 on Llama-3.2-1B (bf16, full width and depth,
+   ``llama.partition_specs``, B=2 x S=512), (ii) FSDP=2 on the same model
+   and batch (``fsdp_specs``, one row a rank), (iii) TP=2 on Mixtral-8x7B's
+   widths at depth 2 on the capacity experts (B=1 x S=512); each against
+   the port's one-rank trainer run first in this process on the same seed
+   (every leaf's gradient at cosine >= 0.999, the first loss within 1e-2,
+   replicated leaves' gradients bitwise equal on both ranks, (ii)'s
+   at-rest bytes <= 0.55 of one rank's), K1, K5 and K6 once a layer a step
+   at the per-shard shapes and held against their plain versions there,
+   step ms, peaks and collectives a step logged; 19e
    ``@clustered(size=1)`` with ``gpu="H100"``: one container joins an NCCL
-   group of one and runs K1. No figure of 19b-19d is a multi-card speed:
+   group of one and runs K1. No figure of 19b-19f is a multi-card speed:
    two ranks share one card.
 20. C11's f32 flash instances and A11's models (after phase 16, before
    training, over phase 3's weights). (20a) K1-f32, K5-f32 and K6-f32
@@ -489,6 +500,7 @@ Phases (any failure exits non-zero and prints no result):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -3980,6 +3992,7 @@ APP_SNAPSHOT = '''
 """chip_smoke.py phase 14a: a snapshot-enabled GPU class. Its snap hook draws
 Llama-2-7B-width weights at depth @DEPTH@ on the card from phase 3's seed; its
 other hook loads the kernel libraries and builds the engine."""
+import contextlib
 import dataclasses
 import os
 import time
@@ -7835,6 +7848,346 @@ def phase19_clustered(card: str) -> dict:
     return r
 
 
+# -- 19f: tensor-parallel and FSDP training through Trainer(param_specs=) ----------------
+
+
+#: 19f's global batches: (i) TP and (ii) FSDP B=2 x S=512 (under FSDP one
+#: row a rank), (iii) B=1 x S=512; one warm step, then TRAIN19F_STEPS timed
+TRAIN19F_BATCH, TRAIN19F_MOE_BATCH, TRAIN19F_STEPS = (2, 512), (1, 512), 2
+#: (iii)'s Mixtral-8x7B depth: cut from 32 to 2 for memory and time (the
+#: one-rank reference holds every expert's bf16 stack and its gradient;
+#: PERF.md §4). Its widths are the model's.
+TRAIN19F_MOE_LAYERS = 2
+TRAIN19F_LR = 1e-4
+#: the first step's loss against the one-rank trainer's (relative), and
+#: (ii)'s at-rest bytes of parameters and moments a rank against its
+FSDP_BYTES_MAX, TRAIN19F_LOSS_RTOL = 0.55, 1e-2
+FLASH_WRAPPERS = ("flash_forward_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda")
+
+
+def train19f_cases(llama) -> dict:
+    """19f's cases: name -> (config, mesh axes, global batch shape, capacity
+    experts). (i) and (ii) train Llama-3.2-1B (bf16, tied head) at full
+    width and depth; (iii) Mixtral-8x7B's widths at TRAIN19F_MOE_LAYERS."""
+    dense = llama.LlamaConfig.llama32_1b()
+    moe = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(), n_layers=TRAIN19F_MOE_LAYERS)
+    return {"tp": (dense, {"tensor": 2}, TRAIN19F_BATCH, False),
+            "fsdp": (dense, {"fsdp": 2}, TRAIN19F_BATCH, False),
+            "tp_moe": (moe, {"tensor": 2}, TRAIN19F_MOE_BATCH, True)}
+
+
+def train19f_reference_key(case: str) -> str:
+    """(i) and (ii) share one reference: the same model and batch."""
+    return "moe" if case == "tp_moe" else "dense"
+
+
+def train19f_batch(cfg, shape) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    return {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen, device="cuda")}
+
+
+def train19f_loss(llama, training, cfg, capacity: bool):
+    """The loss of 19f's cases, as a user writes it: ``llama.forward`` with
+    no mesh (the trainer enters its own), the flash kernels, and on the
+    capacity experts the load-balance loss at phase 18's weight."""
+    def loss_fn(p, batch):
+        tokens = batch["tokens"]
+        if capacity:
+            logits, aux = llama.forward(p, tokens, cfg, attn_impl="flash", moe_impl="capacity", return_aux=True)
+            return training.cross_entropy_loss(logits[:, :-1], tokens[:, 1:]) + MOE_AUX_WEIGHT * aux
+        return training.cross_entropy_loss(llama.forward(p, tokens, cfg, attn_impl="flash")[:, :-1], tokens[:, 1:])
+    return loss_fn
+
+
+def named_leaves(tree_, path: tuple = ()) -> dict:
+    """A parameter tree's (or a placement tree's) leaves by dotted path."""
+    from modal_examples_tpu_torch.parallel.mesh import P
+
+    if isinstance(tree_, dict):
+        return {k: v for key, sub in tree_.items() for k, v in named_leaves(sub, path + (str(key),)).items()}
+    if isinstance(tree_, (list, tuple)) and not isinstance(tree_, P):
+        return {k: v for i, sub in enumerate(tree_) for k, v in named_leaves(sub, path + (str(i),)).items()}
+    return {".".join(path): tree_}
+
+
+def tree_bytes(tree_) -> int:
+    return sum(t.numel() * t.element_size() for t in named_leaves(tree_).values())
+
+
+def state_bytes(state) -> int:
+    """At-rest bytes of a ``TrainState``: parameters and both Adam moments."""
+    return tree_bytes(state.params) + tree_bytes(state.opt_state["mu"]) + tree_bytes(state.opt_state["nu"])
+
+
+def train19f_reference(llama, training, work: Path) -> dict:
+    """19f's references, in this process before the ranks start: the port's
+    one-rank ``Trainer`` over each model's whole batch (from the same seed
+    as the ranks'), its first loss and at-rest bytes; the gradients and the
+    capacity experts' top-k choices are written under ``work`` for the
+    ranks, and everything is freed."""
+    from modal_examples_tpu_torch.models import moe
+
+    out = {}
+    for case in ("tp", "tp_moe"):
+        cfg, _, shape, capacity = train19f_cases(llama)[case]
+        t0 = time.monotonic()
+        params = llama.init_params(cfg, seed=0, device="cuda")
+        trainer = training.Trainer(train19f_loss(llama, training, cfg, capacity),
+                                   training.make_optimizer(TRAIN19F_LR))
+        routes = RouteReplay(moe)
+        with routes.recording():
+            loss, grads = trainer.loss_and_grads(params, train19f_batch(cfg, shape))
+        key = train19f_reference_key(case)
+        path = work / f"19f_{key}_grads.pt"
+        torch.save({k: g.cpu() for k, g in named_leaves(grads).items()}, path)
+        torch.save([c.cpu() for c in routes.choices], work / f"19f_{key}_routes.pt")
+        del grads
+        state = trainer.init_state(params)
+        out[key] = {"loss": loss.item(), "bytes": state_bytes(state), "grads": str(path),
+                    "routes": str(work / f"19f_{key}_routes.pt"), "s": time.monotonic() - t0}
+        del params, state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+class launch_shapes:
+    """Records (wrapper, q shape, k shape) of every K1, K5 and K6 launch in
+    its block (the flash wrappers wrapped in ``ops.flash_attention``, where
+    the autograd function finds them)."""
+
+    def __init__(self, fa):
+        self.fa, self.shapes = fa, set()
+
+    def __enter__(self):
+        self.kept = {name: getattr(self.fa, name) for name in FLASH_WRAPPERS}
+        for name, fn in self.kept.items():
+            setattr(self.fa, name, self._recording(name, fn))
+        return self
+
+    def _recording(self, name, fn):
+        def launch(q, k, *args, **kw):
+            self.shapes.add((name, tuple(q.shape), tuple(k.shape)))
+            return fn(q, k, *args, **kw)
+        return launch
+
+    def __exit__(self, *exc):
+        for name, fn in self.kept.items():
+            setattr(self.fa, name, fn)
+
+
+def flash_counts(fa) -> tuple:
+    return fa.launches, fa.dq_launches, fa.dkv_launches
+
+
+def flash_at_shape(fa, gen, B: int, Hq: int, Hkv: int, S: int, D: int) -> dict:
+    """K1, K5 and K6 against their plain versions at one causal shape, at
+    phase 2's limits (K1 max|o - plain|; K5 and K6 relative to the largest
+    plain gradient). Raises if one disagrees."""
+    q, k, v = flash_case(gen, B, Hq, Hkv, S, S, D)
+    o, _ = fa.flash_forward_cuda(q, k, v, causal=True, sm_scale=D**-0.5)
+    want, _ = fa.flash_forward_plain(q, k, v, causal=True, sm_scale=D**-0.5)
+    out = {"shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D}, "flash_fwd": max_err(o, want)}
+    args, o = bwd_case(fa, gen, B, Hq, Hkv, S, True, False, D)
+    dq = fa.flash_bwd_dq_cuda(*args, causal=True, sm_scale=D**-0.5)
+    dk, dv = fa.flash_bwd_dkv_cuda(*args, causal=True, sm_scale=D**-0.5)
+    q, k, v, do, lse, _, dlse = args
+    wq, wk, wv = fa.flash_backward_plain(q, k, v, o, lse, do, dlse, causal=True, sm_scale=D**-0.5)
+    torch.cuda.synchronize()
+    out.update(flash_bwd_dq=rel_err(dq, wq), flash_bwd_dkv=max(rel_err(dk, wk), rel_err(dv, wv)))
+    if not all(out[name] <= TOL[name] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        raise AssertionError(f"19f: the flash kernels disagree with their plain versions at {out['shape']}: {out}")
+    return out
+
+
+def train19f_case(rank: int, case: str, ref: dict) -> dict:
+    """One of 19f's cases on this rank: the model from seed 0, placed by
+    ``Trainer(param_specs=)`` (``llama.partition_specs`` on a ``tensor``
+    axis, ``fsdp_specs`` on an ``fsdp`` axis with the batch split over it),
+    the whole tree then freed; the first gradients' cosine parts against
+    the one-rank trainer's (``ref``, written by the parent), the replicated
+    leaves' digests; one warm step and TRAIN19F_STEPS timed, with each
+    step's K1/K5/K6 launches and collectives; then the three kernels
+    against their plain versions at the shapes the steps launched."""
+    import hashlib
+
+    from modal_examples_tpu_torch import training
+    from modal_examples_tpu_torch.models import llama, moe
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.parallel import collectives, make_mesh
+    from modal_examples_tpu_torch.parallel.mesh import P, fsdp_specs, shard_tensor, specs_for
+
+    cfg, axes, shape, capacity = train19f_cases(llama)[case]
+    mesh = make_mesh(axes)
+    fsdp = "fsdp" in axes
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    specs = fsdp_specs(params, mesh) if fsdp else llama.partition_specs(cfg)
+    trainer = training.Trainer(train19f_loss(llama, training, cfg, capacity), training.make_optimizer(TRAIN19F_LR),
+                               mesh=mesh, param_specs=specs, batch_spec=P("fsdp") if fsdp else P())
+    state = trainer.init_state(params)
+    placement = named_leaves(specs_for(params, specs))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = train19f_batch(cfg, shape)
+    out = {"at_rest_bytes": state_bytes(state), "one_rank_bytes": ref["bytes"]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = flash_counts(fa)
+    per_step, colls, step_ms, losses = [], [], [], []
+    routes = RouteReplay(moe)
+    routes.choices = [c.to("cuda") for c in torch.load(ref["routes"])]
+    with launch_shapes(fa) as seen:
+        # the first gradients on the reference's expert choices (a free
+        # run's bf16 sums in another order flip near-ties: RouteReplay)
+        with routes.replaying():
+            loss0, grads = trainer.loss_and_grads(state.params, batch)
+        # each leaf's block against the one-rank gradient's block: the parts
+        # of the whole leaf's cosine (dot, |g|^2, |ref|^2), summed over the
+        # ranks by the caller where the leaf is placed
+        refs = torch.load(ref["grads"], mmap=True, map_location="cpu")
+        parts, replicated = {}, {}
+        for name, g in named_leaves(grads).items():
+            want = shard_tensor(refs[name], placement[name], mesh).to("cuda").float()
+            a = g.float()
+            parts[name] = [(a * want).sum().item(), (a * a).sum().item(), (want * want).sum().item()]
+            if not any(placement[name]):
+                replicated[name] = hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()
+        del grads, refs
+        for i in range(1 + TRAIN19F_STEPS):
+            before, calls = flash_counts(fa), dict(collectives.counts)
+            t0 = time.monotonic()
+            # the warm step routes freely from the reference's parameters:
+            # its tokens whose choices differ from the reference's counted
+            with routes.comparing() if i == 0 else contextlib.nullcontext():
+                state, m = trainer.train_step(state, batch)
+            losses.append(m["loss"].item())
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.monotonic() - t0))
+            per_step.append([a - b for a, b in zip(flash_counts(fa), before)])
+            colls.append({op: n - calls.get(op, 0) for op, n in collectives.counts.items() if n != calls.get(op, 0)})
+    total = [a - b for a, b in zip(flash_counts(fa), start)]
+    out.update(loss0=loss0.item(), ref_loss=ref["loss"], losses=losses, step_ms=step_ms, route_flips=routes.flips,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, grad_parts=parts, replicated=replicated,
+               placed_axes={name: sorted({a for a in spec if a is not None}) for name, spec in placement.items()},
+               launches=dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), total)),
+               launches_per_step=per_step, collectives_per_step=colls, launch_shapes=sorted(seen.shapes))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels against their plain versions at the shapes the steps launched
+    tp = 2 if "tensor" in axes else 1
+    B, S = shape[0] // (2 if fsdp else 1), shape[1]
+    Hq, Hkv, D = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
+    want_shapes = sorted((name, (B, Hq, S, D), (B, Hkv, S, D)) for name in FLASH_WRAPPERS)
+    out["kernels_at_shape"] = flash_at_shape(fa, torch.Generator(device="cuda").manual_seed(19 + rank), B, Hq, Hkv, S, D)
+    out["launch_shapes_expected"] = want_shapes
+    return out
+
+
+def check19f(llama, ranks: list) -> dict:
+    """19f's results of both ranks, held: each leaf's gradient (its blocks'
+    cosine parts summed over the ranks where it is placed) at cosine >=
+    GRAD_COSINE_MIN against the one-rank trainer's, the first loss within
+    TRAIN19F_LOSS_RTOL, replicated leaves' gradients bitwise equal on both
+    ranks, FSDP's at-rest bytes <= FSDP_BYTES_MAX of one rank's, and each
+    step's K1, K5 and K6 launches: one a layer, at the expected shapes.
+    Returns each case's summary (rank 0's step figures, both ranks' peaks);
+    raises after every case is summarised."""
+    out, failed = {}, {}
+    for case, (cfg, axes, shape, _) in train19f_cases(llama).items():
+        r0, r1 = (r[case] for r in ranks)
+        cos = {}
+        for name, (dot, aa, bb) in r0["grad_parts"].items():
+            if r0["placed_axes"][name]:
+                dot, aa, bb = (x + y for x, y in zip((dot, aa, bb), r1["grad_parts"][name]))
+            cos[name] = dot / max(math.sqrt(aa * bb), 1e-30)
+        worst = min(cos, key=cos.get)
+        per_step = [[cfg.n_layers] * 3] * (1 + TRAIN19F_STEPS)
+        summary = {
+            "config": {"dim": cfg.dim, "n_layers": cfg.n_layers, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                       "vocab": cfg.vocab_size, "experts": cfg.n_experts, "mesh": axes, "batch": list(shape)},
+            "grad_cosine_min": cos[worst], "grad_cosine_worst_leaf": worst, "leaves": len(cos),
+            "loss0": [r0["loss0"], r1["loss0"]], "one_rank_loss0": r0["ref_loss"], "losses": r0["losses"],
+            "route_flips_free_warm_step": [r0["route_flips"], r1["route_flips"]],
+            "replicated_bitwise": sorted(r0["replicated"]), "step_ms": [r0["step_ms"], r1["step_ms"]],
+            "peak_gb": [r0["peak_gb"], r1["peak_gb"]], "at_rest_bytes": [r0["at_rest_bytes"], r1["at_rest_bytes"]],
+            "one_rank_bytes": r0["one_rank_bytes"],
+            "at_rest_ratio": max(r0["at_rest_bytes"], r1["at_rest_bytes"]) / r0["one_rank_bytes"],
+            "launches_per_step": r0["launches_per_step"], "collectives_per_step": r0["collectives_per_step"][-1],
+            "launch_shapes": r0["launch_shapes"], "kernels_at_shape": [r0["kernels_at_shape"], r1["kernels_at_shape"]],
+        }
+        out[case] = summary
+        faults = []
+        if cos[worst] < GRAD_COSINE_MIN:
+            faults.append(f"gradient cosine {cos[worst]} at {worst}")
+        if not all(abs(r["loss0"] - r0["ref_loss"]) <= TRAIN19F_LOSS_RTOL * abs(r0["ref_loss"]) for r in (r0, r1)):
+            faults.append("first loss")
+        if r0["replicated"] != r1["replicated"] or not r0["replicated"]:
+            faults.append("replicated gradients differ across the ranks")
+        if "fsdp" in axes and summary["at_rest_ratio"] > FSDP_BYTES_MAX:
+            faults.append("at-rest bytes")
+        for r in (r0, r1):
+            if r["launches_per_step"] != per_step or r["launch_shapes"] != r["launch_shapes_expected"]:
+                faults.append(f"launches {r['launches_per_step']} at {r['launch_shapes']}")
+            if not all(math.isfinite(x) for x in r["losses"]):
+                faults.append("a loss is not finite")
+        if faults:
+            failed[case] = faults
+    if failed:
+        raise AssertionError(f"19f: {failed}: {json.dumps(out)}")
+    return out
+
+
+def reference19f(llama, work: Path, card: str) -> dict:
+    from modal_examples_tpu_torch import training
+
+    t0 = time.monotonic()
+    refs = train19f_reference(llama, training, work)
+    log(f"19f's one-rank references ({card}): {time.monotonic() - t0:.1f}s: "
+        f"{json.dumps({k: {n: v[n] for n in ('loss', 'bytes', 's')} for k, v in refs.items()})}")
+    return refs
+
+
+def run19f(g, llama, refs: dict, card: str) -> dict:
+    """19f in the two ranks of gang ``g``, held (:func:`check19f`); its
+    summary with the launches of both ranks' steps summed."""
+    t0 = time.monotonic()
+    ranks = g.run(train19f, refs)
+    out = check19f(llama, ranks)
+    out["launches"] = {}
+    for r in ranks:
+        for case in r.values():
+            for k, v in case["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+    out["seconds"] = time.monotonic() - t0
+    log(f"19f TP=2 and FSDP=2 training, two ranks sharing one card over gloo ({card}): {json.dumps(out)}")
+    return out
+
+
+def phase19f(llama, card: str) -> dict:
+    """19f alone (``benchmarks_torch/parallel_phase.py --only 19f``): the
+    references, then two gloo ranks for the three cases."""
+    from modal_examples_tpu_torch.parallel.cluster import RankGang
+
+    work = ROOT / "build" / "phase19f"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        refs = reference19f(llama, work, card)
+        with RankGang(2, backend="gloo", device="cuda") as g:
+            return run19f(g, llama, refs, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train19f(rank: int, refs: dict) -> dict:
+    """19f (two ranks sharing the card over gloo): each case of
+    ``train19f_cases`` in turn (:func:`train19f_case`)."""
+    from modal_examples_tpu_torch.models import llama
+
+    return {case: train19f_case(rank, case, refs[train19f_reference_key(case)]) for case in train19f_cases(llama)}
+
+
 def phase_parallel(llama, metrics: dict, card: str) -> dict:
     """Phase 19: tensor and data parallelism, in rank processes that end
     with the phase (``parallel.cluster.RankGang``), so no process group
@@ -7849,6 +8202,7 @@ def phase_parallel(llama, metrics: dict, card: str) -> dict:
     tp19_reference(llama, ref_path)
     gc.collect()
     torch.cuda.empty_cache()
+    refs19f = reference19f(llama, work, card)
     out = {"card": card}
     with RankGang(1, backend="nccl", device="cuda") as g:
         (out["19a"],) = g.run(tp19a, str(rows_path))
@@ -7861,9 +8215,11 @@ def phase_parallel(llama, metrics: dict, card: str) -> dict:
         out["19d"] = g.run(ring19d)
         log(f"19d ring and Ulysses attention, two ranks sharing one card over gloo ({card}): "
             f"{json.dumps(out['19d'])}")
+        out["19f"] = run19f(g, llama, refs19f, card)
     out["19e"] = phase19_clustered(card)
     shutil.rmtree(work, ignore_errors=True)
-    parts = [out["19a"]["launches"], *(r["launches"] for key in ("19c", "19d") for r in out[key])]
+    parts = [out["19a"]["launches"], *(r["launches"] for key in ("19c", "19d") for r in out[key]),
+             out["19f"]["launches"]]
     lead, follower = out["19b"]
     for label, burst in lead["bursts"].items():
         # the follower's whole run, less the warm-up both ranks ran
@@ -8866,8 +9222,8 @@ def main() -> int:
     counts = {k: v + p17["launches"].get(k, 0) for k, v in counts.items()}
     # phase 19's ranks: 19a's burst over NCCL (K1, K2, K3), 19b's four
     # bursts at the per-shard shapes on both ranks (K1, K2, K3, K4 folded,
-    # K7, K2-int8, K3-int8, K4-int8), 19c's data-parallel steps and 19d's
-    # ring (K1, K5, K6), 19e's container (K1)
+    # K7, K2-int8, K3-int8, K4-int8), 19c's data-parallel steps, 19d's
+    # ring and 19f's TP and FSDP steps (K1, K5, K6), 19e's container (K1)
     counts = {k: v + par["launches"].get(k, 0) for k, v in counts.items()}
     # phase 20's VLM burst (K1, K2, K3); the f32 instances' launches are 20c's
     # GPT and f32 Llama training steps

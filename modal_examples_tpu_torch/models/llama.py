@@ -40,6 +40,16 @@ block of the vocabulary, all-gathered into the full logits on every rank.
 A mixture of experts shards each expert's ffn dim and keeps the router
 whole. On a one-wide ``tensor`` axis the same collectives run over a group
 of one, and every value is the one-card path's.
+
+The training forward under a mesh (``Trainer(param_specs=
+partition_specs(cfg))``, or ``forward(mesh=)``) is differentiable in the
+rank's shards: the collectives are the tensor-parallel regions' forms with a
+gradient (``parallel.collectives.copy_to`` at the input of every
+column-parallel product, ``reduce_from`` at every row-parallel sum and the
+embedding's, ``gather_from`` on the logits), so each rank's gradients are
+the one-card gradients' blocks of its shards and a replicated leaf (the
+norms, the router) gets the whole gradient on every rank. Every rank
+computes the whole loss.
 """
 
 from __future__ import annotations
@@ -56,7 +66,7 @@ from ..ops import paged_attention as _paged
 from ..ops import sharded as _sharded
 from ..ops.kv_quant import kv_gather
 from ..parallel import collectives as _coll
-from ..parallel.mesh import TENSOR, P, shard_tensor
+from ..parallel.mesh import TENSOR, P, axis_sizes, entered_mesh, shard_tensor
 from ..ops.quantized_matmul import pack_int4
 from ..utils.device import resolve_device
 from ..utils.safetensors import SafeFile
@@ -474,8 +484,15 @@ def _rope(cfg: LlamaConfig, positions):
 
 def _row_sum(partial, mesh):
     """A row-parallel product's f32 partial summed over the tensor axis (no
-    mesh: the product itself). The caller rounds once, after the sum."""
-    return partial if mesh is None else _coll.psum(partial, TENSOR, mesh)
+    mesh: the product itself), its gradient passed through to every rank's
+    partial. The caller rounds once, after the sum."""
+    return partial if mesh is None else _coll.reduce_from(partial, TENSOR, mesh)
+
+
+def _column_input(h, mesh):
+    """A replicated input of column-parallel products: under a mesh, its
+    gradient (each rank's columns' share) summed over the tensor axis."""
+    return h if mesh is None else _coll.copy_to(h, TENSOR, mesh)
 
 
 def _embed(params: dict, tokens, mesh):
@@ -489,7 +506,7 @@ def _embed(params: dict, tokens, mesh):
     local = tokens.long() - _coll.axis_index(TENSOR, mesh) * rows
     inside = (local >= 0) & (local < rows)
     x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
-    return _coll.psum(x, TENSOR, mesh)
+    return _coll.reduce_from(x, TENSOR, mesh)
 
 
 def _with_prefix(x, input_embeds):
@@ -503,9 +520,10 @@ def _with_prefix(x, input_embeds):
 
 def _logits(x, params: dict, cfg: LlamaConfig, mesh):
     """``x @ head`` in f32; under a mesh this rank's vocabulary block,
-    all-gathered so every rank holds the full logits."""
-    out = layers.mm(x, _head(params, cfg))
-    return out if mesh is None else _coll.all_gather(out, TENSOR, gather_dim=-1, mesh=mesh)
+    all-gathered so every rank holds the full logits (the gradient of the
+    rank's block flows back to it alone)."""
+    out = layers.mm(_column_input(x, mesh), _head(params, cfg))
+    return out if mesh is None else _coll.gather_from(out, TENSOR, gather_dim=-1, mesh=mesh)
 
 
 def _mlp_block(layer: dict, h, cfg: LlamaConfig, *, lora=None, lora_scale: float = 1.0, moe_impl: str = "nodrop",
@@ -527,16 +545,15 @@ def _mlp_block(layer: dict, h, cfg: LlamaConfig, *, lora=None, lora_scale: float
             )
         experts = (layer["router"], layer["moe_gate"], layer["moe_up"], layer["moe_down"], h.reshape(-1, cfg.dim))
         if moe_impl == "capacity":
-            if mesh is not None:
-                raise NotImplementedError(
-                    "the capacity experts under a mesh are TP training (ROADMAP A10b, param_specs)")
-            flat, aux = _moe.moe_swiglu_capacity(*experts, cfg.top_k_experts, cfg.expert_capacity_factor)
+            flat, aux = _moe.moe_swiglu_capacity(*experts, cfg.top_k_experts, cfg.expert_capacity_factor,
+                                                 mesh=mesh)
         else:
-            flat, aux = _moe.moe_swiglu_nodrop(*experts, cfg.top_k_experts)
+            flat, aux = _moe.moe_swiglu_nodrop(*experts, cfg.top_k_experts, mesh=mesh)
             flat = _row_sum(flat, mesh)
         return flat.reshape(h.shape).to(h.dtype), aux
     if mesh is None:
         return layers.swiglu_mlp(layer, h, lora=lora, lora_scale=lora_scale), None
+    h = _column_input(h, mesh)
     a = torch.nn.functional.silu(layers.mm(h, layer["gate"])) * layers.mm(h, layer["up"])
     return _row_sum(layers.mm(a.to(h.dtype), layer["down"]), mesh).to(h.dtype), None
 
@@ -556,7 +573,7 @@ def forward(
     return_aux: bool = False,
     moe_impl: str = "nodrop",
     input_embeds=None,
-    mesh=None,  # a mesh with a "tensor" axis: the rank's shards, the flash kernel per head shard
+    mesh=None,  # a mesh with a "tensor" axis: the rank's shards, attention on its heads
 ):  # [B, S, vocab] f32 (, aux)
     """Full-sequence forward with causal attention (flash kernels or the
     plain ``xla`` attention), differentiable in the adapters and the base.
@@ -564,18 +581,24 @@ def forward(
     loss (0 for a dense model); ``moe_impl`` picks the expert formulation
     (:func:`_mlp_block`). ``input_embeds`` [B, P, dim] (the multimodal
     prefix, ``models.vlm``) replaces the embedding lookup of the first P
-    positions, cast to the model dtype. Under ``mesh=`` the rank's shards run the
-    serving layers' column/row-parallel products (module docstring) with
-    the flash kernel on the local heads; its collectives carry no gradient,
-    so tensor-parallel training (LoRA over a sharded base) raises: it waits
-    for ROADMAP A10b's ``param_specs``."""
+    positions, cast to the model dtype.
+
+    Tensor parallel under ``mesh=``, or, given none, under the mesh the
+    caller entered (``parallel.enter_mesh``, as ``Trainer`` enters its own
+    around a step, JAX's ``with mesh:``) when that mesh has a ``tensor``
+    axis: the rank's shards run the column/row-parallel products (module
+    docstring) and attention on the rank's heads (the flash kernels through
+    ``ops.sharded``, K5/K6 in the backward), differentiable in the shards. A
+    mesh without a ``tensor`` axis (data parallelism, FSDP's gathered
+    leaves) runs the one-card forward."""
+    if mesh is None:
+        mesh = entered_mesh()
     if input_embeds is not None and mesh is not None:
         raise NotImplementedError("input_embeds (a multimodal prefix) under tensor parallelism is ROADMAP A10b")
-    if mesh is not None and (lora is not None or torch.is_grad_enabled()):
-        raise NotImplementedError(
-            "a gradient through the tensor-parallel forward is TP training (ROADMAP A10b, param_specs); run it "
-            "under torch.no_grad() without adapters"
-        )
+    if mesh is not None and TENSOR not in axis_sizes(mesh):
+        mesh = None
+    if mesh is not None and lora is not None:
+        raise NotImplementedError("LoRA adapters over a tensor-parallel base are ROADMAP A10c")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -584,9 +607,12 @@ def forward(
         x = _embed(params, tokens, mesh)
         auxes = []
         for layer in params["layers"]:
-            q, k, v = _qkv(layer, x, cfg, cos, sin)
-            o = _sharded.sharded_flash_attention(mesh, q.contiguous(), k.contiguous(), v.contiguous(), True,
-                                                 heads=_heads(cfg))
+            q, k, v = _qkv(layer, x, cfg, cos, sin, mesh)
+            if attn_impl == "flash":
+                o = _sharded.sharded_flash_attention(mesh, q.contiguous(), k.contiguous(), v.contiguous(), True,
+                                                     heads=_heads(cfg))
+            else:
+                o = layers.attention_op(q, k, v, True, attn_impl)
             x, aux = _finish_layer(layer, x, o.transpose(1, 2).reshape(B, S, -1), cfg, mesh, moe_impl=moe_impl)
             if aux is not None:
                 auxes.append(aux)
@@ -629,13 +655,13 @@ def _heads(cfg: LlamaConfig) -> tuple[int, int]:
     return cfg.n_heads, cfg.n_kv_heads
 
 
-def _qkv(layer: dict, x, cfg: LlamaConfig, cos, sin):
+def _qkv(layer: dict, x, cfg: LlamaConfig, cos, sin, mesh=None):
     """Norm, projections and RoPE for [B, S, dim] -> q [B,Hq,S,D], k/v
     [B,Hkv,S,D]: the heads of the rank's ``wq``/``wk``/``wv`` columns (all
     of them without a mesh)."""
     B, S, _ = x.shape
     D = cfg.head_dim
-    h = layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = _column_input(layers.rms_norm(x, layer["attn_norm"], cfg.norm_eps), mesh)
     q = layers.mm(h, layer["wq"]).to(x.dtype).view(B, S, -1, D).transpose(1, 2)
     k = layers.mm(h, layer["wk"]).to(x.dtype).view(B, S, -1, D).transpose(1, 2)
     v = layers.mm(h, layer["wv"]).to(x.dtype).view(B, S, -1, D).transpose(1, 2)

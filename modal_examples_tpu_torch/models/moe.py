@@ -209,7 +209,19 @@ def _nodrop_weights(x, router, top_k: int):
     return topk_idx, torch.zeros_like(probs).scatter_add_(1, topk_idx, topk_p), _aux_loss(probs)
 
 
-def moe_swiglu_nodrop(router, w_gate, w_up, w_down, x, top_k: int):
+def _tp_regions(mesh):
+    """(copy_to, reduce_from) over the mesh's tensor axis: the gradient
+    rules of a column-parallel input and a row-parallel sum
+    (``parallel.collectives``); identities without a mesh."""
+    if mesh is None:
+        return (lambda t: t), (lambda t: t)
+    from ..parallel import collectives
+    from ..parallel.mesh import TENSOR
+
+    return (lambda t: collectives.copy_to(t, TENSOR, mesh)), (lambda t: collectives.reduce_from(t, TENSOR, mesh))
+
+
+def moe_swiglu_nodrop(router, w_gate, w_up, w_down, x, top_k: int, *, mesh=None):
     """Top-k routed SwiGLU experts with no capacity drops, the serving
     formulation: routing is per token, so incremental decode reproduces the
     full-sequence forward. Every expert runs on every token, weighted by its
@@ -217,8 +229,16 @@ def moe_swiglu_nodrop(router, w_gate, w_up, w_down, x, top_k: int):
     intermediate stays one expert's). router [D, E]; w_gate, w_up [E, D, F];
     w_down [E, F, D] (int8 leaves allowed); x [T, D]. The router runs in f32;
     the experts take ``x`` at its own dtype (module docstring). Returns
-    (out [T, D] f32, aux load-balance loss)."""
+    (out [T, D] f32, aux load-balance loss).
+
+    Under a ``mesh`` the stacks are this rank's ffn block of every expert
+    (``llama.partition_specs``) and ``out`` is this rank's f32 partial, which
+    the caller sums over the tensor axis; the experts' input and the combine
+    weights then take the gradient rule of a column-parallel input (each
+    rank's share of their gradient, summed over the axis)."""
+    copy_to, _ = _tp_regions(mesh)
     _, w_full, aux = _nodrop_weights(x, router, top_k)
+    x, w_full = copy_to(x), copy_to(w_full)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in range(w_gate.shape[0]):
         y = _swiglu_expert(_expert(w_gate, e), _expert(w_up, e), _expert(w_down, e), x)
@@ -300,18 +320,29 @@ class CapacityExperts(torch.autograd.Function):
         return (dx, *dw)
 
 
-def moe_swiglu_capacity(router, w_gate, w_up, w_down, x, top_k: int, capacity_factor: float):
+def moe_swiglu_capacity(router, w_gate, w_up, w_down, x, top_k: int, capacity_factor: float, *, mesh=None):
     """Capacity-routed SwiGLU experts (the GShard dispatch): each expert
     computes only its capacity slots, about top_k / E of the no-drop work,
     for compute-bound training and prefill (tokens over capacity drop, so it
     is not the no-drop path). int8 leaves are dequantized to bf16 first, as
     in the reference; the expert products run through
     :class:`CapacityExperts` (module docstring). Returns (out [T, D] f32, aux
-    load-balance loss)."""
+    load-balance loss).
+
+    Under a ``mesh`` (tensor parallelism) the stacks are this rank's ffn
+    block of every expert (``llama.partition_specs``). Every rank routes
+    every token with the whole router (the same dispatch, and the aux loss
+    counted once), runs its block of each expert on the dispatched slots,
+    and sums the experts' f32 partial outputs over the tensor axis before
+    the combine: the dispatched input takes the gradient rule of a
+    column-parallel input, the sum that of a row-parallel one, and the
+    combine weights, downstream of the sum, get the whole gradient on every
+    rank."""
     E, D, Fd = w_gate.shape
+    copy_to, reduce_from = _tp_regions(mesh)
     cfg = MoEConfig(n_experts=E, top_k=top_k, capacity_factor=capacity_factor, d_model=D, d_ff=Fd)
     xf = x.float()
     dispatch, combine, aux = _route(xf, router.float(), cfg, cfg.capacity(x.shape[0]))
-    expert_in = torch.einsum("tec,td->ecd", dispatch, xf)  # [E, C, D]
-    expert_out = CapacityExperts.apply(expert_in, w_gate, w_up, w_down)
+    expert_in = copy_to(torch.einsum("tec,td->ecd", dispatch, xf))  # [E, C, D]
+    expert_out = reduce_from(CapacityExperts.apply(expert_in, w_gate, w_up, w_down))
     return torch.einsum("tec,ecd->td", combine, expert_out), aux

@@ -15,6 +15,7 @@ _LAZY = {
     "SEQ": "mesh",
     "TENSOR": "mesh",
     "P": "mesh",
+    "enter_mesh": "mesh",
     "fsdp_specs": "mesh",
     "make_mesh": "mesh",
     "shard_tensor": "mesh",

@@ -18,6 +18,17 @@ and leaves its input as it was, as the JAX ones do.
 - ``psum_tree`` sums a pytree's leaves in one all-reduce per dtype (the
   leaves flattened into one buffer, as DDP's buckets are): the data-parallel
   gradient sync.
+- ``copy_to``, ``reduce_from`` and ``gather_from`` are the tensor-parallel
+  regions' collectives with a gradient (``torch.autograd.Function``s; the
+  serving path's forward, with no gradient to record, runs the plain ones).
+  Every rank of the axis computes the same loss, so each backward hands a
+  rank the gradient of its own block and no more: ``copy_to`` (the input
+  of a column-parallel product) is the identity whose backward sums the
+  ranks' partial gradients; ``reduce_from`` (a row-parallel sum) passes its
+  gradient through unchanged; ``gather_from``'s backward takes this rank's
+  block of the gradient, or, with ``sum_grad`` (a leaf gathered on use over
+  an axis the batch is split on: FSDP), the block of its sum over the
+  ranks, each of which took the gradient of its own rows.
 - Every call is counted in :data:`counts` (op -> calls), which the card
   check reads.
 """
@@ -179,6 +190,72 @@ def ppermute(x, axis: AxisName, perm: list[tuple[int, int]], mesh=None):
     pairs)."""
     counts["ppermute"] += 1
     return _Permute.apply(x, _one(axis, "ppermute"), tuple(map(tuple, perm)), mesh)
+
+
+def _grad_wanted(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis: str, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return psum(dy, ctx.axis, ctx.mesh), None, None
+
+
+def copy_to(x, axis: AxisName, mesh=None):
+    """The identity; its backward sums the gradient over the axis. It marks
+    a replicated input entering a column-parallel product, whose gradient
+    each rank holds only its columns' share of. Without a gradient to
+    record, ``x`` itself."""
+    return _CopyTo.apply(x, _one(axis, "copy_to"), mesh) if _grad_wanted(x) else x
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis: str, mesh):
+        return psum(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+def reduce_from(x, axis: AxisName, mesh=None):
+    """``psum`` whose backward passes the gradient through unchanged: the
+    row-parallel sum of partial products (every rank's partial moves the
+    sum as much as the sum moves the loss)."""
+    return _ReduceFrom.apply(x, _one(axis, "reduce_from"), mesh) if _grad_wanted(x) else psum(x, axis, mesh)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis: str, gather_dim: int, mesh, sum_grad: bool):
+        ctx.axis, ctx.dim, ctx.mesh, ctx.sum_grad = axis, gather_dim, mesh, sum_grad
+        return all_gather(x, axis, gather_dim=gather_dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.sum_grad:
+            return reduce_scatter(dy, ctx.axis, scatter_dim=ctx.dim, mesh=ctx.mesh), None, None, None, None
+        m = ctx.mesh if ctx.mesh is not None else current_mesh()
+        block = dy.chunk(axis_sizes(m)[ctx.axis], dim=ctx.dim)[m.get_local_rank(ctx.axis)]
+        return block.contiguous(), None, None, None, None
+
+
+def gather_from(x, axis: AxisName, *, gather_dim: int = 0, mesh=None, sum_grad: bool = False):
+    """``all_gather`` (tiled) with a gradient: the backward is this rank's
+    block of the incoming gradient (every rank computed the same loss from
+    the gathered tensor), or with ``sum_grad`` the block of its sum over the
+    axis, a reduce-scatter (each rank's loss is its own batch block's)."""
+    a = _one(axis, "gather_from")
+    if not _grad_wanted(x):
+        return all_gather(x, a, gather_dim=gather_dim, mesh=mesh)
+    return _GatherFrom.apply(x, a, gather_dim % x.dim(), mesh, sum_grad)
 
 
 def ring_shift(x, axis: AxisName, shift: int = 1, mesh=None):

@@ -15,13 +15,24 @@ slice of a placed tensor (:func:`shard_tensor`, :func:`shard_pytree`), in
 place of ``sharding``/``replicated``/``device_put``: nothing holds the global
 array.
 
-``shard_map_compat`` has no counterpart: every rank already runs its own
-program on its local shards, which is what ``shard_map`` does.
+A placement tree (``param_specs``) mirrors the parameter tree. The port
+keeps a model's layers as a list of per-layer dicts where the JAX tree
+stacks them on a leading axis, so a spec tree written for the stacked tree
+(``llama.partition_specs``, one ``P`` per stacked leaf) applies to every
+layer of the list with that leading entry dropped (:func:`specs_for`).
+
+``with enter_mesh(mesh):`` is ``with mesh:`` of the JAX package: code that
+is given no mesh (``llama.forward`` inside a loss function) takes the
+entered one (:func:`entered_mesh`). ``shard_map_compat`` has no
+counterpart: every rank already runs its own program on its local shards,
+which is what ``shard_map`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 from ..utils import tree as _tree
 
@@ -119,23 +130,114 @@ def axis_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+_entered = threading.local()
+
+
+@contextlib.contextmanager
+def enter_mesh(mesh):
+    """Make ``mesh`` the entered mesh of this thread for the block (JAX's
+    ``with mesh:``); ``None`` enters nothing."""
+    stack = _entered.__dict__.setdefault("stack", [])
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def entered_mesh():
+    """The innermost mesh entered on this thread (:func:`enter_mesh`), or
+    None."""
+    stack = getattr(_entered, "stack", None)
+    return stack[-1] if stack else None
+
+
+def _is_layer_list(node) -> bool:
+    return isinstance(node, (list, tuple)) and bool(node) and all(isinstance(x, dict) for x in node)
+
+
 def fsdp_specs(params, mesh, *, axis: str = FSDP, min_size: int = 2**12):
     """ZeRO-3/FSDP placements for a parameter tree: every leaf of at least
     ``min_size`` elements is split over ``axis`` along its largest
     axis-divisible dimension; small leaves (norms, biases) stay whole. The
-    rule of the JAX package's ``fsdp_specs``."""
+    rule of the JAX package's ``fsdp_specs``, read on the JAX tree's sizes:
+    a leaf of a list of layer dicts counts as the layer-stacked leaf the JAX
+    tree holds (its size times the number of layers), so both packages
+    place the same leaves (a norm of Llama-3.2-1B's 16 layers is 16 x 2048
+    elements there, and split). The layer axis itself is never split: each
+    layer is a leaf of its own here. The returned tree mirrors ``params``."""
     n = axis_sizes(mesh)[axis]
 
-    def spec_for(leaf):
+    def spec_for(leaf, stacked: int):
         shape = tuple(getattr(leaf, "shape", ()))
-        if not shape or math.prod(shape) < min_size:
+        if not shape or stacked * math.prod(shape) < min_size:
             return P()
         for d in sorted(range(len(shape)), key=lambda d: shape[d], reverse=True):
             if shape[d] % n == 0:
                 return P(*(axis if i == d else None for i in range(len(shape))))
         return P()
 
-    return _tree.map(spec_for, params)
+    def walk(node, stacked: int):
+        if isinstance(node, dict):
+            return {k: walk(v, stacked) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            inner = stacked * len(node) if _is_layer_list(node) else stacked
+            return type(node)(walk(v, inner) for v in node)
+        return spec_for(node, stacked)
+
+    return walk(params, 1)
+
+
+def specs_for(params, specs):
+    """A placement tree with the structure of ``params``: ``specs`` itself
+    where it mirrors the tree, and where ``params`` holds a list of layer
+    dicts but ``specs`` one dict of layer-stacked placements (the JAX
+    tree's layout), that dict's placements with their leading (layer)
+    entry dropped, for every layer. A stacked placement that splits the
+    layer axis raises, as does a structure that matches neither way."""
+
+    def walk(node, spec, path):
+        if isinstance(spec, P):
+            if isinstance(node, (dict, list, tuple)):
+                raise ValueError(f"{'/'.join(map(str, path)) or 'the tree'}: a placement {spec!r} for a subtree")
+            if len(spec) > len(tuple(getattr(node, "shape", ()))):
+                raise ValueError(f"{'/'.join(map(str, path))}: {spec!r} has more entries than the leaf's "
+                                 f"{len(node.shape)} dimensions")
+            return spec
+        if isinstance(node, dict) and isinstance(spec, dict):
+            if set(node) != set(spec):
+                raise ValueError(f"{'/'.join(map(str, path)) or 'the tree'}: placements for {sorted(spec)}, "
+                                 f"leaves {sorted(node)}")
+            return {k: walk(v, spec[k], path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)) and isinstance(spec, (list, tuple)) and len(node) == len(spec):
+            return type(node)(walk(v, s, path + (i,)) for i, (v, s) in enumerate(zip(node, spec)))
+        if _is_layer_list(node) and isinstance(spec, dict):
+            per_layer = {k: _unstacked(s, path + (k,)) for k, s in spec.items()}
+            return type(node)(walk(v, per_layer, path + (i,)) for i, v in enumerate(node))
+        raise ValueError(f"{'/'.join(map(str, path)) or 'the tree'}: placements {type(spec).__name__} do not match "
+                         f"{type(node).__name__}")
+
+    return walk(params, specs, ())
+
+
+def _unstacked(spec, path) -> P:
+    if not isinstance(spec, P):
+        raise ValueError(f"{'/'.join(map(str, path))}: a stacked layer placement must be a P, not {spec!r}")
+    if not spec or spec[0] is None:
+        return P(*spec[1:])
+    raise ValueError(f"{'/'.join(map(str, path))}: {spec!r} splits the stacked layer axis, which is a list here")
+
+
+def spec_leaves(specs) -> list:
+    """The placements of a placement tree, in the leaf order of the tree it
+    mirrors (a ``P`` is a tuple, but a leaf here)."""
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in spec_leaves(v)]
+    if isinstance(specs, (list, tuple)):
+        return [s for v in specs for s in spec_leaves(v)]
+    raise ValueError(f"a placement tree holds P leaves, not {specs!r}")
 
 
 def _axis_rank_and_size(mesh, entry) -> tuple[int, int]:
@@ -173,16 +275,20 @@ def shard_tensor(t, spec: P, mesh):
     return t[local_slice(tuple(t.shape), spec, mesh)].contiguous()
 
 
-def shard_pytree(tree, mesh, spec_fn):
-    """Every leaf's local block, placed by ``spec_fn(path, leaf)`` (``path``
-    is the leaf's key path as a tuple), as the JAX ``shard_pytree`` places
-    them with ``device_put``."""
+def shard_pytree(tree, mesh, specs):
+    """Every leaf's local block, as the JAX ``shard_pytree`` places them
+    with ``device_put``: placed by ``specs(path, leaf)`` when ``specs`` is
+    a function (``path`` is the leaf's key path as a tuple), else by the
+    placement tree ``specs`` (:func:`specs_for`)."""
+    if not callable(specs):
+        placed = spec_leaves(specs_for(tree, specs))
+        return _tree.unflatten(tree, [shard_tensor(t, s, mesh) for t, s in zip(_tree.leaves(tree), placed)])
 
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v, path + (i,)) for i, v in enumerate(node))
-        return shard_tensor(node, spec_fn(path, node), mesh)
+        return shard_tensor(node, specs(path, node), mesh)
 
     return walk(tree, ())

@@ -18,21 +18,47 @@ moments to bf16 parameters); a schedule's count starts at 0 on the first
 update. A step builds new parameter and moment tensors and leaves the old
 state intact (JAX donated it instead).
 
-Data parallelism (``mesh=`` with a ``data`` axis, ``parallel.make_mesh``):
-every rank gets the global batch (the JAX trainer's ``P("data")`` input),
-cuts it into the ``grad_accum`` microbatches as the JAX step does, takes its
-block of each microbatch's dim 0, and runs the step on it. The trainable
-gradients are summed over the axis in one all-reduce per dtype (the leaves
-flattened into one buffer, as DDP's buckets are) before the optimizer, so
-every rank applies the same update and the parameters stay replicated.
-The loss and the gradient norm are the global batch's, as the JAX trainer
-reports them. A ``loss_fn`` that returns a pair ``(total, count)``
-(:func:`cross_entropy_terms`) is divided by the count summed over the
-ranks: a masked loss whose token counts differ across ranks is the mean
-over the global batch's tokens, as in JAX. A scalar ``loss_fn`` counts as
-a mean over equal-weight blocks, so the ranks are averaged.
-``param_specs`` (tensor-parallel or FSDP training) waits for ROADMAP A10b's
-later items and raises.
+Parallel training (``mesh=``, ``parallel.make_mesh``) follows the JAX
+trainer's signature: ``param_specs`` is a placement tree (a ``P`` a leaf,
+as ``PartitionSpec``s), ``batch_spec`` (default ``P("data")``) splits the
+batch's dim 0 over its axes. Each rank is a process holding only its blocks:
+
+- At rest, ``init_state`` keeps this rank's block of every placed leaf
+  (``parallel.mesh.shard_pytree``; a spec tree written for the JAX tree's
+  layer-stacked leaves, as ``llama.partition_specs`` is, applies to every
+  layer of the port's list, ``parallel.mesh.specs_for``), and the Adam
+  moments are made from those blocks, so they are placed like their
+  parameters.
+- Tensor parallelism: a leaf placed on the ``tensor`` axis is used as the
+  block it is. The step enters the mesh (``parallel.enter_mesh``, JAX's
+  ``with mesh:``), so ``llama.forward`` called without a mesh inside the
+  ``loss_fn`` runs tensor parallel on the blocks, and its collectives carry
+  the gradient (``parallel.collectives.copy_to``/``reduce_from``/
+  ``gather_from``): the gradient of a tensor-placed leaf is its block of
+  the one-card gradient, and stays local.
+- FSDP: a leaf placed on any other axis (``parallel.fsdp_specs``'s
+  ``fsdp``) is all-gathered for the step's forward, and its gradient
+  reduce-scattered back to the block (a sum over that axis where the batch
+  is split over it, this rank's block of the gradient where it is not).
+  The gathered leaves live for one microbatch's forward and backward: the
+  gathered tree is dropped once the loss is computed, so the backward
+  frees each gathered leaf when its last use has taken its gradient.
+- Data parallelism: every rank gets the global batch (the JAX trainer's
+  ``P("data")`` input), cuts it into the ``grad_accum`` microbatches as the
+  JAX step does and takes its block of each microbatch's dim 0 by
+  ``batch_spec``. The gradients are summed over the batch axes that their
+  own gathers did not already sum over, in one all-reduce per dtype and
+  set of axes (the leaves flattened into one buffer, as DDP's buckets are),
+  so the ranks of a batch axis apply the same update and stay replicated.
+- The loss and the gradient norm are the global batch's, as the JAX
+  trainer reports them. A ``loss_fn`` that returns a pair ``(total,
+  count)`` (:func:`cross_entropy_terms`) is divided by the count summed over
+  the batch axes: a masked loss whose token counts differ across ranks is
+  the mean over the global batch's tokens, as in JAX. A scalar ``loss_fn``
+  counts as a mean over equal-weight blocks, so the ranks are averaged.
+- The norm (reported, and clipped to) is the one-card norm: each leaf's
+  sum of squares summed over the axes its blocks are placed on, so a
+  replicated leaf counts once and every rank clips by the same factor.
 """
 
 from __future__ import annotations
@@ -45,7 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.mesh import DATA, P, axis_sizes, shard_tensor
+from ..parallel.mesh import DATA, TENSOR, P, axis_sizes, enter_mesh, shard_pytree, shard_tensor, spec_leaves, specs_for
 from ..utils import tree
 from ..utils.tracking import RunLogger
 
@@ -83,11 +109,48 @@ def cross_entropy_terms(logits, targets, mask=None):
     return -(ll * mask).sum(), mask.sum()
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, placement=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, as
-    ``optax.global_norm`` (each leaf's sum in its own dtype)."""
-    sq = [(g * g).sum() for g in tree.leaves(grads)]
-    return torch.sqrt(sum(sq[1:], sq[0]))
+    ``optax.global_norm`` (each leaf's sum in its own dtype). With a
+    ``placement`` (a list of ``P``, one a leaf) over ``mesh``, the leaves are
+    blocks and the norm is the whole tree's: each leaf's sum (in f32) is
+    summed over the axes its placement names, one all-reduce per set of
+    axes, so a replicated leaf counts once."""
+    leaves = tree.leaves(grads)
+    if placement is None or mesh is None:
+        sq = [(g * g).sum() for g in leaves]
+        return torch.sqrt(sum(sq[1:], sq[0]))
+    from ..parallel import collectives
+
+    by_axes: dict = {}
+    for g, spec in zip(leaves, placement):
+        by_axes.setdefault(_spec_axes(spec), []).append((g.float() * g.float()).sum())
+    total = None
+    for axes, sums in by_axes.items():
+        part = torch.stack(sums).sum()
+        if axes:
+            part = collectives.psum(part, axes, mesh)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def _single_axis(entry) -> str:
+    """A placement entry's one axis; a dimension split over several axes at
+    once is not gathered here."""
+    names = entry if isinstance(entry, tuple) else (entry,)
+    if len(names) != 1:
+        raise NotImplementedError(f"a dimension placed over several axes at once ({names}) is not gathered")
+    return names[0]
+
+
+def _spec_axes(spec) -> tuple:
+    """The axis names a placement names, in its order."""
+    out = []
+    for entry in spec:
+        for a in entry if isinstance(entry, tuple) else (entry,):
+            if a is not None and a not in out:
+                out.append(a)
+    return tuple(out)
 
 
 class AdamW:
@@ -109,17 +172,20 @@ class AdamW:
     def init(self, params) -> dict:
         return {"count": 0, "mu": tree.map(torch.zeros_like, params), "nu": tree.map(torch.zeros_like, params)}
 
-    def update(self, grads, state: dict, params):
+    def update(self, grads, state: dict, params, *, norm=None):
         """Returns (updates, new_state); ``apply_updates`` adds the updates.
         Constants are rounded to each leaf's dtype before they multiply it,
         as JAX's weakly typed scalars are (a bf16 leaf is scaled by
-        bf16(0.1), not by 0.1 in f32)."""
+        bf16(0.1), not by 0.1 in f32). ``norm`` is the gradients' global norm
+        when the caller has it (the whole tree's, where ``grads`` are a
+        rank's blocks: :func:`global_norm` with a placement); else it is
+        computed from ``grads``."""
 
         def c(value: float, like):
             return torch.tensor(value, dtype=like.dtype)
 
         with torch.no_grad():
-            norm = global_norm(grads)
+            norm = global_norm(grads) if norm is None else norm
             keep = norm < self.grad_clip  # on the device: no host sync
             grads = tree.map(lambda g: torch.where(keep, g, g / norm.to(g.dtype) * c(self.grad_clip, g)), grads)
             b1, b2 = self.b1, self.b2
@@ -182,12 +248,12 @@ def _per_count(total, count, grads):
 
 
 class Trainer:
-    """Training loop around a pure loss function, on one device or data
-    parallel over a mesh's ``data`` axis (module docstring).
+    """Training loop around a pure loss function, on one device or over a
+    mesh: data parallel, tensor parallel, FSDP (module docstring).
 
     ``loss_fn(params, batch) -> scalar`` defines the model; accumulation,
-    the gradient average and the optimizer live here. ``train_step``
-    returns a new state.
+    the placements, the gradient sync and the optimizer live here.
+    ``train_step`` returns a new state.
     """
 
     def __init__(
@@ -196,18 +262,21 @@ class Trainer:
         optimizer: AdamW,
         *,
         mesh=None,
-        param_specs=None,
-        batch_axis: str = DATA,
+        param_specs=None,  # a placement tree (P leaves): tensor parallel, FSDP
+        batch_spec: P = P(DATA),
         grad_accum: int = 1,
         remat: bool = False,
     ):
-        if param_specs is not None:
-            raise NotImplementedError(
-                "param_specs (tensor-parallel or FSDP training) is not ported; data parallelism is (mesh=): "
-                "ROADMAP A10b"
-            )
-        if mesh is not None and batch_axis not in axis_sizes(mesh):
-            raise ValueError(f"the mesh has no {batch_axis!r} axis to split the batch over: {axis_sizes(mesh)}")
+        batch_spec = P(*batch_spec)
+        if mesh is not None:
+            have = axis_sizes(mesh)
+            for a in _spec_axes(batch_spec):
+                if a not in have:
+                    raise ValueError(f"the mesh has no {a!r} axis to split the batch over: {have}")
+            if param_specs is not None:
+                for a in sorted({a for spec in spec_leaves(param_specs) for a in _spec_axes(spec)}):
+                    if a not in have:
+                        raise ValueError(f"param_specs place leaves over {a!r}, an axis the mesh lacks: {have}")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1; got {grad_accum}")
         self.loss_fn = loss_fn
@@ -215,55 +284,143 @@ class Trainer:
         self.grad_accum = grad_accum
         self.remat = remat
         self.mesh = mesh
-        self.batch_axis = batch_axis
+        # as in JAX, placements without a mesh place nothing
+        self.param_specs = param_specs if mesh is not None else None
+        self.batch_spec = batch_spec
+        self.batch_axes = _spec_axes(batch_spec)
+        # the step enters the mesh (the forward's tensor parallelism) only
+        # where leaves are placed on its tensor axis: whole leaves under a
+        # mesh with one run the one-card forward, as they do in JAX
+        self._tensor_placed = self.param_specs is not None and any(
+            TENSOR in _spec_axes(s) for s in spec_leaves(self.param_specs))
 
     def init_state(self, params) -> TrainState:
+        """The state of ``params`` (the whole tree, on every rank): this
+        rank's blocks under ``param_specs``, the moments made from them."""
+        params = self.shard_params(params)
         return TrainState(params=params, opt_state=self.optimizer.init(params), step=0)
+
+    def shard_params(self, params):
+        """This rank's block of every leaf of the whole tree ``params``."""
+        if self.param_specs is None:
+            return params
+        return shard_pytree(params, self.mesh, specs_for(params, self.param_specs))
+
+    def placement(self, params) -> list | None:
+        """One ``P`` a leaf of ``params`` (or of any tree of its structure:
+        gradients, moments), in leaf order; None without placements."""
+        if self.param_specs is None:
+            return None
+        return spec_leaves(specs_for(params, self.param_specs))
+
+    def gather_tree(self, blocks, like=None):
+        """Every placed leaf of ``blocks`` (parameters, gradients or moments:
+        this rank's blocks, in the structure of ``like``, by default
+        ``blocks``) all-gathered into the whole leaf, on every rank."""
+        placement = self.placement(blocks if like is None else like)
+        if placement is None:
+            return blocks
+        from ..parallel import collectives
+
+        def whole(x, spec):
+            for d, entry in enumerate(spec):
+                if entry is not None:
+                    x = collectives.all_gather(x, _single_axis(entry), gather_dim=d, mesh=self.mesh)
+            return x
+
+        with torch.no_grad():
+            return tree.unflatten(blocks, [whole(x, s) for x, s in zip(tree.leaves(blocks), placement)])
+
+    def _gather_on_use(self, p, spec):
+        """A leaf's block gathered over every axis of its placement but
+        ``tensor`` (the FSDP gather on use), with the gradient rule of
+        ``collectives.gather_from``: reduce-scattered where the batch is
+        split over the axis."""
+        from ..parallel import collectives
+
+        for d, entry in enumerate(spec):
+            a = None if entry is None else _single_axis(entry)
+            if a is not None and a != TENSOR:
+                p = collectives.gather_from(p, a, gather_dim=d, mesh=self.mesh, sum_grad=a in self.batch_axes)
+        return p
 
     def _value_and_grad(self, params, batch):
         """``(loss, gradients)`` of ``batch`` on this rank alone (a pair's
         total divided by its count)."""
         return _per_count(*self._terms_and_grad(params, batch))
 
+    def _loss(self, p_tree, batch):
+        """``loss_fn`` inside the mesh where leaves are tensor-placed (also
+        when the backward recomputes it under ``remat``, on whichever thread
+        autograd runs it)."""
+        if not self._tensor_placed:
+            return self.loss_fn(p_tree, batch)
+        with enter_mesh(self.mesh):
+            return self.loss_fn(p_tree, batch)
+
     def _terms_and_grad(self, params, batch):
         """``(total, count, gradients of total)``; ``count`` is None for a
-        scalar ``loss_fn``."""
+        scalar ``loss_fn``. Under placements the gradients are this rank's
+        blocks, summed over the gather axes the batch is split over."""
         flat = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
-        p_tree = tree.unflatten(params, flat)
+        placement = self.placement(params)
+        used = flat if placement is None else [self._gather_on_use(p, s) for p, s in zip(flat, placement)]
+        p_tree = tree.unflatten(params, used)
+        del used
         if self.remat:
-            out = checkpoint(self.loss_fn, p_tree, batch, use_reentrant=False)
+            out = checkpoint(self._loss, p_tree, batch, use_reentrant=False)
         else:
-            out = self.loss_fn(p_tree, batch)
+            out = self._loss(p_tree, batch)
+        del p_tree  # the gathered leaves now live only as long as the backward needs them
         total, count = out if isinstance(out, tuple) else (out, None)
         grads = torch.autograd.grad(total, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
         return total.detach(), count, tree.unflatten(params, grads)
 
     def shard_batch(self, batch):
-        """This rank's block of the global batch (dim 0 of every leaf split
-        over the data axis); the batch itself without a mesh."""
+        """This rank's block of the global batch (every leaf split by
+        ``batch_spec``); the batch itself without a mesh."""
         if self.mesh is None:
             return batch
-        return tree.map(lambda x: shard_tensor(x, P(self.batch_axis), self.mesh), batch)
+        return tree.map(lambda x: shard_tensor(x, self.batch_spec, self.mesh), batch)
 
     def _micro_loss_and_grads(self, params, micro):
         """One microbatch of the global batch: its loss and this rank's
-        share of its gradients (summed over the data axis, they are the
+        share of its gradients (summed over the batch axes, they are the
         microbatch's gradients)."""
         total, count, grads = self._terms_and_grad(params, self.shard_batch(micro))
-        if self.mesh is not None:
+        if self.mesh is not None and self.batch_axes:
             from ..parallel import collectives
 
             if count is None:  # a scalar loss: each rank's block weighs one
                 count = torch.ones((), device=total.device)
-            both = collectives.psum(torch.stack([total.float(), count.float()]), self.batch_axis, self.mesh)
+            both = collectives.psum(torch.stack([total.float(), count.float()]), self.batch_axes, self.mesh)
             total, count = both[0], both[1]
         return _per_count(total, count, grads)
 
+    def _sync(self, grads, placement):
+        """Each leaf's gradient summed over the batch axes its gathers did
+        not sum over already: one ``psum_tree`` per set of axes."""
+        from ..parallel import collectives
+
+        leaves = tree.leaves(grads)
+        specs = placement or [P()] * len(leaves)
+        groups: dict = {}
+        for i, spec in enumerate(specs):
+            gathered = {a for a in _spec_axes(spec) if a != TENSOR}
+            groups.setdefault(tuple(a for a in self.batch_axes if a not in gathered), []).append(i)
+        out = list(leaves)
+        for axes, idx in groups.items():
+            if axes:
+                for i, g in zip(idx, collectives.psum_tree([leaves[i] for i in idx], axes, self.mesh)):
+                    out[i] = g
+        return tree.unflatten(grads, out)
+
     def loss_and_grads(self, params, batch):
         """The loss and the trainable gradients of the global ``batch``
-        (under a mesh, summed over the data axis, so every rank holds the
-        same), averaged over the ``grad_accum`` microbatches."""
+        (under a mesh, summed over the batch axes, so every rank of them
+        holds the same; under placements, this rank's blocks), averaged over
+        the ``grad_accum`` microbatches."""
         n = self.grad_accum
         loss, grads = None, None
         for i in range(n):
@@ -275,9 +432,7 @@ class Trainer:
                 loss = loss + micro_loss
                 grads = tree.map(torch.add, grads, micro_grads)
         if self.mesh is not None:
-            from ..parallel import collectives
-
-            grads = collectives.psum_tree(grads, self.batch_axis, self.mesh)
+            grads = self._sync(grads, self.placement(params))
         if n > 1:
             loss = loss / n
             grads = tree.map(lambda g: g / n, grads)
@@ -289,8 +444,8 @@ class Trainer:
         takes its block of each microbatch). Returns (new_state, {"loss",
         "grad_norm"})."""
         loss, grads = self.loss_and_grads(state.params, batch)
-        grad_norm = global_norm(grads)
-        updates, opt_state = self.optimizer.update(grads, state.opt_state, state.params)
+        grad_norm = global_norm(grads, self.placement(state.params), self.mesh)
+        updates, opt_state = self.optimizer.update(grads, state.opt_state, state.params, norm=grad_norm)
         params = apply_updates(state.params, updates)
         new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
         return new_state, {"loss": loss, "grad_norm": grad_norm}

@@ -21,7 +21,8 @@ are held within 1e-5 of their largest value where every token counts. On
 padded rows they are not: there the JAX trainer's own mesh and
 one-device runs differ by 1.2e-5 on one element of ``wv_a`` (2.2e-6 of
 gradient noise divided by a second moment near zero), so that tolerance
-would hold float noise, not the port. ``param_specs`` raises.
+would hold float noise, not the port. A mesh without the batch axis
+raises.
 """
 
 import dataclasses
@@ -146,11 +147,16 @@ def test_data_parallel_equals_the_one_rank_trainer(run):
 
 
 def test_param_specs_and_a_mesh_without_the_batch_axis_raise():
+    """A mesh without the batch spec's axis raises, and so do placements
+    over an axis the mesh lacks (``param_specs`` itself trains:
+    ``tests/test_torch_tp_training.py``, ``tests/test_torch_fsdp.py``)."""
     import types
 
+    from modal_examples_tpu_torch.parallel.mesh import P
     from modal_examples_tpu_torch.training import Trainer, make_optimizer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        Trainer(lambda p, b: 0.0, make_optimizer(), param_specs={})
+    tensor_only = types.SimpleNamespace(mesh_dim_names=("tensor",), shape=(2,))
+    with pytest.raises(ValueError, match="lacks"):
+        Trainer(lambda p, b: 0.0, make_optimizer(), mesh=tensor_only, batch_spec=P(), param_specs={"w": P("fsdp")})
     with pytest.raises(ValueError, match="no 'data' axis"):
-        Trainer(lambda p, b: 0.0, make_optimizer(), mesh=types.SimpleNamespace(mesh_dim_names=("tensor",), shape=(2,)))
+        Trainer(lambda p, b: 0.0, make_optimizer(), mesh=tensor_only)

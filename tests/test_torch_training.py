@@ -20,6 +20,7 @@ bias correction's power taken in f64 here and in f32 there).
 
 import dataclasses
 import json
+import types
 
 import numpy as np
 import optax
@@ -261,13 +262,36 @@ def test_cross_entropy_matches_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        Trainer(lambda p, b: 0.0, make_optimizer(), param_specs={})
     cfg = tllama.LlamaConfig.tiny()
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    mesh = types.SimpleNamespace(mesh_dim_names=("tensor",), shape=(2,))
     # input_embeds is ported (the multimodal prefix); under a mesh it waits for A10b
     with pytest.raises(NotImplementedError, match="A10b"):
-        tllama.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg, input_embeds=torch.zeros((1, 2, cfg.dim)),
-                       mesh=object())
+        tllama.forward({}, tokens, cfg, input_embeds=torch.zeros((1, 2, cfg.dim)), mesh=mesh)
+    # LoRA adapters over a tensor-parallel base wait for A10c
+    with pytest.raises(NotImplementedError, match="A10c"):
+        tllama.forward({}, tokens, cfg, lora={"layers": {}}, mesh=mesh)
+
+
+def test_param_specs_without_a_mesh_place_nothing():
+    """As in the JAX trainer, placements need a mesh: without one the state
+    holds the whole leaves and the step is the one-card step (the placed
+    training is ``tests/test_torch_tp_training.py`` and
+    ``tests/test_torch_fsdp.py``)."""
+    cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), dtype="float32")
+    params = tllama.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(0))
+
+    def loss_fn(p, b):
+        return cross_entropy_loss(tllama.forward(p, b["tokens"], cfg, attn_impl="xla")[:, :-1], b["tokens"][:, 1:])
+
+    placed = Trainer(loss_fn, make_optimizer(1e-3), param_specs=tllama.partition_specs(cfg))
+    plain = Trainer(loss_fn, make_optimizer(1e-3))
+    state = placed.init_state(params)
+    assert state.params is params and placed.placement(params) is None
+    got = placed.train_step(state, {"tokens": tokens})[1]
+    want = plain.train_step(plain.init_state(params), {"tokens": tokens})[1]
+    assert float(got["loss"]) == float(want["loss"]) and float(got["grad_norm"]) == float(want["grad_norm"])
 
 
 class _Volume:

@@ -1,8 +1,9 @@
 """What the port's parallel tests run inside their rank processes.
 
 The ``tests/test_torch_{parallel,sharded,tensor_parallel,ring_attention,
-dp_training,clustered}.py`` modules each start two rank processes once
-(:func:`gang_fixture`: ``parallel.cluster.RankGang`` over gloo on the CPU,
+dp_training,clustered}.py`` modules each start two rank processes once, and
+``tests/test_torch_{tp_training,fsdp}.py`` one gang of each size in turn
+(:func:`gang_fixture`, :func:`open_gang`: ``parallel.cluster.RankGang`` over gloo on the CPU,
 rendezvous through a ``file://`` store under the module's temporary
 directory, never a fixed port) and run their cases in them. A case is a
 module-level function ``case(rank, *args)`` of this module (the ranks import
@@ -13,6 +14,8 @@ package computed in the test process.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,16 +24,24 @@ import torch
 RANK_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
+@contextlib.contextmanager
+def open_gang(world: int, tmp_path_factory):
+    """``world`` CPU ranks over gloo, rendezvous under a fresh temporary
+    directory, for the block."""
+    from modal_examples_tpu_torch.parallel.cluster import RankGang
+
+    store = tmp_path_factory.mktemp("rendezvous") / "store"
+    with RankGang(world, backend="gloo", device="cpu", init_method=f"file://{store}", env=RANK_ENV) as g:
+        yield g
+
+
 def gang_fixture(world: int = 2):
     """A module-scoped fixture: ``world`` CPU ranks over gloo for the
     module's cases."""
 
     @pytest.fixture(scope="module")
     def gang(tmp_path_factory):
-        from modal_examples_tpu_torch.parallel.cluster import RankGang
-
-        store = tmp_path_factory.mktemp("rendezvous") / "store"
-        with RankGang(world, backend="gloo", device="cpu", init_method=f"file://{store}", env=RANK_ENV) as g:
+        with open_gang(world, tmp_path_factory) as g:
             yield g
 
     return gang
@@ -487,6 +498,134 @@ def dp_train(rank: int, np_base, cfg_kw: dict, np_lora: dict, lora_kw: dict, bat
                      "grads": {k: _np(v) for k, v in grads["layers"].items()},
                      "adapters": {k: _np(v) for k, v in state.params["layers"].items()}}
     return out
+
+
+# -- tensor-parallel and FSDP training ---------------------------------------------------
+
+
+def named_leaves(params) -> dict:
+    """A llama tree's leaves by name (``embed``, ``final_norm``,
+    ``layers.<i>.<key>``), as numpy (a placement tree's ``P`` leaves as
+    they are)."""
+    out = {k: _np(v) for k, v in params.items() if k != "layers"}
+    for i, layer in enumerate(params["layers"]):
+        out.update({f"layers.{i}.{k}": _np(v) for k, v in layer.items()})
+    return out
+
+
+def _bytes(tree_) -> int:
+    from modal_examples_tpu_torch.utils import tree
+
+    return sum(x.numel() * x.element_size() for x in tree.leaves(tree_) if torch.is_tensor(x))
+
+
+#: parallel_train's options and their defaults
+TRAIN_OPTS = {"attn_impl": "xla", "moe_impl": "nodrop", "aux_weight": 0.0, "grad_clip": 1.0, "batch_spec": ("data",),
+              "remat": False, "one_rank": True}
+
+
+def parallel_train(rank: int, np_params, cfg_kw: dict, axes: dict, kind: str, batch: dict, lr: float, steps: int,
+                   opts: dict | None = None):
+    """``Trainer(param_specs=)`` on a mesh of the gang (``kind`` "tp":
+    ``llama.partition_specs``; "fsdp": ``fsdp_specs`` of the tree) and, with
+    ``one_rank``, the one-rank trainer over the whole batch on every rank:
+    the first step's gradients (gathered whole), each step's loss and grad
+    norm, the first moments after the first step (gathered), the at-rest bytes of parameters and moments, the local shapes of
+    both, each leaf's placement, the replicated leaves' gradients as this
+    rank holds them (before any gather), and the parameters after the steps
+    (gathered). ``opts`` overrides :data:`TRAIN_OPTS`."""
+    from modal_examples_tpu_torch.models import llama
+    from modal_examples_tpu_torch.parallel.mesh import P, fsdp_specs, specs_for
+    from modal_examples_tpu_torch.training import Trainer, cross_entropy_loss, make_optimizer
+
+    o = {**TRAIN_OPTS, **(opts or {})}
+    attn_impl, moe_impl, aux_weight = o["attn_impl"], o["moe_impl"], o["aux_weight"]
+    mesh = _mesh(axes)
+    cfg, full = _tiny(np_params, cfg_kw)
+    capacity = moe_impl == "capacity"
+
+    def loss_fn(p, b):  # the reference's loss: llama.forward given no mesh
+        out = llama.forward(p, b["tokens"], cfg, attn_impl=attn_impl, moe_impl=moe_impl, return_aux=capacity)
+        logits, aux = out if capacity else (out, 0.0)
+        return cross_entropy_loss(logits[:, :-1], b["tokens"][:, 1:]) + aux_weight * aux
+
+    specs = llama.partition_specs(cfg) if kind == "tp" else fsdp_specs(full, mesh)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    runs = [("mesh", mesh, specs)] + ([("one", None, None)] if o["one_rank"] else [])
+    for name, m, sp in runs:
+        t = Trainer(loss_fn, make_optimizer(lr, grad_clip=o["grad_clip"]), mesh=m, param_specs=sp,
+                    batch_spec=P(*o["batch_spec"]), remat=o["remat"])
+        state = t.init_state(full)
+        placed = named_leaves(specs_for(full, sp)) if sp is not None else {}
+        _, grads = t.loss_and_grads(state.params, tb)
+        local = named_leaves(grads)
+        losses, norms = [], []
+        for i in range(steps):
+            state, metrics = t.train_step(state, tb)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            if i == 0:
+                mu_1 = named_leaves(t.gather_tree(state.opt_state["mu"], like=state.params))
+        out[name] = {
+            "mu_1": mu_1,
+            "grads": named_leaves(t.gather_tree(grads, like=state.params)),
+            "replicated_grads": {k: g for k, g in local.items() if not any(placed.get(k, ()))},
+            "loss": losses, "grad_norm": norms,
+            "bytes": _bytes(state.params) + _bytes(state.opt_state["mu"]) + _bytes(state.opt_state["nu"]),
+            "shapes": {k: v.shape for k, v in named_leaves(state.params).items()},
+            "moment_shapes": {k: v.shape for k, v in named_leaves(state.opt_state["mu"]).items()},
+            "placement": {k: tuple(s) for k, s in placed.items()},
+            "params": named_leaves(t.gather_tree(state.params)),
+        }
+    return out
+
+
+def tp_train_on_card(rank: int, cfg_kw: dict, batch_shape: tuple, steps: int) -> dict:
+    """``Trainer(param_specs=partition_specs)`` at TP=2 on the card (bf16,
+    the flash kernels): the K1, K5 and K6 launches each step and the q
+    shapes they were launched at, the losses."""
+    from modal_examples_tpu_torch.models import llama
+    from modal_examples_tpu_torch.ops import flash_attention as fa
+    from modal_examples_tpu_torch.parallel.mesh import P
+    from modal_examples_tpu_torch.training import Trainer, cross_entropy_loss, make_optimizer
+
+    mesh = _mesh({"tensor": 2})
+    cfg = llama.LlamaConfig(**cfg_kw)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, batch_shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+
+    def loss_fn(p, b):
+        logits = llama.forward(p, b["tokens"], cfg, attn_impl="flash")
+        return cross_entropy_loss(logits[:, :-1], b["tokens"][:, 1:])
+
+    shapes = set()
+    kernels = {name: getattr(fa, name) for name in ("flash_forward_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda")}
+
+    def recording(name):
+        def launch(q, k, *args, **kw):
+            shapes.add((name, tuple(q.shape), tuple(k.shape)))
+            return kernels[name](q, k, *args, **kw)
+        return launch
+
+    t = Trainer(loss_fn, make_optimizer(1e-3), mesh=mesh, param_specs=llama.partition_specs(cfg), batch_spec=P())
+    state = t.init_state(params)
+    del params
+    per_step, losses = [], []
+    for name in kernels:
+        setattr(fa, name, recording(name))
+    try:
+        for _ in range(steps):
+            before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+            state, m = t.train_step(state, {"tokens": tokens})
+            torch.cuda.synchronize()
+            per_step.append([a - b for a, b in zip((fa.launches, fa.dq_launches, fa.dkv_launches), before)])
+            losses.append(float(m["loss"]))
+    finally:
+        for name, fn in kernels.items():
+            setattr(fa, name, fn)
+    return {"per_step": per_step, "shapes": sorted(shapes), "losses": losses}
 
 
 # -- expert parallelism -------------------------------------------------------------------
